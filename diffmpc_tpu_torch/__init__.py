@@ -2,8 +2,9 @@
 
 A second package beside :mod:`diffmpc_tpu` (the JAX reference, which it is
 tested against). It imports ``torch`` and never ``jax``. The fused
-box-constrained iLQR solve runs as a hand-written CUDA kernel on CUDA
-tensors and as its plain PyTorch version on CPU tensors.
+box-constrained iLQR solve and the analytic KKT backward of its gradient
+run as hand-written CUDA kernels on CUDA tensors and as their plain
+PyTorch versions on CPU tensors.
 """
 
 from .mpc import MPC, MPCInfo, MPCSolution, mpc_solve

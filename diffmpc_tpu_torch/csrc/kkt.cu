@@ -1,0 +1,49 @@
+// Fused analytic KKT backward on the card: one thread per scenario.
+//
+// Replaces the Pallas TPU kernel kkt_backward_fused
+// (diffmpc_tpu/ops/pallas/kkt.py:245, pallas_call at :318), which runs the
+// three sweeps of the backward (auxiliary Riccati, differential rollout,
+// multiplier recursions) for a tile of scenarios with the whole horizon in
+// VMEM. Here each thread runs kkt_backward_scenario (kkt.cuh) for its own
+// scenario. The value carry and the multipliers stay in registers; the
+// horizon arrays, the gains K, k and the differential trajectory p (stored
+// as dc) live in global memory, batch-minor, so a warp's loads and stores
+// coalesce. Nothing here depends on a fast-memory budget, so any T runs in
+// this kernel; a layout for long horizons is left to the port of the
+// streaming twin (kkt_stream.py).
+//
+// What bounds it on an H100: per scenario and step it moves about 120
+// floats (~0.5 KB: C, F, tau, r read more than once, dC, dF, dc, df
+// written) for a few hundred flops, so at large B it is bound by memory
+// bandwidth, and at small B (B = 1024 is 8 blocks of 128 threads on 132
+// SMs) by the latency of one scenario's 3 T dependent steps.
+//
+// Built by diffmpc_tpu_torch/csrc/build.py with nvcc for sm_90a, without
+// --use_fast_math, and bound through the plain-C launcher below with ctypes.
+
+#include <cuda_runtime.h>
+
+#include "kkt.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+template <int N, int M>
+__global__ void __launch_bounds__(kThreads) kkt_kernel(KktArgs a) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= a.B) return;
+  kkt_backward_scenario<N, M>(a, b);
+}
+
+}  // namespace
+
+// Launch the backward for n = 3, m = 1 (the pendulum) on `stream`; returns
+// cudaGetLastError(). Other (n, m) get their instantiation with their env.
+extern "C" int diffmpc_kkt_backward_n3m1(const KktArgs* args, void* stream) {
+  const int blocks = (args->B + kThreads - 1) / kThreads;
+  if (blocks > 0) {
+    kkt_kernel<3, 1><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

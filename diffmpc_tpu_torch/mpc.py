@@ -7,11 +7,12 @@ CUDA tensors, its plain PyTorch version on CPU tensors). Every configuration
 that would leave the fused path raises ``NotImplementedError`` naming the
 ROADMAP item that ports it.
 
-The gradient: the JAX package attaches gradients through
-``lqr_fixed_point``, which is the identity in a forward-only call. So with
-``backprop=True`` and no input requiring grad, the solve returns the
-kernel's trajectory; an input that requires grad raises until the KKT
-backward is ported.
+The gradient: with ``backprop=True``, grad mode on and any of ``x_init``,
+the cost's ``C``/``c`` or the env's ``params`` requiring grad, the solved
+trajectory is attached to the inputs through
+:func:`diffmpc_tpu_torch.ops.lqr_step.lqr_fixed_point`, whose backward is
+the KKT kernel (the plain version on CPU tensors). Otherwise the solve
+returns the kernel's trajectory as it is, and the attach costs nothing.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ from typing import Callable, NamedTuple, Optional, Union
 import torch
 
 from .ops.cuda.ilqr import ilqr_solve_fused
+from .ops.linearize import linearize_dynamics
 from .ops.lqr import trajectory_cost
+from .ops.lqr_step import LqrSpec, lqr_fixed_point
 from .types import GradMethods, MPCConfig, QuadCost
 
 CostLike = Union[QuadCost, Callable]
@@ -194,13 +197,11 @@ def mpc_solve(
         raise _unported(f"n_ctrl = {m}", "the m = 2 box QP")
     if not _would_use_fused(config, dx, is_quad=is_quad, constrained=True):
         raise _unported(f"dynamics {type(dx).__name__} (not kernel-fusable)", "the rest of the dynamics zoo")
-    if config.backprop and _requires_grad(
-        x_init, cost.C, cost.c, getattr(dx, "params", None)
-    ):
-        raise NotImplementedError(
-            "an input requires grad under backprop=True: the KKT backward "
-            "(lqr_fixed_point with kkt_backward_fused) is ported in the next PR"
-        )
+    attach = (
+        config.backprop
+        and torch.is_grad_enabled()
+        and _requires_grad(x_init, cost.C, cost.c, getattr(dx, "params", None))
+    )
 
     cost = _expand_cost(cost, T, B, dtype, device)
     u0 = None
@@ -228,8 +229,22 @@ def mpc_solve(
         not_improved_lim=config.not_improved_lim,
         use_cuda=config.use_cuda,
     )
-    # the fixed-point attach is the identity in a forward-only call
     xs, us = fr.xs, fr.us
+    if attach:
+        # the differentiable fixed-point attach (mpc.py:639-671 of the JAX
+        # package): linearize once more at the solved trajectory with
+        # gradients flowing from the env's params, then the custom backward
+        F, f = linearize_dynamics(dx, xs, us, config.grad_method)
+        spec = LqrSpec(
+            n_state=n, constrained=True, tight_eps=config.tight_eps,
+            back_eps=config.back_eps, use_cuda=config.use_cuda,
+        )
+        best_x, best_u = xs, us
+        xs, us = lqr_fixed_point(spec, x_init, cost.C, cost.c, F, f, best_x, best_u, lo, hi)
+        if config.detach_unconverged:
+            keep = fr.converged[None, :, None]
+            xs = torch.where(keep, xs, best_x)
+            us = torch.where(keep, us, best_u)
     tol = config.tight_eps
     at_bound = (us <= lo + tol) | (us >= hi - tol)
     info = MPCInfo(

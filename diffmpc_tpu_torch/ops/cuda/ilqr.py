@@ -410,6 +410,25 @@ def run_staged(
     )
 
 
+def run_staged_f32(launch, x_init, C, c, dyn, u_lower, u_upper, *, u_init=None, **knobs):
+    """:func:`run_staged` for inputs of any float dtype: they are cast to
+    float32 for the kernel, and ``xs, us, objs, last_improvement, alpha,
+    qp_iters`` are cast back to ``x_init.dtype``, as the JAX wrapper does
+    (``ilqr.py:520``, ``:603-610``)."""
+    dtype = x_init.dtype
+    f32 = torch.float32
+    if isinstance(dyn, PendulumDx):
+        dyn = dyn.replace(params=dyn.params.to(f32))
+    out = run_staged(
+        launch, x_init.to(f32), C.to(f32), c.to(f32), dyn, u_lower.to(f32), u_upper.to(f32),
+        u_init=None if u_init is None else u_init.to(f32), **knobs,
+    )
+    return out._replace(**{
+        f: getattr(out, f).to(dtype)
+        for f in ("xs", "us", "objs", "last_improvement", "alpha", "qp_iters")
+    })
+
+
 def _cuda_launcher(device: torch.device):
     from ...csrc import build
 
@@ -467,8 +486,9 @@ def ilqr_solve_fused(
     ``ilqr_solve_fused``. ``u_init (T,B,m)`` warm-starts the initial rollout;
     None starts from zero controls.
 
-    CUDA tensors launch the kernel (float32 only; anything else raises) and
-    add one to ``ilqr_solve_fused.launches``; CPU tensors run
+    CUDA tensors launch the kernel, which computes in float32 whatever the
+    inputs' float dtype (the outputs come back in ``x_init.dtype``), and add
+    one to ``ilqr_solve_fused.launches``; CPU tensors run
     :func:`ilqr_solve_plain`. See :func:`resolve_use_cuda`."""
     knobs = dict(
         u_init=u_init, lqr_iter=lqr_iter, reg=reg, decay=decay,
@@ -480,7 +500,7 @@ def ilqr_solve_fused(
             x_init, C, c, dyn, u_lower, u_upper, pnqp_iter=pnqp_iter, **knobs
         )
     with torch.cuda.device(x_init.device):
-        return run_staged(
+        return run_staged_f32(
             _cuda_launcher(x_init.device), x_init, C, c, dyn, u_lower, u_upper, **knobs
         )
 

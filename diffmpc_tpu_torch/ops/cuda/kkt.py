@@ -1,0 +1,273 @@
+"""The fused analytic KKT backward: CUDA kernel wrapper and plain version.
+
+Counterpart of :func:`diffmpc_tpu.ops.pallas.kkt.kkt_backward_fused`, the
+TPU kernel that runs the whole backward of the differentiable LQR fixed
+point for a tile of scenarios: the auxiliary Riccati with tight control
+dims frozen, the differential rollout ``p`` with the cost gradients, and the
+multiplier recursions with the dynamics gradients.
+
+- :func:`kkt_backward_fused` is the public entry point. For CUDA tensors it
+  launches the kernel of ``csrc/kkt.cu`` (one thread per scenario) or
+  raises; for CPU tensors it runs :func:`kkt_backward_plain`.
+- :func:`kkt_backward_plain` is the same algorithm in plain PyTorch,
+  vectorized over the batch: each matrix entry is a ``(B,)`` tensor and
+  Python loops run over time and entries. It computes in float32, as the
+  TPU kernel does, for any ``(n, m)``.
+
+The public layout is the JAX wrapper's: ``C (T,B,nm,nm)``, ``c (T,B,nm)``,
+``F (T,B,n,nm)``, ``r (T,B,nm)`` (the incoming trajectory gradient with
+tight control dims zeroed), ``tau (T,B,nm)`` (the primal trajectory),
+``tight (T,B,m)`` bool. Every function returns
+``(dx_init (B,n), dC, dc, dF, df (T,B,n))`` in the dtype of ``C``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .ilqr import resolve_use_cuda
+from .riccati_entries import _masked_chol_solve, _value_update
+
+
+def _check_shapes(C, c, F, r, tau, tight):
+    if C.ndim != 4 or C.shape[2] != C.shape[3]:
+        raise ValueError(f"C must be (T, B, nm, nm); got {tuple(C.shape)}")
+    T, B, nm = C.shape[0], C.shape[1], C.shape[-1]
+    if tight.ndim != 3 or tight.shape[:2] != (T, B):
+        raise ValueError(f"tight must be (T={T}, B={B}, m); got {tuple(tight.shape)}")
+    m = tight.shape[-1]
+    n = nm - m
+    if n < 1 or m < 1:
+        raise ValueError(f"C's trailing dim {nm} does not split into n >= 1 and m = {m} >= 1")
+    for name, a, shape in (
+        ("c", c, (T, B, nm)), ("F", F, (T, B, n, nm)), ("r", r, (T, B, nm)),
+        ("tau", tau, (T, B, nm)),
+    ):
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(a.shape)}")
+    return T, B, n, m
+
+
+# ---------------------------------------------------------------------------
+# The plain PyTorch version.
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def kkt_backward_plain(
+    C: torch.Tensor,
+    c: torch.Tensor,
+    F: torch.Tensor,
+    r: torch.Tensor,
+    tau: torch.Tensor,
+    tight: torch.Tensor,
+    *,
+    reg: float = 1e-7,
+):
+    """The fused KKT backward in plain PyTorch, on any device and for any
+    ``(n, m)``; same contract as :func:`kkt_backward_fused`."""
+    T, B, n, m = _check_shapes(C, c, F, r, tau, tight)
+    nm = n + m
+    dtype = C.dtype
+    f32 = torch.float32
+    # entry views: Ce[t, a, b] and friends are (B,) tensors
+    Ce = C.to(f32).permute(0, 2, 3, 1)
+    ce = c.to(f32).permute(0, 2, 1)
+    Fe = F.to(f32).permute(0, 2, 3, 1)
+    re = r.to(f32).permute(0, 2, 1)
+    taue = tau.to(f32).permute(0, 2, 1)
+    tighte = tight.to(f32).permute(0, 2, 1)
+    zero = torch.zeros(B, dtype=f32, device=C.device)
+
+    # ---- 1. auxiliary Riccati, tight dims frozen (linear term = r) ----
+    K_g, k_g = [None] * T, [None] * T
+    V = [[zero] * n for _ in range(n)]
+    v = [zero] * n
+    for t in reversed(range(T)):
+        Ft = [[Fe[t, a, j] for j in range(nm)] for a in range(n)]
+        W = [
+            [sum(V[k][l] * Ft[l][j] for l in range(n)) for j in range(nm)]
+            for k in range(n)
+        ]
+        Q = [[None] * nm for _ in range(nm)]
+        for a in range(nm):
+            for b in range(a, nm):
+                val = Ce[t, a, b] + sum(Ft[k][a] * W[k][b] for k in range(n))
+                Q[a][b] = val
+                Q[b][a] = val
+        q = [re[t, a] + sum(Ft[k][a] * v[k] for k in range(n)) for a in range(nm)]
+        Quu = [[Q[n + a][n + b] for b in range(m)] for a in range(m)]
+        qu = [q[n + a] for a in range(m)]
+        frozen = [tighte[t, a] for a in range(m)]
+        rhs_cols = [[Q[n + a][b] for a in range(m)] for b in range(n)] + [qu]
+        sols = _masked_chol_solve(Quu, rhs_cols, frozen, m, reg)
+        K_g[t] = [[-sols[b][a] for b in range(n)] for a in range(m)]
+        k_g[t] = [-sols[n][a] for a in range(m)]
+        V, v = _value_update(Q, q, Quu, qu, K_g[t], k_g[t], n, m)
+
+    # ---- 2. differential rollout p (f = 0, p_x0 = 0), dC and dc ----
+    p_all, dC_all = [], []
+    px = [zero] * n
+    for t in range(T):
+        pu = [k_g[t][a] + sum(K_g[t][a][j] * px[j] for j in range(n)) for a in range(m)]
+        p = px + pu
+        ta = [taue[t, a] for a in range(nm)]
+        dC = [[None] * nm for _ in range(nm)]
+        for a in range(nm):
+            for b in range(a, nm):
+                val = 0.5 * (p[a] * ta[b] + ta[a] * p[b])
+                dC[a][b] = val
+                dC[b][a] = val
+        p_all.append(p)
+        dC_all.append(dC)
+        px = [sum(Fe[t, i, j] * p[j] for j in range(nm)) for i in range(n)]
+
+    # ---- 3. multipliers lam, mu (backward), dF, df, dx_init ----
+    dF_all, df_all = [None] * T, [None] * T
+    lam, mu = [zero] * n, [zero] * n  # lam_{t+1}, mu_{t+1}
+    for t in reversed(range(T)):
+        p = p_all[t]
+        ta = [taue[t, a] for a in range(nm)]
+        dF_all[t] = [[-(mu[i] * ta[j] + lam[i] * p[j]) for j in range(nm)] for i in range(n)]
+        df_all[t] = [-mu[i] for i in range(n)]
+        lam_t = [
+            -(sum(Ce[t, a, b] * ta[b] for b in range(nm)) + ce[t, a])
+            + sum(Fe[t, k, a] * lam[k] for k in range(n))
+            for a in range(n)
+        ]
+        mu_t = [
+            -(sum(Ce[t, a, b] * p[b] for b in range(nm)) + re[t, a])
+            + sum(Fe[t, k, a] * mu[k] for k in range(n))
+            for a in range(n)
+        ]
+        lam, mu = lam_t, mu_t
+
+    def grid(rows):  # nested lists of (B,) entries -> (B, *dims)
+        if isinstance(rows, torch.Tensor):
+            return rows
+        return torch.stack([grid(x) for x in rows], 1)
+
+    dx_init = -grid(mu)
+    dC, dc, dF, df = (torch.stack([grid(x) for x in seq]) for seq in (dC_all, p_all, dF_all, df_all))
+    return tuple(x.to(dtype) for x in (dx_init, dC, dc, dF, df))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel.
+# ---------------------------------------------------------------------------
+
+
+class _KktArgs(ctypes.Structure):
+    """ctypes mirror of ``struct KktArgs`` in ``csrc/kkt.cuh``."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "C", "c", "F", "r", "tau", "tight",
+            "dx_init", "dC", "dc", "dF", "df", "K", "k",
+        )
+    ] + [("T", ctypes.c_int), ("B", ctypes.c_int), ("reg", ctypes.c_float)]
+
+
+def run_staged_kkt(launch, C, c, F, r, tau, tight, *, reg: float = 1e-7):
+    """Stage the inputs batch-minor, allocate the outputs and the scratch,
+    call ``launch(args, n, m)`` with a pointer to the ``KktArgs`` struct,
+    and return ``(dx_init, dC, dc, dF, df)`` in the public layout.
+
+    ``launch`` runs ``kkt_backward_scenario<n, m>`` for every scenario: the
+    CUDA launcher for CUDA tensors, or a host build of the same header for
+    CPU tensors (the tests do that). Float32 inputs only (``tight`` bool)."""
+    T, B, n, m = _check_shapes(C, c, F, r, tau, tight)
+    nm = n + m
+    device = C.device
+    for name, a in (("C", C), ("c", c), ("F", F), ("r", r), ("tau", tau), ("tight", tight)):
+        if a.dtype != (torch.bool if name == "tight" else torch.float32):
+            raise TypeError(f"the KKT kernel takes float32 tensors and a bool tight; {name} is {a.dtype}")
+        if a.device != device:
+            raise ValueError(f"tensors on {a.device} and {device}")
+
+    def bm(a):  # (T, B, *trail) -> (T, *trail, B), contiguous
+        return a.permute(0, *range(2, a.ndim), 1).contiguous()
+
+    ins = [bm(C), bm(c), bm(F), bm(r), bm(tau), bm(tight.to(torch.float32))]
+    f32 = dict(dtype=torch.float32, device=device)
+    dx_init = torch.empty((n, B), **f32)
+    dC = torch.empty((T, nm, nm, B), **f32)
+    dc = torch.empty((T, nm, B), **f32)
+    dF = torch.empty((T, n, nm, B), **f32)
+    df = torch.empty((T, n, B), **f32)
+    K = torch.empty((T, m, n, B), **f32)
+    k = torch.empty((T, m, B), **f32)
+    outs = [dx_init, dC, dc, dF, df, K, k]
+    args = _KktArgs(*(a.data_ptr() for a in ins + outs), T, B, reg)
+    launch(ctypes.byref(args), n, m)
+    # The staged inputs and the scratch are freed when this returns, while
+    # the kernel may still run: PyTorch's caching allocator reuses a block
+    # only in stream order, and the kernel runs on the current stream.
+    return (
+        dx_init.t(),
+        dC.permute(0, 3, 1, 2),
+        dc.permute(0, 2, 1),
+        dF.permute(0, 3, 1, 2),
+        df.permute(0, 2, 1),
+    )
+
+
+def _cuda_launcher(device: torch.device):
+    from ...csrc import build
+
+    fn = build.load().diffmpc_kkt_backward_n3m1
+    fn.argtypes = [ctypes.POINTER(_KktArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def launch(args, n, m):
+        err = fn(args, stream)
+        if err != 0:
+            raise RuntimeError(f"kkt kernel launch failed: cudaError {err}")
+        kkt_backward_fused.launches += 1
+
+    return launch
+
+
+def kkt_backward_fused(
+    C: torch.Tensor,
+    c: torch.Tensor,
+    F: torch.Tensor,
+    r: torch.Tensor,
+    tau: torch.Tensor,
+    tight: torch.Tensor,
+    *,
+    reg: float = 1e-7,
+    use_cuda: Optional[bool] = None,
+):
+    """Fused analytic KKT backward for a batch of solved problems; the
+    contract of the JAX package's ``kkt_backward_fused``. Returns
+    ``(dx_init, dC, dc, dF, df)`` in ``C.dtype``; the backward itself runs
+    in float32.
+
+    CUDA tensors launch the kernel (compiled for n = 3, m = 1; anything
+    else raises) and add one to ``kkt_backward_fused.launches``; CPU
+    tensors run :func:`kkt_backward_plain`. See
+    :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`."""
+    if not resolve_use_cuda(use_cuda, C.device):
+        return kkt_backward_plain(C, c, F, r, tau, tight, reg=reg)
+    T, B, n, m = _check_shapes(C, c, F, r, tau, tight)
+    if (n, m) != (3, 1):
+        raise NotImplementedError(
+            f"the KKT kernel is instantiated for n = 3, m = 1 (the pendulum) "
+            f"only, not n = {n}, m = {m}: each further (n, m) comes with the "
+            "env that needs it (the rest of the dynamics zoo and the m = 2 box "
+            "QP, ROADMAP.md, queue 1)"
+        )
+    dtype = C.dtype
+    f32 = [a.to(torch.float32) for a in (C, c, F, r, tau)]
+    with torch.cuda.device(C.device):
+        out = run_staged_kkt(_cuda_launcher(C.device), *f32, tight, reg=reg)
+    return tuple(x.to(dtype) for x in out)
+
+
+kkt_backward_fused.launches = 0  # kernel launches, counted where they happen

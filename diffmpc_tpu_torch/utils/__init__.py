@@ -1,3 +1,3 @@
-from .batch import bclamp, bdot, bmv, bquad, detach, eclamp
+from .batch import bclamp, bdot, bger, bmv, bquad, btrans, detach, eclamp
 
-__all__ = ["bclamp", "bdot", "bmv", "bquad", "detach", "eclamp"]
+__all__ = ["bclamp", "bdot", "bger", "bmv", "bquad", "btrans", "detach", "eclamp"]

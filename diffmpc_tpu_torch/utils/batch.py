@@ -22,6 +22,16 @@ def bdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x * y).sum(-1)
 
 
+def bger(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Batched outer product: ``(..., i), (..., j) -> (..., i, j)``."""
+    return x[..., :, None] * y[..., None, :]
+
+
+def btrans(m: torch.Tensor) -> torch.Tensor:
+    """Batched matrix transpose over the two trailing dims."""
+    return m.transpose(-1, -2)
+
+
 def bquad(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Batched quadratic form ``x' M x``: ``(..., i), (..., i, i) -> (...)``."""
     return bdot(x, bmv(m, x))

@@ -1,15 +1,18 @@
-"""The CUDA kernel's per-scenario math, built for the host, against the
-plain PyTorch version.
+"""The CUDA kernels' per-scenario math, built for the host, against the
+plain PyTorch versions.
 
-``csrc/*.cuh`` holds the kernel's math as ``__host__ __device__`` functions.
+``csrc/*.cuh`` holds the kernels' math as ``__host__ __device__`` functions.
 Here g++ builds a small host shim over those headers (no torch headers, no
-CUDA), and the port's own staging code (``run_staged``: batch-minor layout,
-the ``IlqrArgs`` struct, pointers) drives it on CPU tensors. Nothing on the
-main path uses this build: on the card, nvcc builds the same headers into
-``csrc/ilqr.cu``'s kernel.
+CUDA), and the port's own staging code (``run_staged`` / ``run_staged_kkt``:
+batch-minor layout, the ``IlqrArgs`` / ``KktArgs`` structs, pointers) drives
+it on CPU tensors. Nothing on the main path uses this build: on the card,
+nvcc builds the same headers into ``csrc/ilqr.cu``'s and ``csrc/kkt.cu``'s
+kernels.
 
-Tolerances: ``lqr_iter=1, eps=0`` within 1e-4 abs with ``n_iters`` equal;
-four iterations by the chaos rule of tests/torch_parity.py.
+Tolerances: the iLQR solve at ``lqr_iter=1, eps=0`` within 1e-4 abs with
+``n_iters`` equal, four iterations by the chaos rule of
+tests/torch_parity.py; the KKT backward (one linear pass, no chaos) within
+1e-5.
 """
 
 import ctypes
@@ -28,28 +31,50 @@ from diffmpc_tpu_torch.ops.cuda.ilqr import (  # noqa: E402
     _PendulumEnv,
     ilqr_solve_plain,
     run_staged,
+    run_staged_f32,
+)
+from diffmpc_tpu_torch.ops.cuda.kkt import (  # noqa: E402
+    _KktArgs,
+    kkt_backward_plain,
+    run_staged_kkt,
 )
 from torch_parity import (  # noqa: E402
     as_numpy,
     assert_chaos,
     assert_tight,
+    kernel_inputs,
     make_problem,
+    random_residuals,
     torch_inputs,
 )
 
 SHIM = r"""
 #include "ilqr.cuh"
+#include "kkt.cuh"
 #include "pendulum.cuh"
 
 extern "C" int diffmpc_ilqr_solve_pendulum_host(const IlqrArgs* a, const PendulumEnv* env) {
   for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<3, 1>(*a, *env, b);
   return 0;
 }
+
+template <int N, int M>
+static int kkt_all(const KktArgs* a) {
+  for (int b = 0; b < a->B; ++b) kkt_backward_scenario<N, M>(*a, b);
+  return 0;
+}
+
+extern "C" int diffmpc_kkt_backward_host(const KktArgs* a, int n, int m) {
+  if (n == 3 && m == 1) return kkt_all<3, 1>(a);
+  if (n == 3 && m == 2) return kkt_all<3, 2>(a);
+  if (n == 1 && m == 1) return kkt_all<1, 1>(a);
+  return 1;
+}
 """
 
 
 @pytest.fixture(scope="module")
-def host_launch(tmp_path_factory):
+def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: the host build of the kernel headers needs it")
@@ -61,7 +86,12 @@ def host_launch(tmp_path_factory):
         capture_output=True, text=True,
     )
     assert proc.returncode == 0, proc.stderr
-    fn = ctypes.CDLL(str(so)).diffmpc_ilqr_solve_pendulum_host
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def host_launch(host_lib):
+    fn = host_lib.diffmpc_ilqr_solve_pendulum_host
     fn.argtypes = [ctypes.POINTER(_IlqrArgs), ctypes.POINTER(_PendulumEnv)]
     fn.restype = ctypes.c_int
 
@@ -115,6 +145,58 @@ def test_host_build_early_exit_keeps_frozen_scenarios(host_launch):
     for f in ("us", "xs"):
         np.testing.assert_array_equal(alone[f][:, 0], full[f][:, 0])
     assert alone["n_iters"][0] == full["n_iters"][0]
+
+
+def test_host_build_float64_through_the_cast_helper(host_launch):
+    """The kernel route's cast helper: float64 in, float64 out. The inputs
+    hold float32 values, so the cast is exact and the result equals the
+    float32 run within 1e-6; against the plain version on the same float64
+    inputs the kernel-vs-plain bound of one iteration holds (1e-4: the two
+    compute in float32 with their own sin/cos and summation order, which
+    differ by a few 1e-6 on the states)."""
+    t, dx = torch_inputs(make_problem(seed=705, warm=True, batched_params=True))
+    t64 = {k: v.double() for k, v in t.items()}
+    dx64 = dx.replace(params=dx.params.double())
+    args = (t64["x_init"], t64["C"], t64["c"], dx64, t64["u_lower"], t64["u_upper"])
+    knobs = dict(lqr_iter=1, eps=0.0)
+    got = run_staged_f32(host_launch, *args, u_init=t64["u_init"], **knobs)
+    f32 = run_staged(
+        host_launch, t["x_init"], t["C"], t["c"], dx, t["u_lower"], t["u_upper"],
+        u_init=t["u_init"], **knobs,
+    )
+    for f in ("xs", "us", "objs", "last_improvement", "alpha", "qp_iters"):
+        g = getattr(got, f)
+        assert g.dtype == torch.float64, f
+        np.testing.assert_allclose(g.numpy(), getattr(f32, f).double().numpy(), atol=1e-6, rtol=0)
+    assert got.n_iters.dtype == torch.int32 and got.converged.dtype == torch.bool
+    plain = ilqr_solve_plain(*args, u_init=t64["u_init"], **knobs)
+    assert plain.us.dtype == torch.float64
+    assert_tight(as_numpy(got), as_numpy(plain))
+
+
+@pytest.fixture(scope="module")
+def host_kkt_launch(host_lib):
+    fn = host_lib.diffmpc_kkt_backward_host
+    fn.argtypes = [ctypes.POINTER(_KktArgs), ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    def launch(args, n, m):
+        assert fn(args, n, m) == 0, f"no host instantiation for n={n}, m={m}"
+
+    return launch
+
+
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("n,m,n_tight", [(3, 1, 12), (3, 2, 20), (1, 1, 6)])
+def test_host_build_kkt_backward_matches_plain(host_kkt_launch, n, m, n_tight, B):
+    rng = np.random.default_rng(820 + 10 * n + m + B)
+    res = random_residuals(rng, 7, B, n, m, min(n_tight, 7 * B * m // 2))
+    ins = [torch.tensor(a) for a in kernel_inputs(res)]
+    got = run_staged_kkt(host_kkt_launch, *ins, reg=1e-7)
+    want = kkt_backward_plain(*ins, reg=1e-7)
+    for name, g, w in zip(("dx_init", "dC", "dc", "dF", "df"), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=1e-5, err_msg=name)
 
 
 def test_build_keys_library_by_sources_and_reports_nvcc_errors(tmp_path, monkeypatch):

@@ -214,20 +214,59 @@ def test_configurations_off_the_fused_path_raise(case):
 
 @pytest.mark.parametrize("which", ["x_init", "C", "c", "params"])
 def test_requires_grad_raises_until_the_kkt_backward(which):
+    """Named for the time before the KKT backward was ported, when an input
+    requiring grad raised: now each of them gets a finite, non-zero
+    gradient through the fixed point (the values are held against JAX in
+    tests/test_torch_train.py)."""
     config, cost, dx = _torch_setup()
+    config = dataclasses.replace(config, lqr_iter=2)
     x = torch.tensor(_x_init())
     if which == "x_init":
-        x.requires_grad_(True)
+        leaf = x.requires_grad_(True)
     elif which == "params":
-        dx = dx.replace(params=dx.params.clone().requires_grad_(True))
+        leaf = dx.params.clone().requires_grad_(True)
+        dx = dx.replace(params=leaf)
     else:
-        cost = cost._replace(**{which: getattr(cost, which).clone().requires_grad_(True)})
-    with pytest.raises(NotImplementedError, match="KKT backward"):
-        tdm.mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
+        leaf = getattr(cost, which).clone().requires_grad_(True)
+        cost = cost._replace(**{which: leaf})
+    sol = tdm.mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
+    assert sol.us.requires_grad
+    (grad,) = torch.autograd.grad((sol.us**2).mean(), leaf)
+    assert grad.shape == leaf.shape and grad.dtype == leaf.dtype
+    assert bool(torch.isfinite(grad).all()) and bool(grad.abs().max() > 0)
     # without backprop the solve runs and returns detached trajectories
     nb = dataclasses.replace(config, backprop=False, lqr_iter=1)
     sol = tdm.mpc_solve(nb, x, cost, dx, u_lower=-2.0, u_upper=2.0)
     assert not sol.us.requires_grad
+
+
+def test_mpc_class_returns_differentiable_outputs():
+    config, cost, dx = _torch_setup()
+    config = dataclasses.replace(config, lqr_iter=2)
+    x = torch.tensor(_x_init()).requires_grad_(True)
+    ctrl = tdm.MPC(
+        3, 1, T, u_lower=-2.0, u_upper=2.0, lqr_iter=2, eps=1e-5,
+        exit_unconverged=False, detach_unconverged=False,
+    )
+    _, us, _ = ctrl(x, cost, dx)
+    (got,) = torch.autograd.grad((us**2).mean(), x)
+    sol = tdm.mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
+    (want,) = torch.autograd.grad((sol.us**2).mean(), x)
+    assert torch.equal(got, want)
+
+
+def test_gradient_needs_the_analytic_linearization():
+    """AUTO_DIFF runs forward-only as before; asked for a gradient it
+    raises, naming the ROADMAP item that ports it."""
+    config, cost, dx = _torch_setup()
+    config = dataclasses.replace(config, lqr_iter=1, grad_method=tdm.GradMethods.AUTO_DIFF)
+    x = torch.tensor(_x_init())
+    sol = tdm.mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
+    assert bool(torch.isfinite(sol.objs).all())
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        tdm.mpc_solve(config, x.requires_grad_(True), cost, dx, u_lower=-2.0, u_upper=2.0)
+    with torch.no_grad():  # grad mode off: no attach, no raise
+        tdm.mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
 
 
 def test_convert_carries_the_jax_state_over():

@@ -37,6 +37,40 @@ def make_problem(seed=700, batched_params=False, warm=False, B=B, T=T):
     return {k: None if v is None else np.ascontiguousarray(v, np.float32) for k, v in prob.items()}
 
 
+def random_residuals(rng, T, B, n, m, n_tight=0):
+    """tests/test_pallas_kkt.py's ``_random_residuals``, as numpy float32:
+    an SPD cost, random dynamics, a trajectory inside the box [-1, 1] with
+    ``n_tight`` controls parked exactly on the upper bound, and a random
+    incoming gradient."""
+    nm = n + m
+    A = rng.normal(size=(T, B, nm, nm)) * 0.3
+    C = A @ np.swapaxes(A, -1, -2) + np.eye(nm)
+    c = rng.normal(size=(T, B, nm))
+    F = rng.normal(size=(T, B, n, nm)) * 0.4
+    x_star = rng.normal(size=(T, B, n))
+    u_star = rng.uniform(-0.9, 0.9, size=(T, B, m))
+    if n_tight:
+        flat = rng.choice(T * B * m, size=n_tight, replace=False)
+        u_star.reshape(-1)[flat] = 1.0
+    gx = rng.normal(size=(T, B, n))
+    gu = rng.normal(size=(T, B, m))
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)  # noqa: E731
+    return dict(
+        C=f32(C), c=f32(c), F=f32(F), x_star=f32(x_star), u_star=f32(u_star),
+        lo=f32(np.full((T, B, m), -1.0)), hi=f32(np.full((T, B, m), 1.0)),
+        gx=f32(gx), gu=f32(gu),
+    )
+
+
+def kernel_inputs(res, eps=1e-6):
+    """The fused backward's inputs ``(C, c, F, r, tau, tight)`` as numpy,
+    built as ``_kkt_backward_impl`` builds them."""
+    tight = (res["u_star"] <= res["lo"] + eps) | (res["u_star"] >= res["hi"] - eps)
+    r = np.concatenate([res["gx"], np.where(tight, 0.0, res["gu"])], -1).astype(np.float32)
+    tau = np.concatenate([res["x_star"], res["u_star"]], -1)
+    return res["C"], res["c"], res["F"], r, tau, tight
+
+
 def torch_inputs(prob, device=None):
     t = {k: None if v is None else torch.tensor(v, device=device) for k, v in prob.items()}
     dx = PendulumDx(params=t.pop("params"))

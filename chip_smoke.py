@@ -8,7 +8,9 @@ Phases, one line of output each (JSON where it carries numbers):
 
 0. device: the card's name and power limit (nvidia-smi), or exit non-zero
    when there is no CUDA device; nothing runs on the CPU instead;
-1. build: the CUDA kernels, built with nvcc from diffmpc_tpu_torch/csrc;
+1. build: the CUDA kernels, built with nvcc from diffmpc_tpu_torch/csrc
+   (one nvcc per source, in parallel), and the same sources by one nvcc
+   command for comparison;
 2. kernel vs plain: the fused iLQR kernel against its plain PyTorch version
    on the card, at the main-path problem (pendulum, T=20, B=1024, and the
    ragged B=1000; lqr_iter=10, eps=1e-5), one iteration at eps=0, and a
@@ -30,7 +32,33 @@ Phases, one line of output each (JSON where it carries numbers):
    the loss must stay finite and end below where it started;
 8. time: solve + gradient against the forward of the same loop, in strict
    alternation, at B=1024 and B=65,536, and the KKT kernel alone against
-   its plain version.
+   its plain version;
+9. Riccati kernel vs plain: the non-fused path's Riccati sweep against its
+   plain version on the card, box mode at n=4, m=2 (B=128, the ragged 1000
+   and 65,536) and n=4, m=1, free and mask modes at n=3, m=2; ties (box
+   QPs the two sides resolve to different candidates: another free flag,
+   k or QP count) on at most 0.1% of those entries, each scenario's first
+   one a tie (both answers within 1e-5 of the QP's scale on the plain
+   version's QP), and
+   K, k within 1e-4 * max(1, max|plain|) on every scenario without one;
+10. rollout kernel vs plain: the line search on linear dynamics with and
+   without a box and on the pendulum's step, B=1024, T=20; objs within 1e-5
+   of the batch's largest |objs|, alpha equal on >= 99%, xs, us within 1e-4
+   where alpha agrees;
+11. the non-fused path: mpc_solve on LinDx at BASELINE.json config 2
+   (box-DDP n=4, m=2, T=20, B=128, box +-0.6) and config 1 (unconstrained
+   n=3, m=2, T=10, B=32), with the launch counts (Riccati and rollout once
+   per iteration, iLQR and KKT never), against the same solve on the CPU
+   (objectives within 1e-5 per scenario, controls within 1e-4 on >= 95%
+   of the scenarios and 5e-3 on all: a box-QP tie can leave a scenario
+   elsewhere on the same float32 objective) and against the problem's
+   optimum in float64 (every scenario's objective within 1e-5 of it);
+   the two goldens of tests/golden on the card; the gradient (one KKT
+   launch) against the CPU and the KKT kernel against the composite
+   backward; the pendulum with FINITE_DIFF at B=1024 against the CPU;
+12. time: config 2 at B=128, 4096 and 65,536: mpc_solve, each kernel alone,
+   each wrapper's staging, each plain version once, and the cost of the
+   loop's one read of the done mask per iteration.
 
 The line before the last holds the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -45,6 +73,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,6 +83,19 @@ T = 20
 B_MAIN, B_RAGGED, B_ENSEMBLE = 1024, 1000, 65536
 LQR_ITER, EPS = 10, 1e-5
 TRUE_PARAMS, PARAMS0 = (10.0, 1.0, 1.0), (8.0, 1.25, 0.8)
+# BASELINE.json config 2 (box-DDP) and config 1 (unconstrained LQR)
+BOX_N, BOX_M, BOX_B, BOX = 4, 2, 128, 0.6
+LQR_N, LQR_M, LQR_T, LQR_B = 3, 2, 10, 32
+# NVIDIA's H100 SXM data sheet: HBM bandwidth and dense float32 rate
+HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
+# the latency of one dependent float32 operation (an FMA) on the SMs, in clock
+# cycles; and the dependent operations of one step of the fused iLQR kernel
+# (ilqr.cuh, pendulum.cuh), counted from the source as floors (a division
+# and sin/cos count one each). Forward, x_t -> x_t+1: K (x - x_hat) 3 FMAs,
+# the box clip 2; the step's 3 u / (m l^2) 2, + g term 1, thdot + dt (.) 1,
+# speed clip 2, dt thdot 1, cos/sin 1, the rotation 2. Backward,
+# V_t+1 -> V_t: W = V F 3, Q = C + F'W 4, K (reg, divide) 2, value update 3.
+DEP_OP_CYCLES, ILQR_FWD_DEPTH, ILQR_BACK_DEPTH = 4, 15, 12
 
 
 def emit(**record) -> None:
@@ -220,14 +262,237 @@ def flagship_grads(config, B: int, device, params=None):
     return sol, dict(params=g_prm, x_init=g_x, q=g_q)
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def tri(nm: int) -> int:
+    """Entries of a symmetric nm x nm matrix's upper triangle: what the
+    kernels need of C."""
+    return nm * (nm + 1) // 2
+
+
+def riccati_bytes(B: int, n: int, m: int) -> int:
+    """Bytes the box-mode Riccati sweep must move (f None): C's upper
+    triangle, c, F and u_hat in, with the two scalar bounds; K, k (float32),
+    free (bool) and n_qp (int32) out."""
+    nm = n + m
+    return B * T * (4 * (tri(nm) + nm + n * nm + m) + 4 * (m * n + m) + m + 4) + 8
+
+
+def rollout_bytes(B: int, n: int, m: int) -> int:
+    """Bytes the linear, boxed line search must move: C's upper triangle, c,
+    F, f, K, k, x_hat, u_hat per step and x_init in, with the two scalar
+    bounds; xs, us per step and objs, alpha (float32), improved (bool) out."""
+    nm = n + m
+    per_step = 4 * (tri(nm) + nm + n * nm + n + m * n + m + n + m) + 4 * (n + m)
+    return B * (T * per_step + 4 * n + 9) + 8
+
+
+def kkt_bytes(B: int, n: int, m: int) -> int:
+    """Bytes the KKT backward must move: C's upper triangle, c, F, r, tau
+    (float32) and tight (bool) in; dC, dc, dF, df per step and dx_init out."""
+    nm = n + m
+    return B * (T * (4 * (tri(nm) + nm + n * nm + 2 * nm) + m + 4 * (nm * nm + nm + n * nm + n)) + 4 * n)
+
+
+def ilqr_chain_ms(n_iters: int, clock_mhz: float) -> float:
+    """The fused iLQR solve's serial chain for its slowest scenario: the
+    initial rollout, then per iteration the backward sweep, the ladder's
+    rollouts (independent of each other: one rollout's depth), the pick and
+    the replay, each dependent operation at DEP_OP_CYCLES."""
+    depth = T * ILQR_FWD_DEPTH + n_iters * (T * (ILQR_BACK_DEPTH + 2 * ILQR_FWD_DEPTH) + 1)
+    return depth * DEP_OP_CYCLES / (clock_mhz * 1e6) * 1e3
+
+
+def qp_objective(Quu, qu, k):
+    """The box QP's objective 0.5 k'Quu k + qu'k at ``k``, in float64, and the
+    sum of its terms' magnitudes: the scale float32 rounding works on."""
+    Quu, qu, k = Quu.double(), qu.double(), k.double()
+    terms = torch.cat([(0.5 * k[..., :, None] * Quu * k[..., None, :]).flatten(-2), qu * k], -1)
+    return terms.sum(-1), terms.abs().sum(-1)
+
+
+def riccati_agreement(name: str, got, want, Quu, qu) -> dict:
+    """The Riccati kernel against its plain version. A tie: the box QP's
+    candidates tie in objective within float32 rounding (or sit at its 1e-6
+    validity tolerance), and the two sides take different ones. A tie step
+    has another free flag, a k off by more than the tolerance, or another
+    QP count. A scenario's first tie step in the sweep (its largest t, the
+    root) must be one: the two sides saw the same value function there, and
+    the plain version's QP scores both answers within 1e-5 of its scale.
+    The steps before it in time then see another value function (another
+    free mask gives other gains), so their answers differ too and are not
+    weighed. Tie entries are held to 0.1% of the entries, and the scenarios
+    with a tie left out of the comparison of K, k within
+    1e-4 * max(1, max|plain|)."""
+    tol = {f: 1e-4 * max(1.0, float(getattr(want, f).abs().max())) for f in ("K", "k")}
+    free_bad = got.free_mask != want.free_mask
+    nqp_bad = got.n_qp_iter != want.n_qp_iter
+    k_off = ((got.k - want.k).abs() > tol["k"]) & ~free_bad
+    share = float(free_bad.sum() + k_off.sum() + nqp_bad.sum()) / (free_bad.numel() + nqp_bad.numel())
+    tie = (free_bad | k_off).any(-1) | nqp_bad  # (T, B) steps
+    root = tie & (tie.flip(0).int().cumsum(0).flip(0) == 1)  # no tie at a later t
+    (j_got, s_got), (j_want, s_want) = qp_objective(Quu, qu, got.k), qp_objective(Quu, qu, want.k)
+    gap = (j_got - j_want).abs() / torch.maximum(s_got, s_want).clamp_min(1e-30)
+    root_gap = float(gap[root].max()) if bool(root.any()) else 0.0
+    examples = [dict(t=t, b=b, k=got.k[t, b].tolist(), plain_k=want.k[t, b].tolist(),
+                     free=got.free_mask[t, b].tolist(), plain_free=want.free_mask[t, b].tolist(),
+                     n_qp=int(got.n_qp_iter[t, b]), plain_n_qp=int(want.n_qp_iter[t, b]),
+                     qp_obj_rel_gap=float(gap[t, b]))
+                for t, b in root.nonzero()[gap[root].argsort(descending=True)[:3]].tolist()]
+    agree = ~tie.any(0)  # scenarios
+    errs = {f: float((getattr(got, f)[:, agree] - getattr(want, f)[:, agree]).abs().max()) for f in ("K", "k")}
+    out = dict(max_abs_err=errs, free_mismatches=int(free_bad.sum()), n_qp_mismatches=int(nqp_bad.sum()),
+               k_ties=int(k_off.sum()), tie_entry_share=share, tie_steps=int(tie.sum()),
+               tie_scenarios=int(root.sum()),
+               tie_k_max_abs=float((got.k - want.k)[tie].abs().max()) if bool(tie.any()) else 0.0,
+               root_qp_obj_max_rel_gap=root_gap,
+               later_steps_qp_obj_max_rel_gap=float(gap[tie & ~root].max()) if bool((tie & ~root).any()) else 0.0,
+               root_examples=examples, clamped_share=float((~want.free_mask).float().mean()),
+               tol="1e-4 * max(1, max|plain|)")
+    if not all(errs[f] <= tol[f] for f in errs) or share > 1e-3 or root_gap > 1e-5:
+        raise AssertionError(f"Riccati kernel vs plain, {name}: {out}")
+    return out
+
+
+def box_lqr_optimum(C, c, F, f, x0, lo: float, hi: float, iters: int = 50):
+    """The box-constrained LQR's optimum in float64 on the CPU, independent
+    of the solver under test: the problem condensed to one QP in the
+    controls (x_t+1 = F_t [x_t; u_t] + f_t, cost 0.5 tau'C tau + c'tau per
+    step), solved by projected Newton with a backtracking search. Returns
+    the objective as a function of controls (T, B, m), the optimal controls
+    and the largest projected-gradient entry left at them."""
+    f64 = torch.float64
+    C, c, F, f, x0 = (a.detach().to("cpu", f64) for a in (C, c, F, f, x0))
+    T_, B, n, nm = F.shape
+    m, Tm = nm - n, T_ * (nm - n)
+    Cs = 0.5 * (C + C.transpose(-1, -2))
+    H, g, const = torch.zeros(B, Tm, Tm, dtype=f64), torch.zeros(B, Tm, dtype=f64), torch.zeros(B, dtype=f64)
+    ax, Mx = x0, torch.zeros(B, n, Tm, dtype=f64)
+    for t in range(T_):  # tau_t = a + M u, affine in the controls u (B, T m)
+        Mu = torch.zeros(B, m, Tm, dtype=f64)
+        Mu[:, :, t * m:(t + 1) * m] = torch.eye(m, dtype=f64)
+        a, M = torch.cat([ax, torch.zeros(B, m, dtype=f64)], -1), torch.cat([Mx, Mu], 1)
+        Ca = (Cs[t] @ a[..., None])[..., 0]
+        H += M.transpose(1, 2) @ Cs[t] @ M
+        g += (M.transpose(1, 2) @ (Ca + c[t])[..., None])[..., 0]
+        const += ((0.5 * Ca + c[t]) * a).sum(-1)
+        ax, Mx = (F[t] @ a[..., None])[..., 0] + f[t], F[t] @ M
+
+    def qp(u):  # (B, S, Tm) -> (B, S): the objective without its constant (H is symmetric)
+        return 0.5 * (u * (u @ H)).sum(-1) + (u * g[:, None]).sum(-1)
+
+    steps = 0.5 ** torch.arange(40, dtype=f64)
+    u = torch.linalg.solve(H, -g).clamp(lo, hi)
+    for _ in range(iters):
+        grad = (H @ u[..., None])[..., 0] + g
+        act = ((u <= lo) & (grad > 0)) | ((u >= hi) & (grad < 0))
+        Hm = torch.where(act[:, :, None] | act[:, None, :], torch.eye(Tm, dtype=f64), H)
+        d = torch.linalg.solve(Hm, torch.where(act, 0.0, -grad))
+        cand = (u[:, None] + steps[:, None] * d[:, None]).clamp(lo, hi)  # (B, S, Tm)
+        ok = qp(cand) <= qp(u[:, None])
+        pick = cand[torch.arange(B), torch.argmax(ok.to(torch.int8), 1)]
+        u = torch.where(ok.any(1)[:, None], pick, u)
+    grad = (H @ u[..., None])[..., 0] + g
+    pg = float((u - (u - grad).clamp(lo, hi)).abs().max())
+
+    def objective(us):
+        return qp(us.detach().to("cpu", f64).transpose(0, 1).reshape(B, 1, Tm))[:, 0] + const
+
+    return objective, u.reshape(B, T_, m).transpose(0, 1), pg
+
+
+def riccati_step_ops(n: int, m: int, mode: str) -> int:
+    """Floating-point operations of one Riccati step (riccati.cuh), counted
+    from the source: W, Q, q, the box QP, the masked solves and the value
+    update. The m = 2 enumeration solves nine small systems."""
+    nm = n + m
+    ops = 2 * n * n * nm + nm * (nm + 1) * n + 2 * n * nm  # W, Q upper, q
+    chol = m * m * m // 3 * 2 + 4 * m
+    ops += chol + (n + 1) * 2 * m * m  # the factor and the gain columns
+    if mode == "box":
+        ops += {1: 10, 2: 9 * (chol + 2 * m * m + 6 * m * m + 12)}.get(m, 0)
+    ops += 2 * m * n * m + n * (n + 1) // 2 * 6 * m + 6 * n * m  # value update
+    return ops
+
+
+def kkt_step_ops(n: int, m: int) -> int:
+    """Operations of one step of the KKT backward (kkt.cuh): a mask-mode
+    Riccati step, then the adjoint and gradient sweeps."""
+    nm = n + m
+    return riccati_step_ops(n, m, "mask") + 2 * n * nm + nm * nm * n + nm * (2 * nm * n + 2 * n * n)
+
+
+def rollout_step_ops(n: int, m: int) -> int:
+    """Operations of one step of one closed-loop rollout (rollout.cuh):
+    the control with its clamps, the stage cost and a linear step."""
+    nm = n + m
+    return m * (2 * n + 6) + nm * (2 * nm + 3) + 2 * n * nm
+
+
+def random_lqr_torch(T: int, B: int, n: int, m: int, device, seed: int):
+    """tests/oracles.py's random LQR problem (PSD cost L L'/nm + 0.5 I),
+    drawn on the card: C, c, F, f, x_init in float32."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    nm = n + m
+    L = torch.randn((T, B, nm, nm), generator=g, device=device)
+    C = L @ L.transpose(-1, -2) / nm + 0.5 * torch.eye(nm, device=device)
+    c = torch.randn((T, B, nm), generator=g, device=device)
+    F = torch.randn((T, B, n, nm), generator=g, device=device) * 0.5
+    f = torch.randn((T, B, n), generator=g, device=device) * 0.5
+    return C, c, F, f, torch.randn((B, n), generator=g, device=device)
+
+
+def random_lqr_numpy(rng, T: int, B: int, n: int, m: int):
+    """tests/oracles.py::random_lqr_problem (the goldens' recipe), float32."""
+    nm = n + m
+    L = rng.standard_normal((T, B, nm, nm))
+    C = np.einsum("tbij,tbkj->tbik", L, L) / nm + 0.5 * np.eye(nm)
+    c = rng.standard_normal((T, B, nm))
+    F = rng.standard_normal((T, B, n, nm)) * 0.5
+    f = rng.standard_normal((T, B, n)) * 0.5
+    x_init = rng.standard_normal((B, n))
+    return [a.astype(np.float32) for a in (C, c, F, f, x_init)]
+
+
+def timed_launch(launch, loops: int, out: dict):
+    """A launcher that, while the wrapper's staged buffers are alive, runs
+    the kernel once to warm up and then ``loops`` times between CUDA events,
+    and stores the mean in ``out["ms"]``: the kernel alone, no staging."""
+
+    def run(*args):
+        launch(*args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(loops):
+            launch(*args)
+        end.record()
+        torch.cuda.synchronize()
+        out["ms"] = start.elapsed_time(end) / loops
+
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA device", file=sys.stderr)
         return 1
-    from diffmpc_tpu_torch import MPCConfig, QuadCost, mpc_solve
+    from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.csrc import build
+    from diffmpc_tpu_torch.models import PendulumDx
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.cuda import rollout as rol
     from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain
     from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
+    from diffmpc_tpu_torch.ops.lqr import lqr_rollout
+    from diffmpc_tpu_torch.ops.lqr_step import kkt_backward_composite
+    from diffmpc_tpu_torch.utils.batch import bmv
     from diffmpc_tpu_torch.parallel import generate_expert_data, init_train_state, make_dp_train_step
 
     # ---- 0. device ----
@@ -236,19 +501,32 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    emit(phase="device", nvidia_smi=smi, kind=kind, count=torch.cuda.device_count(),
+    emit(phase="device", nvidia_smi=smi, kind=kind, count=torch.cuda.device_count(), max_sm_clock_mhz=clock_mhz,
          torch=torch.__version__, cuda=torch.version.cuda)
 
     # ---- 1. build ----
     t0 = time.perf_counter()
     so, log = build.build()
     build.load()
+    build_s = time.perf_counter() - t0
+    # the same sources by one nvcc command, which compiles them one after
+    # another: the set-up time the parallel build saves
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", build.CSRC,
+                        "-o", os.path.join(tmp, "one_command.so"), *build.sources()],
+                       check=True, capture_output=True, timeout=900)
+        one_command_s = time.perf_counter() - t0
     emit(
-        phase="build", seconds=time.perf_counter() - t0,
+        phase="build", seconds=build_s, one_nvcc_command_seconds=one_command_s,
         library=os.path.relpath(so), fresh=bool(log),
         ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
     )
@@ -424,11 +702,268 @@ def main() -> int:
         ins = main_path_kkt_inputs(B, device)
         k_ms = cuda_ms(lambda: kkt_backward_fused(*ins), loops * 5, 3)
         p_ms = cuda_ms(lambda: kkt_backward_plain(*ins), 1, 1)
-        kkt_times[B] = (k_ms, p_ms)
+        kkt_b = bound(kkt_bytes(B, 3, 1), B * T * kkt_step_ops(3, 1))
+        kkt_times[B] = (k_ms, p_ms, kkt_b)
         emit(phase="time_grad", B=B, T=T, lqr_iter=LQR_ITER, card=smi,
              solve_plus_grad_ms=t_g, solve_plus_grad_per_s=B / t_g * 1e3,
              fwd_ms=t_f, fwd_per_s=B / t_f * 1e3, grad_vs_fwd_frac=t_f / t_g,
-             kkt_kernel_ms=k_ms, kkt_plain_ms=p_ms)
+             kkt_kernel_ms=k_ms, kkt_plain_ms=p_ms, kkt_bound=kkt_b)
+
+    kernels = (ilqr_solve_fused, kkt_backward_fused, ric.riccati_backward_cuda, rol.linesearch_rollout_cuda)
+
+    def reset_counts():
+        for kern in kernels:
+            kern.launches = 0
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return dict(zip(("ilqr", "kkt", "riccati", "rollout"), (kern.launches for kern in kernels)))
+
+    # ---- 9. Riccati kernel vs plain on the card ----
+    ric_err = {}
+    for mode, n, m, B in [("box", BOX_N, BOX_M, b) for b in (BOX_B, B_RAGGED, B_ENSEMBLE)] + [
+        ("box", 4, 1, B_RAGGED), ("free", 3, 2, B_RAGGED), ("mask", 3, 2, B_RAGGED),
+    ]:
+        C, c, F, _, _ = random_lqr_torch(T, B, n, m, device, seed=900 + B + 10 * n + m)
+        gen = torch.Generator(device=device).manual_seed(B)
+        kw = {}
+        if mode == "box":
+            u_hat = (torch.rand((T, B, m), generator=gen, device=device) - 0.5) * 0.6
+            kw = dict(u_lower=torch.tensor(-BOX, device=device), u_upper=torch.tensor(BOX, device=device), u_hat=u_hat)
+        elif mode == "mask":
+            kw = dict(ctrl_mask=torch.rand((T, B, m), generator=gen, device=device) < 0.3)
+        got = ric.riccati_backward_cuda(C, c, F, None, n, **kw)
+        want, Quu, qu = ric.riccati_backward_plain(C, c, F, None, n, return_qp=True, **kw)
+        torch.cuda.synchronize()
+        agreement = riccati_agreement(f"{mode} n={n} m={m} B={B}", got, want, Quu, qu)
+        emit(phase="riccati_vs_plain", mode=mode, n=n, m=m, B=B, T=T, **agreement)
+        ric_err[(mode, n, m, B)] = max(agreement["max_abs_err"].values())
+
+    # ---- 10. rollout kernel vs plain on the card ----
+    def rollout_inputs(case: str, B: int, seed: int):
+        """The line search's inputs as the non-fused loop builds them: a
+        trajectory from random controls, gains from the Riccati kernel about
+        it, the feedforward scaled by up to 8 so that the ladder backs off."""
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if case == "pendulum":
+            prob = problem(B, device, seed=seed)
+            n, m, dyn = 3, 1, prob["dyn"]
+            x0, C, c, lo, hi = prob["x_init"], prob["C"], prob["c"], prob["u_lower"], prob["u_upper"]
+            u_hat = (torch.rand((T, B, m), generator=gen, device=device) - 0.5) * 4.0
+            xs, x = [], x0
+            for t in range(T):
+                xs.append(x)
+                x = dyn.forward(x, u_hat[t])
+            x_hat = torch.stack(xs)
+            F, f = linearize_dynamics(dyn, x_hat, u_hat)
+        else:
+            n, m, dyn = BOX_N, BOX_M, None
+            C, c, F, f, x0 = random_lqr_torch(T, B, n, m, device, seed)
+            lo, hi = (torch.tensor(-BOX, device=device), torch.tensor(BOX, device=device)) if case == "linear_box" else (None, None)
+            u_hat = (torch.rand((T, B, m), generator=gen, device=device) - 0.5) * 0.6
+            zeros = torch.zeros((T, B, m, n), device=device)
+            x_hat, _ = lqr_rollout(x0, F, f, zeros, torch.zeros((T, B, m), device=device), u_hat=u_hat)
+        c_delta = c + bmv(C, torch.cat([x_hat, u_hat], -1))
+        box = dict(u_lower=lo, u_upper=hi, u_hat=u_hat) if lo is not None else {}
+        res = ric.riccati_backward_cuda(C, c_delta, F, None, n, **box)
+        scale = 0.5 + 7.5 * torch.rand((1, B, 1), generator=gen, device=device)
+        args = (x0, C, c, None if dyn else F, None if dyn else f, res.K, res.k * scale, x_hat, u_hat)
+        return args, dict(u_lower=lo, u_upper=hi, dyn=dyn)
+
+    rol_err = {}
+    for case in ("linear_box", "linear_free", "pendulum"):
+        args, kw = rollout_inputs(case, B_MAIN, seed=1000)
+        got = rol.linesearch_rollout_cuda(*args, **kw)
+        want = rol.linesearch_rollout_plain(*args, **kw)
+        torch.cuda.synchronize()
+        same = got.alpha == want.alpha
+        # relative to each objective, with the batch's largest as the floor:
+        # a cost summed over T steps can cancel to near zero
+        scale = want.objs.abs().clamp_min(float(want.objs.abs().max()))
+        obj_rel = float(((got.objs - want.objs).abs() / scale).max())
+        traj = max(float((got.xs - want.xs)[:, same].abs().max()), float((got.us - want.us)[:, same].abs().max()))
+        emit(phase="rollout_vs_plain", case=case, B=B_MAIN, T=T, objs_max_rel=obj_rel,
+             alpha_equal_frac=float(same.float().mean()), traj_max_abs_where_alpha_agrees=traj,
+             distinct_alphas=len(torch.unique(want.alpha)), improved_frac=float(want.improved.float().mean()))
+        if obj_rel > 1e-5 or float(same.float().mean()) < 0.99 or traj > 1e-4:
+            raise AssertionError(f"rollout kernel vs plain, {case}: objs {obj_rel}, alpha {float(same.float().mean())}, traj {traj}")
+        rol_err[case] = traj
+
+    # ---- 11. the non-fused path: mpc_solve on LinDx ----
+    # detach_unconverged off: a solved LQR "converges" by a +-1 ulp objective
+    # change, which the card and the CPU may decide differently
+    box_config = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=T, lqr_iter=10, exit_unconverged=False,
+                           detach_unconverged=False)
+    lqr_config = MPCConfig(n_state=LQR_N, n_ctrl=LQR_M, T=LQR_T, lqr_iter=4, exit_unconverged=False,
+                           detach_unconverged=False)
+    path_launches = {}
+    for name, cfg, B, box in (("config2_boxddp", box_config, BOX_B, BOX), ("config1_lqr", lqr_config, LQR_B, None)):
+        arrays = random_lqr_numpy(np.random.default_rng(11), cfg.T, B, cfg.n_state, cfg.n_ctrl)
+        bounds = dict(u_lower=-box, u_upper=box) if box else {}
+
+        def solve(dev, grad=False):
+            leaves = [torch.tensor(a, device=dev, requires_grad=grad) for a in arrays]
+            C, c, F, f, x0 = leaves
+            return leaves, mpc_solve(cfg, x0, QuadCost(C, c), LinDx(F, f), **bounds)
+
+        reset_counts()
+        _, sol = solve(device)
+        got = counts()
+        it = int(sol.info.n_iters)
+        path_launches[name] = got
+        if got != dict(ilqr=0, kkt=0, riccati=it, rollout=it):
+            raise AssertionError(f"{name}: launches {got} for {it} iterations")
+        # the same solve on the CPU: the same objectives, scenario by scenario;
+        # controls within 1e-4 on >= 95% of the scenarios. A box-QP tie
+        # (phase 9) can leave a scenario at another point of the same float32
+        # objective: its controls stay within 5e-3. The second witness is the
+        # problem's optimum in float64 (box_lqr_optimum): every scenario's
+        # controls, the card's and the CPU's, score within 1e-5 of it; the
+        # scenarios where the two sides part are named with their distances
+        # from it.
+        _, cpu = solve("cpu")
+        us_diff = (sol.us.cpu() - cpu.us).abs().amax(dim=(0, 2))
+        agree = us_diff <= 1e-4
+        obj_rel = float(((sol.objs.cpu() - cpu.objs).abs() / cpu.objs.abs().clamp_min(1.0)).max())
+        box32 = (float(np.float32(-box)), float(np.float32(box))) if box else (-float("inf"), float("inf"))
+        objective, u_opt, opt_pg = box_lqr_optimum(*(torch.tensor(a) for a in arrays), *box32)
+        j_opt = objective(u_opt)
+        gap = {side: (objective(s.us) - j_opt) / j_opt.abs().clamp_min(1.0) for side, s in (("card", sol), ("cpu", cpu))}
+        parted = [dict(b=b, us_diff=float(us_diff[b]), card_gap=float(gap["card"][b]), cpu_gap=float(gap["cpu"][b]),
+                       card_to_opt=float((sol.us[:, b].cpu().double() - u_opt[:, b]).abs().max()),
+                       cpu_to_opt=float((cpu.us[:, b].double() - u_opt[:, b]).abs().max()))
+                   for b in (~agree).nonzero()[:, 0].tolist()]
+        witness = dict(optimum_projected_grad=opt_pg, optimum_rel_gap_max={k: float(v.max()) for k, v in gap.items()},
+                       parted_scenarios=parted[:8])
+        if not bool(torch.isfinite(sol.objs).all()) or obj_rel > 1e-5 or float(agree.float().mean()) < 0.95 \
+                or float(us_diff.max()) > 5e-3 or opt_pg > 1e-8 or float(gap["card"].max()) > 1e-5:
+            raise AssertionError(f"{name}: card vs CPU objs {obj_rel}, controls {us_diff.max()} "
+                                 f"(agree on {float(agree.float().mean()):.3f}); {witness}")
+        # the gradient: one KKT launch, card against CPU on the agreeing scenarios
+        weights = [torch.tensor(np.random.default_rng(12).normal(size=s), dtype=torch.float32)
+                   for s in ((cfg.T, B, cfg.n_state), (cfg.T, B, cfg.n_ctrl))]
+
+        def grads(dev):
+            leaves, s = solve(dev, grad=True)
+            loss = (s.xs * weights[0].to(dev)).sum() + (s.us * weights[1].to(dev)).sum()
+            return torch.autograd.grad(loss, leaves)
+
+        reset_counts()
+        g_card = grads(device)
+        g_launches = counts()
+        g_cpu = grads("cpu")
+        g_rel = {}
+        for k, a, b in zip(("C", "c", "F", "f", "x_init"), g_card, g_cpu):
+            a, b = (a.cpu()[agree], b[agree]) if k == "x_init" else (a.cpu()[:, agree], b[:, agree])
+            g_rel[k] = float((a - b).abs().max() / b.abs().max())
+        emit(phase="non_fused_path", case=name, B=B, T=cfg.T, n=cfg.n_state, m=cfg.n_ctrl, box=box,
+             lqr_iter=cfg.lqr_iter, n_iters=it, launches=got, converged_frac=float(sol.info.converged.float().mean()),
+             clamp_frac=float(sol.info.clamp_frac.mean()), mean_obj=float(sol.objs.mean()),
+             card_vs_cpu_objs_max_rel=obj_rel, card_vs_cpu_us_max_abs=float(us_diff.max()),
+             us_agree_frac=float(agree.float().mean()), **witness, grad_launches=g_launches,
+             grad_rel_err_on_agreeing=g_rel)
+        if g_launches["kkt"] != 1 or max(g_rel.values()) > 1e-3:
+            raise AssertionError(f"{name}: gradient launches {g_launches}, card vs CPU {g_rel}")
+
+    # the goldens (tests/test_parity_golden.py's recipes) on the card
+    golden_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+    for name, seed, (gT, gB, gn, gm), kw in (
+        ("lqr_unconstrained_n3m2T10B32", 1234, (10, 32, 3, 2), dict(lqr_iter=4)),
+        ("boxddp_n4m1T20B16", 4321, (20, 16, 4, 1),
+         dict(lqr_iter=60, eps=1e-12, not_improved_lim=10**6)),
+    ):
+        C, c, F, f, x0 = (torch.tensor(a, device=device) for a in random_lqr_numpy(np.random.default_rng(seed), gT, gB, gn, gm))
+        bounds = dict(u_lower=-BOX, u_upper=BOX) if gm == 1 else {}
+        sol = mpc_solve(MPCConfig(n_state=gn, n_ctrl=gm, T=gT, exit_unconverged=False, **kw), x0, QuadCost(C, c), LinDx(F, f), **bounds)
+        err = float(np.abs(sol.us.cpu().numpy() - np.load(os.path.join(golden_dir, name + ".npz"))["us"]).max())
+        emit(phase="golden", name=name, max_abs_err=err, tol=1e-4)
+        if err > 1e-4:
+            raise AssertionError(f"golden {name} on the card: {err}")
+
+    # the KKT kernel against the composite backward (Riccati kernel in mask mode)
+    res_C, res_c, res_F, _, _ = random_lqr_torch(T, B_MAIN, BOX_N, BOX_M, device, seed=77)
+    gen = torch.Generator(device=device).manual_seed(78)
+    tau = torch.randn((T, B_MAIN, BOX_N + BOX_M), generator=gen, device=device)
+    tight = torch.rand((T, B_MAIN, BOX_M), generator=gen, device=device) < 0.3
+    r = torch.randn((T, B_MAIN, BOX_N + BOX_M), generator=gen, device=device)
+    r[..., BOX_N:] = torch.where(tight, 0.0, r[..., BOX_N:])
+    kkt_ins = (res_C, res_c, res_F, r, tau, tight)
+    comp_err = check_kkt("KKT kernel vs composite (4, 2)", kkt_backward_fused(*kkt_ins), kkt_backward_composite(*kkt_ins))
+    emit(phase="kkt_vs_composite", n=BOX_N, m=BOX_M, B=B_MAIN, T=T, max_abs_err=comp_err, tol="1e-4 * max(1, max|composite|)")
+
+    # the pendulum off the fused path: finite differences
+    fd_config = dataclasses.replace(config, grad_method=GradMethods.FINITE_DIFF)
+    prob = problem(B_MAIN, device)
+    reset_counts()
+    fd = mpc_solve(fd_config, prob["x_init"], cost, prob["dyn"], u_lower=-2.0, u_upper=2.0)
+    fd_launches = counts()
+    fd_cpu = mpc_solve(fd_config, prob["x_init"].cpu(), QuadCost(cost.C.cpu(), cost.c.cpu()),
+                       PendulumDx.default(device="cpu"), u_lower=-2.0, u_upper=2.0)
+    conv = (float(fd.info.converged.float().mean()), float(fd_cpu.info.converged.float().mean()))
+    objm = (float(fd.objs.mean()), float(fd_cpu.objs.mean()))
+    emit(phase="pendulum_finite_diff", B=B_MAIN, T=T, lqr_iter=LQR_ITER, launches=fd_launches,
+         n_iters=int(fd.info.n_iters), converged_frac=conv[0], cpu_converged_frac=conv[1],
+         mean_obj=objm[0], cpu_mean_obj=objm[1])
+    it = int(fd.info.n_iters)
+    if fd_launches != dict(ilqr=0, kkt=0, riccati=it, rollout=it):
+        raise AssertionError(f"pendulum FINITE_DIFF launches {fd_launches} for {it} iterations")
+    if abs(conv[0] - conv[1]) > 0.05 or abs(objm[0] - objm[1]) > 1e-2 * abs(objm[1]):
+        raise AssertionError(f"pendulum FINITE_DIFF, card vs CPU: converged {conv}, mean obj {objm}")
+
+    # ---- 12. time: config 2 at three batch sizes ----
+    flag = torch.zeros(B_MAIN, dtype=torch.bool, device=device)
+    read_ms = cuda_ms(lambda: bool(flag.all()), 50, 3)  # one read of a done mask, alone
+    nf_times = {}
+    for B, loops in ((BOX_B, 20), (4096, 20), (B_ENSEMBLE, 5)):
+        C, c, F, f, x0 = random_lqr_torch(T, B, BOX_N, BOX_M, device, seed=2000 + B)
+        solve = lambda: mpc_solve(box_config, x0, QuadCost(C, c), LinDx(F, f), u_lower=-BOX, u_upper=BOX)  # noqa: E731
+        with torch.no_grad():
+            it = int(solve().info.n_iters)
+            solve_ms = cuda_ms(solve, loops, 3)
+        # the first iteration's inputs, as lqr_step builds them
+        lo, hi = torch.tensor(-BOX, device=device), torch.tensor(BOX, device=device)
+        u_hat = torch.zeros((T, B, BOX_M), device=device)
+        x_hat, _ = lqr_rollout(x0, F, f, torch.zeros((T, B, BOX_M, BOX_N), device=device), u_hat)
+        c_delta = c + bmv(C, torch.cat([x_hat, u_hat], -1))
+        box = dict(u_lower=lo, u_upper=hi, u_hat=u_hat)
+        ric_t, rol_t = {}, {}
+        ric_launch = ric._cuda_launcher(device, BOX_N, BOX_M)
+        ric.run_staged_riccati(timed_launch(ric_launch, loops, ric_t), C, c_delta, F, None, BOX_N, **box)
+        res = ric.riccati_backward_cuda(C, c_delta, F, None, BOX_N, **box)
+        ls_args = (x0, C, c, F, f, res.K, res.k, x_hat, u_hat)
+        rol_launch = rol._cuda_launcher(device, BOX_N, BOX_M, None)
+        rol.run_staged_rollout(timed_launch(rol_launch, loops, rol_t), *ls_args, u_lower=lo, u_upper=hi)
+        ric_wrap = cuda_ms(lambda: ric.riccati_backward_cuda(C, c_delta, F, None, BOX_N, **box), loops, 3)
+        rol_wrap = cuda_ms(lambda: rol.linesearch_rollout_cuda(*ls_args, u_lower=lo, u_upper=hi), loops, 3)
+        ric_stage = cuda_ms(lambda: ric.run_staged_riccati(lambda *a: None, C, c_delta, F, None, BOX_N, **box), loops, 3)
+        rol_stage = cuda_ms(lambda: rol.run_staged_rollout(lambda *a: None, *ls_args, u_lower=lo, u_upper=hi), loops, 3)
+        ric_plain = cuda_ms(lambda: ric.riccati_backward_plain(C, c_delta, F, None, BOX_N, **box), 1, 1)
+        rol_plain = cuda_ms(lambda: rol.linesearch_rollout_plain(*ls_args, u_lower=lo, u_upper=hi), 1, 1)
+        steps = T * B
+        ric_bound = bound(riccati_bytes(B, BOX_N, BOX_M), steps * riccati_step_ops(BOX_N, BOX_M, "box"))
+        rol_bound = bound(
+            rollout_bytes(B, BOX_N, BOX_M),
+            (box_config.max_linesearch_iter + 2) * steps * rollout_step_ops(BOX_N, BOX_M),
+        )
+        nf_times[B] = dict(ric=(ric_t["ms"], ric_plain, ric_bound), rol=(rol_t["ms"], rol_plain, rol_bound))
+        emit(phase="time_non_fused", B=B, T=T, n=BOX_N, m=BOX_M, lqr_iter=box_config.lqr_iter, n_iters=it,
+             card=smi, mpc_solve_ms=solve_ms, solves_per_s=B / solve_ms * 1e3,
+             riccati_kernel_ms=ric_t["ms"], riccati_wrapper_ms=ric_wrap, riccati_staging_ms=ric_stage,
+             riccati_plain_ms=ric_plain, riccati_bound=ric_bound,
+             rollout_kernel_ms=rol_t["ms"], rollout_wrapper_ms=rol_wrap, rollout_staging_ms=rol_stage,
+             rollout_plain_ms=rol_plain, rollout_bound=rol_bound,
+             done_read_ms=read_ms, host_and_glue_ms=solve_ms - it * (ric_wrap + rol_wrap))
+
+    # the iLQR solve's bound at B=1024: its bytes, its operations for the
+    # iterations this run took, or its slowest scenario's serial chain,
+    # whichever is largest
+    ilqr_res = results[B_MAIN][0]
+    ilqr_per_iter = riccati_step_ops(3, 1, "box") + 200 + (LQR_ITER + 1) * rollout_step_ops(3, 1)
+    ilqr_bound = bound(4 * B_MAIN * (T * (tri(4) + 4 + 2 + 3 + 1) + 9), float(ilqr_res.n_iters.sum()) * T * ilqr_per_iter)
+    chain_ms = ilqr_chain_ms(int(ilqr_res.n_iters.max()), clock_mhz)
+    emit(phase="ilqr_bound", B=B_MAIN, max_sm_clock_mhz=clock_mhz, chain_ms=chain_ms, **ilqr_bound)
+    if chain_ms > ilqr_bound["bound_ms"]:
+        ilqr_bound = dict(bound_ms=chain_ms, bound_by="operations")  # dependent ones, at their latency
 
     print(smi, flush=True)
     emit(kernels=[
@@ -441,6 +976,8 @@ def main() -> int:
             max_abs_err=results[B_MAIN][1]["us_max_abs"],
             ms=times[B_MAIN][0],
             plain_ms=times[B_MAIN][1],
+            **ilqr_bound,
+            library_ms=None,
         ),
         dict(
             name="kkt_backward_fused",
@@ -451,6 +988,32 @@ def main() -> int:
             max_abs_err=kkt_err,
             ms=kkt_times[B_MAIN][0],
             plain_ms=kkt_times[B_MAIN][1],
+            **kkt_times[B_MAIN][2],
+            library_ms=None,
+        ),
+        dict(
+            name="riccati_backward_pallas",
+            route="cuda",
+            source="diffmpc_tpu_torch/csrc/riccati.cu",
+            replaces="diffmpc_tpu/ops/pallas/riccati.py:696",
+            launches=path_launches["config2_boxddp"]["riccati"],
+            max_abs_err=ric_err[("box", BOX_N, BOX_M, BOX_B)],
+            ms=nf_times[BOX_B]["ric"][0],
+            plain_ms=nf_times[BOX_B]["ric"][1],
+            **nf_times[BOX_B]["ric"][2],
+            library_ms=None,
+        ),
+        dict(
+            name="linesearch_rollout_pallas",
+            route="cuda",
+            source="diffmpc_tpu_torch/csrc/rollout.cu",
+            replaces="diffmpc_tpu/ops/pallas/rollout.py:180",
+            launches=path_launches["config2_boxddp"]["rollout"],
+            max_abs_err=rol_err["linear_box"],
+            ms=nf_times[BOX_B]["rol"][0],
+            plain_ms=nf_times[BOX_B]["rol"][1],
+            **nf_times[BOX_B]["rol"][2],
+            library_ms=None,
         ),
     ])
     emit(ok=True, device=dict(platform="gpu", kind=kind, count=torch.cuda.device_count()))

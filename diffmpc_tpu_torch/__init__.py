@@ -2,13 +2,14 @@
 
 A second package beside :mod:`diffmpc_tpu` (the JAX reference, which it is
 tested against). It imports ``torch`` and never ``jax``. The fused
-box-constrained iLQR solve and the analytic KKT backward of its gradient
-run as hand-written CUDA kernels on CUDA tensors and as their plain
-PyTorch versions on CPU tensors.
+box-constrained iLQR solve, the non-fused path's Riccati sweep and
+line-search rollout, and the analytic KKT backward of the gradient run as
+hand-written CUDA kernels on CUDA tensors and as their plain PyTorch
+versions on CPU tensors.
 """
 
 from .mpc import MPC, MPCInfo, MPCSolution, mpc_solve
-from .types import GradMethods, LineSearchConfig, MPCConfig, QuadCost
+from .types import GradMethods, LinDx, LineSearchConfig, MPCConfig, QuadCost
 
 __all__ = [
     "MPC",
@@ -16,6 +17,7 @@ __all__ = [
     "MPCInfo",
     "MPCSolution",
     "GradMethods",
+    "LinDx",
     "LineSearchConfig",
     "QuadCost",
     "mpc_solve",

@@ -1,7 +1,7 @@
 """Carry the JAX package's state over to the port, through numpy arrays.
 
 The functions take the JAX package's objects (``PendulumDx``, ``QuadCost``,
-``MPCConfig``) and read only their fields, so this module imports neither
+``LinDx``, ``MPCConfig``) and read only their fields, so this module imports neither
 JAX nor the JAX package: ``np.asarray`` copies a JAX array to the host.
 Both packages then compute the same problem.
 """
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .models.envs.pendulum import PendulumDx
-from .types import GradMethods, MPCConfig, QuadCost
+from .types import GradMethods, LinDx, MPCConfig, QuadCost
 
 
 def to_tensor(a, dtype=None, device=None) -> torch.Tensor:
@@ -38,6 +38,13 @@ def pendulum_from_jax(dx, dtype=None, device=None) -> PendulumDx:
 
 def quad_cost_from_jax(cost, dtype=None, device=None) -> QuadCost:
     return QuadCost(to_tensor(cost.C, dtype, device), to_tensor(cost.c, dtype, device))
+
+
+def lin_dx_from_jax(dx, dtype=None, device="cuda") -> LinDx:
+    """The port's ``LinDx`` with the JAX one's ``F`` and ``f`` (None stays
+    None), on the card unless ``device`` says otherwise."""
+    f = None if dx.f is None else to_tensor(dx.f, dtype, device)
+    return LinDx(to_tensor(dx.F, dtype, device), f)
 
 
 def mpc_config_from_jax(config) -> MPCConfig:

@@ -1,7 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use.
 
 Every ``csrc/*.cu`` file is compiled, with the ``.cuh`` headers beside it,
-into one shared library with a plain C interface, loaded with ``ctypes``.
+by its own ``nvcc`` process, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+``ctypes``.
 The library goes to ``diffmpc_tpu_torch/_build/`` (git-ignored) under a name
 keyed by a hash of the sources and flags, so an edit rebuilds and a stale
 library is never loaded. The build writes a per-process temporary file and
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 
 CSRC = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
@@ -29,7 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -68,6 +71,17 @@ def find_nvcc() -> str:
     return found
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; return their output, or raise with the
+    output of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> tuple[str, str]:
     """Build the library if it is not built yet. Returns ``(path, log)``:
     ``log`` is nvcc's output (``-Xptxas -v`` register and spill report) for a
@@ -76,17 +90,18 @@ def build() -> tuple[str, str]:
     if os.path.exists(so):
         return so, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    objdir = tempfile.mkdtemp(prefix="obj-", dir=BUILD_DIR)
+    try:
+        objs = [os.path.join(objdir, os.path.basename(src) + ".o") for src in sources()]
+        log = _run([[nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src] for obj, src in zip(objs, sources())])
+        log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
-    os.replace(tmp, so)
     return so, log
 
 

@@ -174,7 +174,8 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
       for (int j = 0; j < N; ++j) rhs[j][i] = Q[N + i][j];  // column j of Qux
     }
     float kt[M], frozen[M], Kc[N][M], K[M][N];
-    qp_sum += pnqp_entries<M>(Quu, qu, lo_d, hi_d, a.reg, kt, frozen);
+    // n_iter 8: the fused path caps pnqp_iter at 8 (mpc.py); only m >= 3 reads it
+    qp_sum += pnqp_entries<M>(Quu, qu, lo_d, hi_d, 8, a.reg, kt, frozen);
     masked_chol_solve<M, N>(Quu, rhs, frozen, a.reg, Kc);
     for (int i = 0; i < M; ++i) {
       for (int j = 0; j < N; ++j) {

@@ -36,14 +36,21 @@ __global__ void __launch_bounds__(kThreads) kkt_kernel(KktArgs a) {
   kkt_backward_scenario<N, M>(a, b);
 }
 
-}  // namespace
-
-// Launch the backward for n = 3, m = 1 (the pendulum) on `stream`; returns
-// cudaGetLastError(). Other (n, m) get their instantiation with their env.
-extern "C" int diffmpc_kkt_backward_n3m1(const KktArgs* args, void* stream) {
+template <int N, int M>
+int launch(const KktArgs* args, void* stream) {
   const int blocks = (args->B + kThreads - 1) / kThreads;
   if (blocks > 0) {
-    kkt_kernel<3, 1><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
+    kkt_kernel<N, M><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// One launcher per (n, m) of the port's table (ops/cuda/ilqr.py,
+// KERNEL_SHAPES): the pendulum (3, 1) and the linear problems' (3, 2),
+// (4, 1), (4, 2). Each launches on `stream` and returns cudaGetLastError().
+extern "C" int diffmpc_kkt_backward_n3m1(const KktArgs* a, void* s) { return launch<3, 1>(a, s); }
+extern "C" int diffmpc_kkt_backward_n3m2(const KktArgs* a, void* s) { return launch<3, 2>(a, s); }
+extern "C" int diffmpc_kkt_backward_n4m1(const KktArgs* a, void* s) { return launch<4, 1>(a, s); }
+extern "C" int diffmpc_kkt_backward_n4m2(const KktArgs* a, void* s) { return launch<4, 2>(a, s); }

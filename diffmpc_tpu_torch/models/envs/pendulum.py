@@ -32,7 +32,9 @@ class PendulumDx(Dynamics):
     n_ctrl: int = 1
 
     @staticmethod
-    def default(dtype=torch.float32, device=None) -> "PendulumDx":
+    def default(dtype=torch.float32, device="cuda") -> "PendulumDx":
+        """The swing-up pendulum with ``(g, m, l) = (10, 1, 1)``, on the card
+        unless ``device`` says otherwise (without a card that raises)."""
         return PendulumDx(params=torch.tensor([10.0, 1.0, 1.0], dtype=dtype, device=device))
 
     def replace(self, **changes) -> "PendulumDx":

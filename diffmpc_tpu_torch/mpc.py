@@ -1,18 +1,27 @@
 """MPC orchestration of the PyTorch port (counterpart of :mod:`diffmpc_tpu.mpc`).
 
-The forward solve runs on the fused path only: QuadCost + box bounds + an
-env with ``entries_step`` (the pendulum), whole solve in one call of
-:func:`diffmpc_tpu_torch.ops.cuda.ilqr.ilqr_solve_fused` (the CUDA kernel on
-CUDA tensors, its plain PyTorch version on CPU tensors). Every configuration
-that would leave the fused path raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+Two paths, chosen as the JAX package chooses (:func:`_would_use_fused`):
+
+- **fused**: QuadCost + box bounds + an env with ``entries_step`` (the
+  pendulum), no finite differences and no printing: the whole solve is one
+  call of :func:`diffmpc_tpu_torch.ops.cuda.ilqr.ilqr_solve_fused`;
+- **non-fused**: everything else that is ported (``LinDx`` dynamics,
+  unconstrained problems, ``verbose > 0``, ``GradMethods.FINITE_DIFF``): the
+  masked iLQR loop around :func:`diffmpc_tpu_torch.ops.lqr_step.lqr_step`,
+  one launch of the Riccati kernel and one of the rollout kernel per
+  iteration, and one read of the ``done`` mask on the host to stop early.
+
+Kernels run on CUDA tensors, their plain PyTorch versions on CPU tensors.
+Callable costs, ``slew_rate_penalty``, ``u_zero_I`` and the models without
+a kernel-fusable ``entries_step`` raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 
 The gradient: with ``backprop=True``, grad mode on and any of ``x_init``,
-the cost's ``C``/``c`` or the env's ``params`` requiring grad, the solved
-trajectory is attached to the inputs through
+the cost's ``C``/``c``, the ``LinDx`` arrays or the env's ``params``
+requiring grad, the solved trajectory is attached to the inputs through
 :func:`diffmpc_tpu_torch.ops.lqr_step.lqr_fixed_point`, whose backward is
 the KKT kernel (the plain version on CPU tensors). Otherwise the solve
-returns the kernel's trajectory as it is, and the attach costs nothing.
+returns its trajectory as it is, and the attach costs nothing.
 """
 
 from __future__ import annotations
@@ -24,8 +33,9 @@ import torch
 from .ops.cuda.ilqr import ilqr_solve_fused
 from .ops.linearize import linearize_dynamics
 from .ops.lqr import trajectory_cost
-from .ops.lqr_step import LqrSpec, lqr_fixed_point
-from .types import GradMethods, MPCConfig, QuadCost
+from .ops.lqr_step import LqrSpec, lqr_fixed_point, lqr_step
+from .types import GradMethods, LinDx, MPCConfig, QuadCost
+from .utils.batch import bmv
 
 CostLike = Union[QuadCost, Callable]
 
@@ -34,7 +44,7 @@ class MPCInfo(NamedTuple):
     """Per-solve statistics."""
 
     converged: torch.Tensor  # (B,) bool: improvement dropped below eps
-    n_iters: torch.Tensor  # () int32: iLQR iterations until all froze
+    n_iters: torch.Tensor  # () int32: iLQR iterations run (until all froze)
     last_improvement: torch.Tensor  # (B,)
     mean_alpha: torch.Tensor  # (B,) line-search step of the last iteration
     clamp_frac: torch.Tensor  # (B,) fraction of control entries at a bound
@@ -110,13 +120,35 @@ def _expand_bound(b, T: int, B: int, m: int, dtype, device):
     raise ValueError(f"control bound has too many dims: {tuple(b.shape)}")
 
 
-def _would_use_fused(config: MPCConfig, dx, *, is_quad: bool, constrained: bool) -> bool:
-    """The fused-path predicate of the JAX package, without its TPU memory
-    terms: QuadCost, box bounds, an entries-fusable env, no finite
-    differences and no per-iteration printing."""
+def _expand_lin_dx(dx: LinDx, T: int, B: int, n: int, dtype, device) -> LinDx:
+    """Accept F of ndim 2 ``(n, nm)``, 3 ``(T, n, nm)`` or 4
+    ``(T, B, n, nm)``, and f of ndim 1/2/3 accordingly or None (zeros)."""
+    F = torch.as_tensor(dx.F, dtype=dtype, device=device)
+    if F.ndim == 2:
+        F = F[None, None]
+    elif F.ndim == 3:
+        F = F[:, None]
+    F = F.expand((T, B) + tuple(F.shape[-2:]))
+    if dx.f is None:
+        f = torch.zeros((T, B, n), dtype=dtype, device=device)
+    else:
+        f = torch.as_tensor(dx.f, dtype=dtype, device=device)
+        if f.ndim == 1:
+            f = f[None, None]
+        elif f.ndim == 2:
+            f = f[:, None]
+        f = f.expand(T, B, n)
+    return LinDx(F, f)
+
+
+def _would_use_fused(config: MPCConfig, dx, *, is_quad: bool, constrained: bool, is_lin: bool) -> bool:
+    """The fused-path predicate of the JAX package (``mpc.py:216-250``),
+    without its TPU memory terms: QuadCost, box bounds, an entries-fusable
+    env, no finite differences and no per-iteration printing."""
     return (
         is_quad
         and constrained
+        and not is_lin
         and hasattr(dx, "entries_step")
         and hasattr(dx, "kernel_params")
         and getattr(dx, "kernel_fusable", True)
@@ -141,6 +173,88 @@ def _requires_grad(*xs) -> bool:
     return any(isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
 
 
+@torch.no_grad()
+def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init):
+    """The non-fused iLQR loop (``mpc.py:467-631`` of the JAX package) on
+    detached inputs: an initial rollout of ``u_init`` (or zeros, clamped into
+    the box) through the true dynamics, then per iteration the linearization
+    and one :func:`lqr_step`, with the best trajectory, the not-improved
+    counter and the per-scenario freeze kept as in the JAX ``Carry``.
+    Scenarios that froze keep their state through ``where``. The loop stops
+    at ``lqr_iter`` or when every scenario is done: one read of the
+    ``done`` mask on the host per iteration. Returns ``(best_x, best_u,
+    info)``."""
+    T, n, m = config.T, config.n_state, config.n_ctrl
+    B, dtype, device = x_init.shape[0], x_init.dtype, x_init.device
+    is_lin = isinstance(dx, LinDx)
+    spec = LqrSpec(
+        n_state=n, constrained=lo is not None, tight_eps=config.tight_eps,
+        back_eps=config.back_eps, reg=config.back_eps, pnqp_iter=config.pnqp_iter,
+        linesearch_decay=config.linesearch_decay,
+        max_linesearch_iter=config.max_linesearch_iter, delta_u=config.delta_u,
+        use_cuda=config.use_cuda,
+    )
+    u = torch.zeros((T, B, m), dtype=dtype, device=device) if u_init is None else u_init
+    if lo is not None:
+        u = torch.minimum(torch.maximum(u, lo), hi)
+    xs, x_t = [], x_init
+    for t in range(T):
+        xs.append(x_t)
+        if is_lin:
+            x_t = bmv(dx.F[t], torch.cat([x_t, u[t]], -1)) + dx.f[t]
+        else:
+            x_t = dx.forward(x_t, u[t])
+    x = torch.stack(xs)
+    best_x, best_u = x, u
+    best_obj = trajectory_cost(C, c, x, u)
+    n_not_improved = torch.zeros(B, dtype=torch.int32, device=device)
+    last_improvement = torch.full((B,), float("inf"), dtype=dtype, device=device)
+    done = torch.zeros(B, dtype=torch.bool, device=device)
+    alpha = torch.ones(B, dtype=dtype, device=device)
+    clamp_frac = torch.zeros(B, dtype=dtype, device=device)
+    qp_iters = torch.zeros(B, dtype=dtype, device=device)
+    i = 0
+    while i < config.lqr_iter and not bool(done.all()):
+        F, f = linearize_dynamics(dx, x, u, config.grad_method)
+        out = lqr_step(spec, x_init, C, c, F, f, x, u, lo, hi, dyn=None if is_lin else dx)
+        improvement = best_obj - out.objs
+        # best tracks any strict improvement; best_cost_eps only drives the
+        # not-improved counter
+        improved = out.objs < best_obj
+        improved_sig = out.objs < best_obj - config.best_cost_eps
+        best_obj = torch.where(improved, out.objs, best_obj)
+        best_x = torch.where(improved[None, :, None], out.xs, best_x)
+        best_u = torch.where(improved[None, :, None], out.us, best_u)
+        n_not_improved = torch.where(improved_sig, 0, n_not_improved + 1)
+        newly_done = (improvement < config.eps) | (n_not_improved >= config.not_improved_lim)
+        # frozen scenarios keep their state; active ones move to the new
+        # trajectory even if it is worse (best_* keeps the winner)
+        act = ~done
+        x = torch.where(act[None, :, None], out.xs, x)
+        u = torch.where(act[None, :, None], out.us, u)
+        if config.verbose > 0:
+            print(
+                f"ilqr iter {i}: mean obj {float(best_obj.mean()):.6f} "
+                f"mean alpha {float(out.alpha.mean()):.3f}"
+            )
+        last_improvement = torch.where(act, improvement, last_improvement)
+        done = done | newly_done
+        alpha = torch.where(act, out.alpha, alpha)
+        free_share = out.free_mask.to(dtype).mean(dim=(0, 2))
+        clamp_frac = torch.where(act, torch.clamp(1.0 - free_share, 0.0, 1.0), clamp_frac)
+        qp_iters = torch.where(act, out.n_qp_iter.to(dtype).mean(dim=0), qp_iters)
+        i += 1
+    info = MPCInfo(
+        converged=last_improvement < config.eps,
+        n_iters=torch.tensor(i, dtype=torch.int32, device=device),
+        last_improvement=last_improvement,
+        mean_alpha=alpha,
+        clamp_frac=clamp_frac,
+        qp_iters=qp_iters,
+    )
+    return best_x, best_u, info
+
+
 def mpc_solve(
     config: MPCConfig,
     x_init: torch.Tensor,
@@ -152,11 +266,12 @@ def mpc_solve(
     prev_ctrl: Optional[torch.Tensor] = None,
     u_zero_I=None,
 ) -> MPCSolution:
-    """Solve a batch of box-constrained nonlinear MPC problems.
+    """Solve a batch of (possibly nonlinear, box-constrained) MPC problems.
 
     Same contract as :func:`diffmpc_tpu.mpc.mpc_solve`; the solve follows
-    ``x_init``'s dtype and device. ``prev_ctrl`` only matters with a slew
-    rate penalty, which is not ported yet.
+    ``x_init``'s dtype and device. ``dx`` is an env or a ``LinDx``; bounds
+    may be None for an unconstrained problem. ``prev_ctrl`` only matters
+    with a slew rate penalty, which is not ported yet.
     """
     T, n, m = config.T, config.n_state, config.n_ctrl
     if config.slew_rate_penalty is not None and config.slew_rate_penalty > 0:
@@ -166,96 +281,109 @@ def mpc_solve(
     B = x_init.shape[0]
     dtype, device = x_init.dtype, x_init.device
     is_quad = isinstance(cost, QuadCost)
+    is_lin = isinstance(dx, LinDx)
     if is_quad and cost.C.shape[-1] != n + m:
         raise ValueError(
             f"QuadCost.C trailing dim must be n_state+n_ctrl={n + m}; "
             f"got {tuple(cost.C.shape)}"
+        )
+    if is_lin and tuple(dx.F.shape[-2:]) != (n, n + m):
+        raise ValueError(
+            f"LinDx.F trailing dims must be (n_state={n}, n_state+n_ctrl={n + m}); "
+            f"got {tuple(dx.F.shape)}"
         )
     if (u_lower is None) != (u_upper is None):
         raise ValueError("u_lower and u_upper must be both set or both None")
     _check_param_batch(dx, B)
     lo = _expand_bound(u_lower, T, B, m, dtype, device)
     hi = _expand_bound(u_upper, T, B, m, dtype, device)
+    constrained = lo is not None
 
     if u_zero_I is not None:
         raise _unported("u_zero_I", "the rest of mpc.py")
     if not is_quad:
-        raise _unported("a callable cost", "the non-fused path")
-    if not hasattr(dx, "entries_step"):
+        raise _unported("a callable cost", "the rest of the non-fused path (item 3)")
+    if not is_lin and not (hasattr(dx, "entries_step") and getattr(dx, "kernel_fusable", True)):
         raise _unported(
-            f"dynamics {type(dx).__name__} without entries_step (LinDx or a "
-            "non-fusable model)",
-            "the non-fused path",
+            f"dynamics {type(dx).__name__} (no kernel-fusable entries_step)",
+            "the rest of the dynamics zoo",
         )
-    if lo is None:
-        raise _unported("an unconstrained problem (no bounds)", "the non-fused path")
-    if config.grad_method == GradMethods.FINITE_DIFF:
-        raise _unported("GradMethods.FINITE_DIFF", "the non-fused path")
-    if config.verbose > 0:
-        raise _unported("verbose > 0", "the non-fused path")
-    if m != 1:
-        raise _unported(f"n_ctrl = {m}", "the m = 2 box QP")
-    if not _would_use_fused(config, dx, is_quad=is_quad, constrained=True):
-        raise _unported(f"dynamics {type(dx).__name__} (not kernel-fusable)", "the rest of the dynamics zoo")
     attach = (
         config.backprop
         and torch.is_grad_enabled()
-        and _requires_grad(x_init, cost.C, cost.c, getattr(dx, "params", None))
+        and _requires_grad(
+            x_init, cost.C, cost.c, *((dx.F, dx.f) if is_lin else (getattr(dx, "params", None),))
+        )
     )
 
     cost = _expand_cost(cost, T, B, dtype, device)
+    if is_lin:
+        dx = _expand_lin_dx(dx, T, B, n, dtype, device)
     u0 = None
     if u_init is not None:
         u0 = torch.as_tensor(u_init, dtype=dtype, device=device).detach()
         if u0.ndim == 2:
             u0 = u0[:, None].expand(T, B, m)
 
-    fr = ilqr_solve_fused(
-        x_init.detach(),
-        cost.C.detach(),
-        cost.c.detach(),
-        dx,
-        lo.detach(),
-        hi.detach(),
-        u_init=u0,
-        lqr_iter=config.lqr_iter,
-        pnqp_iter=min(config.pnqp_iter, 8),
-        reg=config.back_eps,
-        decay=config.linesearch_decay,
-        max_linesearch_iter=config.max_linesearch_iter,
-        delta_u=config.delta_u,
-        eps=config.eps,
-        best_cost_eps=config.best_cost_eps,
-        not_improved_lim=config.not_improved_lim,
-        use_cuda=config.use_cuda,
-    )
-    xs, us = fr.xs, fr.us
+    if _would_use_fused(config, dx, is_quad=is_quad, constrained=constrained, is_lin=is_lin):
+        fr = ilqr_solve_fused(
+            x_init.detach(),
+            cost.C.detach(),
+            cost.c.detach(),
+            dx,
+            lo.detach(),
+            hi.detach(),
+            u_init=u0,
+            lqr_iter=config.lqr_iter,
+            pnqp_iter=min(config.pnqp_iter, 8),
+            reg=config.back_eps,
+            decay=config.linesearch_decay,
+            max_linesearch_iter=config.max_linesearch_iter,
+            delta_u=config.delta_u,
+            eps=config.eps,
+            best_cost_eps=config.best_cost_eps,
+            not_improved_lim=config.not_improved_lim,
+            use_cuda=config.use_cuda,
+        )
+        best_x, best_u = fr.xs, fr.us
+        tol = config.tight_eps
+        at_bound = (best_u <= lo + tol) | (best_u >= hi - tol)
+        info = MPCInfo(
+            converged=fr.converged,
+            # iterations until ALL scenarios froze: the max of the per-scenario counts
+            n_iters=fr.n_iters.max(),
+            last_improvement=fr.last_improvement,
+            mean_alpha=fr.alpha,
+            clamp_frac=torch.clamp(at_bound.to(dtype).mean(dim=(0, 2)), 0.0, 1.0),
+            qp_iters=fr.qp_iters,
+        )
+    else:
+        dx_sg = LinDx(dx.F.detach(), dx.f.detach()) if is_lin else dx
+        best_x, best_u, info = _ilqr_loop(
+            config, x_init.detach(), cost.C.detach(), cost.c.detach(), dx_sg,
+            None if lo is None else lo.detach(), None if hi is None else hi.detach(), u0,
+        )
+
+    xs, us = best_x, best_u
     if attach:
         # the differentiable fixed-point attach (mpc.py:639-671 of the JAX
-        # package): linearize once more at the solved trajectory with
-        # gradients flowing from the env's params, then the custom backward
-        F, f = linearize_dynamics(dx, xs, us, config.grad_method)
+        # package): the LinDx arrays themselves, or the env linearized once
+        # more at the solved trajectory with gradients flowing from its
+        # params; then the custom backward
+        F, f = dx if is_lin else linearize_dynamics(dx, xs, us, config.grad_method)
+        big = torch.full((T, B, m), 1e18, dtype=dtype, device=device)
         spec = LqrSpec(
-            n_state=n, constrained=True, tight_eps=config.tight_eps,
+            n_state=n, constrained=constrained, tight_eps=config.tight_eps,
             back_eps=config.back_eps, use_cuda=config.use_cuda,
         )
-        best_x, best_u = xs, us
-        xs, us = lqr_fixed_point(spec, x_init, cost.C, cost.c, F, f, best_x, best_u, lo, hi)
+        xs, us = lqr_fixed_point(
+            spec, x_init, cost.C, cost.c, F, f, best_x, best_u,
+            lo if constrained else -big, hi if constrained else big,
+        )
         if config.detach_unconverged:
-            keep = fr.converged[None, :, None]
+            keep = info.converged[None, :, None]
             xs = torch.where(keep, xs, best_x)
             us = torch.where(keep, us, best_u)
-    tol = config.tight_eps
-    at_bound = (us <= lo + tol) | (us >= hi - tol)
-    info = MPCInfo(
-        converged=fr.converged,
-        # iterations until ALL scenarios froze: the max of the per-scenario counts
-        n_iters=fr.n_iters.max(),
-        last_improvement=fr.last_improvement,
-        mean_alpha=fr.alpha,
-        clamp_frac=torch.clamp(at_bound.to(dtype).mean(dim=(0, 2)), 0.0, 1.0),
-        qp_iters=fr.qp_iters,
-    )
     objs = trajectory_cost(cost.C, cost.c, xs, us)
     return MPCSolution(xs, us, objs, info)
 
@@ -324,7 +452,7 @@ class MPC:
         if self.config.grad_method == GradMethods.ANALYTIC_CHECK:
             raise _unported(
                 "GradMethods.ANALYTIC_CHECK (its host-side Jacobian check)",
-                "the non-fused path",
+                "the rest of the non-fused path (item 3)",
             )
         sol = mpc_solve(
             self.config,

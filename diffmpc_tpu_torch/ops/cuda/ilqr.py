@@ -25,12 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ...models.envs.pendulum import PendulumDx
-from .riccati_entries import (
-    _masked_chol_solve,
-    _pnqp_entries,
-    _value_update,
-    require_box_qp_ported,
-)
+from .riccati_entries import _clip, _masked_chol_solve, _pnqp_entries, _value_update
 
 
 class FusedSolveResult(NamedTuple):
@@ -118,7 +113,6 @@ def ilqr_solve_plain(
     ``entries_step``. Scenarios that froze keep their state through
     ``where``; the loop stops once all have."""
     T, B, n, m = _check_shapes(x_init, C, c, u_lower, u_upper, u_init)
-    require_box_qp_ported(m)
     nm = n + m
     dtype = x_init.dtype
     f32 = torch.float32
@@ -146,9 +140,6 @@ def ilqr_solve_plain(
             acc = term if acc is None else acc + term
         return acc
 
-    def clip(v, lo_, hi_):
-        return torch.minimum(torch.maximum(v, lo_), hi_)
-
     def control(t, x, alpha):
         u = []
         for a in range(m):
@@ -156,8 +147,8 @@ def ilqr_solve_plain(
             for j in range(n):
                 acc = acc + K_g[t][a][j] * (x[j] - xh[t][j])
             if delta_u is not None:
-                acc = clip(acc, uh[t][a] - delta_u, uh[t][a] + delta_u)
-            u.append(clip(acc, lo[t, a], hi[t, a]))
+                acc = _clip(acc, uh[t][a] - delta_u, uh[t][a] + delta_u)
+            u.append(_clip(acc, lo[t, a], hi[t, a]))
         return u
 
     def rollout_obj(alpha):
@@ -172,7 +163,7 @@ def ilqr_solve_plain(
     xh, uh = [], []
     x, obj = x0, zero
     for t in range(T):
-        u = [clip(ui[t, a] if ui is not None else zero, lo[t, a], hi[t, a]) for a in range(m)]
+        u = [_clip(ui[t, a] if ui is not None else zero, lo[t, a], hi[t, a]) for a in range(m)]
         xh.append(list(x))
         uh.append(u)
         obj = obj + stage_cost(t, x, u)
@@ -315,6 +306,13 @@ class _PendulumEnv(ctypes.Structure):
     ]
 
 
+def bm(a: torch.Tensor) -> torch.Tensor:
+    """``(T, B, *trail) -> (T, *trail, B)``, contiguous: the kernels'
+    batch-minor layout. A tensor already laid out so (such as a kernel's
+    output viewed back in the public layout) is not copied."""
+    return a.permute(0, *range(2, a.ndim), 1).contiguous()
+
+
 def run_staged(
     launch,
     x_init, C, c, dyn, u_lower, u_upper, *,
@@ -329,7 +327,6 @@ def run_staged(
     launcher for CUDA tensors, or a host build of the same headers for CPU
     tensors (the tests do that). Float32 inputs only."""
     T, B, n, m = _check_shapes(x_init, C, c, u_lower, u_upper, u_init)
-    require_box_qp_ported(m)
     if not isinstance(dyn, PendulumDx):
         raise NotImplementedError(
             f"the CUDA kernel has a C++ step for PendulumDx only, not "
@@ -350,9 +347,6 @@ def run_staged(
             raise ValueError(f"tensors on {tsr.device} and {device}")
     if params.shape not in ((3,), (B, 3)):
         raise ValueError(f"PendulumDx params must be (3,) or (B={B}, 3); got {tuple(params.shape)}")
-
-    def bm(a):  # (T, B, *trail) -> (T, *trail, B), contiguous
-        return a.permute(0, *range(2, a.ndim), 1).contiguous()
 
     C_k = bm(C)
     c_k = bm(c)
@@ -460,6 +454,32 @@ def resolve_use_cuda(use_cuda: Optional[bool], device: torch.device) -> bool:
             "runs on CUDA tensors and its plain version on CPU tensors only"
         )
     return on_cuda
+
+
+# The (n, m) shapes the Riccati, rollout and KKT kernels are instantiated
+# for, each with its own extern "C" launcher diffmpc_<kind>_n<n>m<m>: the
+# pendulum (3, 1), and (3, 2), (4, 1), (4, 2) for the linear problems of
+# BASELINE.json configs 1 and 2 and the box-DDP golden.
+KERNEL_SHAPES = ((3, 1), (3, 2), (4, 1), (4, 2))
+
+
+def kernel_symbol(kind: str, n: int, m: int, argtypes: list):
+    """The launcher of kernel ``kind`` for ``(n, m)`` from the built library,
+    with its ctypes signature set (``argtypes``, an int return: the CUDA
+    error code). Raises ``NotImplementedError`` for a shape outside
+    :data:`KERNEL_SHAPES`."""
+    if (n, m) not in KERNEL_SHAPES:
+        raise NotImplementedError(
+            f"the {kind} kernel is instantiated for (n, m) in {KERNEL_SHAPES}, not "
+            f"n = {n}, m = {m}: each further (n, m) comes with the env that needs "
+            "it (the rest of the dynamics zoo, ROADMAP.md, queue 1)"
+        )
+    from ...csrc import build
+
+    fn = getattr(build.load(), f"diffmpc_{kind}_n{n}m{m}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def ilqr_solve_fused(

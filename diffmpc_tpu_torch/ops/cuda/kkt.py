@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from .ilqr import resolve_use_cuda
+from .ilqr import bm, kernel_symbol, resolve_use_cuda
 from .riccati_entries import _masked_chol_solve, _value_update
 
 
@@ -189,9 +189,6 @@ def run_staged_kkt(launch, C, c, F, r, tau, tight, *, reg: float = 1e-7):
         if a.device != device:
             raise ValueError(f"tensors on {a.device} and {device}")
 
-    def bm(a):  # (T, B, *trail) -> (T, *trail, B), contiguous
-        return a.permute(0, *range(2, a.ndim), 1).contiguous()
-
     ins = [bm(C), bm(c), bm(F), bm(r), bm(tau), bm(tight.to(torch.float32))]
     f32 = dict(dtype=torch.float32, device=device)
     dx_init = torch.empty((n, B), **f32)
@@ -216,12 +213,8 @@ def run_staged_kkt(launch, C, c, F, r, tau, tight, *, reg: float = 1e-7):
     )
 
 
-def _cuda_launcher(device: torch.device):
-    from ...csrc import build
-
-    fn = build.load().diffmpc_kkt_backward_n3m1
-    fn.argtypes = [ctypes.POINTER(_KktArgs), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _cuda_launcher(device: torch.device, n: int, m: int):
+    fn = kernel_symbol("kkt_backward", n, m, [ctypes.POINTER(_KktArgs), ctypes.c_void_p])
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch(args, n, m):
@@ -249,24 +242,18 @@ def kkt_backward_fused(
     ``(dx_init, dC, dc, dF, df)`` in ``C.dtype``; the backward itself runs
     in float32.
 
-    CUDA tensors launch the kernel (compiled for n = 3, m = 1; anything
-    else raises) and add one to ``kkt_backward_fused.launches``; CPU
+    CUDA tensors launch the kernel (compiled for the ``(n, m)`` of
+    :data:`~diffmpc_tpu_torch.ops.cuda.ilqr.KERNEL_SHAPES`; any other shape
+    raises) and add one to ``kkt_backward_fused.launches``; CPU
     tensors run :func:`kkt_backward_plain`. See
     :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`."""
     if not resolve_use_cuda(use_cuda, C.device):
         return kkt_backward_plain(C, c, F, r, tau, tight, reg=reg)
     T, B, n, m = _check_shapes(C, c, F, r, tau, tight)
-    if (n, m) != (3, 1):
-        raise NotImplementedError(
-            f"the KKT kernel is instantiated for n = 3, m = 1 (the pendulum) "
-            f"only, not n = {n}, m = {m}: each further (n, m) comes with the "
-            "env that needs it (the rest of the dynamics zoo and the m = 2 box "
-            "QP, ROADMAP.md, queue 1)"
-        )
     dtype = C.dtype
     f32 = [a.to(torch.float32) for a in (C, c, F, r, tau)]
     with torch.cuda.device(C.device):
-        out = run_staged_kkt(_cuda_launcher(C.device), *f32, tight, reg=reg)
+        out = run_staged_kkt(_cuda_launcher(C.device, n, m), *f32, tight, reg=reg)
     return tuple(x.to(dtype) for x in out)
 
 

@@ -1,15 +1,18 @@
-"""Per-step Riccati helpers of the fused iLQR solve, in plain PyTorch.
+"""Per-step Riccati helpers of the kernels, in plain PyTorch.
 
 Counterparts of the entry-tile helpers of
 :mod:`diffmpc_tpu.ops.pallas.riccati` (``_chol_entries``,
-``_cho_solve_entries``, ``_masked_chol_solve``, the m = 1 closed form of
-``_pnqp_entries`` and the full-form ``_value_update``). Every matrix entry is
-a ``(B,)`` tensor over scenarios and the small matrices are lists of them, so
-the arithmetic is the same, entry by entry and in the same order, as the
-device functions of ``csrc/riccati_entries.cuh`` that the CUDA kernel runs.
+``_cho_solve_entries``, ``_masked_chol_solve``, the box QP
+``_pnqp_entries`` with its m = 2 enumeration ``_pnqp_enum_entries``, and the
+full-form ``_value_update``). Every matrix entry is a ``(B,)`` tensor over
+scenarios and the small matrices are lists of them, so the arithmetic is the
+same, entry by entry and in the same order, as the device functions of
+``csrc/riccati_entries.cuh`` that the CUDA kernels run.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -71,28 +74,117 @@ def _masked_chol_solve(Quu, rhs_cols, frozen, m, reg):
     ]
 
 
-def require_box_qp_ported(m: int) -> None:
-    """Raise unless the box QP for ``m`` control dims is ported (m = 1)."""
-    if m != 1:
-        raise NotImplementedError(
-            f"the box QP is ported for m = 1 only (got m = {m}): the m = 2 "
-            "enumeration and the projected-Newton loop come with the m = 2 "
-            "box QP (ROADMAP.md, queue 1)"
-        )
+def _clip(x, lo, hi):
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _qp_obj(Quu, qu, x, m):
+    return sum(0.5 * x[i] * sum(Quu[i][j] * x[j] for j in range(m)) + qu[i] * x[i] for i in range(m))
+
+
+def _qp_frozen(Quu, qu, lo, hi, x, m):
+    """The clamped mask at ``x``, with the 1e-6 boundary tolerance of
+    ops/pnqp.py, as 1.0 / 0.0 entries."""
+    g = [sum(Quu[i][j] * x[j] for j in range(m)) + qu[i] for i in range(m)]
+    return [
+        (((x[i] <= lo[i] + 1e-6) & (g[i] > 0)) | ((x[i] >= hi[i] - 1e-6) & (g[i] < 0))).to(x[i].dtype)
+        for i in range(m)
+    ]
+
+
+def _clipped_newton(Quu, qu, lo, hi, m, reg):
+    L0 = _chol_entries(Quu, m, reg)
+    x0 = _cho_solve_entries(L0, [-qu[i] for i in range(m)], m)
+    return [_clip(x0[i], lo[i], hi[i]) for i in range(m)]
+
+
+def _pnqp_enum_entries(Quu, qu, lo, hi, m, reg):
+    """Exact box QP by active-set enumeration: the ``3**m`` candidates (each
+    dim free / at lo / at hi) in ``itertools.product`` order, each solved on
+    its free block; the KKT-valid candidate of least objective wins by a
+    strict ``<`` (ties go to the earlier candidate), starting from the
+    clipped Newton point. Relative tolerances, as on the TPU."""
+    tol = 1e-6
+    tol_b = [tol * (1.0 + torch.abs(hi[i] - lo[i])) for i in range(m)]
+    tol_g = [tol * (1.0 + torch.abs(qu[i])) for i in range(m)]
+    big = torch.full_like(qu[0], 1e30)
+    best = _clipped_newton(Quu, qu, lo, hi, m, reg)
+    best_obj = _qp_obj(Quu, qu, best, m)
+    for combo in itertools.product((0, 1, 2), repeat=m):
+        free_idx = [i for i, s in enumerate(combo) if s == 0]
+        if len(free_idx) == m:
+            continue  # all free: the starting candidate
+        fixed = {i: (lo[i] if s == 1 else hi[i]) for i, s in enumerate(combo) if s != 0}
+        x = [fixed.get(i) for i in range(m)]
+        if free_idx:
+            A = [[Quu[i][j] for j in free_idx] for i in free_idx]
+            b = [-(qu[i] + sum(Quu[i][j] * fixed[j] for j in fixed)) for i in free_idx]
+            sol = _cho_solve_entries(_chol_entries(A, len(free_idx), reg), b, len(free_idx))
+            for k, i in enumerate(free_idx):
+                x[i] = sol[k]
+        g = [sum(Quu[i][j] * x[j] for j in range(m)) + qu[i] for i in range(m)]
+        valid = None
+        for i, s in enumerate(combo):
+            if s == 0:
+                ok = (x[i] >= lo[i] - tol_b[i]) & (x[i] <= hi[i] + tol_b[i])
+            elif s == 1:
+                ok = g[i] >= -tol_g[i]
+            else:
+                ok = g[i] <= tol_g[i]
+            valid = ok if valid is None else (valid & ok)
+        x = [_clip(x[i], lo[i], hi[i]) for i in range(m)]
+        o = torch.where(valid, _qp_obj(Quu, qu, x, m), big)
+        take = o < best_obj
+        best = [torch.where(take, x[i], best[i]) for i in range(m)]
+        best_obj = torch.where(take, o, best_obj)
+    return best
+
+
+def _pnqp_loop_entries(Quu, qu, lo, hi, m, n_iter, reg):
+    """Box QP by projected Newton (m >= 3): ``n_iter`` steps with converged
+    scenarios frozen, each the masked Newton direction and a first-improving
+    6-step Armijo ladder. Returns ``(x, n_qp)``, ``n_qp`` the iterations used
+    while active."""
+    x = _clipped_newton(Quu, qu, lo, hi, m, reg)
+    done = torch.zeros_like(x[0])
+    n_qp = torch.zeros_like(x[0])
+    for _ in range(n_iter):
+        frozen = _qp_frozen(Quu, qu, lo, hi, x, m)
+        g = [sum(Quu[i][j] * x[j] for j in range(m)) + qu[i] for i in range(m)]
+        (dx,) = _masked_chol_solve(Quu, [[-g[i] for i in range(m)]], frozen, m, reg)
+        slack = sum(torch.clamp_min(torch.abs(dx[i]) - 1e-6, 0.0) for i in range(m))
+        step_small = (slack == 0.0).to(done.dtype)
+        f0 = _qp_obj(Quu, qu, x, m)
+        best, accepted, alpha = x, torch.zeros_like(f0), 1.0
+        for _a in range(6):
+            cand = [_clip(x[i] + alpha * dx[i], lo[i], hi[i]) for i in range(m)]
+            better = (_qp_obj(Quu, qu, cand, m) < f0) & (accepted == 0.0)
+            best = [torch.where(better, cand[i], best[i]) for i in range(m)]
+            accepted = torch.where(better, 1.0, accepted)
+            alpha *= 0.5
+        x = [torch.where(done > 0, x[i], best[i]) for i in range(m)]
+        n_qp = n_qp + (1.0 - done)
+        done = torch.maximum(done, torch.maximum(step_small, 1.0 - accepted))
+    return x, n_qp
 
 
 def _pnqp_entries(Quu, qu, lo, hi, m, n_iter, reg):
     """Box QP ``min 0.5 x'Quu x + qu'x, lo <= x <= hi``: returns
-    ``(x, frozen, n_qp)``. Only the exact m = 1 closed form is ported
-    (``n_qp = 1``, a direct solve); ``n_iter`` is the iteration cap of the
-    projected-Newton loop that m >= 3 will use."""
-    require_box_qp_ported(m)
-    h = Quu[0][0] + reg
-    x = torch.minimum(torch.maximum(-qu[0] / h, lo[0]), hi[0])
-    g = Quu[0][0] * x + qu[0]
-    # the same 1e-6 boundary tolerance as ops/pnqp.py
-    clamped = ((x <= lo[0] + 1e-6) & (g > 0)) | ((x >= hi[0] - 1e-6) & (g < 0))
-    return [x], [clamped.to(x.dtype)], torch.ones_like(x)
+    ``(x, frozen, n_qp)``. Dispatch as the TPU kernel's default: the exact
+    m = 1 closed form and the m = 2 enumeration (``n_qp = 1``, direct
+    solves), the projected-Newton loop of ``n_iter`` steps at m >= 3."""
+    if m == 1:
+        h = Quu[0][0] + reg
+        x = _clip(-qu[0] / h, lo[0], hi[0])
+        g = Quu[0][0] * x + qu[0]
+        # the same 1e-6 boundary tolerance as ops/pnqp.py
+        clamped = ((x <= lo[0] + 1e-6) & (g > 0)) | ((x >= hi[0] - 1e-6) & (g < 0))
+        return [x], [clamped.to(x.dtype)], torch.ones_like(x)
+    if m == 2:
+        x, n_qp = _pnqp_enum_entries(Quu, qu, lo, hi, m, reg), torch.ones_like(qu[0])
+    else:
+        x, n_qp = _pnqp_loop_entries(Quu, qu, lo, hi, m, n_iter, reg)
+    return x, _qp_frozen(Quu, qu, lo, hi, x, m), n_qp
 
 
 def _value_update(Q, q, Quu, qu, K, kt, n, m):

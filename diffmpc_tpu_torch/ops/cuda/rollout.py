@@ -1,0 +1,347 @@
+"""The alpha-ladder line-search rollout: CUDA kernel wrapper and plain version.
+
+Counterpart of :func:`diffmpc_tpu.ops.pallas.rollout.linesearch_rollout_pallas`,
+the TPU kernel of the non-fused path's line search: the cost of the current
+trajectory ``(x_hat, u_hat)`` as the accept baseline, the rolled ladder
+``alpha = 1, alpha *= decay`` of ``max_iter`` closed-loop rollouts
+``u = u_hat + alpha k + K (x - x_hat)`` (the ``delta_u`` clamp, then the
+box), the first strictly improving step per scenario (else
+``decay**(max_iter-1)``), and the replay of the chosen step.
+
+- :func:`linesearch_rollout_cuda` launches the kernel of ``csrc/rollout.cu``
+  (one thread per scenario) on CUDA tensors and counts its launches: linear
+  dynamics from ``F, f``, or the pendulum's own step.
+- :func:`linesearch_rollout_plain` is the same algorithm in plain PyTorch:
+  each entry is a tensor over scenarios, the ladder's rollouts run side by
+  side as a leading dim (elementwise, so each is the rollout the kernel
+  runs), and the env step is its ``entries_step``. It serves CPU tensors and
+  the checks of the kernel.
+
+Both compute in float32 and cast the trajectory, costs and steps back to
+``x_init.dtype``. The public layout is the JAX function's: ``x_init (B,n)``,
+``C (T,B,nm,nm)``, ``c (T,B,nm)``, ``F (T,B,n,nm)``, ``f (T,B,n)`` or None,
+``K (T,B,m,n)``, ``k (T,B,m)``, ``x_hat (T,B,n)``, ``u_hat (T,B,m)``, bounds
+broadcastable to ``(T,B,m)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from ...models.envs.pendulum import PendulumDx
+from .ilqr import _PendulumEnv, bm, kernel_symbol, resolve_use_cuda
+from .riccati_entries import _clip
+
+
+class LineSearchResult(NamedTuple):
+    xs: torch.Tensor  # (T, B, n)
+    us: torch.Tensor  # (T, B, m)
+    objs: torch.Tensor  # (B,) accepted trajectory cost
+    alpha: torch.Tensor  # (B,) accepted step size
+    improved: torch.Tensor  # (B,) bool: strict improvement over (x_hat, u_hat)
+
+
+def _check_shapes(x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower, u_upper):
+    if K.ndim != 4:
+        raise ValueError(f"K must be (T, B, m, n); got {tuple(K.shape)}")
+    T, B, m, n = K.shape
+    nm = n + m
+    shapes = [
+        ("x_init", x_init, (B, n)), ("C", C, (T, B, nm, nm)), ("c", c, (T, B, nm)),
+        ("k", k, (T, B, m)), ("x_hat", x_hat, (T, B, n)), ("u_hat", u_hat, (T, B, m)),
+    ]
+    if F is not None:
+        shapes.append(("F", F, (T, B, n, nm)))
+    if f is not None:
+        shapes.append(("f", f, (T, B, n)))
+    for name, a, shape in shapes:
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(a.shape)}")
+    if (u_lower is None) != (u_upper is None):
+        raise ValueError("u_lower and u_upper must be both set or both None")
+    return T, B, n, m
+
+
+# ---------------------------------------------------------------------------
+# The plain PyTorch version.
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def linesearch_rollout_plain(
+    x_init: torch.Tensor,
+    C: torch.Tensor,
+    c: torch.Tensor,
+    F: Optional[torch.Tensor],
+    f: Optional[torch.Tensor],
+    K: torch.Tensor,
+    k: torch.Tensor,
+    x_hat: torch.Tensor,
+    u_hat: torch.Tensor,
+    *,
+    u_lower: Optional[torch.Tensor] = None,
+    u_upper: Optional[torch.Tensor] = None,
+    delta_u: Optional[float] = None,
+    dyn=None,
+    decay: float = 0.2,
+    max_iter: int = 10,
+) -> LineSearchResult:
+    """The line search in plain PyTorch, on any device; same contract as
+    :func:`linesearch_rollout_cuda`, for any ``(n, m)`` and any env with
+    ``entries_step`` (``dyn``; None takes the linear dynamics ``F, f``)."""
+    T, B, n, m = _check_shapes(x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower, u_upper)
+    nm = n + m
+    f32 = torch.float32
+    # entry views: Ce[t, a, b] and friends are (B,) tensors
+    Ce = C.to(f32).permute(0, 2, 3, 1)
+    ce = c.to(f32).permute(0, 2, 1)
+    Ke = K.to(f32).permute(0, 2, 3, 1)
+    ke = k.to(f32).permute(0, 2, 1)
+    xh = x_hat.to(f32).permute(0, 2, 1)
+    uh = u_hat.to(f32).permute(0, 2, 1)
+    x0 = list(x_init.to(f32).t())
+    if u_lower is not None:
+        lo = u_lower.to(f32).expand(T, B, m).permute(0, 2, 1)
+        hi = u_upper.to(f32).expand(T, B, m).permute(0, 2, 1)
+    if dyn is None:
+        Fe = F.to(f32).permute(0, 2, 3, 1)
+        fe = None if f is None else f.to(f32).permute(0, 2, 1)
+    else:
+        params = dyn.kernel_params().to(f32)
+        params = list(params.t()) if params.ndim == 2 else list(params)
+
+    def stage_cost(t, x, u):
+        tau = x + u
+        acc = None
+        for a in range(nm):
+            Ctau = sum(Ce[t, a, b] * tau[b] for b in range(nm))
+            term = (0.5 * Ctau + ce[t, a]) * tau[a]
+            acc = term if acc is None else acc + term
+        return acc
+
+    def advance(t, x, u):
+        if dyn is not None:
+            return dyn.entries_step(params, x, u)
+        tau = x + u
+        out = [sum(Fe[t, a, b] * tau[b] for b in range(nm)) for a in range(n)]
+        return out if fe is None else [out[a] + fe[t, a] for a in range(n)]
+
+    def rollout(alpha, emit=None):
+        """Costs of the rollouts at ``alpha`` (entries broadcast against
+        it); with ``emit``, append each step's ``(x, u)`` to it."""
+        x, obj = x0, 0.0
+        for t in range(T):
+            u = []
+            for a in range(m):
+                acc = uh[t, a] + alpha * ke[t, a]
+                for j in range(n):
+                    acc = acc + Ke[t, a, j] * (x[j] - xh[t, j])
+                if delta_u is not None:
+                    acc = _clip(acc, uh[t, a] - delta_u, uh[t, a] + delta_u)
+                if u_lower is not None:
+                    acc = _clip(acc, lo[t, a], hi[t, a])
+                u.append(acc)
+            if emit is not None:
+                emit.append((x, u))
+            obj = obj + stage_cost(t, x, u)
+            x = advance(t, x, u)
+        return obj
+
+    obj0 = 0.0
+    for t in range(T):
+        obj0 = obj0 + stage_cost(t, list(xh[t]), list(uh[t]))
+    # the rolled ladder, its rollouts side by side: alphas (A, 1)
+    alpha = torch.ones((), dtype=f32, device=C.device)
+    alphas = []
+    for _ in range(max_iter):
+        alphas.append(alpha)
+        alpha = alpha * decay
+    alphas = torch.stack(alphas)[:, None]
+    improving = rollout(alphas) < obj0  # (A, B)
+    has = improving.any(0)
+    first = torch.argmax(improving.to(torch.int8), 0)
+    floor = torch.full_like(alphas[0, 0], decay ** (max_iter - 1))
+    chosen = torch.where(has, alphas[first, 0], floor)
+    steps = []
+    objs = rollout(chosen, steps)
+
+    dtype = x_init.dtype
+    return LineSearchResult(
+        torch.stack([torch.stack(x, -1) for x, _ in steps]).to(dtype),
+        torch.stack([torch.stack(u, -1) for _, u in steps]).to(dtype),
+        objs.to(dtype),
+        chosen.to(dtype),
+        has,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel.
+# ---------------------------------------------------------------------------
+
+
+class _RolloutArgs(ctypes.Structure):
+    """ctypes mirror of ``struct RolloutArgs`` in ``csrc/rollout.cuh``."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "params", "C", "c", "F", "f", "K", "k", "x_hat", "u_hat", "x_init",
+            "u_lower", "u_upper", "xs", "us", "objs", "alpha", "improved",
+        )
+    ] + [
+        (name, ctypes.c_int) for name in ("T", "B", "params_stride", "n_alpha", "has_delta_u")
+    ] + [(name, ctypes.c_float) for name in ("decay", "alpha_floor", "delta_u")]
+
+
+def _check_dyn(dyn, n, m):
+    """The dynamics the kernel has a C++ step for: linear (None) or the
+    pendulum."""
+    if dyn is None:
+        return
+    if not isinstance(dyn, PendulumDx):
+        raise NotImplementedError(
+            f"the rollout kernel has a C++ step for PendulumDx only, not "
+            f"{type(dyn).__name__}: the other envs come with the rest of the "
+            "dynamics zoo (ROADMAP.md, queue 1)"
+        )
+    if (n, m) != (PendulumDx.n_state, PendulumDx.n_ctrl):
+        raise ValueError(f"PendulumDx is n=3, m=1; got n={n}, m={m}")
+
+
+def run_staged_rollout(
+    launch, x_init, C, c, F, f, K, k, x_hat, u_hat, *, u_lower=None, u_upper=None,
+    delta_u=None, dyn=None, decay=0.2, max_iter=10,
+) -> LineSearchResult:
+    """Stage the inputs batch-minor, allocate the outputs, call
+    ``launch(args, n, m, env)`` with a pointer to the ``RolloutArgs`` struct
+    and, for an env, to its ``PendulumEnv`` struct (None for linear
+    dynamics), and return the outputs in the public layout.
+
+    ``launch`` runs ``linesearch_rollout_scenario`` for every scenario: the
+    CUDA launcher for CUDA tensors, or a host build of the same header for
+    CPU tensors (the tests do that). Float32 inputs only. With an env,
+    ``F, f`` are not staged: the kernel does not read them."""
+    T, B, n, m = _check_shapes(x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower, u_upper)
+    _check_dyn(dyn, n, m)
+    if dyn is not None:
+        F = f = None
+    elif F is None:
+        raise ValueError("linear dynamics need F")
+    device = x_init.device
+    named = dict(
+        x_init=x_init, C=C, c=c, F=F, f=f, K=K, k=k, x_hat=x_hat, u_hat=u_hat,
+        u_lower=u_lower, u_upper=u_upper,
+        params=None if dyn is None else dyn.kernel_params(),
+    )
+    for name, a in named.items():
+        if a is None:
+            continue
+        if a.dtype != torch.float32:
+            raise TypeError(f"the rollout kernel takes float32 tensors; {name} is {a.dtype}")
+        if a.device != device:
+            raise ValueError(f"tensors on {a.device} and {device}")
+    params = named.pop("params")
+    if params is not None and params.shape not in ((3,), (B, 3)):
+        raise ValueError(f"PendulumDx params must be (3,) or (B={B}, 3); got {tuple(params.shape)}")
+
+    ins = {
+        name: None if a is None else bm(a.expand(T, B, m) if name in ("u_lower", "u_upper") else a)
+        for name, a in named.items() if name != "x_init"
+    }
+    ins["x_init"] = x_init.t().contiguous()
+    ins["params"] = None if params is None else params.contiguous()
+    f32 = dict(dtype=torch.float32, device=device)
+    xs = torch.empty((T, n, B), **f32)
+    us = torch.empty((T, m, B), **f32)
+    stats = torch.empty((3, B), **f32)  # objs, alpha, improved
+    args = _RolloutArgs(
+        **{name: a.data_ptr() for name, a in ins.items() if a is not None},
+        xs=xs.data_ptr(), us=us.data_ptr(), objs=stats[0].data_ptr(),
+        alpha=stats[1].data_ptr(), improved=stats[2].data_ptr(),
+        T=T, B=B, params_stride=3 if params is not None and params.ndim == 2 else 0,
+        n_alpha=max_iter, has_delta_u=int(delta_u is not None), decay=decay,
+        alpha_floor=decay ** (max_iter - 1), delta_u=0.0 if delta_u is None else delta_u,
+    )
+    env = None
+    if dyn is not None:
+        env = ctypes.byref(_PendulumEnv(dyn.max_torque, dyn.max_speed, dyn.dt, int(dyn.clamp_ctrl)))
+    launch(ctypes.byref(args), n, m, env)
+    # The staged inputs are freed when this returns, while the kernel may
+    # still run: PyTorch's caching allocator reuses a block only in stream
+    # order, and the kernel runs on the current stream.
+    return LineSearchResult(
+        xs.permute(0, 2, 1), us.permute(0, 2, 1), stats[0], stats[1], stats[2] > 0.5
+    )
+
+
+def _cuda_launcher(device: torch.device, n: int, m: int, dyn):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if dyn is None:
+        fn = kernel_symbol("rollout", n, m, [ctypes.POINTER(_RolloutArgs), ctypes.c_void_p])
+    else:
+        from ...csrc import build
+
+        fn = build.load().diffmpc_rollout_pendulum
+        fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.POINTER(_PendulumEnv), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    def launch(args, n, m, env):
+        err = fn(args, stream) if env is None else fn(args, env, stream)
+        if err != 0:
+            raise RuntimeError(f"rollout kernel launch failed: cudaError {err}")
+        linesearch_rollout_cuda.launches += 1
+
+    return launch
+
+
+def linesearch_rollout_cuda(
+    x_init: torch.Tensor,
+    C: torch.Tensor,
+    c: torch.Tensor,
+    F: Optional[torch.Tensor],
+    f: Optional[torch.Tensor],
+    K: torch.Tensor,
+    k: torch.Tensor,
+    x_hat: torch.Tensor,
+    u_hat: torch.Tensor,
+    *,
+    u_lower: Optional[torch.Tensor] = None,
+    u_upper: Optional[torch.Tensor] = None,
+    delta_u: Optional[float] = None,
+    dyn=None,
+    decay: float = 0.2,
+    max_iter: int = 10,
+) -> LineSearchResult:
+    """The line search on the card: the contract of the JAX package's
+    ``linesearch_rollout_pallas``, with ``dyn`` None for the linear dynamics
+    ``F, f`` or a ``PendulumDx`` for its own step (``F, f`` are then not
+    read). CUDA tensors of any float dtype: the kernel computes in float32
+    and ``xs, us, objs, alpha`` come back in ``x_init.dtype``. Adds one to
+    ``linesearch_rollout_cuda.launches``; other envs and linear shapes
+    outside the kernels' ``(n, m)`` table raise."""
+    resolve_use_cuda(True, x_init.device)
+    T, B, n, m = _check_shapes(x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower, u_upper)
+    _check_dyn(dyn, n, m)
+    dtype = x_init.dtype
+    f32 = torch.float32
+
+    def cast(a):
+        return None if a is None else a.to(f32)
+
+    if dyn is not None:
+        dyn = dyn.replace(params=dyn.params.to(f32))
+    with torch.cuda.device(x_init.device):
+        out = run_staged_rollout(
+            _cuda_launcher(x_init.device, n, m, dyn),
+            *map(cast, (x_init, C, c, F, f, K, k, x_hat, u_hat)),
+            u_lower=cast(u_lower), u_upper=cast(u_upper), delta_u=delta_u, dyn=dyn,
+            decay=decay, max_iter=max_iter,
+        )
+    return out._replace(**{name: getattr(out, name).to(dtype) for name in ("xs", "us", "objs", "alpha")})
+
+
+linesearch_rollout_cuda.launches = 0  # kernel launches, counted where they happen

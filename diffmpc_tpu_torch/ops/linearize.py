@@ -1,35 +1,61 @@
 """Dynamics linearization (counterpart of :mod:`diffmpc_tpu.ops.linearize`).
 
 The fused solve linearizes inside its kernel and needs nothing from here.
-:func:`linearize_dynamics` serves the differentiable fixed-point attach of
-``mpc_solve``: it linearizes the env once more about the solved trajectory,
-in ordinary PyTorch ops, so that autograd carries the KKT backward's
-``dF, df`` on to the env's parameters.
+:func:`linearize_dynamics` serves the non-fused iLQR loop (once per
+iteration) and the differentiable fixed-point attach of ``mpc_solve``: it
+linearizes the env about a trajectory in ordinary PyTorch ops, so that
+autograd carries the KKT backward's ``dF, df`` on to the env's parameters.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..types import GradMethods
+from ..types import GradMethods, LinDx
 from ..utils.batch import bmv
 
 
-def linearize_dynamics(dx, xs: torch.Tensor, us: torch.Tensor, method=GradMethods.ANALYTIC):
+def linearize_dynamics(
+    dx, xs: torch.Tensor, us: torch.Tensor, method=GradMethods.ANALYTIC, fd_eps: float = 1e-4
+) -> LinDx:
     """Affine expansion of ``dx`` about a trajectory: ``F_t = [A_t B_t]``
     and ``f_t = dx(x_t, u_t) - F_t tau_t``, so that
-    ``x_{t+1} ~= F_t tau_t + f_t``.
+    ``x_{t+1} ~= F_t tau_t + f_t``. A ``LinDx`` is returned as it is.
 
-    ``xs (T,B,n)``, ``us (T,B,m)`` -> ``(F (T,B,n,n+m), f (T,B,n))``.
-    Only ``GradMethods.ANALYTIC`` is ported: the env's closed-form
-    ``grad_input``, which is differentiable in the env's params."""
-    if method != GradMethods.ANALYTIC:
+    ``xs (T,B,n)``, ``us (T,B,m)`` -> ``LinDx(F (T,B,n,n+m), f (T,B,n))``.
+    ``GradMethods.ANALYTIC`` takes the env's closed-form ``grad_input`` and
+    ``FINITE_DIFF`` central differences of ``forward`` with step ``fd_eps``;
+    both are differentiable in the env's params. ``AUTO_DIFF`` and
+    ``ANALYTIC_CHECK`` are not ported."""
+    if isinstance(dx, LinDx):
+        return dx
+    if method == GradMethods.ANALYTIC:
+        A, B = dx.grad_input(xs, us)
+    elif method == GradMethods.FINITE_DIFF:
+        A, B = finite_diff_grad_input(dx.forward, xs, us, eps=fd_eps)
+    else:
         raise NotImplementedError(
-            f"linearizing with {method} for a gradient is not ported to "
-            "PyTorch yet: it comes with the non-fused path (ROADMAP.md, "
-            "queue 1, item 3); use GradMethods.ANALYTIC"
+            f"linearizing with {method} is not ported to PyTorch yet: it comes "
+            "with the rest of the non-fused path (ROADMAP.md, queue 1, item 3); "
+            "use GradMethods.ANALYTIC or FINITE_DIFF"
         )
-    A, B = dx.grad_input(xs, us)
     F = torch.cat([A, B], dim=-1)
     f = dx.forward(xs, us) - bmv(F, torch.cat([xs, us], dim=-1))
-    return F, f
+    return LinDx(F, f)
+
+
+def finite_diff_grad_input(fwd, x: torch.Tensor, u: torch.Tensor, eps: float = 1e-4):
+    """Central-difference Jacobians ``(A (..., n, n), B (..., n, m))`` of
+    ``fwd(x, u)``: one batched forward pair per probed dim."""
+    n, m = x.shape[-1], u.shape[-1]
+
+    def probe(i, dim, size):
+        e = torch.zeros(size, dtype=x.dtype, device=x.device)
+        e[i] = eps
+        if dim == 0:
+            return (fwd(x + e, u) - fwd(x - e, u)) / (2 * eps)
+        return (fwd(x, u + e) - fwd(x, u - e)) / (2 * eps)
+
+    A = torch.stack([probe(i, 0, n) for i in range(n)], dim=-1)
+    B = torch.stack([probe(i, 1, m) for i in range(m)], dim=-1)
+    return A, B

@@ -1,14 +1,109 @@
 """LQR building blocks (counterpart of :mod:`diffmpc_tpu.ops.lqr`).
 
-Only ``trajectory_cost`` is ported so far; the Riccati backward and the
-rollouts of the non-fused path come with it.
+``tau_t = [x_t; u_t]``; cost ``sum_t 0.5 tau_t' C_t tau_t + c_t' tau_t``;
+dynamics ``x_{t+1} = F_t tau_t + f_t`` (the ``t = T-1`` slice is unused).
+
+- :func:`riccati_backward` and :func:`lqr_linesearch_rollout` keep the JAX
+  functions' contracts. On CUDA tensors they launch the hand-written kernels
+  (:mod:`~diffmpc_tpu_torch.ops.cuda.riccati`,
+  :mod:`~diffmpc_tpu_torch.ops.cuda.rollout`); on CPU tensors they run the
+  kernels' plain PyTorch versions.
+- :func:`lqr_rollout` (one step size) and :func:`trajectory_cost` are plain
+  PyTorch.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..utils.batch import bdot, bquad
+from ..utils.batch import bdot, bmv, bquad, eclamp
+from .cuda.ilqr import resolve_use_cuda
+from .cuda.riccati import RiccatiResult, riccati_backward_cuda, riccati_backward_plain
+from .cuda.rollout import LineSearchResult, linesearch_rollout_cuda, linesearch_rollout_plain
+
+__all__ = [
+    "LineSearchResult",
+    "RiccatiResult",
+    "lqr_linesearch_rollout",
+    "lqr_rollout",
+    "riccati_backward",
+    "trajectory_cost",
+]
+
+
+def riccati_backward(
+    C: torch.Tensor,
+    c: torch.Tensor,
+    F: torch.Tensor,
+    f: Optional[torch.Tensor],
+    n_state: int,
+    *,
+    u_lower: Optional[torch.Tensor] = None,
+    u_upper: Optional[torch.Tensor] = None,
+    u_hat: Optional[torch.Tensor] = None,
+    ctrl_mask: Optional[torch.Tensor] = None,
+    reg: float = 1e-9,
+    pnqp_iter: int = 20,
+    use_cuda: Optional[bool] = None,
+) -> RiccatiResult:
+    """Riccati backward recursion over ``t = T-1 .. 0`` in one of three
+    modes: unconstrained (``u_lower`` None), box (``u_lower, u_upper, u_hat``:
+    the box QP on ``[u_lower - u_hat, u_upper - u_hat]`` per step, clamped
+    gain rows zeroed) or frozen dims (``ctrl_mask (T,B,m)`` bool, True = held
+    at ``du = 0``, the composite KKT backward). ``C (T,B,nm,nm)``,
+    ``c (T,B,nm)``, ``F (T,B,n,nm)``, ``f (T,B,n)`` or None (zeros).
+
+    The Riccati kernel for CUDA tensors, its plain version for CPU tensors
+    (see :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`)."""
+    kw = dict(u_lower=u_lower, u_upper=u_upper, u_hat=u_hat, ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter)
+    if resolve_use_cuda(use_cuda, C.device):
+        return riccati_backward_cuda(C, c, F, f, n_state, **kw)
+    return riccati_backward_plain(C, c, F, f, n_state, **kw)
+
+
+def lqr_rollout(
+    x_init: torch.Tensor,
+    F: torch.Tensor,
+    f: Optional[torch.Tensor],
+    K: torch.Tensor,
+    k: torch.Tensor,
+    x_hat: Optional[torch.Tensor] = None,
+    u_hat: Optional[torch.Tensor] = None,
+    alpha=1.0,
+    u_lower: Optional[torch.Tensor] = None,
+    u_upper: Optional[torch.Tensor] = None,
+    delta_u: Optional[float] = None,
+):
+    """Forward rollout of the affine policy ``u_t = u_hat_t + alpha k_t +
+    K_t (x_t - x_hat_t)`` (then the ``delta_u`` clamp, then the box) through
+    ``x_{t+1} = F_t tau_t + f_t``. ``x_hat``/``u_hat`` default to zeros;
+    ``alpha`` is a scalar or ``(B,)``. Returns ``xs (T,B,n)`` with
+    ``xs[0] = x_init`` and ``us (T,B,m)``; differentiable."""
+    T, B, m = K.shape[:3]
+    if x_hat is None:
+        x_hat = torch.zeros((T,) + tuple(x_init.shape), dtype=x_init.dtype, device=x_init.device)
+    if u_hat is None:
+        u_hat = torch.zeros((T, B, m), dtype=x_init.dtype, device=x_init.device)
+    if u_lower is not None:
+        u_lower, u_upper = u_lower.expand(T, B, m), u_upper.expand(T, B, m)
+    alpha = torch.as_tensor(alpha, dtype=x_init.dtype, device=x_init.device)
+    if alpha.ndim == 1:
+        alpha = alpha[:, None]  # (B, 1) against the control dim
+    x, xs, us = x_init, [], []
+    for t in range(T):
+        u = u_hat[t] + alpha * k[t] + bmv(K[t], x - x_hat[t])
+        if delta_u is not None:
+            u = eclamp(u, u_hat[t] - delta_u, u_hat[t] + delta_u)
+        if u_lower is not None:
+            u = eclamp(u, u_lower[t], u_upper[t])
+        xs.append(x)
+        us.append(u)
+        x = bmv(F[t], torch.cat([x, u], -1))
+        if f is not None:
+            x = x + f[t]
+    return torch.stack(xs), torch.stack(us)
 
 
 def trajectory_cost(
@@ -17,3 +112,38 @@ def trajectory_cost(
     """Total quadratic cost per batch element: ``(B,)``."""
     tau = torch.cat([xs, us], dim=-1)
     return torch.sum(0.5 * bquad(tau, C) + bdot(c, tau), dim=0)
+
+
+def lqr_linesearch_rollout(
+    x_init: torch.Tensor,
+    C: torch.Tensor,
+    c: torch.Tensor,
+    F: Optional[torch.Tensor],
+    f: Optional[torch.Tensor],
+    K: torch.Tensor,
+    k: torch.Tensor,
+    x_hat: torch.Tensor,
+    u_hat: torch.Tensor,
+    *,
+    u_lower: Optional[torch.Tensor] = None,
+    u_upper: Optional[torch.Tensor] = None,
+    delta_u: Optional[float] = None,
+    dyn=None,
+    decay: float = 0.2,
+    max_iter: int = 10,
+    use_cuda: Optional[bool] = None,
+) -> LineSearchResult:
+    """Vectorized backtracking line search: the ladder ``alpha = decay**j``,
+    ``j < max_iter``, each scenario taking the first strictly improving step
+    over the cost of ``(x_hat, u_hat)``, else the smallest. The dynamics are
+    linear (``dyn`` None: ``F, f``) or the env ``dyn``'s own step, which
+    stands in for the JAX function's ``dynamics_fn``; callable costs
+    (``cost_fn``) are not ported.
+
+    The rollout kernel for CUDA tensors, its plain version for CPU tensors
+    (see :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`)."""
+    kw = dict(u_lower=u_lower, u_upper=u_upper, delta_u=delta_u, dyn=dyn, decay=decay, max_iter=max_iter)
+    args = (x_init, C, c, F, f, K, k, x_hat, u_hat)
+    if resolve_use_cuda(use_cuda, x_init.device):
+        return linesearch_rollout_cuda(*args, **kw)
+    return linesearch_rollout_plain(*args, **kw)

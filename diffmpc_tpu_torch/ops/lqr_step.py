@@ -1,42 +1,145 @@
-"""The differentiable LQR fixed point (counterpart of :mod:`diffmpc_tpu.ops.lqr_step`).
+"""The differentiable LQR step (counterpart of :mod:`diffmpc_tpu.ops.lqr_step`).
 
-:func:`lqr_fixed_point` is the identity on a converged trajectory
-``(x*, u*)``, with the analytic KKT derivatives with respect to
-``(x_init, C, c, F, f)``: its backward solves the auxiliary (adjoint) LQR
-with tight box dims frozen and assembles the gradients from outer products
-of the primal trajectory, the differential trajectory and the multipliers
-(the equations are in the JAX module's docstring). The backward is one call
-of :func:`~diffmpc_tpu_torch.ops.cuda.kkt.kkt_backward_fused`: the CUDA
-kernel on CUDA tensors, its plain PyTorch version on CPU tensors.
-
-Only the fixed point is ported; the solver step ``lqr_step`` and the
-composite backward of the non-fused path come with that path (ROADMAP.md,
-queue 1, item 3).
+- :func:`lqr_step` is the solver step of the non-fused iLQR loop: the
+  delta-form cost about the current trajectory, the Riccati sweep (the box
+  QP per step when box-constrained) and the line-searched rollout, each one
+  launch of its kernel on CUDA tensors (its plain version on CPU tensors).
+- :func:`lqr_fixed_point` is the identity on a converged trajectory
+  ``(x*, u*)``, with the analytic KKT derivatives with respect to
+  ``(x_init, C, c, F, f)``: its backward solves the auxiliary (adjoint) LQR
+  with tight box dims frozen and assembles the gradients from outer products
+  of the primal trajectory, the differential trajectory and the multipliers
+  (the equations are in the JAX module's docstring). The backward is one
+  call of :func:`~diffmpc_tpu_torch.ops.cuda.kkt.kkt_backward_fused`.
+- :func:`kkt_backward_composite` computes the same backward from the
+  mask-mode Riccati sweep and :func:`~diffmpc_tpu_torch.ops.lqr.lqr_rollout`
+  (the JAX package's ``_kkt_backward_impl``). Nothing on the solve's path
+  calls it: the JAX package takes it only by a TPU memory budget. It is an
+  independent check of the KKT kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.batch import bger, bmv, btrans
 from .cuda.kkt import kkt_backward_fused
+from .lqr import lqr_linesearch_rollout, lqr_rollout, riccati_backward
 
 
 @dataclasses.dataclass(frozen=True)
 class LqrSpec:
-    """Static parameters of the differentiable LQR step that its backward
-    reads."""
+    """Static parameters of the differentiable LQR step."""
 
     n_state: int
     constrained: bool = False
     tight_eps: float = 1e-6
     back_eps: float = 1e-7
-    # None: the KKT kernel for CUDA tensors, its plain version for CPU
+    reg: float = 1e-9
+    pnqp_iter: int = 20
+    linesearch_decay: float = 0.2
+    max_linesearch_iter: int = 10
+    delta_u: Optional[float] = None
+    # None: the kernels for CUDA tensors, their plain versions for CPU
     # tensors (see ops.cuda.ilqr.resolve_use_cuda)
     use_cuda: Optional[bool] = None
+
+
+def _riccati(spec: LqrSpec, C, c, F, f, n_state, **kwargs):
+    """The Riccati sweep of the step: the kernel on CUDA tensors whatever the
+    horizon (no memory budget picks a variant here), the plain version on
+    CPU tensors."""
+    return riccati_backward(C, c, F, f, n_state, use_cuda=spec.use_cuda, **kwargs)
+
+
+class LqrStepResult(NamedTuple):
+    xs: torch.Tensor
+    us: torch.Tensor
+    objs: torch.Tensor
+    alpha: torch.Tensor
+    improved: torch.Tensor
+    free_mask: torch.Tensor  # (T, B, m)
+    n_qp_iter: torch.Tensor  # (T, B)
+
+
+def lqr_step(
+    spec: LqrSpec,
+    x_init: torch.Tensor,
+    C: torch.Tensor,
+    c: torch.Tensor,
+    F: torch.Tensor,
+    f: Optional[torch.Tensor],
+    x_hat: torch.Tensor,
+    u_hat: torch.Tensor,
+    u_lower: Optional[torch.Tensor] = None,
+    u_upper: Optional[torch.Tensor] = None,
+    dyn=None,
+) -> LqrStepResult:
+    """One LQR / box-DDP step about ``(x_hat, u_hat)``: the delta-form cost
+    (``C`` and ``c + C tau_hat``), the Riccati sweep (box mode when
+    ``u_lower`` is given) and the line-searched rollout through the linear
+    dynamics ``F, f`` (``dyn`` None) or the env ``dyn``'s own step. Both run
+    as kernels on CUDA tensors; an env needs an ``entries_step`` that may run
+    inside a kernel (the JAX package's ``fusable`` rule, ``lqr_step.py:206``;
+    its other dynamics take an XLA path that is not ported)."""
+    if dyn is not None and not (hasattr(dyn, "entries_step") and getattr(dyn, "kernel_fusable", True)):
+        raise NotImplementedError(
+            f"dynamics {type(dyn).__name__} without a kernel-fusable entries_step: "
+            "they come with the rest of the dynamics zoo (ROADMAP.md, queue 1)"
+        )
+    n = spec.n_state
+    tau_hat = torch.cat([x_hat, u_hat], -1)
+    c_delta = c + bmv(C, tau_hat)
+    res = _riccati(
+        spec, C, c_delta, F, None, n,
+        u_lower=u_lower, u_upper=u_upper, u_hat=u_hat if u_lower is not None else None,
+        reg=spec.reg, pnqp_iter=spec.pnqp_iter,
+    )
+    ls = lqr_linesearch_rollout(
+        x_init, C, c, F, f, res.K, res.k, x_hat, u_hat,
+        u_lower=u_lower, u_upper=u_upper, delta_u=spec.delta_u, dyn=dyn,
+        decay=spec.linesearch_decay, max_iter=spec.max_linesearch_iter, use_cuda=spec.use_cuda,
+    )
+    return LqrStepResult(ls.xs, ls.us, ls.objs, ls.alpha, ls.improved, res.free_mask, res.n_qp_iter)
+
+
+def kkt_backward_composite(C, c, F, r, tau, tight, *, reg: float = 1e-7, use_cuda: Optional[bool] = None):
+    """The KKT backward of :func:`lqr_fixed_point` from its parts, with the
+    contract of :func:`~diffmpc_tpu_torch.ops.cuda.kkt.kkt_backward_fused`:
+    the auxiliary LQR ``min 0.5 p'C p + r'p`` with the ``tight`` dims frozen
+    (the Riccati sweep in mask mode), its zero-residual rollout ``p`` from
+    ``p_x0 = 0``, and the multiplier recursions
+    ``lam_t = -(C_t tau_t + c_t)_x + F_{t,x}' lam_{t+1}`` and
+    ``mu_t = -(C_t p_t + r_t)_x + F_{t,x}' mu_{t+1}``. Returns
+    ``(dx_init, dC, dc, dF, df)``."""
+    T, B, nm = c.shape
+    m = tight.shape[-1]
+    n = nm - m
+    aux = riccati_backward(C, r, F, None, n, ctrl_mask=tight, reg=reg, use_cuda=use_cuda)
+    zeros = torch.zeros((B, n), dtype=aux.K.dtype, device=C.device)
+    p_x, p_u = lqr_rollout(zeros, F, None, aux.K, aux.k)
+    p = torch.cat([p_x, p_u], -1)
+    dC = 0.5 * (bger(p, tau) + bger(tau, p))
+    Fx_T = btrans(F[..., :n])  # (T, B, n, n)
+
+    def multipliers(lin, traj):
+        """``lam_t`` for t = T-1..0 from ``lam_T = 0``: returns ``lam_0``
+        and the sequence ``lam_{t+1}`` (zero at t = T-1)."""
+        lam = torch.zeros_like(zeros)
+        nxt = [None] * T
+        for t in reversed(range(T)):
+            nxt[t] = lam
+            lam = -(bmv(C[t], traj[t]) + lin[t])[..., :n] + bmv(Fx_T[t], lam)
+        return lam, torch.stack(nxt)
+
+    _, lam_next = multipliers(c, tau)
+    mu_0, mu_next = multipliers(r, p)
+    dF = -(bger(mu_next, tau) + bger(lam_next, p))
+    return -mu_0, dC, p, dF, -mu_next
 
 
 class _LqrFixedPoint(torch.autograd.Function):

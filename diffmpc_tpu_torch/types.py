@@ -10,6 +10,9 @@ control dim ``m`` and tau_t = [x_t; u_t] in R^{n+m}:
 - ``QuadCost.C``: ``(T, B, n+m, n+m)`` (PSD per slice), ``QuadCost.c``:
   ``(T, B, n+m)``; ``mpc_solve`` also accepts the untimed / unbatched
   variants and expands them.
+- ``LinDx.F``: ``(T, B, n, n+m)``, ``LinDx.f``: ``(T, B, n)`` or ``None``
+  (zeros); semantics ``x_{t+1} = F_t tau_t + f_t`` (the ``t = T-1`` slice is
+  unused). ``mpc_solve`` also accepts the untimed / unbatched variants.
 - ``x_init``: ``(B, n)``; the solve returns ``x*: (T, B, n)``,
   ``u*: (T, B, m)``, ``objs: (B,)``.
 
@@ -33,11 +36,19 @@ class QuadCost(NamedTuple):
     c: torch.Tensor
 
 
+class LinDx(NamedTuple):
+    """Time-varying affine dynamics ``x_{t+1} = F_t tau_t + f_t``."""
+
+    F: torch.Tensor
+    f: Optional[torch.Tensor] = None
+
+
 class GradMethods(enum.Enum):
     """How to linearize nonlinear dynamics inside the iLQR loop (same values
     as :class:`diffmpc_tpu.types.GradMethods`). The fused solve linearizes
     the env's ``entries_step`` by forward-mode differentiation whatever the
-    method, except ``FINITE_DIFF``, which it does not support."""
+    method, except ``FINITE_DIFF``, which sends the solve to the non-fused
+    path (central differences of ``forward``)."""
 
     AUTO_DIFF = "auto_diff"
     ANALYTIC = "analytic"
@@ -75,8 +86,9 @@ class MPCConfig:
     not_improved_lim: int = 5
     best_cost_eps: float = 1e-4
     slew_rate_penalty: Optional[float] = None
-    # Inner box QP iterations (the fused path caps it at 8; the m=1 closed
-    # form does not iterate).
+    # Inner box QP iterations of the projected-Newton loop (m >= 3; the
+    # fused path caps it at 8). The m = 1 closed form and the m = 2
+    # enumeration do not iterate.
     pnqp_iter: int = 20
     # Tolerance used to detect tight (active) box constraints.
     tight_eps: float = 1e-6

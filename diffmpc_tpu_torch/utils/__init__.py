@@ -1,3 +1,5 @@
-from .batch import bclamp, bdot, bger, bmv, bquad, btrans, detach, eclamp
+from .batch import bclamp, bdot, bger, bmm, bmv, bquad, btrans, detach, eclamp, symmetrize
 
-__all__ = ["bclamp", "bdot", "bger", "bmv", "bquad", "btrans", "detach", "eclamp"]
+__all__ = [
+    "bclamp", "bdot", "bger", "bmm", "bmv", "bquad", "btrans", "detach", "eclamp", "symmetrize",
+]

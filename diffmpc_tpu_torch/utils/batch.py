@@ -17,6 +17,11 @@ def bmv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (m * v[..., None, :]).sum(-1)
 
 
+def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched matrix product: ``(..., i, j), (..., j, k) -> (..., i, k)``."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+
+
 def bdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Batched inner product over the trailing dim."""
     return (x * y).sum(-1)
@@ -37,13 +42,19 @@ def bquad(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return bdot(x, bmv(m, x))
 
 
+def symmetrize(m: torch.Tensor) -> torch.Tensor:
+    """``0.5 (M + M')`` over the two trailing dims."""
+    return 0.5 * (m + btrans(m))
+
+
 def eclamp(
     x: torch.Tensor,
     lower: Optional[torch.Tensor],
     upper: Optional[torch.Tensor],
 ) -> torch.Tensor:
     """Elementwise clamp with possibly absent bounds, in the reference's
-    max/min form (``None`` leaves that side unconstrained)."""
+    max/min form (``None`` leaves that side unconstrained). Bounds may be
+    scalars or tensors that broadcast against ``x``."""
     if lower is not None:
         x = torch.maximum(x, torch.as_tensor(lower, dtype=x.dtype, device=x.device))
     if upper is not None:

@@ -5,11 +5,15 @@ where JAX need not be installed, run them without the JAX test config:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
+from the repository root: two tests take their checks from chip_smoke.py.
+
 Tolerances: the iLQR kernel at ``lqr_iter=1, eps=0`` within 1e-4 with
 ``n_iters`` equal, four iterations by the chaos rule of
-tests/torch_parity.py; the KKT kernel (one linear pass) within
-``1e-4 * max(1, max|plain|)``; gradients through ``mpc_solve`` on the card
-against the CPU within 1e-3 of each gradient's max-abs after one iteration.
+tests/torch_parity.py; the KKT and Riccati kernels (one linear pass) within
+``1e-4 * max(1, max|plain|)``, the Riccati kernel off its box-QP ties, each
+tie checked as one; the rollout kernel's ``objs`` within 1e-5 of the batch's largest
+``|objs|`` and ``alpha`` equal; gradients through ``mpc_solve`` on the card against the CPU within
+1e-3 of each gradient's max-abs after one iteration.
 """
 
 import dataclasses
@@ -22,6 +26,9 @@ torch = pytest.importorskip("torch")
 import diffmpc_tpu_torch as tdm  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda.riccati import riccati_backward_cuda, riccati_backward_plain  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda.rollout import linesearch_rollout_cuda, linesearch_rollout_plain  # noqa: E402
+from diffmpc_tpu_torch.ops.lqr import lqr_rollout  # noqa: E402
 from torch_parity import (  # noqa: E402
     as_numpy,
     assert_chaos,
@@ -123,10 +130,10 @@ def test_kkt_kernel_matches_plain(device, B):
 
 
 def test_kkt_wrapper_raises_on_what_the_kernel_does_not_take(device):
-    res = random_residuals(np.random.default_rng(840), 4, 8, 3, 2)
+    res = random_residuals(np.random.default_rng(840), 4, 8, 2, 1)
     ins = [torch.tensor(a, device=device) for a in kernel_inputs(res)]
     before = kkt_backward_fused.launches
-    with pytest.raises(NotImplementedError, match="n = 3, m = 1"):
+    with pytest.raises(NotImplementedError, match="instantiated for"):
         kkt_backward_fused(*ins)
     res = random_residuals(np.random.default_rng(841), 4, 8, 3, 1)
     ins = [torch.tensor(a, device=device) for a in kernel_inputs(res)]
@@ -162,3 +169,113 @@ def test_gradients_on_the_card_match_the_cpu(device, dtype):
     for g, w in zip(card, grads("cpu")):
         assert g.dtype == dtype and g.device.type == "cuda"
         torch.testing.assert_close(g.cpu(), w, atol=1e-3 * float(w.abs().max()), rtol=0)
+
+
+def _random_lqr(rng, T, B, n, m):
+    """tests/oracles.py::random_lqr_problem, as float32 numpy (that module
+    imports numpy only)."""
+    from oracles import random_lqr_problem
+
+    return [a.astype(np.float32) for a in random_lqr_problem(rng, T, B, n, m)]
+
+
+@pytest.mark.parametrize("mode", ["free", "box", "mask"])
+@pytest.mark.parametrize("n,m", [(3, 1), (3, 2), (4, 1), (4, 2)])
+def test_riccati_kernel_matches_plain(device, n, m, mode):
+    T, B = 20, 130
+    rng = np.random.default_rng(880 + 10 * n + m)
+    C, c, F, f = (torch.tensor(a, device=device) for a in _random_lqr(rng, T, B, n, m)[:4])
+    kw = {}
+    if mode == "box":
+        u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32, device=device)
+        kw = dict(u_lower=torch.tensor(-0.5, device=device), u_upper=torch.tensor(0.5, device=device), u_hat=u_hat)
+    elif mode == "mask":
+        kw = dict(ctrl_mask=torch.tensor(rng.random((T, B, m)) < 0.3, device=device))
+    before = riccati_backward_cuda.launches
+    got = riccati_backward_cuda(C, c, F, f, n, **kw)
+    torch.cuda.synchronize()
+    assert riccati_backward_cuda.launches == before + 1
+    want, Quu, qu = riccati_backward_plain(C, c, F, f, n, return_qp=True, **kw)
+    assert got.K.device.type == "cuda" and got.k.device.type == "cuda"
+    # K, k within 1e-4 * max(1, max|plain|) off the box-QP ties; each tie a
+    # real one (both answers score alike on the plain version's QP), on at
+    # most 0.1% of the entries (chip_smoke.py, phase 9)
+    from chip_smoke import riccati_agreement
+
+    riccati_agreement(f"{mode} n={n} m={m}", got, want, Quu, qu)
+
+
+@pytest.mark.parametrize("case", ["free", "box", "pendulum"])
+def test_rollout_kernel_matches_plain(device, case):
+    T, B = 20, 130
+    rng = np.random.default_rng(890)
+    if case == "pendulum":
+        t, dx = torch_inputs(make_problem(B=B, T=T, batched_params=True, warm=True), device)
+        n, m = 3, 1
+        x0, C, c, F, f = t["x_init"], t["C"], t["c"], None, None
+        kw = dict(u_lower=t["u_lower"], u_upper=t["u_upper"], dyn=dx)
+    else:
+        n, m = 4, 2
+        C, c, F, f, x0 = (torch.tensor(a, device=device) for a in _random_lqr(rng, T, B, n, m))
+        kw = {} if case == "free" else dict(u_lower=torch.tensor(-0.7, device=device), u_upper=torch.full((T, B, m), 0.7, device=device))
+    x_hat = torch.tensor(rng.normal(size=(T, B, n)), dtype=torch.float32, device=device)
+    u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32, device=device)
+    K = torch.tensor(rng.normal(size=(T, B, m, n)) * 0.3, dtype=torch.float32, device=device)
+    k = torch.tensor(rng.normal(size=(T, B, m)), dtype=torch.float32, device=device)
+    args = (x0, C, c, F, f, K, k, x_hat, u_hat)
+    before = linesearch_rollout_cuda.launches
+    got = linesearch_rollout_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert linesearch_rollout_cuda.launches == before + 1
+    want = linesearch_rollout_plain(*args, **kw)
+    torch.testing.assert_close(got.objs, want.objs, rtol=0, atol=1e-5 * float(want.objs.abs().max()))
+    assert float((got.alpha == want.alpha).float().mean()) >= 0.99
+    same = got.alpha == want.alpha
+    torch.testing.assert_close(got.us[:, same], want.us[:, same], atol=1e-4, rtol=0)
+
+
+def test_mpc_solve_on_lin_dx_goes_through_the_riccati_and_rollout_kernels(device):
+    T, B, n, m = 20, 128, 4, 2
+    C, c, F, f, x0 = _random_lqr(np.random.default_rng(900), T, B, n, m)
+    config = tdm.MPCConfig(n_state=n, n_ctrl=m, T=T, lqr_iter=10, exit_unconverged=False)
+
+    def solve(dev, grad=False):
+        leaves = [torch.tensor(a, device=dev, requires_grad=grad) for a in (x0, C, c, F, f)]
+        sol = tdm.mpc_solve(config, leaves[0], tdm.QuadCost(leaves[1], leaves[2]), tdm.LinDx(leaves[3], leaves[4]),
+                            u_lower=-0.6, u_upper=0.6)
+        if not grad:
+            return sol, None
+        return sol, torch.autograd.grad((sol.us**2).mean() + sol.xs.mean(), leaves)
+
+    counts = lambda: (riccati_backward_cuda.launches, linesearch_rollout_cuda.launches,  # noqa: E731
+                      ilqr_solve_fused.launches, kkt_backward_fused.launches)
+    before = counts()
+    card, _ = solve(device)
+    torch.cuda.synchronize()
+    it = int(card.info.n_iters)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (it, it, 0, 0)
+    cpu, _ = solve("cpu")
+    # the same objectives; controls within 1e-4 on >= 95% of the scenarios:
+    # a box-QP tie (chip_smoke.py, phase 11) may leave one elsewhere on the
+    # same float32 objective, within 5e-3
+    torch.testing.assert_close(card.objs.cpu(), cpu.objs, rtol=1e-5, atol=1e-5)
+    us_diff = (card.us.cpu() - cpu.us).abs().amax(dim=(0, 2))
+    agree = us_diff <= 1e-4
+    assert float(agree.float().mean()) >= 0.95 and float(us_diff.max()) <= 5e-3
+    # the second witness: the problem's optimum in float64; the card's
+    # controls score within 1e-5 of it on every scenario
+    from chip_smoke import box_lqr_optimum
+
+    box32 = float(np.float32(0.6))
+    objective, u_opt, opt_pg = box_lqr_optimum(*(torch.tensor(a) for a in (C, c, F, f, x0)), -box32, box32)
+    j_opt = objective(u_opt)
+    assert opt_pg <= 1e-8
+    assert float(((objective(card.us) - j_opt) / j_opt.abs().clamp_min(1.0)).max()) <= 1e-5
+    before = counts()
+    card, g_card = solve(device, grad=True)
+    torch.cuda.synchronize()
+    assert counts()[3] - before[3] == 1
+    _, g_cpu = solve("cpu", grad=True)
+    for i, (g, w) in enumerate(zip(g_card, g_cpu)):
+        g, w = (g.cpu()[agree], w[agree]) if i == 0 else (g.cpu()[:, agree], w[:, agree])
+        torch.testing.assert_close(g, w, atol=1e-3 * float(w.abs().max()), rtol=0)

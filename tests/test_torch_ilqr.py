@@ -121,9 +121,10 @@ def test_kernel_staging_rejects_what_the_kernel_does_not_take():
         run_staged(never, *args[:3], dx.replace(params=dx.params[None].expand(7, 3)), *args[4:])
     with pytest.raises(ValueError, match="c must be"):
         run_staged(never, args[0], args[1], args[2][:, :5], *args[3:])
+    # m = 2: the box QP takes it now, the kernel's pendulum step does not
     C5 = torch.zeros(T, B, 5, 5)
-    with pytest.raises(NotImplementedError, match="m = 1 only"):
-        ilqr_solve_plain(args[0], C5, torch.zeros(T, B, 5), dx, torch.zeros(T, B, 2), torch.ones(T, B, 2))
+    with pytest.raises(ValueError, match="n=3, m=1"):
+        run_staged(never, args[0], C5, torch.zeros(T, B, 5), dx, torch.zeros(T, B, 2), torch.ones(T, B, 2))
 
 
 # ---- the per-step helpers against the JAX package's entry-tile helpers ----
@@ -192,8 +193,14 @@ def test_box_qp_closed_form_matches_jax():
     np.testing.assert_array_equal(_np(ft), _np(fj))
     np.testing.assert_array_equal(_np(nt), _np(nj))
     assert 0 < _np(ft).sum() < n_b
-    with pytest.raises(NotImplementedError):
-        tric._pnqp_entries(*args_t, 2, 8, 1e-7)
+    # m = 2 is ported now: the active-set enumeration, against JAX's
+    H2, q2 = _rand_spd(rng, 2, n_b), rng.normal(size=(n_b, 2)) * 3
+    lo2, hi2 = np.full((n_b, 2), -0.5), np.full((n_b, 2), 0.5)
+    xj, fj, nj = jric._pnqp_entries(*(_split(a, True) for a in (H2, q2, lo2, hi2)), 2, 8, 1e-7)
+    xt, ft, nt = tric._pnqp_entries(*(_split(a, False) for a in (H2, q2, lo2, hi2)), 2, 8, 1e-7)
+    np.testing.assert_allclose(_np(xt), _np(xj), rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(_np(ft), _np(fj))
+    np.testing.assert_array_equal(_np(nt), _np(nj))
 
 
 @pytest.mark.parametrize("n,m", [(3, 1), (4, 2)])

@@ -3,16 +3,18 @@ plain PyTorch versions.
 
 ``csrc/*.cuh`` holds the kernels' math as ``__host__ __device__`` functions.
 Here g++ builds a small host shim over those headers (no torch headers, no
-CUDA), and the port's own staging code (``run_staged`` / ``run_staged_kkt``:
-batch-minor layout, the ``IlqrArgs`` / ``KktArgs`` structs, pointers) drives
-it on CPU tensors. Nothing on the main path uses this build: on the card,
-nvcc builds the same headers into ``csrc/ilqr.cu``'s and ``csrc/kkt.cu``'s
-kernels.
+CUDA), and the port's own staging code (``run_staged`` / ``run_staged_kkt``
+/ ``run_staged_riccati`` / ``run_staged_rollout``: batch-minor layout, the
+argument structs, pointers) drives it on CPU tensors. Nothing on the main
+path uses this build: on the card, nvcc builds the same headers into the
+kernels of ``csrc/*.cu``.
 
 Tolerances: the iLQR solve at ``lqr_iter=1, eps=0`` within 1e-4 abs with
 ``n_iters`` equal, four iterations by the chaos rule of
 tests/torch_parity.py; the KKT backward (one linear pass, no chaos) within
-1e-5.
+1e-5; the Riccati sweep's ``K, k`` within ``1e-5 * max(1, max|plain|)``
+with ``free`` and ``n_qp`` equal; the rollout's ``xs, us, objs`` within 1e-5
+relative with ``alpha`` and ``improved`` equal.
 """
 
 import ctypes
@@ -38,6 +40,18 @@ from diffmpc_tpu_torch.ops.cuda.kkt import (  # noqa: E402
     kkt_backward_plain,
     run_staged_kkt,
 )
+from diffmpc_tpu_torch.ops.cuda.riccati import (  # noqa: E402
+    _RiccatiArgs,
+    riccati_backward_plain,
+    run_staged_riccati,
+)
+from diffmpc_tpu_torch.ops.cuda.rollout import (  # noqa: E402
+    _RolloutArgs,
+    linesearch_rollout_plain,
+    run_staged_rollout,
+)
+from diffmpc_tpu_torch.ops.lqr import lqr_rollout  # noqa: E402
+from oracles import random_lqr_problem  # noqa: E402
 from torch_parity import (  # noqa: E402
     as_numpy,
     assert_chaos,
@@ -52,6 +66,8 @@ SHIM = r"""
 #include "ilqr.cuh"
 #include "kkt.cuh"
 #include "pendulum.cuh"
+#include "riccati.cuh"
+#include "rollout.cuh"
 
 extern "C" int diffmpc_ilqr_solve_pendulum_host(const IlqrArgs* a, const PendulumEnv* env) {
   for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<3, 1>(*a, *env, b);
@@ -67,7 +83,43 @@ static int kkt_all(const KktArgs* a) {
 extern "C" int diffmpc_kkt_backward_host(const KktArgs* a, int n, int m) {
   if (n == 3 && m == 1) return kkt_all<3, 1>(a);
   if (n == 3 && m == 2) return kkt_all<3, 2>(a);
+  if (n == 4 && m == 1) return kkt_all<4, 1>(a);
+  if (n == 4 && m == 2) return kkt_all<4, 2>(a);
   if (n == 1 && m == 1) return kkt_all<1, 1>(a);
+  return 1;
+}
+
+template <int N, int M, int MODE>
+static int riccati_all(const RiccatiArgs* a) {
+  for (int b = 0; b < a->B; ++b) riccati_backward_scenario<N, M, MODE>(*a, b);
+  return 0;
+}
+
+template <int N, int M>
+static int riccati_modes(const RiccatiArgs* a, int mode) {
+  if (mode == kRiccatiBox) return riccati_all<N, M, kRiccatiBox>(a);
+  if (mode == kRiccatiMask) return riccati_all<N, M, kRiccatiMask>(a);
+  return riccati_all<N, M, kRiccatiFree>(a);
+}
+
+extern "C" int diffmpc_riccati_host(const RiccatiArgs* a, int n, int m, int mode) {
+  if (n == 3 && m == 1) return riccati_modes<3, 1>(a, mode);
+  if (n == 3 && m == 2) return riccati_modes<3, 2>(a, mode);
+  if (n == 4 && m == 2) return riccati_modes<4, 2>(a, mode);
+  if (n == 3 && m == 3 && mode == kRiccatiBox) return riccati_all<3, 3, kRiccatiBox>(a);
+  return 1;
+}
+
+template <int N, int M, class Env>
+static int rollout_all(const RolloutArgs* a, const Env& env) {
+  for (int b = 0; b < a->B; ++b) linesearch_rollout_scenario<N, M>(*a, env, b);
+  return 0;
+}
+
+extern "C" int diffmpc_rollout_host(const RolloutArgs* a, int n, int m, const PendulumEnv* env) {
+  if (env) return (n == 3 && m == 1) ? rollout_all<3, 1>(a, *env) : 1;
+  if (n == 3 && m == 2) return rollout_all<3, 2>(a, LinearEnv{});
+  if (n == 4 && m == 2) return rollout_all<4, 2>(a, LinearEnv{});
   return 1;
 }
 """
@@ -187,7 +239,7 @@ def host_kkt_launch(host_lib):
 
 
 @pytest.mark.parametrize("B", [1, 37])
-@pytest.mark.parametrize("n,m,n_tight", [(3, 1, 12), (3, 2, 20), (1, 1, 6)])
+@pytest.mark.parametrize("n,m,n_tight", [(3, 1, 12), (3, 2, 20), (1, 1, 6), (4, 1, 12), (4, 2, 20)])
 def test_host_build_kkt_backward_matches_plain(host_kkt_launch, n, m, n_tight, B):
     rng = np.random.default_rng(820 + 10 * n + m + B)
     res = random_residuals(rng, 7, B, n, m, min(n_tight, 7 * B * m // 2))
@@ -197,6 +249,101 @@ def test_host_build_kkt_backward_matches_plain(host_kkt_launch, n, m, n_tight, B
     for name, g, w in zip(("dx_init", "dC", "dc", "dF", "df"), got, want):
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def host_riccati_launch(host_lib):
+    fn = host_lib.diffmpc_riccati_host
+    fn.argtypes = [ctypes.POINTER(_RiccatiArgs), ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    def launch(args, n, m, mode):
+        assert fn(args, n, m, mode) == 0, f"no host instantiation for n={n}, m={m}, mode={mode}"
+
+    return launch
+
+
+@pytest.mark.parametrize(
+    "n,m,mode",
+    [(n, m, mode) for n, m in ((3, 1), (3, 2), (4, 2)) for mode in ("free", "box", "mask")]
+    + [(3, 3, "box")],
+)
+def test_host_build_riccati_matches_plain(host_riccati_launch, n, m, mode):
+    T, B = 6, 37
+    rng = np.random.default_rng(850 + 10 * n + m)
+    C, c, F, f, _ = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
+    kw = {}
+    if mode == "box":
+        u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32)
+        kw = dict(u_lower=torch.tensor(-0.5), u_upper=torch.full((T, B, m), 0.5), u_hat=u_hat)
+    elif mode == "mask":
+        kw = dict(ctrl_mask=torch.tensor(rng.random((T, B, m)) < 0.3))
+    got = run_staged_riccati(host_riccati_launch, C, c, F, f, n, **kw)
+    want = riccati_backward_plain(C, c, F, f, n, **kw)
+    for name in ("K", "k"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5 * max(1.0, float(w.abs().max())), rtol=0, err_msg=name)
+    np.testing.assert_array_equal(got.free_mask.numpy(), want.free_mask.numpy())
+    np.testing.assert_array_equal(got.n_qp_iter.numpy(), want.n_qp_iter.numpy())
+    if mode == "box":
+        assert not bool(got.free_mask.all())
+        assert (m == 3) == bool((got.n_qp_iter > 1).any())  # only the m = 3 loop iterates
+
+
+@pytest.fixture(scope="module")
+def host_rollout_launch(host_lib):
+    fn = host_lib.diffmpc_rollout_host
+    fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(args, n, m, env):
+        assert fn(args, n, m, env) == 0, f"no host instantiation for n={n}, m={m}"
+
+    return launch
+
+
+def _assert_rollout_matches(got, want):
+    for name in ("xs", "us", "objs"):
+        g, w = getattr(got, name).numpy(), getattr(want, name).numpy()
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * np.abs(w).max(), err_msg=name)
+    np.testing.assert_array_equal(got.alpha.numpy(), want.alpha.numpy())
+    np.testing.assert_array_equal(got.improved.numpy(), want.improved.numpy())
+
+
+@pytest.mark.parametrize("n,m,box,delta_u", [(3, 2, False, None), (4, 2, True, None), (4, 2, True, 0.8)])
+def test_host_build_linear_rollout_matches_plain(host_rollout_launch, n, m, box, delta_u):
+    T, B = 7, 37
+    rng = np.random.default_rng(860 + 10 * n + m + box)
+    C, c, F, f, x0 = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
+    u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32)
+    x_hat, _ = lqr_rollout(x0, F, f, torch.zeros(T, B, m, n), torch.zeros(T, B, m), u_hat=u_hat)
+    K = torch.tensor(rng.normal(size=(T, B, m, n)) * 0.3, dtype=torch.float32)
+    k = torch.tensor(rng.normal(size=(T, B, m)), dtype=torch.float32)
+    kw = dict(delta_u=delta_u, decay=0.5, max_iter=6)
+    if box:
+        kw.update(u_lower=torch.tensor(-0.7), u_upper=torch.full((T, B, m), 0.7))
+    args = (x0, C, c, F, f, K, k, x_hat, u_hat)
+    got = run_staged_rollout(host_rollout_launch, *args, **kw)
+    want = linesearch_rollout_plain(*args, **kw)
+    _assert_rollout_matches(got, want)
+    assert len(np.unique(got.alpha.numpy())) > 1
+
+
+def test_host_build_pendulum_rollout_matches_plain(host_rollout_launch):
+    prob = make_problem(seed=870, batched_params=True, warm=True)
+    t, dx = torch_inputs(prob)
+    T, B = t["C"].shape[:2]
+    rng = np.random.default_rng(871)
+    x_hat = torch.tensor(rng.normal(size=(T, B, 3)), dtype=torch.float32)
+    u_hat = t["u_init"].clamp(-2.0, 2.0)
+    K = torch.tensor(rng.normal(size=(T, B, 1, 3)) * 0.5, dtype=torch.float32)
+    k = torch.tensor(rng.normal(size=(T, B, 1)), dtype=torch.float32)
+    args = (t["x_init"], t["C"], t["c"], None, None, K, k, x_hat, u_hat)
+    kw = dict(u_lower=t["u_lower"], u_upper=t["u_upper"], dyn=dx, delta_u=1.0)
+    got = run_staged_rollout(host_rollout_launch, *args, **kw)
+    want = linesearch_rollout_plain(*args, **kw)
+    _assert_rollout_matches(got, want)
 
 
 def test_build_keys_library_by_sources_and_reports_nvcc_errors(tmp_path, monkeypatch):

@@ -8,8 +8,6 @@ of tests/torch_parity.py, applied to the per-scenario outputs.
 """
 
 import dataclasses
-from typing import NamedTuple
-
 import numpy as np
 import pytest
 
@@ -172,22 +170,24 @@ def test_same_value_errors_as_jax():
             )
 
 
-class _LinDx(NamedTuple):
-    F: torch.Tensor
-    f: torch.Tensor
-
-
 @pytest.mark.parametrize(
     "case",
     ["lin_dx", "callable_cost", "slew", "no_bounds", "finite_diff", "verbose",
      "u_zero_I", "two_controls", "analytic_check"],
 )
 def test_configurations_off_the_fused_path_raise(case):
+    """Named for the time when every configuration off the fused path
+    raised. The non-fused path now runs LinDx, unconstrained, FINITE_DIFF,
+    verbose and m = 2 problems (checked against JAX in
+    tests/test_torch_lqr.py); callable costs, the slew penalty, u_zero_I and
+    ANALYTIC_CHECK still raise, naming their ROADMAP item."""
     config, cost, dx = _torch_setup()
+    config = dataclasses.replace(config, lqr_iter=2)
     x = torch.tensor(_x_init())
     kw = dict(u_lower=-2.0, u_upper=2.0)
+    runs = case in ("lin_dx", "no_bounds", "finite_diff", "verbose", "two_controls")
     if case == "lin_dx":
-        dx = _LinDx(torch.zeros(T, B, 3, 4), torch.zeros(T, B, 3))
+        dx = tdm.LinDx(torch.eye(3, 4).expand(T, B, 3, 4), torch.zeros(T, B, 3))
     elif case == "callable_cost":
         cost = lambda tau: (tau ** 2).sum()  # noqa: E731
     elif case == "slew":
@@ -201,12 +201,18 @@ def test_configurations_off_the_fused_path_raise(case):
     elif case == "u_zero_I":
         kw["u_zero_I"] = torch.zeros(1, dtype=torch.bool)
     elif case == "two_controls":
-        config = dataclasses.replace(config, n_state=2, n_ctrl=2)
-        x = x[:, :2]
+        config = dataclasses.replace(config, n_ctrl=2)
+        cost = tdm.QuadCost(torch.eye(5), torch.zeros(5))
+        dx = tdm.LinDx(torch.eye(3, 5), None)
     if case == "analytic_check":
         ctrl = tdm.MPC(3, 1, T, u_lower=-2.0, u_upper=2.0, grad_method=tdm.GradMethods.ANALYTIC_CHECK)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ctrl(x, cost, dx)
+        return
+    if runs:
+        sol = tdm.mpc_solve(config, x, cost, dx, **kw)
+        assert sol.us.shape == (T, B, config.n_ctrl) and bool(torch.isfinite(sol.objs).all())
+        assert int(sol.info.n_iters) >= 1
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdm.mpc_solve(config, x, cost, dx, **kw)
@@ -272,7 +278,7 @@ def test_gradient_needs_the_analytic_linearization():
 def test_convert_carries_the_jax_state_over():
     jdx = JaxPendulumDx.default(jnp.float32)
     tdx = convert.pendulum_from_jax(jdx)
-    np.testing.assert_array_equal(tdx.params.numpy(), PendulumDx.default().params.numpy())
+    np.testing.assert_array_equal(tdx.params.numpy(), PendulumDx.default(device="cpu").params.numpy())
     assert (tdx.max_torque, tdx.max_speed, tdx.dt, tdx.clamp_ctrl) == (
         jdx.max_torque, jdx.max_speed, jdx.dt, jdx.clamp_ctrl,
     )

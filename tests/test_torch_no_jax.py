@@ -1,8 +1,9 @@
 """The PyTorch port imports torch and never JAX, not even indirectly.
 
 In a fresh interpreter where ``import jax`` fails, every module of
-``diffmpc_tpu_torch`` imports and the plain solve runs on the CPU. The chip
-smoke script imports no JAX either, and refuses to run without a card.
+``diffmpc_tpu_torch`` imports (the non-fused path's among them, by name),
+and the fused and the non-fused solve run on the CPU. The chip smoke script
+imports no JAX either, and refuses to run without a card.
 """
 
 import ast
@@ -25,6 +26,8 @@ import diffmpc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(diffmpc_tpu_torch.__path__, "diffmpc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+new = ["ops.cuda.riccati", "ops.cuda.rollout", "ops.pnqp", "ops.smallchol", "ops.lqr", "ops.lqr_step"]
+assert all(f"diffmpc_tpu_torch.{m}" in names for m in new), names
 assert "diffmpc_tpu" not in sys.modules and "jax" in sys.modules
 from diffmpc_tpu_torch.models import PendulumDx
 from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_plain
@@ -32,13 +35,21 @@ B, T = 16, 5
 rng = np.random.default_rng(0)
 th = rng.uniform(-np.pi, np.pi, B)
 x = torch.tensor(np.stack([np.cos(th), np.sin(th), rng.uniform(-1, 1, B)], -1), dtype=torch.float32)
-dx = PendulumDx.default()
+dx = PendulumDx.default(device="cpu")
 q, p = dx.get_true_obj()
 out = ilqr_solve_plain(
     x, torch.diag(q).expand(T, B, 4, 4), p.expand(T, B, 4), dx,
     torch.full((T, B, 1), -2.0), torch.full((T, B, 1), 2.0), lqr_iter=2,
 )
 assert bool(torch.isfinite(out.objs).all()) and out.us.abs().max() <= 2.0
+from diffmpc_tpu_torch import LinDx, MPCConfig, QuadCost, mpc_solve
+n, m = 4, 2
+sol = mpc_solve(
+    MPCConfig(n_state=n, n_ctrl=m, T=T, lqr_iter=3, exit_unconverged=False),
+    torch.ones(B, n), QuadCost(torch.eye(n + m), torch.ones(n + m)),
+    LinDx(0.5 * torch.eye(n, n + m), None), u_lower=-0.6, u_upper=0.6,
+)
+assert bool(torch.isfinite(sol.objs).all()) and sol.us.abs().max() <= 0.6
 print("modules", len(names))
 """
 

@@ -156,7 +156,7 @@ def test_batch_helpers_match_jax():
 
 def test_get_true_obj_and_default_match_jax():
     jdx = JaxPendulumDx.default(jnp.float32)
-    tdx = PendulumDx.default()
+    tdx = PendulumDx.default(device="cpu")
     np.testing.assert_array_equal(tdx.params.numpy(), np.asarray(jdx.params))
     for j, t in zip(jdx.get_true_obj(), tdx.get_true_obj()):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))

@@ -1,0 +1,180 @@
+"""The port's line-search rollout (kernel B's plain version) against the JAX
+package's Pallas kernel ``linesearch_rollout_pallas`` in interpret mode, on
+the same inputs (the recipe of tests/test_pallas_rollout.py: T=8, B=32,
+decay 0.5, max_iter 6): linear dynamics with and without a box and a
+``delta_u`` trust region, and the pendulum's own step. ``xs, us, objs``
+within 1e-5 relative (both compute in float32 in the same order; the rest is
+summation and ``sin``/``cos`` rounding); ``alpha`` and ``improved`` equal.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from diffmpc_tpu.models import PendulumDx as JaxPendulumDx  # noqa: E402
+from diffmpc_tpu.ops.lqr import lqr_rollout as jax_lqr_rollout  # noqa: E402
+from diffmpc_tpu.ops.lqr import riccati_backward as jax_riccati  # noqa: E402
+from diffmpc_tpu.ops.linearize import linearize_dynamics as jax_linearize  # noqa: E402
+from diffmpc_tpu.ops.pallas.rollout import linesearch_rollout_pallas  # noqa: E402
+from diffmpc_tpu_torch import convert  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda.rollout import (  # noqa: E402
+    linesearch_rollout_cuda,
+    linesearch_rollout_plain,
+    run_staged_rollout,
+)
+from diffmpc_tpu_torch.ops.lqr import lqr_linesearch_rollout, lqr_rollout  # noqa: E402
+from oracles import random_lqr_problem  # noqa: E402
+
+T, B = 8, 32
+DECAY, MAX_ITER = 0.5, 6
+
+
+@functools.partial(jax.jit, static_argnames=("delta_u", "pendulum"))
+def jax_linesearch(args, lo, hi, *, delta_u, pendulum):
+    dyn = JaxPendulumDx.default(jnp.float32) if pendulum else None
+    return linesearch_rollout_pallas(
+        *args, u_lower=lo, u_upper=hi, delta_u=delta_u, dyn=dyn, decay=DECAY, max_iter=MAX_ITER,
+        interpret=True,
+    )
+
+
+def linear_case(constrained, delta_u=None, n=3, m=2, seed=90):
+    """Gains from the XLA Riccati about a random-control trajectory, as in
+    tests/test_pallas_rollout.py, with the feedforward ``k`` scaled by up to
+    8 per scenario: the full step then overshoots in some scenarios, so the
+    ladder has to back off."""
+    rng = np.random.default_rng(seed + constrained)
+    C, c, F, f, x_init = (jnp.asarray(a, jnp.float32) for a in random_lqr_problem(rng, T, B, n, m))
+    u_hat = jnp.asarray(rng.uniform(-0.2, 0.2, (T, B, m)), jnp.float32)
+    x_hat, _ = jax_lqr_rollout(x_init, F, f, jnp.zeros((T, B, m, n), jnp.float32), u_hat)
+    c_delta = c + jnp.einsum("tbij,tbj->tbi", C, jnp.concatenate([x_hat, u_hat], -1))
+    lo = hi = None
+    kw = {}
+    if constrained:
+        lo = jnp.full((T, B, m), -1.5, jnp.float32)
+        hi = jnp.full((T, B, m), 1.5, jnp.float32)
+        kw = dict(u_lower=lo, u_upper=hi, u_hat=u_hat)
+    res = jax_riccati(C, c_delta, F, None, n, **kw)
+    k = res.k * jnp.asarray(rng.uniform(0.5, 8.0, (1, B, 1)), jnp.float32)
+    return (x_init, C, c, F, f, res.K, k, x_hat, u_hat), lo, hi
+
+
+def pendulum_case():
+    """tests/test_pallas_rollout.py's pendulum recipe: goal cost, box +-2,
+    the env linearized about its zero-control rollout."""
+    dx = JaxPendulumDx.default(jnp.float32)
+    q, p = dx.get_true_obj()
+    rng = np.random.default_rng(95)
+    th = rng.uniform(-np.pi, np.pi, B)
+    x_init = jnp.asarray(np.stack([np.cos(th), np.sin(th), rng.uniform(-1, 1, B)], -1), jnp.float32)
+    u_hat = jnp.zeros((T, B, 1), jnp.float32)
+    _, x_hat = jax.lax.scan(lambda x, ut: (dx.forward(x, ut), x), x_init, u_hat)
+    C = jnp.broadcast_to(jnp.diag(q), (T, B, 4, 4)).astype(jnp.float32)
+    c = jnp.broadcast_to(p, (T, B, 4)).astype(jnp.float32)
+    lin = jax_linearize(dx, x_hat, u_hat)
+    c_delta = c + jnp.einsum("tbij,tbj->tbi", C, jnp.concatenate([x_hat, u_hat], -1))
+    lo = jnp.full((T, B, 1), -2.0, jnp.float32)
+    hi = jnp.full((T, B, 1), 2.0, jnp.float32)
+    res = jax_riccati(C, c_delta, lin.F, None, 3, u_lower=lo, u_upper=hi, u_hat=u_hat)
+    return (x_init, C, c, lin.F, lin.f, res.K, res.k, x_hat, u_hat), lo, hi, dx
+
+
+def tensors(*arrays):
+    return [None if a is None else torch.tensor(np.asarray(a)) for a in arrays]
+
+
+def assert_matches(got, want):
+    for name in ("xs", "us", "objs"):
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        assert g.shape == w.shape and g.dtype == np.float32, name
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * np.abs(w).max(), err_msg=name)
+    np.testing.assert_array_equal(got.alpha.numpy(), np.asarray(want.alpha))
+    np.testing.assert_array_equal(got.improved.numpy(), np.asarray(want.improved))
+
+
+@pytest.mark.parametrize(
+    "constrained,delta_u", [(False, None), (True, None), (True, 0.3)], ids=["free", "box", "box_delta_u"]
+)
+def test_plain_matches_jax_pallas_kernel_linear(constrained, delta_u):
+    args, lo, hi = linear_case(constrained)
+    want = jax_linesearch(args, lo, hi, delta_u=delta_u, pendulum=False)
+    lo_t, hi_t = tensors(lo, hi)
+    got = linesearch_rollout_plain(
+        *tensors(*args), u_lower=lo_t, u_upper=hi_t, delta_u=delta_u, decay=DECAY, max_iter=MAX_ITER
+    )
+    assert_matches(got, want)
+    if delta_u is None:  # the ladder backs off (a tight trust region keeps alpha = 1)
+        assert len(np.unique(got.alpha.numpy())) > 2
+
+
+def test_plain_matches_jax_pallas_kernel_pendulum():
+    args, lo, hi, jdx = pendulum_case()
+    want = jax_linesearch(args, lo, hi, delta_u=None, pendulum=True)
+    lo_t, hi_t = tensors(lo, hi)
+    got = linesearch_rollout_plain(
+        *tensors(*args), u_lower=lo_t, u_upper=hi_t, dyn=convert.pendulum_from_jax(jdx),
+        decay=DECAY, max_iter=MAX_ITER,
+    )
+    assert_matches(got, want)
+
+
+def test_dispatch_runs_the_plain_version_on_cpu():
+    args, lo, hi = linear_case(True, seed=300)
+    t = tensors(*args)
+    lo_t, hi_t = tensors(lo, hi)
+    before = linesearch_rollout_cuda.launches
+    got = lqr_linesearch_rollout(*t, u_lower=lo_t, u_upper=hi_t)
+    want = linesearch_rollout_plain(*t, u_lower=lo_t, u_upper=hi_t)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert linesearch_rollout_cuda.launches == before
+    with pytest.raises(ValueError, match="use_cuda=True"):
+        lqr_linesearch_rollout(*t, use_cuda=True)
+    # float64 in, float64 out; the line search itself runs in float32
+    got64 = linesearch_rollout_plain(*(a.double() for a in t), u_lower=lo_t.double(), u_upper=hi_t.double())
+    assert got64.us.dtype == torch.float64 and got64.improved.dtype == torch.bool
+    np.testing.assert_allclose(got64.us.numpy(), got.us.numpy(), atol=1e-6)
+
+
+def test_staging_rejects_what_the_kernel_does_not_take():
+    args, lo, hi = linear_case(True, seed=301)
+    t = tensors(*args)
+
+    def never(*_):
+        raise AssertionError("launched")
+
+    class OtherEnv:
+        def kernel_params(self):
+            return torch.zeros(3)
+
+    with pytest.raises(TypeError, match="float32"):
+        run_staged_rollout(never, t[0].double(), *t[1:])
+    with pytest.raises(ValueError, match="x_hat must be"):
+        run_staged_rollout(never, *t[:7], t[7][:, :, :2], t[8])
+    with pytest.raises(ValueError, match="both set"):
+        run_staged_rollout(never, *t, u_lower=torch.tensor(-1.0))
+    with pytest.raises(NotImplementedError, match="PendulumDx only"):
+        run_staged_rollout(never, *t, dyn=OtherEnv())
+    pend, _, _, jdx = pendulum_case()
+    with pytest.raises(ValueError, match="n=3, m=1"):
+        run_staged_rollout(never, *t, dyn=convert.pendulum_from_jax(jdx))
+
+
+def test_lqr_rollout_matches_jax():
+    args, lo, hi = linear_case(True, seed=302)
+    x_init, _, _, F, f, K, k, x_hat, u_hat = args
+    rng = np.random.default_rng(303)
+    alpha = jnp.asarray(rng.uniform(0.1, 1.0, B), jnp.float32)
+    want = jax_lqr_rollout(x_init, F, f, K, k, x_hat, u_hat, alpha=alpha, u_lower=lo, u_upper=hi, delta_u=0.4)
+    tx, tF, tf, tK, tk, txh, tuh, ta, tlo, thi = tensors(x_init, F, f, K, k, x_hat, u_hat, alpha, lo, hi)
+    got = lqr_rollout(tx, tF, tf, tK, tk, txh, tuh, alpha=ta, u_lower=tlo, u_upper=thi, delta_u=0.4)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+    plain = jax_lqr_rollout(x_init, F, None, K, k)  # zero references, f = 0
+    for g, w in zip(lqr_rollout(tx, tF, None, tK, tk), plain):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)

@@ -58,7 +58,33 @@ Phases, one line of output each (JSON where it carries numbers):
    backward; the pendulum with FINITE_DIFF at B=1024 against the CPU;
 12. time: config 2 at B=128, 4096 and 65,536: mpc_solve, each kernel alone,
    each wrapper's staging, each plain version once, and the cost of the
-   loop's one read of the done mask per iteration.
+   loop's one read of the done mask per iteration;
+13. dispatch: which kernel, resident or streaming twin, each (n, m) of the
+   kernels' table takes at T = 20, 64, 128 and 512 (ops/cuda/horizon.py, the
+   JAX package's choice);
+14. the Riccati twin against its plain version and its resident sibling: box
+   n=4, m=2 at T=128, B=128, 4096 and 65,536; free n=3, m=2 and mask n=4,
+   m=2 at T=128; box n=3, m=1 at T=512; phase 9's rule for ties;
+15. the rollout twin against its plain version and its resident sibling:
+   linear with and without a box at T=128, the pendulum's step at T=256;
+   objs within 1e-5 of the batch's largest, alpha equal on >= 99%, xs, us
+   within 1e-4 where alpha agrees (for the chaotic pendulum against the
+   resident kernel only);
+16. the KKT twin against its plain version and the resident KKT kernel: n=4,
+   m=2 at T=128 and n=3, m=1 at T=512, within 1e-4 * max(1, max|plain|);
+17. the slice: mpc_solve on config 2 at T=128 (lqr_iter 20) with the
+   gradient of a fixed loss, at B=128, 4096 and 65,536, launching the
+   Riccati and rollout twins once per iteration, the KKT twin once and no
+   resident kernel; at B=128 against the CPU (phase 11's rule), the float64
+   optimum (every scenario within 1e-5) and the CPU's gradients (1e-3 of
+   their max-abs on the agreeing scenarios); the pendulum at T=512 (fused
+   forward, gradient through the KKT twin) against the same gradient with
+   the CPU's plain KKT; the pendulum at T=256 with FINITE_DIFF through the
+   twins against the same solve through the resident kernels;
+18. time: each twin against its resident sibling, kernels alone on the same
+   inputs, at T = 20, 128, 512 and B = 128, 4096, 65,536, with their bounds;
+   the plain versions once at T=128, B=128; and config 2's mpc_solve at
+   T=128, forward and forward + gradient.
 
 The line before the last holds the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -96,6 +122,11 @@ HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
 # speed clip 2, dt thdot 1, cos/sin 1, the rotation 2. Backward,
 # V_t+1 -> V_t: W = V F 3, Q = C + F'W 4, K (reg, divide) 2, value update 3.
 DEP_OP_CYCLES, ILQR_FWD_DEPTH, ILQR_BACK_DEPTH = 4, 15, 12
+# the long-horizon path: config 2's slice at T=128 (box-DDP stops after ~17
+# iterations there), the pendulum with finite differences at T=256 and its
+# fused solve at T=512
+T_LONG, T_FD, T_PEND, LONG_ITER = 128, 256, 512, 20
+B_MID = 4096  # the timing batch between config 2's published 128 and a full card
 
 
 def emit(**record) -> None:
@@ -110,19 +141,19 @@ def x_init(B: int, seed: int = 0) -> np.ndarray:
     return np.stack([np.cos(th), np.sin(th), thdot], -1).astype(np.float32)
 
 
-def problem(B: int, device, seed: int = 0):
-    """The flagship problem's kernel inputs on ``device``."""
+def problem(B: int, device, seed: int = 0, steps: int = T):
+    """The flagship problem's kernel inputs on ``device``, over ``steps``."""
     from diffmpc_tpu_torch.models import PendulumDx
 
     dx = PendulumDx.default(device=device)
     q, p = dx.get_true_obj()
     return dict(
         x_init=torch.tensor(x_init(B, seed), device=device),
-        C=torch.diag(q).expand(T, B, 4, 4),
-        c=p.expand(T, B, 4),
+        C=torch.diag(q).expand(steps, B, 4, 4),
+        c=p.expand(steps, B, 4),
         dyn=dx,
-        u_lower=torch.full((T, B, 1), -2.0, device=device),
-        u_upper=torch.full((T, B, 1), 2.0, device=device),
+        u_lower=torch.full((steps, B, 1), -2.0, device=device),
+        u_upper=torch.full((steps, B, 1), 2.0, device=device),
     )
 
 
@@ -275,28 +306,28 @@ def tri(nm: int) -> int:
     return nm * (nm + 1) // 2
 
 
-def riccati_bytes(B: int, n: int, m: int) -> int:
+def riccati_bytes(B: int, n: int, m: int, steps: int = T) -> int:
     """Bytes the box-mode Riccati sweep must move (f None): C's upper
     triangle, c, F and u_hat in, with the two scalar bounds; K, k (float32),
     free (bool) and n_qp (int32) out."""
     nm = n + m
-    return B * T * (4 * (tri(nm) + nm + n * nm + m) + 4 * (m * n + m) + m + 4) + 8
+    return B * steps * (4 * (tri(nm) + nm + n * nm + m) + 4 * (m * n + m) + m + 4) + 8
 
 
-def rollout_bytes(B: int, n: int, m: int) -> int:
+def rollout_bytes(B: int, n: int, m: int, steps: int = T) -> int:
     """Bytes the linear, boxed line search must move: C's upper triangle, c,
     F, f, K, k, x_hat, u_hat per step and x_init in, with the two scalar
     bounds; xs, us per step and objs, alpha (float32), improved (bool) out."""
     nm = n + m
     per_step = 4 * (tri(nm) + nm + n * nm + n + m * n + m + n + m) + 4 * (n + m)
-    return B * (T * per_step + 4 * n + 9) + 8
+    return B * (steps * per_step + 4 * n + 9) + 8
 
 
-def kkt_bytes(B: int, n: int, m: int) -> int:
+def kkt_bytes(B: int, n: int, m: int, steps: int = T) -> int:
     """Bytes the KKT backward must move: C's upper triangle, c, F, r, tau
     (float32) and tight (bool) in; dC, dc, dF, df per step and dx_init out."""
     nm = n + m
-    return B * (T * (4 * (tri(nm) + nm + n * nm + 2 * nm) + m + 4 * (nm * nm + nm + n * nm + n)) + 4 * n)
+    return B * (steps * (4 * (tri(nm) + nm + n * nm + 2 * nm) + m + 4 * (nm * nm + nm + n * nm + n)) + 4 * n)
 
 
 def ilqr_chain_ms(n_iters: int, clock_mhz: float) -> float:
@@ -359,24 +390,46 @@ def riccati_agreement(name: str, got, want, Quu, qu) -> dict:
     return out
 
 
-def box_lqr_optimum(C, c, F, f, x0, lo: float, hi: float, iters: int = 50):
-    """The box-constrained LQR's optimum in float64 on the CPU, independent
+def line_search_agreement(name: str, got, want, hold: bool = True) -> dict:
+    """Two line searches on the same inputs: objs within 1e-5 of the batch's
+    largest |objs| (relative to each objective, with the batch's largest as
+    the floor: a cost summed over T steps can cancel to near zero), alpha
+    equal on >= 99%, xs, us within 1e-4 where alpha agrees. With ``hold``
+    off the numbers are reported, not held."""
+    torch.cuda.synchronize()
+    same = got.alpha == want.alpha
+    scale = want.objs.abs().clamp_min(float(want.objs.abs().max()))
+    obj_rel = float(((got.objs - want.objs).abs() / scale).max())
+    traj = max(float((got.xs - want.xs)[:, same].abs().max()), float((got.us - want.us)[:, same].abs().max()))
+    out = dict(objs_max_rel=obj_rel, alpha_equal_frac=float(same.float().mean()), traj_max_abs_where_alpha_agrees=traj,
+               distinct_alphas=len(torch.unique(want.alpha)), improved_frac=float(want.improved.float().mean()))
+    if hold and (obj_rel > 1e-5 or out["alpha_equal_frac"] < 0.99 or traj > 1e-4):
+        raise AssertionError(f"{name}: {out}")
+    return out
+
+
+def box_lqr_optimum(C, c, F, f, x0, lo: float, hi: float, iters: int = 60, polish: int = 5, device="cpu"):
+    """The box-constrained LQR's optimum in float64 on ``device``, independent
     of the solver under test: the problem condensed to one QP in the
     controls (x_t+1 = F_t [x_t; u_t] + f_t, cost 0.5 tau'C tau + c'tau per
-    step), solved by projected Newton with a backtracking search. Returns
-    the objective as a function of controls (T, B, m), the optimal controls
-    and the largest projected-gradient entry left at them."""
+    step), solved by a primal-dual interior-point method (robust however
+    ill-conditioned the condensed QP: at T=128 its Hessian's condition number
+    is ~2e6), then polished by projected Newton steps with a backtracking
+    search on the active set it found. Returns the objective as a function
+    of controls (T, B, m), the optimal controls and the largest
+    projected-gradient entry left at them."""
     f64 = torch.float64
-    C, c, F, f, x0 = (a.detach().to("cpu", f64) for a in (C, c, F, f, x0))
+    C, c, F, f, x0 = (a.detach().to(device, f64) for a in (C, c, F, f, x0))
     T_, B, n, nm = F.shape
     m, Tm = nm - n, T_ * (nm - n)
+    d64 = dict(dtype=f64, device=device)
     Cs = 0.5 * (C + C.transpose(-1, -2))
-    H, g, const = torch.zeros(B, Tm, Tm, dtype=f64), torch.zeros(B, Tm, dtype=f64), torch.zeros(B, dtype=f64)
-    ax, Mx = x0, torch.zeros(B, n, Tm, dtype=f64)
+    H, g, const = torch.zeros(B, Tm, Tm, **d64), torch.zeros(B, Tm, **d64), torch.zeros(B, **d64)
+    ax, Mx = x0, torch.zeros(B, n, Tm, **d64)
     for t in range(T_):  # tau_t = a + M u, affine in the controls u (B, T m)
-        Mu = torch.zeros(B, m, Tm, dtype=f64)
-        Mu[:, :, t * m:(t + 1) * m] = torch.eye(m, dtype=f64)
-        a, M = torch.cat([ax, torch.zeros(B, m, dtype=f64)], -1), torch.cat([Mx, Mu], 1)
+        Mu = torch.zeros(B, m, Tm, **d64)
+        Mu[:, :, t * m:(t + 1) * m] = torch.eye(m, **d64)
+        a, M = torch.cat([ax, torch.zeros(B, m, **d64)], -1), torch.cat([Mx, Mu], 1)
         Ca = (Cs[t] @ a[..., None])[..., 0]
         H += M.transpose(1, 2) @ Cs[t] @ M
         g += (M.transpose(1, 2) @ (Ca + c[t])[..., None])[..., 0]
@@ -386,24 +439,46 @@ def box_lqr_optimum(C, c, F, f, x0, lo: float, hi: float, iters: int = 50):
     def qp(u):  # (B, S, Tm) -> (B, S): the objective without its constant (H is symmetric)
         return 0.5 * (u * (u @ H)).sum(-1) + (u * g[:, None]).sum(-1)
 
-    steps = 0.5 ** torch.arange(40, dtype=f64)
-    u = torch.linalg.solve(H, -g).clamp(lo, hi)
+    def max_step(x, dx):  # the largest step keeping x + step * dx >= 0, per scenario
+        return torch.where(dx < 0, -x / dx, torch.full_like(x, float("inf"))).amin(-1, keepdim=True)
+
+    # interior point: slacks u - lo, hi - u and their duals z1, z2, centred by
+    # 0.1 of the duality gap, each scenario stopped once its gap is 1e-13
+    u = torch.full((B, Tm), 0.5 * (lo + hi), **d64)
+    z1, z2 = torch.ones(B, Tm, **d64), torch.ones(B, Tm, **d64)
     for _ in range(iters):
+        s1, s2 = u - lo, hi - u
+        gap = (s1 * z1 + s2 * z2).sum(-1, keepdim=True) / (2 * Tm)
+        live = gap > 1e-13
+        if not bool(live.any()):
+            break
+        mu = 0.1 * gap
+        grad = (H @ u[..., None])[..., 0] + g
+        du = torch.linalg.solve(H + torch.diag_embed(z1 / s1 + z2 / s2), mu / s1 - mu / s2 - grad)
+        dz1, dz2 = (mu - s1 * z1 - z1 * du) / s1, (mu - s2 * z2 + z2 * du) / s2
+        step = torch.minimum(torch.minimum(max_step(s1, du), max_step(s2, -du)),
+                             torch.minimum(max_step(z1, dz1), max_step(z2, dz2)))
+        step = torch.where(live, (0.99 * step).clamp(max=1.0), torch.zeros_like(step))
+        u, z1, z2 = u + step * du, z1 + step * dz1, z2 + step * dz2
+    # onto the bounds the interior point approaches, then Newton on the rest
+    u = torch.where(u - lo < 1e-9, lo, torch.where(hi - u < 1e-9, hi, u))
+    steps = 0.5 ** torch.arange(40, **d64)
+    for _ in range(polish):
         grad = (H @ u[..., None])[..., 0] + g
         act = ((u <= lo) & (grad > 0)) | ((u >= hi) & (grad < 0))
-        Hm = torch.where(act[:, :, None] | act[:, None, :], torch.eye(Tm, dtype=f64), H)
+        Hm = torch.where(act[:, :, None] | act[:, None, :], torch.eye(Tm, **d64), H)
         d = torch.linalg.solve(Hm, torch.where(act, 0.0, -grad))
         cand = (u[:, None] + steps[:, None] * d[:, None]).clamp(lo, hi)  # (B, S, Tm)
         ok = qp(cand) <= qp(u[:, None])
-        pick = cand[torch.arange(B), torch.argmax(ok.to(torch.int8), 1)]
+        pick = cand[torch.arange(B, device=device), torch.argmax(ok.to(torch.int8), 1)]
         u = torch.where(ok.any(1)[:, None], pick, u)
     grad = (H @ u[..., None])[..., 0] + g
     pg = float((u - (u - grad).clamp(lo, hi)).abs().max())
 
     def objective(us):
-        return qp(us.detach().to("cpu", f64).transpose(0, 1).reshape(B, 1, Tm))[:, 0] + const
+        return (qp(us.detach().to(device, f64).transpose(0, 1).reshape(B, 1, Tm))[:, 0] + const).cpu()
 
-    return objective, u.reshape(B, T_, m).transpose(0, 1), pg
+    return objective, u.reshape(B, T_, m).transpose(0, 1).cpu(), pg
 
 
 def riccati_step_ops(n: int, m: int, mode: str) -> int:
@@ -476,6 +551,388 @@ def timed_launch(launch, loops: int, out: dict):
         out["ms"] = start.elapsed_time(end) / loops
 
     return run
+
+
+def rollout_inputs(case: str, B: int, seed: int, device, steps: int = T):
+    """The line search's inputs as the non-fused loop builds them: a
+    trajectory from random controls, gains from the Riccati kernel about
+    it, the feedforward scaled by up to 8 so that the ladder backs off."""
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
+    from diffmpc_tpu_torch.ops.lqr import lqr_rollout
+    from diffmpc_tpu_torch.utils.batch import bmv
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if case == "pendulum":
+        prob = problem(B, device, seed=seed, steps=steps)
+        n, m, dyn = 3, 1, prob["dyn"]
+        x0, C, c, lo, hi = prob["x_init"], prob["C"], prob["c"], prob["u_lower"], prob["u_upper"]
+        u_hat = (torch.rand((steps, B, m), generator=gen, device=device) - 0.5) * 4.0
+        xs, x = [], x0
+        for t in range(steps):
+            xs.append(x)
+            x = dyn.forward(x, u_hat[t])
+        x_hat = torch.stack(xs)
+        F, f = linearize_dynamics(dyn, x_hat, u_hat)
+    else:
+        n, m, dyn = BOX_N, BOX_M, None
+        C, c, F, f, x0 = random_lqr_torch(steps, B, n, m, device, seed)
+        lo, hi = (torch.tensor(-BOX, device=device), torch.tensor(BOX, device=device)) if case == "linear_box" else (None, None)
+        u_hat = (torch.rand((steps, B, m), generator=gen, device=device) - 0.5) * 0.6
+        zeros = torch.zeros((steps, B, m, n), device=device)
+        x_hat, _ = lqr_rollout(x0, F, f, zeros, torch.zeros((steps, B, m), device=device), u_hat=u_hat)
+    c_delta = c + bmv(C, torch.cat([x_hat, u_hat], -1))
+    box = dict(u_lower=lo, u_upper=hi, u_hat=u_hat) if lo is not None else {}
+    res = ric.riccati_backward_cuda(C, c_delta, F, None, n, **box)
+    scale = 0.5 + 7.5 * torch.rand((1, B, 1), generator=gen, device=device)
+    args = (x0, C, c, None if dyn else F, None if dyn else f, res.K, res.k * scale, x_hat, u_hat)
+    return args, dict(u_lower=lo, u_upper=hi, dyn=dyn)
+
+
+def random_kkt_inputs_torch(steps: int, B: int, n: int, m: int, device, seed: int, tight_share: float = 0.2):
+    """KKT-backward residuals drawn on the card, at any horizon and (n, m):
+    an SPD cost, random dynamics, a trajectory with ``tight_share`` of the
+    controls' entries marked tight and their gradients zeroed."""
+    C, c, F, _, _ = random_lqr_torch(steps, B, n, m, device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    tau = torch.randn((steps, B, n + m), generator=g, device=device)
+    tight = torch.rand((steps, B, m), generator=g, device=device) < tight_share
+    r = torch.randn((steps, B, n + m), generator=g, device=device)
+    r[..., n:] = torch.where(tight, 0.0, r[..., n:])
+    return C, c, F, r, tau, tight
+
+
+def long_horizon(device, smi: str) -> list:
+    """Phases 13-18, the long-horizon path: the dispatch, each streaming twin
+    against its plain version and its resident sibling, the slice through
+    mpc_solve with its gradient, and the timings. Returns the twins' records
+    for the kernels line."""
+    from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
+    from diffmpc_tpu_torch.ops.cuda import horizon, kkt, kkt_stream
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.cuda import riccati_stream as rs
+    from diffmpc_tpu_torch.ops.cuda import rollout as rol
+    from diffmpc_tpu_torch.ops.cuda import rollout_stream as ros
+    from diffmpc_tpu_torch.ops.cuda.ilqr import KERNEL_SHAPES, ilqr_solve_fused
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
+    from diffmpc_tpu_torch.ops.lqr import lqr_rollout
+    from diffmpc_tpu_torch.ops.lqr_step import LqrSpec, lqr_fixed_point
+    from diffmpc_tpu_torch.utils.batch import bmv
+
+    named = dict(
+        ilqr=ilqr_solve_fused, kkt=kkt.kkt_backward_fused, riccati=ric.riccati_backward_cuda,
+        rollout=rol.linesearch_rollout_cuda, riccati_stream=rs.riccati_backward_stream_cuda,
+        rollout_stream=ros.linesearch_rollout_stream_cuda, kkt_stream=kkt_stream.kkt_backward_stream_cuda,
+    )
+
+    def reset_counts():
+        for kern in named.values():
+            kern.launches = 0
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return {name: kern.launches for name, kern in named.items()}
+
+    def only(**want) -> dict:
+        return {name: want.get(name, 0) for name in named}
+
+    box = dict(u_lower=torch.tensor(-BOX, device=device), u_upper=torch.tensor(BOX, device=device))
+
+    # ---- 13. dispatch: the kernel each shape takes ----
+    picks = {}
+    for steps in (20, 64, T_LONG, T_PEND):
+        for n, m in KERNEL_SHAPES:
+            picks[f"T={steps} n={n} m={m}"] = {
+                kind: kind + ("_stream" if pred(steps, n, m) else "")
+                for kind, pred in (("riccati", horizon.streams_riccati), ("rollout", horizon.streams_rollout),
+                                   ("kkt", horizon.streams_kkt))
+            }
+    emit(phase="dispatch", vmem_budget_bytes=horizon.VMEM_BUDGET_BYTES, picks=picks)
+    if set(picks[f"T={T_LONG} n=4 m=2"].values()) != {"riccati_stream", "rollout_stream", "kkt_stream"} \
+            or set(picks["T=20 n=4 m=2"].values()) != {"riccati", "rollout", "kkt"}:
+        raise AssertionError(f"dispatch: {picks}")
+
+    # ---- 14. the Riccati twin vs plain and vs its resident sibling ----
+    ric_err = {}
+    for mode, n, m, steps, B in [("box", BOX_N, BOX_M, T_LONG, b) for b in (BOX_B, B_MID, B_ENSEMBLE)] + [
+        ("free", 3, 2, T_LONG, B_RAGGED), ("mask", BOX_N, BOX_M, T_LONG, B_RAGGED), ("box", 3, 1, T_PEND, B_RAGGED),
+    ]:
+        C, c, F, _, _ = random_lqr_torch(steps, B, n, m, device, seed=1400 + B + 10 * n + m)
+        gen = torch.Generator(device=device).manual_seed(B + 1)
+        kw = {}
+        if mode == "box":
+            kw = dict(box, u_hat=(torch.rand((steps, B, m), generator=gen, device=device) - 0.5) * 0.6)
+        elif mode == "mask":
+            kw = dict(ctrl_mask=torch.rand((steps, B, m), generator=gen, device=device) < 0.3)
+        twin = rs.riccati_backward_stream_cuda(C, c, F, None, n, **kw)
+        resident = ric.riccati_backward_cuda(C, c, F, None, n, **kw)
+        want, Quu, qu = ric.riccati_backward_plain(C, c, F, None, n, return_qp=True, **kw)
+        torch.cuda.synchronize()
+        name = f"{mode} n={n} m={m} T={steps} B={B}"
+        vs_plain = riccati_agreement(f"twin, {name}", twin, want, Quu, qu)
+        vs_resident = riccati_agreement(f"twin vs resident, {name}", twin, resident, Quu, qu)
+        emit(phase="riccati_twin", mode=mode, n=n, m=m, T=steps, B=B, vs_plain=vs_plain,
+             vs_resident={k: vs_resident[k] for k in ("max_abs_err", "tie_steps", "free_mismatches")},
+             bitwise_equal_to_resident=all(torch.equal(a, b) for a, b in zip(twin, resident)))
+        ric_err[(mode, n, m, steps, B)] = max(vs_plain["max_abs_err"].values())
+        del C, c, F, twin, resident, want, Quu, qu
+
+    # ---- 15. the rollout twin vs plain and vs its resident sibling ----
+    rol_err = {}
+    for case, steps in (("linear_box", T_LONG), ("linear_free", T_LONG), ("pendulum", T_FD)):
+        args, kw = rollout_inputs(case, B_MAIN, 1500, device, steps=steps)
+        twin = ros.linesearch_rollout_stream_cuda(*args, **kw)
+        plain = rol.linesearch_rollout_plain(*args, **kw)
+        resident = rol.linesearch_rollout_cuda(*args, **kw)
+        # The pendulum's closed loop is chaotic over 256 steps: the kernels'
+        # contracted multiply-adds and the plain version's separate roundings
+        # part by an ulp a step, which grows until some rollouts are apart.
+        # There the twin is held to the resident kernel (the same device
+        # arithmetic), alpha to the plain version's on >= 99%, and each
+        # scenario's cost no further from the plain version's than the
+        # resident kernel's is (plus 1e-5 of the batch's largest).
+        chaotic = case == "pendulum"
+        vs_plain = line_search_agreement(f"rollout twin vs plain, {case}", twin, plain, hold=not chaotic)
+        vs_resident = line_search_agreement(f"rollout twin vs resident, {case}", twin, resident)
+        if chaotic:
+            scale = float(plain.objs.abs().max())
+            rel = (twin.objs - plain.objs).abs() / scale
+            vs_plain["objs_within_1e-5_frac"] = float((rel <= 1e-5).float().mean())
+            no_further = bool(((twin.objs - plain.objs).abs() <= (resident.objs - plain.objs).abs() + 1e-5 * scale).all())
+            if vs_plain["alpha_equal_frac"] < 0.99 or not no_further:
+                raise AssertionError(f"rollout twin vs plain, {case}: {vs_plain}, no further than the resident: {no_further}")
+        emit(phase="rollout_twin", case=case, B=B_MAIN, T=steps, vs_plain=vs_plain, vs_resident=vs_resident,
+             bitwise_equal_to_resident=all(torch.equal(a, b) for a, b in zip(twin, resident)))
+        rol_err[case] = vs_plain["traj_max_abs_where_alpha_agrees"]
+
+    # ---- 16. the KKT twin vs plain and vs the resident KKT kernel ----
+    kkt_err = {}
+    for n, m, steps in ((BOX_N, BOX_M, T_LONG), (3, 1, T_PEND)):
+        ins = random_kkt_inputs_torch(steps, B_MAIN, n, m, device, seed=1600 + steps)
+        twin = kkt_stream.kkt_backward_stream_cuda(*ins)
+        resident = kkt.run_on_card(kkt._cuda_launcher, *ins)
+        err = check_kkt(f"KKT twin vs plain, n={n} m={m} T={steps}", twin, kkt.kkt_backward_plain(*ins))
+        err_res = check_kkt(f"KKT twin vs resident, n={n} m={m} T={steps}", twin, resident)
+        emit(phase="kkt_twin", n=n, m=m, T=steps, B=B_MAIN, tight_share=float(ins[-1].float().mean()),
+             max_abs_err=err, vs_resident_max_abs_err=err_res,
+             bitwise_equal_to_resident=all(torch.equal(a, b) for a, b in zip(twin, resident)),
+             tol="1e-4 * max(1, max|plain|)")
+        kkt_err[(n, m, steps)] = err
+
+    # ---- 17. the slice: config 2 at T=128 through mpc_solve, with its gradient ----
+    # lqr_iter 20: box-DDP at this horizon runs more iterations than config
+    # 2's 10 at T=20 before every scenario stops (the phase prints n_iters)
+    long_config = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=T_LONG, lqr_iter=LONG_ITER, exit_unconverged=False,
+                            detach_unconverged=False)
+
+    def slice_solve(arrays, weights, dev, grad=True):
+        leaves = [a.to(dev).clone().requires_grad_(grad) for a in arrays]
+        C, c, F, f, x0 = leaves
+        sol = mpc_solve(long_config, x0, QuadCost(C, c), LinDx(F, f), u_lower=-BOX, u_upper=BOX)
+        if not grad:
+            return sol, None
+        wx, wu = (w.to(dev) for w in weights)
+        return sol, torch.autograd.grad((sol.xs * wx).sum() + (sol.us * wu).sum(), leaves)
+
+    slice_launches = None
+    for B in (BOX_B, B_MID, B_ENSEMBLE):
+        if B == BOX_B:  # the recipe of phase 11, drawn on the host to share with the CPU
+            arrays = [torch.tensor(a) for a in random_lqr_numpy(np.random.default_rng(17), T_LONG, B, BOX_N, BOX_M)]
+            rng = np.random.default_rng(18)
+            weights = [torch.tensor(rng.normal(size=s), dtype=torch.float32)
+                       for s in ((T_LONG, B, BOX_N), (T_LONG, B, BOX_M))]
+        else:
+            arrays = list(random_lqr_torch(T_LONG, B, BOX_N, BOX_M, device, seed=1700 + B))
+            gen = torch.Generator(device=device).manual_seed(B)
+            weights = [torch.randn(s, generator=gen, device=device) for s in ((T_LONG, B, BOX_N), (T_LONG, B, BOX_M))]
+        reset_counts()
+        sol, grads = slice_solve(arrays, weights, device)
+        got = counts()
+        it = int(sol.info.n_iters)
+        record = dict(B=B, T=T_LONG, lqr_iter=LONG_ITER, n_iters=it, launches=got,
+                      converged_frac=float(sol.info.converged.float().mean()),
+                      clamp_frac=float(sol.info.clamp_frac.mean()), mean_obj=float(sol.objs.mean()))
+        if got != only(riccati_stream=it, rollout_stream=it, kkt_stream=1):
+            raise AssertionError(f"the slice at B={B}: launches {got} for {it} iterations")
+        if not bool(torch.isfinite(sol.objs).all()) or not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"the slice at B={B}: non-finite solution or gradient")
+        if B == BOX_B:
+            slice_launches = got
+            # card vs CPU under phase 11's rule, and the float64 optimum
+            cpu, g_cpu = slice_solve(arrays, weights, "cpu")
+            us_diff = (sol.us.detach().cpu() - cpu.us.detach()).abs().amax(dim=(0, 2))
+            agree = us_diff <= 1e-4
+            obj_rel = float(((sol.objs.detach().cpu() - cpu.objs.detach()).abs()
+                             / cpu.objs.detach().abs().clamp_min(1.0)).max())
+            box32 = (float(np.float32(-BOX)), float(np.float32(BOX)))
+            objective, u_opt, opt_pg = box_lqr_optimum(*arrays, *box32, device=device)
+            j_opt = objective(u_opt)
+            gap = {side: (objective(s.us) - j_opt) / j_opt.abs().clamp_min(1.0) for side, s in (("card", sol), ("cpu", cpu))}
+            g_rel = {}
+            for k, a, b in zip(("C", "c", "F", "f", "x_init"), grads, g_cpu):
+                a, b = (a.cpu()[agree], b[agree]) if k == "x_init" else (a.cpu()[:, agree], b[:, agree])
+                g_rel[k] = float((a - b).abs().max() / b.abs().max())
+            record.update(card_vs_cpu_objs_max_rel=obj_rel, card_vs_cpu_us_max_abs=float(us_diff.max()),
+                          us_agree_frac=float(agree.float().mean()), optimum_projected_grad=opt_pg,
+                          optimum_rel_gap_max={k: float(v.max()) for k, v in gap.items()},
+                          grad_rel_err_on_agreeing=g_rel)
+            if obj_rel > 1e-5 or float(agree.float().mean()) < 0.95 or float(us_diff.max()) > 5e-3 \
+                    or opt_pg > 1e-8 or float(gap["card"].max()) > 1e-5 or max(g_rel.values()) > 1e-3:
+                raise AssertionError(f"the slice at B={B}, card vs CPU and the optimum: {record}")
+        emit(phase="long_horizon_slice", **record)
+        del arrays, weights, sol, grads
+
+    # the pendulum at T=512: the fused forward, the gradient through the KKT
+    # twin, against the same gradient with the CPU's plain KKT. Held with the
+    # goal hanging down; reported with the swing-up goal, where the KKT
+    # backward's multiplier recursion runs through the open-loop
+    # linearization, unstable near upright, for 512 steps: float32 then loses
+    # the cancellation that keeps the multipliers bounded, on the card and on
+    # the CPU alike. Hanging down, the step is marginally stable.
+    pend_config = MPCConfig(n_state=3, n_ctrl=1, T=T_PEND, lqr_iter=LQR_ITER, eps=EPS, exit_unconverged=False,
+                            detach_unconverged=False)
+    prob = problem(B_MAIN, device, seed=5, steps=T_PEND)
+    dx = prob["dyn"]
+    q, p_up = dx.get_true_obj()
+    for goal, p, hold in (("hanging_down", -p_up, True), ("upright", p_up, False)):  # -p_up: (cos, sin, speed) = (-1, 0, 0)
+        prm, x = dx.params.clone().requires_grad_(True), prob["x_init"].clone().requires_grad_(True)
+        reset_counts()
+        psol = mpc_solve(pend_config, x, QuadCost(torch.diag(q), p), dx.replace(params=prm), u_lower=-2.0, u_upper=2.0)
+        g_card = torch.autograd.grad((psol.us**2).mean(), (prm, x))
+        pend_launches = counts()
+        if pend_launches != only(ilqr=1, kkt_stream=1):
+            raise AssertionError(f"pendulum T={T_PEND} solve + gradient launched {pend_launches}")
+
+        def fixed_point_grads(dev):
+            """The same gradient at the card's fixed point, as mpc_solve's
+            attach builds it, on ``dev``: the CPU's runs the plain KKT."""
+            prm_d = dx.params.to(dev).clone().requires_grad_(True)
+            x_d = prob["x_init"].to(dev).clone().requires_grad_(True)
+            xs, us = psol.xs.detach().to(dev), psol.us.detach().to(dev)
+            F, f = linearize_dynamics(dx.replace(params=prm_d), xs, us)
+            spec = LqrSpec(n_state=3, constrained=True, tight_eps=pend_config.tight_eps,
+                           back_eps=pend_config.back_eps, use_cuda=False if dev == "cpu" else None)
+            C, c = torch.diag(q).to(dev).expand(T_PEND, B_MAIN, 4, 4), p.to(dev).expand(T_PEND, B_MAIN, 4)
+            _, us2 = lqr_fixed_point(spec, x_d, C, c, F, f, xs, us, torch.full_like(us, -2.0), torch.full_like(us, 2.0))
+            return torch.autograd.grad((us2**2).mean(), (prm_d, x_d))
+
+        g_ref = fixed_point_grads("cpu")
+        pend_rel = {k: float((a.cpu() - b).abs().max() / b.abs().max())
+                    for k, a, b in zip(("params", "x_init"), g_card, g_ref)}
+        emit(phase="long_horizon_pendulum", goal=goal, held=hold, B=B_MAIN, T=T_PEND, lqr_iter=LQR_ITER,
+             launches=pend_launches, converged_frac=float(psol.info.converged.float().mean()),
+             mean_obj=float(psol.objs.mean()), grad_vs_cpu_plain_kkt_rel_err=pend_rel,
+             grad_max_abs={k: float(g.abs().max()) for k, g in zip(("params", "x_init"), g_card)})
+        finite = all(bool(torch.isfinite(g).all()) for g in g_card)
+        if hold and (not finite or max(pend_rel.values()) > 1e-3):
+            raise AssertionError(f"pendulum T={T_PEND} gradient vs the CPU's plain KKT: {pend_rel}")
+
+    # the pendulum at T=256 with finite differences: the non-fused loop through
+    # the Riccati twin and the rollout twin's pendulum step, against the same
+    # solve with the budget set so that the resident kernels take it
+    fd_config = dataclasses.replace(pend_config, T=T_FD, grad_method=GradMethods.FINITE_DIFF)
+    prob = problem(B_MAIN, device, seed=6, steps=T_FD)
+    fd_args = (prob["x_init"], QuadCost(torch.diag(q), p_up), prob["dyn"])
+    fd_runs = {}
+    for path, budget in (("twins", horizon.VMEM_BUDGET_BYTES), ("resident", 1 << 40)):
+        saved, horizon.VMEM_BUDGET_BYTES = horizon.VMEM_BUDGET_BYTES, budget
+        try:
+            reset_counts()
+            fd = mpc_solve(fd_config, *fd_args, u_lower=-2.0, u_upper=2.0)
+            fd_runs[path] = (fd, counts())
+        finally:
+            horizon.VMEM_BUDGET_BYTES = saved
+    (fd, fd_launches), (fd_res, res_launches) = fd_runs["twins"], fd_runs["resident"]
+    it, it_res = int(fd.info.n_iters), int(fd_res.info.n_iters)
+    conv = (float(fd.info.converged.float().mean()), float(fd_res.info.converged.float().mean()))
+    objm = (float(fd.objs.mean()), float(fd_res.objs.mean()))
+    emit(phase="long_horizon_finite_diff", B=B_MAIN, T=T_FD, lqr_iter=LQR_ITER, launches=fd_launches, n_iters=it,
+         converged_frac=conv[0], mean_obj=objm[0], resident_launches=res_launches,
+         resident_converged_frac=conv[1], resident_mean_obj=objm[1])
+    if fd_launches != only(riccati_stream=it, rollout_stream=it) or res_launches != only(riccati=it_res, rollout=it_res):
+        raise AssertionError(f"pendulum FINITE_DIFF T={T_FD}: launches {fd_launches}, resident {res_launches}")
+    if not bool(torch.isfinite(fd.objs).all()) or abs(conv[0] - conv[1]) > 0.05 or abs(objm[0] - objm[1]) > 1e-2 * abs(objm[1]):
+        raise AssertionError(f"pendulum FINITE_DIFF T={T_FD}, twins vs resident: converged {conv}, mean obj {objm}")
+
+    # ---- 18. time: each twin against its resident sibling, and the slice ----
+    # the kernels alone on the same inputs (box-DDP n=4, m=2), CUDA events
+    twin_times = {}
+    for steps in (T, T_LONG, T_PEND):
+        for B in (BOX_B, B_MID, B_ENSEMBLE):
+            loops = int(min(20, max(2, 2e7 // (steps * B))))
+            at_slice = (steps, B) == (T_LONG, BOX_B)  # the plain versions are timed there, once
+            ms, plain_ms = {}, {}
+            C, c, F, f, x0 = random_lqr_torch(steps, B, BOX_N, BOX_M, device, seed=1800 + steps)
+            u_hat = torch.zeros((steps, B, BOX_M), device=device)
+            x_hat, _ = lqr_rollout(x0, F, f, torch.zeros((steps, B, BOX_M, BOX_N), device=device), u_hat)
+            c_delta = c + bmv(C, torch.cat([x_hat, u_hat], -1))
+            ric_kw = dict(box, u_hat=u_hat)
+            for name, launcher in (("riccati", ric._cuda_launcher), ("riccati_stream", rs._stream_launcher)):
+                out = {}
+                ric.run_staged_riccati(timed_launch(launcher(device, BOX_N, BOX_M), loops, out),
+                                       C, c_delta, F, None, BOX_N, **ric_kw)
+                ms[name] = out["ms"]
+            res = rs.riccati_backward_stream_cuda(C, c_delta, F, None, BOX_N, **ric_kw)
+            if at_slice:
+                plain_ms["riccati"] = cuda_ms(lambda: ric.riccati_backward_plain(C, c_delta, F, None, BOX_N, **ric_kw), 1, 1)
+            ls_args = (x0, C, c, F, f, res.K, res.k, x_hat, u_hat)
+            for name, launcher in (("rollout", rol._cuda_launcher), ("rollout_stream", ros._stream_launcher)):
+                out = {}
+                rol.run_staged_rollout(timed_launch(launcher(device, BOX_N, BOX_M, None), loops, out), *ls_args, **box)
+                ms[name] = out["ms"]
+            if at_slice:
+                plain_ms["rollout"] = cuda_ms(lambda: rol.linesearch_rollout_plain(*ls_args, **box), 1, 1)
+            del res, ls_args, x_hat, u_hat, c_delta, ric_kw, f, x0
+            kkt_ins = random_kkt_inputs_torch(steps, B, BOX_N, BOX_M, device, seed=1900 + steps)
+            for name, launcher in (("kkt", kkt._cuda_launcher), ("kkt_stream", kkt_stream._stream_launcher)):
+                out = {}
+                kkt.run_staged_kkt(timed_launch(launcher(device, BOX_N, BOX_M), loops, out), *kkt_ins)
+                ms[name] = out["ms"]
+            if at_slice:
+                plain_ms["kkt"] = cuda_ms(lambda: kkt.kkt_backward_plain(*kkt_ins), 1, 1)
+            del C, c, F, kkt_ins
+            torch.cuda.empty_cache()
+            bounds = dict(
+                riccati=bound(riccati_bytes(B, BOX_N, BOX_M, steps), steps * B * riccati_step_ops(BOX_N, BOX_M, "box")),
+                rollout=bound(rollout_bytes(B, BOX_N, BOX_M, steps),
+                              (LQR_ITER + 2) * steps * B * rollout_step_ops(BOX_N, BOX_M)),
+                kkt=bound(kkt_bytes(B, BOX_N, BOX_M, steps), steps * B * kkt_step_ops(BOX_N, BOX_M)),
+            )
+            twin_times[(steps, B)] = (ms, plain_ms, bounds)
+            emit(phase="time_twins", T=steps, B=B, n=BOX_N, m=BOX_M, loops=loops, card=smi,
+                 **{f"{k}_ms": v for k, v in ms.items()},
+                 **{f"{k}_twin_over_resident": ms[f"{k}_stream"] / ms[k] for k in ("riccati", "rollout", "kkt")},
+                 **{f"{k}_plain_ms": v for k, v in plain_ms.items()}, bounds=bounds)
+
+    # the slice through mpc_solve: forward alone, and forward + gradient
+    for B, loops in ((BOX_B, 3), (B_MID, 3), (B_ENSEMBLE, 2)):
+        arrays = list(random_lqr_torch(T_LONG, B, BOX_N, BOX_M, device, seed=2100 + B))
+        weights = [torch.ones((T_LONG, B, BOX_N), device=device), torch.ones((T_LONG, B, BOX_M), device=device)]
+        with torch.no_grad():
+            it = int(slice_solve(arrays, weights, device, grad=False)[0].info.n_iters)
+            fwd_ms = cuda_ms(lambda: slice_solve(arrays, weights, device, grad=False), loops, 2)
+        grad_ms = cuda_ms(lambda: slice_solve(arrays, weights, device), loops, 2)
+        emit(phase="time_long_horizon_slice", B=B, T=T_LONG, lqr_iter=LONG_ITER, n_iters=it, card=smi,
+             mpc_solve_ms=fwd_ms, solves_per_s=B / fwd_ms * 1e3, solve_plus_grad_ms=grad_ms,
+             solve_plus_grad_per_s=B / grad_ms * 1e3)
+        del arrays, weights
+
+    ms, plain_ms, bounds = twin_times[(T_LONG, BOX_B)]
+    source = "diffmpc_tpu_torch/csrc/"
+    return [
+        dict(name="riccati_backward_pallas_stream", route="cuda", source=source + "riccati_stream.cu",
+             replaces="diffmpc_tpu/ops/pallas/riccati_stream.py:171", launches=slice_launches["riccati_stream"],
+             max_abs_err=ric_err[("box", BOX_N, BOX_M, T_LONG, BOX_B)], ms=ms["riccati_stream"],
+             plain_ms=plain_ms["riccati"], **bounds["riccati"], library_ms=None),
+        dict(name="linesearch_rollout_pallas_stream", route="cuda", source=source + "rollout_stream.cu",
+             replaces="diffmpc_tpu/ops/pallas/rollout_stream.py:196", launches=slice_launches["rollout_stream"],
+             max_abs_err=rol_err["linear_box"], ms=ms["rollout_stream"], plain_ms=plain_ms["rollout"],
+             **bounds["rollout"], library_ms=None),
+        dict(name="kkt_backward_fused_stream", route="cuda", source=source + "kkt_stream.cu",
+             replaces="diffmpc_tpu/ops/pallas/kkt_stream.py:203", launches=slice_launches["kkt_stream"],
+             max_abs_err=kkt_err[(BOX_N, BOX_M, T_LONG)], ms=ms["kkt_stream"], plain_ms=plain_ms["kkt"],
+             **bounds["kkt"], library_ms=None),
+    ]
 
 
 def main() -> int:
@@ -740,54 +1197,14 @@ def main() -> int:
         ric_err[(mode, n, m, B)] = max(agreement["max_abs_err"].values())
 
     # ---- 10. rollout kernel vs plain on the card ----
-    def rollout_inputs(case: str, B: int, seed: int):
-        """The line search's inputs as the non-fused loop builds them: a
-        trajectory from random controls, gains from the Riccati kernel about
-        it, the feedforward scaled by up to 8 so that the ladder backs off."""
-        gen = torch.Generator(device=device).manual_seed(seed)
-        if case == "pendulum":
-            prob = problem(B, device, seed=seed)
-            n, m, dyn = 3, 1, prob["dyn"]
-            x0, C, c, lo, hi = prob["x_init"], prob["C"], prob["c"], prob["u_lower"], prob["u_upper"]
-            u_hat = (torch.rand((T, B, m), generator=gen, device=device) - 0.5) * 4.0
-            xs, x = [], x0
-            for t in range(T):
-                xs.append(x)
-                x = dyn.forward(x, u_hat[t])
-            x_hat = torch.stack(xs)
-            F, f = linearize_dynamics(dyn, x_hat, u_hat)
-        else:
-            n, m, dyn = BOX_N, BOX_M, None
-            C, c, F, f, x0 = random_lqr_torch(T, B, n, m, device, seed)
-            lo, hi = (torch.tensor(-BOX, device=device), torch.tensor(BOX, device=device)) if case == "linear_box" else (None, None)
-            u_hat = (torch.rand((T, B, m), generator=gen, device=device) - 0.5) * 0.6
-            zeros = torch.zeros((T, B, m, n), device=device)
-            x_hat, _ = lqr_rollout(x0, F, f, zeros, torch.zeros((T, B, m), device=device), u_hat=u_hat)
-        c_delta = c + bmv(C, torch.cat([x_hat, u_hat], -1))
-        box = dict(u_lower=lo, u_upper=hi, u_hat=u_hat) if lo is not None else {}
-        res = ric.riccati_backward_cuda(C, c_delta, F, None, n, **box)
-        scale = 0.5 + 7.5 * torch.rand((1, B, 1), generator=gen, device=device)
-        args = (x0, C, c, None if dyn else F, None if dyn else f, res.K, res.k * scale, x_hat, u_hat)
-        return args, dict(u_lower=lo, u_upper=hi, dyn=dyn)
-
     rol_err = {}
     for case in ("linear_box", "linear_free", "pendulum"):
-        args, kw = rollout_inputs(case, B_MAIN, seed=1000)
+        args, kw = rollout_inputs(case, B_MAIN, 1000, device)
         got = rol.linesearch_rollout_cuda(*args, **kw)
         want = rol.linesearch_rollout_plain(*args, **kw)
-        torch.cuda.synchronize()
-        same = got.alpha == want.alpha
-        # relative to each objective, with the batch's largest as the floor:
-        # a cost summed over T steps can cancel to near zero
-        scale = want.objs.abs().clamp_min(float(want.objs.abs().max()))
-        obj_rel = float(((got.objs - want.objs).abs() / scale).max())
-        traj = max(float((got.xs - want.xs)[:, same].abs().max()), float((got.us - want.us)[:, same].abs().max()))
-        emit(phase="rollout_vs_plain", case=case, B=B_MAIN, T=T, objs_max_rel=obj_rel,
-             alpha_equal_frac=float(same.float().mean()), traj_max_abs_where_alpha_agrees=traj,
-             distinct_alphas=len(torch.unique(want.alpha)), improved_frac=float(want.improved.float().mean()))
-        if obj_rel > 1e-5 or float(same.float().mean()) < 0.99 or traj > 1e-4:
-            raise AssertionError(f"rollout kernel vs plain, {case}: objs {obj_rel}, alpha {float(same.float().mean())}, traj {traj}")
-        rol_err[case] = traj
+        agreement = line_search_agreement(f"rollout kernel vs plain, {case}", got, want)
+        emit(phase="rollout_vs_plain", case=case, B=B_MAIN, T=T, **agreement)
+        rol_err[case] = agreement["traj_max_abs_where_alpha_agrees"]
 
     # ---- 11. the non-fused path: mpc_solve on LinDx ----
     # detach_unconverged off: a solved LQR "converges" by a +-1 ulp objective
@@ -965,6 +1382,8 @@ def main() -> int:
     if chain_ms > ilqr_bound["bound_ms"]:
         ilqr_bound = dict(bound_ms=chain_ms, bound_by="operations")  # dependent ones, at their latency
 
+    twins = long_horizon(device, smi)
+
     print(smi, flush=True)
     emit(kernels=[
         dict(
@@ -1015,6 +1434,7 @@ def main() -> int:
             **nf_times[BOX_B]["rol"][2],
             library_ms=None,
         ),
+        *twins,
     ])
     emit(ok=True, device=dict(platform="gpu", kind=kind, count=torch.cuda.device_count()))
     return 0

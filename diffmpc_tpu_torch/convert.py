@@ -22,9 +22,10 @@ def to_tensor(a, dtype=None, device=None) -> torch.Tensor:
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def pendulum_from_jax(dx, dtype=None, device=None) -> PendulumDx:
+def pendulum_from_jax(dx, dtype=None, device="cuda") -> PendulumDx:
     """The port's ``PendulumDx`` with the JAX model's params and constants;
-    shared ``(3,)`` and per-scenario ``(B, 3)`` params alike."""
+    shared ``(3,)`` and per-scenario ``(B, 3)`` params alike. On the card
+    unless ``device`` says otherwise."""
     return PendulumDx(
         params=to_tensor(dx.params, dtype, device),
         max_torque=float(dx.max_torque),
@@ -36,7 +37,9 @@ def pendulum_from_jax(dx, dtype=None, device=None) -> PendulumDx:
     )
 
 
-def quad_cost_from_jax(cost, dtype=None, device=None) -> QuadCost:
+def quad_cost_from_jax(cost, dtype=None, device="cuda") -> QuadCost:
+    """The port's ``QuadCost`` with the JAX one's ``C`` and ``c``, on the card
+    unless ``device`` says otherwise."""
     return QuadCost(to_tensor(cost.C, dtype, device), to_tensor(cost.c, dtype, device))
 
 

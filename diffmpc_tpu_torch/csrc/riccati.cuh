@@ -8,7 +8,9 @@
 // (riccati_backward_plain) is the same algorithm in plain PyTorch,
 // vectorised over the batch.
 //
-// Per step t = T-1..0, with the value carry (V, v) in registers:
+// Per step t = T-1..0, with the value carry (V, v) in registers
+// (riccati_step, which reads the step's inputs through an accessor: device
+// memory here, a shared-memory slot in the streaming twin riccati_stream.cuh):
 //   W = V F, z = V f + v, Q = C + F'W (upper triangle, mirrored), q = c + F'z;
 //   free: [K k] = -(Quu + reg)^-1 [Qux qu];
 //   box:  k from the box QP on [lo_t, hi_t], K from the masked solve with
@@ -56,95 +58,132 @@ DMPC_HD size_t at(int t, int i, int D, int B, int b) {
 
 }  // namespace riccati_detail
 
+// Step t's inputs for scenario b, read from the args' device memory. An
+// accessor gives C(i, j) for j >= i, c(i), F(i, j), has_f() and f(i), lo(i),
+// hi(i) (box mode) and mask(i) (mask mode).
+template <int N, int M>
+struct RiccatiGlobal {
+  static constexpr int NM = N + M;
+  const RiccatiArgs& a;
+  int t;
+  int b;
+  DMPC_HD float C(int i, int j) const { return a.C[riccati_detail::at(t, i * NM + j, NM * NM, a.B, b)]; }
+  DMPC_HD float c(int i) const { return a.c[riccati_detail::at(t, i, NM, a.B, b)]; }
+  DMPC_HD float F(int i, int j) const { return a.F[riccati_detail::at(t, i * NM + j, N * NM, a.B, b)]; }
+  DMPC_HD bool has_f() const { return a.f != nullptr; }
+  DMPC_HD float f(int i) const { return a.f[riccati_detail::at(t, i, N, a.B, b)]; }
+  DMPC_HD float lo(int i) const { return a.lo[riccati_detail::at(t, i, M, a.B, b)]; }
+  DMPC_HD float hi(int i) const { return a.hi[riccati_detail::at(t, i, M, a.B, b)]; }
+  DMPC_HD float mask(int i) const { return a.mask[riccati_detail::at(t, i, M, a.B, b)]; }
+};
+
+// One step of the sweep: the gains K, k and the frozen mask at this step from
+// its inputs `in` and the value carry (V, v), which it updates in place.
+// Returns the box QP's solve count (0 outside box mode).
+template <int N, int M, int MODE, class In>
+DMPC_HD float riccati_step(const In& in, int pnqp_iter, float reg, float (&V)[N][N], float (&v)[N],
+                           float (&K)[M][N], float (&kt)[M], float (&frozen)[M]) {
+  constexpr int NM = N + M;
+  float Ft[N][NM];
+  for (int i = 0; i < N; ++i)
+    for (int j = 0; j < NM; ++j) Ft[i][j] = in.F(i, j);
+  // W = V F ; z = V f + v
+  float W[N][NM], z[N];
+  for (int k = 0; k < N; ++k) {
+    for (int j = 0; j < NM; ++j) {
+      float s2 = 0.0f;
+      for (int l = 0; l < N; ++l) s2 += V[k][l] * Ft[l][j];
+      W[k][j] = s2;
+    }
+    float s2 = 0.0f;
+    if (in.has_f())
+      for (int l = 0; l < N; ++l) s2 += V[k][l] * in.f(l);
+    z[k] = s2 + v[k];
+  }
+  // Q = C + F'W (upper triangle of C, mirrored) ; q = c + F'z
+  float Q[NM][NM], q[NM];
+  for (int i = 0; i < NM; ++i)
+    for (int j = i; j < NM; ++j) {
+      float s2 = 0.0f;
+      for (int k = 0; k < N; ++k) s2 += Ft[k][i] * W[k][j];
+      Q[i][j] = in.C(i, j) + s2;
+      Q[j][i] = Q[i][j];
+    }
+  for (int i = 0; i < NM; ++i) {
+    float s2 = 0.0f;
+    for (int k = 0; k < N; ++k) s2 += Ft[k][i] * z[k];
+    q[i] = in.c(i) + s2;
+  }
+  float Quu[M][M], qu[M], cols[N][M];
+  for (int i = 0; i < M; ++i) {
+    for (int j = 0; j < M; ++j) Quu[i][j] = Q[N + i][N + j];
+    qu[i] = q[N + i];
+    for (int j = 0; j < N; ++j) cols[j][i] = Q[N + i][j];  // column j of Qux
+  }
+  float n_qp = 0.0f;
+  if constexpr (MODE == kRiccatiBox) {
+    float lo[M], hi[M], Kc[N][M];
+    for (int i = 0; i < M; ++i) {
+      lo[i] = in.lo(i);
+      hi[i] = in.hi(i);
+    }
+    n_qp = pnqp_entries<M>(Quu, qu, lo, hi, pnqp_iter, reg, kt, frozen);
+    masked_chol_solve<M, N>(Quu, cols, frozen, reg, Kc);
+    for (int i = 0; i < M; ++i)
+      for (int j = 0; j < N; ++j) K[i][j] = -Kc[j][i];
+  } else if constexpr (MODE == kRiccatiMask) {
+    float rhs[N + 1][M], sol[N + 1][M];  // the columns of Qux, then qu
+    for (int i = 0; i < M; ++i) {
+      frozen[i] = in.mask(i);
+      for (int j = 0; j < N; ++j) rhs[j][i] = cols[j][i];
+      rhs[N][i] = qu[i];
+    }
+    masked_chol_solve<M, N + 1>(Quu, rhs, frozen, reg, sol);
+    for (int i = 0; i < M; ++i) {
+      for (int j = 0; j < N; ++j) K[i][j] = -sol[j][i];
+      kt[i] = -sol[N][i];
+    }
+  } else {
+    float L[M][M], col[M];
+    chol_entries<M>(Quu, reg, L);
+    for (int j = 0; j < N; ++j) {
+      cho_solve_entries<M>(L, cols[j], col);
+      for (int i = 0; i < M; ++i) K[i][j] = -col[i];
+    }
+    cho_solve_entries<M>(L, qu, col);
+    for (int i = 0; i < M; ++i) {
+      kt[i] = -col[i];
+      frozen[i] = 0.0f;
+    }
+  }
+  value_update<N, M>(Q, q, Quu, qu, K, kt, V, v);
+  return n_qp;
+}
+
+// Write step t's gains, free mask and (box mode) QP count for scenario b.
+template <int N, int M, int MODE>
+DMPC_HD void riccati_store(const RiccatiArgs& a, int t, int b, const float (&K)[M][N], const float (&kt)[M],
+                           const float (&frozen)[M], float n_qp) {
+  using riccati_detail::at;
+  for (int i = 0; i < M; ++i) {
+    for (int j = 0; j < N; ++j) a.K[at(t, i * N + j, M * N, a.B, b)] = K[i][j];
+    a.k[at(t, i, M, a.B, b)] = kt[i];
+    a.free[at(t, i, M, a.B, b)] = 1.0f - frozen[i];
+  }
+  if constexpr (MODE == kRiccatiBox) a.n_qp[(size_t)t * a.B + b] = n_qp;
+}
+
 template <int N, int M, int MODE>
 DMPC_HD void riccati_backward_scenario(const RiccatiArgs& a, int b) {
-  using riccati_detail::at;
-  constexpr int NM = N + M;
-  const int T = a.T, B = a.B;
   float V[N][N], v[N];
   for (int i = 0; i < N; ++i) {
     v[i] = 0.0f;
     for (int j = 0; j < N; ++j) V[i][j] = 0.0f;
   }
-  for (int s = 0; s < T; ++s) {
-    const int t = T - 1 - s;
-    float Ft[N][NM];
-    for (int i = 0; i < N; ++i)
-      for (int j = 0; j < NM; ++j) Ft[i][j] = a.F[at(t, i * NM + j, N * NM, B, b)];
-    // W = V F ; z = V f + v
-    float W[N][NM], z[N];
-    for (int k = 0; k < N; ++k) {
-      for (int j = 0; j < NM; ++j) {
-        float s2 = 0.0f;
-        for (int l = 0; l < N; ++l) s2 += V[k][l] * Ft[l][j];
-        W[k][j] = s2;
-      }
-      float s2 = 0.0f;
-      if (a.f)
-        for (int l = 0; l < N; ++l) s2 += V[k][l] * a.f[at(t, l, N, B, b)];
-      z[k] = s2 + v[k];
-    }
-    // Q = C + F'W (upper triangle of C, mirrored) ; q = c + F'z
-    float Q[NM][NM], q[NM];
-    for (int i = 0; i < NM; ++i)
-      for (int j = i; j < NM; ++j) {
-        float s2 = 0.0f;
-        for (int k = 0; k < N; ++k) s2 += Ft[k][i] * W[k][j];
-        Q[i][j] = a.C[at(t, i * NM + j, NM * NM, B, b)] + s2;
-        Q[j][i] = Q[i][j];
-      }
-    for (int i = 0; i < NM; ++i) {
-      float s2 = 0.0f;
-      for (int k = 0; k < N; ++k) s2 += Ft[k][i] * z[k];
-      q[i] = a.c[at(t, i, NM, B, b)] + s2;
-    }
-    float Quu[M][M], qu[M], cols[N][M];
-    for (int i = 0; i < M; ++i) {
-      for (int j = 0; j < M; ++j) Quu[i][j] = Q[N + i][N + j];
-      qu[i] = q[N + i];
-      for (int j = 0; j < N; ++j) cols[j][i] = Q[N + i][j];  // column j of Qux
-    }
+  for (int s = 0; s < a.T; ++s) {
+    const int t = a.T - 1 - s;
     float K[M][N], kt[M], frozen[M];
-    if constexpr (MODE == kRiccatiBox) {
-      float lo[M], hi[M], Kc[N][M];
-      for (int i = 0; i < M; ++i) {
-        lo[i] = a.lo[at(t, i, M, B, b)];
-        hi[i] = a.hi[at(t, i, M, B, b)];
-      }
-      a.n_qp[(size_t)t * B + b] = pnqp_entries<M>(Quu, qu, lo, hi, a.pnqp_iter, a.reg, kt, frozen);
-      masked_chol_solve<M, N>(Quu, cols, frozen, a.reg, Kc);
-      for (int i = 0; i < M; ++i)
-        for (int j = 0; j < N; ++j) K[i][j] = -Kc[j][i];
-    } else if constexpr (MODE == kRiccatiMask) {
-      float rhs[N + 1][M], sol[N + 1][M];  // the columns of Qux, then qu
-      for (int i = 0; i < M; ++i) {
-        frozen[i] = a.mask[at(t, i, M, B, b)];
-        for (int j = 0; j < N; ++j) rhs[j][i] = cols[j][i];
-        rhs[N][i] = qu[i];
-      }
-      masked_chol_solve<M, N + 1>(Quu, rhs, frozen, a.reg, sol);
-      for (int i = 0; i < M; ++i) {
-        for (int j = 0; j < N; ++j) K[i][j] = -sol[j][i];
-        kt[i] = -sol[N][i];
-      }
-    } else {
-      float L[M][M], col[M];
-      chol_entries<M>(Quu, a.reg, L);
-      for (int j = 0; j < N; ++j) {
-        cho_solve_entries<M>(L, cols[j], col);
-        for (int i = 0; i < M; ++i) K[i][j] = -col[i];
-      }
-      cho_solve_entries<M>(L, qu, col);
-      for (int i = 0; i < M; ++i) {
-        kt[i] = -col[i];
-        frozen[i] = 0.0f;
-      }
-    }
-    for (int i = 0; i < M; ++i) {
-      for (int j = 0; j < N; ++j) a.K[at(t, i * N + j, M * N, B, b)] = K[i][j];
-      a.k[at(t, i, M, B, b)] = kt[i];
-      a.free[at(t, i, M, B, b)] = 1.0f - frozen[i];
-    }
-    value_update<N, M>(Q, q, Quu, qu, K, kt, V, v);
+    const float n_qp = riccati_step<N, M, MODE>(RiccatiGlobal<N, M>{a, t, b}, a.pnqp_iter, a.reg, V, v, K, kt, frozen);
+    riccati_store<N, M, MODE>(a, t, b, K, kt, frozen, n_qp);
   }
 }

@@ -9,7 +9,9 @@ Two paths, chosen as the JAX package chooses (:func:`_would_use_fused`):
   unconstrained problems, ``verbose > 0``, ``GradMethods.FINITE_DIFF``): the
   masked iLQR loop around :func:`diffmpc_tpu_torch.ops.lqr_step.lqr_step`,
   one launch of the Riccati kernel and one of the rollout kernel per
-  iteration, and one read of the ``done`` mask on the host to stop early.
+  iteration (of their streaming twins at the horizons where the JAX package
+  takes those, :mod:`diffmpc_tpu_torch.ops.cuda.horizon`), and one read of
+  the ``done`` mask on the host to stop early.
 
 Kernels run on CUDA tensors, their plain PyTorch versions on CPU tensors.
 Callable costs, ``slew_rate_penalty``, ``u_zero_I`` and the models without

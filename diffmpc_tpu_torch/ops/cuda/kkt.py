@@ -7,8 +7,10 @@ dims frozen, the differential rollout ``p`` with the cost gradients, and the
 multiplier recursions with the dynamics gradients.
 
 - :func:`kkt_backward_fused` is the public entry point. For CUDA tensors it
-  launches the kernel of ``csrc/kkt.cu`` (one thread per scenario) or
-  raises; for CPU tensors it runs :func:`kkt_backward_plain`.
+  launches the kernel of ``csrc/kkt.cu`` (one thread per scenario), or its
+  streaming twin (:mod:`~diffmpc_tpu_torch.ops.cuda.kkt_stream`) where the
+  JAX package takes that, or raises; for CPU tensors it runs
+  :func:`kkt_backward_plain`.
 - :func:`kkt_backward_plain` is the same algorithm in plain PyTorch,
   vectorized over the batch: each matrix entry is a ``(B,)`` tensor and
   Python loops run over time and entries. It computes in float32, as the
@@ -28,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from .horizon import streams_kkt
 from .ilqr import bm, kernel_symbol, resolve_use_cuda
 from .riccati_entries import _masked_chol_solve, _value_update
 
@@ -213,17 +216,35 @@ def run_staged_kkt(launch, C, c, F, r, tau, tight, *, reg: float = 1e-7):
     )
 
 
-def _cuda_launcher(device: torch.device, n: int, m: int):
-    fn = kernel_symbol("kkt_backward", n, m, [ctypes.POINTER(_KktArgs), ctypes.c_void_p])
+def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "kkt_backward", counted=None):
+    """The launcher of kernel ``kind`` (``kkt_backward`` or its streaming twin
+    ``kkt_backward_stream``: the same ``KktArgs``) on the current stream;
+    each launch adds one to ``counted.launches`` (default
+    :func:`kkt_backward_fused`)."""
+    fn = kernel_symbol(kind, n, m, [ctypes.POINTER(_KktArgs), ctypes.c_void_p])
     stream = torch.cuda.current_stream(device).cuda_stream
+    counted = kkt_backward_fused if counted is None else counted
 
     def launch(args, n, m):
         err = fn(args, stream)
         if err != 0:
-            raise RuntimeError(f"kkt kernel launch failed: cudaError {err}")
-        kkt_backward_fused.launches += 1
+            raise RuntimeError(f"{kind} kernel launch failed: cudaError {err}")
+        counted.launches += 1
 
     return launch
+
+
+def run_on_card(launcher, C, c, F, r, tau, tight, *, reg: float = 1e-7):
+    """Run a KKT kernel on CUDA tensors of any float dtype:
+    ``launcher(device, n, m)`` gives the launch; the inputs are cast to
+    float32 and the gradients come back in ``C.dtype``. CPU tensors raise."""
+    resolve_use_cuda(True, C.device)
+    _, _, n, m = _check_shapes(C, c, F, r, tau, tight)
+    dtype = C.dtype
+    f32 = [a.to(torch.float32) for a in (C, c, F, r, tau)]
+    with torch.cuda.device(C.device):
+        out = run_staged_kkt(launcher(C.device, n, m), *f32, tight, reg=reg)
+    return tuple(x.to(dtype) for x in out)
 
 
 def kkt_backward_fused(
@@ -242,19 +263,23 @@ def kkt_backward_fused(
     ``(dx_init, dC, dc, dF, df)`` in ``C.dtype``; the backward itself runs
     in float32.
 
-    CUDA tensors launch the kernel (compiled for the ``(n, m)`` of
+    CUDA tensors launch a kernel (compiled for the ``(n, m)`` of
     :data:`~diffmpc_tpu_torch.ops.cuda.ilqr.KERNEL_SHAPES`; any other shape
-    raises) and add one to ``kkt_backward_fused.launches``; CPU
-    tensors run :func:`kkt_backward_plain`. See
+    raises): this module's, adding one to ``kkt_backward_fused.launches``,
+    or, where the horizon takes the JAX package's streaming twin
+    (:func:`~diffmpc_tpu_torch.ops.cuda.horizon.streams_kkt`), the twin's
+    (:func:`~diffmpc_tpu_torch.ops.cuda.kkt_stream.kkt_backward_stream_cuda`).
+    CPU tensors run :func:`kkt_backward_plain`. See
     :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`."""
     if not resolve_use_cuda(use_cuda, C.device):
         return kkt_backward_plain(C, c, F, r, tau, tight, reg=reg)
-    T, B, n, m = _check_shapes(C, c, F, r, tau, tight)
-    dtype = C.dtype
-    f32 = [a.to(torch.float32) for a in (C, c, F, r, tau)]
-    with torch.cuda.device(C.device):
-        out = run_staged_kkt(_cuda_launcher(C.device, n, m), *f32, tight, reg=reg)
-    return tuple(x.to(dtype) for x in out)
+    T, _, n, m = _check_shapes(C, c, F, r, tau, tight)
+    if streams_kkt(T, n, m):
+        # the twin's module imports this one, so it is imported here
+        from .kkt_stream import kkt_backward_stream_cuda
+
+        return kkt_backward_stream_cuda(C, c, F, r, tau, tight, reg=reg)
+    return run_on_card(_cuda_launcher, C, c, F, r, tau, tight, reg=reg)
 
 
 kkt_backward_fused.launches = 0  # kernel launches, counted where they happen

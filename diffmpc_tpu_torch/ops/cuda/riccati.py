@@ -239,17 +239,44 @@ def run_staged_riccati(
     )
 
 
-def _cuda_launcher(device: torch.device, n: int, m: int):
-    fn = kernel_symbol("riccati", n, m, [ctypes.POINTER(_RiccatiArgs), ctypes.c_int, ctypes.c_void_p])
+def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "riccati", counted=None):
+    """The launcher of kernel ``kind`` (``riccati`` or its streaming twin
+    ``riccati_stream``: the same ``RiccatiArgs``) on the current stream; each
+    launch adds one to ``counted.launches`` (default
+    :func:`riccati_backward_cuda`)."""
+    fn = kernel_symbol(kind, n, m, [ctypes.POINTER(_RiccatiArgs), ctypes.c_int, ctypes.c_void_p])
     stream = torch.cuda.current_stream(device).cuda_stream
+    counted = riccati_backward_cuda if counted is None else counted
 
     def launch(args, n, m, mode):
         err = fn(args, mode, stream)
         if err != 0:
-            raise RuntimeError(f"riccati kernel launch failed: cudaError {err}")
-        riccati_backward_cuda.launches += 1
+            raise RuntimeError(f"{kind} kernel launch failed: cudaError {err}")
+        counted.launches += 1
 
     return launch
+
+
+def run_on_card(launcher, C, c, F, f, n_state, *, u_lower=None, u_upper=None, u_hat=None,
+                ctrl_mask=None, reg=1e-9, pnqp_iter=8) -> RiccatiResult:
+    """Run a Riccati kernel on CUDA tensors of any float dtype:
+    ``launcher(device, n, m)`` gives the launch; the inputs are cast to
+    float32 and ``K, k`` come back in ``C.dtype``. CPU tensors raise."""
+    resolve_use_cuda(True, C.device)
+    _, _, m = _check_shapes(C, c, F, f, n_state)
+    dtype = C.dtype
+    f32 = torch.float32
+
+    def cast(a):
+        return None if a is None or a.dtype == torch.bool else a.to(f32)
+
+    with torch.cuda.device(C.device):
+        out = run_staged_riccati(
+            launcher(C.device, n_state, m), cast(C), cast(c), cast(F), cast(f), n_state,
+            u_lower=cast(u_lower), u_upper=cast(u_upper), u_hat=cast(u_hat),
+            ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter,
+        )
+    return out._replace(K=out.K.to(dtype), k=out.k.to(dtype))
 
 
 def riccati_backward_cuda(
@@ -272,21 +299,10 @@ def riccati_backward_cuda(
     float dtype: the kernel computes in float32 and ``K, k`` come back in
     ``C.dtype``. Adds one to ``riccati_backward_cuda.launches``; shapes
     outside the kernels' ``(n, m)`` table raise."""
-    resolve_use_cuda(True, C.device)
-    _, _, m = _check_shapes(C, c, F, f, n_state)
-    dtype = C.dtype
-    f32 = torch.float32
-
-    def cast(a):
-        return None if a is None or a.dtype == torch.bool else a.to(f32)
-
-    with torch.cuda.device(C.device):
-        out = run_staged_riccati(
-            _cuda_launcher(C.device, n_state, m), cast(C), cast(c), cast(F), cast(f), n_state,
-            u_lower=cast(u_lower), u_upper=cast(u_upper), u_hat=cast(u_hat),
-            ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter,
-        )
-    return out._replace(K=out.K.to(dtype), k=out.k.to(dtype))
+    return run_on_card(
+        _cuda_launcher, C, c, F, f, n_state, u_lower=u_lower, u_upper=u_upper, u_hat=u_hat,
+        ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter,
+    )
 
 
 riccati_backward_cuda.launches = 0  # kernel launches, counted where they happen

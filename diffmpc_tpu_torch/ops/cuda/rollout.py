@@ -278,24 +278,56 @@ def run_staged_rollout(
     )
 
 
-def _cuda_launcher(device: torch.device, n: int, m: int, dyn):
+def _cuda_launcher(device: torch.device, n: int, m: int, dyn, kind: str = "rollout", counted=None):
+    """The launcher of kernel ``kind`` (``rollout`` or its streaming twin
+    ``rollout_stream``: the same ``RolloutArgs``) for linear dynamics (``dyn``
+    None) or the pendulum, on the current stream; each launch adds one to
+    ``counted.launches`` (default :func:`linesearch_rollout_cuda`)."""
     stream = torch.cuda.current_stream(device).cuda_stream
+    counted = linesearch_rollout_cuda if counted is None else counted
     if dyn is None:
-        fn = kernel_symbol("rollout", n, m, [ctypes.POINTER(_RolloutArgs), ctypes.c_void_p])
+        fn = kernel_symbol(kind, n, m, [ctypes.POINTER(_RolloutArgs), ctypes.c_void_p])
     else:
         from ...csrc import build
 
-        fn = build.load().diffmpc_rollout_pendulum
+        fn = getattr(build.load(), f"diffmpc_{kind}_pendulum")
         fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.POINTER(_PendulumEnv), ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
     def launch(args, n, m, env):
         err = fn(args, stream) if env is None else fn(args, env, stream)
         if err != 0:
-            raise RuntimeError(f"rollout kernel launch failed: cudaError {err}")
-        linesearch_rollout_cuda.launches += 1
+            raise RuntimeError(f"{kind} kernel launch failed: cudaError {err}")
+        counted.launches += 1
 
     return launch
+
+
+def run_on_card(launcher, x_init, C, c, F, f, K, k, x_hat, u_hat, *, u_lower=None, u_upper=None,
+                delta_u=None, dyn=None, decay=0.2, max_iter=10) -> LineSearchResult:
+    """Run a line-search kernel on CUDA tensors of any float dtype:
+    ``launcher(device, n, m, dyn)`` gives the launch; the inputs are cast to
+    float32 and ``xs, us, objs, alpha`` come back in ``x_init.dtype``. CPU
+    tensors raise."""
+    resolve_use_cuda(True, x_init.device)
+    T, B, n, m = _check_shapes(x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower, u_upper)
+    _check_dyn(dyn, n, m)
+    dtype = x_init.dtype
+    f32 = torch.float32
+
+    def cast(a):
+        return None if a is None else a.to(f32)
+
+    if dyn is not None:
+        dyn = dyn.replace(params=dyn.params.to(f32))
+    with torch.cuda.device(x_init.device):
+        out = run_staged_rollout(
+            launcher(x_init.device, n, m, dyn),
+            *map(cast, (x_init, C, c, F, f, K, k, x_hat, u_hat)),
+            u_lower=cast(u_lower), u_upper=cast(u_upper), delta_u=delta_u, dyn=dyn,
+            decay=decay, max_iter=max_iter,
+        )
+    return out._replace(**{name: getattr(out, name).to(dtype) for name in ("xs", "us", "objs", "alpha")})
 
 
 def linesearch_rollout_cuda(
@@ -323,25 +355,10 @@ def linesearch_rollout_cuda(
     and ``xs, us, objs, alpha`` come back in ``x_init.dtype``. Adds one to
     ``linesearch_rollout_cuda.launches``; other envs and linear shapes
     outside the kernels' ``(n, m)`` table raise."""
-    resolve_use_cuda(True, x_init.device)
-    T, B, n, m = _check_shapes(x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower, u_upper)
-    _check_dyn(dyn, n, m)
-    dtype = x_init.dtype
-    f32 = torch.float32
-
-    def cast(a):
-        return None if a is None else a.to(f32)
-
-    if dyn is not None:
-        dyn = dyn.replace(params=dyn.params.to(f32))
-    with torch.cuda.device(x_init.device):
-        out = run_staged_rollout(
-            _cuda_launcher(x_init.device, n, m, dyn),
-            *map(cast, (x_init, C, c, F, f, K, k, x_hat, u_hat)),
-            u_lower=cast(u_lower), u_upper=cast(u_upper), delta_u=delta_u, dyn=dyn,
-            decay=decay, max_iter=max_iter,
-        )
-    return out._replace(**{name: getattr(out, name).to(dtype) for name in ("xs", "us", "objs", "alpha")})
+    return run_on_card(
+        _cuda_launcher, x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower=u_lower, u_upper=u_upper,
+        delta_u=delta_u, dyn=dyn, decay=decay, max_iter=max_iter,
+    )
 
 
 linesearch_rollout_cuda.launches = 0  # kernel launches, counted where they happen

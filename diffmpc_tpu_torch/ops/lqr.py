@@ -6,8 +6,11 @@ dynamics ``x_{t+1} = F_t tau_t + f_t`` (the ``t = T-1`` slice is unused).
 - :func:`riccati_backward` and :func:`lqr_linesearch_rollout` keep the JAX
   functions' contracts. On CUDA tensors they launch the hand-written kernels
   (:mod:`~diffmpc_tpu_torch.ops.cuda.riccati`,
-  :mod:`~diffmpc_tpu_torch.ops.cuda.rollout`); on CPU tensors they run the
-  kernels' plain PyTorch versions.
+  :mod:`~diffmpc_tpu_torch.ops.cuda.rollout`), or their streaming twins
+  (:mod:`~diffmpc_tpu_torch.ops.cuda.riccati_stream`,
+  :mod:`~diffmpc_tpu_torch.ops.cuda.rollout_stream`) at the horizons where
+  the JAX package takes its twins (:mod:`~diffmpc_tpu_torch.ops.cuda.horizon`);
+  on CPU tensors they run the kernels' plain PyTorch versions.
 - :func:`lqr_rollout` (one step size) and :func:`trajectory_cost` are plain
   PyTorch.
 """
@@ -19,9 +22,12 @@ from typing import Optional
 import torch
 
 from ..utils.batch import bdot, bmv, bquad, eclamp
+from .cuda.horizon import streams_riccati, streams_rollout
 from .cuda.ilqr import resolve_use_cuda
 from .cuda.riccati import RiccatiResult, riccati_backward_cuda, riccati_backward_plain
+from .cuda.riccati_stream import riccati_backward_stream_cuda
 from .cuda.rollout import LineSearchResult, linesearch_rollout_cuda, linesearch_rollout_plain
+from .cuda.rollout_stream import linesearch_rollout_stream_cuda
 
 __all__ = [
     "LineSearchResult",
@@ -55,10 +61,14 @@ def riccati_backward(
     at ``du = 0``, the composite KKT backward). ``C (T,B,nm,nm)``,
     ``c (T,B,nm)``, ``F (T,B,n,nm)``, ``f (T,B,n)`` or None (zeros).
 
-    The Riccati kernel for CUDA tensors, its plain version for CPU tensors
-    (see :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`)."""
+    The Riccati kernel for CUDA tensors (its streaming twin where
+    :func:`~diffmpc_tpu_torch.ops.cuda.horizon.streams_riccati` says so), its
+    plain version for CPU tensors (see
+    :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`)."""
     kw = dict(u_lower=u_lower, u_upper=u_upper, u_hat=u_hat, ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter)
     if resolve_use_cuda(use_cuda, C.device):
+        if streams_riccati(C.shape[0], n_state, C.shape[-1] - n_state):
+            return riccati_backward_stream_cuda(C, c, F, f, n_state, **kw)
         return riccati_backward_cuda(C, c, F, f, n_state, **kw)
     return riccati_backward_plain(C, c, F, f, n_state, **kw)
 
@@ -140,10 +150,15 @@ def lqr_linesearch_rollout(
     stands in for the JAX function's ``dynamics_fn``; callable costs
     (``cost_fn``) are not ported.
 
-    The rollout kernel for CUDA tensors, its plain version for CPU tensors
-    (see :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`)."""
+    The rollout kernel for CUDA tensors (its streaming twin where
+    :func:`~diffmpc_tpu_torch.ops.cuda.horizon.streams_rollout` says so), its
+    plain version for CPU tensors (see
+    :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`)."""
     kw = dict(u_lower=u_lower, u_upper=u_upper, delta_u=delta_u, dyn=dyn, decay=decay, max_iter=max_iter)
     args = (x_init, C, c, F, f, K, k, x_hat, u_hat)
     if resolve_use_cuda(use_cuda, x_init.device):
+        T, _, m, n = K.shape
+        if streams_rollout(T, n, m):
+            return linesearch_rollout_stream_cuda(*args, **kw)
         return linesearch_rollout_cuda(*args, **kw)
     return linesearch_rollout_plain(*args, **kw)

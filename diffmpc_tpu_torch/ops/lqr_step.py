@@ -4,13 +4,17 @@
   delta-form cost about the current trajectory, the Riccati sweep (the box
   QP per step when box-constrained) and the line-searched rollout, each one
   launch of its kernel on CUDA tensors (its plain version on CPU tensors).
+  At the horizons where the JAX package takes its streaming twins
+  (:mod:`~diffmpc_tpu_torch.ops.cuda.horizon`), each is one launch of the
+  twin.
 - :func:`lqr_fixed_point` is the identity on a converged trajectory
   ``(x*, u*)``, with the analytic KKT derivatives with respect to
   ``(x_init, C, c, F, f)``: its backward solves the auxiliary (adjoint) LQR
   with tight box dims frozen and assembles the gradients from outer products
   of the primal trajectory, the differential trajectory and the multipliers
   (the equations are in the JAX module's docstring). The backward is one
-  call of :func:`~diffmpc_tpu_torch.ops.cuda.kkt.kkt_backward_fused`.
+  call of :func:`~diffmpc_tpu_torch.ops.cuda.kkt.kkt_backward_fused`: the
+  KKT kernel, or its streaming twin at long horizons.
 - :func:`kkt_backward_composite` computes the same backward from the
   mask-mode Riccati sweep and :func:`~diffmpc_tpu_torch.ops.lqr.lqr_rollout`
   (the JAX package's ``_kkt_backward_impl``). Nothing on the solve's path
@@ -50,9 +54,10 @@ class LqrSpec:
 
 
 def _riccati(spec: LqrSpec, C, c, F, f, n_state, **kwargs):
-    """The Riccati sweep of the step: the kernel on CUDA tensors whatever the
-    horizon (no memory budget picks a variant here), the plain version on
-    CPU tensors."""
+    """The Riccati sweep of the step: on CUDA tensors the kernel, or its
+    streaming twin where the JAX package takes its twin
+    (:func:`~diffmpc_tpu_torch.ops.cuda.horizon.streams_riccati`); the plain
+    version on CPU tensors."""
     return riccati_backward(C, c, F, f, n_state, use_cuda=spec.use_cuda, **kwargs)
 
 

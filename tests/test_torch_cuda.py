@@ -13,7 +13,13 @@ tests/torch_parity.py; the KKT and Riccati kernels (one linear pass) within
 ``1e-4 * max(1, max|plain|)``, the Riccati kernel off its box-QP ties, each
 tie checked as one; the rollout kernel's ``objs`` within 1e-5 of the batch's largest
 ``|objs|`` and ``alpha`` equal; gradients through ``mpc_solve`` on the card against the CPU within
-1e-3 of each gradient's max-abs after one iteration.
+1e-3 of each gradient's max-abs after one iteration. Each streaming twin
+against its plain version under the same rules, and against its resident
+sibling: the same rules again (the two run the same per-step functions).
+The pendulum's closed loop over the twins' 96 steps is chaotic enough that
+the card's controls and the plain version's part by up to ~6e-4 where the
+step agrees: there they are held to 2e-3 (to 1e-4 against the resident
+kernel, the same device arithmetic).
 """
 
 import dataclasses
@@ -25,9 +31,13 @@ torch = pytest.importorskip("torch")
 
 import diffmpc_tpu_torch as tdm  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda import kkt as kkt_mod  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda.kkt_stream import kkt_backward_stream_cuda  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.riccati import riccati_backward_cuda, riccati_backward_plain  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda.riccati_stream import riccati_backward_stream_cuda  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.rollout import linesearch_rollout_cuda, linesearch_rollout_plain  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda.rollout_stream import linesearch_rollout_stream_cuda  # noqa: E402
 from diffmpc_tpu_torch.ops.lqr import lqr_rollout  # noqa: E402
 from torch_parity import (  # noqa: E402
     as_numpy,
@@ -279,3 +289,104 @@ def test_mpc_solve_on_lin_dx_goes_through_the_riccati_and_rollout_kernels(device
     for i, (g, w) in enumerate(zip(g_card, g_cpu)):
         g, w = (g.cpu()[agree], w[agree]) if i == 0 else (g.cpu()[:, agree], w[:, agree])
         torch.testing.assert_close(g, w, atol=1e-3 * float(w.abs().max()), rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The streaming twins and the long-horizon path.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["free", "box", "mask"])
+@pytest.mark.parametrize("n,m", [(3, 1), (4, 2)])
+def test_riccati_twin_matches_plain_and_resident(device, n, m, mode):
+    T, B = 96, 130
+    rng = np.random.default_rng(1880 + 10 * n + m)
+    C, c, F, f = (torch.tensor(a, device=device) for a in _random_lqr(rng, T, B, n, m)[:4])
+    kw = {}
+    if mode == "box":
+        u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32, device=device)
+        kw = dict(u_lower=torch.tensor(-0.5, device=device), u_upper=torch.tensor(0.5, device=device), u_hat=u_hat)
+    elif mode == "mask":
+        kw = dict(ctrl_mask=torch.tensor(rng.random((T, B, m)) < 0.3, device=device))
+    before = riccati_backward_stream_cuda.launches
+    got = riccati_backward_stream_cuda(C, c, F, f, n, **kw)
+    torch.cuda.synchronize()
+    assert riccati_backward_stream_cuda.launches == before + 1
+    want, Quu, qu = riccati_backward_plain(C, c, F, f, n, return_qp=True, **kw)
+    from chip_smoke import riccati_agreement
+
+    riccati_agreement(f"twin {mode} n={n} m={m}", got, want, Quu, qu)
+    riccati_agreement(f"twin vs resident {mode} n={n} m={m}", got, riccati_backward_cuda(C, c, F, f, n, **kw), Quu, qu)
+
+
+def _assert_line_searches_agree(got, want, us_tol=1e-4):
+    torch.testing.assert_close(got.objs, want.objs, rtol=0, atol=1e-5 * float(want.objs.abs().max()))
+    same = got.alpha == want.alpha
+    assert float(same.float().mean()) >= 0.99
+    torch.testing.assert_close(got.us[:, same], want.us[:, same], atol=us_tol, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["free", "box", "pendulum"])
+def test_rollout_twin_matches_plain_and_resident(device, case):
+    T, B = 96, 130
+    rng = np.random.default_rng(1890)
+    if case == "pendulum":
+        t, dx = torch_inputs(make_problem(B=B, T=T, batched_params=True, warm=True), device)
+        n, m = 3, 1
+        x0, C, c, F, f = t["x_init"], t["C"], t["c"], None, None
+        kw = dict(u_lower=t["u_lower"], u_upper=t["u_upper"], dyn=dx, delta_u=1.0)
+    else:
+        n, m = 4, 2
+        C, c, F, f, x0 = (torch.tensor(a, device=device) for a in _random_lqr(rng, T, B, n, m))
+        kw = {} if case == "free" else dict(u_lower=torch.tensor(-0.7, device=device), u_upper=torch.full((T, B, m), 0.7, device=device))
+    x_hat, _ = lqr_rollout(x0, F, f, torch.zeros((T, B, m, n), device=device), torch.zeros((T, B, m), device=device)) \
+        if F is not None else (torch.tensor(rng.normal(size=(T, B, n)), dtype=torch.float32, device=device), None)
+    u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32, device=device)
+    K = torch.tensor(rng.normal(size=(T, B, m, n)) * 0.1, dtype=torch.float32, device=device)
+    k = torch.tensor(rng.normal(size=(T, B, m)) * 2.0, dtype=torch.float32, device=device)
+    args = (x0, C, c, F, f, K, k, x_hat, u_hat)
+    before = linesearch_rollout_stream_cuda.launches
+    got = linesearch_rollout_stream_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert linesearch_rollout_stream_cuda.launches == before + 1
+    # the pendulum's step is chaotic: over 96 steps the card's sinf/cosf and
+    # the plain version's part by up to ~6e-4 on a control; against the
+    # resident kernel, the same device arithmetic, 1e-4 holds
+    _assert_line_searches_agree(got, linesearch_rollout_plain(*args, **kw), us_tol=2e-3 if case == "pendulum" else 1e-4)
+    _assert_line_searches_agree(got, linesearch_rollout_cuda(*args, **kw))
+    assert len(torch.unique(got.alpha)) > 1
+
+
+@pytest.mark.parametrize("n,m", [(3, 1), (4, 2)])
+def test_kkt_twin_matches_plain_and_resident(device, n, m):
+    res = random_residuals(np.random.default_rng(1830 + 10 * n + m), 96, 130, n, m, 130 * 20)
+    ins = [torch.tensor(a, device=device) for a in kernel_inputs(res)]
+    before = kkt_backward_stream_cuda.launches
+    got = kkt_backward_stream_cuda(*ins)
+    torch.cuda.synchronize()
+    assert kkt_backward_stream_cuda.launches == before + 1
+    resident = kkt_mod.run_on_card(kkt_mod._cuda_launcher, *ins)
+    for g, w, r in zip(got, kkt_backward_plain(*ins), resident):
+        bound = 1e-4 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g, w, atol=bound, rtol=0)
+        torch.testing.assert_close(g, r, atol=bound, rtol=0)
+
+
+def test_long_horizon_mpc_solve_goes_through_the_twins(device):
+    """Box-DDP config 2 at T=128: each iteration launches the Riccati and the
+    rollout twins, the gradient the KKT twin, and no resident kernel."""
+    T, B, n, m = 128, 128, 4, 2
+    C, c, F, f, x0 = _random_lqr(np.random.default_rng(1900), T, B, n, m)
+    config = tdm.MPCConfig(n_state=n, n_ctrl=m, T=T, lqr_iter=10, exit_unconverged=False)
+    kernels = (riccati_backward_stream_cuda, linesearch_rollout_stream_cuda, kkt_backward_stream_cuda,
+               riccati_backward_cuda, linesearch_rollout_cuda, kkt_backward_fused, ilqr_solve_fused)
+    before = [k.launches for k in kernels]
+    leaves = [torch.tensor(a, device=device, requires_grad=True) for a in (x0, C, c, F, f)]
+    sol = tdm.mpc_solve(config, leaves[0], tdm.QuadCost(leaves[1], leaves[2]), tdm.LinDx(leaves[3], leaves[4]),
+                        u_lower=-0.6, u_upper=0.6)
+    grads = torch.autograd.grad((sol.us**2).mean() + sol.xs.mean(), leaves)
+    torch.cuda.synchronize()
+    it = int(sol.info.n_iters)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [it, it, 1, 0, 0, 0, 0]
+    assert bool(torch.isfinite(sol.objs).all()) and float(sol.us.abs().max()) <= np.float32(0.6)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

@@ -1,5 +1,6 @@
 """The CUDA kernels' per-scenario math, built for the host, against the
-plain PyTorch versions.
+plain PyTorch versions, and each streaming twin against its resident
+sibling.
 
 ``csrc/*.cuh`` holds the kernels' math as ``__host__ __device__`` functions.
 Here g++ builds a small host shim over those headers (no torch headers, no
@@ -14,7 +15,11 @@ Tolerances: the iLQR solve at ``lqr_iter=1, eps=0`` within 1e-4 abs with
 tests/torch_parity.py; the KKT backward (one linear pass, no chaos) within
 1e-5; the Riccati sweep's ``K, k`` within ``1e-5 * max(1, max|plain|)``
 with ``free`` and ``n_qp`` equal; the rollout's ``xs, us, objs`` within 1e-5
-relative with ``alpha`` and ``improved`` equal.
+relative with ``alpha`` and ``improved`` equal. The streaming twins
+(``csrc/*_stream.cuh``: the same per-step functions read through slot
+accessors, the slots filled by plain copies on the host) hold the same
+tolerances against the plain versions and equal their resident siblings'
+host builds bit for bit: the same g++ arithmetic in the same order.
 """
 
 import ctypes
@@ -63,11 +68,16 @@ from torch_parity import (  # noqa: E402
 )
 
 SHIM = r"""
+#include <vector>
+
 #include "ilqr.cuh"
 #include "kkt.cuh"
+#include "kkt_stream.cuh"
 #include "pendulum.cuh"
 #include "riccati.cuh"
+#include "riccati_stream.cuh"
 #include "rollout.cuh"
+#include "rollout_stream.cuh"
 
 extern "C" int diffmpc_ilqr_solve_pendulum_host(const IlqrArgs* a, const PendulumEnv* env) {
   for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<3, 1>(*a, *env, b);
@@ -89,17 +99,24 @@ extern "C" int diffmpc_kkt_backward_host(const KktArgs* a, int n, int m) {
   return 1;
 }
 
-template <int N, int M, int MODE>
+// STREAM: the streaming twin, each scenario's two slots a local array
+template <int N, int M, int MODE, bool STREAM = false>
 static int riccati_all(const RiccatiArgs* a) {
-  for (int b = 0; b < a->B; ++b) riccati_backward_scenario<N, M, MODE>(*a, b);
+  std::vector<float> buf(2 * RiccatiSlice<N, M, MODE>::kSize);
+  for (int b = 0; b < a->B; ++b) {
+    if (STREAM)
+      riccati_stream_scenario<N, M, MODE>(*a, b, buf.data(), 1);
+    else
+      riccati_backward_scenario<N, M, MODE>(*a, b);
+  }
   return 0;
 }
 
-template <int N, int M>
+template <int N, int M, bool STREAM = false>
 static int riccati_modes(const RiccatiArgs* a, int mode) {
-  if (mode == kRiccatiBox) return riccati_all<N, M, kRiccatiBox>(a);
-  if (mode == kRiccatiMask) return riccati_all<N, M, kRiccatiMask>(a);
-  return riccati_all<N, M, kRiccatiFree>(a);
+  if (mode == kRiccatiBox) return riccati_all<N, M, kRiccatiBox, STREAM>(a);
+  if (mode == kRiccatiMask) return riccati_all<N, M, kRiccatiMask, STREAM>(a);
+  return riccati_all<N, M, kRiccatiFree, STREAM>(a);
 }
 
 extern "C" int diffmpc_riccati_host(const RiccatiArgs* a, int n, int m, int mode) {
@@ -107,6 +124,13 @@ extern "C" int diffmpc_riccati_host(const RiccatiArgs* a, int n, int m, int mode
   if (n == 3 && m == 2) return riccati_modes<3, 2>(a, mode);
   if (n == 4 && m == 2) return riccati_modes<4, 2>(a, mode);
   if (n == 3 && m == 3 && mode == kRiccatiBox) return riccati_all<3, 3, kRiccatiBox>(a);
+  return 1;
+}
+
+extern "C" int diffmpc_riccati_stream_host(const RiccatiArgs* a, int n, int m, int mode) {
+  if (n == 3 && m == 1) return riccati_modes<3, 1, true>(a, mode);
+  if (n == 3 && m == 2) return riccati_modes<3, 2, true>(a, mode);
+  if (n == 4 && m == 2) return riccati_modes<4, 2, true>(a, mode);
   return 1;
 }
 
@@ -120,6 +144,35 @@ extern "C" int diffmpc_rollout_host(const RolloutArgs* a, int n, int m, const Pe
   if (env) return (n == 3 && m == 1) ? rollout_all<3, 1>(a, *env) : 1;
   if (n == 3 && m == 2) return rollout_all<3, 2>(a, LinearEnv{});
   if (n == 4 && m == 2) return rollout_all<4, 2>(a, LinearEnv{});
+  return 1;
+}
+
+template <int N, int M, class Env>
+static int rollout_stream_all(const RolloutArgs* a, const Env& env) {
+  std::vector<float> buf(2 * RolloutSlice<N, M, Env>::kSize);
+  for (int b = 0; b < a->B; ++b) linesearch_rollout_stream_scenario<N, M>(*a, env, b, buf.data(), 1);
+  return 0;
+}
+
+extern "C" int diffmpc_rollout_stream_host(const RolloutArgs* a, int n, int m, const PendulumEnv* env) {
+  if (env) return (n == 3 && m == 1) ? rollout_stream_all<3, 1>(a, *env) : 1;
+  if (n == 3 && m == 2) return rollout_stream_all<3, 2>(a, LinearEnv{});
+  if (n == 4 && m == 2) return rollout_stream_all<4, 2>(a, LinearEnv{});
+  return 1;
+}
+
+template <int N, int M>
+static int kkt_stream_all(const KktArgs* a) {
+  std::vector<float> buf(2 * KktSlotSize<N, M>::value);
+  for (int b = 0; b < a->B; ++b) kkt_stream_scenario<N, M>(*a, b, buf.data(), 1);
+  return 0;
+}
+
+extern "C" int diffmpc_kkt_backward_stream_host(const KktArgs* a, int n, int m) {
+  if (n == 3 && m == 1) return kkt_stream_all<3, 1>(a);
+  if (n == 3 && m == 2) return kkt_stream_all<3, 2>(a);
+  if (n == 4 && m == 1) return kkt_stream_all<4, 1>(a);
+  if (n == 4 && m == 2) return kkt_stream_all<4, 2>(a);
   return 1;
 }
 """
@@ -226,9 +279,8 @@ def test_host_build_float64_through_the_cast_helper(host_launch):
     assert_tight(as_numpy(got), as_numpy(plain))
 
 
-@pytest.fixture(scope="module")
-def host_kkt_launch(host_lib):
-    fn = host_lib.diffmpc_kkt_backward_host
+def _kkt_launcher(host_lib, symbol):
+    fn = getattr(host_lib, symbol)
     fn.argtypes = [ctypes.POINTER(_KktArgs), ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
 
@@ -236,6 +288,16 @@ def host_kkt_launch(host_lib):
         assert fn(args, n, m) == 0, f"no host instantiation for n={n}, m={m}"
 
     return launch
+
+
+@pytest.fixture(scope="module")
+def host_kkt_launch(host_lib):
+    return _kkt_launcher(host_lib, "diffmpc_kkt_backward_host")
+
+
+@pytest.fixture(scope="module")
+def host_kkt_stream_launch(host_lib):
+    return _kkt_launcher(host_lib, "diffmpc_kkt_backward_stream_host")
 
 
 @pytest.mark.parametrize("B", [1, 37])
@@ -251,9 +313,8 @@ def test_host_build_kkt_backward_matches_plain(host_kkt_launch, n, m, n_tight, B
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=1e-5, err_msg=name)
 
 
-@pytest.fixture(scope="module")
-def host_riccati_launch(host_lib):
-    fn = host_lib.diffmpc_riccati_host
+def _riccati_launcher(host_lib, symbol):
+    fn = getattr(host_lib, symbol)
     fn.argtypes = [ctypes.POINTER(_RiccatiArgs), ctypes.c_int, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
 
@@ -261,6 +322,16 @@ def host_riccati_launch(host_lib):
         assert fn(args, n, m, mode) == 0, f"no host instantiation for n={n}, m={m}, mode={mode}"
 
     return launch
+
+
+@pytest.fixture(scope="module")
+def host_riccati_launch(host_lib):
+    return _riccati_launcher(host_lib, "diffmpc_riccati_host")
+
+
+@pytest.fixture(scope="module")
+def host_riccati_stream_launch(host_lib):
+    return _riccati_launcher(host_lib, "diffmpc_riccati_stream_host")
 
 
 @pytest.mark.parametrize(
@@ -291,9 +362,8 @@ def test_host_build_riccati_matches_plain(host_riccati_launch, n, m, mode):
         assert (m == 3) == bool((got.n_qp_iter > 1).any())  # only the m = 3 loop iterates
 
 
-@pytest.fixture(scope="module")
-def host_rollout_launch(host_lib):
-    fn = host_lib.diffmpc_rollout_host
+def _rollout_launcher(host_lib, symbol):
+    fn = getattr(host_lib, symbol)
     fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
@@ -301,6 +371,16 @@ def host_rollout_launch(host_lib):
         assert fn(args, n, m, env) == 0, f"no host instantiation for n={n}, m={m}"
 
     return launch
+
+
+@pytest.fixture(scope="module")
+def host_rollout_launch(host_lib):
+    return _rollout_launcher(host_lib, "diffmpc_rollout_host")
+
+
+@pytest.fixture(scope="module")
+def host_rollout_stream_launch(host_lib):
+    return _rollout_launcher(host_lib, "diffmpc_rollout_stream_host")
 
 
 def _assert_rollout_matches(got, want):
@@ -344,6 +424,100 @@ def test_host_build_pendulum_rollout_matches_plain(host_rollout_launch):
     got = run_staged_rollout(host_rollout_launch, *args, **kw)
     want = linesearch_rollout_plain(*args, **kw)
     _assert_rollout_matches(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The streaming twins: the same staging, their own per-scenario loops.
+# ---------------------------------------------------------------------------
+
+
+def _assert_equal_results(got, want):
+    for name, g, w in zip(getattr(want, "_fields", range(len(want))), got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=str(name))
+
+
+@pytest.mark.parametrize("with_f", [False, True], ids=["f_none", "with_f"])
+@pytest.mark.parametrize(
+    "n,m,mode", [(n, m, mode) for n, m in ((3, 1), (3, 2), (4, 2)) for mode in ("free", "box", "mask")]
+)
+def test_host_build_riccati_twin_matches_plain_and_resident(
+    host_riccati_launch, host_riccati_stream_launch, n, m, mode, with_f
+):
+    T, B = 9, 37
+    rng = np.random.default_rng(950 + 10 * n + m)
+    C, c, F, f, _ = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
+    f = f if with_f else None
+    kw = {}
+    if mode == "box":
+        u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32)
+        kw = dict(u_lower=torch.tensor(-0.5), u_upper=torch.full((T, B, m), 0.5), u_hat=u_hat)
+    elif mode == "mask":
+        kw = dict(ctrl_mask=torch.tensor(rng.random((T, B, m)) < 0.3))
+    got = run_staged_riccati(host_riccati_stream_launch, C, c, F, f, n, **kw)
+    want = riccati_backward_plain(C, c, F, f, n, **kw)
+    for name in ("K", "k"):
+        g, w = getattr(got, name), getattr(want, name)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5 * max(1.0, float(w.abs().max())), rtol=0, err_msg=name)
+    np.testing.assert_array_equal(got.free_mask.numpy(), want.free_mask.numpy())
+    np.testing.assert_array_equal(got.n_qp_iter.numpy(), want.n_qp_iter.numpy())
+    _assert_equal_results(got, run_staged_riccati(host_riccati_launch, C, c, F, f, n, **kw))
+
+
+@pytest.mark.parametrize(
+    "n,m,box,delta_u,max_iter",
+    [(3, 2, False, None, 6), (4, 2, True, None, 6), (4, 2, True, 0.8, 10), (4, 2, True, None, 13)],
+    ids=["free", "box", "box_delta_u", "two_ladder_chunks"],
+)
+def test_host_build_linear_rollout_twin_matches_plain_and_resident(
+    host_rollout_launch, host_rollout_stream_launch, n, m, box, delta_u, max_iter
+):
+    """max_iter 13: pass 1 runs in two chunks of the ladder (10, then 3)."""
+    T, B = 7, 37
+    rng = np.random.default_rng(960 + 10 * n + m + box)
+    C, c, F, f, x0 = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
+    u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32)
+    x_hat, _ = lqr_rollout(x0, F, f, torch.zeros(T, B, m, n), torch.zeros(T, B, m), u_hat=u_hat)
+    K = torch.tensor(rng.normal(size=(T, B, m, n)) * 0.3, dtype=torch.float32)
+    k = torch.tensor(rng.normal(size=(T, B, m)) * (1.0 + 4.0 * (max_iter > 10)), dtype=torch.float32)
+    kw = dict(delta_u=delta_u, decay=0.5, max_iter=max_iter)
+    if box:
+        kw.update(u_lower=torch.tensor(-0.7), u_upper=torch.full((T, B, m), 0.7))
+    args = (x0, C, c, F, f, K, k, x_hat, u_hat)
+    got = run_staged_rollout(host_rollout_stream_launch, *args, **kw)
+    _assert_rollout_matches(got, linesearch_rollout_plain(*args, **kw))
+    _assert_equal_results(got, run_staged_rollout(host_rollout_launch, *args, **kw))
+    assert len(np.unique(got.alpha.numpy())) > 1
+
+
+def test_host_build_pendulum_rollout_twin_matches_plain_and_resident(host_rollout_launch, host_rollout_stream_launch):
+    prob = make_problem(seed=970, batched_params=True, warm=True)
+    t, dx = torch_inputs(prob)
+    T, B = t["C"].shape[:2]
+    rng = np.random.default_rng(971)
+    x_hat = torch.tensor(rng.normal(size=(T, B, 3)), dtype=torch.float32)
+    u_hat = t["u_init"].clamp(-2.0, 2.0)
+    K = torch.tensor(rng.normal(size=(T, B, 1, 3)) * 0.5, dtype=torch.float32)
+    k = torch.tensor(rng.normal(size=(T, B, 1)), dtype=torch.float32)
+    args = (t["x_init"], t["C"], t["c"], None, None, K, k, x_hat, u_hat)
+    kw = dict(u_lower=t["u_lower"], u_upper=t["u_upper"], dyn=dx, delta_u=1.0)
+    got = run_staged_rollout(host_rollout_stream_launch, *args, **kw)
+    _assert_rollout_matches(got, linesearch_rollout_plain(*args, **kw))
+    _assert_equal_results(got, run_staged_rollout(host_rollout_launch, *args, **kw))
+
+
+@pytest.mark.parametrize("T", [1, 8])
+@pytest.mark.parametrize("n,m,n_tight", [(3, 1, 12), (3, 2, 20), (4, 1, 12), (4, 2, 20)])
+def test_host_build_kkt_twin_matches_plain_and_resident(host_kkt_launch, host_kkt_stream_launch, n, m, n_tight, T):
+    B = 37
+    rng = np.random.default_rng(980 + 10 * n + m + T)
+    res = random_residuals(rng, T, B, n, m, min(n_tight, T * B * m // 2))
+    ins = [torch.tensor(a) for a in kernel_inputs(res)]
+    got = run_staged_kkt(host_kkt_stream_launch, *ins, reg=1e-7)
+    want = kkt_backward_plain(*ins, reg=1e-7)
+    for name, g, w in zip(("dx_init", "dC", "dc", "dF", "df"), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=1e-5, err_msg=name)
+    _assert_equal_results(got, run_staged_kkt(host_kkt_launch, *ins, reg=1e-7))
 
 
 def test_build_keys_library_by_sources_and_reports_nvcc_errors(tmp_path, monkeypatch):

@@ -231,7 +231,7 @@ def test_pendulum_off_the_fused_path_matches_jax(knob, lqr_iter, capsys):
     want = jax_pendulum(jconfig, jnp.asarray(x0))
     jax.effects_barrier()
     capsys.readouterr()
-    dx = convert.pendulum_from_jax(JaxPendulumDx.default(x0.dtype))
+    dx = convert.pendulum_from_jax(JaxPendulumDx.default(x0.dtype), device="cpu")
     q, p = dx.get_true_obj()
     got = tdm.mpc_solve(
         convert.mpc_config_from_jax(jconfig), torch.tensor(x0),
@@ -264,7 +264,7 @@ def test_finite_diff_linearization_matches_jax_and_carries_gradients():
     xs = np.stack([np.cos(th), np.sin(th), rng.uniform(-3, 3, (4, 6))], -1).astype(np.float32)
     us = rng.uniform(-2.5, 2.5, (4, 6, 1)).astype(np.float32)
     want = jax_linearize(jdx, jnp.asarray(xs), jnp.asarray(us), jdm.GradMethods.FINITE_DIFF)
-    dx = convert.pendulum_from_jax(jdx)
+    dx = convert.pendulum_from_jax(jdx, device="cpu")
     got = linearize_dynamics(dx, torch.tensor(xs), torch.tensor(us), tdm.GradMethods.FINITE_DIFF)
     np.testing.assert_allclose(got.F.numpy(), np.asarray(want.F), atol=2e-3)
     np.testing.assert_allclose(got.f.numpy(), np.asarray(want.f), atol=2e-3)

@@ -49,8 +49,8 @@ def _torch_setup():
     config, cost, dx = _jax_setup()
     return (
         convert.mpc_config_from_jax(config),
-        convert.quad_cost_from_jax(cost),
-        convert.pendulum_from_jax(dx),
+        convert.quad_cost_from_jax(cost, device="cpu"),
+        convert.pendulum_from_jax(dx, device="cpu"),
     )
 
 
@@ -277,7 +277,7 @@ def test_gradient_needs_the_analytic_linearization():
 
 def test_convert_carries_the_jax_state_over():
     jdx = JaxPendulumDx.default(jnp.float32)
-    tdx = convert.pendulum_from_jax(jdx)
+    tdx = convert.pendulum_from_jax(jdx, device="cpu")
     np.testing.assert_array_equal(tdx.params.numpy(), PendulumDx.default(device="cpu").params.numpy())
     assert (tdx.max_torque, tdx.max_speed, tdx.dt, tdx.clamp_ctrl) == (
         jdx.max_torque, jdx.max_speed, jdx.dt, jdx.clamp_ctrl,
@@ -287,11 +287,20 @@ def test_convert_carries_the_jax_state_over():
     # and back: the tensors hold the JAX values exactly
     back = JaxPendulumDx(params=jnp.asarray(tdx.params.numpy()))
     np.testing.assert_array_equal(np.asarray(back.params), np.asarray(jdx.params))
-    batched = convert.pendulum_from_jax(jdx.replace(params=jnp.ones((B, 3), jnp.float32)))
+    batched = convert.pendulum_from_jax(jdx.replace(params=jnp.ones((B, 3), jnp.float32)), device="cpu")
     assert batched.param_batch_shape == (B,)
     q, p = jdx.get_true_obj()
-    tc = convert.quad_cost_from_jax(jdm.QuadCost(jnp.diag(q), p))
+    tc = convert.quad_cost_from_jax(jdm.QuadCost(jnp.diag(q), p), device="cpu")
     np.testing.assert_array_equal(tc.C.numpy(), np.diag(np.asarray(q)))
+    # by default the weights go to the card, and never fall back to the CPU
+    if torch.cuda.is_available():
+        assert convert.pendulum_from_jax(jdx).params.device.type == "cuda"
+        assert convert.quad_cost_from_jax(jdm.QuadCost(jnp.diag(q), p)).C.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            convert.pendulum_from_jax(jdx)
+        with pytest.raises((RuntimeError, AssertionError)):
+            convert.quad_cost_from_jax(jdm.QuadCost(jnp.diag(q), p))
     jconfig, _, _ = _jax_setup()
     config = convert.mpc_config_from_jax(jconfig)
     for f in dataclasses.fields(tdm.MPCConfig):

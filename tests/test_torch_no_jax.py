@@ -26,7 +26,8 @@ import diffmpc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(diffmpc_tpu_torch.__path__, "diffmpc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-new = ["ops.cuda.riccati", "ops.cuda.rollout", "ops.pnqp", "ops.smallchol", "ops.lqr", "ops.lqr_step"]
+new = ["ops.cuda.riccati", "ops.cuda.rollout", "ops.pnqp", "ops.smallchol", "ops.lqr", "ops.lqr_step",
+       "ops.cuda.horizon", "ops.cuda.riccati_stream", "ops.cuda.rollout_stream", "ops.cuda.kkt_stream"]
 assert all(f"diffmpc_tpu_torch.{m}" in names for m in new), names
 assert "diffmpc_tpu" not in sys.modules and "jax" in sys.modules
 from diffmpc_tpu_torch.models import PendulumDx

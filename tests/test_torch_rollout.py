@@ -118,7 +118,7 @@ def test_plain_matches_jax_pallas_kernel_pendulum():
     want = jax_linesearch(args, lo, hi, delta_u=None, pendulum=True)
     lo_t, hi_t = tensors(lo, hi)
     got = linesearch_rollout_plain(
-        *tensors(*args), u_lower=lo_t, u_upper=hi_t, dyn=convert.pendulum_from_jax(jdx),
+        *tensors(*args), u_lower=lo_t, u_upper=hi_t, dyn=convert.pendulum_from_jax(jdx, device="cpu"),
         decay=DECAY, max_iter=MAX_ITER,
     )
     assert_matches(got, want)
@@ -162,7 +162,7 @@ def test_staging_rejects_what_the_kernel_does_not_take():
         run_staged_rollout(never, *t, dyn=OtherEnv())
     pend, _, _, jdx = pendulum_case()
     with pytest.raises(ValueError, match="n=3, m=1"):
-        run_staged_rollout(never, *t, dyn=convert.pendulum_from_jax(jdx))
+        run_staged_rollout(never, *t, dyn=convert.pendulum_from_jax(jdx, device="cpu"))
 
 
 def test_lqr_rollout_matches_jax():

@@ -85,6 +85,27 @@ Phases, one line of output each (JSON where it carries numbers):
    inputs, at T = 20, 128, 512 and B = 128, 4096, 65,536, with their bounds;
    the plain versions once at T=128, B=128; and config 2's mpc_solve at
    T=128, forward and forward + gradient.
+19. the depth-blocked Riccati kernel against its plain version (K, k within
+   1e-4 * max(1, max|plain|)) and the serial kernel's free mode (5e-4 of
+   its scale, beside the two plain versions' own distance) at n=3, m=1,
+   T=20, B=1024 and 1000, and n=4, m=2, T=128, B=128, D = 2 and 4; its two
+   ValueErrors on the card;
+20. the A/B (diffmpc_tpu_torch.diagnostics.ab_blocked_ilp, its counts set
+   to 0 before and read after): the serial kernel against the blocked one
+   at D = 2 and 4, kernels alone, interleaved, at the JAX script's three
+   shapes, BASELINE.json config 1's and n=4, m=2 at T=128, B=128, with the
+   bytes bound and the chain floor of each; at every shape the blocked
+   outputs within 5e-4 of the serial kernel's scale;
+21. the piece kernels against their plain versions at reps 1 and 9 (T=20,
+   B=1024 and 65,536; K, k within 1e-4 * max(1, max|plain|), or outside it
+   on <= 0.1% of scenarios, each one where float32 alone moves the plain
+   version > 1e-6 of the scale from the float64 plain version; each rollout
+   objective within 1e-5 of its sum of |stage costs|, and at reps 1 the
+   card's and the plain version's objectives within the same of the float64
+   plain version's), then the piece decomposition
+   (diffmpc_tpu_torch.diagnostics.profile_riccati_pieces, counted the same
+   way): the per-sweep slopes and each piece at B=1024 and 65,536, the full
+   slope beside phase 4's iLQR kernel time per iteration.
 
 The line before the last holds the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -105,6 +126,16 @@ import time
 import numpy as np
 import torch
 
+# NVIDIA's H100 SXM data sheet (HBM bandwidth, dense float32 rate) and the
+# latency of one dependent float32 operation in cycles
+from diffmpc_tpu_torch.diagnostics.card import DEP_OP_CYCLES, F32_FLOPS_PER_S, HBM_BYTES_PER_S
+# the dependent operations of one step of the fused iLQR kernel (ilqr.cuh,
+# pendulum.cuh), counted from the source as floors: forward, x_t -> x_t+1
+# (the piece kernels' rollout step), and backward, V_t+1 -> V_t (their sweep
+# step); the count is written out beside them
+from diffmpc_tpu_torch.diagnostics.profile_riccati_pieces import ROLLOUT_STEP_DEPTH as ILQR_FWD_DEPTH
+from diffmpc_tpu_torch.diagnostics.profile_riccati_pieces import SWEEP_STEP_DEPTH as ILQR_BACK_DEPTH
+
 T = 20
 B_MAIN, B_RAGGED, B_ENSEMBLE = 1024, 1000, 65536
 LQR_ITER, EPS = 10, 1e-5
@@ -112,16 +143,6 @@ TRUE_PARAMS, PARAMS0 = (10.0, 1.0, 1.0), (8.0, 1.25, 0.8)
 # BASELINE.json config 2 (box-DDP) and config 1 (unconstrained LQR)
 BOX_N, BOX_M, BOX_B, BOX = 4, 2, 128, 0.6
 LQR_N, LQR_M, LQR_T, LQR_B = 3, 2, 10, 32
-# NVIDIA's H100 SXM data sheet: HBM bandwidth and dense float32 rate
-HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
-# the latency of one dependent float32 operation (an FMA) on the SMs, in clock
-# cycles; and the dependent operations of one step of the fused iLQR kernel
-# (ilqr.cuh, pendulum.cuh), counted from the source as floors (a division
-# and sin/cos count one each). Forward, x_t -> x_t+1: K (x - x_hat) 3 FMAs,
-# the box clip 2; the step's 3 u / (m l^2) 2, + g term 1, thdot + dt (.) 1,
-# speed clip 2, dt thdot 1, cos/sin 1, the rotation 2. Backward,
-# V_t+1 -> V_t: W = V F 3, Q = C + F'W 4, K (reg, divide) 2, value update 3.
-DEP_OP_CYCLES, ILQR_FWD_DEPTH, ILQR_BACK_DEPTH = 4, 15, 12
 # the long-horizon path: config 2's slice at T=128 (box-DDP stops after ~17
 # iterations there), the pendulum with finite differences at T=256 and its
 # fused solve at T=512
@@ -935,6 +956,202 @@ def long_horizon(device, smi: str) -> list:
     ]
 
 
+def scenario_rel_err(got, want, scales) -> torch.Tensor:
+    """Each scenario's largest |got - want| over K and k, relative to
+    ``scales`` (the batch's max(1, max|want|) of each): ``(B,)``."""
+    return torch.stack([(getattr(got, k).double() - getattr(want, k).double()).abs().flatten(2).amax((0, 2))
+                        / scales[k] for k in ("K", "k")]).amax(0)
+
+
+def max_err(got, want, names=("K", "k")) -> tuple:
+    """The largest |got - want| over ``names`` and the scale
+    max(1, max|want|) of each."""
+    errs = {k: float((getattr(got, k) - getattr(want, k)).abs().max()) for k in names}
+    scales = {k: max(1.0, float(getattr(want, k).abs().max())) for k in names}
+    return errs, scales
+
+
+def pieces_vs_plain(device) -> tuple:
+    """Phase 21's agreement: each piece kernel against its plain version at
+    reps 1 and 9, at each of profile_riccati_pieces.BATCHES. Returns the
+    largest error of each kind at B_MAIN and the plain versions' times
+    there."""
+    from diffmpc_tpu_torch.diagnostics import profile_riccati_pieces
+    from diffmpc_tpu_torch.ops.cuda import riccati_pieces as rp
+
+    piece_err = {}
+    for B in profile_riccati_pieces.BATCHES:
+        ins = profile_riccati_pieces.make_inputs(B, device)
+        exact = {}  # the float64 sweeps, made where an outlier needs a witness
+        for kind in profile_riccati_pieces.KINDS:
+            for reps in (1, profile_riccati_pieces.REPS_HI):
+                if kind == "rollout":
+                    got, want = rp.rollout_piece_cuda(*ins, reps=reps), rp.rollout_piece_plain(*ins, reps=reps)
+                    # each scenario within 1e-5 of its sum of |stage costs|: the
+                    # summed objective can cancel to near zero, its rounding
+                    # grows with that sum
+                    diff = (got - want.obj).abs()
+                    err, rel = float(diff.max()), float((diff / want.abs_cost).max())
+                    ok, tol = rel <= 1e-5, "each objective within 1e-5 of its sum of |stage costs|"
+                    if reps == 1:
+                        # the float64 plain version, the witness of both float32 roundings
+                        obj64 = rp.rollout_piece_plain(*ins, dtype=torch.float64)
+                        worst = int((diff / want.obj.abs()).argmax())
+                        vs64 = {name: float(((o.double() - obj64.obj).abs() / obj64.abs_cost).max())
+                                for name, o in (("card", got), ("plain", want.obj))}
+                        emit(phase="rollout_piece_vs_float64", B=B, worst_relative_scenario=worst,
+                             obj=dict(card=float(got[worst]), plain=float(want.obj[worst]),
+                                      float64=float(obj64.obj[worst])), abs_cost=float(obj64.abs_cost[worst]),
+                             max_err_over_abs_cost_vs_float64=vs64, tol="1e-5")
+                        ok = ok and max(vs64.values()) <= 1e-5
+                        del obj64
+                else:
+                    got, want = rp.sweep_piece_cuda(kind, *ins, reps=reps), rp.sweep_piece_plain(kind, *ins, reps=reps)
+                    errs, scales = max_err(got, want)
+                    err = max(errs.values())
+                    per = scenario_rel_err(got, want, scales)
+                    rel, outliers = float(per.max()), (per > 1e-4).nonzero().flatten()
+                    ok, extra = True, {}
+                    tol = ("K, k within 1e-4 * max(1, max|plain|), or outside it on <= 0.1% of scenarios, each "
+                           "one where float32 rounding moves the plain version > 1e-6 of the scale from float64")
+                    if len(outliers):
+                        # An ill-conditioned scenario amplifies float32 rounding
+                        # past the limit in any float32 build (the plain version
+                        # too, against float64). The float64 plain version
+                        # witnesses each outlier as one; reps only add a 1e-30 seed.
+                        if kind not in exact:
+                            exact[kind] = rp.sweep_piece_plain(kind, *ins, dtype=torch.float64)
+                        rounding = scenario_rel_err(want, exact[kind], scales)[outliers]
+                        card64 = scenario_rel_err(got, exact[kind], scales)[outliers]
+                        ok = len(outliers) <= 1e-3 * B and bool((rounding > 1e-6).all())
+                        extra = dict(outliers=len(outliers), outlier_scenarios=outliers[:20].tolist(),
+                                     outlier_plain_vs_float64_min=float(rounding.min()),
+                                     outlier_plain_vs_float64_max=float(rounding.max()),
+                                     outlier_card_vs_float64_max=float(card64.max()),
+                                     plain_vs_float64_over_all=float(scenario_rel_err(want, exact[kind], scales).max()))
+                emit(phase="pieces_vs_plain", kind=kind, reps=reps, T=T, B=B, max_abs_err=err, max_rel_err=rel, tol=tol,
+                     **extra)
+                if not ok:
+                    raise AssertionError(f"piece kernel {kind} at B={B} reps={reps} vs plain: {err}")
+                if B == B_MAIN:
+                    piece_err[kind] = max(piece_err.get(kind, 0.0), err)
+                del got, want
+        del exact
+        if B == B_MAIN:
+            torch.cuda.synchronize()
+            piece_plain_ms = {"full": cuda_ms(lambda: rp.sweep_piece_plain("full", *ins), 1, 1),
+                              "rollout": cuda_ms(lambda: rp.rollout_piece_plain(*ins), 1, 1)}
+        del ins
+        torch.cuda.empty_cache()
+    return piece_err, piece_plain_ms
+
+
+def riccati_chain(device, smi: str, ilqr_ms_per_iter: float) -> list:
+    """Phases 19-21, the Riccati chain's diagnostics path: the depth-blocked
+    kernel against its plain version and the serial kernel, the blocked A/B
+    and the piece decomposition through the diagnostics modules. Returns the three
+    kernels' records for the kernels line."""
+    from diffmpc_tpu_torch.diagnostics import ab_blocked_ilp, profile_riccati_pieces
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.cuda import riccati_blocked as rb
+    from diffmpc_tpu_torch.ops.cuda import riccati_pieces as rp
+
+    named = dict(riccati_blocked=rb.riccati_backward_blocked_cuda, riccati=ric.riccati_backward_cuda,
+                 sweep_piece=rp.sweep_piece_cuda, rollout_piece=rp.rollout_piece_cuda)
+
+    def reset_counts():
+        for kern in named.values():
+            kern.launches = 0
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return {name: kern.launches for name, kern in named.items()}
+
+    # ---- 19. the blocked kernel vs its plain version and the serial kernel ----
+    t0 = time.perf_counter()
+    blocked_err = {}
+    for n, m, steps, B in ((3, 1, T, B_MAIN), (3, 1, T, B_RAGGED), (BOX_N, BOX_M, T_LONG, BOX_B)):
+        C, c, F, f = (torch.tensor(a, device=device) for a in ab_blocked_ilp.make_problem(steps, B, n, m, seed=1900 + B))
+        serial = ric.riccati_backward_cuda(C, c, F, f, n)
+        serial_plain = ric.riccati_backward_plain(C, c, F, f, n)
+        for D in (2, 4):
+            got = rb.riccati_backward_blocked_cuda(C, c, F, f, n, block=D)
+            want = rb.riccati_backward_blocked_plain(C, c, F, f, n, block=D)
+            err, scale = max_err(got, want)
+            gap, gap_scale = max_err(got, serial)
+            # the two algorithms' own distance, on the plain versions: where
+            # the kernel's gap to the serial kernel comes from
+            plain_gap, _ = max_err(want, serial_plain)
+            held = all(gap[k] <= 5e-4 * gap_scale[k] for k in gap)
+            emit(phase="blocked_vs_plain", n=n, m=m, T=steps, B=B, block=D, max_abs_err=err,
+                 tol="1e-4 * max(1, max|plain|)", vs_serial_max_abs=gap, vs_serial_tol="5e-4 * max(1, max|serial|)",
+                 vs_serial_held=held, plain_blocked_vs_plain_serial_max_abs=plain_gap,
+                 free_all_true=bool(got.free_mask.all()))
+            if not all(err[k] <= 1e-4 * scale[k] for k in err) or not bool(got.free_mask.all()):
+                raise AssertionError(f"blocked kernel vs plain, n={n} m={m} T={steps} B={B} D={D}: {err}")
+            if not held:
+                raise AssertionError(f"blocked kernel vs serial, n={n} m={m} T={steps} B={B} D={D}: {gap}")
+            blocked_err[(n, m, steps, B, D)] = max(err.values())
+            del got, want
+        del C, c, F, f, serial, serial_plain
+    C, c, F, f = (torch.tensor(a, device=device) for a in ab_blocked_ilp.make_problem(6, 8, 3, 1, seed=0))
+    for block, match in ((3, "block must be 2 or 4"), (4, "must evenly divide")):
+        try:
+            rb.riccati_backward_blocked(C, c, F, f, 3, block=block)
+        except ValueError as e:
+            if match not in str(e):
+                raise
+        else:
+            raise AssertionError(f"block={block} at T=6 did not raise")
+    emit(phase="blocked_validation", raised=["block must be 2 or 4", "must evenly divide"],
+         phase_19_seconds=time.perf_counter() - t0)
+
+    # ---- 20. the A/B: the serial kernel against the blocked one at D = 2, 4 ----
+    t0 = time.perf_counter()
+    reset_counts()
+    ab = ab_blocked_ilp.run()
+    ab_launches = counts()
+    for rec in ab:
+        emit(phase="blocked_ab", card=smi, **rec)
+    if ab_launches["riccati_blocked"] < 1 or ab_launches["riccati"] < 1:
+        raise AssertionError(f"the A/B launched {ab_launches}")
+    for rec in ab:  # every shape's blocked outputs held against the serial kernel's
+        if not rec["vs_serial_held"]:
+            raise AssertionError(f"blocked vs serial in the A/B at T={rec['T']} B={rec['B']}: {rec['vs_serial']}")
+    emit(phase="blocked_ab_launches", launches=ab_launches, phase_20_seconds=time.perf_counter() - t0)
+
+    # ---- 21. the pieces: each kernel vs its plain version, then the slopes ----
+    t0 = time.perf_counter()
+    piece_err, piece_plain_ms = pieces_vs_plain(device)
+    reset_counts()
+    pieces = profile_riccati_pieces.run()
+    piece_launches = counts()
+    for rec in pieces:
+        emit(phase="pieces", card=smi, **rec, ilqr_kernel_ms_per_iteration=ilqr_ms_per_iter if rec["B"] == B_MAIN else None,
+             full_slope_over_ilqr_iteration=rec["slope_us"]["full"] * 1e-3 / ilqr_ms_per_iter if rec["B"] == B_MAIN else None)
+    if piece_launches["sweep_piece"] < 1 or piece_launches["rollout_piece"] < 1:
+        raise AssertionError(f"the piece decomposition launched {piece_launches}")
+    emit(phase="pieces_launches", launches=piece_launches, phase_21_seconds=time.perf_counter() - t0)
+
+    first, main_pieces = ab[0], pieces[0]  # T=20, B=1024: the script's first shape and batch
+    source = "diffmpc_tpu_torch/csrc/"
+    return [
+        dict(name="riccati_backward_blocked_pallas", route="cuda", source=source + "riccati_blocked.cu",
+             replaces="diffmpc_tpu/ops/pallas/riccati_blocked.py:445", launches=ab_launches["riccati_blocked"],
+             max_abs_err=blocked_err[(3, 1, T, B_MAIN, 2)], ms=first["ms"]["blocked_D2"],
+             plain_ms=first["plain_ms"]["blocked_D2"],
+             **{k: first["bounds"]["blocked_D2"][k] for k in ("bound_ms", "bound_by")}, library_ms=None),
+        dict(name="profile_riccati_pieces.make_sweep_kernel", route="cuda", source=source + "riccati_pieces.cu",
+             replaces="scripts/profile_riccati_pieces.py:52", launches=piece_launches["sweep_piece"],
+             max_abs_err=piece_err["full"], ms=main_pieces["ms"]["full@1"], plain_ms=piece_plain_ms["full"],
+             **{k: main_pieces["bounds"]["full@1"][k] for k in ("bound_ms", "bound_by")}, library_ms=None),
+        dict(name="profile_riccati_pieces.make_rollout_kernel", route="cuda", source=source + "riccati_pieces.cu",
+             replaces="scripts/profile_riccati_pieces.py:181", launches=piece_launches["rollout_piece"],
+             max_abs_err=piece_err["rollout"], ms=main_pieces["ms"]["rollout@1"], plain_ms=piece_plain_ms["rollout"],
+             **{k: main_pieces["bounds"]["rollout@1"][k] for k in ("bound_ms", "bound_by")}, library_ms=None),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA device", file=sys.stderr)
@@ -1383,6 +1600,7 @@ def main() -> int:
         ilqr_bound = dict(bound_ms=chain_ms, bound_by="operations")  # dependent ones, at their latency
 
     twins = long_horizon(device, smi)
+    chain = riccati_chain(device, smi, times[B_MAIN][0] / int(results[B_MAIN][0].n_iters.max()))
 
     print(smi, flush=True)
     emit(kernels=[
@@ -1435,6 +1653,7 @@ def main() -> int:
             library_ms=None,
         ),
         *twins,
+        *chain,
     ])
     emit(ok=True, device=dict(platform="gpu", kind=kind, count=torch.cuda.device_count()))
     return 0

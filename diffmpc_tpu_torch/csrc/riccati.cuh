@@ -77,12 +77,11 @@ struct RiccatiGlobal {
   DMPC_HD float mask(int i) const { return a.mask[riccati_detail::at(t, i, M, a.B, b)]; }
 };
 
-// One step of the sweep: the gains K, k and the frozen mask at this step from
-// its inputs `in` and the value carry (V, v), which it updates in place.
-// Returns the box QP's solve count (0 outside box mode).
-template <int N, int M, int MODE, class In>
-DMPC_HD float riccati_step(const In& in, int pnqp_iter, float reg, float (&V)[N][N], float (&v)[N],
-                           float (&K)[M][N], float (&kt)[M], float (&frozen)[M]) {
+// The step's quadratic model from its inputs `in` and the next value (V, v):
+// W = V F, z = V f + v, Q = C + F'W (upper triangle, mirrored), q = c + F'z.
+template <int N, int M, class In>
+DMPC_HD void riccati_q_form(const In& in, const float (&V)[N][N], const float (&v)[N], float (&Q)[N + M][N + M],
+                            float (&q)[N + M]) {
   constexpr int NM = N + M;
   float Ft[N][NM];
   for (int i = 0; i < N; ++i)
@@ -101,7 +100,6 @@ DMPC_HD float riccati_step(const In& in, int pnqp_iter, float reg, float (&V)[N]
     z[k] = s2 + v[k];
   }
   // Q = C + F'W (upper triangle of C, mirrored) ; q = c + F'z
-  float Q[NM][NM], q[NM];
   for (int i = 0; i < NM; ++i)
     for (int j = i; j < NM; ++j) {
       float s2 = 0.0f;
@@ -114,12 +112,55 @@ DMPC_HD float riccati_step(const In& in, int pnqp_iter, float reg, float (&V)[N]
     for (int k = 0; k < N; ++k) s2 += Ft[k][i] * z[k];
     q[i] = in.c(i) + s2;
   }
-  float Quu[M][M], qu[M], cols[N][M];
+}
+
+// The control blocks of (Q, q): Quu, qu and the columns of Qux.
+template <int N, int M>
+DMPC_HD void riccati_control_blocks(const float (&Q)[N + M][N + M], const float (&q)[N + M], float (&Quu)[M][M],
+                                    float (&qu)[M], float (&cols)[N][M]) {
   for (int i = 0; i < M; ++i) {
     for (int j = 0; j < M; ++j) Quu[i][j] = Q[N + i][N + j];
     qu[i] = q[N + i];
     for (int j = 0; j < N; ++j) cols[j][i] = Q[N + i][j];  // column j of Qux
   }
+}
+
+// Free-mode gains: [K k] = -(Quu + reg)^-1 [Qux qu].
+template <int N, int M>
+DMPC_HD void riccati_free_gains(const float (&Quu)[M][M], const float (&qu)[M], const float (&cols)[N][M], float reg,
+                                float (&K)[M][N], float (&kt)[M]) {
+  float L[M][M], col[M];
+  chol_entries<M>(Quu, reg, L);
+  for (int j = 0; j < N; ++j) {
+    cho_solve_entries<M>(L, cols[j], col);
+    for (int i = 0; i < M; ++i) K[i][j] = -col[i];
+  }
+  cho_solve_entries<M>(L, qu, col);
+  for (int i = 0; i < M; ++i) kt[i] = -col[i];
+}
+
+// A free-mode step without its value update: the gains at this step from its
+// inputs and the next value (V, v). The depth-blocked sweep
+// (riccati_blocked.cuh) recovers its gains with it.
+template <int N, int M, class In>
+DMPC_HD void riccati_gains_free(const In& in, float reg, const float (&V)[N][N], const float (&v)[N],
+                                float (&K)[M][N], float (&kt)[M]) {
+  float Q[N + M][N + M], q[N + M], Quu[M][M], qu[M], cols[N][M];
+  riccati_q_form<N, M>(in, V, v, Q, q);
+  riccati_control_blocks<N, M>(Q, q, Quu, qu, cols);
+  riccati_free_gains<N, M>(Quu, qu, cols, reg, K, kt);
+}
+
+// One step of the sweep: the gains K, k and the frozen mask at this step from
+// its inputs `in` and the value carry (V, v), which it updates in place.
+// Returns the box QP's solve count (0 outside box mode).
+template <int N, int M, int MODE, class In>
+DMPC_HD float riccati_step(const In& in, int pnqp_iter, float reg, float (&V)[N][N], float (&v)[N],
+                           float (&K)[M][N], float (&kt)[M], float (&frozen)[M]) {
+  constexpr int NM = N + M;
+  float Q[NM][NM], q[NM], Quu[M][M], qu[M], cols[N][M];
+  riccati_q_form<N, M>(in, V, v, Q, q);
+  riccati_control_blocks<N, M>(Q, q, Quu, qu, cols);
   float n_qp = 0.0f;
   if constexpr (MODE == kRiccatiBox) {
     float lo[M], hi[M], Kc[N][M];
@@ -144,17 +185,8 @@ DMPC_HD float riccati_step(const In& in, int pnqp_iter, float reg, float (&V)[N]
       kt[i] = -sol[N][i];
     }
   } else {
-    float L[M][M], col[M];
-    chol_entries<M>(Quu, reg, L);
-    for (int j = 0; j < N; ++j) {
-      cho_solve_entries<M>(L, cols[j], col);
-      for (int i = 0; i < M; ++i) K[i][j] = -col[i];
-    }
-    cho_solve_entries<M>(L, qu, col);
-    for (int i = 0; i < M; ++i) {
-      kt[i] = -col[i];
-      frozen[i] = 0.0f;
-    }
+    riccati_free_gains<N, M>(Quu, qu, cols, reg, K, kt);
+    for (int i = 0; i < M; ++i) frozen[i] = 0.0f;
   }
   value_update<N, M>(Q, q, Quu, qu, K, kt, V, v);
   return n_qp;

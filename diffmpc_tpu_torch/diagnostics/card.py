@@ -1,0 +1,83 @@
+"""What the diagnostics measure with: the card's published rates, its clock,
+and interleaved CUDA-event timing of kernels alone on staged inputs."""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+# NVIDIA's H100 SXM data sheet: HBM bandwidth and dense float32 rate
+HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
+# the latency of one dependent float32 operation (an FMA) on the SMs, in
+# clock cycles
+DEP_OP_CYCLES = 4
+
+
+def require_card() -> torch.device:
+    """The first CUDA device; raises without one (a measurement never falls
+    back to the CPU)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the diagnostics time kernels on a CUDA device, and there is none")
+    return torch.device("cuda", 0)
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return float(out.split()[0])
+
+
+def chain_ms(depth: int, clock_mhz: float) -> float:
+    """``depth`` dependent operations at ``DEP_OP_CYCLES`` each."""
+    return depth * DEP_OP_CYCLES / (clock_mhz * 1e6) * 1e3
+
+
+def bound(n_bytes: float, n_ops: float, chain: float = 0.0) -> dict:
+    """The least time the card could take: the bytes over the memory rate, the
+    operations over the float32 rate, or (``chain``, in ms) the dependent
+    operations at their latency, whichever is largest."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOPS_PER_S * 1e3
+    out = dict(bytes_ms=t_bytes, ops_ms=t_ops, chain_ms=chain)
+    out.update(bound_ms=max(t_bytes, t_ops, chain), bound_by="bytes" if t_bytes >= max(t_ops, chain) else "operations")
+    return out
+
+
+def interleaved_ms(stagers: dict, rounds: int, loops: int) -> dict:
+    """Time kernels alone on their staged inputs, interleaved: ``stagers``
+    maps a name to ``(launcher, stage)``, where ``stage(launch)`` stages the
+    inputs and calls ``launch`` once, as a wrapper's ``run_staged_*`` does,
+    and ``launcher`` launches the kernel. Every stage's inputs stay alive
+    (each stage runs inside the one before), then each round times ``loops``
+    launches of each kernel in turn between CUDA events. Returns each name's
+    minimum over the rounds, in ms per launch."""
+    names, calls, best = list(stagers), {}, {}
+
+    def nest(i):
+        if i == len(names):
+            torch.cuda.synchronize()
+            for _ in range(rounds):
+                for name in names:
+                    launch, args = calls[name]
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(loops):
+                        launch(*args)
+                    end.record()
+                    end.synchronize()
+                    best[name] = min(best.get(name, float("inf")), start.elapsed_time(end) / loops)
+            return
+        launcher, stage = stagers[names[i]]
+
+        def capture(*args):
+            launcher(*args)  # the staged call's own launch, which fills its outputs
+            calls[names[i]] = (launcher, args)
+            nest(i + 1)
+
+        stage(capture)
+
+    nest(0)
+    return best

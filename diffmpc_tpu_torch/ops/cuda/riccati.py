@@ -80,6 +80,46 @@ def _check_shapes(C, c, F, f, n):
 # ---------------------------------------------------------------------------
 
 
+def _q_form(Ct, ct, F, ft, V, v, n, m):
+    """One step's quadratic model from its entries (``Ct[a, b]``, ``ct[a]``,
+    ``F[k][j]``, ``ft[k]`` or None: ``(B,)`` tensors) and the next value
+    ``(V, v)``: ``W = V F``, ``z = V f + v``, ``Q = C + F'W`` (upper triangle,
+    mirrored), ``q = c + F'z``, in the kernel's order (``riccati_q_form``)."""
+    nm = n + m
+    W = [[sum(V[k][l] * F[l][j] for l in range(n)) for j in range(nm)] for k in range(n)]
+    z = [(sum(V[k][l] * ft[l] for l in range(n)) if ft is not None else 0.0) + v[k] for k in range(n)]
+    Q = [[None] * nm for _ in range(nm)]
+    for a in range(nm):
+        for b in range(a, nm):
+            val = Ct[a, b] + sum(F[k][a] * W[k][b] for k in range(n))
+            Q[a][b] = val
+            Q[b][a] = val
+    q = [ct[a] + sum(F[k][a] * z[k] for k in range(n)) for a in range(nm)]
+    return Q, q
+
+
+def _entries(X, rows, cols):
+    """A ``(rows, cols, B)`` view as a list of lists of ``(B,)`` entries."""
+    return [[X[a, j] for j in range(cols)] for a in range(rows)]
+
+
+def _control_blocks(Q, q, n, m):
+    """``Quu``, ``qu`` and the columns of ``Qux`` of a step's model."""
+    Quu = [[Q[n + a][n + b] for b in range(m)] for a in range(m)]
+    qu = [q[n + a] for a in range(m)]
+    cols = [[Q[n + a][b] for a in range(m)] for b in range(n)]
+    return Quu, qu, cols
+
+
+def _free_gains(Quu, qu, cols, n, m, reg):
+    """Free-mode gains ``[K k] = -(Quu + reg)^-1 [Qux qu]``."""
+    L = _chol_entries(Quu, m, reg)
+    Kc = [_cho_solve_entries(L, col, m) for col in cols]
+    K = [[-Kc[b][a] for b in range(n)] for a in range(m)]
+    kt = [-x for x in _cho_solve_entries(L, qu, m)]
+    return K, kt
+
+
 @torch.no_grad()
 def riccati_backward_plain(
     C: torch.Tensor,
@@ -104,7 +144,6 @@ def riccati_backward_plain(
     n = n_state
     T, B, m = _check_shapes(C, c, F, f, n)
     mode, extra = _mode_inputs(T, B, m, u_lower, u_upper, u_hat, ctrl_mask)
-    nm = n + m
     f32 = torch.float32
     # entry views: Ce[t, a, b] and friends are (B,) tensors
     Ce = C.to(f32).permute(0, 2, 3, 1)
@@ -119,22 +158,8 @@ def riccati_backward_plain(
     V = [[zero] * n for _ in range(n)]
     v = [zero] * n
     for t in reversed(range(T)):
-        Ft = [[Fe[t, a, j] for j in range(nm)] for a in range(n)]
-        W = [[sum(V[k][l] * Ft[l][j] for l in range(n)) for j in range(nm)] for k in range(n)]
-        z = [
-            (sum(V[k][l] * fe[t, l] for l in range(n)) if fe is not None else 0.0) + v[k]
-            for k in range(n)
-        ]
-        Q = [[None] * nm for _ in range(nm)]
-        for a in range(nm):
-            for b in range(a, nm):
-                val = Ce[t, a, b] + sum(Ft[k][a] * W[k][b] for k in range(n))
-                Q[a][b] = val
-                Q[b][a] = val
-        q = [ce[t, a] + sum(Ft[k][a] * z[k] for k in range(n)) for a in range(nm)]
-        Quu = [[Q[n + a][n + b] for b in range(m)] for a in range(m)]
-        qu = [q[n + a] for a in range(m)]
-        cols = [[Q[n + a][b] for a in range(m)] for b in range(n)]
+        Q, q = _q_form(Ce[t], ce[t], _entries(Fe[t], n, n + m), None if fe is None else fe[t], V, v, n, m)
+        Quu, qu, cols = _control_blocks(Q, q, n, m)
         n_qp = zero
         if mode == BOX:
             lo = [extra[0][t, a] for a in range(m)]
@@ -148,10 +173,7 @@ def riccati_backward_plain(
             K = [[-sols[b][a] for b in range(n)] for a in range(m)]
             kt = [-sols[n][a] for a in range(m)]
         else:
-            L = _chol_entries(Quu, m, reg)
-            Kc = [_cho_solve_entries(L, col, m) for col in cols]
-            K = [[-Kc[b][a] for b in range(n)] for a in range(m)]
-            kt = [-x for x in _cho_solve_entries(L, qu, m)]
+            K, kt = _free_gains(Quu, qu, cols, n, m, reg)
             frozen = [zero] * m
         K_all[t] = torch.stack([torch.stack(row, -1) for row in K], 1)
         k_all[t] = torch.stack(kt, 1)

@@ -67,3 +67,32 @@ def cho_solve_small(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if L.shape[-1] == 1:
         return b / (L * L)
     return solve_triu_small(L, solve_tril_small(L, b))
+
+
+def solve_psd_small(A: torch.Tensor, b: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Solve the SPD system ``A x = b`` for tiny static ``m``;
+    ``b (..., m, k)``."""
+    if A.shape[-1] == 1:
+        if jitter:
+            A = A + jitter
+        return b / A
+    return cho_solve_small(cholesky_small(A, jitter), b)
+
+
+def solve_general_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve a general (non-symmetric) tiny system ``A x = b`` by unrolled
+    Gauss-Jordan elimination on the augmented rows, WITHOUT pivoting;
+    ``b (..., m, k)``. For well-conditioned matrices with a dominant
+    diagonal, such as the ``I + C J`` combiners of the parallel-in-time
+    Riccati (eigenvalues >= 1 for PSD ``C, J``); not safe for arbitrary
+    matrices."""
+    m = A.shape[-1]
+    if m == 1:
+        return b / A
+    rows = [torch.cat([A[..., i, :], b[..., i, :]], -1) for i in range(m)]
+    for j in range(m):
+        rows[j] = rows[j] / rows[j][..., j : j + 1]
+        for i in range(m):
+            if i != j:
+                rows[i] = rows[i] - rows[i][..., j : j + 1] * rows[j]
+    return torch.stack([rows[i][..., m:] for i in range(m)], -2)

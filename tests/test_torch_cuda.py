@@ -19,7 +19,11 @@ sibling: the same rules again (the two run the same per-step functions).
 The pendulum's closed loop over the twins' 96 steps is chaotic enough that
 the card's controls and the plain version's part by up to ~6e-4 where the
 step agrees: there they are held to 2e-3 (to 1e-4 against the resident
-kernel, the same device arithmetic).
+kernel, the same device arithmetic). The depth-blocked sweep within
+``1e-4 * max(1, max|plain|)`` of its plain version and ``5e-4`` of the
+serial kernel; the piece kernels' ``K, k`` within ``1e-4 * max(1, max|plain|)``
+and the rollout's objective within 1e-5 of the batch's largest, at reps 1
+and 9.
 """
 
 import dataclasses
@@ -390,3 +394,55 @@ def test_long_horizon_mpc_solve_goes_through_the_twins(device):
     assert [k.launches - b for k, b in zip(kernels, before)] == [it, it, 1, 0, 0, 0, 0]
     assert bool(torch.isfinite(sol.objs).all()) and float(sol.us.abs().max()) <= np.float32(0.6)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("block", [2, 4])
+@pytest.mark.parametrize("n,m", [(3, 1), (3, 2), (4, 1), (4, 2)])
+def test_blocked_kernel_matches_plain_and_serial(device, n, m, block):
+    """The depth-blocked sweep: K, k within 1e-4 * max(1, max|plain|) of its
+    plain version, and within 5e-4 of the serial kernel's free mode (the JAX
+    package's bound between the two sweeps); the validation raises on the
+    card too."""
+    from diffmpc_tpu_torch.ops.cuda import riccati_blocked as rb
+
+    T, B = 20, 130
+    C, c, F, f = (torch.tensor(a, device=device) for a in _random_lqr(np.random.default_rng(1950 + 10 * n + m), T, B, n, m)[:4])
+    before = rb.riccati_backward_blocked_cuda.launches
+    got = rb.riccati_backward_blocked(C, c, F, f, n, block=block)
+    torch.cuda.synchronize()
+    assert rb.riccati_backward_blocked_cuda.launches == before + 1
+    assert got.K.device.type == "cuda" and bool(got.free_mask.all())
+    want = rb.riccati_backward_blocked_plain(C, c, F, f, n, block=block)
+    serial = riccati_backward_cuda(C, c, F, f, n)
+    for name in ("K", "k"):
+        g, w, s = getattr(got, name), getattr(want, name), getattr(serial, name)
+        torch.testing.assert_close(g, w, atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0)
+        torch.testing.assert_close(g, s, atol=5e-4 * max(1.0, float(s.abs().max())), rtol=0)
+    with pytest.raises(ValueError, match="block must be 2 or 4"):
+        rb.riccati_backward_blocked(C, c, F, f, n, block=3)
+    with pytest.raises(ValueError, match="must evenly divide"):
+        rb.riccati_backward_blocked(C[:18], c[:18], F[:18], f[:18], n, block=4)
+
+
+@pytest.mark.parametrize("kind", ["full", "no_lin", "no_Qform", "no_pnqp", "no_Vup", "rollout"])
+def test_piece_kernels_match_plain(device, kind):
+    """Each piece kernel at reps 1 and 9 (one binary): the sweep's K, k within
+    1e-4 * max(1, max|plain|), each rollout objective within 1e-5 of its sum
+    of |stage costs| (a summed cost can cancel to near zero)."""
+    from diffmpc_tpu_torch.diagnostics.profile_riccati_pieces import make_inputs
+    from diffmpc_tpu_torch.ops.cuda import riccati_pieces as rp
+
+    ins = make_inputs(130, device, steps=20)
+    for reps in (1, 9):
+        counted = rp.rollout_piece_cuda if kind == "rollout" else rp.sweep_piece_cuda
+        before = counted.launches
+        if kind == "rollout":
+            got, want = rp.rollout_piece_cuda(*ins, reps=reps), rp.rollout_piece_plain(*ins, reps=reps)
+            torch.cuda.synchronize()
+            assert bool(((got - want.obj).abs() <= 1e-5 * want.abs_cost).all())
+        else:
+            got, want = rp.sweep_piece_cuda(kind, *ins, reps=reps), rp.sweep_piece_plain(kind, *ins, reps=reps)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0)
+        assert counted.launches == before + 1

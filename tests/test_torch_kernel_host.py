@@ -19,7 +19,11 @@ relative with ``alpha`` and ``improved`` equal. The streaming twins
 (``csrc/*_stream.cuh``: the same per-step functions read through slot
 accessors, the slots filled by plain copies on the host) hold the same
 tolerances against the plain versions and equal their resident siblings'
-host builds bit for bit: the same g++ arithmetic in the same order.
+host builds bit for bit: the same g++ arithmetic in the same order. The
+depth-blocked sweep (``csrc/riccati_blocked.cuh``) holds its ``K, k`` within
+``1e-5 * max(1, max|plain|)``; the piece kernels (``csrc/riccati_pieces.cuh``)
+their ``K, k`` within ``1e-4 * max(1, max|plain|)`` and the rollout's
+objective within 1e-5 relative.
 """
 
 import ctypes
@@ -50,6 +54,18 @@ from diffmpc_tpu_torch.ops.cuda.riccati import (  # noqa: E402
     riccati_backward_plain,
     run_staged_riccati,
 )
+from diffmpc_tpu_torch.ops.cuda.riccati_blocked import (  # noqa: E402
+    _BlockedArgs,
+    riccati_backward_blocked_plain,
+    run_staged_blocked,
+)
+from diffmpc_tpu_torch.ops.cuda.riccati_pieces import VARIANTS as PIECE_VARIANTS  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda.riccati_pieces import (  # noqa: E402
+    _PieceArgs,
+    rollout_piece_plain,
+    run_staged_pieces,
+    sweep_piece_plain,
+)
 from diffmpc_tpu_torch.ops.cuda.rollout import (  # noqa: E402
     _RolloutArgs,
     linesearch_rollout_plain,
@@ -75,6 +91,8 @@ SHIM = r"""
 #include "kkt_stream.cuh"
 #include "pendulum.cuh"
 #include "riccati.cuh"
+#include "riccati_blocked.cuh"
+#include "riccati_pieces.cuh"
 #include "riccati_stream.cuh"
 #include "rollout.cuh"
 #include "rollout_stream.cuh"
@@ -173,6 +191,47 @@ extern "C" int diffmpc_kkt_backward_stream_host(const KktArgs* a, int n, int m) 
   if (n == 3 && m == 2) return kkt_stream_all<3, 2>(a);
   if (n == 4 && m == 1) return kkt_stream_all<4, 1>(a);
   if (n == 4 && m == 2) return kkt_stream_all<4, 2>(a);
+  return 1;
+}
+
+template <int N, int M>
+static int blocked_all(const RiccatiBlockedArgs* a) {
+  for (int b = 0; b < a->ric.B; ++b) {
+    if (a->block == 2)
+      riccati_blocked_scenario<N, M, 2>(*a, b);
+    else
+      riccati_blocked_scenario<N, M, 4>(*a, b);
+  }
+  return 0;
+}
+
+extern "C" int diffmpc_riccati_blocked_host(const RiccatiBlockedArgs* a, int n, int m) {
+  if (a->block != 2 && a->block != 4) return 1;
+  if (n == 3 && m == 1) return blocked_all<3, 1>(a);
+  if (n == 3 && m == 2) return blocked_all<3, 2>(a);
+  if (n == 4 && m == 1) return blocked_all<4, 1>(a);
+  if (n == 4 && m == 2) return blocked_all<4, 2>(a);
+  return 1;
+}
+
+template <int VARIANT>
+static int sweep_pieces_all(const PieceArgs* a, const PendulumEnv* env) {
+  for (int b = 0; b < a->B; ++b) piece_sweep_scenario<VARIANT>(*a, *env, b);
+  return 0;
+}
+
+// variant: a PieceVariant, or -1 for the rollout
+extern "C" int diffmpc_riccati_pieces_host(const PieceArgs* a, const PendulumEnv* env, int variant) {
+  switch (variant) {
+    case kPieceFull: return sweep_pieces_all<kPieceFull>(a, env);
+    case kPieceNoLin: return sweep_pieces_all<kPieceNoLin>(a, env);
+    case kPieceNoQform: return sweep_pieces_all<kPieceNoQform>(a, env);
+    case kPieceNoPnqp: return sweep_pieces_all<kPieceNoPnqp>(a, env);
+    case kPieceNoVup: return sweep_pieces_all<kPieceNoVup>(a, env);
+    case -1:
+      for (int b = 0; b < a->B; ++b) piece_rollout_scenario(*a, *env, b);
+      return 0;
+  }
   return 1;
 }
 """
@@ -518,6 +577,89 @@ def test_host_build_kkt_twin_matches_plain_and_resident(host_kkt_launch, host_kk
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=1e-5, err_msg=name)
     _assert_equal_results(got, run_staged_kkt(host_kkt_launch, *ins, reg=1e-7))
+
+
+# ---------------------------------------------------------------------------
+# The depth-blocked sweep and the piece-decomposition kernels.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def host_blocked_launch(host_lib):
+    fn = host_lib.diffmpc_riccati_blocked_host
+    fn.argtypes = [ctypes.POINTER(_BlockedArgs), ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    def launch(args, n, m):
+        assert fn(args, n, m) == 0, f"no host instantiation for n={n}, m={m}"
+
+    return launch
+
+
+@pytest.mark.parametrize("with_f", [False, True], ids=["f_none", "with_f"])
+@pytest.mark.parametrize("block", [2, 4])
+@pytest.mark.parametrize("n,m", [(3, 1), (3, 2), (4, 1), (4, 2)])
+def test_host_build_riccati_blocked_matches_plain(host_blocked_launch, n, m, block, with_f):
+    """The blocked sweep's host build against its plain version within
+    ``1e-5 * max(1, max|plain|)`` (the same float32 arithmetic in the same
+    order; g++ and PyTorch round the same operations), ``free`` all true."""
+    T, B = 8, 37
+    rng = np.random.default_rng(990 + 10 * n + m + block)
+    C, c, F, f, _ = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
+    f = f if with_f else None
+    got = run_staged_blocked(host_blocked_launch, C, c, F, f, n, block=block)
+    want = riccati_backward_blocked_plain(C, c, F, f, n, block=block)
+    for name in ("K", "k"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5 * max(1.0, float(w.abs().max())), rtol=0, err_msg=name)
+    assert bool(got.free_mask.all()) and not bool(got.n_qp_iter.any())
+
+
+@pytest.fixture(scope="module")
+def host_pieces_launch(host_lib):
+    fn = host_lib.diffmpc_riccati_pieces_host
+    fn.argtypes = [ctypes.POINTER(_PieceArgs), ctypes.POINTER(_PendulumEnv), ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    def launch(args, env, variant):
+        assert fn(args, env, -1 if variant == "rollout" else PIECE_VARIANTS.index(variant)) == 0
+
+    return launch
+
+
+def _piece_inputs(T, B, seed):
+    """The inputs of scripts/profile_riccati_pieces.py: the pendulum's goal
+    cost, a random trajectory, the box +-2."""
+    from diffmpc_tpu_torch.models import PendulumDx
+
+    dx = PendulumDx.default(device="cpu")
+    q, p = dx.get_true_obj()
+    rng = np.random.default_rng(seed)
+    xh = torch.tensor(rng.normal(size=(T, B, 3)), dtype=torch.float32)
+    uh = torch.tensor(rng.normal(size=(T, B, 1)) * 0.5, dtype=torch.float32)
+    box = torch.full((T, B, 1), 2.0)
+    return (torch.diag(q).expand(T, B, 4, 4), p.expand(T, B, 4), xh, uh, -box, box, dx)
+
+
+@pytest.mark.parametrize("reps", [1, 3])
+@pytest.mark.parametrize("variant", PIECE_VARIANTS + ("rollout",))
+def test_host_build_riccati_pieces_match_plain(host_pieces_launch, variant, reps):
+    """Each piece kernel's host build against its plain version: the sweep's
+    ``K, k`` within ``1e-4 * max(1, max|plain|)`` (the Jacobian by dual
+    numbers against the plain version's forward-mode autodiff, with their own
+    sin/cos), the rollout's objective within 1e-5 relative."""
+    ins = _piece_inputs(6, 37, 1000 + reps)
+    got = run_staged_pieces(host_pieces_launch, variant, *ins, reps=reps)
+    if variant == "rollout":
+        want = rollout_piece_plain(*ins, reps=reps).obj
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=0)
+        return
+    want = sweep_piece_plain(variant, *ins, reps=reps)
+    for name in ("K", "k"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0, err_msg=name)
 
 
 def test_build_keys_library_by_sources_and_reports_nvcc_errors(tmp_path, monkeypatch):

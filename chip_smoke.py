@@ -10,7 +10,8 @@ Phases, one line of output each (JSON where it carries numbers):
    when there is no CUDA device; nothing runs on the CPU instead;
 1. build: the CUDA kernels, built with nvcc from diffmpc_tpu_torch/csrc
    (one nvcc per source, in parallel), and the same sources by one nvcc
-   command for comparison;
+   command for comparison, run in the background during phases 22-23 (which
+   time nothing) and read before phase 24;
 2. kernel vs plain: the fused iLQR kernel against its plain PyTorch version
    on the card, at the main-path problem (pendulum, T=20, B=1024, and the
    ragged B=1000; lqr_iter=10, eps=1e-5), one iteration at eps=0, and a
@@ -105,7 +106,30 @@ Phases, one line of output each (JSON where it carries numbers):
    plain version's), then the piece decomposition
    (diffmpc_tpu_torch.diagnostics.profile_riccati_pieces, counted the same
    way): the per-sweep slopes and each piece at B=1024 and 65,536, the full
-   slope beside phase 4's iLQR kernel time per iteration.
+   slope beside phase 4's iLQR kernel time per iteration;
+22. learned dynamics, the kernels against their plain versions: the fused
+   iLQR kernel with the MLP step of the JAX bench's NNDynamics (3-16-16-3,
+   residual, tanh; bench.py:592-624) at T=15, B=1024 and the ragged 1000,
+   lqr_iter=2, hoist_lin off and on, with the float64 plain solve as the
+   witness (witnessed_agreement), and the count of scenarios where on and off
+   differ bit for bit; the rollout kernel's MLP step (T=15, phase 10's rule)
+   and its twin's (T=128, phase 15's rule for the chaotic pendulum);
+23. the learned-dynamics path through mpc_solve (T=15, lqr_iter=8, B=1024):
+   one iLQR launch and no Riccati or rollout launch, against the same solve
+   on the CPU; with hoist_lin; the gradient of mean(us**2) with respect to
+   every weight and bias through one KKT launch, against the same gradient
+   at the card's fixed point on the CPU (1e-3 of each max-abs); an MLP too
+   large for the kernels (64, 64) through the non-fused loop (one Riccati
+   launch per iteration, no rollout launch: the ladder is plain PyTorch);
+   the 3-16-16-3 MLP with verbose=1 through the rollout kernel, and at
+   T=128 through the rollout twin;
+24. 40 imitation-learning steps of the MLP at B=1024 (detach_unconverged
+   off, the near-upright regime of tests/test_imitation.py:79-83): a finite
+   loss that ends below where it started, grad_norm > 0;
+25. time: the MLP's fused kernel alone at B=1024 and 65,536, hoist_lin off
+   and on, interleaved by CUDA events, with the bytes bound and the chain
+   floor; mpc_solve and solve + gradient in strict alternation; the rollout
+   kernel and twin alone; each plain version once.
 
 The line before the last holds the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -114,13 +138,16 @@ exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -128,7 +155,7 @@ import torch
 
 # NVIDIA's H100 SXM data sheet (HBM bandwidth, dense float32 rate) and the
 # latency of one dependent float32 operation in cycles
-from diffmpc_tpu_torch.diagnostics.card import DEP_OP_CYCLES, F32_FLOPS_PER_S, HBM_BYTES_PER_S
+from diffmpc_tpu_torch.diagnostics.card import DEP_OP_CYCLES, F32_FLOPS_PER_S, HBM_BYTES_PER_S, ptxas_report
 # the dependent operations of one step of the fused iLQR kernel (ilqr.cuh,
 # pendulum.cuh), counted from the source as floors: forward, x_t -> x_t+1
 # (the piece kernels' rollout step), and backward, V_t+1 -> V_t (their sweep
@@ -214,6 +241,40 @@ def check_chaos(name: str, m: dict, min_equal: float = 0.95) -> None:
     )
     if not ok:
         raise AssertionError(f"{name}: kernel and plain version disagree: {m}")
+
+
+def witnessed_agreement(name: str, kernel, plain, exact) -> dict:
+    """A float32 solve of an ill-conditioned closed loop against its plain
+    version, with the float64 plain version (``exact``) as the witness. A
+    scenario is off from another solve when n_iters differ, the objective is
+    more than 1e-3 from it relative, or the controls more than 5e-3 (5e-2
+    where the last line-search step differs). Held: n_iters equal to the
+    float32 plain version's on >= 95% of scenarios; the kernel off from the
+    float64 solve on no more scenarios than twice those where the float32
+    plain version is, plus 0.5% of the batch (float32 rounding alone moves
+    an ill-conditioned scenario; a wrong kernel moves most); on the scenarios
+    where neither is off from float64, kernel and plain within twice the
+    limits of each other."""
+    k, p, e = ({f: getattr(r, f).double().cpu().numpy() for f in r._fields} for r in (kernel, plain, exact))
+
+    def off(a, b):
+        us = np.abs(a["us"] - b["us"]).max(axis=(0, 2))
+        rel = np.abs(a["objs"] - b["objs"]) / np.maximum(np.abs(b["objs"]), 1e-6)
+        return (a["n_iters"] != b["n_iters"]) | (rel > 1e-3) | (us > np.where(a["alpha"] == b["alpha"], 5e-3, 5e-2))
+
+    kp, pe, ke = off(k, p), off(p, e), off(k, e)
+    calm = ~pe & ~ke
+    us = np.abs(k["us"] - p["us"]).max(axis=(0, 2))
+    rel = np.abs(k["objs"] - p["objs"]) / np.maximum(np.abs(p["objs"]), 1e-6)
+    out = dict(n_iters_equal_frac=float((k["n_iters"] == p["n_iters"]).mean()), off_plain=int(kp.sum()),
+               plain_off_float64=int(pe.sum()), kernel_off_float64=int(ke.sum()),
+               us_max_abs=float(us[calm].max()), objs_max_rel=float(rel[calm].max()),
+               converged_frac_kernel=float(k["converged"].mean()), converged_frac_plain=float(p["converged"].mean()),
+               float64_mean_obj=float(e["objs"].mean()), mean_obj=float(k["objs"].mean()))
+    if out["n_iters_equal_frac"] < 0.95 or ke.sum() > 2 * pe.sum() + 0.005 * len(us) \
+            or out["us_max_abs"] > 1e-2 or out["objs_max_rel"] > 2e-3:
+        raise AssertionError(f"{name}: {out}")
+    return out
 
 
 def check_tight(name: str, kernel, plain, tol: float = 1e-4) -> float:
@@ -1152,22 +1213,416 @@ def riccati_chain(device, smi: str, ilqr_ms_per_iter: float) -> list:
     ]
 
 
+# the learned-dynamics cell of the JAX bench (bench.py:592-624): its MLP
+# (3-16-16-3, residual, tanh), T=15, lqr_iter=8; the rollout twin's horizon
+# for n=3, m=1 (the JAX package takes it from T=121)
+NN_HIDDEN, NN_T, NN_ITER, NN_T_LONG = (16, 16), 15, 8, 128
+
+
+def nn_model(device, seed: int = 0, hidden=NN_HIDDEN, out_scale: float = 1.0):
+    """The bench's MLP with He-normal weights from ``seed`` (its last layer
+    scaled by ``out_scale``)."""
+    from diffmpc_tpu_torch.models import NNDynamics
+
+    nn = NNDynamics.init(3, 1, hidden=hidden, residual=True, device=device,
+                         generator=torch.Generator(device=device).manual_seed(seed))
+    return nn.replace(weights=nn.weights[:-1] + (nn.weights[-1] * out_scale,))
+
+
+def stabilization_x_init(B: int, seed: int = 42) -> np.ndarray:
+    """Near-upright starts (tests/test_imitation.py:79-83)."""
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(-0.6, 0.6, B)
+    return np.stack([np.cos(th), np.sin(th), rng.uniform(-0.5, 0.5, B)], -1).astype(np.float32)
+
+
+def nn_widths(nn) -> list:
+    return [nn.n_state + nn.n_ctrl, *nn.hidden, nn.n_state]
+
+
+def nn_step_ops(nn, tangents: int = 0) -> int:
+    """Floating-point operations of one MLP step (nn_mlp.cuh) on a scalar
+    carrying ``tangents`` dual parts: per weight a multiply and an add on
+    the value and on each tangent, a bias add, per hidden unit an
+    activation (one, and one multiply per tangent), the residual add."""
+    w = nn_widths(nn)
+    macs = sum(a * b for a, b in zip(w[:-1], w[1:]))
+    units = sum(w[1:-1])
+    return 2 * (1 + tangents) * macs + sum(w[1:]) + (1 + tangents) * units + nn.n_state
+
+
+def nn_step_depth(nn) -> int:
+    """Dependent operations of one MLP step: each unit sums its inputs in
+    order and adds its bias, each hidden layer's activation counts one, the
+    residual add one."""
+    w = nn_widths(nn)
+    return sum(a + 1 for a in w[:-1]) + len(w) - 2 + 1
+
+
+def nn_ilqr_bound(nn, B: int, steps: int, sum_iters: float, max_iters: int, clock_mhz: float) -> dict:
+    """The fused solve's bound with the MLP step: its bytes (C's upper
+    triangle, c, the bounds per step, x_init and the weights in; xs, us and
+    the six stats out), its operations for the iterations this run took
+    (``sum_iters``, summed over the scenarios; per step: the sweep's Riccati
+    step, the Jacobian by dual numbers, the delta cost; then the ten ladder
+    rollouts and the replay), or its slowest scenario's serial chain,
+    whichever is largest."""
+    from diffmpc_tpu_torch.diagnostics.card import bound as card_bound, chain_ms
+
+    n, m, nm = 3, 1, 4
+    n_bytes = 4 * B * (steps * (tri(nm) + nm + 2 * m + n + m) + n + 6) + 4 * nn.n_params
+    roll = rollout_step_ops(n, m) - 2 * n * nm + nn_step_ops(nn)
+    per_step = riccati_step_ops(n, m, "box") + nn_step_ops(nn, tangents=nm) + 2 * nm * nm + 11 * roll
+    fwd_depth = 5 + nn_step_depth(nn)  # the control and its clip, then the step
+    depth = steps * fwd_depth + max_iters * (steps * (ILQR_BACK_DEPTH + 2 * fwd_depth) + 1)
+    return card_bound(n_bytes, sum_iters * steps * per_step, chain_ms(depth, clock_mhz))
+
+
+def nn_rollout_bound(nn, B: int, steps: int, n_alpha: int = 10) -> dict:
+    """The line search's bound with the MLP step: C's upper triangle, c, K,
+    k, x_hat, u_hat, the bounds per step, x_init and the weights in; xs, us,
+    objs, alpha, improved out; the baseline, the ladder and the replay's
+    operations."""
+    n, m, nm = 3, 1, 4
+    per_step = 4 * (tri(nm) + nm + m * n + m + n + m + 2 * m) + 4 * (n + m)
+    n_bytes = B * (steps * per_step + 4 * n + 9) + 4 * nn.n_params
+    ops = (n_alpha + 2) * steps * B * (rollout_step_ops(n, m) - 2 * n * nm + nn_step_ops(nn))
+    return bound(n_bytes, ops)
+
+
+def nn_rollout_inputs(nn, B: int, seed: int, device, steps: int):
+    """rollout_inputs' recipe with the MLP: a trajectory from random controls
+    through its forward, the box sweep's gains about its linearization, the
+    feedforward scaled by up to 8."""
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
+    from diffmpc_tpu_torch.utils.batch import bmv
+
+    prob = problem(B, device, seed=seed, steps=steps)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u_hat = (torch.rand((steps, B, 1), generator=gen, device=device) - 0.5) * 4.0
+    xs, x = [], prob["x_init"]
+    for t in range(steps):
+        xs.append(x)
+        x = nn.forward(x, u_hat[t])
+    x_hat = torch.stack(xs)
+    F, _ = linearize_dynamics(nn, x_hat, u_hat)
+    C, c, lo, hi = prob["C"], prob["c"], prob["u_lower"], prob["u_upper"]
+    res = ric.riccati_backward_cuda(C, c + bmv(C, torch.cat([x_hat, u_hat], -1)), F, None, 3,
+                                    u_lower=lo, u_upper=hi, u_hat=u_hat)
+    scale = 0.5 + 7.5 * torch.rand((1, B, 1), generator=gen, device=device)
+    return (prob["x_init"], C, c, None, None, res.K, res.k * scale, x_hat, u_hat), dict(u_lower=lo, u_upper=hi, dyn=nn)
+
+
+def learned_dynamics(device, smi: str, clock_mhz: float, background_build_seconds) -> list:
+    """Phases 22-25, the learned-dynamics path: the MLP's kernels against
+    their plain versions, the path through mpc_solve with its gradient and
+    the non-fused loop, the imitation step, and the times. Before phase 24
+    it waits for the background build (``background_build_seconds()``).
+    Returns the kernels' records for the kernels line."""
+    from diffmpc_tpu_torch import MPCConfig, QuadCost, mpc_solve
+    from diffmpc_tpu_torch.diagnostics.card import interleaved_ms
+    from diffmpc_tpu_torch.models import PendulumDx
+    from diffmpc_tpu_torch.ops.cuda import horizon
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+    from diffmpc_tpu_torch.ops.cuda import kkt
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.cuda import riccati_stream as rs
+    from diffmpc_tpu_torch.ops.cuda import rollout as rol
+    from diffmpc_tpu_torch.ops.cuda import rollout_stream as ros
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
+    from diffmpc_tpu_torch.ops.lqr_step import LqrSpec, lqr_fixed_point
+    from diffmpc_tpu_torch.parallel import generate_expert_data, init_train_state, make_dp_train_step
+
+    named = dict(ilqr=il.ilqr_solve_fused, kkt=kkt.kkt_backward_fused, riccati=ric.riccati_backward_cuda,
+                 rollout=rol.linesearch_rollout_cuda, riccati_stream=rs.riccati_backward_stream_cuda,
+                 rollout_stream=ros.linesearch_rollout_stream_cuda)
+
+    def reset_counts():
+        for kern in named.values():
+            kern.launches = 0
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return {name: kern.launches for name, kern in named.items()}
+
+    def only(**want) -> dict:
+        return {name: want.get(name, 0) for name in named}
+
+    nn = nn_model(device)
+    pend = PendulumDx.default(device=device)
+    q, p = pend.get_true_obj()
+    cost = QuadCost(torch.diag(q), p)
+    cost_cpu = QuadCost(cost.C.cpu(), cost.c.cpu())
+
+    # ---- 22. the MLP's kernels against their plain versions ----
+    t0 = time.perf_counter()
+    two = dict(lqr_iter=2, eps=EPS)
+    nn_err, nn_plain_s = {}, {}
+    for B in (B_MAIN, B_RAGGED):
+        prob = dict(problem(B, device, steps=NN_T), dyn=nn)
+        t1 = time.perf_counter()
+        plain = il.ilqr_solve_plain(**prob, **two)
+        torch.cuda.synchronize()
+        nn_plain_s[B] = time.perf_counter() - t1
+        exact = il.ilqr_solve_plain(**{k: v.double() if torch.is_tensor(v) else v.to(torch.float64)
+                                       for k, v in prob.items()}, **two)
+        kern = {h: il.ilqr_solve_fused(**prob, hoist_lin=h, **two) for h in (False, True)}
+        for h, out in kern.items():
+            m = witnessed_agreement(f"NN kernel vs plain, B={B} hoist_lin={h}", out, plain, exact)
+            emit(phase="nn_kernel_vs_plain", B=B, T=NN_T, hidden=list(NN_HIDDEN), hoist_lin=h, **two, **m,
+                 plain_seconds=nn_plain_s[B])
+            nn_err[(B, h)] = m["us_max_abs"]
+        differ = torch.zeros(B, dtype=torch.bool, device=device)
+        for f in ("xs", "us"):
+            differ |= (getattr(kern[True], f) != getattr(kern[False], f)).flatten(2).any(-1).any(0)
+        for f in ("objs", "alpha", "n_iters"):
+            differ |= getattr(kern[True], f) != getattr(kern[False], f)
+        emit(phase="nn_hoist_lin_vs_in_sweep", B=B, scenarios_not_bit_equal=int(differ.sum()),
+             us_max_abs=float((kern[True].us - kern[False].us).abs().max()))
+    nn_rol_err = {}
+    args, kw = nn_rollout_inputs(nn, B_MAIN, 2200 + NN_T, device, NN_T)
+    agreement = line_search_agreement("NN rollout kernel vs plain", rol.linesearch_rollout_cuda(*args, **kw),
+                                      rol.linesearch_rollout_plain(*args, **kw))
+    emit(phase="nn_rollout_vs_plain", kernel="rollout", B=B_MAIN, T=NN_T, **agreement)
+    nn_rol_err["rollout"] = agreement["traj_max_abs_where_alpha_agrees"]
+    # the twin at T=128, the MLP's last layer scaled by 0.1 so that its
+    # increments stay small over the long horizon. Over 128 steps the
+    # kernels' contracted multiply-adds and the plain version's separate
+    # roundings part the trajectories by ~1e-4 (phase 15's pendulum reads
+    # the same): the twin is held to the resident kernel (the same device
+    # arithmetic), its alpha and objectives to the plain version's, its
+    # trajectory reported.
+    args, kw = nn_rollout_inputs(nn_model(device, out_scale=0.1), B_MAIN, 2200 + NN_T_LONG, device, NN_T_LONG)
+    twin, plain = ros.linesearch_rollout_stream_cuda(*args, **kw), rol.linesearch_rollout_plain(*args, **kw)
+    vs_plain = line_search_agreement("NN rollout twin vs plain", twin, plain, hold=False)
+    vs_resident = line_search_agreement("NN rollout twin vs resident", twin, rol.linesearch_rollout_cuda(*args, **kw))
+    emit(phase="nn_rollout_vs_plain", kernel="rollout_stream", B=B_MAIN, T=NN_T_LONG, **vs_plain,
+         vs_resident=vs_resident)
+    if vs_plain["objs_max_rel"] > 1e-5 or vs_plain["alpha_equal_frac"] < 0.99:
+        raise AssertionError(f"NN rollout twin vs plain: {vs_plain}")
+    nn_rol_err["rollout_stream"] = vs_plain["traj_max_abs_where_alpha_agrees"]
+    emit(phase="nn_phase_22_seconds", seconds=time.perf_counter() - t0)
+
+    # ---- 23. the learned-dynamics path through mpc_solve ----
+    t0 = time.perf_counter()
+    config = MPCConfig(n_state=3, n_ctrl=1, T=NN_T, lqr_iter=NN_ITER, eps=EPS, exit_unconverged=False,
+                       detach_unconverged=False)
+    x = torch.tensor(x_init(B_MAIN, seed=7), device=device)
+    path_launches = {}
+
+    def solve(cfg, model, dev=device, xi=x):
+        return mpc_solve(cfg, xi.to(dev), cost if dev == device else cost_cpu, model, u_lower=-2.0, u_upper=2.0)
+
+    with torch.no_grad():
+        for label, cfg in (("fused", config), ("fused_hoist_lin", dataclasses.replace(config, hoist_lin=True))):
+            reset_counts()
+            sol = solve(cfg, nn)
+            path_launches[label] = counts()
+            if path_launches[label] != only(ilqr=1):
+                raise AssertionError(f"NN mpc_solve ({label}) launched {path_launches[label]}")
+            if label == "fused":
+                sol_fused = sol
+        cpu = solve(config, nn.to(device="cpu"), dev="cpu")
+    conv = (float(sol_fused.info.converged.float().mean()), float(cpu.info.converged.float().mean()))
+    objm = (float(sol_fused.objs.mean()), float(cpu.objs.mean()))
+    hoist_equal = bool(torch.equal(sol.us, sol_fused.us) and torch.equal(sol.objs, sol_fused.objs))
+    emit(phase="nn_main_path", B=B_MAIN, T=NN_T, lqr_iter=NN_ITER, launches=path_launches["fused"],
+         hoist_lin_launches=path_launches["fused_hoist_lin"], converged_frac=conv[0], cpu_converged_frac=conv[1],
+         mean_obj=objm[0], cpu_mean_obj=objm[1], max_n_iters=int(sol_fused.info.n_iters),
+         hoist_lin_bit_equal=hoist_equal)
+    if not bool(torch.isfinite(sol_fused.objs).all()) or abs(conv[0] - conv[1]) > 0.05 \
+            or abs(objm[0] - objm[1]) > 1e-2 * abs(objm[1]):
+        raise AssertionError(f"NN mpc_solve, card vs CPU: converged {conv}, mean obj {objm}")
+
+    # the gradient of mean(us**2) with respect to every weight and bias,
+    # against the same gradient at the card's fixed point on the CPU
+    leaves = [a.clone().requires_grad_(True) for a in nn.weights + nn.biases]
+    k = len(nn.weights)
+
+    def with_leaves(ls):
+        return nn.replace(weights=tuple(ls[:k]), biases=tuple(ls[k:]))
+
+    reset_counts()
+    gsol = solve(config, with_leaves(leaves))
+    g_card = torch.autograd.grad((gsol.us**2).mean(), leaves)
+    grad_launches = counts()
+    if grad_launches != only(ilqr=1, kkt=1):
+        raise AssertionError(f"NN solve + gradient launched {grad_launches}")
+    cpu_leaves = [a.detach().cpu().requires_grad_(True) for a in leaves]
+    xs, us = gsol.xs.detach().cpu(), gsol.us.detach().cpu()
+    F, f = linearize_dynamics(with_leaves(cpu_leaves), xs, us)
+    spec = LqrSpec(n_state=3, constrained=True, tight_eps=config.tight_eps, back_eps=config.back_eps, use_cuda=False)
+    C, c = cost_cpu.C.expand(NN_T, B_MAIN, 4, 4), cost_cpu.c.expand(NN_T, B_MAIN, 4)
+    _, us2 = lqr_fixed_point(spec, x.cpu(), C, c, F, f, xs, us, torch.full_like(us, -2.0), torch.full_like(us, 2.0))
+    g_cpu = torch.autograd.grad((us2**2).mean(), cpu_leaves)
+    g_rel = [float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(g_card, g_cpu)]
+    emit(phase="nn_gradient", B=B_MAIN, T=NN_T, lqr_iter=NN_ITER, launches=grad_launches,
+         rel_err_vs_cpu_at_the_fixed_point=g_rel, grad_max_abs=[float(g.abs().max()) for g in g_card])
+    if not all(bool(torch.isfinite(g).all()) for g in g_card) or max(g_rel) > 1e-3:
+        raise AssertionError(f"NN weight gradients, card vs CPU: {g_rel}")
+
+    # an MLP too large for the kernels: the non-fused loop, the ladder in
+    # PyTorch; B=256 keeps the CPU's side short
+    big = nn_model(device, seed=3, hidden=(64, 64))
+    xb = x[:256]
+    with torch.no_grad():
+        reset_counts()
+        bsol = solve(config, big, xi=xb)
+        big_launches = counts()
+        bcpu = solve(config, big.to(device="cpu"), dev="cpu", xi=xb)
+    it = int(bsol.info.n_iters)
+    bconv = (float(bsol.info.converged.float().mean()), float(bcpu.info.converged.float().mean()))
+    bobj = (float(bsol.objs.mean()), float(bcpu.objs.mean()))
+    emit(phase="nn_non_fused", hidden=[64, 64], B=256, T=NN_T, kernel_fusable=big.kernel_fusable, n_iters=it,
+         launches=big_launches, converged_frac=bconv[0], cpu_converged_frac=bconv[1], mean_obj=bobj[0],
+         cpu_mean_obj=bobj[1])
+    if big.kernel_fusable or big_launches != only(riccati=it) or abs(bconv[0] - bconv[1]) > 0.05 \
+            or abs(bobj[0] - bobj[1]) > 1e-2 * abs(bobj[1]):
+        raise AssertionError(f"the (64, 64) MLP through the non-fused loop: {big_launches}, {bconv}, {bobj}")
+
+    # the fusable MLP with verbose=1: the non-fused loop through the rollout
+    # kernel's MLP step (T=15), and at T=128 through the rollout twin's (the
+    # JAX dispatch keeps the resident Riccati sweep there up to T=146)
+    verbose_launches = {}
+    for label, steps, model, iters in (("resident", NN_T, nn, NN_ITER),
+                                       ("twins", NN_T_LONG, nn_model(device, out_scale=0.1), 4)):
+        vcfg = dataclasses.replace(config, T=steps, lqr_iter=iters, verbose=1)
+        printed = io.StringIO()
+        with torch.no_grad(), contextlib.redirect_stdout(printed):
+            reset_counts()
+            vsol = solve(vcfg, model)
+            got = counts()
+        it = int(vsol.info.n_iters)
+        want = only(**{"riccati_stream" if horizon.streams_riccati(steps, 3, 1) else "riccati": it,
+                       "rollout_stream" if horizon.streams_rollout(steps, 3, 1) else "rollout": it})
+        verbose_launches[label] = got
+        record = dict(T=steps, lqr_iter=iters, n_iters=it, launches=got, printed_lines=len(printed.getvalue().splitlines()),
+                      converged_frac=float(vsol.info.converged.float().mean()), mean_obj=float(vsol.objs.mean()))
+        if label == "resident":
+            record.update(fused_converged_frac=conv[0], fused_mean_obj=objm[0])
+        emit(phase="nn_verbose", path=label, B=B_MAIN, **record)
+        if got != want or record["printed_lines"] != it or not bool(torch.isfinite(vsol.objs).all()):
+            raise AssertionError(f"NN verbose=1 ({label}): {record}")
+        if label == "resident" and (abs(record["converged_frac"] - conv[0]) > 0.05
+                                    or abs(record["mean_obj"] - objm[0]) > 1e-2 * abs(objm[0])):
+            raise AssertionError(f"NN verbose=1 against the fused solve: {record}")
+    emit(phase="nn_phase_23_seconds", seconds=time.perf_counter() - t0)
+
+    emit(phase="one_command_build", one_nvcc_command_seconds=background_build_seconds())
+
+    # ---- 24. 40 imitation-learning steps of the MLP ----
+    t0 = time.perf_counter()
+    xs_stab = torch.tensor(stabilization_x_init(B_MAIN), device=device)
+    _, u_expert, _ = generate_expert_data(config, cost, pend, xs_stab, -2.0, 2.0)
+    nn0 = nn_model(device, seed=1)
+    adam = functools.partial(torch.optim.Adam, lr=3e-3)
+    step = make_dp_train_step(
+        config, lambda prm: (cost, nn0.replace(weights=tuple(prm["w"]), biases=tuple(prm["b"]))), adam, None,
+        -2.0, 2.0,
+    )
+    state = init_train_state({"w": nn0.weights, "b": nn0.biases}, adam)
+    losses, gnorms = [], []
+    reset_counts()
+    t1 = time.perf_counter()
+    for _ in range(40):
+        state, stats = step(state, xs_stab, u_expert)
+        losses.append(float(stats.loss))
+        gnorms.append(float(stats.grad_norm))
+    torch.cuda.synchronize()
+    il_ms = (time.perf_counter() - t1) / 40 * 1e3
+    il_launches = counts()
+    emit(phase="nn_train", B=B_MAIN, T=NN_T, lqr_iter=NN_ITER, steps=40, losses={i: losses[i] for i in (0, 10, 20, 39)},
+         grad_norm={i: gnorms[i] for i in (0, 39)}, converged_frac=float(stats.converged_frac), ms_per_step=il_ms,
+         launches=il_launches, card=smi, seconds=time.perf_counter() - t0)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or not max(gnorms) > 0:
+        raise AssertionError(f"NN training: losses {losses[::10]}, grad norms {gnorms[::10]}")
+    if il_launches != only(ilqr=40, kkt=40):
+        raise AssertionError(f"40 NN steps launched {il_launches}")
+
+    # ---- 25. time ----
+    t0 = time.perf_counter()
+    env = il.kernel_env(nn)
+    knobs = dict(lqr_iter=NN_ITER, eps=EPS)
+    nn_times = {}
+    for B, rounds, loops in ((B_MAIN, 5, 5), (B_ENSEMBLE, 4, 2)):
+        prob = problem(B, device, steps=NN_T)
+        args = (prob["x_init"], prob["C"], prob["c"], nn, prob["u_lower"], prob["u_upper"])
+        stagers = {
+            label: (il._cuda_launcher(device, env, h),
+                    lambda launch, h=h: il.run_staged(launch, *args, hoist_lin=h, **knobs))
+            for label, h in (("in_sweep", False), ("hoist_lin", True))
+        }
+        ms = interleaved_ms(stagers, rounds, loops)
+        res = il.ilqr_solve_fused(*args, **knobs)
+        nb = nn_ilqr_bound(nn, B, NN_T, float(res.n_iters.sum()), int(res.n_iters.max()), clock_mhz)
+        xb_ = args[0]
+        prm = [a.clone().requires_grad_(True) for a in nn.weights + nn.biases]
+        model = with_leaves(prm)
+
+        def fwd():
+            with torch.no_grad():
+                solve(config, model, xi=xb_)
+
+        def fwd_grad():
+            torch.autograd.grad((solve(config, model, xi=xb_).us ** 2).mean(), prm)
+
+        t_f = t_g = float("inf")
+        for _ in range(3):  # strict alternation, best of each
+            t_f = min(t_f, cuda_ms(fwd, loops, 1))
+            t_g = min(t_g, cuda_ms(fwd_grad, loops, 1))
+        nn_times[B] = (ms, nb)
+        emit(phase="time_nn", B=B, T=NN_T, lqr_iter=NN_ITER, hidden=list(NN_HIDDEN), card=smi,
+             kernel_ms=ms, hoist_lin_over_in_sweep=ms["hoist_lin"] / ms["in_sweep"],
+             kernel_solves_per_s=B / ms["in_sweep"] * 1e3, bound=nb, max_n_iters=int(res.n_iters.max()),
+             mpc_solve_ms=t_f, mpc_solve_per_s=B / t_f * 1e3, solve_plus_grad_ms=t_g,
+             solve_plus_grad_per_s=B / t_g * 1e3)
+        del args, res
+        torch.cuda.empty_cache()
+    prob = dict(problem(B_MAIN, device, steps=NN_T), dyn=nn)
+    nn_plain_ms = cuda_ms(lambda: il.ilqr_solve_plain(**prob, **knobs), 1, 1)
+    rol_times = {}
+    for name, steps, launcher, model in (("rollout", NN_T, rol._cuda_launcher, nn),
+                                         ("rollout_stream", NN_T_LONG, ros._stream_launcher,
+                                          nn_model(device, out_scale=0.1))):
+        args, kw = nn_rollout_inputs(model, B_MAIN, 2500 + steps, device, steps)
+        out = {}
+        rol.run_staged_rollout(timed_launch(launcher(device, 3, 1, model), 20, out), *args, **kw)
+        plain_ms = cuda_ms(lambda: rol.linesearch_rollout_plain(*args, **kw), 1, 1)
+        rol_times[name] = (out["ms"], plain_ms, nn_rollout_bound(model, B_MAIN, steps))
+        emit(phase="time_nn_rollout", kernel=name, B=B_MAIN, T=steps, card=smi, kernel_ms=out["ms"],
+             plain_ms=plain_ms, bound=rol_times[name][2])
+    emit(phase="nn_phase_25_seconds", seconds=time.perf_counter() - t0, nn_plain_ms=nn_plain_ms)
+
+    source = "diffmpc_tpu_torch/csrc/"
+    ms, nb = nn_times[B_MAIN]
+    keep = ("bound_ms", "bound_by")
+    return [
+        dict(name="ilqr_solve_fused[NNDynamics 3-16-16-3]", route="cuda", source=source + "ilqr_nn.cu",
+             replaces="diffmpc_tpu/ops/pallas/ilqr.py:458", launches=path_launches["fused"]["ilqr"],
+             max_abs_err=nn_err[(B_MAIN, False)], ms=ms["in_sweep"], plain_ms=nn_plain_ms,
+             **{k: nb[k] for k in keep}, library_ms=None),
+        dict(name="ilqr_solve_fused[NNDynamics 3-16-16-3, hoist_lin]", route="cuda", source=source + "ilqr_nn.cu",
+             replaces="diffmpc_tpu/ops/pallas/ilqr.py:234", launches=path_launches["fused_hoist_lin"]["ilqr"],
+             max_abs_err=nn_err[(B_MAIN, True)], ms=ms["hoist_lin"], plain_ms=nn_plain_ms,
+             **{k: nb[k] for k in keep}, library_ms=None),
+        dict(name="linesearch_rollout_pallas[NNDynamics 3-16-16-3]", route="cuda", source=source + "rollout.cu",
+             replaces="diffmpc_tpu/ops/pallas/rollout.py:180", launches=verbose_launches["resident"]["rollout"],
+             max_abs_err=nn_rol_err["rollout"], ms=rol_times["rollout"][0], plain_ms=rol_times["rollout"][1],
+             **{k: rol_times["rollout"][2][k] for k in keep}, library_ms=None),
+        dict(name="linesearch_rollout_pallas_stream[NNDynamics 3-16-16-3]", route="cuda",
+             source=source + "rollout_stream.cu", replaces="diffmpc_tpu/ops/pallas/rollout_stream.py:196",
+             launches=verbose_launches["twins"]["rollout_stream"], max_abs_err=nn_rol_err["rollout_stream"],
+             ms=rol_times["rollout_stream"][0], plain_ms=rol_times["rollout_stream"][1],
+             **{k: rol_times["rollout_stream"][2][k] for k in keep}, library_ms=None),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA device", file=sys.stderr)
         return 1
-    from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.csrc import build
-    from diffmpc_tpu_torch.models import PendulumDx
-    from diffmpc_tpu_torch.ops.cuda import riccati as ric
-    from diffmpc_tpu_torch.ops.cuda import rollout as rol
-    from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain
-    from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain
-    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
-    from diffmpc_tpu_torch.ops.lqr import lqr_rollout
-    from diffmpc_tpu_torch.ops.lqr_step import kkt_backward_composite
-    from diffmpc_tpu_torch.utils.batch import bmv
-    from diffmpc_tpu_torch.parallel import generate_expert_data, init_train_state, make_dp_train_step
 
     # ---- 0. device ----
     smi = subprocess.run(
@@ -1191,19 +1646,58 @@ def main() -> int:
     so, log = build.build()
     build.load()
     build_s = time.perf_counter() - t0
-    # the same sources by one nvcc command, which compiles them one after
-    # another: the set-up time the parallel build saves
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", build.CSRC,
-                        "-o", os.path.join(tmp, "one_command.so"), *build.sources()],
-                       check=True, capture_output=True, timeout=900)
-        one_command_s = time.perf_counter() - t0
     emit(
-        phase="build", seconds=build_s, one_nvcc_command_seconds=one_command_s,
-        library=os.path.relpath(so), fresh=bool(log),
-        ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
+        phase="build", seconds=build_s, library=os.path.relpath(so), fresh=bool(log), ptxas=ptxas_report(log),
     )
+    return run_phases(device, kind, smi, clock_mhz)
+
+
+class OneCommandBuild:
+    """One nvcc command over every source, started now in the background;
+    :meth:`seconds` waits for it and gives its wall time, :meth:`stop` ends
+    it if it still runs."""
+
+    def __init__(self, build, tmp: str):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", build.CSRC,
+             "-o", os.path.join(tmp, "one_command.so"), *build.sources()],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        )
+        self.t1 = None
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+
+    def _wait(self) -> None:
+        self.proc.wait()
+        self.t1 = time.perf_counter()
+
+    def seconds(self) -> float:
+        self.waiter.join(timeout=900)
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"the one-command nvcc build failed: exit {self.proc.returncode}")
+        return self.t1 - self.t0
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
+    """Phases 2-25, then the kernels line and the ok line."""
+    from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
+    from diffmpc_tpu_torch.csrc import build
+    from diffmpc_tpu_torch.models import PendulumDx
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.cuda import rollout as rol
+    from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain
+    from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
+    from diffmpc_tpu_torch.ops.lqr import lqr_rollout
+    from diffmpc_tpu_torch.ops.lqr_step import kkt_backward_composite
+    from diffmpc_tpu_torch.utils.batch import bmv
+    from diffmpc_tpu_torch.parallel import generate_expert_data, init_train_state, make_dp_train_step
 
     # ---- 2. kernel vs plain on the card ----
     knobs = dict(lqr_iter=LQR_ITER, eps=EPS)
@@ -1601,6 +2095,16 @@ def main() -> int:
 
     twins = long_horizon(device, smi)
     chain = riccati_chain(device, smi, times[B_MAIN][0] / int(results[B_MAIN][0].n_iters.max()))
+    # the same sources by one nvcc command, which compiles them one after
+    # another: the set-up time the parallel build saves. It runs in the
+    # background during phases 22-23, which time nothing (it slows the
+    # host-bound solves by half), and is read before phase 24.
+    with tempfile.TemporaryDirectory() as tmp:
+        one_command = OneCommandBuild(build, tmp)
+        try:
+            learned = learned_dynamics(device, smi, clock_mhz, one_command.seconds)
+        finally:
+            one_command.stop()
 
     print(smi, flush=True)
     emit(kernels=[
@@ -1654,6 +2158,7 @@ def main() -> int:
         ),
         *twins,
         *chain,
+        *learned,
     ])
     emit(ok=True, device=dict(platform="gpu", kind=kind, count=torch.cuda.device_count()))
     return 0

@@ -1,7 +1,8 @@
 """Carry the JAX package's state over to the port, through numpy arrays.
 
-The functions take the JAX package's objects (``PendulumDx``, ``QuadCost``,
-``LinDx``, ``MPCConfig``) and read only their fields, so this module imports neither
+The functions take the JAX package's objects (``PendulumDx``,
+``NNDynamics``, ``AffineDynamics``, ``QuadCost``, ``LinDx``, ``MPCConfig``)
+and read only their fields, so this module imports neither
 JAX nor the JAX package: ``np.asarray`` copies a JAX array to the host.
 Both packages then compute the same problem.
 """
@@ -13,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models.dynamics import AffineDynamics, NNDynamics
 from .models.envs.pendulum import PendulumDx
 from .types import GradMethods, LinDx, MPCConfig, QuadCost
 
@@ -37,6 +39,25 @@ def pendulum_from_jax(dx, dtype=None, device="cuda") -> PendulumDx:
     )
 
 
+def nn_dynamics_from_jax(dx, dtype=None, device="cuda") -> NNDynamics:
+    """The port's ``NNDynamics`` with the JAX model's weights, biases,
+    activation and residual flag, on the card unless ``device`` says
+    otherwise."""
+    return NNDynamics(
+        tuple(to_tensor(w, dtype, device) for w in dx.weights),
+        tuple(to_tensor(b, dtype, device) for b in dx.biases),
+        activation=dx.activation,
+        residual=bool(dx.residual),
+    )
+
+
+def affine_dynamics_from_jax(dx, dtype=None, device="cuda") -> AffineDynamics:
+    """The port's ``AffineDynamics`` with the JAX one's ``A``, ``B`` and
+    ``c`` (None stays None), on the card unless ``device`` says otherwise."""
+    c = None if dx.c is None else to_tensor(dx.c, dtype, device)
+    return AffineDynamics(to_tensor(dx.A, dtype, device), to_tensor(dx.B, dtype, device), c)
+
+
 def quad_cost_from_jax(cost, dtype=None, device="cuda") -> QuadCost:
     """The port's ``QuadCost`` with the JAX one's ``C`` and ``c``, on the card
     unless ``device`` says otherwise."""
@@ -55,10 +76,11 @@ def mpc_config_from_jax(config) -> MPCConfig:
     ``use_cuda``: the TPU kernel (``True``) maps to the CUDA kernel, the
     non-kernel path (``False``) to the plain version, and auto (``None``)
     or the kernel in interpret mode, which runs it on the CPU, to ``None``:
-    the kernel for CUDA tensors and the plain version for CPU tensors."""
+    the kernel for CUDA tensors and the plain version for CPU tensors.
+    ``hoist_lin`` stays False: the JAX package reads it from an env knob."""
     kw = {}
     for f in dataclasses.fields(MPCConfig):
-        if f.name == "use_cuda":
+        if f.name in ("use_cuda", "hoist_lin"):
             continue
         value = getattr(config, f.name)
         if f.name == "grad_method":

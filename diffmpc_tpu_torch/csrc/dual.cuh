@@ -132,6 +132,65 @@ DMPC_HD Dual<float, K> dmpc_rsqrt(const Dual<float, K>& a) {
   return r;
 }
 
+// ---- activations of the MLP step (nn_mlp.cuh), one overload for float and
+// one for Dual. The formulas are the plain version's
+// (diffmpc_tpu_torch/models/dynamics.py, ACTIVATIONS) and their tangents
+// PyTorch's forward-mode rules for them. ----
+
+DMPC_HD float dmpc_relu(float x) { return x < 0.0f ? 0.0f : x; }  // NaN passes
+DMPC_HD float dmpc_tanh(float x) { return tanhf(x); }
+DMPC_HD float dmpc_sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+DMPC_HD float dmpc_elu(float x) { return x > 0.0f ? x : expm1f(x); }
+// softplus as jax.nn.softplus: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))
+DMPC_HD float dmpc_softplus(float x) { return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x))); }
+
+template <int K>
+DMPC_HD Dual<float, K> dmpc_relu(const Dual<float, K>& a) {
+  Dual<float, K> r(dmpc_relu(a.v));
+  if (a.v > 0.0f)  // the derivative at 0 is 0, as in both packages
+    for (int i = 0; i < K; ++i) r.d[i] = a.d[i];
+  return r;
+}
+template <int K>
+DMPC_HD Dual<float, K> dmpc_tanh(const Dual<float, K>& a) {
+  const float y = tanhf(a.v);
+  Dual<float, K> r(y);
+  const float s = 1.0f - y * y;
+  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] * s;
+  return r;
+}
+template <int K>
+DMPC_HD Dual<float, K> dmpc_sigmoid(const Dual<float, K>& a) {
+  const float y = dmpc_sigmoid(a.v);
+  Dual<float, K> r(y);
+  const float s = (1.0f - y) * y;
+  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] * s;
+  return r;
+}
+template <int K>
+DMPC_HD Dual<float, K> dmpc_elu(const Dual<float, K>& a) {
+  if (a.v > 0.0f) return a;
+  const float y = expm1f(a.v);
+  Dual<float, K> r(y);
+  const float s = y + 1.0f;  // d expm1 = exp
+  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] * s;
+  return r;
+}
+template <int K>
+DMPC_HD Dual<float, K> dmpc_softplus(const Dual<float, K>& a) {
+  Dual<float, K> r(dmpc_softplus(a.v));
+  const float s = dmpc_sigmoid(a.v);
+  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] * s;
+  return r;
+}
+// gelu in jax.nn.gelu's default tanh form, on any scalar type:
+// x * 0.5 (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3)))
+template <class S>
+DMPC_HD S dmpc_gelu(const S& x) {
+  const S inner = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
+  return x * (0.5f * (1.0f + dmpc_tanh(inner)));
+}
+
 // Boundary-strict clamp of env dynamics (utils/batch.py bclamp): the values
 // of a clip, with the tangent passed through when lo <= x <= hi INCLUSIVE.
 // Box-DDP puts saturated controls exactly on the bound, where a clip's

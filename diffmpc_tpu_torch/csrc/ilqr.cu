@@ -24,31 +24,15 @@
 // --use_fast_math (the step's sinf/cosf/sqrtf must stay accurate), and
 // bound through the plain-C launcher below with ctypes.
 
-#include <cuda_runtime.h>
-
-#include "ilqr.cuh"
+#include "ilqr_launch.cuh"
 #include "pendulum.cuh"
 
-namespace {
-
-constexpr int kThreads = 128;
-
-template <class Env>
-__global__ void __launch_bounds__(kThreads) ilqr_kernel(IlqrArgs a, Env env) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  ilqr_solve_scenario<Env::N, Env::M>(a, env, b);
+// Launch the pendulum solve on `stream`, without and with the HoistLin
+// pre-pass; each returns cudaGetLastError(). The MLPs' launchers are in
+// ilqr_nn.cu.
+extern "C" int diffmpc_ilqr_solve_pendulum(const IlqrArgs* args, const PendulumEnv* env, void* stream) {
+  return ilqr_launch<PendulumEnv, false>(args, env, stream);
 }
-
-}  // namespace
-
-// Launch the pendulum solve on `stream`; returns cudaGetLastError().
-extern "C" int diffmpc_ilqr_solve_pendulum(const IlqrArgs* args, const PendulumEnv* env,
-                                           void* stream) {
-  const int blocks = (args->B + kThreads - 1) / kThreads;
-  if (blocks > 0) {
-    ilqr_kernel<PendulumEnv>
-        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args, *env);
-  }
-  return static_cast<int>(cudaGetLastError());
+extern "C" int diffmpc_ilqr_solve_pendulum_hoist(const IlqrArgs* args, const PendulumEnv* env, void* stream) {
+  return ilqr_launch<PendulumEnv, true>(args, env, stream);
 }

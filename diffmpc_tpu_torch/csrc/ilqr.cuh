@@ -10,6 +10,13 @@
 // Layout: every per-step array is batch-minor, (T, entries..., B), so that
 // neighbouring threads touch neighbouring addresses. The value carry
 // (V, v) and the per-step Q, q, W live in registers.
+//
+// HoistLin (the TPU kernel's hoist_lin=True, pre_body at ilqr.py:234-249):
+// before each sweep a loop over t linearizes every step and forms its delta
+// cost into the scratch F_s, cd_s; the sweep then reads them, so the
+// Jacobian leaves the value carry's chain of dependences. The same
+// operations on the same values: with the flag off the program is the one
+// without the pre-pass.
 #pragma once
 
 #include "dual.cuh"
@@ -53,6 +60,9 @@ struct IlqrArgs {
   float delta_u;
   float eps;
   float best_cost_eps;
+  // scratch of the HoistLin pre-pass, null without it
+  float* F_s;   // (T, N, NM, B) the steps' Jacobians
+  float* cd_s;  // (T, NM, B) their delta costs c + C tau_hat
 };
 
 namespace ilqr_detail {
@@ -108,12 +118,51 @@ DMPC_HD float rollout_obj(const IlqrArgs& a, const Env& env, const float* p, int
   return obj;
 }
 
-// Delta-form Riccati sweep over t = T-1..0 about (x_hat, u_hat): writes the
-// gains K, k and returns the summed box-QP solve count.
+// Step t's Jacobian Ft[k][j] = d x_next[k] / d tau[j] at (x_hat, u_hat), by
+// one pass of the step on dual numbers (column j of [A B] is the tangent of
+// seed e_j), and its delta-form linear cost cd = c + C tau_hat. Neither
+// reads the value carry.
 template <int N, int M, class Env>
+DMPC_HD void linearize_at(const IlqrArgs& a, const Env& env, const float* p, int b, int t,
+                          float (&Ft)[N][N + M], float (&cd)[N + M]) {
+  constexpr int NM = N + M;
+  const int B = a.B;
+  Dual<float, NM> xd[N], ud[M], outd[N];
+  float tau[NM];
+  for (int i = 0; i < N; ++i) {
+    tau[i] = a.x_hat[at(t, i, N, B, b)];
+    xd[i] = Dual<float, NM>::seed(tau[i], i);
+  }
+  for (int i = 0; i < M; ++i) {
+    tau[N + i] = a.u_hat[at(t, i, M, B, b)];
+    ud[i] = Dual<float, NM>::seed(tau[N + i], N + i);
+  }
+  env.step(p, xd, ud, outd);
+  for (int k = 0; k < N; ++k)
+    for (int j = 0; j < NM; ++j) Ft[k][j] = outd[k].d[j];
+  for (int i = 0; i < NM; ++i) {
+    float s2 = 0.0f;
+    for (int j = 0; j < NM; ++j) s2 += a.C[at(t, i * NM + j, NM * NM, B, b)] * tau[j];
+    cd[i] = a.c[at(t, i, NM, B, b)] + s2;
+  }
+}
+
+// Delta-form Riccati sweep over t = T-1..0 about (x_hat, u_hat): writes the
+// gains K, k and returns the summed box-QP solve count. With HoistLin, a
+// pre-pass first writes every step's Ft, cd to F_s, cd_s.
+template <int N, int M, bool HoistLin, class Env>
 DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, int b) {
   constexpr int NM = N + M;
   const int B = a.B;
+  if constexpr (HoistLin) {
+    for (int t = 0; t < a.T; ++t) {  // independent iterations
+      float Ft[N][NM], cd[NM];
+      linearize_at<N, M>(a, env, p, b, t, Ft, cd);
+      for (int k = 0; k < N; ++k)
+        for (int j = 0; j < NM; ++j) a.F_s[at(t, k * NM + j, N * NM, B, b)] = Ft[k][j];
+      for (int i = 0; i < NM; ++i) a.cd_s[at(t, i, NM, B, b)] = cd[i];
+    }
+  }
   float V[N][N], v[N];
   for (int i = 0; i < N; ++i) {
     v[i] = 0.0f;
@@ -122,47 +171,36 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
   float qp_sum = 0.0f;
   for (int s = 0; s < a.T; ++s) {
     const int t = a.T - 1 - s;
-    // linearize the step: column j of [A B] is the tangent of seed e_j
-    Dual<float, NM> xd[N], ud[M], outd[N];
-    float tau[NM], uh[M];
-    for (int i = 0; i < N; ++i) {
-      tau[i] = a.x_hat[at(t, i, N, B, b)];
-      xd[i] = Dual<float, NM>::seed(tau[i], i);
+    float Ft[N][NM], cd[NM], Ct[NM][NM], uh[M];
+    if constexpr (HoistLin) {
+      for (int k = 0; k < N; ++k)
+        for (int j = 0; j < NM; ++j) Ft[k][j] = a.F_s[at(t, k * NM + j, N * NM, B, b)];
+      for (int i = 0; i < NM; ++i) cd[i] = a.cd_s[at(t, i, NM, B, b)];
+    } else {
+      linearize_at<N, M>(a, env, p, b, t, Ft, cd);
     }
-    for (int i = 0; i < M; ++i) {
-      uh[i] = a.u_hat[at(t, i, M, B, b)];
-      tau[N + i] = uh[i];
-      ud[i] = Dual<float, NM>::seed(uh[i], N + i);
-    }
-    env.step(p, xd, ud, outd);
-    float Ct[NM][NM], cd[NM];
+    for (int i = 0; i < M; ++i) uh[i] = a.u_hat[at(t, i, M, B, b)];
     for (int i = 0; i < NM; ++i)
       for (int j = 0; j < NM; ++j) Ct[i][j] = a.C[at(t, i * NM + j, NM * NM, B, b)];
-    // delta-form linear cost cd = c + C tau_hat
-    for (int i = 0; i < NM; ++i) {
-      float s2 = 0.0f;
-      for (int j = 0; j < NM; ++j) s2 += Ct[i][j] * tau[j];
-      cd[i] = a.c[at(t, i, NM, B, b)] + s2;
-    }
     // W = V F ; Q = C + F'W (upper triangle of C, mirrored) ; q = cd + F'v
     float W[N][NM];
     for (int k = 0; k < N; ++k)
       for (int j = 0; j < NM; ++j) {
         float s2 = 0.0f;
-        for (int l = 0; l < N; ++l) s2 += V[k][l] * outd[l].d[j];
+        for (int l = 0; l < N; ++l) s2 += V[k][l] * Ft[l][j];
         W[k][j] = s2;
       }
     float Q[NM][NM], q[NM];
     for (int i = 0; i < NM; ++i)
       for (int j = i; j < NM; ++j) {
         float s2 = 0.0f;
-        for (int k = 0; k < N; ++k) s2 += outd[k].d[i] * W[k][j];
+        for (int k = 0; k < N; ++k) s2 += Ft[k][i] * W[k][j];
         Q[i][j] = Ct[i][j] + s2;
         Q[j][i] = Q[i][j];
       }
     for (int i = 0; i < NM; ++i) {
       float s2 = 0.0f;
-      for (int k = 0; k < N; ++k) s2 += outd[k].d[i] * v[k];
+      for (int k = 0; k < N; ++k) s2 += Ft[k][i] * v[k];
       q[i] = cd[i] + s2;
     }
     float Quu[M][M], qu[M], lo_d[M], hi_d[M], rhs[N][M];
@@ -191,17 +229,18 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
 
 }  // namespace ilqr_detail
 
-// Solve scenario b. Early exit is per scenario: the TPU kernel skips an
-// iteration only once the whole tile is frozen (pl.when at ilqr.py:431),
-// but every update of a frozen scenario there is where(active > 0, new, old)
-// (:381-410), which leaves it unchanged, and its K, k are never read again.
-// So a thread that stops at its own convergence computes exactly the same
-// result.
-template <int N, int M, class Env>
-DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b) {
+// Solve scenario b, its env's parameters read from `params` (a.params, or a
+// block's copy of them in shared memory). Early exit is per scenario: the
+// TPU kernel skips an iteration only once the whole tile is frozen (pl.when
+// at ilqr.py:431), but every update of a frozen scenario there is
+// where(active > 0, new, old) (:381-410), which leaves it unchanged, and its
+// K, k are never read again. So a thread that stops at its own convergence
+// computes exactly the same result.
+template <int N, int M, bool HoistLin = false, class Env>
+DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const float* params) {
   using namespace ilqr_detail;
   const int T = a.T, B = a.B;
-  const float* p = a.params + (size_t)b * a.params_stride;
+  const float* p = params + (size_t)b * a.params_stride;
   float x0[N];
   for (int i = 0; i < N; ++i) x0[i] = a.x_init[(size_t)i * B + b];
 
@@ -226,7 +265,7 @@ DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b) {
   bool done = false;
 
   for (int it = 0; it < a.lqr_iter && !done; ++it) {
-    qp_iters = riccati_sweep<N, M>(a, env, p, b) / (float)T;
+    qp_iters = riccati_sweep<N, M, HoistLin>(a, env, p, b) / (float)T;
 
     // rolled alpha ladder: first improving step, else alpha_floor
     float alpha = 1.0f, chosen = a.alpha_floor;
@@ -276,4 +315,9 @@ DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b) {
   a.alpha[b] = last_alpha;
   a.n_iters[b] = n_iters;
   a.qp_iters[b] = qp_iters;
+}
+
+template <int N, int M, bool HoistLin = false, class Env>
+DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b) {
+  ilqr_solve_scenario<N, M, HoistLin>(a, env, b, a.params);
 }

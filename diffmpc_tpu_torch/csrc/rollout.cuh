@@ -15,7 +15,7 @@
 // through the dynamics and takes the first strictly improving alpha, else
 // alpha_floor = decay^(n_alpha - 1); the chosen rollout is replayed to write
 // the trajectory. The dynamics are linear (x' = F_t tau + f_t, LinearEnv) or
-// an env's own step (PendulumEnv). The per-step math (rollout_control,
+// an env's own step (PendulumEnv, NNEnv). The per-step math (rollout_control,
 // stage_cost, advance) reads its inputs through an accessor: device memory
 // here, a shared-memory slot in the streaming twin rollout_stream.cuh.
 //
@@ -169,10 +169,13 @@ DMPC_HD float rollout(const RolloutArgs& a, const Env& env, const float* p, int 
 
 }  // namespace rollout_detail
 
+// The line search for scenario b, its env's parameters read from `params`
+// (a.params, or a block's copy of them in shared memory; null for linear
+// dynamics).
 template <int N, int M, class Env>
-DMPC_HD void linesearch_rollout_scenario(const RolloutArgs& a, const Env& env, int b) {
+DMPC_HD void linesearch_rollout_scenario(const RolloutArgs& a, const Env& env, int b, const float* params) {
   using namespace rollout_detail;
-  const float* p = a.params ? a.params + (size_t)b * a.params_stride : nullptr;
+  const float* p = params ? params + (size_t)b * a.params_stride : nullptr;
   // cost of the current trajectory: the accept baseline
   float obj0 = 0.0f;
   for (int t = 0; t < a.T; ++t) {
@@ -195,4 +198,9 @@ DMPC_HD void linesearch_rollout_scenario(const RolloutArgs& a, const Env& env, i
   a.objs[b] = rollout<N, M, Env, true>(a, env, p, b, chosen);
   a.alpha[b] = chosen;
   a.improved[b] = has;
+}
+
+template <int N, int M, class Env>
+DMPC_HD void linesearch_rollout_scenario(const RolloutArgs& a, const Env& env, int b) {
+  linesearch_rollout_scenario<N, M>(a, env, b, a.params);
 }

@@ -119,12 +119,14 @@ DMPC_HD RolloutSlot<N, M, Env> rollout_stream_step(const RolloutArgs& a, int t, 
 }
 
 // The line search for scenario b; `buf` holds this thread's two slots of
-// RolloutSlice<N, M, Env>::kSize entries each, entries `stride` apart.
+// RolloutSlice<N, M, Env>::kSize entries each, entries `stride` apart. The
+// env's parameters are read from `params` (a.params, or a block's copy of
+// them in shared memory; null for linear dynamics).
 template <int N, int M, class Env>
 DMPC_HD void linesearch_rollout_stream_scenario(const RolloutArgs& a, const Env& env, int b, float* buf,
-                                                int stride) {
+                                                int stride, const float* params) {
   const int T = a.T, B = a.B;
-  const float* p = a.params ? a.params + (size_t)b * a.params_stride : nullptr;
+  const float* p = params ? params + (size_t)b * a.params_stride : nullptr;
   float x0[N];
   for (int i = 0; i < N; ++i) x0[i] = a.x_init[(size_t)i * B + b];
 
@@ -186,4 +188,10 @@ DMPC_HD void linesearch_rollout_stream_scenario(const RolloutArgs& a, const Env&
   a.objs[b] = obj;
   a.alpha[b] = chosen;
   a.improved[b] = has;
+}
+
+template <int N, int M, class Env>
+DMPC_HD void linesearch_rollout_stream_scenario(const RolloutArgs& a, const Env& env, int b, float* buf,
+                                                int stride) {
+  linesearch_rollout_stream_scenario<N, M>(a, env, b, buf, stride, a.params);
 }

@@ -1,9 +1,11 @@
-"""Diagnostics of the Riccati sweep's serial chain, on the card.
+"""Diagnostics of the port's kernels, on the card.
 
 Counterparts of the JAX package's ``scripts/ab_blocked_ilp.py`` (the
 depth-blocked sweep against the serial one) and
 ``scripts/profile_riccati_pieces.py`` (the cost of each piece of the fused
-iLQR sweep by the repeat-slope method). Each module has a function that
-returns its records and a ``python -m`` entry that prints them, one JSON
-line each; both need a CUDA device.
+iLQR sweep by the repeat-slope method), and ``ab_nn_reread`` (the MLP
+step's weights re-read each step, against a build that lets the compiler
+hold them in registers). Each module has a function that returns its
+records and a ``python -m`` entry that prints them, one JSON line each;
+each needs a CUDA device.
 """

@@ -1,8 +1,10 @@
 """What the diagnostics measure with: the card's published rates, its clock,
-and interleaved CUDA-event timing of kernels alone on staged inputs."""
+interleaved CUDA-event timing of kernels alone on staged inputs, and the
+registers and spills that ptxas reports for each kernel."""
 
 from __future__ import annotations
 
+import re
 import subprocess
 
 import torch
@@ -43,6 +45,25 @@ def bound(n_bytes: float, n_ops: float, chain: float = 0.0) -> dict:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOPS_PER_S * 1e3
     out = dict(bytes_ms=t_bytes, ops_ms=t_ops, chain_ms=chain)
     out.update(bound_ms=max(t_bytes, t_ops, chain), bound_by="bytes" if t_bytes >= max(t_ops, chain) else "operations")
+    return out
+
+
+def ptxas_report(log: str, match: str = "") -> dict:
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` (spills in
+    bytes) for the entry functions of an ``nvcc -Xptxas -v`` log whose
+    mangled names contain ``match``."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+        elif entry is None or match not in entry:
+            continue
+        elif props == entry and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out.setdefault(entry, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
     return out
 
 

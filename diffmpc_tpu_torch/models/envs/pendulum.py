@@ -37,9 +37,6 @@ class PendulumDx(Dynamics):
         unless ``device`` says otherwise (without a card that raises)."""
         return PendulumDx(params=torch.tensor([10.0, 1.0, 1.0], dtype=dtype, device=device))
 
-    def replace(self, **changes) -> "PendulumDx":
-        return dataclasses.replace(self, **changes)
-
     def forward(self, x, u):
         # trailing-axis indexing so per-scenario (B, 3) params broadcast
         # against (..., B) state entries

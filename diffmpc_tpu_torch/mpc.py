@@ -2,25 +2,29 @@
 
 Two paths, chosen as the JAX package chooses (:func:`_would_use_fused`):
 
-- **fused**: QuadCost + box bounds + an env with ``entries_step`` (the
-  pendulum), no finite differences and no printing: the whole solve is one
-  call of :func:`diffmpc_tpu_torch.ops.cuda.ilqr.ilqr_solve_fused`;
+- **fused**: QuadCost + box bounds + a model with a kernel-fusable
+  ``entries_step`` (the pendulum, a small ``NNDynamics``), no finite
+  differences and no printing: the whole solve is one call of
+  :func:`diffmpc_tpu_torch.ops.cuda.ilqr.ilqr_solve_fused`;
 - **non-fused**: everything else that is ported (``LinDx`` dynamics,
-  unconstrained problems, ``verbose > 0``, ``GradMethods.FINITE_DIFF``): the
-  masked iLQR loop around :func:`diffmpc_tpu_torch.ops.lqr_step.lqr_step`,
-  one launch of the Riccati kernel and one of the rollout kernel per
-  iteration (of their streaming twins at the horizons where the JAX package
-  takes those, :mod:`diffmpc_tpu_torch.ops.cuda.horizon`), and one read of
-  the ``done`` mask on the host to stop early.
+  forward-only models such as ``AffineDynamics`` or a large
+  ``NNDynamics``, unconstrained problems, ``verbose > 0``,
+  ``GradMethods.FINITE_DIFF``): the masked iLQR loop around
+  :func:`diffmpc_tpu_torch.ops.lqr_step.lqr_step`, one launch of the
+  Riccati kernel per iteration and one of the rollout kernel for linear or
+  kernel-fusable dynamics (of their streaming twins at the horizons where
+  the JAX package takes those, :mod:`diffmpc_tpu_torch.ops.cuda.horizon`),
+  or the ladder through ``forward`` in plain PyTorch for the others, and
+  one read of the ``done`` mask on the host to stop early.
 
 Kernels run on CUDA tensors, their plain PyTorch versions on CPU tensors.
-Callable costs, ``slew_rate_penalty``, ``u_zero_I`` and the models without
-a kernel-fusable ``entries_step`` raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Callable costs, ``slew_rate_penalty`` and ``u_zero_I`` raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 The gradient: with ``backprop=True``, grad mode on and any of ``x_init``,
-the cost's ``C``/``c``, the ``LinDx`` arrays or the env's ``params``
-requiring grad, the solved trajectory is attached to the inputs through
+the cost's ``C``/``c``, the ``LinDx`` arrays or any tensor of the model
+(the env's ``params``, an MLP's weights and biases) requiring grad, the
+solved trajectory is attached to the inputs through
 :func:`diffmpc_tpu_torch.ops.lqr_step.lqr_fixed_point`, whose backward is
 the KKT kernel (the plain version on CPU tensors). Otherwise the solve
 returns its trajectory as it is, and the attach costs nothing.
@@ -36,6 +40,7 @@ from .ops.cuda.ilqr import ilqr_solve_fused
 from .ops.linearize import linearize_dynamics
 from .ops.lqr import trajectory_cost
 from .ops.lqr_step import LqrSpec, lqr_fixed_point, lqr_step
+from .models.dynamics import Dynamics
 from .types import GradMethods, LinDx, MPCConfig, QuadCost
 from .utils.batch import bmv
 
@@ -171,6 +176,15 @@ def _check_param_batch(dx, B: int) -> None:
         )
 
 
+def _model_tensors(dx) -> list:
+    """The tensors a gradient may reach in the dynamics."""
+    if isinstance(dx, LinDx):
+        return [dx.F, dx.f]
+    if isinstance(dx, Dynamics):
+        return dx.tensors()
+    return [getattr(dx, "params", None)]
+
+
 def _requires_grad(*xs) -> bool:
     return any(isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
 
@@ -304,18 +318,11 @@ def mpc_solve(
     if u_zero_I is not None:
         raise _unported("u_zero_I", "the rest of mpc.py")
     if not is_quad:
-        raise _unported("a callable cost", "the rest of the non-fused path (item 3)")
-    if not is_lin and not (hasattr(dx, "entries_step") and getattr(dx, "kernel_fusable", True)):
-        raise _unported(
-            f"dynamics {type(dx).__name__} (no kernel-fusable entries_step)",
-            "the rest of the dynamics zoo",
-        )
+        raise _unported("a callable cost", "the rest of the non-fused path (item 5)")
     attach = (
         config.backprop
         and torch.is_grad_enabled()
-        and _requires_grad(
-            x_init, cost.C, cost.c, *((dx.F, dx.f) if is_lin else (getattr(dx, "params", None),))
-        )
+        and _requires_grad(x_init, cost.C, cost.c, *_model_tensors(dx))
     )
 
     cost = _expand_cost(cost, T, B, dtype, device)
@@ -345,6 +352,7 @@ def mpc_solve(
             eps=config.eps,
             best_cost_eps=config.best_cost_eps,
             not_improved_lim=config.not_improved_lim,
+            hoist_lin=config.hoist_lin,
             use_cuda=config.use_cuda,
         )
         best_x, best_u = fr.xs, fr.us
@@ -369,9 +377,9 @@ def mpc_solve(
     xs, us = best_x, best_u
     if attach:
         # the differentiable fixed-point attach (mpc.py:639-671 of the JAX
-        # package): the LinDx arrays themselves, or the env linearized once
+        # package): the LinDx arrays themselves, or the model linearized once
         # more at the solved trajectory with gradients flowing from its
-        # params; then the custom backward
+        # tensors; then the custom backward
         F, f = dx if is_lin else linearize_dynamics(dx, xs, us, config.grad_method)
         big = torch.full((T, B, m), 1e18, dtype=dtype, device=device)
         spec = LqrSpec(
@@ -454,7 +462,7 @@ class MPC:
         if self.config.grad_method == GradMethods.ANALYTIC_CHECK:
             raise _unported(
                 "GradMethods.ANALYTIC_CHECK (its host-side Jacobian check)",
-                "the rest of the non-fused path (item 3)",
+                "the rest of the non-fused path (item 5)",
             )
         sol = mpc_solve(
             self.config,

@@ -10,8 +10,8 @@ alpha-ladder line search, replay and best-trajectory bookkeeping).
   raises; for CPU tensors it runs :func:`ilqr_solve_plain`.
 - :func:`ilqr_solve_plain` is the same algorithm in plain PyTorch,
   vectorized over the batch: each entry is a ``(B,)`` tensor and Python
-  loops run over time, iterations and entries. It computes in float32, as
-  the TPU kernel does, and casts back to ``x_init.dtype``.
+  loops run over time, iterations and entries. It computes in the dtype of
+  ``x_init`` (the kernel, like the TPU kernel, in float32).
 
 The public layout is the JAX wrapper's: ``C (T,B,nm,nm)``, ``c (T,B,nm)``,
 ``x_init (B,n)``, bounds broadcastable to ``(T,B,m)``, ``u_init (T,B,m)``.
@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...models.dynamics import ACTIVATIONS, NNDynamics
 from ...models.envs.pendulum import PendulumDx
 from .riccati_entries import _clip, _masked_chol_solve, _pnqp_entries, _value_update
 
@@ -107,25 +108,27 @@ def ilqr_solve_plain(
     eps: float = 1e-7,
     best_cost_eps: float = 1e-4,
     not_improved_lim: int = 5,
+    hoist_lin: bool = False,
 ) -> FusedSolveResult:
     """The fused solve in plain PyTorch, on any device; same contract as
-    :func:`ilqr_solve_fused`. ``dyn`` provides ``kernel_params()`` and
-    ``entries_step``. Scenarios that froze keep their state through
-    ``where``; the loop stops once all have."""
+    :func:`ilqr_solve_fused`, computed in ``x_init.dtype``. ``dyn`` provides
+    ``kernel_params()`` and ``entries_step``. Scenarios that froze keep their
+    state through ``where``; the loop stops once all have. ``hoist_lin``
+    linearizes every step before the sweep instead of inside it: the same
+    operations on the same values, so the same result bit for bit."""
     T, B, n, m = _check_shapes(x_init, C, c, u_lower, u_upper, u_init)
     nm = n + m
     dtype = x_init.dtype
-    f32 = torch.float32
     # entry views: Ce[t, a, b] and friends are (B,) tensors
-    Ce = C.to(f32).permute(0, 2, 3, 1)
-    ce = c.to(f32).permute(0, 2, 1)
-    lo = u_lower.to(f32).expand(T, B, m).permute(0, 2, 1)
-    hi = u_upper.to(f32).expand(T, B, m).permute(0, 2, 1)
-    ui = None if u_init is None else u_init.to(f32).permute(0, 2, 1)
-    x0 = list(x_init.to(f32).t())
-    params = dyn.kernel_params().to(f32)
+    Ce = C.to(dtype).permute(0, 2, 3, 1)
+    ce = c.to(dtype).permute(0, 2, 1)
+    lo = u_lower.to(dtype).expand(T, B, m).permute(0, 2, 1)
+    hi = u_upper.to(dtype).expand(T, B, m).permute(0, 2, 1)
+    ui = None if u_init is None else u_init.to(dtype).permute(0, 2, 1)
+    x0 = list(x_init.t())
+    params = dyn.kernel_params().to(dtype)
     params = list(params.t()) if params.ndim == 2 else list(params)
-    zero = torch.zeros(B, dtype=f32, device=x_init.device)
+    zero = torch.zeros(B, dtype=dtype, device=x_init.device)
     one = torch.ones_like(zero)
 
     def step(x, u):
@@ -184,16 +187,24 @@ def ilqr_solve_plain(
             break
         active = done < 0.5
         # ---- Riccati backward sweep (delta form) ----
-        V = [[zero] * n for _ in range(n)]
-        v = [zero] * n
-        qp_sum = zero
-        for t in reversed(range(T)):
+        def linearize_at(t):
+            """The step's Jacobian ``Ft`` and the delta-form linear cost
+            ``cd = c + C tau_hat``: neither reads the value carry."""
             Ft = _linearize(dyn, params, xh[t], uh[t], n, m)
             tau = xh[t] + uh[t]
             cd = [
                 ce[t, a] + sum(Ce[t, a, b] * tau[b] for b in range(nm))
                 for a in range(nm)
             ]
+            return Ft, cd
+
+        # the pre-pass of hoist_lin (the TPU kernel's pre_body, ilqr.py:234-249)
+        hoisted = [linearize_at(t) for t in range(T)] if hoist_lin else None
+        V = [[zero] * n for _ in range(n)]
+        v = [zero] * n
+        qp_sum = zero
+        for t in reversed(range(T)):
+            Ft, cd = hoisted[t] if hoist_lin else linearize_at(t)
             W = [
                 [sum(V[k][l] * Ft[l][j] for l in range(n)) for j in range(nm)]
                 for k in range(n)
@@ -219,7 +230,7 @@ def ilqr_solve_plain(
         qp_iters = torch.where(active, qp_sum / T, qp_iters)
 
         # ---- rolled alpha ladder: first improving step per scenario ----
-        alpha = torch.ones((), dtype=f32, device=zero.device)
+        alpha = torch.ones((), dtype=dtype, device=zero.device)
         chosen = torch.full_like(zero, decay ** (max_linesearch_iter - 1))
         has = torch.zeros_like(zero, dtype=torch.bool)
         for _a in range(max_linesearch_iter):
@@ -245,24 +256,22 @@ def ilqr_solve_plain(
             bx[t] = [torch.where(improved, xh[t][a], bx[t][a]) for a in range(n)]
             bu[t] = [torch.where(improved, uh[t][a], bu[t][a]) for a in range(m)]
         best_obj = torch.where(improved, new_obj, best_obj)
-        n_not_improved = torch.where(improved_sig, zero, n_not_improved + active.to(f32))
+        n_not_improved = torch.where(improved_sig, zero, n_not_improved + active.to(dtype))
         last_improvement = torch.where(active, improvement, last_improvement)
         last_alpha = torch.where(active, chosen, last_alpha)
-        n_iters = n_iters + active.to(f32)
+        n_iters = n_iters + active.to(dtype)
         newly_done = (improvement < eps) | (n_not_improved >= not_improved_lim)
-        done = torch.maximum(done, newly_done.to(f32))
+        done = torch.maximum(done, newly_done.to(dtype))
 
-    xs = torch.stack([torch.stack(r, -1) for r in bx]).to(dtype)
-    us = torch.stack([torch.stack(r, -1) for r in bu]).to(dtype)
     return FusedSolveResult(
-        xs,
-        us,
-        best_obj.to(dtype),
+        torch.stack([torch.stack(r, -1) for r in bx]),
+        torch.stack([torch.stack(r, -1) for r in bu]),
+        best_obj,
         last_improvement < eps,
-        last_improvement.to(dtype),
-        last_alpha.to(dtype),
+        last_improvement,
+        last_alpha,
         n_iters.to(torch.int32),
-        qp_iters.to(dtype),
+        qp_iters,
     )
 
 
@@ -292,7 +301,7 @@ class _IlqrArgs(ctypes.Structure):
         for name in (
             "reg", "decay", "alpha_floor", "delta_u", "eps", "best_cost_eps",
         )
-    ]
+    ] + [(name, ctypes.c_void_p) for name in ("F_s", "cd_s")]
 
 
 class _PendulumEnv(ctypes.Structure):
@@ -306,6 +315,76 @@ class _PendulumEnv(ctypes.Structure):
     ]
 
 
+class _NNEnv(ctypes.Structure):
+    """ctypes mirror of the fields of ``struct NNEnv`` in
+    ``csrc/nn_mlp.cuh``, the same for every architecture."""
+
+    _fields_ = [("activation", ctypes.c_int), ("residual", ctypes.c_int)]
+
+
+# The MLP architectures (n, m, hidden) the kernels are instantiated for, each
+# with its launchers diffmpc_<kind>_<nn_symbol(...)>: the JAX bench's
+# 3-16-16-3 (bench.py:597) and the shapes of the JAX package's NN tests.
+NN_KERNEL_ARCHS = ((3, 1, (16, 16)), (3, 1, (8,)), (3, 1, (8, 8)), (3, 1, (16,)), (3, 2, (8,)))
+
+
+def nn_symbol(n: int, m: int, hidden: tuple) -> str:
+    return f"nn_n{n}m{m}_h" + "x".join(map(str, hidden))
+
+
+class KernelEnv(NamedTuple):
+    """What the kernels need of a model with a C++ step: its env struct, the
+    suffix of its launchers (``diffmpc_<kind>_<symbol>``), its ``(n, m)``,
+    the length ``P`` of its ``kernel_params`` and whether they may be
+    per-scenario ``(B, P)``."""
+
+    struct: ctypes.Structure
+    symbol: str
+    n: int
+    m: int
+    n_params: int
+    per_scenario: bool
+
+
+def _pendulum_env(dyn: PendulumDx) -> KernelEnv:
+    struct = _PendulumEnv(dyn.max_torque, dyn.max_speed, dyn.dt, int(dyn.clamp_ctrl))
+    return KernelEnv(struct, "pendulum", PendulumDx.n_state, PendulumDx.n_ctrl, 3, True)
+
+
+def _nn_env(dyn: NNDynamics) -> KernelEnv:
+    arch = (dyn.n_state, dyn.n_ctrl, dyn.hidden)
+    if arch not in NN_KERNEL_ARCHS:
+        raise NotImplementedError(
+            f"the CUDA kernels' MLP step is instantiated for (n, m, hidden) in {NN_KERNEL_ARCHS}, not "
+            f"{arch}: add the architecture to NN_KERNEL_ARCHS and csrc/nn_archs.cuh"
+        )
+    struct = _NNEnv(list(ACTIVATIONS).index(dyn.activation), int(dyn.residual))
+    return KernelEnv(struct, nn_symbol(*arch), dyn.n_state, dyn.n_ctrl, dyn.n_params, False)
+
+
+# model class -> its KernelEnv
+_KERNEL_ENVS = {PendulumDx: _pendulum_env, NNDynamics: _nn_env}
+
+
+def kernel_env(dyn) -> KernelEnv:
+    """The kernels' view of ``dyn``; raises ``NotImplementedError`` for a
+    model without a C++ step."""
+    make = _KERNEL_ENVS.get(type(dyn))
+    if make is None:
+        names = " and ".join(cls.__name__ for cls in _KERNEL_ENVS)
+        raise NotImplementedError(
+            f"the CUDA kernels have a C++ step for {names} only, not {type(dyn).__name__}: "
+            "the other envs come with the rest of the dynamics zoo (ROADMAP.md, queue 1)"
+        )
+    return make(dyn)
+
+
+def check_kernel_params(env: KernelEnv, params: torch.Tensor, B: int, name: str) -> None:
+    shapes = ((env.n_params,), (B, env.n_params)) if env.per_scenario else ((env.n_params,),)
+    if tuple(params.shape) not in shapes:
+        raise ValueError(f"{name} params must be one of {shapes}; got {tuple(params.shape)}")
+
+
 def bm(a: torch.Tensor) -> torch.Tensor:
     """``(T, B, *trail) -> (T, *trail, B)``, contiguous: the kernels'
     batch-minor layout. A tensor already laid out so (such as a kernel's
@@ -317,24 +396,22 @@ def run_staged(
     launch,
     x_init, C, c, dyn, u_lower, u_upper, *,
     u_init=None, lqr_iter=10, reg=1e-9, decay=0.2, max_linesearch_iter=10,
-    delta_u=None, eps=1e-7, best_cost_eps=1e-4, not_improved_lim=5,
+    delta_u=None, eps=1e-7, best_cost_eps=1e-4, not_improved_lim=5, hoist_lin=False,
 ) -> FusedSolveResult:
-    """Stage the inputs batch-minor, allocate the outputs and the scratch,
-    call ``launch(args, env)`` with pointers to the ``IlqrArgs`` and
-    ``PendulumEnv`` structs, and return the outputs in the public layout.
+    """Stage the inputs batch-minor, allocate the outputs and the scratch
+    (with ``hoist_lin``, the pre-pass's ``F_s (T, n, nm, B)`` and
+    ``cd_s (T, nm, B)`` too), call ``launch(args, env)`` with pointers to
+    the ``IlqrArgs`` and the env struct (:func:`kernel_env`), and return the
+    outputs in the public layout.
 
     ``launch`` runs ``ilqr_solve_scenario`` for every scenario: the CUDA
     launcher for CUDA tensors, or a host build of the same headers for CPU
-    tensors (the tests do that). Float32 inputs only."""
+    tensors (the tests do that); it must be the one of ``hoist_lin``.
+    Float32 inputs only."""
     T, B, n, m = _check_shapes(x_init, C, c, u_lower, u_upper, u_init)
-    if not isinstance(dyn, PendulumDx):
-        raise NotImplementedError(
-            f"the CUDA kernel has a C++ step for PendulumDx only, not "
-            f"{type(dyn).__name__}: the other envs come with the rest of the "
-            "dynamics zoo (ROADMAP.md, queue 1)"
-        )
-    if (n, m) != (PendulumDx.n_state, PendulumDx.n_ctrl):
-        raise ValueError(f"PendulumDx is n=3, m=1; got n={n}, m={m}")
+    env = kernel_env(dyn)
+    if (n, m) != (env.n, env.m):
+        raise ValueError(f"{type(dyn).__name__} is n={env.n}, m={env.m}; got n={n}, m={m}")
     params = dyn.kernel_params()
     tensors = [x_init, C, c, u_lower, u_upper, params]
     if u_init is not None:
@@ -345,8 +422,7 @@ def run_staged(
             raise TypeError(f"the CUDA kernel takes float32 tensors; got {tsr.dtype}")
         if tsr.device != device:
             raise ValueError(f"tensors on {tsr.device} and {device}")
-    if params.shape not in ((3,), (B, 3)):
-        raise ValueError(f"PendulumDx params must be (3,) or (B={B}, 3); got {tuple(params.shape)}")
+    check_kernel_params(env, params, B, type(dyn).__name__)
 
     C_k = bm(C)
     c_k = bm(c)
@@ -364,9 +440,10 @@ def run_staged(
     u_hat = torch.empty((T, m, B), **f32)
     K = torch.empty((T, m, n, B), **f32)
     k = torch.empty((T, m, B), **f32)
+    F_s = torch.empty((T, n, n + m, B), **f32) if hoist_lin else None
+    cd_s = torch.empty((T, n + m, B), **f32) if hoist_lin else None
     buffers = [C_k, c_k, lo_k, hi_k, x0_k, p_k, xs, us, stats, x_hat, u_hat, K, k]
-    if ui_k is not None:
-        buffers.append(ui_k)
+    buffers += [a for a in (ui_k, F_s, cd_s) if a is not None]
     for buf in buffers:
         if not buf.is_contiguous():  # pointers below assume dense layouts
             raise ValueError("staged kernel buffer is not contiguous")
@@ -380,15 +457,15 @@ def run_staged(
         last_improvement=stats[2].data_ptr(), alpha=stats[3].data_ptr(),
         n_iters=stats[4].data_ptr(), qp_iters=stats[5].data_ptr(),
         x_hat=x_hat.data_ptr(), u_hat=u_hat.data_ptr(), K=K.data_ptr(), k=k.data_ptr(),
-        T=T, B=B, params_stride=3 if p_k.ndim == 2 else 0,
+        T=T, B=B, params_stride=env.n_params if p_k.ndim == 2 else 0,
         lqr_iter=lqr_iter, n_alpha=max_linesearch_iter,
         not_improved_lim=not_improved_lim, has_delta_u=int(delta_u is not None),
         reg=reg, decay=decay, alpha_floor=decay ** (max_linesearch_iter - 1),
         delta_u=0.0 if delta_u is None else delta_u, eps=eps,
         best_cost_eps=best_cost_eps,
+        F_s=None if F_s is None else F_s.data_ptr(), cd_s=None if cd_s is None else cd_s.data_ptr(),
     )
-    env = _PendulumEnv(dyn.max_torque, dyn.max_speed, dyn.dt, int(dyn.clamp_ctrl))
-    launch(ctypes.byref(args), ctypes.byref(env))
+    launch(ctypes.byref(args), ctypes.byref(env.struct))
     # The staged inputs and the scratch are freed when this returns, while
     # the kernel may still run: PyTorch's caching allocator reuses a block
     # only in stream order, and the kernel runs on the current stream.
@@ -411,10 +488,8 @@ def run_staged_f32(launch, x_init, C, c, dyn, u_lower, u_upper, *, u_init=None, 
     (``ilqr.py:520``, ``:603-610``)."""
     dtype = x_init.dtype
     f32 = torch.float32
-    if isinstance(dyn, PendulumDx):
-        dyn = dyn.replace(params=dyn.params.to(f32))
     out = run_staged(
-        launch, x_init.to(f32), C.to(f32), c.to(f32), dyn, u_lower.to(f32), u_upper.to(f32),
+        launch, x_init.to(f32), C.to(f32), c.to(f32), dyn.to(f32), u_lower.to(f32), u_upper.to(f32),
         u_init=None if u_init is None else u_init.to(f32), **knobs,
     )
     return out._replace(**{
@@ -423,16 +498,16 @@ def run_staged_f32(launch, x_init, C, c, dyn, u_lower, u_upper, *, u_init=None, 
     })
 
 
-def _cuda_launcher(device: torch.device):
+def _cuda_launcher(device: torch.device, env: KernelEnv, hoist_lin: bool):
     from ...csrc import build
 
-    fn = build.load().diffmpc_ilqr_solve_pendulum
-    fn.argtypes = [ctypes.POINTER(_IlqrArgs), ctypes.POINTER(_PendulumEnv), ctypes.c_void_p]
+    fn = getattr(build.load(), f"diffmpc_ilqr_solve_{env.symbol}" + ("_hoist" if hoist_lin else ""))
+    fn.argtypes = [ctypes.POINTER(_IlqrArgs), ctypes.POINTER(type(env.struct)), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
 
-    def launch(args, env):
-        err = fn(args, env, stream)
+    def launch(args, env_ref):
+        err = fn(args, env_ref, stream)
         if err != 0:
             raise RuntimeError(f"ilqr kernel launch failed: cudaError {err}")
         ilqr_solve_fused.launches += 1
@@ -500,28 +575,33 @@ def ilqr_solve_fused(
     eps: float = 1e-7,
     best_cost_eps: float = 1e-4,
     not_improved_lim: int = 5,
+    hoist_lin: bool = False,
     use_cuda: Optional[bool] = None,
 ) -> FusedSolveResult:
     """Full fused iLQR solve; the contract of the JAX package's
     ``ilqr_solve_fused``. ``u_init (T,B,m)`` warm-starts the initial rollout;
-    None starts from zero controls.
+    None starts from zero controls. ``hoist_lin`` linearizes every step in a
+    pre-pass before each Riccati sweep, off the value carry's chain (the JAX
+    package's ``DIFFMPC_HOIST_LIN=1``): the same solve.
 
-    CUDA tensors launch the kernel, which computes in float32 whatever the
-    inputs' float dtype (the outputs come back in ``x_init.dtype``), and add
-    one to ``ilqr_solve_fused.launches``; CPU tensors run
-    :func:`ilqr_solve_plain`. See :func:`resolve_use_cuda`."""
+    CUDA tensors launch the kernel of ``dyn``'s C++ step
+    (:func:`kernel_env`), which computes in float32 whatever the inputs'
+    float dtype (the outputs come back in ``x_init.dtype``), and add one to
+    ``ilqr_solve_fused.launches``; CPU tensors run :func:`ilqr_solve_plain`.
+    See :func:`resolve_use_cuda`."""
     knobs = dict(
         u_init=u_init, lqr_iter=lqr_iter, reg=reg, decay=decay,
         max_linesearch_iter=max_linesearch_iter, delta_u=delta_u, eps=eps,
-        best_cost_eps=best_cost_eps, not_improved_lim=not_improved_lim,
+        best_cost_eps=best_cost_eps, not_improved_lim=not_improved_lim, hoist_lin=hoist_lin,
     )
     if not resolve_use_cuda(use_cuda, x_init.device):
         return ilqr_solve_plain(
             x_init, C, c, dyn, u_lower, u_upper, pnqp_iter=pnqp_iter, **knobs
         )
+    env = kernel_env(dyn)
     with torch.cuda.device(x_init.device):
         return run_staged_f32(
-            _cuda_launcher(x_init.device), x_init, C, c, dyn, u_lower, u_upper, **knobs
+            _cuda_launcher(x_init.device, env, hoist_lin), x_init, C, c, dyn, u_lower, u_upper, **knobs
         )
 
 

@@ -13,8 +13,8 @@ multiplier recursions with the dynamics gradients.
   :func:`kkt_backward_plain`.
 - :func:`kkt_backward_plain` is the same algorithm in plain PyTorch,
   vectorized over the batch: each matrix entry is a ``(B,)`` tensor and
-  Python loops run over time and entries. It computes in float32, as the
-  TPU kernel does, for any ``(n, m)``.
+  Python loops run over time and entries. It computes in the dtype of
+  ``C`` (the kernels, like the TPU kernel, in float32), for any ``(n, m)``.
 
 The public layout is the JAX wrapper's: ``C (T,B,nm,nm)``, ``c (T,B,nm)``,
 ``F (T,B,n,nm)``, ``r (T,B,nm)`` (the incoming trajectory gradient with
@@ -75,15 +75,14 @@ def kkt_backward_plain(
     T, B, n, m = _check_shapes(C, c, F, r, tau, tight)
     nm = n + m
     dtype = C.dtype
-    f32 = torch.float32
     # entry views: Ce[t, a, b] and friends are (B,) tensors
-    Ce = C.to(f32).permute(0, 2, 3, 1)
-    ce = c.to(f32).permute(0, 2, 1)
-    Fe = F.to(f32).permute(0, 2, 3, 1)
-    re = r.to(f32).permute(0, 2, 1)
-    taue = tau.to(f32).permute(0, 2, 1)
-    tighte = tight.to(f32).permute(0, 2, 1)
-    zero = torch.zeros(B, dtype=f32, device=C.device)
+    Ce = C.to(dtype).permute(0, 2, 3, 1)
+    ce = c.to(dtype).permute(0, 2, 1)
+    Fe = F.to(dtype).permute(0, 2, 3, 1)
+    re = r.to(dtype).permute(0, 2, 1)
+    taue = tau.to(dtype).permute(0, 2, 1)
+    tighte = tight.to(dtype).permute(0, 2, 1)
+    zero = torch.zeros(B, dtype=dtype, device=C.device)
 
     # ---- 1. auxiliary Riccati, tight dims frozen (linear term = r) ----
     K_g, k_g = [None] * T, [None] * T
@@ -155,7 +154,7 @@ def kkt_backward_plain(
 
     dx_init = -grid(mu)
     dC, dc, dF, df = (torch.stack([grid(x) for x in seq]) for seq in (dC_all, p_all, dF_all, df_all))
-    return tuple(x.to(dtype) for x in (dx_init, dC, dc, dF, df))
+    return dx_init, dC, dc, dF, df
 
 
 # ---------------------------------------------------------------------------

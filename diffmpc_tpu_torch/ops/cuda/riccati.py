@@ -12,8 +12,9 @@ dims (mask mode, the composite KKT backward).
   Python loops run over time and entries, in the kernel's order. It serves
   CPU tensors and the checks of the kernel.
 
-Both compute in float32 and cast ``K, k`` back to ``C.dtype``, as the TPU
-wrapper does (``riccati.py:754``, ``:796-797``). The public layout is the
+The kernel computes in float32 and casts ``K, k`` back to ``C.dtype``, as
+the TPU wrapper does (``riccati.py:754``, ``:796-797``); the plain version
+computes in ``C.dtype``. The public layout is the
 JAX function's: ``C (T,B,nm,nm)``, ``c (T,B,nm)``, ``F (T,B,n,nm)``,
 ``f (T,B,n)`` or None, bounds broadcastable to ``(T,B,m)``, ``u_hat`` and
 ``ctrl_mask`` ``(T,B,m)``.
@@ -137,21 +138,21 @@ def riccati_backward_plain(
     return_qp: bool = False,
 ):
     """The Riccati sweep in plain PyTorch, on any device and for any
-    ``(n, m)``; same contract as :func:`riccati_backward_cuda`. With
-    ``return_qp``, returns ``(result, Quu (T,B,m,m), qu (T,B,m))``: each
-    step's control block of Q, in float32, by which a check of the kernel
-    weighs the box QP's answers."""
+    ``(n, m)``, in ``C.dtype``; same contract as
+    :func:`riccati_backward_cuda`. With ``return_qp``, returns ``(result,
+    Quu (T,B,m,m), qu (T,B,m))``: each step's control block of Q, by which a
+    check of the kernel weighs the box QP's answers."""
     n = n_state
     T, B, m = _check_shapes(C, c, F, f, n)
     mode, extra = _mode_inputs(T, B, m, u_lower, u_upper, u_hat, ctrl_mask)
-    f32 = torch.float32
+    dtype = C.dtype
     # entry views: Ce[t, a, b] and friends are (B,) tensors
-    Ce = C.to(f32).permute(0, 2, 3, 1)
-    ce = c.to(f32).permute(0, 2, 1)
-    Fe = F.to(f32).permute(0, 2, 3, 1)
-    fe = None if f is None else f.to(f32).permute(0, 2, 1)
-    extra = [a.to(f32).permute(0, 2, 1) for a in extra]
-    zero = torch.zeros(B, dtype=f32, device=C.device)
+    Ce = C.to(dtype).permute(0, 2, 3, 1)
+    ce = c.to(dtype).permute(0, 2, 1)
+    Fe = F.to(dtype).permute(0, 2, 3, 1)
+    fe = None if f is None else f.to(dtype).permute(0, 2, 1)
+    extra = [a.to(dtype).permute(0, 2, 1) for a in extra]
+    zero = torch.zeros(B, dtype=dtype, device=C.device)
 
     K_all, k_all, free_all, nqp_all = [None] * T, [None] * T, [None] * T, [None] * T
     Quu_all, qu_all = [None] * T, [None] * T
@@ -184,10 +185,9 @@ def riccati_backward_plain(
             qu_all[t] = torch.stack(qu, 1)
         V, v = _value_update(Q, q, Quu, qu, K, kt, n, m)
 
-    dtype = C.dtype
     out = RiccatiResult(
-        torch.stack(K_all).to(dtype),
-        torch.stack(k_all).to(dtype),
+        torch.stack(K_all),
+        torch.stack(k_all),
         torch.stack(free_all),
         torch.stack(nqp_all).to(torch.int32),
     )

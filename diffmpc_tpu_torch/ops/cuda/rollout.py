@@ -10,15 +10,17 @@ box), the first strictly improving step per scenario (else
 
 - :func:`linesearch_rollout_cuda` launches the kernel of ``csrc/rollout.cu``
   (one thread per scenario) on CUDA tensors and counts its launches: linear
-  dynamics from ``F, f``, or the pendulum's own step.
+  dynamics from ``F, f``, or an env's own C++ step (the pendulum's, or the
+  MLP's of a kernel-fusable ``NNDynamics``: ``ilqr.kernel_env``).
 - :func:`linesearch_rollout_plain` is the same algorithm in plain PyTorch:
   each entry is a tensor over scenarios, the ladder's rollouts run side by
   side as a leading dim (elementwise, so each is the rollout the kernel
   runs), and the env step is its ``entries_step``. It serves CPU tensors and
   the checks of the kernel.
 
-Both compute in float32 and cast the trajectory, costs and steps back to
-``x_init.dtype``. The public layout is the JAX function's: ``x_init (B,n)``,
+The kernel computes in float32 and casts the trajectory, costs and steps
+back to ``x_init.dtype``; the plain version computes in ``x_init.dtype``.
+The public layout is the JAX function's: ``x_init (B,n)``,
 ``C (T,B,nm,nm)``, ``c (T,B,nm)``, ``F (T,B,n,nm)``, ``f (T,B,n)`` or None,
 ``K (T,B,m,n)``, ``k (T,B,m)``, ``x_hat (T,B,n)``, ``u_hat (T,B,m)``, bounds
 broadcastable to ``(T,B,m)``.
@@ -31,8 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ...models.envs.pendulum import PendulumDx
-from .ilqr import _PendulumEnv, bm, kernel_symbol, resolve_use_cuda
+from .ilqr import bm, check_kernel_params, kernel_env, kernel_symbol, resolve_use_cuda
 from .riccati_entries import _clip
 
 
@@ -89,28 +90,29 @@ def linesearch_rollout_plain(
     decay: float = 0.2,
     max_iter: int = 10,
 ) -> LineSearchResult:
-    """The line search in plain PyTorch, on any device; same contract as
-    :func:`linesearch_rollout_cuda`, for any ``(n, m)`` and any env with
-    ``entries_step`` (``dyn``; None takes the linear dynamics ``F, f``)."""
+    """The line search in plain PyTorch, on any device, in ``x_init.dtype``;
+    same contract as :func:`linesearch_rollout_cuda`, for any ``(n, m)`` and
+    any env with ``entries_step`` (``dyn``; None takes the linear dynamics
+    ``F, f``)."""
     T, B, n, m = _check_shapes(x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower, u_upper)
     nm = n + m
-    f32 = torch.float32
+    dtype = x_init.dtype
     # entry views: Ce[t, a, b] and friends are (B,) tensors
-    Ce = C.to(f32).permute(0, 2, 3, 1)
-    ce = c.to(f32).permute(0, 2, 1)
-    Ke = K.to(f32).permute(0, 2, 3, 1)
-    ke = k.to(f32).permute(0, 2, 1)
-    xh = x_hat.to(f32).permute(0, 2, 1)
-    uh = u_hat.to(f32).permute(0, 2, 1)
-    x0 = list(x_init.to(f32).t())
+    Ce = C.to(dtype).permute(0, 2, 3, 1)
+    ce = c.to(dtype).permute(0, 2, 1)
+    Ke = K.to(dtype).permute(0, 2, 3, 1)
+    ke = k.to(dtype).permute(0, 2, 1)
+    xh = x_hat.to(dtype).permute(0, 2, 1)
+    uh = u_hat.to(dtype).permute(0, 2, 1)
+    x0 = list(x_init.t())
     if u_lower is not None:
-        lo = u_lower.to(f32).expand(T, B, m).permute(0, 2, 1)
-        hi = u_upper.to(f32).expand(T, B, m).permute(0, 2, 1)
+        lo = u_lower.to(dtype).expand(T, B, m).permute(0, 2, 1)
+        hi = u_upper.to(dtype).expand(T, B, m).permute(0, 2, 1)
     if dyn is None:
-        Fe = F.to(f32).permute(0, 2, 3, 1)
-        fe = None if f is None else f.to(f32).permute(0, 2, 1)
+        Fe = F.to(dtype).permute(0, 2, 3, 1)
+        fe = None if f is None else f.to(dtype).permute(0, 2, 1)
     else:
-        params = dyn.kernel_params().to(f32)
+        params = dyn.kernel_params().to(dtype)
         params = list(params.t()) if params.ndim == 2 else list(params)
 
     def stage_cost(t, x, u):
@@ -154,7 +156,7 @@ def linesearch_rollout_plain(
     for t in range(T):
         obj0 = obj0 + stage_cost(t, list(xh[t]), list(uh[t]))
     # the rolled ladder, its rollouts side by side: alphas (A, 1)
-    alpha = torch.ones((), dtype=f32, device=C.device)
+    alpha = torch.ones((), dtype=dtype, device=C.device)
     alphas = []
     for _ in range(max_iter):
         alphas.append(alpha)
@@ -168,12 +170,11 @@ def linesearch_rollout_plain(
     steps = []
     objs = rollout(chosen, steps)
 
-    dtype = x_init.dtype
     return LineSearchResult(
-        torch.stack([torch.stack(x, -1) for x, _ in steps]).to(dtype),
-        torch.stack([torch.stack(u, -1) for _, u in steps]).to(dtype),
-        objs.to(dtype),
-        chosen.to(dtype),
+        torch.stack([torch.stack(x, -1) for x, _ in steps]),
+        torch.stack([torch.stack(u, -1) for _, u in steps]),
+        objs,
+        chosen,
         has,
     )
 
@@ -198,18 +199,15 @@ class _RolloutArgs(ctypes.Structure):
 
 
 def _check_dyn(dyn, n, m):
-    """The dynamics the kernel has a C++ step for: linear (None) or the
-    pendulum."""
+    """The kernels' view of the dynamics: None for linear ones, else the
+    env's :class:`~diffmpc_tpu_torch.ops.cuda.ilqr.KernelEnv` (raises for a
+    model without a C++ step)."""
     if dyn is None:
-        return
-    if not isinstance(dyn, PendulumDx):
-        raise NotImplementedError(
-            f"the rollout kernel has a C++ step for PendulumDx only, not "
-            f"{type(dyn).__name__}: the other envs come with the rest of the "
-            "dynamics zoo (ROADMAP.md, queue 1)"
-        )
-    if (n, m) != (PendulumDx.n_state, PendulumDx.n_ctrl):
-        raise ValueError(f"PendulumDx is n=3, m=1; got n={n}, m={m}")
+        return None
+    env = kernel_env(dyn)
+    if (n, m) != (env.n, env.m):
+        raise ValueError(f"{type(dyn).__name__} is n={env.n}, m={env.m}; got n={n}, m={m}")
+    return env
 
 
 def run_staged_rollout(
@@ -218,7 +216,7 @@ def run_staged_rollout(
 ) -> LineSearchResult:
     """Stage the inputs batch-minor, allocate the outputs, call
     ``launch(args, n, m, env)`` with a pointer to the ``RolloutArgs`` struct
-    and, for an env, to its ``PendulumEnv`` struct (None for linear
+    and, for an env, to its env struct (``ilqr.kernel_env``; None for linear
     dynamics), and return the outputs in the public layout.
 
     ``launch`` runs ``linesearch_rollout_scenario`` for every scenario: the
@@ -226,7 +224,7 @@ def run_staged_rollout(
     CPU tensors (the tests do that). Float32 inputs only. With an env,
     ``F, f`` are not staged: the kernel does not read them."""
     T, B, n, m = _check_shapes(x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower, u_upper)
-    _check_dyn(dyn, n, m)
+    env = _check_dyn(dyn, n, m)
     if dyn is not None:
         F = f = None
     elif F is None:
@@ -245,8 +243,8 @@ def run_staged_rollout(
         if a.device != device:
             raise ValueError(f"tensors on {a.device} and {device}")
     params = named.pop("params")
-    if params is not None and params.shape not in ((3,), (B, 3)):
-        raise ValueError(f"PendulumDx params must be (3,) or (B={B}, 3); got {tuple(params.shape)}")
+    if params is not None:
+        check_kernel_params(env, params, B, type(dyn).__name__)
 
     ins = {
         name: None if a is None else bm(a.expand(T, B, m) if name in ("u_lower", "u_upper") else a)
@@ -262,14 +260,11 @@ def run_staged_rollout(
         **{name: a.data_ptr() for name, a in ins.items() if a is not None},
         xs=xs.data_ptr(), us=us.data_ptr(), objs=stats[0].data_ptr(),
         alpha=stats[1].data_ptr(), improved=stats[2].data_ptr(),
-        T=T, B=B, params_stride=3 if params is not None and params.ndim == 2 else 0,
+        T=T, B=B, params_stride=params.shape[-1] if params is not None and params.ndim == 2 else 0,
         n_alpha=max_iter, has_delta_u=int(delta_u is not None), decay=decay,
         alpha_floor=decay ** (max_iter - 1), delta_u=0.0 if delta_u is None else delta_u,
     )
-    env = None
-    if dyn is not None:
-        env = ctypes.byref(_PendulumEnv(dyn.max_torque, dyn.max_speed, dyn.dt, int(dyn.clamp_ctrl)))
-    launch(ctypes.byref(args), n, m, env)
+    launch(ctypes.byref(args), n, m, None if env is None else ctypes.byref(env.struct))
     # The staged inputs are freed when this returns, while the kernel may
     # still run: PyTorch's caching allocator reuses a block only in stream
     # order, and the kernel runs on the current stream.
@@ -281,8 +276,8 @@ def run_staged_rollout(
 def _cuda_launcher(device: torch.device, n: int, m: int, dyn, kind: str = "rollout", counted=None):
     """The launcher of kernel ``kind`` (``rollout`` or its streaming twin
     ``rollout_stream``: the same ``RolloutArgs``) for linear dynamics (``dyn``
-    None) or the pendulum, on the current stream; each launch adds one to
-    ``counted.launches`` (default :func:`linesearch_rollout_cuda`)."""
+    None) or an env's C++ step, on the current stream; each launch adds one
+    to ``counted.launches`` (default :func:`linesearch_rollout_cuda`)."""
     stream = torch.cuda.current_stream(device).cuda_stream
     counted = linesearch_rollout_cuda if counted is None else counted
     if dyn is None:
@@ -290,8 +285,9 @@ def _cuda_launcher(device: torch.device, n: int, m: int, dyn, kind: str = "rollo
     else:
         from ...csrc import build
 
-        fn = getattr(build.load(), f"diffmpc_{kind}_pendulum")
-        fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.POINTER(_PendulumEnv), ctypes.c_void_p]
+        env = _check_dyn(dyn, n, m)
+        fn = getattr(build.load(), f"diffmpc_{kind}_{env.symbol}")
+        fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.POINTER(type(env.struct)), ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
     def launch(args, n, m, env):
@@ -319,7 +315,7 @@ def run_on_card(launcher, x_init, C, c, F, f, K, k, x_hat, u_hat, *, u_lower=Non
         return None if a is None else a.to(f32)
 
     if dyn is not None:
-        dyn = dyn.replace(params=dyn.params.to(f32))
+        dyn = dyn.to(f32)
     with torch.cuda.device(x_init.device):
         out = run_staged_rollout(
             launcher(x_init.device, n, m, dyn),
@@ -350,8 +346,9 @@ def linesearch_rollout_cuda(
 ) -> LineSearchResult:
     """The line search on the card: the contract of the JAX package's
     ``linesearch_rollout_pallas``, with ``dyn`` None for the linear dynamics
-    ``F, f`` or a ``PendulumDx`` for its own step (``F, f`` are then not
-    read). CUDA tensors of any float dtype: the kernel computes in float32
+    ``F, f`` or a model with a C++ step (a ``PendulumDx`` or a kernel-fusable
+    ``NNDynamics``, ``ilqr.kernel_env``) for its own step (``F, f`` are then
+    not read). CUDA tensors of any float dtype: the kernel computes in float32
     and ``xs, us, objs, alpha`` come back in ``x_init.dtype``. Adds one to
     ``linesearch_rollout_cuda.launches``; other envs and linear shapes
     outside the kernels' ``(n, m)`` table raise."""

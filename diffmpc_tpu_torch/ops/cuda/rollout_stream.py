@@ -12,7 +12,7 @@ chosen step, so the horizon is read twice and not ``max_iter + 2`` times.
   ``csrc/rollout_stream.cu`` (one thread per scenario, the ladder states in
   registers, each step's inputs double-buffered through shared memory by
   ``cp.async``) on CUDA tensors and counts its launches: linear dynamics from
-  ``F, f``, or the pendulum's own step. It takes the resident kernel's
+  ``F, f``, or an env's own C++ step. It takes the resident kernel's
   ``RolloutArgs``, so it shares
   :func:`~diffmpc_tpu_torch.ops.cuda.rollout.run_staged_rollout`.
 - Its plain version is the resident line search's,
@@ -58,7 +58,8 @@ def linesearch_rollout_stream_cuda(
 ) -> LineSearchResult:
     """The line search on the card, streamed: the contract of
     :func:`~diffmpc_tpu_torch.ops.cuda.rollout.linesearch_rollout_cuda`
-    (``dyn`` None for the linear dynamics ``F, f``, or a ``PendulumDx``).
+    (``dyn`` None for the linear dynamics ``F, f``, or a model with a C++
+    step).
     CUDA tensors of any float dtype (computed in float32, ``xs, us, objs,
     alpha`` back in ``x_init.dtype``); adds one to
     ``linesearch_rollout_stream_cuda.launches``; other envs and linear shapes

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..models.dynamics import Dynamics
 from ..types import GradMethods, LinDx
 from ..utils.batch import bmv
 
@@ -23,22 +24,23 @@ def linearize_dynamics(
     ``x_{t+1} ~= F_t tau_t + f_t``. A ``LinDx`` is returned as it is.
 
     ``xs (T,B,n)``, ``us (T,B,m)`` -> ``LinDx(F (T,B,n,n+m), f (T,B,n))``.
-    ``GradMethods.ANALYTIC`` takes the env's closed-form ``grad_input`` and
-    ``FINITE_DIFF`` central differences of ``forward`` with step ``fd_eps``;
-    both are differentiable in the env's params. ``AUTO_DIFF`` and
-    ``ANALYTIC_CHECK`` are not ported."""
+    ``GradMethods.ANALYTIC`` (and ``ANALYTIC_CHECK``, whose check is
+    ``MPC.solve``'s) takes the model's ``grad_input``, ``AUTO_DIFF`` the
+    forward-mode Jacobian of ``forward`` (jointly mapped over per-scenario
+    params), ``FINITE_DIFF`` central differences of ``forward`` with step
+    ``fd_eps``; each is differentiable in the model's tensors."""
     if isinstance(dx, LinDx):
         return dx
-    if method == GradMethods.ANALYTIC:
+    if method in (GradMethods.ANALYTIC, GradMethods.ANALYTIC_CHECK):
         A, B = dx.grad_input(xs, us)
+    elif method == GradMethods.AUTO_DIFF:
+        # the base protocol's grad_input is the autodiff one (mapped jointly
+        # over per-scenario params), whatever the model overrides it with
+        A, B = Dynamics.grad_input(dx, xs, us)
     elif method == GradMethods.FINITE_DIFF:
         A, B = finite_diff_grad_input(dx.forward, xs, us, eps=fd_eps)
     else:
-        raise NotImplementedError(
-            f"linearizing with {method} is not ported to PyTorch yet: it comes "
-            "with the rest of the non-fused path (ROADMAP.md, queue 1, item 3); "
-            "use GradMethods.ANALYTIC or FINITE_DIFF"
-        )
+        raise ValueError(method)
     F = torch.cat([A, B], dim=-1)
     f = dx.forward(xs, us) - bmv(F, torch.cat([xs, us], dim=-1))
     return LinDx(F, f)

@@ -12,12 +12,14 @@ dynamics ``x_{t+1} = F_t tau_t + f_t`` (the ``t = T-1`` slice is unused).
   the JAX package takes its twins (:mod:`~diffmpc_tpu_torch.ops.cuda.horizon`);
   on CPU tensors they run the kernels' plain PyTorch versions.
 - :func:`lqr_rollout` (one step size) and :func:`trajectory_cost` are plain
-  PyTorch.
+  PyTorch, and so is the line search through a ``dynamics_fn`` (a model
+  without a C++ step: the JAX package's XLA ladder, which has no TPU kernel
+  either).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -85,12 +87,16 @@ def lqr_rollout(
     u_lower: Optional[torch.Tensor] = None,
     u_upper: Optional[torch.Tensor] = None,
     delta_u: Optional[float] = None,
+    dynamics_fn: Optional[Callable] = None,
 ):
     """Forward rollout of the affine policy ``u_t = u_hat_t + alpha k_t +
     K_t (x_t - x_hat_t)`` (then the ``delta_u`` clamp, then the box) through
-    ``x_{t+1} = F_t tau_t + f_t``. ``x_hat``/``u_hat`` default to zeros;
-    ``alpha`` is a scalar or ``(B,)``. Returns ``xs (T,B,n)`` with
-    ``xs[0] = x_init`` and ``us (T,B,m)``; differentiable."""
+    ``dynamics_fn(x, u)`` when given (the true dynamics, as the iLQR line
+    search rolls out) or ``x_{t+1} = F_t tau_t + f_t``. ``x_hat``/``u_hat``
+    default to zeros; ``alpha`` is a scalar, ``(B,)``, or any shape that
+    broadcasts against ``(B, m)`` from the left, such as ``(A, 1, 1)`` for
+    ``A`` rollouts side by side. Returns ``xs (T,...,B,n)`` with
+    ``xs[0] = x_init`` and ``us (T,...,B,m)``; differentiable."""
     T, B, m = K.shape[:3]
     if x_hat is None:
         x_hat = torch.zeros((T,) + tuple(x_init.shape), dtype=x_init.dtype, device=x_init.device)
@@ -108,11 +114,15 @@ def lqr_rollout(
             u = eclamp(u, u_hat[t] - delta_u, u_hat[t] + delta_u)
         if u_lower is not None:
             u = eclamp(u, u_lower[t], u_upper[t])
+        x = x.expand(u.shape[:-1] + x.shape[-1:])
         xs.append(x)
         us.append(u)
-        x = bmv(F[t], torch.cat([x, u], -1))
-        if f is not None:
-            x = x + f[t]
+        if dynamics_fn is not None:
+            x = dynamics_fn(x, u)
+        else:
+            x = bmv(F[t], torch.cat([x, u], -1))
+            if f is not None:
+                x = x + f[t]
     return torch.stack(xs), torch.stack(us)
 
 
@@ -139,6 +149,7 @@ def lqr_linesearch_rollout(
     u_upper: Optional[torch.Tensor] = None,
     delta_u: Optional[float] = None,
     dyn=None,
+    dynamics_fn: Optional[Callable] = None,
     decay: float = 0.2,
     max_iter: int = 10,
     use_cuda: Optional[bool] = None,
@@ -146,14 +157,19 @@ def lqr_linesearch_rollout(
     """Vectorized backtracking line search: the ladder ``alpha = decay**j``,
     ``j < max_iter``, each scenario taking the first strictly improving step
     over the cost of ``(x_hat, u_hat)``, else the smallest. The dynamics are
-    linear (``dyn`` None: ``F, f``) or the env ``dyn``'s own step, which
-    stands in for the JAX function's ``dynamics_fn``; callable costs
-    (``cost_fn``) are not ported.
+    linear (``dyn`` None: ``F, f``), the env ``dyn``'s own C++-backed step,
+    or ``dynamics_fn(x, u)``; callable costs (``cost_fn``) are not ported.
 
-    The rollout kernel for CUDA tensors (its streaming twin where
+    With ``dyn`` or linear dynamics: the rollout kernel for CUDA tensors (its
+    streaming twin where
     :func:`~diffmpc_tpu_torch.ops.cuda.horizon.streams_rollout` says so), its
     plain version for CPU tensors (see
-    :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`)."""
+    :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`). With
+    ``dynamics_fn``: the JAX function's ladder in plain PyTorch on any device
+    (``diffmpc_tpu/ops/lqr.py:280-356``), the ladder's rollouts side by side
+    as a leading dim, ``alpha = decay**j`` as powers."""
+    if dynamics_fn is not None:
+        return _ladder(x_init, C, c, K, k, x_hat, u_hat, u_lower, u_upper, delta_u, dynamics_fn, decay, max_iter)
     kw = dict(u_lower=u_lower, u_upper=u_upper, delta_u=delta_u, dyn=dyn, decay=decay, max_iter=max_iter)
     args = (x_init, C, c, F, f, K, k, x_hat, u_hat)
     if resolve_use_cuda(use_cuda, x_init.device):
@@ -162,3 +178,22 @@ def lqr_linesearch_rollout(
             return linesearch_rollout_stream_cuda(*args, **kw)
         return linesearch_rollout_cuda(*args, **kw)
     return linesearch_rollout_plain(*args, **kw)
+
+
+def _ladder(x_init, C, c, K, k, x_hat, u_hat, u_lower, u_upper, delta_u, dynamics_fn, decay, max_iter):
+    """The line search through ``dynamics_fn``: every step of the ladder
+    rolled out at once, each scenario's first improving one taken."""
+    dtype = x_init.dtype
+    alphas = torch.tensor(decay, dtype=dtype, device=x_init.device) ** torch.arange(
+        max_iter, dtype=dtype, device=x_init.device
+    )
+    xs_l, us_l = lqr_rollout(
+        x_init, None, None, K, k, x_hat, u_hat, alpha=alphas[:, None, None],
+        u_lower=u_lower, u_upper=u_upper, delta_u=delta_u, dynamics_fn=dynamics_fn,
+    )  # (T, A, B, n), (T, A, B, m)
+    objs_l = trajectory_cost(C[:, None], c[:, None], xs_l, us_l)  # (A, B)
+    improved_l = objs_l < trajectory_cost(C, c, x_hat, u_hat)
+    has = improved_l.any(0)
+    idx = torch.where(has, torch.argmax(improved_l.to(torch.int8), 0), max_iter - 1)
+    cols = torch.arange(idx.shape[0], device=idx.device)
+    return LineSearchResult(xs_l[:, idx, cols], us_l[:, idx, cols], objs_l[idx, cols], alphas[idx], has)

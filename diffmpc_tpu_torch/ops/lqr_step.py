@@ -3,7 +3,8 @@
 - :func:`lqr_step` is the solver step of the non-fused iLQR loop: the
   delta-form cost about the current trajectory, the Riccati sweep (the box
   QP per step when box-constrained) and the line-searched rollout, each one
-  launch of its kernel on CUDA tensors (its plain version on CPU tensors).
+  launch of its kernel on CUDA tensors (its plain version on CPU tensors);
+  for a model without a kernel step the line search is plain PyTorch.
   At the horizons where the JAX package takes its streaming twins
   (:mod:`~diffmpc_tpu_torch.ops.cuda.horizon`), each is one launch of the
   twin.
@@ -86,16 +87,13 @@ def lqr_step(
 ) -> LqrStepResult:
     """One LQR / box-DDP step about ``(x_hat, u_hat)``: the delta-form cost
     (``C`` and ``c + C tau_hat``), the Riccati sweep (box mode when
-    ``u_lower`` is given) and the line-searched rollout through the linear
-    dynamics ``F, f`` (``dyn`` None) or the env ``dyn``'s own step. Both run
-    as kernels on CUDA tensors; an env needs an ``entries_step`` that may run
-    inside a kernel (the JAX package's ``fusable`` rule, ``lqr_step.py:206``;
-    its other dynamics take an XLA path that is not ported)."""
-    if dyn is not None and not (hasattr(dyn, "entries_step") and getattr(dyn, "kernel_fusable", True)):
-        raise NotImplementedError(
-            f"dynamics {type(dyn).__name__} without a kernel-fusable entries_step: "
-            "they come with the rest of the dynamics zoo (ROADMAP.md, queue 1)"
-        )
+    ``u_lower`` is given, a kernel on CUDA tensors) and the line-searched
+    rollout through the linear dynamics ``F, f`` (``dyn`` None) or the model
+    ``dyn``. A model with an ``entries_step`` that may run inside a kernel
+    takes the rollout kernel with its step (the JAX package's ``fusable``
+    rule, ``lqr_step.py:206-209``); any other takes the ladder through its
+    ``forward`` in plain PyTorch, as the JAX package takes its XLA ladder."""
+    fusable = dyn is None or (hasattr(dyn, "entries_step") and getattr(dyn, "kernel_fusable", True))
     n = spec.n_state
     tau_hat = torch.cat([x_hat, u_hat], -1)
     c_delta = c + bmv(C, tau_hat)
@@ -106,7 +104,8 @@ def lqr_step(
     )
     ls = lqr_linesearch_rollout(
         x_init, C, c, F, f, res.K, res.k, x_hat, u_hat,
-        u_lower=u_lower, u_upper=u_upper, delta_u=spec.delta_u, dyn=dyn,
+        u_lower=u_lower, u_upper=u_upper, delta_u=spec.delta_u, dyn=dyn if fusable else None,
+        dynamics_fn=None if fusable else dyn.forward,
         decay=spec.linesearch_decay, max_iter=spec.max_linesearch_iter, use_cuda=spec.use_cuda,
     )
     return LqrStepResult(ls.xs, ls.us, ls.objs, ls.alpha, ls.improved, res.free_mask, res.n_qp_iter)

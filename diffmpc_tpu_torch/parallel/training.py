@@ -8,10 +8,12 @@ comes with ROADMAP.md, queue 1, item 9.
 
 ``torch.optim.Adam`` stands in for ``optax.adam``: its update is the same
 rule (bias-corrected moments, ``eps`` added to the corrected second-moment
-root, default 1e-8). The optimizer is passed as a factory over the params
-tensor, ``optimizer([params]) -> torch.optim.Optimizer`` (for example
-``functools.partial(torch.optim.Adam, lr=5e-2)``), and it updates the
-params tensor in place.
+root, default 1e-8). The learnable params are a tensor or, like the JAX
+package's pytree, a nested dict / list / tuple of tensors (an MLP's
+``{"w": weights, "b": biases}``). The optimizer is passed as a factory over
+the flat list of their leaves, ``optimizer(leaves) ->
+torch.optim.Optimizer`` (for example ``functools.partial(torch.optim.Adam,
+lr=5e-2)``), and it updates the leaves in place.
 """
 
 from __future__ import annotations
@@ -25,19 +27,38 @@ from ..types import MPCConfig
 
 
 class TrainState(NamedTuple):
-    params: torch.Tensor  # learnable problem parameters, updated in place
+    params: object  # learnable problem parameters (a tensor or a pytree of them), updated in place
     opt_state: torch.optim.Optimizer
 
 
 class StepStats(NamedTuple):
     loss: torch.Tensor  # () mean imitation loss
-    grad_norm: torch.Tensor  # () gradient norm
+    grad_norm: torch.Tensor  # () global gradient norm over the leaves
     converged_frac: torch.Tensor  # () fraction of converged solves
     qp_residual: torch.Tensor  # () mean solver residual (last improvement)
     clamp_frac: torch.Tensor  # () mean clamped-control fraction
 
 
 _NO_TASK = object()
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict / list / tuple, dicts in sorted key
+    order (as JAX flattens them)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``tree`` with every leaf ``x`` replaced by ``fn(x)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -80,7 +101,8 @@ def make_dp_train_step(
     ``step(state, x_init (B,n), u_expert (T,B,m)) -> (state, StepStats)``.
 
     ``optimizer`` is the factory that :func:`init_train_state` was given.
-    ``params`` may be shared (e.g. ``(3,)``) or per scenario (``(B, 3)``).
+    ``params`` may be shared (e.g. ``(3,)``), per scenario (``(B, 3)``) or
+    a pytree of tensors.
     ``mesh``, ``params_batch_axes`` and ``task_batch_axes`` belong to the
     data-parallel form and raise."""
     if mesh is not None:
@@ -96,16 +118,21 @@ def make_dp_train_step(
         loss, info = imitation_loss(
             config, params, make_problem, x_init, u_expert, u_lower, u_upper
         )
-        (grad,) = torch.autograd.grad(loss, params)
+        leaves = tree_leaves(params)
+        grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
             opt.zero_grad(set_to_none=True)
-            params.grad = grad
+            for leaf, grad in zip(leaves, grads):
+                leaf.grad = grad
             opt.step()
-            params.grad = None
+            for leaf in leaves:
+                leaf.grad = None
             finite = torch.isfinite(info.last_improvement)
+            # optax.global_norm: the norm of the leaves' norms
+            norms = [torch.linalg.vector_norm(g) for g in grads]
             stats = StepStats(
                 loss.detach(),
-                torch.linalg.vector_norm(grad),
+                norms[0] if len(norms) == 1 else torch.linalg.vector_norm(torch.stack(norms)),
                 info.converged.float().mean(),
                 torch.where(finite, info.last_improvement.abs(), 0.0).mean(),
                 info.clamp_frac.mean(),
@@ -115,11 +142,11 @@ def make_dp_train_step(
     return step
 
 
-def init_train_state(params: torch.Tensor, optimizer: Callable) -> TrainState:
-    """A leaf copy of ``params`` that requires grad, and the optimizer
-    ``optimizer([params])`` over it."""
-    params = params.detach().clone().requires_grad_(True)
-    return TrainState(params=params, opt_state=optimizer([params]))
+def init_train_state(params, optimizer: Callable) -> TrainState:
+    """Leaf copies of ``params`` (a tensor or a pytree of them) that
+    require grad, and the optimizer ``optimizer(leaves)`` over them."""
+    params = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
+    return TrainState(params=params, opt_state=optimizer(tree_leaves(params)))
 
 
 def generate_expert_data(config: MPCConfig, cost, dx, x_init, u_lower=None, u_upper=None):

@@ -96,6 +96,11 @@ class MPCConfig:
     # CPU tensors. True demands the kernel and False the plain version; a
     # demand that does not fit the tensors' device raises.
     use_cuda: Optional[bool] = None
+    # The fused solve's linearization pre-pass (ilqr_solve_fused's
+    # hoist_lin; the JAX package's env knob DIFFMPC_HOIST_LIN=1): every
+    # step's Jacobian before each Riccati sweep, off the value carry's
+    # chain. The same solve; a question of speed only.
+    hoist_lin: bool = False
 
     @property
     def n_tau(self) -> int:

@@ -23,7 +23,10 @@ kernel, the same device arithmetic). The depth-blocked sweep within
 ``1e-4 * max(1, max|plain|)`` of its plain version and ``5e-4`` of the
 serial kernel; the piece kernels' ``K, k`` within ``1e-4 * max(1, max|plain|)``
 and the rollout's objective within 1e-5 of the batch's largest, at reps 1
-and 9.
+and 9. The MLP step (learned dynamics): the fused kernel with and without
+the pre-pass under the iLQR rules above, the line search and its twin
+within 1e-5 of the batch's largest objective with ``alpha`` equal, the
+weight gradients within 1e-3 of their max-abs of the CPU's.
 """
 
 import dataclasses
@@ -34,6 +37,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import diffmpc_tpu_torch as tdm  # noqa: E402
+from diffmpc_tpu_torch.models import NNDynamics  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda import kkt as kkt_mod  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain  # noqa: E402
@@ -446,3 +450,107 @@ def test_piece_kernels_match_plain(device, kind):
             for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0)
         assert counted.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# Learned dynamics: the MLP step in the fused solve and the line search.
+# ---------------------------------------------------------------------------
+
+
+def _nn_problem(device, n=3, m=1, hidden=(8,), seed=1200, B=130, T=6):
+    """tests/test_torch_kernel_host.py's MLP problem on ``device``: a
+    residual MLP with its He-normal weights scaled by 0.3 and perturbed
+    biases, the goal cost, box +-2."""
+    gen = torch.Generator().manual_seed(seed)
+    nn = NNDynamics.init(n, m, hidden=hidden, residual=True, device="cpu", generator=gen)
+    nn = nn.replace(weights=tuple(0.3 * w for w in nn.weights),
+                    biases=tuple(b + 0.05 * torch.randn(b.shape, generator=gen) for b in nn.biases))
+    nm = n + m
+    q = torch.tensor([1.0, 1.0, 0.1] + [0.001] * m)
+    p = torch.zeros(nm)
+    p[0] = -1.0
+    box = torch.full((T, B, m), 2.0)
+    args = (torch.randn((B, n), generator=gen) * 0.5, torch.diag(q).expand(T, B, nm, nm), p.expand(T, B, nm),
+            nn, -box, box)
+    return tuple(a.to(device=device) for a in args)
+
+
+@pytest.mark.parametrize("hoist_lin", [False, True], ids=["in_sweep", "hoist_lin"])
+@pytest.mark.parametrize("n,m,hidden", [(3, 1, (8,)), (3, 1, (16, 16)), (3, 2, (8,))])
+def test_nn_kernel_matches_plain(device, n, m, hidden, hoist_lin):
+    """One iteration within 1e-4 with n_iters equal; four by the chaos rule;
+    with and without the pre-pass."""
+    args = _nn_problem(device, n, m, hidden)
+    for knobs, rule in ((dict(lqr_iter=1, eps=0.0), assert_tight), (dict(lqr_iter=4, eps=1e-5), assert_chaos)):
+        before = ilqr_solve_fused.launches
+        kernel = ilqr_solve_fused(*args, hoist_lin=hoist_lin, **knobs)
+        torch.cuda.synchronize()
+        assert ilqr_solve_fused.launches == before + 1
+        rule(as_numpy(kernel), as_numpy(ilqr_solve_plain(*args, **knobs)))
+
+
+def test_nn_architecture_outside_the_table_raises_on_the_card(device):
+    """A fusable MLP the kernels are not instantiated for raises, naming the
+    table; nothing falls back to the plain version."""
+    args = _nn_problem(device, hidden=(12,))
+    assert args[3].kernel_fusable
+    with pytest.raises(NotImplementedError, match="NN_KERNEL_ARCHS"):
+        ilqr_solve_fused(*args)
+
+
+@pytest.mark.parametrize("kernel", ["rollout", "rollout_stream"])
+def test_nn_rollout_kernels_match_plain(device, kernel):
+    """The line search through the MLP step (the inputs of
+    test_torch_kernel_host's): objs within 1e-5 of the batch's largest,
+    alpha equal, xs, us within 1e-4."""
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
+    from diffmpc_tpu_torch.utils.batch import bmv
+
+    x0, C, c, nn, lo, hi = _nn_problem(device, T=20)
+    T, B = C.shape[:2]
+    gen = torch.Generator(device=device).manual_seed(1210)
+    u_hat = torch.rand((T, B, 1), generator=gen, device=device) * 3.0 - 1.5
+    xs = [x0]
+    for t in range(T - 1):
+        xs.append(nn.forward(xs[-1], u_hat[t]))
+    x_hat = torch.stack(xs)
+    F, _ = linearize_dynamics(nn, x_hat, u_hat)
+    gains = riccati_backward_plain(C, c + bmv(C, torch.cat([x_hat, u_hat], -1)), F, None, 3,
+                                   u_lower=lo, u_upper=hi, u_hat=u_hat)
+    k = gains.k * (0.5 + 7.5 * torch.rand((1, B, 1), generator=gen, device=device))
+    args = (x0, C, c, None, None, gains.K, k, x_hat, u_hat)
+    kw = dict(u_lower=lo, u_upper=hi, dyn=nn, delta_u=1.0)
+    fn = linesearch_rollout_cuda if kernel == "rollout" else linesearch_rollout_stream_cuda
+    before = fn.launches
+    got = fn(*args, **kw)
+    want = linesearch_rollout_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    scale = float(want.objs.abs().max())
+    torch.testing.assert_close(got.objs, want.objs, atol=1e-5 * scale, rtol=0)
+    assert torch.equal(got.alpha, want.alpha)
+    torch.testing.assert_close(got.us, want.us, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.xs, want.xs, atol=1e-4, rtol=0)
+
+
+def test_nn_mpc_solve_and_weight_gradients_on_the_card(device):
+    """mpc_solve with a fusable MLP: one iLQR launch, and with the weights
+    requiring grad one KKT launch; the gradients after one iteration within
+    1e-3 of their max-abs of the CPU's."""
+    config = tdm.MPCConfig(n_state=3, n_ctrl=1, T=6, lqr_iter=1, eps=0.0, exit_unconverged=False,
+                           detach_unconverged=False)
+
+    def grads(dev):
+        x0, C, c, nn, lo, hi = _nn_problem(dev, B=256)
+        leaves = [a.clone().requires_grad_(True) for a in nn.weights + nn.biases]
+        model = nn.replace(weights=tuple(leaves[:2]), biases=tuple(leaves[2:]))
+        sol = tdm.mpc_solve(config, x0, tdm.QuadCost(C, c), model, u_lower=lo, u_upper=hi)
+        return torch.autograd.grad((sol.us**2).mean(), leaves)
+
+    k_before, i_before = kkt_backward_fused.launches, ilqr_solve_fused.launches
+    card = grads(device)
+    torch.cuda.synchronize()
+    assert (kkt_backward_fused.launches, ilqr_solve_fused.launches) == (k_before + 1, i_before + 1)
+    for g, w in zip(card, grads("cpu")):
+        assert g.device.type == device.type and bool(w.abs().max() > 0)
+        torch.testing.assert_close(g.cpu(), w, atol=1e-3 * float(w.abs().max()), rtol=0)

@@ -12,6 +12,8 @@ The per-step helpers are compared with the JAX package's entry-tile helpers
 at 1e-5 relative.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -23,7 +25,9 @@ from diffmpc_tpu.models import PendulumDx as JaxPendulumDx  # noqa: E402
 from diffmpc_tpu.ops.pallas import riccati as jric  # noqa: E402
 from diffmpc_tpu.ops.pallas.ilqr import ilqr_solve_fused as jax_ilqr  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda import riccati_entries as tric  # noqa: E402
+from diffmpc_tpu_torch.models import NNDynamics  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.ilqr import (  # noqa: E402
+    _NNEnv,
     ilqr_solve_fused,
     ilqr_solve_plain,
     run_staged,
@@ -91,13 +95,15 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert ilqr_solve_fused.launches == before  # nothing was launched
     with pytest.raises(ValueError, match="use_cuda=True"):
         ilqr_solve_fused(*args, use_cuda=True)
-    # float64 in, float64 out (the solve itself runs in float32)
+    # float64 in, float64 out, and the solve computes in float64: within
+    # float32 rounding of the float32 solve, and not that solve cast
     a64 = ilqr_solve_fused(
         t["x_init"].double(), t["C"].double(), t["c"].double(), dx,
         t["u_lower"].double(), t["u_upper"].double(), lqr_iter=2,
     )
     assert a64.us.dtype == torch.float64 and a64.n_iters.dtype == torch.int32
     np.testing.assert_allclose(a64.us.numpy(), b.us.numpy(), atol=1e-6)
+    assert not torch.equal(a64.objs, b.objs.double())
 
 
 def test_kernel_staging_rejects_what_the_kernel_does_not_take():
@@ -115,8 +121,19 @@ def test_kernel_staging_rejects_what_the_kernel_does_not_take():
         def kernel_params(self):
             return dx.params
 
-    with pytest.raises(NotImplementedError, match="PendulumDx only"):
+    with pytest.raises(NotImplementedError, match="PendulumDx and NNDynamics only"):
         run_staged(never, *args[:3], OtherEnv(), *args[4:])
+    # an MLP: the instantiated architectures stage and launch, the others raise
+    gen = torch.Generator().manual_seed(0)
+    nn = NNDynamics.init(3, 1, hidden=(8,), device="cpu", generator=gen)
+    seen = []
+    run_staged(lambda a, e: seen.append(ctypes.cast(e, ctypes.POINTER(_NNEnv)).contents.activation), *args[:3], nn, *args[4:])
+    assert seen == [1]  # tanh, the second of the activations
+    with pytest.raises(ValueError, match="NNDynamics is n=3, m=2"):
+        run_staged(never, *args[:3], NNDynamics.init(3, 2, hidden=(8,), device="cpu", generator=gen), *args[4:])
+    odd = NNDynamics.init(3, 1, hidden=(12,), device="cpu", generator=gen)
+    with pytest.raises(NotImplementedError, match=r"\(3, 1, \(16, 16\)\)"):
+        run_staged(never, *args[:3], odd, *args[4:])
     with pytest.raises(ValueError, match="params"):
         run_staged(never, *args[:3], dx.replace(params=dx.params[None].expand(7, 3)), *args[4:])
     with pytest.raises(ValueError, match="c must be"):

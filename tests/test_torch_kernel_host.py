@@ -23,7 +23,10 @@ host builds bit for bit: the same g++ arithmetic in the same order. The
 depth-blocked sweep (``csrc/riccati_blocked.cuh``) holds its ``K, k`` within
 ``1e-5 * max(1, max|plain|)``; the piece kernels (``csrc/riccati_pieces.cuh``)
 their ``K, k`` within ``1e-4 * max(1, max|plain|)`` and the rollout's
-objective within 1e-5 relative.
+objective within 1e-5 relative. The MLP step (``csrc/nn_mlp.cuh``, every
+activation) inside the solve and the line search holds the same limits; the
+solve's HoistLin pre-pass equals the solve without it bit for bit, the
+MLP's and the pendulum's.
 """
 
 import ctypes
@@ -37,8 +40,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from diffmpc_tpu_torch.csrc import build  # noqa: E402
+from diffmpc_tpu_torch.models import NNDynamics  # noqa: E402
+from diffmpc_tpu_torch.models.dynamics import ACTIVATIONS  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.ilqr import (  # noqa: E402
     _IlqrArgs,
+    _NNEnv,
     _PendulumEnv,
     ilqr_solve_plain,
     run_staged,
@@ -71,7 +77,9 @@ from diffmpc_tpu_torch.ops.cuda.rollout import (  # noqa: E402
     linesearch_rollout_plain,
     run_staged_rollout,
 )
+from diffmpc_tpu_torch.ops.linearize import linearize_dynamics  # noqa: E402
 from diffmpc_tpu_torch.ops.lqr import lqr_rollout  # noqa: E402
+from diffmpc_tpu_torch.utils.batch import bmv  # noqa: E402
 from oracles import random_lqr_problem  # noqa: E402
 from torch_parity import (  # noqa: E402
     as_numpy,
@@ -89,6 +97,7 @@ SHIM = r"""
 #include "ilqr.cuh"
 #include "kkt.cuh"
 #include "kkt_stream.cuh"
+#include "nn_mlp.cuh"
 #include "pendulum.cuh"
 #include "riccati.cuh"
 #include "riccati_blocked.cuh"
@@ -101,6 +110,40 @@ extern "C" int diffmpc_ilqr_solve_pendulum_host(const IlqrArgs* a, const Pendulu
   for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<3, 1>(*a, *env, b);
   return 0;
 }
+
+template <class Env, bool HOIST>
+static int ilqr_all(const IlqrArgs* a, const Env* env) {
+  for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<Env::N, Env::M, HOIST>(*a, *env, b);
+  return 0;
+}
+
+extern "C" int diffmpc_ilqr_solve_pendulum_hoist_host(const IlqrArgs* a, const PendulumEnv* env) {
+  return ilqr_all<PendulumEnv, true>(a, env);
+}
+
+// the MLPs of the tests (nn_archs.cuh has the kernels' table): the solve with
+// and without the HoistLin pre-pass, and the line search and its twin
+#define DMPC_HOST_NN(N_, M_, NAME, ...)                                                              \
+  using Env_##NAME = NNEnv<N_, M_, __VA_ARGS__>;                                                    \
+  extern "C" int diffmpc_ilqr_solve_nn_##NAME##_host(const IlqrArgs* a, const Env_##NAME* env) {    \
+    return ilqr_all<Env_##NAME, false>(a, env);                                                     \
+  }                                                                                                 \
+  extern "C" int diffmpc_ilqr_solve_nn_##NAME##_hoist_host(const IlqrArgs* a, const Env_##NAME* env) { \
+    return ilqr_all<Env_##NAME, true>(a, env);                                                      \
+  }                                                                                                 \
+  extern "C" int diffmpc_rollout_nn_##NAME##_host(const RolloutArgs* a, const Env_##NAME* env, int stream) { \
+    std::vector<float> buf(2 * RolloutSlice<N_, M_, Env_##NAME>::kSize);                            \
+    for (int b = 0; b < a->B; ++b) {                                                                \
+      if (stream)                                                                                   \
+        linesearch_rollout_stream_scenario<N_, M_>(*a, *env, b, buf.data(), 1);                     \
+      else                                                                                          \
+        linesearch_rollout_scenario<N_, M_>(*a, *env, b);                                           \
+    }                                                                                               \
+    return 0;                                                                                       \
+  }
+
+DMPC_HOST_NN(3, 1, n3m1_h8, 8)
+DMPC_HOST_NN(3, 2, n3m2_h8, 8)
 
 template <int N, int M>
 static int kkt_all(const KktArgs* a) {
@@ -315,9 +358,9 @@ def test_host_build_float64_through_the_cast_helper(host_launch):
     """The kernel route's cast helper: float64 in, float64 out. The inputs
     hold float32 values, so the cast is exact and the result equals the
     float32 run within 1e-6; against the plain version on the same float64
-    inputs the kernel-vs-plain bound of one iteration holds (1e-4: the two
-    compute in float32 with their own sin/cos and summation order, which
-    differ by a few 1e-6 on the states)."""
+    inputs, which computes in float64, the kernel-vs-plain bound of one
+    iteration holds (1e-4: float32 rounding with the kernel's own sin/cos
+    and summation order moves the states by a few 1e-6)."""
     t, dx = torch_inputs(make_problem(seed=705, warm=True, batched_params=True))
     t64 = {k: v.double() for k, v in t.items()}
     dx64 = dx.replace(params=dx.params.double())
@@ -660,6 +703,123 @@ def test_host_build_riccati_pieces_match_plain(host_pieces_launch, variant, reps
         g, w = getattr(got, name), getattr(want, name)
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The MLP step (nn_mlp.cuh) and the HoistLin pre-pass of the fused solve.
+# ---------------------------------------------------------------------------
+
+
+def _nn_problem(n, m, activation, seed, B=37, T=6):
+    """A residual MLP with one hidden layer of 8 (He-normal weights scaled by
+    0.3, so that six steps keep the state near its start and the objectives
+    near 1, and biases perturbed so that their place in ``kernel_params``
+    shows), on the goal cost of tests/test_pallas_ilqr.py's NN test, box
+    +-2."""
+    gen = torch.Generator().manual_seed(seed)
+    nn = NNDynamics.init(n, m, hidden=(8,), activation=activation, residual=True, device="cpu", generator=gen)
+    nn = nn.replace(
+        weights=tuple(0.3 * w for w in nn.weights),
+        biases=tuple(b + 0.05 * torch.randn(b.shape, generator=gen) for b in nn.biases),
+    )
+    nm = n + m
+    q = torch.tensor([1.0, 1.0, 0.1] + [0.001] * m)
+    p = torch.zeros(nm)
+    p[0] = -1.0
+    x0 = torch.randn((B, n), generator=gen) * 0.5
+    box = torch.full((T, B, m), 2.0)
+    return nn, (x0, torch.diag(q).expand(T, B, nm, nm), p.expand(T, B, nm), nn, -box, box)
+
+
+def _nn_launcher(host_lib, symbol, struct=_NNEnv):
+    fn = getattr(host_lib, symbol)
+    fn.argtypes = [ctypes.POINTER(_IlqrArgs), ctypes.POINTER(struct)]
+    fn.restype = ctypes.c_int
+
+    def launch(args, env):
+        assert fn(args, env) == 0
+
+    return launch
+
+
+@pytest.mark.parametrize("activation", list(ACTIVATIONS))
+def test_host_build_nn_solve_matches_plain(host_lib, activation):
+    """One iteration through the MLP step, every activation: within 1e-4 of
+    the plain version with ``n_iters`` equal; the HoistLin build bit for bit
+    the build without it (the same float32 operations on the same values)."""
+    _, args = _nn_problem(3, 1, activation, seed=1100 + list(ACTIVATIONS).index(activation))
+    knobs = dict(lqr_iter=1, eps=0.0)
+    host = run_staged(_nn_launcher(host_lib, "diffmpc_ilqr_solve_nn_n3m1_h8_host"), *args, **knobs)
+    assert_tight(as_numpy(host), as_numpy(ilqr_solve_plain(*args, **knobs)))
+    hoisted = run_staged(_nn_launcher(host_lib, "diffmpc_ilqr_solve_nn_n3m1_h8_hoist_host"), *args, hoist_lin=True, **knobs)
+    _assert_equal_results(hoisted, host)
+
+
+def test_host_build_nn_two_controls_over_iterations(host_lib):
+    """m = 2 (the box QP's enumeration) through the MLP step: one iteration
+    within 1e-4 of the plain version, four by the chaos rule; HoistLin bit
+    for bit the build without it over the four."""
+    _, args = _nn_problem(3, 2, "tanh", seed=1110)
+    one, four = dict(lqr_iter=1, eps=0.0), dict(lqr_iter=4, eps=1e-5)
+    launch = _nn_launcher(host_lib, "diffmpc_ilqr_solve_nn_n3m2_h8_host")
+    assert_tight(as_numpy(run_staged(launch, *args, **one)), as_numpy(ilqr_solve_plain(*args, **one)))
+    host = run_staged(launch, *args, **four)
+    assert_chaos(as_numpy(host), as_numpy(ilqr_solve_plain(*args, **four)))
+    hoisted = run_staged(_nn_launcher(host_lib, "diffmpc_ilqr_solve_nn_n3m2_h8_hoist_host"), *args, hoist_lin=True, **four)
+    _assert_equal_results(hoisted, host)
+
+
+def test_host_build_hoist_lin_leaves_the_pendulum_solve_unchanged(host_launch, host_lib):
+    """The pendulum with the pre-pass equals the solve without it bit for bit
+    over six iterations with every knob (per-scenario params, a warm start,
+    ``delta_u``). Without the flag the header computes what it computed
+    before the pre-pass existed (the same g++ build of the pre-pass's parent
+    header gave bit-equal outputs when it was added)."""
+    t, dx = torch_inputs(make_problem(seed=1120, warm=True, batched_params=True))
+    args = (t["x_init"], t["C"], t["c"], dx, t["u_lower"], t["u_upper"])
+    knobs = dict(u_init=t["u_init"], lqr_iter=6, eps=1e-5, delta_u=0.5)
+    plain = run_staged(host_launch, *args, **knobs)
+    hoisted = run_staged(
+        _nn_launcher(host_lib, "diffmpc_ilqr_solve_pendulum_hoist_host", _PendulumEnv), *args, hoist_lin=True, **knobs
+    )
+    _assert_equal_results(hoisted, plain)
+    assert (plain.n_iters >= 2).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("activation", ["tanh", "softplus"])
+def test_host_build_nn_rollout_and_twin_match_plain(host_lib, activation):
+    """The line search through the MLP step: the resident kernel's host build
+    against the plain version (the rollout tolerances above), the twin's bit
+    for bit the resident's. The inputs are the non-fused loop's: a rollout
+    of random controls, the box sweep's gains about it, the feedforward
+    scaled by up to 8 so that the ladder backs off."""
+    nn, (x0, C, c, _, lo, hi) = _nn_problem(3, 1, activation, seed=1130)
+    T, B = C.shape[:2]
+    gen = torch.Generator().manual_seed(1131)
+    u_hat = torch.rand((T, B, 1), generator=gen) * 3.0 - 1.5
+    xs = [x0]
+    for t in range(T - 1):
+        xs.append(nn.forward(xs[-1], u_hat[t]))
+    x_hat = torch.stack(xs)
+    F, _ = linearize_dynamics(nn, x_hat, u_hat)
+    gains = riccati_backward_plain(C, c + bmv(C, torch.cat([x_hat, u_hat], -1)), F, None, 3, u_lower=lo, u_upper=hi, u_hat=u_hat)
+    k = gains.k * (0.5 + 7.5 * torch.rand((1, B, 1), generator=gen))
+    args = (x0, C, c, None, None, gains.K, k, x_hat, u_hat)
+    kw = dict(u_lower=lo, u_upper=hi, dyn=nn, delta_u=1.0)
+    fn = host_lib.diffmpc_rollout_nn_n3m1_h8_host
+    fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.POINTER(_NNEnv), ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    def launcher(stream):
+        def launch(args, n, m, env):
+            assert fn(args, env, stream) == 0
+
+        return launch
+
+    got = run_staged_rollout(launcher(0), *args, **kw)
+    _assert_rollout_matches(got, linesearch_rollout_plain(*args, **kw))
+    _assert_equal_results(run_staged_rollout(launcher(1), *args, **kw), got)
+    assert len(np.unique(got.alpha.numpy())) > 1
 
 
 def test_build_keys_library_by_sources_and_reports_nvcc_errors(tmp_path, monkeypatch):

@@ -110,11 +110,13 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert kkt_backward_fused.launches == before  # nothing was launched
     with pytest.raises(ValueError, match="use_cuda=True"):
         kkt_backward_fused(*ins, use_cuda=True)
-    # float64 in, float64 out (the backward itself runs in float32)
+    # float64 in, float64 out, and the backward computes in float64: within
+    # float32 rounding of the float32 backward, and not that backward cast
     got64 = kkt_backward_fused(*[a.double() if a.is_floating_point() else a for a in ins])
     for g, w in zip(got64, got):
         assert g.dtype == torch.float64
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-6)
+    assert not torch.equal(got64[3], got[3].double())
 
 
 def test_kernel_staging_rejects_what_the_kernel_does_not_take():

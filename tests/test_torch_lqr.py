@@ -23,7 +23,8 @@ Tolerances:
   float64: central differences with step 1e-4 in float32 carry about 1e-3
   of rounding noise (an ulp of the step's output over 2e-4), which the two
   packages' ``sin``/``cos``/``atan2`` realize differently; in float64 that
-  noise is about 1e-12. The port's kernels then still compute in float32.
+  noise is about 1e-12, and the port's plain versions compute in float64
+  too.
 """
 
 import dataclasses
@@ -276,8 +277,10 @@ def test_finite_diff_linearization_matches_jax_and_carries_gradients():
     fd = linearize_dynamics(dx.replace(params=prm), torch.tensor(xs), torch.tensor(us), tdm.GradMethods.FINITE_DIFF)
     (g,) = torch.autograd.grad(fd.F.sum() + fd.f.sum(), prm)
     assert bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        linearize_dynamics(dx, torch.tensor(xs), torch.tensor(us), tdm.GradMethods.AUTO_DIFF)
+    # AUTO_DIFF, the forward-mode Jacobian of forward, is the analytic one
+    auto = linearize_dynamics(dx, torch.tensor(xs), torch.tensor(us), tdm.GradMethods.AUTO_DIFF)
+    np.testing.assert_allclose(auto.F.numpy(), analytic.F.numpy(), atol=1e-5)
+    np.testing.assert_allclose(auto.f.numpy(), analytic.f.numpy(), atol=1e-5)
 
 
 def test_lin_dx_inputs_broadcast_and_convert():

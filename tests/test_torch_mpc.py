@@ -262,17 +262,25 @@ def test_mpc_class_returns_differentiable_outputs():
 
 
 def test_gradient_needs_the_analytic_linearization():
-    """AUTO_DIFF runs forward-only as before; asked for a gradient it
-    raises, naming the ROADMAP item that ports it."""
+    """Named for the time when AUTO_DIFF ran forward-only and raised when
+    asked for a gradient. Now its attach linearizes by forward-mode autodiff
+    of ``forward``: the same gradient as ANALYTIC's closed form, within
+    float32 rounding, and none with grad mode off."""
     config, cost, dx = _torch_setup()
     config = dataclasses.replace(config, lqr_iter=1, grad_method=tdm.GradMethods.AUTO_DIFF)
     x = torch.tensor(_x_init())
     sol = tdm.mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
     assert bool(torch.isfinite(sol.objs).all())
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        tdm.mpc_solve(config, x.requires_grad_(True), cost, dx, u_lower=-2.0, u_upper=2.0)
-    with torch.no_grad():  # grad mode off: no attach, no raise
-        tdm.mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
+    grads = {}
+    for method in (tdm.GradMethods.AUTO_DIFF, tdm.GradMethods.ANALYTIC):
+        leaf = x.clone().requires_grad_(True)
+        s = tdm.mpc_solve(dataclasses.replace(config, grad_method=method), leaf, cost, dx, u_lower=-2.0, u_upper=2.0)
+        (grads[method],) = torch.autograd.grad((s.us**2).mean(), leaf)
+    auto, analytic = grads.values()
+    assert bool(analytic.abs().max() > 0)
+    np.testing.assert_allclose(auto.numpy(), analytic.numpy(), atol=1e-5 * float(analytic.abs().max()))
+    with torch.no_grad():  # grad mode off: no attach
+        assert not tdm.mpc_solve(config, x.requires_grad_(True), cost, dx, u_lower=-2.0, u_upper=2.0).us.requires_grad
 
 
 def test_convert_carries_the_jax_state_over():
@@ -304,15 +312,16 @@ def test_convert_carries_the_jax_state_over():
     jconfig, _, _ = _jax_setup()
     config = convert.mpc_config_from_jax(jconfig)
     for f in dataclasses.fields(tdm.MPCConfig):
-        if f.name not in ("use_cuda", "grad_method"):
+        if f.name not in ("use_cuda", "grad_method", "hoist_lin"):
             assert getattr(config, f.name) == getattr(jconfig, f.name), f.name
+    assert config.hoist_lin is False  # the JAX package's is an env knob
     assert config.grad_method.value == jconfig.grad_method.value
     assert config.use_cuda is None  # interpret mode: plain on CPU, kernel on CUDA
     assert convert.mpc_config_from_jax(dataclasses.replace(jconfig, pallas_interpret=False)).use_cuda
     assert convert.mpc_config_from_jax(dataclasses.replace(jconfig, use_pallas=False)).use_cuda is False
     # the port's defaults are the JAX package's
     for f in dataclasses.fields(tdm.MPCConfig):
-        if f.name != "use_cuda" and f.default is not dataclasses.MISSING:
+        if f.name not in ("use_cuda", "hoist_lin") and f.default is not dataclasses.MISSING:
             jdefault = getattr(jdm.MPCConfig(3, 1, T), f.name)
             jval = jdefault.value if f.name == "grad_method" else jdefault
             tval = f.default.value if f.name == "grad_method" else f.default

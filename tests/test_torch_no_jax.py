@@ -2,7 +2,8 @@
 
 In a fresh interpreter where ``import jax`` fails, every module of
 ``diffmpc_tpu_torch`` imports (the non-fused path's among them, by name),
-and the fused and the non-fused solve run on the CPU. The chip smoke script
+and the fused and the non-fused solve run on the CPU, on the pendulum, a
+``LinDx``, a small and a large MLP and ``AffineDynamics``. The chip smoke script
 imports no JAX either, and refuses to run without a card.
 """
 
@@ -29,7 +30,8 @@ for name in names:
 new = ["ops.cuda.riccati", "ops.cuda.rollout", "ops.pnqp", "ops.smallchol", "ops.lqr", "ops.lqr_step",
        "ops.cuda.horizon", "ops.cuda.riccati_stream", "ops.cuda.rollout_stream", "ops.cuda.kkt_stream",
        "ops.assoc_riccati", "ops.cuda.riccati_blocked", "ops.cuda.riccati_pieces", "diagnostics.card",
-       "diagnostics.ab_blocked_ilp", "diagnostics.profile_riccati_pieces"]
+       "diagnostics.ab_blocked_ilp", "diagnostics.profile_riccati_pieces", "diagnostics.ab_nn_reread",
+       "models.dynamics", "parallel.training", "convert"]
 assert all(f"diffmpc_tpu_torch.{m}" in names for m in new), names
 assert "diffmpc_tpu" not in sys.modules and "jax" in sys.modules
 from diffmpc_tpu_torch.models import PendulumDx
@@ -53,6 +55,14 @@ sol = mpc_solve(
     LinDx(0.5 * torch.eye(n, n + m), None), u_lower=-0.6, u_upper=0.6,
 )
 assert bool(torch.isfinite(sol.objs).all()) and sol.us.abs().max() <= 0.6
+from diffmpc_tpu_torch.models import AffineDynamics, NNDynamics
+cfg = MPCConfig(n_state=3, n_ctrl=1, T=T, lqr_iter=2, exit_unconverged=False)
+gen = torch.Generator().manual_seed(0)
+for model in (NNDynamics.init(3, 1, hidden=(8,), residual=True, device="cpu", generator=gen),
+              NNDynamics.init(3, 1, hidden=(40,), residual=True, device="cpu", generator=gen),
+              AffineDynamics(0.9 * torch.eye(3), torch.ones(3, 1))):
+    sol = mpc_solve(cfg, 0.1 * x, QuadCost(torch.diag(q), p), model, u_lower=-2.0, u_upper=2.0)
+    assert bool(torch.isfinite(sol.objs).all()) and sol.us.abs().max() <= 2.0
 print("modules", len(names))
 """
 

@@ -117,7 +117,10 @@ def test_dispatch_runs_the_plain_version_on_cpu_and_casts_back():
     got64 = riccati_backward_plain(*(a.double() for a in t), 3, **{k: v.double() if v.is_floating_point() else v for k, v in torch_kw(kw).items()})
     assert got64.K.dtype == torch.float64 and got64.free_mask.dtype == torch.bool
     assert got64.n_qp_iter.dtype == torch.int32
+    # computed in float64: within float32 rounding of the float32 sweep, and
+    # not that sweep cast
     np.testing.assert_allclose(got64.K.numpy(), want.K.numpy(), atol=1e-6)
+    assert not torch.equal(got64.K, want.K.double())
 
 
 def test_staging_rejects_what_the_kernel_does_not_take():

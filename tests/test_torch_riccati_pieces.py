@@ -27,7 +27,8 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from diffmpc_tpu.models.envs.pendulum import PendulumDx as JaxPendulumDx  # noqa: E402
 from diffmpc_tpu.ops.pallas.riccati import _from_kernel_layout, _to_kernel_layout  # noqa: E402
-from diffmpc_tpu_torch.diagnostics import ab_blocked_ilp, profile_riccati_pieces  # noqa: E402
+from diffmpc_tpu_torch.diagnostics import ab_blocked_ilp, ab_nn_reread, profile_riccati_pieces  # noqa: E402
+from diffmpc_tpu_torch.diagnostics.card import ptxas_report  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda import riccati_pieces as rp  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -198,8 +199,31 @@ def test_ab_bounds():
     assert ab_blocked_ilp.sweep_bytes(20, 1024, 3, 1) == 20 * 1024 * 133
 
 
-@pytest.mark.parametrize("run", [ab_blocked_ilp.run, profile_riccati_pieces.run])
+@pytest.mark.parametrize("run", [ab_blocked_ilp.run, profile_riccati_pieces.run, ab_nn_reread.run])
 def test_diagnostics_need_a_card(run, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         run()
+
+
+# the shape of an nvcc -Xptxas -v report: an entry function, a device
+# function it calls with its own properties, then the entry's properties
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelI5NNEnvEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z6helperv
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Function properties for _Z6kernelI5NNEnvEvv
+    208 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 208 bytes cumulative stack size, 300 bytes smem
+ptxas info    : Compiling entry function '_Z6kernelI11PendulumEnvEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelI11PendulumEnvEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers
+"""
+
+
+def test_ptxas_report():
+    nn = {"_Z6kernelI5NNEnvEvv": dict(spill_stores=12, spill_loads=8, registers=72)}
+    assert ptxas_report(PTXAS_LOG, "NNEnv") == nn
+    assert ptxas_report(PTXAS_LOG) == {**nn, "_Z6kernelI11PendulumEnvEvv": dict(spill_stores=0, spill_loads=0, registers=64)}
+    assert ptxas_report("") == {}

@@ -23,6 +23,7 @@ from diffmpc_tpu.ops.lqr import riccati_backward as jax_riccati  # noqa: E402
 from diffmpc_tpu.ops.linearize import linearize_dynamics as jax_linearize  # noqa: E402
 from diffmpc_tpu.ops.pallas.rollout import linesearch_rollout_pallas  # noqa: E402
 from diffmpc_tpu_torch import convert  # noqa: E402
+from diffmpc_tpu_torch.models import NNDynamics  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.rollout import (  # noqa: E402
     linesearch_rollout_cuda,
     linesearch_rollout_plain,
@@ -135,10 +136,12 @@ def test_dispatch_runs_the_plain_version_on_cpu():
     assert linesearch_rollout_cuda.launches == before
     with pytest.raises(ValueError, match="use_cuda=True"):
         lqr_linesearch_rollout(*t, use_cuda=True)
-    # float64 in, float64 out; the line search itself runs in float32
+    # float64 in, float64 out, and the line search computes in float64:
+    # within float32 rounding of the float32 one, and not that one cast
     got64 = linesearch_rollout_plain(*(a.double() for a in t), u_lower=lo_t.double(), u_upper=hi_t.double())
     assert got64.us.dtype == torch.float64 and got64.improved.dtype == torch.bool
     np.testing.assert_allclose(got64.us.numpy(), got.us.numpy(), atol=1e-6)
+    assert not torch.equal(got64.objs, got.objs.double())
 
 
 def test_staging_rejects_what_the_kernel_does_not_take():
@@ -158,8 +161,12 @@ def test_staging_rejects_what_the_kernel_does_not_take():
         run_staged_rollout(never, *t[:7], t[7][:, :, :2], t[8])
     with pytest.raises(ValueError, match="both set"):
         run_staged_rollout(never, *t, u_lower=torch.tensor(-1.0))
-    with pytest.raises(NotImplementedError, match="PendulumDx only"):
+    with pytest.raises(NotImplementedError, match="PendulumDx and NNDynamics only"):
         run_staged_rollout(never, *t, dyn=OtherEnv())
+    # a fusable MLP off the kernels' architecture table raises, naming it
+    odd = NNDynamics.init(4, 2, hidden=(5,), device="cpu", generator=torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="NN_KERNEL_ARCHS"):
+        run_staged_rollout(never, *t, dyn=odd)
     pend, _, _, jdx = pendulum_case()
     with pytest.raises(ValueError, match="n=3, m=1"):
         run_staged_rollout(never, *t, dyn=convert.pendulum_from_jax(jdx, device="cpu"))

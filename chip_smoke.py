@@ -9,9 +9,8 @@ Phases, one line of output each (JSON where it carries numbers):
 0. device: the card's name and power limit (nvidia-smi), or exit non-zero
    when there is no CUDA device; nothing runs on the CPU instead;
 1. build: the CUDA kernels, built with nvcc from diffmpc_tpu_torch/csrc
-   (one nvcc per source, in parallel), and the same sources by one nvcc
-   command for comparison, run in the background during phases 22-23 (which
-   time nothing) and read before phase 24;
+   (one nvcc per source, in parallel), its seconds and each kernel's
+   registers and spills;
 2. kernel vs plain: the fused iLQR kernel against its plain PyTorch version
    on the card, at the main-path problem (pendulum, T=20, B=1024, and the
    ragged B=1000; lqr_iter=10, eps=1e-5), one iteration at eps=0, and a
@@ -130,6 +129,38 @@ Phases, one line of output each (JSON where it carries numbers):
    and on, interleaved by CUDA events, with the bytes bound and the chain
    floor; mpc_solve and solve + gradient in strict alternation; the rollout
    kernel and twin alone; each plain version once.
+26. the kernel-under-the-mesh probe (csrc/shard_probe.cu, the TPU kernel of
+   tests/test_pallas_sharding.py:221) against its plain version, bit-equal,
+   at shards of 1, 2, 3, 8, 16 and 65,536, with its time, its plain
+   version's and the library call's (x[idx].sum() broadcast);
+27. one rank over NCCL in this process (diffmpc_tpu_torch.parallel): the
+   dry run of parallel/dryrun.py on config 5 of BASELINE.json at
+   B=65,536 (per-scenario params, params_batch_axes=0, SGD 1e-2, u_expert =
+   0) through make_mesh and shard_batch, the fused solve, three imitation
+   steps with replicated params (B=1024) and the probe, equal to the same
+   without a mesh exactly (one rank's all_reduce is the identity), with the
+   launch counts (counts set to 0 before, read after); the iLQR and KKT
+   kernels on the inputs one such step gives them (per-scenario params, B =
+   65,536), recorded and run again beside their plain versions: the iLQR
+   kernel by phase 2's rule on the first 1024 scenarios and, on all of
+   them, by phase 22's with the float64 plain solve as the witness and
+   phase 2's ties, as the shared-params kernel is held at that batch; the
+   KKT kernel by phase 5's; the time-sharded Riccati at D=1, given its
+   shard of the horizon, against the serial kernel's free mode (5e-4 of its
+   scale);
+28. two ranks over gloo sharing the card (NCCL refuses two ranks on one
+   device), 32,768 scenarios each, spawned by parallel/dryrun.py: each rank
+   launches the probe once, one iLQR and one KKT kernel in its step; the
+   sharded solve's controls within 1e-5 of one process's (bit-equal
+   scenarios counted); the step's loss and gradient norm within 1e-5
+   relative, param rows within rtol 1e-3 / atol 1e-4 and their change by the
+   step within 1e-3 of its max-abs; the imitation params within 1e-3 of
+   their max-abs and its gradient norms within 1e-5 relative;
+   gather_results in rank order;
+29. time: the step on a one-rank mesh against the step without a mesh, in
+   strict alternation (the mesh's own cost); the step's all_reduce alone;
+   each of the two ranks' steps and all_reduce, two processes taking turns
+   on one card (not a scaling figure).
 
 The line before the last holds the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -141,21 +172,30 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib
 import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 import numpy as np
 import torch
 
-# NVIDIA's H100 SXM data sheet (HBM bandwidth, dense float32 rate) and the
-# latency of one dependent float32 operation in cycles
-from diffmpc_tpu_torch.diagnostics.card import DEP_OP_CYCLES, F32_FLOPS_PER_S, HBM_BYTES_PER_S, ptxas_report
+try:
+    # NVIDIA's H100 SXM data sheet (HBM bandwidth, dense float32 rate), the
+    # latency of one dependent float32 operation in cycles, the CUDA-event timer
+    from diffmpc_tpu_torch.diagnostics.card import (
+        DEP_OP_CYCLES, F32_FLOPS_PER_S, HBM_BYTES_PER_S, cuda_ms, ptxas_report,
+    )
+except ModuleNotFoundError as e:
+    if e.name != "diffmpc_tpu_torch":
+        raise
+    # the script alone, without the port beside it, has nothing to drive
+    sys.exit("chip_smoke: the package diffmpc_tpu_torch is not importable: run this script from the "
+             "root of a checkout of the repository")
 # the dependent operations of one step of the fused iLQR kernel (ilqr.cuh,
 # pendulum.cuh), counted from the source as floors: forward, x_t -> x_t+1
 # (the piece kernels' rollout step), and backward, V_t+1 -> V_t (their sweep
@@ -175,6 +215,7 @@ LQR_N, LQR_M, LQR_T, LQR_B = 3, 2, 10, 32
 # fused solve at T=512
 T_LONG, T_FD, T_PEND, LONG_ITER = 128, 256, 512, 20
 B_MID = 4096  # the timing batch between config 2's published 128 and a full card
+PROBE_L = 8  # the probe's shard on each of the two ranks (the JAX test's (16,) array)
 
 
 def emit(**record) -> None:
@@ -243,7 +284,7 @@ def check_chaos(name: str, m: dict, min_equal: float = 0.95) -> None:
         raise AssertionError(f"{name}: kernel and plain version disagree: {m}")
 
 
-def witnessed_agreement(name: str, kernel, plain, exact) -> dict:
+def witnessed_agreement(name: str, kernel, plain, exact, ties: bool = False) -> dict:
     """A float32 solve of an ill-conditioned closed loop against its plain
     version, with the float64 plain version (``exact``) as the witness. A
     scenario is off from another solve when n_iters differ, the objective is
@@ -254,7 +295,10 @@ def witnessed_agreement(name: str, kernel, plain, exact) -> dict:
     plain version is, plus 0.5% of the batch (float32 rounding alone moves
     an ill-conditioned scenario; a wrong kernel moves most); on the scenarios
     where neither is off from float64, kernel and plain within twice the
-    limits of each other."""
+    limits of each other. With ``ties``, a scenario where kernel and plain
+    take the same number of iterations but another last line-search step
+    (phase 2's tie) is held as phase 2 holds it instead: converged on both
+    sides, controls within 5e-2."""
     k, p, e = ({f: getattr(r, f).double().cpu().numpy() for f in r._fields} for r in (kernel, plain, exact))
 
     def off(a, b):
@@ -264,15 +308,20 @@ def witnessed_agreement(name: str, kernel, plain, exact) -> dict:
 
     kp, pe, ke = off(k, p), off(p, e), off(k, e)
     calm = ~pe & ~ke
+    tie = calm & (k["n_iters"] == p["n_iters"]) & (k["alpha"] != p["alpha"]) if ties else np.zeros_like(calm)
     us = np.abs(k["us"] - p["us"]).max(axis=(0, 2))
     rel = np.abs(k["objs"] - p["objs"]) / np.maximum(np.abs(p["objs"]), 1e-6)
     out = dict(n_iters_equal_frac=float((k["n_iters"] == p["n_iters"]).mean()), off_plain=int(kp.sum()),
                plain_off_float64=int(pe.sum()), kernel_off_float64=int(ke.sum()),
-               us_max_abs=float(us[calm].max()), objs_max_rel=float(rel[calm].max()),
+               us_max_abs=float(us[calm & ~tie].max()), objs_max_rel=float(rel[calm].max()),
                converged_frac_kernel=float(k["converged"].mean()), converged_frac_plain=float(p["converged"].mean()),
                float64_mean_obj=float(e["objs"].mean()), mean_obj=float(k["objs"].mean()))
+    if ties:
+        out.update(ties=int(tie.sum()), ties_us_max_abs=float(us[tie].max()) if tie.any() else 0.0,
+                   ties_converged=bool(((k["converged"] > 0) & (p["converged"] > 0))[tie].all()))
     if out["n_iters_equal_frac"] < 0.95 or ke.sum() > 2 * pe.sum() + 0.005 * len(us) \
-            or out["us_max_abs"] > 1e-2 or out["objs_max_rel"] > 2e-3:
+            or out["us_max_abs"] > 1e-2 or out["objs_max_rel"] > 2e-3 \
+            or (ties and (out["ties_us_max_abs"] > 5e-2 or not out["ties_converged"])):
         raise AssertionError(f"{name}: {out}")
     return out
 
@@ -286,24 +335,6 @@ def check_tight(name: str, kernel, plain, tol: float = 1e-4) -> float:
     if worst > tol or not torch.equal(kernel.n_iters.cpu(), plain.n_iters.cpu()):
         raise AssertionError(f"{name}: max abs difference {worst} > {tol} or n_iters differ")
     return worst
-
-
-def cuda_ms(fn, loops: int, reps: int) -> float:
-    """Best over ``reps`` of the mean time of ``loops`` calls, by CUDA events."""
-    fn()  # warm up
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(loops):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end) / loops)
-    return best
 
 
 def random_kkt_inputs(B: int, device, seed: int = 0, tight_share: float = 0.2):
@@ -343,6 +374,24 @@ def main_path_kkt_inputs(B: int, device):
     gu = torch.where(tight, 0.0, gu)
     return (prob["C"], prob["c"], F, torch.cat([gx, gu], -1),
             torch.cat([sol.xs, sol.us], -1), tight)
+
+
+@contextlib.contextmanager
+def recording(module_name: str, name: str, calls: list):
+    """The function ``name`` of the module ``module_name`` replaced, while
+    inside, by a pass-through that keeps each call's arguments."""
+    module = importlib.import_module(module_name)
+    fn = getattr(module, name)
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(module, name, record)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
 
 
 def check_kkt(name: str, kernel, plain) -> float:
@@ -1314,12 +1363,11 @@ def nn_rollout_inputs(nn, B: int, seed: int, device, steps: int):
     return (prob["x_init"], C, c, None, None, res.K, res.k * scale, x_hat, u_hat), dict(u_lower=lo, u_upper=hi, dyn=nn)
 
 
-def learned_dynamics(device, smi: str, clock_mhz: float, background_build_seconds) -> list:
+def learned_dynamics(device, smi: str, clock_mhz: float) -> list:
     """Phases 22-25, the learned-dynamics path: the MLP's kernels against
     their plain versions, the path through mpc_solve with its gradient and
-    the non-fused loop, the imitation step, and the times. Before phase 24
-    it waits for the background build (``background_build_seconds()``).
-    Returns the kernels' records for the kernels line."""
+    the non-fused loop, the imitation step, and the times. Returns the
+    kernels' records for the kernels line."""
     from diffmpc_tpu_torch import MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.diagnostics.card import interleaved_ms
     from diffmpc_tpu_torch.models import PendulumDx
@@ -1509,8 +1557,6 @@ def learned_dynamics(device, smi: str, clock_mhz: float, background_build_second
             raise AssertionError(f"NN verbose=1 against the fused solve: {record}")
     emit(phase="nn_phase_23_seconds", seconds=time.perf_counter() - t0)
 
-    emit(phase="one_command_build", one_nvcc_command_seconds=background_build_seconds())
-
     # ---- 24. 40 imitation-learning steps of the MLP ----
     t0 = time.perf_counter()
     xs_stab = torch.tensor(stabilization_x_init(B_MAIN), device=device)
@@ -1618,6 +1664,133 @@ def learned_dynamics(device, smi: str, clock_mhz: float, background_build_second
     ]
 
 
+def data_parallel(device, smi: str) -> dict:
+    """Phases 26-29, the data-parallel path: the probe kernel against its
+    plain version; one rank over NCCL in this process; two ranks over gloo
+    sharing the card (diffmpc_tpu_torch.parallel.dryrun); the times. Returns
+    the probe kernel's record for the kernels line."""
+    from diffmpc_tpu_torch.ops.assoc_riccati import riccati_backward_time_sharded
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain
+    from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain
+    from diffmpc_tpu_torch.ops.cuda.shard_probe import shard_probe_cuda, shard_probe_plain
+    from diffmpc_tpu_torch.parallel import distributed, dryrun, make_mesh, shard_batch
+
+    # ---- 26. the probe kernel against its plain version ----
+    t0 = time.perf_counter()
+    probe = {}
+    for L in (1, 2, 3, 8, 16, B_ENSEMBLE):
+        x = torch.arange(L, dtype=torch.float32, device=device) ** 1.5
+        got, want = shard_probe_cuda(x), shard_probe_plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"probe kernel vs plain at L={L}: {got[:4].tolist()} vs {want[:4].tolist()}")
+        # the library call: the four reads summed by one reduction, broadcast
+        idx = torch.tensor([0, 0, min(1, L - 1), min(2, L - 1)], device=device)
+        probe[L] = dict(max_abs_err=0.0, kernel_ms=cuda_ms(lambda: shard_probe_cuda(x), 200, 3),
+                        plain_ms=cuda_ms(lambda: shard_probe_plain(x), 200, 3),
+                        library_ms=cuda_ms(lambda: x[idx].sum().expand(L).clone(), 200, 3), **bound(4 * L + 12, 3))
+        emit(phase="probe_vs_plain", L=L, card=smi, bit_equal=True, **probe[L])
+    emit(phase="probe_seconds", seconds=time.perf_counter() - t0)
+
+    # ---- 27. one rank over NCCL, in this process. The dry run sets the
+    # launch counts to 0 before each of its parts (probe, ensemble step,
+    # solve, imitation steps) and reads them after; check() holds them ----
+    t0 = time.perf_counter()
+    spec = dryrun.make_spec(device, B=B_ENSEMBLE, T=T, lqr_iter=LQR_ITER, il_batch=B_MAIN, il_steps=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(f"file://{tmp}/store", 1, 0, device=device)
+        try:
+            mesh = make_mesh()
+            report = dryrun.check([dryrun.rank_dryrun(mesh, spec)], dryrun.single_process(spec, device), spec)
+            emit(phase="dp_world_1", B=B_ENSEMBLE, il_batch=B_MAIN, **report)
+            # the iLQR and KKT kernels on the step's own inputs: config 5's
+            # per-scenario params (the kernel's params_stride 3 path) at
+            # B=65,536, recorded from one step on the mesh, each run again
+            # beside its plain version
+            ilqr_calls, kkt_calls = [], []
+            step, state, x, u = dryrun.ensemble_step(spec, device, mesh)
+            with recording("diffmpc_tpu_torch.mpc", "ilqr_solve_fused", ilqr_calls), \
+                    recording("diffmpc_tpu_torch.ops.lqr_step", "kkt_backward_fused", kkt_calls):
+                step(state, x, u)
+            (args, kw), = ilqr_calls
+            plain_kw = {k: v for k, v in kw.items() if k != "use_cuda"}
+            x0, C, c, dyn, lo, hi = args
+            with torch.no_grad():
+                # phase 2's chaos rule on the first B_MAIN scenarios. At the
+                # full batch float32 alone moves ~0.2% of the swing-ups to
+                # another basin (the shared-params kernel too), so the
+                # float64 plain solve is the witness, ties held as phase 2's
+                rows = (x0[:B_MAIN], C[:, :B_MAIN], c[:, :B_MAIN], dyn.replace(params=dyn.params[:B_MAIN]),
+                        lo[:, :B_MAIN], hi[:, :B_MAIN])
+                m = compare(ilqr_solve_fused(*rows, **kw), ilqr_solve_plain(*rows, **plain_kw))
+                emit(phase="ensemble_kernel_vs_plain", B=B_MAIN, params=list(rows[3].params.shape), T=T,
+                     lqr_iter=kw["lqr_iter"], **m)
+                check_chaos(f"config 5's step, per-scenario params, its first {B_MAIN} scenarios", m)
+                full = (ilqr_solve_fused(*args, **kw), ilqr_solve_plain(*args, **plain_kw))
+                exact = ilqr_solve_plain(*(a.to(torch.float64) for a in args), **plain_kw)
+                m = witnessed_agreement("config 5's step, per-scenario params", *full, exact, ties=True)
+                emit(phase="ensemble_kernel_vs_plain", B=B_ENSEMBLE, params=list(dyn.params.shape), T=T,
+                     lqr_iter=kw["lqr_iter"], witness="float64 plain", **m, chaos_rule=compare(*full))
+                # the same rule on the shared-params kernel (phase 2's
+                # problem) at the same batch, for comparison
+                prob = problem(B_ENSEMBLE, device)
+                knobs = dict(lqr_iter=LQR_ITER, eps=EPS)
+                full = (ilqr_solve_fused(**prob, **knobs), ilqr_solve_plain(**prob, **knobs))
+                exact = ilqr_solve_plain(**{k: v.to(torch.float64) for k, v in prob.items()}, **knobs)
+                m = witnessed_agreement("shared params", *full, exact, ties=True)
+                emit(phase="shared_kernel_vs_plain", B=B_ENSEMBLE, T=T, **knobs, witness="float64 plain", **m,
+                     chaos_rule=compare(*full))
+            (args, kw), = kkt_calls
+            plain_kw = {k: v for k, v in kw.items() if k != "use_cuda"}
+            err = check_kkt("config 5's step", kkt_backward_fused(*args, **kw), kkt_backward_plain(*args, **plain_kw))
+            emit(phase="ensemble_kkt_vs_plain", B=B_ENSEMBLE, tight_share=float(args[5].float().mean()),
+                 max_abs_err=err, tol="1e-4 * max(1, max|plain|)")
+            # the time-sharded Riccati at D=1 against the serial kernel's free
+            # mode, within the blocked kernel's limit (5e-4 of the scale)
+            time_mesh = make_mesh(axis="time")
+            for steps, B, n, m in ((T, B_MAIN, 3, 1), (T_LONG, BOX_B, BOX_N, BOX_M)):
+                C, c, F, f, _ = random_lqr_torch(steps, B, n, m, device, seed=2600 + steps)
+                shard = shard_batch(time_mesh, (C, c, F, f))
+                err, scale = max_err(riccati_backward_time_sharded(time_mesh, *shard, n),
+                                     ric.riccati_backward_cuda(C, c, F, f, n))
+                emit(phase="time_sharded_riccati", D=1, backend=report["backend"], T=steps, B=B, n=n, m=m,
+                     vs_serial_max_abs=err, tol="5e-4 * max(1, max|serial|)", scale=scale)
+                if any(err[k] > 5e-4 * scale[k] for k in err):
+                    raise AssertionError(f"time-sharded Riccati vs the serial kernel: {err}, scale {scale}")
+            # ---- 29. the mesh's own cost: its step against the step without
+            # one, in strict alternation; the step's all_reduce alone ----
+            on_mesh, alone = (dryrun.ensemble_step(spec, device, mh) for mh in (mesh, None))
+            t_mesh = t_alone = float("inf")
+            for _ in range(5):
+                t_mesh = min(t_mesh, cuda_ms(lambda: on_mesh[0](*on_mesh[1:]), 5, 1))
+                t_alone = min(t_alone, cuda_ms(lambda: alone[0](*alone[1:]), 5, 1))
+            emit(phase="time_dp_world_1", backend=report["backend"], B=B_ENSEMBLE, card=smi, step_ms_on_mesh=t_mesh,
+                 step_ms_without_mesh=t_alone, mesh_cost_ms=t_mesh - t_alone,
+                 all_reduce_ms=dryrun.all_reduce_ms(mesh, 200))
+        finally:
+            distributed.shutdown()
+    emit(phase="dp_world_1_seconds", seconds=time.perf_counter() - t0)
+
+    # ---- 28. two ranks over gloo sharing the card (NCCL refuses two ranks
+    # on one device), 32,768 scenarios each; each rank times its steps ----
+    t0 = time.perf_counter()
+    two = dryrun.run(2, device, B=B_ENSEMBLE, T=T, lqr_iter=LQR_ITER, il_batch=B_MAIN, il_steps=3)
+    times = two.pop("times")
+    emit(phase="dp_two_ranks", B=B_ENSEMBLE, il_batch=B_MAIN, **two)
+    # ---- 29. the two ranks' step times: two processes taking turns on one
+    # card, not a scaling figure ----
+    emit(phase="time_dp_two_ranks", card=smi, sharing_one_card=True, ranks=times,
+         seconds=time.perf_counter() - t0)
+    path_launches = sum(r["probe"] for run in (report, two) for r in run["launches"]["probe"])
+    row = probe[PROBE_L]
+    return dict(name="shard_probe", route="cuda", source="diffmpc_tpu_torch/csrc/shard_probe.cu",
+                replaces="tests/test_pallas_sharding.py:221", launches=path_launches,
+                max_abs_err=max(v["max_abs_err"] for v in probe.values()), ms=row["kernel_ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA device", file=sys.stderr)
@@ -1652,42 +1825,9 @@ def main() -> int:
     return run_phases(device, kind, smi, clock_mhz)
 
 
-class OneCommandBuild:
-    """One nvcc command over every source, started now in the background;
-    :meth:`seconds` waits for it and gives its wall time, :meth:`stop` ends
-    it if it still runs."""
-
-    def __init__(self, build, tmp: str):
-        self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", build.CSRC,
-             "-o", os.path.join(tmp, "one_command.so"), *build.sources()],
-            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
-        )
-        self.t1 = None
-        self.waiter = threading.Thread(target=self._wait, daemon=True)
-        self.waiter.start()
-
-    def _wait(self) -> None:
-        self.proc.wait()
-        self.t1 = time.perf_counter()
-
-    def seconds(self) -> float:
-        self.waiter.join(timeout=900)
-        if self.proc.returncode != 0:
-            raise RuntimeError(f"the one-command nvcc build failed: exit {self.proc.returncode}")
-        return self.t1 - self.t0
-
-    def stop(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
-
-
 def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
-    """Phases 2-25, then the kernels line and the ok line."""
+    """Phases 2-29, then the kernels line and the ok line."""
     from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
-    from diffmpc_tpu_torch.csrc import build
     from diffmpc_tpu_torch.models import PendulumDx
     from diffmpc_tpu_torch.ops.cuda import riccati as ric
     from diffmpc_tpu_torch.ops.cuda import rollout as rol
@@ -2095,16 +2235,8 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
 
     twins = long_horizon(device, smi)
     chain = riccati_chain(device, smi, times[B_MAIN][0] / int(results[B_MAIN][0].n_iters.max()))
-    # the same sources by one nvcc command, which compiles them one after
-    # another: the set-up time the parallel build saves. It runs in the
-    # background during phases 22-23, which time nothing (it slows the
-    # host-bound solves by half), and is read before phase 24.
-    with tempfile.TemporaryDirectory() as tmp:
-        one_command = OneCommandBuild(build, tmp)
-        try:
-            learned = learned_dynamics(device, smi, clock_mhz, one_command.seconds)
-        finally:
-            one_command.stop()
+    learned = learned_dynamics(device, smi, clock_mhz)
+    probe_row = data_parallel(device, smi)
 
     print(smi, flush=True)
     emit(kernels=[
@@ -2159,6 +2291,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         *twins,
         *chain,
         *learned,
+        probe_row,
     ])
     emit(ok=True, device=dict(platform="gpu", kind=kind, count=torch.cuda.device_count()))
     return 0

@@ -1,6 +1,6 @@
 """What the diagnostics measure with: the card's published rates, its clock,
-interleaved CUDA-event timing of kernels alone on staged inputs, and the
-registers and spills that ptxas reports for each kernel."""
+CUDA-event timing of a call and, interleaved, of kernels alone on staged
+inputs, and the registers and spills that ptxas reports for each kernel."""
 
 from __future__ import annotations
 
@@ -65,6 +65,23 @@ def ptxas_report(log: str, match: str = "") -> dict:
         elif m := re.search(r"Used (\d+) registers", line):
             out.setdefault(entry, {})["registers"] = int(m.group(1))
     return out
+
+
+def cuda_ms(fn, loops: int, reps: int = 3) -> float:
+    """Best over ``reps`` of the mean time of ``loops`` calls of ``fn``, by
+    CUDA events, after one call to warm up."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(loops):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / loops)
+    return best
 
 
 def interleaved_ms(stagers: dict, rounds: int, loops: int) -> dict:

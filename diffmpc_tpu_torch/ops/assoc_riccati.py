@@ -32,8 +32,9 @@ CUDA kernel (``csrc/riccati_blocked.cuh``) runs in entry form.
   order as in the JAX package.
 - :func:`riccati_backward_blocked`: ``n_blocks`` blocks of the horizon
   suffix-composed side by side, then joined: sequential depth ``T/D + D``.
-- :func:`riccati_backward_time_sharded`: the same blocks over a device mesh;
-  not ported yet (it raises).
+- :func:`riccati_backward_time_sharded`: the same blocks over the ranks of a
+  ``"time"`` mesh, one block a rank, each rank given only its block's time
+  slice; the block totals are exchanged by one ``all_gather``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..utils.batch import bmm, bmv, btrans, symmetrize
 from .cuda.riccati import RiccatiResult
@@ -241,11 +243,67 @@ def riccati_backward_blocked(
                          torch.zeros((T, B), dtype=torch.int32, device=device))
 
 
-def riccati_backward_time_sharded(mesh, C, c, F, f, n_state, *, reg=1e-9, time_axis="time"):
-    """The horizon-sharded deployment of :func:`riccati_backward_blocked`
-    over a device mesh. Not ported yet: it comes with ``parallel/``
-    (``torch.distributed`` init and collectives), ROADMAP.md queue 1 item 9."""
-    raise NotImplementedError(
-        "riccati_backward_time_sharded needs a device mesh: it comes with parallel/ "
-        "(ROADMAP.md, queue 1 item 9); riccati_backward_blocked runs the same blocks on one device"
+def riccati_backward_time_sharded(
+    mesh,
+    C: torch.Tensor,
+    c: torch.Tensor,
+    F: torch.Tensor,
+    f: Optional[torch.Tensor],
+    n_state: int,
+    *,
+    reg: float = 1e-9,
+    time_axis: str = "time",
+) -> RiccatiResult:
+    """The horizon-sharded parallel-in-time Riccati: the blocks of
+    :func:`riccati_backward_blocked` over the ranks of ``mesh``
+    (:func:`~diffmpc_tpu_torch.parallel.make_mesh` with ``axis=time_axis``),
+    rank ``r`` owning the ``r``-th block of the horizon.
+
+    ``C, c, F, f`` are this rank's time slice, ``(L, B, ...)``: the horizon's
+    shard on dim 0 (:func:`~diffmpc_tpu_torch.parallel.shard_batch` of the
+    whole problem, which raises when ``T`` does not divide over the ranks).
+    Every rank
+
+    1. suffix-composes its own block's elements (the terminal zeroing only on
+       rank ``D - 1``, which holds the last step),
+    2. ``all_gather``s the ``D`` block totals (one ``(B, n, n)``-sized element
+       a rank), suffix-composes them and takes its right neighbour's,
+    3. combines each local suffix with it in one batched combine, and
+       recovers its steps' gains.
+
+    Sequential depth ``T/D + D``. Unconstrained only, like
+    :func:`riccati_backward_assoc`. Returns this rank's time slice of the
+    gains, ``K (L, B, m, n)`` and ``k (L, B, m)``."""
+    if mesh.axis != time_axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}; the horizon shards over {time_axis!r}")
+    n = n_state
+    L, B, m = C.shape[0], C.shape[1], C.shape[-1] - n
+    D, rank = mesh.size, mesh.rank
+    dtype, device = C.dtype, C.device
+    if f is None:
+        f = torch.zeros((L, B, n), dtype=dtype, device=device)
+
+    # 1. the local suffix compositions: seq[t] = e_t o ... o e_(block's last)
+    elems = _build_elements(C, c, F, f, n, reg=reg, zero_last=rank == D - 1)
+    ident = _identity_element(B, n, dtype, device)
+    total, seq = _reverse_scan(elems, ident)
+    # 2. every rank's block total, packed into one all_gather
+    flat = torch.cat([e.reshape(B, -1) for e in total], -1)
+    parts = [torch.empty_like(flat) for _ in range(D)]
+    dist.all_gather(parts, flat, group=mesh.group)
+    sizes = [e[0].numel() for e in total]
+    totals = tuple(
+        torch.stack([p.split(sizes, -1)[j] for p in parts]).reshape((D,) + total[j].shape) for j in range(5)
     )
+    # rights[i] = totals[i] o ... o totals[D-1]; this rank's right neighbour's
+    _, rights = _reverse_scan(totals, ident)
+    my_right = tuple(r[rank + 1] if rank + 1 < D else i for r, i in zip(rights, ident))
+    # 3. the global suffix of every local step in one batched combine
+    glob = _combine(seq, tuple(r[None].expand((L,) + r.shape) for r in my_right))
+    _, _, _, eta_g, J_g = glob
+    _, _, _, eta_r, J_r = my_right
+    V_next = torch.cat([J_g[1:], J_r[None]])
+    v_next = torch.cat([-eta_g[1:], -eta_r[None]])
+    K, k = _gains_from_value(C, c, F, f, V_next, v_next, n, reg)
+    return RiccatiResult(K, k, torch.ones((L, B, m), dtype=torch.bool, device=device),
+                         torch.zeros((L, B), dtype=torch.int32, device=device))

@@ -26,7 +26,10 @@ and the rollout's objective within 1e-5 of the batch's largest, at reps 1
 and 9. The MLP step (learned dynamics): the fused kernel with and without
 the pre-pass under the iLQR rules above, the line search and its twin
 within 1e-5 of the batch's largest objective with ``alpha`` equal, the
-weight gradients within 1e-3 of their max-abs of the CPU's.
+weight gradients within 1e-3 of their max-abs of the CPU's. The
+kernel-under-the-mesh probe equals its plain version bit for bit; the dry
+run of ``parallel/dryrun.py`` on a one-rank NCCL mesh equals the same steps
+without a mesh exactly (one rank's ``all_reduce`` is the identity).
 """
 
 import dataclasses
@@ -46,7 +49,10 @@ from diffmpc_tpu_torch.ops.cuda.riccati import riccati_backward_cuda, riccati_ba
 from diffmpc_tpu_torch.ops.cuda.riccati_stream import riccati_backward_stream_cuda  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.rollout import linesearch_rollout_cuda, linesearch_rollout_plain  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.rollout_stream import linesearch_rollout_stream_cuda  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda.shard_probe import shard_probe_cuda, shard_probe_plain  # noqa: E402
 from diffmpc_tpu_torch.ops.lqr import lqr_rollout  # noqa: E402
+from diffmpc_tpu_torch.parallel import dryrun  # noqa: E402
+from torch_dist_cases import world_one_mesh  # noqa: E402
 from torch_parity import (  # noqa: E402
     as_numpy,
     assert_chaos,
@@ -554,3 +560,24 @@ def test_nn_mpc_solve_and_weight_gradients_on_the_card(device):
     for g, w in zip(card, grads("cpu")):
         assert g.device.type == device.type and bool(w.abs().max() > 0)
         torch.testing.assert_close(g.cpu(), w, atol=1e-3 * float(w.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 8, 65536])
+def test_probe_kernel_matches_plain(device, L):
+    x = torch.arange(L, dtype=torch.float32, device=device) ** 1.5
+    before = shard_probe_cuda.launches
+    got = shard_probe_cuda(x)
+    torch.cuda.synchronize()
+    assert shard_probe_cuda.launches == before + 1
+    assert torch.equal(got, shard_probe_plain(x))
+
+
+def test_world_one_nccl_dryrun_equals_the_steps_without_a_mesh(device, tmp_path):
+    """The dry run's ensemble step, fused solve, imitation steps and probe
+    on a one-rank NCCL mesh, held by ``dryrun.check`` to the same without a
+    mesh: equal exactly, with one launch of each kernel a step."""
+    spec = dryrun.make_spec(device, B=4096, il_batch=256, il_steps=2)
+    with world_one_mesh(tmp_path, device=device) as mesh:
+        rec = dryrun.rank_dryrun(mesh, spec)
+    report = dryrun.check([rec], dryrun.single_process(spec, device), spec)
+    assert report["backend"] == "nccl" and report["solve_scenarios_bit_equal"] == 4096

@@ -23,7 +23,8 @@ host builds bit for bit: the same g++ arithmetic in the same order. The
 depth-blocked sweep (``csrc/riccati_blocked.cuh``) holds its ``K, k`` within
 ``1e-5 * max(1, max|plain|)``; the piece kernels (``csrc/riccati_pieces.cuh``)
 their ``K, k`` within ``1e-4 * max(1, max|plain|)`` and the rollout's
-objective within 1e-5 relative. The MLP step (``csrc/nn_mlp.cuh``, every
+objective within 1e-5 relative. The kernel-under-the-mesh probe
+(``csrc/shard_probe.cuh``) equals its plain version bit for bit. The MLP step (``csrc/nn_mlp.cuh``, every
 activation) inside the solve and the line search holds the same limits; the
 solve's HoistLin pre-pass equals the solve without it bit for bit, the
 MLP's and the pendulum's.
@@ -77,6 +78,7 @@ from diffmpc_tpu_torch.ops.cuda.rollout import (  # noqa: E402
     linesearch_rollout_plain,
     run_staged_rollout,
 )
+from diffmpc_tpu_torch.ops.cuda.shard_probe import shard_probe_plain  # noqa: E402
 from diffmpc_tpu_torch.ops.linearize import linearize_dynamics  # noqa: E402
 from diffmpc_tpu_torch.ops.lqr import lqr_rollout  # noqa: E402
 from diffmpc_tpu_torch.utils.batch import bmv  # noqa: E402
@@ -105,6 +107,7 @@ SHIM = r"""
 #include "riccati_stream.cuh"
 #include "rollout.cuh"
 #include "rollout_stream.cuh"
+#include "shard_probe.cuh"
 
 extern "C" int diffmpc_ilqr_solve_pendulum_host(const IlqrArgs* a, const PendulumEnv* env) {
   for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<3, 1>(*a, *env, b);
@@ -276,6 +279,11 @@ extern "C" int diffmpc_riccati_pieces_host(const PieceArgs* a, const PendulumEnv
       return 0;
   }
   return 1;
+}
+
+extern "C" int diffmpc_shard_probe_host(const float* x, float* out, int L) {
+  shard_probe_fill(x, out, L, 0, 1);
+  return 0;
 }
 """
 
@@ -845,3 +853,16 @@ def test_build_keys_library_by_sources_and_reports_nvcc_errors(tmp_path, monkeyp
     assert so == build.library_path() and os.path.exists(so)
     assert os.path.basename(so).startswith("libdiffmpc_kernels-")
     assert build.build() == (so, "")  # built once
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 8, 16, 1000])
+def test_host_build_shard_probe_matches_plain(host_lib, L):
+    """Three float32 adds in the body's order, the shard's clamp included:
+    bit-equal."""
+    fn = host_lib.diffmpc_shard_probe_host
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    x = torch.tensor(np.random.default_rng(L).normal(size=L), dtype=torch.float32)
+    out = torch.full_like(x, float("nan"))
+    assert fn(x.data_ptr(), out.data_ptr(), L) == 0
+    assert torch.equal(out, shard_probe_plain(x))

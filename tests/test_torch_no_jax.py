@@ -31,7 +31,8 @@ new = ["ops.cuda.riccati", "ops.cuda.rollout", "ops.pnqp", "ops.smallchol", "ops
        "ops.cuda.horizon", "ops.cuda.riccati_stream", "ops.cuda.rollout_stream", "ops.cuda.kkt_stream",
        "ops.assoc_riccati", "ops.cuda.riccati_blocked", "ops.cuda.riccati_pieces", "diagnostics.card",
        "diagnostics.ab_blocked_ilp", "diagnostics.profile_riccati_pieces", "diagnostics.ab_nn_reread",
-       "models.dynamics", "parallel.training", "convert"]
+       "models.dynamics", "parallel.training", "convert", "parallel.mesh", "parallel.distributed",
+       "parallel.dryrun", "ops.cuda.shard_probe", "utils.tree"]
 assert all(f"diffmpc_tpu_torch.{m}" in names for m in new), names
 assert "diffmpc_tpu" not in sys.modules and "jax" in sys.modules
 from diffmpc_tpu_torch.models import PendulumDx

@@ -39,6 +39,8 @@ from diffmpc_tpu_torch.ops import smallchol as tsc  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda import riccati_blocked as rb  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.riccati import riccati_backward_plain  # noqa: E402
 from oracles import random_lqr_problem  # noqa: E402
+from diffmpc_tpu_torch.parallel import shard_batch  # noqa: E402
+from torch_dist_cases import world_one_mesh  # noqa: E402
 
 
 @functools.partial(jax.jit, static_argnames=("n", "block"))
@@ -170,10 +172,19 @@ def test_blocked_matrix_form_requires_divisible_horizon():
         tar.riccati_backward_blocked(*targs, 3, n_blocks=4)
 
 
-def test_time_sharded_raises_until_parallel_is_ported():
+def test_time_sharded_raises_until_parallel_is_ported(tmp_path):
+    """The time-sharded sweep on a ``"time"`` mesh of one rank (a gloo group
+    of this process), given its shard of the horizon, is the blocked sweep of
+    one block; on a mesh named otherwise it raises."""
     _, targs = _f64(np.random.default_rng(501), 8, 2, 3, 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tar.riccati_backward_time_sharded(None, *targs, 3)
+    with world_one_mesh(tmp_path, axis="time") as mesh:
+        got = tar.riccati_backward_time_sharded(mesh, *shard_batch(mesh, targs, 0), 3)
+    want = tar.riccati_backward_blocked(*targs, 3, n_blocks=1)
+    for name in ("K", "k"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), atol=1e-12, rtol=0)
+    assert bool(got.free_mask.all()) and got.K.shape == (8, 2, 1, 3)
+    with world_one_mesh(tmp_path) as mesh, pytest.raises(ValueError, match="'time'"):
+        tar.riccati_backward_time_sharded(mesh, *targs, 3)
 
 
 def _elements(seed, n, m, B=16):

@@ -238,8 +238,43 @@ def test_pendulum_sysid_recovers_params():
 
 
 def test_data_parallel_options_raise():
-    config = tdm.MPCConfig(n_state=3, n_ctrl=1, T=T)
-    adam = functools.partial(torch.optim.Adam, lr=5e-2)
-    for kw in (dict(mesh=object()), dict(params_batch_axes=0), dict(task_batch_axes=None)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            make_dp_train_step(config, lambda prm: None, adam, **kw)
+    """``params_batch_axes`` and ``task_batch_axes`` on one device: leaves
+    other than 0 / None (params) and a non-negative int / None (task) raise;
+    per-scenario params ``(B, 3)`` with a per-scenario goal cost vector
+    ``(T, B, 4)`` take the step of JAX's ``make_dp_train_step`` (mesh None,
+    its XLA path), in float64 at ``lqr_iter=1, eps=0``: loss within rtol 1e-9,
+    params within 1e-7."""
+    config = tdm.MPCConfig(n_state=3, n_ctrl=1, T=T, lqr_iter=1, eps=0.0,
+                           exit_unconverged=False, detach_unconverged=False)
+    sgd = functools.partial(torch.optim.SGD, lr=1e-2)
+    with pytest.raises(ValueError, match="params_batch_axes"):
+        make_dp_train_step(config, lambda prm: None, sgd, params_batch_axes=True)
+    with pytest.raises(ValueError, match="task_batch_axes"):
+        make_dp_train_step(config, lambda prm, task: None, sgd, task_batch_axes=-1)
+
+    rng = np.random.default_rng(56)
+    x = _x_init(56).astype(np.float64)
+    params = TRUE.astype(np.float64) * rng.uniform(0.9, 1.1, (B, 3))
+    goal = rng.uniform(-0.4, 0.4, B)
+    c = np.ascontiguousarray(np.broadcast_to(
+        -np.stack([np.cos(goal), np.sin(goal), 0 * goal, 0 * goal], -1) * Q.astype(np.float64), (T, B, 4)))
+    C = np.diag(Q.astype(np.float64))
+    u = np.zeros((T, B, 1))
+
+    step = make_dp_train_step(
+        config, lambda prm, task: (tdm.QuadCost(torch.tensor(C), task), PendulumDx(params=prm)), sgd, None,
+        -2.0, 2.0, params_batch_axes=0, task_batch_axes=1,
+    )
+    state, stats = step(init_train_state(torch.tensor(params), sgd), torch.tensor(x), torch.tensor(u), torch.tensor(c))
+    jconfig = jdm.MPCConfig(n_state=3, n_ctrl=1, T=T, lqr_iter=1, eps=0.0, exit_unconverged=False,
+                            detach_unconverged=False, dtype=jnp.float64)
+    opt = optax.sgd(1e-2)
+    jstep = jax_make_dp_train_step(
+        jconfig, lambda prm, task: (jdm.QuadCost(jnp.asarray(C), task), JaxPendulumDx(params=prm)), opt, None,
+        -2.0, 2.0, params_batch_axes=0, task_batch_axes=1,
+    )
+    jstate, jstats = jstep(jax_init_train_state(jnp.asarray(params), opt), *map(jnp.asarray, (x, u, c)))
+    assert state.params.shape == (B, 3)
+    np.testing.assert_allclose(state.params.detach().numpy(), np.asarray(jstate.params), atol=1e-7, rtol=0)
+    np.testing.assert_allclose(float(stats.loss), float(jstats.loss), rtol=1e-9)
+    np.testing.assert_allclose(float(stats.grad_norm), float(jstats.grad_norm), rtol=1e-6)

@@ -9,17 +9,25 @@ Phases, one line of output each (JSON where it carries numbers):
 0. device: the card's name and power limit (nvidia-smi), or exit non-zero
    when there is no CUDA device; nothing runs on the CPU instead;
 1. build: the CUDA kernels, built with nvcc from diffmpc_tpu_torch/csrc
-   (one nvcc per source, in parallel), its seconds and each kernel's
-   registers and spills;
+   (one nvcc per source, in parallel), its seconds, each source's, and each
+   kernel's registers and spills;
 2. kernel vs plain: the fused iLQR kernel against its plain PyTorch version
    on the card, at the main-path problem (pendulum, T=20, B=1024, and the
-   ragged B=1000; lqr_iter=10, eps=1e-5), one iteration at eps=0, and a
-   warm start;
+   ragged B=1000; lqr_iter=10, eps=1e-5), one iteration at eps=0, a warm
+   start, and unroll=True (the exact-power ladder: every chosen alpha one of
+   the float32 powers decay**k);
 3. main path: the port's mpc_solve at the flagship configuration
    (pendulum, goal cost, box +-2, T=20, B=1024, lqr_iter=10), with the
    kernel's launch count, against the same solve on the CPU;
 4. time: the solve at B=1024 and B=65,536, kernel and plain version, by
-   CUDA events (best of several loops);
+   CUDA events (best of several loops), with the kernel's bound at both;
+4b. iLQR lanes (diffmpc_tpu_torch.diagnostics.ab_ilqr_lanes): the fused
+   kernel at each built lane count L (threads per scenario) on the same
+   staged inputs, the pendulum at B=1024, 1000 and 65,536 and the bench's
+   MLP (phase 22's) at B=1024 and 65,536 without and with hoist_lin: per L
+   the share of scenarios bit-equal to L = 1 on xs, us, objs, n_iters and
+   alpha (raises below 100%) and the kernel's time alone by CUDA events,
+   the wrapper's pick (ops/cuda/ilqr.py, ilqr_lanes) marked;
 5. KKT kernel vs plain: the fused KKT backward against its plain PyTorch
    version on the card at T=20, B=1024 and the ragged B=1000, on the main
    path's own residuals (the solved trajectory, its linearization and the
@@ -126,9 +134,9 @@ Phases, one line of output each (JSON where it carries numbers):
    off, the near-upright regime of tests/test_imitation.py:79-83): a finite
    loss that ends below where it started, grad_norm > 0;
 25. time: the MLP's fused kernel alone at B=1024 and 65,536, hoist_lin off
-   and on, interleaved by CUDA events, with the bytes bound and the chain
-   floor; mpc_solve and solve + gradient in strict alternation; the rollout
-   kernel and twin alone; each plain version once.
+   and on, at the wrapper's lane count, interleaved by CUDA events, with the
+   bytes bound and the chain floor; mpc_solve and solve + gradient in strict
+   alternation; the rollout kernel and twin alone; each plain version once.
 26. the kernel-under-the-mesh probe (csrc/shard_probe.cu, the TPU kernel of
    tests/test_pallas_sharding.py:221) against its plain version, bit-equal,
    at shards of 1, 2, 3, 8, 16 and 65,536, with its time, its plain
@@ -206,6 +214,7 @@ from diffmpc_tpu_torch.diagnostics.profile_riccati_pieces import SWEEP_STEP_DEPT
 T = 20
 B_MAIN, B_RAGGED, B_ENSEMBLE = 1024, 1000, 65536
 LQR_ITER, EPS = 10, 1e-5
+N_ALPHA = 10  # the fused solves' max_linesearch_iter (the default); their bounds count it
 TRUE_PARAMS, PARAMS0 = (10.0, 1.0, 1.0), (8.0, 1.25, 0.8)
 # BASELINE.json config 2 (box-DDP) and config 1 (unconstrained LQR)
 BOX_N, BOX_M, BOX_B, BOX = 4, 2, 128, 0.6
@@ -464,10 +473,30 @@ def kkt_bytes(B: int, n: int, m: int, steps: int = T) -> int:
 def ilqr_chain_ms(n_iters: int, clock_mhz: float) -> float:
     """The fused iLQR solve's serial chain for its slowest scenario: the
     initial rollout, then per iteration the backward sweep, the ladder's
-    rollouts (independent of each other: one rollout's depth), the pick and
-    the replay, each dependent operation at DEP_OP_CYCLES."""
-    depth = T * ILQR_FWD_DEPTH + n_iters * (T * (ILQR_BACK_DEPTH + 2 * ILQR_FWD_DEPTH) + 1)
+    rollouts (independent of each other: one rollout's depth; the chosen
+    one's trajectory is kept, so no replay is needed) and the pick, each
+    dependent operation at DEP_OP_CYCLES."""
+    depth = T * ILQR_FWD_DEPTH + n_iters * (T * (ILQR_BACK_DEPTH + ILQR_FWD_DEPTH) + 1)
     return depth * DEP_OP_CYCLES / (clock_mhz * 1e6) * 1e3
+
+
+def ilqr_solve_bound(res, B: int, n_alpha: int, clock_mhz: float) -> dict:
+    """The fused pendulum solve's bound at batch ``B`` from its result
+    ``res`` with a ladder of ``n_alpha`` steps (``max_linesearch_iter``): the
+    bytes it must move (C's upper triangle, c, the bounds, x_init and the
+    params in; xs, us and the stats out), its operations (the initial
+    rollout, then for the iterations the run took, per step: the sweep's
+    Riccati step, ~200 for the linearization and the delta cost, the
+    ladder's ``n_alpha`` rollouts), or its slowest scenario's serial chain,
+    whichever is largest."""
+    per_iter = riccati_step_ops(3, 1, "box") + 200 + n_alpha * rollout_step_ops(3, 1)
+    n_ops = B * T * rollout_step_ops(3, 1) + float(res.n_iters.sum()) * T * per_iter
+    out = bound(4 * B * (T * (tri(4) + 4 + 2 + 3 + 1) + 9), n_ops)
+    chain = ilqr_chain_ms(int(res.n_iters.max()), clock_mhz)
+    out.update(chain_ms=chain)
+    if chain > out["bound_ms"]:
+        out.update(bound_ms=chain, bound_by="operations")  # dependent ones, at their latency
+    return out
 
 
 def qp_objective(Quu, qu, k):
@@ -1308,23 +1337,26 @@ def nn_step_depth(nn) -> int:
     return sum(a + 1 for a in w[:-1]) + len(w) - 2 + 1
 
 
-def nn_ilqr_bound(nn, B: int, steps: int, sum_iters: float, max_iters: int, clock_mhz: float) -> dict:
-    """The fused solve's bound with the MLP step: its bytes (C's upper
-    triangle, c, the bounds per step, x_init and the weights in; xs, us and
-    the six stats out), its operations for the iterations this run took
-    (``sum_iters``, summed over the scenarios; per step: the sweep's Riccati
-    step, the Jacobian by dual numbers, the delta cost; then the ten ladder
-    rollouts and the replay), or its slowest scenario's serial chain,
-    whichever is largest."""
+def nn_ilqr_bound(nn, B: int, steps: int, sum_iters: float, max_iters: int, n_alpha: int, clock_mhz: float) -> dict:
+    """The fused solve's bound with the MLP step and a ladder of ``n_alpha``
+    steps: its bytes (C's upper triangle, c, the bounds per step, x_init and
+    the weights in; xs, us and the six stats out), its operations (the
+    initial rollout, then for the iterations this run took, ``sum_iters``
+    summed over the scenarios, per step: the sweep's Riccati step, the
+    Jacobian by dual numbers, the delta cost, the ladder's rollouts), or its
+    slowest scenario's serial chain (the initial rollout, then per iteration
+    the sweep, one rollout's depth for the whole ladder and the pick: the
+    chosen trajectory is kept, not replayed), whichever is largest."""
     from diffmpc_tpu_torch.diagnostics.card import bound as card_bound, chain_ms
 
     n, m, nm = 3, 1, 4
     n_bytes = 4 * B * (steps * (tri(nm) + nm + 2 * m + n + m) + n + 6) + 4 * nn.n_params
     roll = rollout_step_ops(n, m) - 2 * n * nm + nn_step_ops(nn)
-    per_step = riccati_step_ops(n, m, "box") + nn_step_ops(nn, tangents=nm) + 2 * nm * nm + 11 * roll
+    per_step = riccati_step_ops(n, m, "box") + nn_step_ops(nn, tangents=nm) + 2 * nm * nm + n_alpha * roll
     fwd_depth = 5 + nn_step_depth(nn)  # the control and its clip, then the step
-    depth = steps * fwd_depth + max_iters * (steps * (ILQR_BACK_DEPTH + 2 * fwd_depth) + 1)
-    return card_bound(n_bytes, sum_iters * steps * per_step, chain_ms(depth, clock_mhz))
+    depth = steps * fwd_depth + max_iters * (steps * (ILQR_BACK_DEPTH + fwd_depth) + 1)
+    n_ops = B * steps * roll + sum_iters * steps * per_step
+    return card_bound(n_bytes, n_ops, chain_ms(depth, clock_mhz))
 
 
 def nn_rollout_bound(nn, B: int, steps: int, n_alpha: int = 10) -> dict:
@@ -1589,19 +1621,25 @@ def learned_dynamics(device, smi: str, clock_mhz: float) -> list:
     # ---- 25. time ----
     t0 = time.perf_counter()
     env = il.kernel_env(nn)
-    knobs = dict(lqr_iter=NN_ITER, eps=EPS)
+    knobs = dict(lqr_iter=NN_ITER, eps=EPS, max_linesearch_iter=N_ALPHA)
     nn_times = {}
     for B, rounds, loops in ((B_MAIN, 5, 5), (B_ENSEMBLE, 4, 2)):
         prob = problem(B, device, steps=NN_T)
         args = (prob["x_init"], prob["C"], prob["c"], nn, prob["u_lower"], prob["u_upper"])
+        # the lanes the wrapper launches at this batch, which the timed launches take
+        res = il.ilqr_solve_fused(*args, **knobs)
+        lanes = {"in_sweep": il.ilqr_solve_fused.last_lanes}
+        il.ilqr_solve_fused(*args, hoist_lin=True, **knobs)
+        lanes["hoist_lin"] = il.ilqr_solve_fused.last_lanes
         stagers = {
             label: (il._cuda_launcher(device, env, h),
-                    lambda launch, h=h: il.run_staged(launch, *args, hoist_lin=h, **knobs))
+                    lambda launch, label=label, h=h: il.run_staged(launch, *args, hoist_lin=h, lanes=lanes[label],
+                                                                   **knobs))
             for label, h in (("in_sweep", False), ("hoist_lin", True))
         }
         ms = interleaved_ms(stagers, rounds, loops)
-        res = il.ilqr_solve_fused(*args, **knobs)
-        nb = nn_ilqr_bound(nn, B, NN_T, float(res.n_iters.sum()), int(res.n_iters.max()), clock_mhz)
+        nb = nn_ilqr_bound(nn, B, NN_T, float(res.n_iters.sum()), int(res.n_iters.max()),
+                           knobs["max_linesearch_iter"], clock_mhz)
         xb_ = args[0]
         prm = [a.clone().requires_grad_(True) for a in nn.weights + nn.biases]
         model = with_leaves(prm)
@@ -1617,8 +1655,8 @@ def learned_dynamics(device, smi: str, clock_mhz: float) -> list:
         for _ in range(3):  # strict alternation, best of each
             t_f = min(t_f, cuda_ms(fwd, loops, 1))
             t_g = min(t_g, cuda_ms(fwd_grad, loops, 1))
-        nn_times[B] = (ms, nb)
-        emit(phase="time_nn", B=B, T=NN_T, lqr_iter=NN_ITER, hidden=list(NN_HIDDEN), card=smi,
+        nn_times[B] = (ms, nb, lanes)
+        emit(phase="time_nn", B=B, T=NN_T, lqr_iter=NN_ITER, hidden=list(NN_HIDDEN), card=smi, lanes=lanes,
              kernel_ms=ms, hoist_lin_over_in_sweep=ms["hoist_lin"] / ms["in_sweep"],
              kernel_solves_per_s=B / ms["in_sweep"] * 1e3, bound=nb, max_n_iters=int(res.n_iters.max()),
              mpc_solve_ms=t_f, mpc_solve_per_s=B / t_f * 1e3, solve_plus_grad_ms=t_g,
@@ -1641,17 +1679,17 @@ def learned_dynamics(device, smi: str, clock_mhz: float) -> list:
     emit(phase="nn_phase_25_seconds", seconds=time.perf_counter() - t0, nn_plain_ms=nn_plain_ms)
 
     source = "diffmpc_tpu_torch/csrc/"
-    ms, nb = nn_times[B_MAIN]
+    ms, nb, nn_lanes = nn_times[B_MAIN]
     keep = ("bound_ms", "bound_by")
     return [
         dict(name="ilqr_solve_fused[NNDynamics 3-16-16-3]", route="cuda", source=source + "ilqr_nn.cu",
              replaces="diffmpc_tpu/ops/pallas/ilqr.py:458", launches=path_launches["fused"]["ilqr"],
              max_abs_err=nn_err[(B_MAIN, False)], ms=ms["in_sweep"], plain_ms=nn_plain_ms,
-             **{k: nb[k] for k in keep}, library_ms=None),
+             **{k: nb[k] for k in keep}, library_ms=None, lanes=nn_lanes["in_sweep"]),
         dict(name="ilqr_solve_fused[NNDynamics 3-16-16-3, hoist_lin]", route="cuda", source=source + "ilqr_nn.cu",
              replaces="diffmpc_tpu/ops/pallas/ilqr.py:234", launches=path_launches["fused_hoist_lin"]["ilqr"],
              max_abs_err=nn_err[(B_MAIN, True)], ms=ms["hoist_lin"], plain_ms=nn_plain_ms,
-             **{k: nb[k] for k in keep}, library_ms=None),
+             **{k: nb[k] for k in keep}, library_ms=None, lanes=nn_lanes["hoist_lin"]),
         dict(name="linesearch_rollout_pallas[NNDynamics 3-16-16-3]", route="cuda", source=source + "rollout.cu",
              replaces="diffmpc_tpu/ops/pallas/rollout.py:180", launches=verbose_launches["resident"]["rollout"],
              max_abs_err=nn_rol_err["rollout"], ms=rol_times["rollout"][0], plain_ms=rol_times["rollout"][1],
@@ -1816,11 +1854,13 @@ def main() -> int:
 
     # ---- 1. build ----
     t0 = time.perf_counter()
-    so, log = build.build()
+    per_source = {}
+    so, log = build.build(per_source)
     build.load()
     build_s = time.perf_counter() - t0
     emit(
-        phase="build", seconds=build_s, library=os.path.relpath(so), fresh=bool(log), ptxas=ptxas_report(log),
+        phase="build", seconds=build_s, per_source_seconds=per_source, library=os.path.relpath(so), fresh=bool(log),
+        ptxas=ptxas_report(log),
     )
     return run_phases(device, kind, smi, clock_mhz)
 
@@ -1830,6 +1870,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.models import PendulumDx
     from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.diagnostics import ab_ilqr_lanes
     from diffmpc_tpu_torch.ops.cuda import rollout as rol
     from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain
     from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain
@@ -1840,7 +1881,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     from diffmpc_tpu_torch.parallel import generate_expert_data, init_train_state, make_dp_train_step
 
     # ---- 2. kernel vs plain on the card ----
-    knobs = dict(lqr_iter=LQR_ITER, eps=EPS)
+    knobs = dict(lqr_iter=LQR_ITER, eps=EPS, max_linesearch_iter=N_ALPHA)
     results = {}
     for B in (B_MAIN, B_RAGGED):
         prob = problem(B, device)
@@ -1861,6 +1902,14 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     )
     emit(phase="kernel_vs_plain", B=B_MAIN, T=T, warm_start=True, **knobs, **mw)
     check_chaos("warm start", mw)
+    unrolled = ilqr_solve_fused(**prob, **knobs, unroll=True)
+    mu = compare(unrolled, ilqr_solve_plain(**prob, **knobs, unroll=True))
+    powers = torch.tensor([0.2**k for k in range(10)], dtype=torch.float32)  # decay 0.2, 10 steps
+    in_powers = bool(torch.isin(unrolled.alpha.cpu(), powers).all())
+    emit(phase="kernel_vs_plain", B=B_MAIN, T=T, unroll=True, **knobs, **mu, alphas_are_powers=in_powers)
+    check_chaos("unroll", mu)
+    if not in_powers:
+        raise AssertionError("unroll=True chose an alpha that is not a float32 power decay**k")
 
     # ---- 3. the main path: mpc_solve at the flagship configuration ----
     config = MPCConfig(
@@ -1901,22 +1950,33 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         raise AssertionError("mpc_solve on the card disagrees with the same solve on the CPU")
 
     # ---- 4. time ----
-    times = {}
+    times, ilqr_bounds = {}, {}
     for B, k_loops, p_reps in ((B_MAIN, 20, 3), (B_ENSEMBLE, 5, 2)):
         prob = problem(B, device)
+        ilqr_bounds[B] = ilqr_solve_bound(ilqr_solve_fused(**prob, **knobs), B, knobs["max_linesearch_iter"],
+                                          clock_mhz)
         kernel_ms = cuda_ms(lambda: ilqr_solve_fused(**prob, **knobs), k_loops, 3)
+        lanes = ilqr_solve_fused.last_lanes  # the lanes the timed launches took
         plain_ms = cuda_ms(lambda: ilqr_solve_plain(**prob, **knobs), 1, p_reps)
         solve_ms = cuda_ms(
             lambda: mpc_solve(config, prob["x_init"], cost, dx, u_lower=-2.0, u_upper=2.0),
             k_loops, 3,
         )
-        times[B] = (kernel_ms, plain_ms)
+        times[B] = (kernel_ms, plain_ms, lanes)
         emit(
             phase="time", B=B, T=T, lqr_iter=LQR_ITER, card=smi,
+            lanes=lanes, bound=ilqr_bounds[B],
             kernel_ms=kernel_ms, kernel_solves_per_s=B / kernel_ms * 1e3,
             plain_ms=plain_ms, plain_solves_per_s=B / plain_ms * 1e3,
             mpc_solve_ms=solve_ms, mpc_solve_solves_per_s=B / solve_ms * 1e3,
         )
+
+    # ---- 4b. iLQR lanes: each built lane count against L = 1 ----
+    t0 = time.perf_counter()
+    lane_records = ab_ilqr_lanes.run(device, ab_ilqr_lanes.shapes(device))
+    for rec in lane_records:
+        emit(phase="ilqr_lanes", card=smi, **rec)
+    emit(phase="ilqr_lanes_seconds", seconds=time.perf_counter() - t0)
 
     # ---- 5. KKT kernel vs plain on the card ----
     kkt_err = 0.0
@@ -2222,16 +2282,8 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
              rollout_plain_ms=rol_plain, rollout_bound=rol_bound,
              done_read_ms=read_ms, host_and_glue_ms=solve_ms - it * (ric_wrap + rol_wrap))
 
-    # the iLQR solve's bound at B=1024: its bytes, its operations for the
-    # iterations this run took, or its slowest scenario's serial chain,
-    # whichever is largest
-    ilqr_res = results[B_MAIN][0]
-    ilqr_per_iter = riccati_step_ops(3, 1, "box") + 200 + (LQR_ITER + 1) * rollout_step_ops(3, 1)
-    ilqr_bound = bound(4 * B_MAIN * (T * (tri(4) + 4 + 2 + 3 + 1) + 9), float(ilqr_res.n_iters.sum()) * T * ilqr_per_iter)
-    chain_ms = ilqr_chain_ms(int(ilqr_res.n_iters.max()), clock_mhz)
-    emit(phase="ilqr_bound", B=B_MAIN, max_sm_clock_mhz=clock_mhz, chain_ms=chain_ms, **ilqr_bound)
-    if chain_ms > ilqr_bound["bound_ms"]:
-        ilqr_bound = dict(bound_ms=chain_ms, bound_by="operations")  # dependent ones, at their latency
+    for B, b in ilqr_bounds.items():
+        emit(phase="ilqr_bound", B=B, max_sm_clock_mhz=clock_mhz, **b)
 
     twins = long_horizon(device, smi)
     chain = riccati_chain(device, smi, times[B_MAIN][0] / int(results[B_MAIN][0].n_iters.max()))
@@ -2249,8 +2301,10 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
             max_abs_err=results[B_MAIN][1]["us_max_abs"],
             ms=times[B_MAIN][0],
             plain_ms=times[B_MAIN][1],
-            **ilqr_bound,
+            bound_ms=ilqr_bounds[B_MAIN]["bound_ms"],
+            bound_by=ilqr_bounds[B_MAIN]["bound_by"],
             library_ms=None,
+            lanes=times[B_MAIN][2],
         ),
         dict(
             name="kkt_backward_fused",

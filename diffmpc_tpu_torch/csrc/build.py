@@ -23,6 +23,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
@@ -71,21 +73,30 @@ def find_nvcc() -> str:
     return found
 
 
-def _run(cmds: list[list[str]]) -> str:
-    """Run the commands in parallel; return their output, or raise with the
-    output of the first that failed."""
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
-    outs = [proc.communicate()[0] for proc in procs]
-    for cmd, proc, out in zip(cmds, procs, outs):
+def _run(cmds: list[list[str]]) -> tuple[str, list[float]]:
+    """Run the commands in parallel; return their output and each one's
+    seconds from the common start to its exit, or raise with the output of
+    the first that failed."""
+    t0 = time.perf_counter()
+
+    def one(cmd):
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        done = list(pool.map(one, cmds))
+    for cmd, (proc, _) in zip(cmds, done):
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
-    return "".join(outs)
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stdout}")
+    return "".join(proc.stdout for proc, _ in done), [s for _, s in done]
 
 
-def build() -> tuple[str, str]:
+def build(seconds: dict | None = None) -> tuple[str, str]:
     """Build the library if it is not built yet. Returns ``(path, log)``:
     ``log`` is nvcc's output (``-Xptxas -v`` register and spill report) for a
-    fresh build, and ``""`` when the library was already there."""
+    fresh build, and ``""`` when the library was already there. A fresh
+    build fills ``seconds``, where given, with each source's compile time
+    (from the common start of the parallel compiles) and the link's."""
     so = library_path()
     if os.path.exists(so):
         return so, ""
@@ -95,8 +106,11 @@ def build() -> tuple[str, str]:
     objdir = tempfile.mkdtemp(prefix="obj-", dir=BUILD_DIR)
     try:
         objs = [os.path.join(objdir, os.path.basename(src) + ".o") for src in sources()]
-        log = _run([[nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src] for obj, src in zip(objs, sources())])
-        log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
+        log, compile_s = _run([[nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src] for obj, src in zip(objs, sources())])
+        link_log, link_s = _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
+        log += link_log
+        if seconds is not None:
+            seconds.update({os.path.basename(src): s for src, s in zip(sources(), compile_s)}, link=link_s[0])
         os.replace(tmp, so)
     finally:
         shutil.rmtree(objdir, ignore_errors=True)

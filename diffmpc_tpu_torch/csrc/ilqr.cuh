@@ -1,26 +1,55 @@
-// The whole box-constrained iLQR solve of ONE scenario.
+// The whole box-constrained iLQR solve of ONE scenario, by a group of L lanes.
 //
 // Counterpart of the TPU kernel body _make_kernel in
 // diffmpc_tpu/ops/pallas/ilqr.py (:89-455), computing what it computes,
-// with one thread in place of one lane of an (S, 128) tile. csrc/ilqr.cu
-// runs it on the card with one thread per scenario; the tests build it with
-// g++ for the host. diffmpc_tpu_torch/ops/cuda/ilqr.py (ilqr_solve_plain)
-// is the same algorithm in plain PyTorch, vectorised over the batch.
+// with a group of L threads ("lanes", L in 1, 2, 4, 8, 16, all in one warp)
+// in place of one lane of an (S, 128) tile. csrc/ilqr.cu and
+// csrc/ilqr_nn_l<L>.cu run it on the card (ilqr_launch.cuh); the tests
+// build it with g++ for the host, where the lanes of a group run one after
+// another (HostLanes).
+// diffmpc_tpu_torch/ops/cuda/ilqr.py (ilqr_solve_plain) is the same
+// algorithm in plain PyTorch, vectorised over the batch.
+//
+// What the lanes share out, per iteration:
+// - the alpha ladder: lane j rolls out candidates j, j + L, ..., all lanes
+//   advancing step t together; the pick is the first strictly improving
+//   candidate by ladder index (a ballot over the group, round by round when
+//   n_alpha > L), else alpha_floor. The rolled ladder's alpha of candidate k
+//   is 1 * decay * ... carried k times in float32, the serial loop's value;
+//   with `alphas` (unroll) it is the wrapper's decay**k, rounded once.
+// - each step's slice (C, c, K, k, x_hat, u_hat, the box) of the ladder's
+//   and the replay's rollouts is copied once for the group into shared
+//   memory, entries split over the lanes, kLaneStages - 1 steps ahead of
+//   the step the group computes (stream.cuh's cp.async), and read back as a
+//   broadcast;
+// - the HoistLin pre-pass (the TPU kernel's hoist_lin=True, pre_body at
+//   ilqr.py:234-249): lane j linearizes steps t = j, j + L, ... into the
+//   scratch F_s, cd_s, so the Jacobian leaves the value carry's chain;
+// - the new trajectory (where ilqr_keeps_lanes): until a candidate is
+//   chosen, each lane keeps its candidate's trajectory in its own slot of
+//   lane_x, lane_u, and the chosen lane's slot becomes (x_hat, u_hat), its
+//   cost the new cost: the replay's values, without the replay's chain.
+//   Only when no candidate improves is alpha_floor replayed;
+// - the stores of every step-indexed array: step t by lane t % L.
+// The serial chains (the initial rollout, the Riccati sweep, a replay) stay
+// one chain: every lane of the group runs it on the same values, in
+// lockstep, so no result needs to be broadcast and the warp executes each
+// instruction once for all of its lanes. The per-scenario bookkeeping is
+// the same scalar arithmetic on every lane.
+//
+// L = 1 is the one-thread program: the same loads from device memory, the
+// same operations in the same order, no barrier, the replay. Every L
+// computes the same float32 operations on the same values as L = 1, so its
+// outputs are bit for bit the same.
 //
 // Layout: every per-step array is batch-minor, (T, entries..., B), so that
-// neighbouring threads touch neighbouring addresses. The value carry
+// neighbouring scenarios touch neighbouring addresses. The value carry
 // (V, v) and the per-step Q, q, W live in registers.
-//
-// HoistLin (the TPU kernel's hoist_lin=True, pre_body at ilqr.py:234-249):
-// before each sweep a loop over t linearizes every step and forms its delta
-// cost into the scratch F_s, cd_s; the sweep then reads them, so the
-// Jacobian leaves the value carry's chain of dependences. The same
-// operations on the same values: with the flag off the program is the one
-// without the pre-pass.
 #pragma once
 
 #include "dual.cuh"
 #include "riccati_entries.cuh"
+#include "stream.cuh"
 
 // Launch arguments. The field order is mirrored by ctypes in
 // diffmpc_tpu_torch/ops/cuda/ilqr.py (_IlqrArgs): keep the two in step.
@@ -63,6 +92,149 @@ struct IlqrArgs {
   // scratch of the HoistLin pre-pass, null without it
   float* F_s;   // (T, N, NM, B) the steps' Jacobians
   float* cd_s;  // (T, NM, B) their delta costs c + C tau_hat
+  // the unrolled ladder's step sizes (n_alpha,), decay**k in double rounded
+  // once to float32; null for the rolled ladder (alpha *= decay in float32)
+  const float* alphas;
+  // each lane's candidate trajectory, (T, N, B, lanes) and (T, M, B,
+  // lanes); null with one lane
+  float* lane_x;
+  float* lane_u;
+  int lanes;  // threads per scenario, L
+};
+
+// Steps the ladder's and the replay's slices are staged ahead (L > 1): the
+// group computes step t while the copies of t + 1 .. t + kLaneStages - 2 are
+// in flight.
+constexpr int kLaneStages = 3;
+
+// One step's slice as the ladder and the replay read it: C (all of it: the
+// stage cost reads both triangles), c, K, k, x_hat, u_hat, the box.
+template <int N, int M>
+struct IlqrSlice {
+  static constexpr int NM = N + M;
+  static constexpr int kc = NM * NM;
+  static constexpr int kK = kc + NM;
+  static constexpr int kk = kK + M * N;
+  static constexpr int kxh = kk + M;
+  static constexpr int kuh = kxh + N;
+  static constexpr int klo = kuh + M;
+  static constexpr int khi = klo + M;
+  static constexpr int kSize = khi + M;
+};
+
+// The lane counts the solve is instantiated for, X(A, L) for each: on the
+// card (ilqr_launch.cuh) and in the host build of the tests. They are the
+// ones the wrapper's rule picks (ops/cuda/ilqr.py, ILQR_LANES and
+// ilqr_lanes), L = 1 among them; the MLPs' kernels are built one file per
+// lane count, ilqr_nn_l<L>.cu (the tests hold the three lists equal).
+#define DMPC_ILQR_LANES(X, A) X(A, 1) X(A, 2) X(A, 4) X(A, 16)
+
+// Whether a group of L lanes keeps each lane's candidate trajectory, so
+// that the chosen one needs no replay. On the H100 (ab_ilqr_lanes, rows
+// 1-1b of PERF.md) keeping pays at 16 lanes, where the replay is a third of
+// an iteration, and at every L > 1 for an env whose step is dear (the
+// MLPs'); a cheap step (the pendulum's) replays faster at 2 and 4 lanes
+// than its lanes store it. The wrapper allocates lane_x, lane_u by the same
+// rule (keeps_lane_trajectories, from its env's cheap_step), and a launch
+// whose scratch disagrees with it is refused (ilqr_lane_scratch_ok).
+template <class Env, int L>
+constexpr bool ilqr_keeps_lanes() {
+  return L >= 16 || (L > 1 && !Env::kCheapStep);
+}
+
+// Whether the args carry the lanes' trajectory slots exactly when the
+// groups of L lanes keep them.
+template <class Env, int L>
+DMPC_HD bool ilqr_lane_scratch_ok(const IlqrArgs& a) {
+  return (a.lane_x != nullptr) == ilqr_keeps_lanes<Env, L>() && (a.lane_u != nullptr) == ilqr_keeps_lanes<Env, L>();
+}
+
+// Floats of staging a group of lanes needs: kLaneStages slots of a slice
+template <int N, int M>
+constexpr int ilqr_group_slot_floats() {
+  return kLaneStages * IlqrSlice<N, M>::kSize;
+}
+
+// The lanes of one scenario in the host build: they run one after another,
+// so every per-lane value is an array over the lanes (kLocal = L), the
+// common work runs once and stores every step, and the staging slots are
+// one local buffer, entries 1 apart, that a lane fills whole.
+template <int L>
+struct HostLanes {
+  static constexpr int kLanes = L;
+  static constexpr int kLocal = L;
+  float* slots;  // ilqr_group_slot_floats<N, M>() floats
+  static constexpr int stride = 1;
+  DMPC_HD int lane_of(int li) const { return li; }
+  DMPC_HD bool leader() const { return true; }
+  DMPC_HD bool owns(int) const { return true; }
+  DMPC_HD bool copies(int) const { return true; }
+  DMPC_HD void sync() const {}
+  DMPC_HD void publish() const {}
+  // the lowest lane whose flag is set, or -1
+  DMPC_HD int first_set(const bool (&flag)[kLocal]) const {
+    for (int l = 0; l < L; ++l)
+      if (flag[l]) return l;
+    return -1;
+  }
+  DMPC_HD float from_lane(const float (&v)[kLocal], int lane) const { return v[lane]; }
+};
+
+// The lanes of one scenario on the card: L neighbouring threads of a warp,
+// each holding its own lane's values (kLocal = 1). `slots` is the group's
+// column of the block's staging memory, entries `stride` (scenarios per
+// block) apart; each lane copies the entries e with e % L == lane.
+template <int L>
+struct CardLanes {
+  static constexpr int kLanes = L;
+  static constexpr int kLocal = 1;
+  int lane;
+  unsigned mask;  // the group's threads in the warp
+  int shift;      // the group's first thread in the warp
+  float* slots;
+  int stride;
+  DMPC_HD int lane_of(int) const { return lane; }
+  DMPC_HD bool leader() const { return lane == 0; }
+  DMPC_HD bool owns(int t) const {
+    if constexpr (L == 1) return true;
+    return t % L == lane;
+  }
+  DMPC_HD bool copies(int e) const {
+    if constexpr (L == 1) return true;
+    return e % L == lane;
+  }
+  // every lane's copies of a slot arrived, and every lane is done with the
+  // slot before it is refilled
+  DMPC_HD void sync() const {
+#ifdef __CUDA_ARCH__
+    if constexpr (L > 1) __syncwarp(mask);
+#endif
+  }
+  // make this lane's stores to device memory visible to the group's later
+  // loads and copies
+  DMPC_HD void publish() const {
+#ifdef __CUDA_ARCH__
+    if constexpr (L > 1) {
+      __threadfence_block();
+      __syncwarp(mask);
+    }
+#endif
+  }
+  DMPC_HD int first_set(const bool (&flag)[1]) const {
+#ifdef __CUDA_ARCH__
+    if constexpr (L > 1) {
+      const unsigned bits = (__ballot_sync(mask, flag[0]) & mask) >> shift;
+      return bits ? __ffs(bits) - 1 : -1;
+    }
+#endif
+    return flag[0] ? 0 : -1;
+  }
+  DMPC_HD float from_lane(const float (&v)[1], int src) const {
+#ifdef __CUDA_ARCH__
+    if constexpr (L > 1) return __shfl_sync(mask, v[0], src, L);
+#endif
+    return v[0];
+  }
 };
 
 namespace ilqr_detail {
@@ -72,9 +244,67 @@ DMPC_HD size_t at(int t, int i, int D, int B, int b) {
   return ((size_t)t * D + i) * (size_t)B + b;
 }
 
-// 0.5 tau'C_t tau + c_t'tau, summed in the TPU kernel's order (stage_cost)
+// Step t's inputs for scenario b, read from device memory
 template <int N, int M>
-DMPC_HD float stage_cost(const IlqrArgs& a, int t, int b, const float (&x)[N], const float (&u)[M]) {
+struct GlobalStep {
+  static constexpr int NM = N + M;
+  const IlqrArgs& a;
+  int t;
+  int b;
+  DMPC_HD size_t at(int i, int D) const { return ilqr_detail::at(t, i, D, a.B, b); }
+  DMPC_HD float C(int i, int j) const { return a.C[at(i * NM + j, NM * NM)]; }
+  DMPC_HD float c(int i) const { return a.c[at(i, NM)]; }
+  DMPC_HD float K(int i, int j) const { return a.K[at(i * N + j, M * N)]; }
+  DMPC_HD float k(int i) const { return a.k[at(i, M)]; }
+  DMPC_HD float xh(int i) const { return a.x_hat[at(i, N)]; }
+  DMPC_HD float uh(int i) const { return a.u_hat[at(i, M)]; }
+  DMPC_HD float lo(int i) const { return a.u_lower[at(i, M)]; }
+  DMPC_HD float hi(int i) const { return a.u_upper[at(i, M)]; }
+};
+
+// Step t's inputs from a staging slot
+template <int N, int M>
+struct SlotStep {
+  using S = IlqrSlice<N, M>;
+  SlotReader e;
+  DMPC_HD float C(int i, int j) const { return e[i * S::NM + j]; }
+  DMPC_HD float c(int i) const { return e[S::kc + i]; }
+  DMPC_HD float K(int i, int j) const { return e[S::kK + i * N + j]; }
+  DMPC_HD float k(int i) const { return e[S::kk + i]; }
+  DMPC_HD float xh(int i) const { return e[S::kxh + i]; }
+  DMPC_HD float uh(int i) const { return e[S::kuh + i]; }
+  DMPC_HD float lo(int i) const { return e[S::klo + i]; }
+  DMPC_HD float hi(int i) const { return e[S::khi + i]; }
+};
+
+// Start this lane's copy of entry e of a slot, if the entry is its own.
+template <class G>
+DMPC_HD void stage_put(const G& g, float* slot, int e, const float* src) {
+  if (g.copies(e)) stream_put(slot, g.stride, e, src);
+}
+
+// Start this lane's share of the copies of step t's slice into `slot`.
+template <int N, int M, class G>
+DMPC_HD void stage_step(const IlqrArgs& a, const G& g, int t, int b, float* slot) {
+  using S = IlqrSlice<N, M>;
+  constexpr int NM = N + M;
+  const int B = a.B;
+  for (int i = 0; i < NM * NM; ++i) stage_put(g, slot, i, &a.C[at(t, i, NM * NM, B, b)]);
+  for (int i = 0; i < NM; ++i) stage_put(g, slot, S::kc + i, &a.c[at(t, i, NM, B, b)]);
+  for (int i = 0; i < M * N; ++i) stage_put(g, slot, S::kK + i, &a.K[at(t, i, M * N, B, b)]);
+  for (int i = 0; i < M; ++i) stage_put(g, slot, S::kk + i, &a.k[at(t, i, M, B, b)]);
+  for (int i = 0; i < N; ++i) stage_put(g, slot, S::kxh + i, &a.x_hat[at(t, i, N, B, b)]);
+  for (int i = 0; i < M; ++i) {
+    stage_put(g, slot, S::kuh + i, &a.u_hat[at(t, i, M, B, b)]);
+    stage_put(g, slot, S::klo + i, &a.u_lower[at(t, i, M, B, b)]);
+    stage_put(g, slot, S::khi + i, &a.u_upper[at(t, i, M, B, b)]);
+  }
+  stream_commit();
+}
+
+// 0.5 tau'C_t tau + c_t'tau, summed in the TPU kernel's order (stage_cost)
+template <int N, int M, class In>
+DMPC_HD float stage_cost(const In& in, const float (&x)[N], const float (&u)[M]) {
   constexpr int NM = N + M;
   float tau[NM];
   for (int i = 0; i < N; ++i) tau[i] = x[i];
@@ -82,38 +312,93 @@ DMPC_HD float stage_cost(const IlqrArgs& a, int t, int b, const float (&x)[N], c
   float acc = 0.0f;
   for (int i = 0; i < NM; ++i) {
     float Ctau = 0.0f;
-    for (int j = 0; j < NM; ++j) Ctau += a.C[at(t, i * NM + j, NM * NM, a.B, b)] * tau[j];
-    acc += (0.5f * Ctau + a.c[at(t, i, NM, a.B, b)]) * tau[i];
+    for (int j = 0; j < NM; ++j) Ctau += in.C(i, j) * tau[j];
+    acc += (0.5f * Ctau + in.c(i)) * tau[i];
   }
   return acc;
 }
 
 // u = u_hat + alpha k + K (x - x_hat), then the delta_u clip, then the box
-template <int N, int M>
-DMPC_HD void control(const IlqrArgs& a, int t, int b, const float (&x)[N], float alpha, float (&u)[M]) {
-  const int B = a.B;
+template <int N, int M, class In>
+DMPC_HD void control(const IlqrArgs& a, const In& in, const float (&x)[N], float alpha, float (&u)[M]) {
   for (int i = 0; i < M; ++i) {
-    const float uh = a.u_hat[at(t, i, M, B, b)];
-    float acc = uh + alpha * a.k[at(t, i, M, B, b)];
-    for (int j = 0; j < N; ++j)
-      acc = acc + a.K[at(t, i * N + j, M * N, B, b)] * (x[j] - a.x_hat[at(t, j, N, B, b)]);
+    const float uh = in.uh(i);
+    float acc = uh + alpha * in.k(i);
+    for (int j = 0; j < N; ++j) acc = acc + in.K(i, j) * (x[j] - in.xh(j));
     if (a.has_delta_u) acc = clipf(acc, uh - a.delta_u, uh + a.delta_u);
-    u[i] = clipf(acc, a.u_lower[at(t, i, M, B, b)], a.u_upper[at(t, i, M, B, b)]);
+    u[i] = clipf(acc, in.lo(i), in.hi(i));
   }
 }
 
-// cost of the closed-loop rollout at step size alpha (nothing stored)
-template <int N, int M, class Env>
-DMPC_HD float rollout_obj(const IlqrArgs& a, const Env& env, const float* p, int b,
-                          const float (&x0)[N], float alpha) {
-  float x[N], u[M], xn[N];
+// element (t, i) of lane `lane`'s slot in a (T, D, B, L) array, for scenario b
+DMPC_HD size_t lane_at(int t, int i, int D, int B, int b, int L, int lane) {
+  return at(t, i, D, B, b) * (size_t)L + lane;
+}
+
+// Where a rollout writes its trajectory: nowhere, into (x_hat, u_hat) (the
+// replay; step t by the lane that owns it), or into the lane's own slot of
+// lane_x, lane_u while `keep`
+enum RolloutStore { kStoreNone, kStoreHat, kStoreLane };
+
+// Step t of a closed-loop rollout at step size alpha, its inputs read
+// through `in`: the control, its store, the stage cost added to obj, the
+// env's step.
+template <int N, int M, int Store, class In, class Env, class G>
+DMPC_HD void rollout_step(const IlqrArgs& a, const In& in, const Env& env, const float* p, int b, const G& g,
+                          int t, float alpha, int lane, bool keep, float (&x)[N], float& obj) {
+  float u[M], xn[N];
+  control<N, M>(a, in, x, alpha, u);
+  if constexpr (Store == kStoreHat) {
+    if (g.owns(t)) {
+      for (int i = 0; i < N; ++i) a.x_hat[at(t, i, N, a.B, b)] = x[i];
+      for (int i = 0; i < M; ++i) a.u_hat[at(t, i, M, a.B, b)] = u[i];
+    }
+  } else if constexpr (Store == kStoreLane) {
+    if (keep) {
+      for (int i = 0; i < N; ++i) a.lane_x[lane_at(t, i, N, a.B, b, G::kLanes, lane)] = x[i];
+      for (int i = 0; i < M; ++i) a.lane_u[lane_at(t, i, M, a.B, b, G::kLanes, lane)] = u[i];
+    }
+  }
+  obj += stage_cost<N, M>(in, x, u);
+  env.step(p, x, u, xn);
+  for (int i = 0; i < N; ++i) x[i] = xn[i];
+}
+
+// The group's staging slot of step t
+template <int N, int M, class G>
+DMPC_HD float* stage_slot(const G& g, int t) {
+  return g.slots + (size_t)(t % kLaneStages) * IlqrSlice<N, M>::kSize * g.stride;
+}
+
+// The closed-loop rollout at step size alpha from x0, returning its cost and
+// writing its trajectory where Store says (lane: the calling lane). Every
+// lane of the group calls it together (each at its own alpha); with L > 1
+// the group stages the steps' slices.
+template <int N, int M, int Store, class Env, class G>
+DMPC_HD float rollout(const IlqrArgs& a, const Env& env, const float* p, int b, const G& g,
+                      const float (&x0)[N], float alpha, int lane = 0, bool keep = false) {
+  const int T = a.T;
+  float x[N];
   for (int i = 0; i < N; ++i) x[i] = x0[i];
   float obj = 0.0f;
-  for (int t = 0; t < a.T; ++t) {
-    control<N, M>(a, t, b, x, alpha, u);
-    obj += stage_cost<N, M>(a, t, b, x, u);
-    env.step(p, x, u, xn);
-    for (int i = 0; i < N; ++i) x[i] = xn[i];
+  if constexpr (G::kLanes == 1) {
+    for (int t = 0; t < T; ++t)
+      rollout_step<N, M, Store>(a, GlobalStep<N, M>{a, t, b}, env, p, b, g, t, alpha, lane, keep, x, obj);
+  } else {
+    g.sync();  // every lane is done with the slots' last contents
+    for (int s = 0; s < kLaneStages - 1; ++s) {
+      if (s < T) stage_step<N, M>(a, g, s, b, stage_slot<N, M>(g, s));
+      else stream_commit();
+    }
+    for (int t = 0; t < T; ++t) {
+      stream_wait<kLaneStages - 2>();  // this lane's copies of step t
+      g.sync();                        // and every other lane's
+      const int ahead = t + kLaneStages - 1;
+      if (ahead < T) stage_step<N, M>(a, g, ahead, b, stage_slot<N, M>(g, ahead));
+      else stream_commit();
+      const SlotStep<N, M> in{SlotReader{stage_slot<N, M>(g, t), g.stride}};
+      rollout_step<N, M, Store>(a, in, env, p, b, g, t, alpha, lane, keep, x, obj);
+    }
   }
   return obj;
 }
@@ -149,19 +434,23 @@ DMPC_HD void linearize_at(const IlqrArgs& a, const Env& env, const float* p, int
 
 // Delta-form Riccati sweep over t = T-1..0 about (x_hat, u_hat): writes the
 // gains K, k and returns the summed box-QP solve count. With HoistLin, a
-// pre-pass first writes every step's Ft, cd to F_s, cd_s.
-template <int N, int M, bool HoistLin, class Env>
-DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, int b) {
+// pre-pass first writes every step's Ft, cd to F_s, cd_s: lane j the steps
+// t = j, j + L, .... Every lane runs the sweep itself, on the same values.
+template <int N, int M, bool HoistLin, class Env, class G>
+DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, int b, const G& g) {
   constexpr int NM = N + M;
   const int B = a.B;
   if constexpr (HoistLin) {
-    for (int t = 0; t < a.T; ++t) {  // independent iterations
-      float Ft[N][NM], cd[NM];
-      linearize_at<N, M>(a, env, p, b, t, Ft, cd);
-      for (int k = 0; k < N; ++k)
-        for (int j = 0; j < NM; ++j) a.F_s[at(t, k * NM + j, N * NM, B, b)] = Ft[k][j];
-      for (int i = 0; i < NM; ++i) a.cd_s[at(t, i, NM, B, b)] = cd[i];
+    for (int li = 0; li < G::kLocal; ++li) {
+      for (int t = g.lane_of(li); t < a.T; t += G::kLanes) {  // independent iterations
+        float Ft[N][NM], cd[NM];
+        linearize_at<N, M>(a, env, p, b, t, Ft, cd);
+        for (int k = 0; k < N; ++k)
+          for (int j = 0; j < NM; ++j) a.F_s[at(t, k * NM + j, N * NM, B, b)] = Ft[k][j];
+        for (int i = 0; i < NM; ++i) a.cd_s[at(t, i, NM, B, b)] = cd[i];
+      }
     }
+    g.publish();
   }
   float V[N][N], v[N];
   for (int i = 0; i < N; ++i) {
@@ -215,12 +504,13 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
     // n_iter 8: the fused path caps pnqp_iter at 8 (mpc.py); only m >= 3 reads it
     qp_sum += pnqp_entries<M>(Quu, qu, lo_d, hi_d, 8, a.reg, kt, frozen);
     masked_chol_solve<M, N>(Quu, rhs, frozen, a.reg, Kc);
+    const bool mine = g.owns(t);
     for (int i = 0; i < M; ++i) {
       for (int j = 0; j < N; ++j) {
         K[i][j] = -Kc[j][i];
-        a.K[at(t, i * N + j, M * N, B, b)] = K[i][j];
+        if (mine) a.K[at(t, i * N + j, M * N, B, b)] = K[i][j];
       }
-      a.k[at(t, i, M, B, b)] = kt[i];
+      if (mine) a.k[at(t, i, M, B, b)] = kt[i];
     }
     value_update<N, M>(Q, q, Quu, qu, K, kt, V, v);
   }
@@ -229,16 +519,18 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
 
 }  // namespace ilqr_detail
 
-// Solve scenario b, its env's parameters read from `params` (a.params, or a
-// block's copy of them in shared memory). Early exit is per scenario: the
-// TPU kernel skips an iteration only once the whole tile is frozen (pl.when
-// at ilqr.py:431), but every update of a frozen scenario there is
-// where(active > 0, new, old) (:381-410), which leaves it unchanged, and its
-// K, k are never read again. So a thread that stops at its own convergence
-// computes exactly the same result.
-template <int N, int M, bool HoistLin = false, class Env>
-DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const float* params) {
+// Solve scenario b with the group of lanes g (HostLanes or CardLanes), its
+// env's parameters read from `params` (a.params, or a block's copy of them
+// in shared memory). Early exit is per scenario: the TPU kernel skips an
+// iteration only once the whole tile is frozen (pl.when at ilqr.py:431),
+// but every update of a frozen scenario there is where(active > 0, new,
+// old) (:381-410), which leaves it unchanged, and its K, k are never read
+// again. So a group that stops at its own convergence computes exactly the
+// same result.
+template <int N, int M, bool HoistLin, class Env, class G>
+DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const float* params, const G& g) {
   using namespace ilqr_detail;
+  constexpr int L = G::kLanes, kLocal = G::kLocal;
   const int T = a.T, B = a.B;
   const float* p = params + (size_t)b * a.params_stride;
   float x0[N];
@@ -253,52 +545,100 @@ DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const
       const float ui = a.u_init ? a.u_init[at(t, i, M, B, b)] : 0.0f;
       u[i] = clipf(ui, a.u_lower[at(t, i, M, B, b)], a.u_upper[at(t, i, M, B, b)]);
     }
-    for (int i = 0; i < N; ++i) a.x_hat[at(t, i, N, B, b)] = a.xs[at(t, i, N, B, b)] = x[i];
-    for (int i = 0; i < M; ++i) a.u_hat[at(t, i, M, B, b)] = a.us[at(t, i, M, B, b)] = u[i];
-    obj += stage_cost<N, M>(a, t, b, x, u);
+    if (g.owns(t)) {
+      for (int i = 0; i < N; ++i) a.x_hat[at(t, i, N, B, b)] = a.xs[at(t, i, N, B, b)] = x[i];
+      for (int i = 0; i < M; ++i) a.u_hat[at(t, i, M, B, b)] = a.us[at(t, i, M, B, b)] = u[i];
+    }
+    obj += ilqr_detail::stage_cost<N, M>(GlobalStep<N, M>{a, t, b}, x, u);  // rollout.cuh has another
     env.step(p, x, u, xn);
     for (int i = 0; i < N; ++i) x[i] = xn[i];
   }
+  g.publish();
   float cur_obj = obj, best_obj = obj;
   float n_not_improved = 0.0f, last_improvement = INFINITY, last_alpha = 1.0f;
   float n_iters = 0.0f, qp_iters = 0.0f;
   bool done = false;
 
   for (int it = 0; it < a.lqr_iter && !done; ++it) {
-    qp_iters = riccati_sweep<N, M, HoistLin>(a, env, p, b) / (float)T;
+    qp_iters = riccati_sweep<N, M, HoistLin>(a, env, p, b, g) / (float)T;
+    g.publish();
 
-    // rolled alpha ladder: first improving step, else alpha_floor
-    float alpha = 1.0f, chosen = a.alpha_floor;
+    // the alpha ladder, L candidates a round: the first improving step,
+    // else alpha_floor. The rolled ladder's alphas: lane j starts at
+    // decay^j, then steps by decay^L, one float32 product at a time.
+    float al[kLocal];
+    for (int li = 0; li < kLocal; ++li) {
+      al[li] = 1.0f;
+      for (int j = 0; j < g.lane_of(li); ++j) al[li] = al[li] * a.decay;
+    }
+    // Where it pays, each lane keeps its candidate's trajectory until one is chosen.
+    constexpr bool kKeep = ilqr_keeps_lanes<Env, L>();
+    constexpr int kLadderStore = kKeep ? kStoreLane : kStoreNone;
+    float chosen = a.alpha_floor, chosen_obj = 0.0f;
+    int chosen_lane = -1;
     bool has = false;
-    for (int ai = 0; ai < a.n_alpha; ++ai) {
-      const float obj_a = rollout_obj<N, M>(a, env, p, b, x0, alpha);
-      if (obj_a < cur_obj && !has) {
-        chosen = alpha;
+    for (int k0 = 0; k0 < a.n_alpha; k0 += L) {
+      bool improving[kLocal];
+      float step[kLocal], obj_a[kLocal];
+      for (int li = 0; li < kLocal; ++li) {
+        const int k = k0 + g.lane_of(li);
+        step[li] = a.alphas ? a.alphas[k < a.n_alpha ? k : a.n_alpha - 1] : al[li];
+        obj_a[li] = rollout<N, M, kLadderStore>(a, env, p, b, g, x0, step[li], g.lane_of(li), !has);
+        improving[li] = k < a.n_alpha && obj_a[li] < cur_obj;
+        for (int j = 0; j < L; ++j) al[li] = al[li] * a.decay;
+      }
+      const int first = g.first_set(improving);
+      if (first >= 0 && !has) {
+        chosen = g.from_lane(step, first);
+        chosen_obj = g.from_lane(obj_a, first);
+        chosen_lane = first;
         has = true;
       }
-      alpha = alpha * a.decay;
     }
 
-    // replay the chosen step, writing the new trajectory
-    for (int i = 0; i < N; ++i) x[i] = x0[i];
-    float new_obj = 0.0f;
-    for (int t = 0; t < T; ++t) {
-      control<N, M>(a, t, b, x, chosen, u);
-      for (int i = 0; i < N; ++i) a.x_hat[at(t, i, N, B, b)] = x[i];
-      for (int i = 0; i < M; ++i) a.u_hat[at(t, i, M, B, b)] = u[i];
-      new_obj += stage_cost<N, M>(a, t, b, x, u);
-      env.step(p, x, u, xn);
-      for (int i = 0; i < N; ++i) x[i] = xn[i];
+    // the new trajectory: the chosen lane's slot (its cost is the chosen
+    // candidate's), or the replay of the chosen step
+    float new_obj;
+    if (kKeep && has) {
+      g.publish();  // every lane's slot
+      for (int li = 0; li < kLocal; ++li) {
+        for (int t = g.lane_of(li); t < T; t += L) {
+          for (int i = 0; i < N; ++i) a.x_hat[at(t, i, N, B, b)] = a.lane_x[lane_at(t, i, N, B, b, L, chosen_lane)];
+          for (int i = 0; i < M; ++i) a.u_hat[at(t, i, M, B, b)] = a.lane_u[lane_at(t, i, M, B, b, L, chosen_lane)];
+        }
+      }
+      new_obj = chosen_obj;
+    } else if constexpr (L == 1) {
+      // rollout<kStoreHat>'s steps, written out: so the one-lane build runs
+      // 4-21% faster on a full card (B = 65,536), where the rule takes one
+      // lane, and slower on a nearly idle one, where it takes 16 (PERF.md)
+      float x[N], u[M], xn[N];
+      for (int i = 0; i < N; ++i) x[i] = x0[i];
+      new_obj = 0.0f;
+      for (int t = 0; t < T; ++t) {
+        const GlobalStep<N, M> in{a, t, b};
+        control<N, M>(a, in, x, chosen, u);
+        for (int i = 0; i < N; ++i) a.x_hat[at(t, i, N, B, b)] = x[i];
+        for (int i = 0; i < M; ++i) a.u_hat[at(t, i, M, B, b)] = u[i];
+        new_obj += stage_cost<N, M>(in, x, u);
+        env.step(p, x, u, xn);
+        for (int i = 0; i < N; ++i) x[i] = xn[i];
+      }
+    } else {
+      new_obj = rollout<N, M, kStoreHat>(a, env, p, b, g, x0, chosen);
     }
+    g.publish();
     cur_obj = new_obj;
 
     const bool improved = new_obj < best_obj;
     const bool improved_sig = new_obj < best_obj - a.best_cost_eps;
     const float improvement = best_obj - new_obj;
     if (improved) {
-      for (int t = 0; t < T; ++t) {
-        for (int i = 0; i < N; ++i) a.xs[at(t, i, N, B, b)] = a.x_hat[at(t, i, N, B, b)];
-        for (int i = 0; i < M; ++i) a.us[at(t, i, M, B, b)] = a.u_hat[at(t, i, M, B, b)];
+      for (int li = 0; li < kLocal; ++li) {
+        for (int t = g.lane_of(li); t < T; t += L) {
+          for (int i = 0; i < N; ++i) a.xs[at(t, i, N, B, b)] = a.x_hat[at(t, i, N, B, b)];
+          for (int i = 0; i < M; ++i) a.us[at(t, i, M, B, b)] = a.u_hat[at(t, i, M, B, b)];
+        }
       }
       best_obj = new_obj;
     }
@@ -309,15 +649,17 @@ DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const
     done = (improvement < a.eps) || (n_not_improved >= (float)a.not_improved_lim);
   }
 
-  a.objs[b] = best_obj;
-  a.converged[b] = last_improvement < a.eps ? 1.0f : 0.0f;
-  a.last_improvement[b] = last_improvement;
-  a.alpha[b] = last_alpha;
-  a.n_iters[b] = n_iters;
-  a.qp_iters[b] = qp_iters;
+  if (g.leader()) {
+    a.objs[b] = best_obj;
+    a.converged[b] = last_improvement < a.eps ? 1.0f : 0.0f;
+    a.last_improvement[b] = last_improvement;
+    a.alpha[b] = last_alpha;
+    a.n_iters[b] = n_iters;
+    a.qp_iters[b] = qp_iters;
+  }
 }
 
-template <int N, int M, bool HoistLin = false, class Env>
-DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b) {
-  ilqr_solve_scenario<N, M, HoistLin>(a, env, b, a.params);
+template <int N, int M, bool HoistLin, class Env, class G>
+DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const G& g) {
+  ilqr_solve_scenario<N, M, HoistLin>(a, env, b, a.params, g);
 }

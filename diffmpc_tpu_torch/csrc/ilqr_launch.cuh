@@ -1,11 +1,16 @@
-// The fused iLQR kernel and its launch, for any env: one thread per scenario.
+// The fused iLQR kernel and its launch, for any env: a group of L threads
+// per scenario (ilqr.cuh), L a template argument.
 //
-// ilqr.cu (the pendulum) and ilqr_nn.cu (the MLPs of nn_archs.cuh) each
-// instantiate it for their envs, with and without the HoistLin pre-pass. An
-// env whose parameters are shared by every scenario and fit in shared
-// memory (SharedParams, the MLP's) has them copied there once per block
-// before any thread starts its scenario; the pendulum reads its three, or
-// its per-scenario row, from device memory as before.
+// ilqr.cu (the pendulum) and ilqr_nn_l<L>.cu (the MLPs of nn_archs.cuh, one
+// file per lane count, so that nvcc builds them side by side; ilqr_nn.cu
+// holds their launchers) instantiate it for their envs, with and without the
+// HoistLin pre-pass, at the lane counts of DMPC_ILQR_LANES. An env whose
+// parameters are shared by every scenario and fit in shared memory
+// (SharedParams, the MLP's) has them copied there once per block before any
+// group starts its scenario; the pendulum reads its three, or its
+// per-scenario row, from device memory.
+// With L > 1 each group also stages its rollouts' step slices in its own
+// column of the block's dynamic shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,31 +22,64 @@ namespace ilqr_launch_detail {
 
 constexpr int kThreads = 128;
 
-template <class Env, bool HoistLin>
+template <class Env, bool HoistLin, int L>
 __global__ void __launch_bounds__(kThreads) ilqr_kernel(IlqrArgs a, Env env) {
+  static_assert(L <= 16 && 32 % L == 0, "a group of lanes lies within one warp");
   constexpr int P = SharedParams<Env>::count;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ float ilqr_slots[];
+  const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = (int)(tid / L);
+  const int warp_lane = threadIdx.x & 31;
+  const int shift = warp_lane - warp_lane % L;
+  CardLanes<L> g{(int)(threadIdx.x % L), ((1u << L) - 1u) << shift, shift, ilqr_slots + threadIdx.x / L,
+                 kThreads / L};
   if constexpr (P > 0) {
     __shared__ float params[P];
     for (int i = threadIdx.x; i < P; i += blockDim.x) params[i] = a.params[i];
     __syncthreads();
-    if (b >= a.B) return;
-    ilqr_solve_scenario<Env::N, Env::M, HoistLin>(a, env, b, params);
+    if (b >= a.B) return;  // the whole group: its lanes share b
+    ilqr_solve_scenario<Env::N, Env::M, HoistLin>(a, env, b, params, g);
   } else {
     if (b >= a.B) return;
-    ilqr_solve_scenario<Env::N, Env::M, HoistLin>(a, env, b);
+    ilqr_solve_scenario<Env::N, Env::M, HoistLin>(a, env, b, g);
   }
+}
+
+// Launch the kernel for Env at L lanes; returns cudaGetLastError().
+template <class Env, bool HoistLin, int L>
+int launch(const IlqrArgs* args, const Env* env, cudaStream_t stream) {
+  if (!ilqr_lane_scratch_ok<Env, L>(*args)) return static_cast<int>(cudaErrorInvalidValue);
+  const long threads = (long)args->B * L;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  const size_t smem = L > 1 ? sizeof(float) * (kThreads / L) * ilqr_group_slot_floats<Env::N, Env::M>() : 0;
+  if (blocks > 0) ilqr_kernel<Env, HoistLin, L><<<blocks, kThreads, smem, stream>>>(*args, *env);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ilqr_launch_detail
 
-// Launch the solve on `stream`; returns cudaGetLastError().
+// Declare the launches of Env's kernels at L lanes, with and without
+// HoistLin, as built in another file, or build them in this one.
+#define DMPC_ILQR_EXTERN(Env, L)                                                                           \
+  extern template int ilqr_launch_detail::launch<Env, false, L>(const IlqrArgs*, const Env*, cudaStream_t); \
+  extern template int ilqr_launch_detail::launch<Env, true, L>(const IlqrArgs*, const Env*, cudaStream_t);
+#define DMPC_ILQR_INSTANTIATE(Env, L)                                                               \
+  template int ilqr_launch_detail::launch<Env, false, L>(const IlqrArgs*, const Env*, cudaStream_t); \
+  template int ilqr_launch_detail::launch<Env, true, L>(const IlqrArgs*, const Env*, cudaStream_t);
+
+// Launch the solve on `stream` with args->lanes threads per scenario;
+// returns cudaGetLastError(), or cudaErrorInvalidValue for a lane count that
+// is not instantiated (DMPC_ILQR_LANES, ilqr.cuh) or lanes' trajectory
+// scratch that its groups would not use, or lack.
 template <class Env, bool HoistLin>
 int ilqr_launch(const IlqrArgs* args, const Env* env, void* stream) {
-  using namespace ilqr_launch_detail;
-  const int blocks = (args->B + kThreads - 1) / kThreads;
-  if (blocks > 0) {
-    ilqr_kernel<Env, HoistLin><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args, *env);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (args->lanes) {
+#define DMPC_ILQR_LANE_CASE(_, L_) \
+  case L_:                         \
+    return ilqr_launch_detail::launch<Env, HoistLin, L_>(args, env, s);
+    DMPC_ILQR_LANES(DMPC_ILQR_LANE_CASE, _)
+#undef DMPC_ILQR_LANE_CASE
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -76,6 +76,9 @@ struct NNEnv {
   static constexpr int N = N_;
   static constexpr int M = M_;
   static constexpr int P = nn_param_count<N_ + M_, H..., N_>();
+  // hundreds of operations a step: the fused solve's lane groups keep every
+  // lane's trajectory rather than replay the chosen step (ilqr.cuh)
+  static constexpr bool kCheapStep = false;
 
   template <class S>
   DMPC_HD void step(const float* params, const S x[N], const S u[M], S out[N]) const {

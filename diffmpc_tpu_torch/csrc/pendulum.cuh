@@ -19,6 +19,9 @@ struct PendulumEnv {
   static constexpr int N = 3;  // (cos th, sin th, thdot)
   static constexpr int M = 1;  // torque
   static constexpr int P = 3;  // params (g, m, l)
+  // a few dozen operations a step: the fused solve's lane groups replay the
+  // chosen step rather than keep every lane's trajectory (ilqr.cuh)
+  static constexpr bool kCheapStep = true;
 
   template <class S>
   DMPC_HD void step(const float* params, const S x[3], const S u[1], S out[3]) const {

@@ -4,14 +4,15 @@
 compiler at every step (an empty ``asm volatile`` on it), so that each step
 reads the weights anew from shared memory. Without it the compiler hoists
 the loads of all the weights out of the kernels' loops over steps and holds
-them in registers, which spill. This driver builds ``csrc/ilqr_nn.cu`` twice,
+them in registers, which spill. This script builds the MLPs' fused solve
+(``csrc/ilqr_nn.cu`` and the kernels of ``csrc/ilqr_nn_l<L>.cu``) twice,
 from copies of the sources with and without that line (both nvcc processes
-at once), and compares the two builds of the fused solve on the JAX bench's
-MLP (3-16-16-3, residual,
-tanh; ``bench.py:592-624``): each kernel's registers and spills as ptxas
-reports them, and the 3-16-16-3 kernel's time alone (CUDA events,
+at once), and compares the two builds on the JAX bench's MLP (3-16-16-3,
+residual, tanh; ``bench.py:592-624``): each kernel's registers and spills as
+ptxas reports them, and the 3-16-16-3 kernel's time alone (CUDA events,
 interleaved, the minimum of the rounds) at T=15, ``lqr_iter=8``, B=1024 and
-65,536, in-sweep and with the ``hoist_lin`` pre-pass.
+65,536, in-sweep and with the ``hoist_lin`` pre-pass, at the lane count the
+wrapper picks for the batch.
 
 Run on a machine with a CUDA device:
 
@@ -24,6 +25,7 @@ build and per batch.
 from __future__ import annotations
 
 import ctypes
+import glob
 import json
 import os
 import subprocess
@@ -42,8 +44,8 @@ LABELS = ("with_barrier", "without_barrier")
 
 
 def build_both(tmp: str) -> dict:
-    """``ilqr_nn.cu`` built from two copies of the sources, one with the
-    barrier and one without it: ``{label: (library, ptxas log)}``."""
+    """The MLPs' fused solve built from two copies of the sources, one with
+    the barrier and one without it: ``{label: (library, ptxas log)}``."""
     cmds = {}
     for label in LABELS:
         src_dir = os.path.join(tmp, label)
@@ -60,7 +62,7 @@ def build_both(tmp: str) -> dict:
                     dst.write(text)
         so = os.path.join(src_dir, "ilqr_nn.so")
         cmds[label] = (so, [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", src_dir, "-o", so,
-                            os.path.join(src_dir, "ilqr_nn.cu")])
+                            *sorted(glob.glob(os.path.join(src_dir, "ilqr_nn*.cu")))])
     procs = {label: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for label, (_, cmd) in cmds.items()}
     logs = {label: proc.communicate(timeout=900)[0] for label, proc in procs.items()}
@@ -94,6 +96,7 @@ def run() -> list:
             return launch
 
         for B in BATCHES:
+            sm_count = torch.cuda.get_device_properties(device).multi_processor_count
             g = torch.Generator(device=device).manual_seed(7)
             th = (torch.rand(B, generator=g, device=device) * 2 - 1) * torch.pi
             x = torch.stack([th.cos(), th.sin(), torch.rand(B, generator=g, device=device) * 2 - 1], -1)
@@ -103,13 +106,15 @@ def run() -> list:
                 f"{label}_{'hoist_lin' if hoist else 'in_sweep'}": (
                     launcher(lib, hoist),
                     lambda launch, hoist=hoist: il.run_staged(launch, *args, lqr_iter=LQR_ITER, eps=1e-5,
-                                                              hoist_lin=hoist),
+                                                              hoist_lin=hoist,
+                                                              lanes=il.ilqr_lanes(B, env, sm_count, hoist)),
                 )
                 for label, (lib, _) in built.items()
                 for hoist in (False, True)
             }
             ms = interleaved_ms(stagers, rounds=3, loops=5 if B <= 4096 else 2)
-            records.append(dict(B=B, T=T, lqr_iter=LQR_ITER, hidden=[16, 16], ms=ms,
+            records.append(dict(B=B, T=T, lqr_iter=LQR_ITER, hidden=[16, 16],
+                                lanes={h: il.ilqr_lanes(B, env, sm_count, h) for h in (False, True)}, ms=ms,
                                 without_over_with={k: ms[f"without_barrier_{k}"] / ms[f"with_barrier_{k}"]
                                                    for k in ("in_sweep", "hoist_lin")}))
     return records

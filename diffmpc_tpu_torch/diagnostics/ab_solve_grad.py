@@ -1,0 +1,170 @@
+"""A/B on the card: ``mpc_solve`` with and without the gradient, across trees.
+
+Times the main path's solve (the pendulum, goal cost, box +-2, T=20,
+``lqr_iter=10``, B=1024: chip_smoke's phase 8) and the JAX bench's
+learned-dynamics cell (its 3-16-16-3 MLP, T=15, ``lqr_iter=8``, B=1024:
+phase 25), each forward alone and with the gradient of ``mean(us**2)``
+with respect to the model's parameters, in strict alternation, best of
+each, by CUDA events. It also reads the card's busy time for one call of
+each from ``torch.profiler`` (the sum of the kernels' device time) and
+gives the rest of the call's time as the card's idle share.
+
+Each tree (a checkout of the repository) runs in its own process that
+imports ``diffmpc_tpu_torch`` from that tree, in the order given and then in
+reverse (parent, change, change, parent for two trees), so that a drift of
+the card or the host shows as a difference between a tree's two runs.
+With ``--one-lane`` the last tree runs once more, in the middle, with the
+fused kernel's lane rule held at one lane (``ops/cuda/ilqr.py``,
+``ilqr_lanes``), to tell the kernel's part from the host's.
+
+Run on a machine with a CUDA device, from the root of a checkout:
+
+    python diffmpc_tpu_torch/diagnostics/ab_solve_grad.py --trees PARENT . [--one-lane]
+
+It prints the card's name and power limit, one JSON record per process,
+and a summary: each label's best time over its processes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+PEND_B, PEND_T, PEND_ITER, PEND_LOOPS, PEND_ROUNDS = 1024, 20, 10, 20, 5
+NN_B, NN_T, NN_ITER, NN_LOOPS, NN_ROUNDS = 1024, 15, 8, 5, 3
+EPS = 1e-5
+
+
+def swing_up_starts(B: int, seed: int):
+    """Random angle, speed in [-1, 1] (chip_smoke's ``x_init``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(-np.pi, np.pi, B)
+    return np.stack([np.cos(th), np.sin(th), rng.uniform(-1.0, 1.0, B)], -1).astype(np.float32)
+
+
+def busy_ms(fn):
+    """The card's busy time in one call of ``fn``: the kernels' device time
+    summed from ``torch.profiler``, or None where it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            total += getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
+    return total / 1e3 if total > 0 else None
+
+
+def measure(one_lane: bool, device="cuda") -> dict:
+    """Both cells' forward and forward + gradient in this process's tree."""
+    import dataclasses
+
+    import torch
+
+    from diffmpc_tpu_torch import MPCConfig, QuadCost, mpc_solve
+    from diffmpc_tpu_torch.diagnostics.card import cuda_ms
+    from diffmpc_tpu_torch.models import NNDynamics, PendulumDx
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    if one_lane:
+        il.ilqr_lanes = lambda *args, **kwargs: 1
+    device = torch.device(device)
+    dx = PendulumDx.default(device=device)
+    q, p = dx.get_true_obj()
+    cost = QuadCost(torch.diag(q), p)
+    out = {}
+
+    def cell(name, config, model_of, leaves, B, seed, loops, rounds):
+        grad_config = dataclasses.replace(config, detach_unconverged=False)
+        x = torch.tensor(swing_up_starts(B, seed), device=device)
+        model = model_of(leaves)
+
+        def fwd():
+            with torch.no_grad():
+                mpc_solve(config, x, cost, model, u_lower=-2.0, u_upper=2.0)
+
+        def fwd_grad():
+            us = mpc_solve(grad_config, x, cost, model, u_lower=-2.0, u_upper=2.0).us
+            torch.autograd.grad(us.pow(2).mean(), leaves)
+
+        t_f = t_g = float("inf")
+        for _ in range(rounds):  # strict alternation, best of each
+            t_f = min(t_f, cuda_ms(fwd, loops, 1))
+            t_g = min(t_g, cuda_ms(fwd_grad, loops, 1))
+        b_f, b_g = busy_ms(fwd), busy_ms(fwd_grad)
+        out[name] = dict(
+            fwd_ms=t_f, solve_plus_grad_ms=t_g, grad_extra_ms=t_g - t_f, fwd_busy_ms=b_f, grad_busy_ms=b_g,
+            fwd_idle_share=None if b_f is None else 1 - b_f / t_f,
+            grad_idle_share=None if b_g is None else 1 - b_g / t_g,
+            lanes=il.ilqr_solve_fused.__dict__.get("last_lanes"),
+        )
+
+    pend_config = MPCConfig(n_state=3, n_ctrl=1, T=PEND_T, lqr_iter=PEND_ITER, eps=EPS,
+                            exit_unconverged=False, detach_unconverged=False)
+    prm = [dx.params.clone().requires_grad_(True)]
+    cell("pendulum", pend_config, lambda ls: dx.replace(params=ls[0]), prm, PEND_B, 21, PEND_LOOPS, PEND_ROUNDS)
+
+    nn = NNDynamics.init(3, 1, hidden=(16, 16), residual=True, device=device,
+                         generator=torch.Generator(device=device).manual_seed(0))
+    k = len(nn.weights)
+    nn_config = MPCConfig(n_state=3, n_ctrl=1, T=NN_T, lqr_iter=NN_ITER, eps=EPS,
+                          exit_unconverged=False, detach_unconverged=False)
+    leaves = [a.clone().requires_grad_(True) for a in nn.weights + nn.biases]
+    cell("nn_3_16_16_3", nn_config, lambda ls: nn.replace(weights=tuple(ls[:k]), biases=tuple(ls[k:])), leaves,
+         NN_B, 7, NN_LOOPS, NN_ROUNDS)
+    return out
+
+
+def child(tree: str, one_lane: bool) -> None:
+    sys.path.insert(0, os.path.abspath(tree))
+    import diffmpc_tpu_torch
+
+    here = os.path.dirname(os.path.abspath(diffmpc_tpu_torch.__file__))
+    if os.path.dirname(here) != os.path.abspath(tree):
+        raise RuntimeError(f"imported diffmpc_tpu_torch from {here}, not from {tree}")
+    print(json.dumps(measure(one_lane)), flush=True)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--trees", nargs="+", required=True, help="checkouts of the repository, parent first")
+    parser.add_argument("--one-lane", action="store_true", help="also run the last tree at one lane")
+    parser.add_argument("--child", help=argparse.SUPPRESS)
+    parser.add_argument("--child-one-lane", action="store_true", help=argparse.SUPPRESS)
+    opts = parser.parse_args()
+    if opts.child:
+        child(opts.child, opts.child_one_lane)
+        return
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
+    runs = [(tree, False) for tree in opts.trees]
+    middle = [(opts.trees[-1], True)] * 2 if opts.one_lane else []
+    order = runs + middle + runs[::-1]
+    best = {}
+    for tree, one_lane in order:
+        label = os.path.basename(os.path.abspath(tree)) + (":one_lane" if one_lane else "")
+        cmd = [sys.executable, os.path.abspath(__file__), "--trees", tree, "--child", tree]
+        proc = subprocess.run(cmd + (["--child-one-lane"] if one_lane else []), capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{label} failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(dict(label=label, tree=tree, **rec)), flush=True)
+        for cell, r in rec.items():
+            b = best.setdefault(label, {}).setdefault(cell, {})
+            for key in ("fwd_ms", "solve_plus_grad_ms"):
+                b[key] = min(b.get(key, float("inf")), r[key])
+    print(json.dumps(dict(summary=best)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -6,8 +6,9 @@ iteration: linearize the env step, delta-form Riccati sweep with the box QP,
 alpha-ladder line search, replay and best-trajectory bookkeeping).
 
 - :func:`ilqr_solve_fused` is the public entry point. For CUDA tensors it
-  launches the kernel of ``csrc/ilqr.cu`` (one thread per scenario) or
-  raises; for CPU tensors it runs :func:`ilqr_solve_plain`.
+  launches the kernel of ``csrc/ilqr.cu`` (a group of L threads per
+  scenario, L by :func:`ilqr_lanes`) or raises; for CPU tensors it runs
+  :func:`ilqr_solve_plain`.
 - :func:`ilqr_solve_plain` is the same algorithm in plain PyTorch,
   vectorized over the batch: each entry is a ``(B,)`` tensor and Python
   loops run over time, iterations and entries. It computes in the dtype of
@@ -20,6 +21,7 @@ The public layout is the JAX wrapper's: ``C (T,B,nm,nm)``, ``c (T,B,nm)``,
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -109,13 +111,16 @@ def ilqr_solve_plain(
     best_cost_eps: float = 1e-4,
     not_improved_lim: int = 5,
     hoist_lin: bool = False,
+    unroll: bool = False,
 ) -> FusedSolveResult:
     """The fused solve in plain PyTorch, on any device; same contract as
     :func:`ilqr_solve_fused`, computed in ``x_init.dtype``. ``dyn`` provides
     ``kernel_params()`` and ``entries_step``. Scenarios that froze keep their
     state through ``where``; the loop stops once all have. ``hoist_lin``
     linearizes every step before the sweep instead of inside it: the same
-    operations on the same values, so the same result bit for bit."""
+    operations on the same values, so the same result bit for bit.
+    ``unroll`` takes the ladder's step sizes as ``decay**k``, Python floats
+    rounded once to the dtype, in place of the rolled ``alpha *= decay``."""
     T, B, n, m = _check_shapes(x_init, C, c, u_lower, u_upper, u_init)
     nm = n + m
     dtype = x_init.dtype
@@ -229,13 +234,15 @@ def ilqr_solve_plain(
             V, v = _value_update(Q, q, Quu, qu, K_g[t], kt, n, m)
         qp_iters = torch.where(active, qp_sum / T, qp_iters)
 
-        # ---- rolled alpha ladder: first improving step per scenario ----
+        # ---- alpha ladder: first improving step per scenario; rolled, or
+        # with unroll the exact powers (ilqr.py:336-348) ----
         alpha = torch.ones((), dtype=dtype, device=zero.device)
         chosen = torch.full_like(zero, decay ** (max_linesearch_iter - 1))
         has = torch.zeros_like(zero, dtype=torch.bool)
-        for _a in range(max_linesearch_iter):
-            improving = (rollout_obj(alpha) < cur_obj) & ~has
-            chosen = torch.where(improving, alpha, chosen)
+        for a_idx in range(max_linesearch_iter):
+            alpha_k = decay**a_idx if unroll else alpha
+            improving = (rollout_obj(alpha_k) < cur_obj) & ~has
+            chosen = torch.where(improving, alpha_k, chosen)
             has = has | improving
             alpha = alpha * decay
 
@@ -301,7 +308,9 @@ class _IlqrArgs(ctypes.Structure):
         for name in (
             "reg", "decay", "alpha_floor", "delta_u", "eps", "best_cost_eps",
         )
-    ] + [(name, ctypes.c_void_p) for name in ("F_s", "cd_s")]
+    ] + [
+        (name, ctypes.c_void_p) for name in ("F_s", "cd_s", "alphas", "lane_x", "lane_u")
+    ] + [("lanes", ctypes.c_int)]
 
 
 class _PendulumEnv(ctypes.Structure):
@@ -335,8 +344,11 @@ def nn_symbol(n: int, m: int, hidden: tuple) -> str:
 class KernelEnv(NamedTuple):
     """What the kernels need of a model with a C++ step: its env struct, the
     suffix of its launchers (``diffmpc_<kind>_<symbol>``), its ``(n, m)``,
-    the length ``P`` of its ``kernel_params`` and whether they may be
-    per-scenario ``(B, P)``."""
+    the length ``P`` of its ``kernel_params``, whether they may be
+    per-scenario ``(B, P)``, and whether its step is cheap (a few dozen
+    operations, the C++ env's ``kCheapStep``), which the fused kernel's
+    lane groups and their rule read (:func:`keeps_lane_trajectories`,
+    :func:`ilqr_lanes`)."""
 
     struct: ctypes.Structure
     symbol: str
@@ -344,11 +356,12 @@ class KernelEnv(NamedTuple):
     m: int
     n_params: int
     per_scenario: bool
+    cheap_step: bool
 
 
 def _pendulum_env(dyn: PendulumDx) -> KernelEnv:
     struct = _PendulumEnv(dyn.max_torque, dyn.max_speed, dyn.dt, int(dyn.clamp_ctrl))
-    return KernelEnv(struct, "pendulum", PendulumDx.n_state, PendulumDx.n_ctrl, 3, True)
+    return KernelEnv(struct, "pendulum", PendulumDx.n_state, PendulumDx.n_ctrl, 3, True, True)
 
 
 def _nn_env(dyn: NNDynamics) -> KernelEnv:
@@ -359,7 +372,7 @@ def _nn_env(dyn: NNDynamics) -> KernelEnv:
             f"{arch}: add the architecture to NN_KERNEL_ARCHS and csrc/nn_archs.cuh"
         )
     struct = _NNEnv(list(ACTIVATIONS).index(dyn.activation), int(dyn.residual))
-    return KernelEnv(struct, nn_symbol(*arch), dyn.n_state, dyn.n_ctrl, dyn.n_params, False)
+    return KernelEnv(struct, nn_symbol(*arch), dyn.n_state, dyn.n_ctrl, dyn.n_params, False, False)
 
 
 # model class -> its KernelEnv
@@ -396,13 +409,17 @@ def run_staged(
     launch,
     x_init, C, c, dyn, u_lower, u_upper, *,
     u_init=None, lqr_iter=10, reg=1e-9, decay=0.2, max_linesearch_iter=10,
-    delta_u=None, eps=1e-7, best_cost_eps=1e-4, not_improved_lim=5, hoist_lin=False,
+    delta_u=None, eps=1e-7, best_cost_eps=1e-4, not_improved_lim=5, hoist_lin=False, unroll=False, lanes=1,
 ) -> FusedSolveResult:
     """Stage the inputs batch-minor, allocate the outputs and the scratch
     (with ``hoist_lin``, the pre-pass's ``F_s (T, n, nm, B)`` and
-    ``cd_s (T, nm, B)`` too), call ``launch(args, env)`` with pointers to
-    the ``IlqrArgs`` and the env struct (:func:`kernel_env`), and return the
-    outputs in the public layout.
+    ``cd_s (T, nm, B)`` too; with ``unroll``, the ladder's ``decay**k`` as
+    float32; with ``lanes`` threads per scenario that keep their
+    trajectories, :func:`keeps_lane_trajectories`, each lane's candidate
+    trajectory ``(T, n, B, lanes)`` and ``(T, m, B, lanes)``), call
+    ``launch(args, env)`` with pointers to the ``IlqrArgs`` (``lanes`` in
+    it) and the env struct (:func:`kernel_env`), and return the outputs in
+    the public layout.
 
     ``launch`` runs ``ilqr_solve_scenario`` for every scenario: the CUDA
     launcher for CUDA tensors, or a host build of the same headers for CPU
@@ -442,8 +459,12 @@ def run_staged(
     k = torch.empty((T, m, B), **f32)
     F_s = torch.empty((T, n, n + m, B), **f32) if hoist_lin else None
     cd_s = torch.empty((T, n + m, B), **f32) if hoist_lin else None
+    alphas = torch.tensor([decay**i for i in range(max_linesearch_iter)], **f32) if unroll else None
+    keep = keeps_lane_trajectories(env, lanes)
+    lane_x = torch.empty((T, n, B, lanes), **f32) if keep else None
+    lane_u = torch.empty((T, m, B, lanes), **f32) if keep else None
     buffers = [C_k, c_k, lo_k, hi_k, x0_k, p_k, xs, us, stats, x_hat, u_hat, K, k]
-    buffers += [a for a in (ui_k, F_s, cd_s) if a is not None]
+    buffers += [a for a in (ui_k, F_s, cd_s, alphas, lane_x, lane_u) if a is not None]
     for buf in buffers:
         if not buf.is_contiguous():  # pointers below assume dense layouts
             raise ValueError("staged kernel buffer is not contiguous")
@@ -464,6 +485,9 @@ def run_staged(
         delta_u=0.0 if delta_u is None else delta_u, eps=eps,
         best_cost_eps=best_cost_eps,
         F_s=None if F_s is None else F_s.data_ptr(), cd_s=None if cd_s is None else cd_s.data_ptr(),
+        alphas=None if alphas is None else alphas.data_ptr(),
+        lane_x=None if lane_x is None else lane_x.data_ptr(),
+        lane_u=None if lane_u is None else lane_u.data_ptr(), lanes=lanes,
     )
     launch(ctypes.byref(args), ctypes.byref(env.struct))
     # The staged inputs and the scratch are freed when this returns, while
@@ -498,7 +522,69 @@ def run_staged_f32(launch, x_init, C, c, dyn, u_lower, u_upper, *, u_init=None, 
     })
 
 
+# The lane counts the kernels are instantiated for (DMPC_ILQR_LANES in
+# csrc/ilqr.cuh, the files csrc/ilqr_nn_l<L>.cu; the tests hold the three
+# equal): those :func:`ilqr_lanes` picks, 1 among them.
+ILQR_LANES = (1, 2, 4, 16)
+
+# The rule's measurements: the kernel alone by CUDA events on an NVIDIA H100
+# 80GB HBM3 at 700 W (132 SMs), ms at L = 1 / 2 / 4 / 16
+# (diffmpc_tpu_torch.diagnostics.ab_ilqr_lanes; PERF.md, rows 1-1b):
+#   pendulum, T=20, lqr_iter=10, B = 1024: 1.96 1.30 0.89 0.52;
+#     4096: 2.02 1.33 0.89 0.94; 8192: 2.03 1.34 1.12 1.92;
+#     16384: 2.17 1.63 1.71 3.27; 65536: 6.94 6.28 7.02 12.12;
+#     with hoist_lin, 4096: 2.19 1.54 0.90 0.78; 16384: 2.82 2.17 1.75 2.69;
+#     65536: 8.00 8.05 8.18 11.69;
+#   the 3-16-16-3 MLP, T=15, lqr_iter=8, B = 1024: 8.12 4.70 3.23 1.87
+#     (hoist_lin 8.14 4.28 2.59 1.01); 4096: 8.28 4.72 3.30 5.96 (8.22 4.27
+#     2.65 1.88); 16384: 8.27 6.10 9.73 17.68 (8.54 5.57 5.03 7.10); 32768:
+#     10.98 14.03 15.07 33.69 (11.22 8.49 9.86 13.96); 65536: 15.49 21.78
+#     28.78 66.55 (16.11 16.70 19.34 27.73).
+# More lanes pay while B * L threads leave the SMs idle: up to about 256
+# threads an SM, twice that with hoist_lin, whose pre-pass the lanes share
+# out. Past that the lanes' repeated sweep and idle ladder slots cost
+# instruction slots instead. L = 8 is not built: it won only for the MLP at
+# B = 2048-4096 in a build that replayed every step, by 7% over L = 16 and
+# 14% over L = 4 (PERF.md).
+LANE_THREADS_PER_SM = 256
+
+
+def keeps_lane_trajectories(env: KernelEnv, lanes: int) -> bool:
+    """Whether the kernel's groups of ``lanes`` keep each lane's candidate
+    trajectory instead of replaying the chosen step: at 16 lanes, and at
+    every count above one for an env whose step is not cheap (an MLP's).
+    This is ``ilqr_keeps_lanes`` of ``csrc/ilqr.cuh``; the kernel refuses a
+    launch whose trajectory scratch disagrees with it."""
+    return lanes >= 16 or (lanes > 1 and not env.cheap_step)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ilqr_lanes(B: int, env: KernelEnv, sm_count: int, hoist_lin: bool = False) -> int:
+    """The threads per scenario of the fused kernel for a batch of ``B``
+    scenarios of ``env`` on a card of ``sm_count`` SMs: the most lanes that
+    keep ``B * L`` within :data:`LANE_THREADS_PER_SM` threads an SM (twice
+    that with ``hoist_lin``). Past that an env with a cheap step (the
+    pendulum) keeps 2 lanes, its ladder's slices staged ahead (B = 65,536:
+    6.32 ms against 7.00), and one with a dear step (an MLP), whose sweep
+    every lane would repeat, takes 1 (21.65 ms against 15.43). The horizon
+    does not enter: each step's slice is staged alike at every T."""
+    budget = LANE_THREADS_PER_SM * (2 if hoist_lin else 1) * sm_count
+    for lanes in (16, 4, 2):
+        if B * lanes <= budget:
+            return lanes
+    return 2 if env.cheap_step else 1
+
+
 def _cuda_launcher(device: torch.device, env: KernelEnv, hoist_lin: bool):
+    """The fused kernel's launcher for :func:`run_staged`, which sets the
+    threads per scenario in the args; a lane count that is not built makes
+    the launch fail, and the launcher raise. Each launch adds one to
+    ``ilqr_solve_fused.launches`` and sets ``ilqr_solve_fused.last_lanes``
+    to the lane count it launched."""
     from ...csrc import build
 
     fn = getattr(build.load(), f"diffmpc_ilqr_solve_{env.symbol}" + ("_hoist" if hoist_lin else ""))
@@ -509,8 +595,9 @@ def _cuda_launcher(device: torch.device, env: KernelEnv, hoist_lin: bool):
     def launch(args, env_ref):
         err = fn(args, env_ref, stream)
         if err != 0:
-            raise RuntimeError(f"ilqr kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"ilqr kernel launch failed: cudaError {err} (lanes built: {ILQR_LANES})")
         ilqr_solve_fused.launches += 1
+        ilqr_solve_fused.last_lanes = args._obj.lanes
 
     return launch
 
@@ -576,13 +663,16 @@ def ilqr_solve_fused(
     best_cost_eps: float = 1e-4,
     not_improved_lim: int = 5,
     hoist_lin: bool = False,
+    unroll: bool = False,
     use_cuda: Optional[bool] = None,
 ) -> FusedSolveResult:
     """Full fused iLQR solve; the contract of the JAX package's
     ``ilqr_solve_fused``. ``u_init (T,B,m)`` warm-starts the initial rollout;
     None starts from zero controls. ``hoist_lin`` linearizes every step in a
     pre-pass before each Riccati sweep, off the value carry's chain (the JAX
-    package's ``DIFFMPC_HOIST_LIN=1``): the same solve.
+    package's ``DIFFMPC_HOIST_LIN=1``): the same solve. ``unroll`` takes the
+    JAX package's exact-power ladder ``alpha = decay**k`` (its ``unroll=True``;
+    the unrolled iteration loop changes no result).
 
     CUDA tensors launch the kernel of ``dyn``'s C++ step
     (:func:`kernel_env`), which computes in float32 whatever the inputs'
@@ -593,16 +683,19 @@ def ilqr_solve_fused(
         u_init=u_init, lqr_iter=lqr_iter, reg=reg, decay=decay,
         max_linesearch_iter=max_linesearch_iter, delta_u=delta_u, eps=eps,
         best_cost_eps=best_cost_eps, not_improved_lim=not_improved_lim, hoist_lin=hoist_lin,
+        unroll=unroll,
     )
     if not resolve_use_cuda(use_cuda, x_init.device):
         return ilqr_solve_plain(
             x_init, C, c, dyn, u_lower, u_upper, pnqp_iter=pnqp_iter, **knobs
         )
     env = kernel_env(dyn)
+    lanes = ilqr_lanes(x_init.shape[0], env, _sm_count(x_init.device.index), hoist_lin)
     with torch.cuda.device(x_init.device):
         return run_staged_f32(
-            _cuda_launcher(x_init.device, env, hoist_lin), x_init, C, c, dyn, u_lower, u_upper, **knobs
+            _cuda_launcher(x_init.device, env, hoist_lin), x_init, C, c, dyn, u_lower, u_upper, lanes=lanes, **knobs
         )
 
 
 ilqr_solve_fused.launches = 0  # kernel launches, counted where they happen
+ilqr_solve_fused.last_lanes = None  # the lane count of the last launch

@@ -26,10 +26,14 @@ from diffmpc_tpu.ops.pallas import riccati as jric  # noqa: E402
 from diffmpc_tpu.ops.pallas.ilqr import ilqr_solve_fused as jax_ilqr  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda import riccati_entries as tric  # noqa: E402
 from diffmpc_tpu_torch.models import NNDynamics  # noqa: E402
+from diffmpc_tpu_torch.models import PendulumDx  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.ilqr import (  # noqa: E402
+    ILQR_LANES,
     _NNEnv,
+    ilqr_lanes,
     ilqr_solve_fused,
     ilqr_solve_plain,
+    kernel_env,
     run_staged,
 )
 from torch_parity import (  # noqa: E402
@@ -81,6 +85,92 @@ def test_four_iterations_match_jax_chaos_rule(variant):
     assert_chaos(got, want)
     # the solve did something: most scenarios improved on the first rollout
     assert (got["n_iters"] >= 2).mean() > 0.5
+
+
+def test_unroll_matches_jax_unroll():
+    """``unroll=True`` (the exact-power ladder ``alpha = decay**k``,
+    ilqr.py:336-348) against the JAX kernel's ``unroll=True`` in interpret
+    mode, on the recipe of tests/test_pallas_ilqr.py:604-645 (B=16, T=8,
+    swing-up starts from seed 5, ``lqr_iter=4``, ``eps=1e-5``): one iteration
+    within 1e-4, four by the chaos rule, and every chosen alpha one of the
+    float32-rounded powers on both sides. The recipe's picks are the full
+    step and the ladder's floor; a pick where the powers part from the
+    rolled ladder's products (k >= 2) is held in
+    tests/test_torch_kernel_host.py."""
+    prob = make_problem(seed=5, B=16, T=8)
+    one = dict(lqr_iter=1, eps=0.0, unroll=True)
+    assert_tight(solve_plain(prob, **one), solve_jax(prob, **one))
+    four = dict(lqr_iter=4, eps=1e-5, unroll=True)
+    got, want = solve_plain(prob, **four), solve_jax(prob, **four)
+    assert_chaos(got, want)
+    powers = np.float32([0.2**k for k in range(10)])
+    assert np.isin(got["alpha"], powers).all() and np.isin(want["alpha"], powers).all()
+
+
+# The fused kernel alone at each built lane count, ms at L = 1 / 2 / 4 / 16
+# (CUDA events, interleaved, best of rounds): the lane A/B's scan,
+# diffmpc_tpu_torch.diagnostics.ab_ilqr_lanes, on an NVIDIA H100 80GB HBM3 at
+# 700 W (132 SMs); the pendulum at T=20, lqr_iter=10, the 3-16-16-3 MLP at
+# T=15, lqr_iter=8 (PERF.md, rows 1-1b).
+LANE_SCAN_MS = {
+    ("pendulum", False): {
+        1024: (1.96, 1.301, 0.888, 0.518),
+        2048: (1.97, 1.31, 0.892, 0.661),
+        4096: (2.017, 1.326, 0.892, 0.935),
+        8192: (2.03, 1.344, 1.121, 1.924),
+        16384: (2.168, 1.632, 1.706, 3.272),
+        32768: (4.326, 3.141, 3.417, 6.134),
+        65536: (6.943, 6.279, 7.023, 12.117),
+    },
+    ("pendulum", True): {
+        1024: (2.186, 1.517, 0.901, 0.474),
+        2048: (2.178, 1.55, 0.894, 0.571),
+        4096: (2.19, 1.543, 0.895, 0.784),
+        8192: (2.236, 1.55, 1.116, 1.329),
+        16384: (2.822, 2.167, 1.753, 2.691),
+        32768: (5.172, 4.026, 3.689, 5.634),
+        65536: (7.999, 8.048, 8.184, 11.686),
+    },
+    ("mlp_3_16_16_3", False): {
+        1024: (8.117, 4.695, 3.232, 1.866),
+        2048: (8.178, 4.73, 3.287, 2.532),
+        4096: (8.283, 4.722, 3.304, 5.957),
+        8192: (8.173, 4.875, 4.205, 9.35),
+        16384: (8.27, 6.099, 9.733, 17.676),
+        32768: (10.975, 14.029, 15.069, 33.693),
+        65536: (15.493, 21.778, 28.78, 66.548),
+    },
+    ("mlp_3_16_16_3", True): {
+        1024: (8.135, 4.276, 2.586, 1.006),
+        2048: (8.165, 4.28, 2.652, 1.229),
+        4096: (8.224, 4.273, 2.652, 1.878),
+        8192: (8.232, 4.527, 3.255, 3.613),
+        16384: (8.54, 5.568, 5.034, 7.104),
+        32768: (11.216, 8.488, 9.856, 13.955),
+        65536: (16.107, 16.701, 19.338, 27.732),
+    },
+}
+
+
+@pytest.mark.parametrize("hoist_lin", [False, True], ids=["in_sweep", "hoist_lin"])
+@pytest.mark.parametrize("env", ["pendulum", "mlp_3_16_16_3"])
+def test_lane_rule_picks_the_fastest_measured_lane_count(env, hoist_lin):
+    """``ilqr_lanes`` on a 132-SM card: at each batch of the measured scan
+    (``LANE_SCAN_MS``) it picks a built lane count whose time is within 10%
+    of the fastest one's there and within 3% of one lane's; never more lanes
+    as the batch grows."""
+    if env == "pendulum":
+        dyn = PendulumDx.default(device="cpu")
+    else:
+        dyn = NNDynamics.init(3, 1, hidden=(16, 16), device="cpu", generator=torch.Generator().manual_seed(0))
+    scan = LANE_SCAN_MS[(env, hoist_lin)]
+    picks = [ilqr_lanes(B, kernel_env(dyn), 132, hoist_lin) for B in sorted(scan)]
+    for B, lanes in zip(sorted(scan), picks):
+        ms = dict(zip(ILQR_LANES, scan[B]))
+        assert lanes in ILQR_LANES
+        assert ms[lanes] <= 1.1 * min(ms.values()), (B, lanes, ms)
+        assert ms[lanes] <= 1.03 * ms[1], (B, lanes, ms)
+    assert picks == sorted(picks, reverse=True)
 
 
 def test_wrapper_takes_plain_version_on_cpu():

@@ -31,7 +31,9 @@ MLP's and the pendulum's.
 """
 
 import ctypes
+import glob
 import os
+import re
 import shutil
 import subprocess
 
@@ -43,7 +45,9 @@ torch = pytest.importorskip("torch")
 from diffmpc_tpu_torch.csrc import build  # noqa: E402
 from diffmpc_tpu_torch.models import NNDynamics  # noqa: E402
 from diffmpc_tpu_torch.models.dynamics import ACTIVATIONS  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda import ilqr as ilqr_mod  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.ilqr import (  # noqa: E402
+    ILQR_LANES,
     _IlqrArgs,
     _NNEnv,
     _PendulumEnv,
@@ -109,15 +113,31 @@ SHIM = r"""
 #include "rollout_stream.cuh"
 #include "shard_probe.cuh"
 
-extern "C" int diffmpc_ilqr_solve_pendulum_host(const IlqrArgs* a, const PendulumEnv* env) {
-  for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<3, 1>(*a, *env, b);
+// the fused solve by groups of L lanes, the lanes of each group one after
+// another (HostLanes), at the lane counts the card's kernels are built for
+template <class Env, bool HOIST, int L>
+static int ilqr_group(const IlqrArgs* a, const Env* env) {
+  if (!ilqr_lane_scratch_ok<Env, L>(*a)) return 1;
+  std::vector<float> slots(ilqr_group_slot_floats<Env::N, Env::M>());
+  const HostLanes<L> g{slots.data()};
+  for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<Env::N, Env::M, HOIST>(*a, *env, b, g);
   return 0;
 }
 
 template <class Env, bool HOIST>
 static int ilqr_all(const IlqrArgs* a, const Env* env) {
-  for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<Env::N, Env::M, HOIST>(*a, *env, b);
-  return 0;
+  switch (a->lanes) {
+#define HOST_LANE_CASE(_, L_) \
+  case L_:                    \
+    return ilqr_group<Env, HOIST, L_>(a, env);
+    DMPC_ILQR_LANES(HOST_LANE_CASE, _)
+#undef HOST_LANE_CASE
+  }
+  return 1;
+}
+
+extern "C" int diffmpc_ilqr_solve_pendulum_host(const IlqrArgs* a, const PendulumEnv* env) {
+  return ilqr_all<PendulumEnv, false>(a, env);
 }
 
 extern "C" int diffmpc_ilqr_solve_pendulum_hoist_host(const IlqrArgs* a, const PendulumEnv* env) {
@@ -306,12 +326,19 @@ def host_lib(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def host_launch(host_lib):
-    fn = host_lib.diffmpc_ilqr_solve_pendulum_host
-    fn.argtypes = [ctypes.POINTER(_IlqrArgs), ctypes.POINTER(_PendulumEnv)]
+    return _ilqr_launcher(host_lib, "diffmpc_ilqr_solve_pendulum_host", _PendulumEnv)
+
+
+def _ilqr_launcher(host_lib, symbol, struct):
+    """The host build's fused solve ``symbol`` for env ``struct``, its
+    scenarios each solved by a group of the args' lane count (``run_staged``
+    sets it)."""
+    fn = getattr(host_lib, symbol)
+    fn.argtypes = [ctypes.POINTER(_IlqrArgs), ctypes.POINTER(struct)]
     fn.restype = ctypes.c_int
 
     def launch(args, env):
-        assert fn(args, env) == 0
+        assert fn(args, env) == 0, "refused: a lane count that is not built, or lane scratch against the rule"
 
     return launch
 
@@ -740,14 +767,7 @@ def _nn_problem(n, m, activation, seed, B=37, T=6):
 
 
 def _nn_launcher(host_lib, symbol, struct=_NNEnv):
-    fn = getattr(host_lib, symbol)
-    fn.argtypes = [ctypes.POINTER(_IlqrArgs), ctypes.POINTER(struct)]
-    fn.restype = ctypes.c_int
-
-    def launch(args, env):
-        assert fn(args, env) == 0
-
-    return launch
+    return _ilqr_launcher(host_lib, symbol, struct)
 
 
 @pytest.mark.parametrize("activation", list(ACTIVATIONS))
@@ -792,6 +812,127 @@ def test_host_build_hoist_lin_leaves_the_pendulum_solve_unchanged(host_launch, h
     )
     _assert_equal_results(hoisted, plain)
     assert (plain.n_iters >= 2).float().mean() > 0.5
+
+
+# ---------------------------------------------------------------------------
+# The fused solve by lane groups (ilqr.cuh): 4 and 16 lanes against one.
+# ---------------------------------------------------------------------------
+
+
+def _lane_case(env, hoist, seed):
+    """``(symbol, struct, args, knobs)`` of the lane tests: the pendulum
+    with every knob (per-scenario params, a warm start, ``delta_u``) or the
+    ``n3m1_h8`` MLP, with ``hoist_lin`` as given and the ladder's decay 0.5,
+    so that the picks spread over the ladder."""
+    if env == "pendulum":
+        t, dx = torch_inputs(make_problem(seed=seed, warm=True, batched_params=True))
+        args = (t["x_init"], t["C"], t["c"], dx, t["u_lower"], t["u_upper"])
+        knobs = dict(u_init=t["u_init"], delta_u=0.5)
+        symbol, struct = "diffmpc_ilqr_solve_pendulum", _PendulumEnv
+    else:
+        _, args = _nn_problem(3, 1, "tanh", seed=seed)
+        knobs = {}
+        symbol, struct = "diffmpc_ilqr_solve_nn_n3m1_h8", _NNEnv
+    symbol += ("_hoist" if hoist else "") + "_host"
+    return symbol, struct, args, dict(knobs, decay=0.8, hoist_lin=hoist)
+
+
+@pytest.mark.parametrize("n_alpha", [1, 10, 20])
+@pytest.mark.parametrize("hoist", [False, True], ids=["in_sweep", "hoist_lin"])
+@pytest.mark.parametrize("env", ["pendulum", "nn_n3m1_h8"])
+def test_host_build_lane_groups_equal_one_lane_and_match_plain(host_lib, env, hoist, n_alpha):
+    """A group of 4 or 16 lanes a scenario (the ladder a round of L
+    candidates at a time: ``n_alpha`` shorter than the group, longer than
+    four, longer than sixteen; the slices staged through the group's slots;
+    the pre-pass shared out) equals one lane bit for bit over six
+    iterations; one lane holds the plain version by the chaos rule over four
+    iterations, and 16 lanes within 1e-4 after one."""
+    symbol, struct, args, knobs = _lane_case(env, hoist, seed=1130 + n_alpha + 7 * hoist)
+    knobs["max_linesearch_iter"] = n_alpha
+    launch = _ilqr_launcher(host_lib, symbol, struct)
+    six = dict(knobs, lqr_iter=6, eps=1e-5)
+    one = run_staged(launch, *args, **six)
+    for lanes in (4, 16):
+        _assert_equal_results(run_staged(launch, *args, lanes=lanes, **six), one)
+    four = dict(knobs, lqr_iter=4, eps=1e-5)
+    assert_chaos(as_numpy(run_staged(launch, *args, **four)), as_numpy(ilqr_solve_plain(*args, **four)))
+    first = dict(knobs, lqr_iter=1, eps=0.0)
+    assert_tight(as_numpy(run_staged(launch, *args, lanes=16, **first)), as_numpy(ilqr_solve_plain(*args, **first)))
+
+
+def test_host_build_lane_groups_pick_past_the_first_round(host_lib):
+    """The pick when the first improving candidate lies in a later round or
+    on a later lane than the first: the MLP problem whose last iteration
+    backs off past the fourth candidate on some scenarios (not the ladder's
+    floor), solved by 4 and 16 lanes, equals one lane bit for bit."""
+    symbol, struct, args, knobs = _lane_case("nn_n3m1_h8", False, seed=1150)
+    six = dict(knobs, max_linesearch_iter=20, lqr_iter=6, eps=1e-5)
+    launch = _ilqr_launcher(host_lib, symbol, struct)
+    one = run_staged(launch, *args, **six)
+    decay = knobs["decay"]
+    assert int(((one.alpha < decay**3) & (one.alpha > decay**19)).sum()) >= 2
+    for lanes in (4, 16):
+        _assert_equal_results(run_staged(launch, *args, lanes=lanes, **six), one)
+
+
+def test_host_build_unroll_ladder_matches_plain(host_lib):
+    """``unroll=True``: the ladder's alphas are the wrapper's float32
+    ``decay**k``, which part from the rolled ladder's float32 products at
+    k = 2 for decay 0.2. On the MLP problem whose last iteration picks k = 2
+    on a scenario: one iteration within 1e-4 of the plain version's
+    ``unroll=True``, four by the chaos rule; 4 and 16 lanes bit for bit one;
+    every alpha the kernel and the plain version chose one of the powers,
+    the k = 2 pick among them."""
+    symbol, struct, args, knobs = _lane_case("nn_n3m1_h8", False, seed=1165)
+    knobs["decay"] = 0.2
+    powers = torch.tensor([0.2**k for k in range(10)], dtype=torch.float32)
+    f32 = torch.tensor(0.2, dtype=torch.float32)
+    assert f32 * f32 != powers[2]
+    launch = _ilqr_launcher(host_lib, symbol, struct)
+    first = dict(knobs, lqr_iter=1, eps=0.0, unroll=True)
+    assert_tight(as_numpy(run_staged(launch, *args, **first)), as_numpy(ilqr_solve_plain(*args, **first)))
+    four = dict(knobs, lqr_iter=4, eps=1e-5, unroll=True)
+    one = run_staged(launch, *args, **four)
+    plain = ilqr_solve_plain(*args, **four)
+    assert_chaos(as_numpy(one), as_numpy(plain))
+    for lanes in (4, 16):
+        _assert_equal_results(run_staged(launch, *args, lanes=lanes, **four), one)
+    for alpha in (one.alpha, plain.alpha):
+        assert bool(torch.isin(alpha, powers).all()) and bool((alpha == powers[2]).any())
+
+
+def test_built_lane_counts_are_one_list():
+    """The lane counts the kernels are instantiated for
+    (``DMPC_ILQR_LANES`` in ``csrc/ilqr.cuh``), the MLPs' kernel files
+    ``csrc/ilqr_nn_l<L>.cu`` and the wrapper's ``ILQR_LANES`` are one list."""
+    with open(os.path.join(build.CSRC, "ilqr.cuh")) as f:
+        macro = re.search(r"#define DMPC_ILQR_LANES\(X, A\) (.*)", f.read()).group(1)
+    in_header = tuple(int(L) for L in re.findall(r"X\(A, (\d+)\)", macro))
+    files = sorted(int(re.search(r"_l(\d+)\.cu$", p).group(1))
+                   for p in glob.glob(os.path.join(build.CSRC, "ilqr_nn_l*.cu")))
+    assert in_header == tuple(files) == ILQR_LANES
+
+
+@pytest.mark.parametrize("hoist", [False, True], ids=["in_sweep", "hoist_lin"])
+@pytest.mark.parametrize("env", ["pendulum", "nn_n3m1_h8"])
+def test_host_build_every_built_lane_count_takes_the_wrappers_scratch(host_lib, monkeypatch, env, hoist):
+    """At every built lane count the host build accepts the lanes'
+    trajectory scratch that ``run_staged`` allocates by
+    ``keeps_lane_trajectories`` and equals one lane bit for bit; with that
+    rule turned round, every lane count above one refuses the launch (the
+    kernel's ``ilqr_lane_scratch_ok``), so the wrapper's rule and the
+    kernel's ``ilqr_keeps_lanes`` cannot part unnoticed."""
+    symbol, struct, args, knobs = _lane_case(env, hoist, seed=1190 + 3 * hoist)
+    launch = _ilqr_launcher(host_lib, symbol, struct)
+    three = dict(knobs, lqr_iter=3, eps=1e-5)
+    one = run_staged(launch, *args, **three)
+    for lanes in ILQR_LANES[1:]:
+        _assert_equal_results(run_staged(launch, *args, lanes=lanes, **three), one)
+    rule = ilqr_mod.keeps_lane_trajectories
+    monkeypatch.setattr(ilqr_mod, "keeps_lane_trajectories", lambda e, lanes: not rule(e, lanes))
+    for lanes in ILQR_LANES[1:]:
+        with pytest.raises(AssertionError, match="refused"):
+            run_staged(launch, *args, lanes=lanes, **three)
 
 
 @pytest.mark.parametrize("activation", ["tanh", "softplus"])

@@ -50,9 +50,20 @@ Phases, one line of output each (JSON where it carries numbers):
    version's QP), and
    K, k within 1e-4 * max(1, max|plain|) on every scenario without one;
 10. rollout kernel vs plain: the line search on linear dynamics with and
-   without a box and on the pendulum's step, B=1024, T=20; objs within 1e-5
-   of the batch's largest |objs|, alpha equal on >= 99%, xs, us within 1e-4
-   where alpha agrees;
+   without a box and on the pendulum's step, B=1024, T=20, at the wrapper's
+   lane count; objs within 1e-5 of the batch's largest |objs|, alpha equal
+   on >= 99%, xs, us within 1e-4 where alpha agrees;
+10b. rollout lanes (diffmpc_tpu_torch.diagnostics.ab_rollout_lanes): the
+   line searches of one mpc_solve each of config 2 at T=20 and T=128
+   (B=128, 4096, 16,384, 65,536), the pendulum with FINITE_DIFF at T=20
+   (B=1024, 65,536) and T=256 (B=1024) and the bench MLP with verbose=1 at
+   T=15 and T=128 (B=1024, and 65,536 tiled from 1024's),
+   recorded, then run on the same staged inputs through the resident
+   kernel and the twin at every built lane count L: per kernel and L the
+   share of scenarios bit-equal to the resident kernel at L = 1 (raises
+   below 100%) and the time alone summed over the solve's calls, by CUDA
+   events, interleaved, the wrapper's pick (ops/cuda/rollout.py,
+   rollout_lanes) marked;
 11. the non-fused path: mpc_solve on LinDx at BASELINE.json config 2
    (box-DDP n=4, m=2, T=20, B=128, box +-0.6) and config 1 (unconstrained
    n=3, m=2, T=10, B=32), with the launch counts (Riccati and rollout once
@@ -64,9 +75,11 @@ Phases, one line of output each (JSON where it carries numbers):
    the two goldens of tests/golden on the card; the gradient (one KKT
    launch) against the CPU and the KKT kernel against the composite
    backward; the pendulum with FINITE_DIFF at B=1024 against the CPU;
-12. time: config 2 at B=128, 4096 and 65,536: mpc_solve, each kernel alone,
-   each wrapper's staging, each plain version once, and the cost of the
-   loop's one read of the done mask per iteration;
+12. time: config 2 at B=128, 4096 and 65,536: mpc_solve, each kernel alone
+   (the rollout kernel at the wrapper's lane count), each wrapper's
+   staging, each plain version once, and the cost of the loop's one read of
+   the done mask per iteration; the rollout's bound counts the rollouts
+   its inputs need and one scenario's chain;
 13. dispatch: which kernel, resident or streaming twin, each (n, m) of the
    kernels' table takes at T = 20, 64, 128 and 512 (ops/cuda/horizon.py, the
    JAX package's choice);
@@ -90,7 +103,8 @@ Phases, one line of output each (JSON where it carries numbers):
    the CPU's plain KKT; the pendulum at T=256 with FINITE_DIFF through the
    twins against the same solve through the resident kernels;
 18. time: each twin against its resident sibling, kernels alone on the same
-   inputs, at T = 20, 128, 512 and B = 128, 4096, 65,536, with their bounds;
+   inputs (the rollout kernels at the wrappers' lane count), at T = 20,
+   128, 512 and B = 128, 4096, 65,536, with their bounds;
    the plain versions once at T=128, B=128; and config 2's mpc_solve at
    T=128, forward and forward + gradient.
 19. the depth-blocked Riccati kernel against its plain version (K, k within
@@ -136,7 +150,8 @@ Phases, one line of output each (JSON where it carries numbers):
 25. time: the MLP's fused kernel alone at B=1024 and 65,536, hoist_lin off
    and on, at the wrapper's lane count, interleaved by CUDA events, with the
    bytes bound and the chain floor; mpc_solve and solve + gradient in strict
-   alternation; the rollout kernel and twin alone; each plain version once.
+   alternation; the rollout kernel and twin alone at the wrapper's lane
+   count, with the chain in their bounds; each plain version once.
 26. the kernel-under-the-mesh probe (csrc/shard_probe.cu, the TPU kernel of
    tests/test_pallas_sharding.py:221) against its plain version, bit-equal,
    at shards of 1, 2, 3, 8, 16 and 65,536, with its time, its plain
@@ -669,6 +684,48 @@ def rollout_step_ops(n: int, m: int) -> int:
     return m * (2 * n + 6) + nm * (2 * nm + 3) + 2 * n * nm
 
 
+def rollout_step_depth(n: int, m: int, box: bool = True, delta_u: bool = False) -> int:
+    """Dependent operations from x_t to x_t+1 of one closed-loop linear step
+    (rollout.cuh), counted from the source: x - x_hat and the control's n
+    multiply-adds, two for each clip (the box, delta_u), then the step's
+    sums from u's first entry on (m multiply-adds) and f."""
+    return 1 + n + 2 * (box + delta_u) + m + 1
+
+
+def rollout_chain_ms(steps: int, step_depth: int, clock_mhz: float) -> float:
+    """The line search's serial chain for one scenario: one rollout's
+    ``steps`` dependent steps (the ladder's candidates, the baseline and
+    alpha_floor's rollout are independent of each other) and the pick, each
+    dependent operation at DEP_OP_CYCLES."""
+    return (steps * step_depth + 1) * DEP_OP_CYCLES / (clock_mhz * 1e6) * 1e3
+
+
+def rollouts_needed(res, n_alpha: int, decay: float) -> float:
+    """The rollouts this line search's data needs, summed over its
+    scenarios: each scenario's ladder up to its first improving candidate,
+    or the whole ladder and alpha_floor's rollout where none improves; and
+    the baseline, counted as one rollout."""
+    ladder = torch.ones(n_alpha, dtype=torch.float32)
+    for k in range(1, n_alpha):
+        ladder[k] = ladder[k - 1] * decay
+    alpha = res.alpha.detach().float().cpu()
+    index = (alpha[:, None] == ladder[None, :]).float().argmax(1)
+    improved = res.improved.cpu()
+    return float(torch.where(improved, index + 1, torch.full_like(index, n_alpha + 1)).sum()) + alpha.numel()
+
+
+def rollout_bound(res, B: int, n: int, m: int, steps: int, clock_mhz: float, n_alpha: int = 10,
+                  decay: float = 0.2) -> dict:
+    """The linear, boxed line search's bound from its result ``res``: the
+    bytes it must move (rollout_bytes), the operations of the rollouts its
+    data needs (rollouts_needed), or one scenario's chain
+    (rollout_chain_ms), whichever is largest."""
+    from diffmpc_tpu_torch.diagnostics.card import bound as card_bound
+
+    n_ops = rollouts_needed(res, n_alpha, decay) * steps * rollout_step_ops(n, m)
+    return card_bound(rollout_bytes(B, n, m, steps), n_ops, rollout_chain_ms(steps, rollout_step_depth(n, m), clock_mhz))
+
+
 def random_lqr_torch(T: int, B: int, n: int, m: int, device, seed: int):
     """tests/oracles.py's random LQR problem (PSD cost L L'/nm + 0.5 I),
     drawn on the card: C, c, F, f, x_init in float32."""
@@ -762,7 +819,7 @@ def random_kkt_inputs_torch(steps: int, B: int, n: int, m: int, device, seed: in
     return C, c, F, r, tau, tight
 
 
-def long_horizon(device, smi: str) -> list:
+def long_horizon(device, smi: str, clock_mhz: float) -> list:
     """Phases 13-18, the long-horizon path: the dispatch, each streaming twin
     against its plain version and its resident sibling, the slice through
     mpc_solve with its gradient, and the timings. Returns the twins' records
@@ -797,6 +854,7 @@ def long_horizon(device, smi: str) -> list:
         return {name: want.get(name, 0) for name in named}
 
     box = dict(u_lower=torch.tensor(-BOX, device=device), u_upper=torch.tensor(BOX, device=device))
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
 
     # ---- 13. dispatch: the kernel each shape takes ----
     picks = {}
@@ -1036,13 +1094,16 @@ def long_horizon(device, smi: str) -> list:
             if at_slice:
                 plain_ms["riccati"] = cuda_ms(lambda: ric.riccati_backward_plain(C, c_delta, F, None, BOX_N, **ric_kw), 1, 1)
             ls_args = (x0, C, c, F, f, res.K, res.k, x_hat, u_hat)
+            lanes = rol.rollout_lanes(B, None, sm_count, steps)  # the wrappers' pick, for both kernels
             for name, launcher in (("rollout", rol._cuda_launcher), ("rollout_stream", ros._stream_launcher)):
                 out = {}
-                rol.run_staged_rollout(timed_launch(launcher(device, BOX_N, BOX_M, None), loops, out), *ls_args, **box)
+                ls_res = rol.run_staged_rollout(timed_launch(launcher(device, BOX_N, BOX_M, None), loops, out),
+                                                *ls_args, lanes=lanes, **box)
                 ms[name] = out["ms"]
             if at_slice:
                 plain_ms["rollout"] = cuda_ms(lambda: rol.linesearch_rollout_plain(*ls_args, **box), 1, 1)
-            del res, ls_args, x_hat, u_hat, c_delta, ric_kw, f, x0
+            rol_bound = rollout_bound(ls_res, B, BOX_N, BOX_M, steps, clock_mhz)
+            del res, ls_args, ls_res, x_hat, u_hat, c_delta, ric_kw, f, x0
             kkt_ins = random_kkt_inputs_torch(steps, B, BOX_N, BOX_M, device, seed=1900 + steps)
             for name, launcher in (("kkt", kkt._cuda_launcher), ("kkt_stream", kkt_stream._stream_launcher)):
                 out = {}
@@ -1054,12 +1115,11 @@ def long_horizon(device, smi: str) -> list:
             torch.cuda.empty_cache()
             bounds = dict(
                 riccati=bound(riccati_bytes(B, BOX_N, BOX_M, steps), steps * B * riccati_step_ops(BOX_N, BOX_M, "box")),
-                rollout=bound(rollout_bytes(B, BOX_N, BOX_M, steps),
-                              (LQR_ITER + 2) * steps * B * rollout_step_ops(BOX_N, BOX_M)),
+                rollout=rol_bound,
                 kkt=bound(kkt_bytes(B, BOX_N, BOX_M, steps), steps * B * kkt_step_ops(BOX_N, BOX_M)),
             )
-            twin_times[(steps, B)] = (ms, plain_ms, bounds)
-            emit(phase="time_twins", T=steps, B=B, n=BOX_N, m=BOX_M, loops=loops, card=smi,
+            twin_times[(steps, B)] = (ms, plain_ms, bounds, lanes)
+            emit(phase="time_twins", T=steps, B=B, n=BOX_N, m=BOX_M, loops=loops, card=smi, rollout_lanes=lanes,
                  **{f"{k}_ms": v for k, v in ms.items()},
                  **{f"{k}_twin_over_resident": ms[f"{k}_stream"] / ms[k] for k in ("riccati", "rollout", "kkt")},
                  **{f"{k}_plain_ms": v for k, v in plain_ms.items()}, bounds=bounds)
@@ -1077,7 +1137,7 @@ def long_horizon(device, smi: str) -> list:
              solve_plus_grad_per_s=B / grad_ms * 1e3)
         del arrays, weights
 
-    ms, plain_ms, bounds = twin_times[(T_LONG, BOX_B)]
+    ms, plain_ms, bounds, lanes = twin_times[(T_LONG, BOX_B)]
     source = "diffmpc_tpu_torch/csrc/"
     return [
         dict(name="riccati_backward_pallas_stream", route="cuda", source=source + "riccati_stream.cu",
@@ -1087,7 +1147,7 @@ def long_horizon(device, smi: str) -> list:
         dict(name="linesearch_rollout_pallas_stream", route="cuda", source=source + "rollout_stream.cu",
              replaces="diffmpc_tpu/ops/pallas/rollout_stream.py:196", launches=slice_launches["rollout_stream"],
              max_abs_err=rol_err["linear_box"], ms=ms["rollout_stream"], plain_ms=plain_ms["rollout"],
-             **bounds["rollout"], library_ms=None),
+             **{k: bounds["rollout"][k] for k in ("bound_ms", "bound_by")}, library_ms=None, lanes=lanes),
         dict(name="kkt_backward_fused_stream", route="cuda", source=source + "kkt_stream.cu",
              replaces="diffmpc_tpu/ops/pallas/kkt_stream.py:203", launches=slice_launches["kkt_stream"],
              max_abs_err=kkt_err[(BOX_N, BOX_M, T_LONG)], ms=ms["kkt_stream"], plain_ms=plain_ms["kkt"],
@@ -1359,16 +1419,20 @@ def nn_ilqr_bound(nn, B: int, steps: int, sum_iters: float, max_iters: int, n_al
     return card_bound(n_bytes, n_ops, chain_ms(depth, clock_mhz))
 
 
-def nn_rollout_bound(nn, B: int, steps: int, n_alpha: int = 10) -> dict:
-    """The line search's bound with the MLP step: C's upper triangle, c, K,
-    k, x_hat, u_hat, the bounds per step, x_init and the weights in; xs, us,
-    objs, alpha, improved out; the baseline, the ladder and the replay's
-    operations."""
+def nn_rollout_bound(nn, res, B: int, steps: int, clock_mhz: float, n_alpha: int = 10) -> dict:
+    """The line search's bound with the MLP step, from its result ``res``:
+    C's upper triangle, c, K, k, x_hat, u_hat, the bounds per step, x_init
+    and the weights in; xs, us, objs, alpha, improved out; the operations of
+    the rollouts its data needs (rollouts_needed); or one scenario's chain,
+    one rollout's steps (the control and its clip, then the MLP step) and
+    the pick; whichever is largest."""
+    from diffmpc_tpu_torch.diagnostics.card import bound as card_bound
+
     n, m, nm = 3, 1, 4
     per_step = 4 * (tri(nm) + nm + m * n + m + n + m + 2 * m) + 4 * (n + m)
     n_bytes = B * (steps * per_step + 4 * n + 9) + 4 * nn.n_params
-    ops = (n_alpha + 2) * steps * B * (rollout_step_ops(n, m) - 2 * n * nm + nn_step_ops(nn))
-    return bound(n_bytes, ops)
+    ops = rollouts_needed(res, n_alpha, 0.2) * steps * (rollout_step_ops(n, m) - 2 * n * nm + nn_step_ops(nn))
+    return card_bound(n_bytes, ops, rollout_chain_ms(steps, 5 + nn_step_depth(nn), clock_mhz))
 
 
 def nn_rollout_inputs(nn, B: int, seed: int, device, steps: int):
@@ -1430,6 +1494,7 @@ def learned_dynamics(device, smi: str, clock_mhz: float) -> list:
         return {name: want.get(name, 0) for name in named}
 
     nn = nn_model(device)
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
     pend = PendulumDx.default(device=device)
     q, p = pend.get_true_obj()
     cost = QuadCost(torch.diag(q), p)
@@ -1671,10 +1736,11 @@ def learned_dynamics(device, smi: str, clock_mhz: float) -> list:
                                           nn_model(device, out_scale=0.1))):
         args, kw = nn_rollout_inputs(model, B_MAIN, 2500 + steps, device, steps)
         out = {}
-        rol.run_staged_rollout(timed_launch(launcher(device, 3, 1, model), 20, out), *args, **kw)
+        lanes = rol.rollout_lanes(B_MAIN, il.kernel_env(model), sm_count, steps)  # the wrapper's pick
+        res = rol.run_staged_rollout(timed_launch(launcher(device, 3, 1, model), 20, out), *args, lanes=lanes, **kw)
         plain_ms = cuda_ms(lambda: rol.linesearch_rollout_plain(*args, **kw), 1, 1)
-        rol_times[name] = (out["ms"], plain_ms, nn_rollout_bound(model, B_MAIN, steps))
-        emit(phase="time_nn_rollout", kernel=name, B=B_MAIN, T=steps, card=smi, kernel_ms=out["ms"],
+        rol_times[name] = (out["ms"], plain_ms, nn_rollout_bound(model, res, B_MAIN, steps, clock_mhz), lanes)
+        emit(phase="time_nn_rollout", kernel=name, B=B_MAIN, T=steps, card=smi, lanes=lanes, kernel_ms=out["ms"],
              plain_ms=plain_ms, bound=rol_times[name][2])
     emit(phase="nn_phase_25_seconds", seconds=time.perf_counter() - t0, nn_plain_ms=nn_plain_ms)
 
@@ -1693,12 +1759,13 @@ def learned_dynamics(device, smi: str, clock_mhz: float) -> list:
         dict(name="linesearch_rollout_pallas[NNDynamics 3-16-16-3]", route="cuda", source=source + "rollout.cu",
              replaces="diffmpc_tpu/ops/pallas/rollout.py:180", launches=verbose_launches["resident"]["rollout"],
              max_abs_err=nn_rol_err["rollout"], ms=rol_times["rollout"][0], plain_ms=rol_times["rollout"][1],
-             **{k: rol_times["rollout"][2][k] for k in keep}, library_ms=None),
+             **{k: rol_times["rollout"][2][k] for k in keep}, library_ms=None, lanes=rol_times["rollout"][3]),
         dict(name="linesearch_rollout_pallas_stream[NNDynamics 3-16-16-3]", route="cuda",
              source=source + "rollout_stream.cu", replaces="diffmpc_tpu/ops/pallas/rollout_stream.py:196",
              launches=verbose_launches["twins"]["rollout_stream"], max_abs_err=nn_rol_err["rollout_stream"],
              ms=rol_times["rollout_stream"][0], plain_ms=rol_times["rollout_stream"][1],
-             **{k: rol_times["rollout_stream"][2][k] for k in keep}, library_ms=None),
+             **{k: rol_times["rollout_stream"][2][k] for k in keep}, library_ms=None,
+             lanes=rol_times["rollout_stream"][3]),
     ]
 
 
@@ -1870,7 +1937,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.models import PendulumDx
     from diffmpc_tpu_torch.ops.cuda import riccati as ric
-    from diffmpc_tpu_torch.diagnostics import ab_ilqr_lanes
+    from diffmpc_tpu_torch.diagnostics import ab_ilqr_lanes, ab_rollout_lanes
     from diffmpc_tpu_torch.ops.cuda import rollout as rol
     from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain
     from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain
@@ -1879,6 +1946,8 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     from diffmpc_tpu_torch.ops.lqr_step import kkt_backward_composite
     from diffmpc_tpu_torch.utils.batch import bmv
     from diffmpc_tpu_torch.parallel import generate_expert_data, init_train_state, make_dp_train_step
+
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
 
     # ---- 2. kernel vs plain on the card ----
     knobs = dict(lqr_iter=LQR_ITER, eps=EPS, max_linesearch_iter=N_ALPHA)
@@ -2114,8 +2183,15 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         got = rol.linesearch_rollout_cuda(*args, **kw)
         want = rol.linesearch_rollout_plain(*args, **kw)
         agreement = line_search_agreement(f"rollout kernel vs plain, {case}", got, want)
-        emit(phase="rollout_vs_plain", case=case, B=B_MAIN, T=T, **agreement)
+        emit(phase="rollout_vs_plain", case=case, B=B_MAIN, T=T, lanes=rol.linesearch_rollout_cuda.last_lanes,
+             **agreement)
         rol_err[case] = agreement["traj_max_abs_where_alpha_agrees"]
+
+    # ---- 10b. rollout lanes: each built lane count against L = 1 ----
+    t0 = time.perf_counter()
+    for rec in ab_rollout_lanes.run(device, ab_rollout_lanes.shapes()):
+        emit(phase="rollout_lanes", card=smi, **rec)
+    emit(phase="rollout_lanes_seconds", seconds=time.perf_counter() - t0)
 
     # ---- 11. the non-fused path: mpc_solve on LinDx ----
     # detach_unconverged off: a solved LQR "converges" by a +-1 ulp objective
@@ -2260,7 +2336,9 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         res = ric.riccati_backward_cuda(C, c_delta, F, None, BOX_N, **box)
         ls_args = (x0, C, c, F, f, res.K, res.k, x_hat, u_hat)
         rol_launch = rol._cuda_launcher(device, BOX_N, BOX_M, None)
-        rol.run_staged_rollout(timed_launch(rol_launch, loops, rol_t), *ls_args, u_lower=lo, u_upper=hi)
+        rol_lanes = rol.rollout_lanes(B, None, sm_count, T)  # the wrapper's pick
+        rol_res = rol.run_staged_rollout(timed_launch(rol_launch, loops, rol_t), *ls_args, u_lower=lo, u_upper=hi,
+                                         lanes=rol_lanes)
         ric_wrap = cuda_ms(lambda: ric.riccati_backward_cuda(C, c_delta, F, None, BOX_N, **box), loops, 3)
         rol_wrap = cuda_ms(lambda: rol.linesearch_rollout_cuda(*ls_args, u_lower=lo, u_upper=hi), loops, 3)
         ric_stage = cuda_ms(lambda: ric.run_staged_riccati(lambda *a: None, C, c_delta, F, None, BOX_N, **box), loops, 3)
@@ -2269,23 +2347,23 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         rol_plain = cuda_ms(lambda: rol.linesearch_rollout_plain(*ls_args, u_lower=lo, u_upper=hi), 1, 1)
         steps = T * B
         ric_bound = bound(riccati_bytes(B, BOX_N, BOX_M), steps * riccati_step_ops(BOX_N, BOX_M, "box"))
-        rol_bound = bound(
-            rollout_bytes(B, BOX_N, BOX_M),
-            (box_config.max_linesearch_iter + 2) * steps * rollout_step_ops(BOX_N, BOX_M),
-        )
-        nf_times[B] = dict(ric=(ric_t["ms"], ric_plain, ric_bound), rol=(rol_t["ms"], rol_plain, rol_bound))
+        rol_bound = rollout_bound(rol_res, B, BOX_N, BOX_M, T, clock_mhz, box_config.max_linesearch_iter,
+                                  box_config.linesearch_decay)
+        nf_times[B] = dict(ric=(ric_t["ms"], ric_plain, ric_bound), rol=(rol_t["ms"], rol_plain, rol_bound),
+                           rol_lanes=rol_lanes)
         emit(phase="time_non_fused", B=B, T=T, n=BOX_N, m=BOX_M, lqr_iter=box_config.lqr_iter, n_iters=it,
              card=smi, mpc_solve_ms=solve_ms, solves_per_s=B / solve_ms * 1e3,
              riccati_kernel_ms=ric_t["ms"], riccati_wrapper_ms=ric_wrap, riccati_staging_ms=ric_stage,
              riccati_plain_ms=ric_plain, riccati_bound=ric_bound,
-             rollout_kernel_ms=rol_t["ms"], rollout_wrapper_ms=rol_wrap, rollout_staging_ms=rol_stage,
+             rollout_lanes=rol_lanes, rollout_kernel_ms=rol_t["ms"], rollout_wrapper_ms=rol_wrap,
+             rollout_staging_ms=rol_stage,
              rollout_plain_ms=rol_plain, rollout_bound=rol_bound,
              done_read_ms=read_ms, host_and_glue_ms=solve_ms - it * (ric_wrap + rol_wrap))
 
     for B, b in ilqr_bounds.items():
         emit(phase="ilqr_bound", B=B, max_sm_clock_mhz=clock_mhz, **b)
 
-    twins = long_horizon(device, smi)
+    twins = long_horizon(device, smi, clock_mhz)
     chain = riccati_chain(device, smi, times[B_MAIN][0] / int(results[B_MAIN][0].n_iters.max()))
     learned = learned_dynamics(device, smi, clock_mhz)
     probe_row = data_parallel(device, smi)
@@ -2339,8 +2417,9 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
             max_abs_err=rol_err["linear_box"],
             ms=nf_times[BOX_B]["rol"][0],
             plain_ms=nf_times[BOX_B]["rol"][1],
-            **nf_times[BOX_B]["rol"][2],
+            **{k: nf_times[BOX_B]["rol"][2][k] for k in ("bound_ms", "bound_by")},
             library_ms=None,
+            lanes=nf_times[BOX_B]["rol_lanes"],
         ),
         *twins,
         *chain,

@@ -2,8 +2,8 @@
 //
 // Counterpart of the TPU kernel body _make_kernel in
 // diffmpc_tpu/ops/pallas/ilqr.py (:89-455), computing what it computes,
-// with a group of L threads ("lanes", L in 1, 2, 4, 8, 16, all in one warp)
-// in place of one lane of an (S, 128) tile. csrc/ilqr.cu and
+// with a group of L threads (lanes.cuh: "lanes", L in 1, 2, 4, 16, all in
+// one warp) in place of one lane of an (S, 128) tile. csrc/ilqr.cu and
 // csrc/ilqr_nn_l<L>.cu run it on the card (ilqr_launch.cuh); the tests
 // build it with g++ for the host, where the lanes of a group run one after
 // another (HostLanes).
@@ -48,8 +48,8 @@
 #pragma once
 
 #include "dual.cuh"
+#include "lanes.cuh"
 #include "riccati_entries.cuh"
-#include "stream.cuh"
 
 // Launch arguments. The field order is mirrored by ctypes in
 // diffmpc_tpu_torch/ops/cuda/ilqr.py (_IlqrArgs): keep the two in step.
@@ -102,11 +102,6 @@ struct IlqrArgs {
   int lanes;  // threads per scenario, L
 };
 
-// Steps the ladder's and the replay's slices are staged ahead (L > 1): the
-// group computes step t while the copies of t + 1 .. t + kLaneStages - 2 are
-// in flight.
-constexpr int kLaneStages = 3;
-
 // One step's slice as the ladder and the replay read it: C (all of it: the
 // stage cost reads both triangles), c, K, k, x_hat, u_hat, the box.
 template <int N, int M>
@@ -121,13 +116,6 @@ struct IlqrSlice {
   static constexpr int khi = klo + M;
   static constexpr int kSize = khi + M;
 };
-
-// The lane counts the solve is instantiated for, X(A, L) for each: on the
-// card (ilqr_launch.cuh) and in the host build of the tests. They are the
-// ones the wrapper's rule picks (ops/cuda/ilqr.py, ILQR_LANES and
-// ilqr_lanes), L = 1 among them; the MLPs' kernels are built one file per
-// lane count, ilqr_nn_l<L>.cu (the tests hold the three lists equal).
-#define DMPC_ILQR_LANES(X, A) X(A, 1) X(A, 2) X(A, 4) X(A, 16)
 
 // Whether a group of L lanes keeps each lane's candidate trajectory, so
 // that the chosen one needs no replay. On the H100 (ab_ilqr_lanes, rows
@@ -154,88 +142,6 @@ template <int N, int M>
 constexpr int ilqr_group_slot_floats() {
   return kLaneStages * IlqrSlice<N, M>::kSize;
 }
-
-// The lanes of one scenario in the host build: they run one after another,
-// so every per-lane value is an array over the lanes (kLocal = L), the
-// common work runs once and stores every step, and the staging slots are
-// one local buffer, entries 1 apart, that a lane fills whole.
-template <int L>
-struct HostLanes {
-  static constexpr int kLanes = L;
-  static constexpr int kLocal = L;
-  float* slots;  // ilqr_group_slot_floats<N, M>() floats
-  static constexpr int stride = 1;
-  DMPC_HD int lane_of(int li) const { return li; }
-  DMPC_HD bool leader() const { return true; }
-  DMPC_HD bool owns(int) const { return true; }
-  DMPC_HD bool copies(int) const { return true; }
-  DMPC_HD void sync() const {}
-  DMPC_HD void publish() const {}
-  // the lowest lane whose flag is set, or -1
-  DMPC_HD int first_set(const bool (&flag)[kLocal]) const {
-    for (int l = 0; l < L; ++l)
-      if (flag[l]) return l;
-    return -1;
-  }
-  DMPC_HD float from_lane(const float (&v)[kLocal], int lane) const { return v[lane]; }
-};
-
-// The lanes of one scenario on the card: L neighbouring threads of a warp,
-// each holding its own lane's values (kLocal = 1). `slots` is the group's
-// column of the block's staging memory, entries `stride` (scenarios per
-// block) apart; each lane copies the entries e with e % L == lane.
-template <int L>
-struct CardLanes {
-  static constexpr int kLanes = L;
-  static constexpr int kLocal = 1;
-  int lane;
-  unsigned mask;  // the group's threads in the warp
-  int shift;      // the group's first thread in the warp
-  float* slots;
-  int stride;
-  DMPC_HD int lane_of(int) const { return lane; }
-  DMPC_HD bool leader() const { return lane == 0; }
-  DMPC_HD bool owns(int t) const {
-    if constexpr (L == 1) return true;
-    return t % L == lane;
-  }
-  DMPC_HD bool copies(int e) const {
-    if constexpr (L == 1) return true;
-    return e % L == lane;
-  }
-  // every lane's copies of a slot arrived, and every lane is done with the
-  // slot before it is refilled
-  DMPC_HD void sync() const {
-#ifdef __CUDA_ARCH__
-    if constexpr (L > 1) __syncwarp(mask);
-#endif
-  }
-  // make this lane's stores to device memory visible to the group's later
-  // loads and copies
-  DMPC_HD void publish() const {
-#ifdef __CUDA_ARCH__
-    if constexpr (L > 1) {
-      __threadfence_block();
-      __syncwarp(mask);
-    }
-#endif
-  }
-  DMPC_HD int first_set(const bool (&flag)[1]) const {
-#ifdef __CUDA_ARCH__
-    if constexpr (L > 1) {
-      const unsigned bits = (__ballot_sync(mask, flag[0]) & mask) >> shift;
-      return bits ? __ffs(bits) - 1 : -1;
-    }
-#endif
-    return flag[0] ? 0 : -1;
-  }
-  DMPC_HD float from_lane(const float (&v)[1], int src) const {
-#ifdef __CUDA_ARCH__
-    if constexpr (L > 1) return __shfl_sync(mask, v[0], src, L);
-#endif
-    return v[0];
-  }
-};
 
 namespace ilqr_detail {
 
@@ -276,12 +182,6 @@ struct SlotStep {
   DMPC_HD float lo(int i) const { return e[S::klo + i]; }
   DMPC_HD float hi(int i) const { return e[S::khi + i]; }
 };
-
-// Start this lane's copy of entry e of a slot, if the entry is its own.
-template <class G>
-DMPC_HD void stage_put(const G& g, float* slot, int e, const float* src) {
-  if (g.copies(e)) stream_put(slot, g.stride, e, src);
-}
 
 // Start this lane's share of the copies of step t's slice into `slot`.
 template <int N, int M, class G>
@@ -330,11 +230,6 @@ DMPC_HD void control(const IlqrArgs& a, const In& in, const float (&x)[N], float
   }
 }
 
-// element (t, i) of lane `lane`'s slot in a (T, D, B, L) array, for scenario b
-DMPC_HD size_t lane_at(int t, int i, int D, int B, int b, int L, int lane) {
-  return at(t, i, D, B, b) * (size_t)L + lane;
-}
-
 // Where a rollout writes its trajectory: nowhere, into (x_hat, u_hat) (the
 // replay; step t by the lane that owns it), or into the lane's own slot of
 // lane_x, lane_u while `keep`
@@ -367,7 +262,7 @@ DMPC_HD void rollout_step(const IlqrArgs& a, const In& in, const Env& env, const
 // The group's staging slot of step t
 template <int N, int M, class G>
 DMPC_HD float* stage_slot(const G& g, int t) {
-  return g.slots + (size_t)(t % kLaneStages) * IlqrSlice<N, M>::kSize * g.stride;
+  return ::stage_slot(g, t, IlqrSlice<N, M>::kSize, kLaneStages);
 }
 
 // The closed-loop rollout at step size alpha from x0, returning its cost and

@@ -4,7 +4,7 @@
 // ilqr.cu (the pendulum) and ilqr_nn_l<L>.cu (the MLPs of nn_archs.cuh, one
 // file per lane count, so that nvcc builds them side by side; ilqr_nn.cu
 // holds their launchers) instantiate it for their envs, with and without the
-// HoistLin pre-pass, at the lane counts of DMPC_ILQR_LANES. An env whose
+// HoistLin pre-pass, at the lane counts of DMPC_LANES (lanes.cuh). An env whose
 // parameters are shared by every scenario and fit in shared memory
 // (SharedParams, the MLP's) has them copied there once per block before any
 // group starts its scenario; the pendulum reads its three, or its
@@ -24,15 +24,11 @@ constexpr int kThreads = 128;
 
 template <class Env, bool HoistLin, int L>
 __global__ void __launch_bounds__(kThreads) ilqr_kernel(IlqrArgs a, Env env) {
-  static_assert(L <= 16 && 32 % L == 0, "a group of lanes lies within one warp");
   constexpr int P = SharedParams<Env>::count;
   extern __shared__ float ilqr_slots[];
   const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const int b = (int)(tid / L);
-  const int warp_lane = threadIdx.x & 31;
-  const int shift = warp_lane - warp_lane % L;
-  CardLanes<L> g{(int)(threadIdx.x % L), ((1u << L) - 1u) << shift, shift, ilqr_slots + threadIdx.x / L,
-                 kThreads / L};
+  const CardLanes<L> g = card_lanes<L>(ilqr_slots, kThreads);
   if constexpr (P > 0) {
     __shared__ float params[P];
     for (int i = threadIdx.x; i < P; i += blockDim.x) params[i] = a.params[i];
@@ -69,7 +65,7 @@ int launch(const IlqrArgs* args, const Env* env, cudaStream_t stream) {
 
 // Launch the solve on `stream` with args->lanes threads per scenario;
 // returns cudaGetLastError(), or cudaErrorInvalidValue for a lane count that
-// is not instantiated (DMPC_ILQR_LANES, ilqr.cuh) or lanes' trajectory
+// is not instantiated (DMPC_LANES, lanes.cuh) or lanes' trajectory
 // scratch that its groups would not use, or lack.
 template <class Env, bool HoistLin>
 int ilqr_launch(const IlqrArgs* args, const Env* env, void* stream) {
@@ -78,7 +74,7 @@ int ilqr_launch(const IlqrArgs* args, const Env* env, void* stream) {
 #define DMPC_ILQR_LANE_CASE(_, L_) \
   case L_:                         \
     return ilqr_launch_detail::launch<Env, HoistLin, L_>(args, env, s);
-    DMPC_ILQR_LANES(DMPC_ILQR_LANE_CASE, _)
+    DMPC_LANES(DMPC_ILQR_LANE_CASE, _)
 #undef DMPC_ILQR_LANE_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -25,7 +25,7 @@
 #include "nn_archs.cuh"
 
 // each architecture's kernels, at every lane count, are built in ilqr_nn_l<L>.cu
-#define DMPC_ILQR_NN_EXTERN(N_, M_, NAME, ...) DMPC_ILQR_LANES(DMPC_ILQR_EXTERN, NNEnv_##NAME)
+#define DMPC_ILQR_NN_EXTERN(N_, M_, NAME, ...) DMPC_LANES(DMPC_ILQR_EXTERN, NNEnv_##NAME)
 DMPC_NN_ARCHS(DMPC_ILQR_NN_EXTERN)
 
 #define DMPC_ILQR_NN(N_, M_, NAME, ...)                                                              \

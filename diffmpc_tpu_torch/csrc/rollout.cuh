@@ -1,28 +1,58 @@
-// The alpha-ladder line-search rollout of ONE scenario.
+// The alpha-ladder line-search rollout of ONE scenario, by a group of L lanes.
 //
-// Counterpart of the TPU kernel body _make_kernel in
-// diffmpc_tpu/ops/pallas/rollout.py (:45-177), computing what it computes
-// with one thread in place of one lane of an (S, 128) tile. csrc/rollout.cu
-// runs it on the card with one thread per scenario; the tests build it with
-// g++ for the host. diffmpc_tpu_torch/ops/cuda/rollout.py
-// (linesearch_rollout_plain) is the same algorithm in plain PyTorch,
-// vectorised over the batch.
+// Counterpart of the TPU kernel bodies _make_kernel in
+// diffmpc_tpu/ops/pallas/rollout.py (:45-177) and
+// diffmpc_tpu/ops/pallas/rollout_stream.py (:35-193), computing what they
+// compute, with a group of L threads (lanes.cuh: "lanes", L in 1, 2, 4, 16)
+// in place of one lane of an (S, 128) tile. csrc/rollout.cu (the resident
+// kernel) and csrc/rollout_stream.cu (its streaming twin) run it on the card
+// (rollout_launch.cuh); the tests build it with g++ for the host, where the
+// lanes of a group run one after another (HostLanes).
+// diffmpc_tpu_torch/ops/cuda/rollout.py (linesearch_rollout_plain) is the
+// same algorithm in plain PyTorch, vectorised over the batch.
 //
-// The accept baseline is the cost of the current trajectory (x_hat, u_hat);
-// the rolled ladder alpha = 1, alpha *= decay runs n_alpha closed-loop
-// rollouts
-//   u_t = clip(clip(u_hat + alpha k + K (x - x_hat), u_hat +- delta_u), box)
-// through the dynamics and takes the first strictly improving alpha, else
-// alpha_floor = decay^(n_alpha - 1); the chosen rollout is replayed to write
-// the trajectory. The dynamics are linear (x' = F_t tau + f_t, LinearEnv) or
-// an env's own step (PendulumEnv, NNEnv). The per-step math (rollout_control,
-// stage_cost, advance) reads its inputs through an accessor: device memory
-// here, a shared-memory slot in the streaming twin rollout_stream.cuh.
+// The accept baseline obj0 is the cost of the current trajectory
+// (x_hat, u_hat); the ladder's candidate k runs the closed-loop rollout
+//   u_t = clip(clip(u_hat + alpha_k k + K (x - x_hat), u_hat +- delta_u), box)
+// through the dynamics (linear, x' = F_t tau + f_t, LinearEnv; or an env's
+// own step, PendulumEnv, NNEnv), and the pick is the first strictly
+// improving candidate, else alpha_floor = decay^(n_alpha - 1). The rolled
+// ladder's alpha_k is 1 * decay * ... carried k times in float32, the
+// serial loop's value; with `alphas` (unroll) it is the wrapper's decay**k,
+// rounded once.
+//
+// What the lanes share out:
+// - the ladder: lane j rolls out candidates j, j + L, ..., kPer of them side
+//   by side in each pass over the horizon (rollout_pass_states: enough for
+//   the whole ladder in one pass, or one a lane for an MLP's step), all lanes
+//   advancing step t together; the baseline's stage costs ride the first
+//   pass, every lane adding them up on the same values. The pick is a
+//   ballot over the group, state by state, pass by pass: the lowest
+//   improving candidate by ladder index. A group stops after the first pass
+//   that holds an improving candidate: the later candidates cannot change
+//   the pick (the TPU kernels compute them only to mask them);
+// - each step's slice (C, c, K, k, x_hat, u_hat, the box, and F, f for
+//   linear dynamics), where Staged (the twin; the resident kernel too but
+//   for an MLP's step): copied once for the group into shared memory,
+//   entries split over the lanes, rollout_stages - 1 steps ahead, and read
+//   back as a broadcast. Without it each lane loads the slice from device memory
+//   itself;
+// - the trajectory (rollout_keeps_lanes): each lane keeps the trajectory of
+//   its first candidate of the pass (one lane's in xs, us directly), and
+//   where the chosen candidate is one of those, the chosen lane's slot
+//   becomes xs, us, its cost objs. Otherwise, and whenever no candidate
+//   improves, the chosen step is replayed: every lane runs the same chain in
+//   lockstep, step t stored by lane t % L.
+//
+// Every candidate runs the float32 operations of the one-thread program in
+// the same order on the same values, so every L gives bit for bit the same
+// outputs as L = 1.
 //
 // Layout: every per-step array is batch-minor, (T, entries..., B).
 #pragma once
 
 #include "dual.cuh"
+#include "lanes.cuh"
 
 // Launch arguments. The field order is mirrored by ctypes in
 // diffmpc_tpu_torch/ops/cuda/rollout.py (_RolloutArgs): keep the two in step.
@@ -54,10 +84,70 @@ struct RolloutArgs {
   float decay;
   float alpha_floor;  // decay ** (n_alpha - 1): the pick when no step improves
   float delta_u;
+  // the unrolled ladder's step sizes (n_alpha,), decay**k in double rounded
+  // once to float32; null for the rolled ladder (alpha *= decay in float32)
+  const float* alphas;
+  // each lane's candidate trajectory, (T, N, B, lanes) and (T, M, B,
+  // lanes), where rollout_keeps_lanes; null otherwise
+  float* lane_x;
+  float* lane_u;
+  int lanes;  // threads per scenario, L
 };
 
 // Linear dynamics x_{t+1} = F_t [x; u] + f_t from the args' F, f.
-struct LinearEnv {};
+struct LinearEnv {
+  // a few dozen operations a step (rollout_pass_states)
+  static constexpr bool kCheapStep = true;
+};
+
+template <class Env>
+struct IsLinearEnv {
+  static constexpr bool value = false;
+};
+template <>
+struct IsLinearEnv<LinearEnv> {
+  static constexpr bool value = true;
+};
+
+// The default ladder length (max_linesearch_iter)
+constexpr int kLadder = 10;
+
+// Candidates a lane carries side by side through one pass over the horizon.
+// An env with a cheap step (linear dynamics, the pendulum) carries enough
+// that L lanes cover the default ladder in one pass, ceil(10 / L): a
+// scenario whose full step does not improve (on config 2's solves, 55-70%
+// of them) then reads the horizon twice at most, where rounds of L read it
+// up to ceil(10 / L) + 1 times (ab_rollout_lanes on an NVIDIA H100 80GB
+// HBM3 at 700 W: 3.86 against 14.5 ms for a T=20 solve's calls at
+// B=65,536). An env with a dear step (an MLP) carries one, a round of L
+// candidates a pass: ceil(10 / L) MLP states in one thread's registers lose
+// (28.6 against 54.1 ms at T=128, B=65,536, L=4). Built with DMPC_ROLLOUT_FLIP_PASSES (the A/B's other build), each
+// env takes the other choice.
+#ifndef DMPC_ROLLOUT_FLIP_PASSES
+#define DMPC_ROLLOUT_FLIP_PASSES 0
+#endif
+template <class Env, int L>
+DMPC_HD constexpr int rollout_pass_states() {
+  return Env::kCheapStep != (DMPC_ROLLOUT_FLIP_PASSES != 0) ? (kLadder + L - 1) / L : 1;
+}
+
+// Whether a group of L lanes keeps the trajectory of each lane's first
+// candidate of a pass in its own slot of lane_x, lane_u, so that picking one
+// of them needs no replay: every group of more than one lane. With one lane
+// the slot is xs, us themselves. The wrapper allocates lane_x, lane_u by the
+// same rule (rollout_keeps_lane_trajectories), and a launch whose scratch
+// disagrees with it is refused (rollout_lane_scratch_ok).
+template <int L>
+DMPC_HD constexpr bool rollout_keeps_lanes() {
+  return L > 1;
+}
+
+// Whether the args carry the lanes' trajectory slots exactly when the
+// groups of L lanes keep them.
+template <int L>
+DMPC_HD bool rollout_lane_scratch_ok(const RolloutArgs& a) {
+  return (a.lane_x != nullptr) == rollout_keeps_lanes<L>() && (a.lane_u != nullptr) == rollout_keeps_lanes<L>();
+}
 
 namespace rollout_detail {
 
@@ -91,6 +181,101 @@ struct RolloutGlobal {
   DMPC_HD float lo(int i) const { return a.u_lower[at(i, M)]; }
   DMPC_HD float hi(int i) const { return a.u_upper[at(i, M)]; }
 };
+
+// One step's staged slice: C (all of it: the stage cost reads both
+// triangles), c, K, k, x_hat, u_hat, the box, then F and f for linear
+// dynamics. The box and f are copied only when the args have them.
+template <int N, int M, class Env>
+struct RolloutSlice {
+  static constexpr int NM = N + M;
+  static constexpr int kc = NM * NM;
+  static constexpr int kK = kc + NM;
+  static constexpr int kk = kK + M * N;
+  static constexpr int kxh = kk + M;
+  static constexpr int kuh = kxh + N;
+  static constexpr int klo = kuh + M;
+  static constexpr int khi = klo + M;
+  static constexpr int kF = khi + M;
+  static constexpr int kf = kF + N * NM;
+  static constexpr int kSize = IsLinearEnv<Env>::value ? kf + N : kF;
+};
+
+// Step inputs from a staging slot: the accessor of rollout_control,
+// stage_cost and advance.
+template <int N, int M, class Env>
+struct RolloutSlot {
+  using S = RolloutSlice<N, M, Env>;
+  SlotReader e;
+  bool f_;
+  bool box_;
+  DMPC_HD float C(int i, int j) const { return e[i * S::NM + j]; }
+  DMPC_HD float c(int i) const { return e[S::kc + i]; }
+  DMPC_HD float K(int i, int j) const { return e[S::kK + i * N + j]; }
+  DMPC_HD float k(int i) const { return e[S::kk + i]; }
+  DMPC_HD float xh(int i) const { return e[S::kxh + i]; }
+  DMPC_HD float uh(int i) const { return e[S::kuh + i]; }
+  DMPC_HD bool has_box() const { return box_; }
+  DMPC_HD float lo(int i) const { return e[S::klo + i]; }
+  DMPC_HD float hi(int i) const { return e[S::khi + i]; }
+  DMPC_HD float F(int i, int j) const { return e[S::kF + i * S::NM + j]; }
+  DMPC_HD bool has_f() const { return f_; }
+  DMPC_HD float f(int i) const { return e[S::kf + i]; }
+};
+
+// Slots of a group's staging ring: the group computes step t while the
+// copies of the next rollout_stages - 2 steps are in flight. A cheap step
+// of one to three candidates a lane is a few hundred cycles, too few to
+// cover the latency of device memory, so for a cheap step the ring deepens
+// with the lanes, 2 L slots, at least 3 and at most 16: a block of 64
+// threads holds 192 slices at one lane (69 KB for n = 4, m = 2, linear),
+// 128 at two and four lanes and 64 at sixteen, and a group of 4 or 16 lanes
+// keeps 7 or 15 steps of copies in flight (ab_rollout_lanes on an NVIDIA
+// H100 80GB HBM3 at 700 W, against a ring of 3: config 2's T=20 calls at
+// B=128 0.409 against 0.482 ms, 4 lanes; at T=128 5.07 against 6.17; the
+// pendulum at T=256, B=1024, 3.67 against 4.49, 16 lanes). An MLP's step
+// hides it itself, and keeps 3 (its twin lost 5% with the deeper ring).
+// Built with DMPC_ROLLOUT_STAGES (the A/B's other build), a ring of that
+// many for every env and L.
+template <class Env, int L>
+DMPC_HD constexpr int rollout_stages() {
+#ifdef DMPC_ROLLOUT_STAGES
+  return DMPC_ROLLOUT_STAGES;
+#else
+  return !Env::kCheapStep || 2 * L < 3 ? 3 : (2 * L > 16 ? 16 : 2 * L);
+#endif
+}
+
+// Floats of staging a group of L lanes needs: its ring of slices
+template <int N, int M, class Env, int L>
+constexpr int rollout_group_slot_floats() {
+  return rollout_stages<Env, L>() * RolloutSlice<N, M, Env>::kSize;
+}
+
+// Start this lane's share of the copies of step t's slice into `slot`.
+template <int N, int M, class Env, class G>
+DMPC_HD void rollout_stage(const RolloutArgs& a, const G& g, int t, int b, float* slot) {
+  using rollout_detail::at;
+  using S = RolloutSlice<N, M, Env>;
+  constexpr int NM = N + M;
+  const int B = a.B;
+  for (int i = 0; i < NM * NM; ++i) stage_put(g, slot, i, &a.C[at(t, i, NM * NM, B, b)]);
+  for (int i = 0; i < NM; ++i) stage_put(g, slot, S::kc + i, &a.c[at(t, i, NM, B, b)]);
+  for (int i = 0; i < M * N; ++i) stage_put(g, slot, S::kK + i, &a.K[at(t, i, M * N, B, b)]);
+  for (int i = 0; i < M; ++i) stage_put(g, slot, S::kk + i, &a.k[at(t, i, M, B, b)]);
+  for (int i = 0; i < N; ++i) stage_put(g, slot, S::kxh + i, &a.x_hat[at(t, i, N, B, b)]);
+  for (int i = 0; i < M; ++i) stage_put(g, slot, S::kuh + i, &a.u_hat[at(t, i, M, B, b)]);
+  if (a.u_lower)
+    for (int i = 0; i < M; ++i) {
+      stage_put(g, slot, S::klo + i, &a.u_lower[at(t, i, M, B, b)]);
+      stage_put(g, slot, S::khi + i, &a.u_upper[at(t, i, M, B, b)]);
+    }
+  if constexpr (IsLinearEnv<Env>::value) {
+    for (int i = 0; i < N * NM; ++i) stage_put(g, slot, S::kF + i, &a.F[at(t, i, N * NM, B, b)]);
+    if (a.f)
+      for (int i = 0; i < N; ++i) stage_put(g, slot, S::kf + i, &a.f[at(t, i, N, B, b)]);
+  }
+  stream_commit();
+}
 
 // u = clip(clip(u_hat + alpha k + K (x - x_hat), u_hat +- delta_u), box)
 template <int N, int M, class In>
@@ -144,63 +329,209 @@ DMPC_HD void advance(const In&, const Env& env, const float* p, const float (&x)
 
 namespace rollout_detail {
 
-// One closed-loop rollout at step size alpha; returns its cost. With EMIT it
-// writes the trajectory: the replay runs the very arithmetic of the ladder's
-// rollout at the same alpha, so it reproduces that rollout's cost.
-template <int N, int M, class Env, bool EMIT>
-DMPC_HD float rollout(const RolloutArgs& a, const Env& env, const float* p, int b, float alpha) {
-  const int B = a.B;
-  float x[N], u[M], xn[N];
-  for (int i = 0; i < N; ++i) x[i] = a.x_init[(size_t)i * B + b];
-  float obj = 0.0f;
-  for (int t = 0; t < a.T; ++t) {
-    const RolloutGlobal<N, M> in{a, t, b};
-    rollout_control<N, M>(a, in, x, alpha, u);
-    if constexpr (EMIT) {
-      for (int i = 0; i < N; ++i) a.xs[at(t, i, N, B, b)] = x[i];
-      for (int i = 0; i < M; ++i) a.us[at(t, i, M, B, b)] = u[i];
-    }
-    obj = obj + stage_cost<N, M>(in, x, u);
-    advance<N, M>(in, env, p, x, u, xn);
-    for (int i = 0; i < N; ++i) x[i] = xn[i];
+// One step of one closed-loop rollout at step size alpha: the control, its
+// store at (xs, us) + (t, b)'s offsets when `xs` is set (entries `ld` apart
+// along i), the stage cost added to obj, the env's step.
+template <int N, int M, class In, class Env>
+DMPC_HD void rollout_step(const RolloutArgs& a, const In& in, const Env& env, const float* p, float alpha,
+                          float* xs, float* us, size_t ld, float (&x)[N], float& obj) {
+  float u[M], xn[N];
+  rollout_control<N, M>(a, in, x, alpha, u);
+  if (xs) {
+    for (int i = 0; i < N; ++i) xs[i * ld] = x[i];
+    for (int i = 0; i < M; ++i) us[i * ld] = u[i];
   }
-  return obj;
+  obj = obj + stage_cost<N, M>(in, x, u);
+  advance<N, M>(in, env, p, x, u, xn);
+  for (int i = 0; i < N; ++i) x[i] = xn[i];
 }
+
+// One pass over the horizon: body(in, t) for every step t with its inputs
+// `in`, read from device memory, or (Staged) from the group's staging ring,
+// each step's slice copied once for the group, rollout_stages - 1 steps
+// ahead. Every lane of the group calls it together.
+template <int N, int M, class Env, bool Staged, class G, class Body>
+DMPC_HD void horizon_pass(const RolloutArgs& a, const G& g, int b, Body& body) {
+  const int T = a.T;
+  if constexpr (!Staged) {
+    for (int t = 0; t < T; ++t) body(RolloutGlobal<N, M>{a, t, b}, t);
+  } else {
+    constexpr int kSize = RolloutSlice<N, M, Env>::kSize, kStages = rollout_stages<Env, G::kLanes>();
+    g.sync();  // every lane is done with the slots' last contents
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < T) rollout_stage<N, M, Env>(a, g, s, b, stage_slot(g, s, kSize, kStages));
+      else stream_commit();
+    }
+    for (int t = 0; t < T; ++t) {
+      stream_wait<kStages - 2>();  // this lane's copies of step t
+      g.sync();                    // and every other lane's
+      const int ahead = t + kStages - 1;
+      if (ahead < T) rollout_stage<N, M, Env>(a, g, ahead, b, stage_slot(g, ahead, kSize, kStages));
+      else stream_commit();
+      body(RolloutSlot<N, M, Env>{SlotReader{stage_slot(g, t, kSize, kStages), g.stride}, a.f != nullptr,
+                                  a.u_lower != nullptr},
+           t);
+    }
+  }
+}
+
+// A pass of the ladder: each local lane li advances its kPer states x[li][s]
+// at step sizes step[li][s], adding their costs to obj[li][s]; state 0
+// stores its trajectory in the lane's slot (xs, us themselves with one
+// lane). With `base`, the baseline's stage costs are added to obj0.
+template <int N, int M, int kLocal, int kPer, class Env, class G>
+struct LadderBody {
+  const RolloutArgs& a;
+  const Env& env;
+  const float* p;
+  const G& g;
+  int b;
+  bool base;
+  float& obj0;
+  float (&step)[kLocal][kPer];
+  float (&obj)[kLocal][kPer];
+  float (&x)[kLocal][kPer][N];
+
+  template <class In>
+  DMPC_HD void operator()(const In& in, int t) {
+    constexpr int L = G::kLanes;
+    const int B = a.B;
+    if (base) {
+      float xh[N], uh[M];
+      for (int i = 0; i < N; ++i) xh[i] = in.xh(i);
+      for (int i = 0; i < M; ++i) uh[i] = in.uh(i);
+      obj0 = obj0 + stage_cost<N, M>(in, xh, uh);
+    }
+    for (int li = 0; li < kLocal; ++li) {
+#pragma unroll
+      for (int s = 0; s < kPer; ++s) {
+        float *xs = nullptr, *us = nullptr;
+        size_t ld = 0;
+        if (s == 0) {
+          if constexpr (L == 1) {
+            xs = a.xs + at(t, 0, N, B, b);
+            us = a.us + at(t, 0, M, B, b);
+            ld = (size_t)B;
+          } else {
+            const int lane = g.lane_of(li);
+            xs = a.lane_x + lane_at(t, 0, N, B, b, L, lane);
+            us = a.lane_u + lane_at(t, 0, M, B, b, L, lane);
+            ld = (size_t)B * L;
+          }
+        }
+        rollout_step<N, M>(a, in, env, p, step[li][s], xs, us, ld, x[li][s], obj[li][s]);
+      }
+    }
+  }
+};
+
+// The replay: one chain at step size alpha, which every lane runs on the
+// same values, step t stored in xs, us by the lane that owns it.
+template <int N, int M, class Env, class G>
+struct ReplayBody {
+  const RolloutArgs& a;
+  const Env& env;
+  const float* p;
+  const G& g;
+  int b;
+  float alpha;
+  float (&x)[N];
+  float& obj;
+
+  template <class In>
+  DMPC_HD void operator()(const In& in, int t) {
+    const bool mine = g.owns(t);
+    rollout_step<N, M>(a, in, env, p, alpha, mine ? a.xs + at(t, 0, N, a.B, b) : nullptr,
+                       mine ? a.us + at(t, 0, M, a.B, b) : nullptr, (size_t)a.B, x, obj);
+  }
+};
 
 }  // namespace rollout_detail
 
-// The line search for scenario b, its env's parameters read from `params`
-// (a.params, or a block's copy of them in shared memory; null for linear
-// dynamics).
-template <int N, int M, class Env>
-DMPC_HD void linesearch_rollout_scenario(const RolloutArgs& a, const Env& env, int b, const float* params) {
+// The line search for scenario b by the group of lanes g (HostLanes or
+// CardLanes), its env's parameters read from `params` (a.params, or a
+// block's copy of them in shared memory; null for linear dynamics), its
+// slices staged through g's slots where Staged.
+template <int N, int M, bool Staged, class Env, class G>
+DMPC_HD void linesearch_rollout_scenario(const RolloutArgs& a, const Env& env, int b, const float* params,
+                                         const G& g) {
   using namespace rollout_detail;
+  constexpr int L = G::kLanes, kLocal = G::kLocal, kPer = rollout_pass_states<Env, L>();
+  const int T = a.T, B = a.B;
   const float* p = params ? params + (size_t)b * a.params_stride : nullptr;
-  // cost of the current trajectory: the accept baseline
-  float obj0 = 0.0f;
-  for (int t = 0; t < a.T; ++t) {
-    const RolloutGlobal<N, M> in{a, t, b};
-    float x[N], u[M];
-    for (int i = 0; i < N; ++i) x[i] = in.xh(i);
-    for (int i = 0; i < M; ++i) u[i] = in.uh(i);
-    obj0 = obj0 + stage_cost<N, M>(in, x, u);
-  }
-  // the rolled ladder: the first strictly improving step, else alpha_floor
-  float alpha = 1.0f, chosen = a.alpha_floor, has = 0.0f;
-  for (int ai = 0; ai < a.n_alpha; ++ai) {
-    const float obj_a = rollout<N, M, Env, false>(a, env, p, b, alpha);
-    if (obj_a < obj0 && has == 0.0f) {
-      chosen = alpha;
-      has = 1.0f;
-    }
-    alpha = alpha * a.decay;
-  }
-  a.objs[b] = rollout<N, M, Env, true>(a, env, p, b, chosen);
-  a.alpha[b] = chosen;
-  a.improved[b] = has;
-}
+  float x0[N];
+  for (int i = 0; i < N; ++i) x0[i] = a.x_init[(size_t)i * B + b];
 
-template <int N, int M, class Env>
-DMPC_HD void linesearch_rollout_scenario(const RolloutArgs& a, const Env& env, int b) {
-  linesearch_rollout_scenario<N, M>(a, env, b, a.params);
+  // The rolled ladder's alphas: lane j starts at decay^j, then steps by
+  // decay^L from one of its candidates to the next, one float32 product at
+  // a time: the serial loop's values.
+  float al[kLocal];
+  for (int li = 0; li < kLocal; ++li) {
+    al[li] = 1.0f;
+    for (int j = 0; j < g.lane_of(li); ++j) al[li] = al[li] * a.decay;
+  }
+  float obj0 = 0.0f, chosen = a.alpha_floor, chosen_obj = 0.0f;
+  int chosen_lane = -1, chosen_state = -1;
+  bool has = false;
+  for (int k0 = 0; k0 < a.n_alpha && !has; k0 += L * kPer) {
+    float step[kLocal][kPer], obj[kLocal][kPer], x[kLocal][kPer][N];
+    for (int li = 0; li < kLocal; ++li) {
+#pragma unroll
+      for (int s = 0; s < kPer; ++s) {
+        const int k = k0 + s * L + g.lane_of(li);
+        step[li][s] = a.alphas ? a.alphas[k < a.n_alpha ? k : a.n_alpha - 1] : al[li];
+        for (int j = 0; j < L; ++j) al[li] = al[li] * a.decay;
+        obj[li][s] = 0.0f;
+        for (int i = 0; i < N; ++i) x[li][s][i] = x0[i];
+      }
+    }
+    LadderBody<N, M, kLocal, kPer, Env, G> body{a, env, p, g, b, k0 == 0, obj0, step, obj, x};
+    horizon_pass<N, M, Env, Staged>(a, g, b, body);
+    // the lowest improving candidate of the pass, state by state
+#pragma unroll
+    for (int s = 0; s < kPer; ++s) {
+      bool improving[kLocal];
+      float step_s[kLocal], obj_s[kLocal];
+      for (int li = 0; li < kLocal; ++li) {
+        improving[li] = k0 + s * L + g.lane_of(li) < a.n_alpha && obj[li][s] < obj0;
+        step_s[li] = step[li][s];
+        obj_s[li] = obj[li][s];
+      }
+      const int first = g.first_set(improving);
+      if (first >= 0 && !has) {
+        chosen = g.from_lane(step_s, first);
+        chosen_obj = g.from_lane(obj_s, first);
+        chosen_lane = first;
+        chosen_state = s;
+        has = true;
+      }
+    }
+  }
+
+  // the trajectory: the chosen lane's, where it was the lane's first state
+  // (with one lane, already in xs, us), or the replay of the chosen step
+  float objs;
+  if (has && chosen_state == 0) {
+    if constexpr (L > 1) {
+      g.publish();  // every lane's slot
+      for (int li = 0; li < kLocal; ++li) {
+        for (int t = g.lane_of(li); t < T; t += L) {
+          for (int i = 0; i < N; ++i) a.xs[at(t, i, N, B, b)] = a.lane_x[lane_at(t, i, N, B, b, L, chosen_lane)];
+          for (int i = 0; i < M; ++i) a.us[at(t, i, M, B, b)] = a.lane_u[lane_at(t, i, M, B, b, L, chosen_lane)];
+        }
+      }
+    }
+    objs = chosen_obj;
+  } else {
+    float x[N];
+    for (int i = 0; i < N; ++i) x[i] = x0[i];
+    objs = 0.0f;
+    ReplayBody<N, M, Env, G> body{a, env, p, g, b, chosen, x, objs};
+    horizon_pass<N, M, Env, Staged>(a, g, b, body);
+  }
+  if (g.leader()) {
+    a.objs[b] = objs;
+    a.alpha[b] = chosen;
+    a.improved[b] = has ? 1.0f : 0.0f;
+  }
 }

@@ -1,0 +1,9 @@
+// The line-search rollout kernels of every MLP architecture (nn_archs.cuh)
+// at 1 lane per scenario, resident and streaming; rollout.cu and
+// rollout_stream.cu launch them.
+
+#include "nn_archs.cuh"
+#include "rollout_launch.cuh"
+
+#define DMPC_ROLLOUT_NN_L1(N_, M_, NAME, ...) DMPC_ROLLOUT_INSTANTIATE(NNEnv_##NAME, 1)
+DMPC_NN_ARCHS(DMPC_ROLLOUT_NN_L1)

@@ -5,9 +5,12 @@ Times the main path's solve (the pendulum, goal cost, box +-2, T=20,
 learned-dynamics cell (its 3-16-16-3 MLP, T=15, ``lqr_iter=8``, B=1024:
 phase 25), each forward alone and with the gradient of ``mean(us**2)``
 with respect to the model's parameters, in strict alternation, best of
-each, by CUDA events. It also reads the card's busy time for one call of
-each from ``torch.profiler`` (the sum of the kernels' device time) and
-gives the rest of the call's time as the card's idle share.
+each, by CUDA events. With ``--cells config2`` it times BASELINE.json
+config 2 instead (``LinDx`` n=4, m=2, box +-0.6; T=20 at ``lqr_iter`` 10
+and T=128 at 20, as chip_smoke's phases 12 and 18 run it) at B=128, 4096
+and 65,536, the forward alone. It also reads the card's busy time for one
+call of each from ``torch.profiler`` (the sum of the kernels' device time)
+and gives the rest of the call's time as the card's idle share.
 
 Each tree (a checkout of the repository) runs in its own process that
 imports ``diffmpc_tpu_torch`` from that tree, in the order given and then in
@@ -19,7 +22,7 @@ fused kernel's lane rule held at one lane (``ops/cuda/ilqr.py``,
 
 Run on a machine with a CUDA device, from the root of a checkout:
 
-    python diffmpc_tpu_torch/diagnostics/ab_solve_grad.py --trees PARENT . [--one-lane]
+    python diffmpc_tpu_torch/diagnostics/ab_solve_grad.py --trees PARENT . [--one-lane] [--cells config2]
 
 It prints the card's name and power limit, one JSON record per process,
 and a summary: each label's best time over its processes.
@@ -35,6 +38,7 @@ import sys
 
 PEND_B, PEND_T, PEND_ITER, PEND_LOOPS, PEND_ROUNDS = 1024, 20, 10, 20, 5
 NN_B, NN_T, NN_ITER, NN_LOOPS, NN_ROUNDS = 1024, 15, 8, 5, 3
+CONFIG2_BATCHES, CONFIG2_ITERS, CONFIG2_BOX = (128, 4096, 65536), {20: 10, 128: 20}, 0.6
 EPS = 1e-5
 
 
@@ -63,6 +67,48 @@ def busy_ms(fn):
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             total += getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
     return total / 1e3 if total > 0 else None
+
+
+def measure_config2(device="cuda") -> dict:
+    """Config 2's forward in this process's tree at each horizon and batch,
+    best of three rounds, each the mean of a few solves."""
+    import torch
+
+    from diffmpc_tpu_torch import LinDx, MPCConfig, QuadCost, mpc_solve
+    from diffmpc_tpu_torch.diagnostics.card import cuda_ms
+
+    def config2_problem(T, B, seed):
+        """tests/oracles.py's random LQR problem at config 2's widths, drawn
+        on the card (as diagnostics/ab_rollout_lanes.py draws it)."""
+        g = torch.Generator(device=device).manual_seed(seed)
+        L = torch.randn((T, B, 6, 6), generator=g, device=device)
+        C = L @ L.transpose(-1, -2) / 6 + 0.5 * torch.eye(6, device=device)
+        c = torch.randn((T, B, 6), generator=g, device=device)
+        F = torch.randn((T, B, 4, 6), generator=g, device=device) * 0.5
+        f = torch.randn((T, B, 4), generator=g, device=device) * 0.5
+        return C, c, F, f, torch.randn((B, 4), generator=g, device=device)
+
+    device = torch.device(device)
+    out = {}
+    for T, iters in CONFIG2_ITERS.items():
+        config = MPCConfig(n_state=4, n_ctrl=2, T=T, lqr_iter=iters, exit_unconverged=False,
+                           detach_unconverged=False)
+        for B in CONFIG2_BATCHES:
+            C, c, F, f, x0 = config2_problem(T, B, seed=2000 + B)
+
+            def fwd():
+                with torch.no_grad():
+                    return mpc_solve(config, x0, QuadCost(C, c), LinDx(F, f), u_lower=-CONFIG2_BOX,
+                                     u_upper=CONFIG2_BOX)
+
+            n_iters = int(fwd().info.n_iters)
+            t_f = cuda_ms(fwd, 3 if B < 65536 else 2, 3)
+            b_f = busy_ms(fwd)
+            out[f"config2_T{T}_B{B}"] = dict(fwd_ms=t_f, n_iters=n_iters, fwd_busy_ms=b_f,
+                                             fwd_idle_share=None if b_f is None else 1 - b_f / t_f)
+            del C, c, F, f, x0
+            torch.cuda.empty_cache()
+    return out
 
 
 def measure(one_lane: bool, device="cuda") -> dict:
@@ -125,25 +171,27 @@ def measure(one_lane: bool, device="cuda") -> dict:
     return out
 
 
-def child(tree: str, one_lane: bool) -> None:
+def child(tree: str, one_lane: bool, cells: str) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     import diffmpc_tpu_torch
 
     here = os.path.dirname(os.path.abspath(diffmpc_tpu_torch.__file__))
     if os.path.dirname(here) != os.path.abspath(tree):
         raise RuntimeError(f"imported diffmpc_tpu_torch from {here}, not from {tree}")
-    print(json.dumps(measure(one_lane)), flush=True)
+    print(json.dumps(measure_config2() if cells == "config2" else measure(one_lane)), flush=True)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--trees", nargs="+", required=True, help="checkouts of the repository, parent first")
     parser.add_argument("--one-lane", action="store_true", help="also run the last tree at one lane")
+    parser.add_argument("--cells", choices=("main", "config2"), default="main",
+                        help="the main path and the MLP (solve and gradient), or config 2 (the forward)")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     parser.add_argument("--child-one-lane", action="store_true", help=argparse.SUPPRESS)
     opts = parser.parse_args()
     if opts.child:
-        child(opts.child, opts.child_one_lane)
+        child(opts.child, opts.child_one_lane, opts.cells)
         return
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
@@ -153,7 +201,7 @@ def main() -> None:
     best = {}
     for tree, one_lane in order:
         label = os.path.basename(os.path.abspath(tree)) + (":one_lane" if one_lane else "")
-        cmd = [sys.executable, os.path.abspath(__file__), "--trees", tree, "--child", tree]
+        cmd = [sys.executable, os.path.abspath(__file__), "--trees", tree, "--child", tree, "--cells", opts.cells]
         proc = subprocess.run(cmd + (["--child-one-lane"] if one_lane else []), capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"{label} failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
@@ -162,7 +210,8 @@ def main() -> None:
         for cell, r in rec.items():
             b = best.setdefault(label, {}).setdefault(cell, {})
             for key in ("fwd_ms", "solve_plus_grad_ms"):
-                b[key] = min(b.get(key, float("inf")), r[key])
+                if key in r:
+                    b[key] = min(b.get(key, float("inf")), r[key])
     print(json.dumps(dict(summary=best)), flush=True)
 
 

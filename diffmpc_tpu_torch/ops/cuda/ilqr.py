@@ -522,8 +522,8 @@ def run_staged_f32(launch, x_init, C, c, dyn, u_lower, u_upper, *, u_init=None, 
     })
 
 
-# The lane counts the kernels are instantiated for (DMPC_ILQR_LANES in
-# csrc/ilqr.cuh, the files csrc/ilqr_nn_l<L>.cu; the tests hold the three
+# The lane counts the kernels are instantiated for (DMPC_LANES in
+# csrc/lanes.cuh, the files csrc/ilqr_nn_l<L>.cu; the tests hold the three
 # equal): those :func:`ilqr_lanes` picks, 1 among them.
 ILQR_LANES = (1, 2, 4, 16)
 

@@ -3,18 +3,20 @@
 Counterpart of
 :func:`diffmpc_tpu.ops.pallas.rollout_stream.linesearch_rollout_pallas_stream`,
 the TPU kernel the JAX package takes over the resident line search for long
-horizons (:mod:`~diffmpc_tpu_torch.ops.cuda.horizon` says when). It keeps that
-kernel's algorithm: one pass over the horizon advances every rollout of the
-ladder and the ``(x_hat, u_hat)`` baseline together, a second replays the
-chosen step, so the horizon is read twice and not ``max_iter + 2`` times.
+horizons (:mod:`~diffmpc_tpu_torch.ops.cuda.horizon` says when). Like that
+kernel it advances the ladder's rollouts and the ``(x_hat, u_hat)`` baseline
+together in one pass over the horizon (for an MLP's step, a round of
+candidates a pass), and replays the chosen step only where no lane kept it.
 
 - :func:`linesearch_rollout_stream_cuda` launches the kernel of
-  ``csrc/rollout_stream.cu`` (one thread per scenario, the ladder states in
-  registers, each step's inputs double-buffered through shared memory by
-  ``cp.async``) on CUDA tensors and counts its launches: linear dynamics from
-  ``F, f``, or an env's own C++ step. It takes the resident kernel's
-  ``RolloutArgs``, so it shares
-  :func:`~diffmpc_tpu_torch.ops.cuda.rollout.run_staged_rollout`.
+  ``csrc/rollout_stream.cu`` (the resident kernel's lane groups, with each
+  step's slice staged once for the group through shared memory by
+  ``cp.async``; L by
+  :func:`~diffmpc_tpu_torch.ops.cuda.rollout.rollout_lanes`) on CUDA tensors
+  and counts its launches: linear dynamics from ``F, f``, or an env's own
+  C++ step. A group whose lanes' first candidates hold the pick reads the
+  horizon once. It takes the resident kernel's ``RolloutArgs``, so it
+  shares :func:`~diffmpc_tpu_torch.ops.cuda.rollout.run_staged_rollout`.
 - Its plain version is the resident line search's,
   :func:`~diffmpc_tpu_torch.ops.cuda.rollout.linesearch_rollout_plain`,
   re-exported here: it already runs the ladder's rollouts side by side, and
@@ -62,8 +64,9 @@ def linesearch_rollout_stream_cuda(
     step).
     CUDA tensors of any float dtype (computed in float32, ``xs, us, objs,
     alpha`` back in ``x_init.dtype``); adds one to
-    ``linesearch_rollout_stream_cuda.launches``; other envs and linear shapes
-    outside the kernels' ``(n, m)`` table raise."""
+    ``linesearch_rollout_stream_cuda.launches`` and sets its ``last_lanes``;
+    other envs and linear shapes outside the kernels' ``(n, m)`` table raise.
+    The JAX twin has no ``unroll``, and neither has this."""
     return run_on_card(
         _stream_launcher, x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower=u_lower, u_upper=u_upper,
         delta_u=delta_u, dyn=dyn, decay=decay, max_iter=max_iter,
@@ -71,3 +74,4 @@ def linesearch_rollout_stream_cuda(
 
 
 linesearch_rollout_stream_cuda.launches = 0  # kernel launches, counted where they happen
+linesearch_rollout_stream_cuda.last_lanes = None  # the lane count of the last launch

@@ -340,6 +340,45 @@ def _assert_line_searches_agree(got, want, us_tol=1e-4):
     torch.testing.assert_close(got.us[:, same], want.us[:, same], atol=us_tol, rtol=0)
 
 
+@pytest.mark.parametrize("B", [128, 1000])
+@pytest.mark.parametrize("case", ["box", "pendulum"])
+def test_rollout_lane_kernels_match_plain(device, case, B):
+    """The resident line search and its twin at every built lane count, on
+    the same staged inputs: each bit for bit the resident kernel at one
+    lane, which holds the plain version (objs within 1e-5 of the largest,
+    alpha equal on >= 99%, us within 1e-4 where it agrees)."""
+    from diffmpc_tpu_torch.ops.cuda import rollout as rol
+    from diffmpc_tpu_torch.ops.cuda import rollout_stream as ros
+
+    T = 20
+    rng = np.random.default_rng(2890 + B)
+    if case == "pendulum":
+        t, dx = torch_inputs(make_problem(B=B, T=T, batched_params=True, warm=True), device)
+        n, m = 3, 1
+        x0, C, c, F, f = t["x_init"], t["C"], t["c"], None, None
+        kw = dict(u_lower=t["u_lower"], u_upper=t["u_upper"], dyn=dx, delta_u=1.0)
+    else:
+        n, m = 4, 2
+        C, c, F, f, x0 = (torch.tensor(a, device=device) for a in _random_lqr(rng, T, B, n, m))
+        kw = dict(u_lower=torch.tensor(-0.7, device=device), u_upper=torch.full((T, B, m), 0.7, device=device))
+    x_hat = torch.tensor(rng.normal(size=(T, B, n)), dtype=torch.float32, device=device)
+    u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32, device=device)
+    K = torch.tensor(rng.normal(size=(T, B, m, n)) * 0.3, dtype=torch.float32, device=device)
+    k = torch.tensor(rng.normal(size=(T, B, m)) * rng.uniform(0.5, 8.0, (1, B, 1)), dtype=torch.float32, device=device)
+    args = (x0, C, c, F, f, K, k, x_hat, u_hat)
+    launchers = {"rollout": rol._cuda_launcher, "rollout_stream": ros._stream_launcher}
+    one = rol.run_staged_rollout(launchers["rollout"](device, n, m, kw.get("dyn")), *args, **kw)
+    torch.cuda.synchronize()
+    _assert_line_searches_agree(one, linesearch_rollout_plain(*args, **kw))
+    assert len(torch.unique(one.alpha)) > 1
+    for kind, launcher in launchers.items():
+        for lanes in rol.ROLLOUT_LANES:
+            got = rol.run_staged_rollout(launcher(device, n, m, kw.get("dyn")), *args, lanes=lanes, **kw)
+            torch.cuda.synchronize()
+            for name, g, w in zip(got._fields, got, one):
+                assert torch.equal(g, w), (kind, lanes, name)
+
+
 @pytest.mark.parametrize("case", ["free", "box", "pendulum"])
 def test_rollout_twin_matches_plain_and_resident(device, case):
     T, B = 96, 130

@@ -23,7 +23,9 @@ host builds bit for bit: the same g++ arithmetic in the same order. The
 depth-blocked sweep (``csrc/riccati_blocked.cuh``) holds its ``K, k`` within
 ``1e-5 * max(1, max|plain|)``; the piece kernels (``csrc/riccati_pieces.cuh``)
 their ``K, k`` within ``1e-4 * max(1, max|plain|)`` and the rollout's
-objective within 1e-5 relative. The kernel-under-the-mesh probe
+objective within 1e-5 relative. The line search's lane groups
+(``csrc/rollout.cuh``, every built L, its slices read from the arrays or
+staged through the group's slots) equal one lane bit for bit. The kernel-under-the-mesh probe
 (``csrc/shard_probe.cuh``) equals its plain version bit for bit. The MLP step (``csrc/nn_mlp.cuh``, every
 activation) inside the solve and the line search holds the same limits; the
 solve's HoistLin pre-pass equals the solve without it bit for bit, the
@@ -77,7 +79,9 @@ from diffmpc_tpu_torch.ops.cuda.riccati_pieces import (  # noqa: E402
     run_staged_pieces,
     sweep_piece_plain,
 )
+from diffmpc_tpu_torch.ops.cuda import rollout as rol_mod  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.rollout import (  # noqa: E402
+    ROLLOUT_LANES,
     _RolloutArgs,
     linesearch_rollout_plain,
     run_staged_rollout,
@@ -110,7 +114,6 @@ SHIM = r"""
 #include "riccati_pieces.cuh"
 #include "riccati_stream.cuh"
 #include "rollout.cuh"
-#include "rollout_stream.cuh"
 #include "shard_probe.cuh"
 
 // the fused solve by groups of L lanes, the lanes of each group one after
@@ -130,7 +133,7 @@ static int ilqr_all(const IlqrArgs* a, const Env* env) {
 #define HOST_LANE_CASE(_, L_) \
   case L_:                    \
     return ilqr_group<Env, HOIST, L_>(a, env);
-    DMPC_ILQR_LANES(HOST_LANE_CASE, _)
+    DMPC_LANES(HOST_LANE_CASE, _)
 #undef HOST_LANE_CASE
   }
   return 1;
@@ -144,6 +147,30 @@ extern "C" int diffmpc_ilqr_solve_pendulum_hoist_host(const IlqrArgs* a, const P
   return ilqr_all<PendulumEnv, true>(a, env);
 }
 
+// the line search by groups of L lanes (HostLanes), its slices read from the
+// arrays or (STREAM) staged through the group's slots; a launch whose lanes'
+// trajectory scratch disagrees with rollout_keeps_lanes is refused
+template <int N, int M, bool STREAM, class Env, int L>
+static int rollout_group(const RolloutArgs* a, const Env& env) {
+  if (!rollout_lane_scratch_ok<L>(*a)) return 1;
+  std::vector<float> slots(rollout_group_slot_floats<N, M, Env, L>());
+  const HostLanes<L> g{slots.data()};
+  for (int b = 0; b < a->B; ++b) linesearch_rollout_scenario<N, M, STREAM>(*a, env, b, a->params, g);
+  return 0;
+}
+
+template <int N, int M, bool STREAM, class Env>
+static int rollout_all(const RolloutArgs* a, const Env& env) {
+  switch (a->lanes) {
+#define HOST_ROLLOUT_LANE_CASE(_, L_) \
+  case L_:                            \
+    return rollout_group<N, M, STREAM, Env, L_>(a, env);
+    DMPC_LANES(HOST_ROLLOUT_LANE_CASE, _)
+#undef HOST_ROLLOUT_LANE_CASE
+  }
+  return 1;
+}
+
 // the MLPs of the tests (nn_archs.cuh has the kernels' table): the solve with
 // and without the HoistLin pre-pass, and the line search and its twin
 #define DMPC_HOST_NN(N_, M_, NAME, ...)                                                              \
@@ -155,14 +182,7 @@ extern "C" int diffmpc_ilqr_solve_pendulum_hoist_host(const IlqrArgs* a, const P
     return ilqr_all<Env_##NAME, true>(a, env);                                                      \
   }                                                                                                 \
   extern "C" int diffmpc_rollout_nn_##NAME##_host(const RolloutArgs* a, const Env_##NAME* env, int stream) { \
-    std::vector<float> buf(2 * RolloutSlice<N_, M_, Env_##NAME>::kSize);                            \
-    for (int b = 0; b < a->B; ++b) {                                                                \
-      if (stream)                                                                                   \
-        linesearch_rollout_stream_scenario<N_, M_>(*a, *env, b, buf.data(), 1);                     \
-      else                                                                                          \
-        linesearch_rollout_scenario<N_, M_>(*a, *env, b);                                           \
-    }                                                                                               \
-    return 0;                                                                                       \
+    return stream ? rollout_all<N_, M_, true>(a, *env) : rollout_all<N_, M_, false>(a, *env);      \
   }
 
 DMPC_HOST_NN(3, 1, n3m1_h8, 8)
@@ -218,31 +238,22 @@ extern "C" int diffmpc_riccati_stream_host(const RiccatiArgs* a, int n, int m, i
   return 1;
 }
 
-template <int N, int M, class Env>
-static int rollout_all(const RolloutArgs* a, const Env& env) {
-  for (int b = 0; b < a->B; ++b) linesearch_rollout_scenario<N, M>(*a, env, b);
-  return 0;
-}
-
-extern "C" int diffmpc_rollout_host(const RolloutArgs* a, int n, int m, const PendulumEnv* env) {
-  if (env) return (n == 3 && m == 1) ? rollout_all<3, 1>(a, *env) : 1;
-  if (n == 3 && m == 2) return rollout_all<3, 2>(a, LinearEnv{});
-  if (n == 4 && m == 2) return rollout_all<4, 2>(a, LinearEnv{});
+template <int N, int M, bool STREAM>
+static int rollout_shapes(const RolloutArgs* a, int n, int m, const PendulumEnv* env) {
+  if (env) return (n == 3 && m == 1) ? rollout_all<3, 1, STREAM>(a, *env) : 1;
+  if (n == 3 && m == 2) return rollout_all<3, 2, STREAM>(a, LinearEnv{});
+  if (n == 4 && m == 2) return rollout_all<4, 2, STREAM>(a, LinearEnv{});
   return 1;
 }
 
-template <int N, int M, class Env>
-static int rollout_stream_all(const RolloutArgs* a, const Env& env) {
-  std::vector<float> buf(2 * RolloutSlice<N, M, Env>::kSize);
-  for (int b = 0; b < a->B; ++b) linesearch_rollout_stream_scenario<N, M>(*a, env, b, buf.data(), 1);
-  return 0;
+// the resident line search (its slices read from the arrays) and the twin
+// (STREAM: staged through the group's slots)
+extern "C" int diffmpc_rollout_host(const RolloutArgs* a, int n, int m, const PendulumEnv* env) {
+  return rollout_shapes<0, 0, false>(a, n, m, env);
 }
 
 extern "C" int diffmpc_rollout_stream_host(const RolloutArgs* a, int n, int m, const PendulumEnv* env) {
-  if (env) return (n == 3 && m == 1) ? rollout_stream_all<3, 1>(a, *env) : 1;
-  if (n == 3 && m == 2) return rollout_stream_all<3, 2>(a, LinearEnv{});
-  if (n == 4 && m == 2) return rollout_stream_all<4, 2>(a, LinearEnv{});
-  return 1;
+  return rollout_shapes<0, 0, true>(a, n, m, env);
 }
 
 template <int N, int M>
@@ -608,7 +619,8 @@ def test_host_build_riccati_twin_matches_plain_and_resident(
 def test_host_build_linear_rollout_twin_matches_plain_and_resident(
     host_rollout_launch, host_rollout_stream_launch, n, m, box, delta_u, max_iter
 ):
-    """max_iter 13: pass 1 runs in two chunks of the ladder (10, then 3)."""
+    """max_iter 13: one lane runs the ladder in two passes (10 candidates,
+    then 3)."""
     T, B = 7, 37
     rng = np.random.default_rng(960 + 10 * n + m + box)
     C, c, F, f, x0 = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
@@ -640,6 +652,143 @@ def test_host_build_pendulum_rollout_twin_matches_plain_and_resident(host_rollou
     got = run_staged_rollout(host_rollout_stream_launch, *args, **kw)
     _assert_rollout_matches(got, linesearch_rollout_plain(*args, **kw))
     _assert_equal_results(got, run_staged_rollout(host_rollout_launch, *args, **kw))
+
+
+# ---------------------------------------------------------------------------
+# The line search by lane groups (rollout.cuh): every built L against one,
+# its slices read from the arrays (the resident kernel's MLP step) and
+# staged (the twin, and the resident kernel's cheap steps).
+# ---------------------------------------------------------------------------
+
+
+def _rollout_lane_case(case, seed, n_alpha, T=7, B=37):
+    """``(args, kw)`` of the lane tests: linear (3, 2) unconstrained, linear
+    (4, 2) with a box, with a box and ``delta_u``; the pendulum with every
+    knob; the ``n3m1_h8`` MLP. The feedforward is scaled by up to 8 and the
+    ladder's decay is 0.5, so that the picks spread over the ladder."""
+    rng = np.random.default_rng(seed)
+    if case in ("pendulum", "mlp"):
+        if case == "pendulum":
+            t, dyn = torch_inputs(make_problem(seed=seed, batched_params=True, warm=True, B=B, T=T))
+            x0, C, c, lo, hi = t["x_init"], t["C"], t["c"], t["u_lower"], t["u_upper"]
+            u_hat = t["u_init"].clamp(-2.0, 2.0)
+        else:
+            dyn, (x0, C, c, _, lo, hi) = _nn_problem(3, 1, "tanh", seed=seed, B=B, T=T)
+            u_hat = torch.tensor(rng.uniform(-1.5, 1.5, (T, B, 1)), dtype=torch.float32)
+        n, m, F, f = 3, 1, None, None
+        x_hat = torch.tensor(rng.normal(size=(T, B, n)) * 0.3, dtype=torch.float32) + x0
+        kw = dict(u_lower=lo, u_upper=hi, dyn=dyn, delta_u=1.0 if case == "pendulum" else None)
+    else:
+        n, m = (3, 2) if case == "free32" else (4, 2)
+        C, c, F, f, x0 = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
+        u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32)
+        x_hat, _ = lqr_rollout(x0, F, f, torch.zeros(T, B, m, n), torch.zeros(T, B, m), u_hat=u_hat)
+        kw = dict(delta_u=0.8 if case == "box42_delta_u" else None)
+        if case != "free32":
+            kw.update(u_lower=torch.tensor(-0.7), u_upper=torch.full((T, B, m), 0.7))
+    K = torch.tensor(rng.normal(size=(T, B, m, n)) * 0.3, dtype=torch.float32)
+    k = torch.tensor(rng.normal(size=(T, B, m)) * rng.uniform(0.5, 8.0, (1, B, 1)), dtype=torch.float32)
+    return (x0, C, c, F, f, K, k, x_hat, u_hat), dict(kw, decay=0.5, max_iter=n_alpha)
+
+
+def _rollout_lane_launcher(host_lib, case, stream):
+    """The host build's line search for a case of :func:`_rollout_lane_case`:
+    the resident kernel or (``stream``) the twin; a refused launch raises."""
+    if case == "mlp":
+        fn = host_lib.diffmpc_rollout_nn_n3m1_h8_host
+        fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.POINTER(_NNEnv), ctypes.c_int]
+        fn.restype = ctypes.c_int
+
+        def launch(args, n, m, env):
+            assert fn(args, env, int(stream)) == 0, "refused"
+
+        return launch
+    fn = getattr(host_lib, "diffmpc_rollout_stream_host" if stream else "diffmpc_rollout_host")
+    fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(args, n, m, env):
+        assert fn(args, n, m, env) == 0, "refused"
+
+    return launch
+
+
+ROLLOUT_LANE_CASES = ["free32", "box42", "box42_delta_u", "pendulum", "mlp"]
+
+
+@pytest.mark.parametrize("n_alpha", [10, 3])
+@pytest.mark.parametrize("case", ROLLOUT_LANE_CASES)
+@pytest.mark.parametrize("stream", [False, True], ids=["direct", "staged"])
+def test_host_build_rollout_lanes_equal_one_lane_and_match_plain(host_lib, stream, case, n_alpha):
+    """Every built lane count, its slices read from the arrays or staged
+    through the group's slots (the ladder in one pass, ceil(10 / L)
+    candidates a lane, or for the MLP a round of one a lane a pass; the
+    ballot's pick; each lane's first candidate's trajectory kept) equals the
+    unstaged build at one lane bit for bit, which holds the plain version
+    within the rollout tolerances; ``n_alpha`` 3 leaves lanes of the larger
+    groups without a candidate."""
+    args, kw = _rollout_lane_case(case, 1320 + 10 * ROLLOUT_LANE_CASES.index(case) + n_alpha, n_alpha)
+    one = run_staged_rollout(_rollout_lane_launcher(host_lib, case, False), *args, **kw)
+    _assert_rollout_matches(one, linesearch_rollout_plain(*args, **kw))
+    assert len(np.unique(one.alpha.numpy())) > 1
+    launch = _rollout_lane_launcher(host_lib, case, stream)
+    for lanes in ROLLOUT_LANES:
+        _assert_equal_results(run_staged_rollout(launch, *args, lanes=lanes, **kw), one)
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["direct", "staged"])
+def test_host_build_rollout_lanes_pick_past_the_first_round(host_lib, stream):
+    """The pick when the first improving candidate lies past the lanes'
+    first candidates, and past the first pass at one and two lanes: the box
+    case with the feedforward scaled up and 13 candidates, where some
+    scenarios pick the fifth or a later one (and a replay follows), solved
+    by every L, equals one lane bit for bit."""
+    args, kw = _rollout_lane_case("box42", 1390, 13)
+    args = args[:6] + (args[6] * 4.0,) + args[7:]
+    one = run_staged_rollout(_rollout_lane_launcher(host_lib, "box42", False), *args, **kw)
+    _assert_rollout_matches(one, linesearch_rollout_plain(*args, **kw))
+    picked = torch.round(torch.log2(one.alpha) / np.log2(kw["decay"]))[one.improved]
+    assert int((picked >= 4).sum()) >= 2 and int((picked < 2).sum()) >= 2 and bool((picked >= 10).any())
+    launch = _rollout_lane_launcher(host_lib, "box42", stream)
+    for lanes in ROLLOUT_LANES:
+        _assert_equal_results(run_staged_rollout(launch, *args, lanes=lanes, **kw), one)
+
+
+@pytest.mark.parametrize("case", ["free32", "box42_delta_u"])
+def test_host_build_rollout_unroll_ladder_matches_plain(host_lib, case):
+    """``unroll=True``: the ladder's alphas are the wrapper's float32
+    ``decay**k``, which part from the rolled ladder's float32 products at
+    k = 2 for decay 0.2. Every L of both kernels bit for bit one lane, which
+    holds the plain version's ``unroll=True``; every alpha chosen one of the
+    powers, the k = 2 pick among them."""
+    args, kw = _rollout_lane_case(case, 1395, 10)
+    kw = dict(kw, decay=0.2, unroll=True)
+    powers = torch.tensor([0.2**k for k in range(10)], dtype=torch.float32)
+    f32 = torch.tensor(0.2, dtype=torch.float32)
+    assert f32 * f32 != powers[2]
+    one = run_staged_rollout(_rollout_lane_launcher(host_lib, case, False), *args, **kw)
+    _assert_rollout_matches(one, linesearch_rollout_plain(*args, **kw))
+    assert bool(torch.isin(one.alpha, powers).all()) and bool((one.alpha == powers[2]).any())
+    for stream in (False, True):
+        launch = _rollout_lane_launcher(host_lib, case, stream)
+        for lanes in ROLLOUT_LANES:
+            _assert_equal_results(run_staged_rollout(launch, *args, lanes=lanes, **kw), one)
+
+
+@pytest.mark.parametrize("case", ["box42", "mlp"])
+def test_host_build_rollout_lane_scratch_is_refused_when_it_disagrees(host_lib, monkeypatch, case):
+    """The lanes' trajectory scratch that ``run_staged_rollout`` allocates
+    by ``rollout_keeps_lane_trajectories`` is taken at every built L, and
+    with that rule turned round every L refuses the launch (the kernels'
+    ``rollout_lane_scratch_ok``): scratch at one lane, none above it."""
+    args, kw = _rollout_lane_case(case, 1398, 10)
+    rule = rol_mod.rollout_keeps_lane_trajectories
+    monkeypatch.setattr(rol_mod, "rollout_keeps_lane_trajectories", lambda lanes: not rule(lanes))
+    for stream in (False, True):
+        launch = _rollout_lane_launcher(host_lib, case, stream)
+        for lanes in ROLLOUT_LANES:
+            with pytest.raises(AssertionError, match="refused"):
+                run_staged_rollout(launch, *args, lanes=lanes, **kw)
 
 
 @pytest.mark.parametrize("T", [1, 8])
@@ -902,15 +1051,17 @@ def test_host_build_unroll_ladder_matches_plain(host_lib):
 
 
 def test_built_lane_counts_are_one_list():
-    """The lane counts the kernels are instantiated for
-    (``DMPC_ILQR_LANES`` in ``csrc/ilqr.cuh``), the MLPs' kernel files
-    ``csrc/ilqr_nn_l<L>.cu`` and the wrapper's ``ILQR_LANES`` are one list."""
-    with open(os.path.join(build.CSRC, "ilqr.cuh")) as f:
-        macro = re.search(r"#define DMPC_ILQR_LANES\(X, A\) (.*)", f.read()).group(1)
+    """The lane counts the kernels are instantiated for (``DMPC_LANES`` in
+    ``csrc/lanes.cuh``), the MLPs' kernel files ``csrc/ilqr_nn_l<L>.cu``
+    and ``csrc/rollout_nn_l<L>.cu`` and the wrappers' ``ILQR_LANES`` and
+    ``ROLLOUT_LANES`` are one list."""
+    with open(os.path.join(build.CSRC, "lanes.cuh")) as f:
+        macro = re.search(r"#define DMPC_LANES\(X, A\) (.*)", f.read()).group(1)
     in_header = tuple(int(L) for L in re.findall(r"X\(A, (\d+)\)", macro))
-    files = sorted(int(re.search(r"_l(\d+)\.cu$", p).group(1))
-                   for p in glob.glob(os.path.join(build.CSRC, "ilqr_nn_l*.cu")))
-    assert in_header == tuple(files) == ILQR_LANES
+    for kind in ("ilqr_nn", "rollout_nn"):
+        files = sorted(int(re.search(r"_l(\d+)\.cu$", p).group(1))
+                       for p in glob.glob(os.path.join(build.CSRC, f"{kind}_l*.cu")))
+        assert in_header == tuple(files) == ILQR_LANES == ROLLOUT_LANES
 
 
 @pytest.mark.parametrize("hoist", [False, True], ids=["in_sweep", "hoist_lin"])

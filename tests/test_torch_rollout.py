@@ -8,6 +8,7 @@ summation and ``sin``/``cos`` rounding); ``alpha`` and ``improved`` equal.
 """
 
 import functools
+import inspect
 
 import numpy as np
 import pytest
@@ -23,12 +24,16 @@ from diffmpc_tpu.ops.lqr import riccati_backward as jax_riccati  # noqa: E402
 from diffmpc_tpu.ops.linearize import linearize_dynamics as jax_linearize  # noqa: E402
 from diffmpc_tpu.ops.pallas.rollout import linesearch_rollout_pallas  # noqa: E402
 from diffmpc_tpu_torch import convert  # noqa: E402
-from diffmpc_tpu_torch.models import NNDynamics  # noqa: E402
+from diffmpc_tpu_torch.models import NNDynamics, PendulumDx  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda.ilqr import kernel_env  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.rollout import (  # noqa: E402
+    ROLLOUT_LANES,
     linesearch_rollout_cuda,
     linesearch_rollout_plain,
+    rollout_lanes,
     run_staged_rollout,
 )
+from diffmpc_tpu_torch.ops.cuda.rollout_stream import linesearch_rollout_stream_cuda  # noqa: E402
 from diffmpc_tpu_torch.ops.lqr import lqr_linesearch_rollout, lqr_rollout  # noqa: E402
 from oracles import random_lqr_problem  # noqa: E402
 
@@ -36,12 +41,12 @@ T, B = 8, 32
 DECAY, MAX_ITER = 0.5, 6
 
 
-@functools.partial(jax.jit, static_argnames=("delta_u", "pendulum"))
-def jax_linesearch(args, lo, hi, *, delta_u, pendulum):
+@functools.partial(jax.jit, static_argnames=("delta_u", "pendulum", "decay", "unroll"))
+def jax_linesearch(args, lo, hi, *, delta_u, pendulum, decay=DECAY, unroll=False):
     dyn = JaxPendulumDx.default(jnp.float32) if pendulum else None
     return linesearch_rollout_pallas(
-        *args, u_lower=lo, u_upper=hi, delta_u=delta_u, dyn=dyn, decay=DECAY, max_iter=MAX_ITER,
-        interpret=True,
+        *args, u_lower=lo, u_upper=hi, delta_u=delta_u, dyn=dyn, decay=decay, max_iter=MAX_ITER,
+        interpret=True, unroll=unroll,
     )
 
 
@@ -123,6 +128,84 @@ def test_plain_matches_jax_pallas_kernel_pendulum():
         decay=DECAY, max_iter=MAX_ITER,
     )
     assert_matches(got, want)
+
+
+@pytest.mark.parametrize("case", ["linear", "pendulum"])
+def test_unroll_matches_jax_unroll(case):
+    """``unroll=True``, the ladder ``alpha = decay**k`` rounded once to
+    float32 (the JAX kernel's round-1 exact-power ladder): the plain version
+    against the JAX kernel's ``unroll=True`` in interpret mode within 1e-4
+    (the slice's parity budget), ``alpha`` and ``improved`` equal, at decay
+    0.2, where the powers part from the rolled ladder's float32 products
+    from k = 2 on. The feedforward is scaled up (by 10, and 16 for the
+    pendulum) so that some scenarios back off to k = 2. The streaming twin
+    has no ``unroll``, as the JAX twin has none."""
+    decay = 0.2
+    if case == "linear":
+        args, lo, hi = linear_case(True, seed=310)
+        dyn = jdx = None
+    else:
+        args, lo, hi, jdx = pendulum_case()
+        dyn = convert.pendulum_from_jax(jdx, device="cpu")
+    args = args[:6] + (args[6] * (10.0 if jdx is None else 16.0),) + args[7:]
+    want = jax_linesearch(args, lo, hi, delta_u=None, pendulum=jdx is not None, decay=decay, unroll=True)
+    lo_t, hi_t = tensors(lo, hi)
+    got = linesearch_rollout_plain(
+        *tensors(*args), u_lower=lo_t, u_upper=hi_t, dyn=dyn, decay=decay, max_iter=MAX_ITER, unroll=True
+    )
+    for name in ("xs", "us", "objs"):
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * max(1.0, np.abs(w).max()), err_msg=name)
+    np.testing.assert_array_equal(got.alpha.numpy(), np.asarray(want.alpha))
+    np.testing.assert_array_equal(got.improved.numpy(), np.asarray(want.improved))
+    powers = np.array([decay**k for k in range(MAX_ITER)], np.float32)
+    assert np.isin(got.alpha.numpy(), powers).all() and (got.alpha.numpy() == powers[2]).any()
+    assert "unroll" not in inspect.signature(linesearch_rollout_stream_cuda).parameters
+
+
+# ``diagnostics/ab_rollout_lanes.py`` on an NVIDIA H100 80GB HBM3 at 700 W
+# (132 SMs): the kernel the dispatch takes, alone, on every line search of
+# one mpc_solve, summed, ms at L = 1 / 2 / 4 / 16 (the table beside
+# ``rollout_lanes``)
+ROLLOUT_LANE_SCAN_MS = {
+    ("linear", 20): {
+        128: (0.588, 0.511, 0.409, 0.504),
+        4096: (0.716, 0.617, 0.607, 1.449),
+        16384: (1.164, 1.486, 2.135, 5.174),
+        65536: (3.923, 5.753, 8.098, 19.867),
+    },
+    ("linear", 128): {
+        128: (8.277, 6.349, 5.070, 6.333),
+        4096: (8.522, 8.870, 8.586, 18.114),
+        16384: (14.304, 18.949, 28.466, 74.323),
+        65536: (52.936, 76.883, 115.308, 304.931),
+    },
+    ("pendulum", 20): {1024: (1.027, 0.752, 0.574, 0.471), 65536: (2.955, 2.784, 3.632, 7.282)},
+    ("pendulum", 256): {1024: (12.316, 9.338, 6.827, 3.678)},
+    ("mlp_3_16_16_3", 15): {1024: (7.318, 3.820, 2.549, 1.344), 65536: (11.470, 9.967, 7.893, 14.510)},
+    ("mlp_3_16_16_3", 128): {1024: (25.541, 14.767, 9.971, 5.175), 65536: (50.118, 39.229, 36.205, 80.665)},
+}
+
+
+@pytest.mark.parametrize("case,T", sorted(ROLLOUT_LANE_SCAN_MS))
+def test_rollout_lane_rule_picks_the_fastest_measured_lane_count(case, T):
+    """``rollout_lanes`` on a 132-SM card: at each batch of the measured
+    scan (``ROLLOUT_LANE_SCAN_MS``) it picks a built lane count whose time
+    is within 10% of the fastest one's there; never more lanes as the batch
+    grows."""
+    if case == "linear":
+        env = None
+    elif case == "pendulum":
+        env = kernel_env(PendulumDx.default(device="cpu"))
+    else:
+        env = kernel_env(NNDynamics.init(3, 1, hidden=(16, 16), device="cpu", generator=torch.Generator().manual_seed(0)))
+    scan = ROLLOUT_LANE_SCAN_MS[(case, T)]
+    picks = [rollout_lanes(B, env, 132, T) for B in sorted(scan)]
+    for B, lanes in zip(sorted(scan), picks):
+        ms = dict(zip(ROLLOUT_LANES, scan[B]))
+        assert lanes in ROLLOUT_LANES
+        assert ms[lanes] <= 1.1 * min(ms.values()), (B, lanes, ms)
+    assert picks == sorted(picks, reverse=True)
 
 
 def test_dispatch_runs_the_plain_version_on_cpu():

@@ -10,7 +10,8 @@ Phases, one line of output each (JSON where it carries numbers):
    when there is no CUDA device; nothing runs on the CPU instead;
 1. build: the CUDA kernels, built with nvcc from diffmpc_tpu_torch/csrc
    (one nvcc per source, in parallel), its seconds, each source's, and each
-   kernel's registers and spills;
+   kernel's registers, spills and stack frame; the Riccati sweep's sources
+   and lane kernels apart;
 2. kernel vs plain: the fused iLQR kernel against its plain PyTorch version
    on the card, at the main-path problem (pendulum, T=20, B=1024, and the
    ragged B=1000; lqr_iter=10, eps=1e-5), one iteration at eps=0, a warm
@@ -48,7 +49,8 @@ Phases, one line of output each (JSON where it carries numbers):
    k or QP count) on at most 0.1% of those entries, each scenario's first
    one a tie (both answers within 1e-5 of the QP's scale on the plain
    version's QP), and
-   K, k within 1e-4 * max(1, max|plain|) on every scenario without one;
+   K, k within 1e-4 * max(1, max|plain|) on every scenario without one; at
+   the wrapper's lane count (ops/cuda/riccati.py, riccati_lanes);
 10. rollout kernel vs plain: the line search on linear dynamics with and
    without a box and on the pendulum's step, B=1024, T=20, at the wrapper's
    lane count; objs within 1e-5 of the batch's largest |objs|, alpha equal
@@ -76,16 +78,27 @@ Phases, one line of output each (JSON where it carries numbers):
    launch) against the CPU and the KKT kernel against the composite
    backward; the pendulum with FINITE_DIFF at B=1024 against the CPU;
 12. time: config 2 at B=128, 4096 and 65,536: mpc_solve, each kernel alone
-   (the rollout kernel at the wrapper's lane count), each wrapper's
+   (each at its wrapper's lane count), each wrapper's
    staging, each plain version once, and the cost of the loop's one read of
    the done mask per iteration; the rollout's bound counts the rollouts
-   its inputs need and one scenario's chain;
+   its inputs need and one scenario's chain, the Riccati kernel's its chain
+   of T steps (riccati_step_depth);
 13. dispatch: which kernel, resident or streaming twin, each (n, m) of the
    kernels' table takes at T = 20, 64, 128 and 512 (ops/cuda/horizon.py, the
    JAX package's choice);
 14. the Riccati twin against its plain version and its resident sibling: box
    n=4, m=2 at T=128, B=128, 4096 and 65,536; free n=3, m=2 and mask n=4,
    m=2 at T=128; box n=3, m=1 at T=512; phase 9's rule for ties;
+14b. Riccati lanes (diffmpc_tpu_torch.diagnostics.ab_riccati_lanes): the
+   Riccati sweeps of one mpc_solve each of config 2 at T=20 (the resident
+   kernel) and T=128 (the twin), B=128, 4096 and 65,536, and of the
+   pendulum with FINITE_DIFF at T=20 and T=256 (B=1024), recorded, then run
+   on the same staged inputs through the resident kernel and the twin at
+   every built lane count L: per kernel and L the share of scenarios
+   bit-equal to the resident kernel at L = 1 (raises below 100%) and the
+   time alone summed over the solve's calls, by CUDA events, interleaved,
+   the wrapper's pick (riccati_lanes) marked; the simplified value update
+   at L = 1 and at the pick (bit-equal to each other, and its time);
 15. the rollout twin against its plain version and its resident sibling:
    linear with and without a box at T=128, the pendulum's step at T=256;
    objs within 1e-5 of the batch's largest, alpha equal on >= 99%, xs, us
@@ -103,7 +116,7 @@ Phases, one line of output each (JSON where it carries numbers):
    the CPU's plain KKT; the pendulum at T=256 with FINITE_DIFF through the
    twins against the same solve through the resident kernels;
 18. time: each twin against its resident sibling, kernels alone on the same
-   inputs (the rollout kernels at the wrappers' lane count), at T = 20,
+   inputs (the Riccati and rollout kernels at the wrappers' lane counts), at T = 20,
    128, 512 and B = 128, 4096, 65,536, with their bounds;
    the plain versions once at T=128, B=128; and config 2's mpc_solve at
    T=128, forward and forward + gradient.
@@ -199,6 +212,7 @@ import importlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -670,6 +684,37 @@ def riccati_step_ops(n: int, m: int, mode: str) -> int:
     return ops
 
 
+def riccati_step_depth(n: int, m: int, mode: str) -> int:
+    """Dependent float32 operations from (V, v) at step t+1 to (V, v) at t of
+    one Riccati step (riccati.cuh: its sums of products fused by hand,
+    riccati_mad, a fused multiply-add one operation; a lone multiply and an
+    add two), counted from the source as floors, a division or a square root
+    as one: the Q form (W's n fused terms, then Q's n and C: 2n + 1); the
+    box QP (m = 1: the clamp and its frozen test, 6; m = 2: the clipped
+    Newton point, its Cholesky 6, its solve 6, the clip 2 and its objective
+    6, then the fold over the other 8 candidates, which run beside it, and
+    the frozen mask 4: 32); the gains (the factor and one column's solve:
+    free 2 + 2 + 1 at m = 1, 6 + 6 + 1 at m = 2; masked, the frozen dims'
+    factor and a column's scaling first: 6 at m = 1, 18 at m = 2); the full
+    value update (K'Quu K's two fused sums, then the last add: 2m + 1)."""
+    qform = 2 * n + 1
+    qp = {"box": {1: 6, 2: 32}[m]}.get(mode, 0)
+    gains = ({1: 5, 2: 13} if mode == "free" else {1: 6, 2: 18})[m]
+    return qform + qp + gains + 2 * m + 1
+
+
+def riccati_bound(B: int, n: int, m: int, mode: str, steps: int, clock_mhz: float) -> dict:
+    """The Riccati sweep's bound: the bytes it must move (riccati_bytes,
+    box mode; the other modes' inputs are within a few bytes of it), its
+    operations (riccati_step_ops), or one scenario's chain of ``steps``
+    dependent steps (riccati_step_depth), whichever is largest."""
+    from diffmpc_tpu_torch.diagnostics.card import bound as card_bound
+    from diffmpc_tpu_torch.diagnostics.card import chain_ms
+
+    return card_bound(riccati_bytes(B, n, m, steps), steps * B * riccati_step_ops(n, m, mode),
+                      chain_ms(steps * riccati_step_depth(n, m, mode), clock_mhz))
+
+
 def kkt_step_ops(n: int, m: int) -> int:
     """Operations of one step of the KKT backward (kkt.cuh): a mask-mode
     Riccati step, then the adjoint and gradient sweeps."""
@@ -825,6 +870,7 @@ def long_horizon(device, smi: str, clock_mhz: float) -> list:
     mpc_solve with its gradient, and the timings. Returns the twins' records
     for the kernels line."""
     from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
+    from diffmpc_tpu_torch.diagnostics import ab_riccati_lanes
     from diffmpc_tpu_torch.ops.cuda import horizon, kkt, kkt_stream
     from diffmpc_tpu_torch.ops.cuda import riccati as ric
     from diffmpc_tpu_torch.ops.cuda import riccati_stream as rs
@@ -889,11 +935,18 @@ def long_horizon(device, smi: str, clock_mhz: float) -> list:
         name = f"{mode} n={n} m={m} T={steps} B={B}"
         vs_plain = riccati_agreement(f"twin, {name}", twin, want, Quu, qu)
         vs_resident = riccati_agreement(f"twin vs resident, {name}", twin, resident, Quu, qu)
-        emit(phase="riccati_twin", mode=mode, n=n, m=m, T=steps, B=B, vs_plain=vs_plain,
+        emit(phase="riccati_twin", mode=mode, n=n, m=m, T=steps, B=B, lanes=rs.riccati_backward_stream_cuda.last_lanes,
+             staged=rs.riccati_backward_stream_cuda.last_staged, vs_plain=vs_plain,
              vs_resident={k: vs_resident[k] for k in ("max_abs_err", "tie_steps", "free_mismatches")},
              bitwise_equal_to_resident=all(torch.equal(a, b) for a, b in zip(twin, resident)))
         ric_err[(mode, n, m, steps, B)] = max(vs_plain["max_abs_err"].values())
         del C, c, F, twin, resident, want, Quu, qu
+
+    # ---- 14b. Riccati lanes: each built lane count against L = 1 ----
+    t0 = time.perf_counter()
+    for rec in ab_riccati_lanes.run(device, ab_riccati_lanes.shapes()):
+        emit(phase="riccati_lanes", card=smi, **rec)
+    emit(phase="riccati_lanes_seconds", seconds=time.perf_counter() - t0)
 
     # ---- 15. the rollout twin vs plain and vs its resident sibling ----
     rol_err = {}
@@ -1085,10 +1138,11 @@ def long_horizon(device, smi: str, clock_mhz: float) -> list:
             x_hat, _ = lqr_rollout(x0, F, f, torch.zeros((steps, B, BOX_M, BOX_N), device=device), u_hat)
             c_delta = c + bmv(C, torch.cat([x_hat, u_hat], -1))
             ric_kw = dict(box, u_hat=u_hat)
+            ric_lanes = ric.riccati_lanes(B, BOX_N, BOX_M, ric.BOX, sm_count, steps)  # the wrappers' pick
             for name, launcher in (("riccati", ric._cuda_launcher), ("riccati_stream", rs._stream_launcher)):
                 out = {}
                 ric.run_staged_riccati(timed_launch(launcher(device, BOX_N, BOX_M), loops, out),
-                                       C, c_delta, F, None, BOX_N, **ric_kw)
+                                       C, c_delta, F, None, BOX_N, lanes=ric_lanes, **ric_kw)
                 ms[name] = out["ms"]
             res = rs.riccati_backward_stream_cuda(C, c_delta, F, None, BOX_N, **ric_kw)
             if at_slice:
@@ -1114,12 +1168,13 @@ def long_horizon(device, smi: str, clock_mhz: float) -> list:
             del C, c, F, kkt_ins
             torch.cuda.empty_cache()
             bounds = dict(
-                riccati=bound(riccati_bytes(B, BOX_N, BOX_M, steps), steps * B * riccati_step_ops(BOX_N, BOX_M, "box")),
+                riccati=riccati_bound(B, BOX_N, BOX_M, "box", steps, clock_mhz),
                 rollout=rol_bound,
                 kkt=bound(kkt_bytes(B, BOX_N, BOX_M, steps), steps * B * kkt_step_ops(BOX_N, BOX_M)),
             )
-            twin_times[(steps, B)] = (ms, plain_ms, bounds, lanes)
+            twin_times[(steps, B)] = (ms, plain_ms, bounds, lanes, ric_lanes)
             emit(phase="time_twins", T=steps, B=B, n=BOX_N, m=BOX_M, loops=loops, card=smi, rollout_lanes=lanes,
+                 riccati_lanes=ric_lanes,
                  **{f"{k}_ms": v for k, v in ms.items()},
                  **{f"{k}_twin_over_resident": ms[f"{k}_stream"] / ms[k] for k in ("riccati", "rollout", "kkt")},
                  **{f"{k}_plain_ms": v for k, v in plain_ms.items()}, bounds=bounds)
@@ -1137,13 +1192,14 @@ def long_horizon(device, smi: str, clock_mhz: float) -> list:
              solve_plus_grad_per_s=B / grad_ms * 1e3)
         del arrays, weights
 
-    ms, plain_ms, bounds, lanes = twin_times[(T_LONG, BOX_B)]
+    ms, plain_ms, bounds, lanes, ric_lanes = twin_times[(T_LONG, BOX_B)]
     source = "diffmpc_tpu_torch/csrc/"
     return [
         dict(name="riccati_backward_pallas_stream", route="cuda", source=source + "riccati_stream.cu",
              replaces="diffmpc_tpu/ops/pallas/riccati_stream.py:171", launches=slice_launches["riccati_stream"],
              max_abs_err=ric_err[("box", BOX_N, BOX_M, T_LONG, BOX_B)], ms=ms["riccati_stream"],
-             plain_ms=plain_ms["riccati"], **bounds["riccati"], library_ms=None),
+             plain_ms=plain_ms["riccati"], **{k: bounds["riccati"][k] for k in ("bound_ms", "bound_by")},
+             library_ms=None, lanes=ric_lanes),
         dict(name="linesearch_rollout_pallas_stream", route="cuda", source=source + "rollout_stream.cu",
              replaces="diffmpc_tpu/ops/pallas/rollout_stream.py:196", launches=slice_launches["rollout_stream"],
              max_abs_err=rol_err["linear_box"], ms=ms["rollout_stream"], plain_ms=plain_ms["rollout"],
@@ -1925,9 +1981,15 @@ def main() -> int:
     so, log = build.build(per_source)
     build.load()
     build_s = time.perf_counter() - t0
+    # the Riccati sweep's kernels, riccati_kernel<n, m, mode, staged, L>
+    riccati = {"n{}m{} mode {} {} L={}".format(*k.group(1, 2, 3), "staged" if k.group(4) == "1" else "direct", k.group(5)): v
+               for name, v in ptxas_report(log, "riccati_kernel").items()
+               if (k := re.search(r"riccati_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ELi(\d+)E", name))}
     emit(
         phase="build", seconds=build_s, per_source_seconds=per_source, library=os.path.relpath(so), fresh=bool(log),
         ptxas=ptxas_report(log),
+        riccati_sources_seconds={k: v for k, v in per_source.items() if re.fullmatch(r"riccati(_stream|_l\d+)?\.cu", k)},
+        riccati_kernels=riccati,
     )
     return run_phases(device, kind, smi, clock_mhz)
 
@@ -2173,7 +2235,8 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         want, Quu, qu = ric.riccati_backward_plain(C, c, F, None, n, return_qp=True, **kw)
         torch.cuda.synchronize()
         agreement = riccati_agreement(f"{mode} n={n} m={m} B={B}", got, want, Quu, qu)
-        emit(phase="riccati_vs_plain", mode=mode, n=n, m=m, B=B, T=T, **agreement)
+        emit(phase="riccati_vs_plain", mode=mode, n=n, m=m, B=B, T=T, lanes=ric.riccati_backward_cuda.last_lanes,
+             staged=ric.riccati_backward_cuda.last_staged, **agreement)
         ric_err[(mode, n, m, B)] = max(agreement["max_abs_err"].values())
 
     # ---- 10. rollout kernel vs plain on the card ----
@@ -2332,7 +2395,9 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         box = dict(u_lower=lo, u_upper=hi, u_hat=u_hat)
         ric_t, rol_t = {}, {}
         ric_launch = ric._cuda_launcher(device, BOX_N, BOX_M)
-        ric.run_staged_riccati(timed_launch(ric_launch, loops, ric_t), C, c_delta, F, None, BOX_N, **box)
+        ric_lanes = ric.riccati_lanes(B, BOX_N, BOX_M, ric.BOX, sm_count, T)  # the wrapper's pick
+        ric.run_staged_riccati(timed_launch(ric_launch, loops, ric_t), C, c_delta, F, None, BOX_N, lanes=ric_lanes,
+                               **box)
         res = ric.riccati_backward_cuda(C, c_delta, F, None, BOX_N, **box)
         ls_args = (x0, C, c, F, f, res.K, res.k, x_hat, u_hat)
         rol_launch = rol._cuda_launcher(device, BOX_N, BOX_M, None)
@@ -2346,14 +2411,15 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         ric_plain = cuda_ms(lambda: ric.riccati_backward_plain(C, c_delta, F, None, BOX_N, **box), 1, 1)
         rol_plain = cuda_ms(lambda: rol.linesearch_rollout_plain(*ls_args, u_lower=lo, u_upper=hi), 1, 1)
         steps = T * B
-        ric_bound = bound(riccati_bytes(B, BOX_N, BOX_M), steps * riccati_step_ops(BOX_N, BOX_M, "box"))
+        ric_bound = riccati_bound(B, BOX_N, BOX_M, "box", T, clock_mhz)
         rol_bound = rollout_bound(rol_res, B, BOX_N, BOX_M, T, clock_mhz, box_config.max_linesearch_iter,
                                   box_config.linesearch_decay)
         nf_times[B] = dict(ric=(ric_t["ms"], ric_plain, ric_bound), rol=(rol_t["ms"], rol_plain, rol_bound),
-                           rol_lanes=rol_lanes)
+                           rol_lanes=rol_lanes, ric_lanes=ric_lanes)
         emit(phase="time_non_fused", B=B, T=T, n=BOX_N, m=BOX_M, lqr_iter=box_config.lqr_iter, n_iters=it,
              card=smi, mpc_solve_ms=solve_ms, solves_per_s=B / solve_ms * 1e3,
-             riccati_kernel_ms=ric_t["ms"], riccati_wrapper_ms=ric_wrap, riccati_staging_ms=ric_stage,
+             riccati_lanes=ric_lanes, riccati_kernel_ms=ric_t["ms"], riccati_wrapper_ms=ric_wrap,
+             riccati_staging_ms=ric_stage,
              riccati_plain_ms=ric_plain, riccati_bound=ric_bound,
              rollout_lanes=rol_lanes, rollout_kernel_ms=rol_t["ms"], rollout_wrapper_ms=rol_wrap,
              rollout_staging_ms=rol_stage,
@@ -2405,8 +2471,9 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
             max_abs_err=ric_err[("box", BOX_N, BOX_M, BOX_B)],
             ms=nf_times[BOX_B]["ric"][0],
             plain_ms=nf_times[BOX_B]["ric"][1],
-            **nf_times[BOX_B]["ric"][2],
+            **{k: nf_times[BOX_B]["ric"][2][k] for k in ("bound_ms", "bound_by")},
             library_ms=None,
+            lanes=nf_times[BOX_B]["ric_lanes"],
         ),
         dict(
             name="linesearch_rollout_pallas",

@@ -20,6 +20,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,12 +40,27 @@ NVCC_FLAGS = (
 )
 
 
+# The Riccati sweep's sources are built without FMA contraction. Whether
+# nvcc fuses a product into a sum depends on how many uses the product has in
+# the surrounding code, which differs between one thread's step and a lane
+# group's share of it; the sweep fuses by hand instead (riccati_mad in
+# riccati_entries.cuh), where contraction fused the one-thread kernel, so
+# that every lane count computes the same float32 operations, bit for bit.
+NO_CONTRACTION = ("-fmad=false",)
+
+
+def source_flags(src: str) -> tuple:
+    """The flags of ``src`` beyond NVCC_FLAGS."""
+    name = os.path.basename(src)
+    return NO_CONTRACTION if re.fullmatch(r"riccati(_stream|_l\d+)?\.cu", name) else ()
+
+
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + NO_CONTRACTION).encode())
     for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -106,7 +122,8 @@ def build(seconds: dict | None = None) -> tuple[str, str]:
     objdir = tempfile.mkdtemp(prefix="obj-", dir=BUILD_DIR)
     try:
         objs = [os.path.join(objdir, os.path.basename(src) + ".o") for src in sources()]
-        log, compile_s = _run([[nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src] for obj, src in zip(objs, sources())])
+        log, compile_s = _run([[nvcc, *NVCC_FLAGS, *source_flags(src), "-I", CSRC, "-c", "-o", obj, src]
+                               for obj, src in zip(objs, sources())])
         link_log, link_s = _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
         log += link_log
         if seconds is not None:

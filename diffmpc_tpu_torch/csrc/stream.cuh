@@ -1,11 +1,11 @@
 // Double-buffered streaming of per-step slices through shared memory.
 //
-// The streaming twins (riccati_stream.cuh, kkt_stream.cuh) copy each step's
+// The KKT streaming twin (kkt_stream.cuh) copies each step's
 // slice of the horizon arrays into one of two slots while the step before
 // computes from the other: cp.async on the card, where the TPU kernels start
 // an async DMA (pltpu.make_async_copy). The lane groups (lanes.cuh: the
-// fused solve, the line search and its twin) stage a group's slices with
-// the same copies.
+// fused solve, the line search, the Riccati sweep and their twins) stage a
+// group's slices with the same copies.
 //
 // One thread owns one scenario and copies only that scenario's entries, into
 // its own column of the block's shared memory: entry e of slot s lies at

@@ -15,7 +15,9 @@ and gives the rest of the call's time as the card's idle share.
 Each tree (a checkout of the repository) runs in its own process that
 imports ``diffmpc_tpu_torch`` from that tree, in the order given and then in
 reverse (parent, change, change, parent for two trees), so that a drift of
-the card or the host shows as a difference between a tree's two runs.
+the card or the host shows as a difference between a tree's two runs; with
+``--pairs N``, N such rounds, the order turned round each time, and
+``--only`` keeps the named config 2 cells (``config2_T20_B4096``, ...).
 With ``--one-lane`` the last tree runs once more, in the middle, with the
 fused kernel's lane rule held at one lane (``ops/cuda/ilqr.py``,
 ``ilqr_lanes``), to tell the kernel's part from the host's.
@@ -23,9 +25,10 @@ fused kernel's lane rule held at one lane (``ops/cuda/ilqr.py``,
 Run on a machine with a CUDA device, from the root of a checkout:
 
     python diffmpc_tpu_torch/diagnostics/ab_solve_grad.py --trees PARENT . [--one-lane] [--cells config2]
+        [--pairs N] [--only CELL ...]
 
 It prints the card's name and power limit, one JSON record per process,
-and a summary: each label's best time over its processes.
+and a summary: each label's best and median time over its processes.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -69,9 +73,10 @@ def busy_ms(fn):
     return total / 1e3 if total > 0 else None
 
 
-def measure_config2(device="cuda") -> dict:
-    """Config 2's forward in this process's tree at each horizon and batch,
-    best of three rounds, each the mean of a few solves."""
+def measure_config2(device="cuda", only=None) -> dict:
+    """Config 2's forward in this process's tree at each horizon and batch
+    (those named in ``only``, where given), best of three rounds, each the
+    mean of a few solves."""
     import torch
 
     from diffmpc_tpu_torch import LinDx, MPCConfig, QuadCost, mpc_solve
@@ -94,6 +99,8 @@ def measure_config2(device="cuda") -> dict:
         config = MPCConfig(n_state=4, n_ctrl=2, T=T, lqr_iter=iters, exit_unconverged=False,
                            detach_unconverged=False)
         for B in CONFIG2_BATCHES:
+            if only and f"config2_T{T}_B{B}" not in only:
+                continue
             C, c, F, f, x0 = config2_problem(T, B, seed=2000 + B)
 
             def fwd():
@@ -171,14 +178,14 @@ def measure(one_lane: bool, device="cuda") -> dict:
     return out
 
 
-def child(tree: str, one_lane: bool, cells: str) -> None:
+def child(tree: str, one_lane: bool, cells: str, only) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     import diffmpc_tpu_torch
 
     here = os.path.dirname(os.path.abspath(diffmpc_tpu_torch.__file__))
     if os.path.dirname(here) != os.path.abspath(tree):
         raise RuntimeError(f"imported diffmpc_tpu_torch from {here}, not from {tree}")
-    print(json.dumps(measure_config2() if cells == "config2" else measure(one_lane)), flush=True)
+    print(json.dumps(measure_config2(only=only) if cells == "config2" else measure(one_lane)), flush=True)
 
 
 def main() -> None:
@@ -187,32 +194,40 @@ def main() -> None:
     parser.add_argument("--one-lane", action="store_true", help="also run the last tree at one lane")
     parser.add_argument("--cells", choices=("main", "config2"), default="main",
                         help="the main path and the MLP (solve and gradient), or config 2 (the forward)")
+    parser.add_argument("--pairs", type=int, default=2, help="rounds over the trees, the order turned round each")
+    parser.add_argument("--only", nargs="*", help="the config 2 cells to time (default all)")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     parser.add_argument("--child-one-lane", action="store_true", help=argparse.SUPPRESS)
     opts = parser.parse_args()
     if opts.child:
-        child(opts.child, opts.child_one_lane, opts.cells)
+        child(opts.child, opts.child_one_lane, opts.cells, opts.only)
         return
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
     runs = [(tree, False) for tree in opts.trees]
     middle = [(opts.trees[-1], True)] * 2 if opts.one_lane else []
-    order = runs + middle + runs[::-1]
-    best = {}
+    order = []
+    for i in range(opts.pairs):
+        order += (runs if i % 2 == 0 else runs[::-1]) + (middle if i == 0 else [])
+    times = {}
     for tree, one_lane in order:
         label = os.path.basename(os.path.abspath(tree)) + (":one_lane" if one_lane else "")
-        cmd = [sys.executable, os.path.abspath(__file__), "--trees", tree, "--child", tree, "--cells", opts.cells]
+        cmd = [sys.executable, os.path.abspath(__file__), "--trees", tree, "--child", tree, "--cells", opts.cells,
+               *(["--only", *opts.only] if opts.only else [])]
         proc = subprocess.run(cmd + (["--child-one-lane"] if one_lane else []), capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"{label} failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
         print(json.dumps(dict(label=label, tree=tree, **rec)), flush=True)
         for cell, r in rec.items():
-            b = best.setdefault(label, {}).setdefault(cell, {})
             for key in ("fwd_ms", "solve_plus_grad_ms"):
                 if key in r:
-                    b[key] = min(b.get(key, float("inf")), r[key])
-    print(json.dumps(dict(summary=best)), flush=True)
+                    times.setdefault(label, {}).setdefault(cell, {}).setdefault(key, []).append(r[key])
+    summary = {label: {cell: {key: min(ts) for key, ts in keys.items()} for cell, keys in cells.items()}
+               for label, cells in times.items()}
+    medians = {label: {cell: {key: statistics.median(ts) for key, ts in keys.items()} for cell, keys in cells.items()}
+               for label, cells in times.items()}
+    print(json.dumps(dict(summary=summary, median=medians, runs=times)), flush=True)
 
 
 if __name__ == "__main__":

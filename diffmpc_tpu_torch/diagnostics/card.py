@@ -49,9 +49,9 @@ def bound(n_bytes: float, n_ops: float, chain: float = 0.0) -> dict:
 
 
 def ptxas_report(log: str, match: str = "") -> dict:
-    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` (spills in
-    bytes) for the entry functions of an ``nvcc -Xptxas -v`` log whose
-    mangled names contain ``match``."""
+    """``{kernel: {"registers", "stack_frame", "spill_stores",
+    "spill_loads"}}`` (the last three in bytes) for the entry functions of an
+    ``nvcc -Xptxas -v`` log whose mangled names contain ``match``."""
     out, entry, props = {}, None, None
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
@@ -60,8 +60,10 @@ def ptxas_report(log: str, match: str = "") -> dict:
             props = m.group(1)
         elif entry is None or match not in entry:
             continue
-        elif props == entry and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            out.setdefault(entry, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif props == entry and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                                 r"(\d+) bytes spill loads", line)):
+            out.setdefault(entry, {}).update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                                             spill_loads=int(m.group(3)))
         elif m := re.search(r"Used (\d+) registers", line):
             out.setdefault(entry, {})["registers"] = int(m.group(1))
     return out

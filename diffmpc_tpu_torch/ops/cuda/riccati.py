@@ -6,11 +6,19 @@ the TPU kernel of the non-fused path's Riccati recursion over
 dims (mask mode, the composite KKT backward).
 
 - :func:`riccati_backward_cuda` launches the kernel of ``csrc/riccati.cu``
-  (one thread per scenario) on CUDA tensors and counts its launches.
+  (a group of L threads per scenario sharing out each step's entries, QP
+  candidates and gain columns, L by :func:`riccati_lanes`) on CUDA tensors
+  and counts its launches.
 - :func:`riccati_backward_plain` is the same algorithm in plain PyTorch,
   vectorized over the batch: each matrix entry is a ``(B,)`` tensor and
   Python loops run over time and entries, in the kernel's order. It serves
   CPU tensors and the checks of the kernel.
+
+With ``value_update_exact_reg`` at or above ``reg``, the sweep takes the
+JAX package's simplified value update where its box QP is exact
+(:func:`use_exact_value_update`, the gate of ``riccati.py:509-513``); the
+default -1 keeps the full form, as the JAX package's
+``VALUE_UPDATE_EXACT_REG`` does.
 
 The kernel computes in float32 and casts ``K, k`` back to ``C.dtype``, as
 the TPU wrapper does (``riccati.py:754``, ``:796-797``); the plain version
@@ -27,7 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .ilqr import bm, kernel_symbol, resolve_use_cuda
+from .ilqr import _sm_count, bm, kernel_symbol, resolve_use_cuda
 from .riccati_entries import (
     _cho_solve_entries,
     _chol_entries,
@@ -46,18 +54,35 @@ class RiccatiResult(NamedTuple):
     n_qp_iter: torch.Tensor  # (T, B) int32: box-QP solves (0 when unused)
 
 
+def _mode_of(u_lower, u_hat, ctrl_mask) -> int:
+    """The mode the arguments ask for: box with ``u_lower`` (and ``u_upper``,
+    ``u_hat``), mask with ``ctrl_mask``, else free."""
+    if u_lower is not None:
+        if u_hat is None or ctrl_mask is not None:
+            raise ValueError("box mode takes u_lower, u_upper and u_hat, and no ctrl_mask")
+        return BOX
+    return FREE if ctrl_mask is None else MASK
+
+
 def _mode_inputs(T, B, m, u_lower, u_upper, u_hat, ctrl_mask):
     """The mode and its per-step input: ``(lo, hi)`` of the delta-u box
     (``lo = u_lower - u_hat``, as ``riccati.py:761-765``), the frozen mask,
     or nothing."""
-    if u_lower is not None:
-        if u_hat is None or ctrl_mask is not None:
-            raise ValueError("box mode takes u_lower, u_upper and u_hat, and no ctrl_mask")
+    mode = _mode_of(u_lower, u_hat, ctrl_mask)
+    if mode == BOX:
         shape = (T, B, m)
         return BOX, (u_lower.expand(shape) - u_hat, u_upper.expand(shape) - u_hat)
-    if ctrl_mask is not None:
-        return MASK, (ctrl_mask,)
-    return FREE, ()
+    return (MASK, (ctrl_mask,)) if mode == MASK else (FREE, ())
+
+
+def use_exact_value_update(mode: int, m: int, reg: float, threshold: float) -> bool:
+    """Whether a sweep takes the simplified value update: the gate of the
+    JAX package's ``_use_exact_value_update`` (``riccati.py:509-513``) with
+    its ``VALUE_UPDATE_EXACT_REG`` as ``threshold``: the inner solve is exact
+    (free and mask modes, and box mode at m <= 2, where the closed form and
+    the enumeration run: the port has no ``DIFFMPC_PNQP_ENUM``, so its m >= 3
+    box QP is always the projected-Newton loop) and ``reg <= threshold``."""
+    return (mode != BOX or m <= 2) and reg <= threshold
 
 
 def _check_shapes(C, c, F, f, n):
@@ -135,6 +160,7 @@ def riccati_backward_plain(
     ctrl_mask: Optional[torch.Tensor] = None,
     reg: float = 1e-9,
     pnqp_iter: int = 8,
+    value_update_exact_reg: float = -1.0,
     return_qp: bool = False,
 ):
     """The Riccati sweep in plain PyTorch, on any device and for any
@@ -145,6 +171,7 @@ def riccati_backward_plain(
     n = n_state
     T, B, m = _check_shapes(C, c, F, f, n)
     mode, extra = _mode_inputs(T, B, m, u_lower, u_upper, u_hat, ctrl_mask)
+    exact = use_exact_value_update(mode, m, reg, value_update_exact_reg)
     dtype = C.dtype
     # entry views: Ce[t, a, b] and friends are (B,) tensors
     Ce = C.to(dtype).permute(0, 2, 3, 1)
@@ -183,7 +210,7 @@ def riccati_backward_plain(
         if return_qp:
             Quu_all[t] = torch.stack([torch.stack(row, -1) for row in Quu], 1)
             qu_all[t] = torch.stack(qu, 1)
-        V, v = _value_update(Q, q, Quu, qu, K, kt, n, m)
+        V, v = _value_update(Q, q, Quu, qu, K, kt, n, m, exact)
 
     out = RiccatiResult(
         torch.stack(K_all),
@@ -205,21 +232,81 @@ class _RiccatiArgs(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in ("C", "c", "F", "f", "lo", "hi", "mask", "K", "k", "free", "n_qp")
-    ] + [("T", ctypes.c_int), ("B", ctypes.c_int), ("pnqp_iter", ctypes.c_int), ("reg", ctypes.c_float)]
+    ] + [
+        ("T", ctypes.c_int), ("B", ctypes.c_int), ("pnqp_iter", ctypes.c_int), ("reg", ctypes.c_float),
+        ("lanes", ctypes.c_int), ("exact_update", ctypes.c_int), ("staged", ctypes.c_int),
+    ]
 
 
-def run_staged_riccati(
-    launch, C, c, F, f, n_state, *, u_lower=None, u_upper=None, u_hat=None,
-    ctrl_mask=None, reg=1e-9, pnqp_iter=8,
-) -> RiccatiResult:
-    """Stage the inputs batch-minor, allocate the outputs, call
-    ``launch(args, n, m, mode)`` with a pointer to the ``RiccatiArgs`` struct,
-    and return the outputs in the public layout (``K, k`` float32).
+# The lane counts the card's kernels are built for (DMPC_RICCATI_LANES in
+# csrc/riccati_launch.cuh, the files csrc/riccati_l<L>.cu): the two that the
+# rule below picks. The tests' host build also runs 2 and 4 (DMPC_LANES).
+RICCATI_LANES = (1, 16)
 
-    ``launch`` runs ``riccati_backward_scenario<n, m, mode>`` for every
-    scenario: the CUDA launcher for CUDA tensors, or a host build of the same
-    header for CPU tensors (the tests do that). Float32 inputs only
-    (``ctrl_mask`` bool)."""
+
+# The rule's measurements: the kernels alone on every Riccati sweep of one
+# mpc_solve, recorded, ms a call (summed over the calls over their count), by
+# CUDA events on an NVIDIA H100 80GB HBM3 at 700 W (132 SMs), at L = 1 (device
+# memory) / 1 (staged) / 16 (diffmpc_tpu_torch.diagnostics.ab_riccati_lanes;
+# PERF.md, rows 3 and 5):
+#   config 2 (n=4, m=2, box), T=20, B = 128: 0.0997 0.1064 0.0491;
+#     4096: 0.1037 0.1080 0.0643; 16384: 0.1359 0.1096 0.2039;
+#     65536: 0.1953 0.3403 0.7479;
+#   the same at T=128 (the twin), B = 128: 0.6142 0.6553 0.2802;
+#     4096: 0.7856 0.6576 0.3715; 16384: 0.8259 0.6625 1.2309;
+#     65536: 1.1213 2.0658 4.5667;
+#   the pendulum (n=3, m=1, box) with FINITE_DIFF, B=1024, T=20: 0.0215
+#     0.0141 0.0215; T=256 (the twin): 0.4289 0.1320 0.2193.
+# Sixteen lanes pay while B * 16 threads leave the card's SMs little else to
+# do (512 threads an SM: 4096 scenarios on 132 SMs); two and four lanes
+# (measured on an earlier build of the step) never beat both sixteen and
+# one, and are not built. Past that one lane. The box
+# mode's m = 1 step (a closed-form QP) is too short to share: one lane wins
+# there at every batch measured. Whether one lane stages its slices is the
+# launcher's choice (csrc/riccati_launch.cuh, one_lane_staged).
+RICCATI_THREADS_PER_SM = 512
+
+
+def riccati_lanes(B: int, n: int, m: int, mode: int, sm_count: int, T: int) -> int:
+    """The threads per scenario of the Riccati kernels for a batch of ``B``
+    scenarios at ``(n, m)`` in ``mode`` over ``T`` steps on a card of
+    ``sm_count`` SMs: one for the box mode's m = 1 closed-form QP; else 16
+    while ``B * 16`` stays within ``RICCATI_THREADS_PER_SM`` threads an SM,
+    past that one. The horizon does not enter: the measurements at T=20 and
+    128 (256 for the pendulum) pick alike."""
+    if mode == BOX and m == 1:
+        return 1
+    return 16 if B * 16 <= RICCATI_THREADS_PER_SM * sm_count else 1
+
+
+class StagedRiccati(NamedTuple):
+    """A Riccati sweep staged for its kernels: the ``RiccatiArgs`` struct,
+    the mode, the buffers the kernel writes and the tensors the struct points
+    into, which must outlive every launch."""
+
+    args: ctypes.Structure
+    mode: int
+    outputs: tuple  # K (T, m, n, B), k, free (T, m, B), n_qp (T, B)
+    buffers: tuple
+
+    def result(self) -> RiccatiResult:
+        """The outputs of the last launch, in the public layout."""
+        K, k, free, n_qp = self.outputs
+        return RiccatiResult(K.permute(0, 3, 1, 2), k.permute(0, 2, 1), free.permute(0, 2, 1) > 0.5,
+                             n_qp.to(torch.int32))
+
+
+def stage_riccati(
+    C, c, F, f, n_state, *, u_lower=None, u_upper=None, u_hat=None,
+    ctrl_mask=None, reg=1e-9, pnqp_iter=8, value_update_exact_reg=-1.0, lanes=1, staged=None,
+) -> StagedRiccati:
+    """Stage the inputs batch-minor and allocate the outputs for a launch of
+    ``riccati_sweep<n, m, mode>`` for every scenario with ``lanes`` threads
+    per scenario (at one lane each step's slice ``staged`` or read from
+    device memory; None leaves it to the launcher, which writes its choice
+    into the args) and the value update's form by
+    :func:`use_exact_value_update`. Float32 inputs only (``ctrl_mask``
+    bool)."""
     n = n_state
     T, B, m = _check_shapes(C, c, F, f, n)
     mode, extra = _mode_inputs(T, B, m, u_lower, u_upper, u_hat, ctrl_mask)
@@ -240,52 +327,76 @@ def run_staged_riccati(
     elif mode == MASK:
         ins["mask"] = bm(ctrl_mask.to(torch.float32))
     f32 = dict(dtype=torch.float32, device=device)
-    K = torch.empty((T, m, n, B), **f32)
-    k = torch.empty((T, m, B), **f32)
-    free = torch.empty((T, m, B), **f32)
-    n_qp = torch.zeros((T, B), **f32)
-    ptr = {name: a.data_ptr() for name, a in ins.items() if a is not None}
-    args = _RiccatiArgs(
-        **ptr, K=K.data_ptr(), k=k.data_ptr(), free=free.data_ptr(), n_qp=n_qp.data_ptr(),
-        T=T, B=B, pnqp_iter=pnqp_iter, reg=reg,
+    outputs = (
+        torch.empty((T, m, n, B), **f32), torch.empty((T, m, B), **f32), torch.empty((T, m, B), **f32),
+        torch.zeros((T, B), **f32),
     )
-    launch(ctypes.byref(args), n, m, mode)
+    args = _RiccatiArgs(
+        **{name: a.data_ptr() for name, a in ins.items() if a is not None},
+        **{name: a.data_ptr() for name, a in zip(("K", "k", "free", "n_qp"), outputs)},
+        T=T, B=B, pnqp_iter=pnqp_iter, reg=reg, lanes=lanes,
+        exact_update=int(use_exact_value_update(mode, m, reg, value_update_exact_reg)),
+        staged=-1 if staged is None else int(staged),
+    )
+    return StagedRiccati(args, mode, outputs, tuple(ins.values()))
+
+
+def run_staged_riccati(launch, C, c, F, f, n_state, **knobs) -> RiccatiResult:
+    """Stage the inputs (:func:`stage_riccati`, with its knobs: the box,
+    ``ctrl_mask``, ``reg``, ``pnqp_iter``, ``value_update_exact_reg``,
+    ``lanes`` and ``staged``), call ``launch(args, n, m, mode)`` with a pointer to the
+    ``RiccatiArgs`` struct, and return the outputs in the public layout
+    (``K, k`` float32).
+
+    ``launch`` runs ``riccati_sweep<n, m, mode>`` for every scenario: the
+    CUDA launcher for CUDA tensors, or a host build of the same header for
+    CPU tensors (the tests do that)."""
+    staged = stage_riccati(C, c, F, f, n_state, **knobs)
+    launch(ctypes.byref(staged.args), n_state, C.shape[-1] - n_state, staged.mode)
     # The staged inputs are freed when this returns, while the kernel may
     # still run: PyTorch's caching allocator reuses a block only in stream
     # order, and the kernel runs on the current stream.
-    return RiccatiResult(
-        K.permute(0, 3, 1, 2),
-        k.permute(0, 2, 1),
-        free.permute(0, 2, 1) > 0.5,
-        n_qp.to(torch.int32),
-    )
+    return staged.result()
 
 
-def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "riccati", counted=None):
+def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "riccati", counted=None, lib=None):
     """The launcher of kernel ``kind`` (``riccati`` or its streaming twin
-    ``riccati_stream``: the same ``RiccatiArgs``) on the current stream; each
-    launch adds one to ``counted.launches`` (default
-    :func:`riccati_backward_cuda`)."""
-    fn = kernel_symbol(kind, n, m, [ctypes.POINTER(_RiccatiArgs), ctypes.c_int, ctypes.c_void_p])
+    ``riccati_stream``: the same ``RiccatiArgs``) on the current stream, from
+    the built library (or ``lib``, another build of the same sources); a lane
+    count that is not built makes the launch fail, and the launcher raise.
+    Each launch adds one to ``counted.launches`` (default
+    :func:`riccati_backward_cuda`) and sets ``counted.last_lanes`` and
+    ``counted.last_staged`` to the lane count it launched and whether it
+    staged its slices."""
+    argtypes = [ctypes.POINTER(_RiccatiArgs), ctypes.c_int, ctypes.c_void_p]
+    fn = kernel_symbol(kind, n, m, argtypes)
+    if lib is not None:
+        fn = getattr(lib, fn.__name__)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
     counted = riccati_backward_cuda if counted is None else counted
 
     def launch(args, n, m, mode):
         err = fn(args, mode, stream)
         if err != 0:
-            raise RuntimeError(f"{kind} kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"{kind} kernel launch failed: cudaError {err} (lanes built: {RICCATI_LANES})")
         counted.launches += 1
+        counted.last_lanes = args._obj.lanes
+        counted.last_staged = args._obj.lanes > 1 or args._obj.staged == 1
 
     return launch
 
 
 def run_on_card(launcher, C, c, F, f, n_state, *, u_lower=None, u_upper=None, u_hat=None,
-                ctrl_mask=None, reg=1e-9, pnqp_iter=8) -> RiccatiResult:
+                ctrl_mask=None, reg=1e-9, pnqp_iter=8, value_update_exact_reg=-1.0) -> RiccatiResult:
     """Run a Riccati kernel on CUDA tensors of any float dtype:
-    ``launcher(device, n, m)`` gives the launch; the inputs are cast to
-    float32 and ``K, k`` come back in ``C.dtype``. CPU tensors raise."""
+    ``launcher(device, n, m)`` gives the launch, at the lane count of
+    :func:`riccati_lanes` (staged as the launcher chooses); the inputs are
+    cast to float32 and ``K, k`` come back in ``C.dtype``. CPU tensors
+    raise."""
     resolve_use_cuda(True, C.device)
-    _, _, m = _check_shapes(C, c, F, f, n_state)
+    T, B, m = _check_shapes(C, c, F, f, n_state)
+    lanes = riccati_lanes(B, n_state, m, _mode_of(u_lower, u_hat, ctrl_mask), _sm_count(C.device.index), T)
     dtype = C.dtype
     f32 = torch.float32
 
@@ -297,6 +408,7 @@ def run_on_card(launcher, C, c, F, f, n_state, *, u_lower=None, u_upper=None, u_
             launcher(C.device, n_state, m), cast(C), cast(c), cast(F), cast(f), n_state,
             u_lower=cast(u_lower), u_upper=cast(u_upper), u_hat=cast(u_hat),
             ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter,
+            value_update_exact_reg=value_update_exact_reg, lanes=lanes,
         )
     return out._replace(K=out.K.to(dtype), k=out.k.to(dtype))
 
@@ -314,17 +426,23 @@ def riccati_backward_cuda(
     ctrl_mask: Optional[torch.Tensor] = None,
     reg: float = 1e-9,
     pnqp_iter: int = 8,
+    value_update_exact_reg: float = -1.0,
 ) -> RiccatiResult:
     """The Riccati sweep on the card: the contract of the JAX package's
     ``riccati_backward_pallas`` (box mode with ``u_lower, u_upper, u_hat``;
-    mask mode with ``ctrl_mask``; free mode otherwise). CUDA tensors of any
-    float dtype: the kernel computes in float32 and ``K, k`` come back in
-    ``C.dtype``. Adds one to ``riccati_backward_cuda.launches``; shapes
+    mask mode with ``ctrl_mask``; free mode otherwise), and
+    ``value_update_exact_reg`` its module's ``VALUE_UPDATE_EXACT_REG``.
+    CUDA tensors of any float dtype: the kernel computes in float32 and
+    ``K, k`` come back in ``C.dtype``. Adds one to
+    ``riccati_backward_cuda.launches`` and sets
+    ``riccati_backward_cuda.last_lanes`` and ``.last_staged``; shapes
     outside the kernels' ``(n, m)`` table raise."""
     return run_on_card(
         _cuda_launcher, C, c, F, f, n_state, u_lower=u_lower, u_upper=u_upper, u_hat=u_hat,
-        ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter,
+        ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter, value_update_exact_reg=value_update_exact_reg,
     )
 
 
 riccati_backward_cuda.launches = 0  # kernel launches, counted where they happen
+riccati_backward_cuda.last_lanes = None  # the lane count of the last launch
+riccati_backward_cuda.last_staged = None  # whether the last launch staged its slices

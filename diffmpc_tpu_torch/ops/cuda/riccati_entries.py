@@ -3,9 +3,10 @@
 Counterparts of the entry-tile helpers of
 :mod:`diffmpc_tpu.ops.pallas.riccati` (``_chol_entries``,
 ``_cho_solve_entries``, ``_masked_chol_solve``, the box QP
-``_pnqp_entries`` with its m = 2 enumeration ``_pnqp_enum_entries``, and the
-full-form ``_value_update``). Every matrix entry is a ``(B,)`` tensor over
-scenarios and the small matrices are lists of them, so the arithmetic is the
+``_pnqp_entries`` with its m = 2 enumeration ``_pnqp_enum_entries``, and
+``_value_update`` in its full and its simplified form). Every matrix entry
+is a ``(B,)`` tensor over scenarios and the small matrices are lists of
+them, so the arithmetic is the
 same, entry by entry and in the same order, as the device functions of
 ``csrc/riccati_entries.cuh`` that the CUDA kernels run.
 """
@@ -187,17 +188,30 @@ def _pnqp_entries(Quu, qu, lo, hi, m, n_iter, reg):
     return x, _qp_frozen(Quu, qu, lo, hi, x, m), n_qp
 
 
-def _value_update(Q, q, Quu, qu, K, kt, n, m):
+def _value_update(Q, q, Quu, qu, K, kt, n, m, exact=False):
     """Value-function update ``(V', v')`` from the gains, full quadratic
     form: ``V' = Qxx + Qxu K + K'Qux + K'Quu K`` and
-    ``v' = qx + Qxu k + K'(qu + Quu k)``. Returns ``Vn`` as an n x n entry
-    list (upper triangle mirrored) and ``vn`` as an n entry list."""
+    ``v' = qx + Qxu k + K'(qu + Quu k)``; with ``exact``, the simplified
+    form of the JAX package's ``_value_update(..., exact=True)``
+    (``riccati.py:433-458``), ``V' = Qxx + (Qxu K + (Qxu K)')/2`` and
+    ``v' = qx + Qxu k``, for gains that are exact masked solves of an exact
+    box QP. Returns ``Vn`` as an n x n entry list (upper triangle mirrored)
+    and ``vn`` as an n entry list."""
+    Vn = [[None] * n for _ in range(n)]
+    if exact:
+        for a in range(n):
+            for b in range(a, n):
+                qxuK_ab = sum(Q[a][n + r] * K[r][b] for r in range(m))
+                qxuK_ba = sum(Q[b][n + r] * K[r][a] for r in range(m))
+                val = Q[a][b] + 0.5 * (qxuK_ab + qxuK_ba)
+                Vn[a][b] = val
+                Vn[b][a] = val
+        return Vn, [q[a] + sum(Q[a][n + r] * kt[r] for r in range(m)) for a in range(n)]
     QuuK = [
         [sum(Quu[a][r] * K[r][j] for r in range(m)) for j in range(n)]
         for a in range(m)
     ]
     Quuk = [sum(Quu[a][r] * kt[r] for r in range(m)) for a in range(m)]
-    Vn = [[None] * n for _ in range(n)]
     for a in range(n):
         for b in range(a, n):
             qxuK_ab = sum(Q[a][n + r] * K[r][b] for r in range(m))

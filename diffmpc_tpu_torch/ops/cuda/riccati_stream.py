@@ -6,10 +6,12 @@ the TPU kernel the JAX package takes over the resident sweep for long
 horizons (:mod:`~diffmpc_tpu_torch.ops.cuda.horizon` says when).
 
 - :func:`riccati_backward_stream_cuda` launches the kernel of
-  ``csrc/riccati_stream.cu`` (one thread per scenario, each step's inputs
-  double-buffered through shared memory by ``cp.async``) on CUDA tensors and
-  counts its launches. It takes the resident kernel's ``RiccatiArgs``, so it
-  shares :func:`~diffmpc_tpu_torch.ops.cuda.riccati.run_staged_riccati`.
+  ``csrc/riccati_stream.cu`` (the resident kernel's lane groups, each step's
+  slice staged once for the group through shared memory by ``cp.async``; L
+  by :func:`~diffmpc_tpu_torch.ops.cuda.riccati.riccati_lanes`) on CUDA
+  tensors and counts its launches. It takes the resident kernel's
+  ``RiccatiArgs``, so it shares
+  :func:`~diffmpc_tpu_torch.ops.cuda.riccati.run_staged_riccati`.
 - Its plain version is the resident sweep's,
   :func:`~diffmpc_tpu_torch.ops.cuda.riccati.riccati_backward_plain`,
   re-exported here: the twin computes the same function, as the JAX twin has
@@ -44,16 +46,20 @@ def riccati_backward_stream_cuda(
     ctrl_mask: Optional[torch.Tensor] = None,
     reg: float = 1e-9,
     pnqp_iter: int = 8,
+    value_update_exact_reg: float = -1.0,
 ) -> RiccatiResult:
     """The Riccati sweep on the card, streamed: the contract of
     :func:`~diffmpc_tpu_torch.ops.cuda.riccati.riccati_backward_cuda`. CUDA
     tensors of any float dtype (computed in float32, ``K, k`` back in
-    ``C.dtype``); adds one to ``riccati_backward_stream_cuda.launches``;
-    shapes outside the kernels' ``(n, m)`` table raise."""
+    ``C.dtype``); adds one to ``riccati_backward_stream_cuda.launches`` and
+    sets its ``last_lanes`` and ``last_staged``; shapes outside the kernels'
+    ``(n, m)`` table raise."""
     return run_on_card(
         _stream_launcher, C, c, F, f, n_state, u_lower=u_lower, u_upper=u_upper, u_hat=u_hat,
-        ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter,
+        ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter, value_update_exact_reg=value_update_exact_reg,
     )
 
 
 riccati_backward_stream_cuda.launches = 0  # kernel launches, counted where they happen
+riccati_backward_stream_cuda.last_lanes = None  # the lane count of the last launch
+riccati_backward_stream_cuda.last_staged = None  # whether the last launch staged its slices

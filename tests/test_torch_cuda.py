@@ -16,6 +16,8 @@ tie checked as one; the rollout kernel's ``objs`` within 1e-5 of the batch's lar
 1e-3 of each gradient's max-abs after one iteration. Each streaming twin
 against its plain version under the same rules, and against its resident
 sibling: the same rules again (the two run the same per-step functions).
+The Riccati kernel and its twin at every lane count equal one lane bit for
+bit, with and without the simplified value update.
 The pendulum's closed loop over the twins' 96 steps is chaotic enough that
 the card's controls and the plain version's part by up to ~6e-4 where the
 step agrees: there they are held to 2e-3 (to 1e-4 against the resident
@@ -338,6 +340,67 @@ def _assert_line_searches_agree(got, want, us_tol=1e-4):
     same = got.alpha == want.alpha
     assert float(same.float().mean()) >= 0.99
     torch.testing.assert_close(got.us[:, same], want.us[:, same], atol=us_tol, rtol=0)
+
+
+@pytest.mark.parametrize("B", [128, 1000])
+@pytest.mark.parametrize("n,m,mode", [(4, 2, "box"), (3, 1, "box"), (3, 2, "free"), (4, 1, "mask")])
+def test_riccati_lane_kernels_match_plain(device, n, m, mode, B):
+    """The Riccati kernel and its twin at every built lane count (one lane
+    staged and reading device memory), on the same staged inputs: each bit
+    for bit the resident kernel at one lane reading device memory, which
+    holds the plain version by phase 9's rule; with the simplified value
+    update the same."""
+    from chip_smoke import riccati_agreement
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.cuda import riccati_stream as rs
+
+    T = 20
+    rng = np.random.default_rng(2870 + B + 10 * n + m)
+    C, c, F, f = (torch.tensor(a, device=device) for a in _random_lqr(rng, T, B, n, m)[:4])
+    kw = {}
+    if mode == "box":
+        u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32, device=device)
+        kw = dict(u_lower=torch.tensor(-0.5, device=device), u_upper=torch.tensor(0.5, device=device), u_hat=u_hat)
+    elif mode == "mask":
+        kw = dict(ctrl_mask=torch.tensor(rng.random((T, B, m)) < 0.3, device=device))
+    launchers = {"riccati": ric._cuda_launcher, "riccati_stream": rs._stream_launcher}
+    for exact_reg in (-1.0, 1e-6):
+        knobs = dict(kw, value_update_exact_reg=exact_reg)
+        one = ric.run_staged_riccati(launchers["riccati"](device, n, m), C, c, F, f, n, staged=False, **knobs)
+        want, Quu, qu = ric.riccati_backward_plain(C, c, F, f, n, return_qp=True, **knobs)
+        torch.cuda.synchronize()
+        riccati_agreement(f"{mode} n={n} m={m} B={B}", one, want, Quu, qu)
+        for kind, launcher in launchers.items():
+            for lanes in ric.RICCATI_LANES:
+                for staged in (True, False) if lanes == 1 else (True,):
+                    got = ric.run_staged_riccati(launcher(device, n, m), C, c, F, f, n, lanes=lanes, staged=staged,
+                                                 **knobs)
+                    torch.cuda.synchronize()
+                    for name, g, w in zip(got._fields, got, one):
+                        assert torch.equal(g, w), (kind, lanes, staged, exact_reg, name)
+
+
+@pytest.mark.parametrize("n,m,B,want", [(4, 2, 16384, True), (4, 2, 65536, False), (3, 1, 1024, True)])
+def test_riccati_launcher_stages_while_a_wave_holds_the_batch(device, n, m, B, want):
+    """At one lane the launcher stages each step's slice while the batch fits
+    the card in one wave of staged blocks (on an H100's 132 SMs: config 2's
+    box step at 16,384 stages, at 65,536 reads device memory; the
+    pendulum's at 1024 stages), writes its choice back into the args, and
+    stages or not as asked where the args say."""
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+
+    if torch.cuda.get_device_properties(device).multi_processor_count != 132:
+        pytest.skip("the batches are an H100's")
+    T = 2
+    rng = np.random.default_rng(2880 + n + m)
+    C, c, F, f = (torch.tensor(a, device=device) for a in _random_lqr(rng, T, B, n, m)[:4])
+    box = dict(u_lower=torch.tensor(-0.5, device=device), u_upper=torch.tensor(0.5, device=device),
+               u_hat=torch.zeros((T, B, m), device=device))
+    ric.riccati_backward_cuda(C, c, F, f, n, **box)
+    assert (ric.riccati_backward_cuda.last_lanes, ric.riccati_backward_cuda.last_staged) == (1, want)
+    for asked in (True, False):
+        ric.run_staged_riccati(ric._cuda_launcher(device, n, m), C, c, F, f, n, staged=asked, **box)
+        assert ric.riccati_backward_cuda.last_staged == asked
 
 
 @pytest.mark.parametrize("B", [128, 1000])

@@ -25,7 +25,11 @@ depth-blocked sweep (``csrc/riccati_blocked.cuh``) holds its ``K, k`` within
 their ``K, k`` within ``1e-4 * max(1, max|plain|)`` and the rollout's
 objective within 1e-5 relative. The line search's lane groups
 (``csrc/rollout.cuh``, every built L, its slices read from the arrays or
-staged through the group's slots) equal one lane bit for bit. The kernel-under-the-mesh probe
+staged through the group's slots) equal one lane bit for bit, and so do the
+Riccati sweep's (``csrc/riccati.cuh``: the resident kernel and the twin,
+every built L, with a NaN input, a box-QP tie and the simplified value
+update), and the box QP's candidates one by one fold to the enumeration's
+point at m = 2 and 3. The kernel-under-the-mesh probe
 (``csrc/shard_probe.cuh``) equals its plain version bit for bit. The MLP step (``csrc/nn_mlp.cuh``, every
 activation) inside the solve and the line search holds the same limits; the
 solve's HoistLin pre-pass equals the solve without it bit for bit, the
@@ -63,6 +67,7 @@ from diffmpc_tpu_torch.ops.cuda.kkt import (  # noqa: E402
     run_staged_kkt,
 )
 from diffmpc_tpu_torch.ops.cuda.riccati import (  # noqa: E402
+    RICCATI_LANES,
     _RiccatiArgs,
     riccati_backward_plain,
     run_staged_riccati,
@@ -112,7 +117,6 @@ SHIM = r"""
 #include "riccati.cuh"
 #include "riccati_blocked.cuh"
 #include "riccati_pieces.cuh"
-#include "riccati_stream.cuh"
 #include "rollout.cuh"
 #include "shard_probe.cuh"
 
@@ -203,41 +207,6 @@ extern "C" int diffmpc_kkt_backward_host(const KktArgs* a, int n, int m) {
   return 1;
 }
 
-// STREAM: the streaming twin, each scenario's two slots a local array
-template <int N, int M, int MODE, bool STREAM = false>
-static int riccati_all(const RiccatiArgs* a) {
-  std::vector<float> buf(2 * RiccatiSlice<N, M, MODE>::kSize);
-  for (int b = 0; b < a->B; ++b) {
-    if (STREAM)
-      riccati_stream_scenario<N, M, MODE>(*a, b, buf.data(), 1);
-    else
-      riccati_backward_scenario<N, M, MODE>(*a, b);
-  }
-  return 0;
-}
-
-template <int N, int M, bool STREAM = false>
-static int riccati_modes(const RiccatiArgs* a, int mode) {
-  if (mode == kRiccatiBox) return riccati_all<N, M, kRiccatiBox, STREAM>(a);
-  if (mode == kRiccatiMask) return riccati_all<N, M, kRiccatiMask, STREAM>(a);
-  return riccati_all<N, M, kRiccatiFree, STREAM>(a);
-}
-
-extern "C" int diffmpc_riccati_host(const RiccatiArgs* a, int n, int m, int mode) {
-  if (n == 3 && m == 1) return riccati_modes<3, 1>(a, mode);
-  if (n == 3 && m == 2) return riccati_modes<3, 2>(a, mode);
-  if (n == 4 && m == 2) return riccati_modes<4, 2>(a, mode);
-  if (n == 3 && m == 3 && mode == kRiccatiBox) return riccati_all<3, 3, kRiccatiBox>(a);
-  return 1;
-}
-
-extern "C" int diffmpc_riccati_stream_host(const RiccatiArgs* a, int n, int m, int mode) {
-  if (n == 3 && m == 1) return riccati_modes<3, 1, true>(a, mode);
-  if (n == 3 && m == 2) return riccati_modes<3, 2, true>(a, mode);
-  if (n == 4 && m == 2) return riccati_modes<4, 2, true>(a, mode);
-  return 1;
-}
-
 template <int N, int M, bool STREAM>
 static int rollout_shapes(const RolloutArgs* a, int n, int m, const PendulumEnv* env) {
   if (env) return (n == 3 && m == 1) ? rollout_all<3, 1, STREAM>(a, *env) : 1;
@@ -319,18 +288,118 @@ extern "C" int diffmpc_shard_probe_host(const float* x, float* out, int L) {
 """
 
 
+# The Riccati sweep's instantiations, compiled beside SHIM: by groups of L
+# lanes (HostLanes), its slices read from the arrays or (STREAM, the twin)
+# staged through the group's ring, at every DMPC_LANES count (the card's
+# kernels take those of DMPC_RICCATI_LANES).
+SHIM_RICCATI = r"""
+#include <vector>
+
+#include "riccati.cuh"
+
+template <int N, int M, int MODE, bool STREAM, int L>
+static int riccati_group(const RiccatiArgs* a) {
+  std::vector<float> slots(riccati_group_floats<N, M, MODE, STREAM, L>() + 1);
+  const HostLanes<L> g{slots.data()};
+  for (int b = 0; b < a->B; ++b) riccati_sweep<N, M, MODE, STREAM>(*a, g, b);
+  return 0;
+}
+
+template <int N, int M, int MODE, bool STREAM>
+static int riccati_lanes(const RiccatiArgs* a) {
+  switch (a->lanes) {
+#define HOST_RICCATI_LANE_CASE(_, L_) \
+  case L_:                            \
+    return riccati_group<N, M, MODE, STREAM, L_>(a);
+    DMPC_LANES(HOST_RICCATI_LANE_CASE, _)
+#undef HOST_RICCATI_LANE_CASE
+  }
+  return 1;
+}
+
+template <int N, int M, bool STREAM>
+static int riccati_modes(const RiccatiArgs* a, int mode) {
+  if (mode == kRiccatiBox) return riccati_lanes<N, M, kRiccatiBox, STREAM>(a);
+  if (mode == kRiccatiMask) return riccati_lanes<N, M, kRiccatiMask, STREAM>(a);
+  return riccati_lanes<N, M, kRiccatiFree, STREAM>(a);
+}
+
+extern "C" int diffmpc_riccati_host(const RiccatiArgs* a, int n, int m, int mode) {
+  if (n == 3 && m == 1) return riccati_modes<3, 1, false>(a, mode);
+  if (n == 3 && m == 2) return riccati_modes<3, 2, false>(a, mode);
+  if (n == 4 && m == 2) return riccati_modes<4, 2, false>(a, mode);
+  if (n == 3 && m == 3 && mode == kRiccatiBox) return riccati_lanes<3, 3, kRiccatiBox, false>(a);
+  return 1;
+}
+
+extern "C" int diffmpc_riccati_stream_host(const RiccatiArgs* a, int n, int m, int mode) {
+  if (n == 3 && m == 1) return riccati_modes<3, 1, true>(a, mode);
+  if (n == 3 && m == 2) return riccati_modes<3, 2, true>(a, mode);
+  if (n == 4 && m == 2) return riccati_modes<4, 2, true>(a, mode);
+  return 1;
+}
+
+// the box QP's enumeration of M dims for each of B QPs (row-major Quu, qu,
+// lo, hi): serial (pnqp_enum_entries) and as its 3^M candidates one by one
+// (pnqp_enum_candidate), folded in candidate order as the lane groups fold
+template <int M>
+static void enum_both(const float* Quu, const float* qu, const float* lo, const float* hi, float reg, float* serial,
+                      float* split) {
+  float Q[M][M], q[M], l[M], h[M], x[M], best[M];
+  for (int i = 0; i < M; ++i) {
+    for (int j = 0; j < M; ++j) Q[i][j] = Quu[i * M + j];
+    q[i] = qu[i];
+    l[i] = lo[i];
+    h[i] = hi[i];
+  }
+  pnqp_enum_entries<M>(Q, q, l, h, reg, x);
+  float best_obj = pnqp_enum_candidate<M>(0, Q, q, l, h, reg, best);
+  constexpr int kCandidates = M == 2 ? 9 : 27;
+  for (int c = 1; c < kCandidates; ++c) {
+    float xc[M];
+    const float o = pnqp_enum_candidate<M>(c, Q, q, l, h, reg, xc);
+    if (o < best_obj) {
+      for (int i = 0; i < M; ++i) best[i] = xc[i];
+      best_obj = o;
+    }
+  }
+  for (int i = 0; i < M; ++i) {
+    serial[i] = x[i];
+    split[i] = best[i];
+  }
+}
+
+extern "C" int diffmpc_pnqp_enum_host(int m, int B, const float* Quu, const float* qu, const float* lo, const float* hi,
+                                      float reg, float* serial, float* split) {
+  if (m != 2 && m != 3) return 1;
+  for (int b = 0; b < B; ++b) {
+    const int o = b * m;
+    if (m == 2) enum_both<2>(Quu + o * m, qu + o, lo + o, hi + o, reg, serial + o, split + o);
+    else enum_both<3>(Quu + o * m, qu + o, lo + o, hi + o, reg, serial + o, split + o);
+  }
+  return 0;
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: the host build of the kernel headers needs it")
     d = tmp_path_factory.mktemp("kernel_host")
-    src, so = d / "shim.cpp", d / "libshim.so"
-    src.write_text(SHIM)
-    proc = subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", build.CSRC, "-o", str(so), str(src)],
-        capture_output=True, text=True,
-    )
+    so = d / "libshim.so"
+    flags = [gxx, "-O2", "-std=c++17", "-fPIC", "-I", build.CSRC]
+    procs = []
+    for name, text in (("shim", SHIM), ("shim_riccati", SHIM_RICCATI)):
+        (d / f"{name}.cpp").write_text(text)
+        procs.append(subprocess.Popen([*flags, "-c", "-o", str(d / f"{name}.o"), str(d / f"{name}.cpp")],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for proc in procs:
+        _, err = proc.communicate()
+        assert proc.returncode == 0, err
+    proc = subprocess.run([*flags, "-shared", "-o", str(so), str(d / "shim.o"), str(d / "shim_riccati.o")],
+                          capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(so))
 
@@ -609,6 +678,164 @@ def test_host_build_riccati_twin_matches_plain_and_resident(
     np.testing.assert_array_equal(got.free_mask.numpy(), want.free_mask.numpy())
     np.testing.assert_array_equal(got.n_qp_iter.numpy(), want.n_qp_iter.numpy())
     _assert_equal_results(got, run_staged_riccati(host_riccati_launch, C, c, F, f, n, **kw))
+
+
+# ---------------------------------------------------------------------------
+# The Riccati sweep by lane groups (riccati.cuh): every built L of the
+# resident kernel and the twin against one lane.
+# ---------------------------------------------------------------------------
+
+
+def _riccati_lane_case(n, m, mode, with_f, seed, T=6, B=21):
+    """``(args, kw)`` of a Riccati sweep: tests/oracles.py's random LQR
+    problem, a box of +-0.5 about a random ``u_hat`` (box mode) or ~30% of
+    the controls frozen (mask mode)."""
+    rng = np.random.default_rng(seed)
+    C, c, F, f, _ = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
+    kw = {}
+    if mode == "box":
+        u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32)
+        kw = dict(u_lower=torch.tensor(-0.5), u_upper=torch.full((T, B, m), 0.5), u_hat=u_hat)
+    elif mode == "mask":
+        kw = dict(ctrl_mask=torch.tensor(rng.random((T, B, m)) < 0.3))
+    return (C, c, F, f if with_f else None, n), kw
+
+
+def _assert_riccati_matches(got, want):
+    """The host build against the plain version: ``K, k`` within
+    ``1e-5 * max(1, max|plain|)``, ``free`` and ``n_qp`` equal."""
+    for name in ("K", "k"):
+        g, w = getattr(got, name).numpy(), getattr(want, name).numpy()
+        np.testing.assert_allclose(g, w, atol=1e-5 * max(1.0, float(np.nanmax(np.abs(w)))), rtol=0, err_msg=name)
+    np.testing.assert_array_equal(got.free_mask.numpy(), want.free_mask.numpy())
+    np.testing.assert_array_equal(got.n_qp_iter.numpy(), want.n_qp_iter.numpy())
+
+
+def _riccati_every_lane_count(launches, args, kw, one):
+    """Every lane count of the host build (``DMPC_LANES``: the card's
+    ``RICCATI_LANES`` and 2 and 4, which do not divide every share evenly)
+    of each launch equals ``one`` bit for bit."""
+    assert set(RICCATI_LANES) <= set(ILQR_LANES)
+    for launch in launches:
+        for lanes in ILQR_LANES:
+            _assert_equal_results(run_staged_riccati(launch, *args, lanes=lanes, **kw), one)
+
+
+@pytest.mark.parametrize("with_f", [False, True], ids=["f_none", "with_f"])
+@pytest.mark.parametrize(
+    "n,m,mode", [(n, m, mode) for n, m in ((3, 1), (3, 2), (4, 2)) for mode in ("free", "box", "mask")]
+)
+def test_host_build_riccati_lanes_equal_one_lane(host_riccati_launch, host_riccati_stream_launch, n, m, mode, with_f):
+    """The resident kernel and the twin at every built lane count (each
+    step's entries of Q and q, the m = 2 QP's candidates, the gains' columns
+    and the updated value's entries shared out over the lanes) equal the
+    resident kernel at one lane bit for bit, which holds the plain version's
+    rule."""
+    args, kw = _riccati_lane_case(n, m, mode, with_f, 1500 + 10 * n + m)
+    one = run_staged_riccati(host_riccati_launch, *args, **kw)
+    _assert_riccati_matches(one, riccati_backward_plain(*args, **kw))
+    if mode == "box":
+        assert not bool(one.free_mask.all())
+    _riccati_every_lane_count((host_riccati_launch, host_riccati_stream_launch), args, kw, one)
+
+
+def test_host_build_riccati_lanes_keep_a_nan_to_its_scenario(host_riccati_launch, host_riccati_stream_launch):
+    """A NaN in one step's C of one scenario: every L of both kernels equals
+    one lane bit for bit, NaN positions included, which are the plain
+    version's; the other scenarios equal the sweep without the NaN."""
+    args, kw = _riccati_lane_case(4, 2, "box", True, 1560)
+    clean = run_staged_riccati(host_riccati_launch, *args, **kw)
+    C = args[0].clone()
+    C[3, 5, 1, 4] = C[3, 5, 4, 1] = float("nan")
+    args = (C,) + args[1:]
+    one = run_staged_riccati(host_riccati_launch, *args, **kw)
+    want = riccati_backward_plain(*args, **kw)
+    assert bool(torch.isnan(one.K[:, 5]).any()) and not bool(torch.isnan(one.K[4:]).any())
+    for name in ("K", "k"):
+        np.testing.assert_array_equal(torch.isnan(getattr(one, name)).numpy(), torch.isnan(getattr(want, name)).numpy())
+    others = torch.arange(one.K.shape[1]) != 5
+    for g, w in zip(one, clean):
+        np.testing.assert_array_equal(g[:, others].numpy(), w[:, others].numpy())
+    _riccati_every_lane_count((host_riccati_launch, host_riccati_stream_launch), args, kw, one)
+
+
+def _f32_qp_obj(Quu, qu, x):
+    """qp_obj of csrc/riccati_entries.cuh in float32, operation by
+    operation."""
+    f = np.float32
+    acc = f(0.0)
+    for i in range(2):
+        hx = f(0.0)
+        for j in range(2):
+            hx = f(hx + f(f(Quu[i][j]) * f(x[j])))
+        acc = f(acc + f(f(f(f(0.5) * f(x[i])) * hx) + f(f(qu[i]) * f(x[i]))))
+    return acc
+
+
+def test_host_build_riccati_lanes_keep_the_earlier_of_tied_candidates(host_riccati_launch, host_riccati_stream_launch):
+    """A box QP (T=1, so Quu and qu are C's and c's control blocks) on which
+    the clipped Newton point (1, -1), candidate 0, and the enumeration's
+    candidate 1 (dim 0 free at 63/64, dim 1 at its lower bound), both
+    KKT-valid, tie in float32 objective: every L of both kernels keeps
+    candidate 0, as the enumeration's strict "<" does, on every scenario."""
+    n, m, T, B = 4, 2, 1, 5
+    Quu, qu = [[4.0, 1.0], [1.0, 4.0]], [-2.9375, 16384.0]
+    assert _f32_qp_obj(Quu, qu, (1.0, -1.0)) == _f32_qp_obj(Quu, qu, (63 / 64, -1.0))
+    rng = np.random.default_rng(1570)
+    C = np.zeros((T, B, n + m, n + m), np.float32)
+    C[..., :n, :n] = np.eye(n, dtype=np.float32)
+    C[..., n:, n:] = Quu
+    c = np.zeros((T, B, n + m), np.float32)
+    c[..., n:] = qu
+    F = rng.normal(size=(T, B, n, n + m)).astype(np.float32)
+    args = (torch.tensor(C), torch.tensor(c), torch.tensor(F), None, n)
+    kw = dict(u_lower=torch.tensor(-1.0), u_upper=torch.tensor(1.0), u_hat=torch.zeros(T, B, m))
+    one = run_staged_riccati(host_riccati_launch, *args, **kw)
+    assert one.k.tolist() == [[[1.0, -1.0]] * B]
+    _assert_equal_results(riccati_backward_plain(*args, **kw), one)
+    _riccati_every_lane_count((host_riccati_launch, host_riccati_stream_launch), args, kw, one)
+
+
+@pytest.mark.parametrize("m", [2, 3])
+def test_host_build_box_qp_candidates_fold_to_the_enumeration(host_lib, m):
+    """The 3^m candidates of the box QP's enumeration one by one
+    (``pnqp_enum_candidate``, a run-time code: the lane groups' share, m = 2
+    on the card, m = 3 the instantiation a later m = 3 kernel takes), folded
+    in candidate order by a strict "<", give the serial enumeration's point
+    bit for bit, on QPs whose optima sit inside, on faces and in corners."""
+    rng = np.random.default_rng(1590 + m)
+    B = 3000
+    A = rng.normal(size=(B, m, m))
+    Quu = (A @ A.transpose(0, 2, 1) / m + 0.05 * np.eye(m)).astype(np.float32)
+    qu = (rng.normal(size=(B, m)) * rng.choice([0.1, 1.0, 10.0], size=(B, 1))).astype(np.float32)
+    lo = -rng.uniform(0.05, 1.0, (B, m)).astype(np.float32)
+    hi = rng.uniform(0.05, 1.0, (B, m)).astype(np.float32)
+    serial, split = np.empty((B, m), np.float32), np.empty((B, m), np.float32)
+    fn = host_lib.diffmpc_pnqp_enum_host
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    assert fn(m, B, *(a.ctypes.data for a in (Quu, qu, lo, hi)), 1e-9, serial.ctypes.data, split.ctypes.data) == 0
+    np.testing.assert_array_equal(split, serial)
+    at_bound = (serial <= lo + 1e-6) | (serial >= hi - 1e-6)
+    assert 0.2 < at_bound.mean() < 0.9 and bool(at_bound.all(-1).any()) and bool((~at_bound).all(-1).any())
+
+
+@pytest.mark.parametrize("mode", ["free", "box", "mask"])
+@pytest.mark.parametrize("n,m", [(3, 1), (4, 2)])
+def test_host_build_riccati_simplified_value_update_matches_plain(
+    host_riccati_launch, host_riccati_stream_launch, n, m, mode
+):
+    """``value_update_exact_reg=1e-6`` (the simplified value update, engaged
+    in every mode at m <= 2): the host build at one lane holds the plain
+    version's rule with the flag on, and parts from the full form; every L
+    of both kernels equals one lane bit for bit."""
+    args, kw = _riccati_lane_case(n, m, mode, True, 1580 + 10 * n + m)
+    kw["value_update_exact_reg"] = 1e-6
+    one = run_staged_riccati(host_riccati_launch, *args, **kw)
+    _assert_riccati_matches(one, riccati_backward_plain(*args, **kw))
+    full = run_staged_riccati(host_riccati_launch, *args, **dict(kw, value_update_exact_reg=-1.0))
+    assert not torch.equal(one.K, full.K)
+    _riccati_every_lane_count((host_riccati_launch, host_riccati_stream_launch), args, kw, one)
 
 
 @pytest.mark.parametrize(
@@ -1052,16 +1279,28 @@ def test_host_build_unroll_ladder_matches_plain(host_lib):
 
 def test_built_lane_counts_are_one_list():
     """The lane counts the kernels are instantiated for (``DMPC_LANES`` in
-    ``csrc/lanes.cuh``), the MLPs' kernel files ``csrc/ilqr_nn_l<L>.cu``
-    and ``csrc/rollout_nn_l<L>.cu`` and the wrappers' ``ILQR_LANES`` and
-    ``ROLLOUT_LANES`` are one list."""
-    with open(os.path.join(build.CSRC, "lanes.cuh")) as f:
-        macro = re.search(r"#define DMPC_LANES\(X, A\) (.*)", f.read()).group(1)
-    in_header = tuple(int(L) for L in re.findall(r"X\(A, (\d+)\)", macro))
+    ``csrc/lanes.cuh``), the kernel files ``csrc/ilqr_nn_l<L>.cu`` and
+    ``csrc/rollout_nn_l<L>.cu`` and the wrappers' ``ILQR_LANES`` and
+    ``ROLLOUT_LANES`` are one list; the Riccati sweep's
+    (``DMPC_RICCATI_LANES`` in ``csrc/riccati_launch.cuh``, the files
+    ``csrc/riccati_l<L>.cu`` and ``RICCATI_LANES``) are another, within it
+    and with one lane."""
+
+    def macro(header, name):
+        with open(os.path.join(build.CSRC, header)) as f:
+            text = re.search(rf"#define {name}\(X, A\) (.*)", f.read()).group(1)
+        return tuple(int(L) for L in re.findall(r"X\(A, (\d+)\)", text))
+
+    def files(kind):
+        return tuple(sorted(int(re.search(r"_l(\d+)\.cu$", p).group(1))
+                            for p in glob.glob(os.path.join(build.CSRC, f"{kind}_l*.cu"))))
+
+    in_header = macro("lanes.cuh", "DMPC_LANES")
     for kind in ("ilqr_nn", "rollout_nn"):
-        files = sorted(int(re.search(r"_l(\d+)\.cu$", p).group(1))
-                       for p in glob.glob(os.path.join(build.CSRC, f"{kind}_l*.cu")))
-        assert in_header == tuple(files) == ILQR_LANES == ROLLOUT_LANES
+        assert in_header == files(kind) == ILQR_LANES == ROLLOUT_LANES
+    riccati = macro("riccati_launch.cuh", "DMPC_RICCATI_LANES")
+    assert riccati == files("riccati") == RICCATI_LANES
+    assert 1 in riccati and set(riccati) <= set(in_header)
 
 
 @pytest.mark.parametrize("hoist", [False, True], ids=["in_sweep", "hoist_lin"])

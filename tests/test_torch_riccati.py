@@ -17,7 +17,12 @@ the JAX package's, on the same inputs.
   the port's ``ops/pnqp.py`` and ``tests/oracles.py::boxqp_enumerate`` on
   corner-heavy QPs, and the m = 3 projected-Newton loop against JAX's
   ``_pnqp_entries``;
-- ``ops/smallchol.py`` and ``ops/pnqp.py`` against their JAX twins.
+- ``ops/smallchol.py`` and ``ops/pnqp.py`` against their JAX twins;
+- the simplified value update: ``value_update_exact_reg=1e-6`` on the plain
+  version against the JAX kernel traced with its ``VALUE_UPDATE_EXACT_REG``
+  set to 1e-6, at the tolerance above; its gate (a ``reg`` above the
+  threshold, or the m = 3 box QP's loop, keeps the full form bit for bit);
+- the Riccati kernels' lane rule's picks.
 """
 
 import functools
@@ -37,8 +42,12 @@ from diffmpc_tpu.ops.pallas import riccati as jric  # noqa: E402
 from diffmpc_tpu_torch.ops import pnqp as tpnqp  # noqa: E402
 from diffmpc_tpu_torch.ops import smallchol as tsc  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.riccati import (  # noqa: E402
+    BOX,
+    FREE,
+    MASK,
     riccati_backward_cuda,
     riccati_backward_plain,
+    riccati_lanes,
     run_staged_riccati,
 )
 from diffmpc_tpu_torch.ops.cuda.riccati_entries import _pnqp_entries  # noqa: E402
@@ -264,3 +273,54 @@ def test_plain_returns_the_box_qp_it_solved(mode):
     if mode == "free":
         k = -torch.linalg.solve(Quu.double(), qu.double())
         np.testing.assert_allclose(res.k.numpy(), k.numpy(), atol=1e-5 * max(1.0, float(k.abs().max())))
+
+
+@pytest.mark.parametrize("n,m,mode", [(4, 2, "box"), (3, 2, "free"), (3, 1, "mask"), (3, 1, "box")])
+def test_simplified_value_update_matches_jax_pallas_kernel(monkeypatch, n, m, mode):
+    """``value_update_exact_reg=1e-6`` against the JAX kernel traced with
+    ``VALUE_UPDATE_EXACT_REG = 1e-6`` (a jit of its own, so that it traces
+    with the patched threshold): ``K, k`` within ``1e-5 * max(1, max|JAX|)``,
+    ``free`` and ``n_qp`` equal; and the update engaged, the gains part
+    from the full form's."""
+    monkeypatch.setattr(jric, "VALUE_UPDATE_EXACT_REG", 1e-6)
+    arrays, kw = sweep_inputs(n, m, mode, seed=3)
+    kernel = jax.jit(functools.partial(jric.riccati_backward_pallas, pnqp_iter=8, interpret=True), static_argnums=4)
+    names = dict(lo="u_lower", hi="u_upper", u_hat="u_hat", mask="ctrl_mask")
+    want = kernel(*map(jnp.asarray, arrays), n, **{names[k]: jnp.asarray(v) for k, v in kw.items() if v is not None})
+    got = riccati_backward_plain(*map(torch.tensor, arrays), n, value_update_exact_reg=1e-6, **torch_kw(kw))
+    for name in ("K", "k"):
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        np.testing.assert_allclose(g, w, atol=1e-5 * max(1.0, np.abs(w).max()), rtol=0, err_msg=name)
+    np.testing.assert_array_equal(got.free_mask.numpy(), np.asarray(want.free_mask))
+    np.testing.assert_array_equal(got.n_qp_iter.numpy(), np.asarray(want.n_qp_iter))
+    full = riccati_backward_plain(*map(torch.tensor, arrays), n, **torch_kw(kw))
+    assert not torch.equal(got.K, full.K)
+
+
+def test_simplified_value_update_gate():
+    """The simplified form engages only where the JAX package's gate lets it:
+    ``reg`` above ``value_update_exact_reg`` and the m = 3 box QP (the
+    projected-Newton loop, not exact) keep the full form bit for bit."""
+    arrays, kw = sweep_inputs(3, 2, "box", seed=4)
+    t = [torch.tensor(a) for a in arrays]
+    full = riccati_backward_plain(*t, 3, reg=1e-5, **torch_kw(kw))
+    above = riccati_backward_plain(*t, 3, reg=1e-5, value_update_exact_reg=1e-6, **torch_kw(kw))
+    assert all(torch.equal(a, b) for a, b in zip(full, above))
+    rng = np.random.default_rng(5)
+    C, c, F, f, _ = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, 3, 3))
+    box = dict(u_lower=torch.tensor(-0.5), u_upper=torch.tensor(0.5), u_hat=torch.zeros(T, B, 3))
+    loop = riccati_backward_plain(C, c, F, f, 3, value_update_exact_reg=1e-6, **box)
+    assert all(torch.equal(a, b) for a, b in zip(loop, riccati_backward_plain(C, c, F, f, 3, **box)))
+
+
+def test_riccati_lane_rule_picks():
+    """The Riccati kernels' lane rule at the shapes it was measured at (132
+    SMs): config 2 (n=4, m=2, box) at B = 128 and 4096 takes 16 lanes, at
+    16,384 and on a full card (65,536) one lane; the pendulum's box step
+    (n=3, m=1) one lane; free and mask modes 16 lanes at B=1000. (Whether
+    one lane stages is the launcher's choice: test_torch_cuda.py,
+    test_riccati_launcher_stages_while_a_wave_holds_the_batch.)"""
+    for B, T, want in ((128, 20, 16), (128, 128, 16), (4096, 20, 16), (4096, 128, 16), (16384, 20, 1), (65536, 128, 1)):
+        assert riccati_lanes(B, 4, 2, BOX, 132, T) == want, (B, T)
+    assert riccati_lanes(1024, 3, 1, BOX, 132, 20) == riccati_lanes(1024, 3, 1, BOX, 132, 256) == 1
+    assert riccati_lanes(1000, 3, 2, FREE, 132, 20) == riccati_lanes(1000, 3, 2, MASK, 132, 20) == 16

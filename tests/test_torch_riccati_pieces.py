@@ -223,7 +223,8 @@ ptxas info    : Used 64 registers, used 0 barriers
 
 
 def test_ptxas_report():
-    nn = {"_Z6kernelI5NNEnvEvv": dict(spill_stores=12, spill_loads=8, registers=72)}
+    nn = {"_Z6kernelI5NNEnvEvv": dict(stack_frame=208, spill_stores=12, spill_loads=8, registers=72)}
     assert ptxas_report(PTXAS_LOG, "NNEnv") == nn
-    assert ptxas_report(PTXAS_LOG) == {**nn, "_Z6kernelI11PendulumEnvEvv": dict(spill_stores=0, spill_loads=0, registers=64)}
+    pendulum = dict(stack_frame=0, spill_stores=0, spill_loads=0, registers=64)
+    assert ptxas_report(PTXAS_LOG) == {**nn, "_Z6kernelI11PendulumEnvEvv": pendulum}
     assert ptxas_report("") == {}

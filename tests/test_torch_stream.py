@@ -21,6 +21,17 @@ the JAX package.
   ``1e-5 * max(1, max|JAX|)``.
 - On CPU tensors the dispatchers run the plain versions whatever the horizon
   and launch nothing.
+- The simplified value update through the dispatch (``ops/lqr.py``,
+  ``value_update_exact_reg=1e-6``, the twin's horizon) against the JAX twin
+  traced with its ``VALUE_UPDATE_EXACT_REG`` set to 1e-6: ``K`` and ``free``
+  as above; ``k`` as above but for box-QP ties, which this update meets on
+  these inputs (a control at its bound whose free solution lands on it too:
+  the two sides take the two candidates, 1.9e-8 of the QP objective's scale
+  apart). Each scenario's latest step off the tolerance must be such a tie,
+  both answers within 1e-5 of the objective's scale on the plain version's
+  QP (chip_smoke's rule for the kernels), and ties stay under 5% of the
+  scenarios. ``K`` does not see a tie: it depends on the frozen mask and on
+  ``V``, not on ``k``.
 """
 
 import functools
@@ -160,6 +171,34 @@ def test_riccati_dispatch_on_cpu_runs_the_plain_version_at_any_horizon(monkeypat
     assert riccati_stream.riccati_backward_stream_cuda.launches == before
     with pytest.raises(ValueError, match="use_cuda=True"):
         riccati_stream.riccati_backward_stream_cuda(*t, 4)
+
+
+@pytest.mark.parametrize("mode", ["box", "mask"])
+def test_riccati_twin_simplified_value_update_matches_jax_twin(monkeypatch, mode):
+    monkeypatch.setattr(jric, "VALUE_UPDATE_EXACT_REG", 1e-6)
+    monkeypatch.setattr(horizon, "VMEM_BUDGET_BYTES", 1 << 16)  # every T here takes the twin
+    arrays, kw = riccati_inputs(4, 2, mode)
+    twin = jax.jit(functools.partial(riccati_backward_pallas_stream, pnqp_iter=8, interpret=True), static_argnums=4)
+    names = dict(lo="u_lower", hi="u_upper", u_hat="u_hat", mask="ctrl_mask")
+    want = twin(*map(jnp.asarray, arrays), 4, **{names[k]: jnp.asarray(v) for k, v in kw.items() if v is not None})
+    got = tlqr.riccati_backward(*map(torch.tensor, arrays), 4, **torch_kw(kw), pnqp_iter=8, value_update_exact_reg=1e-6)
+    assert bool((got.free_mask.numpy() == np.asarray(want.free_mask)).all())
+    g, w = got.K.numpy(), np.asarray(want.K)
+    np.testing.assert_allclose(g, w, atol=1e-4 * max(1.0, np.abs(w).max()), rtol=0, err_msg="K")
+    k_got, k_want = got.k.double(), torch.tensor(np.asarray(want.k)).double()
+    off = ((k_got - k_want).abs() > 1e-4 * max(1.0, float(k_want.abs().max()))).any(-1)  # (T, B) steps
+    _, Quu, qu = riccati_stream.riccati_backward_plain(
+        *map(torch.tensor, arrays), 4, **torch_kw(kw), value_update_exact_reg=1e-6, return_qp=True
+    )
+    for b in off.any(0).nonzero()[:, 0].tolist():
+        t = int(off[:, b].nonzero().max())
+        Q, q = Quu[t, b].double(), qu[t, b].double()
+        j = [float(0.5 * k @ Q @ k + q @ k) for k in (k_got[t, b], k_want[t, b])]
+        scale = float((0.5 * k_got[t, b, :, None] * Q * k_got[t, b, None, :]).abs().sum() + (q * k_got[t, b]).abs().sum())
+        assert abs(j[0] - j[1]) <= 1e-5 * scale, (t, b, j, scale)
+    assert int(off.any(0).sum()) <= 0.05 * off.shape[1]
+    full = tlqr.riccati_backward(*map(torch.tensor, arrays), 4, **torch_kw(kw), pnqp_iter=8)
+    assert not torch.equal(got.K, full.K)
 
 
 # ---------------------------------------------------------------------------

@@ -198,6 +198,48 @@ Phases, one line of output each (JSON where it carries numbers):
    each of the two ranks' steps and all_reduce, two processes taking turns
    on one card (not a scaling figure).
 
+30. the kernels built at first use (csrc/build.py's variants), all of the
+   slice's in one parallel build: its seconds, each key's units' seconds
+   and each key's registers, spills and stack frame;
+31. each variant kernel against its plain version: the Riccati sweep at
+   (6, 3) in box mode under pnqp_enum "", "0" and "1" (B=4096), free and
+   mask modes, and at (4, 2) under "0" (phase 9's rule for ties), every
+   built lane count bit-equal to one lane; the fused solve of the (6, 3)
+   MLP of scripts/ab_pnqp_enum3.py (16-16, residual) under "" and "1" and a
+   3-32-3 MLP, two iterations by phase 22's rule (the float64 plain solve
+   as the witness, phase 2's ties), every built lane count of the (6, 3)
+   MLP with and without hoist_lin bit-equal to one lane over three
+   iterations; the pendulum with the simplified value
+   update (one iteration within 1e-4, ten by the chaos rule); the KKT
+   kernel and twin at (6, 3) and, with the simplified update, at (3, 1) on
+   the main path's residuals (phase 5's rule); the line search at (6, 3)
+   (phase 10's rule, the trajectory by the float64 plain version as the
+   witness: its states reach hundreds), every built lane count bit-equal
+   to one lane; with
+   each kernel's time, its plain version's and its bound;
+32. the slice's MLP through mpc_solve at B=1024, T=20, lqr_iter=10,
+   pnqp_iter=8, box +-0.5 under "" and "1": one iLQR launch each, the
+   converged share, the times; under "1" the kernel's first 64 scenarios
+   held against the plain solve on the host by phase 22's counts (the float64
+   plain solve as the witness: the kernel off it on no more scenarios than
+   twice the float32 plain solve, plus 0.5%); the gradient of
+   an imitation loss over every weight and bias through one KKT launch at
+   (6, 3), against the host's float64 gradient at the card's fixed point
+   (1e-3 of each leaf's max-abs, or twice the host's float32 distance);
+33. a (6, 3) LinDx box-DDP at B=4096 (config 2's recipe, its dynamics
+   scaled to config 2's open-loop growth) under "" and "1"
+   through mpc_solve + gradient (the Riccati, rollout and KKT variants; one
+   Riccati and one rollout launch an iteration, one KKT launch), its first
+   64 scenarios against the host (phase 11's rule, the objectives on the
+   scenarios converged on both sides) and, those, under "1" against the
+   float64 optimum; the zoo's
+   shapes (2, 1), (5, 1), (6, 2) through their variants the same way
+   (B=256); and the launches of the simplified update's kernels (the
+   flagship's solve + gradient, the pendulum at T=512 through the KKT twin)
+   and of the (4, 2) sweep under "0" (config 2 at B=128).
+
+With ``--slice-only`` the script runs phases 0, 1 and 30-33 alone.
+
 The line before the last holds the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero.
@@ -322,7 +364,7 @@ def check_chaos(name: str, m: dict, min_equal: float = 0.95) -> None:
         raise AssertionError(f"{name}: kernel and plain version disagree: {m}")
 
 
-def witnessed_agreement(name: str, kernel, plain, exact, ties: bool = False) -> dict:
+def witnessed_agreement(name: str, kernel, plain, exact, ties: bool = False, calm_limits: bool = True) -> dict:
     """A float32 solve of an ill-conditioned closed loop against its plain
     version, with the float64 plain version (``exact``) as the witness. A
     scenario is off from another solve when n_iters differ, the objective is
@@ -336,7 +378,11 @@ def witnessed_agreement(name: str, kernel, plain, exact, ties: bool = False) -> 
     limits of each other. With ``ties``, a scenario where kernel and plain
     take the same number of iterations but another last line-search step
     (phase 2's tie) is held as phase 2 holds it instead: converged on both
-    sides, controls within 5e-2."""
+    sides, controls within 5e-2. Without ``calm_limits`` the distances on the
+    calm scenarios and the ties are reported and only the counts held: for a
+    closed loop still unconverged on most scenarios, where a scenario whose
+    last step differs from the float64 solve's may sit 5e-2 from it on
+    either side."""
     k, p, e = ({f: getattr(r, f).double().cpu().numpy() for f in r._fields} for r in (kernel, plain, exact))
 
     def off(a, b):
@@ -357,9 +403,9 @@ def witnessed_agreement(name: str, kernel, plain, exact, ties: bool = False) -> 
     if ties:
         out.update(ties=int(tie.sum()), ties_us_max_abs=float(us[tie].max()) if tie.any() else 0.0,
                    ties_converged=bool(((k["converged"] > 0) & (p["converged"] > 0))[tie].all()))
-    if out["n_iters_equal_frac"] < 0.95 or ke.sum() > 2 * pe.sum() + 0.005 * len(us) \
-            or out["us_max_abs"] > 1e-2 or out["objs_max_rel"] > 2e-3 \
-            or (ties and (out["ties_us_max_abs"] > 5e-2 or not out["ties_converged"])):
+    calm_off = out["us_max_abs"] > 1e-2 or out["objs_max_rel"] > 2e-3 \
+        or (ties and (out["ties_us_max_abs"] > 5e-2 or not out["ties_converged"]))
+    if out["n_iters_equal_frac"] < 0.95 or ke.sum() > 2 * pe.sum() + 0.005 * len(us) or (calm_limits and calm_off):
         raise AssertionError(f"{name}: {out}")
     return out
 
@@ -1952,6 +1998,642 @@ def data_parallel(device, smi: str) -> dict:
                 library_ms=row["library_ms"])
 
 
+# ---------------------------------------------------------------------------
+# Phases 30-33: the kernels built at first use (csrc/build.py's variants),
+# and the slice they serve: the n = 6, m = 3 MLP of scripts/ab_pnqp_enum3.py
+# under each box-QP mode, and a (6, 3) LinDx box-DDP.
+# ---------------------------------------------------------------------------
+
+# scripts/ab_pnqp_enum3.py:36-55: the n = 6, m = 3 residual 16-16 MLP, T=20,
+# lqr_iter=10, pnqp_iter=8, box +-0.5, B=1024; the LinDx call at B=4096
+SL_N, SL_M, SL_HIDDEN, SL_T, SL_ITER, SL_BOX, SL_B, SL_LIN_B = 6, 3, (16, 16), 20, 10, 0.5, 1024, 4096
+SL_CPU_B = 64  # the scenarios held against a plain solve on the host (each scenario solves alone)
+
+
+def slice_variant_keys() -> list:
+    """Every variant the slice launches: the (6, 3) MLP's fused solve under
+    the default QP and the 27-candidate enumeration, the 3-32-3 MLP's, the
+    pendulum's with the simplified value update; the Riccati sweep at (6, 3)
+    under both of its QPs and at (4, 2) under the loop ("0"); the line
+    search at (6, 3); the KKT pair at (6, 3) and, with the simplified update,
+    at (3, 1); and the zoo's shapes (2, 1), (5, 1), (6, 2) of every linear
+    family."""
+    from diffmpc_tpu_torch.csrc.build import ENUM_LOOP, ENUM_THREE, VariantKey as K
+
+    keys = [K("ilqr", SL_N, SL_M, "nn", SL_HIDDEN), K("ilqr", SL_N, SL_M, "nn", SL_HIDDEN, ENUM_THREE),
+            K("ilqr", 3, 1, "nn", (32,)), K("ilqr", 3, 1, "pendulum", exact=True),
+            K("riccati", SL_N, SL_M), K("riccati", SL_N, SL_M, enum=ENUM_THREE), K("riccati", BOX_N, BOX_M, enum=ENUM_LOOP),
+            K("rollout", SL_N, SL_M), K("kkt", SL_N, SL_M), K("kkt", 3, 1, exact=True)]
+    for n, m in ZOO_SHAPES:
+        keys += [K("riccati", n, m), K("rollout", n, m), K("kkt", n, m)]
+    return keys
+
+
+# the linear shapes the zoo's envs need (cartpole (5, 1), quadrotor (6, 2),
+# acrobot-like (2, 1)), each through mpc_solve on its variants
+ZOO_SHAPES = ((2, 1), (5, 1), (6, 2))
+
+
+def config2_recipe(seed: int, B: int, n: int, m: int) -> list:
+    """BASELINE.json config 2's random LQR recipe (random_lqr_numpy) at
+    (n, m), its dynamics scaled by sqrt(4 / n) so that their open-loop
+    growth is config 2's at n = 4 (the recipe's F has entries of 0.5 N(0, 1):
+    a spectral radius near 0.5 sqrt(n), which at n = 6 grows the states ~50x
+    over 20 steps and leaves the condensed QP too ill-conditioned for its
+    float64 optimum)."""
+    C, c, F, f, x0 = random_lqr_numpy(np.random.default_rng(seed), T, B, n, m)
+    return [C, c, (F * np.float32(np.sqrt(BOX_N / n))).astype(np.float32), f, x0]
+
+
+def qp_chol_ops(m: int) -> int:
+    return m * m * m // 3 * 2 + 4 * m
+
+
+def qp_obj_ops(m: int) -> int:
+    return 2 * m * m + 3 * m
+
+
+def box_qp_ops(m: int, enumerates: bool, n_qp: float) -> float:
+    """Operations of one box QP of ``m`` dims (riccati_entries.cuh), counted
+    from the source: the enumeration's 3^m candidates, each a Cholesky solve
+    of its free block, its KKT checks and its objective; or the
+    projected-Newton loop's start and its ``n_qp`` steps, each the gradient,
+    the masked factor and solve and six Armijo candidates."""
+    chol, solve, obj = qp_chol_ops(m), 2 * m * m, qp_obj_ops(m)
+    if enumerates:
+        return 3**m * (chol + solve + 4 * m * m + obj + 4 * m)
+    return chol + solve + obj + n_qp * (3 * m * m + chol + solve + 6 * (obj + 3 * m) + obj) + 2 * m * m + 2 * m
+
+
+def box_qp_depth(m: int, enumerates: bool, n_qp: float) -> float:
+    """Dependent operations of one box QP of ``m`` dims, floors from the
+    source: the clipped Newton point (the factor and solve, as the masked
+    gains count them, the clip, the objective), then the enumeration's fold
+    over 3^m - 1 candidates that run beside it, or the loop's ``n_qp`` steps
+    (the masked factor and solve, the gradient, the step test and the
+    Armijo picks), then the frozen mask."""
+    factor = 6 * m * (m + 1) // 2
+    start = factor + 2 + 2 * m
+    middle = 3**m - 1 if enumerates else n_qp * (factor + 5 * m + 8)
+    return start + middle + m + 2
+
+
+def variant_riccati_bound(res, B: int, n: int, m: int, steps: int, clock_mhz: float, enumerates: bool) -> dict:
+    """The box-mode Riccati sweep's bound at any (n, m) from its result
+    ``res``: its bytes (riccati_bytes), its operations (the step without its
+    QP, riccati_step_ops in mask mode, and each step's QP with the loop's
+    steps this run took, ``res.n_qp_iter``), or its slowest scenario's chain
+    (the Q form 2n + 1, the QP, the masked gains 6 m (m + 1) / 2, the value
+    update 2m + 1), whichever is largest."""
+    from diffmpc_tpu_torch.diagnostics.card import bound as card_bound
+    from diffmpc_tpu_torch.diagnostics.card import chain_ms
+
+    n_qp = res.n_qp_iter.double().cpu()
+    qp = box_qp_ops(m, enumerates, n_qp)
+    ops = steps * B * riccati_step_ops(n, m, "mask") + (float(qp.sum()) if torch.is_tensor(qp) else qp * steps * B)
+    base = 2 * n + 1 + 6 * m * (m + 1) // 2 + 2 * m + 1
+    depth = (base + box_qp_depth(m, enumerates, n_qp)).sum(0).max() if not enumerates else \
+        steps * (base + box_qp_depth(m, True, 1))
+    return card_bound(riccati_bytes(B, n, m, steps), ops, chain_ms(float(depth), clock_mhz))
+
+
+def variant_nn_ilqr_bound(nn, res, B: int, steps: int, n_alpha: int, clock_mhz: float, enumerates: bool) -> dict:
+    """nn_ilqr_bound at the MLP's own (n, m), its box QP's operations and
+    chain by box_qp_ops and box_qp_depth (the loop at the mean QP steps each
+    scenario's last iteration took, ``res.qp_iters``)."""
+    from diffmpc_tpu_torch.diagnostics.card import bound as card_bound, chain_ms
+
+    n, m = nn.n_state, nn.n_ctrl
+    nm = n + m
+    n_bytes = 4 * B * (steps * (tri(nm) + nm + 2 * m + n + m) + n + 6) + 4 * nn.n_params
+    roll = rollout_step_ops(n, m) - 2 * n * nm + nn_step_ops(nn)
+    qp_iters = res.qp_iters.double().cpu()
+    qp = torch.tensor([box_qp_ops(m, enumerates, float(q)) for q in qp_iters], dtype=torch.float64)
+    per_step = riccati_step_ops(n, m, "mask") + nn_step_ops(nn, tangents=nm) + 2 * nm * nm + n_alpha * roll
+    iters = res.n_iters.double().cpu()
+    n_ops = B * steps * roll + float((iters * (per_step + qp)).sum()) * steps
+    fwd_depth = 5 + nn_step_depth(nn)
+    back = 2 * n + 1 + 6 * m * (m + 1) // 2 + 2 * m + 1 + box_qp_depth(m, enumerates, float(qp_iters.max()))
+    max_iters = int(iters.max())
+    depth = steps * fwd_depth + max_iters * (steps * (back + fwd_depth) + 1)
+    return card_bound(n_bytes, n_ops, chain_ms(depth, clock_mhz))
+
+
+def slice_mlp(device):
+    """The slice's MLP, weights from a seeded generator: n = 6, m = 3, hidden
+    16-16, tanh, residual (scripts/ab_pnqp_enum3.py's architecture)."""
+    from diffmpc_tpu_torch.models import NNDynamics
+
+    return NNDynamics.init(SL_N, SL_M, hidden=SL_HIDDEN, residual=True, device=device,
+                           generator=torch.Generator(device=device).manual_seed(0))
+
+
+def slice_problem(B: int, device):
+    """scripts/ab_pnqp_enum3.py's cost and box: C = diag(1 x 6, 0.02 x 3),
+    c = (0 x 6, 0.08 x 3), x0 ~ U(-0.8, 0.8) from seed 1, box +-0.5."""
+    nm = SL_N + SL_M
+    x0 = torch.tensor(np.random.default_rng(1).uniform(-0.8, 0.8, (B, SL_N)), dtype=torch.float32, device=device)
+    C = torch.diag(torch.tensor([1.0] * SL_N + [0.02] * SL_M, device=device)).expand(SL_T, B, nm, nm)
+    c = torch.tensor([0.0] * SL_N + [0.08] * SL_M, device=device).expand(SL_T, B, nm)
+    box = torch.full((SL_T, B, SL_M), SL_BOX, device=device)
+    return dict(x_init=x0, C=C, c=c, u_lower=-box, u_upper=box)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` equal entry by entry, a NaN equal to a NaN (a
+    scenario's last improvement is NaN where its last candidates diverged)."""
+    if a.is_floating_point():
+        nan = a.isnan()
+        return torch.equal(nan, b.isnan()) and torch.equal(a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0))
+    return torch.equal(a, b)
+
+
+def lanes_bit_equal(name: str, results: dict) -> dict:
+    """Each lane count's result bit-equal to one lane's (the first), every
+    field (:func:`same_bits`); raises otherwise."""
+    first = next(iter(results.values()))
+    out = {}
+    for label, res in results.items():
+        same = all(same_bits(a, b) for a, b in zip(res, first))
+        out[str(label)] = same
+        if not same:
+            raise AssertionError(f"{name}: lanes {label} is not bit-equal to {next(iter(results))}")
+    return out
+
+
+def variants_slice(device, smi: str, clock_mhz: float) -> list:
+    """Phases 30-33: the variants' build, each variant kernel against its
+    plain version, the slice's two calls through mpc_solve at full width with
+    the MLP's gradient, and the zoo's shapes. Returns the kernels' records
+    for the kernels line."""
+    from diffmpc_tpu_torch import LinDx, MPCConfig, QuadCost, mpc_solve
+    from diffmpc_tpu_torch.csrc import build
+    from diffmpc_tpu_torch.diagnostics.card import interleaved_ms
+    from diffmpc_tpu_torch.models import NNDynamics
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+    from diffmpc_tpu_torch.ops.cuda import kkt
+    from diffmpc_tpu_torch.ops.cuda import kkt_stream
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.cuda import rollout as rol
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
+    from diffmpc_tpu_torch.ops.lqr import lqr_rollout
+    from diffmpc_tpu_torch.ops.lqr_step import LqrSpec, lqr_fixed_point
+    from diffmpc_tpu_torch.utils.batch import bmv
+
+    named = dict(ilqr=il.ilqr_solve_fused, kkt=kkt.kkt_backward_fused, kkt_stream=kkt_stream.kkt_backward_stream_cuda,
+                 riccati=ric.riccati_backward_cuda, rollout=rol.linesearch_rollout_cuda)
+
+    def reset_counts():
+        for kern in named.values():
+            kern.launches = 0
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return {name: kern.launches for name, kern in named.items()}
+
+    def only(**want) -> dict:
+        return {name: want.get(name, 0) for name in named}
+
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+
+    # ---- 30. the variants, built together ----
+    t0 = time.perf_counter()
+    seconds = {}
+    built = build.build_variants(slice_variant_keys(), seconds)
+    build_s = time.perf_counter() - t0
+    ptxas = {}
+    for key, (path, log) in built.items():
+        report = ptxas_report(log)
+        ptxas[key.name] = dict(kernels=len(report), max_registers=max((r.get("registers", 0) for r in report.values()),
+                                                                       default=0),
+                               spill_stores=sum(r.get("spill_stores", 0) for r in report.values()),
+                               spill_loads=sum(r.get("spill_loads", 0) for r in report.values()),
+                               stack_frame_max=max((r.get("stack_frame", 0) for r in report.values()), default=0),
+                               per_kernel={k[:120]: v for k, v in report.items()} if key.family == "ilqr" else None)
+    emit(phase="variants_build", seconds=build_s, keys=len(built), per_key_seconds=seconds, ptxas=ptxas,
+         workers=build.variant_workers())
+
+    # ---- 31. each variant kernel against its plain version ----
+    t0 = time.perf_counter()
+    # the Riccati sweep at (6, 3) under both of its QPs (and "0", which at
+    # m = 3 is ""'s QP: the same kernel), every mode, and at (4, 2) under "0"
+    ric_err, ric_ms = {}, {}
+    for n, m, mode, qp, B in [(SL_N, SL_M, "box", e, SL_LIN_B) for e in ("", "0", "1")] + [
+            (SL_N, SL_M, "free", "", B_RAGGED), (SL_N, SL_M, "mask", "", B_RAGGED), (BOX_N, BOX_M, "box", "0", B_RAGGED)]:
+        C, c, F, _, _ = random_lqr_torch(T, B, n, m, device, seed=3000 + B + 10 * n + m)
+        gen = torch.Generator(device=device).manual_seed(B + len(qp))
+        kw = dict(pnqp_enum=qp)
+        if mode == "box":
+            u_hat = (torch.rand((T, B, m), generator=gen, device=device) - 0.5) * 0.6
+            kw.update(u_lower=torch.tensor(-BOX, device=device), u_upper=torch.tensor(BOX, device=device), u_hat=u_hat)
+        elif mode == "mask":
+            kw.update(ctrl_mask=torch.rand((T, B, m), generator=gen, device=device) < 0.3)
+        got = ric.riccati_backward_cuda(C, c, F, None, n, **kw)
+        lanes = ric.riccati_backward_cuda.last_lanes
+        want, Quu, qu = ric.riccati_backward_plain(C, c, F, None, n, return_qp=True, **kw)
+        agreement = riccati_agreement(f"{mode} n={n} m={m} pnqp_enum={qp!r} B={B}", got, want, Quu, qu)
+        # every built lane count (one lane read from device memory and staged)
+        # bit-equal to one lane
+        launch = ric._cuda_launcher(device, n, m, pnqp_enum=qp)
+        by_lanes = {(L, s): ric.run_staged_riccati(launch, C, c, F, None, n, lanes=L, staged=s, **kw)
+                    for L, s in ((1, False), (1, True), (16, True))}
+        bit_equal = lanes_bit_equal(f"Riccati (n={n}, m={m}) {mode} {qp!r}", by_lanes)
+        record = dict(phase="variant_riccati_vs_plain", mode=mode, n=n, m=m, pnqp_enum=qp, B=B, T=T, lanes=lanes,
+                      lanes_bit_equal=bit_equal, mean_n_qp=float(got.n_qp_iter.float().mean()), **agreement)
+        if mode == "box":
+            out = {}
+            ric.run_staged_riccati(timed_launch(launch, 20, out), C, c, F, None, n, lanes=lanes, **kw)
+            plain_ms = cuda_ms(lambda: ric.riccati_backward_plain(C, c, F, None, n, **kw), 1, 1)
+            rb = variant_riccati_bound(got, B, n, m, T, clock_mhz, qp == "1" or (m == 2 and qp != "0"))
+            ric_ms[(n, m, qp)] = (out["ms"], plain_ms, rb, lanes)
+            record.update(kernel_ms=out["ms"], plain_ms=plain_ms, bound=rb, card=smi)
+        emit(**record)
+        ric_err[(n, m, mode, qp)] = max(agreement["max_abs_err"].values())
+
+    # the fused solve: the (6, 3) MLP under both QPs (one iteration, tight;
+    # every built lane count with and without the pre-pass bit-equal to one
+    # lane), the 3-32-3 MLP, the pendulum with the simplified update
+    mlp = slice_mlp(device)
+    sp = slice_problem(SL_B, device)
+    nn_err, nn_one = {}, {}
+    mlp64 = mlp.to(torch.float64)
+    sp64 = {k: v.double() for k, v in sp.items()}
+
+    def head(res):  # the first SL_CPU_B scenarios of a solve
+        return res._replace(**{f: getattr(res, f)[:, :SL_CPU_B] if getattr(res, f).ndim == 3 else
+                               getattr(res, f)[:SL_CPU_B] for f in res._fields})
+
+    for qp in ("", "1"):
+        two = dict(lqr_iter=2, eps=EPS, pnqp_iter=8, pnqp_enum=qp)
+        kern = il.ilqr_solve_fused(**sp, dyn=mlp, **two)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plain = il.ilqr_solve_plain(**sp, dyn=mlp, **two)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        agree = witnessed_agreement(f"MLP (6, 3) pnqp_enum={qp!r}, two iterations", kern, plain,
+                                    il.ilqr_solve_plain(**sp64, dyn=mlp64, **two), ties=True)
+        nn_err[qp] = agree["us_max_abs"]
+        k2_ms = cuda_ms(lambda: il.ilqr_solve_fused(**sp, dyn=mlp, **two), 10, 2)
+        nn_one[qp] = (k2_ms, plain_s * 1e3, variant_nn_ilqr_bound(mlp, kern, SL_B, SL_T, N_ALPHA, clock_mhz, qp == "1"),
+                      il.ilqr_solve_fused.last_lanes)
+        env = il.kernel_env(mlp)
+        staged = {}
+        for hoist in (False, True):
+            launch = il._cuda_launcher(device, env, hoist, qp)
+            for L in il.ILQR_LANES:
+                staged[(L, hoist)] = il.run_staged(launch, sp["x_init"], sp["C"], sp["c"], mlp, sp["u_lower"],
+                                                   sp["u_upper"], lqr_iter=3, eps=EPS, pnqp_iter=8, lanes=L,
+                                                   hoist_lin=hoist)
+        bit_equal = lanes_bit_equal(f"MLP (6, 3) {qp!r} lanes", staged)
+        emit(phase="variant_nn_kernel_vs_plain", hidden=list(SL_HIDDEN), n=SL_N, m=SL_M, pnqp_enum=qp, B=SL_B, T=SL_T,
+             lqr_iter=2, lanes=nn_one[qp][3], **agree, kernel_ms=nn_one[qp][0], plain_ms=nn_one[qp][1],
+             bound=nn_one[qp][2], card=smi, mean_qp_iters=float(kern.qp_iters.mean()),
+             lanes_bit_equal_three_iterations=bit_equal)
+    wide = NNDynamics.init(3, 1, hidden=(32,), residual=True, device=device,
+                           generator=torch.Generator(device=device).manual_seed(5))
+    wide = wide.replace(weights=wide.weights[:-1] + (wide.weights[-1] * 0.3,))
+    prob = dict(problem(B_MAIN, device, steps=NN_T), dyn=wide)
+    two = dict(lqr_iter=2, eps=EPS)
+    prob64 = {k: v.double() if torch.is_tensor(v) else v.to(torch.float64) for k, v in prob.items()}
+    agree = witnessed_agreement("MLP 3-32-3, two iterations", il.ilqr_solve_fused(**prob, **two),
+                                il.ilqr_solve_plain(**prob, **two), il.ilqr_solve_plain(**prob64, **two))
+    emit(phase="variant_nn_kernel_vs_plain", hidden=[32], n=3, m=1, B=B_MAIN, T=NN_T, lqr_iter=2, **agree,
+         lanes=il.ilqr_solve_fused.last_lanes)
+    one = dict(lqr_iter=1, eps=0.0)
+    prob = problem(B_MAIN, device)
+    exact = dict(value_update_exact_reg=1e-6, reg=1e-9)
+    pend_err = check_tight("pendulum, simplified update, one iteration", il.ilqr_solve_fused(**prob, **one, **exact),
+                           il.ilqr_solve_plain(**prob, **one, **exact))
+    knobs = dict(lqr_iter=LQR_ITER, eps=EPS, **exact)
+    pm = compare(il.ilqr_solve_fused(**prob, **knobs), il.ilqr_solve_plain(**prob, **knobs))
+    check_chaos("pendulum, simplified update", pm)
+    env = il.kernel_env(prob["dyn"])
+    pend_lanes = il.ilqr_lanes(B_MAIN, env, sm_count)
+    args = (prob["x_init"], prob["C"], prob["c"], prob["dyn"], prob["u_lower"], prob["u_upper"])
+    stagers = {label: (il._cuda_launcher(device, env, False, exact=x),
+                       lambda launch: il.run_staged(launch, *args, lqr_iter=LQR_ITER, eps=EPS, lanes=pend_lanes))
+               for label, x in (("full", False), ("simplified", True))}
+    pend_ms = interleaved_ms(stagers, 5, 10)
+    pend_plain_ms = cuda_ms(lambda: il.ilqr_solve_plain(**prob, **knobs), 1, 1)
+    pend_bound = ilqr_solve_bound(il.ilqr_solve_fused(**prob, **knobs), B_MAIN, N_ALPHA, clock_mhz)
+    emit(phase="variant_pendulum_simplified_update", B=B_MAIN, T=T, one_iteration_max_abs_err=pend_err, **pm,
+         kernel_ms=pend_ms, simplified_over_full=pend_ms["simplified"] / pend_ms["full"], lanes=pend_lanes,
+         plain_ms=pend_plain_ms, bound=pend_bound, card=smi)
+
+    # the KKT pair at (6, 3), and with the simplified update at (3, 1)
+    kkt_err, kkt_ms = {}, {}
+    for (n, m), x in (((SL_N, SL_M), False), ((3, 1), True)):
+        ins = main_path_kkt_inputs(B_MAIN, device) if x else random_kkt_inputs_torch(T, SL_LIN_B, n, m, device, 3100)
+        B = ins[0].shape[1]
+        kw = dict(reg=1e-7, value_update_exact_reg=1e-6 if x else -1.0)
+        plain = kkt.kkt_backward_plain(*ins, **kw)
+        errs = {}
+        for label, launcher in (("kkt", kkt._cuda_launcher), ("kkt_stream", kkt_stream._stream_launcher)):
+            got = kkt.run_on_card(launcher, *ins, **kw)
+            errs[label] = check_kkt(f"{label} (n={n}, m={m}) simplified={x}", got, plain)
+        stagers = {label: (launcher(device, n, m, exact=x), lambda launch: kkt.run_staged_kkt(launch, *ins, reg=1e-7))
+                   for label, launcher in (("kkt", kkt._cuda_launcher), ("kkt_stream", kkt_stream._stream_launcher))}
+        if x:
+            stagers["kkt_full"] = (kkt._cuda_launcher(device, n, m), lambda launch: kkt.run_staged_kkt(launch, *ins, reg=1e-7))
+            stagers["kkt_stream_full"] = (kkt_stream._stream_launcher(device, n, m),
+                                          lambda launch: kkt.run_staged_kkt(launch, *ins, reg=1e-7))
+        ms = interleaved_ms(stagers, 5, 10)
+        plain_ms = cuda_ms(lambda: kkt.kkt_backward_plain(*ins, **kw), 1, 1)
+        kb = bound(kkt_bytes(B, n, m), B * T * kkt_step_ops(n, m))
+        kkt_err[(n, m)], kkt_ms[(n, m)] = errs, (ms, plain_ms, kb)
+        emit(phase="variant_kkt_vs_plain", n=n, m=m, B=B, T=T, simplified_update=x, max_abs_err=errs,
+             tol="1e-4 * max(1, max|plain|)", kernel_ms=ms, plain_ms=plain_ms, bound=kb, card=smi)
+
+    # the line search at (6, 3), every built lane count bit-equal to one
+    C, c, F, f, x0 = random_lqr_torch(T, SL_LIN_B, SL_N, SL_M, device, seed=3200)
+    gen = torch.Generator(device=device).manual_seed(3201)
+    u_hat = (torch.rand((T, SL_LIN_B, SL_M), generator=gen, device=device) - 0.5) * 0.6
+    x_hat, _ = lqr_rollout(x0, F, f, torch.zeros((T, SL_LIN_B, SL_M, SL_N), device=device),
+                           torch.zeros((T, SL_LIN_B, SL_M), device=device), u_hat=u_hat)
+    lo, hi = torch.tensor(-BOX, device=device), torch.tensor(BOX, device=device)
+    res = ric.riccati_backward_cuda(C, c + bmv(C, torch.cat([x_hat, u_hat], -1)), F, None, SL_N, u_lower=lo,
+                                    u_upper=hi, u_hat=u_hat)
+    scale = 0.5 + 7.5 * torch.rand((1, SL_LIN_B, 1), generator=gen, device=device)
+    ls_args = (x0, C, c, F, f, res.K, res.k * scale, x_hat, u_hat)
+    got = rol.linesearch_rollout_cuda(*ls_args, u_lower=lo, u_upper=hi)
+    rol_lanes = rol.linesearch_rollout_cuda.last_lanes
+    plain = rol.linesearch_rollout_plain(*ls_args, u_lower=lo, u_upper=hi)
+    rol_agree = line_search_agreement("rollout (6, 3) vs plain", got, plain, hold=False)
+    # n = 6 states grow to hundreds over 20 steps, where 1e-4 is an ulp or
+    # two of float32: the trajectory is held to the float64 plain version's,
+    # the kernel no further from it than twice the float32 plain version
+    # (phase 22's witness), and 1e-4
+    exact = rol.linesearch_rollout_plain(*(None if a is None else a.double() for a in ls_args), u_lower=lo.double(),
+                                         u_upper=hi.double())
+    same = (got.alpha == plain.alpha) & (plain.alpha.double() == exact.alpha)
+
+    def traj_err(r):
+        return max(float((r.xs.double() - exact.xs)[:, same].abs().max()), float((r.us.double() - exact.us)[:, same].abs().max()))
+
+    rol_agree.update(kernel_traj_off_float64=traj_err(got), plain_traj_off_float64=traj_err(plain),
+                     traj_scale=float(exact.xs.abs().max()), alpha_equal_float64_frac=float(same.float().mean()))
+    if rol_agree["objs_max_rel"] > 1e-5 or rol_agree["alpha_equal_frac"] < 0.99 \
+            or rol_agree["kernel_traj_off_float64"] > 2 * rol_agree["plain_traj_off_float64"] + 1e-4:
+        raise AssertionError(f"rollout (6, 3) vs plain: {rol_agree}")
+    launch = rol._cuda_launcher(device, SL_N, SL_M, None)
+    bit_equal = lanes_bit_equal("rollout (6, 3) lanes", {L: rol.run_staged_rollout(launch, *ls_args, u_lower=lo, u_upper=hi,
+                                                                                   lanes=L) for L in rol.ROLLOUT_LANES})
+    rol_out = {}
+    rres = rol.run_staged_rollout(timed_launch(launch, 20, rol_out), *ls_args, u_lower=lo, u_upper=hi, lanes=rol_lanes)
+    rol_plain_ms = cuda_ms(lambda: rol.linesearch_rollout_plain(*ls_args, u_lower=lo, u_upper=hi), 1, 1)
+    rol_b = rollout_bound(rres, SL_LIN_B, SL_N, SL_M, T, clock_mhz)
+    emit(phase="variant_rollout_vs_plain", n=SL_N, m=SL_M, B=SL_LIN_B, T=T, lanes=rol_lanes, lanes_bit_equal=bit_equal,
+         kernel_ms=rol_out["ms"], plain_ms=rol_plain_ms, bound=rol_b, card=smi, **rol_agree)
+    emit(phase="variants_vs_plain_seconds", seconds=time.perf_counter() - t0)
+
+    # ---- 32. the slice's MLP through mpc_solve at full width ----
+    t0 = time.perf_counter()
+    config = MPCConfig(n_state=SL_N, n_ctrl=SL_M, T=SL_T, lqr_iter=SL_ITER, pnqp_iter=8, exit_unconverged=False,
+                       detach_unconverged=False)
+    cost = QuadCost(sp["C"], sp["c"])
+    nn_path, nn_times = {}, {}
+    for qp in ("", "1"):
+        cfg = dataclasses.replace(config, pnqp_enum=qp)
+        with torch.no_grad():
+            reset_counts()
+            sol = mpc_solve(cfg, sp["x_init"], cost, mlp, u_lower=-SL_BOX, u_upper=SL_BOX)
+            launches = counts()
+            if launches != only(ilqr=1):
+                raise AssertionError(f"the (6, 3) MLP's mpc_solve ({qp!r}) launched {launches}")
+            solve_ms = cuda_ms(lambda: mpc_solve(cfg, sp["x_init"], cost, mlp, u_lower=-SL_BOX, u_upper=SL_BOX), 5, 2)
+        knobs = dict(lqr_iter=SL_ITER, pnqp_iter=8, pnqp_enum=qp)
+        kern = il.ilqr_solve_fused(**sp, dyn=mlp, **knobs)
+        lanes = il.ilqr_solve_fused.last_lanes
+        k_ms = cuda_ms(lambda: il.ilqr_solve_fused(**sp, dyn=mlp, **knobs), 5, 2)
+        held = {}
+        if qp == "1":
+            # the new QP's solve held against the plain solve of its first
+            # scenarios on the host (each scenario's solve is its own; the
+            # plain solve's cost is its ops' count, ~45 s a solve whatever
+            # the batch, so the loop, held at two iterations in phase 31 and
+            # by the host build, is not held again here). After ten
+            # iterations ~90% of the scenarios are still unconverged
+            # (objectives in the thousands), and float32 rounding alone
+            # moves ~1 in 4 of them off the float64 solve: phase 22's rule by
+            # its counts, the float64 plain solve as the witness
+            cut = {k: v[:, :SL_CPU_B].cpu() if v.ndim > 2 else v[:SL_CPU_B].cpu() for k, v in sp.items()}
+            t1 = time.perf_counter()
+            plain = il.ilqr_solve_plain(**cut, dyn=mlp.to(device="cpu"), **knobs)
+            held["plain_host_seconds"] = time.perf_counter() - t1
+            exact = il.ilqr_solve_plain(**{k: v.double() for k, v in cut.items()}, dyn=mlp.to(torch.float64, "cpu"),
+                                        **knobs)
+            held["vs_plain"] = dict(first_scenarios=SL_CPU_B, **witnessed_agreement(
+                f"the (6, 3) MLP, pnqp_enum={qp!r}, card vs plain", head(kern), plain, exact, ties=True,
+                calm_limits=False))
+        nb = variant_nn_ilqr_bound(mlp, kern, SL_B, SL_T, N_ALPHA, clock_mhz, qp == "1")
+        nn_path[qp], nn_times[qp] = launches, k_ms
+        emit(phase="slice_mlp_main_path", pnqp_enum=qp, B=SL_B, T=SL_T, lqr_iter=SL_ITER, launches=launches,
+             converged_frac=float(sol.info.converged.float().mean()), mean_obj=float(sol.objs.mean()),
+             max_n_iters=int(sol.info.n_iters), mean_qp_iters=float(sol.info.qp_iters.mean()),
+             clamp_frac=float(sol.info.clamp_frac.mean()), mpc_solve_ms=solve_ms, kernel_ms=k_ms, lanes=lanes,
+             bound=nb, card=smi, **held)
+    emit(phase="slice_mlp_enum_over_loop", kernel=nn_times["1"] / nn_times[""])
+
+    # its gradient: an imitation loss over every weight and bias (the expert:
+    # the same MLP with its last layer scaled by 1.1) through one KKT launch
+    # at (6, 3), against the same gradient at the card's fixed point on the host
+    cfg = dataclasses.replace(config, pnqp_enum="1")
+    expert = mlp.replace(weights=mlp.weights[:-1] + (mlp.weights[-1] * 1.1,))
+    with torch.no_grad():
+        u_expert = mpc_solve(cfg, sp["x_init"], cost, expert, u_lower=-SL_BOX, u_upper=SL_BOX).us
+    leaves = [a.clone().requires_grad_(True) for a in mlp.weights + mlp.biases]
+    k = len(mlp.weights)
+
+    def with_leaves(ls):
+        return mlp.replace(weights=tuple(ls[:k]), biases=tuple(ls[k:]))
+
+    reset_counts()
+    gsol = mpc_solve(cfg, sp["x_init"], cost, with_leaves(leaves), u_lower=-SL_BOX, u_upper=SL_BOX)
+    g_card = torch.autograd.grad(((gsol.us - u_expert) ** 2).mean(), leaves)
+    grad_launches = counts()
+    if grad_launches != only(ilqr=1, kkt=1):
+        raise AssertionError(f"the (6, 3) MLP's solve + gradient launched {grad_launches}")
+    grad_ms = cuda_ms(lambda: torch.autograd.grad(((mpc_solve(cfg, sp["x_init"], cost, with_leaves(leaves),
+                                                              u_lower=-SL_BOX, u_upper=SL_BOX).us - u_expert) ** 2).mean(),
+                                                  leaves), 3, 2)
+    spec = LqrSpec(n_state=SL_N, constrained=True, tight_eps=cfg.tight_eps, back_eps=cfg.back_eps, use_cuda=False)
+
+    def host_grads(dtype):
+        """The same gradient on the host at the card's fixed point, in ``dtype``."""
+        ls = [a.detach().to("cpu", dtype).requires_grad_(True) for a in leaves]
+        xs, us = gsol.xs.detach().to("cpu", dtype), gsol.us.detach().to("cpu", dtype)
+        F, f = linearize_dynamics(with_leaves(ls), xs, us)
+        _, us2 = lqr_fixed_point(spec, *(sp[k].to("cpu", dtype) for k in ("x_init", "C", "c")), F, f, xs, us,
+                                 torch.full_like(us, -SL_BOX), torch.full_like(us, SL_BOX))
+        return torch.autograd.grad(((us2 - u_expert.to("cpu", dtype)) ** 2).mean(), ls)
+
+    # each leaf's gradient within 1e-3 of its max-abs of the float64 one, or
+    # no further from it than twice the host's float32 gradient: the output
+    # bias's sums cancel over 20,480 samples, and float32 alone moves them
+    g64 = host_grads(torch.float64)
+    g_rel = [float((a.cpu().double() - b).abs().max() / b.abs().max().clamp_min(1e-30)) for a, b in zip(g_card, g64)]
+    g_rel32 = [float((a.double() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(host_grads(torch.float32), g64)]
+    emit(phase="slice_mlp_gradient", pnqp_enum="1", B=SL_B, T=SL_T, launches=grad_launches,
+         rel_err_vs_float64_at_the_fixed_point=g_rel, host_float32_rel_err_vs_float64=g_rel32,
+         grad_max_abs=[float(g.abs().max()) for g in g_card], solve_plus_grad_ms=grad_ms, card=smi)
+    if not all(bool(torch.isfinite(g).all()) for g in g_card) \
+            or any(r > max(1e-3, 2 * r32) for r, r32 in zip(g_rel, g_rel32)):
+        raise AssertionError(f"the (6, 3) MLP's weight gradients against float64: {g_rel}, host float32 {g_rel32}")
+    emit(phase="slice_mlp_seconds", seconds=time.perf_counter() - t0)
+
+    # ---- 33. the (6, 3) LinDx box-DDP at B=4096, and the zoo's shapes ----
+    t0 = time.perf_counter()
+    lin_path = {}
+    for qp in ("", "1"):
+        cfg = MPCConfig(n_state=SL_N, n_ctrl=SL_M, T=T, lqr_iter=10, exit_unconverged=False, detach_unconverged=False,
+                        pnqp_enum=qp)
+        arrays = config2_recipe(33, SL_LIN_B, SL_N, SL_M)
+
+        def solve(dev, grad=False, B=SL_LIN_B):
+            leaves = [torch.tensor(a[:, :B] if a.ndim > 2 else a[:B], device=dev, requires_grad=grad) for a in arrays]
+            C, c, F, f, x0 = leaves
+            return leaves, mpc_solve(cfg, x0, QuadCost(C, c), LinDx(F, f), u_lower=-BOX, u_upper=BOX)
+
+        reset_counts()
+        leaves, sol = solve(device, grad=True)
+        weights = [torch.ones_like(sol.xs), torch.ones_like(sol.us)]
+        grads = torch.autograd.grad((sol.xs * weights[0]).sum() + (sol.us * weights[1]).sum(), leaves)
+        got = counts()
+        it = int(sol.info.n_iters)
+        lin_path[qp] = got
+        if got != only(riccati=it, rollout=it, kkt=1) or not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"(6, 3) LinDx {qp!r}: launches {got} for {it} iterations")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: solve(device), 3, 2)
+        # the first scenarios against the host's solve and the float64 optimum
+        _, cpu = solve("cpu", B=SL_CPU_B)
+        head_us, head_objs = sol.us[:, :SL_CPU_B].detach().cpu(), sol.objs[:SL_CPU_B].detach().cpu()
+        us_diff = (head_us - cpu.us.detach()).abs().amax(dim=(0, 2))
+        agree = us_diff <= 1e-4
+        obj_rel = float(((head_objs - cpu.objs.detach()).abs() / cpu.objs.detach().abs().clamp_min(1.0)).max())
+        objective, u_opt, opt_pg = box_lqr_optimum(*(torch.tensor(a[:, :SL_CPU_B] if a.ndim > 2 else a[:SL_CPU_B])
+                                                     for a in arrays), float(np.float32(-BOX)), float(np.float32(BOX)))
+        j_opt = objective(u_opt)
+        gap = (objective(head_us) - j_opt) / j_opt.abs().clamp_min(1.0)
+        # ten iterations leave some scenarios unconverged, where one rounding
+        # can set two solves on other paths: the objectives and the optimum
+        # are held on the scenarios converged on both sides
+        done = sol.info.converged[:SL_CPU_B].cpu() & cpu.info.converged
+        obj_rel_done = float(((head_objs - cpu.objs.detach()).abs() / cpu.objs.detach().abs().clamp_min(1.0))[done].max())
+        gap_done = float(gap[done].max())
+        record = dict(pnqp_enum=qp, B=SL_LIN_B, T=T, n=SL_N, m=SL_M, n_iters=it, launches=got, mpc_solve_ms=ms,
+                      converged_frac=float(sol.info.converged.float().mean()), mean_obj=float(sol.objs.mean()),
+                      mean_qp_iters=float(sol.info.qp_iters.mean()), clamp_frac=float(sol.info.clamp_frac.mean()),
+                      card_vs_host_objs_max_rel=obj_rel, card_vs_host_objs_max_rel_converged=obj_rel_done,
+                      us_agree_frac=float(agree.float().mean()), card_vs_host_us_max_abs=float(us_diff.max()),
+                      optimum_projected_grad=opt_pg, optimum_rel_gap_max=float(gap.max()),
+                      converged_of_held=int(done.sum()), optimum_rel_gap_max_converged=gap_done, card=smi)
+        emit(phase="slice_lindx_main_path", **record)
+        # written so that a NaN fails
+        if not (obj_rel_done <= 1e-5 and float(agree.float().mean()) >= 0.95 and int(done.sum()) >= SL_CPU_B // 2
+                and opt_pg <= 1e-6 and (qp != "1" or gap_done <= 1e-5)):
+            raise AssertionError(f"(6, 3) LinDx {qp!r}, card vs host and the optimum: {record}")
+        del leaves, sol, grads
+
+    # the zoo's shapes: every family's variant through mpc_solve + gradient
+    zoo = {}
+    for n, m in ZOO_SHAPES:
+        cfg = MPCConfig(n_state=n, n_ctrl=m, T=T, lqr_iter=10, exit_unconverged=False, detach_unconverged=False)
+        arrays = config2_recipe(40 + n + m, 256, n, m)
+
+        def solve(dev, grad=False):
+            leaves = [torch.tensor(a, device=dev, requires_grad=grad) for a in arrays]
+            C, c, F, f, x0 = leaves
+            return leaves, mpc_solve(cfg, x0, QuadCost(C, c), LinDx(F, f), u_lower=-BOX, u_upper=BOX)
+
+        reset_counts()
+        leaves, sol = solve(device, grad=True)
+        grads = torch.autograd.grad(sol.us.sum() + sol.xs.sum(), leaves)
+        got = counts()
+        it = int(sol.info.n_iters)
+        _, cpu = solve("cpu")
+        obj_rel = float(((sol.objs.detach().cpu() - cpu.objs.detach()).abs() / cpu.objs.detach().abs().clamp_min(1.0)).max())
+        zoo[(n, m)] = dict(n=n, m=m, n_iters=it, launches=got, objs_max_rel_vs_host=obj_rel)
+        emit(phase="slice_zoo_shape", B=256, T=T, **zoo[(n, m)])
+        if got != only(riccati=it, rollout=it, kkt=1) or not obj_rel <= 1e-5 or not all(bool(torch.isfinite(g).all())
+                                                                                       for g in grads):
+            raise AssertionError(f"(n, m) = ({n}, {m}) through its variants: {zoo[(n, m)]}")
+
+    # the launches of the simplified update's kernels and the (4, 2) "0" sweep
+    # on their paths: the flagship solve + gradient, the pendulum at T=512
+    # (the KKT twin), config 2 at B=128 under "0"
+    pend_cfg = MPCConfig(n_state=3, n_ctrl=1, T=T, lqr_iter=LQR_ITER, eps=EPS, exit_unconverged=False,
+                         detach_unconverged=False, value_update_exact_reg=1e-6)
+    reset_counts()
+    flagship_grads(pend_cfg, B_MAIN, device)
+    exact_launches = counts()
+    long_cfg = dataclasses.replace(pend_cfg, T=T_PEND)
+    reset_counts()
+    pend = problem(SL_CPU_B, device, steps=T_PEND)
+    x = pend["x_init"].clone().requires_grad_(True)
+    s = mpc_solve(long_cfg, x, QuadCost(pend["C"][0, 0], pend["c"][0, 0]), pend["dyn"], u_lower=-2.0, u_upper=2.0)
+    torch.autograd.grad((s.us**2).mean(), x)
+    exact_long_launches = counts()
+    loop_cfg = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=T, lqr_iter=10, exit_unconverged=False,
+                         detach_unconverged=False, pnqp_enum="0")
+    C, c, F, f, x0 = random_lqr_torch(T, BOX_B, BOX_N, BOX_M, device, seed=34)
+    reset_counts()
+    with torch.no_grad():
+        lsol = mpc_solve(loop_cfg, x0, QuadCost(C, c), LinDx(F, f), u_lower=-BOX, u_upper=BOX)
+    loop_launches = counts()
+    emit(phase="slice_flag_paths", simplified_update_flagship=exact_launches,
+         simplified_update_pendulum_T512=exact_long_launches, config2_pnqp_enum_0=loop_launches,
+         config2_pnqp_enum_0_mean_qp_iters=float(lsol.info.qp_iters.mean()))
+    if exact_launches != only(ilqr=1, kkt=1) or exact_long_launches != only(ilqr=1, kkt_stream=1) \
+            or loop_launches["riccati"] != int(lsol.info.n_iters) or float(lsol.info.qp_iters.max()) <= 1.0:
+        raise AssertionError(f"the flags' paths: {exact_launches}, {exact_long_launches}, {loop_launches}")
+    emit(phase="slice_lindx_seconds", seconds=time.perf_counter() - t0)
+
+    src = "diffmpc_tpu_torch/csrc/variants/"
+    keep = ("bound_ms", "bound_by")
+    rows = []
+    for qp in ("", "1"):  # two iterations, kernel and plain version on the same inputs
+        k_ms, plain_ms, nb, lanes = nn_one[qp]
+        rows.append(dict(name=f"ilqr_solve_fused[NNDynamics 6-16-16-6, pnqp_enum={qp!r}]", route="cuda",
+                         source=src + "ilqr.cu", replaces="diffmpc_tpu/ops/pallas/ilqr.py:458",
+                         launches=nn_path[qp]["ilqr"], max_abs_err=nn_err[qp], ms=k_ms, plain_ms=plain_ms,
+                         **{k: nb[k] for k in keep}, library_ms=None, lanes=lanes, lqr_iter=2))
+    rows.append(dict(name="ilqr_solve_fused[pendulum, value_update_exact_reg=1e-6]", route="cuda", source=src + "ilqr.cu",
+                     replaces="diffmpc_tpu/ops/pallas/ilqr.py:114", launches=exact_launches["ilqr"], max_abs_err=pend_err,
+                     ms=pend_ms["simplified"], plain_ms=pend_plain_ms, **{k: pend_bound[k] for k in keep},
+                     library_ms=None, lanes=pend_lanes))
+    for (n, m, qp), enum_row in (((SL_N, SL_M, ""), "riccati_backward_pallas[(6, 3) box, pnqp_enum='']"),
+                                 ((SL_N, SL_M, "1"), "riccati_backward_pallas[(6, 3) box, pnqp_enum='1']"),
+                                 ((BOX_N, BOX_M, "0"), "riccati_backward_pallas[(4, 2) box, pnqp_enum='0']")):
+        ms_, plain_ms, rb, lanes_ = ric_ms[(n, m, qp)]
+        launched = lin_path[qp]["riccati"] if n == SL_N else loop_launches["riccati"]
+        rows.append(dict(name=enum_row, route="cuda", source=src + "riccati.cu",
+                         replaces="diffmpc_tpu/ops/pallas/riccati.py:696", launches=launched,
+                         max_abs_err=ric_err[(n, m, "box", qp)], ms=ms_, plain_ms=plain_ms,
+                         **{k: rb[k] for k in keep}, library_ms=None, lanes=lanes_))
+    rows.append(dict(name="linesearch_rollout_pallas[(6, 3)]", route="cuda", source=src + "rollout.cu",
+                     replaces="diffmpc_tpu/ops/pallas/rollout.py:180", launches=lin_path["1"]["rollout"],
+                     max_abs_err=rol_agree["traj_max_abs_where_alpha_agrees"], ms=rol_out["ms"], plain_ms=rol_plain_ms,
+                     **{k: rol_b[k] for k in keep}, library_ms=None, lanes=rol_lanes))
+    ms6, plain6, kb6 = kkt_ms[(SL_N, SL_M)]
+    rows.append(dict(name="kkt_backward_fused[(6, 3)]", route="cuda", source=src + "kkt.cu",
+                     replaces="diffmpc_tpu/ops/pallas/kkt.py:245", launches=lin_path["1"]["kkt"],
+                     max_abs_err=kkt_err[(SL_N, SL_M)]["kkt"], ms=ms6["kkt"], plain_ms=plain6,
+                     **{k: kb6[k] for k in keep}, library_ms=None))
+    ms3, plain3, kb3 = kkt_ms[(3, 1)]
+    rows.append(dict(name="kkt_backward_fused[value_update_exact_reg=1e-6]", route="cuda", source=src + "kkt.cu",
+                     replaces="diffmpc_tpu/ops/pallas/kkt.py:103", launches=exact_launches["kkt"],
+                     max_abs_err=kkt_err[(3, 1)]["kkt"], ms=ms3["kkt"], plain_ms=plain3,
+                     **{k: kb3[k] for k in keep}, library_ms=None))
+    rows.append(dict(name="kkt_backward_fused_stream[value_update_exact_reg=1e-6]", route="cuda", source=src + "kkt.cu",
+                     replaces="diffmpc_tpu/ops/pallas/kkt_stream.py:203", launches=exact_long_launches["kkt_stream"],
+                     max_abs_err=kkt_err[(3, 1)]["kkt_stream"], ms=ms3["kkt_stream"], plain_ms=plain3,
+                     **{k: kb3[k] for k in keep}, library_ms=None))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA device", file=sys.stderr)
@@ -1991,6 +2673,13 @@ def main() -> int:
         riccati_sources_seconds={k: v for k, v in per_source.items() if re.fullmatch(r"riccati(_stream|_l\d+)?\.cu", k)},
         riccati_kernels=riccati,
     )
+    if "--slice-only" in sys.argv[1:]:
+        # phases 30-33 alone: the variants and the slice they serve
+        rows = variants_slice(device, smi, clock_mhz)
+        print(smi, flush=True)
+        emit(kernels=rows)
+        emit(ok=True, device=dict(platform="gpu", kind=kind, count=torch.cuda.device_count()))
+        return 0
     return run_phases(device, kind, smi, clock_mhz)
 
 
@@ -2433,6 +3122,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     chain = riccati_chain(device, smi, times[B_MAIN][0] / int(results[B_MAIN][0].n_iters.max()))
     learned = learned_dynamics(device, smi, clock_mhz)
     probe_row = data_parallel(device, smi)
+    slice_rows = variants_slice(device, smi, clock_mhz)
 
     print(smi, flush=True)
     emit(kernels=[
@@ -2492,6 +3182,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         *chain,
         *learned,
         probe_row,
+        *slice_rows,
     ])
     emit(ok=True, device=dict(platform="gpu", kind=kind, count=torch.cuda.device_count()))
     return 0

@@ -77,10 +77,13 @@ def mpc_config_from_jax(config) -> MPCConfig:
     non-kernel path (``False``) to the plain version, and auto (``None``)
     or the kernel in interpret mode, which runs it on the CPU, to ``None``:
     the kernel for CUDA tensors and the plain version for CPU tensors.
-    ``hoist_lin`` stays False: the JAX package reads it from an env knob."""
+    ``hoist_lin``, ``pnqp_enum`` and ``value_update_exact_reg`` keep their
+    defaults: the JAX package holds them outside its config, as the env
+    knobs ``DIFFMPC_HOIST_LIN`` and ``DIFFMPC_PNQP_ENUM`` and the module
+    global ``VALUE_UPDATE_EXACT_REG`` (``ops/pallas/riccati.py``)."""
     kw = {}
     for f in dataclasses.fields(MPCConfig):
-        if f.name in ("use_cuda", "hoist_lin"):
+        if f.name in ("use_cuda", "hoist_lin", "pnqp_enum", "value_update_exact_reg"):
             continue
         value = getattr(config, f.name)
         if f.name == "grad_method":

@@ -6,8 +6,17 @@ linked into one shared library with a plain C interface, loaded with
 ``ctypes``.
 The library goes to ``diffmpc_tpu_torch/_build/`` (git-ignored) under a name
 keyed by a hash of the sources and flags, so an edit rebuilds and a stale
-library is never loaded. The build writes a per-process temporary file and
-renames it into place, so parallel processes may race it safely.
+library is never loaded. The build writes a temporary file of its own process
+and thread and renames it into place, so parallel builds may race it safely.
+
+A kernel that the library does not instantiate (a shape outside the port's
+table, an MLP architecture outside ``nn_archs.cuh``, a flag other than the
+default) is a *variant* (:class:`VariantKey`): its translation units are the
+sources of ``csrc/variants/``, compiled from ``-D`` macros that name its key
+(:func:`variant_defines`), one nvcc per lane count, and linked into a library
+of its own beside the main one, built at the variant's first use
+(:func:`load_variant`), keyed by a hash of the sources, the flags and the key,
+and loaded once per process.
 
 Nothing outside the repository is used but the CUDA toolkit: ``nvcc`` from
 ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or ``PATH``.
@@ -24,10 +33,13 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 CSRC = os.path.dirname(os.path.abspath(__file__))
+VARIANTS = os.path.join(CSRC, "variants")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 
 # sm_90a: Hopper with its arch-specific features. No --use_fast_math: the env
@@ -93,18 +105,39 @@ def _run(cmds: list[list[str]]) -> tuple[str, list[float]]:
     """Run the commands in parallel; return their output and each one's
     seconds from the common start to its exit, or raise with the output of
     the first that failed."""
+    logs, seconds = _run_each(cmds)
+    return "".join(logs), seconds
+
+
+def _run_each(cmds: list[list[str]], workers: int = 0) -> tuple[list[str], list[float]]:
+    """:func:`_run`, with each command's output apart; at most ``workers``
+    at once (0: all)."""
     t0 = time.perf_counter()
 
     def one(cmd):
         proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         return proc, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+    with ThreadPoolExecutor(max_workers=min(len(cmds), workers or len(cmds))) as pool:
         done = list(pool.map(one, cmds))
     for cmd, (proc, _) in zip(cmds, done):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stdout}")
-    return "".join(proc.stdout for proc, _ in done), [s for _, s in done]
+    return [proc.stdout for proc, _ in done], [s for _, s in done]
+
+
+def _link(nvcc: str, objs: list[str], so: str) -> str:
+    """Link ``objs`` into the shared library ``so`` through a temporary file
+    of this process and thread, renamed into place; returns the linker's
+    output."""
+    tmp = f"{so}.{os.getpid()}-{threading.get_ident()}.tmp"
+    try:
+        log, _ = _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return log
 
 
 def build(seconds: dict | None = None) -> tuple[str, str]:
@@ -118,21 +151,18 @@ def build(seconds: dict | None = None) -> tuple[str, str]:
         return so, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
-    tmp = f"{so}.{os.getpid()}.tmp"
     objdir = tempfile.mkdtemp(prefix="obj-", dir=BUILD_DIR)
     try:
         objs = [os.path.join(objdir, os.path.basename(src) + ".o") for src in sources()]
         log, compile_s = _run([[nvcc, *NVCC_FLAGS, *source_flags(src), "-I", CSRC, "-c", "-o", obj, src]
                                for obj, src in zip(objs, sources())])
-        link_log, link_s = _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
-        log += link_log
+        t0 = time.perf_counter()
+        log += _link(nvcc, objs, so)
         if seconds is not None:
-            seconds.update({os.path.basename(src): s for src, s in zip(sources(), compile_s)}, link=link_s[0])
-        os.replace(tmp, so)
+            seconds.update({os.path.basename(src): s for src, s in zip(sources(), compile_s)},
+                           link=time.perf_counter() - t0)
     finally:
         shutil.rmtree(objdir, ignore_errors=True)
-        if os.path.exists(tmp):
-            os.remove(tmp)
     return so, log
 
 
@@ -140,4 +170,148 @@ def build(seconds: dict | None = None) -> tuple[str, str]:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call and loaded once per process."""
     so, _ = build()
-    return ctypes.CDLL(so)
+    return _dlopen(so)
+
+
+def _dlopen(path: str) -> ctypes.CDLL:
+    return ctypes.CDLL(path)
+
+
+# ---------------------------------------------------------------------------
+# Variants: kernels built at first use.
+# ---------------------------------------------------------------------------
+
+# The box QP's enumeration modes as the kernels' template flag (PnqpEnum in
+# riccati_entries.cuh): the default, the loop at m = 2 ("0"), the
+# enumeration at m = 3 ("1").
+ENUM_DEFAULT, ENUM_LOOP, ENUM_THREE = 0, 1, 2
+
+
+class VariantKey(NamedTuple):
+    """A kernel variant: the family (``ilqr``, ``rollout``, ``riccati``,
+    ``kkt``, ``riccati_blocked``), the shape ``(n, m)``, the env (``linear``,
+    ``pendulum`` or ``nn``) with an MLP's hidden widths, the box QP's
+    enumeration mode (``ENUM_*``: ``ilqr`` and ``riccati``) and the value
+    update's form (``exact``: ``ilqr`` and ``kkt``). The MLP's activation and
+    ``residual`` are run-time fields of its env, not part of the key."""
+
+    family: str
+    n: int
+    m: int
+    env: str = "linear"
+    hidden: tuple = ()
+    enum: int = ENUM_DEFAULT
+    exact: bool = False
+
+    @property
+    def name(self) -> str:
+        parts = [self.family, f"n{self.n}m{self.m}", self.env]
+        if self.hidden:
+            parts.append("h" + "x".join(map(str, self.hidden)))
+        return "_".join(parts + [f"e{self.enum}", f"x{int(self.exact)}"])
+
+
+# Each family's source in csrc/variants/ and the lane counts it is built for,
+# one nvcc each, beside the unit of its launchers (lane count 0): the
+# prebuilt kernels' DMPC_LANES and DMPC_RICCATI_LANES (the tests hold them
+# equal), none for the kernels of one thread a scenario.
+VARIANT_SOURCES = {
+    "ilqr": ("ilqr.cu", (1, 2, 4, 16)),
+    "rollout": ("rollout.cu", (1, 2, 4, 16)),
+    "riccati": ("riccati.cu", (1, 16)),
+    "kkt": ("kkt.cu", ()),
+    "riccati_blocked": ("riccati_blocked.cu", ()),
+}
+
+
+def variant_workers() -> int:
+    """The nvcc processes a variant build runs at once: two per CPU core, so
+    that a batch of variants keeps the cores busy without holding more
+    compilers in memory than the host has room for."""
+    return 2 * (os.cpu_count() or 4)
+
+
+def variant_defines(key: VariantKey) -> list[str]:
+    """The ``-D`` macros of ``key`` (csrc/variants/variant.cuh reads them)."""
+    if key.family not in VARIANT_SOURCES:
+        raise ValueError(f"no variant source for the kernel family {key.family!r}")
+    defs = [f"-DDMPC_N={key.n}", f"-DDMPC_M={key.m}", f"-DDMPC_ENUM={key.enum}", f"-DDMPC_EXACT={int(key.exact)}"]
+    if key.env == "nn":
+        defs.append('-DDMPC_HIDDEN="{}"'.format("x".join(map(str, key.hidden))))
+    elif key.env == "pendulum":
+        defs.append("-DDMPC_PENDULUM")
+    return defs
+
+
+def variant_units(key: VariantKey) -> list[list[str]]:
+    """The compile flags of each of ``key``'s translation units, one nvcc
+    each: the main library's flags (without FMA contraction for the Riccati
+    sweep, as its prebuilt sources), the key's macros and the unit's lane
+    count; the source is ``variant_source(key)``."""
+    _, lanes = VARIANT_SOURCES[key.family]
+    flags = [*NVCC_FLAGS, *(NO_CONTRACTION if key.family == "riccati" else ()), *variant_defines(key), "-I", CSRC]
+    return [flags + [f"-DDMPC_VARIANT_L={L}"] for L in (*lanes, 0)]
+
+
+def variant_source(key: VariantKey) -> str:
+    return os.path.join(VARIANTS, VARIANT_SOURCES[key.family][0])
+
+
+def variant_path(key: VariantKey) -> str:
+    """The library of ``key``, named by the key and a hash of every source
+    (the headers and csrc/variants/), the flags and the key."""
+    h = hashlib.sha256(_source_hash().encode())
+    for path in sorted(glob.glob(os.path.join(VARIANTS, "*.cu*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    for unit in variant_units(key):
+        h.update(" ".join(unit).encode())
+    h.update(repr(tuple(key)).encode())
+    return os.path.join(BUILD_DIR, f"libdiffmpc_{key.name}-{h.hexdigest()[:16]}.so")
+
+
+def build_variants(keys, seconds: dict | None = None) -> dict:
+    """Build every variant of ``keys`` that is not built yet, all their
+    units' nvcc started together, then each link. Returns ``{key: (path,
+    log)}`` (``log`` ``""`` for one already built); fills ``seconds``, where
+    given, with ``{key.name: {unit: seconds from the common start, "link":
+    seconds}}`` for the fresh ones. A failed nvcc raises with its output."""
+    keys = list(dict.fromkeys(keys))
+    out = {key: (variant_path(key), "") for key in keys}
+    fresh = [key for key in keys if not os.path.exists(out[key][0])]
+    if not fresh:
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
+    objdir = tempfile.mkdtemp(prefix="obj-", dir=BUILD_DIR)
+    try:
+        cmds, units = [], {}
+        for i, key in enumerate(fresh):
+            for flags in variant_units(key):
+                label = flags[-1].rsplit("_", 1)[1]  # "L=<lanes>"
+                obj = os.path.join(objdir, f"{i}-{label}.o")
+                units.setdefault(key, []).append((label, obj))
+                cmds.append([nvcc, *flags, "-c", "-o", obj, variant_source(key)])
+        logs, compile_s = _run_each(cmds, variant_workers())
+        at = 0
+        for key in fresh:
+            labels, objs = zip(*units[key])
+            log = "".join(logs[at : at + len(objs)])
+            t0 = time.perf_counter()
+            log += _link(nvcc, list(objs), out[key][0])
+            if seconds is not None:
+                seconds[key.name] = dict(zip(labels, compile_s[at : at + len(objs)]), link=time.perf_counter() - t0)
+            out[key] = (out[key][0], log)
+            at += len(objs)
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_variant(key: VariantKey) -> ctypes.CDLL:
+    """The library of variant ``key``, built on its first use and loaded once
+    per process."""
+    (so, _), = build_variants([key]).values()
+    return _dlopen(so)

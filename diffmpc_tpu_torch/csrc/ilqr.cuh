@@ -99,7 +99,8 @@ struct IlqrArgs {
   // lanes); null with one lane
   float* lane_x;
   float* lane_u;
-  int lanes;  // threads per scenario, L
+  int lanes;      // threads per scenario, L
+  int pnqp_iter;  // the box QP's projected-Newton steps, where it loops (pnqp_entries)
 };
 
 // One step's slice as the ladder and the replay read it: C (all of it: the
@@ -331,7 +332,10 @@ DMPC_HD void linearize_at(const IlqrArgs& a, const Env& env, const float* p, int
 // gains K, k and returns the summed box-QP solve count. With HoistLin, a
 // pre-pass first writes every step's Ft, cd to F_s, cd_s: lane j the steps
 // t = j, j + L, .... Every lane runs the sweep itself, on the same values.
-template <int N, int M, bool HoistLin, class Env, class G>
+// ENUM is the box QP's enumeration mode (pnqp_entries); EXACT takes the
+// simplified value update (value_update), which the wrapper asks for only
+// where that QP is exact (ops/cuda/riccati.py, use_exact_value_update).
+template <int N, int M, bool HoistLin, int ENUM, bool EXACT, class Env, class G>
 DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, int b, const G& g) {
   constexpr int NM = N + M;
   const int B = a.B;
@@ -396,8 +400,8 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
       for (int j = 0; j < N; ++j) rhs[j][i] = Q[N + i][j];  // column j of Qux
     }
     float kt[M], frozen[M], Kc[N][M], K[M][N];
-    // n_iter 8: the fused path caps pnqp_iter at 8 (mpc.py); only m >= 3 reads it
-    qp_sum += pnqp_entries<M>(Quu, qu, lo_d, hi_d, 8, a.reg, kt, frozen);
+    // the fused path caps pnqp_iter at 8 (mpc.py); only the loop reads it
+    qp_sum += pnqp_entries<M, false, ENUM>(Quu, qu, lo_d, hi_d, a.pnqp_iter, a.reg, kt, frozen);
     masked_chol_solve<M, N>(Quu, rhs, frozen, a.reg, Kc);
     const bool mine = g.owns(t);
     for (int i = 0; i < M; ++i) {
@@ -407,7 +411,7 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
       }
       if (mine) a.k[at(t, i, M, B, b)] = kt[i];
     }
-    value_update<N, M>(Q, q, Quu, qu, K, kt, V, v);
+    value_update<N, M, EXACT>(Q, q, Quu, qu, K, kt, V, v);
   }
   return qp_sum;
 }
@@ -421,8 +425,8 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
 // but every update of a frozen scenario there is where(active > 0, new,
 // old) (:381-410), which leaves it unchanged, and its K, k are never read
 // again. So a group that stops at its own convergence computes exactly the
-// same result.
-template <int N, int M, bool HoistLin, class Env, class G>
+// same result. ENUM and EXACT are riccati_sweep's.
+template <int N, int M, bool HoistLin, int ENUM = kPnqpEnumDefault, bool EXACT = false, class Env, class G>
 DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const float* params, const G& g) {
   using namespace ilqr_detail;
   constexpr int L = G::kLanes, kLocal = G::kLocal;
@@ -455,7 +459,7 @@ DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const
   bool done = false;
 
   for (int it = 0; it < a.lqr_iter && !done; ++it) {
-    qp_iters = riccati_sweep<N, M, HoistLin>(a, env, p, b, g) / (float)T;
+    qp_iters = riccati_sweep<N, M, HoistLin, ENUM, EXACT>(a, env, p, b, g) / (float)T;
     g.publish();
 
     // the alpha ladder, L candidates a round: the first improving step,
@@ -554,7 +558,7 @@ DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const
   }
 }
 
-template <int N, int M, bool HoistLin, class Env, class G>
+template <int N, int M, bool HoistLin, int ENUM = kPnqpEnumDefault, bool EXACT = false, class Env, class G>
 DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const G& g) {
-  ilqr_solve_scenario<N, M, HoistLin>(a, env, b, a.params, g);
+  ilqr_solve_scenario<N, M, HoistLin, ENUM, EXACT>(a, env, b, a.params, g);
 }

@@ -19,38 +19,15 @@
 // SMs) by the latency of one scenario's 3 T dependent steps.
 //
 // Built by diffmpc_tpu_torch/csrc/build.py with nvcc for sm_90a, without
-// --use_fast_math, and bound through the plain-C launcher below with ctypes.
+// --use_fast_math, and bound through the plain-C launchers below with ctypes;
+// the kernel and its launch are kkt_launch.cuh's.
 
-#include <cuda_runtime.h>
-
-#include "kkt.cuh"
-
-namespace {
-
-constexpr int kThreads = 128;
-
-template <int N, int M>
-__global__ void __launch_bounds__(kThreads) kkt_kernel(KktArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  kkt_backward_scenario<N, M>(a, b);
-}
-
-template <int N, int M>
-int launch(const KktArgs* args, void* stream) {
-  const int blocks = (args->B + kThreads - 1) / kThreads;
-  if (blocks > 0) {
-    kkt_kernel<N, M><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "kkt_launch.cuh"
 
 // One launcher per (n, m) of the port's table (ops/cuda/ilqr.py,
 // KERNEL_SHAPES): the pendulum (3, 1) and the linear problems' (3, 2),
 // (4, 1), (4, 2). Each launches on `stream` and returns cudaGetLastError().
-extern "C" int diffmpc_kkt_backward_n3m1(const KktArgs* a, void* s) { return launch<3, 1>(a, s); }
-extern "C" int diffmpc_kkt_backward_n3m2(const KktArgs* a, void* s) { return launch<3, 2>(a, s); }
-extern "C" int diffmpc_kkt_backward_n4m1(const KktArgs* a, void* s) { return launch<4, 1>(a, s); }
-extern "C" int diffmpc_kkt_backward_n4m2(const KktArgs* a, void* s) { return launch<4, 2>(a, s); }
+extern "C" int diffmpc_kkt_backward_n3m1(const KktArgs* a, void* s) { return kkt_launch<3, 1>(a, s); }
+extern "C" int diffmpc_kkt_backward_n3m2(const KktArgs* a, void* s) { return kkt_launch<3, 2>(a, s); }
+extern "C" int diffmpc_kkt_backward_n4m1(const KktArgs* a, void* s) { return kkt_launch<4, 1>(a, s); }
+extern "C" int diffmpc_kkt_backward_n4m2(const KktArgs* a, void* s) { return kkt_launch<4, 2>(a, s); }

@@ -86,9 +86,11 @@ struct KktGlobal {
 };
 
 // Sweep 1, one backward step of the auxiliary Riccati (tight dims frozen,
-// linear term r): the gains K, kt, and the value carry (V, v) in place.
+// linear term r): the gains K, kt, and the value carry (V, v) in place, by
+// the full value update or (EXACT: the gains are exact masked solves) the
+// simplified one, the JAX package's VALUE_UPDATE_EXACT_REG gate at kkt.py:105.
 // Reads C(i, j) for j >= i, F, r, tight.
-template <int N, int M, class In>
+template <int N, int M, bool EXACT = false, class In>
 DMPC_HD void kkt_aux_step(const In& in, float reg, float (&V)[N][N], float (&v)[N], float (&K)[M][N],
                           float (&kt)[M]) {
   constexpr int NM = N + M;
@@ -130,7 +132,7 @@ DMPC_HD void kkt_aux_step(const In& in, float reg, float (&V)[N][N], float (&v)[
     for (int j = 0; j < N; ++j) K[i][j] = -sol[j][i];
     kt[i] = -sol[N][i];
   }
-  value_update<N, M>(Q, q, Quu, qu, K, kt, V, v);
+  value_update<N, M, EXACT>(Q, q, Quu, qu, K, kt, V, v);
 }
 
 // Sweep 2, the differential step p = [px; k + K px]. Reads K, k.
@@ -219,7 +221,7 @@ DMPC_HD void kkt_store_dyn_grad(const KktArgs& a, int t, int b, const float (&la
   }
 }
 
-template <int N, int M>
+template <int N, int M, bool EXACT = false>
 DMPC_HD void kkt_backward_scenario(const KktArgs& a, int b) {
   constexpr int NM = N + M;
   const int T = a.T, B = a.B;
@@ -233,7 +235,7 @@ DMPC_HD void kkt_backward_scenario(const KktArgs& a, int b) {
   for (int s = 0; s < T; ++s) {
     const int t = T - 1 - s;
     float K[M][N], kt[M];
-    kkt_aux_step<N, M>(KktGlobal<N, M>{a, t, b}, a.reg, V, v, K, kt);
+    kkt_aux_step<N, M, EXACT>(KktGlobal<N, M>{a, t, b}, a.reg, V, v, K, kt);
     kkt_store_gains<N, M>(a, t, b, K, kt);
   }
 

@@ -124,8 +124,9 @@ DMPC_HD SlotReader kkt_stream_step(const KktArgs& a, int s, int t_next, int b, f
 }
 
 // The backward for scenario b; `buf` holds this thread's two slots of
-// KktSlotSize<N, M>::value entries each, entries `stride` apart.
-template <int N, int M>
+// KktSlotSize<N, M>::value entries each, entries `stride` apart. EXACT is
+// kkt_aux_step's.
+template <int N, int M, bool EXACT = false>
 DMPC_HD void kkt_stream_scenario(const KktArgs& a, int b, float* buf, int stride) {
   constexpr int NM = N + M;
   const int T = a.T, B = a.B;
@@ -141,7 +142,7 @@ DMPC_HD void kkt_stream_scenario(const KktArgs& a, int b, float* buf, int stride
     const int t = T - 1 - s;
     const KktAuxSlot<N, M> in{kkt_stream_step<N, M, 1>(a, s, t - 1, b, buf, stride)};
     float K[M][N], kt[M];
-    kkt_aux_step<N, M>(in, a.reg, V, v, K, kt);
+    kkt_aux_step<N, M, EXACT>(in, a.reg, V, v, K, kt);
     kkt_store_gains<N, M>(a, t, b, K, kt);
   }
   stream_fence();  // sweep 2 streams the gains this thread just wrote

@@ -30,7 +30,8 @@
 // exchanged through the group's scratch in shared memory (RiccatiScratch):
 // - the entries of Q's upper triangle and of q, entry e by lane e % L, each
 //   with the column of W (or z) it needs;
-// - the m = 2 box QP's nine candidates (the clipped Newton point, then the
+// - the box QP's candidates where it enumerates (m = 2's nine; m = 3's 27
+//   under the mode "1", ENUM: the clipped Newton point, then the
 //   enumeration's codes), candidate c by lane c % L; every lane then folds
 //   the objectives in candidate order by the enumeration's strict "<", so a
 //   NaN is never replaced and a tie keeps the earlier candidate;
@@ -182,7 +183,7 @@ DMPC_HD void riccati_gains_free(const In& in, float reg, const float (&V)[N][N],
 // in place (with `exact`, by the simplified value update), its sums of
 // products fused as the helpers' F says. Returns the box QP's solve count (0
 // outside box mode).
-template <int N, int M, int MODE, class In>
+template <int N, int M, int MODE, int ENUM = kPnqpEnumDefault, class In>
 DMPC_HD float riccati_step(const In& in, int pnqp_iter, float reg, float (&V)[N][N], float (&v)[N],
                            float (&K)[M][N], float (&kt)[M], float (&frozen)[M], bool exact = false) {
   constexpr int NM = N + M;
@@ -196,7 +197,7 @@ DMPC_HD float riccati_step(const In& in, int pnqp_iter, float reg, float (&V)[N]
       lo[i] = in.lo(i);
       hi[i] = in.hi(i);
     }
-    n_qp = pnqp_entries<M, true>(Quu, qu, lo, hi, pnqp_iter, reg, kt, frozen);
+    n_qp = pnqp_entries<M, true, ENUM>(Quu, qu, lo, hi, pnqp_iter, reg, kt, frozen);
     masked_chol_solve<M, N, true>(Quu, cols, frozen, reg, Kc);
     for (int i = 0; i < M; ++i)
       for (int j = 0; j < N; ++j) K[i][j] = -Kc[j][i];
@@ -346,25 +347,30 @@ struct RiccatiProfile {
 #endif
 };
 
-// The QP candidates a group shares out: the 3^M - 1 codes of the m = 2
-// enumeration after the clipped Newton point, which every lane computes
-// itself (it starts the fold, and a lane computes it beside its own
-// candidate). Elsewhere (m = 1's closed form, m >= 3's projected-Newton loop)
-// every lane solves the QP itself.
-template <int M>
+// The QP candidates a group shares out: the 3^M - 1 codes of the
+// enumeration (m = 2; m = 3 under the mode "1") after the clipped Newton
+// point, which every lane computes itself (it starts the fold, and a lane
+// computes it beside its own candidate). Elsewhere (m = 1's closed form, the
+// projected-Newton loop) every lane solves the QP itself.
+template <int M, int ENUM>
 DMPC_HD constexpr int riccati_split_candidates() {
-  return M == 2 ? 8 : 0;
+  if constexpr (pnqp_enumerates<M, ENUM>()) {
+    int c = 1;
+    for (int i = 0; i < M; ++i) c *= 3;
+    return c - 1;
+  }
+  return 0;
 }
 
 // The exchange scratch of a group of L > 1 lanes, in floats: Q's upper
 // triangle (upper_index) and q; each split QP candidate's objective and
 // point; K (row-major) and k; V's upper triangle and v.
-template <int N, int M>
+template <int N, int M, int ENUM = kPnqpEnumDefault>
 struct RiccatiScratch {
   static constexpr int NM = N + M;
   static constexpr int kq = NM * (NM + 1) / 2;
   static constexpr int kCand = kq + NM;
-  static constexpr int kCandidates = riccati_split_candidates<M>();
+  static constexpr int kCandidates = riccati_split_candidates<M, ENUM>();
   static constexpr int kK = kCand + kCandidates * (M + 1);
   static constexpr int kk = kK + M * N;
   static constexpr int kV = kk + M;
@@ -394,12 +400,19 @@ DMPC_HD void upper_rc(int n, int e, int& i, int& j) {
 // sweep: the entries of the staged slice it copies (entry lane + k L as
 // d * 8 + array, d the entry's index along its array's entry dimension;
 // -1 past the slice or for an f the args lack), the entries of Q's upper
-// triangle and q it computes (i + 8 j, or 64 + i for q[i]; -1 past them)
-// and the entries of the updated value (a + 8 b for V'(a, b), 64 + a for
-// v'(a); -1 past them).
+// triangle and q it computes (plan_entry(i, j), or plan_vector(i) for q[i];
+// -1 past them) and the entries of the updated value (plan_entry(a, b) for
+// V'(a, b), plan_vector(a) for v'(a); -1 past them).
+// A plan's code of matrix entry (i, j), i and j below 2^kPlanBits, and of
+// vector entry i: kPlanVector and above.
+constexpr int kPlanBits = 5, kPlanMask = (1 << kPlanBits) - 1, kPlanVector = 1 << (2 * kPlanBits);
+DMPC_HD constexpr int plan_entry(int i, int j) { return i + (j << kPlanBits); }
+DMPC_HD constexpr int plan_vector(int i) { return kPlanVector + i; }
+
 template <int N, int M, int MODE, int L>
 struct RiccatiLanePlan {
   static constexpr int NM = N + M, kT = N * (N + 1) / 2;
+  static_assert(NM <= kPlanMask + 1, "a plan codes the entries of Q in kPlanBits bits each");
   static constexpr int kSlice = RiccatiSlice<N, M, MODE>::kSize;
   static constexpr int kStage = (kSlice + L - 1) / L;
   static constexpr int kQ = (RiccatiScratch<N, M>::kCand + L - 1) / L;
@@ -434,9 +447,9 @@ struct RiccatiLanePlan {
       int i, j;
       if (e < kq) {
         upper_rc(NM, e, i, j);
-        q[k] = i + 8 * j;
+        q[k] = plan_entry(i, j);
       } else {
-        q[k] = e < kq + NM ? 64 + e - kq : -1;
+        q[k] = e < kq + NM ? plan_vector(e - kq) : -1;
       }
     }
     for (int k = 0; k < kV; ++k) {
@@ -444,9 +457,9 @@ struct RiccatiLanePlan {
       int a, b;
       if (e < kT) {
         upper_rc(N, e, a, b);
-        v[k] = a + 8 * b;
+        v[k] = plan_entry(a, b);
       } else {
-        v[k] = e < kT + N ? 64 + e - kT : -1;
+        v[k] = e < kT + N ? plan_vector(e - kT) : -1;
       }
     }
   }
@@ -497,10 +510,10 @@ DMPC_HD float riccati_q_entry(const In& in, const float (&V)[N][N], const float 
 // Entry V'(a, b), b >= a, of the updated value (or v'(a)) from the group's
 // scratch, as value_update computes it for riccati_step (with `exact`, its
 // simplified form).
-template <int N, int M>
+template <int N, int M, int ENUM>
 DMPC_HD float riccati_v_entry(const GroupScratch& x, const float (&Quu)[M][M], const float (&qu)[M],
                               const float (&kt)[M], bool isv, int a, int b, bool exact) {
-  using S = RiccatiScratch<N, M>;
+  using S = RiccatiScratch<N, M, ENUM>;
   constexpr int NM = N + M;
   if (!isv) {
     float ab = 0.0f, ba = 0.0f;
@@ -534,11 +547,11 @@ DMPC_HD float riccati_v_entry(const GroupScratch& x, const float (&Quu)[M][M], c
 // the lane that computed it (k, the free mask and the QP count by lane
 // N % L), and the value carry (V, v), which every lane holds whole, updated
 // in place.
-template <int N, int M, int MODE, class In, class G, class Plan>
+template <int N, int M, int MODE, int ENUM, class In, class G, class Plan>
 DMPC_HD void riccati_lanes_step(const RiccatiArgs& a, const G& g, const Plan (&plan)[G::kLocal], const GroupScratch& x,
                                 const In& in, int t, int b, bool exact, float (&V)[N][N], float (&v)[N]) {
   using riccati_detail::at;
-  using S = RiccatiScratch<N, M>;
+  using S = RiccatiScratch<N, M, ENUM>;
   constexpr int L = G::kLanes, NM = N + M;
   const int B = a.B;
   const float reg = a.reg;
@@ -549,8 +562,8 @@ DMPC_HD void riccati_lanes_step(const RiccatiArgs& a, const G& g, const Plan (&p
     for (int k = 0; k < Plan::kQ; ++k) {
       const int p = plan[li].q[k];
       if (p < 0) continue;
-      const bool isq = p >= 64;
-      const int i = isq ? p - 64 : p & 7, j = p >> 3;
+      const bool isq = p >= kPlanVector;
+      const int i = isq ? p - kPlanVector : p & kPlanMask, j = p >> kPlanBits;
       x[isq ? S::kq + i : upper_index(NM, i, j)] = riccati_q_entry<N, M>(in, V, v, isq, i, j);
     }
   }
@@ -602,7 +615,7 @@ DMPC_HD void riccati_lanes_step(const RiccatiArgs& a, const G& g, const Plan (&p
       n_qp = 1.0f;
       prof.mark(4);
     } else {
-      n_qp = pnqp_entries<M, true>(Quu, qu, lo, hi, a.pnqp_iter, reg, kt, frozen);
+      n_qp = pnqp_entries<M, true, ENUM>(Quu, qu, lo, hi, a.pnqp_iter, reg, kt, frozen);
     }
   } else {
     for (int i = 0; i < M; ++i) frozen[i] = MODE == kRiccatiMask ? in.mask(i) : 0.0f;
@@ -670,9 +683,9 @@ DMPC_HD void riccati_lanes_step(const RiccatiArgs& a, const G& g, const Plan (&p
     for (int k = 0; k < Plan::kV; ++k) {
       const int p = plan[li].v[k];
       if (p < 0) continue;
-      const bool isv = p >= 64;
-      const int i = isv ? p - 64 : p & 7, j = p >> 3;
-      x[isv ? S::kv + i : S::kV + upper_index(N, i, j)] = riccati_v_entry<N, M>(x, Quu, qu, kt, isv, i, j, exact);
+      const bool isv = p >= kPlanVector;
+      const int i = isv ? p - kPlanVector : p & kPlanMask, j = p >> kPlanBits;
+      x[isv ? S::kv + i : S::kV + upper_index(N, i, j)] = riccati_v_entry<N, M, ENUM>(x, Quu, qu, kt, isv, i, j, exact);
     }
   }
   prof.mark(8);
@@ -700,17 +713,19 @@ DMPC_HD constexpr int riccati_stages() {
 
 // Floats of shared memory a group of L lanes needs: its ring of slices
 // (Staged) and, above one lane, its exchange scratch
-template <int N, int M, int MODE, bool Staged, int L>
+template <int N, int M, int MODE, bool Staged, int L, int ENUM = kPnqpEnumDefault>
 DMPC_HD constexpr int riccati_group_floats() {
-  return (Staged ? riccati_stages<L>() * RiccatiSlice<N, M, MODE>::kSize : 0) + (L > 1 ? RiccatiScratch<N, M>::kSize : 0);
+  return (Staged ? riccati_stages<L>() * RiccatiSlice<N, M, MODE>::kSize : 0) +
+         (L > 1 ? RiccatiScratch<N, M, ENUM>::kSize : 0);
 }
 
 // The sweep t = T-1..0 of scenario b by the group of lanes g (HostLanes or
 // CardLanes), its inputs read from device memory (riccati_load), or (Staged) from the
 // group's staging ring, each step's slice copied once for the group,
 // riccati_stages - 1 steps ahead. g's slots hold the ring, then the scratch.
-// One lane runs riccati_step, a group of more riccati_lanes_step.
-template <int N, int M, int MODE, bool Staged, class G>
+// One lane runs riccati_step, a group of more riccati_lanes_step; ENUM is
+// the box QP's enumeration mode.
+template <int N, int M, int MODE, bool Staged, int ENUM = kPnqpEnumDefault, class G>
 DMPC_HD void riccati_sweep(const RiccatiArgs& a, const G& g, int b) {
   constexpr int L = G::kLanes, kSize = RiccatiSlice<N, M, MODE>::kSize, kStages = riccati_stages<L>();
   using Plan = RiccatiLanePlan<N, M, MODE, L>;
@@ -728,10 +743,10 @@ DMPC_HD void riccati_sweep(const RiccatiArgs& a, const G& g, int b) {
   auto step = [&](const auto& in, int t) {
     if constexpr (L == 1) {
       float K[M][N], kt[M], frozen[M];
-      const float n_qp = riccati_step<N, M, MODE>(in, a.pnqp_iter, a.reg, V, v, K, kt, frozen, exact);
+      const float n_qp = riccati_step<N, M, MODE, ENUM>(in, a.pnqp_iter, a.reg, V, v, K, kt, frozen, exact);
       riccati_store<N, M, MODE>(a, t, b, K, kt, frozen, n_qp);
     } else {
-      riccati_lanes_step<N, M, MODE>(a, g, plan, x, in, t, b, exact, V, v);
+      riccati_lanes_step<N, M, MODE, ENUM>(a, g, plan, x, in, t, b, exact, V, v);
     }
   };
   auto stage = [&](int t, float* slot) {

@@ -27,44 +27,15 @@
 // This one keeps one thread per scenario, the simple and right first kernel.
 //
 // Built by diffmpc_tpu_torch/csrc/build.py with nvcc for sm_90a, without
-// --use_fast_math, and bound through the plain-C launchers below with ctypes.
+// --use_fast_math, and bound through the plain-C launchers below with ctypes;
+// the kernel and its launch are riccati_blocked_launch.cuh's.
 
-#include <cuda_runtime.h>
-
-#include "riccati_blocked.cuh"
-
-namespace {
-
-constexpr int kThreads = 128;
-
-template <int N, int M, int D>
-__global__ void __launch_bounds__(kThreads) riccati_blocked_kernel(RiccatiBlockedArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.ric.B) return;
-  riccati_blocked_scenario<N, M, D>(a, b);
-}
-
-template <int N, int M>
-int launch(const RiccatiBlockedArgs* args, void* stream) {
-  const int blocks = (args->ric.B + kThreads - 1) / kThreads;
-  if (args->block != 2 && args->block != 4) return static_cast<int>(cudaErrorInvalidValue);
-  if (blocks > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (args->block == 2) {
-      riccati_blocked_kernel<N, M, 2><<<blocks, kThreads, 0, s>>>(*args);
-    } else {
-      riccati_blocked_kernel<N, M, 4><<<blocks, kThreads, 0, s>>>(*args);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "riccati_blocked_launch.cuh"
 
 // One launcher per (n, m) of the port's table (ops/cuda/ilqr.py
 // KERNEL_SHAPES); the block D comes in the args. Each launches on `stream`
 // and returns cudaGetLastError().
-extern "C" int diffmpc_riccati_blocked_n3m1(const RiccatiBlockedArgs* a, void* s) { return launch<3, 1>(a, s); }
-extern "C" int diffmpc_riccati_blocked_n3m2(const RiccatiBlockedArgs* a, void* s) { return launch<3, 2>(a, s); }
-extern "C" int diffmpc_riccati_blocked_n4m1(const RiccatiBlockedArgs* a, void* s) { return launch<4, 1>(a, s); }
-extern "C" int diffmpc_riccati_blocked_n4m2(const RiccatiBlockedArgs* a, void* s) { return launch<4, 2>(a, s); }
+extern "C" int diffmpc_riccati_blocked_n3m1(const RiccatiBlockedArgs* a, void* s) { return riccati_blocked_launch<3, 1>(a, s); }
+extern "C" int diffmpc_riccati_blocked_n3m2(const RiccatiBlockedArgs* a, void* s) { return riccati_blocked_launch<3, 2>(a, s); }
+extern "C" int diffmpc_riccati_blocked_n4m1(const RiccatiBlockedArgs* a, void* s) { return riccati_blocked_launch<4, 1>(a, s); }
+extern "C" int diffmpc_riccati_blocked_n4m2(const RiccatiBlockedArgs* a, void* s) { return riccati_blocked_launch<4, 2>(a, s); }

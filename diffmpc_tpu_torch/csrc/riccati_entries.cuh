@@ -3,8 +3,9 @@
 // Device-function counterparts of the entry-tile helpers of
 // diffmpc_tpu/ops/pallas/riccati.py: _chol_entries (:141),
 // _cho_solve_entries (:160), _masked_chol_solve (:177), the box QP
-// _pnqp_entries (:329-416) with its m = 2 active-set enumeration
-// _pnqp_enum_entries (:204-298), and _value_update (:433), in its full form
+// _pnqp_entries (:329-416) with its active-set enumeration
+// _pnqp_enum_entries (:204-298) under each DIFFMPC_PNQP_ENUM mode (:301-341,
+// here the template flag ENUM), and _value_update (:433), in its full form
 // (the default, VALUE_UPDATE_EXACT_REG = -1 at :506) or, with EXACT, its
 // simplified one (:456-469). On the TPU each entry is an
 // (S, 128) tile over scenarios; here one thread owns one scenario, so each
@@ -356,10 +357,11 @@ DMPC_HD float pnqp_enum_candidate(int code, const float (&Quu)[M][M], const floa
   return valid ? qp_obj<M, F>(Quu, qu, x) : 1e30f;
 }
 
-// Box QP by projected Newton (the m >= 3 branch of _pnqp_entries): a fixed
-// trip count of n_iter with this scenario frozen once converged, each step
-// the masked Newton direction and a first-improving 6-step Armijo ladder
-// (alpha = 1, 1/2, ...). Returns the iterations used while active.
+// Box QP by projected Newton (the loop of _pnqp_entries: m >= 3, and m = 2
+// under the mode "0"): a fixed trip count of n_iter with this scenario frozen
+// once converged, each step the masked Newton direction and a
+// first-improving 6-step Armijo ladder (alpha = 1, 1/2, ...). Returns the
+// iterations used while active.
 template <int M>
 DMPC_HD float pnqp_loop_entries(const float (&Quu)[M][M], const float (&qu)[M], const float (&lo)[M],
                                 const float (&hi)[M], int n_iter, float reg, float (&x)[M]) {
@@ -397,15 +399,34 @@ DMPC_HD float pnqp_loop_entries(const float (&Quu)[M][M], const float (&qu)[M], 
   return n_qp;
 }
 
+// The box QP's enumeration modes, the JAX package's DIFFMPC_PNQP_ENUM
+// (riccati.py:301-341) as a template flag: the default "" enumerates at m = 2;
+// "0" takes the projected-Newton loop at m = 2 as well; "1" enumerates the
+// 27 active sets at m = 3 too. The wrappers pass the flag only where it
+// changes the QP (ops/cuda/riccati_entries.py, pnqp_enum_flag), so every
+// other mode is the default's instantiation.
+enum PnqpEnum { kPnqpEnumDefault = 0, kPnqpEnumLoop = 1, kPnqpEnumThree = 2 };
+
+// Whether the box QP of M dims enumerates its active sets under ENUM
+template <int M, int ENUM>
+DMPC_HD constexpr bool pnqp_enumerates() {
+  return (M == 2 && ENUM != kPnqpEnumLoop) || (M == 3 && ENUM == kPnqpEnumThree);
+}
+
 // Box QP  min 0.5 x'Quu x + qu'x  s.t. lo <= x <= hi. Writes the optimum
 // and the clamped ("frozen") mask; returns the solve count (1: a direct
-// solve). Dispatch as the TPU kernel's default: the closed form at m = 1,
-// the enumeration at m = 2, the projected-Newton loop at m >= 3.
-template <int M, bool F = false>
+// solve). Dispatch as the TPU kernel's under ENUM: the enumeration where
+// pnqp_enumerates, else the closed form at m = 1 and the projected-Newton
+// loop of n_iter steps at m >= 2.
+template <int M, bool F = false, int ENUM = kPnqpEnumDefault>
 DMPC_HD float pnqp_entries(const float (&Quu)[M][M], const float (&qu)[M], const float (&lo)[M],
                            const float (&hi)[M], int n_iter, float reg, float (&x)[M],
                            float (&frozen)[M]) {
-  if constexpr (M == 1) {
+  if constexpr (pnqp_enumerates<M, ENUM>()) {
+    pnqp_enum_entries<M, F>(Quu, qu, lo, hi, reg, x);
+    qp_frozen<M, F>(Quu, qu, lo, hi, x, frozen);
+    return 1.0f;
+  } else if constexpr (M == 1) {
     const float h = Quu[0][0] + reg;
     x[0] = clipf(-qu[0] / h, lo[0], hi[0]);
     const float g = F ? riccati_mad<F>(Quu[0][0], x[0], qu[0]) : Quu[0][0] * x[0] + qu[0];
@@ -413,10 +434,6 @@ DMPC_HD float pnqp_entries(const float (&Quu)[M][M], const float (&qu)[M], const
     const bool clamped = ((x[0] <= lo[0] + 1e-6f) && (g > 0.0f)) ||
                          ((x[0] >= hi[0] - 1e-6f) && (g < 0.0f));
     frozen[0] = clamped ? 1.0f : 0.0f;
-    return 1.0f;
-  } else if constexpr (M == 2) {
-    pnqp_enum_entries<M, F>(Quu, qu, lo, hi, reg, x);
-    qp_frozen<M, F>(Quu, qu, lo, hi, x, frozen);
     return 1.0f;
   } else {
     const float n_qp = pnqp_loop_entries<M>(Quu, qu, lo, hi, n_iter, reg, x);

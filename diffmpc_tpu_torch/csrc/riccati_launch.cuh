@@ -4,8 +4,10 @@
 //
 // riccati_l<L>.cu instantiates them for every (n, m) of the port's table and
 // every mode at its own lane count (one file per lane count, so that nvcc
-// builds them side by side); riccati.cu and riccati_stream.cu hold the
-// launchers, which pick the lane count from the args.
+// builds them side by side), the box QP at its default enumeration mode;
+// riccati.cu and riccati_stream.cu hold the launchers, which pick the lane
+// count from the args. variants/riccati.cu instantiates any other shape or
+// mode (ENUM) at first use.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,12 +34,12 @@ namespace riccati_launch_detail {
 template <bool Staged>
 constexpr int kThreadsOf = Staged ? 64 : 128;
 
-template <int N, int M, int MODE, bool Staged, int L>
+template <int N, int M, int MODE, bool Staged, int L, int ENUM>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kThreadsOf<Staged> / L) * riccati_group_floats<N, M, MODE, Staged, L>();
+  return sizeof(float) * (kThreadsOf<Staged> / L) * riccati_group_floats<N, M, MODE, Staged, L, ENUM>();
 }
 
-template <int N, int M, int MODE, bool Staged, int L>
+template <int N, int M, int MODE, bool Staged, int L, int ENUM>
 __global__ void __launch_bounds__(kThreadsOf<Staged>) riccati_kernel(RiccatiArgs a) {
   extern __shared__ float riccati_slots[];
   const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -49,21 +51,21 @@ __global__ void __launch_bounds__(kThreadsOf<Staged>) riccati_kernel(RiccatiArgs
   // pendulum at T=256 0.227 against 0.261
   if constexpr (L > 1) g.mask = __ballot_sync(0xffffffffu, b < a.B);
   if (b >= a.B) return;  // the whole group: its lanes share b
-  riccati_sweep<N, M, MODE, Staged>(a, g, b);
+  riccati_sweep<N, M, MODE, Staged, ENUM>(a, g, b);
 }
 
-template <int N, int M, int MODE, bool Staged, int L>
+template <int N, int M, int MODE, bool Staged, int L, int ENUM>
 int launch(const RiccatiArgs* args, cudaStream_t stream) {
   constexpr int kThreads = kThreadsOf<Staged>;
-  constexpr size_t smem = smem_bytes<N, M, MODE, Staged, L>();
+  constexpr size_t smem = smem_bytes<N, M, MODE, Staged, L, ENUM>();
   const long n_threads = (long)args->B * L;
   const int blocks = (int)((n_threads + kThreads - 1) / kThreads);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(riccati_kernel<N, M, MODE, Staged, L>,
+    const cudaError_t err = cudaFuncSetAttribute(riccati_kernel<N, M, MODE, Staged, L, ENUM>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (blocks > 0) riccati_kernel<N, M, MODE, Staged, L><<<blocks, kThreads, smem, stream>>>(*args);
+  if (blocks > 0) riccati_kernel<N, M, MODE, Staged, L, ENUM><<<blocks, kThreads, smem, stream>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -74,7 +76,7 @@ int launch(const RiccatiArgs* args, cudaStream_t stream) {
 // T=20, 1.121 against 2.066 at T=128; at 16,384 staging wins, 0.110 against
 // 0.136 and 0.663 against 0.826; NVIDIA H100 80GB HBM3 at 700 W,
 // diagnostics/ab_riccati_lanes). A wave is worked out once per card.
-template <int N, int M, int MODE>
+template <int N, int M, int MODE, int ENUM>
 bool one_lane_staged(int B, int* err) {
   constexpr int kMaxCards = 16;
   static std::atomic<long> wave[kMaxCards];  // scenarios a wave holds; 0 not yet known
@@ -84,12 +86,12 @@ bool one_lane_staged(int B, int* err) {
   if (e == cudaSuccess && w == 0) {
     int sms = 0, blocks = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    constexpr size_t smem = smem_bytes<N, M, MODE, true, 1>();
+    constexpr size_t smem = smem_bytes<N, M, MODE, true, 1, ENUM>();
     if (e == cudaSuccess && smem > 48 * 1024)
-      e = cudaFuncSetAttribute(riccati_kernel<N, M, MODE, true, 1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      e = cudaFuncSetAttribute(riccati_kernel<N, M, MODE, true, 1, ENUM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, riccati_kernel<N, M, MODE, true, 1>,
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, riccati_kernel<N, M, MODE, true, 1, ENUM>,
                                                         kThreadsOf<true>, smem);
     w = (long)sms * blocks * kThreadsOf<true>;
     if (e == cudaSuccess && dev < kMaxCards) wave[dev].store(w, std::memory_order_relaxed);
@@ -98,41 +100,43 @@ bool one_lane_staged(int B, int* err) {
   return B <= w;
 }
 
-// The kernel of `mode` (a RiccatiMode) at (N, M), Staged, L lanes.
-template <int N, int M, bool Staged, int L>
+// The kernel of `mode` (a RiccatiMode) at (N, M), Staged, L lanes, the box
+// QP's enumeration mode ENUM.
+template <int N, int M, bool Staged, int L, int ENUM>
 int launch_modes(const RiccatiArgs* args, int mode, cudaStream_t stream) {
-  if (mode == kRiccatiBox) return launch<N, M, kRiccatiBox, Staged, L>(args, stream);
-  if (mode == kRiccatiMask) return launch<N, M, kRiccatiMask, Staged, L>(args, stream);
-  if (mode == kRiccatiFree) return launch<N, M, kRiccatiFree, Staged, L>(args, stream);
+  if (mode == kRiccatiBox) return launch<N, M, kRiccatiBox, Staged, L, ENUM>(args, stream);
+  if (mode == kRiccatiMask) return launch<N, M, kRiccatiMask, Staged, L, ENUM>(args, stream);
+  if (mode == kRiccatiFree) return launch<N, M, kRiccatiFree, Staged, L, ENUM>(args, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The kernel at L lanes: above one lane staged; at one lane staged or not as
 // args->staged says, where a negative value asks for one_lane_staged's
 // choice, which is written back to args->staged.
-template <int N, int M, int L>
+template <int N, int M, int L, int ENUM = kPnqpEnumDefault>
 int lanes_launch_modes(RiccatiArgs* args, int mode, cudaStream_t stream) {
   if constexpr (L == 1) {
     if (args->staged < 0) {
       int err = 0;
       bool staged = false;
-      if (mode == kRiccatiBox) staged = one_lane_staged<N, M, kRiccatiBox>(args->B, &err);
-      else if (mode == kRiccatiMask) staged = one_lane_staged<N, M, kRiccatiMask>(args->B, &err);
-      else staged = one_lane_staged<N, M, kRiccatiFree>(args->B, &err);
+      if (mode == kRiccatiBox) staged = one_lane_staged<N, M, kRiccatiBox, ENUM>(args->B, &err);
+      else if (mode == kRiccatiMask) staged = one_lane_staged<N, M, kRiccatiMask, ENUM>(args->B, &err);
+      else staged = one_lane_staged<N, M, kRiccatiFree, ENUM>(args->B, &err);
       if (err != 0) return err;
       args->staged = staged ? 1 : 0;
     }
-    if (args->staged) return launch_modes<N, M, true, 1>(args, mode, stream);
-    return launch_modes<N, M, false, 1>(args, mode, stream);
+    if (args->staged) return launch_modes<N, M, true, 1, ENUM>(args, mode, stream);
+    return launch_modes<N, M, false, 1, ENUM>(args, mode, stream);
   } else {
-    return launch_modes<N, M, true, L>(args, mode, stream);
+    return launch_modes<N, M, true, L, ENUM>(args, mode, stream);
   }
 }
 
 }  // namespace riccati_launch_detail
 
 // The (n, m) of the port's table (ops/cuda/ilqr.py, KERNEL_SHAPES), X(N, M, A)
-// for each.
+// for each; every other shape and enumeration mode is a variant built at first
+// use (csrc/variants/riccati.cu).
 #define DMPC_RICCATI_SHAPES(X, A) X(3, 1, A) X(3, 2, A) X(4, 1, A) X(4, 2, A)
 
 // Declare the kernels of (N, M) at L lanes as built in riccati_l<L>.cu, or
@@ -148,13 +152,13 @@ int lanes_launch_modes(RiccatiArgs* args, int mode, cudaStream_t stream) {
 // resident kernel and the twin: one kernel); returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a lane count that is not built
 // (DMPC_RICCATI_LANES) or an unknown mode.
-template <int N, int M>
+template <int N, int M, int ENUM = kPnqpEnumDefault>
 int riccati_launch(RiccatiArgs* args, int mode, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (args->lanes) {
 #define DMPC_RICCATI_LANE_CASE(_, L_) \
   case L_:                            \
-    return riccati_launch_detail::lanes_launch_modes<N, M, L_>(args, mode, s);
+    return riccati_launch_detail::lanes_launch_modes<N, M, L_, ENUM>(args, mode, s);
     DMPC_RICCATI_LANES(DMPC_RICCATI_LANE_CASE, _)
 #undef DMPC_RICCATI_LANE_CASE
   }

@@ -6,7 +6,8 @@
 // rollout.cu and rollout_stream.cu instantiate them for linear dynamics and
 // the pendulum, and rollout_nn_l<L>.cu for the MLPs of nn_archs.cuh (one
 // file per lane count, so that nvcc builds them side by side), at the lane
-// counts of DMPC_LANES (lanes.cuh). An env whose parameters are shared by
+// counts of DMPC_LANES (lanes.cuh); variants/rollout.cu instantiates any
+// other shape or MLP at first use. An env whose parameters are shared by
 // every scenario and fit in shared memory (SharedParams, the MLP's) has them
 // copied there once per block before any group starts its scenario; the
 // pendulum reads its three, or its per-scenario row, from device memory.
@@ -54,7 +55,7 @@ int launch(const RolloutArgs* args, const Env& env, cudaStream_t stream) {
   const long n_threads = (long)args->B * L;
   const int blocks = (int)((n_threads + kThreads - 1) / kThreads);
   const size_t smem = Staged ? sizeof(float) * (kThreads / L) * rollout_group_slot_floats<N, M, Env, L>() : 0;
-  if (smem > 48 * 1024) {
+  if (smem + sizeof(float) * SharedParams<Env>::count > 48 * 1024) {  // the rings beside an MLP's weights
     const cudaError_t err = cudaFuncSetAttribute(rollout_kernel<N, M, Env, Staged, L>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,0 +1,46 @@
+// A variant of the line search and its twin (rollout.cu, rollout_stream.cu):
+// the kernels of one shape (DMPC_N, DMPC_M), for linear dynamics (staged,
+// both launchers, as the prebuilt ones) or the MLP of DMPC_HIDDEN (resident
+// and staged), at the lane count DMPC_VARIANT_L, or the launchers
+// (variant.cuh). csrc/build.py builds it at first use.
+
+#include "rollout_launch.cuh"
+#include "variant.cuh"
+
+#ifdef DMPC_HIDDEN
+#define DMPC_VARIANT_ROLLOUT(PREFIX, L)                                                                          \
+  PREFIX template int rollout_launch_detail::launch<DMPC_N, DMPC_M, VariantNNEnv, false, L>(                     \
+      const RolloutArgs*, const VariantNNEnv&, cudaStream_t);                                                    \
+  PREFIX template int rollout_launch_detail::launch<DMPC_N, DMPC_M, VariantNNEnv, true, L>(                      \
+      const RolloutArgs*, const VariantNNEnv&, cudaStream_t);
+#else
+#define DMPC_VARIANT_ROLLOUT(PREFIX, L)                                                                          \
+  PREFIX template int rollout_launch_detail::launch<DMPC_N, DMPC_M, LinearEnv, true, L>(const RolloutArgs*,      \
+                                                                                       const LinearEnv&,         \
+                                                                                       cudaStream_t);
+#endif
+
+#if DMPC_VARIANT_L > 0
+DMPC_VARIANT_ROLLOUT(, DMPC_VARIANT_L)
+#else
+DMPC_LANES(DMPC_VARIANT_ROLLOUT, extern)
+
+// Launch the line search (resident, then the twin) on `stream` with
+// args->lanes threads per scenario; each returns cudaGetLastError(), or
+// cudaErrorInvalidValue (rollout_launch).
+#ifdef DMPC_HIDDEN
+extern "C" int diffmpc_rollout_variant(const RolloutArgs* a, const VariantNNEnv* env, void* s) {
+  return rollout_launch<DMPC_N, DMPC_M, false>(a, *env, s);
+}
+extern "C" int diffmpc_rollout_stream_variant(const RolloutArgs* a, const VariantNNEnv* env, void* s) {
+  return rollout_launch<DMPC_N, DMPC_M, true>(a, *env, s);
+}
+#else
+extern "C" int diffmpc_rollout_variant(const RolloutArgs* a, void* s) {
+  return rollout_launch<DMPC_N, DMPC_M, true>(a, LinearEnv{}, s);
+}
+extern "C" int diffmpc_rollout_stream_variant(const RolloutArgs* a, void* s) {
+  return rollout_launch<DMPC_N, DMPC_M, true>(a, LinearEnv{}, s);
+}
+#endif
+#endif

@@ -1,0 +1,71 @@
+// The key of a kernel variant, read from the -D macros that csrc/build.py
+// (variant_defines) gives each of its translation units:
+//   DMPC_N, DMPC_M      the shape (n, m);
+//   DMPC_HIDDEN         an MLP env's hidden widths as a string, "16x16";
+//   DMPC_PENDULUM       the pendulum env (the fused solve's other C++ step);
+//   DMPC_ENUM           the box QP's enumeration mode, a PnqpEnum
+//                       (riccati_entries.cuh; default 0);
+//   DMPC_EXACT          1 for the simplified value update (default 0);
+//   DMPC_VARIANT_L      the lane count whose kernels the unit builds, or 0
+//                       for the unit that holds the launchers.
+// A variant is a shape, an MLP or a flag that the prebuilt library
+// (csrc/*.cu) does not instantiate; each is built into a library of its own
+// at its first use and launched through the same templates.
+#pragma once
+
+#include <utility>
+
+#ifndef DMPC_ENUM
+#define DMPC_ENUM 0
+#endif
+#ifndef DMPC_EXACT
+#define DMPC_EXACT 0
+#endif
+#ifndef DMPC_VARIANT_L
+#define DMPC_VARIANT_L 0
+#endif
+
+// the value update's form as the templates take it
+constexpr bool kVariantExact = DMPC_EXACT != 0;
+
+#ifdef DMPC_HIDDEN
+#include "nn_mlp.cuh"
+
+namespace variant_detail {
+
+constexpr char kHidden[] = DMPC_HIDDEN;
+
+// the number of hidden layers: the widths are separated by 'x'
+constexpr int hidden_depth() {
+  int depth = 1;
+  for (int i = 0; kHidden[i] != '\0'; ++i) depth += kHidden[i] == 'x' ? 1 : 0;
+  return depth;
+}
+
+// the width of hidden layer `layer`
+constexpr int hidden_width(int layer) {
+  int width = 0, at = 0;
+  for (int i = 0; kHidden[i] != '\0'; ++i) {
+    if (kHidden[i] == 'x') {
+      if (at == layer) return width;
+      ++at;
+      width = 0;
+    } else {
+      width = 10 * width + (kHidden[i] - '0');
+    }
+  }
+  return width;
+}
+
+template <class Layers>
+struct NNOf;
+template <int... I>
+struct NNOf<std::integer_sequence<int, I...>> {
+  using type = NNEnv<DMPC_N, DMPC_M, hidden_width(I)...>;
+};
+
+}  // namespace variant_detail
+
+// The MLP env of the key: NNEnv<n, m, hidden widths...>
+using VariantNNEnv = typename variant_detail::NNOf<std::make_integer_sequence<int, variant_detail::hidden_depth()>>::type;
+#endif

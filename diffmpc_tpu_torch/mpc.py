@@ -206,6 +206,7 @@ def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init):
     spec = LqrSpec(
         n_state=n, constrained=lo is not None, tight_eps=config.tight_eps,
         back_eps=config.back_eps, reg=config.back_eps, pnqp_iter=config.pnqp_iter,
+        pnqp_enum=config.pnqp_enum, value_update_exact_reg=config.value_update_exact_reg,
         linesearch_decay=config.linesearch_decay,
         max_linesearch_iter=config.max_linesearch_iter, delta_u=config.delta_u,
         use_cuda=config.use_cuda,
@@ -345,6 +346,8 @@ def mpc_solve(
             u_init=u0,
             lqr_iter=config.lqr_iter,
             pnqp_iter=min(config.pnqp_iter, 8),
+            pnqp_enum=config.pnqp_enum,
+            value_update_exact_reg=config.value_update_exact_reg,
             reg=config.back_eps,
             decay=config.linesearch_decay,
             max_linesearch_iter=config.max_linesearch_iter,
@@ -384,7 +387,8 @@ def mpc_solve(
         big = torch.full((T, B, m), 1e18, dtype=dtype, device=device)
         spec = LqrSpec(
             n_state=n, constrained=constrained, tight_eps=config.tight_eps,
-            back_eps=config.back_eps, use_cuda=config.use_cuda,
+            back_eps=config.back_eps, value_update_exact_reg=config.value_update_exact_reg,
+            use_cuda=config.use_cuda,
         )
         xs, us = lqr_fixed_point(
             spec, x_init, cost.C, cost.c, F, f, best_x, best_u,
@@ -429,6 +433,8 @@ class MPC:
         pnqp_iter: int = 20,
         u_zero_I=None,
         use_cuda: Optional[bool] = None,
+        pnqp_enum: str = "",
+        value_update_exact_reg: float = -1.0,
     ):
         self.config = MPCConfig(
             n_state=n_state,
@@ -450,6 +456,8 @@ class MPC:
             slew_rate_penalty=slew_rate_penalty,
             pnqp_iter=pnqp_iter,
             use_cuda=use_cuda,
+            pnqp_enum=pnqp_enum,
+            value_update_exact_reg=value_update_exact_reg,
         )
         self.u_lower = u_lower
         self.u_upper = u_upper

@@ -7,8 +7,9 @@ alpha-ladder line search, replay and best-trajectory bookkeeping).
 
 - :func:`ilqr_solve_fused` is the public entry point. For CUDA tensors it
   launches the kernel of ``csrc/ilqr.cu`` (a group of L threads per
-  scenario, L by :func:`ilqr_lanes`) or raises; for CPU tensors it runs
-  :func:`ilqr_solve_plain`.
+  scenario, L by :func:`ilqr_lanes`), or of the variant built at first use
+  for an MLP or a flag the prebuilt library lacks (:func:`kernel_library`),
+  or raises; for CPU tensors it runs :func:`ilqr_solve_plain`.
 - :func:`ilqr_solve_plain` is the same algorithm in plain PyTorch,
   vectorized over the batch: each entry is a ``(B,)`` tensor and Python
   loops run over time, iterations and entries. It computes in the dtype of
@@ -26,9 +27,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...csrc.build import ENUM_DEFAULT, VariantKey
 from ...models.dynamics import ACTIVATIONS, NNDynamics
 from ...models.envs.pendulum import PendulumDx
-from .riccati_entries import _clip, _masked_chol_solve, _pnqp_entries, _value_update
+from .riccati_entries import _clip, _masked_chol_solve, _pnqp_entries, _value_update, pnqp_enum_flag, pnqp_is_exact
 
 
 class FusedSolveResult(NamedTuple):
@@ -64,6 +66,13 @@ def _check_shapes(x_init, C, c, u_lower, u_upper, u_init):
     if u_init is not None and tuple(u_init.shape) != (T, B, m):
         raise ValueError(f"u_init must be {(T, B, m)}; got {tuple(u_init.shape)}")
     return T, B, n, m
+
+
+def fused_exact_update(m: int, reg: float, threshold: float, pnqp_enum: str = "") -> bool:
+    """Whether the fused solve's box-mode sweep takes the simplified value
+    update: the JAX kernel's gate (``ilqr.py:114``, ``_use_exact_value_update``
+    in box mode) with ``VALUE_UPDATE_EXACT_REG`` as ``threshold``."""
+    return pnqp_is_exact(True, m, pnqp_enum) and reg <= threshold
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +112,8 @@ def ilqr_solve_plain(
     u_init: Optional[torch.Tensor] = None,
     lqr_iter: int = 10,
     pnqp_iter: int = 8,
+    pnqp_enum: str = "",
+    value_update_exact_reg: float = -1.0,
     reg: float = 1e-9,
     decay: float = 0.2,
     max_linesearch_iter: int = 10,
@@ -124,6 +135,7 @@ def ilqr_solve_plain(
     T, B, n, m = _check_shapes(x_init, C, c, u_lower, u_upper, u_init)
     nm = n + m
     dtype = x_init.dtype
+    exact = fused_exact_update(m, reg, value_update_exact_reg, pnqp_enum)
     # entry views: Ce[t, a, b] and friends are (B,) tensors
     Ce = C.to(dtype).permute(0, 2, 3, 1)
     ce = c.to(dtype).permute(0, 2, 1)
@@ -225,13 +237,13 @@ def ilqr_solve_plain(
             qu = [q[n + a] for a in range(m)]
             lo_d = [lo[t, a] - uh[t][a] for a in range(m)]
             hi_d = [hi[t, a] - uh[t][a] for a in range(m)]
-            kt, frozen, n_qp = _pnqp_entries(Quu, qu, lo_d, hi_d, m, pnqp_iter, reg)
+            kt, frozen, n_qp = _pnqp_entries(Quu, qu, lo_d, hi_d, m, pnqp_iter, reg, pnqp_enum)
             qp_sum = qp_sum + n_qp
             rhs_cols = [[Q[n + a][b] for a in range(m)] for b in range(n)]
             K_cols = _masked_chol_solve(Quu, rhs_cols, frozen, m, reg)
             K_g[t] = [[-K_cols[b][a] for b in range(n)] for a in range(m)]
             k_g[t] = kt
-            V, v = _value_update(Q, q, Quu, qu, K_g[t], kt, n, m)
+            V, v = _value_update(Q, q, Quu, qu, K_g[t], kt, n, m, exact)
         qp_iters = torch.where(active, qp_sum / T, qp_iters)
 
         # ---- alpha ladder: first improving step per scenario; rolled, or
@@ -310,7 +322,7 @@ class _IlqrArgs(ctypes.Structure):
         )
     ] + [
         (name, ctypes.c_void_p) for name in ("F_s", "cd_s", "alphas", "lane_x", "lane_u")
-    ] + [("lanes", ctypes.c_int)]
+    ] + [("lanes", ctypes.c_int), ("pnqp_iter", ctypes.c_int)]
 
 
 class _PendulumEnv(ctypes.Structure):
@@ -331,9 +343,11 @@ class _NNEnv(ctypes.Structure):
     _fields_ = [("activation", ctypes.c_int), ("residual", ctypes.c_int)]
 
 
-# The MLP architectures (n, m, hidden) the kernels are instantiated for, each
-# with its launchers diffmpc_<kind>_<nn_symbol(...)>: the JAX bench's
-# 3-16-16-3 (bench.py:597) and the shapes of the JAX package's NN tests.
+# The MLP architectures (n, m, hidden) the prebuilt library instantiates
+# (csrc/nn_archs.cuh), each with its launchers diffmpc_<kind>_<nn_symbol(...)>:
+# the JAX bench's 3-16-16-3 (bench.py:597) and the shapes of the JAX
+# package's NN tests. Any other kernel-fusable MLP is a variant built at its
+# first use (kernel_library).
 NN_KERNEL_ARCHS = ((3, 1, (16, 16)), (3, 1, (8,)), (3, 1, (8, 8)), (3, 1, (16,)), (3, 2, (8,)))
 
 
@@ -343,20 +357,24 @@ def nn_symbol(n: int, m: int, hidden: tuple) -> str:
 
 class KernelEnv(NamedTuple):
     """What the kernels need of a model with a C++ step: its env struct, the
-    suffix of its launchers (``diffmpc_<kind>_<symbol>``), its ``(n, m)``,
-    the length ``P`` of its ``kernel_params``, whether they may be
-    per-scenario ``(B, P)``, and whether its step is cheap (a few dozen
-    operations, the C++ env's ``kCheapStep``), which the fused kernel's
-    lane groups and their rule read (:func:`keeps_lane_trajectories`,
-    :func:`ilqr_lanes`)."""
+    suffix of its prebuilt launchers (``diffmpc_<kind>_<symbol>``; None where
+    only a variant has it), its ``(n, m)``, the length ``P`` of its
+    ``kernel_params``, whether they may be per-scenario ``(B, P)``, whether
+    its step is cheap (a few dozen operations, the C++ env's
+    ``kCheapStep``), which the fused kernel's lane groups and their rule read
+    (:func:`keeps_lane_trajectories`, :func:`ilqr_lanes`), and its variant
+    key's env and widths (``pendulum``, or ``nn`` with the MLP's hidden
+    widths: :func:`kernel_library`)."""
 
     struct: ctypes.Structure
-    symbol: str
+    symbol: Optional[str]
     n: int
     m: int
     n_params: int
     per_scenario: bool
     cheap_step: bool
+    kind: str = "pendulum"
+    hidden: tuple = ()
 
 
 def _pendulum_env(dyn: PendulumDx) -> KernelEnv:
@@ -365,14 +383,18 @@ def _pendulum_env(dyn: PendulumDx) -> KernelEnv:
 
 
 def _nn_env(dyn: NNDynamics) -> KernelEnv:
-    arch = (dyn.n_state, dyn.n_ctrl, dyn.hidden)
-    if arch not in NN_KERNEL_ARCHS:
-        raise NotImplementedError(
-            f"the CUDA kernels' MLP step is instantiated for (n, m, hidden) in {NN_KERNEL_ARCHS}, not "
-            f"{arch}: add the architecture to NN_KERNEL_ARCHS and csrc/nn_archs.cuh"
+    """The kernels' view of a kernel-fusable MLP: the prebuilt launchers of
+    its architecture where :data:`NN_KERNEL_ARCHS` has it, else its variant's
+    (any architecture the fusable gate takes, ``NNDynamics.kernel_fusable``)."""
+    if not dyn.kernel_fusable:
+        raise ValueError(
+            f"the CUDA kernels take a kernel-fusable MLP (at most {dyn._FUSABLE_MAX_PARAMS} params, widths at "
+            f"most {dyn._FUSABLE_MAX_WIDTH}); this one has {dyn.n_params} params and widths {dyn.hidden}"
         )
+    arch = (dyn.n_state, dyn.n_ctrl, dyn.hidden)
     struct = _NNEnv(list(ACTIVATIONS).index(dyn.activation), int(dyn.residual))
-    return KernelEnv(struct, nn_symbol(*arch), dyn.n_state, dyn.n_ctrl, dyn.n_params, False, False)
+    symbol = nn_symbol(*arch) if arch in NN_KERNEL_ARCHS else None
+    return KernelEnv(struct, symbol, dyn.n_state, dyn.n_ctrl, dyn.n_params, False, False, "nn", dyn.hidden)
 
 
 # model class -> its KernelEnv
@@ -392,6 +414,26 @@ def kernel_env(dyn) -> KernelEnv:
     return make(dyn)
 
 
+def env_variant_key(env: KernelEnv, family: str, enum: int = ENUM_DEFAULT, exact: bool = False):
+    """The variant of ``family`` (``ilqr`` or ``rollout``) that launches
+    ``env`` with the box QP's enumeration flag ``enum`` and the value
+    update's form ``exact``, or None where the prebuilt library has its
+    launchers (:func:`kernel_library`)."""
+    if env.symbol is not None and enum == ENUM_DEFAULT and not exact:
+        return None
+    return VariantKey(family, env.n, env.m, env.kind, env.hidden, enum, bool(exact))
+
+
+def kernel_library(key: Optional[VariantKey]):
+    """The library that holds a kernel's launchers: the prebuilt one for
+    ``key`` None, else the variant's, built at its first use
+    (``csrc/build.py``, ``load_variant``; a failed nvcc raises with its log).
+    The variant's launchers are ``diffmpc_<kind>_variant``."""
+    from ...csrc import build
+
+    return build.load() if key is None else build.load_variant(key)
+
+
 def check_kernel_params(env: KernelEnv, params: torch.Tensor, B: int, name: str) -> None:
     shapes = ((env.n_params,), (B, env.n_params)) if env.per_scenario else ((env.n_params,),)
     if tuple(params.shape) not in shapes:
@@ -408,7 +450,7 @@ def bm(a: torch.Tensor) -> torch.Tensor:
 def run_staged(
     launch,
     x_init, C, c, dyn, u_lower, u_upper, *,
-    u_init=None, lqr_iter=10, reg=1e-9, decay=0.2, max_linesearch_iter=10,
+    u_init=None, lqr_iter=10, pnqp_iter=8, reg=1e-9, decay=0.2, max_linesearch_iter=10,
     delta_u=None, eps=1e-7, best_cost_eps=1e-4, not_improved_lim=5, hoist_lin=False, unroll=False, lanes=1,
 ) -> FusedSolveResult:
     """Stage the inputs batch-minor, allocate the outputs and the scratch
@@ -423,8 +465,9 @@ def run_staged(
 
     ``launch`` runs ``ilqr_solve_scenario`` for every scenario: the CUDA
     launcher for CUDA tensors, or a host build of the same headers for CPU
-    tensors (the tests do that); it must be the one of ``hoist_lin``.
-    Float32 inputs only."""
+    tensors (the tests do that); it must be the one of ``hoist_lin`` and of
+    the box QP's enumeration mode and the value update's form it is asked
+    for (``pnqp_iter`` is the QP loop's steps). Float32 inputs only."""
     T, B, n, m = _check_shapes(x_init, C, c, u_lower, u_upper, u_init)
     env = kernel_env(dyn)
     if (n, m) != (env.n, env.m):
@@ -487,7 +530,7 @@ def run_staged(
         F_s=None if F_s is None else F_s.data_ptr(), cd_s=None if cd_s is None else cd_s.data_ptr(),
         alphas=None if alphas is None else alphas.data_ptr(),
         lane_x=None if lane_x is None else lane_x.data_ptr(),
-        lane_u=None if lane_u is None else lane_u.data_ptr(), lanes=lanes,
+        lane_u=None if lane_u is None else lane_u.data_ptr(), lanes=lanes, pnqp_iter=pnqp_iter,
     )
     launch(ctypes.byref(args), ctypes.byref(env.struct))
     # The staged inputs and the scratch are freed when this returns, while
@@ -579,15 +622,17 @@ def ilqr_lanes(B: int, env: KernelEnv, sm_count: int, hoist_lin: bool = False) -
     return 2 if env.cheap_step else 1
 
 
-def _cuda_launcher(device: torch.device, env: KernelEnv, hoist_lin: bool):
+def _cuda_launcher(device: torch.device, env: KernelEnv, hoist_lin: bool, pnqp_enum: str = "", exact: bool = False):
     """The fused kernel's launcher for :func:`run_staged`, which sets the
-    threads per scenario in the args; a lane count that is not built makes
-    the launch fail, and the launcher raise. Each launch adds one to
-    ``ilqr_solve_fused.launches`` and sets ``ilqr_solve_fused.last_lanes``
-    to the lane count it launched."""
-    from ...csrc import build
-
-    fn = getattr(build.load(), f"diffmpc_ilqr_solve_{env.symbol}" + ("_hoist" if hoist_lin else ""))
+    threads per scenario in the args, for ``env`` with the box QP of
+    ``pnqp_enum`` and the value update's form ``exact``: the prebuilt
+    kernel, or the variant's (:func:`env_variant_key`); a lane count that is
+    not built makes the launch fail, and the launcher raise. Each launch adds
+    one to ``ilqr_solve_fused.launches`` and sets
+    ``ilqr_solve_fused.last_lanes`` to the lane count it launched."""
+    key = env_variant_key(env, "ilqr", pnqp_enum_flag(env.m, pnqp_enum), exact)
+    suffix = env.symbol if key is None else "variant"
+    fn = getattr(kernel_library(key), f"diffmpc_ilqr_solve_{suffix}" + ("_hoist" if hoist_lin else ""))
     fn.argtypes = [ctypes.POINTER(_IlqrArgs), ctypes.POINTER(type(env.struct)), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -595,7 +640,8 @@ def _cuda_launcher(device: torch.device, env: KernelEnv, hoist_lin: bool):
     def launch(args, env_ref):
         err = fn(args, env_ref, stream)
         if err != 0:
-            raise RuntimeError(f"ilqr kernel launch failed: cudaError {err} (lanes built: {ILQR_LANES})")
+            raise RuntimeError(f"ilqr kernel launch at {args._obj.lanes} lanes failed: cudaError {err} "
+                               f"(lanes built: {ILQR_LANES})")
         ilqr_solve_fused.launches += 1
         ilqr_solve_fused.last_lanes = args._obj.lanes
 
@@ -618,27 +664,46 @@ def resolve_use_cuda(use_cuda: Optional[bool], device: torch.device) -> bool:
     return on_cuda
 
 
-# The (n, m) shapes the Riccati, rollout and KKT kernels are instantiated
-# for, each with its own extern "C" launcher diffmpc_<kind>_n<n>m<m>: the
-# pendulum (3, 1), and (3, 2), (4, 1), (4, 2) for the linear problems of
-# BASELINE.json configs 1 and 2 and the box-DDP golden.
+# The (n, m) shapes the prebuilt Riccati, rollout and KKT kernels are
+# instantiated for, each with its own extern "C" launcher
+# diffmpc_<kind>_n<n>m<m>: the pendulum (3, 1), and (3, 2), (4, 1), (4, 2)
+# for the linear problems of BASELINE.json configs 1 and 2 and the box-DDP
+# golden. Every other shape is a variant built at its first use.
 KERNEL_SHAPES = ((3, 1), (3, 2), (4, 1), (4, 2))
 
+# kind -> its variant family, and whether the family takes the box QP's
+# enumeration flag and the value update's form
+_KIND_FAMILY = {
+    "riccati": ("riccati", True, False),
+    "riccati_stream": ("riccati", True, False),
+    "rollout": ("rollout", False, False),
+    "rollout_stream": ("rollout", False, False),
+    "kkt_backward": ("kkt", False, True),
+    "kkt_backward_stream": ("kkt", False, True),
+    "riccati_blocked": ("riccati_blocked", False, False),
+}
 
-def kernel_symbol(kind: str, n: int, m: int, argtypes: list):
-    """The launcher of kernel ``kind`` for ``(n, m)`` from the built library,
-    with its ctypes signature set (``argtypes``, an int return: the CUDA
-    error code). Raises ``NotImplementedError`` for a shape outside
-    :data:`KERNEL_SHAPES`."""
-    if (n, m) not in KERNEL_SHAPES:
-        raise NotImplementedError(
-            f"the {kind} kernel is instantiated for (n, m) in {KERNEL_SHAPES}, not "
-            f"n = {n}, m = {m}: each further (n, m) comes with the env that needs "
-            "it (the rest of the dynamics zoo, ROADMAP.md, queue 1)"
-        )
-    from ...csrc import build
 
-    fn = getattr(build.load(), f"diffmpc_{kind}_n{n}m{m}")
+def kernel_variant_key(kind: str, n: int, m: int, *, enum: int = ENUM_DEFAULT, exact: bool = False):
+    """The variant that holds kernel ``kind`` at ``(n, m)`` with the flags
+    its family takes, or None where the prebuilt library has it."""
+    family, takes_enum, takes_exact = _KIND_FAMILY[kind]
+    enum = enum if takes_enum else ENUM_DEFAULT
+    exact = bool(exact) and takes_exact
+    if (n, m) in KERNEL_SHAPES and enum == ENUM_DEFAULT and not exact:
+        return None
+    return VariantKey(family, n, m, enum=enum, exact=exact)
+
+
+def kernel_symbol(kind: str, n: int, m: int, argtypes: list, *, enum: int = ENUM_DEFAULT, exact: bool = False):
+    """The launcher of kernel ``kind`` for ``(n, m)``, the box QP's
+    enumeration flag ``enum`` (Riccati) and the value update's form
+    ``exact`` (KKT), with its ctypes signature set (``argtypes``, an int
+    return: the CUDA error code): from the prebuilt library for the shapes of
+    :data:`KERNEL_SHAPES` and the default flags, else from its variant, built
+    at first use (:func:`kernel_variant_key`)."""
+    key = kernel_variant_key(kind, n, m, enum=enum, exact=exact)
+    fn = getattr(kernel_library(key), f"diffmpc_{kind}_n{n}m{m}" if key is None else f"diffmpc_{kind}_variant")
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -655,6 +720,8 @@ def ilqr_solve_fused(
     u_init: Optional[torch.Tensor] = None,
     lqr_iter: int = 10,
     pnqp_iter: int = 8,
+    pnqp_enum: str = "",
+    value_update_exact_reg: float = -1.0,
     reg: float = 1e-9,
     decay: float = 0.2,
     max_linesearch_iter: int = 10,
@@ -668,33 +735,39 @@ def ilqr_solve_fused(
 ) -> FusedSolveResult:
     """Full fused iLQR solve; the contract of the JAX package's
     ``ilqr_solve_fused``. ``u_init (T,B,m)`` warm-starts the initial rollout;
-    None starts from zero controls. ``hoist_lin`` linearizes every step in a
+    None starts from zero controls. ``pnqp_iter`` is the box QP loop's steps
+    and ``pnqp_enum`` its enumeration mode (the JAX package's
+    ``DIFFMPC_PNQP_ENUM``); ``value_update_exact_reg`` takes the simplified
+    value update where the QP is exact (its ``VALUE_UPDATE_EXACT_REG``,
+    :func:`fused_exact_update`). ``hoist_lin`` linearizes every step in a
     pre-pass before each Riccati sweep, off the value carry's chain (the JAX
     package's ``DIFFMPC_HOIST_LIN=1``): the same solve. ``unroll`` takes the
     JAX package's exact-power ladder ``alpha = decay**k`` (its ``unroll=True``;
     the unrolled iteration loop changes no result).
 
     CUDA tensors launch the kernel of ``dyn``'s C++ step
-    (:func:`kernel_env`), which computes in float32 whatever the inputs'
-    float dtype (the outputs come back in ``x_init.dtype``), and add one to
-    ``ilqr_solve_fused.launches``; CPU tensors run :func:`ilqr_solve_plain`.
-    See :func:`resolve_use_cuda`."""
+    (:func:`kernel_env`; an MLP or a flag the prebuilt library lacks builds
+    its variant at first use), which computes in float32 whatever the
+    inputs' float dtype (the outputs come back in ``x_init.dtype``), and add
+    one to ``ilqr_solve_fused.launches``; CPU tensors run
+    :func:`ilqr_solve_plain`. See :func:`resolve_use_cuda`."""
     knobs = dict(
-        u_init=u_init, lqr_iter=lqr_iter, reg=reg, decay=decay,
+        u_init=u_init, lqr_iter=lqr_iter, pnqp_iter=pnqp_iter, reg=reg, decay=decay,
         max_linesearch_iter=max_linesearch_iter, delta_u=delta_u, eps=eps,
         best_cost_eps=best_cost_eps, not_improved_lim=not_improved_lim, hoist_lin=hoist_lin,
         unroll=unroll,
     )
+    exact = fused_exact_update(C.shape[-1] - x_init.shape[-1], reg, value_update_exact_reg, pnqp_enum)
     if not resolve_use_cuda(use_cuda, x_init.device):
         return ilqr_solve_plain(
-            x_init, C, c, dyn, u_lower, u_upper, pnqp_iter=pnqp_iter, **knobs
+            x_init, C, c, dyn, u_lower, u_upper, pnqp_enum=pnqp_enum,
+            value_update_exact_reg=value_update_exact_reg, **knobs
         )
     env = kernel_env(dyn)
     lanes = ilqr_lanes(x_init.shape[0], env, _sm_count(x_init.device.index), hoist_lin)
     with torch.cuda.device(x_init.device):
-        return run_staged_f32(
-            _cuda_launcher(x_init.device, env, hoist_lin), x_init, C, c, dyn, u_lower, u_upper, lanes=lanes, **knobs
-        )
+        launch = _cuda_launcher(x_init.device, env, hoist_lin, pnqp_enum, exact)
+        return run_staged_f32(launch, x_init, C, c, dyn, u_lower, u_upper, lanes=lanes, **knobs)
 
 
 ilqr_solve_fused.launches = 0  # kernel launches, counted where they happen

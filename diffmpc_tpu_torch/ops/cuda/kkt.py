@@ -20,7 +20,9 @@ The public layout is the JAX wrapper's: ``C (T,B,nm,nm)``, ``c (T,B,nm)``,
 ``F (T,B,n,nm)``, ``r (T,B,nm)`` (the incoming trajectory gradient with
 tight control dims zeroed), ``tau (T,B,nm)`` (the primal trajectory),
 ``tight (T,B,m)`` bool. Every function returns
-``(dx_init (B,n), dC, dc, dF, df (T,B,n))`` in the dtype of ``C``.
+``(dx_init (B,n), dC, dc, dF, df (T,B,n))`` in the dtype of ``C``. With
+``value_update_exact_reg`` at or above ``reg`` the auxiliary sweep takes the
+simplified value update (:func:`kkt_exact_update`).
 """
 
 from __future__ import annotations
@@ -54,6 +56,14 @@ def _check_shapes(C, c, F, r, tau, tight):
     return T, B, n, m
 
 
+def kkt_exact_update(reg: float, threshold: float) -> bool:
+    """Whether the auxiliary Riccati sweep takes the simplified value update:
+    the JAX kernel's gate (``kkt.py:105``, ``_use_exact_value_update`` in mask
+    mode, where the gains are exact masked solves, so only ``reg`` gates it)
+    with ``VALUE_UPDATE_EXACT_REG`` as ``threshold``."""
+    return reg <= threshold
+
+
 # ---------------------------------------------------------------------------
 # The plain PyTorch version.
 # ---------------------------------------------------------------------------
@@ -69,10 +79,12 @@ def kkt_backward_plain(
     tight: torch.Tensor,
     *,
     reg: float = 1e-7,
+    value_update_exact_reg: float = -1.0,
 ):
     """The fused KKT backward in plain PyTorch, on any device and for any
     ``(n, m)``; same contract as :func:`kkt_backward_fused`."""
     T, B, n, m = _check_shapes(C, c, F, r, tau, tight)
+    exact = kkt_exact_update(reg, value_update_exact_reg)
     nm = n + m
     dtype = C.dtype
     # entry views: Ce[t, a, b] and friends are (B,) tensors
@@ -108,7 +120,7 @@ def kkt_backward_plain(
         sols = _masked_chol_solve(Quu, rhs_cols, frozen, m, reg)
         K_g[t] = [[-sols[b][a] for b in range(n)] for a in range(m)]
         k_g[t] = [-sols[n][a] for a in range(m)]
-        V, v = _value_update(Q, q, Quu, qu, K_g[t], k_g[t], n, m)
+        V, v = _value_update(Q, q, Quu, qu, K_g[t], k_g[t], n, m, exact)
 
     # ---- 2. differential rollout p (f = 0, p_x0 = 0), dC and dc ----
     p_all, dC_all = [], []
@@ -215,12 +227,14 @@ def run_staged_kkt(launch, C, c, F, r, tau, tight, *, reg: float = 1e-7):
     )
 
 
-def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "kkt_backward", counted=None):
+def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "kkt_backward", counted=None,
+                   exact: bool = False):
     """The launcher of kernel ``kind`` (``kkt_backward`` or its streaming twin
-    ``kkt_backward_stream``: the same ``KktArgs``) on the current stream;
-    each launch adds one to ``counted.launches`` (default
-    :func:`kkt_backward_fused`)."""
-    fn = kernel_symbol(kind, n, m, [ctypes.POINTER(_KktArgs), ctypes.c_void_p])
+    ``kkt_backward_stream``: the same ``KktArgs``) with the value update's
+    form ``exact`` on the current stream, from the prebuilt library or the
+    variant's (``ilqr.kernel_symbol``); each launch adds one to
+    ``counted.launches`` (default :func:`kkt_backward_fused`)."""
+    fn = kernel_symbol(kind, n, m, [ctypes.POINTER(_KktArgs), ctypes.c_void_p], exact=exact)
     stream = torch.cuda.current_stream(device).cuda_stream
     counted = kkt_backward_fused if counted is None else counted
 
@@ -233,16 +247,18 @@ def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "kkt_backwa
     return launch
 
 
-def run_on_card(launcher, C, c, F, r, tau, tight, *, reg: float = 1e-7):
+def run_on_card(launcher, C, c, F, r, tau, tight, *, reg: float = 1e-7, value_update_exact_reg: float = -1.0):
     """Run a KKT kernel on CUDA tensors of any float dtype:
-    ``launcher(device, n, m)`` gives the launch; the inputs are cast to
-    float32 and the gradients come back in ``C.dtype``. CPU tensors raise."""
+    ``launcher(device, n, m, exact=...)`` gives the launch of the value
+    update's form (:func:`kkt_exact_update`); the inputs are cast to float32
+    and the gradients come back in ``C.dtype``. CPU tensors raise."""
     resolve_use_cuda(True, C.device)
     _, _, n, m = _check_shapes(C, c, F, r, tau, tight)
     dtype = C.dtype
     f32 = [a.to(torch.float32) for a in (C, c, F, r, tau)]
+    exact = kkt_exact_update(reg, value_update_exact_reg)
     with torch.cuda.device(C.device):
-        out = run_staged_kkt(launcher(C.device, n, m), *f32, tight, reg=reg)
+        out = run_staged_kkt(launcher(C.device, n, m, exact=exact), *f32, tight, reg=reg)
     return tuple(x.to(dtype) for x in out)
 
 
@@ -255,30 +271,34 @@ def kkt_backward_fused(
     tight: torch.Tensor,
     *,
     reg: float = 1e-7,
+    value_update_exact_reg: float = -1.0,
     use_cuda: Optional[bool] = None,
 ):
     """Fused analytic KKT backward for a batch of solved problems; the
-    contract of the JAX package's ``kkt_backward_fused``. Returns
+    contract of the JAX package's ``kkt_backward_fused``, with
+    ``value_update_exact_reg`` its ``VALUE_UPDATE_EXACT_REG``. Returns
     ``(dx_init, dC, dc, dF, df)`` in ``C.dtype``; the backward itself runs
     in float32.
 
-    CUDA tensors launch a kernel (compiled for the ``(n, m)`` of
-    :data:`~diffmpc_tpu_torch.ops.cuda.ilqr.KERNEL_SHAPES`; any other shape
-    raises): this module's, adding one to ``kkt_backward_fused.launches``,
+    CUDA tensors launch a kernel (prebuilt for the ``(n, m)`` of
+    :data:`~diffmpc_tpu_torch.ops.cuda.ilqr.KERNEL_SHAPES` and the full value
+    update; any other shape or the simplified update builds its variant at
+    first use): this module's, adding one to ``kkt_backward_fused.launches``,
     or, where the horizon takes the JAX package's streaming twin
     (:func:`~diffmpc_tpu_torch.ops.cuda.horizon.streams_kkt`), the twin's
     (:func:`~diffmpc_tpu_torch.ops.cuda.kkt_stream.kkt_backward_stream_cuda`).
     CPU tensors run :func:`kkt_backward_plain`. See
     :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`."""
+    kw = dict(reg=reg, value_update_exact_reg=value_update_exact_reg)
     if not resolve_use_cuda(use_cuda, C.device):
-        return kkt_backward_plain(C, c, F, r, tau, tight, reg=reg)
+        return kkt_backward_plain(C, c, F, r, tau, tight, **kw)
     T, _, n, m = _check_shapes(C, c, F, r, tau, tight)
     if streams_kkt(T, n, m):
         # the twin's module imports this one, so it is imported here
         from .kkt_stream import kkt_backward_stream_cuda
 
-        return kkt_backward_stream_cuda(C, c, F, r, tau, tight, reg=reg)
-    return run_on_card(_cuda_launcher, C, c, F, r, tau, tight, reg=reg)
+        return kkt_backward_stream_cuda(C, c, F, r, tau, tight, **kw)
+    return run_on_card(_cuda_launcher, C, c, F, r, tau, tight, **kw)
 
 
 kkt_backward_fused.launches = 0  # kernel launches, counted where they happen

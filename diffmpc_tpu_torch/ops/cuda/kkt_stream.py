@@ -26,17 +26,19 @@ from .kkt import _cuda_launcher, kkt_backward_plain, run_on_card
 __all__ = ["kkt_backward_plain", "kkt_backward_stream_cuda"]
 
 
-def _stream_launcher(device: torch.device, n: int, m: int):
-    return _cuda_launcher(device, n, m, kind="kkt_backward_stream", counted=kkt_backward_stream_cuda)
+def _stream_launcher(device: torch.device, n: int, m: int, exact: bool = False):
+    return _cuda_launcher(device, n, m, kind="kkt_backward_stream", counted=kkt_backward_stream_cuda, exact=exact)
 
 
-def kkt_backward_stream_cuda(C, c, F, r, tau, tight, *, reg: float = 1e-7):
+def kkt_backward_stream_cuda(C, c, F, r, tau, tight, *, reg: float = 1e-7, value_update_exact_reg: float = -1.0):
     """The KKT backward on the card, streamed: the contract of
     :func:`~diffmpc_tpu_torch.ops.cuda.kkt.kkt_backward_fused`. CUDA tensors
     of any float dtype (computed in float32, the gradients back in
-    ``C.dtype``); adds one to ``kkt_backward_stream_cuda.launches``; shapes
-    outside the kernels' ``(n, m)`` table raise."""
-    return run_on_card(_stream_launcher, C, c, F, r, tau, tight, reg=reg)
+    ``C.dtype``); adds one to ``kkt_backward_stream_cuda.launches``; a shape
+    outside the prebuilt table, or the simplified value update, builds its
+    variant at first use."""
+    return run_on_card(_stream_launcher, C, c, F, r, tau, tight, reg=reg,
+                       value_update_exact_reg=value_update_exact_reg)
 
 
 kkt_backward_stream_cuda.launches = 0  # kernel launches, counted where they happen

@@ -14,11 +14,15 @@ dims (mask mode, the composite KKT backward).
   Python loops run over time and entries, in the kernel's order. It serves
   CPU tensors and the checks of the kernel.
 
-With ``value_update_exact_reg`` at or above ``reg``, the sweep takes the
-JAX package's simplified value update where its box QP is exact
+``pnqp_enum`` is the box QP's enumeration mode, the JAX package's
+``DIFFMPC_PNQP_ENUM`` (:func:`~.riccati_entries.pnqp_enumerates`). With
+``value_update_exact_reg`` at or above ``reg``, the sweep takes the JAX
+package's simplified value update where its inner solve is exact
 (:func:`use_exact_value_update`, the gate of ``riccati.py:509-513``); the
 default -1 keeps the full form, as the JAX package's
-``VALUE_UPDATE_EXACT_REG`` does.
+``VALUE_UPDATE_EXACT_REG`` does. A shape outside the prebuilt table, or a
+mode that changes the QP, launches a kernel built at its first use
+(:func:`~.ilqr.kernel_symbol`).
 
 The kernel computes in float32 and casts ``K, k`` back to ``C.dtype``, as
 the TPU wrapper does (``riccati.py:754``, ``:796-797``); the plain version
@@ -42,6 +46,8 @@ from .riccati_entries import (
     _masked_chol_solve,
     _pnqp_entries,
     _value_update,
+    pnqp_enum_flag,
+    pnqp_is_exact,
 )
 
 FREE, BOX, MASK = 0, 1, 2  # enum RiccatiMode in csrc/riccati.cuh
@@ -75,14 +81,15 @@ def _mode_inputs(T, B, m, u_lower, u_upper, u_hat, ctrl_mask):
     return (MASK, (ctrl_mask,)) if mode == MASK else (FREE, ())
 
 
-def use_exact_value_update(mode: int, m: int, reg: float, threshold: float) -> bool:
+def use_exact_value_update(mode: int, m: int, reg: float, threshold: float, pnqp_enum: str = "") -> bool:
     """Whether a sweep takes the simplified value update: the gate of the
     JAX package's ``_use_exact_value_update`` (``riccati.py:509-513``) with
-    its ``VALUE_UPDATE_EXACT_REG`` as ``threshold``: the inner solve is exact
-    (free and mask modes, and box mode at m <= 2, where the closed form and
-    the enumeration run: the port has no ``DIFFMPC_PNQP_ENUM``, so its m >= 3
-    box QP is always the projected-Newton loop) and ``reg <= threshold``."""
-    return (mode != BOX or m <= 2) and reg <= threshold
+    its ``VALUE_UPDATE_EXACT_REG`` as ``threshold`` and its
+    ``DIFFMPC_PNQP_ENUM`` as ``pnqp_enum``: the inner solve is exact
+    (``_pnqp_is_exact``, ``:418-429``: free and mask modes, and in box mode
+    the m = 1 closed form and the enumeration, but not the projected-Newton
+    loop) and ``reg <= threshold``."""
+    return pnqp_is_exact(mode == BOX, m, pnqp_enum) and reg <= threshold
 
 
 def _check_shapes(C, c, F, f, n):
@@ -160,6 +167,7 @@ def riccati_backward_plain(
     ctrl_mask: Optional[torch.Tensor] = None,
     reg: float = 1e-9,
     pnqp_iter: int = 8,
+    pnqp_enum: str = "",
     value_update_exact_reg: float = -1.0,
     return_qp: bool = False,
 ):
@@ -171,7 +179,7 @@ def riccati_backward_plain(
     n = n_state
     T, B, m = _check_shapes(C, c, F, f, n)
     mode, extra = _mode_inputs(T, B, m, u_lower, u_upper, u_hat, ctrl_mask)
-    exact = use_exact_value_update(mode, m, reg, value_update_exact_reg)
+    exact = use_exact_value_update(mode, m, reg, value_update_exact_reg, pnqp_enum)
     dtype = C.dtype
     # entry views: Ce[t, a, b] and friends are (B,) tensors
     Ce = C.to(dtype).permute(0, 2, 3, 1)
@@ -192,7 +200,7 @@ def riccati_backward_plain(
         if mode == BOX:
             lo = [extra[0][t, a] for a in range(m)]
             hi = [extra[1][t, a] for a in range(m)]
-            kt, frozen, n_qp = _pnqp_entries(Quu, qu, lo, hi, m, pnqp_iter, reg)
+            kt, frozen, n_qp = _pnqp_entries(Quu, qu, lo, hi, m, pnqp_iter, reg, pnqp_enum)
             Kc = _masked_chol_solve(Quu, cols, frozen, m, reg)
             K = [[-Kc[b][a] for b in range(n)] for a in range(m)]
         elif mode == MASK:
@@ -298,15 +306,16 @@ class StagedRiccati(NamedTuple):
 
 def stage_riccati(
     C, c, F, f, n_state, *, u_lower=None, u_upper=None, u_hat=None,
-    ctrl_mask=None, reg=1e-9, pnqp_iter=8, value_update_exact_reg=-1.0, lanes=1, staged=None,
+    ctrl_mask=None, reg=1e-9, pnqp_iter=8, pnqp_enum="", value_update_exact_reg=-1.0, lanes=1, staged=None,
 ) -> StagedRiccati:
     """Stage the inputs batch-minor and allocate the outputs for a launch of
     ``riccati_sweep<n, m, mode>`` for every scenario with ``lanes`` threads
     per scenario (at one lane each step's slice ``staged`` or read from
     device memory; None leaves it to the launcher, which writes its choice
     into the args) and the value update's form by
-    :func:`use_exact_value_update`. Float32 inputs only (``ctrl_mask``
-    bool)."""
+    :func:`use_exact_value_update`. The launch must be the kernel of
+    ``pnqp_enum`` (:func:`~.riccati_entries.pnqp_enum_flag`). Float32 inputs
+    only (``ctrl_mask`` bool)."""
     n = n_state
     T, B, m = _check_shapes(C, c, F, f, n)
     mode, extra = _mode_inputs(T, B, m, u_lower, u_upper, u_hat, ctrl_mask)
@@ -335,7 +344,7 @@ def stage_riccati(
         **{name: a.data_ptr() for name, a in ins.items() if a is not None},
         **{name: a.data_ptr() for name, a in zip(("K", "k", "free", "n_qp"), outputs)},
         T=T, B=B, pnqp_iter=pnqp_iter, reg=reg, lanes=lanes,
-        exact_update=int(use_exact_value_update(mode, m, reg, value_update_exact_reg)),
+        exact_update=int(use_exact_value_update(mode, m, reg, value_update_exact_reg, pnqp_enum)),
         staged=-1 if staged is None else int(staged),
     )
     return StagedRiccati(args, mode, outputs, tuple(ins.values()))
@@ -343,10 +352,10 @@ def stage_riccati(
 
 def run_staged_riccati(launch, C, c, F, f, n_state, **knobs) -> RiccatiResult:
     """Stage the inputs (:func:`stage_riccati`, with its knobs: the box,
-    ``ctrl_mask``, ``reg``, ``pnqp_iter``, ``value_update_exact_reg``,
-    ``lanes`` and ``staged``), call ``launch(args, n, m, mode)`` with a pointer to the
-    ``RiccatiArgs`` struct, and return the outputs in the public layout
-    (``K, k`` float32).
+    ``ctrl_mask``, ``reg``, ``pnqp_iter``, ``pnqp_enum``,
+    ``value_update_exact_reg``, ``lanes`` and ``staged``), call
+    ``launch(args, n, m, mode)`` with a pointer to the ``RiccatiArgs``
+    struct, and return the outputs in the public layout (``K, k`` float32).
 
     ``launch`` runs ``riccati_sweep<n, m, mode>`` for every scenario: the
     CUDA launcher for CUDA tensors, or a host build of the same header for
@@ -359,17 +368,20 @@ def run_staged_riccati(launch, C, c, F, f, n_state, **knobs) -> RiccatiResult:
     return staged.result()
 
 
-def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "riccati", counted=None, lib=None):
+def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "riccati", counted=None, lib=None,
+                   pnqp_enum: str = ""):
     """The launcher of kernel ``kind`` (``riccati`` or its streaming twin
-    ``riccati_stream``: the same ``RiccatiArgs``) on the current stream, from
-    the built library (or ``lib``, another build of the same sources); a lane
-    count that is not built makes the launch fail, and the launcher raise.
+    ``riccati_stream``: the same ``RiccatiArgs``) with the box QP of
+    ``pnqp_enum`` on the current stream, from the built library or the
+    variant's (:func:`~.ilqr.kernel_symbol`), or from ``lib``, another build
+    of the same sources; a lane count that is not built makes the launch
+    fail, and the launcher raise.
     Each launch adds one to ``counted.launches`` (default
     :func:`riccati_backward_cuda`) and sets ``counted.last_lanes`` and
     ``counted.last_staged`` to the lane count it launched and whether it
     staged its slices."""
     argtypes = [ctypes.POINTER(_RiccatiArgs), ctypes.c_int, ctypes.c_void_p]
-    fn = kernel_symbol(kind, n, m, argtypes)
+    fn = kernel_symbol(kind, n, m, argtypes, enum=pnqp_enum_flag(m, pnqp_enum))
     if lib is not None:
         fn = getattr(lib, fn.__name__)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -388,9 +400,9 @@ def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "riccati", 
 
 
 def run_on_card(launcher, C, c, F, f, n_state, *, u_lower=None, u_upper=None, u_hat=None,
-                ctrl_mask=None, reg=1e-9, pnqp_iter=8, value_update_exact_reg=-1.0) -> RiccatiResult:
+                ctrl_mask=None, reg=1e-9, pnqp_iter=8, pnqp_enum="", value_update_exact_reg=-1.0) -> RiccatiResult:
     """Run a Riccati kernel on CUDA tensors of any float dtype:
-    ``launcher(device, n, m)`` gives the launch, at the lane count of
+    ``launcher(device, n, m, pnqp_enum=...)`` gives the launch, at the lane count of
     :func:`riccati_lanes` (staged as the launcher chooses); the inputs are
     cast to float32 and ``K, k`` come back in ``C.dtype``. CPU tensors
     raise."""
@@ -405,9 +417,9 @@ def run_on_card(launcher, C, c, F, f, n_state, *, u_lower=None, u_upper=None, u_
 
     with torch.cuda.device(C.device):
         out = run_staged_riccati(
-            launcher(C.device, n_state, m), cast(C), cast(c), cast(F), cast(f), n_state,
+            launcher(C.device, n_state, m, pnqp_enum=pnqp_enum), cast(C), cast(c), cast(F), cast(f), n_state,
             u_lower=cast(u_lower), u_upper=cast(u_upper), u_hat=cast(u_hat),
-            ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter,
+            ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter, pnqp_enum=pnqp_enum,
             value_update_exact_reg=value_update_exact_reg, lanes=lanes,
         )
     return out._replace(K=out.K.to(dtype), k=out.k.to(dtype))
@@ -426,20 +438,22 @@ def riccati_backward_cuda(
     ctrl_mask: Optional[torch.Tensor] = None,
     reg: float = 1e-9,
     pnqp_iter: int = 8,
+    pnqp_enum: str = "",
     value_update_exact_reg: float = -1.0,
 ) -> RiccatiResult:
     """The Riccati sweep on the card: the contract of the JAX package's
     ``riccati_backward_pallas`` (box mode with ``u_lower, u_upper, u_hat``;
-    mask mode with ``ctrl_mask``; free mode otherwise), and
-    ``value_update_exact_reg`` its module's ``VALUE_UPDATE_EXACT_REG``.
-    CUDA tensors of any float dtype: the kernel computes in float32 and
-    ``K, k`` come back in ``C.dtype``. Adds one to
+    mask mode with ``ctrl_mask``; free mode otherwise), with ``pnqp_enum``
+    and ``value_update_exact_reg`` its module's ``DIFFMPC_PNQP_ENUM`` and
+    ``VALUE_UPDATE_EXACT_REG``. CUDA tensors of any float dtype: the kernel
+    computes in float32 and ``K, k`` come back in ``C.dtype``. Adds one to
     ``riccati_backward_cuda.launches`` and sets
-    ``riccati_backward_cuda.last_lanes`` and ``.last_staged``; shapes
-    outside the kernels' ``(n, m)`` table raise."""
+    ``riccati_backward_cuda.last_lanes`` and ``.last_staged``; a shape or
+    mode outside the prebuilt kernels builds its variant at first use."""
     return run_on_card(
         _cuda_launcher, C, c, F, f, n_state, u_lower=u_lower, u_upper=u_upper, u_hat=u_hat,
-        ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter, value_update_exact_reg=value_update_exact_reg,
+        ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter, pnqp_enum=pnqp_enum,
+        value_update_exact_reg=value_update_exact_reg,
     )
 
 

@@ -309,8 +309,8 @@ def riccati_backward_blocked_cuda(
     ``riccati_backward_blocked_pallas``. ``block`` is 2 or 4 and must divide
     ``T``. CUDA tensors of any float dtype: the kernel computes in float32
     and ``K, k`` come back in ``C.dtype``. Adds one to
-    ``riccati_backward_blocked_cuda.launches``; shapes outside the kernels'
-    ``(n, m)`` table raise."""
+    ``riccati_backward_blocked_cuda.launches``; a shape outside the prebuilt
+    table builds its variant at first use."""
     _, _, m = _check_shapes(C, c, F, f, n_state)
     _check_block(C.shape[0], block)
     resolve_use_cuda(True, C.device)

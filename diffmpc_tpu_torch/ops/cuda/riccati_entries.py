@@ -3,7 +3,8 @@
 Counterparts of the entry-tile helpers of
 :mod:`diffmpc_tpu.ops.pallas.riccati` (``_chol_entries``,
 ``_cho_solve_entries``, ``_masked_chol_solve``, the box QP
-``_pnqp_entries`` with its m = 2 enumeration ``_pnqp_enum_entries``, and
+``_pnqp_entries`` with its enumeration ``_pnqp_enum_entries`` under each
+mode of ``DIFFMPC_PNQP_ENUM``, here the keyword ``pnqp_enum``, and
 ``_value_update`` in its full and its simplified form). Every matrix entry
 is a ``(B,)`` tensor over scenarios and the small matrices are lists of
 them, so the arithmetic is the
@@ -16,6 +17,47 @@ from __future__ import annotations
 import itertools
 
 import torch
+
+from ...csrc.build import ENUM_DEFAULT, ENUM_LOOP, ENUM_THREE
+
+# The box QP's enumeration modes, the JAX package's DIFFMPC_PNQP_ENUM
+# (riccati.py:301-341): "" enumerates the active sets at m = 2, "0" takes the
+# projected-Newton loop at m = 2 as well, "1" enumerates at m = 3 too.
+PNQP_ENUM_MODES = ("", "0", "1")
+
+
+def check_pnqp_enum(mode: str) -> str:
+    """``mode`` if it is one of :data:`PNQP_ENUM_MODES`; else ``ValueError``."""
+    if mode not in PNQP_ENUM_MODES:
+        raise ValueError(f"pnqp_enum must be one of {PNQP_ENUM_MODES}; got {mode!r}")
+    return mode
+
+
+def pnqp_enumerates(m: int, mode: str) -> bool:
+    """Whether the box QP of ``m`` dims enumerates its active sets under
+    ``mode`` (``_pnqp_entries``'s dispatch, ``riccati.py:339-341``)."""
+    check_pnqp_enum(mode)
+    return (m == 2 and mode != "0") or (m == 3 and mode == "1")
+
+
+def pnqp_is_exact(box: bool, m: int, mode: str) -> bool:
+    """Whether the inner control solve is the exact optimum of its QP: the
+    JAX package's ``_pnqp_is_exact`` (``riccati.py:418-429``): the masked
+    solves outside box mode, and in box mode the m = 1 closed form and the
+    enumeration, but not the projected-Newton loop."""
+    check_pnqp_enum(mode)
+    return not box or m == 1 or pnqp_enumerates(m, mode)
+
+
+def pnqp_enum_flag(m: int, mode: str) -> int:
+    """The kernels' template flag for ``mode`` at ``m`` control dims
+    (``PnqpEnum`` in ``csrc/riccati_entries.cuh``): the loop at m = 2 under
+    ``"0"``, the enumeration at m = 3 under ``"1"``, and the default
+    wherever the mode does not change the QP, so that those share the
+    default's kernels."""
+    if pnqp_enumerates(m, mode) != pnqp_enumerates(m, ""):
+        return ENUM_LOOP if m == 2 else ENUM_THREE
+    return ENUM_DEFAULT
 
 
 def _chol_entries(A, m, reg=0.0):
@@ -142,10 +184,10 @@ def _pnqp_enum_entries(Quu, qu, lo, hi, m, reg):
 
 
 def _pnqp_loop_entries(Quu, qu, lo, hi, m, n_iter, reg):
-    """Box QP by projected Newton (m >= 3): ``n_iter`` steps with converged
-    scenarios frozen, each the masked Newton direction and a first-improving
-    6-step Armijo ladder. Returns ``(x, n_qp)``, ``n_qp`` the iterations used
-    while active."""
+    """Box QP by projected Newton (m >= 3, and m = 2 under the mode ``"0"``):
+    ``n_iter`` steps with converged scenarios frozen, each the masked Newton
+    direction and a first-improving 6-step Armijo ladder. Returns
+    ``(x, n_qp)``, ``n_qp`` the iterations used while active."""
     x = _clipped_newton(Quu, qu, lo, hi, m, reg)
     done = torch.zeros_like(x[0])
     n_qp = torch.zeros_like(x[0])
@@ -169,11 +211,15 @@ def _pnqp_loop_entries(Quu, qu, lo, hi, m, n_iter, reg):
     return x, n_qp
 
 
-def _pnqp_entries(Quu, qu, lo, hi, m, n_iter, reg):
+def _pnqp_entries(Quu, qu, lo, hi, m, n_iter, reg, pnqp_enum=""):
     """Box QP ``min 0.5 x'Quu x + qu'x, lo <= x <= hi``: returns
-    ``(x, frozen, n_qp)``. Dispatch as the TPU kernel's default: the exact
-    m = 1 closed form and the m = 2 enumeration (``n_qp = 1``, direct
-    solves), the projected-Newton loop of ``n_iter`` steps at m >= 3."""
+    ``(x, frozen, n_qp)``. Dispatch as the TPU kernel's under
+    ``pnqp_enum`` (:func:`pnqp_enumerates`): the enumeration where it
+    enumerates, else the exact m = 1 closed form (``n_qp = 1`` for both,
+    direct solves) and the projected-Newton loop of ``n_iter`` steps."""
+    if pnqp_enumerates(m, pnqp_enum):
+        x = _pnqp_enum_entries(Quu, qu, lo, hi, m, reg)
+        return x, _qp_frozen(Quu, qu, lo, hi, x, m), torch.ones_like(qu[0])
     if m == 1:
         h = Quu[0][0] + reg
         x = _clip(-qu[0] / h, lo[0], hi[0])
@@ -181,10 +227,7 @@ def _pnqp_entries(Quu, qu, lo, hi, m, n_iter, reg):
         # the same 1e-6 boundary tolerance as ops/pnqp.py
         clamped = ((x <= lo[0] + 1e-6) & (g > 0)) | ((x >= hi[0] - 1e-6) & (g < 0))
         return [x], [clamped.to(x.dtype)], torch.ones_like(x)
-    if m == 2:
-        x, n_qp = _pnqp_enum_entries(Quu, qu, lo, hi, m, reg), torch.ones_like(qu[0])
-    else:
-        x, n_qp = _pnqp_loop_entries(Quu, qu, lo, hi, m, n_iter, reg)
+    x, n_qp = _pnqp_loop_entries(Quu, qu, lo, hi, m, n_iter, reg)
     return x, _qp_frozen(Quu, qu, lo, hi, x, m), n_qp
 
 

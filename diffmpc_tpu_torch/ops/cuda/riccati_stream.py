@@ -29,8 +29,9 @@ from .riccati import RiccatiResult, _cuda_launcher, riccati_backward_plain, run_
 __all__ = ["riccati_backward_plain", "riccati_backward_stream_cuda"]
 
 
-def _stream_launcher(device: torch.device, n: int, m: int):
-    return _cuda_launcher(device, n, m, kind="riccati_stream", counted=riccati_backward_stream_cuda)
+def _stream_launcher(device: torch.device, n: int, m: int, pnqp_enum: str = ""):
+    return _cuda_launcher(device, n, m, kind="riccati_stream", counted=riccati_backward_stream_cuda,
+                          pnqp_enum=pnqp_enum)
 
 
 def riccati_backward_stream_cuda(
@@ -46,17 +47,19 @@ def riccati_backward_stream_cuda(
     ctrl_mask: Optional[torch.Tensor] = None,
     reg: float = 1e-9,
     pnqp_iter: int = 8,
+    pnqp_enum: str = "",
     value_update_exact_reg: float = -1.0,
 ) -> RiccatiResult:
     """The Riccati sweep on the card, streamed: the contract of
     :func:`~diffmpc_tpu_torch.ops.cuda.riccati.riccati_backward_cuda`. CUDA
     tensors of any float dtype (computed in float32, ``K, k`` back in
     ``C.dtype``); adds one to ``riccati_backward_stream_cuda.launches`` and
-    sets its ``last_lanes`` and ``last_staged``; shapes outside the kernels'
-    ``(n, m)`` table raise."""
+    sets its ``last_lanes`` and ``last_staged``; a shape or mode outside the
+    prebuilt kernels builds its variant at first use."""
     return run_on_card(
         _stream_launcher, C, c, F, f, n_state, u_lower=u_lower, u_upper=u_upper, u_hat=u_hat,
-        ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter, value_update_exact_reg=value_update_exact_reg,
+        ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter, pnqp_enum=pnqp_enum,
+        value_update_exact_reg=value_update_exact_reg,
     )
 
 

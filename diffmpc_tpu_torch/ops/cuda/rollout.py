@@ -35,7 +35,18 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .ilqr import ILQR_LANES, LANE_THREADS_PER_SM, _sm_count, bm, check_kernel_params, kernel_env, kernel_symbol, resolve_use_cuda
+from .ilqr import (
+    ILQR_LANES,
+    LANE_THREADS_PER_SM,
+    _sm_count,
+    bm,
+    check_kernel_params,
+    env_variant_key,
+    kernel_env,
+    kernel_library,
+    kernel_symbol,
+    resolve_use_cuda,
+)
 from .riccati_entries import _clip
 
 
@@ -387,10 +398,10 @@ def _cuda_launcher(device: torch.device, n: int, m: int, dyn, kind: str = "rollo
             fn = getattr(lib, fn.__name__)
             fn.argtypes, fn.restype = [ctypes.POINTER(_RolloutArgs), ctypes.c_void_p], ctypes.c_int
     else:
-        from ...csrc import build
-
         env = _check_dyn(dyn, n, m)
-        fn = getattr(lib or build.load(), f"diffmpc_{kind}_{env.symbol}")
+        key = env_variant_key(env, "rollout")
+        suffix = env.symbol if key is None else "variant"
+        fn = getattr(lib or kernel_library(key), f"diffmpc_{kind}_{suffix}")
         fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.POINTER(type(env.struct)), ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
@@ -460,8 +471,9 @@ def linesearch_rollout_cuda(
     CUDA tensors of any float dtype: the kernel computes in float32 and
     ``xs, us, objs, alpha`` come back in ``x_init.dtype``. Adds one to
     ``linesearch_rollout_cuda.launches`` and sets
-    ``linesearch_rollout_cuda.last_lanes``; other envs and linear shapes
-    outside the kernels' ``(n, m)`` table raise."""
+    ``linesearch_rollout_cuda.last_lanes``; other envs raise, and a linear
+    shape or an MLP outside the prebuilt kernels builds its variant at first
+    use (``ilqr.kernel_symbol``, ``ilqr.env_variant_key``)."""
     return run_on_card(
         _cuda_launcher, x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower=u_lower, u_upper=u_upper,
         delta_u=delta_u, dyn=dyn, decay=decay, max_iter=max_iter, unroll=unroll,

@@ -65,7 +65,8 @@ def linesearch_rollout_stream_cuda(
     CUDA tensors of any float dtype (computed in float32, ``xs, us, objs,
     alpha`` back in ``x_init.dtype``); adds one to
     ``linesearch_rollout_stream_cuda.launches`` and sets its ``last_lanes``;
-    other envs and linear shapes outside the kernels' ``(n, m)`` table raise.
+    other envs raise, and a linear shape or an MLP outside the prebuilt
+    kernels builds its variant at first use.
     The JAX twin has no ``unroll``, and neither has this."""
     return run_on_card(
         _stream_launcher, x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower=u_lower, u_upper=u_upper,

@@ -54,6 +54,7 @@ def riccati_backward(
     ctrl_mask: Optional[torch.Tensor] = None,
     reg: float = 1e-9,
     pnqp_iter: int = 20,
+    pnqp_enum: str = "",
     value_update_exact_reg: float = -1.0,
     use_cuda: Optional[bool] = None,
 ) -> RiccatiResult:
@@ -63,6 +64,8 @@ def riccati_backward(
     gain rows zeroed) or frozen dims (``ctrl_mask (T,B,m)`` bool, True = held
     at ``du = 0``, the composite KKT backward). ``C (T,B,nm,nm)``,
     ``c (T,B,nm)``, ``F (T,B,n,nm)``, ``f (T,B,n)`` or None (zeros).
+    ``pnqp_enum`` is the JAX package's ``DIFFMPC_PNQP_ENUM``, the box QP's
+    enumeration mode (``""``, ``"0"`` or ``"1"``).
     ``value_update_exact_reg`` is the JAX package's
     ``VALUE_UPDATE_EXACT_REG``: at or above ``reg``, the simplified value
     update where the inner solve is exact; the default -1 keeps the full
@@ -73,7 +76,7 @@ def riccati_backward(
     plain version for CPU tensors (see
     :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`)."""
     kw = dict(u_lower=u_lower, u_upper=u_upper, u_hat=u_hat, ctrl_mask=ctrl_mask, reg=reg, pnqp_iter=pnqp_iter,
-              value_update_exact_reg=value_update_exact_reg)
+              pnqp_enum=pnqp_enum, value_update_exact_reg=value_update_exact_reg)
     if resolve_use_cuda(use_cuda, C.device):
         if streams_riccati(C.shape[0], n_state, C.shape[-1] - n_state):
             return riccati_backward_stream_cuda(C, c, F, f, n_state, **kw)

@@ -46,6 +46,10 @@ class LqrSpec:
     back_eps: float = 1e-7
     reg: float = 1e-9
     pnqp_iter: int = 20
+    # the box QP's enumeration mode and the simplified value update's
+    # threshold (MPCConfig.pnqp_enum, MPCConfig.value_update_exact_reg)
+    pnqp_enum: str = ""
+    value_update_exact_reg: float = -1.0
     linesearch_decay: float = 0.2
     max_linesearch_iter: int = 10
     delta_u: Optional[float] = None
@@ -100,7 +104,8 @@ def lqr_step(
     res = _riccati(
         spec, C, c_delta, F, None, n,
         u_lower=u_lower, u_upper=u_upper, u_hat=u_hat if u_lower is not None else None,
-        reg=spec.reg, pnqp_iter=spec.pnqp_iter,
+        reg=spec.reg, pnqp_iter=spec.pnqp_iter, pnqp_enum=spec.pnqp_enum,
+        value_update_exact_reg=spec.value_update_exact_reg,
     )
     ls = lqr_linesearch_rollout(
         x_init, C, c, F, f, res.K, res.k, x_hat, u_hat,
@@ -111,7 +116,8 @@ def lqr_step(
     return LqrStepResult(ls.xs, ls.us, ls.objs, ls.alpha, ls.improved, res.free_mask, res.n_qp_iter)
 
 
-def kkt_backward_composite(C, c, F, r, tau, tight, *, reg: float = 1e-7, use_cuda: Optional[bool] = None):
+def kkt_backward_composite(C, c, F, r, tau, tight, *, reg: float = 1e-7, value_update_exact_reg: float = -1.0,
+                           use_cuda: Optional[bool] = None):
     """The KKT backward of :func:`lqr_fixed_point` from its parts, with the
     contract of :func:`~diffmpc_tpu_torch.ops.cuda.kkt.kkt_backward_fused`:
     the auxiliary LQR ``min 0.5 p'C p + r'p`` with the ``tight`` dims frozen
@@ -123,7 +129,8 @@ def kkt_backward_composite(C, c, F, r, tau, tight, *, reg: float = 1e-7, use_cud
     T, B, nm = c.shape
     m = tight.shape[-1]
     n = nm - m
-    aux = riccati_backward(C, r, F, None, n, ctrl_mask=tight, reg=reg, use_cuda=use_cuda)
+    aux = riccati_backward(C, r, F, None, n, ctrl_mask=tight, reg=reg, value_update_exact_reg=value_update_exact_reg,
+                           use_cuda=use_cuda)
     zeros = torch.zeros((B, n), dtype=aux.K.dtype, device=C.device)
     p_x, p_u = lqr_rollout(zeros, F, None, aux.K, aux.k)
     p = torch.cat([p_x, p_u], -1)
@@ -168,7 +175,8 @@ class _LqrFixedPoint(torch.autograd.Function):
         r = torch.cat([gx, gu], dim=-1)
         tau = torch.cat([x_star, u_star], dim=-1)
         dx_init, dC, dc, dF, df = kkt_backward_fused(
-            C, c, F, r, tau, tight, reg=spec.back_eps, use_cuda=spec.use_cuda
+            C, c, F, r, tau, tight, reg=spec.back_eps, value_update_exact_reg=spec.value_update_exact_reg,
+            use_cuda=spec.use_cuda,
         )
         # no gradient for the trajectory and the bounds (JAX returns zeros)
         return None, dx_init, dC, dc, dF, df, None, None, None, None

@@ -3,10 +3,13 @@
 Solves ``min_x 0.5 x'Hx + q'x  s.t. lower <= x <= upper`` for a batch of
 tiny (m <= ~8) QPs. The Riccati kernel solves the same QP entry by entry
 (:mod:`diffmpc_tpu_torch.ops.cuda.riccati_entries`); this module is its
-matrix-form reference, with the JAX package's dispatch at its default: the
-closed form at m = 1, the exact active-set enumeration at m = 2, and the
-projected-Newton loop (a fixed trip count with converged elements frozen and
-a first-improving Armijo ladder) at m >= 3.
+matrix-form reference, with the JAX package's dispatch under each mode of
+its ``DIFFMPC_PNQP_ENUM``, here the keyword ``pnqp_enum``
+(:func:`~diffmpc_tpu_torch.ops.cuda.riccati_entries.pnqp_enumerates`): the
+exact active-set enumeration at m = 2 (unless ``"0"``) and at m = 3 under
+``"1"``, the closed form at m = 1, and otherwise the projected-Newton loop (a
+fixed trip count with converged elements frozen and a first-improving
+Armijo ladder).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..utils.batch import bdot, bmv, bquad, eclamp
+from .cuda.riccati_entries import pnqp_enumerates
 from .smallchol import cho_solve_small, cholesky_small
 
 
@@ -107,15 +111,17 @@ def pnqp(
     eps: float = 1e-6,
     armijo_decay: float = 0.5,
     armijo_iter: int = 8,
+    pnqp_enum: str = "",
 ) -> PnqpResult:
     """Solve a batch of box QPs: ``H (..., m, m)`` SPD, ``q (..., m)``,
-    bounds broadcastable to ``q``. Returns the solution, the Cholesky factor
-    of the final masked system, the free mask and the iteration count (1 for
-    the direct solves at m <= 2)."""
+    bounds broadcastable to ``q``, under the enumeration mode ``pnqp_enum``.
+    Returns the solution, the Cholesky factor of the final masked system,
+    the free mask and the iteration count (1 for the direct solves: the
+    enumeration and the m = 1 closed form)."""
     m = H.shape[-1]
     lower = torch.as_tensor(lower, dtype=H.dtype, device=H.device).expand(q.shape)
     upper = torch.as_tensor(upper, dtype=H.dtype, device=H.device).expand(q.shape)
-    if m == 2:
+    if pnqp_enumerates(m, pnqp_enum):
         return _pnqp_enum(H, q, lower, upper, reg, eps)
     if m == 1:
         h = H[..., 0, 0] + reg

@@ -101,6 +101,20 @@ class MPCConfig:
     # step's Jacobian before each Riccati sweep, off the value carry's
     # chain. The same solve; a question of speed only.
     hoist_lin: bool = False
+    # The box QP's enumeration mode on every path (the JAX package's env
+    # knob DIFFMPC_PNQP_ENUM): "" enumerates the active sets at m = 2; "0"
+    # takes the projected-Newton loop at m = 2 as well; "1" enumerates the
+    # 27 active sets at m = 3 too, where "" and "0" loop.
+    pnqp_enum: str = ""
+    # The simplified value update (the JAX package's module global
+    # VALUE_UPDATE_EXACT_REG): at or above back_eps, every Riccati sweep
+    # whose inner solve is exact (the masked solves, the closed form, the
+    # enumeration) drops the terms that cancel there; -1 keeps the full form.
+    value_update_exact_reg: float = -1.0
+
+    def __post_init__(self):
+        if self.pnqp_enum not in ("", "0", "1"):
+            raise ValueError(f"pnqp_enum must be one of '', '0', '1'; got {self.pnqp_enum!r}")
 
     @property
     def n_tau(self) -> int:

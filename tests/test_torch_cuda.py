@@ -156,13 +156,21 @@ def test_kkt_kernel_matches_plain(device, B):
 
 
 def test_kkt_wrapper_raises_on_what_the_kernel_does_not_take(device):
+    """A shape outside the prebuilt table, n = 2, m = 1, is no longer one of
+    them: it launches its variant, built at first use, within the bound of
+    test_kkt_kernel_matches_plain. Tensors on two devices and a demand for the
+    plain version raise, and launch nothing."""
     res = random_residuals(np.random.default_rng(840), 4, 8, 2, 1)
     ins = [torch.tensor(a, device=device) for a in kernel_inputs(res)]
     before = kkt_backward_fused.launches
-    with pytest.raises(NotImplementedError, match="instantiated for"):
-        kkt_backward_fused(*ins)
+    got = kkt_backward_fused(*ins)
+    torch.cuda.synchronize()
+    assert kkt_backward_fused.launches == before + 1
+    for g, w in zip(got, kkt_backward_plain(*ins)):
+        torch.testing.assert_close(g, w, atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0)
     res = random_residuals(np.random.default_rng(841), 4, 8, 3, 1)
     ins = [torch.tensor(a, device=device) for a in kernel_inputs(res)]
+    before = kkt_backward_fused.launches
     with pytest.raises(ValueError, match="tensors on"):
         kkt_backward_fused(ins[0], ins[1].cpu(), *ins[2:])
     with pytest.raises(ValueError, match="use_cuda=False"):
@@ -598,12 +606,17 @@ def test_nn_kernel_matches_plain(device, n, m, hidden, hoist_lin):
 
 
 def test_nn_architecture_outside_the_table_raises_on_the_card(device):
-    """A fusable MLP the kernels are not instantiated for raises, naming the
-    table; nothing falls back to the plain version."""
+    """A fusable MLP outside the prebuilt table no longer raises: it launches
+    its variant, built at first use, and holds test_nn_kernel_matches_plain's
+    rules; nothing falls back to the plain version."""
     args = _nn_problem(device, hidden=(12,))
     assert args[3].kernel_fusable
-    with pytest.raises(NotImplementedError, match="NN_KERNEL_ARCHS"):
-        ilqr_solve_fused(*args)
+    for knobs, rule in ((dict(lqr_iter=1, eps=0.0), assert_tight), (dict(lqr_iter=4, eps=1e-5), assert_chaos)):
+        before = ilqr_solve_fused.launches
+        kernel = ilqr_solve_fused(*args, **knobs)
+        torch.cuda.synchronize()
+        assert ilqr_solve_fused.launches == before + 1
+        rule(as_numpy(kernel), as_numpy(ilqr_solve_plain(*args, **knobs)))
 
 
 @pytest.mark.parametrize("kernel", ["rollout", "rollout_stream"])

@@ -27,9 +27,11 @@ from diffmpc_tpu.ops.pallas.ilqr import ilqr_solve_fused as jax_ilqr  # noqa: E4
 from diffmpc_tpu_torch.ops.cuda import riccati_entries as tric  # noqa: E402
 from diffmpc_tpu_torch.models import NNDynamics  # noqa: E402
 from diffmpc_tpu_torch.models import PendulumDx  # noqa: E402
+from diffmpc_tpu_torch.csrc.build import VariantKey  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.ilqr import (  # noqa: E402
     ILQR_LANES,
     _NNEnv,
+    env_variant_key,
     ilqr_lanes,
     ilqr_solve_fused,
     ilqr_solve_plain,
@@ -221,9 +223,15 @@ def test_kernel_staging_rejects_what_the_kernel_does_not_take():
     assert seen == [1]  # tanh, the second of the activations
     with pytest.raises(ValueError, match="NNDynamics is n=3, m=2"):
         run_staged(never, *args[:3], NNDynamics.init(3, 2, hidden=(8,), device="cpu", generator=gen), *args[4:])
-    odd = NNDynamics.init(3, 1, hidden=(12,), device="cpu", generator=gen)
-    with pytest.raises(NotImplementedError, match=r"\(3, 1, \(16, 16\)\)"):
-        run_staged(never, *args[:3], odd, *args[4:])
+    # an architecture outside the prebuilt table stages and launches too: its
+    # kernels are a variant built at first use (kernel_library), not a raise
+    odd = NNDynamics.init(3, 1, hidden=(12,), residual=True, device="cpu", generator=gen)
+    assert kernel_env(odd).symbol is None
+    assert env_variant_key(kernel_env(odd), "ilqr") == VariantKey("ilqr", 3, 1, "nn", (12,))
+    seen.clear()
+    run_staged(lambda a, e: seen.append(ctypes.cast(e, ctypes.POINTER(_NNEnv)).contents.residual), *args[:3], odd,
+               *args[4:])
+    assert seen == [1]
     with pytest.raises(ValueError, match="params"):
         run_staged(never, *args[:3], dx.replace(params=dx.params[None].expand(7, 3)), *args[4:])
     with pytest.raises(ValueError, match="c must be"):

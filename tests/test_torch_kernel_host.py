@@ -33,7 +33,14 @@ point at m = 2 and 3. The kernel-under-the-mesh probe
 (``csrc/shard_probe.cuh``) equals its plain version bit for bit. The MLP step (``csrc/nn_mlp.cuh``, every
 activation) inside the solve and the line search holds the same limits; the
 solve's HoistLin pre-pass equals the solve without it bit for bit, the
-MLP's and the pendulum's.
+MLP's and the pendulum's. A third unit builds the headers at what the card
+builds as variants at first use (csrc/variants/): the (6, 3) MLP of
+``DMPC_HIDDEN "16x16"`` in the fused solve with its box QP looping or
+enumerating (one iteration within 1e-4, the objectives relative to their
+scale), the pendulum's solve with the simplified value update, the Riccati
+sweep under each box-QP mode that changes it at (6, 3) and (4, 2), the line
+search at (6, 3), and the KKT pair at (6, 3) and (3, 1) with either value
+update, each lane count bit-equal to one lane.
 """
 
 import ctypes
@@ -288,6 +295,32 @@ extern "C" int diffmpc_shard_probe_host(const float* x, float* out, int L) {
 """
 
 
+# The Riccati sweep by groups of L lanes (HostLanes), its slices read from
+# the arrays or (STREAM, the twin) staged through the group's ring, at every
+# DMPC_LANES count, with the box QP's enumeration mode ENUM.
+HOST_RICCATI_GROUPS = r"""
+template <int N, int M, int MODE, bool STREAM, int L, int ENUM = kPnqpEnumDefault>
+static int riccati_group(const RiccatiArgs* a) {
+  std::vector<float> slots(riccati_group_floats<N, M, MODE, STREAM, L, ENUM>() + 1);
+  const HostLanes<L> g{slots.data()};
+  for (int b = 0; b < a->B; ++b) riccati_sweep<N, M, MODE, STREAM, ENUM>(*a, g, b);
+  return 0;
+}
+
+template <int N, int M, int MODE, bool STREAM, int ENUM = kPnqpEnumDefault>
+static int riccati_lanes(const RiccatiArgs* a) {
+  switch (a->lanes) {
+#define HOST_RICCATI_LANE_CASE(_, L_) \
+  case L_:                            \
+    return riccati_group<N, M, MODE, STREAM, L_, ENUM>(a);
+    DMPC_LANES(HOST_RICCATI_LANE_CASE, _)
+#undef HOST_RICCATI_LANE_CASE
+  }
+  return 1;
+}
+"""
+
+
 # The Riccati sweep's instantiations, compiled beside SHIM: by groups of L
 # lanes (HostLanes), its slices read from the arrays or (STREAM, the twin)
 # staged through the group's ring, at every DMPC_LANES count (the card's
@@ -296,27 +329,7 @@ SHIM_RICCATI = r"""
 #include <vector>
 
 #include "riccati.cuh"
-
-template <int N, int M, int MODE, bool STREAM, int L>
-static int riccati_group(const RiccatiArgs* a) {
-  std::vector<float> slots(riccati_group_floats<N, M, MODE, STREAM, L>() + 1);
-  const HostLanes<L> g{slots.data()};
-  for (int b = 0; b < a->B; ++b) riccati_sweep<N, M, MODE, STREAM>(*a, g, b);
-  return 0;
-}
-
-template <int N, int M, int MODE, bool STREAM>
-static int riccati_lanes(const RiccatiArgs* a) {
-  switch (a->lanes) {
-#define HOST_RICCATI_LANE_CASE(_, L_) \
-  case L_:                            \
-    return riccati_group<N, M, MODE, STREAM, L_>(a);
-    DMPC_LANES(HOST_RICCATI_LANE_CASE, _)
-#undef HOST_RICCATI_LANE_CASE
-  }
-  return 1;
-}
-
+""" + HOST_RICCATI_GROUPS + r"""
 template <int N, int M, bool STREAM>
 static int riccati_modes(const RiccatiArgs* a, int mode) {
   if (mode == kRiccatiBox) return riccati_lanes<N, M, kRiccatiBox, STREAM>(a);
@@ -382,6 +395,111 @@ extern "C" int diffmpc_pnqp_enum_host(int m, int B, const float* Quu, const floa
 """
 
 
+# The headers at what the card builds as variants (csrc/variants/), compiled
+# beside SHIM: the (6, 3) MLP of 16-16 widths through variant.cuh's
+# DMPC_HIDDEN (VariantNNEnv) in the fused solve, its box QP looping or
+# enumerating its 27 active sets; the pendulum's solve with the simplified
+# value update; the Riccati sweep at (6, 3) and (4, 2) under each mode that
+# changes its QP; the line search at (6, 3); the KKT backward and twin at
+# (6, 3) and (3, 1) with either value update.
+SHIM_VARIANTS = r"""
+#include <vector>
+
+#define DMPC_N 6
+#define DMPC_M 3
+#define DMPC_HIDDEN "16x16"
+#include "variants/variant.cuh"
+
+#include "ilqr.cuh"
+#include "kkt.cuh"
+#include "kkt_stream.cuh"
+#include "pendulum.cuh"
+#include "riccati.cuh"
+#include "rollout.cuh"
+""" + HOST_RICCATI_GROUPS + r"""
+static_assert(VariantNNEnv::P == 9 * 16 + 16 + 16 * 16 + 16 + 16 * 6 + 6, "DMPC_HIDDEN parsed as 16, 16");
+
+template <class Env, int ENUM, bool EXACT, int L>
+static int ilqr_variant_group(const IlqrArgs* a, const Env* env) {
+  if (!ilqr_lane_scratch_ok<Env, L>(*a)) return 1;
+  std::vector<float> slots(ilqr_group_slot_floats<Env::N, Env::M>());
+  const HostLanes<L> g{slots.data()};
+  for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<Env::N, Env::M, false, ENUM, EXACT>(*a, *env, b, g);
+  return 0;
+}
+
+// one lane, and the sixteen that keep their candidates' trajectories
+template <class Env, int ENUM, bool EXACT>
+static int ilqr_variant(const IlqrArgs* a, const Env* env) {
+  if (a->lanes == 1) return ilqr_variant_group<Env, ENUM, EXACT, 1>(a, env);
+  if (a->lanes == 16) return ilqr_variant_group<Env, ENUM, EXACT, 16>(a, env);
+  return 1;
+}
+
+extern "C" int diffmpc_ilqr_solve_n6m3_h16x16_host(const IlqrArgs* a, const VariantNNEnv* env) {
+  return ilqr_variant<VariantNNEnv, kPnqpEnumDefault, false>(a, env);
+}
+extern "C" int diffmpc_ilqr_solve_n6m3_h16x16_enum3_host(const IlqrArgs* a, const VariantNNEnv* env) {
+  return ilqr_variant<VariantNNEnv, kPnqpEnumThree, false>(a, env);
+}
+extern "C" int diffmpc_ilqr_solve_pendulum_exact_host(const IlqrArgs* a, const PendulumEnv* env) {
+  return ilqr_variant<PendulumEnv, kPnqpEnumDefault, true>(a, env);
+}
+
+// box mode: (6, 3) looping or (enum 2) enumerating, (4, 2) looping (enum 1);
+// the twin for the (6, 3) enumeration
+extern "C" int diffmpc_riccati_enum_host(const RiccatiArgs* a, int n, int m, int enum_, int stream) {
+  if (n == 6 && m == 3 && enum_ == kPnqpEnumDefault && !stream)
+    return riccati_lanes<6, 3, kRiccatiBox, false, kPnqpEnumDefault>(a);
+  if (n == 6 && m == 3 && enum_ == kPnqpEnumThree)
+    return stream ? riccati_lanes<6, 3, kRiccatiBox, true, kPnqpEnumThree>(a)
+                  : riccati_lanes<6, 3, kRiccatiBox, false, kPnqpEnumThree>(a);
+  if (n == 4 && m == 2 && enum_ == kPnqpEnumLoop && !stream)
+    return riccati_lanes<4, 2, kRiccatiBox, false, kPnqpEnumLoop>(a);
+  return 1;
+}
+
+template <int N, int M, bool EXACT>
+static int kkt_variant(const KktArgs* a, int stream) {
+  std::vector<float> buf(2 * KktSlotSize<N, M>::value);
+  for (int b = 0; b < a->B; ++b) {
+    if (stream)
+      kkt_stream_scenario<N, M, EXACT>(*a, b, buf.data(), 1);
+    else
+      kkt_backward_scenario<N, M, EXACT>(*a, b);
+  }
+  return 0;
+}
+
+// the line search of linear dynamics at (6, 3), resident or staged (STREAM)
+template <bool STREAM, int L>
+static int rollout63_group(const RolloutArgs* a) {
+  if (!rollout_lane_scratch_ok<L>(*a)) return 1;
+  std::vector<float> slots(rollout_group_slot_floats<6, 3, LinearEnv, L>());
+  const HostLanes<L> g{slots.data()};
+  for (int b = 0; b < a->B; ++b) linesearch_rollout_scenario<6, 3, STREAM>(*a, LinearEnv{}, b, a->params, g);
+  return 0;
+}
+
+extern "C" int diffmpc_rollout_n6m3_host(const RolloutArgs* a, int stream) {
+  switch (a->lanes) {
+#define HOST_ROLLOUT63_CASE(_, L_) \
+  case L_:                         \
+    return stream ? rollout63_group<true, L_>(a) : rollout63_group<false, L_>(a);
+    DMPC_LANES(HOST_ROLLOUT63_CASE, _)
+#undef HOST_ROLLOUT63_CASE
+  }
+  return 1;
+}
+
+extern "C" int diffmpc_kkt_variant_host(const KktArgs* a, int n, int m, int exact, int stream) {
+  if (n == 6 && m == 3) return exact ? kkt_variant<6, 3, true>(a, stream) : kkt_variant<6, 3, false>(a, stream);
+  if (n == 3 && m == 1) return exact ? kkt_variant<3, 1, true>(a, stream) : kkt_variant<3, 1, false>(a, stream);
+  return 1;
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
@@ -391,15 +509,15 @@ def host_lib(tmp_path_factory):
     so = d / "libshim.so"
     flags = [gxx, "-O2", "-std=c++17", "-fPIC", "-I", build.CSRC]
     procs = []
-    for name, text in (("shim", SHIM), ("shim_riccati", SHIM_RICCATI)):
+    for name, text in (("shim", SHIM), ("shim_riccati", SHIM_RICCATI), ("shim_variants", SHIM_VARIANTS)):
         (d / f"{name}.cpp").write_text(text)
         procs.append(subprocess.Popen([*flags, "-c", "-o", str(d / f"{name}.o"), str(d / f"{name}.cpp")],
                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     for proc in procs:
         _, err = proc.communicate()
         assert proc.returncode == 0, err
-    proc = subprocess.run([*flags, "-shared", "-o", str(so), str(d / "shim.o"), str(d / "shim_riccati.o")],
-                          capture_output=True, text=True)
+    objs = [str(d / f"{name}.o") for name in ("shim", "shim_riccati", "shim_variants")]
+    proc = subprocess.run([*flags, "-shared", "-o", str(so), *objs], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(so))
 
@@ -1397,3 +1515,147 @@ def test_host_build_shard_probe_matches_plain(host_lib, L):
     out = torch.full_like(x, float("nan"))
     assert fn(x.data_ptr(), out.data_ptr(), L) == 0
     assert torch.equal(out, shard_probe_plain(x))
+
+
+# ---------------------------------------------------------------------------
+# The variants' headers (SHIM_VARIANTS): the box QP's enumeration modes, the
+# simplified value update and pnqp_iter, at the (6, 3) shape of the slice.
+# ---------------------------------------------------------------------------
+
+
+def _riccati_enum_launcher(host_lib, enum, stream):
+    fn = host_lib.diffmpc_riccati_enum_host
+    fn.argtypes = [ctypes.POINTER(_RiccatiArgs)] + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+
+    def launch(args, n, m, mode):
+        assert mode == 1 and fn(args, n, m, enum, stream) == 0, f"no host instantiation for n={n}, m={m}"
+
+    return launch
+
+
+@pytest.mark.parametrize("n,m,mode,enum", [(6, 3, "", 0), (6, 3, "1", 2), (4, 2, "0", 1)])
+def test_host_build_riccati_enum_modes_equal_one_lane_and_match_plain(host_lib, n, m, mode, enum):
+    """The box QP under each mode that changes it (the loop at (6, 3) and,
+    under "0", at (4, 2); the 27 candidates at (6, 3) under "1", shared out
+    over a group's lanes): one lane within the plain version's rule, every
+    lane count bit-equal to one lane, and the twin's too under "1"."""
+    args, kw = _riccati_lane_case(n, m, "box", True, 1620 + 10 * n + enum, T=5, B=24)
+    kw["pnqp_enum"] = mode
+    launch = _riccati_enum_launcher(host_lib, enum, 0)
+    one = run_staged_riccati(launch, *args, **kw)
+    want = riccati_backward_plain(*args, **kw)
+    _assert_riccati_matches(one, want)
+    assert not bool(one.free_mask.all())
+    assert bool((one.n_qp_iter == 1).all()) == (mode == "1")
+    launches = (launch, _riccati_enum_launcher(host_lib, enum, 1)) if mode == "1" else (launch,)
+    _riccati_every_lane_count(launches, args, kw, one)
+
+
+def _nn63_problem(seed, B=12, T=5):
+    """scripts/ab_pnqp_enum3.py's problem at a small size: a residual
+    6-16-16-6 MLP, C = diag(1 x 6, 0.02 x 3), c = (0 x 6, 0.08 x 3), box
+    +-0.5, x0 ~ U(-0.8, 0.8)."""
+    gen = torch.Generator().manual_seed(seed)
+    nn = NNDynamics.init(6, 3, hidden=(16, 16), residual=True, device="cpu", generator=gen)
+    C = torch.diag(torch.tensor([1.0] * 6 + [0.02] * 3)).expand(T, B, 9, 9)
+    c = torch.tensor([0.0] * 6 + [0.08] * 3).expand(T, B, 9)
+    x0 = torch.rand((B, 6), generator=gen) * 1.6 - 0.8
+    box = torch.full((T, B, 3), 0.5)
+    return x0, C, c, nn, -box, box
+
+
+@pytest.mark.parametrize("mode,symbol", [("", "diffmpc_ilqr_solve_n6m3_h16x16_host"),
+                                         ("1", "diffmpc_ilqr_solve_n6m3_h16x16_enum3_host")])
+def test_host_build_mlp_63_solve_modes_match_plain(host_lib, mode, symbol):
+    """The (6, 3) MLP of DMPC_HIDDEN "16x16" in the fused solve: one iteration
+    within the plain version's 1e-4 (objectives relative to their scale),
+    16 lanes bit-equal to one; under the loop, ``pnqp_iter`` is the args'
+    (2 steps part from 8 in both)."""
+    args = _nn63_problem(1640)
+    launch = _nn_launcher(host_lib, symbol)
+    knobs = dict(lqr_iter=1, eps=0.0, pnqp_enum=mode)
+    one = run_staged(launch, *args, **{k: v for k, v in knobs.items() if k != "pnqp_enum"})
+    want = ilqr_solve_plain(*args, **knobs)
+    scale = max(1.0, float(want.objs.abs().max()))
+    for name, g, w in zip(one._fields, one, want):
+        tol = 1e-4 * (scale if name in ("objs", "last_improvement") else 1.0)
+        np.testing.assert_allclose(g.double().numpy(), w.double().numpy(), atol=tol, rtol=0, err_msg=name)
+    _assert_equal_results(run_staged(launch, *args, lanes=16, lqr_iter=1, eps=0.0), one)
+    if mode == "":
+        two = run_staged(launch, *args, lqr_iter=1, eps=0.0, pnqp_iter=2)
+        plain_two = ilqr_solve_plain(*args, lqr_iter=1, eps=0.0, pnqp_iter=2)
+        np.testing.assert_allclose(two.us.numpy(), plain_two.us.numpy(), atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(two.qp_iters.numpy(), plain_two.qp_iters.numpy())
+        assert not torch.equal(two.qp_iters, one.qp_iters)
+    else:
+        assert bool((one.qp_iters == 1).all())
+
+
+def test_host_build_pendulum_simplified_update_matches_plain(host_lib):
+    """The fused solve's EXACT body (the m = 1 closed form is exact) against
+    the plain version with ``value_update_exact_reg=1e-6``: one iteration
+    within 1e-4, four by the chaos rule; 16 lanes bit-equal to one."""
+    launch = _ilqr_launcher(host_lib, "diffmpc_ilqr_solve_pendulum_exact_host", _PendulumEnv)
+    t, dx = torch_inputs(make_problem(seed=1660, warm=True))
+    args = (t["x_init"], t["C"], t["c"], dx, t["u_lower"], t["u_upper"])
+    for knobs, rule in ((dict(lqr_iter=1, eps=0.0), assert_tight), (dict(lqr_iter=4, eps=1e-5), assert_chaos)):
+        one = run_staged(launch, *args, u_init=t["u_init"], **knobs)
+        rule(as_numpy(one), as_numpy(ilqr_solve_plain(*args, u_init=t["u_init"], value_update_exact_reg=1e-6,
+                                                       **knobs)))
+        _assert_equal_results(run_staged(launch, *args, u_init=t["u_init"], lanes=16, **knobs), one)
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["full", "simplified"])
+@pytest.mark.parametrize("n,m", [(6, 3), (3, 1)])
+def test_host_build_kkt_variants_match_plain_and_twin(host_lib, n, m, exact):
+    """The KKT backward at (6, 3) and (3, 1), full or simplified value update,
+    within 1e-5 of the plain version with the same ``value_update_exact_reg``;
+    the twin bit-equal to the resident kernel."""
+    fn = host_lib.diffmpc_kkt_variant_host
+    fn.argtypes = [ctypes.POINTER(_KktArgs)] + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    res = random_residuals(np.random.default_rng(1670 + n + exact), 7, 19, n, m, 20)
+    ins = [torch.tensor(a) for a in kernel_inputs(res)]
+    reg = 1e-7
+    outs = []
+    for stream in (0, 1):
+        def launch(args, n_, m_, stream=stream):
+            assert fn(args, n_, m_, int(exact), stream) == 0
+        outs.append(run_staged_kkt(launch, *ins, reg=reg))
+    want = kkt_backward_plain(*ins, reg=reg, value_update_exact_reg=1e-6 if exact else -1.0)
+    for name, g, w in zip(("dx_init", "dC", "dc", "dF", "df"), outs[0], want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=1e-5, err_msg=name)
+    _assert_equal_results(outs[1], outs[0])
+    if exact:
+        assert not torch.equal(outs[0][0], kkt_backward_plain(*ins, reg=reg)[0])
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["direct", "staged"])
+def test_host_build_rollout_63_lanes_equal_one_lane_and_match_plain(host_lib, stream):
+    """The line search at (6, 3) with a box: one lane within the rollout
+    tolerances of the plain version, every built lane count bit-equal to it."""
+    rng = np.random.default_rng(1680)
+    T, B, n, m = 6, 29, 6, 3
+    C, c, F, f, x0 = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
+    u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32)
+    x_hat, _ = lqr_rollout(x0, F, f, torch.zeros(T, B, m, n), torch.zeros(T, B, m), u_hat=u_hat)
+    K = torch.tensor(rng.normal(size=(T, B, m, n)) * 0.3, dtype=torch.float32)
+    k = torch.tensor(rng.normal(size=(T, B, m)) * rng.uniform(0.5, 8.0, (1, B, 1)), dtype=torch.float32)
+    args = (x0, C, c, F, f, K, k, x_hat, u_hat)
+    kw = dict(u_lower=torch.tensor(-0.7), u_upper=torch.full((T, B, m), 0.7), decay=0.5, max_iter=10)
+    fn = host_lib.diffmpc_rollout_n6m3_host
+    fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    def launcher(staged):
+        def launch(a, n_, m_, env):
+            assert env is None and fn(a, int(staged)) == 0, "refused"
+
+        return launch
+
+    one = run_staged_rollout(launcher(False), *args, **kw)
+    _assert_rollout_matches(one, linesearch_rollout_plain(*args, **kw))
+    assert len(np.unique(one.alpha.numpy())) > 1
+    for lanes in ROLLOUT_LANES:
+        _assert_equal_results(run_staged_rollout(launcher(stream), *args, lanes=lanes, **kw), one)

@@ -312,8 +312,14 @@ def test_convert_carries_the_jax_state_over():
     jconfig, _, _ = _jax_setup()
     config = convert.mpc_config_from_jax(jconfig)
     for f in dataclasses.fields(tdm.MPCConfig):
-        if f.name not in ("use_cuda", "grad_method", "hoist_lin"):
+        if f.name not in ("use_cuda", "grad_method", "hoist_lin", "pnqp_enum", "value_update_exact_reg"):
             assert getattr(config, f.name) == getattr(jconfig, f.name), f.name
+    # the JAX package holds these two as module globals, not as config: the
+    # converted config keeps the port's defaults, which are the globals'
+    from diffmpc_tpu.ops.pallas import riccati as jric
+
+    assert (config.pnqp_enum, config.value_update_exact_reg) == ("", -1.0) == (
+        jric._pnqp_enum_mode(), jric.VALUE_UPDATE_EXACT_REG)
     assert config.hoist_lin is False  # the JAX package's is an env knob
     assert config.grad_method.value == jconfig.grad_method.value
     assert config.use_cuda is None  # interpret mode: plain on CPU, kernel on CUDA
@@ -321,7 +327,8 @@ def test_convert_carries_the_jax_state_over():
     assert convert.mpc_config_from_jax(dataclasses.replace(jconfig, use_pallas=False)).use_cuda is False
     # the port's defaults are the JAX package's
     for f in dataclasses.fields(tdm.MPCConfig):
-        if f.name not in ("use_cuda", "hoist_lin") and f.default is not dataclasses.MISSING:
+        if f.name not in ("use_cuda", "hoist_lin", "pnqp_enum", "value_update_exact_reg") \
+                and f.default is not dataclasses.MISSING:
             jdefault = getattr(jdm.MPCConfig(3, 1, T), f.name)
             jval = jdefault.value if f.name == "grad_method" else jdefault
             tval = f.default.value if f.name == "grad_method" else f.default

@@ -25,7 +25,8 @@ from diffmpc_tpu.ops.linearize import linearize_dynamics as jax_linearize  # noq
 from diffmpc_tpu.ops.pallas.rollout import linesearch_rollout_pallas  # noqa: E402
 from diffmpc_tpu_torch import convert  # noqa: E402
 from diffmpc_tpu_torch.models import NNDynamics, PendulumDx  # noqa: E402
-from diffmpc_tpu_torch.ops.cuda.ilqr import kernel_env  # noqa: E402
+from diffmpc_tpu_torch.csrc.build import VariantKey  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda.ilqr import env_variant_key, kernel_env  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.rollout import (  # noqa: E402
     ROLLOUT_LANES,
     linesearch_rollout_cuda,
@@ -246,10 +247,13 @@ def test_staging_rejects_what_the_kernel_does_not_take():
         run_staged_rollout(never, *t, u_lower=torch.tensor(-1.0))
     with pytest.raises(NotImplementedError, match="PendulumDx and NNDynamics only"):
         run_staged_rollout(never, *t, dyn=OtherEnv())
-    # a fusable MLP off the kernels' architecture table raises, naming it
-    odd = NNDynamics.init(4, 2, hidden=(5,), device="cpu", generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="NN_KERNEL_ARCHS"):
-        run_staged_rollout(never, *t, dyn=odd)
+    # a fusable MLP off the prebuilt architecture table stages and launches:
+    # its kernels are a variant built at first use, not a raise
+    odd = NNDynamics.init(3, 2, hidden=(5,), device="cpu", generator=torch.Generator().manual_seed(0))
+    assert env_variant_key(kernel_env(odd), "rollout") == VariantKey("rollout", 3, 2, "nn", (5,))
+    seen = []
+    run_staged_rollout(lambda args, n, m, env: seen.append((n, m, env is not None)), *t, dyn=odd)
+    assert seen == [(3, 2, True)]
     pend, _, _, jdx = pendulum_case()
     with pytest.raises(ValueError, match="n=3, m=1"):
         run_staged_rollout(never, *t, dyn=convert.pendulum_from_jax(jdx, device="cpu"))

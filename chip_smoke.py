@@ -40,8 +40,10 @@ Phases, one line of output each (JSON where it carries numbers):
 7. training: 40 imitation-learning steps of make_dp_train_step at B=1024;
    the loss must stay finite and end below where it started;
 8. time: solve + gradient against the forward of the same loop, in strict
-   alternation, at B=1024 and B=65,536, and the KKT kernel alone against
-   its plain version;
+   alternation, at B=1024 and B=65,536, and the KKT kernel alone (at the
+   wrapper's lane count) against its wrapper's call and its plain version,
+   with its bound (bytes, the shared C read in place counted once a step;
+   operations; the chain of 3 T steps, kkt_step_depth);
 9. Riccati kernel vs plain: the non-fused path's Riccati sweep against its
    plain version on the card, box mode at n=4, m=2 (B=128, the ragged 1000
    and 65,536) and n=4, m=1, free and mask modes at n=3, m=2; ties (box
@@ -116,7 +118,7 @@ Phases, one line of output each (JSON where it carries numbers):
    the CPU's plain KKT; the pendulum at T=256 with FINITE_DIFF through the
    twins against the same solve through the resident kernels;
 18. time: each twin against its resident sibling, kernels alone on the same
-   inputs (the Riccati and rollout kernels at the wrappers' lane counts), at T = 20,
+   inputs (the Riccati, rollout and KKT kernels at the wrappers' lane counts), at T = 20,
    128, 512 and B = 128, 4096, 65,536, with their bounds;
    the plain versions once at T=128, B=128; and config 2's mpc_solve at
    T=128, forward and forward + gradient.
@@ -238,6 +240,19 @@ Phases, one line of output each (JSON where it carries numbers):
    flagship's solve + gradient, the pendulum at T=512 through the KKT twin)
    and of the (4, 2) sweep under "0" (config 2 at B=128).
 
+34. KKT lanes (diffmpc_tpu_torch.diagnostics.ab_kkt_lanes): the KKT call of
+   each recorded solve + gradient (the headline at B=1024 and 65,536, the
+   (6, 3) MLP's imitation gradient at 1024, a (6, 3) LinDx at 4096, config 2
+   at T=20 and 128, B=128, 4096 and 65,536, the pendulum at T=512) through
+   the kernel the dispatch takes at every built lane count, one lane with and
+   without its prefetch, the resident kernel above one lane with K, k, p on
+   chip and in device memory, all on the same staged inputs: bit-equal to
+   one lane (raises otherwise), one lane within 1e-4 * max(1, max|plain|) of
+   the plain version, the kernels' times by CUDA events, the rule's pick,
+   the wrapper's call and its staging; with the parent commit's KKT kernels
+   (its tree from _archive/parent or the checkout's git history, built
+   beside phases 30-33) timed in the same rounds.
+
 With ``--slice-only`` the script runs phases 0, 1 and 30-33 alone.
 
 The line before the last holds the kernels' record; the last line is
@@ -257,8 +272,10 @@ import os
 import re
 import subprocess
 import sys
+import tarfile
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -538,11 +555,15 @@ def rollout_bytes(B: int, n: int, m: int, steps: int = T) -> int:
     return B * (steps * per_step + 4 * n + 9) + 8
 
 
-def kkt_bytes(B: int, n: int, m: int, steps: int = T) -> int:
+def kkt_bytes(B: int, n: int, m: int, steps: int = T, shared_C: bool = False, shared_F: bool = False) -> int:
     """Bytes the KKT backward must move: C's upper triangle, c, F, r, tau
-    (float32) and tight (bool) in; dC, dc, dF, df per step and dx_init out."""
+    (float32) and tight (bool) in; dC, dc, dF, df per step and dx_init out.
+    A C or F that the kernels read in place (one for every scenario,
+    ops/cuda/kkt.py, reads_in_place) counts once a step."""
     nm = n + m
-    return B * (steps * (4 * (tri(nm) + nm + n * nm + 2 * nm) + m + 4 * (nm * nm + nm + n * nm + n)) + 4 * n)
+    per_scenario = 4 * 3 * nm + m + 4 * (nm * nm + nm + n * nm + n)
+    C_bytes, F_bytes = 4 * tri(nm), 4 * n * nm
+    return steps * (B * per_scenario + (1 if shared_C else B) * C_bytes + (1 if shared_F else B) * F_bytes) + B * 4 * n
 
 
 def ilqr_chain_ms(n_iters: int, clock_mhz: float) -> float:
@@ -741,11 +762,12 @@ def riccati_step_depth(n: int, m: int, mode: str) -> int:
     6, then the fold over the other 8 candidates, which run beside it, and
     the frozen mask 4: 32); the gains (the factor and one column's solve:
     free 2 + 2 + 1 at m = 1, 6 + 6 + 1 at m = 2; masked, the frozen dims'
-    factor and a column's scaling first: 6 at m = 1, 18 at m = 2); the full
+    factor and a column's scaling first: 6 at m = 1, 18 at m = 2, and by
+    their fit 3 m (m + 1), 36 at m = 3, the KKT backward's (6, 3)); the full
     value update (K'Quu K's two fused sums, then the last add: 2m + 1)."""
     qform = 2 * n + 1
-    qp = {"box": {1: 6, 2: 32}[m]}.get(mode, 0)
-    gains = ({1: 5, 2: 13} if mode == "free" else {1: 6, 2: 18})[m]
+    qp = {1: 6, 2: 32}[m] if mode == "box" else 0
+    gains = ({1: 5, 2: 13} if mode == "free" else {1: 6, 2: 18, 3: 36})[m]
     return qform + qp + gains + 2 * m + 1
 
 
@@ -759,6 +781,30 @@ def riccati_bound(B: int, n: int, m: int, mode: str, steps: int, clock_mhz: floa
 
     return card_bound(riccati_bytes(B, n, m, steps), steps * B * riccati_step_ops(n, m, mode),
                       chain_ms(steps * riccati_step_depth(n, m, mode), clock_mhz))
+
+
+def kkt_step_depth(n: int, m: int) -> int:
+    """Dependent float32 operations of one step of each of the KKT
+    backward's three sweeps (kkt.cuh), counted from the source as floors, a
+    fused multiply-add one: sweep 1, from (V, v) at t+1 to t, the Riccati
+    step in mask mode (riccati_step_depth); sweep 2, from p_x to the next
+    p_x, p_u's n fused terms and k's add, then F p's m control terms; sweep
+    3, from lam_{t+1} to lam_t (mu alike), F'lam's n fused terms and the add.
+    A scenario's chain is T of these: 3 T dependent steps."""
+    return riccati_step_depth(n, m, "mask") + (n + 1 + m) + (n + 1)
+
+
+def kkt_bound(B: int, n: int, m: int, steps: int, clock_mhz: float, shared_C: bool = False,
+              shared_F: bool = False) -> dict:
+    """The KKT backward's bound: the bytes it must move (kkt_bytes, a C or F
+    read in place counted once a step), its operations (kkt_step_ops), or
+    one scenario's chain of 3 ``steps`` dependent steps (kkt_step_depth),
+    whichever is largest."""
+    from diffmpc_tpu_torch.diagnostics.card import bound as card_bound
+    from diffmpc_tpu_torch.diagnostics.card import chain_ms
+
+    return card_bound(kkt_bytes(B, n, m, steps, shared_C, shared_F), steps * B * kkt_step_ops(n, m),
+                      chain_ms(steps * kkt_step_depth(n, m), clock_mhz))
 
 
 def kkt_step_ops(n: int, m: int) -> int:
@@ -1205,9 +1251,10 @@ def long_horizon(device, smi: str, clock_mhz: float) -> list:
             rol_bound = rollout_bound(ls_res, B, BOX_N, BOX_M, steps, clock_mhz)
             del res, ls_args, ls_res, x_hat, u_hat, c_delta, ric_kw, f, x0
             kkt_ins = random_kkt_inputs_torch(steps, B, BOX_N, BOX_M, device, seed=1900 + steps)
+            kkt_lanes = kkt.kkt_lanes(B, BOX_N, BOX_M, sm_count, steps)  # the wrapper's pick, for both kernels
             for name, launcher in (("kkt", kkt._cuda_launcher), ("kkt_stream", kkt_stream._stream_launcher)):
                 out = {}
-                kkt.run_staged_kkt(timed_launch(launcher(device, BOX_N, BOX_M), loops, out), *kkt_ins)
+                kkt.run_staged_kkt(timed_launch(launcher(device, BOX_N, BOX_M), loops, out), *kkt_ins, lanes=kkt_lanes)
                 ms[name] = out["ms"]
             if at_slice:
                 plain_ms["kkt"] = cuda_ms(lambda: kkt.kkt_backward_plain(*kkt_ins), 1, 1)
@@ -1216,11 +1263,11 @@ def long_horizon(device, smi: str, clock_mhz: float) -> list:
             bounds = dict(
                 riccati=riccati_bound(B, BOX_N, BOX_M, "box", steps, clock_mhz),
                 rollout=rol_bound,
-                kkt=bound(kkt_bytes(B, BOX_N, BOX_M, steps), steps * B * kkt_step_ops(BOX_N, BOX_M)),
+                kkt=kkt_bound(B, BOX_N, BOX_M, steps, clock_mhz),
             )
-            twin_times[(steps, B)] = (ms, plain_ms, bounds, lanes, ric_lanes)
+            twin_times[(steps, B)] = (ms, plain_ms, bounds, lanes, ric_lanes, kkt_lanes)
             emit(phase="time_twins", T=steps, B=B, n=BOX_N, m=BOX_M, loops=loops, card=smi, rollout_lanes=lanes,
-                 riccati_lanes=ric_lanes,
+                 riccati_lanes=ric_lanes, kkt_lanes=kkt_lanes,
                  **{f"{k}_ms": v for k, v in ms.items()},
                  **{f"{k}_twin_over_resident": ms[f"{k}_stream"] / ms[k] for k in ("riccati", "rollout", "kkt")},
                  **{f"{k}_plain_ms": v for k, v in plain_ms.items()}, bounds=bounds)
@@ -1238,7 +1285,7 @@ def long_horizon(device, smi: str, clock_mhz: float) -> list:
              solve_plus_grad_per_s=B / grad_ms * 1e3)
         del arrays, weights
 
-    ms, plain_ms, bounds, lanes, ric_lanes = twin_times[(T_LONG, BOX_B)]
+    ms, plain_ms, bounds, lanes, ric_lanes, kkt_lanes = twin_times[(T_LONG, BOX_B)]
     source = "diffmpc_tpu_torch/csrc/"
     return [
         dict(name="riccati_backward_pallas_stream", route="cuda", source=source + "riccati_stream.cu",
@@ -1253,7 +1300,7 @@ def long_horizon(device, smi: str, clock_mhz: float) -> list:
         dict(name="kkt_backward_fused_stream", route="cuda", source=source + "kkt_stream.cu",
              replaces="diffmpc_tpu/ops/pallas/kkt_stream.py:203", launches=slice_launches["kkt_stream"],
              max_abs_err=kkt_err[(BOX_N, BOX_M, T_LONG)], ms=ms["kkt_stream"], plain_ms=plain_ms["kkt"],
-             **bounds["kkt"], library_ms=None),
+             **{k: bounds["kkt"][k] for k in ("bound_ms", "bound_by")}, library_ms=None, lanes=kkt_lanes),
     ]
 
 
@@ -2332,18 +2379,24 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
         for label, launcher in (("kkt", kkt._cuda_launcher), ("kkt_stream", kkt_stream._stream_launcher)):
             got = kkt.run_on_card(launcher, *ins, **kw)
             errs[label] = check_kkt(f"{label} (n={n}, m={m}) simplified={x}", got, plain)
-        stagers = {label: (launcher(device, n, m, exact=x), lambda launch: kkt.run_staged_kkt(launch, *ins, reg=1e-7))
+        lanes = kkt.kkt_lanes(B, n, m, sm_count, T)  # the wrapper's pick
+
+        def stage(launch):
+            kkt.run_staged_kkt(launch, *ins, reg=1e-7, lanes=lanes)
+
+        stagers = {label: (launcher(device, n, m, exact=x), stage)
                    for label, launcher in (("kkt", kkt._cuda_launcher), ("kkt_stream", kkt_stream._stream_launcher))}
         if x:
-            stagers["kkt_full"] = (kkt._cuda_launcher(device, n, m), lambda launch: kkt.run_staged_kkt(launch, *ins, reg=1e-7))
-            stagers["kkt_stream_full"] = (kkt_stream._stream_launcher(device, n, m),
-                                          lambda launch: kkt.run_staged_kkt(launch, *ins, reg=1e-7))
+            stagers["kkt_full"] = (kkt._cuda_launcher(device, n, m), stage)
+            stagers["kkt_stream_full"] = (kkt_stream._stream_launcher(device, n, m), stage)
         ms = interleaved_ms(stagers, 5, 10)
         plain_ms = cuda_ms(lambda: kkt.kkt_backward_plain(*ins, **kw), 1, 1)
-        kb = bound(kkt_bytes(B, n, m), B * T * kkt_step_ops(n, m))
-        kkt_err[(n, m)], kkt_ms[(n, m)] = errs, (ms, plain_ms, kb)
+        shared = dict(shared_C=kkt.reads_in_place(ins[0]), shared_F=kkt.reads_in_place(ins[2]))
+        kb = kkt_bound(B, n, m, T, clock_mhz, **shared)
+        kkt_err[(n, m)], kkt_ms[(n, m)] = errs, (ms, plain_ms, {k: kb[k] for k in ("bound_ms", "bound_by")}, lanes)
         emit(phase="variant_kkt_vs_plain", n=n, m=m, B=B, T=T, simplified_update=x, max_abs_err=errs,
-             tol="1e-4 * max(1, max|plain|)", kernel_ms=ms, plain_ms=plain_ms, bound=kb, card=smi)
+             tol="1e-4 * max(1, max|plain|)", lanes=lanes, kernel_ms=ms, plain_ms=plain_ms, bound=kb,
+             reads_in_place=shared, card=smi)
 
     # the line search at (6, 3), every built lane count bit-equal to one
     C, c, F, f, x0 = random_lqr_torch(T, SL_LIN_B, SL_N, SL_M, device, seed=3200)
@@ -2617,21 +2670,65 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
                      replaces="diffmpc_tpu/ops/pallas/rollout.py:180", launches=lin_path["1"]["rollout"],
                      max_abs_err=rol_agree["traj_max_abs_where_alpha_agrees"], ms=rol_out["ms"], plain_ms=rol_plain_ms,
                      **{k: rol_b[k] for k in keep}, library_ms=None, lanes=rol_lanes))
-    ms6, plain6, kb6 = kkt_ms[(SL_N, SL_M)]
+    ms6, plain6, kb6, lanes6 = kkt_ms[(SL_N, SL_M)]
     rows.append(dict(name="kkt_backward_fused[(6, 3)]", route="cuda", source=src + "kkt.cu",
                      replaces="diffmpc_tpu/ops/pallas/kkt.py:245", launches=lin_path["1"]["kkt"],
                      max_abs_err=kkt_err[(SL_N, SL_M)]["kkt"], ms=ms6["kkt"], plain_ms=plain6,
-                     **{k: kb6[k] for k in keep}, library_ms=None))
-    ms3, plain3, kb3 = kkt_ms[(3, 1)]
+                     **kb6, library_ms=None, lanes=lanes6))
+    ms3, plain3, kb3, lanes3 = kkt_ms[(3, 1)]
     rows.append(dict(name="kkt_backward_fused[value_update_exact_reg=1e-6]", route="cuda", source=src + "kkt.cu",
                      replaces="diffmpc_tpu/ops/pallas/kkt.py:103", launches=exact_launches["kkt"],
                      max_abs_err=kkt_err[(3, 1)]["kkt"], ms=ms3["kkt"], plain_ms=plain3,
-                     **{k: kb3[k] for k in keep}, library_ms=None))
+                     **kb3, library_ms=None, lanes=lanes3))
     rows.append(dict(name="kkt_backward_fused_stream[value_update_exact_reg=1e-6]", route="cuda", source=src + "kkt.cu",
                      replaces="diffmpc_tpu/ops/pallas/kkt_stream.py:203", launches=exact_long_launches["kkt_stream"],
                      max_abs_err=kkt_err[(3, 1)]["kkt_stream"], ms=ms3["kkt_stream"], plain_ms=plain3,
-                     **{k: kb3[k] for k in keep}, library_ms=None))
+                     **kb3, library_ms=None, lanes=lanes3))
     return rows
+
+
+def parent_tree(tmp: str):
+    """The parent commit's tree for phase 34: ``_archive/parent`` where it
+    was unpacked there (git-ignored), else the commit before HEAD's
+    ``diffmpc_tpu_torch/csrc`` unpacked into ``tmp`` where the checkout has
+    its history, else None."""
+    if os.path.isdir(os.path.join("_archive", "parent", "diffmpc_tpu_torch", "csrc")):
+        return os.path.join("_archive", "parent")
+    proc = subprocess.run(["git", "archive", "HEAD~1", "diffmpc_tpu_torch/csrc"], capture_output=True, timeout=120)
+    if proc.returncode != 0:
+        return None
+    with tarfile.open(fileobj=io.BytesIO(proc.stdout)) as tar:
+        tar.extractall(os.path.join(tmp, "parent"), filter="data")
+    return os.path.join(tmp, "parent")
+
+
+def kkt_lanes_ab(device, smi: str, parent, parent_libs) -> None:
+    """Phase 34 (diffmpc_tpu_torch.diagnostics.ab_kkt_lanes): every KKT call
+    of the recorded solves + gradients (the headline at B=1024 and 65,536,
+    the (6, 3) MLP's imitation gradient at 1024, a (6, 3) LinDx at 4096,
+    config 2 at T=20 and 128 at B=128, 4096 and 65,536, the pendulum at
+    T=512) through the kernel the dispatch takes at every built L, one lane
+    with and without the prefetch and the resident kernel above one lane with
+    K, k, p on chip and in device memory, on the same staged inputs: each
+    bit-equal to one lane (raises otherwise), one lane within
+    1e-4 * max(1, max|plain|) of the plain version (raises beyond), the times
+    by CUDA events, the rule's pick, and the parent commit's kernels timed
+    in the same rounds where its tree is at hand."""
+    from diffmpc_tpu_torch.diagnostics import ab_kkt_lanes
+
+    t0 = time.perf_counter()
+    for rec in ab_kkt_lanes.run(device, ab_kkt_lanes.CASES, rounds=3, parent_libs=parent_libs):
+        ms = rec["ms"]
+        pick = rec["pick"]["name"]
+        emit(phase="kkt_lanes", case=rec["case"], T=rec["T"], B=rec["B"], n=rec["n"], m=rec["m"],
+             dispatched=rec["dispatched"], pick=rec["pick"], C_in_place=rec["C_in_place"], F_in_place=rec["F_in_place"],
+             bit_equal_to_one_lane=all(rec["bit_equal"].values()), max_abs_err=rec["max_abs_err"],
+             err_bound=rec["err_bound"], pick_ms=ms[pick],
+             one_lane_ms=ms[f"{rec['dispatched']}/L1/auto"], sixteen_lanes_ms=ms[f"{rec['dispatched']}/L16/auto"],
+             parent_ms=ms.get("parent"), pick_over_parent=rec["pick_over_parent"], ms=ms,
+             wrapper_ms=rec["wrapper_ms"], stage_ms=rec["stage_ms"], stage_copies_ms=rec["stage_copies_ms"],
+             plain_ms=rec["plain_ms"], card=smi)
+    emit(phase="kkt_lanes_done", seconds=time.perf_counter() - t0, parent=parent)
 
 
 def main() -> int:
@@ -2687,8 +2784,9 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     """Phases 2-29, then the kernels line and the ok line."""
     from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.models import PendulumDx
+    from diffmpc_tpu_torch.ops.cuda import kkt as kkt_mod
     from diffmpc_tpu_torch.ops.cuda import riccati as ric
-    from diffmpc_tpu_torch.diagnostics import ab_ilqr_lanes, ab_rollout_lanes
+    from diffmpc_tpu_torch.diagnostics import ab_ilqr_lanes, ab_kkt_lanes, ab_rollout_lanes
     from diffmpc_tpu_torch.ops.cuda import rollout as rol
     from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain
     from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain
@@ -2888,14 +2986,19 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
             t_f = min(t_f, cuda_ms(fwd, loops, 1))
             t_g = min(t_g, cuda_ms(fwd_grad, loops, 1))
         ins = main_path_kkt_inputs(B, device)
-        k_ms = cuda_ms(lambda: kkt_backward_fused(*ins), loops * 5, 3)
+        w_ms = cuda_ms(lambda: kkt_backward_fused(*ins), loops * 5, 3)
+        lanes = kkt_mod.kkt_lanes(B, 3, 1, sm_count, T)  # the wrapper's pick
+        out = {}
+        kkt_mod.run_staged_kkt(timed_launch(kkt_mod._cuda_launcher(device, 3, 1), loops * 5, out), *ins, lanes=lanes)
         p_ms = cuda_ms(lambda: kkt_backward_plain(*ins), 1, 1)
-        kkt_b = bound(kkt_bytes(B, 3, 1), B * T * kkt_step_ops(3, 1))
-        kkt_times[B] = (k_ms, p_ms, kkt_b)
+        shared = dict(shared_C=kkt_mod.reads_in_place(ins[0]), shared_F=kkt_mod.reads_in_place(ins[2]))
+        kkt_b = kkt_bound(B, 3, 1, T, clock_mhz, **shared)
+        kkt_times[B] = (out["ms"], p_ms, {k: kkt_b[k] for k in ("bound_ms", "bound_by")}, lanes)
         emit(phase="time_grad", B=B, T=T, lqr_iter=LQR_ITER, card=smi,
              solve_plus_grad_ms=t_g, solve_plus_grad_per_s=B / t_g * 1e3,
              fwd_ms=t_f, fwd_per_s=B / t_f * 1e3, grad_vs_fwd_frac=t_f / t_g,
-             kkt_kernel_ms=k_ms, kkt_plain_ms=p_ms, kkt_bound=kkt_b)
+             kkt_lanes=lanes, kkt_kernel_ms=out["ms"], kkt_wrapper_ms=w_ms, kkt_plain_ms=p_ms, kkt_bound=kkt_b,
+             kkt_reads_in_place=shared)
 
     kernels = (ilqr_solve_fused, kkt_backward_fused, ric.riccati_backward_cuda, rol.linesearch_rollout_cuda)
 
@@ -3122,7 +3225,13 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     chain = riccati_chain(device, smi, times[B_MAIN][0] / int(results[B_MAIN][0].n_iters.max()))
     learned = learned_dynamics(device, smi, clock_mhz)
     probe_row = data_parallel(device, smi)
-    slice_rows = variants_slice(device, smi, clock_mhz)
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        # the parent's KKT kernels build beside phases 30-33, for phase 34
+        parent = parent_tree(tmp)
+        parent_libs = pool.submit(ab_kkt_lanes.build_tree, tmp, parent, {(3, 1), (4, 2), (SL_N, SL_M)}, "parent",
+                                  False) if parent else None
+        slice_rows = variants_slice(device, smi, clock_mhz)
+        kkt_lanes_ab(device, smi, parent, parent_libs.result() if parent_libs else None)
 
     print(smi, flush=True)
     emit(kernels=[
@@ -3151,6 +3260,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
             plain_ms=kkt_times[B_MAIN][1],
             **kkt_times[B_MAIN][2],
             library_ms=None,
+            lanes=kkt_times[B_MAIN][3],
         ),
         dict(
             name="riccati_backward_pallas",

@@ -52,19 +52,20 @@ NVCC_FLAGS = (
 )
 
 
-# The Riccati sweep's sources are built without FMA contraction. Whether
-# nvcc fuses a product into a sum depends on how many uses the product has in
-# the surrounding code, which differs between one thread's step and a lane
-# group's share of it; the sweep fuses by hand instead (riccati_mad in
-# riccati_entries.cuh), where contraction fused the one-thread kernel, so
-# that every lane count computes the same float32 operations, bit for bit.
+# The Riccati sweep's and the KKT backward's sources are built without FMA
+# contraction. Whether nvcc fuses a product into a sum depends on how many
+# uses the product has in the surrounding code, which differs between one
+# thread's step and a lane group's share of it; the kernels fuse by hand
+# instead (riccati_mad in riccati_entries.cuh), where contraction fused the
+# one-thread kernel, so that every lane count computes the same float32
+# operations, bit for bit.
 NO_CONTRACTION = ("-fmad=false",)
 
 
 def source_flags(src: str) -> tuple:
     """The flags of ``src`` beyond NVCC_FLAGS."""
     name = os.path.basename(src)
-    return NO_CONTRACTION if re.fullmatch(r"riccati(_stream|_l\d+)?\.cu", name) else ()
+    return NO_CONTRACTION if re.fullmatch(r"(riccati|kkt)(_stream|_l\d+)?\.cu", name) else ()
 
 
 def sources() -> list[str]:
@@ -213,13 +214,13 @@ class VariantKey(NamedTuple):
 
 # Each family's source in csrc/variants/ and the lane counts it is built for,
 # one nvcc each, beside the unit of its launchers (lane count 0): the
-# prebuilt kernels' DMPC_LANES and DMPC_RICCATI_LANES (the tests hold them
-# equal), none for the kernels of one thread a scenario.
+# prebuilt kernels' DMPC_LANES, DMPC_RICCATI_LANES and DMPC_KKT_LANES (the
+# tests hold them equal), none for the kernels of one thread a scenario.
 VARIANT_SOURCES = {
     "ilqr": ("ilqr.cu", (1, 2, 4, 16)),
     "rollout": ("rollout.cu", (1, 2, 4, 16)),
     "riccati": ("riccati.cu", (1, 16)),
-    "kkt": ("kkt.cu", ()),
+    "kkt": ("kkt.cu", (1, 16)),
     "riccati_blocked": ("riccati_blocked.cu", ()),
 }
 
@@ -246,10 +247,11 @@ def variant_defines(key: VariantKey) -> list[str]:
 def variant_units(key: VariantKey) -> list[list[str]]:
     """The compile flags of each of ``key``'s translation units, one nvcc
     each: the main library's flags (without FMA contraction for the Riccati
-    sweep, as its prebuilt sources), the key's macros and the unit's lane
-    count; the source is ``variant_source(key)``."""
+    sweep and the KKT backward, as their prebuilt sources), the key's macros
+    and the unit's lane count; the source is ``variant_source(key)``."""
     _, lanes = VARIANT_SOURCES[key.family]
-    flags = [*NVCC_FLAGS, *(NO_CONTRACTION if key.family == "riccati" else ()), *variant_defines(key), "-I", CSRC]
+    flags = [*NVCC_FLAGS, *(NO_CONTRACTION if key.family in ("riccati", "kkt") else ()), *variant_defines(key),
+             "-I", CSRC]
     return [flags + [f"-DDMPC_VARIANT_L={L}"] for L in (*lanes, 0)]
 
 

@@ -1,9 +1,9 @@
 // A group of L lanes that works on ONE scenario, and the staging of its
 // step slices.
 //
-// The fused iLQR solve (ilqr.cuh), the line-search rollout (rollout.cuh) and
-// the Riccati sweep (riccati.cuh), each resident kernel and its streaming
-// twin, give each scenario a group of
+// The fused iLQR solve (ilqr.cuh), the line-search rollout (rollout.cuh),
+// the Riccati sweep (riccati.cuh) and the KKT backward (kkt.cuh), each
+// resident kernel and its streaming twin, give each scenario a group of
 // L threads ("lanes", L in 1, 2, 4, 16, all in one warp). The same source
 // runs on the card, where the lanes are L neighbouring threads of a warp
 // (CardLanes: a warp barrier, a ballot, a shuffle), and in the tests' g++
@@ -32,7 +32,9 @@ constexpr int kLaneStages = 3;
 // riccati_lanes), L = 1 among them; the MLPs' kernels are built one file per
 // lane count, ilqr_nn_l<L>.cu and rollout_nn_l<L>.cu (the tests hold the
 // lists equal). The Riccati sweep's card kernels take only the counts of
-// DMPC_RICCATI_LANES (riccati_launch.cuh), one file each, riccati_l<L>.cu.
+// DMPC_RICCATI_LANES (riccati_launch.cuh), one file each, riccati_l<L>.cu,
+// and the KKT backward's those of DMPC_KKT_LANES (kkt_launch.cuh),
+// kkt_l<L>.cu.
 #define DMPC_LANES(X, A) X(A, 1) X(A, 2) X(A, 4) X(A, 16)
 
 // The lanes of one scenario in the host build: they run one after another,

@@ -224,6 +224,20 @@ DMPC_HD float riccati_step(const In& in, int pnqp_iter, float reg, float (&V)[N]
   return n_qp;
 }
 
+// Where a lane group's step puts what it computes (riccati_lanes_step): the
+// sweep's outputs for scenario b, entry by entry. The KKT backward's
+// auxiliary sweep (kkt.cuh) takes the same step with a sink of its own.
+struct RiccatiOut {
+  const RiccatiArgs& a;
+  int b;
+  DMPC_HD void K(int t, int i, int j, int M, int N, float val) const {
+    a.K[riccati_detail::at(t, i * N + j, M * N, a.B, b)] = val;
+  }
+  DMPC_HD void k(int t, int i, int M, float val) const { a.k[riccati_detail::at(t, i, M, a.B, b)] = val; }
+  DMPC_HD void free(int t, int i, int M, float val) const { a.free[riccati_detail::at(t, i, M, a.B, b)] = val; }
+  DMPC_HD void n_qp(int t, float val) const { a.n_qp[(size_t)t * a.B + b] = val; }
+};
+
 // Write step t's gains, free mask and (box mode) QP count for scenario b.
 template <int N, int M, int MODE>
 DMPC_HD void riccati_store(const RiccatiArgs& a, int t, int b, const float (&K)[M][N], const float (&kt)[M],
@@ -543,18 +557,16 @@ DMPC_HD float riccati_v_entry(const GroupScratch& x, const float (&Quu)[M][M], c
 
 // One step of the sweep by the group g of L > 1 lanes (the header says what
 // each lane takes; `plan`, each local lane's share), its exchanges through
-// the scratch x: the gains stored for step t of scenario b, each entry by
-// the lane that computed it (k, the free mask and the QP count by lane
-// N % L), and the value carry (V, v), which every lane holds whole, updated
-// in place.
-template <int N, int M, int MODE, int ENUM, class In, class G, class Plan>
-DMPC_HD void riccati_lanes_step(const RiccatiArgs& a, const G& g, const Plan (&plan)[G::kLocal], const GroupScratch& x,
-                                const In& in, int t, int b, bool exact, float (&V)[N][N], float (&v)[N]) {
-  using riccati_detail::at;
+// the scratch x: the gains of step t put to `out` (RiccatiOut, or the KKT
+// backward's sink), each entry by the lane that computed it (k, the free
+// mask and the QP count by lane N % L), and the value carry (V, v), which
+// every lane holds whole, updated in place.
+template <int N, int M, int MODE, int ENUM, class In, class G, class Plan, class Out>
+DMPC_HD void riccati_lanes_step(const G& g, const Plan (&plan)[G::kLocal], const GroupScratch& x, const In& in, int t,
+                                float reg, int pnqp_iter, bool exact, const Out& out, float (&V)[N][N],
+                                float (&v)[N]) {
   using S = RiccatiScratch<N, M, ENUM>;
   constexpr int L = G::kLanes, NM = N + M;
-  const int B = a.B;
-  const float reg = a.reg;
   RiccatiProfile prof;
 
   // Q's upper triangle and q
@@ -615,7 +627,7 @@ DMPC_HD void riccati_lanes_step(const RiccatiArgs& a, const G& g, const Plan (&p
       n_qp = 1.0f;
       prof.mark(4);
     } else {
-      n_qp = pnqp_entries<M, true, ENUM>(Quu, qu, lo, hi, a.pnqp_iter, reg, kt, frozen);
+      n_qp = pnqp_entries<M, true, ENUM>(Quu, qu, lo, hi, pnqp_iter, reg, kt, frozen);
     }
   } else {
     for (int i = 0; i < M; ++i) frozen[i] = MODE == kRiccatiMask ? in.mask(i) : 0.0f;
@@ -657,19 +669,19 @@ DMPC_HD void riccati_lanes_step(const RiccatiArgs& a, const G& g, const Plan (&p
         const float val = -sol[i];
         if (c < N) {
           x[S::kK + i * N + c] = val;
-          a.K[at(t, i * N + c, M * N, B, b)] = val;
+          out.K(t, i, c, M, N, val);
         } else {
           x[S::kk + i] = val;
-          a.k[at(t, i, M, B, b)] = val;
+          out.k(t, i, M, val);
         }
       }
     }
     if (lane == N % L) {
       for (int i = 0; i < M; ++i) {
-        if constexpr (MODE == kRiccatiBox) a.k[at(t, i, M, B, b)] = kt[i];
-        a.free[at(t, i, M, B, b)] = 1.0f - frozen[i];
+        if constexpr (MODE == kRiccatiBox) out.k(t, i, M, kt[i]);
+        out.free(t, i, M, 1.0f - frozen[i]);
       }
-      if constexpr (MODE == kRiccatiBox) a.n_qp[(size_t)t * B + b] = n_qp;
+      if constexpr (MODE == kRiccatiBox) out.n_qp(t, n_qp);
     }
   }
   prof.mark(6);
@@ -746,7 +758,7 @@ DMPC_HD void riccati_sweep(const RiccatiArgs& a, const G& g, int b) {
       const float n_qp = riccati_step<N, M, MODE, ENUM>(in, a.pnqp_iter, a.reg, V, v, K, kt, frozen, exact);
       riccati_store<N, M, MODE>(a, t, b, K, kt, frozen, n_qp);
     } else {
-      riccati_lanes_step<N, M, MODE, ENUM>(a, g, plan, x, in, t, b, exact, V, v);
+      riccati_lanes_step<N, M, MODE, ENUM>(g, plan, x, in, t, a.reg, a.pnqp_iter, exact, RiccatiOut{a, b}, V, v);
     }
   };
   auto stage = [&](int t, float* slot) {

@@ -1,21 +1,15 @@
-// Double-buffered streaming of per-step slices through shared memory.
+// Streaming of per-step slices through shared memory by cp.async.
 //
-// The KKT streaming twin (kkt_stream.cuh) copies each step's
-// slice of the horizon arrays into one of two slots while the step before
-// computes from the other: cp.async on the card, where the TPU kernels start
-// an async DMA (pltpu.make_async_copy). The lane groups (lanes.cuh: the
-// fused solve, the line search, the Riccati sweep and their twins) stage a
-// group's slices with the same copies.
-//
-// One thread owns one scenario and copies only that scenario's entries, into
-// its own column of the block's shared memory: entry e of slot s lies at
-// buf[(s * size + e) * stride] with buf = smem + threadIdx.x and
-// stride = blockDim.x, so a warp's copies of one entry are 32 neighbouring
-// floats in device memory and 32 neighbouring banks in shared memory. A thread
-// reads back only what it copied itself, so cp.async.wait_group is all the
-// synchronisation it needs: no barrier, and threads past the batch's end may
-// leave early. On the host (the tests' g++ build) the copies are plain
-// assignments into a local array (stride 1) and the waits do nothing.
+// The lane groups (lanes.cuh: the fused solve, the line search, the Riccati
+// sweep, the KKT backward and their twins) copy each step's slice of the
+// horizon arrays into a ring of shared-memory slots a few steps ahead of the
+// step they compute: cp.async on the card, where the TPU kernels start an
+// async DMA (pltpu.make_async_copy). Entry e of a slot lies at
+// slot[e * stride], stride the groups of a block, so that the groups' copies
+// of one entry are neighbouring floats in device memory and neighbouring
+// banks in shared memory; each copy is waited for by cp.async.wait_group and
+// the group's barrier (lanes.cuh). On the host (the tests' g++ build) the
+// copies are plain assignments and the waits do nothing.
 #pragma once
 
 #include "dual.cuh"
@@ -44,14 +38,6 @@ template <int Pending>
 DMPC_HD void stream_wait() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
-#endif
-}
-
-// Order this thread's stores before its later copies: a sweep that streams
-// what an earlier sweep of the same thread wrote (the KKT twin's K, k, p).
-DMPC_HD void stream_fence() {
-#ifdef __CUDA_ARCH__
-  __threadfence();
 #endif
 }
 

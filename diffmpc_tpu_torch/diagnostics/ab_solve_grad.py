@@ -8,7 +8,8 @@ with respect to the model's parameters, in strict alternation, best of
 each, by CUDA events. With ``--cells config2`` it times BASELINE.json
 config 2 instead (``LinDx`` n=4, m=2, box +-0.6; T=20 at ``lqr_iter`` 10
 and T=128 at 20, as chip_smoke's phases 12 and 18 run it) at B=128, 4096
-and 65,536, the forward alone. It also reads the card's busy time for one
+and 65,536, the forward alone and with the gradient of ``mean(us**2)`` with
+respect to c, in strict alternation. It also reads the card's busy time for one
 call of each from ``torch.profiler`` (the sum of the kernels' device time)
 and gives the rest of the call's time as the card's idle share.
 
@@ -74,9 +75,9 @@ def busy_ms(fn):
 
 
 def measure_config2(device="cuda", only=None) -> dict:
-    """Config 2's forward in this process's tree at each horizon and batch
-    (those named in ``only``, where given), best of three rounds, each the
-    mean of a few solves."""
+    """Config 2's forward and forward + gradient in this process's tree at
+    each horizon and batch (those named in ``only``, where given), best of
+    three rounds in strict alternation, each the mean of a few solves."""
     import torch
 
     from diffmpc_tpu_torch import LinDx, MPCConfig, QuadCost, mpc_solve
@@ -108,10 +109,22 @@ def measure_config2(device="cuda", only=None) -> dict:
                     return mpc_solve(config, x0, QuadCost(C, c), LinDx(F, f), u_lower=-CONFIG2_BOX,
                                      u_upper=CONFIG2_BOX)
 
+            c_leaf = c.clone().requires_grad_(True)
+
+            def fwd_grad():
+                us = mpc_solve(config, x0, QuadCost(C, c_leaf), LinDx(F, f), u_lower=-CONFIG2_BOX,
+                               u_upper=CONFIG2_BOX).us
+                torch.autograd.grad(us.pow(2).mean(), c_leaf)
+
             n_iters = int(fwd().info.n_iters)
-            t_f = cuda_ms(fwd, 3 if B < 65536 else 2, 3)
+            loops = 3 if B < 65536 else 2
+            t_f = t_g = float("inf")
+            for _ in range(3):  # strict alternation, best of each
+                t_f = min(t_f, cuda_ms(fwd, loops, 1))
+                t_g = min(t_g, cuda_ms(fwd_grad, loops, 1))
             b_f = busy_ms(fwd)
-            out[f"config2_T{T}_B{B}"] = dict(fwd_ms=t_f, n_iters=n_iters, fwd_busy_ms=b_f,
+            out[f"config2_T{T}_B{B}"] = dict(fwd_ms=t_f, solve_plus_grad_ms=t_g, grad_extra_ms=t_g - t_f,
+                                             n_iters=n_iters, fwd_busy_ms=b_f,
                                              fwd_idle_share=None if b_f is None else 1 - b_f / t_f)
             del C, c, F, f, x0
             torch.cuda.empty_cache()
@@ -193,7 +206,7 @@ def main() -> None:
     parser.add_argument("--trees", nargs="+", required=True, help="checkouts of the repository, parent first")
     parser.add_argument("--one-lane", action="store_true", help="also run the last tree at one lane")
     parser.add_argument("--cells", choices=("main", "config2"), default="main",
-                        help="the main path and the MLP (solve and gradient), or config 2 (the forward)")
+                        help="the main path and the MLP, or config 2 (each solve and gradient)")
     parser.add_argument("--pairs", type=int, default=2, help="rounds over the trees, the order turned round each")
     parser.add_argument("--only", nargs="*", help="the config 2 cells to time (default all)")
     parser.add_argument("--child", help=argparse.SUPPRESS)

@@ -7,8 +7,10 @@ dims frozen, the differential rollout ``p`` with the cost gradients, and the
 multiplier recursions with the dynamics gradients.
 
 - :func:`kkt_backward_fused` is the public entry point. For CUDA tensors it
-  launches the kernel of ``csrc/kkt.cu`` (one thread per scenario), or its
-  streaming twin (:mod:`~diffmpc_tpu_torch.ops.cuda.kkt_stream`) where the
+  launches the kernel of ``csrc/kkt.cu`` (a group of L threads per scenario,
+  L by :func:`kkt_lanes`; a C or F shared by every scenario read in place,
+  :func:`reads_in_place`), or its streaming twin
+  (:mod:`~diffmpc_tpu_torch.ops.cuda.kkt_stream`) where the
   JAX package takes that, or raises; for CPU tensors it runs
   :func:`kkt_backward_plain`.
 - :func:`kkt_backward_plain` is the same algorithm in plain PyTorch,
@@ -28,12 +30,12 @@ simplified value update (:func:`kkt_exact_update`).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from .horizon import streams_kkt
-from .ilqr import bm, kernel_symbol, resolve_use_cuda
+from .ilqr import _sm_count, bm, kernel_symbol, resolve_use_cuda
 from .riccati_entries import _masked_chol_solve, _value_update
 
 
@@ -183,17 +185,93 @@ class _KktArgs(ctypes.Structure):
             "C", "c", "F", "r", "tau", "tight",
             "dx_init", "dC", "dc", "dF", "df", "K", "k",
         )
-    ] + [("T", ctypes.c_int), ("B", ctypes.c_int), ("reg", ctypes.c_float)]
+    ] + [
+        ("T", ctypes.c_int), ("B", ctypes.c_int), ("reg", ctypes.c_float), ("lanes", ctypes.c_int),
+        ("on_chip", ctypes.c_int), ("prefetch", ctypes.c_int),
+    ] + [(name, ctypes.c_longlong) for name in ("C_t", "C_e", "C_b", "F_t", "F_e", "F_b")]
 
 
-def run_staged_kkt(launch, C, c, F, r, tau, tight, *, reg: float = 1e-7):
-    """Stage the inputs batch-minor, allocate the outputs and the scratch,
-    call ``launch(args, n, m)`` with a pointer to the ``KktArgs`` struct,
-    and return ``(dx_init, dC, dc, dF, df)`` in the public layout.
+# The lane counts the card's kernels are built for (DMPC_KKT_LANES in
+# csrc/kkt_launch.cuh, the files csrc/kkt_l<L>.cu): the two that the rule
+# below picks. The tests' host build also runs 2 and 4 (DMPC_LANES).
+KKT_LANES = (1, 16)
 
-    ``launch`` runs ``kkt_backward_scenario<n, m>`` for every scenario: the
-    CUDA launcher for CUDA tensors, or a host build of the same header for
-    CPU tensors (the tests do that). Float32 inputs only (``tight`` bool)."""
+
+# The rule's measurements: the kernels alone on the KKT call of one solve +
+# gradient, ms, by CUDA events on an NVIDIA H100 80GB HBM3 at 700 W (132
+# SMs), at L = 1 / 16 (diagnostics/ab_kkt_lanes; PERF.md, rows 2 and 7):
+#   the pendulum (n=3, m=1), T=20, B = 128: 0.0220 0.0287; 256: 0.0227
+#     0.0293; 1024: 0.0221 0.0334; 4096: 0.0226 0.0774; 65536: 0.1790 0.8946;
+#   config 2 (n=4, m=2), T=20, B = 128: 0.0976 0.0619; 1024: 0.0979 0.0695;
+#     4096: 0.1123 0.2013; 16384: 0.1631 0.5464;
+#   the same at T=128 (the twin), B = 128: 0.5957 0.3718; 1024: 0.6924
+#     0.4497; 4096: 0.7590 1.2612;
+#   (6, 3) LinDx, T=20, B = 1024: 0.3166 0.1225; 4096: 0.3527 0.3300; the
+#     (6, 3) MLP's imitation gradient, B = 1024: 0.3064 0.1257; 4096: 0.3348
+#     0.3478.
+# Sixteen lanes pay while the step has a control block to share (m >= 2)
+# and B * 16 threads leave the card's SMs room (256 threads an SM: 2112
+# scenarios on 132 SMs); the m = 1 step (a scalar masked solve) is too short
+# to share: one lane wins at every batch measured. Two and four lanes
+# (measured on an earlier build of the step) never beat both one and
+# sixteen, and are not built.
+KKT_THREADS_PER_SM = 256
+
+
+def kkt_lanes(B: int, n: int, m: int, sm_count: int, T: int) -> int:
+    """The threads per scenario of the KKT kernels for a batch of ``B``
+    scenarios at ``(n, m)`` over ``T`` steps on a card of ``sm_count`` SMs:
+    one for m = 1; else 16 while ``B * 16`` stays within
+    :data:`KKT_THREADS_PER_SM` threads an SM, past that one. The horizon does
+    not enter: the measurements at T=20 and 128 pick alike."""
+    if m == 1:
+        return 1
+    return 16 if B * 16 <= KKT_THREADS_PER_SM * sm_count else 1
+
+
+def reads_in_place(a: torch.Tensor) -> bool:
+    """Whether the kernels read ``a`` (C ``(T,B,nm,nm)`` or F ``(T,B,n,nm)``)
+    where it lies: one matrix for every scenario (a batch stride of 0, as
+    ``expand`` gives), each step's matrix contiguous."""
+    return a.shape[1] > 0 and a.stride(1) == 0 and a[0, 0].is_contiguous()
+
+
+class StagedKkt(NamedTuple):
+    """A KKT backward staged for its kernels: the ``KktArgs`` struct, the
+    buffers the kernel writes (the outputs, then the gains' scratch ``K, k``)
+    and the tensors the struct points into, which must outlive every
+    launch."""
+
+    args: ctypes.Structure
+    outputs: tuple  # dx_init (n, B), dC (T, nm, nm, B), dc (T, nm, B), dF (T, n, nm, B), df (T, n, B)
+    scratch: tuple  # K (T, m, n, B), k (T, m, B)
+    buffers: tuple
+
+    def result(self):
+        """The outputs of the last launch, in the public layout."""
+        dx_init, dC, dc, dF, df = self.outputs
+        return (dx_init.t(), dC.permute(0, 3, 1, 2), dc.permute(0, 2, 1), dF.permute(0, 3, 1, 2),
+                df.permute(0, 2, 1))
+
+    def gains(self):
+        """The auxiliary sweep's ``K (T,B,m,n)``, ``k (T,B,m)`` of the last
+        launch, where it kept them in device memory (``on_chip`` 0)."""
+        K, k = self.scratch
+        return K.permute(0, 3, 1, 2), k.permute(0, 2, 1)
+
+
+def stage_kkt(C, c, F, r, tau, tight, *, reg: float = 1e-7, lanes: int = 1, on_chip=None, prefetch=None,
+              in_place: bool = True) -> StagedKkt:
+    """Stage the inputs batch-minor (with ``in_place``, a C or F that
+    :func:`reads_in_place` stays where it lies) and allocate the outputs and
+    the gains' scratch for a launch of ``kkt_backward_group<n, m>`` for
+    every scenario with
+    ``lanes`` threads per scenario, K, k and p kept ``on_chip`` or in device
+    memory (None leaves it to the resident kernel's launcher, which writes its
+    choice into the args; the twin and one lane keep them in device memory),
+    one lane's slices loaded a step ahead (``prefetch``; None: the
+    launcher's choice, written back). Float32 inputs only (``tight``
+    bool)."""
     T, B, n, m = _check_shapes(C, c, F, r, tau, tight)
     nm = n + m
     device = C.device
@@ -203,62 +281,90 @@ def run_staged_kkt(launch, C, c, F, r, tau, tight, *, reg: float = 1e-7):
         if a.device != device:
             raise ValueError(f"tensors on {a.device} and {device}")
 
-    ins = [bm(C), bm(c), bm(F), bm(r), bm(tau), bm(tight.to(torch.float32))]
+    def strided(a):  # (buffer, its (step, entry, batch) strides in elements)
+        if in_place and reads_in_place(a):
+            return a, (a.stride(0), 1, 0)
+        entries = a.shape[2] * a.shape[3]
+        return bm(a), (entries * B, B, 1)
+
+    (Cs, C_strides), (Fs, F_strides) = strided(C), strided(F)
+    ins = [Cs, bm(c), Fs, bm(r), bm(tau), bm(tight.to(torch.float32))]
     f32 = dict(dtype=torch.float32, device=device)
-    dx_init = torch.empty((n, B), **f32)
-    dC = torch.empty((T, nm, nm, B), **f32)
-    dc = torch.empty((T, nm, B), **f32)
-    dF = torch.empty((T, n, nm, B), **f32)
-    df = torch.empty((T, n, B), **f32)
-    K = torch.empty((T, m, n, B), **f32)
-    k = torch.empty((T, m, B), **f32)
-    outs = [dx_init, dC, dc, dF, df, K, k]
-    args = _KktArgs(*(a.data_ptr() for a in ins + outs), T, B, reg)
-    launch(ctypes.byref(args), n, m)
+    outputs = (
+        torch.empty((n, B), **f32), torch.empty((T, nm, nm, B), **f32), torch.empty((T, nm, B), **f32),
+        torch.empty((T, n, nm, B), **f32), torch.empty((T, n, B), **f32),
+    )
+    scratch = (torch.empty((T, m, n, B), **f32), torch.empty((T, m, B), **f32))
+    args = _KktArgs(*(a.data_ptr() for a in ins + list(outputs + scratch)), T, B, reg, lanes,
+                    -1 if on_chip is None else int(on_chip), -1 if prefetch is None else int(prefetch),
+                    *C_strides, *F_strides)
+    return StagedKkt(args, outputs, scratch, tuple(ins))
+
+
+def run_staged_kkt(launch, C, c, F, r, tau, tight, *, reg: float = 1e-7, lanes: int = 1, on_chip=None,
+                   prefetch=None):
+    """Stage the inputs (:func:`stage_kkt`, with its knobs), call
+    ``launch(args, n, m)`` with a pointer to the ``KktArgs`` struct, and
+    return ``(dx_init, dC, dc, dF, df)`` in the public layout.
+
+    ``launch`` runs ``kkt_backward_group<n, m>`` for every scenario: the
+    CUDA launcher for CUDA tensors, or a host build of the same header for
+    CPU tensors (the tests do that)."""
+    staged = stage_kkt(C, c, F, r, tau, tight, reg=reg, lanes=lanes, on_chip=on_chip, prefetch=prefetch)
+    launch(ctypes.byref(staged.args), F.shape[2], tight.shape[-1])
     # The staged inputs and the scratch are freed when this returns, while
     # the kernel may still run: PyTorch's caching allocator reuses a block
     # only in stream order, and the kernel runs on the current stream.
-    return (
-        dx_init.t(),
-        dC.permute(0, 3, 1, 2),
-        dc.permute(0, 2, 1),
-        dF.permute(0, 3, 1, 2),
-        df.permute(0, 2, 1),
-    )
+    return staged.result()
 
 
 def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "kkt_backward", counted=None,
-                   exact: bool = False):
+                   exact: bool = False, lib=None):
     """The launcher of kernel ``kind`` (``kkt_backward`` or its streaming twin
     ``kkt_backward_stream``: the same ``KktArgs``) with the value update's
     form ``exact`` on the current stream, from the prebuilt library or the
-    variant's (``ilqr.kernel_symbol``); each launch adds one to
-    ``counted.launches`` (default :func:`kkt_backward_fused`)."""
-    fn = kernel_symbol(kind, n, m, [ctypes.POINTER(_KktArgs), ctypes.c_void_p], exact=exact)
+    variant's (``ilqr.kernel_symbol``), or from ``lib``, another build of the
+    same sources; a lane count that is not built makes the launch fail, and
+    the launcher raise. Each launch adds one to ``counted.launches`` (default
+    :func:`kkt_backward_fused`) and sets ``counted.last_lanes`` and
+    ``counted.last_on_chip`` to the lane count it launched and whether it kept
+    K, k and p on chip."""
+    argtypes = [ctypes.POINTER(_KktArgs), ctypes.c_void_p]
+    fn = kernel_symbol(kind, n, m, argtypes, exact=exact)
+    if lib is not None:
+        fn = getattr(lib, fn.__name__)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
     counted = kkt_backward_fused if counted is None else counted
 
     def launch(args, n, m):
         err = fn(args, stream)
         if err != 0:
-            raise RuntimeError(f"{kind} kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"{kind} kernel launch failed: cudaError {err} (lanes built: {KKT_LANES})")
         counted.launches += 1
+        counted.last_lanes = args._obj.lanes
+        counted.last_on_chip = bool(args._obj.on_chip)
 
     return launch
 
 
-def run_on_card(launcher, C, c, F, r, tau, tight, *, reg: float = 1e-7, value_update_exact_reg: float = -1.0):
+def run_on_card(launcher, C, c, F, r, tau, tight, *, reg: float = 1e-7, value_update_exact_reg: float = -1.0,
+                lanes: Optional[int] = None):
     """Run a KKT kernel on CUDA tensors of any float dtype:
     ``launcher(device, n, m, exact=...)`` gives the launch of the value
-    update's form (:func:`kkt_exact_update`); the inputs are cast to float32
-    and the gradients come back in ``C.dtype``. CPU tensors raise."""
+    update's form (:func:`kkt_exact_update`), at ``lanes`` threads per
+    scenario (None: :func:`kkt_lanes`); the inputs are cast to float32 and
+    the gradients come back in ``C.dtype``. A float32 C or F that serves every
+    scenario is read in place. CPU tensors raise."""
     resolve_use_cuda(True, C.device)
-    _, _, n, m = _check_shapes(C, c, F, r, tau, tight)
+    T, B, n, m = _check_shapes(C, c, F, r, tau, tight)
+    if lanes is None:
+        lanes = kkt_lanes(B, n, m, _sm_count(C.device.index), T)
     dtype = C.dtype
     f32 = [a.to(torch.float32) for a in (C, c, F, r, tau)]
     exact = kkt_exact_update(reg, value_update_exact_reg)
     with torch.cuda.device(C.device):
-        out = run_staged_kkt(launcher(C.device, n, m, exact=exact), *f32, tight, reg=reg)
+        out = run_staged_kkt(launcher(C.device, n, m, exact=exact), *f32, tight, reg=reg, lanes=lanes)
     return tuple(x.to(dtype) for x in out)
 
 
@@ -302,3 +408,5 @@ def kkt_backward_fused(
 
 
 kkt_backward_fused.launches = 0  # kernel launches, counted where they happen
+kkt_backward_fused.last_lanes = None  # the lane count of the last launch
+kkt_backward_fused.last_on_chip = None  # whether the last launch kept K, k and p on chip

@@ -6,10 +6,12 @@ the TPU kernel the JAX package takes for the backward of long horizons
 :func:`~diffmpc_tpu_torch.ops.cuda.kkt.kkt_backward_fused` routes there).
 
 - :func:`kkt_backward_stream_cuda` launches the kernel of
-  ``csrc/kkt_stream.cu`` (one thread per scenario, three sweeps, each step's
-  inputs double-buffered through shared memory by ``cp.async``, ``K, k, p``
-  staged in device memory between the sweeps) on CUDA tensors and counts its
-  launches. It takes the resident kernel's ``KktArgs``, so it shares
+  ``csrc/kkt_stream.cu`` on CUDA tensors and counts its launches: the
+  resident kernel's lane groups (``csrc/kkt.cuh``: a group of L threads per
+  scenario, each step's slice staged for the group through a ring of
+  shared-memory slots by ``cp.async``) with ``K, k, p`` kept in device
+  memory between the sweeps, as the TPU twin keeps them. It takes the
+  resident kernel's ``KktArgs`` and lane rule, so it shares
   :func:`~diffmpc_tpu_torch.ops.cuda.kkt.run_staged_kkt`.
 - Its plain version is the resident kernel's,
   :func:`~diffmpc_tpu_torch.ops.cuda.kkt.kkt_backward_plain`, re-exported
@@ -42,3 +44,5 @@ def kkt_backward_stream_cuda(C, c, F, r, tau, tight, *, reg: float = 1e-7, value
 
 
 kkt_backward_stream_cuda.launches = 0  # kernel launches, counted where they happen
+kkt_backward_stream_cuda.last_lanes = None  # the lane count of the last launch
+kkt_backward_stream_cuda.last_on_chip = None  # always False: the twin keeps K, k and p in device memory

@@ -17,7 +17,9 @@ tie checked as one; the rollout kernel's ``objs`` within 1e-5 of the batch's lar
 against its plain version under the same rules, and against its resident
 sibling: the same rules again (the two run the same per-step functions).
 The Riccati kernel and its twin at every lane count equal one lane bit for
-bit, with and without the simplified value update.
+bit, with and without the simplified value update; so do the KKT kernel and
+its twin, on staged inputs and on a C and F read in place (which equal their
+staged copies bit for bit).
 The pendulum's closed loop over the twins' 96 steps is chaotic enough that
 the card's controls and the plain version's part by up to ~6e-4 where the
 step agrees: there they are held to 2e-3 (to 1e-4 against the resident
@@ -46,6 +48,7 @@ from diffmpc_tpu_torch.models import NNDynamics  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda import kkt as kkt_mod  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain  # noqa: E402
+from diffmpc_tpu_torch.ops.cuda import kkt_stream as kkt_stream_mod  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.kkt_stream import kkt_backward_stream_cuda  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.riccati import riccati_backward_cuda, riccati_backward_plain  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.riccati_stream import riccati_backward_stream_cuda  # noqa: E402
@@ -140,26 +143,54 @@ def test_mpc_solve_on_cuda_goes_through_the_kernel(device):
     assert abs(conv_gpu - float(cpu.info.converged.float().mean())) <= 0.05
 
 
+def _shared_cost(ins):
+    """``ins`` with one C for every step and scenario and one F for every
+    scenario, expanded (batch stride 0): the kernels read them in place."""
+    C, c, F, r, tau, tight = ins
+    T, B = C.shape[:2]
+    C1 = C[0, 0] @ C[0, 0].T / C.shape[-1] + torch.eye(C.shape[-1], device=C.device)
+    out = [C1.expand_as(C), c, F[:, :1].expand_as(F), r, tau, tight]
+    assert kkt_mod.reads_in_place(out[0]) and kkt_mod.reads_in_place(out[2])
+    return out
+
+
+def _kkt_same_bits(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["staged", "in_place"])
+@pytest.mark.parametrize("lanes", kkt_mod.KKT_LANES)
 @pytest.mark.parametrize("B", [48, 130])
-def test_kkt_kernel_matches_plain(device, B):
+def test_kkt_kernel_matches_plain(device, B, lanes, shared):
+    """The resident kernel at each built lane count, on staged inputs and on
+    a C and F read in place: within ``1e-4 * max(1, max|plain|)`` of the
+    plain version, and bit for bit the kernel at one lane (and, in place,
+    the kernel on the staged copies)."""
     res = random_residuals(np.random.default_rng(830 + B), 20, B, 3, 1, B * 4)
     ins = [torch.tensor(a, device=device) for a in kernel_inputs(res)]
+    if shared:
+        ins = _shared_cost(ins)
     before = kkt_backward_fused.launches
-    got = kkt_backward_fused(*ins)
+    got = kkt_mod.run_on_card(kkt_mod._cuda_launcher, *ins, lanes=lanes)
     torch.cuda.synchronize()
-    assert kkt_backward_fused.launches == before + 1
+    assert kkt_backward_fused.launches == before + 1 and kkt_backward_fused.last_lanes == lanes
     want = kkt_backward_plain(*ins)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.device == w.device
         bound = 1e-4 * max(1.0, float(w.abs().max()))
         torch.testing.assert_close(g, w, atol=bound, rtol=0)
+    _kkt_same_bits(got, kkt_mod.run_on_card(kkt_mod._cuda_launcher, *ins, lanes=1))
+    if shared:
+        copies = [a.contiguous() for a in ins]
+        _kkt_same_bits(got, kkt_mod.run_on_card(kkt_mod._cuda_launcher, *copies, lanes=lanes))
 
 
-def test_kkt_wrapper_raises_on_what_the_kernel_does_not_take(device):
-    """A shape outside the prebuilt table, n = 2, m = 1, is no longer one of
-    them: it launches its variant, built at first use, within the bound of
-    test_kkt_kernel_matches_plain. Tensors on two devices and a demand for the
-    plain version raise, and launch nothing."""
+def test_kkt_wrapper_builds_a_shape_outside_the_table_at_first_use(device):
+    """A shape outside the prebuilt table, n = 2, m = 1, launches its variant,
+    built at first use, within the bound of test_kkt_kernel_matches_plain.
+    Tensors on two devices and a demand for the plain version raise, and
+    launch nothing."""
     res = random_residuals(np.random.default_rng(840), 4, 8, 2, 1)
     ins = [torch.tensor(a, device=device) for a in kernel_inputs(res)]
     before = kkt_backward_fused.launches
@@ -481,19 +512,26 @@ def test_rollout_twin_matches_plain_and_resident(device, case):
     assert len(torch.unique(got.alpha)) > 1
 
 
+@pytest.mark.parametrize("shared", [False, True], ids=["staged", "in_place"])
+@pytest.mark.parametrize("lanes", kkt_mod.KKT_LANES)
 @pytest.mark.parametrize("n,m", [(3, 1), (4, 2)])
-def test_kkt_twin_matches_plain_and_resident(device, n, m):
+def test_kkt_twin_matches_plain_and_resident(device, n, m, lanes, shared):
+    """The twin at each built lane count, on staged inputs and on a C and F
+    read in place: within ``1e-4 * max(1, max|plain|)`` of the plain
+    version, and bit for bit the resident kernel at one lane."""
     res = random_residuals(np.random.default_rng(1830 + 10 * n + m), 96, 130, n, m, 130 * 20)
     ins = [torch.tensor(a, device=device) for a in kernel_inputs(res)]
+    if shared:
+        ins = _shared_cost(ins)
     before = kkt_backward_stream_cuda.launches
-    got = kkt_backward_stream_cuda(*ins)
+    got = kkt_mod.run_on_card(kkt_stream_mod._stream_launcher, *ins, lanes=lanes)
     torch.cuda.synchronize()
-    assert kkt_backward_stream_cuda.launches == before + 1
-    resident = kkt_mod.run_on_card(kkt_mod._cuda_launcher, *ins)
-    for g, w, r in zip(got, kkt_backward_plain(*ins), resident):
+    assert kkt_backward_stream_cuda.launches == before + 1 and kkt_backward_stream_cuda.last_lanes == lanes
+    assert not kkt_backward_stream_cuda.last_on_chip
+    for g, w in zip(got, kkt_backward_plain(*ins)):
         bound = 1e-4 * max(1.0, float(w.abs().max()))
         torch.testing.assert_close(g, w, atol=bound, rtol=0)
-        torch.testing.assert_close(g, r, atol=bound, rtol=0)
+    _kkt_same_bits(got, kkt_mod.run_on_card(kkt_mod._cuda_launcher, *ins, lanes=1))
 
 
 def test_long_horizon_mpc_solve_goes_through_the_twins(device):

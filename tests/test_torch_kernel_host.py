@@ -29,7 +29,13 @@ staged through the group's slots) equal one lane bit for bit, and so do the
 Riccati sweep's (``csrc/riccati.cuh``: the resident kernel and the twin,
 every built L, with a NaN input, a box-QP tie and the simplified value
 update), and the box QP's candidates one by one fold to the enumeration's
-point at m = 2 and 3. The kernel-under-the-mesh probe
+point at m = 2 and 3. So do the KKT backward's (``csrc/kkt.cuh``: every
+built L, K, k and p on chip and in device memory, the twin, one lane with
+and without its prefetch, at (3, 1), (4, 2) and (6, 3) with either value
+update; one lane within ``1e-4 * max(1, max|plain|)`` of the plain
+version); its auxiliary gains equal the mask-mode Riccati sweep's bit for
+bit, and a C and F shared by every scenario, read in place, give the
+outputs of their staged copies. The kernel-under-the-mesh probe
 (``csrc/shard_probe.cuh``) equals its plain version bit for bit. The MLP step (``csrc/nn_mlp.cuh``, every
 activation) inside the solve and the line search holds the same limits; the
 solve's HoistLin pre-pass equals the solve without it bit for bit, the
@@ -69,9 +75,12 @@ from diffmpc_tpu_torch.ops.cuda.ilqr import (  # noqa: E402
     run_staged_f32,
 )
 from diffmpc_tpu_torch.ops.cuda.kkt import (  # noqa: E402
+    KKT_LANES,
     _KktArgs,
     kkt_backward_plain,
+    reads_in_place,
     run_staged_kkt,
+    stage_kkt,
 )
 from diffmpc_tpu_torch.ops.cuda.riccati import (  # noqa: E402
     RICCATI_LANES,
@@ -117,8 +126,6 @@ SHIM = r"""
 #include <vector>
 
 #include "ilqr.cuh"
-#include "kkt.cuh"
-#include "kkt_stream.cuh"
 #include "nn_mlp.cuh"
 #include "pendulum.cuh"
 #include "riccati.cuh"
@@ -199,21 +206,6 @@ static int rollout_all(const RolloutArgs* a, const Env& env) {
 DMPC_HOST_NN(3, 1, n3m1_h8, 8)
 DMPC_HOST_NN(3, 2, n3m2_h8, 8)
 
-template <int N, int M>
-static int kkt_all(const KktArgs* a) {
-  for (int b = 0; b < a->B; ++b) kkt_backward_scenario<N, M>(*a, b);
-  return 0;
-}
-
-extern "C" int diffmpc_kkt_backward_host(const KktArgs* a, int n, int m) {
-  if (n == 3 && m == 1) return kkt_all<3, 1>(a);
-  if (n == 3 && m == 2) return kkt_all<3, 2>(a);
-  if (n == 4 && m == 1) return kkt_all<4, 1>(a);
-  if (n == 4 && m == 2) return kkt_all<4, 2>(a);
-  if (n == 1 && m == 1) return kkt_all<1, 1>(a);
-  return 1;
-}
-
 template <int N, int M, bool STREAM>
 static int rollout_shapes(const RolloutArgs* a, int n, int m, const PendulumEnv* env) {
   if (env) return (n == 3 && m == 1) ? rollout_all<3, 1, STREAM>(a, *env) : 1;
@@ -230,21 +222,6 @@ extern "C" int diffmpc_rollout_host(const RolloutArgs* a, int n, int m, const Pe
 
 extern "C" int diffmpc_rollout_stream_host(const RolloutArgs* a, int n, int m, const PendulumEnv* env) {
   return rollout_shapes<0, 0, true>(a, n, m, env);
-}
-
-template <int N, int M>
-static int kkt_stream_all(const KktArgs* a) {
-  std::vector<float> buf(2 * KktSlotSize<N, M>::value);
-  for (int b = 0; b < a->B; ++b) kkt_stream_scenario<N, M>(*a, b, buf.data(), 1);
-  return 0;
-}
-
-extern "C" int diffmpc_kkt_backward_stream_host(const KktArgs* a, int n, int m) {
-  if (n == 3 && m == 1) return kkt_stream_all<3, 1>(a);
-  if (n == 3 && m == 2) return kkt_stream_all<3, 2>(a);
-  if (n == 4 && m == 1) return kkt_stream_all<4, 1>(a);
-  if (n == 4 && m == 2) return kkt_stream_all<4, 2>(a);
-  return 1;
 }
 
 template <int N, int M>
@@ -411,8 +388,6 @@ SHIM_VARIANTS = r"""
 #include "variants/variant.cuh"
 
 #include "ilqr.cuh"
-#include "kkt.cuh"
-#include "kkt_stream.cuh"
 #include "pendulum.cuh"
 #include "riccati.cuh"
 #include "rollout.cuh"
@@ -459,18 +434,6 @@ extern "C" int diffmpc_riccati_enum_host(const RiccatiArgs* a, int n, int m, int
   return 1;
 }
 
-template <int N, int M, bool EXACT>
-static int kkt_variant(const KktArgs* a, int stream) {
-  std::vector<float> buf(2 * KktSlotSize<N, M>::value);
-  for (int b = 0; b < a->B; ++b) {
-    if (stream)
-      kkt_stream_scenario<N, M, EXACT>(*a, b, buf.data(), 1);
-    else
-      kkt_backward_scenario<N, M, EXACT>(*a, b);
-  }
-  return 0;
-}
-
 // the line search of linear dynamics at (6, 3), resident or staged (STREAM)
 template <bool STREAM, int L>
 static int rollout63_group(const RolloutArgs* a) {
@@ -492,9 +455,72 @@ extern "C" int diffmpc_rollout_n6m3_host(const RolloutArgs* a, int stream) {
   return 1;
 }
 
+// the mask mode at (6, 3): the KKT backward's auxiliary sweep
+extern "C" int diffmpc_riccati_mask63_host(const RiccatiArgs* a) {
+  return riccati_lanes<6, 3, kRiccatiMask, false>(a);
+}
+"""
+
+
+# The KKT backward by groups of L lanes (HostLanes), at every DMPC_LANES
+# count: the resident kernel (K, k and p on chip unless the args say
+# otherwise) and the twin (in device memory), each step's slice loaded while
+# the step before computes (one lane: unless the args say otherwise),
+# compiled beside SHIM at the
+# table's shapes, (1, 1) and (6, 3), and with the simplified value update at
+# (3, 1), (4, 2) and (6, 3).
+SHIM_KKT = r"""
+#include <vector>
+
+#include "kkt.cuh"
+
+template <int N, int M, bool EXACT, bool OnChip, int L, bool Prefetch = true>
+static int kkt_group(const KktArgs* a) {
+  std::vector<float> slots(kkt_group_floats<N, M, L, OnChip>(a->T) + 1);
+  const HostLanes<L> g{slots.data()};
+  for (int b = 0; b < a->B; ++b) kkt_backward_group<N, M, EXACT, OnChip, Prefetch>(*a, g, b);
+  return 0;
+}
+
+template <int N, int M, bool EXACT, bool OnChip>
+static int kkt_lanes(const KktArgs* a) {
+  if (a->lanes == 1 && a->prefetch == 0) return kkt_group<N, M, EXACT, OnChip, 1, false>(a);
+  switch (a->lanes) {
+#define HOST_KKT_LANE_CASE(_, L_) \
+  case L_:                        \
+    return kkt_group<N, M, EXACT, OnChip, L_>(a);
+    DMPC_LANES(HOST_KKT_LANE_CASE, _)
+#undef HOST_KKT_LANE_CASE
+  }
+  return 1;
+}
+
+// the resident kernel keeps K, k, p on chip unless args->on_chip is 0; the
+// twin never does
+template <int N, int M, bool EXACT = false>
+static int kkt_host(const KktArgs* a, int twin) {
+  return !twin && a->on_chip != 0 ? kkt_lanes<N, M, EXACT, true>(a) : kkt_lanes<N, M, EXACT, false>(a);
+}
+
+static int kkt_shapes(const KktArgs* a, int n, int m, int twin) {
+  if (n == 3 && m == 1) return kkt_host<3, 1>(a, twin);
+  if (n == 3 && m == 2) return kkt_host<3, 2>(a, twin);
+  if (n == 4 && m == 1) return kkt_host<4, 1>(a, twin);
+  if (n == 4 && m == 2) return kkt_host<4, 2>(a, twin);
+  if (n == 1 && m == 1) return kkt_host<1, 1>(a, twin);
+  if (n == 6 && m == 3) return kkt_host<6, 3>(a, twin);
+  return 1;
+}
+
+extern "C" int diffmpc_kkt_backward_host(const KktArgs* a, int n, int m) { return kkt_shapes(a, n, m, 0); }
+extern "C" int diffmpc_kkt_backward_stream_host(const KktArgs* a, int n, int m) { return kkt_shapes(a, n, m, 1); }
+
+// either value update at (3, 1), (4, 2) and (6, 3)
 extern "C" int diffmpc_kkt_variant_host(const KktArgs* a, int n, int m, int exact, int stream) {
-  if (n == 6 && m == 3) return exact ? kkt_variant<6, 3, true>(a, stream) : kkt_variant<6, 3, false>(a, stream);
-  if (n == 3 && m == 1) return exact ? kkt_variant<3, 1, true>(a, stream) : kkt_variant<3, 1, false>(a, stream);
+  if (!exact) return kkt_shapes(a, n, m, stream);
+  if (n == 3 && m == 1) return kkt_host<3, 1, true>(a, stream);
+  if (n == 4 && m == 2) return kkt_host<4, 2, true>(a, stream);
+  if (n == 6 && m == 3) return kkt_host<6, 3, true>(a, stream);
   return 1;
 }
 """
@@ -509,14 +535,15 @@ def host_lib(tmp_path_factory):
     so = d / "libshim.so"
     flags = [gxx, "-O2", "-std=c++17", "-fPIC", "-I", build.CSRC]
     procs = []
-    for name, text in (("shim", SHIM), ("shim_riccati", SHIM_RICCATI), ("shim_variants", SHIM_VARIANTS)):
+    units = (("shim", SHIM), ("shim_riccati", SHIM_RICCATI), ("shim_variants", SHIM_VARIANTS), ("shim_kkt", SHIM_KKT))
+    for name, text in units:
         (d / f"{name}.cpp").write_text(text)
         procs.append(subprocess.Popen([*flags, "-c", "-o", str(d / f"{name}.o"), str(d / f"{name}.cpp")],
                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     for proc in procs:
         _, err = proc.communicate()
         assert proc.returncode == 0, err
-    objs = [str(d / f"{name}.o") for name in ("shim", "shim_riccati", "shim_variants")]
+    objs = [str(d / f"{name}.o") for name, _ in units]
     proc = subprocess.run([*flags, "-shared", "-o", str(so), *objs], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(so))
@@ -1152,6 +1179,114 @@ def test_host_build_kkt_twin_matches_plain_and_resident(host_kkt_launch, host_kk
 
 
 # ---------------------------------------------------------------------------
+# The KKT backward by lane groups (kkt.cuh): every built L of the resident
+# kernel (K, k, p on chip and in device memory) and of the twin against one
+# lane, sweep 1 against the Riccati sweep in mask mode, a shared C and F read
+# in place.
+# ---------------------------------------------------------------------------
+
+
+def _kkt_variant_launcher(host_lib, exact: bool, twin: bool):
+    fn = host_lib.diffmpc_kkt_variant_host
+    fn.argtypes = [ctypes.POINTER(_KktArgs)] + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+
+    def launch(args, n, m):
+        assert fn(args, n, m, int(exact), int(twin)) == 0, f"no host instantiation for n={n}, m={m}"
+
+    return launch
+
+
+def _kkt_lane_case(n, m, seed, T=7, B=13):
+    """The KKT backward's float32 inputs: tests/torch_parity.py's residuals
+    with ~15% of the controls tight."""
+    res = random_residuals(np.random.default_rng(seed), T, B, n, m, max(1, T * B * m * 15 // 100))
+    ins = [torch.tensor(a) for a in kernel_inputs(res)]
+    assert bool(ins[-1].any()) and not bool(ins[-1].all())
+    return ins
+
+
+KKT_LANE_SHAPES = [(3, 1), (4, 2), (6, 3)]
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["full", "simplified"])
+@pytest.mark.parametrize("n,m", KKT_LANE_SHAPES)
+def test_host_build_kkt_lanes_equal_one_lane(host_lib, n, m, exact):
+    """One lane within ``1e-4 * max(1, max|plain|)`` of the plain version;
+    the resident kernel with K, k and p on chip and in device memory and the
+    twin, at every built lane count (``DMPC_LANES``: the card's
+    ``KKT_LANES`` and 2 and 4, which do not divide every share evenly), and
+    one lane loading each slice at its step rather than a step ahead, bit for
+    bit the resident kernel at one lane."""
+    ins = _kkt_lane_case(n, m, 1700 + 10 * n + m + exact)
+    kw = dict(reg=1e-7)
+    resident, twin = _kkt_variant_launcher(host_lib, exact, False), _kkt_variant_launcher(host_lib, exact, True)
+    one = run_staged_kkt(resident, *ins, lanes=1, **kw)
+    want = kkt_backward_plain(*ins, value_update_exact_reg=1e-6 if exact else -1.0, **kw)
+    for name, g, w in zip(("dx_init", "dC", "dc", "dF", "df"), one, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0,
+                                   err_msg=name)
+    assert set(KKT_LANES) <= set(ILQR_LANES)
+    for lanes in ILQR_LANES:
+        for launch, on_chip in ((resident, None), (resident, False), (twin, None)):
+            _assert_equal_results(run_staged_kkt(launch, *ins, lanes=lanes, on_chip=on_chip, **kw), one)
+    for launch in (resident, twin):
+        _assert_equal_results(run_staged_kkt(launch, *ins, lanes=1, on_chip=False, prefetch=False, **kw), one)
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["full", "simplified"])
+@pytest.mark.parametrize("n,m", KKT_LANE_SHAPES)
+def test_host_build_kkt_gains_equal_the_mask_mode_riccati_sweep(host_lib, host_riccati_launch, n, m, exact):
+    """Sweep 1's gains (the twin keeps them in device memory) at every built
+    lane count equal bit for bit the Riccati sweep's in mask mode on
+    ``(C, r, F, tight)``: the Riccati sweep the composite backward runs
+    (ops/lqr_step.py), the same step."""
+    C, c, F, r, tau, tight = _kkt_lane_case(n, m, 1760 + 10 * n + m + exact)
+    threshold = 1e-6 if exact else -1.0
+    if (n, m) == (6, 3):
+        fn = host_lib.diffmpc_riccati_mask63_host
+        fn.argtypes, fn.restype = [ctypes.POINTER(_RiccatiArgs)], ctypes.c_int
+
+        def riccati_launch(args, n_, m_, mode):
+            assert fn(args) == 0
+    else:
+        riccati_launch = host_riccati_launch
+    want = run_staged_riccati(riccati_launch, C, r, F, None, n, ctrl_mask=tight, reg=1e-7,
+                              value_update_exact_reg=threshold)
+    launch = _kkt_variant_launcher(host_lib, exact, True)
+    for lanes in ILQR_LANES:
+        staged = stage_kkt(C, c, F, r, tau, tight, reg=1e-7, lanes=lanes)
+        launch(ctypes.byref(staged.args), n, m)
+        K, k = staged.gains()
+        np.testing.assert_array_equal(K.numpy(), want.K.numpy(), err_msg=f"K at L={lanes}")
+        np.testing.assert_array_equal(k.numpy(), want.k.numpy(), err_msg=f"k at L={lanes}")
+
+
+@pytest.mark.parametrize("n,m", [(3, 1), (4, 2)])
+def test_host_build_kkt_reads_a_shared_C_and_F_in_place(host_kkt_launch, host_kkt_stream_launch, n, m):
+    """A C shared by every step and scenario and an F shared by every
+    scenario (batch stride 0, as ``mpc_solve`` expands a ``QuadCost``'s C
+    and a ``LinDx``'s F) reach the kernels where they lie, and give bit for
+    bit the outputs of their staged copies, at one lane and sixteen, resident
+    and twin."""
+    C, c, F, r, tau, tight = _kkt_lane_case(n, m, 1790 + 10 * n + m)
+    T, B = C.shape[:2]
+    C1 = C[0, 0] @ C[0, 0].T / (n + m) + torch.eye(n + m)
+    C_shared, F_shared = C1.expand(T, B, n + m, n + m), F[:, :1].expand(T, B, n, n + m)
+    assert reads_in_place(C_shared) and reads_in_place(F_shared) and not reads_in_place(F)
+    staged = stage_kkt(C_shared, c, F_shared, r, tau, tight)
+    assert staged.buffers[0].data_ptr() == C1.data_ptr() and staged.buffers[2].data_ptr() == F_shared.data_ptr()
+    assert (staged.args.C_t, staged.args.C_e, staged.args.C_b) == (0, 1, 0)
+    assert (staged.args.F_t, staged.args.F_e, staged.args.F_b) == (F.stride(0), 1, 0)
+    ins = (C_shared, c, F_shared, r, tau, tight)
+    copies = (C_shared.contiguous(), c, F_shared.contiguous(), r, tau, tight)
+    for launch in (host_kkt_launch, host_kkt_stream_launch):
+        for lanes in (1, 16):
+            _assert_equal_results(run_staged_kkt(launch, *ins, lanes=lanes), run_staged_kkt(launch, *copies, lanes=lanes))
+
+
+# ---------------------------------------------------------------------------
 # The depth-blocked sweep and the piece-decomposition kernels.
 # ---------------------------------------------------------------------------
 
@@ -1401,8 +1536,10 @@ def test_built_lane_counts_are_one_list():
     ``csrc/rollout_nn_l<L>.cu`` and the wrappers' ``ILQR_LANES`` and
     ``ROLLOUT_LANES`` are one list; the Riccati sweep's
     (``DMPC_RICCATI_LANES`` in ``csrc/riccati_launch.cuh``, the files
-    ``csrc/riccati_l<L>.cu`` and ``RICCATI_LANES``) are another, within it
-    and with one lane."""
+    ``csrc/riccati_l<L>.cu`` and ``RICCATI_LANES``) are another, and the KKT
+    backward's (``DMPC_KKT_LANES`` in ``csrc/kkt_launch.cuh``, the files
+    ``csrc/kkt_l<L>.cu`` and ``KKT_LANES``) a third, each within it and with
+    one lane."""
 
     def macro(header, name):
         with open(os.path.join(build.CSRC, header)) as f:
@@ -1419,6 +1556,9 @@ def test_built_lane_counts_are_one_list():
     riccati = macro("riccati_launch.cuh", "DMPC_RICCATI_LANES")
     assert riccati == files("riccati") == RICCATI_LANES
     assert 1 in riccati and set(riccati) <= set(in_header)
+    kkt = macro("kkt_launch.cuh", "DMPC_KKT_LANES")
+    assert kkt == files("kkt") == KKT_LANES
+    assert 1 in kkt and set(kkt) <= set(in_header)
 
 
 @pytest.mark.parametrize("hoist", [False, True], ids=["in_sweep", "hoist_lin"])

@@ -5,12 +5,19 @@ point against the JAX package's, on the same inputs.
   ``_kkt_backward_impl`` (``use_pallas=False``) and against its Pallas
   kernel ``kkt_backward_fused`` in interpret mode, on the residual recipe
   of tests/test_pallas_kkt.py, with a short shape fuzz;
+- the CUDA kernel's source (``csrc/kkt.cuh``) built for the host with g++,
+  its scenarios run by groups of 16 lanes one lane after another
+  (``HostLanes``), against the same Pallas kernel in interpret mode;
 - ``torch.autograd.grad`` through the port's ``lqr_fixed_point`` against
   ``jax.grad`` through JAX's, for all five of ``(x_init, C, c, F, f)``.
 
 Tolerance: rtol = atol = 3e-5, the JAX file's own bound for the fused
 kernel against the composite (both compute in float32).
 """
+
+import ctypes
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -25,7 +32,9 @@ from diffmpc_tpu.ops.lqr_step import _kkt_backward_impl  # noqa: E402
 from diffmpc_tpu.ops.lqr_step import lqr_fixed_point as jax_fixed_point  # noqa: E402
 from diffmpc_tpu.ops.pallas.kkt import kkt_backward_fused as jax_kkt_fused  # noqa: E402
 from diffmpc_tpu.utils import batch as jbatch  # noqa: E402
+from diffmpc_tpu_torch.csrc import build  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.kkt import (  # noqa: E402
+    _KktArgs,
     kkt_backward_fused,
     kkt_backward_plain,
     run_staged_kkt,
@@ -67,6 +76,53 @@ def test_plain_matches_jax_composite_and_pallas_kernel(n, m, n_tight):
     assert_close(got, jax_composite(res, n), "vs composite")
     fused = jax_kkt_fused(*map(jnp.asarray, ins), reg=1e-7, interpret=True)
     assert_close(got, [np.asarray(a) for a in fused], "vs Pallas kernel")
+
+
+# The resident kernel's group of 16 lanes at (3, 1), built for the host: the
+# lanes of each scenario's group run one after another (lanes.cuh, HostLanes).
+HOST_KKT16 = r"""
+#include <vector>
+
+#include "kkt.cuh"
+
+extern "C" int diffmpc_kkt_backward_l16_host(const KktArgs* a) {
+  std::vector<float> slots(kkt_group_floats<3, 1, 16, true>(a->T) + 1);
+  const HostLanes<16> g{slots.data()};
+  for (int b = 0; b < a->B; ++b) kkt_backward_group<3, 1, false, true>(*a, g, b);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kkt16(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not found: the host build of the kernel header needs it")
+    d = tmp_path_factory.mktemp("kkt16")
+    (d / "kkt16.cpp").write_text(HOST_KKT16)
+    so = d / "libkkt16.so"
+    proc = subprocess.run([gxx, "-O2", "-std=c++17", "-fPIC", "-shared", "-I", build.CSRC, "-o", str(so),
+                           str(d / "kkt16.cpp")], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    fn = ctypes.CDLL(str(so)).diffmpc_kkt_backward_l16_host
+    fn.argtypes, fn.restype = [ctypes.POINTER(_KktArgs)], ctypes.c_int
+
+    def launch(args, n, m):
+        assert (n, m) == (3, 1) and fn(args) == 0
+
+    return launch
+
+
+def test_host_lane_kernel_matches_the_pallas_kernel(host_kkt16):
+    """The KKT kernel's source at 16 lanes a scenario, K, k and p on chip,
+    on the seeded inputs of the tight case above, against the JAX Pallas
+    kernel in interpret mode."""
+    res = random_residuals(np.random.default_rng(800 + 3 * 10 + 1), 8, 24, 3, 1, 40)
+    ins = kernel_inputs(res)
+    got = run_staged_kkt(host_kkt16, *map(torch.tensor, ins), reg=1e-7, lanes=16)
+    fused = jax_kkt_fused(*map(jnp.asarray, ins), reg=1e-7, interpret=True)
+    assert_close([a.numpy() for a in got], [np.asarray(a) for a in fused], "16 lanes vs Pallas kernel")
 
 
 @pytest.mark.parametrize("seed", range(4))

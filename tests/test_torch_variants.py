@@ -119,7 +119,7 @@ def test_shapes_outside_the_table_resolve_to_their_variant(fake_build, kind, n, 
         assert cmd[-1] == os.path.join(build.VARIANTS, source)
         assert {f"-DDMPC_N={n}", f"-DDMPC_M={m}", "-DDMPC_ENUM=0", "-DDMPC_EXACT=0",
                 f"-DDMPC_VARIANT_L={L}"} == defines(cmd)
-        assert ("-fmad=false" in cmd) == (family == "riccati")
+        assert ("-fmad=false" in cmd) == (family in ("riccati", "kkt"))
         assert cmd[1 : 1 + len(build.NVCC_FLAGS)] == list(build.NVCC_FLAGS)
     # built once: a second lookup loads the same library
     il.kernel_symbol(kind, n, m, [ctypes.c_void_p])
@@ -323,13 +323,14 @@ def test_variant_build_is_rename_atomic_and_reports_nvcc_errors(tmp_path, monkey
 def test_variant_sources_and_lane_lists():
     """Every family's source is in csrc/variants/, outside the main
     library's glob; its lane counts are the wrappers' lists and the
-    launchers' macros (DMPC_LANES, DMPC_RICCATI_LANES)."""
+    launchers' macros (DMPC_LANES, DMPC_RICCATI_LANES, DMPC_KKT_LANES)."""
     assert all(os.path.dirname(s) == build.CSRC for s in build.sources())
     for source, _ in build.VARIANT_SOURCES.values():
         assert os.path.exists(os.path.join(build.VARIANTS, source))
     assert build.VARIANT_SOURCES["ilqr"][1] == il.ILQR_LANES
     assert build.VARIANT_SOURCES["rollout"][1] == rol.ROLLOUT_LANES
     assert build.VARIANT_SOURCES["riccati"][1] == ric.RICCATI_LANES
+    assert build.VARIANT_SOURCES["kkt"][1] == kkt_mod.KKT_LANES
     with pytest.raises(ValueError, match="family"):
         build.variant_defines(VariantKey("pieces", 3, 1))
 

@@ -248,10 +248,10 @@ Phases, one line of output each (JSON where it carries numbers):
    without its prefetch, the resident kernel above one lane with K, k, p on
    chip and in device memory, all on the same staged inputs: bit-equal to
    one lane (raises otherwise), one lane within 1e-4 * max(1, max|plain|) of
-   the plain version, the kernels' times by CUDA events, the rule's pick,
-   the wrapper's call and its staging; with the parent commit's KKT kernels
-   (its tree from _archive/parent or the checkout's git history, built
-   beside phases 30-33) timed in the same rounds.
+   the plain version, every launch that fails raising, the kernels' times
+   by CUDA events in each round, the rule's pick, the wrapper's call and its
+   staging. The parent commit's kernels are timed beside by the diagnostic
+   alone (``--parent DIR``), where the person who runs it names that tree.
 
 With ``--slice-only`` the script runs phases 0, 1 and 30-33 alone.
 
@@ -272,10 +272,8 @@ import os
 import re
 import subprocess
 import sys
-import tarfile
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -2687,22 +2685,7 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
     return rows
 
 
-def parent_tree(tmp: str):
-    """The parent commit's tree for phase 34: ``_archive/parent`` where it
-    was unpacked there (git-ignored), else the commit before HEAD's
-    ``diffmpc_tpu_torch/csrc`` unpacked into ``tmp`` where the checkout has
-    its history, else None."""
-    if os.path.isdir(os.path.join("_archive", "parent", "diffmpc_tpu_torch", "csrc")):
-        return os.path.join("_archive", "parent")
-    proc = subprocess.run(["git", "archive", "HEAD~1", "diffmpc_tpu_torch/csrc"], capture_output=True, timeout=120)
-    if proc.returncode != 0:
-        return None
-    with tarfile.open(fileobj=io.BytesIO(proc.stdout)) as tar:
-        tar.extractall(os.path.join(tmp, "parent"), filter="data")
-    return os.path.join(tmp, "parent")
-
-
-def kkt_lanes_ab(device, smi: str, parent, parent_libs) -> None:
+def kkt_lanes_ab(device, smi: str) -> None:
     """Phase 34 (diffmpc_tpu_torch.diagnostics.ab_kkt_lanes): every KKT call
     of the recorded solves + gradients (the headline at B=1024 and 65,536,
     the (6, 3) MLP's imitation gradient at 1024, a (6, 3) LinDx at 4096,
@@ -2711,13 +2694,13 @@ def kkt_lanes_ab(device, smi: str, parent, parent_libs) -> None:
     with and without the prefetch and the resident kernel above one lane with
     K, k, p on chip and in device memory, on the same staged inputs: each
     bit-equal to one lane (raises otherwise), one lane within
-    1e-4 * max(1, max|plain|) of the plain version (raises beyond), the times
-    by CUDA events, the rule's pick, and the parent commit's kernels timed
-    in the same rounds where its tree is at hand."""
+    1e-4 * max(1, max|plain|) of the plain version (raises beyond), a failed
+    launch raising, the times by CUDA events in each round and the rule's
+    pick."""
     from diffmpc_tpu_torch.diagnostics import ab_kkt_lanes
 
     t0 = time.perf_counter()
-    for rec in ab_kkt_lanes.run(device, ab_kkt_lanes.CASES, rounds=3, parent_libs=parent_libs):
+    for rec in ab_kkt_lanes.run(device, ab_kkt_lanes.CASES, rounds=3):
         ms = rec["ms"]
         pick = rec["pick"]["name"]
         emit(phase="kkt_lanes", case=rec["case"], T=rec["T"], B=rec["B"], n=rec["n"], m=rec["m"],
@@ -2725,10 +2708,9 @@ def kkt_lanes_ab(device, smi: str, parent, parent_libs) -> None:
              bit_equal_to_one_lane=all(rec["bit_equal"].values()), max_abs_err=rec["max_abs_err"],
              err_bound=rec["err_bound"], pick_ms=ms[pick],
              one_lane_ms=ms[f"{rec['dispatched']}/L1/auto"], sixteen_lanes_ms=ms[f"{rec['dispatched']}/L16/auto"],
-             parent_ms=ms.get("parent"), pick_over_parent=rec["pick_over_parent"], ms=ms,
-             wrapper_ms=rec["wrapper_ms"], stage_ms=rec["stage_ms"], stage_copies_ms=rec["stage_copies_ms"],
-             plain_ms=rec["plain_ms"], card=smi)
-    emit(phase="kkt_lanes_done", seconds=time.perf_counter() - t0, parent=parent)
+             ms=ms, ms_rounds=rec["ms_rounds"], wrapper_ms=rec["wrapper_ms"], stage_ms=rec["stage_ms"],
+             stage_copies_ms=rec["stage_copies_ms"], plain_ms=rec["plain_ms"], card=smi)
+    emit(phase="kkt_lanes_done", seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -2786,7 +2768,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     from diffmpc_tpu_torch.models import PendulumDx
     from diffmpc_tpu_torch.ops.cuda import kkt as kkt_mod
     from diffmpc_tpu_torch.ops.cuda import riccati as ric
-    from diffmpc_tpu_torch.diagnostics import ab_ilqr_lanes, ab_kkt_lanes, ab_rollout_lanes
+    from diffmpc_tpu_torch.diagnostics import ab_ilqr_lanes, ab_rollout_lanes
     from diffmpc_tpu_torch.ops.cuda import rollout as rol
     from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain
     from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain
@@ -3225,13 +3207,8 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     chain = riccati_chain(device, smi, times[B_MAIN][0] / int(results[B_MAIN][0].n_iters.max()))
     learned = learned_dynamics(device, smi, clock_mhz)
     probe_row = data_parallel(device, smi)
-    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
-        # the parent's KKT kernels build beside phases 30-33, for phase 34
-        parent = parent_tree(tmp)
-        parent_libs = pool.submit(ab_kkt_lanes.build_tree, tmp, parent, {(3, 1), (4, 2), (SL_N, SL_M)}, "parent",
-                                  False) if parent else None
-        slice_rows = variants_slice(device, smi, clock_mhz)
-        kkt_lanes_ab(device, smi, parent, parent_libs.result() if parent_libs else None)
+    slice_rows = variants_slice(device, smi, clock_mhz)
+    kkt_lanes_ab(device, smi)
 
     print(smi, flush=True)
     emit(kernels=[

@@ -28,10 +28,11 @@
 namespace kkt_launch_detail {
 
 // Threads per block: 128 at one lane, 64 for a group of lanes (four groups
-// of 16). One lane at 32 or 128 threads a block, and sixteen lanes at 32, 64
-// or 128, took within a few per cent of each other on the KKT calls of
-// diagnostics/ab_kkt_lanes, one lane at 256 up to 20% longer (NVIDIA H100
-// 80GB HBM3 at 700 W).
+// of 16). Sixteen lanes at 32, 64 or 128 took within a few per cent of each
+// other on the KKT calls of diagnostics/ab_kkt_lanes; one lane at 32 or 64
+// took 0.0205 against 0.0215 ms at the pendulum, T=20, B=1024, but 0.215
+// against 0.176 at B=65,536 and 0.98-0.99 against 0.94 at T=512, B=1024,
+// and at 256 up to 20% longer (NVIDIA H100 80GB HBM3 at 700 W).
 template <int L>
 constexpr int kThreads = L == 1 ? 128 : 64;
 

@@ -19,20 +19,25 @@ once (a C or F shared by every scenario read in place, as the wrapper does)
 and runs on the same staged inputs the kernel the dispatch takes at every
 built L with the launcher's choices, one lane with and without the
 prefetch, and the resident kernel above one lane with K, k and p on chip
-and in device memory; with ``parent`` the KKT kernels of
-another checkout of the repository (its own build, on a staged copy of the
-same inputs: C and F copied batch-minor, as its wrapper copies them), timed
-in turns with this checkout's (parent, new, new, parent). It reports:
+and in device memory. With ``--parent DIR``, the checkout at ``DIR``
+(another commit of this repository, unpacked by ``git archive``) is
+imported beside this one under a name of its own: its KKT kernel, built by
+its own build at first use and called through its own ``KktArgs`` on a
+staged copy of the same inputs (C and F copied batch-minor), and its
+wrapper on the call's inputs, each timed in the same rounds as this
+checkout's. Every launch that fails raises. It reports:
 
 - per call, whether every variant's outputs equal the dispatched kernel's at
   L = 1 bit for bit (the design gives it; it raises otherwise), and that
   kernel's largest distance from the plain version, held to
   ``1e-4 * max(1, max|plain|)`` (raises beyond);
 - per variant the time alone (CUDA events around launches on the staged
-  inputs, the variants interleaved in each round, each one's minimum kept),
-  the rule's pick and its time over L = 1's and over the parent's;
-- the wrapper's call (staging, launch) and its staging alone, in place and
-  with C and F copied, by CUDA events; the plain version's time.
+  inputs, the variants interleaved in each round): each round's time
+  (``ms_rounds``) and the minimum (``ms``), the rule's pick and its time
+  over L = 1's and over the parent's;
+- the wrapper's call, its staging alone in place and with C and F copied,
+  and the parent's wrapper, interleaved the same way (``*_ms``,
+  ``call_rounds``); the plain version's time.
 
 The cases: the headline's gradient (pendulum, goal cost, box +-2, T=20,
 ``lqr_iter`` 10, the gradient of mean(us**2) with respect to the env's
@@ -45,7 +50,7 @@ B=128, 4096 and 65,536, with respect to c.
 
 Run on a machine with a CUDA device:
 
-    python -m diffmpc_tpu_torch.diagnostics.ab_kkt_lanes [--cases ...] [--parent DIR] [--other DIR]
+    python -m diffmpc_tpu_torch.diagnostics.ab_kkt_lanes [--cases ...] [--parent DIR] [--rounds N]
 
 It prints the card's name and power limit, then one JSON record per case.
 """
@@ -55,22 +60,21 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import hashlib
 import importlib.util
 import io
 import json
 import os
 import subprocess
-import tempfile
+import sys
 import types
 
 import numpy as np
 import torch
 
-from ..csrc import build
 from ..models import NNDynamics, PendulumDx
 from ..ops.cuda import kkt
 from ..ops.cuda.horizon import streams_kkt
-from ..ops.cuda.ilqr import KERNEL_SHAPES
 from .ab_ilqr_lanes import swing_up_starts
 from .ab_rollout_lanes import config2_problem
 from .card import cuda_ms, require_card
@@ -166,60 +170,31 @@ def record(case: str, device) -> list:
     return calls
 
 
-def build_tree(tmp: str, tree: str, shapes, label: str, own_flags: bool) -> dict:
-    """Another checkout's KKT kernels: ``{(n, m): (library, variant)}``, its
-    prebuilt sources for the table's shapes (the launchers and any lane
-    files) and, for each other shape of ``shapes``, its variant source at the
-    full value update without lane units (the parent's one-thread design),
-    built side by side with this checkout's nvcc flags; ``own_flags`` adds
-    the other checkout's per-source flags (its ``csrc/build.py``'s
-    ``source_flags``)."""
-    csrc = os.path.join(tree, "diffmpc_tpu_torch", "csrc")
-    flags_of = lambda src: ()  # noqa: E731
-    if own_flags:
-        spec = importlib.util.spec_from_file_location(f"build_{label}", os.path.join(csrc, "build.py"))
-        tree_build = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(tree_build)
-        flags_of = tree_build.source_flags
-    nvcc = build.find_nvcc()
-    table = [os.path.join(csrc, name) for name in sorted(os.listdir(csrc))
-             if name.startswith("kkt") and name.endswith(".cu")]
-    units = {None: table}
-    for n, m in sorted(set(shapes) - set(KERNEL_SHAPES)):
-        units[(n, m)] = [os.path.join(csrc, "variants", "kkt.cu")]
-    cmds, objs = [], {}
-    for key, srcs in units.items():
-        defs = [] if key is None else [f"-DDMPC_N={key[0]}", f"-DDMPC_M={key[1]}", "-DDMPC_EXACT=0",
-                                       "-DDMPC_VARIANT_L=0"]
-        for src in srcs:
-            obj = os.path.join(tmp, f"{label}-{'table' if key is None else 'n%dm%d' % key}-{os.path.basename(src)}.o")
-            cmds.append([nvcc, *build.NVCC_FLAGS, *flags_of(src), *defs, "-I", csrc, "-c", "-o", obj, src])
-            objs.setdefault(key, []).append(obj)
-    build._run(cmds)
-    out = {}
-    for key, files in objs.items():
-        so = os.path.join(tmp, f"libkkt_{label}_{'table' if key is None else 'n%dm%d' % key}.so")
-        build._run([[nvcc, *build.NVCC_FLAGS[:2], "-shared", "-o", so, *files]])
-        lib = ctypes.CDLL(so)
-        for shape in (KERNEL_SHAPES if key is None else [key]):
-            out[shape] = (lib, key is not None)
-    return out
+def load_tree(root: str):
+    """Another checkout's port, imported beside this one under a name of its
+    own: its ``ops.cuda.kkt`` module, with its own wrapper, ``_KktArgs`` and
+    build (which compiles its kernels at first use into that checkout's
+    ``_build``)."""
+    pkg_dir = os.path.join(os.path.abspath(root), "diffmpc_tpu_torch")
+    name = "_tree_" + hashlib.sha256(pkg_dir.encode()).hexdigest()[:12] + "_diffmpc_tpu_torch"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, os.path.join(pkg_dir, "__init__.py"),
+                                                      submodule_search_locations=[pkg_dir])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules[name] = pkg
+        spec.loader.exec_module(pkg)
+    return importlib.import_module(name + ".ops.cuda.kkt")
 
 
-def tree_lanes(tree: str) -> tuple:
-    """The lane counts another checkout's KKT kernels are built for (its
-    ``kkt_l<L>.cu`` files; one thread a scenario where it has none)."""
-    csrc = os.path.join(tree, "diffmpc_tpu_torch", "csrc")
-    return tuple(sorted(int(name[5:-3]) for name in os.listdir(csrc)
-                        if name.startswith("kkt_l") and name.endswith(".cu"))) or (1,)
-
-
-def tree_launcher(libs: dict, n: int, m: int, twin: bool):
-    lib, variant = libs[(n, m)]
-    name = "diffmpc_kkt_backward" + ("_stream" if twin else "") + ("_variant" if variant else f"_n{n}m{m}")
-    fn = getattr(lib, name)
-    fn.argtypes, fn.restype = [ctypes.POINTER(kkt._KktArgs), ctypes.c_void_p], ctypes.c_int
-    return fn
+def tree_args(tree_kkt, staged: kkt.StagedKkt):
+    """The other checkout's own ``KktArgs`` for ``staged`` (C and F copied
+    batch-minor), field by field; raises where that struct has a field this
+    one lacks."""
+    ours = {name for name, _ in kkt._KktArgs._fields_}
+    theirs = [name for name, _ in tree_kkt._KktArgs._fields_]
+    if missing := [name for name in theirs if name not in ours]:
+        raise RuntimeError(f"the other checkout's KktArgs has fields this one has not: {missing}")
+    return tree_kkt._KktArgs(*(getattr(staged.args, name) for name in theirs))
 
 
 def same_bits(got, ref) -> bool:
@@ -227,9 +202,12 @@ def same_bits(got, ref) -> bool:
 
 
 def time_variants(launches: dict, rounds: int, loops: int) -> dict:
-    """Each launch alone, interleaved: ``{name: ms}``, each one's minimum over
-    the rounds; a round runs the variants in order and then in reverse."""
-    names, best = list(launches), {}
+    """Each launch alone, interleaved, after one call each to warm up:
+    ``{name: [ms of each round]}``; a round runs the variants in order and
+    then in reverse."""
+    names, out = list(launches), {name: [] for name in launches}
+    for fn in launches.values():
+        fn()
     torch.cuda.synchronize()
     for r in range(rounds):
         for name in (names if r % 2 == 0 else names[::-1]):
@@ -240,12 +218,14 @@ def time_variants(launches: dict, rounds: int, loops: int) -> dict:
                 fn()
             end.record()
             end.synchronize()
-            best[name] = min(best.get(name, float("inf")), start.elapsed_time(end) / loops)
-    return best
+            out[name].append(start.elapsed_time(end) / loops)
+    return out
 
 
-def run_call(device, args, kw, parent_libs, rounds: int, loops: int, other=None) -> dict:
-    """One recorded call through every variant (the module's docstring)."""
+def run_call(device, args, kw, tree_kkt, rounds: int, loops: int) -> dict:
+    """One recorded call through every variant (the module's docstring);
+    ``tree_kkt``: another checkout's ``ops.cuda.kkt`` (:func:`load_tree`) or
+    None."""
     C, c, F, r, tau, tight = args
     T, B, n, m = kkt._check_shapes(C, c, F, r, tau, tight)
     exact = kkt.kkt_exact_update(kw["reg"], kw["value_update_exact_reg"])
@@ -267,15 +247,11 @@ def run_call(device, args, kw, parent_libs, rounds: int, loops: int, other=None)
         else:
             for on in (0, 1):
                 variants[f"resident/L{L}/{'onchip' if on else 'device'}"] = (fns["resident"], L, on, -1)
-    launches, refs, same, skipped, choices = {}, None, {}, {}, {}
+    launches, refs, same, choices = {}, None, {}, {}
     for name, (fn, L, on, pf) in variants.items():
         a = kkt._KktArgs.from_buffer_copy(staged.args)
         a.lanes, a.on_chip, a.prefetch = L, on, pf
-        try:
-            fn(ctypes.byref(a), n, m)
-        except RuntimeError as e:  # K, k, p on chip do not fit a block
-            skipped[name] = str(e)
-            continue
+        fn(ctypes.byref(a), n, m)  # raises where the launch fails
         torch.cuda.synchronize()
         got = staged.result()
         if refs is None:
@@ -289,69 +265,58 @@ def run_call(device, args, kw, parent_libs, rounds: int, loops: int, other=None)
     plain_ms = cuda_ms(lambda: kkt.kkt_backward_plain(*args, reg=kw["reg"],
                                                      value_update_exact_reg=kw["value_update_exact_reg"]), 1, 1)
     del plain
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if other is not None and (n, m) in other[0]:
-        # another build of this design: the same staged inputs, its lane counts
-        for L in other[1]:
-            ofn, oa = tree_launcher(other[0], n, m, twin), kkt._KktArgs.from_buffer_copy(staged.args)
-            oa.lanes, oa.on_chip, oa.prefetch = L, -1, -1
-            if ofn(ctypes.byref(oa), stream) != 0:
-                raise RuntimeError("the other build's KKT kernel failed to launch")
-            torch.cuda.synchronize()
-            same[f"other/L{L}"] = same_bits(staged.result(), refs)
-            launches[f"other/L{L}"] = (lambda ofn=ofn, oa=oa: ofn(ctypes.byref(oa), stream))
-    parent_staged = None
-    if parent_libs is not None and not exact:
-        parent_staged = kkt.stage_kkt(*f32, reg=kw["reg"], in_place=False)
-        pfn = tree_launcher(parent_libs, n, m, twin)
-        launches = {"parent": lambda: pfn(ctypes.byref(parent_staged.args), stream), **launches}
-        if pfn(ctypes.byref(parent_staged.args), stream) != 0:
-            raise RuntimeError("the parent's KKT kernel failed to launch")
-        torch.cuda.synchronize()
-        same["parent"] = same_bits(parent_staged.result(), refs)
-    ms = time_variants(launches, rounds, loops)
-    pick = f"{dispatched}/L{pick_lanes}/auto"
-    wrapper = {
-        "wrapper_ms": cuda_ms(lambda: kkt.kkt_backward_fused(*args, **kw), 3, 3),
-        "stage_ms": cuda_ms(lambda: kkt.stage_kkt(*f32, reg=kw["reg"]), 3, 3),
-        "stage_copies_ms": cuda_ms(lambda: kkt.stage_kkt(*f32, reg=kw["reg"], in_place=False), 3, 3),
+    calls = {
+        "wrapper": lambda: kkt.kkt_backward_fused(*args, **kw),
+        "stage": lambda: kkt.stage_kkt(*f32, reg=kw["reg"]),
+        "stage_copies": lambda: kkt.stage_kkt(*f32, reg=kw["reg"], in_place=False),
     }
+    if tree_kkt is not None:
+        # its kernel alone on a staged copy of the same inputs (C and F
+        # copied batch-minor), through its own struct and launcher; its
+        # wrapper on the call's own inputs
+        copied = kkt.stage_kkt(*f32, reg=kw["reg"], lanes=pick_lanes, in_place=False)
+        parent_args = tree_args(tree_kkt, copied)
+        parent_fn = tree_kkt._cuda_launcher(device, n, m, kinds[dispatched], types.SimpleNamespace(launches=0),
+                                            exact=exact)
+        parent_fn(ctypes.byref(parent_args), n, m)
+        torch.cuda.synchronize()
+        same["parent"] = same_bits(copied.result(), refs)
+        launches = {"parent": lambda: parent_fn(ctypes.byref(parent_args), n, m), **launches}
+        calls["parent_wrapper"] = lambda: tree_kkt.kkt_backward_fused(*args, **kw)
+    ms_rounds = time_variants(launches, rounds, loops)
+    call_rounds = time_variants(calls, rounds, loops)
+    ms = {name: min(v) for name, v in ms_rounds.items()}
+    pick = f"{dispatched}/L{pick_lanes}/auto"
     return dict(
         T=T, B=B, n=n, m=m, exact=exact, dispatched=dispatched, sm_count=sm_count,
         C_in_place=kkt.reads_in_place(f32[0]), F_in_place=kkt.reads_in_place(f32[2]),
-        pick=dict(name=pick, lanes=pick_lanes, **choices.get(pick, {})), choices=choices,
-        bit_equal={k: v for k, v in same.items() if k != "parent" and not k.startswith("other/")},
-        parent_bit_equal=same.get("parent"), other_bit_equal={k: v for k, v in same.items() if k.startswith("other/")},
-        max_abs_err=err, err_bound=bound, ms=ms, skipped=skipped, plain_ms=plain_ms,
+        pick=dict(name=pick, lanes=pick_lanes, **choices[pick]), choices=choices,
+        bit_equal={k: v for k, v in same.items() if k != "parent"}, parent_bit_equal=same.get("parent"),
+        max_abs_err=err, err_bound=bound, ms=ms, ms_rounds=ms_rounds, plain_ms=plain_ms,
         pick_over_one=ms[pick] / ms[f"{dispatched}/L1/auto"],
-        pick_over_parent=ms[pick] / ms["parent"] if "parent" in ms else None, **wrapper)
+        pick_over_parent=ms[pick] / ms["parent"] if "parent" in ms else None,
+        **{f"{name}_ms": min(v) for name, v in call_rounds.items()}, call_rounds=call_rounds)
 
 
-def run(device, cases, parent=None, rounds: int = 4, loops: int = 5, other=None, parent_libs=None):
-    """Yield one record per case; raises where a variant of this checkout is
-    not bit for bit the dispatched kernel at one lane, or that kernel leaves
-    ``1e-4 * max(1, max|plain|)`` of the plain version. ``parent``: the root
-    of another checkout whose KKT kernels run beside; ``other``: the root of
-    another build of this design (the same ``KktArgs``), its lane counts
-    timed beside; ``parent_libs``: its kernels built already (build_tree)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        shapes = {(3, 1), (4, 2)} | {(6, 3) for c in cases if "63" in c}
-        if parent:
-            parent_libs = build_tree(tmp, parent, shapes, "parent", False)
-        other_libs = (build_tree(tmp, other, (), "other", True), tree_lanes(other)) if other else None
-        for case in cases:
-            calls = record(case, device)
-            _, T, B = parse(case)
-            recs = [run_call(device, args, kw, parent_libs, rounds, loops if B <= 16384 else 2, other_libs)
-                    for args, kw in calls]
-            del calls
-            torch.cuda.empty_cache()
-            out = dict(case=case, calls=len(recs), **(recs[0] if len(recs) == 1 else dict(records=recs)))
-            for rec in recs:
-                if not all(rec["bit_equal"].values()) or not rec["max_abs_err"] <= rec["err_bound"]:
-                    raise AssertionError(f"KKT lanes A/B: a variant is not bit for bit one lane, or one lane "
-                                         f"leaves the plain version's bound: {out}")
-            yield out
+def run(device, cases, parent=None, rounds: int = 4, loops: int = 5):
+    """Yield one record per case; raises where a variant is not bit for bit
+    the dispatched kernel at one lane, where that kernel leaves
+    ``1e-4 * max(1, max|plain|)`` of the plain version, or where a launch
+    fails. ``parent``: the root of another checkout, whose KKT kernel and
+    wrapper run beside (:func:`load_tree`)."""
+    tree_kkt = load_tree(parent) if parent else None
+    for case in cases:
+        calls = record(case, device)
+        _, T, B = parse(case)
+        recs = [run_call(device, args, kw, tree_kkt, rounds, loops if B <= 16384 else 2) for args, kw in calls]
+        del calls
+        torch.cuda.empty_cache()
+        out = dict(case=case, calls=len(recs), **(recs[0] if len(recs) == 1 else dict(records=recs)))
+        for rec in recs:
+            if not all(rec["bit_equal"].values()) or not rec["max_abs_err"] <= rec["err_bound"]:
+                raise AssertionError(f"KKT lanes A/B: a variant is not bit for bit one lane, or one lane "
+                                     f"leaves the plain version's bound: {out}")
+        yield out
 
 
 def main() -> None:
@@ -359,12 +324,12 @@ def main() -> None:
     parser.add_argument("--cases", nargs="+", default=list(CASES),
                         help="<kind>_T<T>_B<B>, kind one of pendulum, mlp63, lin63, config2")
     parser.add_argument("--parent", help="the root of another checkout whose KKT kernels run beside")
-    parser.add_argument("--other", help="the root of another build of this design whose KKT kernels run beside")
+    parser.add_argument("--rounds", type=int, default=4, help="timing rounds, each variant's minimum kept")
     opts = parser.parse_args()
     device = require_card()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
-    for rec in run(device, opts.cases, parent=opts.parent, other=opts.other):
+    for rec in run(device, opts.cases, parent=opts.parent, rounds=opts.rounds):
         print(json.dumps(rec), flush=True)
 
 

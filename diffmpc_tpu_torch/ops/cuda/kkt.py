@@ -319,21 +319,16 @@ def run_staged_kkt(launch, C, c, F, r, tau, tight, *, reg: float = 1e-7, lanes: 
 
 
 def _cuda_launcher(device: torch.device, n: int, m: int, kind: str = "kkt_backward", counted=None,
-                   exact: bool = False, lib=None):
+                   exact: bool = False):
     """The launcher of kernel ``kind`` (``kkt_backward`` or its streaming twin
     ``kkt_backward_stream``: the same ``KktArgs``) with the value update's
     form ``exact`` on the current stream, from the prebuilt library or the
-    variant's (``ilqr.kernel_symbol``), or from ``lib``, another build of the
-    same sources; a lane count that is not built makes the launch fail, and
-    the launcher raise. Each launch adds one to ``counted.launches`` (default
-    :func:`kkt_backward_fused`) and sets ``counted.last_lanes`` and
-    ``counted.last_on_chip`` to the lane count it launched and whether it kept
-    K, k and p on chip."""
-    argtypes = [ctypes.POINTER(_KktArgs), ctypes.c_void_p]
-    fn = kernel_symbol(kind, n, m, argtypes, exact=exact)
-    if lib is not None:
-        fn = getattr(lib, fn.__name__)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    variant's (``ilqr.kernel_symbol``); a lane count that is not built makes
+    the launch fail, and the launcher raise. Each launch adds one to
+    ``counted.launches`` (default :func:`kkt_backward_fused`) and sets
+    ``counted.last_lanes`` and ``counted.last_on_chip`` to the lane count it
+    launched and whether it kept K, k and p on chip."""
+    fn = kernel_symbol(kind, n, m, [ctypes.POINTER(_KktArgs), ctypes.c_void_p], exact=exact)
     stream = torch.cuda.current_stream(device).cuda_stream
     counted = kkt_backward_fused if counted is None else counted
 

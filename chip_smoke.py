@@ -236,7 +236,7 @@ Phases, one line of output each (JSON where it carries numbers):
    scenarios converged on both sides) and, those, under "1" against the
    float64 optimum; the zoo's
    shapes (2, 1), (5, 1), (6, 2) through their variants the same way
-   (B=256); and the launches of the simplified update's kernels (the
+   (B=64); and the launches of the simplified update's kernels (the
    flagship's solve + gradient, the pendulum at T=512 through the KKT twin)
    and of the (4, 2) sweep under "0" (config 2 at B=128).
 
@@ -253,7 +253,44 @@ Phases, one line of output each (JSON where it carries numbers):
    staging. The parent commit's kernels are timed beside by the diagnostic
    alone (``--parent DIR``), where the person who runs it names that tree.
 
-With ``--slice-only`` the script runs phases 0, 1 and 30-33 alone.
+35. the dynamics zoo's headline, BASELINE.json config 4 (examples/
+   il_cartpole.py:52-99): the cartpole at T=20, lqr_iter=10, eps=1e-5,
+   u in [-10, 10], B=4096, its starts drawn with numpy as
+   examples/common.py:35-43 draws them; the expert's controls from the true
+   params, then the main path, the expert data and five Adam steps (lr 2e-2)
+   of make_dp_train_step learning {"dyn", "logq"} from il_cartpole.py's
+   perturbed start, each step one iLQR launch of the cartpole's variant and
+   one KKT launch at (5, 1) (the counts set to 0 before the main path and
+   read after it), a finite loss at each, their ms, converged share and
+   loss; the first step's gradient on the first 64 scenarios against the
+   host's float64 gradient at the card's fixed point (phase 32's rule) and
+   its norms; the KKT kernel at (5, 1) alone on the first step's inputs;
+35b. each env's fused kernel (CartpoleDx, VehicleDx, QuadrotorDx,
+   AcrobotDx: its own C++ step, csrc/<env>.cuh) against its plain version,
+   B=256, two iterations, by phase 22's rule (the float64 plain solve as the
+   witness), the cartpole with per-scenario params too; every built lane
+   count with and without hoist_lin bit-equal to one lane over three
+   iterations; the kernel alone at the rule's lane count, the wrapper and
+   the plain version timed, with the bound (the step's operations counted
+   from its header);
+36. each env through mpc_solve at its example's width (the cartpole
+   B=4096, T=20; the vehicle B=1024, T=20, lqr_iter=10, its per-dimension
+   box; the quadrotor B=1024, T=20, lqr_iter=14, box [0, 5]; the acrobot
+   B=1024, T=25, lqr_iter=10, box +-4): one iLQR launch, the converged
+   share, the times; for the last three the first 64 scenarios against the
+   host's plain solve (phase 22's rule) and the imitation loss's gradient
+   through one iLQR and one KKT launch against the host's float64 gradient
+   (phase 32's rule);
+36b. the line search with each env's step: mpc_solve with verbose=1 at
+   T=20 (one Riccati and one line-search launch an iteration) and, for the
+   cartpole, at T=128 with a gradient (the three twins); each kernel on the
+   env's line-search inputs (B=1024) against its plain version by phase
+   10's rule, the float64 plain version as the witness of the trajectory;
+   every built lane count of the kernel and its twin bit-equal to one lane;
+   the kernel alone, the wrapper and the plain version timed.
+
+With ``--slice-only`` the script runs phases 0, 1 and 30-33 alone; with
+``--zoo-only``, phases 0 and 1, the zoo's variants of phase 30, and 35-36.
 
 The line before the last holds the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -379,7 +416,8 @@ def check_chaos(name: str, m: dict, min_equal: float = 0.95) -> None:
         raise AssertionError(f"{name}: kernel and plain version disagree: {m}")
 
 
-def witnessed_agreement(name: str, kernel, plain, exact, ties: bool = False, calm_limits: bool = True) -> dict:
+def witnessed_agreement(name: str, kernel, plain, exact, ties: bool = False, calm_limits: bool = True,
+                        converged_free: bool = False) -> dict:
     """A float32 solve of an ill-conditioned closed loop against its plain
     version, with the float64 plain version (``exact``) as the witness. A
     scenario is off from another solve when n_iters differ, the objective is
@@ -397,24 +435,34 @@ def witnessed_agreement(name: str, kernel, plain, exact, ties: bool = False, cal
     calm scenarios and the ties are reported and only the counts held: for a
     closed loop still unconverged on most scenarios, where a scenario whose
     last step differs from the float64 solve's may sit 5e-2 from it on
-    either side."""
+    either side. With ``converged_free`` a scenario converged on both sides
+    of a comparison counts as taking the same iterations: both stopped at
+    the fixed point, on an iteration that the eps test decides by float32
+    noise (a well-conditioned env that converges everywhere); its
+    objectives and controls are held all the same."""
     k, p, e = ({f: getattr(r, f).double().cpu().numpy() for f in r._fields} for r in (kernel, plain, exact))
+
+    def same_iters(a, b):
+        same = a["n_iters"] == b["n_iters"]
+        return same | ((a["converged"] > 0) & (b["converged"] > 0)) if converged_free else same
 
     def off(a, b):
         us = np.abs(a["us"] - b["us"]).max(axis=(0, 2))
         rel = np.abs(a["objs"] - b["objs"]) / np.maximum(np.abs(b["objs"]), 1e-6)
-        return (a["n_iters"] != b["n_iters"]) | (rel > 1e-3) | (us > np.where(a["alpha"] == b["alpha"], 5e-3, 5e-2))
+        return ~same_iters(a, b) | (rel > 1e-3) | (us > np.where(a["alpha"] == b["alpha"], 5e-3, 5e-2))
 
     kp, pe, ke = off(k, p), off(p, e), off(k, e)
     calm = ~pe & ~ke
-    tie = calm & (k["n_iters"] == p["n_iters"]) & (k["alpha"] != p["alpha"]) if ties else np.zeros_like(calm)
+    tie = calm & same_iters(k, p) & (k["alpha"] != p["alpha"]) if ties else np.zeros_like(calm)
     us = np.abs(k["us"] - p["us"]).max(axis=(0, 2))
     rel = np.abs(k["objs"] - p["objs"]) / np.maximum(np.abs(p["objs"]), 1e-6)
-    out = dict(n_iters_equal_frac=float((k["n_iters"] == p["n_iters"]).mean()), off_plain=int(kp.sum()),
+    out = dict(n_iters_equal_frac=float(same_iters(k, p).mean()), off_plain=int(kp.sum()),
                plain_off_float64=int(pe.sum()), kernel_off_float64=int(ke.sum()),
                us_max_abs=float(us[calm & ~tie].max()), objs_max_rel=float(rel[calm].max()),
                converged_frac_kernel=float(k["converged"].mean()), converged_frac_plain=float(p["converged"].mean()),
                float64_mean_obj=float(e["objs"].mean()), mean_obj=float(k["objs"].mean()))
+    if converged_free:
+        out.update(n_iters_strictly_equal_frac=float((k["n_iters"] == p["n_iters"]).mean()))
     if ties:
         out.update(ties=int(tie.sum()), ties_us_max_abs=float(us[tie].max()) if tie.any() else 0.0,
                    ties_converged=bool(((k["converged"] > 0) & (p["converged"] > 0))[tie].all()))
@@ -1573,13 +1621,25 @@ def nn_rollout_bound(nn, res, B: int, steps: int, clock_mhz: float, n_alpha: int
     the rollouts its data needs (rollouts_needed); or one scenario's chain,
     one rollout's steps (the control and its clip, then the MLP step) and
     the pick; whichever is largest."""
+    return env_rollout_bound(3, 1, nn_step_ops(nn), nn_step_depth(nn), nn.n_params, res, B, steps, clock_mhz, n_alpha)
+
+
+def env_rollout_bound(n: int, m: int, step_ops: int, step_depth: int, n_params: int, res, B: int, steps: int,
+                      clock_mhz: float, n_alpha: int = 10) -> dict:
+    """The line search's bound with an env's own step of ``step_ops``
+    operations and ``step_depth`` dependent ones, from its result ``res``:
+    C's upper triangle, c, K, k, x_hat, u_hat, the bounds per step, x_init
+    and the ``n_params`` params in; xs, us, objs, alpha, improved out; the
+    operations of the rollouts its data needs (rollouts_needed); or one
+    scenario's chain, one rollout's steps (the control and its clip, then
+    the step) and the pick; whichever is largest."""
     from diffmpc_tpu_torch.diagnostics.card import bound as card_bound
 
-    n, m, nm = 3, 1, 4
+    nm = n + m
     per_step = 4 * (tri(nm) + nm + m * n + m + n + m + 2 * m) + 4 * (n + m)
-    n_bytes = B * (steps * per_step + 4 * n + 9) + 4 * nn.n_params
-    ops = rollouts_needed(res, n_alpha, 0.2) * steps * (rollout_step_ops(n, m) - 2 * n * nm + nn_step_ops(nn))
-    return card_bound(n_bytes, ops, rollout_chain_ms(steps, 5 + nn_step_depth(nn), clock_mhz))
+    n_bytes = B * (steps * per_step + 4 * n + 9) + 4 * n_params
+    ops = rollouts_needed(res, n_alpha, 0.2) * steps * (rollout_step_ops(n, m) - 2 * n * nm + step_ops)
+    return card_bound(n_bytes, ops, rollout_chain_ms(steps, 5 + step_depth, clock_mhz))
 
 
 def nn_rollout_inputs(nn, B: int, seed: int, device, steps: int):
@@ -2075,8 +2135,11 @@ def slice_variant_keys() -> list:
 
 
 # the linear shapes the zoo's envs need (cartpole (5, 1), quadrotor (6, 2),
-# acrobot-like (2, 1)), each through mpc_solve on its variants
+# acrobot-like (2, 1)), each through mpc_solve on its variants, at a batch
+# that only holds the linear line search: the envs' own phases (35-36)
+# launch the same Riccati and KKT keys at their published widths
 ZOO_SHAPES = ((2, 1), (5, 1), (6, 2))
+ZOO_SHAPE_B = 64
 
 
 def config2_recipe(seed: int, B: int, n: int, m: int) -> list:
@@ -2206,6 +2269,30 @@ def lanes_bit_equal(name: str, results: dict) -> dict:
     return out
 
 
+def build_variants_phase(keys: list) -> None:
+    """Phase 30: build every variant of ``keys`` in one parallel build; its
+    seconds, each key's units' seconds, and each key's registers, spills and
+    stack frame (per kernel for the fused solve and the line search)."""
+    from diffmpc_tpu_torch.csrc import build
+
+    t0 = time.perf_counter()
+    seconds = {}
+    built = build.build_variants(keys, seconds)
+    build_s = time.perf_counter() - t0
+    ptxas = {}
+    for key, (path, log) in built.items():
+        report = ptxas_report(log)
+        ptxas[key.name] = dict(kernels=len(report), max_registers=max((r.get("registers", 0) for r in report.values()),
+                                                                       default=0),
+                               spill_stores=sum(r.get("spill_stores", 0) for r in report.values()),
+                               spill_loads=sum(r.get("spill_loads", 0) for r in report.values()),
+                               stack_frame_max=max((r.get("stack_frame", 0) for r in report.values()), default=0),
+                               per_kernel={k[:120]: v for k, v in report.items()}
+                               if key.family == "ilqr" or key.env not in ("linear", "nn") else None)
+    emit(phase="variants_build", seconds=build_s, keys=len(built), per_key_seconds=seconds, ptxas=ptxas,
+         workers=build.variant_workers())
+
+
 def variants_slice(device, smi: str, clock_mhz: float) -> list:
     """Phases 30-33: the variants' build, each variant kernel against its
     plain version, the slice's two calls through mpc_solve at full width with
@@ -2241,22 +2328,8 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
 
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
 
-    # ---- 30. the variants, built together ----
-    t0 = time.perf_counter()
-    seconds = {}
-    built = build.build_variants(slice_variant_keys(), seconds)
-    build_s = time.perf_counter() - t0
-    ptxas = {}
-    for key, (path, log) in built.items():
-        report = ptxas_report(log)
-        ptxas[key.name] = dict(kernels=len(report), max_registers=max((r.get("registers", 0) for r in report.values()),
-                                                                       default=0),
-                               spill_stores=sum(r.get("spill_stores", 0) for r in report.values()),
-                               spill_loads=sum(r.get("spill_loads", 0) for r in report.values()),
-                               stack_frame_max=max((r.get("stack_frame", 0) for r in report.values()), default=0),
-                               per_kernel={k[:120]: v for k, v in report.items()} if key.family == "ilqr" else None)
-    emit(phase="variants_build", seconds=build_s, keys=len(built), per_key_seconds=seconds, ptxas=ptxas,
-         workers=build.variant_workers())
+    # ---- 30. the variants, the slice's and the zoo's, built together ----
+    build_variants_phase(slice_variant_keys() + zoo_variant_keys())
 
     # ---- 31. each variant kernel against its plain version ----
     t0 = time.perf_counter()
@@ -2592,7 +2665,7 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
     zoo = {}
     for n, m in ZOO_SHAPES:
         cfg = MPCConfig(n_state=n, n_ctrl=m, T=T, lqr_iter=10, exit_unconverged=False, detach_unconverged=False)
-        arrays = config2_recipe(40 + n + m, 256, n, m)
+        arrays = config2_recipe(40 + n + m, ZOO_SHAPE_B, n, m)
 
         def solve(dev, grad=False):
             leaves = [torch.tensor(a, device=dev, requires_grad=grad) for a in arrays]
@@ -2607,7 +2680,7 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
         _, cpu = solve("cpu")
         obj_rel = float(((sol.objs.detach().cpu() - cpu.objs.detach()).abs() / cpu.objs.detach().abs().clamp_min(1.0)).max())
         zoo[(n, m)] = dict(n=n, m=m, n_iters=it, launches=got, objs_max_rel_vs_host=obj_rel)
-        emit(phase="slice_zoo_shape", B=256, T=T, **zoo[(n, m)])
+        emit(phase="slice_zoo_shape", B=ZOO_SHAPE_B, T=T, **zoo[(n, m)])
         if got != only(riccati=it, rollout=it, kkt=1) or not obj_rel <= 1e-5 or not all(bool(torch.isfinite(g).all())
                                                                                        for g in grads):
             raise AssertionError(f"(n, m) = ({n}, {m}) through its variants: {zoo[(n, m)]}")
@@ -2685,6 +2758,631 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 35-36: the dynamics zoo (CartpoleDx, VehicleDx, QuadrotorDx,
+# AcrobotDx), each env's own C++ step (csrc/<env>.cuh) in the fused iLQR
+# kernel, the line search and its twin, built as variants at first use;
+# BASELINE.json config 4's cartpole imitation step at B=4096.
+# ---------------------------------------------------------------------------
+
+ZOO_ENVS = ("cartpole", "vehicle", "quadrotor", "acrobot")
+# BASELINE.json config 4 (examples/il_cartpole.py:52-99): T=20, lqr_iter=10,
+# eps=1e-5, u in [-10, 10], B=4096, Adam 2e-2 on {"dyn", "logq"}
+IL4_B, IL4_STEPS, IL4_LR = 4096, 5, 2e-2
+# the other envs at their examples' widths (examples/il_vehicle.py,
+# il_quadrotor.py, il_acrobot.py): B, T, lqr_iter
+ZOO_WIDTHS = {"cartpole": (IL4_B, 20, 10), "vehicle": (1024, 20, 10), "quadrotor": (1024, 20, 14),
+              "acrobot": (1024, 25, 10)}
+ZOO_KERNEL_B = 256  # each fused kernel against its plain version
+ZOO_CPU_B = 64  # the scenarios held against the host
+ZOO_LS_B = 1024  # the line search's batch, at T=20 and (cartpole) T_LONG
+# each step's operations and dependent chain, counted from csrc/<env>.cuh
+# (its header writes the count out; a sine or a cosine counted as one): the
+# operations on values, the sines and cosines, and the longest chain of
+# dependent ones from x_t to x_t+1
+ZOO_STEP = {"cartpole": (40, 2, 14), "vehicle": (15, 4, 12), "quadrotor": (22, 2, 8), "acrobot": (106, 4, 17)}
+
+
+def zoo_variant_keys() -> list:
+    """Every variant the zoo's phases launch: each env's fused solve and line
+    search (its C++ step, csrc/<env>.cuh), and the Riccati sweep and KKT
+    backward at the cartpole's (5, 1), the quadrotor's (6, 2) and the
+    acrobot's (6, 1) (the vehicle's (4, 2) is prebuilt)."""
+    from diffmpc_tpu_torch.csrc.build import VariantKey as K
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    keys = []
+    for name in ZOO_ENVS:
+        env = il.kernel_env(zoo_model(name, "cpu"))
+        keys += [il.env_variant_key(env, "ilqr"), il.env_variant_key(env, "rollout")]
+    return keys + [K(family, n, m) for n, m in ((5, 1), (6, 2), (6, 1)) for family in ("riccati", "kkt")]
+
+
+def zoo_model(name: str, device, dtype=torch.float32):
+    """The env ``name`` with its default (true) params."""
+    from diffmpc_tpu_torch import models
+
+    return getattr(models, f"{name.capitalize()}Dx").default(dtype, device=device)
+
+
+def zoo_x_init(name: str, B: int, seed: int = 0) -> np.ndarray:
+    """The examples' starts (examples/common.py:35-75, il_quadrotor.py:42-57),
+    drawn with numpy: the cartpole and the acrobot (scale 0.08) near
+    upright, the vehicle off the lane at speed, the quadrotor off hover."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform
+    if name == "cartpole":
+        p, pdot, th, thdot = u(-0.5, 0.5, B), u(-0.5, 0.5, B), u(-0.3, 0.3, B), u(-0.5, 0.5, B)
+        x = [p, pdot, np.cos(th), np.sin(th), thdot]
+    elif name == "vehicle":
+        x = [np.zeros(B), u(-1.0, 1.0, B), u(-0.3, 0.3, B), u(3.0, 7.0, B)]
+    elif name == "quadrotor":
+        x = [u(-0.25, 0.25, B), u(-0.25, 0.25, B)] + [u(-0.2, 0.2, B) for _ in range(4)]
+    else:
+        th1, th2 = u(-0.08, 0.08, B), u(-0.08, 0.08, B)
+        x = [np.cos(th1), np.sin(th1), np.cos(th2), np.sin(th2), u(-0.08, 0.08, B), u(-0.08, 0.08, B)]
+    return np.stack(x, -1).astype(np.float32)
+
+
+def zoo_case(name: str, device, B: int = 0, seed: int = 0) -> dict:
+    """The env's example at ``B`` scenarios (its published width by
+    default): the true model and cost, the starts, the box (the vehicle's
+    per dimension, the quadrotor's [0, max_thrust]), the config (T,
+    lqr_iter, eps=1e-5, detach_unconverged as the examples), the learner's
+    first params, drawn from ``seed + 1`` as the examples draw them, and
+    ``make_problem(params) -> (cost, dx)``."""
+    from diffmpc_tpu_torch import MPCConfig, QuadCost
+
+    width, steps, iters = ZOO_WIDTHS[name]
+    B = B or width
+    dx = zoo_model(name, device)
+    q, p = dx.get_true_obj()
+    cost = QuadCost(torch.diag(q), p)
+    n, m = dx.n_state, dx.n_ctrl
+    if name == "cartpole":
+        lo, hi = -10.0, 10.0
+    elif name == "vehicle":
+        lo = torch.tensor([-dx.max_brake, -dx.max_steer], device=device)
+        hi = torch.tensor([dx.max_accel, dx.max_steer], device=device)
+    elif name == "quadrotor":
+        lo, hi = 0.0, dx.max_thrust
+    else:
+        lo, hi = -dx.max_torque, dx.max_torque
+    config = MPCConfig(n_state=n, n_ctrl=m, T=steps, lqr_iter=iters, eps=EPS, exit_unconverged=False,
+                       detach_unconverged=True)
+    rng = np.random.default_rng(seed + 1)
+    true = dx.params.cpu().numpy()
+    if name == "cartpole":
+        # il_cartpole.py:72-93: the params and the log cost weights, the goal kept
+        params0 = dict(dyn=torch.tensor(true * rng.uniform(0.75, 1.25, 4), dtype=torch.float32, device=device),
+                       logq=torch.log(q) + torch.tensor(rng.uniform(-0.5, 0.5, n + m), dtype=torch.float32,
+                                                        device=device))
+        goal = torch.tensor([0.0, 0.0, 1.0, 0.0, 0.0, 0.0], device=device)
+
+        def make_problem(prm):
+            qq = torch.exp(prm["logq"])
+            return QuadCost(torch.diag_embed(qq), -qq * goal.to(qq)), dx.replace(params=prm["dyn"])
+    else:
+        spread = {"vehicle": 0.3, "quadrotor": 0.25, "acrobot": 0.2}[name]
+        params0 = torch.log(torch.tensor(true * rng.uniform(1 - spread, 1 + spread, true.shape[0]),
+                                         dtype=torch.float32, device=device))
+
+        def make_problem(prm):
+            return cost, dx.replace(params=torch.exp(prm))
+
+    return dict(dx=dx, cost=cost, x_init=torch.tensor(zoo_x_init(name, B, seed), device=device), lo=lo, hi=hi,
+                config=config, params0=params0, make_problem=make_problem)
+
+
+def zoo_kernel_inputs(case: dict, steps: int) -> dict:
+    """The fused solve's inputs of a zoo case: C, c expanded over the horizon
+    and the batch, the bounds as (T, B, m)."""
+    x0 = case["x_init"]
+    B, device = x0.shape[0], x0.device
+    C, c = case["cost"].C, case["cost"].c
+    nm = C.shape[-1]
+    m = case["dx"].n_ctrl
+    box = [torch.as_tensor(b, dtype=torch.float32, device=device).expand(steps, B, m).contiguous()
+           for b in (case["lo"], case["hi"])]
+    return dict(x_init=x0, C=C.expand(steps, B, nm, nm), c=c.expand(steps, B, nm), dyn=case["dx"],
+                u_lower=box[0], u_upper=box[1])
+
+
+def zoo_step_ops(name: str, tangents: int = 0) -> int:
+    """Operations of one env step on a scalar carrying ``tangents`` dual parts
+    (each operation repeated on every tangent: a floor)."""
+    ops, trans, _ = ZOO_STEP[name]
+    return (1 + tangents) * (ops + trans)
+
+
+def zoo_ilqr_bound(name: str, res, B: int, steps: int, n_alpha: int, clock_mhz: float, per_scenario: bool) -> dict:
+    """variant_nn_ilqr_bound with the env's own step: the bytes (C's upper
+    triangle, c, the bounds, x_init and the params in; xs, us and the stats
+    out), the operations (the initial rollout, then for the iterations this
+    run took, per step: the box-mode Riccati step, the Jacobian by dual
+    numbers, the delta cost, the ladder's rollouts), or the slowest
+    scenario's chain (the initial rollout, then per iteration the sweep and
+    one rollout's depth for the whole ladder, and the pick)."""
+    from diffmpc_tpu_torch.diagnostics.card import bound as card_bound, chain_ms
+
+    dx = zoo_model(name, "cpu")
+    n, m = dx.n_state, dx.n_ctrl
+    nm = n + m
+    n_params = dx.params.shape[-1]
+    n_bytes = 4 * B * (steps * (tri(nm) + nm + 2 * m + n + m) + n + 6) + 4 * n_params * (B if per_scenario else 1)
+    roll = rollout_step_ops(n, m) - 2 * n * nm + zoo_step_ops(name)
+    per_step = riccati_step_ops(n, m, "box") + zoo_step_ops(name, tangents=nm) + 2 * nm * nm + n_alpha * roll
+    iters = res.n_iters.double().cpu()
+    n_ops = B * steps * roll + float(iters.sum()) * steps * per_step
+    fwd = 5 + ZOO_STEP[name][2]  # the control and its clip, then the step
+    back = riccati_step_depth(n, m, "box")
+    depth = steps * fwd + int(iters.max()) * (steps * (back + fwd) + 1)
+    return card_bound(n_bytes, n_ops, chain_ms(depth, clock_mhz))
+
+
+def zoo_rollout_bound(name: str, res, B: int, steps: int, clock_mhz: float) -> dict:
+    """env_rollout_bound with the env's own step."""
+    dx = zoo_model(name, "cpu")
+    return env_rollout_bound(dx.n_state, dx.n_ctrl, zoo_step_ops(name), ZOO_STEP[name][2], dx.params.shape[-1], res,
+                             B, steps, clock_mhz)
+
+
+def zoo_host_grads(case: dict, leaves: list, rebuild, sol, u_expert, cut: int, dtype) -> list:
+    """The imitation loss's gradient over the first ``cut`` scenarios on the
+    host, in ``dtype``, at the card's fixed point ``sol``: the model
+    linearized at the card's trajectory with gradients from ``leaves``
+    (``rebuild(leaves)`` gives the learnable params), the float64 KKT
+    backward of lqr_fixed_point, the unconverged scenarios held at the
+    card's solve (detach_unconverged)."""
+    from diffmpc_tpu_torch.mpc import _expand_bound, _expand_cost
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
+    from diffmpc_tpu_torch.ops.lqr_step import LqrSpec, lqr_fixed_point
+
+    config = case["config"]
+    steps, n, m = config.T, config.n_state, config.n_ctrl
+    ls = [a.detach().to("cpu", dtype).requires_grad_(True) for a in leaves]
+    cost, dx = case["make_problem"](rebuild(ls))
+    cost = _expand_cost(cost, steps, cut, dtype, "cpu")
+    xs = sol.xs.detach()[:, :cut].to("cpu", dtype)
+    us = sol.us.detach()[:, :cut].to("cpu", dtype)
+    F, f = linearize_dynamics(dx, xs, us)
+    lo = _expand_bound(torch.as_tensor(case["lo"]).cpu(), steps, cut, m, dtype, "cpu")
+    hi = _expand_bound(torch.as_tensor(case["hi"]).cpu(), steps, cut, m, dtype, "cpu")
+    spec = LqrSpec(n_state=n, constrained=True, tight_eps=config.tight_eps, back_eps=config.back_eps, use_cuda=False)
+    _, us2 = lqr_fixed_point(spec, case["x_init"][:cut].to("cpu", dtype), cost.C, cost.c, F, f, xs, us, lo, hi)
+    keep = sol.info.converged[:cut].cpu()[None, :, None]
+    us2 = torch.where(keep, us2, us)
+    return list(torch.autograd.grad(((us2 - u_expert[:, :cut].to("cpu", dtype)) ** 2).mean(), ls))
+
+
+def zoo_gradient_check(name: str, case: dict, leaves: list, rebuild, u_expert, counter) -> dict:
+    """The imitation loss over the first ZOO_CPU_B scenarios through
+    mpc_solve on the card at the learner's params, its gradient by one iLQR
+    and one KKT launch (``counter``: the launch counts' reset and read),
+    against
+    the host's float64 gradient at the card's fixed point: each leaf within
+    1e-3 of its max-abs, or no further than twice the host's float32
+    gradient (phase 32's rule). Returns the record."""
+    from diffmpc_tpu_torch import mpc_solve
+
+    config = case["config"]
+    reset, count = counter
+    ls = [a.detach().clone().requires_grad_(True) for a in leaves]
+    reset()
+    cost, dx = case["make_problem"](rebuild(ls))
+    sol = mpc_solve(config, case["x_init"], cost, dx, u_lower=case["lo"], u_upper=case["hi"])
+    g_card = torch.autograd.grad(((sol.us[:, :ZOO_CPU_B] - u_expert[:, :ZOO_CPU_B]) ** 2).mean(), ls)
+    launches = count()
+    g64 = zoo_host_grads(case, ls, rebuild, sol, u_expert, ZOO_CPU_B, torch.float64)
+    g32 = zoo_host_grads(case, ls, rebuild, sol, u_expert, ZOO_CPU_B, torch.float32)
+    rel = [float((a.cpu().double() - b).abs().max() / b.abs().max().clamp_min(1e-30)) for a, b in zip(g_card, g64)]
+    rel32 = [float((a.double() - b).abs().max() / b.abs().max().clamp_min(1e-30)) for a, b in zip(g32, g64)]
+    out = dict(launches=launches, first_scenarios=ZOO_CPU_B, rel_err_vs_float64_at_the_fixed_point=rel,
+               host_float32_rel_err_vs_float64=rel32, grad_max_abs=[float(g.abs().max()) for g in g_card],
+               converged_of_held=int(sol.info.converged[:ZOO_CPU_B].sum()))
+    if not all(bool(torch.isfinite(g).all()) for g in g_card) or any(r > max(1e-3, 2 * r32) for r, r32 in zip(rel, rel32)):
+        raise AssertionError(f"{name}: the gradient against the host's float64 one: {out}")
+    return out
+
+
+def zoo_line_search_inputs(name: str, B: int, steps: int, seed: int, device):
+    """rollout_inputs' recipe with the env's own step: a trajectory of random
+    controls inside the box through its forward, the box sweep's gains about
+    its linearization, the feedforward scaled by up to 8 so that the ladder
+    backs off."""
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
+    from diffmpc_tpu_torch.utils.batch import bmv
+
+    case = zoo_case(name, device, B, seed)
+    ins = zoo_kernel_inputs(case, steps)
+    dyn, lo, hi = ins["dyn"], ins["u_lower"], ins["u_upper"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u_hat = lo + (hi - lo) * torch.rand(lo.shape, generator=gen, device=device)
+    xs, x = [], ins["x_init"]
+    for t in range(steps):
+        xs.append(x)
+        x = dyn.forward(x, u_hat[t])
+    x_hat = torch.stack(xs)
+    F, _ = linearize_dynamics(dyn, x_hat, u_hat)
+    C, c = ins["C"], ins["c"]
+    res = ric.riccati_backward_cuda(C, c + bmv(C, torch.cat([x_hat, u_hat], -1)), F, None, dyn.n_state,
+                                    u_lower=lo, u_upper=hi, u_hat=u_hat)
+    scale = 0.5 + 7.5 * torch.rand((1, B, 1), generator=gen, device=device)
+    return (ins["x_init"], C, c, None, None, res.K, res.k * scale, x_hat, u_hat), dict(u_lower=lo, u_upper=hi, dyn=dyn)
+
+
+def zoo_line_search_check(name: str, got, plain, exact) -> dict:
+    """Phase 10's rule with the float64 plain version as the witness of the
+    trajectory (the states of an unstable env grow over the horizon): objs
+    within 1e-5 of the batch's largest, alpha equal on >= 99%, and where the
+    float32 sides' alpha and the float64 one agree, the kernel's trajectory
+    no further from the float64 one than twice the float32 plain version's,
+    plus 1e-4."""
+    out = line_search_agreement(f"{name} line search vs plain", got, plain, hold=False)
+    same = (got.alpha == plain.alpha) & (plain.alpha.double() == exact.alpha)
+
+    def traj_err(r):
+        return max(float((r.xs.double() - exact.xs)[:, same].abs().max()),
+                   float((r.us.double() - exact.us)[:, same].abs().max()))
+
+    out.update(kernel_traj_off_float64=traj_err(got), plain_traj_off_float64=traj_err(plain),
+               traj_scale=float(exact.xs.abs().max()), alpha_equal_float64_frac=float(same.float().mean()))
+    if out["objs_max_rel"] > 1e-5 or out["alpha_equal_frac"] < 0.99 \
+            or out["kernel_traj_off_float64"] > 2 * out["plain_traj_off_float64"] + 1e-4:
+        raise AssertionError(f"{name} line search vs plain: {out}")
+    return out
+
+
+class ZooRun:
+    """What the zoo's phases share: the card, the launch counters of every
+    kernel family they reach, and the results each phase leaves for the
+    kernels line."""
+
+    def __init__(self, device, smi: str, clock_mhz: float):
+        from diffmpc_tpu_torch.ops.cuda import ilqr as il
+        from diffmpc_tpu_torch.ops.cuda import kkt, kkt_stream, riccati_stream, rollout_stream
+        from diffmpc_tpu_torch.ops.cuda import riccati as ric
+        from diffmpc_tpu_torch.ops.cuda import rollout as rol
+
+        self.device, self.smi, self.clock_mhz = device, smi, clock_mhz
+        self.sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+        self.named = dict(ilqr=il.ilqr_solve_fused, kkt=kkt.kkt_backward_fused,
+                          kkt_stream=kkt_stream.kkt_backward_stream_cuda, riccati=ric.riccati_backward_cuda,
+                          riccati_stream=riccati_stream.riccati_backward_stream_cuda,
+                          rollout=rol.linesearch_rollout_cuda, rollout_stream=rollout_stream.linesearch_rollout_stream_cuda)
+        self.rows, self.fused, self.solves, self.searches = [], {}, {}, {}
+        self.main_launches = None
+
+    def reset(self):
+        for kern in self.named.values():
+            kern.launches = 0
+
+    def counts(self) -> dict:
+        torch.cuda.synchronize()
+        return {k: kern.launches for k, kern in self.named.items()}
+
+    def only(self, **want) -> dict:
+        return {k: want.get(k, 0) for k in self.named}
+
+
+ZOO_SRC = "diffmpc_tpu_torch/csrc/variants/"
+
+
+def zoo_config4(run: ZooRun) -> None:
+    """Phase 35: BASELINE.json config 4, the cartpole imitation step at
+    B=4096: the expert's controls from the true params, the first step's
+    gradient against the host's float64 one, then the main path (the expert
+    data and five Adam steps learning {"dyn", "logq"}, the counts set to 0
+    before and read after), one iLQR and one KKT launch a step, a finite
+    loss at every step; the KKT kernel at (5, 1) alone on the first step's
+    own inputs."""
+    from diffmpc_tpu_torch import mpc_solve
+    from diffmpc_tpu_torch.ops.cuda import kkt
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
+    from diffmpc_tpu_torch.parallel import generate_expert_data, init_train_state, make_dp_train_step
+
+    device, smi = run.device, run.smi
+    t0 = time.perf_counter()
+    case = zoo_case("cartpole", device)
+    config, lo, hi = case["config"], case["lo"], case["hi"]
+    _, u_expert, _ = generate_expert_data(config, case["cost"], case["dx"], case["x_init"], lo, hi)
+    keys = ("dyn", "logq")
+    grad_rec = zoo_gradient_check("config 4", case, [case["params0"][k] for k in keys],
+                                  lambda ls: dict(zip(keys, ls)), u_expert, (run.reset, run.counts))
+    if grad_rec["launches"] != run.only(ilqr=1, kkt=1):
+        raise AssertionError(f"config 4's gradient launched {grad_rec['launches']}")
+    # the first step's gradient norms, each leaf, over the whole batch
+    ls = [case["params0"][k].clone().requires_grad_(True) for k in keys]
+    cost, dx = case["make_problem"](dict(zip(keys, ls)))
+    sol = mpc_solve(config, case["x_init"], cost, dx, u_lower=lo, u_upper=hi)
+    g_first = torch.autograd.grad(((sol.us - u_expert) ** 2).mean(), ls)
+
+    opt = functools.partial(torch.optim.Adam, lr=IL4_LR)
+    step = make_dp_train_step(config, case["make_problem"], opt, u_lower=lo, u_upper=hi)
+    state = init_train_state(case["params0"], opt)
+    steps_rec, kkt_calls = [], []
+    run.reset()
+    _, u_expert, expert_objs = generate_expert_data(config, case["cost"], case["dx"], case["x_init"], lo, hi)
+    for i in range(IL4_STEPS):
+        before = run.counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with recording("diffmpc_tpu_torch.ops.lqr_step", "kkt_backward_fused", kkt_calls if i == 0 else []):
+            state, stats = step(state, case["x_init"], u_expert)
+        end.record()
+        end.synchronize()
+        got = {k: v - before[k] for k, v in run.counts().items()}
+        rec = dict(step=i, ms=start.elapsed_time(end), loss=float(stats.loss), grad_norm=float(stats.grad_norm),
+                   converged_frac=float(stats.converged_frac), clamp_frac=float(stats.clamp_frac), launches=got)
+        steps_rec.append(rec)
+        if got != run.only(ilqr=1, kkt=1) or not np.isfinite(rec["loss"]):
+            raise AssertionError(f"config 4's step {i}: {rec}")
+    run.main_launches = run.counts()
+    emit(phase="config4_il", B=IL4_B, T=config.T, lqr_iter=config.lqr_iter, steps=steps_rec,
+         expert_mean_obj=float(expert_objs.mean()), main_path_launches=run.main_launches,
+         first_grad_norms=dict(zip(keys, (float(g.norm()) for g in g_first))), first_grad_vs_host=grad_rec,
+         dyn=[float(v) for v in state.params["dyn"].detach().cpu()],
+         true_dyn=[float(v) for v in case["dx"].params.cpu()], card=smi)
+    # the KKT kernel at (5, 1) on the first step's own inputs, alone
+    (args, kw), = kkt_calls
+    lanes = kkt.kkt_lanes(IL4_B, 5, 1, run.sm_count, config.T)
+    out = {}
+    kkt.run_staged_kkt(timed_launch(kkt._cuda_launcher(device, 5, 1), 20, out), *args, reg=kw["reg"], lanes=lanes)
+    plain_kw = {k: v for k, v in kw.items() if k != "use_cuda"}
+    err = check_kkt("config 4's step, KKT (5, 1)", kkt.kkt_backward_fused(*args, **kw),
+                    kkt.kkt_backward_plain(*args, **plain_kw))
+    plain_ms = cuda_ms(lambda: kkt.kkt_backward_plain(*args, **plain_kw), 1, 1)
+    shared = dict(shared_C=kkt.reads_in_place(args[0]), shared_F=kkt.reads_in_place(args[2]))
+    kb = kkt_bound(IL4_B, 5, 1, config.T, run.clock_mhz, **shared)
+    # where a step's time goes: the forward solve, the attach's linearization
+    # (torch.func over every sample), the KKT wrapper; the rest is the
+    # step's own ops, the optimizer and the host
+    state_ls = [state.params[k].detach().clone().requires_grad_(True) for k in keys]
+    cost, dx = case["make_problem"](dict(zip(keys, state_ls)))
+    with torch.no_grad():
+        solve_ms = cuda_ms(lambda: mpc_solve(config, case["x_init"], cost, dx, u_lower=lo, u_upper=hi), 5, 2)
+        sol = mpc_solve(config, case["x_init"], cost, dx, u_lower=lo, u_upper=hi)
+    lin_ms = cuda_ms(lambda: linearize_dynamics(dx, sol.xs, sol.us), 5, 2)
+    kkt_wrap_ms = cuda_ms(lambda: kkt.kkt_backward_fused(*args, **kw), 10, 2)
+    step_ms = min(r["ms"] for r in steps_rec[1:])
+    emit(phase="config4_kkt", B=IL4_B, T=config.T, lanes=lanes, kernel_ms=out["ms"], plain_ms=plain_ms,
+         max_abs_err=err, bound=kb, reads_in_place=shared, card=smi)
+    emit(phase="config4_breakdown", B=IL4_B, step_ms=step_ms, mpc_solve_ms=solve_ms, attach_linearize_ms=lin_ms,
+         kkt_wrapper_ms=kkt_wrap_ms, kkt_kernel_ms=out["ms"],
+         rest_ms=step_ms - solve_ms - lin_ms - kkt_wrap_ms, card=smi)
+    run.rows.append(dict(name="kkt_backward_fused[(5, 1), config 4]", route="cuda", source=ZOO_SRC + "kkt.cu",
+                         replaces="diffmpc_tpu/ops/pallas/kkt.py:245", launches=run.main_launches["kkt"],
+                         max_abs_err=err, ms=out["ms"], plain_ms=plain_ms, bound_ms=kb["bound_ms"],
+                         bound_by=kb["bound_by"], library_ms=None, lanes=lanes))
+    emit(phase="config4_seconds", seconds=time.perf_counter() - t0)
+
+
+def zoo_kernels(run: ZooRun) -> None:
+    """Phase 35b: each env's fused kernel against its plain version on the
+    card, B=256, two iterations, phase 22's rule (the float64 plain solve as
+    the witness; phase 2's ties at m = 2), the cartpole with per-scenario
+    params too; every built lane count, with and without hoist_lin,
+    bit-equal to one lane over three iterations; the kernel alone at the
+    rule's lane count, the wrapper and the plain version timed."""
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    device, smi = run.device, run.smi
+    t0 = time.perf_counter()
+    two = dict(lqr_iter=2, eps=EPS)
+    for name in ZOO_ENVS:
+        zc = zoo_case(name, device, ZOO_KERNEL_B)
+        steps = zc["config"].T
+        for per_scenario in (False, True) if name == "cartpole" else (False,):
+            ins = zoo_kernel_inputs(zc, steps)
+            if per_scenario:  # each scenario its own physics, 0.8-1.2 of the true
+                gen = torch.Generator(device=device).manual_seed(35)
+                spread = 0.8 + 0.4 * torch.rand((ZOO_KERNEL_B, ins["dyn"].params.shape[-1]), generator=gen,
+                                                device=device)
+                ins["dyn"] = ins["dyn"].replace(params=ins["dyn"].params * spread)
+            kern = il.ilqr_solve_fused(**ins, **two)
+            lanes = il.ilqr_solve_fused.last_lanes
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            plain = il.ilqr_solve_plain(**ins, **two)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t1) * 1e3  # the plain version, timed once
+            exact = il.ilqr_solve_plain(**{k: v.double() if torch.is_tensor(v) else v.to(torch.float64)
+                                           for k, v in ins.items()}, **two)
+            agree = witnessed_agreement(f"{name} fused kernel, per_scenario={per_scenario}", kern, plain, exact,
+                                        ties=zc["dx"].n_ctrl > 1)
+            env = il.kernel_env(ins["dyn"])
+            args = (ins["x_init"], ins["C"], ins["c"], ins["dyn"], ins["u_lower"], ins["u_upper"])
+            staged = {}
+            for hoist in (False, True):
+                launch = il._cuda_launcher(device, env, hoist)
+                for L in il.ILQR_LANES:
+                    staged[(L, hoist)] = il.run_staged(launch, *args, lqr_iter=3, eps=EPS, lanes=L, hoist_lin=hoist)
+            bit_equal = lanes_bit_equal(f"{name} fused lanes, per_scenario={per_scenario}", staged)
+            record = dict(phase="zoo_kernel_vs_plain", env=name, per_scenario=per_scenario, B=ZOO_KERNEL_B, T=steps,
+                          lqr_iter=2, lanes=lanes, lanes_bit_equal_three_iterations=bit_equal, **agree)
+            if not per_scenario:
+                out = {}
+                res = il.run_staged(timed_launch(il._cuda_launcher(device, env, False), 10, out), *args, lanes=lanes,
+                                    **two)
+                wrap_ms = cuda_ms(lambda: il.ilqr_solve_fused(**ins, **two), 10, 2)
+                fb = zoo_ilqr_bound(name, res, ZOO_KERNEL_B, steps, N_ALPHA, run.clock_mhz, False)
+                run.fused[name] = dict(ms=out["ms"], wrapper_ms=wrap_ms, plain_ms=plain_ms, bound=fb, lanes=lanes,
+                                       max_abs_err=agree["us_max_abs"])
+                record.update(kernel_ms=out["ms"], wrapper_ms=wrap_ms, plain_ms=plain_ms, bound=fb, card=smi)
+            emit(**record)
+    emit(phase="zoo_kernels_seconds", seconds=time.perf_counter() - t0)
+
+
+def zoo_solves(run: ZooRun) -> None:
+    """Phase 36: each env through mpc_solve at its example's width (one iLQR
+    launch), the converged share and the times, the fused kernel alone at
+    that width; for the vehicle, the quadrotor and the acrobot the first
+    ZOO_CPU_B scenarios against the host's plain solve (the float64 one as
+    the witness) and the imitation loss's gradient through one iLQR and one
+    KKT launch against the host's float64 gradient."""
+    from diffmpc_tpu_torch import mpc_solve
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    device, smi = run.device, run.smi
+    t0 = time.perf_counter()
+    for name in ZOO_ENVS:
+        zc = zoo_case(name, device)
+        cfg = zc["config"]
+        B = zc["x_init"].shape[0]
+        solve_args = (cfg, zc["x_init"], zc["cost"], zc["dx"])
+        bounds = dict(u_lower=zc["lo"], u_upper=zc["hi"])
+        with torch.no_grad():
+            run.reset()
+            sol = mpc_solve(*solve_args, **bounds)
+            launches = run.counts()
+            if launches != run.only(ilqr=1):
+                raise AssertionError(f"{name}'s mpc_solve launched {launches}")
+            solve_ms = cuda_ms(lambda: mpc_solve(*solve_args, **bounds), 5, 2)
+        ins = zoo_kernel_inputs(zc, cfg.T)
+        knobs = dict(lqr_iter=cfg.lqr_iter, eps=cfg.eps)
+        env = il.kernel_env(zc["dx"])
+        lanes = il.ilqr_lanes(B, env, run.sm_count)
+        out = {}
+        res = il.run_staged(timed_launch(il._cuda_launcher(device, env, False), 10, out), ins["x_init"], ins["C"],
+                            ins["c"], ins["dyn"], ins["u_lower"], ins["u_upper"], lanes=lanes, **knobs)
+        record = dict(phase="zoo_main_path", env=name, B=B, T=cfg.T, lqr_iter=cfg.lqr_iter, launches=launches,
+                      converged_frac=float(sol.info.converged.float().mean()), mean_obj=float(sol.objs.mean()),
+                      max_n_iters=int(sol.info.n_iters), mean_qp_iters=float(sol.info.qp_iters.mean()),
+                      clamp_frac=float(sol.info.clamp_frac.mean()), mpc_solve_ms=solve_ms, kernel_ms=out["ms"],
+                      lanes=lanes, bound=zoo_ilqr_bound(name, res, B, cfg.T, N_ALPHA, run.clock_mhz, False), card=smi)
+        if name != "cartpole":  # config 4's own phase holds the cartpole's
+            cut = {k: (v[:ZOO_CPU_B] if k == "x_init" else v[:, :ZOO_CPU_B]).cpu() if torch.is_tensor(v) else
+                   v.to(device="cpu") for k, v in ins.items()}
+            kern = il.ilqr_solve_fused(**ins, **knobs)
+            head = kern._replace(**{f: getattr(kern, f)[:, :ZOO_CPU_B] if getattr(kern, f).ndim == 3 else
+                                    getattr(kern, f)[:ZOO_CPU_B] for f in kern._fields})
+            host = il.ilqr_solve_plain(**cut, **knobs)
+            exact = il.ilqr_solve_plain(**{k: v.double() if torch.is_tensor(v) else v.to(torch.float64)
+                                           for k, v in cut.items()}, **knobs)
+            record["vs_host"] = dict(first_scenarios=ZOO_CPU_B, **witnessed_agreement(
+                f"{name} mpc_solve, card vs host", head, host, exact, ties=cfg.n_ctrl > 1, converged_free=True))
+            with torch.no_grad():
+                expert = mpc_solve(*solve_args, **bounds).us
+            grad = zoo_gradient_check(name, zc, [zc["params0"]], lambda ls: ls[0], expert, (run.reset, run.counts))
+            if grad["launches"] != run.only(ilqr=1, kkt=1):
+                raise AssertionError(f"{name}'s solve + gradient launched {grad['launches']}")
+            prm = zc["params0"].clone().requires_grad_(True)
+
+            def solve_grad():
+                cost, dx = zc["make_problem"](prm)
+                s = mpc_solve(cfg, zc["x_init"], cost, dx, **bounds)
+                return torch.autograd.grad(((s.us - expert) ** 2).mean(), prm)
+
+            record.update(gradient=grad, solve_plus_grad_ms=cuda_ms(solve_grad, 3, 2))
+        run.solves[name] = launches
+        emit(**record)
+    emit(phase="zoo_main_path_seconds", seconds=time.perf_counter() - t0)
+
+
+def zoo_line_searches(run: ZooRun) -> None:
+    """Phase 36b: the line search with each env's step. The non-fused loop
+    (verbose=1) through mpc_solve at T=20 (the resident kernels: one Riccati
+    and one line-search launch an iteration), and for the cartpole at
+    T_LONG with a gradient (the twins, and one launch of the KKT twin); each
+    kernel on line-search inputs of the env (B=1024) against its plain
+    version by phase 10's rule, the float64 plain version as the witness of
+    the trajectory; every built lane count of the resident kernel and the
+    twin bit-equal to one lane; the kernel alone, the wrapper and the plain
+    version timed."""
+    from diffmpc_tpu_torch import mpc_solve
+    from diffmpc_tpu_torch.ops.cuda import rollout as rol
+    from diffmpc_tpu_torch.ops.cuda import rollout_stream
+
+    device, smi = run.device, run.smi
+    t0 = time.perf_counter()
+    for name, steps in [(n_, T) for n_ in ZOO_ENVS] + [("cartpole", T_LONG)]:
+        twin = steps != T
+        kind, ric_kind = ("rollout_stream", "riccati_stream") if twin else ("rollout", "riccati")
+        zc = zoo_case(name, device, ZOO_LS_B)
+        cfg = dataclasses.replace(zc["config"], T=steps, verbose=1, detach_unconverged=False)
+        prm = (zc["params0"]["dyn"] if name == "cartpole" else torch.exp(zc["params0"])).clone().requires_grad_(twin)
+        run.reset()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            sol = mpc_solve(cfg, zc["x_init"], zc["cost"], zc["dx"].replace(params=prm), u_lower=zc["lo"],
+                            u_upper=zc["hi"])
+            if twin:
+                torch.autograd.grad((sol.us**2).mean(), prm)
+        it = int(sol.info.n_iters)
+        got = run.counts()
+        want = run.only(**{ric_kind: it, kind: it}, **(dict(kkt_stream=1) if twin else {}))
+        if got != want or not printed.getvalue().strip():
+            raise AssertionError(f"{name} verbose=1 at T={steps}: launches {got} for {it} iterations")
+        ls_args, kw = zoo_line_search_inputs(name, ZOO_LS_B, steps, 3600 + steps, device)
+        dyn = kw["dyn"]
+        runner = rollout_stream.linesearch_rollout_stream_cuda if twin else rol.linesearch_rollout_cuda
+        got_ls = runner(*ls_args, **kw)
+        lanes = runner.last_lanes
+        plain = rol.linesearch_rollout_plain(*ls_args, **kw)
+        exact = rol.linesearch_rollout_plain(*(None if a is None else a.double() for a in ls_args),
+                                             u_lower=kw["u_lower"].double(), u_upper=kw["u_upper"].double(),
+                                             dyn=dyn.to(torch.float64))
+        agree = zoo_line_search_check(f"{name} T={steps}", got_ls, plain, exact)
+        # every built lane count bit-equal to one lane, the resident kernel
+        # and the twin alike
+        by_lanes = {}
+        for label, launcher in (("rollout", rol._cuda_launcher), ("rollout_stream", rollout_stream._stream_launcher)):
+            launch = launcher(device, dyn.n_state, dyn.n_ctrl, dyn)
+            for L in rol.ROLLOUT_LANES:
+                by_lanes[(label, L)] = rol.run_staged_rollout(launch, *ls_args, lanes=L, **kw)
+        bit_equal = lanes_bit_equal(f"{name} line search lanes, T={steps}", by_lanes)
+        launcher = rollout_stream._stream_launcher if twin else rol._cuda_launcher
+        out = {}
+        res = rol.run_staged_rollout(timed_launch(launcher(device, dyn.n_state, dyn.n_ctrl, dyn), 20, out), *ls_args,
+                                     lanes=lanes, **kw)
+        wrap_ms = cuda_ms(lambda: runner(*ls_args, **kw), 10, 2)
+        plain_ms = cuda_ms(lambda: rol.linesearch_rollout_plain(*ls_args, **kw), 1, 1)
+        rb = zoo_rollout_bound(name, res, ZOO_LS_B, steps, run.clock_mhz)
+        run.searches[(name, steps)] = dict(ms=out["ms"], plain_ms=plain_ms, bound=rb, lanes=lanes, launches=got[kind],
+                                           max_abs_err=agree["traj_max_abs_where_alpha_agrees"])
+        emit(phase="zoo_line_search", env=name, B=ZOO_LS_B, T=steps, kernel=kind, lanes=lanes, n_iters=it,
+             path_launches=got, lanes_bit_equal=bit_equal, kernel_ms=out["ms"], wrapper_ms=wrap_ms,
+             plain_ms=plain_ms, bound=rb, card=smi, **agree)
+    emit(phase="zoo_line_search_seconds", seconds=time.perf_counter() - t0)
+
+
+def zoo_rows(run: ZooRun) -> list:
+    """The zoo's records for the kernels line: each env's fused kernel (its
+    launches on config 4's main path for the cartpole, on its mpc_solve for
+    the others) and line search (on its verbose=1 solve), and the KKT at
+    (5, 1)."""
+    keep = ("bound_ms", "bound_by")
+    rows = list(run.rows)
+    for name in ZOO_ENVS:
+        f = run.fused[name]
+        launches = run.main_launches["ilqr"] if name == "cartpole" else run.solves[name]["ilqr"]
+        rows.append(dict(name=f"ilqr_solve_fused[{name.capitalize()}Dx]", route="cuda", source=ZOO_SRC + "ilqr.cu",
+                         env_step=f"diffmpc_tpu_torch/csrc/{name}.cuh", replaces="diffmpc_tpu/ops/pallas/ilqr.py:458",
+                         launches=launches, max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
+                         **{k: f["bound"][k] for k in keep}, library_ms=None, lanes=f["lanes"], B=ZOO_KERNEL_B,
+                         lqr_iter=2))
+    for (name, steps), s in run.searches.items():
+        twin = steps != T
+        rows.append(dict(name=f"linesearch_rollout_pallas{'_stream' if twin else ''}[{name.capitalize()}Dx, T={steps}]",
+                         route="cuda", source=ZOO_SRC + "rollout.cu", env_step=f"diffmpc_tpu_torch/csrc/{name}.cuh",
+                         replaces="diffmpc_tpu/ops/pallas/rollout_stream.py:196" if twin else
+                         "diffmpc_tpu/ops/pallas/rollout.py:180", launches=s["launches"], max_abs_err=s["max_abs_err"],
+                         ms=s["ms"], plain_ms=s["plain_ms"], **{k: s["bound"][k] for k in keep}, library_ms=None,
+                         lanes=s["lanes"], B=ZOO_LS_B))
+    return rows
+
+
+ZOO_PHASES = (zoo_config4, zoo_kernels, zoo_solves, zoo_line_searches)
+
+
+def zoo(device, smi: str, clock_mhz: float) -> list:
+    """Phases 35-36 in order; returns the kernels' records."""
+    run = ZooRun(device, smi, clock_mhz)
+    for phase in ZOO_PHASES:
+        phase(run)
+    return zoo_rows(run)
+
+
 def kkt_lanes_ab(device, smi: str) -> None:
     """Phase 34 (diffmpc_tpu_torch.diagnostics.ab_kkt_lanes): every KKT call
     of the recorded solves + gradients (the headline at B=1024 and 65,536,
@@ -2752,9 +3450,14 @@ def main() -> int:
         riccati_sources_seconds={k: v for k, v in per_source.items() if re.fullmatch(r"riccati(_stream|_l\d+)?\.cu", k)},
         riccati_kernels=riccati,
     )
-    if "--slice-only" in sys.argv[1:]:
-        # phases 30-33 alone: the variants and the slice they serve
-        rows = variants_slice(device, smi, clock_mhz)
+    if "--slice-only" in sys.argv[1:] or "--zoo-only" in sys.argv[1:]:
+        # phases 30-33 alone: the variants and the slice they serve; or the
+        # zoo's variants and phases 35-36 alone
+        if "--zoo-only" in sys.argv[1:]:
+            build_variants_phase(zoo_variant_keys())
+            rows = zoo(device, smi, clock_mhz)
+        else:
+            rows = variants_slice(device, smi, clock_mhz)
         print(smi, flush=True)
         emit(kernels=rows)
         emit(ok=True, device=dict(platform="gpu", kind=kind, count=torch.cuda.device_count()))
@@ -2763,7 +3466,7 @@ def main() -> int:
 
 
 def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
-    """Phases 2-29, then the kernels line and the ok line."""
+    """Phases 2-36, then the kernels line and the ok line."""
     from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.models import PendulumDx
     from diffmpc_tpu_torch.ops.cuda import kkt as kkt_mod
@@ -3209,6 +3912,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     probe_row = data_parallel(device, smi)
     slice_rows = variants_slice(device, smi, clock_mhz)
     kkt_lanes_ab(device, smi)
+    zoo_records = zoo(device, smi, clock_mhz)
 
     print(smi, flush=True)
     emit(kernels=[
@@ -3270,6 +3974,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         *learned,
         probe_row,
         *slice_rows,
+        *zoo_records,
     ])
     emit(ok=True, device=dict(platform="gpu", kind=kind, count=torch.cuda.device_count()))
     return 0

@@ -1,7 +1,8 @@
 """Carry the JAX package's state over to the port, through numpy arrays.
 
-The functions take the JAX package's objects (``PendulumDx``,
-``NNDynamics``, ``AffineDynamics``, ``QuadCost``, ``LinDx``, ``MPCConfig``)
+The functions take the JAX package's objects (``PendulumDx`` and the other
+envs of its zoo, ``NNDynamics``, ``AffineDynamics``, ``QuadCost``, ``LinDx``,
+``MPCConfig``)
 and read only their fields, so this module imports neither
 JAX nor the JAX package: ``np.asarray`` copies a JAX array to the host.
 Both packages then compute the same problem.
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from .models.dynamics import AffineDynamics, NNDynamics
-from .models.envs.pendulum import PendulumDx
+from .models.envs import AcrobotDx, CartpoleDx, PendulumDx, QuadrotorDx, VehicleDx
 from .types import GradMethods, LinDx, MPCConfig, QuadCost
 
 
@@ -37,6 +38,38 @@ def pendulum_from_jax(dx, dtype=None, device="cuda") -> PendulumDx:
         n_state=int(dx.n_state),
         n_ctrl=int(dx.n_ctrl),
     )
+
+
+def _env_from_jax(cls, dx, dtype, device):
+    """The port's ``cls`` with the JAX env's params (shared ``(P,)`` or
+    per-scenario ``(B, P)``) and every other field (``dt``, the clamps and
+    limits, the shape), each as a Python scalar."""
+    statics = {f.name: type(f.default)(getattr(dx, f.name)) for f in dataclasses.fields(cls) if f.name != "params"}
+    return cls(params=to_tensor(dx.params, dtype, device), **statics)
+
+
+def cartpole_from_jax(dx, dtype=None, device="cuda") -> CartpoleDx:
+    """The port's ``CartpoleDx`` with the JAX model's params and constants,
+    on the card unless ``device`` says otherwise."""
+    return _env_from_jax(CartpoleDx, dx, dtype, device)
+
+
+def vehicle_from_jax(dx, dtype=None, device="cuda") -> VehicleDx:
+    """The port's ``VehicleDx`` with the JAX model's params and constants
+    (``v_ref`` among them), on the card unless ``device`` says otherwise."""
+    return _env_from_jax(VehicleDx, dx, dtype, device)
+
+
+def quadrotor_from_jax(dx, dtype=None, device="cuda") -> QuadrotorDx:
+    """The port's ``QuadrotorDx`` with the JAX model's params and constants,
+    on the card unless ``device`` says otherwise."""
+    return _env_from_jax(QuadrotorDx, dx, dtype, device)
+
+
+def acrobot_from_jax(dx, dtype=None, device="cuda") -> AcrobotDx:
+    """The port's ``AcrobotDx`` with the JAX model's params and constants,
+    on the card unless ``device`` says otherwise."""
+    return _env_from_jax(AcrobotDx, dx, dtype, device)
 
 
 def nn_dynamics_from_jax(dx, dtype=None, device="cuda") -> NNDynamics:

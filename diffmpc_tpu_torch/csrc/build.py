@@ -188,10 +188,16 @@ def _dlopen(path: str) -> ctypes.CDLL:
 ENUM_DEFAULT, ENUM_LOOP, ENUM_THREE = 0, 1, 2
 
 
+# The envs with a C++ step of their own (csrc/<name>.cuh, struct
+# <Name>Env): a fused-solve or line-search variant of one is built from
+# -DDMPC_ENV=<Name>Env and -DDMPC_ENV_HEADER="<name>.cuh".
+CPP_ENVS = ("pendulum", "cartpole", "vehicle", "quadrotor", "acrobot")
+
+
 class VariantKey(NamedTuple):
     """A kernel variant: the family (``ilqr``, ``rollout``, ``riccati``,
     ``kkt``, ``riccati_blocked``), the shape ``(n, m)``, the env (``linear``,
-    ``pendulum`` or ``nn``) with an MLP's hidden widths, the box QP's
+    ``nn`` or one of :data:`CPP_ENVS`) with an MLP's hidden widths, the box QP's
     enumeration mode (``ENUM_*``: ``ilqr`` and ``riccati``) and the value
     update's form (``exact``: ``ilqr`` and ``kkt``). The MLP's activation and
     ``residual`` are run-time fields of its env, not part of the key."""
@@ -239,8 +245,10 @@ def variant_defines(key: VariantKey) -> list[str]:
     defs = [f"-DDMPC_N={key.n}", f"-DDMPC_M={key.m}", f"-DDMPC_ENUM={key.enum}", f"-DDMPC_EXACT={int(key.exact)}"]
     if key.env == "nn":
         defs.append('-DDMPC_HIDDEN="{}"'.format("x".join(map(str, key.hidden))))
-    elif key.env == "pendulum":
-        defs.append("-DDMPC_PENDULUM")
+    elif key.env in CPP_ENVS:
+        defs += [f"-DDMPC_ENV={key.env.capitalize()}Env", f'-DDMPC_ENV_HEADER="{key.env}.cuh"']
+    elif key.env != "linear":
+        raise ValueError(f"no C++ step for the env {key.env!r}: linear, nn or one of {CPP_ENVS}")
     return defs
 
 

@@ -95,10 +95,103 @@ DMPC_HD Dual<T, K> operator/(const Dual<T, K>& a, T s) {
   for (int i = 0; i < K; ++i) r.d[i] = a.d[i] / s;
   return r;
 }
+template <class T, int K>
+DMPC_HD Dual<T, K> operator-(const Dual<T, K>& a, T s) {
+  Dual<T, K> r = a;
+  r.v = a.v - s;
+  return r;
+}
+template <class T, int K>
+DMPC_HD Dual<T, K> operator-(T s, const Dual<T, K>& a) {
+  Dual<T, K> r(s - a.v);
+  for (int i = 0; i < K; ++i) r.d[i] = -a.d[i];
+  return r;
+}
+// s / a, whose tangent is -(s / a) da / a, as Dual(s) / a computes it
+template <class T, int K>
+DMPC_HD Dual<T, K> operator/(T s, const Dual<T, K>& a) {
+  const T q = s / a.v;
+  Dual<T, K> r(q);
+  for (int i = 0; i < K; ++i) r.d[i] = -(q * a.d[i]) / a.v;
+  return r;
+}
+
+// ---- float arithmetic that is never contracted ----
+//
+// nvcc may fuse a product into a following sum (an FMA), and whether it does
+// depends on the code around the expression: two instantiations of one step
+// (the line search at one lane and at two, say) can round it differently.
+// nc_mul, nc_add and nc_sub are single-rounded as written on the card
+// (__fmul_rn, __fadd_rn, __fsub_rn are never contracted) and on the host;
+// NcFloat is a float whose operators are these. An env step whose
+// instantiations part from each other bit for bit computes on NcFloat in
+// place of float (NoContract), so that every lane count of every kernel that
+// runs it rounds the same float32 operations.
+
+DMPC_HD float nc_mul(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+DMPC_HD float nc_add(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+DMPC_HD float nc_sub(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+
+struct NcFloat {
+  float v;
+
+  DMPC_HD NcFloat() : v(0.0f) {}
+  DMPC_HD NcFloat(float x) : v(x) {}
+};
+
+DMPC_HD NcFloat operator+(NcFloat a, NcFloat b) { return nc_add(a.v, b.v); }
+DMPC_HD NcFloat operator-(NcFloat a, NcFloat b) { return nc_sub(a.v, b.v); }
+DMPC_HD NcFloat operator*(NcFloat a, NcFloat b) { return nc_mul(a.v, b.v); }
+DMPC_HD NcFloat operator/(NcFloat a, NcFloat b) { return a.v / b.v; }
+DMPC_HD NcFloat operator-(NcFloat a) { return -a.v; }
+DMPC_HD NcFloat operator+(NcFloat a, float b) { return nc_add(a.v, b); }
+DMPC_HD NcFloat operator+(float a, NcFloat b) { return nc_add(a, b.v); }
+DMPC_HD NcFloat operator-(NcFloat a, float b) { return nc_sub(a.v, b); }
+DMPC_HD NcFloat operator-(float a, NcFloat b) { return nc_sub(a, b.v); }
+DMPC_HD NcFloat operator*(NcFloat a, float b) { return nc_mul(a.v, b); }
+DMPC_HD NcFloat operator*(float a, NcFloat b) { return nc_mul(a, b.v); }
+DMPC_HD NcFloat operator/(NcFloat a, float b) { return a.v / b; }
+DMPC_HD NcFloat operator/(float a, NcFloat b) { return a / b.v; }
+
+// The scalar an env step computes on for S: NcFloat for float, S itself for
+// a Dual (its tangents are the linearization's, which no lane count shares
+// out); nc_out converts back.
+template <class S>
+struct NoContract {
+  using type = S;
+};
+template <>
+struct NoContract<float> {
+  using type = NcFloat;
+};
+DMPC_HD float nc_out(NcFloat x) { return x.v; }
+template <class T, int K>
+DMPC_HD Dual<T, K> nc_out(const Dual<T, K>& x) {
+  return x;
+}
 
 // ---- elementary functions, one overload for float and one for Dual ----
 
 DMPC_HD float value_of(float x) { return x; }
+DMPC_HD float value_of(NcFloat x) { return x.v; }
 template <class T, int K>
 DMPC_HD T value_of(const Dual<T, K>& x) {
   return x.v;
@@ -108,6 +201,9 @@ DMPC_HD float dmpc_sin(float x) { return sinf(x); }
 DMPC_HD float dmpc_cos(float x) { return cosf(x); }
 // 1 / sqrt, written out: rsqrtf is an approximation on the card
 DMPC_HD float dmpc_rsqrt(float x) { return 1.0f / sqrtf(x); }
+DMPC_HD NcFloat dmpc_sin(NcFloat x) { return sinf(x.v); }
+DMPC_HD NcFloat dmpc_cos(NcFloat x) { return cosf(x.v); }
+DMPC_HD NcFloat dmpc_rsqrt(NcFloat x) { return 1.0f / sqrtf(x.v); }
 
 template <int K>
 DMPC_HD Dual<float, K> dmpc_sin(const Dual<float, K>& a) {

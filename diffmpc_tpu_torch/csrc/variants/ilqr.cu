@@ -1,5 +1,6 @@
 // A variant of the fused iLQR solve (ilqr.cu, ilqr_nn.cu): the kernels of one
-// env, the MLP of DMPC_HIDDEN at (DMPC_N, DMPC_M) or the pendulum, with the
+// env, the MLP of DMPC_HIDDEN at (DMPC_N, DMPC_M) or the C++ env of DMPC_ENV
+// (the pendulum, the cartpole, the vehicle, the quadrotor, the acrobot), with the
 // box QP's enumeration mode DMPC_ENUM and the value update's form
 // DMPC_EXACT, without and with the HoistLin pre-pass, at the lane count
 // DMPC_VARIANT_L, or the launchers (variant.cuh). csrc/build.py builds it at
@@ -10,11 +11,10 @@
 
 #if defined(DMPC_HIDDEN)
 using VariantEnv = VariantNNEnv;
-#elif defined(DMPC_PENDULUM)
-#include "pendulum.cuh"
-using VariantEnv = PendulumEnv;
+#elif defined(DMPC_ENV)
+using VariantEnv = VariantCppEnv;
 #else
-#error "an iLQR variant names its env: DMPC_HIDDEN or DMPC_PENDULUM"
+#error "an iLQR variant names its env: DMPC_HIDDEN or DMPC_ENV"
 #endif
 
 #if DMPC_VARIANT_L > 0

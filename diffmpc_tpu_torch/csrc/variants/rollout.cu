@@ -1,8 +1,9 @@
 // A variant of the line search and its twin (rollout.cu, rollout_stream.cu):
-// the kernels of one shape (DMPC_N, DMPC_M), for linear dynamics (staged,
-// both launchers, as the prebuilt ones) or the MLP of DMPC_HIDDEN (resident
-// and staged), at the lane count DMPC_VARIANT_L, or the launchers
-// (variant.cuh). csrc/build.py builds it at first use.
+// the kernels of one shape (DMPC_N, DMPC_M), for linear dynamics or the C++
+// env of DMPC_ENV (staged, both launchers, as the prebuilt ones of linear
+// dynamics and the pendulum) or the MLP of DMPC_HIDDEN (resident and
+// staged), at the lane count DMPC_VARIANT_L, or the launchers (variant.cuh).
+// csrc/build.py builds it at first use.
 
 #include "rollout_launch.cuh"
 #include "variant.cuh"
@@ -13,6 +14,10 @@
       const RolloutArgs*, const VariantNNEnv&, cudaStream_t);                                                    \
   PREFIX template int rollout_launch_detail::launch<DMPC_N, DMPC_M, VariantNNEnv, true, L>(                      \
       const RolloutArgs*, const VariantNNEnv&, cudaStream_t);
+#elif defined(DMPC_ENV)
+#define DMPC_VARIANT_ROLLOUT(PREFIX, L)                                                                          \
+  PREFIX template int rollout_launch_detail::launch<DMPC_N, DMPC_M, VariantCppEnv, true, L>(                     \
+      const RolloutArgs*, const VariantCppEnv&, cudaStream_t);
 #else
 #define DMPC_VARIANT_ROLLOUT(PREFIX, L)                                                                          \
   PREFIX template int rollout_launch_detail::launch<DMPC_N, DMPC_M, LinearEnv, true, L>(const RolloutArgs*,      \
@@ -33,6 +38,13 @@ extern "C" int diffmpc_rollout_variant(const RolloutArgs* a, const VariantNNEnv*
   return rollout_launch<DMPC_N, DMPC_M, false>(a, *env, s);
 }
 extern "C" int diffmpc_rollout_stream_variant(const RolloutArgs* a, const VariantNNEnv* env, void* s) {
+  return rollout_launch<DMPC_N, DMPC_M, true>(a, *env, s);
+}
+#elif defined(DMPC_ENV)
+extern "C" int diffmpc_rollout_variant(const RolloutArgs* a, const VariantCppEnv* env, void* s) {
+  return rollout_launch<DMPC_N, DMPC_M, true>(a, *env, s);
+}
+extern "C" int diffmpc_rollout_stream_variant(const RolloutArgs* a, const VariantCppEnv* env, void* s) {
   return rollout_launch<DMPC_N, DMPC_M, true>(a, *env, s);
 }
 #else

@@ -2,7 +2,10 @@
 // (variant_defines) gives each of its translation units:
 //   DMPC_N, DMPC_M      the shape (n, m);
 //   DMPC_HIDDEN         an MLP env's hidden widths as a string, "16x16";
-//   DMPC_PENDULUM       the pendulum env (the fused solve's other C++ step);
+//   DMPC_ENV            an env with a C++ step of its own, its struct's
+//                       name (CartpoleEnv), and DMPC_ENV_HEADER its header
+//                       as a string, "cartpole.cuh" (csrc/build.py,
+//                       CPP_ENVS);
 //   DMPC_ENUM           the box QP's enumeration mode, a PnqpEnum
 //                       (riccati_entries.cuh; default 0);
 //   DMPC_EXACT          1 for the simplified value update (default 0);
@@ -27,6 +30,14 @@
 
 // the value update's form as the templates take it
 constexpr bool kVariantExact = DMPC_EXACT != 0;
+
+#ifdef DMPC_ENV
+#include DMPC_ENV_HEADER
+
+// The C++ env of the key, at its own (n, m)
+using VariantCppEnv = DMPC_ENV;
+static_assert(VariantCppEnv::N == DMPC_N && VariantCppEnv::M == DMPC_M, "DMPC_N, DMPC_M are the env's shape");
+#endif
 
 #ifdef DMPC_HIDDEN
 #include "nn_mlp.cuh"

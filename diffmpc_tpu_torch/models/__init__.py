@@ -1,4 +1,7 @@
 from .dynamics import AffineDynamics, Dynamics, NNDynamics, autodiff_grad_input
-from .envs import PendulumDx
+from .envs import AcrobotDx, CartpoleDx, PendulumDx, QuadrotorDx, VehicleDx
 
-__all__ = ["AffineDynamics", "Dynamics", "NNDynamics", "PendulumDx", "autodiff_grad_input"]
+__all__ = [
+    "AcrobotDx", "AffineDynamics", "CartpoleDx", "Dynamics", "NNDynamics", "PendulumDx", "QuadrotorDx", "VehicleDx",
+    "autodiff_grad_input",
+]

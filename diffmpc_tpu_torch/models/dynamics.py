@@ -98,9 +98,16 @@ class Dynamics:
         (AUTO_DIFF equals ANALYTIC here; models override with closed forms).
         Per-scenario params map the Jacobian jointly over ``(params, x, u)``
         on the scenario axis: closing over ``(B, P)`` params inside a
-        per-sample map would broadcast the wrong shapes."""
+        per-sample map would broadcast the wrong shapes. The Jacobians come
+        back in ``forward``'s dtype, as the JAX package's do: under
+        ``jacfwd`` a Python float in a sum can promote the tangents of a
+        float32 step to float64."""
+        dtype = torch.promote_types(x.dtype, u.dtype)
+        p = getattr(self, "params", None)
+        if isinstance(p, torch.Tensor):
+            dtype = torch.promote_types(dtype, p.dtype)
         if not self.param_batch_shape:
-            return autodiff_grad_input(self.forward, x, u)
+            return tuple(J.to(dtype) for J in autodiff_grad_input(self.forward, x, u))
         if x.ndim not in (2, 3):
             raise ValueError(f"per-scenario params need x of shape (B, n) or (T, B, n); got {tuple(x.shape)}")
 
@@ -110,7 +117,7 @@ class Dynamics:
         f = vmap(one)  # over the scenario axis
         if x.ndim == 3:
             f = vmap(f, in_dims=(None, 0, 0))  # over time
-        return f(self.params, x, u)
+        return tuple(J.to(dtype) for J in f(self.params, x, u))
 
     def __call__(self, x, u):
         return self.forward(x, u)

@@ -29,7 +29,7 @@ import torch
 
 from ...csrc.build import ENUM_DEFAULT, VariantKey
 from ...models.dynamics import ACTIVATIONS, NNDynamics
-from ...models.envs.pendulum import PendulumDx
+from ...models.envs import AcrobotDx, CartpoleDx, PendulumDx, QuadrotorDx, VehicleDx
 from .riccati_entries import _clip, _masked_chol_solve, _pnqp_entries, _value_update, pnqp_enum_flag, pnqp_is_exact
 
 
@@ -142,7 +142,9 @@ def ilqr_solve_plain(
     lo = u_lower.to(dtype).expand(T, B, m).permute(0, 2, 1)
     hi = u_upper.to(dtype).expand(T, B, m).permute(0, 2, 1)
     ui = None if u_init is None else u_init.to(dtype).permute(0, 2, 1)
-    x0 = list(x_init.t())
+    # dense entries: forward-mode differentiation refuses a start expanded
+    # over the batch (one memory location for every scenario)
+    x0 = list(x_init.t().contiguous())
     params = dyn.kernel_params().to(dtype)
     params = list(params.t()) if params.ndim == 2 else list(params)
     zero = torch.zeros(B, dtype=dtype, device=x_init.device)
@@ -336,6 +338,43 @@ class _PendulumEnv(ctypes.Structure):
     ]
 
 
+class _CartpoleEnv(ctypes.Structure):
+    """ctypes mirror of ``struct CartpoleEnv`` in ``csrc/cartpole.cuh``."""
+
+    _fields_ = [("dt", ctypes.c_float), ("max_force", ctypes.c_float), ("clamp_ctrl", ctypes.c_int)]
+
+
+class _VehicleEnv(ctypes.Structure):
+    """ctypes mirror of ``struct VehicleEnv`` in ``csrc/vehicle.cuh``."""
+
+    _fields_ = [
+        ("max_accel", ctypes.c_float),
+        ("max_brake", ctypes.c_float),
+        ("max_steer", ctypes.c_float),
+        ("max_speed", ctypes.c_float),
+        ("dt", ctypes.c_float),
+        ("clamp_ctrl", ctypes.c_int),
+    ]
+
+
+class _QuadrotorEnv(ctypes.Structure):
+    """ctypes mirror of ``struct QuadrotorEnv`` in ``csrc/quadrotor.cuh``."""
+
+    _fields_ = [("max_thrust", ctypes.c_float), ("dt", ctypes.c_float), ("clamp_ctrl", ctypes.c_int)]
+
+
+class _AcrobotEnv(ctypes.Structure):
+    """ctypes mirror of ``struct AcrobotEnv`` in ``csrc/acrobot.cuh``."""
+
+    _fields_ = [
+        ("max_torque", ctypes.c_float),
+        ("max_speed1", ctypes.c_float),
+        ("max_speed2", ctypes.c_float),
+        ("dt", ctypes.c_float),
+        ("clamp_ctrl", ctypes.c_int),
+    ]
+
+
 class _NNEnv(ctypes.Structure):
     """ctypes mirror of the fields of ``struct NNEnv`` in
     ``csrc/nn_mlp.cuh``, the same for every architecture."""
@@ -360,11 +399,12 @@ class KernelEnv(NamedTuple):
     suffix of its prebuilt launchers (``diffmpc_<kind>_<symbol>``; None where
     only a variant has it), its ``(n, m)``, the length ``P`` of its
     ``kernel_params``, whether they may be per-scenario ``(B, P)``, whether
-    its step is cheap (a few dozen operations, the C++ env's
+    its step is cheap (at most about a hundred operations, the C++ env's
     ``kCheapStep``), which the fused kernel's lane groups and their rule read
     (:func:`keeps_lane_trajectories`, :func:`ilqr_lanes`), and its variant
-    key's env and widths (``pendulum``, or ``nn`` with the MLP's hidden
-    widths: :func:`kernel_library`)."""
+    key's env and widths (a C++ env's name, ``pendulum`` or ``cartpole``
+    among them, or ``nn`` with the MLP's hidden widths:
+    :func:`kernel_library`)."""
 
     struct: ctypes.Structure
     symbol: Optional[str]
@@ -377,9 +417,28 @@ class KernelEnv(NamedTuple):
     hidden: tuple = ()
 
 
-def _pendulum_env(dyn: PendulumDx) -> KernelEnv:
-    struct = _PendulumEnv(dyn.max_torque, dyn.max_speed, dyn.dt, int(dyn.clamp_ctrl))
-    return KernelEnv(struct, "pendulum", PendulumDx.n_state, PendulumDx.n_ctrl, 3, True, True)
+# The envs with a C++ step of their own: model class -> its env struct (each
+# field the model's attribute of the same name), its name (the variant key's
+# env, csrc/build.py's CPP_ENVS: the struct's header csrc/<name>.cuh), the
+# length P of its params, and the suffix of its prebuilt launchers (None:
+# only its variants have them, built at first use). Every one of their steps
+# is cheap (the headers' kCheapStep: at most ~110 operations).
+_CPP_ENVS = {
+    PendulumDx: (_PendulumEnv, "pendulum", 3, "pendulum"),
+    CartpoleDx: (_CartpoleEnv, "cartpole", 4, None),
+    VehicleDx: (_VehicleEnv, "vehicle", 2, None),
+    QuadrotorDx: (_QuadrotorEnv, "quadrotor", 4, None),
+    AcrobotDx: (_AcrobotEnv, "acrobot", 4, None),
+}
+
+
+def _cpp_env(dyn) -> KernelEnv:
+    """The kernels' view of a model with a C++ step (:data:`_CPP_ENVS`):
+    shared ``(P,)`` or per-scenario ``(B, P)`` params."""
+    cls = type(dyn)
+    struct_type, kind, n_params, symbol = _CPP_ENVS[cls]
+    struct = struct_type(*(getattr(dyn, name) for name, _ in struct_type._fields_))
+    return KernelEnv(struct, symbol, cls.n_state, cls.n_ctrl, n_params, True, True, kind)
 
 
 def _nn_env(dyn: NNDynamics) -> KernelEnv:
@@ -398,7 +457,7 @@ def _nn_env(dyn: NNDynamics) -> KernelEnv:
 
 
 # model class -> its KernelEnv
-_KERNEL_ENVS = {PendulumDx: _pendulum_env, NNDynamics: _nn_env}
+_KERNEL_ENVS = {**{cls: _cpp_env for cls in _CPP_ENVS}, NNDynamics: _nn_env}
 
 
 def kernel_env(dyn) -> KernelEnv:
@@ -406,10 +465,11 @@ def kernel_env(dyn) -> KernelEnv:
     model without a C++ step."""
     make = _KERNEL_ENVS.get(type(dyn))
     if make is None:
-        names = " and ".join(cls.__name__ for cls in _KERNEL_ENVS)
+        names = [cls.__name__ for cls in _KERNEL_ENVS]
         raise NotImplementedError(
-            f"the CUDA kernels have a C++ step for {names} only, not {type(dyn).__name__}: "
-            "the other envs come with the rest of the dynamics zoo (ROADMAP.md, queue 1)"
+            f"the CUDA kernels have a C++ step for {', '.join(names[:-1])} and {names[-1]} only, not "
+            f"{type(dyn).__name__}: a model rides them with a C++ step of its own (csrc/<env>.cuh, "
+            "ops/cuda/ilqr.py's _CPP_ENVS)"
         )
     return make(dyn)
 

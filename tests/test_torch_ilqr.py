@@ -213,7 +213,8 @@ def test_kernel_staging_rejects_what_the_kernel_does_not_take():
         def kernel_params(self):
             return dx.params
 
-    with pytest.raises(NotImplementedError, match="PendulumDx and NNDynamics only"):
+    with pytest.raises(NotImplementedError,
+                       match="PendulumDx, CartpoleDx, VehicleDx, QuadrotorDx, AcrobotDx and NNDynamics only"):
         run_staged(never, *args[:3], OtherEnv(), *args[4:])
     # an MLP: the instantiated architectures stage and launch, the others raise
     gen = torch.Generator().manual_seed(0)

@@ -112,6 +112,7 @@ from diffmpc_tpu_torch.ops.linearize import linearize_dynamics  # noqa: E402
 from diffmpc_tpu_torch.ops.lqr import lqr_rollout  # noqa: E402
 from diffmpc_tpu_torch.utils.batch import bmv  # noqa: E402
 from oracles import random_lqr_problem  # noqa: E402
+from torch_zoo_cases import ZOO, kernel_problem, port_model  # noqa: E402
 from torch_parity import (  # noqa: E402
     as_numpy,
     assert_chaos,
@@ -125,6 +126,7 @@ from torch_parity import (  # noqa: E402
 SHIM = r"""
 #include <vector>
 
+#include "dual.cuh"
 #include "ilqr.cuh"
 #include "nn_mlp.cuh"
 #include "pendulum.cuh"
@@ -267,6 +269,29 @@ extern "C" int diffmpc_riccati_pieces_host(const PieceArgs* a, const PendulumEnv
 
 extern "C" int diffmpc_shard_probe_host(const float* x, float* out, int L) {
   shard_probe_fill(x, out, L, 0, 1);
+  return 0;
+}
+
+// dual.cuh's mixed operators with a constant, for B values a[b] with the
+// tangents da[b][0..3] and the constant s[b]: a - s, s - a, s / a on
+// Dual<float, 4> (values and tangents: vals[3 B], tans[3 B][4]) and on float
+// and NcFloat (plain[3 B], nc[3 B])
+extern "C" int diffmpc_dual_mixed_host(int B, const float* a, const float* da, const float* s, float* vals,
+                                       float* tans, float* plain, float* nc) {
+  for (int b = 0; b < B; ++b) {
+    Dual<float, 4> x(a[b]);
+    for (int i = 0; i < 4; ++i) x.d[i] = da[4 * b + i];
+    const Dual<float, 4> r[3] = {x - s[b], s[b] - x, s[b] / x};
+    const float f[3] = {a[b] - s[b], s[b] - a[b], s[b] / a[b]};
+    const NcFloat y(a[b]);
+    const NcFloat g[3] = {y - s[b], s[b] - y, s[b] / y};
+    for (int k = 0; k < 3; ++k) {
+      vals[3 * b + k] = r[k].v;
+      for (int i = 0; i < 4; ++i) tans[4 * (3 * b + k) + i] = r[k].d[i];
+      plain[3 * b + k] = f[k];
+      nc[3 * b + k] = nc_out(g[k]);
+    }
+  }
   return 0;
 }
 """
@@ -526,6 +551,69 @@ extern "C" int diffmpc_kkt_variant_host(const KktArgs* a, int n, int m, int exac
 """
 
 
+# The dynamics zoo's C++ steps (csrc/<env>.cuh) in the fused solve and the
+# line search, each env a unit of its own compiled beside SHIM from the -D
+# macros its variant is built from on the card (csrc/build.py's
+# variant_defines: DMPC_ENV names the struct, DMPC_ENV_HEADER its header,
+# read by variants/variant.cuh), plus ZOO_NAME for its symbols: the solve
+# and the line search (its slices read from the arrays, or staged: the twin)
+# at every DMPC_LANES count.
+SHIM_ZOO = r"""
+#include <vector>
+
+#include "variants/variant.cuh"
+
+#include "ilqr.cuh"
+#include "rollout.cuh"
+
+#define ZOO_CAT2(a, b) a##b
+#define ZOO_CAT(a, b) ZOO_CAT2(a, b)
+using Env = VariantCppEnv;
+
+template <int L>
+static int zoo_ilqr_group(const IlqrArgs* a, const Env* env) {
+  if (!ilqr_lane_scratch_ok<Env, L>(*a)) return 1;
+  std::vector<float> slots(ilqr_group_slot_floats<Env::N, Env::M>());
+  const HostLanes<L> g{slots.data()};
+  for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<Env::N, Env::M, false>(*a, *env, b, g);
+  return 0;
+}
+
+template <bool STREAM, int L>
+static int zoo_rollout_group(const RolloutArgs* a, const Env* env) {
+  if (!rollout_lane_scratch_ok<L>(*a)) return 1;
+  std::vector<float> slots(rollout_group_slot_floats<Env::N, Env::M, Env, L>());
+  const HostLanes<L> g{slots.data()};
+  for (int b = 0; b < a->B; ++b) linesearch_rollout_scenario<Env::N, Env::M, STREAM>(*a, *env, b, a->params, g);
+  return 0;
+}
+
+extern "C" int ZOO_CAT(diffmpc_ilqr_solve_host_, ZOO_NAME)(const IlqrArgs* a, const Env* env) {
+  switch (a->lanes) {
+#define HOST_ZOO_LANE_CASE(_, L_) \
+  case L_:                        \
+    return zoo_ilqr_group<L_>(a, env);
+    DMPC_LANES(HOST_ZOO_LANE_CASE, _)
+#undef HOST_ZOO_LANE_CASE
+  }
+  return 1;
+}
+
+extern "C" int ZOO_CAT(diffmpc_rollout_host_, ZOO_NAME)(const RolloutArgs* a, const Env* env, int stream) {
+  switch (a->lanes) {
+#define HOST_ZOO_ROLLOUT_CASE(_, L_) \
+  case L_:                           \
+    return stream ? zoo_rollout_group<true, L_>(a, env) : zoo_rollout_group<false, L_>(a, env);
+    DMPC_LANES(HOST_ZOO_ROLLOUT_CASE, _)
+#undef HOST_ZOO_ROLLOUT_CASE
+  }
+  return 1;
+}
+"""
+
+ZOO_KEYS = {"cartpole": (5, 1), "vehicle": (4, 2), "quadrotor": (6, 2), "acrobot": (6, 1)}
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
@@ -540,10 +628,18 @@ def host_lib(tmp_path_factory):
         (d / f"{name}.cpp").write_text(text)
         procs.append(subprocess.Popen([*flags, "-c", "-o", str(d / f"{name}.o"), str(d / f"{name}.cpp")],
                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    (d / "shim_zoo.cpp").write_text(SHIM_ZOO)
+    zoo_units = []
+    for env, (n, m) in ZOO_KEYS.items():
+        defines = [*build.variant_defines(build.VariantKey("ilqr", n, m, env)), f"-DZOO_NAME={env}"]
+        zoo_units.append(f"shim_zoo_{env}")
+        procs.append(subprocess.Popen([*flags, *defines, "-c", "-o", str(d / f"{zoo_units[-1]}.o"),
+                                       str(d / "shim_zoo.cpp")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
     for proc in procs:
         _, err = proc.communicate()
         assert proc.returncode == 0, err
-    objs = [str(d / f"{name}.o") for name, _ in units]
+    objs = [str(d / f"{name}.o") for name, _ in units] + [str(d / f"{name}.o") for name in zoo_units]
     proc = subprocess.run([*flags, "-shared", "-o", str(so), *objs], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(so))
@@ -1799,3 +1895,100 @@ def test_host_build_rollout_63_lanes_equal_one_lane_and_match_plain(host_lib, st
     assert len(np.unique(one.alpha.numpy())) > 1
     for lanes in ROLLOUT_LANES:
         _assert_equal_results(run_staged_rollout(launcher(stream), *args, lanes=lanes, **kw), one)
+
+
+# ---------------------------------------------------------------------------
+# The dynamics zoo's C++ steps (csrc/<env>.cuh), built through variant.cuh's
+# DMPC_ENV as the card builds them (SHIM_ZOO), and dual.cuh's operators.
+# ---------------------------------------------------------------------------
+
+
+def test_host_build_dual_mixed_operators_match_their_formulas(host_lib):
+    """``Dual - T``, ``T - Dual`` and ``T / Dual`` (the cartpole's
+    ``4/3 - m_pole cos^2 / M`` among them) at ``Dual<float, 4>``: values
+    equal to float's, bit for bit, and tangents the formulas' (d(a - s) = da,
+    d(s - a) = -da, d(s / a) = -(s / a) da / a) within float32 rounding;
+    ``NcFloat`` gives float's values on the host."""
+    B = 64
+    rng = np.random.default_rng(1400)
+    a = rng.uniform(0.5, 2.0, B).astype(np.float32) * rng.choice([-1, 1], B).astype(np.float32)
+    da = rng.standard_normal((B, 4)).astype(np.float32)
+    s_ = rng.standard_normal(B).astype(np.float32)
+    vals, tans = np.zeros((B, 3), np.float32), np.zeros((B, 3, 4), np.float32)
+    plain, nc = np.zeros((B, 3), np.float32), np.zeros((B, 3), np.float32)
+    ptr = [x.ctypes.data_as(ctypes.c_void_p) for x in (a, da, s_, vals, tans, plain, nc)]
+    assert host_lib.diffmpc_dual_mixed_host(B, *ptr) == 0
+    np.testing.assert_array_equal(vals, plain)
+    np.testing.assert_array_equal(nc, plain)
+    np.testing.assert_array_equal(plain[:, 0], a - s_)
+    np.testing.assert_array_equal(plain[:, 1], s_ - a)
+    np.testing.assert_array_equal(plain[:, 2], s_ / a)
+    a64, da64, s64 = a.astype(np.float64), da.astype(np.float64), s_.astype(np.float64)
+    np.testing.assert_array_equal(tans[:, 0], da)
+    np.testing.assert_array_equal(tans[:, 1], -da)
+    np.testing.assert_allclose(tans[:, 2], -(s64 / a64)[:, None] * da64 / a64[:, None], rtol=1e-6, atol=1e-7)
+
+
+ZOO_HOST_CASES = ["cartpole", "cartpole_per_scenario", "vehicle", "quadrotor", "acrobot"]
+
+
+def _zoo_launcher(host_lib, name):
+    struct = type(ilqr_mod.kernel_env(port_model(name, torch.float32)).struct)
+    return _ilqr_launcher(host_lib, f"diffmpc_ilqr_solve_host_{name}", struct)
+
+
+@pytest.mark.parametrize("case", ZOO_HOST_CASES)
+def test_host_build_zoo_solve_matches_plain_and_equals_one_lane(host_lib, case):
+    """Each env's C++ step in the fused solve (B=8, the golden's starts, cost
+    and box, T=10): one iteration within 1e-4 of the plain version with
+    ``n_iters`` equal; every built lane count bit-equal to one lane over
+    three iterations (the ladder's decay 0.8, so that the picks spread)."""
+    name = case.split("_")[0]
+    args = kernel_problem(name, 8, 10, torch.float32, per_scenario=case.endswith("scenario"), seed=1401)
+    launch = _zoo_launcher(host_lib, name)
+    first = dict(lqr_iter=1, eps=0.0)
+    assert_tight(as_numpy(run_staged(launch, *args, **first)), as_numpy(ilqr_solve_plain(*args, **first)))
+    three = dict(lqr_iter=3, eps=1e-5, decay=0.8)
+    one = run_staged(launch, *args, **three)
+    for lanes in ILQR_LANES[1:]:
+        _assert_equal_results(run_staged(launch, *args, lanes=lanes, **three), one)
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_host_build_zoo_line_search_matches_plain_and_equals_one_lane(host_lib, name):
+    """Each env's C++ step in the line search (B=8, T=10): the non-fused
+    loop's inputs (a rollout of random controls in the box, the box sweep's
+    gains about it, the feedforward scaled by up to 8), the resident
+    kernel's host build against the plain version (the rollout tolerances
+    above), and every built lane count of it and of the twin bit-equal to
+    one lane."""
+    B, T = 8, 10
+    x0, C, c, dyn, lo, hi = kernel_problem(name, B, T, torch.float32, seed=1402)
+    n = dyn.n_state
+    gen = torch.Generator().manual_seed(1403)
+    u_hat = lo + (hi - lo) * torch.rand(lo.shape, generator=gen)
+    xs = [x0]
+    for t in range(T - 1):
+        xs.append(dyn.forward(xs[-1], u_hat[t]))
+    x_hat = torch.stack(xs)
+    F, _ = linearize_dynamics(dyn, x_hat, u_hat)
+    gains = riccati_backward_plain(C, c + bmv(C, torch.cat([x_hat, u_hat], -1)), F, None, n, u_lower=lo, u_upper=hi,
+                                   u_hat=u_hat)
+    k = gains.k * (0.5 + 7.5 * torch.rand((1, B, 1), generator=gen))
+    args = (x0, C, c, None, None, gains.K, k, x_hat, u_hat)
+    kw = dict(u_lower=lo, u_upper=hi, dyn=dyn)
+    fn = getattr(host_lib, f"diffmpc_rollout_host_{name}")
+    fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.POINTER(type(ilqr_mod.kernel_env(dyn).struct)), ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    def launcher(stream):
+        def launch(args, n, m, env):
+            assert fn(args, env, stream) == 0
+
+        return launch
+
+    got = run_staged_rollout(launcher(0), *args, **kw)
+    _assert_rollout_matches(got, linesearch_rollout_plain(*args, **kw))
+    for stream in (0, 1):
+        for lanes in ROLLOUT_LANES:
+            _assert_equal_results(run_staged_rollout(launcher(stream), *args, lanes=lanes, **kw), got)

@@ -1,9 +1,10 @@
 """The PyTorch port imports torch and never JAX, not even indirectly.
 
 In a fresh interpreter where ``import jax`` fails, every module of
-``diffmpc_tpu_torch`` imports (the non-fused path's among them, by name),
-and the fused and the non-fused solve run on the CPU, on the pendulum, a
-``LinDx``, a small and a large MLP and ``AffineDynamics``. The chip smoke script
+``diffmpc_tpu_torch`` imports (the non-fused path's and the dynamics
+zoo's among them, by name), and the fused and the non-fused solve run on
+the CPU, on the pendulum, a ``LinDx``, a small and a large MLP,
+``AffineDynamics`` and each env of the zoo. The chip smoke script
 imports no JAX either, and refuses to run without a card.
 """
 
@@ -32,7 +33,8 @@ new = ["ops.cuda.riccati", "ops.cuda.rollout", "ops.pnqp", "ops.smallchol", "ops
        "ops.assoc_riccati", "ops.cuda.riccati_blocked", "ops.cuda.riccati_pieces", "diagnostics.card",
        "diagnostics.ab_blocked_ilp", "diagnostics.profile_riccati_pieces", "diagnostics.ab_nn_reread",
        "models.dynamics", "parallel.training", "convert", "parallel.mesh", "parallel.distributed",
-       "parallel.dryrun", "ops.cuda.shard_probe", "utils.tree"]
+       "parallel.dryrun", "ops.cuda.shard_probe", "utils.tree", "models.envs.cartpole", "models.envs.vehicle",
+       "models.envs.quadrotor", "models.envs.acrobot"]
 assert all(f"diffmpc_tpu_torch.{m}" in names for m in new), names
 assert "diffmpc_tpu" not in sys.modules and "jax" in sys.modules
 from diffmpc_tpu_torch.models import PendulumDx
@@ -64,6 +66,16 @@ for model in (NNDynamics.init(3, 1, hidden=(8,), residual=True, device="cpu", ge
               AffineDynamics(0.9 * torch.eye(3), torch.ones(3, 1))):
     sol = mpc_solve(cfg, 0.1 * x, QuadCost(torch.diag(q), p), model, u_lower=-2.0, u_upper=2.0)
     assert bool(torch.isfinite(sol.objs).all()) and sol.us.abs().max() <= 2.0
+from diffmpc_tpu_torch.models import AcrobotDx, CartpoleDx, QuadrotorDx, VehicleDx
+starts = {CartpoleDx: [0.1, 0.0, 1.0, 0.0, 0.0], VehicleDx: [0.0, 0.5, 0.0, 5.0], QuadrotorDx: [0.1] * 6,
+          AcrobotDx: [1.0, 0.0, 1.0, 0.0, 0.0, 0.0]}
+for model, start in starts.items():
+    dx = model.default(device="cpu")
+    n, m = dx.n_state, dx.n_ctrl
+    q, p = dx.get_true_obj()
+    sol = mpc_solve(MPCConfig(n_state=n, n_ctrl=m, T=T, lqr_iter=1, exit_unconverged=False),
+                    torch.tensor(start).expand(B, n), QuadCost(torch.diag(q), p), dx, u_lower=0.0, u_upper=1.0)
+    assert bool(torch.isfinite(sol.objs).all()) and sol.us.abs().max() <= 1.0
 print("modules", len(names))
 """
 

@@ -245,7 +245,8 @@ def test_staging_rejects_what_the_kernel_does_not_take():
         run_staged_rollout(never, *t[:7], t[7][:, :, :2], t[8])
     with pytest.raises(ValueError, match="both set"):
         run_staged_rollout(never, *t, u_lower=torch.tensor(-1.0))
-    with pytest.raises(NotImplementedError, match="PendulumDx and NNDynamics only"):
+    with pytest.raises(NotImplementedError,
+                       match="PendulumDx, CartpoleDx, VehicleDx, QuadrotorDx, AcrobotDx and NNDynamics only"):
         run_staged_rollout(never, *t, dyn=OtherEnv())
     # a fusable MLP off the prebuilt architecture table stages and launches:
     # its kernels are a variant built at first use, not a raise

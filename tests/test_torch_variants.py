@@ -23,7 +23,14 @@ torch = pytest.importorskip("torch")
 from diffmpc_tpu_torch import MPCConfig  # noqa: E402
 from diffmpc_tpu_torch.csrc import build  # noqa: E402
 from diffmpc_tpu_torch.csrc.build import ENUM_DEFAULT, ENUM_LOOP, ENUM_THREE, VariantKey  # noqa: E402
-from diffmpc_tpu_torch.models import NNDynamics, PendulumDx  # noqa: E402
+from diffmpc_tpu_torch.models import (  # noqa: E402
+    AcrobotDx,
+    CartpoleDx,
+    NNDynamics,
+    PendulumDx,
+    QuadrotorDx,
+    VehicleDx,
+)
 from diffmpc_tpu_torch.ops.cuda import ilqr as il  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda import kkt as kkt_mod  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda import kkt_stream as kkt_stream_mod  # noqa: E402
@@ -188,8 +195,9 @@ def test_fusable_mlps_resolve_to_their_variant(fake_build, n, m, hidden):
 
 def test_fused_launcher_symbols(fake_build):
     """The prebuilt MLPs and the pendulum keep their launchers at the
-    default flags; a flag makes a variant of the same env, with the
-    pendulum's own macro; an MLP past the fusable gate raises."""
+    default flags; a flag makes a variant of the same env, naming the
+    pendulum's C++ step (DMPC_ENV, DMPC_ENV_HEADER); an MLP past the fusable
+    gate raises."""
     pend = il.kernel_env(PendulumDx.default(device="cpu"))
     nn8 = il.kernel_env(NNDynamics.init(3, 1, hidden=(8,), device="cpu"))
     assert il.env_variant_key(pend, "ilqr") is None and il.env_variant_key(nn8, "ilqr") is None
@@ -198,7 +206,7 @@ def test_fused_launcher_symbols(fake_build):
     il._cuda_launcher(torch.device("cpu"), pend, False)
     assert fake_build == []
     il._cuda_launcher(torch.device("cpu"), pend, False, exact=True)
-    assert {"-DDMPC_PENDULUM", "-DDMPC_EXACT=1"} <= defines(fake_build[0])
+    assert {"-DDMPC_ENV=PendulumEnv", '-DDMPC_ENV_HEADER="pendulum.cuh"', "-DDMPC_EXACT=1"} <= defines(fake_build[0])
     fake_build.clear()
     nn63 = il.kernel_env(NNDynamics.init(6, 3, hidden=(16, 16), device="cpu"))
     il._cuda_launcher(torch.device("cpu"), nn63, True, pnqp_enum="1")
@@ -379,3 +387,64 @@ def test_config_fields_reach_every_family(monkeypatch):
     lin.us.sum().backward()
     assert {("ilqr", "1", 1e-6), ("riccati", "1", 1e-6), ("kkt", None, 1e-6)} <= set(seen)
     assert all(s[2] == 1e-6 for s in seen)
+
+
+# ---------------------------------------------------------------------------
+# The dynamics zoo: each env's C++ step as a variant.
+# ---------------------------------------------------------------------------
+
+ZOO = [(CartpoleDx, "cartpole", "CartpoleEnv", 5, 1), (VehicleDx, "vehicle", "VehicleEnv", 4, 2),
+       (QuadrotorDx, "quadrotor", "QuadrotorEnv", 6, 2), (AcrobotDx, "acrobot", "AcrobotEnv", 6, 1)]
+
+
+@pytest.mark.parametrize("cls,name,struct,n,m", ZOO, ids=[z[1] for z in ZOO])
+def test_zoo_envs_resolve_to_their_variant(fake_build, cls, name, struct, n, m):
+    """Each env of the zoo reaches its kernels through a variant of its own
+    key (no prebuilt launcher): the fused solve's (with and without the
+    pre-pass) and the line search's and its twin's launchers take the
+    variant's ``diffmpc_*_variant`` symbols, every unit built from the env's
+    struct and header (``DMPC_ENV``, ``DMPC_ENV_HEADER``) at its (n, m), and
+    the launch passes the env's own struct."""
+    dyn = cls.default(device="cpu")
+    env = il.kernel_env(dyn)
+    assert (env.symbol, env.kind, env.n, env.m, env.per_scenario) == (None, name, n, m, True)
+    assert il.env_variant_key(env, "ilqr") == VariantKey("ilqr", n, m, name)
+    assert il.env_variant_key(env, "rollout") == VariantKey("rollout", n, m, name)
+    assert il.env_variant_key(env, "ilqr", ENUM_DEFAULT, True) == VariantKey("ilqr", n, m, name, exact=True)
+    macros = {f"-DDMPC_ENV={struct}", f'-DDMPC_ENV_HEADER="{name}.cuh"', f"-DDMPC_N={n}", f"-DDMPC_M={m}"}
+    for hoist in (False, True):
+        assert callable(il._cuda_launcher(torch.device("cpu"), env, hoist))
+    assert len(fake_build) == len(build.VARIANT_SOURCES["ilqr"][1]) + 1
+    assert all(macros <= defines(cmd) and cmd[-1].endswith(os.path.join("variants", "ilqr.cu")) for cmd in fake_build)
+    fake_build.clear()
+    rol._cuda_launcher(torch.device("cpu"), n, m, dyn)
+    ros._stream_launcher(torch.device("cpu"), n, m, dyn)
+    assert len(fake_build) == len(build.VARIANT_SOURCES["rollout"][1]) + 1
+    assert all(macros <= defines(cmd) and cmd[-1].endswith(os.path.join("variants", "rollout.cu")) for cmd in fake_build)
+    assert type(env.struct).__name__ == f"_{struct}"
+    assert [getattr(env.struct, f) for f, _ in env.struct._fields_] == pytest.approx(
+        [float(getattr(dyn, f)) for f, _ in env.struct._fields_])
+
+
+def test_zoo_linear_shapes_and_the_acrobots_kkt_resolve_to_their_variant(fake_build):
+    """The Riccati sweep, the line search's linear kernel and the KKT
+    backward at the zoo's shapes other than the prebuilt (4, 2) are
+    variants, the KKT pair at the acrobot's (6, 1) among them; (4, 2), the
+    vehicle's, keeps its prebuilt launchers."""
+    for n, m in ((5, 1), (6, 2), (6, 1)):
+        for kind in ("riccati", "riccati_stream", "kkt_backward", "kkt_backward_stream", "rollout"):
+            family = il._KIND_FAMILY[kind][0]
+            assert il.kernel_variant_key(kind, n, m) == VariantKey(family, n, m)
+        kkt_mod._cuda_launcher(torch.device("cpu"), n, m)
+        kkt_stream_mod._stream_launcher(torch.device("cpu"), n, m)
+    assert any(defines(cmd) >= {"-DDMPC_N=6", "-DDMPC_M=1"} for cmd in fake_build)
+    assert all(cmd[-1].endswith(os.path.join("variants", "kkt.cu")) for cmd in fake_build)
+    for kind in ("riccati", "kkt_backward", "rollout"):
+        assert il.kernel_variant_key(kind, 4, 2) is None
+
+
+def test_a_variant_key_names_a_known_env():
+    """A key whose env has no C++ step raises before any nvcc starts."""
+    with pytest.raises(ValueError, match="no C\\+\\+ step for the env 'segway'"):
+        build.variant_defines(VariantKey("ilqr", 4, 1, "segway"))
+    assert set(build.CPP_ENVS) == {k for _, k, *_ in il._CPP_ENVS.values()}

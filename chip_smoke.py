@@ -264,7 +264,10 @@ Phases, one line of output each (JSON where it carries numbers):
    read after it), a finite loss at each, their ms, converged share and
    loss; the first step's gradient on the first 64 scenarios against the
    host's float64 gradient at the card's fixed point (phase 32's rule) and
-   its norms; the KKT kernel at (5, 1) alone on the first step's inputs;
+   its norms; each step's forward solve, attach and KKT wrapper timed in
+   place on the card and the host, and one more step under torch.profiler
+   for the card's idle share; the KKT kernel at (5, 1) alone on the first
+   step's inputs;
 35b. each env's fused kernel (CartpoleDx, VehicleDx, QuadrotorDx,
    AcrobotDx: its own C++ step, csrc/<env>.cuh) against its plain version,
    B=256, two iterations, by phase 22's rule (the float64 plain solve as the
@@ -277,10 +280,10 @@ Phases, one line of output each (JSON where it carries numbers):
    B=4096, T=20; the vehicle B=1024, T=20, lqr_iter=10, its per-dimension
    box; the quadrotor B=1024, T=20, lqr_iter=14, box [0, 5]; the acrobot
    B=1024, T=25, lqr_iter=10, box +-4): one iLQR launch, the converged
-   share, the times; for the last three the first 64 scenarios against the
-   host's plain solve (phase 22's rule) and the imitation loss's gradient
-   through one iLQR and one KKT launch against the host's float64 gradient
-   (phase 32's rule);
+   share, the times, the first 64 scenarios against the host's plain solve
+   (phase 22's rule; the cartpole's at config 4's B=4096 and lqr_iter=10);
+   for the last three the imitation loss's gradient through one iLQR and
+   one KKT launch against the host's float64 gradient (phase 32's rule);
 36b. the line search with each env's step: mpc_solve with verbose=1 at
    T=20 (one Riccati and one line-search launch an iteration) and, for the
    cartpole, at T=128 with a gradient (the three twins); each kernel on the
@@ -539,6 +542,43 @@ def recording(module_name: str, name: str, calls: list):
         yield
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def timed_spans(targets: dict, spans: dict):
+    """Each function of ``targets`` (``{label: (module name, function
+    name)}``) replaced, while inside, by a pass-through that appends to
+    ``spans[label]`` its call's CUDA events (start, end: on the card, the
+    card's waits for the host included) and its seconds on the host's
+    clock."""
+    saved = []
+    for label, (module_name, name) in targets.items():
+        module = importlib.import_module(module_name)
+        fn = getattr(module, name)
+
+        def timed(*args, _fn=fn, _label=label, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = _fn(*args, **kw)
+            end.record()
+            spans.setdefault(_label, []).append((start, end, time.perf_counter() - t0))
+            return out
+
+        setattr(module, name, timed)
+        saved.append((module, name, fn))
+    try:
+        yield
+    finally:
+        for module, name, fn in reversed(saved):
+            setattr(module, name, fn)
+
+
+def span_ms(spans: dict) -> dict:
+    """``{label: {"card_ms", "host_ms"}}`` summed over each label's calls
+    (after the card has run them)."""
+    return {label: dict(card_ms=sum(s.elapsed_time(e) for s, e, _ in calls), host_ms=sum(h for _, _, h in calls) * 1e3)
+            for label, calls in spans.items()}
 
 
 def check_kkt(name: str, kernel, plain) -> float:
@@ -1592,26 +1632,42 @@ def nn_step_depth(nn) -> int:
     return sum(a + 1 for a in w[:-1]) + len(w) - 2 + 1
 
 
-def nn_ilqr_bound(nn, B: int, steps: int, sum_iters: float, max_iters: int, n_alpha: int, clock_mhz: float) -> dict:
-    """The fused solve's bound with the MLP step and a ladder of ``n_alpha``
-    steps: its bytes (C's upper triangle, c, the bounds per step, x_init and
-    the weights in; xs, us and the six stats out), its operations (the
-    initial rollout, then for the iterations this run took, ``sum_iters``
-    summed over the scenarios, per step: the sweep's Riccati step, the
-    Jacobian by dual numbers, the delta cost, the ladder's rollouts), or its
-    slowest scenario's serial chain (the initial rollout, then per iteration
-    the sweep, one rollout's depth for the whole ladder and the pick: the
-    chosen trajectory is kept, not replayed), whichever is largest."""
+def env_ilqr_bound(n: int, m: int, step_ops: int, jac_ops: int, step_depth: int, n_params: int, res, B: int,
+                   steps: int, n_alpha: int, clock_mhz: float, qp_ops=None, back_depth=None) -> dict:
+    """The fused solve's bound with an env's own step of ``step_ops``
+    operations (``jac_ops`` carrying the n + m tangents of its Jacobian by
+    dual numbers) and ``step_depth`` dependent ones, from its result ``res``
+    with a ladder of ``n_alpha`` steps: its bytes (C's upper triangle, c,
+    the bounds per step, x_init and the ``n_params`` params in; xs, us and
+    the six stats out), its operations (the initial rollout, then for the
+    iterations each scenario took, per step: the sweep's Riccati step, the
+    Jacobian, the delta cost, the ladder's rollouts), or its slowest
+    scenario's serial chain (the initial rollout, then per iteration the
+    sweep, one rollout's depth for the whole ladder and the pick: the chosen
+    trajectory is kept, not replayed), whichever is largest. The sweep's
+    step is riccati_step_ops' box mode, or given ``qp_ops`` (each
+    scenario's box QP, over the batch) the mask mode's plus that QP; its
+    depth is riccati_step_depth's box mode, or ``back_depth``."""
     from diffmpc_tpu_torch.diagnostics.card import bound as card_bound, chain_ms
 
-    n, m, nm = 3, 1, 4
-    n_bytes = 4 * B * (steps * (tri(nm) + nm + 2 * m + n + m) + n + 6) + 4 * nn.n_params
-    roll = rollout_step_ops(n, m) - 2 * n * nm + nn_step_ops(nn)
-    per_step = riccati_step_ops(n, m, "box") + nn_step_ops(nn, tangents=nm) + 2 * nm * nm + n_alpha * roll
-    fwd_depth = 5 + nn_step_depth(nn)  # the control and its clip, then the step
-    depth = steps * fwd_depth + max_iters * (steps * (ILQR_BACK_DEPTH + fwd_depth) + 1)
-    n_ops = B * steps * roll + sum_iters * steps * per_step
+    nm = n + m
+    n_bytes = 4 * B * (steps * (tri(nm) + nm + 2 * m + n + m) + n + 6) + 4 * n_params
+    roll = rollout_step_ops(n, m) - 2 * n * nm + step_ops
+    sweep = riccati_step_ops(n, m, "box") if qp_ops is None else riccati_step_ops(n, m, "mask") + qp_ops
+    per_step = sweep + jac_ops + 2 * nm * nm + n_alpha * roll
+    iters = res.n_iters.double().cpu()
+    n_ops = B * steps * roll + float((iters * per_step).sum()) * steps
+    fwd_depth = 5 + step_depth  # the control and its clip, then the step
+    back = riccati_step_depth(n, m, "box") if back_depth is None else back_depth
+    depth = steps * fwd_depth + int(iters.max()) * (steps * (back + fwd_depth) + 1)
     return card_bound(n_bytes, n_ops, chain_ms(depth, clock_mhz))
+
+
+def nn_ilqr_bound(nn, res, B: int, steps: int, n_alpha: int, clock_mhz: float) -> dict:
+    """env_ilqr_bound with the MLP's step at (3, 1), the sweep's chain the
+    pieces profiler's step depth."""
+    return env_ilqr_bound(3, 1, nn_step_ops(nn), nn_step_ops(nn, tangents=4), nn_step_depth(nn), nn.n_params, res, B,
+                          steps, n_alpha, clock_mhz, back_depth=ILQR_BACK_DEPTH)
 
 
 def nn_rollout_bound(nn, res, B: int, steps: int, clock_mhz: float, n_alpha: int = 10) -> dict:
@@ -1910,8 +1966,7 @@ def learned_dynamics(device, smi: str, clock_mhz: float) -> list:
             for label, h in (("in_sweep", False), ("hoist_lin", True))
         }
         ms = interleaved_ms(stagers, rounds, loops)
-        nb = nn_ilqr_bound(nn, B, NN_T, float(res.n_iters.sum()), int(res.n_iters.max()),
-                           knobs["max_linesearch_iter"], clock_mhz)
+        nb = nn_ilqr_bound(nn, res, B, NN_T, knobs["max_linesearch_iter"], clock_mhz)
         xb_ = args[0]
         prm = [a.clone().requires_grad_(True) for a in nn.weights + nn.biases]
         model = with_leaves(prm)
@@ -2206,25 +2261,15 @@ def variant_riccati_bound(res, B: int, n: int, m: int, steps: int, clock_mhz: fl
 
 
 def variant_nn_ilqr_bound(nn, res, B: int, steps: int, n_alpha: int, clock_mhz: float, enumerates: bool) -> dict:
-    """nn_ilqr_bound at the MLP's own (n, m), its box QP's operations and
-    chain by box_qp_ops and box_qp_depth (the loop at the mean QP steps each
-    scenario's last iteration took, ``res.qp_iters``)."""
-    from diffmpc_tpu_torch.diagnostics.card import bound as card_bound, chain_ms
-
+    """env_ilqr_bound with the MLP's step at its own (n, m), its box QP's
+    operations and chain by box_qp_ops and box_qp_depth (the loop at the
+    mean QP steps each scenario's last iteration took, ``res.qp_iters``)."""
     n, m = nn.n_state, nn.n_ctrl
-    nm = n + m
-    n_bytes = 4 * B * (steps * (tri(nm) + nm + 2 * m + n + m) + n + 6) + 4 * nn.n_params
-    roll = rollout_step_ops(n, m) - 2 * n * nm + nn_step_ops(nn)
     qp_iters = res.qp_iters.double().cpu()
     qp = torch.tensor([box_qp_ops(m, enumerates, float(q)) for q in qp_iters], dtype=torch.float64)
-    per_step = riccati_step_ops(n, m, "mask") + nn_step_ops(nn, tangents=nm) + 2 * nm * nm + n_alpha * roll
-    iters = res.n_iters.double().cpu()
-    n_ops = B * steps * roll + float((iters * (per_step + qp)).sum()) * steps
-    fwd_depth = 5 + nn_step_depth(nn)
     back = 2 * n + 1 + 6 * m * (m + 1) // 2 + 2 * m + 1 + box_qp_depth(m, enumerates, float(qp_iters.max()))
-    max_iters = int(iters.max())
-    depth = steps * fwd_depth + max_iters * (steps * (back + fwd_depth) + 1)
-    return card_bound(n_bytes, n_ops, chain_ms(depth, clock_mhz))
+    return env_ilqr_bound(n, m, nn_step_ops(nn), nn_step_ops(nn, tangents=n + m), nn_step_depth(nn), nn.n_params,
+                          res, B, steps, n_alpha, clock_mhz, qp_ops=qp, back_depth=back)
 
 
 def slice_mlp(device):
@@ -2769,6 +2814,11 @@ ZOO_ENVS = ("cartpole", "vehicle", "quadrotor", "acrobot")
 # BASELINE.json config 4 (examples/il_cartpole.py:52-99): T=20, lqr_iter=10,
 # eps=1e-5, u in [-10, 10], B=4096, Adam 2e-2 on {"dyn", "logq"}
 IL4_B, IL4_STEPS, IL4_LR = 4096, 5, 2e-2
+# each step's spans, timed in place (timed_spans): the forward solve, the
+# attach's linearization and the KKT wrapper
+IL4_SPANS = {"ilqr": ("diffmpc_tpu_torch.mpc", "ilqr_solve_fused"),
+             "linearize": ("diffmpc_tpu_torch.mpc", "linearize_dynamics"),
+             "kkt": ("diffmpc_tpu_torch.ops.lqr_step", "kkt_backward_fused")}
 # the other envs at their examples' widths (examples/il_vehicle.py,
 # il_quadrotor.py, il_acrobot.py): B, T, lqr_iter
 ZOO_WIDTHS = {"cartpole": (IL4_B, 20, 10), "vehicle": (1024, 20, 10), "quadrotor": (1024, 20, 14),
@@ -2895,29 +2945,12 @@ def zoo_step_ops(name: str, tangents: int = 0) -> int:
     return (1 + tangents) * (ops + trans)
 
 
-def zoo_ilqr_bound(name: str, res, B: int, steps: int, n_alpha: int, clock_mhz: float, per_scenario: bool) -> dict:
-    """variant_nn_ilqr_bound with the env's own step: the bytes (C's upper
-    triangle, c, the bounds, x_init and the params in; xs, us and the stats
-    out), the operations (the initial rollout, then for the iterations this
-    run took, per step: the box-mode Riccati step, the Jacobian by dual
-    numbers, the delta cost, the ladder's rollouts), or the slowest
-    scenario's chain (the initial rollout, then per iteration the sweep and
-    one rollout's depth for the whole ladder, and the pick)."""
-    from diffmpc_tpu_torch.diagnostics.card import bound as card_bound, chain_ms
-
+def zoo_ilqr_bound(name: str, res, B: int, steps: int, n_alpha: int, clock_mhz: float) -> dict:
+    """env_ilqr_bound with the env's own step and shared params."""
     dx = zoo_model(name, "cpu")
     n, m = dx.n_state, dx.n_ctrl
-    nm = n + m
-    n_params = dx.params.shape[-1]
-    n_bytes = 4 * B * (steps * (tri(nm) + nm + 2 * m + n + m) + n + 6) + 4 * n_params * (B if per_scenario else 1)
-    roll = rollout_step_ops(n, m) - 2 * n * nm + zoo_step_ops(name)
-    per_step = riccati_step_ops(n, m, "box") + zoo_step_ops(name, tangents=nm) + 2 * nm * nm + n_alpha * roll
-    iters = res.n_iters.double().cpu()
-    n_ops = B * steps * roll + float(iters.sum()) * steps * per_step
-    fwd = 5 + ZOO_STEP[name][2]  # the control and its clip, then the step
-    back = riccati_step_depth(n, m, "box")
-    depth = steps * fwd + int(iters.max()) * (steps * (back + fwd) + 1)
-    return card_bound(n_bytes, n_ops, chain_ms(depth, clock_mhz))
+    return env_ilqr_bound(n, m, zoo_step_ops(name), zoo_step_ops(name, tangents=n + m), ZOO_STEP[name][2],
+                          dx.params.shape[-1], res, B, steps, n_alpha, clock_mhz)
 
 
 def zoo_rollout_bound(name: str, res, B: int, steps: int, clock_mhz: float) -> dict:
@@ -3075,9 +3108,12 @@ def zoo_config4(run: ZooRun) -> None:
     gradient against the host's float64 one, then the main path (the expert
     data and five Adam steps learning {"dyn", "logq"}, the counts set to 0
     before and read after), one iLQR and one KKT launch a step, a finite
-    loss at every step; the KKT kernel at (5, 1) alone on the first step's
-    own inputs."""
+    loss at every step, each step's forward solve, attach and KKT wrapper
+    timed in place (IL4_SPANS) on the card and the host; one more step under
+    torch.profiler for the card's idle share; the KKT kernel at (5, 1) alone
+    on the first step's own inputs."""
     from diffmpc_tpu_torch import mpc_solve
+    from diffmpc_tpu_torch.diagnostics.ab_solve_grad import busy_ms
     from diffmpc_tpu_torch.ops.cuda import kkt
     from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
     from diffmpc_tpu_torch.parallel import generate_expert_data, init_train_state, make_dp_train_step
@@ -3107,18 +3143,38 @@ def zoo_config4(run: ZooRun) -> None:
     for i in range(IL4_STEPS):
         before = run.counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        spans = {}
+        t1 = time.perf_counter()
         start.record()
-        with recording("diffmpc_tpu_torch.ops.lqr_step", "kkt_backward_fused", kkt_calls if i == 0 else []):
+        with recording("diffmpc_tpu_torch.ops.lqr_step", "kkt_backward_fused", kkt_calls if i == 0 else []), \
+                timed_spans(IL4_SPANS, spans):
             state, stats = step(state, case["x_init"], u_expert)
         end.record()
         end.synchronize()
+        host_ms = (time.perf_counter() - t1) * 1e3
         got = {k: v - before[k] for k, v in run.counts().items()}
-        rec = dict(step=i, ms=start.elapsed_time(end), loss=float(stats.loss), grad_norm=float(stats.grad_norm),
-                   converged_frac=float(stats.converged_frac), clamp_frac=float(stats.clamp_frac), launches=got)
+        rec = dict(step=i, ms=start.elapsed_time(end), host_ms=host_ms, spans=span_ms(spans), loss=float(stats.loss),
+                   grad_norm=float(stats.grad_norm), converged_frac=float(stats.converged_frac),
+                   clamp_frac=float(stats.clamp_frac), launches=got)
+        rec["rest_ms"] = rec["ms"] - sum(v["card_ms"] for v in rec["spans"].values())
         steps_rec.append(rec)
         if got != run.only(ilqr=1, kkt=1) or not np.isfinite(rec["loss"]):
             raise AssertionError(f"config 4's step {i}: {rec}")
     run.main_launches = run.counts()
+    # one more step under torch.profiler: the card's busy time in it (the
+    # kernels' device time summed) against the step's CUDA-event time
+    profiled = []
+
+    def one_step():
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(state, case["x_init"], u_expert)
+        b.record()
+        b.synchronize()
+        profiled.append(a.elapsed_time(b))
+
+    busy = busy_ms(one_step)
+    idle = dict(step_ms=profiled[-1], busy_ms=busy, idle_share=None if busy is None else 1 - busy / profiled[-1])
     emit(phase="config4_il", B=IL4_B, T=config.T, lqr_iter=config.lqr_iter, steps=steps_rec,
          expert_mean_obj=float(expert_objs.mean()), main_path_launches=run.main_launches,
          first_grad_norms=dict(zip(keys, (float(g.norm()) for g in g_first))), first_grad_vs_host=grad_rec,
@@ -3150,7 +3206,7 @@ def zoo_config4(run: ZooRun) -> None:
          max_abs_err=err, bound=kb, reads_in_place=shared, card=smi)
     emit(phase="config4_breakdown", B=IL4_B, step_ms=step_ms, mpc_solve_ms=solve_ms, attach_linearize_ms=lin_ms,
          kkt_wrapper_ms=kkt_wrap_ms, kkt_kernel_ms=out["ms"],
-         rest_ms=step_ms - solve_ms - lin_ms - kkt_wrap_ms, card=smi)
+         rest_ms=step_ms - solve_ms - lin_ms - kkt_wrap_ms, profiled_step=idle, card=smi)
     run.rows.append(dict(name="kkt_backward_fused[(5, 1), config 4]", route="cuda", source=ZOO_SRC + "kkt.cu",
                          replaces="diffmpc_tpu/ops/pallas/kkt.py:245", launches=run.main_launches["kkt"],
                          max_abs_err=err, ms=out["ms"], plain_ms=plain_ms, bound_ms=kb["bound_ms"],
@@ -3206,7 +3262,7 @@ def zoo_kernels(run: ZooRun) -> None:
                 res = il.run_staged(timed_launch(il._cuda_launcher(device, env, False), 10, out), *args, lanes=lanes,
                                     **two)
                 wrap_ms = cuda_ms(lambda: il.ilqr_solve_fused(**ins, **two), 10, 2)
-                fb = zoo_ilqr_bound(name, res, ZOO_KERNEL_B, steps, N_ALPHA, run.clock_mhz, False)
+                fb = zoo_ilqr_bound(name, res, ZOO_KERNEL_B, steps, N_ALPHA, run.clock_mhz)
                 run.fused[name] = dict(ms=out["ms"], wrapper_ms=wrap_ms, plain_ms=plain_ms, bound=fb, lanes=lanes,
                                        max_abs_err=agree["us_max_abs"])
                 record.update(kernel_ms=out["ms"], wrapper_ms=wrap_ms, plain_ms=plain_ms, bound=fb, card=smi)
@@ -3217,10 +3273,12 @@ def zoo_kernels(run: ZooRun) -> None:
 def zoo_solves(run: ZooRun) -> None:
     """Phase 36: each env through mpc_solve at its example's width (one iLQR
     launch), the converged share and the times, the fused kernel alone at
-    that width; for the vehicle, the quadrotor and the acrobot the first
-    ZOO_CPU_B scenarios against the host's plain solve (the float64 one as
-    the witness) and the imitation loss's gradient through one iLQR and one
-    KKT launch against the host's float64 gradient."""
+    that width; the first ZOO_CPU_B scenarios against the host's plain
+    solve (the float64 one as the witness), the cartpole's at config 4's
+    B=4096 and lqr_iter=10; for the vehicle, the quadrotor and the acrobot
+    the imitation loss's gradient through one iLQR and one KKT launch
+    against the host's float64 gradient (config 4's phase holds the
+    cartpole's)."""
     from diffmpc_tpu_torch import mpc_solve
     from diffmpc_tpu_torch.ops.cuda import ilqr as il
 
@@ -3250,18 +3308,18 @@ def zoo_solves(run: ZooRun) -> None:
                       converged_frac=float(sol.info.converged.float().mean()), mean_obj=float(sol.objs.mean()),
                       max_n_iters=int(sol.info.n_iters), mean_qp_iters=float(sol.info.qp_iters.mean()),
                       clamp_frac=float(sol.info.clamp_frac.mean()), mpc_solve_ms=solve_ms, kernel_ms=out["ms"],
-                      lanes=lanes, bound=zoo_ilqr_bound(name, res, B, cfg.T, N_ALPHA, run.clock_mhz, False), card=smi)
-        if name != "cartpole":  # config 4's own phase holds the cartpole's
-            cut = {k: (v[:ZOO_CPU_B] if k == "x_init" else v[:, :ZOO_CPU_B]).cpu() if torch.is_tensor(v) else
-                   v.to(device="cpu") for k, v in ins.items()}
-            kern = il.ilqr_solve_fused(**ins, **knobs)
-            head = kern._replace(**{f: getattr(kern, f)[:, :ZOO_CPU_B] if getattr(kern, f).ndim == 3 else
-                                    getattr(kern, f)[:ZOO_CPU_B] for f in kern._fields})
-            host = il.ilqr_solve_plain(**cut, **knobs)
-            exact = il.ilqr_solve_plain(**{k: v.double() if torch.is_tensor(v) else v.to(torch.float64)
-                                           for k, v in cut.items()}, **knobs)
-            record["vs_host"] = dict(first_scenarios=ZOO_CPU_B, **witnessed_agreement(
-                f"{name} mpc_solve, card vs host", head, host, exact, ties=cfg.n_ctrl > 1, converged_free=True))
+                      lanes=lanes, bound=zoo_ilqr_bound(name, res, B, cfg.T, N_ALPHA, run.clock_mhz), card=smi)
+        cut = {k: (v[:ZOO_CPU_B] if k == "x_init" else v[:, :ZOO_CPU_B]).cpu() if torch.is_tensor(v) else
+               v.to(device="cpu") for k, v in ins.items()}
+        kern = il.ilqr_solve_fused(**ins, **knobs)
+        head = kern._replace(**{f: getattr(kern, f)[:, :ZOO_CPU_B] if getattr(kern, f).ndim == 3 else
+                                getattr(kern, f)[:ZOO_CPU_B] for f in kern._fields})
+        host = il.ilqr_solve_plain(**cut, **knobs)
+        exact = il.ilqr_solve_plain(**{k: v.double() if torch.is_tensor(v) else v.to(torch.float64)
+                                       for k, v in cut.items()}, **knobs)
+        record["vs_host"] = dict(first_scenarios=ZOO_CPU_B, **witnessed_agreement(
+            f"{name} mpc_solve, card vs host", head, host, exact, ties=cfg.n_ctrl > 1, converged_free=True))
+        if name != "cartpole":  # config 4's own phase holds the cartpole's gradient
             with torch.no_grad():
                 expert = mpc_solve(*solve_args, **bounds).us
             grad = zoo_gradient_check(name, zc, [zc["params0"]], lambda ls: ls[0], expert, (run.reset, run.counts))

@@ -25,7 +25,9 @@ struct AcrobotEnv {
   static constexpr float kG = 9.8f;
   // 106 operations a step, counted from step() below (two of them
   // divisions by the determinant), and two sines and two cosines: about four
-  // times the pendulum's 25, a seventh of the 3-16-16-3 MLP's ~770. Cheap: its lanes
+  // times the pendulum's 25, a seventh of the 3-16-16-3 MLP's ~770. Cheap, as
+  // measured against a build with the other flag
+  // (diagnostics/ab_cheap_step.py; ops/cuda/ilqr.py, _CPP_ENVS): its lanes
   // carry the line search's candidates side by side (rollout.cuh) and the
   // fused solve's lane groups replay the chosen step (ilqr.cuh), as the
   // pendulum's do

@@ -10,7 +10,9 @@
 //                       (riccati_entries.cuh; default 0);
 //   DMPC_EXACT          1 for the simplified value update (default 0);
 //   DMPC_VARIANT_L      the lane count whose kernels the unit builds, or 0
-//                       for the unit that holds the launchers.
+//                       for the unit that holds the launchers;
+//   DMPC_FLIP_CHEAP_STEP 1 for a C++ env with the other kCheapStep (a
+//                       measurement's build, not a key's; default 0).
 // A variant is a shape, an MLP or a flag that the prebuilt library
 // (csrc/*.cu) does not instantiate; each is built into a library of its own
 // at its first use and launched through the same templates.
@@ -34,8 +36,16 @@ constexpr bool kVariantExact = DMPC_EXACT != 0;
 #ifdef DMPC_ENV
 #include DMPC_ENV_HEADER
 
-// The C++ env of the key, at its own (n, m)
+// The C++ env of the key, at its own (n, m). DMPC_FLIP_CHEAP_STEP=1, a
+// measurement's build (diagnostics/ab_cheap_step.py) and never the key's,
+// gives it the other kCheapStep.
+#if defined(DMPC_FLIP_CHEAP_STEP) && DMPC_FLIP_CHEAP_STEP
+struct VariantCppEnv : DMPC_ENV {
+  static constexpr bool kCheapStep = !DMPC_ENV::kCheapStep;
+};
+#else
 using VariantCppEnv = DMPC_ENV;
+#endif
 static_assert(VariantCppEnv::N == DMPC_N && VariantCppEnv::M == DMPC_M, "DMPC_N, DMPC_M are the env's shape");
 #endif
 

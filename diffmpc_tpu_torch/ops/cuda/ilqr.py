@@ -26,6 +26,7 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ...csrc.build import ENUM_DEFAULT, VariantKey
 from ...models.dynamics import ACTIVATIONS, NNDynamics
@@ -82,22 +83,20 @@ def fused_exact_update(m: int, reg: float, threshold: float, pnqp_enum: str = ""
 
 def _linearize(dyn, params, xh, uh, n, m):
     """Jacobian ``Ft[k][j] = d x_next[k] / d tau[j]`` of ``entries_step`` at
-    ``(xh, uh)``, one forward-mode probe per column (``jax.linearize`` at
-    ilqr.py:151 in the TPU kernel)."""
+    ``(xh, uh)`` (``jax.linearize`` at ilqr.py:151 in the TPU kernel): one
+    forward-mode pass over the ``n + m`` columns side by side, the batch
+    repeated once a column, column j's tangent one on its own block. Each
+    entry computes what a probe of its column alone would, bit for bit."""
     nm = n + m
-    primals = tuple(xh) + tuple(uh)
-
-    def step(*tau):
-        return tuple(dyn.entries_step(params, list(tau[:n]), list(tau[n:])))
-
-    zero = torch.zeros_like(xh[0])
-    one = torch.ones_like(xh[0])
-    cols = []
-    for j in range(nm):
-        seed = tuple(one if a == j else zero for a in range(nm))
-        _, col = torch.func.jvp(step, primals, seed)
-        cols.append(col)
-    return [[cols[j][k] for j in range(nm)] for k in range(n)]
+    B = xh[0].shape[0]
+    block = torch.arange(nm, device=xh[0].device).repeat_interleave(B)
+    prm = [p.repeat(nm) if p.ndim else p for p in params]
+    with fwAD.dual_level():
+        tau = [fwAD.make_dual(a.repeat(nm), (block == j).to(a.dtype)) for j, a in enumerate(tuple(xh) + tuple(uh))]
+        out = dyn.entries_step(prm, tau[:n], tau[n:])
+        tangents = [fwAD.unpack_dual(o).tangent for o in out]
+    tangents = [torch.zeros(nm * B, dtype=xh[0].dtype, device=xh[0].device) if d is None else d for d in tangents]
+    return [[tangents[k].view(nm, B)[j] for j in range(nm)] for k in range(n)]
 
 
 @torch.no_grad()
@@ -150,10 +149,10 @@ def ilqr_solve_plain(
     zero = torch.zeros(B, dtype=dtype, device=x_init.device)
     one = torch.ones_like(zero)
 
-    def step(x, u):
+    def step(x, u, params=params):
         return dyn.entries_step(params, x, u)
 
-    def stage_cost(t, x, u):
+    def stage_cost(t, x, u, Ce=Ce, ce=ce):
         tau = x + u
         acc = None
         for a in range(nm):
@@ -162,7 +161,7 @@ def ilqr_solve_plain(
             acc = term if acc is None else acc + term
         return acc
 
-    def control(t, x, alpha):
+    def control(t, x, alpha, uh, xh, k_g, K_g, lo=lo, hi=hi):
         u = []
         for a in range(m):
             acc = uh[t][a] + alpha * k_g[t][a]
@@ -173,13 +172,29 @@ def ilqr_solve_plain(
             u.append(_clip(acc, lo[t, a], hi[t, a]))
         return u
 
-    def rollout_obj(alpha):
-        x, obj = x0, zero
+    # The ladder's rollouts run side by side: every table repeated once a
+    # step size along the batch, so that each entry computes what its
+    # rollout alone would, bit for bit.
+    n_alpha = max_linesearch_iter
+
+    def tiled(v):
+        return [tiled(e) for e in v] if isinstance(v, list) else v.repeat(n_alpha) if v.ndim else v
+
+    Ce_l, ce_l = Ce.repeat(1, 1, 1, n_alpha), ce.repeat(1, 1, n_alpha)
+    lo_l, hi_l = lo.repeat(1, 1, n_alpha), hi.repeat(1, 1, n_alpha)
+    x0_l, params_l, zero_l = tiled(x0), tiled(params), zero.repeat(n_alpha)
+
+    def ladder_objs(alphas):
+        """Each scenario's objective at each step size of ``alphas``
+        (``(n_alpha * B,)``, step size k on the k-th block): ``(n_alpha,
+        B)``."""
+        tables = tiled(uh), tiled(xh), tiled(k_g), tiled(K_g)
+        x, obj = x0_l, zero_l
         for t in range(T):
-            u = control(t, x, alpha)
-            obj = obj + stage_cost(t, x, u)
-            x = step(x, u)
-        return obj
+            u = control(t, x, alphas, *tables, lo=lo_l, hi=hi_l)
+            obj = obj + stage_cost(t, x, u, Ce_l, ce_l)
+            x = step(x, u, params_l)
+        return obj.view(n_alpha, B)
 
     # ---- initial trajectory: u_init (or zero) clamped into the box ----
     xh, uh = [], []
@@ -250,20 +265,22 @@ def ilqr_solve_plain(
 
         # ---- alpha ladder: first improving step per scenario; rolled, or
         # with unroll the exact powers (ilqr.py:336-348) ----
-        alpha = torch.ones((), dtype=dtype, device=zero.device)
-        chosen = torch.full_like(zero, decay ** (max_linesearch_iter - 1))
-        has = torch.zeros_like(zero, dtype=torch.bool)
-        for a_idx in range(max_linesearch_iter):
-            alpha_k = decay**a_idx if unroll else alpha
-            improving = (rollout_obj(alpha_k) < cur_obj) & ~has
-            chosen = torch.where(improving, alpha_k, chosen)
-            has = has | improving
+        alpha, alphas = torch.ones((), dtype=dtype, device=zero.device), []
+        for a_idx in range(n_alpha):
+            alphas.append(torch.full_like(zero, decay**a_idx) if unroll else alpha.expand(B))
             alpha = alpha * decay
+        objs = ladder_objs(torch.cat(alphas))
+        chosen = torch.full_like(zero, decay ** (n_alpha - 1))
+        has = torch.zeros_like(zero, dtype=torch.bool)
+        for a_idx in range(n_alpha):
+            improving = (objs[a_idx] < cur_obj) & ~has
+            chosen = torch.where(improving, alphas[a_idx], chosen)
+            has = has | improving
 
         # ---- replay the chosen step; frozen scenarios keep theirs ----
         x, new_obj = x0, zero
         for t in range(T):
-            u = control(t, x, chosen)
+            u = control(t, x, chosen, uh, xh, k_g, K_g)
             xh[t] = [torch.where(active, x[a], xh[t][a]) for a in range(n)]
             uh[t] = [torch.where(active, u[a], uh[t][a]) for a in range(m)]
             new_obj = new_obj + stage_cost(t, x, u)
@@ -399,9 +416,10 @@ class KernelEnv(NamedTuple):
     suffix of its prebuilt launchers (``diffmpc_<kind>_<symbol>``; None where
     only a variant has it), its ``(n, m)``, the length ``P`` of its
     ``kernel_params``, whether they may be per-scenario ``(B, P)``, whether
-    its step is cheap (at most about a hundred operations, the C++ env's
-    ``kCheapStep``), which the fused kernel's lane groups and their rule read
-    (:func:`keeps_lane_trajectories`, :func:`ilqr_lanes`), and its variant
+    its step is cheap (the C++ env's ``kCheapStep``), which the fused
+    kernel's lane groups and the lane rules read
+    (:func:`keeps_lane_trajectories`, :func:`ilqr_lanes`, ``rollout_lanes``),
+    and its variant
     key's env and widths (a C++ env's name, ``pendulum`` or ``cartpole``
     among them, or ``nn`` with the MLP's hidden widths:
     :func:`kernel_library`)."""
@@ -422,7 +440,15 @@ class KernelEnv(NamedTuple):
 # env, csrc/build.py's CPP_ENVS: the struct's header csrc/<name>.cuh), the
 # length P of its params, and the suffix of its prebuilt launchers (None:
 # only its variants have them, built at first use). Every one of their steps
-# is cheap (the headers' kCheapStep: at most ~110 operations).
+# is cheap (the headers' kCheapStep). Measured on an H100 (700 W) by
+# diagnostics/ab_cheap_step.py, the acrobot's 106 operations, the most of the
+# five, built both ways: cheap replays the chosen step as fast as keeping the
+# lanes' trajectories (B = 16,384 at 2 lanes: 2.86 against 2.91 ms) and the
+# line search's one pass at 1 lane beats rounds at 4 (16,384: 1.23 against
+# 1.91 ms; 65,536: 3.02 against 7.08); the 3-16-16-3 MLP's ~770 are dear.
+# Past the lanes' thread budget ilqr_lanes' 2 lanes for a cheap step, set by
+# the pendulum's 25 operations, lose to 1 for the acrobot (65,536: 9.74
+# against 8.06 ms).
 _CPP_ENVS = {
     PendulumDx: (_PendulumEnv, "pendulum", 3, "pendulum"),
     CartpoleDx: (_CartpoleEnv, "cartpole", 4, None),
@@ -672,8 +698,10 @@ def ilqr_lanes(B: int, env: KernelEnv, sm_count: int, hoist_lin: bool = False) -
     keep ``B * L`` within :data:`LANE_THREADS_PER_SM` threads an SM (twice
     that with ``hoist_lin``). Past that an env with a cheap step (the
     pendulum) keeps 2 lanes, its ladder's slices staged ahead (B = 65,536:
-    6.32 ms against 7.00), and one with a dear step (an MLP), whose sweep
-    every lane would repeat, takes 1 (21.65 ms against 15.43). The horizon
+    6.32 ms against 7.00; the acrobot's step, four times the pendulum's, is
+    faster at 1 there: :data:`_CPP_ENVS`), and one with a dear step (an
+    MLP), whose sweep every lane would repeat, takes 1 (21.65 ms against
+    15.43). The horizon
     does not enter: each step's slice is staged alike at every T."""
     budget = LANE_THREADS_PER_SM * (2 if hoist_lin else 1) * sm_count
     for lanes in (16, 4, 2):

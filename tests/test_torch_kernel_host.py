@@ -630,9 +630,11 @@ def host_lib(tmp_path_factory):
                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     (d / "shim_zoo.cpp").write_text(SHIM_ZOO)
     zoo_units = []
-    for env, (n, m) in ZOO_KEYS.items():
-        defines = [*build.variant_defines(build.VariantKey("ilqr", n, m, env)), f"-DZOO_NAME={env}"]
-        zoo_units.append(f"shim_zoo_{env}")
+    for env, (n, m), flip in [(env, nm, "") for env, nm in ZOO_KEYS.items()] + [("acrobot", (6, 1), "_flipped")]:
+        defines = [*build.variant_defines(build.VariantKey("ilqr", n, m, env)), f"-DZOO_NAME={env}{flip}"]
+        if flip:  # the cheap-step A/B's other build (diagnostics/ab_cheap_step.py)
+            defines.append("-DDMPC_FLIP_CHEAP_STEP=1")
+        zoo_units.append(f"shim_zoo_{env}{flip}")
         procs.append(subprocess.Popen([*flags, *defines, "-c", "-o", str(d / f"{zoo_units[-1]}.o"),
                                        str(d / "shim_zoo.cpp")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                       text=True))
@@ -1962,7 +1964,19 @@ def test_host_build_zoo_line_search_matches_plain_and_equals_one_lane(host_lib, 
     kernel's host build against the plain version (the rollout tolerances
     above), and every built lane count of it and of the twin bit-equal to
     one lane."""
-    B, T = 8, 10
+    args, kw = _zoo_line_search_inputs(name)
+    launcher = _zoo_rollout_launcher(host_lib, name, kw["dyn"])
+    got = run_staged_rollout(launcher(0), *args, **kw)
+    _assert_rollout_matches(got, linesearch_rollout_plain(*args, **kw))
+    for stream in (0, 1):
+        for lanes in ROLLOUT_LANES:
+            _assert_equal_results(run_staged_rollout(launcher(stream), *args, lanes=lanes, **kw), got)
+
+
+def _zoo_line_search_inputs(name: str, B: int = 8, T: int = 10):
+    """The line search's inputs of the non-fused loop for env ``name``: a
+    rollout of random controls in the box, the box sweep's gains about it,
+    the feedforward scaled by up to 8."""
     x0, C, c, dyn, lo, hi = kernel_problem(name, B, T, torch.float32, seed=1402)
     n = dyn.n_state
     gen = torch.Generator().manual_seed(1403)
@@ -1975,9 +1989,13 @@ def test_host_build_zoo_line_search_matches_plain_and_equals_one_lane(host_lib, 
     gains = riccati_backward_plain(C, c + bmv(C, torch.cat([x_hat, u_hat], -1)), F, None, n, u_lower=lo, u_upper=hi,
                                    u_hat=u_hat)
     k = gains.k * (0.5 + 7.5 * torch.rand((1, B, 1), generator=gen))
-    args = (x0, C, c, None, None, gains.K, k, x_hat, u_hat)
-    kw = dict(u_lower=lo, u_upper=hi, dyn=dyn)
-    fn = getattr(host_lib, f"diffmpc_rollout_host_{name}")
+    return (x0, C, c, None, None, gains.K, k, x_hat, u_hat), dict(u_lower=lo, u_upper=hi, dyn=dyn)
+
+
+def _zoo_rollout_launcher(host_lib, symbol: str, dyn):
+    """``launcher(stream)``: the host build's line search ``symbol`` (the
+    resident kernel, or with ``stream`` the twin) for ``run_staged_rollout``."""
+    fn = getattr(host_lib, f"diffmpc_rollout_host_{symbol}")
     fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.POINTER(type(ilqr_mod.kernel_env(dyn).struct)), ctypes.c_int]
     fn.restype = ctypes.c_int
 
@@ -1987,8 +2005,37 @@ def test_host_build_zoo_line_search_matches_plain_and_equals_one_lane(host_lib, 
 
         return launch
 
-    got = run_staged_rollout(launcher(0), *args, **kw)
-    _assert_rollout_matches(got, linesearch_rollout_plain(*args, **kw))
+    return launcher
+
+
+def test_host_build_other_cheap_step_equals_the_headers_build(host_lib):
+    """The acrobot built with the other ``kCheapStep``
+    (``DMPC_FLIP_CHEAP_STEP=1``, the build that
+    ``diagnostics/ab_cheap_step.py`` times beside the headers'): its fused
+    solve refuses lane scratch sized by the headers' rule at 2 lanes (the
+    flag took), and with scratch sized for it (``ab_cheap_step.flipped``)
+    every built lane count of its fused solve, its line search and the twin
+    is bit-equal to the headers' build at one lane (the scratch sized so
+    under nested ``flipped`` too)."""
+    from diffmpc_tpu_torch.diagnostics import ab_cheap_step
+
+    args = kernel_problem("acrobot", 8, 10, torch.float32, seed=1404)
+    three = dict(lqr_iter=3, eps=1e-5, decay=0.8)
+    one = run_staged(_zoo_launcher(host_lib, "acrobot"), *args, **three)
+    struct = type(ilqr_mod.kernel_env(args[3]).struct)
+    fn = host_lib.diffmpc_ilqr_solve_host_acrobot_flipped
+    fn.argtypes = [ctypes.POINTER(_IlqrArgs), ctypes.POINTER(struct)]
+    fn.restype = ctypes.c_int
+    refused = []
+    run_staged(lambda a, env: refused.append(fn(a, env)), *args, lanes=2, **three)
+    assert refused == [1]
+    flipped = _ilqr_launcher(host_lib, "diffmpc_ilqr_solve_host_acrobot_flipped", struct)
+    with ab_cheap_step.flipped({}), ab_cheap_step.flipped({}):  # nested, as the diagnostic's stages nest
+        for lanes in ILQR_LANES:
+            _assert_equal_results(run_staged(flipped, *args, lanes=lanes, **three), one)
+    ls_args, kw = _zoo_line_search_inputs("acrobot")
+    got = run_staged_rollout(_zoo_rollout_launcher(host_lib, "acrobot", kw["dyn"])(0), *ls_args, **kw)
+    launcher = _zoo_rollout_launcher(host_lib, "acrobot_flipped", kw["dyn"])
     for stream in (0, 1):
         for lanes in ROLLOUT_LANES:
-            _assert_equal_results(run_staged_rollout(launcher(stream), *args, lanes=lanes, **kw), got)
+            _assert_equal_results(run_staged_rollout(launcher(stream), *ls_args, lanes=lanes, **kw), got)

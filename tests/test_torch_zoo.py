@@ -62,6 +62,14 @@ CONVERTERS = {"cartpole": convert.cartpole_from_jax, "vehicle": convert.vehicle_
               "quadrotor": convert.quadrotor_from_jax, "acrobot": convert.acrobot_from_jax}
 
 
+# The JAX envs' functions, each compiled whole (the model an argument): run
+# eagerly, JAX compiles each primitive at each new shape, which took most of
+# this file's time.
+_jax_forward = jax.jit(lambda dx, x, u: dx.forward(x, u))
+_jax_entries_step = jax.jit(lambda dx, p, x, u: dx.entries_step(p, x, u))
+_jax_grad_input = jax.jit(lambda dx, x, u: dx.grad_input(x, u))
+
+
 def jax_model(name: str, params=None):
     dx = getattr(jax_envs, f"{name.capitalize()}Dx").default(jnp.float64)
     return dx if params is None else dx.replace(params=jnp.asarray(params))
@@ -88,22 +96,23 @@ def test_env_matches_jax_in_float64(name, per_scenario):
     tdx = port_model(name, torch.float64, params if per_scenario else None)
     tol = dict(atol=1e-10, rtol=0)
     jx, ju, tx, tu = jnp.asarray(x), jnp.asarray(u), torch.tensor(x), torch.tensor(u)
-    np.testing.assert_allclose(tdx.forward(tx, tu).numpy(), np.asarray(jdx.forward(jx, ju)), **tol)
+    np.testing.assert_allclose(tdx.forward(tx, tu).numpy(), np.asarray(_jax_forward(jdx, jx, ju)), **tol)
     # entries_step on (B,) entries, params as a list of scalars or (B,) rows
     prm_j = list(jnp.asarray(params).T) if per_scenario else list(jdx.params)
     prm_t = list(torch.tensor(params).T) if per_scenario else list(tdx.params)
     got = tdx.entries_step(prm_t, list(tx.T), list(tu.T))
-    want = jdx.entries_step(prm_j, list(jx.T), list(ju.T))
+    want = _jax_entries_step(jdx, prm_j, list(jx.T), list(ju.T))
     for g, w in zip(got, want, strict=True):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
     # grad_input: the protocol's forward-mode autodiff, jointly over the
     # scenario's params when they are per-scenario
-    (A, Bm), (jA, jB) = tdx.grad_input(tx, tu), jdx.grad_input(jx, ju)
+    (A, Bm), (jA, jB) = tdx.grad_input(tx, tu), _jax_grad_input(jdx, jx, ju)
     np.testing.assert_allclose(A.numpy(), np.asarray(jA), **tol)
     np.testing.assert_allclose(Bm.numpy(), np.asarray(jB), **tol)
     # over time too: (T, B, n)
     xt, ut = np.stack([x, x[::-1]]), np.stack([u, u[::-1]])
-    (A, _), (jA, _) = tdx.grad_input(torch.tensor(xt), torch.tensor(ut)), jdx.grad_input(jnp.asarray(xt), jnp.asarray(ut))
+    (A, _), (jA, _) = tdx.grad_input(torch.tensor(xt), torch.tensor(ut)), _jax_grad_input(jdx, jnp.asarray(xt),
+                                                                                        jnp.asarray(ut))
     np.testing.assert_allclose(A.numpy(), np.asarray(jA), **tol)
     if not per_scenario:
         for a, b in zip(tdx.get_true_obj(), jdx.get_true_obj(), strict=True):
@@ -125,7 +134,7 @@ def test_jacobians_keep_the_models_dtype(name, per_scenario):
     tdx = port_model(name, torch.float32, prm)
     x32, u32 = x.astype(np.float32), u.astype(np.float32)
     got = tdx.grad_input(torch.tensor(x32), torch.tensor(u32))
-    want = jdx.grad_input(jnp.asarray(x32), jnp.asarray(u32))
+    want = _jax_grad_input(jdx, jnp.asarray(x32), jnp.asarray(u32))
     for g, w in zip(got, want, strict=True):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5 * np.abs(np.asarray(w)).max())
@@ -150,7 +159,7 @@ def test_converter_carries_every_field(name):
     np.testing.assert_array_equal(tdx.params.numpy(), np.asarray(jdx.params))
     x = golden_case(name, 5)[0]
     np.testing.assert_allclose(tdx.forward(torch.tensor(x), torch.tensor(u)).numpy(),
-                               np.asarray(jdx.forward(jnp.asarray(x), jnp.asarray(u))), atol=1e-10, rtol=0)
+                               np.asarray(_jax_forward(jdx, jnp.asarray(x), jnp.asarray(u))), atol=1e-10, rtol=0)
     assert CONVERTERS[name](jdx, torch.float32, "cpu").params.dtype == torch.float32
 
 
@@ -212,8 +221,13 @@ def _jax_config4():
     true_dx = jax_model("cartpole")
     q, p = true_dx.get_true_obj()
     cost = jdm.QuadCost(jnp.diag(q), p)
-    _, u_expert, _ = jax_expert(config, cost, true_dx, jnp.asarray(x), -IL_BOX, IL_BOX)
-    expert_sol = jdm.mpc_solve(config, jnp.asarray(x), cost, true_dx, u_lower=-IL_BOX, u_upper=IL_BOX)
+
+    @jax.jit
+    def expert(x0):
+        _, u, _ = jax_expert(config, cost, true_dx, x0, -IL_BOX, IL_BOX)
+        return u, jdm.mpc_solve(config, x0, cost, true_dx, u_lower=-IL_BOX, u_upper=IL_BOX).info.converged
+
+    u_expert, converged_expert = expert(jnp.asarray(x))
 
     def make_problem(prm):
         qq = jnp.exp(prm["logq"])
@@ -230,13 +244,13 @@ def _jax_config4():
         per = jnp.mean((sol.us - u_expert) ** 2, axis=(0, 2))
         return jnp.sum(per * keep) / jnp.sum(keep), sol
 
-    (_, sol), _ = jax.value_and_grad(masked_loss, has_aux=True)(params, jnp.ones(IL_B))
+    value_and_grad = jax.jit(jax.value_and_grad(masked_loss, has_aux=True))  # compiled once, for any mask
+    (_, sol), _ = value_and_grad(params, jnp.ones(IL_B))
     return dict(stats={k: float(v) for k, v in stats._asdict().items()},
                 params={k: np.asarray(v) for k, v in state.params.items()}, u_expert=np.asarray(u_expert),
                 us=np.asarray(sol.us), converged=np.asarray(sol.info.converged),
-                converged_expert=np.asarray(expert_sol.info.converged),
-                grad=lambda keep: {k: np.asarray(v) for k, v in jax.grad(
-                    lambda prm: masked_loss(prm, jnp.asarray(keep))[0])(params).items()})
+                converged_expert=np.asarray(converged_expert),
+                grad=lambda keep: {k: np.asarray(v) for k, v in value_and_grad(params, jnp.asarray(keep))[1].items()})
 
 
 def test_config4_step_matches_jax():

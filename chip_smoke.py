@@ -292,8 +292,45 @@ Phases, one line of output each (JSON where it carries numbers):
    every built lane count of the kernel and its twin bit-equal to one lane;
    the kernel alone, the wrapper and the plain version timed.
 
+37. the receding-horizon loop at diffmpc_tpu_torch/examples/receding_mpc.py's
+   full width (B=1024, T=20, lqr_iter=10, eps=1e-5, 100 env steps, the
+   plant's params +-15% off the model's, seed 0) through the example's own
+   episode (run_receding_horizon), three episodes: the pendulum without and
+   with the slew penalty (1.0), the vehicle with it; the counts set to 0
+   before each episode and read after: one fused launch an env step, of the
+   control-passthrough variant (csrc/passthrough.cuh, its key printed) under
+   the slew penalty; each episode's success share, stage cost and ms per env
+   step (CUDA events, its second run, bit-equal to the first) and the card's
+   idle share in one profiled env step; under the slew penalty the
+   passthrough kernel on the first solve and on the warm-started solve at
+   env step 50 against the host's plain fused solve on the first 64
+   scenarios (phase 36's witness rule), every built lane count with and
+   without hoist_lin bit-equal to one lane, and the kernel alone, its
+   wrapper and its plain version timed with its bound;
+37b. the passthrough line search and its twin: a slewed solve with
+   verbose=1 at T=20 and T=128 (the twins), B=1024, one Riccati and one
+   line-search launch an iteration; its first line search against its plain
+   version (phase 36b's rule), every built lane count of the kernel and the
+   twin bit-equal to one lane, the times;
+38. the rest of mpc.py: a callable cost equal to config 2's quadratic
+   (shared) at B=4096 against the QuadCost's solve by the chaos rule, one
+   Riccati launch an iteration and no line-search kernel (the plain ladder
+   judges by the callable, the JAX package's dispatch); tests/test_mpc.py:
+   160's cosh cost on the pendulum at B=1024, T=10, 15 iterations, with the
+   gradient with respect to the cost's weights and x_init through one KKT
+   launch against the host's float64 gradient at the card's fixed point
+   (phase 32's rule), and the solve against the host's on the first 64
+   scenarios; u_zero_I pinning the vehicle's steering at B=1024 on the fused
+   kernel, the pinned control exactly 0, unbounded elsewhere (the +-1e18
+   box) against the host by phase 36's witness rule, and inside the example's
+   box bit-equal to the solve whose steering box is [0, 0]; one MPC.solve
+   with ANALYTIC_CHECK on the headline problem (the check on the card, one
+   fused launch, bit-equal to ANALYTIC).
+
 With ``--slice-only`` the script runs phases 0, 1 and 30-33 alone; with
-``--zoo-only``, phases 0 and 1, the zoo's variants of phase 30, and 35-36.
+``--zoo-only``, phases 0 and 1, the zoo's variants of phase 30, and 35-36;
+with ``--mpc-only``, phases 0 and 1, the receding loop's variants, and
+37-38.
 
 The line before the last holds the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -314,6 +351,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -2373,8 +2411,8 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
 
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
 
-    # ---- 30. the variants, the slice's and the zoo's, built together ----
-    build_variants_phase(slice_variant_keys() + zoo_variant_keys())
+    # ---- 30. the variants, the slice's, the zoo's and the receding loop's, built together ----
+    build_variants_phase(slice_variant_keys() + zoo_variant_keys() + receding_variant_keys())
 
     # ---- 31. each variant kernel against its plain version ----
     t0 = time.perf_counter()
@@ -3441,6 +3479,561 @@ def zoo(device, smi: str, clock_mhz: float) -> list:
     return zoo_rows(run)
 
 
+# ---------------------------------------------------------------------------
+# Phases 37-38: the receding-horizon loop (diffmpc_tpu_torch.receding, the
+# example diffmpc_tpu_torch/examples/receding_mpc.py) with the slew penalty
+# on the control-passthrough variants of the fused solve and the line search
+# (csrc/passthrough.cuh), and the rest of mpc.py: callable costs, u_zero_I,
+# ANALYTIC_CHECK.
+# ---------------------------------------------------------------------------
+
+# examples/receding_mpc.py's full width: B=1024, T=20, lqr_iter=10, eps=1e-5,
+# 100 env steps, the plant's params +-15% off the model's, seed 0
+RH_B, RH_T, RH_ITER, RH_STEPS, RH_ERR = 1024, 20, 10, 100, 0.15
+RH_EPISODES = (("pendulum", 0.0), ("pendulum", 1.0), ("vehicle", 1.0))
+RH_CPU_B = 64  # the scenarios held against the host's plain solve
+RH_MID = 50  # the env step of the warm-started solve held against the host
+# each wrapped env's inner step (ZOO_STEP's columns: operations, sines,
+# cosines and square roots, the longest chain x_t -> x_t+1), counted from
+# csrc/pendulum.cuh and csrc/vehicle.cuh; the wrapper adds m copies, off
+# that chain
+PT_STEP = {"pendulum": (25, 3, 14), "vehicle": ZOO_STEP["vehicle"]}
+PT_SRC = "diffmpc_tpu_torch/csrc/passthrough.cuh"
+
+
+def passthrough_model(name: str, device):
+    """The slew penalty's augmented model of env ``name`` (the pendulum or
+    the vehicle) with its default params."""
+    from diffmpc_tpu_torch.models import CtrlPassthroughDynamics, PendulumDx
+
+    inner = PendulumDx.default(device=device) if name == "pendulum" else zoo_model(name, device)
+    return CtrlPassthroughDynamics(inner=inner, n_ctrl=inner.n_ctrl)
+
+
+def receding_variant_keys() -> list:
+    """Every variant phases 37-38 launch: the control-passthrough fused solve
+    and line search (with its twin) of the pendulum at (4, 1) and the
+    vehicle at (6, 2), the vehicle's own fused solve (u_zero_I), and the
+    Riccati sweep at (6, 2) (the (4, 1) one is prebuilt). The zoo's phases
+    build the last two as well: one parallel build takes each key once."""
+    from diffmpc_tpu_torch.csrc.build import VariantKey as K
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    keys = [il.env_variant_key(il.kernel_env(passthrough_model(name, "cpu")), family)
+            for name in ("pendulum", "vehicle") for family in ("ilqr", "rollout")]
+    return keys + [il.env_variant_key(il.kernel_env(zoo_model("vehicle", "cpu")), "ilqr"), K("riccati", 6, 2)]
+
+
+def pt_step_ops(name: str, tangents: int = 0) -> int:
+    """Operations of one wrapped step on a scalar carrying ``tangents`` dual
+    parts: the inner step's and the m copies."""
+    ops, trans, _ = PT_STEP[name]
+    m = 1 if name == "pendulum" else 2
+    return (1 + tangents) * (ops + trans + m)
+
+
+def pt_ilqr_bound(name: str, res, B: int, steps: int, n_alpha: int, clock_mhz: float) -> dict:
+    """env_ilqr_bound at the wrapped shape with the wrapped step (the inner
+    step's chain; the copies run beside it), shared params."""
+    n_i, m = (3, 1) if name == "pendulum" else (4, 2)
+    n = n_i + m
+    return env_ilqr_bound(n, m, pt_step_ops(name), pt_step_ops(name, tangents=n + m), PT_STEP[name][2],
+                          3 if name == "pendulum" else 2, res, B, steps, n_alpha, clock_mhz)
+
+
+def pt_rollout_bound(name: str, res, B: int, steps: int, clock_mhz: float) -> dict:
+    """env_rollout_bound at the wrapped shape with the wrapped step."""
+    n_i, m = (3, 1) if name == "pendulum" else (4, 2)
+    return env_rollout_bound(n_i + m, m, pt_step_ops(name), PT_STEP[name][2], 3 if name == "pendulum" else 2, res, B,
+                             steps, clock_mhz)
+
+
+def solution_agreement(name: str, got, want, calm: float = 5e-3) -> dict:
+    """Two ``mpc_solve`` solutions (MPCSolution) of a convex problem: every
+    scenario's objective within 1e-3 relative, its controls within ``calm``
+    where the last line-search step agrees and within 5e-2 where it does not
+    (a box-QP tie, or a last step taken at the same objective: phase 2's
+    ties). A step agrees where the two alphas are within 1e-6 relative: the
+    rollout kernel rolls the ladder (alpha *= decay), the plain ladder takes
+    powers. Whether each converged is reported: at eps the float32 noise of
+    two ways to compute one objective decides it."""
+    g = {k: getattr(got, k).detach().double().cpu() for k in ("us", "objs")}
+    w = {k: getattr(want, k).detach().double().cpu() for k in ("us", "objs")}
+    ga, wa = got.info.mean_alpha.double().cpu(), want.info.mean_alpha.double().cpu()
+    tie = (ga - wa).abs() > 1e-6 * wa.abs()
+    us = (g["us"] - w["us"]).abs().amax(dim=(0, 2))
+    rel = (g["objs"] - w["objs"]).abs() / w["objs"].abs().clamp_min(1e-6)
+    out = dict(objs_max_rel=float(rel.max()), us_max_abs=float(us[~tie].max()) if (~tie).any() else 0.0,
+               ties=int(tie.sum()), ties_us_max_abs=float(us[tie].max()) if tie.any() else 0.0,
+               converged_equal_frac=float((got.info.converged.cpu() == want.info.converged.cpu()).double().mean()),
+               converged_frac=float(got.info.converged.double().mean()))
+    if out["objs_max_rel"] > 1e-3 or out["us_max_abs"] > calm or out["ties_us_max_abs"] > 5e-2:
+        raise AssertionError(f"{name}: {out}")
+    return out
+
+
+class SolView(NamedTuple):
+    """An MPCSolution seen as the fused solve's result for the witness rule:
+    a scenario's iterations stood in for by whether it converged."""
+
+    us: torch.Tensor
+    objs: torch.Tensor
+    converged: torch.Tensor
+    alpha: torch.Tensor
+    n_iters: torch.Tensor
+
+
+def sol_view(sol, cut: int = 0) -> SolView:
+    """``sol``'s first ``cut`` scenarios (all for 0) as a SolView."""
+    cut = cut or sol.objs.shape[0]
+    conv = sol.info.converged[:cut]
+    return SolView(sol.us[:, :cut].detach(), sol.objs[:cut].detach(), conv, sol.info.mean_alpha[:cut],
+                   conv.to(torch.int32))
+
+
+class MpcRun(ZooRun):
+    """What phases 37-38 share: ZooRun's card, counters and records, and the
+    passthrough kernels' records for the kernels line."""
+
+    def __init__(self, device, smi: str, clock_mhz: float):
+        super().__init__(device, smi, clock_mhz)
+        self.pt_fused, self.pt_searches = {}, {}
+
+
+def receding_setup(name: str, slew: float, device):
+    """The example's setup (diffmpc_tpu_torch/examples/receding_mpc.py) at
+    its full width for env ``name`` and slew weight ``slew``."""
+    from types import SimpleNamespace
+
+    from diffmpc_tpu_torch.examples import receding_mpc as ex
+
+    args = SimpleNamespace(env=name, batch=RH_B, horizon=RH_T, env_steps=RH_STEPS, lqr_iter=RH_ITER, seed=0,
+                           plant_param_error=RH_ERR, slew=slew)
+    return args, ex.setup(args, device)
+
+
+def pt_witness(run: MpcRun, name: str, label: str, call) -> dict:
+    """The passthrough fused kernel on one recorded solve's inputs ``call``
+    (the args and keywords mpc_solve gave ilqr_solve_fused) against the
+    host's plain fused solve on the first RH_CPU_B scenarios by phase 36's
+    witness rule (the float64 plain solve as the witness; a scenario
+    converged on both sides counts as iteration-equal), and every built lane
+    count, with and without hoist_lin, bit-equal to one lane."""
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    args, kw = call
+    kw = {k: v for k, v in kw.items() if k != "use_cuda"}
+    names = ("x_init", "C", "c", "dyn", "u_lower", "u_upper")
+    ins = dict(zip(names, args))
+    kern = il.ilqr_solve_fused(**ins, **kw)
+    cut = lambda v: v[:RH_CPU_B] if v.ndim <= 2 else v[:, :RH_CPU_B]  # noqa: E731
+    head = kern._replace(**{f: cut(getattr(kern, f)) for f in kern._fields})
+    host_in = {k: cut(v).cpu() if torch.is_tensor(v) else v.to(device="cpu") for k, v in ins.items()}
+    host_kw = {k: cut(v).cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
+    host = il.ilqr_solve_plain(**host_in, **host_kw)
+    exact = il.ilqr_solve_plain(**{k: v.double() if torch.is_tensor(v) else v.to(torch.float64)
+                                   for k, v in host_in.items()},
+                                **{k: v.double() if torch.is_tensor(v) else v for k, v in host_kw.items()})
+    m = ins["dyn"].n_ctrl
+    agree = witnessed_agreement(f"{name} passthrough fused kernel, {label}, card vs host", head, host, exact,
+                                ties=m > 1, converged_free=True)
+    env = il.kernel_env(ins["dyn"])
+    staged = {}
+    knobs = {k: v for k, v in kw.items() if k not in ("pnqp_enum", "value_update_exact_reg", "hoist_lin")}
+    for hoist in (False, True):
+        launch = il._cuda_launcher(run.device, env, hoist)
+        for L in il.ILQR_LANES:
+            staged[(L, hoist)] = il.run_staged(launch, *args, lanes=L, **dict(knobs, hoist_lin=hoist))
+    return dict(first_scenarios=RH_CPU_B, lanes_bit_equal=lanes_bit_equal(f"{name} passthrough lanes, {label}", staged),
+                **agree)
+
+
+def receding_episodes(run: MpcRun) -> None:
+    """Phase 37: the three closed-loop episodes at the example's full width
+    through its own setup and episode (run_receding_horizon; the counts set
+    to 0 before each and read after: one fused launch per env step, of the
+    passthrough variant with the slew penalty, no other kernel), each
+    episode's success share, stage cost and ms per env step (CUDA events,
+    its second run), the card's idle share of one profiled env step; with
+    the slew penalty, the passthrough kernel held against the host on the
+    episode's first solve and on its warm-started solve at env step RH_MID,
+    the kernel alone, its wrapper and its plain version timed with its
+    bound."""
+    from diffmpc_tpu_torch.diagnostics.ab_solve_grad import busy_ms
+    from diffmpc_tpu_torch.examples import receding_mpc as ex
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+    from diffmpc_tpu_torch.receding import receding_init, receding_step
+
+    device, smi = run.device, run.smi
+    for name, slew in RH_EPISODES:
+        t0 = time.perf_counter()
+        args, s = receding_setup(name, slew, device)
+        keys = []
+        run.reset()
+        with recording("diffmpc_tpu_torch.ops.cuda.ilqr", "kernel_library", keys):
+            xs, us, objs = ex.episode(s, RH_STEPS)
+        launches = run.counts()
+        if launches != run.only(ilqr=RH_STEPS):
+            raise AssertionError(f"receding {name} slew={slew}: launches {launches}")
+        launched = sorted({"prebuilt" if key is None else key.name for (key,), _ in keys})
+        want_key = il.env_variant_key(il.kernel_env(passthrough_model(name, "cpu") if slew else s["model"]), "ilqr")
+        if launched != ["prebuilt" if want_key is None else want_key.name]:
+            raise AssertionError(f"receding {name} slew={slew}: launched {launched}, not {want_key}")
+        m = ex.metrics(args, s, xs, us)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        xs2, us2, _ = ex.episode(s, RH_STEPS)
+        end.record()
+        end.synchronize()
+        episode_ms = start.elapsed_time(end)
+        if not (bool(torch.isfinite(xs2).all()) and torch.equal(us2, us)):
+            raise AssertionError(f"receding {name} slew={slew}: the second run differs from the first")
+        # one env step under torch.profiler, from the state at RH_MID
+        config, cost, model = s["config"], s["cost"], s["model"]
+        bounds = dict(u_lower=s["lo"], u_upper=s["hi"])
+        state = receding_init(config, s["x0"])
+        mid_call, first_call = [], []
+        with torch.no_grad():
+            for i in range(RH_MID + 1):
+                sink = first_call if i == 0 else mid_call if i == RH_MID else []
+                with recording("diffmpc_tpu_torch.mpc", "ilqr_solve_fused", sink):
+                    nxt, _ = receding_step(config, state, cost, model, s["plant"].forward, **bounds)
+                if i < RH_MID:
+                    state = nxt
+            profiled = []
+
+            def one_step():
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                receding_step(config, state, cost, model, s["plant"].forward, **bounds)
+                b.record()
+                b.synchronize()
+                profiled.append(a.elapsed_time(b))
+
+            busy = busy_ms(one_step)
+        record = dict(phase="receding_episode", env=name, slew=slew, B=RH_B, T=RH_T, lqr_iter=RH_ITER, env_steps=RH_STEPS,
+                      plant_param_error=RH_ERR, launches=launches, variant=launched[0],
+                      success_frac=m["success_frac"], mean_stage_cost=m["mean_stage_cost"],
+                      final_stage_cost=m["final_stage_cost"], mean_abs_du=m["mean_abs_du"],
+                      mean_obj_last_step=float(objs[-1].mean()), episode_ms=episode_ms,
+                      ms_per_env_step=episode_ms / RH_STEPS, profiled_env_step_ms=profiled[-1], busy_ms=busy,
+                      idle_share=None if busy is None else 1 - busy / profiled[-1], card=smi)
+        if slew:
+            (call,), (mid,) = first_call, mid_call
+            record["first_solve_vs_host"] = pt_witness(run, name, "first solve", call)
+            record["mid_solve_vs_host"] = pt_witness(run, name, f"env step {RH_MID}", mid)
+            fargs, fkw = call
+            fkw = {k: v for k, v in fkw.items() if k not in ("use_cuda", "pnqp_enum", "value_update_exact_reg",
+                                                             "hoist_lin")}
+            env = il.kernel_env(fargs[3])
+            lanes = il.ilqr_lanes(RH_B, env, run.sm_count)
+            out = {}
+            res = il.run_staged(timed_launch(il._cuda_launcher(device, env, False), 20, out), *fargs, lanes=lanes,
+                                **fkw)
+            wrap_ms = cuda_ms(lambda: il.ilqr_solve_fused(*fargs, **fkw), 10, 2)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            il.ilqr_solve_plain(*fargs, **fkw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t1) * 1e3  # the plain version, timed once
+            fb = pt_ilqr_bound(name, res, RH_B, RH_T, N_ALPHA, run.clock_mhz)
+            run.pt_fused[name] = dict(ms=out["ms"], wrapper_ms=wrap_ms, plain_ms=plain_ms, bound=fb, lanes=lanes,
+                                      launches=launches["ilqr"], key=launched[0],
+                                      max_abs_err=record["first_solve_vs_host"]["us_max_abs"])
+            record.update(kernel_ms=out["ms"], wrapper_ms=wrap_ms, plain_ms=plain_ms, lanes=lanes, bound=fb)
+        record["seconds"] = time.perf_counter() - t0
+        emit(**record)
+
+
+def receding_line_searches(run: MpcRun) -> None:
+    """Phase 37b: the passthrough line search and its twin. A slewed solve
+    with verbose=1 (the non-fused loop) at T=20 (the resident kernels) and
+    T=128 (the Riccati and rollout twins at the wrapped shape), B=1024, one
+    Riccati and one line-search launch an iteration; the first line search
+    of each on its recorded inputs against its plain version by phase 10's
+    rule (the float64 plain version as the witness of the trajectory), every
+    built lane count of the kernel and the twin bit-equal to one lane; the
+    kernel alone, its wrapper and its plain version timed."""
+    from diffmpc_tpu_torch import mpc_solve
+    from diffmpc_tpu_torch.ops.cuda import rollout as rol
+    from diffmpc_tpu_torch.ops.cuda import rollout_stream
+
+    device, smi = run.device, run.smi
+    for name in ("pendulum", "vehicle"):
+        for steps in (RH_T, T_LONG):
+            t0 = time.perf_counter()
+            twin = steps != RH_T
+            kind, ric_kind = ("rollout_stream", "riccati_stream") if twin else ("rollout", "riccati")
+            args, s = receding_setup(name, 1.0, device)
+            cfg = dataclasses.replace(s["config"], T=steps, verbose=1)
+            calls = []
+            runner = rollout_stream.linesearch_rollout_stream_cuda if twin else rol.linesearch_rollout_cuda
+            run.reset()
+            with contextlib.redirect_stdout(io.StringIO()) as printed, torch.no_grad(), \
+                    recording("diffmpc_tpu_torch.ops.lqr", runner.__name__, calls):
+                sol = mpc_solve(cfg, s["x0"], s["cost"], s["model"], u_lower=s["lo"], u_upper=s["hi"],
+                                prev_ctrl=torch.full((RH_B, s["config"].n_ctrl), 0.1, device=device))
+            it = int(sol.info.n_iters)
+            got = run.counts()
+            if got != run.only(**{ric_kind: it, kind: it}) or not printed.getvalue().strip():
+                raise AssertionError(f"{name} slewed verbose=1 at T={steps}: launches {got} for {it} iterations")
+            ls_args, kw = calls[0]
+            kw = {k: v for k, v in kw.items() if k != "use_cuda"}
+            dyn = kw["dyn"]
+            got_ls = runner(*ls_args, **kw)
+            lanes = runner.last_lanes
+            plain = rol.linesearch_rollout_plain(*ls_args, **kw)
+            exact = rol.linesearch_rollout_plain(*(None if a is None else a.double() for a in ls_args),
+                                                 **dict(kw, u_lower=kw["u_lower"].double(),
+                                                        u_upper=kw["u_upper"].double(), dyn=dyn.to(torch.float64)))
+            agree = zoo_line_search_check(f"{name} passthrough T={steps}", got_ls, plain, exact)
+            n, m = ls_args[0].shape[-1], dyn.n_ctrl
+            by_lanes = {}
+            for label, launcher in (("rollout", rol._cuda_launcher), ("rollout_stream", rollout_stream._stream_launcher)):
+                launch = launcher(device, n, m, dyn)
+                for L in rol.ROLLOUT_LANES:
+                    by_lanes[(label, L)] = rol.run_staged_rollout(launch, *ls_args, lanes=L, **kw)
+            bit_equal = lanes_bit_equal(f"{name} passthrough line search lanes, T={steps}", by_lanes)
+            launcher = rollout_stream._stream_launcher if twin else rol._cuda_launcher
+            out = {}
+            res = rol.run_staged_rollout(timed_launch(launcher(device, n, m, dyn), 20, out), *ls_args, lanes=lanes, **kw)
+            wrap_ms = cuda_ms(lambda: runner(*ls_args, **kw), 10, 2)
+            plain_ms = cuda_ms(lambda: rol.linesearch_rollout_plain(*ls_args, **kw), 1, 1)
+            rb = pt_rollout_bound(name, res, RH_B, steps, run.clock_mhz)
+            run.pt_searches[(name, steps)] = dict(ms=out["ms"], plain_ms=plain_ms, bound=rb, lanes=lanes,
+                                                  launches=got[kind], max_abs_err=agree["traj_max_abs_where_alpha_agrees"])
+            emit(phase="receding_line_search", env=name, B=RH_B, T=steps, kernel=kind, lanes=lanes, n_iters=it,
+                 path_launches=got, lanes_bit_equal=bit_equal, kernel_ms=out["ms"], wrapper_ms=wrap_ms,
+                 plain_ms=plain_ms, bound=rb, seconds=time.perf_counter() - t0, card=smi, **agree)
+
+
+# BASELINE.json config 2's recipe (box-DDP n=4, m=2, T=20, box +-0.6) at
+# B=4096, its cost shared over the batch and the horizon (a callable cost
+# sees tau alone): the first scenario's first step of the recipe's C, c
+RM_CALL_B, RM_COSH_B, RM_COSH_T, RM_COSH_ITER = 4096, 1024, 10, 15
+COSH_Q, COSH_GOAL = (1.0, 1.0, 0.1, 0.001), (1.0, 0.0, 0.0, 0.0)
+
+
+def cosh_cost(q):
+    """tests/test_mpc.py:160's cost: the goal quadratic with weights ``q``
+    and a cosh barrier on the control, per sample ``tau``."""
+    goal = torch.tensor(COSH_GOAL, dtype=q.dtype, device=q.device)
+
+    def cost(tau):
+        d = tau - goal
+        return 0.5 * (q * d * d).sum() + 0.01 * (torch.cosh(tau[3:]) - 1.0).sum()
+
+    return cost
+
+
+def rest_of_mpc(run: MpcRun) -> None:
+    """Phase 38: the rest of mpc.py on the card, each call with the counts
+    set to 0 before it and read after. (a) A callable cost equal to config
+    2's quadratic (shared) at B=4096 through the non-fused loop: the same
+    solve as the QuadCost's by the tests' chaos rule, one Riccati launch an
+    iteration and no line-search kernel (the ladder judges by the callable,
+    as the JAX package's dispatch does); both timed. (b) tests/test_mpc.py:
+    160's cosh cost on the pendulum at B=1024 with the gradient of a loss
+    over the first RH_CPU_B scenarios with respect to the cost's weights
+    and x_init (one Riccati launch an iteration, one KKT launch), against
+    the host's float64 gradient at the card's fixed point (phase 32's rule)
+    and the card's solve against the host's on those scenarios. (c)
+    u_zero_I pinning the vehicle's steering at B=1024 on the fused kernel
+    (one launch), unbounded elsewhere (the +-1e18 box) and inside the
+    example's box: the steering exactly 0, the bounded solve bit-equal to
+    the one with the steering box [0, 0], the unbounded one against the
+    host by phase 36's witness rule. (d) One MPC.solve with ANALYTIC_CHECK
+    on the headline problem: the check on the card, then one fused launch,
+    bit-equal to ANALYTIC."""
+    from diffmpc_tpu_torch import MPC, GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
+    from diffmpc_tpu_torch.models import PendulumDx
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+    from diffmpc_tpu_torch.ops.linearize import linearize_dynamics, quadraticize_cost
+    from diffmpc_tpu_torch.ops.lqr_step import LqrSpec, lqr_fixed_point
+
+    device, smi = run.device, run.smi
+    # (a) the callable cost equal to config 2's quadratic
+    t0 = time.perf_counter()
+    C, c, F, f, x0 = (torch.tensor(a, device=device) for a in random_lqr_numpy(np.random.default_rng(38), T,
+                                                                               RM_CALL_B, BOX_N, BOX_M))
+    Cs, cs = C[0, 0], c[0, 0]
+    config = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=T, lqr_iter=LONG_ITER, exit_unconverged=False,
+                       detach_unconverged=False)
+    dx, box = LinDx(F, f), dict(u_lower=-BOX, u_upper=BOX)
+
+    def quad_tau(tau):
+        return 0.5 * (tau * (Cs * tau).sum(-1)).sum() + (cs * tau).sum()
+
+    with torch.no_grad():
+        run.reset()
+        quad = mpc_solve(config, x0, QuadCost(Cs, cs), dx, **box)
+        quad_launches = run.counts()
+        run.reset()
+        call = mpc_solve(config, x0, quad_tau, dx, **box)
+        call_launches = run.counts()
+        it_q, it_c = int(quad.info.n_iters), int(call.info.n_iters)
+        if quad_launches != run.only(riccati=it_q, rollout=it_q) or call_launches != run.only(riccati=it_c):
+            raise AssertionError(f"callable cost: launches {call_launches} ({it_c} iterations), the QuadCost's "
+                                 f"{quad_launches} ({it_q})")
+        agree = solution_agreement("callable cost vs QuadCost, config 2", call, quad)
+        quad_ms = cuda_ms(lambda: mpc_solve(config, x0, QuadCost(Cs, cs), dx, **box), 3, 2)
+        call_ms = cuda_ms(lambda: mpc_solve(config, x0, quad_tau, dx, **box), 3, 2)
+    emit(phase="callable_cost", B=RM_CALL_B, T=T, launches=call_launches, quadcost_launches=quad_launches,
+         n_iters=it_c, quadcost_n_iters=it_q, mpc_solve_ms=call_ms, quadcost_mpc_solve_ms=quad_ms,
+         seconds=time.perf_counter() - t0, card=smi, **agree)
+
+    # (b) the cosh cost on the pendulum with its gradient
+    t0 = time.perf_counter()
+    pend = PendulumDx.default(device=device)
+    xc = torch.tensor(x_init(RM_COSH_B, 38), device=device)
+    cfg = MPCConfig(n_state=3, n_ctrl=1, T=RM_COSH_T, lqr_iter=RM_COSH_ITER, eps=1e-6, exit_unconverged=False,
+                    detach_unconverged=True)
+    q = torch.tensor(COSH_Q, device=device, requires_grad=True)
+    x_leaf = xc.clone().requires_grad_(True)
+    run.reset()
+    sol = mpc_solve(cfg, x_leaf, cosh_cost(q), pend, u_lower=-2.0, u_upper=2.0)
+    loss = (sol.us[:, :RH_CPU_B] ** 2).mean() + (sol.xs[:, :RH_CPU_B, 2] ** 2).mean()
+    g_card = torch.autograd.grad(loss, (q, x_leaf))
+    it = int(sol.info.n_iters)
+    launches = run.counts()
+    if launches != run.only(riccati=it, kkt=1):
+        raise AssertionError(f"cosh cost: launches {launches} for {it} iterations")
+
+    def host_grads(dtype):
+        qh = torch.tensor(COSH_Q, dtype=dtype, requires_grad=True)
+        xh = xc[:RH_CPU_B].to("cpu", dtype).requires_grad_(True)
+        xs = sol.xs.detach()[:, :RH_CPU_B].to("cpu", dtype)
+        us = sol.us.detach()[:, :RH_CPU_B].to("cpu", dtype)
+        dxh = PendulumDx.default(dtype, device="cpu")
+        Ch, ch = quadraticize_cost(cosh_cost(qh), xs, us)
+        Fh, fh = linearize_dynamics(dxh, xs, us)
+        lo = torch.full((RM_COSH_T, RH_CPU_B, 1), -2.0, dtype=dtype)
+        spec = LqrSpec(n_state=3, constrained=True, tight_eps=cfg.tight_eps, back_eps=cfg.back_eps, use_cuda=False)
+        xs2, us2 = lqr_fixed_point(spec, xh, Ch, ch, Fh, fh, xs, us, lo, -lo)
+        keep = sol.info.converged[:RH_CPU_B].cpu()[None, :, None]
+        us2, xs2 = torch.where(keep, us2, us), torch.where(keep, xs2, xs)
+        return torch.autograd.grad((us2 ** 2).mean() + (xs2[..., 2] ** 2).mean(), (qh, xh))
+
+    g64, g32 = host_grads(torch.float64), host_grads(torch.float32)
+    rel = [float((a.cpu().double() - b).abs().max() / b.abs().max().clamp_min(1e-30)) for a, b in zip(
+        (g_card[0], g_card[1][:RH_CPU_B]), g64)]
+    rel32 = [float((a.double() - b).abs().max() / b.abs().max().clamp_min(1e-30)) for a, b in zip(g32, g64)]
+    with torch.no_grad():
+        head = sol_view(sol, RH_CPU_B)
+        views = [sol_view(mpc_solve(cfg, xc[:RH_CPU_B].to("cpu", dtype), cosh_cost(torch.tensor(COSH_Q, dtype=dtype)),
+                                    PendulumDx.default(dtype, device="cpu"), u_lower=-2.0, u_upper=2.0))
+                 for dtype in (torch.float32, torch.float64)]
+        vs_host = witnessed_agreement("cosh cost, card vs host", head, *views, converged_free=True)
+        solve_ms = cuda_ms(lambda: mpc_solve(cfg, xc, cosh_cost(q.detach()), pend, u_lower=-2.0, u_upper=2.0), 3, 2)
+
+    def solve_grad():
+        s2 = mpc_solve(cfg, x_leaf, cosh_cost(q), pend, u_lower=-2.0, u_upper=2.0)
+        return torch.autograd.grad((s2.us[:, :RH_CPU_B] ** 2).mean() + (s2.xs[:, :RH_CPU_B, 2] ** 2).mean(), (q, x_leaf))
+
+    grad_rec = dict(rel_err_vs_float64_at_the_fixed_point=rel, host_float32_rel_err_vs_float64=rel32,
+                    grad_max_abs=[float(g.abs().max()) for g in g_card])
+    if not all(bool(torch.isfinite(g).all()) for g in g_card) or any(r > max(1e-3, 2 * r32) for r, r32 in zip(rel, rel32)):
+        raise AssertionError(f"cosh cost: the gradient against the host's float64 one: {grad_rec}")
+    emit(phase="cosh_cost", B=RM_COSH_B, T=RM_COSH_T, lqr_iter=RM_COSH_ITER, launches=launches, n_iters=it,
+         converged_frac=float(sol.info.converged.float().mean()), mean_obj=float(sol.objs.detach().mean()),
+         gradient=grad_rec, vs_host=vs_host, mpc_solve_ms=solve_ms, solve_plus_grad_ms=cuda_ms(solve_grad, 3, 2),
+         seconds=time.perf_counter() - t0, card=smi)
+
+    # (c) u_zero_I on the vehicle's steering, on the fused kernel
+    t0 = time.perf_counter()
+    _, s = receding_setup("vehicle", 0.0, device)
+    veh, cost, xv = s["model"], s["cost"], s["x0"]
+    vcfg = s["config"]
+    pin = torch.tensor([False, True], device=device)
+    recs = {}
+    with torch.no_grad():
+        for label, bounds in (("unbounded", {}), ("box", dict(u_lower=s["lo"], u_upper=s["hi"]))):
+            calls = []
+            run.reset()
+            with recording("diffmpc_tpu_torch.mpc", "ilqr_solve_fused", calls):
+                got = mpc_solve(vcfg, xv, cost, veh, u_zero_I=pin, **bounds)
+            launches = run.counts()
+            pinned_zero = bool((got.us[..., 1] == 0).all())
+            if launches != run.only(ilqr=1) or not pinned_zero or not bool(torch.isfinite(got.objs).all()):
+                raise AssertionError(f"u_zero_I {label}: launches {launches}, pinned exactly 0: {pinned_zero}")
+            rec = dict(launches=launches, converged_frac=float(got.info.converged.float().mean()),
+                       mean_obj=float(got.objs.mean()), accel_max_abs=float(got.us[..., 0].abs().max()),
+                       mpc_solve_ms=cuda_ms(lambda: mpc_solve(vcfg, xv, cost, veh, u_zero_I=pin, **bounds), 5, 2))
+            if label == "box":
+                keepdim = torch.tensor([1.0, 0.0], device=device)
+                boxed = mpc_solve(vcfg, xv, cost, veh, u_lower=s["lo"] * keepdim, u_upper=s["hi"] * keepdim)
+                rec["bit_equal_to_the_zero_box"] = torch.equal(got.us, boxed.us) and torch.equal(got.objs, boxed.objs)
+                if not rec["bit_equal_to_the_zero_box"]:
+                    raise AssertionError("u_zero_I in the box is not the solve with the steering box [0, 0]")
+            else:
+                (args, kw), = calls
+                kw = {k: v for k, v in kw.items() if k != "use_cuda"}
+                ins = dict(zip(("x_init", "C", "c", "dyn", "u_lower", "u_upper"), args))
+                cut = lambda v: v[:RH_CPU_B] if v.ndim <= 2 else v[:, :RH_CPU_B]  # noqa: E731
+                host_in = {k: cut(v).cpu() if torch.is_tensor(v) else v.to(device="cpu") for k, v in ins.items()}
+                host = il.ilqr_solve_plain(**host_in, **kw)
+                exact = il.ilqr_solve_plain(**{k: v.double() if torch.is_tensor(v) else v.to(torch.float64)
+                                               for k, v in host_in.items()}, **kw)
+                kern = il.ilqr_solve_fused(**ins, **kw)
+                head = kern._replace(**{f: cut(getattr(kern, f)) for f in kern._fields})
+                rec["vs_host"] = witnessed_agreement("u_zero_I unbounded, card vs host", head, host, exact, ties=True,
+                                                     converged_free=True)
+                rec["bounds_abs"] = float(ins["u_upper"][..., 0].max())
+            recs[label] = rec
+    emit(phase="u_zero_I", env="vehicle", B=RH_B, T=RH_T, seconds=time.perf_counter() - t0, card=smi, **recs)
+
+    # (d) ANALYTIC_CHECK
+    t0 = time.perf_counter()
+    prob = problem(B_MAIN, device)
+    q_p, p_p = prob["dyn"].get_true_obj()
+    kw = dict(u_lower=-2.0, u_upper=2.0, lqr_iter=LQR_ITER, eps=EPS, exit_unconverged=False, backprop=False)
+    with torch.no_grad():
+        run.reset()
+        checked = MPC(3, 1, T, grad_method=GradMethods.ANALYTIC_CHECK, **kw).solve(prob["x_init"], QuadCost(
+            torch.diag(q_p), p_p), prob["dyn"])
+        launches = run.counts()
+        plain = MPC(3, 1, T, **kw).solve(prob["x_init"], QuadCost(torch.diag(q_p), p_p), prob["dyn"])
+    same = torch.equal(checked.us, plain.us) and torch.equal(checked.objs, plain.objs)
+    if launches != run.only(ilqr=1) or not same:
+        raise AssertionError(f"ANALYTIC_CHECK: launches {launches}, equal to ANALYTIC: {same}")
+    emit(phase="analytic_check", B=B_MAIN, launches=launches, equal_to_analytic=same,
+         seconds=time.perf_counter() - t0, card=smi)
+
+
+def passthrough_rows(run: MpcRun) -> list:
+    """The passthrough kernels' records for the kernels line: each env's
+    fused solve (its launches in its slewed episode) and line search and
+    twin (their launches in the slewed verbose=1 solve)."""
+    keep = ("bound_ms", "bound_by")
+    rows = []
+    for name, f in run.pt_fused.items():
+        rows.append(dict(name=f"ilqr_solve_fused[CtrlPassthroughDynamics({name.capitalize()}Dx)]", route="cuda",
+                         source=ZOO_SRC + "ilqr.cu", env_step=PT_SRC, variant=f["key"],
+                         replaces="diffmpc_tpu/ops/pallas/ilqr.py:458", launches=f["launches"],
+                         max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
+                         **{k: f["bound"][k] for k in keep}, library_ms=None, lanes=f["lanes"], B=RH_B))
+    for (name, steps), s in run.pt_searches.items():
+        twin = steps != RH_T
+        rows.append(dict(name=f"linesearch_rollout_pallas{'_stream' if twin else ''}[CtrlPassthroughDynamics("
+                              f"{name.capitalize()}Dx), T={steps}]", route="cuda", source=ZOO_SRC + "rollout.cu",
+                         env_step=PT_SRC, replaces="diffmpc_tpu/ops/pallas/rollout_stream.py:196" if twin else
+                         "diffmpc_tpu/ops/pallas/rollout.py:180", launches=s["launches"], max_abs_err=s["max_abs_err"],
+                         ms=s["ms"], plain_ms=s["plain_ms"], **{k: s["bound"][k] for k in keep}, library_ms=None,
+                         lanes=s["lanes"], B=RH_B))
+    return rows
+
+
+def receding(device, smi: str, clock_mhz: float) -> list:
+    """Phases 37-38 in order; returns the passthrough kernels' records."""
+    run = MpcRun(device, smi, clock_mhz)
+    t0 = time.perf_counter()
+    receding_episodes(run)
+    receding_line_searches(run)
+    rest_of_mpc(run)
+    emit(phase="receding_and_mpc_seconds", seconds=time.perf_counter() - t0)
+    return passthrough_rows(run)
+
+
 def kkt_lanes_ab(device, smi: str) -> None:
     """Phase 34 (diffmpc_tpu_torch.diagnostics.ab_kkt_lanes): every KKT call
     of the recorded solves + gradients (the headline at B=1024 and 65,536,
@@ -3508,12 +4101,16 @@ def main() -> int:
         riccati_sources_seconds={k: v for k, v in per_source.items() if re.fullmatch(r"riccati(_stream|_l\d+)?\.cu", k)},
         riccati_kernels=riccati,
     )
-    if "--slice-only" in sys.argv[1:] or "--zoo-only" in sys.argv[1:]:
+    if {"--slice-only", "--zoo-only", "--mpc-only"} & set(sys.argv[1:]):
         # phases 30-33 alone: the variants and the slice they serve; or the
-        # zoo's variants and phases 35-36 alone
+        # zoo's variants and phases 35-36 alone; or the receding loop's
+        # variants and phases 37-38 alone
         if "--zoo-only" in sys.argv[1:]:
             build_variants_phase(zoo_variant_keys())
             rows = zoo(device, smi, clock_mhz)
+        elif "--mpc-only" in sys.argv[1:]:
+            build_variants_phase(receding_variant_keys())
+            rows = receding(device, smi, clock_mhz)
         else:
             rows = variants_slice(device, smi, clock_mhz)
         print(smi, flush=True)
@@ -3524,7 +4121,7 @@ def main() -> int:
 
 
 def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
-    """Phases 2-36, then the kernels line and the ok line."""
+    """Phases 2-38, then the kernels line and the ok line."""
     from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.models import PendulumDx
     from diffmpc_tpu_torch.ops.cuda import kkt as kkt_mod
@@ -3971,6 +4568,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     slice_rows = variants_slice(device, smi, clock_mhz)
     kkt_lanes_ab(device, smi)
     zoo_records = zoo(device, smi, clock_mhz)
+    receding_records = receding(device, smi, clock_mhz)
 
     print(smi, flush=True)
     emit(kernels=[
@@ -4033,6 +4631,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         probe_row,
         *slice_rows,
         *zoo_records,
+        *receding_records,
     ])
     emit(ok=True, device=dict(platform="gpu", kind=kind, count=torch.cuda.device_count()))
     return 0

@@ -1,8 +1,9 @@
 """Carry the JAX package's state over to the port, through numpy arrays.
 
 The functions take the JAX package's objects (``PendulumDx`` and the other
-envs of its zoo, ``NNDynamics``, ``AffineDynamics``, ``QuadCost``, ``LinDx``,
-``MPCConfig``)
+envs of its zoo, ``NNDynamics``, ``AffineDynamics``,
+``CtrlPassthroughDynamics``, ``QuadCost``, ``LinDx``, ``MPCConfig``,
+``RecedingState``)
 and read only their fields, so this module imports neither
 JAX nor the JAX package: ``np.asarray`` copies a JAX array to the host.
 Both packages then compute the same problem.
@@ -15,8 +16,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models.dynamics import AffineDynamics, NNDynamics
+from .models.dynamics import AffineDynamics, CtrlPassthroughDynamics, NNDynamics
 from .models.envs import AcrobotDx, CartpoleDx, PendulumDx, QuadrotorDx, VehicleDx
+from .receding import RecedingState
 from .types import GradMethods, LinDx, MPCConfig, QuadCost
 
 
@@ -91,6 +93,13 @@ def affine_dynamics_from_jax(dx, dtype=None, device="cuda") -> AffineDynamics:
     return AffineDynamics(to_tensor(dx.A, dtype, device), to_tensor(dx.B, dtype, device), c)
 
 
+def ctrl_passthrough_from_jax(dx, dtype=None, device="cuda") -> CtrlPassthroughDynamics:
+    """The port's ``CtrlPassthroughDynamics`` around the JAX wrapper's inner
+    model, converted by the converter of its class (:data:`MODEL_FROM_JAX`),
+    on the card unless ``device`` says otherwise."""
+    return CtrlPassthroughDynamics(inner=model_from_jax(dx.inner, dtype, device), n_ctrl=int(dx.n_ctrl))
+
+
 def quad_cost_from_jax(cost, dtype=None, device="cuda") -> QuadCost:
     """The port's ``QuadCost`` with the JAX one's ``C`` and ``c``, on the card
     unless ``device`` says otherwise."""
@@ -125,3 +134,30 @@ def mpc_config_from_jax(config) -> MPCConfig:
     use_pallas = config.use_pallas
     kw["use_cuda"] = None if use_pallas is None or (use_pallas and config.pallas_interpret) else bool(use_pallas)
     return MPCConfig(**kw)
+
+
+def receding_state_from_jax(state, dtype=None, device="cuda") -> RecedingState:
+    """The port's ``RecedingState`` with the JAX one's ``x``, ``u_warm`` and
+    ``prev_u``, on the card unless ``device`` says otherwise."""
+    return RecedingState(*(to_tensor(a, dtype, device) for a in (state.x, state.u_warm, state.prev_u)))
+
+
+# the JAX package's model classes, by name, and their converters
+MODEL_FROM_JAX = {
+    "PendulumDx": pendulum_from_jax,
+    "CartpoleDx": cartpole_from_jax,
+    "VehicleDx": vehicle_from_jax,
+    "QuadrotorDx": quadrotor_from_jax,
+    "AcrobotDx": acrobot_from_jax,
+    "NNDynamics": nn_dynamics_from_jax,
+    "AffineDynamics": affine_dynamics_from_jax,
+    "CtrlPassthroughDynamics": ctrl_passthrough_from_jax,
+}
+
+
+def model_from_jax(dx, dtype=None, device="cuda"):
+    """Any JAX model of :data:`MODEL_FROM_JAX`, by its class's name."""
+    name = type(dx).__name__
+    if name not in MODEL_FROM_JAX:
+        raise TypeError(f"no converter for the JAX model {name}: one of {sorted(MODEL_FROM_JAX)}")
+    return MODEL_FROM_JAX[name](dx, dtype, device)

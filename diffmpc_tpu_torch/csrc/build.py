@@ -198,9 +198,12 @@ class VariantKey(NamedTuple):
     """A kernel variant: the family (``ilqr``, ``rollout``, ``riccati``,
     ``kkt``, ``riccati_blocked``), the shape ``(n, m)``, the env (``linear``,
     ``nn`` or one of :data:`CPP_ENVS`) with an MLP's hidden widths, the box QP's
-    enumeration mode (``ENUM_*``: ``ilqr`` and ``riccati``) and the value
-    update's form (``exact``: ``ilqr`` and ``kkt``). The MLP's activation and
-    ``residual`` are run-time fields of its env, not part of the key."""
+    enumeration mode (``ENUM_*``: ``ilqr`` and ``riccati``), the value
+    update's form (``exact``: ``ilqr`` and ``kkt``) and whether the env is
+    wrapped in ``CtrlPassthroughEnv`` (``passthrough``: ``ilqr`` and
+    ``rollout``; ``(n, m)`` is then the wrapped shape, the inner env's
+    ``(n - m, m)``). The MLP's activation and ``residual`` are run-time
+    fields of its env, not part of the key."""
 
     family: str
     n: int
@@ -209,13 +212,15 @@ class VariantKey(NamedTuple):
     hidden: tuple = ()
     enum: int = ENUM_DEFAULT
     exact: bool = False
+    passthrough: bool = False
 
     @property
     def name(self) -> str:
         parts = [self.family, f"n{self.n}m{self.m}", self.env]
         if self.hidden:
             parts.append("h" + "x".join(map(str, self.hidden)))
-        return "_".join(parts + [f"e{self.enum}", f"x{int(self.exact)}"])
+        parts += [f"e{self.enum}", f"x{int(self.exact)}"]
+        return "_".join(parts + (["p1"] if self.passthrough else []))
 
 
 # Each family's source in csrc/variants/ and the lane counts it is built for,
@@ -249,6 +254,10 @@ def variant_defines(key: VariantKey) -> list[str]:
         defs += [f"-DDMPC_ENV={key.env.capitalize()}Env", f'-DDMPC_ENV_HEADER="{key.env}.cuh"']
     elif key.env != "linear":
         raise ValueError(f"no C++ step for the env {key.env!r}: linear, nn or one of {CPP_ENVS}")
+    if key.passthrough:
+        if key.env == "linear" or key.family not in ("ilqr", "rollout"):
+            raise ValueError(f"a passthrough variant wraps an env's step in the ilqr or rollout family; got {key}")
+        defs.append("-DDMPC_PASSTHROUGH=1")
     return defs
 
 

@@ -9,6 +9,11 @@
 //   DMPC_ENUM           the box QP's enumeration mode, a PnqpEnum
 //                       (riccati_entries.cuh; default 0);
 //   DMPC_EXACT          1 for the simplified value update (default 0);
+//   DMPC_PASSTHROUGH    1 for the env wrapped in CtrlPassthroughEnv
+//                       (passthrough.cuh, the slew-rate penalty's augmented
+//                       problem): (DMPC_N, DMPC_M) is then the wrapped
+//                       shape, the inner env's (DMPC_N - DMPC_M, DMPC_M)
+//                       (default 0);
 //   DMPC_VARIANT_L      the lane count whose kernels the unit builds, or 0
 //                       for the unit that holds the launchers;
 //   DMPC_FLIP_CHEAP_STEP 1 for a C++ env with the other kCheapStep (a
@@ -29,9 +34,24 @@
 #ifndef DMPC_VARIANT_L
 #define DMPC_VARIANT_L 0
 #endif
+#ifndef DMPC_PASSTHROUGH
+#define DMPC_PASSTHROUGH 0
+#endif
 
 // the value update's form as the templates take it
 constexpr bool kVariantExact = DMPC_EXACT != 0;
+// the inner env's state dims: the key's n less the carried control's
+constexpr int kVariantInnerN = DMPC_PASSTHROUGH ? DMPC_N - DMPC_M : DMPC_N;
+
+// The env of the key: Inner, wrapped under DMPC_PASSTHROUGH
+#if DMPC_PASSTHROUGH
+#include "passthrough.cuh"
+template <class Inner>
+using VariantWrap = CtrlPassthroughEnv<Inner>;
+#else
+template <class Inner>
+using VariantWrap = Inner;
+#endif
 
 #ifdef DMPC_ENV
 #include DMPC_ENV_HEADER
@@ -40,12 +60,13 @@ constexpr bool kVariantExact = DMPC_EXACT != 0;
 // measurement's build (diagnostics/ab_cheap_step.py) and never the key's,
 // gives it the other kCheapStep.
 #if defined(DMPC_FLIP_CHEAP_STEP) && DMPC_FLIP_CHEAP_STEP
-struct VariantCppEnv : DMPC_ENV {
+struct VariantCppInner : DMPC_ENV {
   static constexpr bool kCheapStep = !DMPC_ENV::kCheapStep;
 };
 #else
-using VariantCppEnv = DMPC_ENV;
+using VariantCppInner = DMPC_ENV;
 #endif
+using VariantCppEnv = VariantWrap<VariantCppInner>;
 static_assert(VariantCppEnv::N == DMPC_N && VariantCppEnv::M == DMPC_M, "DMPC_N, DMPC_M are the env's shape");
 #endif
 
@@ -82,11 +103,14 @@ template <class Layers>
 struct NNOf;
 template <int... I>
 struct NNOf<std::integer_sequence<int, I...>> {
-  using type = NNEnv<DMPC_N, DMPC_M, hidden_width(I)...>;
+  using type = NNEnv<kVariantInnerN, DMPC_M, hidden_width(I)...>;
 };
 
 }  // namespace variant_detail
 
-// The MLP env of the key: NNEnv<n, m, hidden widths...>
-using VariantNNEnv = typename variant_detail::NNOf<std::make_integer_sequence<int, variant_detail::hidden_depth()>>::type;
+// The MLP env of the key: NNEnv<n, m, hidden widths...>, wrapped under
+// DMPC_PASSTHROUGH
+using VariantNNEnv =
+    VariantWrap<typename variant_detail::NNOf<std::make_integer_sequence<int, variant_detail::hidden_depth()>>::type>;
+static_assert(VariantNNEnv::N == DMPC_N && VariantNNEnv::M == DMPC_M, "DMPC_N, DMPC_M are the env's shape");
 #endif

@@ -14,9 +14,9 @@ differentiation, and which the CUDA kernels mirror line for line in C++
   step): the non-fused loop's ladder rolls it out.
 - :class:`NNDynamics`: an MLP on ``[x; u]``. Small ones pass the fusable
   gate and run inside the kernels; larger ones take the non-fused loop.
-
-``CtrlPassthroughDynamics`` comes with the slew-rate penalty (ROADMAP.md,
-queue 1, item 6).
+- :class:`CtrlPassthroughDynamics`: a model whose state carries a copy of
+  the last control, the slew-rate penalty's augmented problem. Its kernel
+  step is the inner model's, composed (``csrc/passthrough.cuh``).
 """
 
 from __future__ import annotations
@@ -285,3 +285,55 @@ class NNDynamics(Dynamics):
         if self.residual:
             h = [x_entries[i] + h[i] for i in range(len(x_entries))]
         return h
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CtrlPassthroughDynamics(Dynamics):
+    """``inner`` with the control carried in the state: state
+    ``[u_tilde; x]``, next state ``[u; inner(x, u)]``. The slew-rate
+    penalty's formulation (``mpc._augment_slew``), where the cost must see
+    the previous control.
+
+    Its ``entries_step`` is the inner model's, composed, so a fusable inner
+    model makes the augmented problem fusable too: the fused solve and the
+    line search launch the inner env's C++ step wrapped by
+    ``CtrlPassthroughEnv`` (``csrc/passthrough.cuh``), built as a variant
+    of its own. Its tensors are the inner model's."""
+
+    inner: Dynamics
+    n_ctrl: int
+
+    def forward(self, x, u):
+        return torch.cat([u, self.inner.forward(x[..., self.n_ctrl :], u)], -1)
+
+    def grad_input(self, x, u):
+        """The inner model's Jacobians composed: ``A' = [[0, 0], [0, A]]``
+        and ``B' = [[I], [B]]`` in the ``[u_tilde; x]`` layout."""
+        m = self.n_ctrl
+        A_i, B_i = self.inner.grad_input(x[..., m:], u)
+        batch, n_i = x.shape[:-1], A_i.shape[-1]
+        kw = dict(dtype=A_i.dtype, device=A_i.device)
+        A_top = torch.zeros((*batch, m, m + n_i), **kw)
+        A_bot = torch.cat([torch.zeros((*batch, n_i, m), **kw), A_i], -1)
+        B_top = torch.eye(m, **kw).expand(*batch, m, m)
+        return torch.cat([A_top, A_bot], -2), torch.cat([B_top, B_i], -2)
+
+    @property
+    def kernel_fusable(self) -> bool:
+        return (
+            hasattr(self.inner, "entries_step")
+            and hasattr(self.inner, "kernel_params")
+            and getattr(self.inner, "kernel_fusable", True)
+        )
+
+    def kernel_params(self) -> torch.Tensor:
+        return self.inner.kernel_params()
+
+    def entries_step(self, params, x_entries, u_entries):
+        return list(u_entries) + list(self.inner.entries_step(params, x_entries[self.n_ctrl :], u_entries))
+
+    def tensors(self) -> list:
+        return self.inner.tensors()
+
+    def to(self, dtype=None, device=None):
+        return self.replace(inner=self.inner.to(dtype, device))

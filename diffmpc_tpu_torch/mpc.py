@@ -3,28 +3,33 @@
 Two paths, chosen as the JAX package chooses (:func:`_would_use_fused`):
 
 - **fused**: QuadCost + box bounds + a model with a kernel-fusable
-  ``entries_step`` (the pendulum, a small ``NNDynamics``), no finite
+  ``entries_step`` (the zoo's envs, a small ``NNDynamics``, either wrapped
+  in ``CtrlPassthroughDynamics`` by the slew penalty), no finite
   differences and no printing: the whole solve is one call of
   :func:`diffmpc_tpu_torch.ops.cuda.ilqr.ilqr_solve_fused`;
-- **non-fused**: everything else that is ported (``LinDx`` dynamics,
-  forward-only models such as ``AffineDynamics`` or a large
-  ``NNDynamics``, unconstrained problems, ``verbose > 0``,
-  ``GradMethods.FINITE_DIFF``): the masked iLQR loop around
+- **non-fused**: everything else (``LinDx`` dynamics, forward-only models
+  such as ``AffineDynamics`` or a large ``NNDynamics``, unconstrained
+  problems, callable costs, ``verbose > 0``, ``GradMethods.FINITE_DIFF``):
+  the masked iLQR loop around
   :func:`diffmpc_tpu_torch.ops.lqr_step.lqr_step`, one launch of the
   Riccati kernel per iteration and one of the rollout kernel for linear or
-  kernel-fusable dynamics (of their streaming twins at the horizons where
-  the JAX package takes those, :mod:`diffmpc_tpu_torch.ops.cuda.horizon`),
-  or the ladder through ``forward`` in plain PyTorch for the others, and
-  one read of the ``done`` mask on the host to stop early.
+  kernel-fusable dynamics under a quadratic cost (of their streaming twins
+  at the horizons where the JAX package takes those,
+  :mod:`diffmpc_tpu_torch.ops.cuda.horizon`), or the ladder in plain
+  PyTorch for the others, and one read of the ``done`` mask on the host to
+  stop early. A callable cost is quadraticized about the trajectory once
+  an iteration (:func:`~diffmpc_tpu_torch.ops.linearize.quadraticize_cost`).
 
-Kernels run on CUDA tensors, their plain PyTorch versions on CPU tensors.
-Callable costs, ``slew_rate_penalty`` and ``u_zero_I`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``slew_rate_penalty`` solves the control-augmented problem (state
+``[u_prev; x]``, :func:`_augment_slew`) on the same two paths. ``u_zero_I``
+is the degenerate box ``lo = hi = 0`` on its dims. Kernels run on CUDA
+tensors, their plain PyTorch versions on CPU tensors.
 
 The gradient: with ``backprop=True``, grad mode on and any of ``x_init``,
 the cost's ``C``/``c``, the ``LinDx`` arrays or any tensor of the model
-(the env's ``params``, an MLP's weights and biases) requiring grad, the
-solved trajectory is attached to the inputs through
+(the env's ``params``, an MLP's weights and biases) requiring grad, or a
+callable cost (whose tensors cannot be seen from here), the solved
+trajectory is attached to the inputs through
 :func:`diffmpc_tpu_torch.ops.lqr_step.lqr_fixed_point`, whose backward is
 the KKT kernel (the plain version on CPU tensors). Otherwise the solve
 returns its trajectory as it is, and the attach costs nothing.
@@ -32,15 +37,18 @@ returns its trajectory as it is, and the attach costs nothing.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Optional, Union
 
 import torch
+from torch.func import vmap
+from torch.nn.functional import pad
 
 from .ops.cuda.ilqr import ilqr_solve_fused
-from .ops.linearize import linearize_dynamics
+from .ops.linearize import check_analytic_grads, linearize_dynamics, quadraticize_cost
 from .ops.lqr import trajectory_cost
 from .ops.lqr_step import LqrSpec, lqr_fixed_point, lqr_step
-from .models.dynamics import Dynamics
+from .models.dynamics import CtrlPassthroughDynamics, Dynamics
 from .types import GradMethods, LinDx, MPCConfig, QuadCost
 from .utils.batch import bmv
 
@@ -65,21 +73,20 @@ class MPCSolution(NamedTuple):
     info: MPCInfo
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet: it comes with {item} "
-        "(ROADMAP.md, queue 1)"
-    )
+def _symmetric_cost(cost: QuadCost, dtype, device) -> QuadCost:
+    """``cost`` as tensors of ``dtype`` on ``device``, C symmetrized: the
+    kernels mirror its upper triangle, so the full-C stage cost must see the
+    same problem."""
+    C = torch.as_tensor(cost.C, dtype=dtype, device=device)
+    c = torch.as_tensor(cost.c, dtype=dtype, device=device)
+    return QuadCost(0.5 * (C + C.transpose(-1, -2)), c)
 
 
 def _expand_cost(cost: QuadCost, T: int, B: int, dtype, device) -> QuadCost:
     """Accept C of ndim 2 ``(nm, nm)``, 3 ``(T, nm, nm)`` or 4
-    ``(T, B, nm, nm)``, and c of ndim 1/2/3 accordingly."""
-    C = torch.as_tensor(cost.C, dtype=dtype, device=device)
-    c = torch.as_tensor(cost.c, dtype=dtype, device=device)
-    # the kernel mirrors the upper triangle of C: symmetrize so that it and
-    # the full-C stage cost see the same problem
-    C = 0.5 * (C + C.transpose(-1, -2))
+    ``(T, B, nm, nm)``, and c of ndim 1/2/3 accordingly. A C or c shared
+    over the batch (or the horizon) comes back expanded as a view."""
+    C, c = _symmetric_cost(cost, dtype, device)
     if C.ndim == 2:
         C = C[None, None]
     elif C.ndim == 3:
@@ -148,6 +155,77 @@ def _expand_lin_dx(dx: LinDx, T: int, B: int, n: int, dtype, device) -> LinDx:
     return LinDx(F, f)
 
 
+def _make_traj_cost_fn(cost_fn: Callable) -> Callable:
+    """Lift a per-sample scalar cost ``cost_fn(tau)`` to a trajectory cost
+    ``(xs (T,...,n), us (T,...,m)) -> (...)``: mapped over every sample with
+    ``torch.func.vmap``, summed over time."""
+
+    def traj_cost(xs, us):
+        tau = torch.cat([xs, us], -1)
+        per = vmap(cost_fn)(tau.reshape(-1, tau.shape[-1]))
+        return per.reshape(tau.shape[:-1]).sum(0)
+
+    return traj_cost
+
+
+def _augment_slew(config: MPCConfig, x_init, cost, dx, prev_ctrl):
+    """The slew-rate penalty as a control-augmented problem: the state
+    becomes ``[u_prev; x]`` (:class:`CtrlPassthroughDynamics`, or the
+    augmented ``LinDx``), so that the cost sees consecutive controls; the
+    penalty ``0.5 s ||u_t - u_{t-1}||^2`` lands in the quadratic blocks that
+    couple the carried copy with the new control. ``prev_ctrl (B, m)``
+    (zeros by default) starts the carried copy. A ``QuadCost`` (and a
+    ``LinDx``) keeps its own leading shape, so a cost shared over the batch
+    stays shared: ``mpc_solve`` expands it as a view. Returns the augmented
+    ``(config, x_init, cost, dx)``."""
+    n, m = config.n_state, config.n_ctrl
+    s = config.slew_rate_penalty
+    B, dtype, device = x_init.shape[0], x_init.dtype, x_init.device
+    kw = dict(dtype=dtype, device=device)
+    if isinstance(cost, QuadCost):
+        C, c = _symmetric_cost(cost, dtype, device)
+        N = n + 2 * m
+        iu = torch.arange(m, device=device)  # the carried previous control
+        ic = m + n + iu  # the current control
+        slew = torch.zeros((N, N), **kw)
+        slew[iu, iu] = s
+        slew[ic, ic] = s
+        slew[iu, ic] = -s
+        slew[ic, iu] = -s
+        cost_aug = QuadCost(pad(C, (m, 0, m, 0)) + slew, pad(c, (m, 0)))
+    else:
+        base = cost
+
+        def cost_aug(tau):
+            return base(tau[m:]) + 0.5 * s * ((tau[m + n :] - tau[:m]) ** 2).sum()
+
+    if isinstance(dx, LinDx):
+        F = torch.as_tensor(dx.F, **kw)
+        lead = F.shape[:-2]
+        top = torch.cat([torch.zeros((*lead, m, m + n), **kw), torch.eye(m, **kw).expand(*lead, m, m)], -1)
+        f = None if dx.f is None else pad(torch.as_tensor(dx.f, **kw), (m, 0))
+        dx_aug = LinDx(torch.cat([top, pad(F, (m, 0))], -2), f)
+    else:
+        dx_aug = CtrlPassthroughDynamics(inner=dx, n_ctrl=m)
+    u0 = torch.zeros((B, m), **kw) if prev_ctrl is None else torch.as_tensor(prev_ctrl, **kw).reshape(B, m)
+    x_init_aug = torch.cat([u0, x_init], -1)
+    return dataclasses.replace(config, n_state=m + n, slew_rate_penalty=None), x_init_aug, cost_aug, dx_aug
+
+
+def _zero_box(u_zero_I, u_lower, u_upper, T: int, B: int, m: int, dtype, device):
+    """``u_zero_I`` as the degenerate box ``lo = hi = 0`` on its dims
+    (broadcast to ``(T, B, m)``), the given bounds or ``-+1e18`` elsewhere:
+    the box machinery (clamps, zeroed gain rows, the KKT backward's
+    tight-dim freezing) then holds those dims at exactly zero."""
+    mask = torch.as_tensor(u_zero_I, dtype=torch.bool, device=device).expand(T, B, m)
+    big = torch.full((T, B, m), 1e18, dtype=dtype, device=device)
+    lo = _expand_bound(u_lower, T, B, m, dtype, device)
+    hi = _expand_bound(u_upper, T, B, m, dtype, device)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    return (torch.where(mask, zero, -big if lo is None else lo),
+            torch.where(mask, zero, big if hi is None else hi))
+
+
 def _would_use_fused(config: MPCConfig, dx, *, is_quad: bool, constrained: bool, is_lin: bool) -> bool:
     """The fused-path predicate of the JAX package (``mpc.py:216-250``),
     without its TPU memory terms: QuadCost, box bounds, an entries-fusable
@@ -190,15 +268,16 @@ def _requires_grad(*xs) -> bool:
 
 
 @torch.no_grad()
-def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init):
+def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_fn=None):
     """The non-fused iLQR loop (``mpc.py:467-631`` of the JAX package) on
     detached inputs: an initial rollout of ``u_init`` (or zeros, clamped into
     the box) through the true dynamics, then per iteration the linearization
-    and one :func:`lqr_step`, with the best trajectory, the not-improved
-    counter and the per-scenario freeze kept as in the JAX ``Carry``.
-    Scenarios that froze keep their state through ``where``. The loop stops
-    at ``lqr_iter`` or when every scenario is done: one read of the
-    ``done`` mask on the host per iteration. Returns ``(best_x, best_u,
+    (and with a callable ``cost_fn``, the quadraticization that gives ``C,
+    c``) and one :func:`lqr_step`, with the best trajectory, the
+    not-improved counter and the per-scenario freeze kept as in the JAX
+    ``Carry``. Scenarios that froze keep their state through ``where``. The
+    loop stops at ``lqr_iter`` or when every scenario is done: one read of
+    the ``done`` mask on the host per iteration. Returns ``(best_x, best_u,
     info)``."""
     T, n, m = config.T, config.n_state, config.n_ctrl
     B, dtype, device = x_init.shape[0], x_init.dtype, x_init.device
@@ -223,7 +302,8 @@ def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init):
             x_t = dx.forward(x_t, u[t])
     x = torch.stack(xs)
     best_x, best_u = x, u
-    best_obj = trajectory_cost(C, c, x, u)
+    traj_cost = None if cost_fn is None else _make_traj_cost_fn(cost_fn)
+    best_obj = trajectory_cost(C, c, x, u) if cost_fn is None else traj_cost(x, u)
     n_not_improved = torch.zeros(B, dtype=torch.int32, device=device)
     last_improvement = torch.full((B,), float("inf"), dtype=dtype, device=device)
     done = torch.zeros(B, dtype=torch.bool, device=device)
@@ -233,7 +313,9 @@ def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init):
     i = 0
     while i < config.lqr_iter and not bool(done.all()):
         F, f = linearize_dynamics(dx, x, u, config.grad_method)
-        out = lqr_step(spec, x_init, C, c, F, f, x, u, lo, hi, dyn=None if is_lin else dx)
+        if cost_fn is not None:
+            C, c = quadraticize_cost(cost_fn, x, u)
+        out = lqr_step(spec, x_init, C, c, F, f, x, u, lo, hi, dyn=None if is_lin else dx, cost_fn=traj_cost)
         improvement = best_obj - out.objs
         # best tracks any strict improvement; best_cost_eps only drives the
         # not-improved counter
@@ -286,13 +368,22 @@ def mpc_solve(
     """Solve a batch of (possibly nonlinear, box-constrained) MPC problems.
 
     Same contract as :func:`diffmpc_tpu.mpc.mpc_solve`; the solve follows
-    ``x_init``'s dtype and device. ``dx`` is an env or a ``LinDx``; bounds
-    may be None for an unconstrained problem. ``prev_ctrl`` only matters
-    with a slew rate penalty, which is not ported yet.
+    ``x_init``'s dtype and device. ``cost`` is a ``QuadCost`` or a callable
+    ``cost(tau) -> scalar`` on one ``(n+m,)`` sample (written in torch ops
+    that ``torch.func`` can map and differentiate); ``dx`` is an env or a
+    ``LinDx``; bounds may be None for an unconstrained problem.
+    ``prev_ctrl (B, m)`` anchors the slew-rate penalty's first step (zeros
+    by default); ``u_zero_I`` (broadcast to ``(T, B, m)``) holds its dims at
+    exactly zero.
     """
-    T, n, m = config.T, config.n_state, config.n_ctrl
     if config.slew_rate_penalty is not None and config.slew_rate_penalty > 0:
-        raise _unported("slew_rate_penalty", "the rest of mpc.py")
+        # checked here: the augmented model wraps dx and hides its params
+        _check_param_batch(dx, x_init.shape[0] if x_init.ndim else 0)
+        config_aug, x_init_aug, cost_aug, dx_aug = _augment_slew(config, x_init, cost, dx, prev_ctrl)
+        # the control space is unchanged, so the control-shaped knobs apply as they are
+        sol = mpc_solve(config_aug, x_init_aug, cost_aug, dx_aug, u_init, u_lower, u_upper, u_zero_I=u_zero_I)
+        return MPCSolution(sol.xs[..., config.n_ctrl :], sol.us, sol.objs, sol.info)
+    T, n, m = config.T, config.n_state, config.n_ctrl
     if x_init.ndim != 2 or x_init.shape[-1] != n:
         raise ValueError(f"x_init must be (B, n_state={n}); got {tuple(x_init.shape)}")
     B = x_init.shape[0]
@@ -312,21 +403,21 @@ def mpc_solve(
     if (u_lower is None) != (u_upper is None):
         raise ValueError("u_lower and u_upper must be both set or both None")
     _check_param_batch(dx, B)
-    lo = _expand_bound(u_lower, T, B, m, dtype, device)
-    hi = _expand_bound(u_upper, T, B, m, dtype, device)
+    if u_zero_I is not None:
+        lo, hi = _zero_box(u_zero_I, u_lower, u_upper, T, B, m, dtype, device)
+    else:
+        lo = _expand_bound(u_lower, T, B, m, dtype, device)
+        hi = _expand_bound(u_upper, T, B, m, dtype, device)
     constrained = lo is not None
 
-    if u_zero_I is not None:
-        raise _unported("u_zero_I", "the rest of mpc.py")
-    if not is_quad:
-        raise _unported("a callable cost", "the rest of the non-fused path (item 5)")
     attach = (
         config.backprop
         and torch.is_grad_enabled()
-        and _requires_grad(x_init, cost.C, cost.c, *_model_tensors(dx))
+        and (not is_quad or _requires_grad(x_init, cost.C, cost.c, *_model_tensors(dx)))
     )
 
-    cost = _expand_cost(cost, T, B, dtype, device)
+    if is_quad:
+        cost = _expand_cost(cost, T, B, dtype, device)
     if is_lin:
         dx = _expand_lin_dx(dx, T, B, n, dtype, device)
     u0 = None
@@ -372,9 +463,11 @@ def mpc_solve(
         )
     else:
         dx_sg = LinDx(dx.F.detach(), dx.f.detach()) if is_lin else dx
+        C_sg, c_sg = (cost.C.detach(), cost.c.detach()) if is_quad else (None, None)
         best_x, best_u, info = _ilqr_loop(
-            config, x_init.detach(), cost.C.detach(), cost.c.detach(), dx_sg,
+            config, x_init.detach(), C_sg, c_sg, dx_sg,
             None if lo is None else lo.detach(), None if hi is None else hi.detach(), u0,
+            cost_fn=None if is_quad else cost,
         )
 
     xs, us = best_x, best_u
@@ -382,8 +475,10 @@ def mpc_solve(
         # the differentiable fixed-point attach (mpc.py:639-671 of the JAX
         # package): the LinDx arrays themselves, or the model linearized once
         # more at the solved trajectory with gradients flowing from its
-        # tensors; then the custom backward
+        # tensors, and the cost (quadraticized there if it is callable);
+        # then the custom backward
         F, f = dx if is_lin else linearize_dynamics(dx, xs, us, config.grad_method)
+        C, c = (cost.C, cost.c) if is_quad else quadraticize_cost(cost, best_x, best_u)
         big = torch.full((T, B, m), 1e18, dtype=dtype, device=device)
         spec = LqrSpec(
             n_state=n, constrained=constrained, tight_eps=config.tight_eps,
@@ -391,14 +486,14 @@ def mpc_solve(
             use_cuda=config.use_cuda,
         )
         xs, us = lqr_fixed_point(
-            spec, x_init, cost.C, cost.c, F, f, best_x, best_u,
+            spec, x_init, C, c, F, f, best_x, best_u,
             lo if constrained else -big, hi if constrained else big,
         )
         if config.detach_unconverged:
             keep = info.converged[None, :, None]
             xs = torch.where(keep, xs, best_x)
             us = torch.where(keep, us, best_u)
-    objs = trajectory_cost(cost.C, cost.c, xs, us)
+    objs = trajectory_cost(cost.C, cost.c, xs, us) if is_quad else _make_traj_cost_fn(cost)(xs, us)
     return MPCSolution(xs, us, objs, info)
 
 
@@ -467,11 +562,13 @@ class MPC:
         self.u_zero_I = u_zero_I
 
     def solve(self, x_init, cost, dx) -> MPCSolution:
-        if self.config.grad_method == GradMethods.ANALYTIC_CHECK:
-            raise _unported(
-                "GradMethods.ANALYTIC_CHECK (its host-side Jacobian check)",
-                "the rest of the non-fused path (item 5)",
-            )
+        if self.config.grad_method == GradMethods.ANALYTIC_CHECK and not isinstance(dx, LinDx):
+            # the model's Jacobians against autodiff at the start, held for
+            # the horizon with zero controls (diffmpc_tpu/mpc.py:752-760);
+            # a LinDx has nothing to check
+            T, B = self.config.T, x_init.shape[0]
+            u_probe = torch.zeros((T, B, self.config.n_ctrl), dtype=x_init.dtype, device=x_init.device)
+            check_analytic_grads(dx, x_init.detach().expand(T, *x_init.shape), u_probe)
         sol = mpc_solve(
             self.config,
             x_init,

@@ -29,7 +29,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ...csrc.build import ENUM_DEFAULT, VariantKey
-from ...models.dynamics import ACTIVATIONS, NNDynamics
+from ...models.dynamics import ACTIVATIONS, CtrlPassthroughDynamics, NNDynamics
 from ...models.envs import AcrobotDx, CartpoleDx, PendulumDx, QuadrotorDx, VehicleDx
 from .riccati_entries import _clip, _masked_chol_solve, _pnqp_entries, _value_update, pnqp_enum_flag, pnqp_is_exact
 
@@ -419,10 +419,12 @@ class KernelEnv(NamedTuple):
     its step is cheap (the C++ env's ``kCheapStep``), which the fused
     kernel's lane groups and the lane rules read
     (:func:`keeps_lane_trajectories`, :func:`ilqr_lanes`, ``rollout_lanes``),
-    and its variant
+    its variant
     key's env and widths (a C++ env's name, ``pendulum`` or ``cartpole``
     among them, or ``nn`` with the MLP's hidden widths:
-    :func:`kernel_library`)."""
+    :func:`kernel_library`), and whether the step is wrapped in
+    ``CtrlPassthroughEnv`` (``csrc/passthrough.cuh``: ``(n, m)`` is then the
+    wrapped shape; everything else is the inner env's)."""
 
     struct: ctypes.Structure
     symbol: Optional[str]
@@ -433,6 +435,7 @@ class KernelEnv(NamedTuple):
     cheap_step: bool
     kind: str = "pendulum"
     hidden: tuple = ()
+    passthrough: bool = False
 
 
 # The envs with a C++ step of their own: model class -> its env struct (each
@@ -482,8 +485,20 @@ def _nn_env(dyn: NNDynamics) -> KernelEnv:
     return KernelEnv(struct, symbol, dyn.n_state, dyn.n_ctrl, dyn.n_params, False, False, "nn", dyn.hidden)
 
 
+def _passthrough_env(dyn: CtrlPassthroughDynamics) -> KernelEnv:
+    """The kernels' view of the slew penalty's augmented model: the inner
+    model's env (its struct, params, lane rule and key) at the wrapped
+    shape ``(n + m, m)``, launched only from its passthrough variant."""
+    inner = kernel_env(dyn.inner)
+    if inner.passthrough or inner.m != dyn.n_ctrl:
+        raise ValueError(f"CtrlPassthroughDynamics(n_ctrl={dyn.n_ctrl}) wraps a model of m={inner.m} "
+                         f"(passthrough={inner.passthrough}); the kernels take one wrap of its own m")
+    return inner._replace(symbol=None, n=inner.n + inner.m, passthrough=True)
+
+
 # model class -> its KernelEnv
-_KERNEL_ENVS = {**{cls: _cpp_env for cls in _CPP_ENVS}, NNDynamics: _nn_env}
+_KERNEL_ENVS = {**{cls: _cpp_env for cls in _CPP_ENVS}, NNDynamics: _nn_env,
+                CtrlPassthroughDynamics: _passthrough_env}
 
 
 def kernel_env(dyn) -> KernelEnv:
@@ -491,11 +506,11 @@ def kernel_env(dyn) -> KernelEnv:
     model without a C++ step."""
     make = _KERNEL_ENVS.get(type(dyn))
     if make is None:
-        names = [cls.__name__ for cls in _KERNEL_ENVS]
+        names = [cls.__name__ for cls in _KERNEL_ENVS if cls is not CtrlPassthroughDynamics]
         raise NotImplementedError(
-            f"the CUDA kernels have a C++ step for {', '.join(names[:-1])} and {names[-1]} only, not "
-            f"{type(dyn).__name__}: a model rides them with a C++ step of its own (csrc/<env>.cuh, "
-            "ops/cuda/ilqr.py's _CPP_ENVS)"
+            f"the CUDA kernels have a C++ step for {', '.join(names[:-1])} and {names[-1]} only, or "
+            f"CtrlPassthroughDynamics around one of them, not {type(dyn).__name__}: a model rides them with a "
+            "C++ step of its own (csrc/<env>.cuh, ops/cuda/ilqr.py's _CPP_ENVS)"
         )
     return make(dyn)
 
@@ -507,7 +522,7 @@ def env_variant_key(env: KernelEnv, family: str, enum: int = ENUM_DEFAULT, exact
     launchers (:func:`kernel_library`)."""
     if env.symbol is not None and enum == ENUM_DEFAULT and not exact:
         return None
-    return VariantKey(family, env.n, env.m, env.kind, env.hidden, enum, bool(exact))
+    return VariantKey(family, env.n, env.m, env.kind, env.hidden, enum, bool(exact), env.passthrough)
 
 
 def kernel_library(key: Optional[VariantKey]):

@@ -13,8 +13,8 @@ dynamics ``x_{t+1} = F_t tau_t + f_t`` (the ``t = T-1`` slice is unused).
   on CPU tensors they run the kernels' plain PyTorch versions.
 - :func:`lqr_rollout` (one step size) and :func:`trajectory_cost` are plain
   PyTorch, and so is the line search through a ``dynamics_fn`` (a model
-  without a C++ step: the JAX package's XLA ladder, which has no TPU kernel
-  either).
+  without a C++ step) or with a callable cost (``cost_fn``): the JAX
+  package's XLA ladder, which has no TPU kernel either.
 """
 
 from __future__ import annotations
@@ -159,6 +159,7 @@ def lqr_linesearch_rollout(
     delta_u: Optional[float] = None,
     dyn=None,
     dynamics_fn: Optional[Callable] = None,
+    cost_fn: Optional[Callable] = None,
     decay: float = 0.2,
     max_iter: int = 10,
     use_cuda: Optional[bool] = None,
@@ -167,18 +168,24 @@ def lqr_linesearch_rollout(
     ``j < max_iter``, each scenario taking the first strictly improving step
     over the cost of ``(x_hat, u_hat)``, else the smallest. The dynamics are
     linear (``dyn`` None: ``F, f``), the env ``dyn``'s own C++-backed step,
-    or ``dynamics_fn(x, u)``; callable costs (``cost_fn``) are not ported.
+    or ``dynamics_fn(x, u)``; the cost is the quadratic ``C, c`` or, where
+    given, ``cost_fn(xs, us) -> (...)``, a trajectory cost over any leading
+    dims (``mpc._make_traj_cost_fn``).
 
-    With ``dyn`` or linear dynamics: the rollout kernel for CUDA tensors (its
-    streaming twin where
+    With ``dyn`` or linear dynamics and the quadratic cost: the rollout
+    kernel for CUDA tensors (its streaming twin where
     :func:`~diffmpc_tpu_torch.ops.cuda.horizon.streams_rollout` says so), its
     plain version for CPU tensors (see
     :func:`~diffmpc_tpu_torch.ops.cuda.ilqr.resolve_use_cuda`). With
-    ``dynamics_fn``: the JAX function's ladder in plain PyTorch on any device
-    (``diffmpc_tpu/ops/lqr.py:280-356``), the ladder's rollouts side by side
-    as a leading dim, ``alpha = decay**j`` as powers."""
-    if dynamics_fn is not None:
-        return _ladder(x_init, C, c, K, k, x_hat, u_hat, u_lower, u_upper, delta_u, dynamics_fn, decay, max_iter)
+    ``dynamics_fn`` or ``cost_fn``: the JAX function's ladder in plain
+    PyTorch on any device (``diffmpc_tpu/ops/lqr.py:280-356``; the JAX
+    package takes it for a callable cost on the TPU as well,
+    ``lqr_step.py:204-209``), the ladder's rollouts side by side as a
+    leading dim, ``alpha = decay**j`` as powers, through ``F, f`` where
+    ``dynamics_fn`` is None."""
+    if dynamics_fn is not None or cost_fn is not None:
+        return _ladder(x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower, u_upper, delta_u, dynamics_fn, cost_fn,
+                       decay, max_iter)
     kw = dict(u_lower=u_lower, u_upper=u_upper, delta_u=delta_u, dyn=dyn, decay=decay, max_iter=max_iter)
     args = (x_init, C, c, F, f, K, k, x_hat, u_hat)
     if resolve_use_cuda(use_cuda, x_init.device):
@@ -189,19 +196,25 @@ def lqr_linesearch_rollout(
     return linesearch_rollout_plain(*args, **kw)
 
 
-def _ladder(x_init, C, c, K, k, x_hat, u_hat, u_lower, u_upper, delta_u, dynamics_fn, decay, max_iter):
-    """The line search through ``dynamics_fn``: every step of the ladder
+def _ladder(x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower, u_upper, delta_u, dynamics_fn, cost_fn, decay,
+            max_iter):
+    """The line search through ``dynamics_fn`` (``F, f`` where it is None)
+    under ``cost_fn`` (``C, c`` where it is None): every step of the ladder
     rolled out at once, each scenario's first improving one taken."""
     dtype = x_init.dtype
     alphas = torch.tensor(decay, dtype=dtype, device=x_init.device) ** torch.arange(
         max_iter, dtype=dtype, device=x_init.device
     )
     xs_l, us_l = lqr_rollout(
-        x_init, None, None, K, k, x_hat, u_hat, alpha=alphas[:, None, None],
+        x_init, F, f, K, k, x_hat, u_hat, alpha=alphas[:, None, None],
         u_lower=u_lower, u_upper=u_upper, delta_u=delta_u, dynamics_fn=dynamics_fn,
     )  # (T, A, B, n), (T, A, B, m)
-    objs_l = trajectory_cost(C[:, None], c[:, None], xs_l, us_l)  # (A, B)
-    improved_l = objs_l < trajectory_cost(C, c, x_hat, u_hat)
+    if cost_fn is None:
+        objs_l = trajectory_cost(C[:, None], c[:, None], xs_l, us_l)  # (A, B)
+        obj0 = trajectory_cost(C, c, x_hat, u_hat)
+    else:
+        objs_l, obj0 = cost_fn(xs_l, us_l), cost_fn(x_hat, u_hat)
+    improved_l = objs_l < obj0
     has = improved_l.any(0)
     idx = torch.where(has, torch.argmax(improved_l.to(torch.int8), 0), max_iter - 1)
     cols = torch.arange(idx.shape[0], device=idx.device)

@@ -4,7 +4,8 @@
   delta-form cost about the current trajectory, the Riccati sweep (the box
   QP per step when box-constrained) and the line-searched rollout, each one
   launch of its kernel on CUDA tensors (its plain version on CPU tensors);
-  for a model without a kernel step the line search is plain PyTorch.
+  for a model without a kernel step, or a callable cost, the line search is
+  plain PyTorch.
   At the horizons where the JAX package takes its streaming twins
   (:mod:`~diffmpc_tpu_torch.ops.cuda.horizon`), each is one launch of the
   twin.
@@ -88,6 +89,7 @@ def lqr_step(
     u_lower: Optional[torch.Tensor] = None,
     u_upper: Optional[torch.Tensor] = None,
     dyn=None,
+    cost_fn=None,
 ) -> LqrStepResult:
     """One LQR / box-DDP step about ``(x_hat, u_hat)``: the delta-form cost
     (``C`` and ``c + C tau_hat``), the Riccati sweep (box mode when
@@ -96,8 +98,15 @@ def lqr_step(
     ``dyn``. A model with an ``entries_step`` that may run inside a kernel
     takes the rollout kernel with its step (the JAX package's ``fusable``
     rule, ``lqr_step.py:206-209``); any other takes the ladder through its
-    ``forward`` in plain PyTorch, as the JAX package takes its XLA ladder."""
-    fusable = dyn is None or (hasattr(dyn, "entries_step") and getattr(dyn, "kernel_fusable", True))
+    ``forward`` in plain PyTorch, as the JAX package takes its XLA ladder.
+    With ``cost_fn(xs, us) -> (B,)``, a callable cost lifted to the
+    trajectory (``C, c`` its quadraticization about ``(x_hat, u_hat)``),
+    the line search judges each step by ``cost_fn`` and takes the plain
+    ladder on every device: the JAX package's dispatch (``cost_fn is None``
+    gates its kernel), not a fallback."""
+    fusable = cost_fn is None and (
+        dyn is None or (hasattr(dyn, "entries_step") and getattr(dyn, "kernel_fusable", True))
+    )
     n = spec.n_state
     tau_hat = torch.cat([x_hat, u_hat], -1)
     c_delta = c + bmv(C, tau_hat)
@@ -110,7 +119,7 @@ def lqr_step(
     ls = lqr_linesearch_rollout(
         x_init, C, c, F, f, res.K, res.k, x_hat, u_hat,
         u_lower=u_lower, u_upper=u_upper, delta_u=spec.delta_u, dyn=dyn if fusable else None,
-        dynamics_fn=None if fusable else dyn.forward,
+        dynamics_fn=None if fusable or dyn is None else dyn.forward, cost_fn=cost_fn,
         decay=spec.linesearch_decay, max_iter=spec.max_linesearch_iter, use_cuda=spec.use_cuda,
     )
     return LqrStepResult(ls.xs, ls.us, ls.objs, ls.alpha, ls.improved, res.free_mask, res.n_qp_iter)

@@ -177,15 +177,19 @@ def test_same_value_errors_as_jax():
 )
 def test_configurations_off_the_fused_path_raise(case):
     """Named for the time when every configuration off the fused path
-    raised. The non-fused path now runs LinDx, unconstrained, FINITE_DIFF,
-    verbose and m = 2 problems (checked against JAX in
-    tests/test_torch_lqr.py); callable costs, the slew penalty, u_zero_I and
-    ANALYTIC_CHECK still raise, naming their ROADMAP item."""
+    raised. Each now runs: the non-fused path takes LinDx, unconstrained,
+    FINITE_DIFF, verbose and m = 2 problems and callable costs (checked
+    against JAX in tests/test_torch_lqr.py and
+    tests/test_torch_callable_cost.py); the slew penalty and u_zero_I ride
+    the fused path (tests/test_torch_slew.py) and ANALYTIC_CHECK checks the
+    pendulum's Jacobians before it solves. Each gives a finite solution of
+    the problem's shape inside the box; u_zero_I's pinned control is exactly
+    zero, the slew penalty's state is the unaugmented one, and
+    ANALYTIC_CHECK solves as ANALYTIC does."""
     config, cost, dx = _torch_setup()
     config = dataclasses.replace(config, lqr_iter=2)
     x = torch.tensor(_x_init())
     kw = dict(u_lower=-2.0, u_upper=2.0)
-    runs = case in ("lin_dx", "no_bounds", "finite_diff", "verbose", "two_controls")
     if case == "lin_dx":
         dx = tdm.LinDx(torch.eye(3, 4).expand(T, B, 3, 4), torch.zeros(T, B, 3))
     elif case == "callable_cost":
@@ -199,23 +203,24 @@ def test_configurations_off_the_fused_path_raise(case):
     elif case == "verbose":
         config = dataclasses.replace(config, verbose=1)
     elif case == "u_zero_I":
-        kw["u_zero_I"] = torch.zeros(1, dtype=torch.bool)
+        kw["u_zero_I"] = torch.ones(1, dtype=torch.bool)
     elif case == "two_controls":
         config = dataclasses.replace(config, n_ctrl=2)
         cost = tdm.QuadCost(torch.eye(5), torch.zeros(5))
         dx = tdm.LinDx(torch.eye(3, 5), None)
     if case == "analytic_check":
-        ctrl = tdm.MPC(3, 1, T, u_lower=-2.0, u_upper=2.0, grad_method=tdm.GradMethods.ANALYTIC_CHECK)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ctrl(x, cost, dx)
+        kw = dict(u_lower=-2.0, u_upper=2.0, lqr_iter=2, eps=1e-5, exit_unconverged=False, detach_unconverged=False)
+        sol = tdm.MPC(3, 1, T, grad_method=tdm.GradMethods.ANALYTIC_CHECK, **kw).solve(x, cost, dx)
+        ref = tdm.MPC(3, 1, T, **kw).solve(x, cost, dx)
+        assert torch.equal(sol.us, ref.us) and torch.equal(sol.objs, ref.objs)
         return
-    if runs:
-        sol = tdm.mpc_solve(config, x, cost, dx, **kw)
-        assert sol.us.shape == (T, B, config.n_ctrl) and bool(torch.isfinite(sol.objs).all())
-        assert int(sol.info.n_iters) >= 1
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdm.mpc_solve(config, x, cost, dx, **kw)
+    sol = tdm.mpc_solve(config, x, cost, dx, **kw)
+    assert sol.us.shape == (T, B, config.n_ctrl) and sol.xs.shape == (T, B, 3)
+    assert bool(torch.isfinite(sol.objs).all()) and int(sol.info.n_iters) >= 1
+    if kw:
+        assert float(sol.us.abs().max()) <= 2.0
+    if case == "u_zero_I":
+        assert bool((sol.us == 0).all())
 
 
 @pytest.mark.parametrize("which", ["x_init", "C", "c", "params"])

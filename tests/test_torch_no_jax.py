@@ -4,7 +4,8 @@ In a fresh interpreter where ``import jax`` fails, every module of
 ``diffmpc_tpu_torch`` imports (the non-fused path's and the dynamics
 zoo's among them, by name), and the fused and the non-fused solve run on
 the CPU, on the pendulum, a ``LinDx``, a small and a large MLP,
-``AffineDynamics`` and each env of the zoo. The chip smoke script
+``AffineDynamics`` and each env of the zoo, and a receding-horizon episode
+with a callable cost and the slew penalty runs. The chip smoke script
 imports no JAX either, and refuses to run without a card.
 """
 
@@ -34,7 +35,8 @@ new = ["ops.cuda.riccati", "ops.cuda.rollout", "ops.pnqp", "ops.smallchol", "ops
        "diagnostics.ab_blocked_ilp", "diagnostics.profile_riccati_pieces", "diagnostics.ab_nn_reread",
        "models.dynamics", "parallel.training", "convert", "parallel.mesh", "parallel.distributed",
        "parallel.dryrun", "ops.cuda.shard_probe", "utils.tree", "models.envs.cartpole", "models.envs.vehicle",
-       "models.envs.quadrotor", "models.envs.acrobot"]
+       "models.envs.quadrotor", "models.envs.acrobot", "receding", "utils.logging", "utils.debug",
+       "examples.receding_mpc"]
 assert all(f"diffmpc_tpu_torch.{m}" in names for m in new), names
 assert "diffmpc_tpu" not in sys.modules and "jax" in sys.modules
 from diffmpc_tpu_torch.models import PendulumDx
@@ -76,6 +78,12 @@ for model, start in starts.items():
     sol = mpc_solve(MPCConfig(n_state=n, n_ctrl=m, T=T, lqr_iter=1, exit_unconverged=False),
                     torch.tensor(start).expand(B, n), QuadCost(torch.diag(q), p), dx, u_lower=0.0, u_upper=1.0)
     assert bool(torch.isfinite(sol.objs).all()) and sol.us.abs().max() <= 1.0
+from diffmpc_tpu_torch.receding import run_receding_horizon
+dx = PendulumDx.default(device="cpu")
+q, p = dx.get_true_obj()
+cfg = MPCConfig(n_state=3, n_ctrl=1, T=T, lqr_iter=2, exit_unconverged=False, slew_rate_penalty=0.5)
+xs, us, objs = run_receding_horizon(cfg, x, lambda tau: ((tau - 0.1) ** 2).sum(), dx, 2, u_lower=-2.0, u_upper=2.0)
+assert xs.shape == (3, B, 3) and bool(torch.isfinite(objs).all()) and us.abs().max() <= 2.0
 print("modules", len(names))
 """
 

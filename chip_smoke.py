@@ -327,10 +327,32 @@ Phases, one line of output each (JSON where it carries numbers):
    with ANALYTIC_CHECK on the headline problem (the check on the card, one
    fused launch, bit-equal to ANALYTIC).
 
+39. the port's training examples (diffmpc_tpu_torch/examples/) at their
+   default widths (il_pendulum B=1024, T=20; il_cartpole B=4096; il_vehicle
+   and il_quadrotor (lqr_iter=14) B=1024; il_acrobot B=1024, T=25;
+   il_nn_dynamics B=512, T=15, (64, 64); sysid_domain_rand 128 x 8
+   replicas without and with --goal-rand 0.3), each through its own main
+   in process under a temporary --out: --steps 4 --ckpt-every 2, then
+   --steps 2 and --resume --steps 4, the resumed run's train.csv rows (dt
+   aside), final params and Adam state bit-equal to the uninterrupted
+   run's; at every step (the counts set to 0 before it and read after) one
+   iLQR and one KKT launch on the fused path, one Riccati launch an
+   iteration and one KKT launch for the (64, 64) MLP, no plain version
+   called, a finite loss and grad_norm > 0; the first step's kernels
+   against their plain versions (the fused solve against the host's on its
+   first 64 scenarios by phase 36's witness rule with phase 2's ties, the
+   Riccati sweep by phase 9's, the KKT backward by phase 5's); the ms a
+   step (CUDA events), the host's ms and the card's idle share in one
+   profiled step;
+   il_pendulum --mesh on one NCCL rank bit-equal to the run without it;
+   gen_expert_data's .npz for each of its four envs at B=1024 bit-equal to
+   build + generate_expert_data in process, one iLQR launch each.
+
 With ``--slice-only`` the script runs phases 0, 1 and 30-33 alone; with
 ``--zoo-only``, phases 0 and 1, the zoo's variants of phase 30, and 35-36;
 with ``--mpc-only``, phases 0 and 1, the receding loop's variants, and
-37-38.
+37-38; with ``--examples-only``, phases 0 and 1, the zoo's variants (the
+examples' kernels) and 39.
 
 The line before the last holds the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -2857,10 +2879,6 @@ IL4_B, IL4_STEPS, IL4_LR = 4096, 5, 2e-2
 IL4_SPANS = {"ilqr": ("diffmpc_tpu_torch.mpc", "ilqr_solve_fused"),
              "linearize": ("diffmpc_tpu_torch.mpc", "linearize_dynamics"),
              "kkt": ("diffmpc_tpu_torch.ops.lqr_step", "kkt_backward_fused")}
-# the other envs at their examples' widths (examples/il_vehicle.py,
-# il_quadrotor.py, il_acrobot.py): B, T, lqr_iter
-ZOO_WIDTHS = {"cartpole": (IL4_B, 20, 10), "vehicle": (1024, 20, 10), "quadrotor": (1024, 20, 14),
-              "acrobot": (1024, 25, 10)}
 ZOO_KERNEL_B = 256  # each fused kernel against its plain version
 ZOO_CPU_B = 64  # the scenarios held against the host
 ZOO_LS_B = 1024  # the line search's batch, at T=20 and (cartpole) T_LONG
@@ -2893,73 +2911,16 @@ def zoo_model(name: str, device, dtype=torch.float32):
     return getattr(models, f"{name.capitalize()}Dx").default(dtype, device=device)
 
 
-def zoo_x_init(name: str, B: int, seed: int = 0) -> np.ndarray:
-    """The examples' starts (examples/common.py:35-75, il_quadrotor.py:42-57),
-    drawn with numpy: the cartpole and the acrobot (scale 0.08) near
-    upright, the vehicle off the lane at speed, the quadrotor off hover."""
-    rng = np.random.default_rng(seed)
-    u = rng.uniform
-    if name == "cartpole":
-        p, pdot, th, thdot = u(-0.5, 0.5, B), u(-0.5, 0.5, B), u(-0.3, 0.3, B), u(-0.5, 0.5, B)
-        x = [p, pdot, np.cos(th), np.sin(th), thdot]
-    elif name == "vehicle":
-        x = [np.zeros(B), u(-1.0, 1.0, B), u(-0.3, 0.3, B), u(3.0, 7.0, B)]
-    elif name == "quadrotor":
-        x = [u(-0.25, 0.25, B), u(-0.25, 0.25, B)] + [u(-0.2, 0.2, B) for _ in range(4)]
-    else:
-        th1, th2 = u(-0.08, 0.08, B), u(-0.08, 0.08, B)
-        x = [np.cos(th1), np.sin(th1), np.cos(th2), np.sin(th2), u(-0.08, 0.08, B), u(-0.08, 0.08, B)]
-    return np.stack(x, -1).astype(np.float32)
-
-
 def zoo_case(name: str, device, B: int = 0, seed: int = 0) -> dict:
-    """The env's example at ``B`` scenarios (its published width by
-    default): the true model and cost, the starts, the box (the vehicle's
-    per dimension, the quadrotor's [0, max_thrust]), the config (T,
-    lqr_iter, eps=1e-5, detach_unconverged as the examples), the learner's
-    first params, drawn from ``seed + 1`` as the examples draw them, and
+    """The env's example (diffmpc_tpu_torch/examples/il_<name>.py, its
+    ``build``) at ``B`` scenarios (its published width, the example's
+    default, by default) drawn from ``seed``: the true model ``dx`` and its
+    cost, the starts, the box (the vehicle's per dimension, the quadrotor's
+    [0, max_thrust]), the config (T, lqr_iter, eps=1e-5,
+    detach_unconverged), the learner's first params and
     ``make_problem(params) -> (cost, dx)``."""
-    from diffmpc_tpu_torch import MPCConfig, QuadCost
-
-    width, steps, iters = ZOO_WIDTHS[name]
-    B = B or width
-    dx = zoo_model(name, device)
-    q, p = dx.get_true_obj()
-    cost = QuadCost(torch.diag(q), p)
-    n, m = dx.n_state, dx.n_ctrl
-    if name == "cartpole":
-        lo, hi = -10.0, 10.0
-    elif name == "vehicle":
-        lo = torch.tensor([-dx.max_brake, -dx.max_steer], device=device)
-        hi = torch.tensor([dx.max_accel, dx.max_steer], device=device)
-    elif name == "quadrotor":
-        lo, hi = 0.0, dx.max_thrust
-    else:
-        lo, hi = -dx.max_torque, dx.max_torque
-    config = MPCConfig(n_state=n, n_ctrl=m, T=steps, lqr_iter=iters, eps=EPS, exit_unconverged=False,
-                       detach_unconverged=True)
-    rng = np.random.default_rng(seed + 1)
-    true = dx.params.cpu().numpy()
-    if name == "cartpole":
-        # il_cartpole.py:72-93: the params and the log cost weights, the goal kept
-        params0 = dict(dyn=torch.tensor(true * rng.uniform(0.75, 1.25, 4), dtype=torch.float32, device=device),
-                       logq=torch.log(q) + torch.tensor(rng.uniform(-0.5, 0.5, n + m), dtype=torch.float32,
-                                                        device=device))
-        goal = torch.tensor([0.0, 0.0, 1.0, 0.0, 0.0, 0.0], device=device)
-
-        def make_problem(prm):
-            qq = torch.exp(prm["logq"])
-            return QuadCost(torch.diag_embed(qq), -qq * goal.to(qq)), dx.replace(params=prm["dyn"])
-    else:
-        spread = {"vehicle": 0.3, "quadrotor": 0.25, "acrobot": 0.2}[name]
-        params0 = torch.log(torch.tensor(true * rng.uniform(1 - spread, 1 + spread, true.shape[0]),
-                                         dtype=torch.float32, device=device))
-
-        def make_problem(prm):
-            return cost, dx.replace(params=torch.exp(prm))
-
-    return dict(dx=dx, cost=cost, x_init=torch.tensor(zoo_x_init(name, B, seed), device=device), lo=lo, hi=hi,
-                config=config, params0=params0, make_problem=make_problem)
+    ex = importlib.import_module(f"diffmpc_tpu_torch.examples.il_{name}")
+    return ex.build(ex.parse_args(["--seed", str(seed)] + (["--batch", str(B)] if B else [])), device)
 
 
 def zoo_kernel_inputs(case: dict, steps: int) -> dict:
@@ -3601,24 +3562,25 @@ class MpcRun(ZooRun):
 
 
 def receding_setup(name: str, slew: float, device):
-    """The example's setup (diffmpc_tpu_torch/examples/receding_mpc.py) at
-    its full width for env ``name`` and slew weight ``slew``."""
-    from types import SimpleNamespace
-
+    """The example's problem (diffmpc_tpu_torch/examples/receding_mpc.py,
+    its ``build``) at its full width for env ``name`` and slew weight
+    ``slew``."""
     from diffmpc_tpu_torch.examples import receding_mpc as ex
 
-    args = SimpleNamespace(env=name, batch=RH_B, horizon=RH_T, env_steps=RH_STEPS, lqr_iter=RH_ITER, seed=0,
-                           plant_param_error=RH_ERR, slew=slew)
-    return args, ex.setup(args, device)
+    args = ex.parse_args(["--env", name, "--batch", str(RH_B), "--horizon", str(RH_T), "--env-steps", str(RH_STEPS),
+                          "--lqr-iter", str(RH_ITER), "--seed", "0", "--plant-param-error", str(RH_ERR),
+                          "--slew", str(slew)])
+    return args, ex.build(args, device)
 
 
-def pt_witness(run: MpcRun, name: str, label: str, call) -> dict:
-    """The passthrough fused kernel on one recorded solve's inputs ``call``
-    (the args and keywords mpc_solve gave ilqr_solve_fused) against the
-    host's plain fused solve on the first RH_CPU_B scenarios by phase 36's
-    witness rule (the float64 plain solve as the witness; a scenario
-    converged on both sides counts as iteration-equal), and every built lane
-    count, with and without hoist_lin, bit-equal to one lane."""
+def fused_vs_host(name: str, call, cut: int, ties: bool = None) -> tuple:
+    """The fused kernel on one recorded solve's inputs ``call`` (the args and
+    keywords mpc_solve gave ilqr_solve_fused) against the host's plain fused
+    solve on the first ``cut`` scenarios by phase 36's witness rule (the
+    float64 plain solve as the witness; a scenario converged on both sides
+    counts as iteration-equal; phase 2's ties at m >= 2, or as ``ties``
+    says). Per-scenario params are cut with the scenarios. Returns the
+    agreement and the kernel's inputs."""
     from diffmpc_tpu_torch.ops.cuda import ilqr as il
 
     args, kw = call
@@ -3626,26 +3588,43 @@ def pt_witness(run: MpcRun, name: str, label: str, call) -> dict:
     names = ("x_init", "C", "c", "dyn", "u_lower", "u_upper")
     ins = dict(zip(names, args))
     kern = il.ilqr_solve_fused(**ins, **kw)
-    cut = lambda v: v[:RH_CPU_B] if v.ndim <= 2 else v[:, :RH_CPU_B]  # noqa: E731
-    head = kern._replace(**{f: cut(getattr(kern, f)) for f in kern._fields})
-    host_in = {k: cut(v).cpu() if torch.is_tensor(v) else v.to(device="cpu") for k, v in ins.items()}
-    host_kw = {k: cut(v).cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
+    cut_t = lambda v: v[:cut] if v.ndim <= 2 else v[:, :cut]  # noqa: E731
+
+    def cut_model(dyn):
+        params = getattr(dyn, "params", None)
+        if params is not None and params.ndim == 2:  # per-scenario params
+            dyn = dyn.replace(params=params[:cut])
+        return dyn.to(device="cpu")
+
+    head = kern._replace(**{f: cut_t(getattr(kern, f)) for f in kern._fields})
+    host_in = {k: cut_t(v).cpu() if torch.is_tensor(v) else cut_model(v) for k, v in ins.items()}
+    host_kw = {k: cut_t(v).cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
     host = il.ilqr_solve_plain(**host_in, **host_kw)
     exact = il.ilqr_solve_plain(**{k: v.double() if torch.is_tensor(v) else v.to(torch.float64)
                                    for k, v in host_in.items()},
                                 **{k: v.double() if torch.is_tensor(v) else v for k, v in host_kw.items()})
     m = ins["dyn"].n_ctrl
-    agree = witnessed_agreement(f"{name} passthrough fused kernel, {label}, card vs host", head, host, exact,
-                                ties=m > 1, converged_free=True)
-    env = il.kernel_env(ins["dyn"])
+    agree = witnessed_agreement(f"{name}, card vs host", head, host, exact, ties=m > 1 if ties is None else ties,
+                                converged_free=True)
+    return dict(first_scenarios=cut, **agree), (args, kw)
+
+
+def pt_witness(run: MpcRun, name: str, label: str, call) -> dict:
+    """The passthrough fused kernel on one recorded solve's inputs ``call``
+    against the host's plain fused solve on the first RH_CPU_B scenarios
+    (:func:`fused_vs_host`), and every built lane count, with and without
+    hoist_lin, bit-equal to one lane."""
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    agree, (args, kw) = fused_vs_host(f"{name} passthrough fused kernel, {label}", call, RH_CPU_B)
+    env = il.kernel_env(args[3])
     staged = {}
     knobs = {k: v for k, v in kw.items() if k not in ("pnqp_enum", "value_update_exact_reg", "hoist_lin")}
     for hoist in (False, True):
         launch = il._cuda_launcher(run.device, env, hoist)
         for L in il.ILQR_LANES:
             staged[(L, hoist)] = il.run_staged(launch, *args, lanes=L, **dict(knobs, hoist_lin=hoist))
-    return dict(first_scenarios=RH_CPU_B, lanes_bit_equal=lanes_bit_equal(f"{name} passthrough lanes, {label}", staged),
-                **agree)
+    return dict(lanes_bit_equal=lanes_bit_equal(f"{name} passthrough lanes, {label}", staged), **agree)
 
 
 def receding_episodes(run: MpcRun) -> None:
@@ -4034,6 +4013,269 @@ def receding(device, smi: str, clock_mhz: float) -> list:
     return passthrough_rows(run)
 
 
+# ---------------------------------------------------------------------------
+# Phase 39: the port's training examples (diffmpc_tpu_torch/examples/) at
+# their default widths, each through its own main([...]) in process: an
+# uninterrupted run, a run saved and resumed, the launches and the plain
+# versions counted step by step, the times; il_pendulum --mesh on one NCCL
+# rank; gen_expert_data's .npz against build + generate_expert_data.
+# ---------------------------------------------------------------------------
+
+EX_STEPS, EX_CKPT, EX_CPU_B = 4, 2, 64
+# (example, its flags beyond the defaults); every run takes --steps and --out
+EX_RUNS = (("il_pendulum", ()), ("il_cartpole", ()), ("il_vehicle", ()), ("il_quadrotor", ()), ("il_acrobot", ()),
+           ("il_nn_dynamics", ()), ("sysid_domain_rand", ()), ("sysid_domain_rand", ("--goal-rand", "0.3")))
+EX_GEN_ENVS = ("pendulum", "cartpole", "acrobot", "vehicle")
+# the plain versions a solve could fall back on, where the port's dispatch
+# names them
+EX_PLAIN = {"ilqr": ("diffmpc_tpu_torch.ops.cuda.ilqr", "ilqr_solve_plain"),
+            "kkt": ("diffmpc_tpu_torch.ops.cuda.kkt", "kkt_backward_plain"),
+            "riccati": ("diffmpc_tpu_torch.ops.lqr", "riccati_backward_plain"),
+            "rollout": ("diffmpc_tpu_torch.ops.lqr", "linesearch_rollout_plain")}
+# the kernels a step's solve and gradient launch, where the port's modules
+# call them: recorded on each example's first step
+EX_CALLS = {"ilqr": ("diffmpc_tpu_torch.mpc", "ilqr_solve_fused"),
+            "riccati": ("diffmpc_tpu_torch.ops.lqr", "riccati_backward_cuda"),
+            "kkt": ("diffmpc_tpu_torch.ops.lqr_step", "kkt_backward_fused")}
+
+
+@contextlib.contextmanager
+def counted_plain(counts: dict):
+    """Each plain version of EX_PLAIN replaced, while inside, by a
+    pass-through that adds one to ``counts[name]`` a call."""
+    saved = []
+    for label, (module_name, name) in EX_PLAIN.items():
+        module = importlib.import_module(module_name)
+        fn = getattr(module, name)
+
+        def counted(*args, _fn=fn, _label=label, **kw):
+            counts[_label] = counts.get(_label, 0) + 1
+            return _fn(*args, **kw)
+
+        setattr(module, name, counted)
+        saved.append((module, name, fn))
+    try:
+        yield
+    finally:
+        for module, name, fn in reversed(saved):
+            setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def example_steps(run: ZooRun, records: list, calls):
+    """The examples' make_dp_train_step wrapped, while inside: before each
+    step the kernels' counts and the plain versions' are set to 0, after it
+    they are read, with the step's CUDA-event and host ms, its stats and the
+    iterations of its solve (``records``, one dict a step); the first step's
+    kernel calls are kept where ``calls`` is a dict (EX_CALLS's labels), and
+    the last step function and its inputs (``records.last``)."""
+    from diffmpc_tpu_torch.examples import common
+    from diffmpc_tpu_torch.parallel import training
+
+    made, solve = common.make_dp_train_step, training.mpc_solve
+    iters = []
+
+    def counted_solve(*args, **kw):
+        sol = solve(*args, **kw)
+        iters.append(int(sol.info.n_iters))
+        return sol
+
+    def make_dp_train_step(*args, **kwargs):
+        step = made(*args, **kwargs)
+
+        def watched(state, *rest):
+            records.last = (step, (state, *rest))
+            plain = {}
+            first = calls is not None and not calls
+            keep = {k: [] for k in EX_CALLS} if first else {}
+            run.reset()
+            iters.clear()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(counted_plain(plain))
+                for label, (module_name, name) in EX_CALLS.items() if first else ():
+                    stack.enter_context(recording(module_name, name, keep[label]))
+                t0 = time.perf_counter()
+                a.record()
+                state, stats = step(state, *rest)
+                b.record()
+                host_ms = (time.perf_counter() - t0) * 1e3
+                b.synchronize()
+            if first:
+                calls.update(keep)
+            records.append(dict(ms=a.elapsed_time(b), host_ms=host_ms, loss=float(stats.loss),
+                                grad_norm=float(stats.grad_norm), converged_frac=float(stats.converged_frac),
+                                n_iters=list(iters), launches={k: v for k, v in run.counts().items() if v},
+                                plain=plain))
+            return state, stats
+
+        return watched
+
+    common.make_dp_train_step, training.mpc_solve = make_dp_train_step, counted_solve
+    try:
+        yield
+    finally:
+        common.make_dp_train_step, training.mpc_solve = made, solve
+
+
+class StepRecords(list):
+    last = None
+
+
+def run_example(run: ZooRun, module: str, argv: list, calls: dict = None):
+    """``diffmpc_tpu_torch.examples.<module>.main(argv)`` under
+    :func:`example_steps`; returns (main's result, the step records)."""
+    ex = importlib.import_module(f"diffmpc_tpu_torch.examples.{module}")
+    records = StepRecords()
+    with example_steps(run, records, calls), contextlib.redirect_stdout(io.StringIO()):
+        out = ex.main(argv)
+    return out, records
+
+
+def csv_rows(path: str) -> list:
+    """train.csv's rows as strings, ``dt`` left out."""
+    import csv
+
+    with open(path) as fh:
+        return [{k: v for k, v in r.items() if k != "dt"} for r in csv.DictReader(fh)]
+
+
+def same_state(a, b) -> bool:
+    """Params and optimizer state (Adam's moments and step) bit-equal."""
+    from diffmpc_tpu_torch.utils.tree import tree_leaves
+
+    sa, sb = a.opt_state.state_dict()["state"], b.opt_state.state_dict()["state"]
+    return all(same_bits(x.detach(), y.detach()) for x, y in zip(tree_leaves(a.params), tree_leaves(b.params))) \
+        and sorted(sa) == sorted(sb) and all(same_bits(sa[k][f], sb[k][f]) for k in sa for f in sa[k])
+
+
+def want_launches(module: str, rec: dict) -> dict:
+    """The launches a step must show: the fused path one iLQR and one KKT
+    launch; the MLP past the fused kernels' gate one Riccati launch an
+    iteration of its solve and one KKT launch."""
+    if module == "il_nn_dynamics":
+        return dict(riccati=sum(rec["n_iters"]), kkt=1)
+    return dict(ilqr=1, kkt=1)
+
+
+def example_kernels(name: str, calls: dict) -> dict:
+    """The first step's kernel calls held against their plain versions: the
+    fused solve against the host's on its first EX_CPU_B scenarios
+    (:func:`fused_vs_host`, phase 2's ties at every m: the learner's first
+    problem leaves some converged scenarios a flat direction, where the two
+    sides take another last step at the same objective), a Riccati sweep
+    against its plain version on the card (phase 9's rule), the KKT backward
+    against its plain version on the card (phase 5's)."""
+    from diffmpc_tpu_torch.ops.cuda import kkt
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+
+    out = {}
+    if calls["ilqr"]:
+        out["ilqr_vs_host"] = fused_vs_host(f"{name}'s fused solve", calls["ilqr"][0], EX_CPU_B, ties=True)[0]
+    for i, (args, kw) in enumerate(calls["riccati"][:2]):
+        got = ric.riccati_backward_cuda(*args, **kw)
+        want, Quu, qu = ric.riccati_backward_plain(*args, return_qp=True, **kw)
+        out[f"riccati_{i}_vs_plain"] = riccati_agreement(f"{name}'s Riccati sweep {i}", got, want, Quu, qu)
+    (args, kw), = calls["kkt"]
+    plain_kw = {k: v for k, v in kw.items() if k != "use_cuda"}
+    out["kkt_max_abs_err"] = check_kkt(f"{name}'s KKT backward", kkt.kkt_backward_fused(*args, **kw),
+                                       kkt.kkt_backward_plain(*args, **plain_kw))
+    return out
+
+
+def examples(device, smi: str, clock_mhz: float) -> None:
+    """Phase 39: each training example at its default widths, through its
+    main([...]) in process under a temporary --out: --steps 4 --ckpt-every 2
+    uninterrupted; --steps 2, then --resume --steps 4, its train.csv rows (dt
+    aside) and its final params and Adam state bit-equal to the
+    uninterrupted run's; at every step the launches (counts set to 0 before
+    the step and read after: one iLQR and one KKT launch on the fused path,
+    one Riccati launch an iteration and one KKT launch for the MLP past the
+    gate) and no plain version called, a finite loss and grad_norm > 0; the
+    first step's kernels against their plain versions; the ms a step (CUDA
+    events), the host's ms and the card's idle share in one profiled step.
+    il_pendulum --mesh on one NCCL rank bit-equal to the run without it.
+    gen_expert_data's .npz for each env at B=1024 bit-equal to build +
+    generate_expert_data in process, one iLQR launch each."""
+    from diffmpc_tpu_torch.diagnostics.ab_solve_grad import busy_ms
+    from diffmpc_tpu_torch.examples import gen_expert_data
+    from diffmpc_tpu_torch.parallel import generate_expert_data
+
+    run = ZooRun(device, smi, clock_mhz)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, (module, flags) in enumerate(EX_RUNS):
+            name = " ".join((module,) + flags)
+            t0 = time.perf_counter()
+            out = lambda tag: ["--out", os.path.join(tmp, f"{n}_{tag}")]  # noqa: E731
+            calls = {}
+            whole, steps = run_example(run, module, [*flags, "--steps", str(EX_STEPS), "--ckpt-every", str(EX_CKPT),
+                                                     *out("whole")], calls)
+            run_example(run, module, [*flags, "--steps", str(EX_CKPT), "--ckpt-every", str(EX_CKPT),
+                                                 *out("parts")])
+            resumed, resumed_steps = run_example(run, module, [*flags, "--steps", str(EX_STEPS), "--ckpt-every",
+                                                               str(EX_CKPT), "--resume", *out("parts")])
+            rows_whole = csv_rows(out("whole")[1] + "/train.csv")
+            rows_parts = csv_rows(out("parts")[1] + "/train.csv")
+            record = dict(phase="examples", example=name, steps=steps, resumed_steps=resumed_steps,
+                          resume_rows_bit_equal=rows_whole == rows_parts, resume_state_bit_equal=same_state(whole,
+                                                                                                             resumed))
+            for i, rec in enumerate(steps + resumed_steps):
+                if rec["launches"] != want_launches(module, rec) or any(rec["plain"].values()) \
+                        or not np.isfinite(rec["loss"]) or not rec["grad_norm"] > 0:
+                    raise AssertionError(f"{name} step {i}: {rec}")
+            if not (record["resume_rows_bit_equal"] and record["resume_state_bit_equal"]):
+                raise AssertionError(f"{name}: the resumed run parts from the uninterrupted one: "
+                                     f"{rows_whole} / {rows_parts}")
+            record["first_step_kernels"] = example_kernels(name, calls)
+            if module == "il_pendulum":
+                meshed, mesh_steps = run_example(run, module, [*flags, "--mesh", "--steps", str(EX_STEPS), "--ckpt-every",
+                                                               "0", *out("mesh")])
+                record.update(mesh_rows_bit_equal=csv_rows(out("mesh")[1] + "/train.csv") == rows_whole,
+                              mesh_state_bit_equal=same_state(meshed, whole),
+                              mesh_launches=[r["launches"] for r in mesh_steps],
+                              mesh_ms_per_step=[r["ms"] for r in mesh_steps])
+                if not (record["mesh_rows_bit_equal"] and record["mesh_state_bit_equal"]):
+                    raise AssertionError(f"il_pendulum --mesh parts from the run without it: {record}")
+            # the card's idle share in one more step, profiled (it moves the state on)
+            step, inputs = steps.last
+            profiled = []
+
+            def one_step():
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                step(*inputs)
+                b.record()
+                b.synchronize()
+                profiled.append(a.elapsed_time(b))
+
+            busy = busy_ms(one_step)
+            record.update(profiled_step_ms=profiled[-1], busy_ms=busy,
+                          idle_share=None if busy is None else 1 - busy / profiled[-1],
+                          ms_per_step=[r["ms"] for r in steps], host_ms_per_step=[r["host_ms"] for r in steps])
+            emit(**record, seconds=time.perf_counter() - t0, card=smi)
+        for env in EX_GEN_ENVS:
+            t0 = time.perf_counter()
+            path = os.path.join(tmp, f"expert_{env}.npz")
+            run.reset()
+            plain = {}
+            with counted_plain(plain), contextlib.redirect_stdout(io.StringIO()):
+                gen_expert_data.main(["--env", env, "--out", path])
+            launches = {k: v for k, v in run.counts().items() if v}
+            b = gen_expert_data.build(gen_expert_data.parse_args(["--env", env]), device)
+            xs, us, objs = generate_expert_data(b["config"], b["cost"], b["dx"], b["x_init"], b["lo"], b["hi"])
+            saved = np.load(path)
+            equal = {k: bool(np.array_equal(saved[k], v.cpu().numpy()))
+                     for k, v in dict(x_init=b["x_init"], xs=xs, us=us, objs=objs).items()}
+            rec = dict(phase="examples_gen_expert_data", env=env, B=int(b["x_init"].shape[0]), launches=launches,
+                       plain=plain, bit_equal=equal, env_key=str(saved["env"]), mean_obj=float(objs.mean()),
+                       seconds=time.perf_counter() - t0, card=smi)
+            emit(**rec)
+            if launches != dict(ilqr=1) or any(plain.values()) or not all(equal.values()) or rec["env_key"] != env:
+                raise AssertionError(f"gen_expert_data --env {env}: {rec}")
+    emit(phase="examples_seconds", seconds=time.perf_counter() - t_phase)
+
+
 def kkt_lanes_ab(device, smi: str) -> None:
     """Phase 34 (diffmpc_tpu_torch.diagnostics.ab_kkt_lanes): every KKT call
     of the recorded solves + gradients (the headline at B=1024 and 65,536,
@@ -4101,11 +4343,16 @@ def main() -> int:
         riccati_sources_seconds={k: v for k, v in per_source.items() if re.fullmatch(r"riccati(_stream|_l\d+)?\.cu", k)},
         riccati_kernels=riccati,
     )
-    if {"--slice-only", "--zoo-only", "--mpc-only"} & set(sys.argv[1:]):
+    if {"--slice-only", "--zoo-only", "--mpc-only", "--examples-only"} & set(sys.argv[1:]):
         # phases 30-33 alone: the variants and the slice they serve; or the
         # zoo's variants and phases 35-36 alone; or the receding loop's
-        # variants and phases 37-38 alone
-        if "--zoo-only" in sys.argv[1:]:
+        # variants and phases 37-38 alone; or the zoo's variants (the
+        # examples' kernels) and phase 39 alone
+        if "--examples-only" in sys.argv[1:]:
+            build_variants_phase(zoo_variant_keys())
+            examples(device, smi, clock_mhz)
+            rows = []
+        elif "--zoo-only" in sys.argv[1:]:
             build_variants_phase(zoo_variant_keys())
             rows = zoo(device, smi, clock_mhz)
         elif "--mpc-only" in sys.argv[1:]:
@@ -4121,7 +4368,7 @@ def main() -> int:
 
 
 def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
-    """Phases 2-38, then the kernels line and the ok line."""
+    """Phases 2-39, then the kernels line and the ok line."""
     from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.models import PendulumDx
     from diffmpc_tpu_torch.ops.cuda import kkt as kkt_mod
@@ -4569,6 +4816,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     kkt_lanes_ab(device, smi)
     zoo_records = zoo(device, smi, clock_mhz)
     receding_records = receding(device, smi, clock_mhz)
+    examples(device, smi, clock_mhz)
 
     print(smi, flush=True)
     emit(kernels=[

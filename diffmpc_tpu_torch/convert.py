@@ -3,7 +3,7 @@
 The functions take the JAX package's objects (``PendulumDx`` and the other
 envs of its zoo, ``NNDynamics``, ``AffineDynamics``,
 ``CtrlPassthroughDynamics``, ``QuadCost``, ``LinDx``, ``MPCConfig``,
-``RecedingState``)
+``RecedingState``, and a training run's params with its optax Adam state)
 and read only their fields, so this module imports neither
 JAX nor the JAX package: ``np.asarray`` copies a JAX array to the host.
 Both packages then compute the same problem.
@@ -18,8 +18,10 @@ import torch
 
 from .models.dynamics import AffineDynamics, CtrlPassthroughDynamics, NNDynamics
 from .models.envs import AcrobotDx, CartpoleDx, PendulumDx, QuadrotorDx, VehicleDx
+from .parallel.training import TrainState, init_train_state
 from .receding import RecedingState
 from .types import GradMethods, LinDx, MPCConfig, QuadCost
+from .utils.tree import tree_leaves, tree_map
 
 
 def to_tensor(a, dtype=None, device=None) -> torch.Tensor:
@@ -161,3 +163,34 @@ def model_from_jax(dx, dtype=None, device="cuda"):
     if name not in MODEL_FROM_JAX:
         raise TypeError(f"no converter for the JAX model {name}: one of {sorted(MODEL_FROM_JAX)}")
     return MODEL_FROM_JAX[name](dx, dtype, device)
+
+
+def train_state_from_jax(params, opt_state, optimizer, device="cuda") -> TrainState:
+    """A JAX training run's state, continued in the port: ``params`` (a
+    JAX array or a pytree of them, as ``TrainState.params``) and
+    ``opt_state``, the ``optax.adam`` state over them (the chain's
+    ``ScaleByAdamState``, found by its fields ``count``, ``mu``, ``nu``),
+    become :func:`~.parallel.training.init_train_state`'s state with the
+    optimizer ``optimizer`` (a factory over the leaves, such as
+    ``functools.partial(torch.optim.Adam, lr=...)``) holding the moments:
+    ``mu`` as ``exp_avg``, ``nu`` as ``exp_avg_sq`` and ``count`` as
+    ``step``. The two optimizers then take the same next step (the same
+    rule: bias-corrected moments, ``eps`` added to the corrected
+    second-moment root). On the card unless ``device`` says otherwise."""
+    found = [opt_state, *opt_state] if isinstance(opt_state, (list, tuple)) else [opt_state]
+    adam = [s for s in found if all(hasattr(s, f) for f in ("count", "mu", "nu"))]
+    if len(adam) != 1:
+        raise TypeError(f"train_state_from_jax: no one Adam state (count, mu, nu) in {type(opt_state).__name__}")
+    (adam,) = adam
+    state = init_train_state(tree_map(lambda a: to_tensor(a, device=device), params), optimizer)
+    leaves = tree_leaves(state.params)
+    mus, nus = tree_leaves(adam.mu), tree_leaves(adam.nu)
+    if len(mus) != len(leaves) or len(nus) != len(leaves):
+        raise ValueError(f"train_state_from_jax: {len(leaves)} params against {len(mus)} / {len(nus)} moments")
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    moments = {i: {"step": step.clone(), "exp_avg": to_tensor(mu, leaf.dtype, leaf.device),
+                   "exp_avg_sq": to_tensor(nu, leaf.dtype, leaf.device)}
+               for i, (leaf, mu, nu) in enumerate(zip(leaves, mus, nus))}
+    opt = state.opt_state
+    opt.load_state_dict({"state": moments, "param_groups": opt.state_dict()["param_groups"]})
+    return state

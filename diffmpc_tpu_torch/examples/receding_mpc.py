@@ -28,27 +28,10 @@ import numpy as np
 import torch
 
 from diffmpc_tpu_torch import MPCConfig, QuadCost
+from diffmpc_tpu_torch.examples.common import pick_device, random_pendulum_x_init, random_vehicle_x_init
 from diffmpc_tpu_torch.models import PendulumDx, VehicleDx
 from diffmpc_tpu_torch.receding import run_receding_horizon
 from diffmpc_tpu_torch.utils.logging import CSVLogger, table_log
-
-
-def random_pendulum_x_init(B: int, seed: int = 0, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """Swing-up starts: a uniform angle and a speed in [-1, 1] (the JAX
-    examples' recipe, examples/common.py:28-32, drawn with numpy)."""
-    rng = np.random.default_rng(seed)
-    th = rng.uniform(-np.pi, np.pi, B)
-    thdot = rng.uniform(-1.0, 1.0, B)
-    return torch.tensor(np.stack([np.cos(th), np.sin(th), thdot], -1), dtype=dtype, device=device)
-
-
-def random_vehicle_x_init(B: int, seed: int = 0, dtype=torch.float32, device="cpu", py_scale: float = 1.0):
-    """Lane-keeping starts: a lateral offset and a heading error at speed
-    (examples/common.py:65-79's recipe)."""
-    rng = np.random.default_rng(seed)
-    x = np.stack([np.zeros(B), rng.uniform(-py_scale, py_scale, B), rng.uniform(-0.3, 0.3, B),
-                  rng.uniform(3.0, 7.0, B)], -1)
-    return torch.tensor(x, dtype=dtype, device=device)
 
 
 def parse_args(argv=None):
@@ -69,7 +52,7 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def setup(args, device):
+def build(args, device):
     """The controller's model, cost, bounds, starts and config, and the
     perturbed plant, for ``args``."""
     dtype = torch.float32
@@ -98,7 +81,7 @@ def setup(args, device):
 
 
 def episode(s, n_steps: int):
-    """One closed-loop episode of ``n_steps`` from the setup ``s``."""
+    """One closed-loop episode of ``n_steps`` from ``s``, what :func:`build` returned."""
     with torch.no_grad():
         return run_receding_horizon(s["config"], s["x0"], s["cost"], s["model"], n_steps,
                                     env_step=s["plant"].forward, u_lower=s["lo"], u_upper=s["hi"])
@@ -125,13 +108,8 @@ def metrics(args, s, xs, us) -> dict:
 
 def main(argv=None) -> float:
     args = parse_args(argv)
-    if args.cpu:
-        device = torch.device("cpu")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda", 0)
-    else:
-        raise RuntimeError("receding_mpc runs on a CUDA card, and none is present: pass --cpu for the CPU")
-    s = setup(args, device)
+    device = pick_device(args, "receding_mpc")
+    s = build(args, device)
     print(f"closed-loop {args.env}: B={args.batch}, T={args.horizon}, {args.env_steps} env steps, "
           f"plant error +-{args.plant_param_error:.0%}, device {device}")
 

@@ -109,7 +109,7 @@ def _task_axis(a):
 
 
 def _check_rows(leaves, axes, batch: int, name: str) -> None:
-    """Every scenario-batched leaf has this rank's batch on its axis."""
+    """Every scenario-batched task leaf has this rank's batch on its axis."""
     for leaf, axis in zip(leaves, axes):
         if axis is not None and leaf.shape[axis] != batch:
             raise ValueError(
@@ -166,8 +166,10 @@ def make_dp_train_step(
         params, opt = state
         B = x_init.shape[0]
         leaves = tree_leaves(params)
+        # a scenario-batched leaf is split over the ranks with the batch; its
+        # rows need not be the batch's (a scenario's params may serve several
+        # solves, as sysid_domain_rand's replicas do), as in the JAX package
         batched = [_is_batched_leaf(a) for a in prefix_leaves(params_batch_axes, params, "params_batch_axes")]
-        _check_rows(leaves, [0 if b else None for b in batched], B, "params_batch_axes")
         if has_task:
             _check_rows(tree_leaves(task[0]), prefix_leaves(task_batch_axes, task[0], "task_batch_axes"), B,
                         "task_batch_axes")

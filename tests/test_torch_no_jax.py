@@ -5,7 +5,9 @@ In a fresh interpreter where ``import jax`` fails, every module of
 zoo's among them, by name), and the fused and the non-fused solve run on
 the CPU, on the pendulum, a ``LinDx``, a small and a large MLP,
 ``AffineDynamics`` and each env of the zoo, and a receding-horizon episode
-with a callable cost and the slew penalty runs. The chip smoke script
+with a callable cost and the slew penalty runs, and so does a training
+example with a checkpoint saved and restored. No module of the port
+imports optax or Orbax. The chip smoke script
 imports no JAX either, and refuses to run without a card.
 """
 
@@ -36,9 +38,12 @@ new = ["ops.cuda.riccati", "ops.cuda.rollout", "ops.pnqp", "ops.smallchol", "ops
        "models.dynamics", "parallel.training", "convert", "parallel.mesh", "parallel.distributed",
        "parallel.dryrun", "ops.cuda.shard_probe", "utils.tree", "models.envs.cartpole", "models.envs.vehicle",
        "models.envs.quadrotor", "models.envs.acrobot", "receding", "utils.logging", "utils.debug",
-       "examples.receding_mpc"]
+       "examples.receding_mpc", "checkpoint", "examples.common", "examples.gen_expert_data", "examples.il_pendulum",
+       "examples.il_cartpole", "examples.il_vehicle", "examples.il_quadrotor", "examples.il_acrobot",
+       "examples.il_nn_dynamics", "examples.sysid_domain_rand"]
 assert all(f"diffmpc_tpu_torch.{m}" in names for m in new), names
 assert "diffmpc_tpu" not in sys.modules and "jax" in sys.modules
+assert not any(m.split(".")[0] in ("optax", "orbax", "flax") for m in sys.modules)
 from diffmpc_tpu_torch.models import PendulumDx
 from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_plain
 B, T = 16, 5
@@ -84,6 +89,14 @@ q, p = dx.get_true_obj()
 cfg = MPCConfig(n_state=3, n_ctrl=1, T=T, lqr_iter=2, exit_unconverged=False, slew_rate_penalty=0.5)
 xs, us, objs = run_receding_horizon(cfg, x, lambda tau: ((tau - 0.1) ** 2).sum(), dx, 2, u_lower=-2.0, u_upper=2.0)
 assert xs.shape == (3, B, 3) and bool(torch.isfinite(objs).all()) and us.abs().max() <= 2.0
+import tempfile
+from diffmpc_tpu_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from diffmpc_tpu_torch.examples import il_pendulum
+with tempfile.TemporaryDirectory() as out:
+    flags = ["--cpu", "--batch", "4", "--horizon", "3", "--lqr-iter", "1", "--ckpt-every", "1", "--out", out]
+    state = il_pendulum.main(flags + ["--steps", "1"])
+    assert latest_step(out + "/ckpt") == 1
+    restore_checkpoint(out + "/ckpt", state)
 print("modules", len(names))
 """
 
@@ -114,7 +127,8 @@ def test_no_port_file_names_jax():
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", "diffmpc_tpu", "__graft_entry__", "scripts"), (
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "diffmpc_tpu", "__graft_entry__",
+                               "scripts"), (
                 path, mod,
             )
 

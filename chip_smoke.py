@@ -348,11 +348,32 @@ Phases, one line of output each (JSON where it carries numbers):
    gen_expert_data's .npz for each of its four envs at B=1024 bit-equal to
    build + generate_expert_data in process, one iLQR launch each.
 
+40. the serving artifacts (diffmpc_tpu_torch/aot.py): the headline
+   (pendulum, B=1024, T=20, lqr_iter=10, box +-2) exported on the card,
+   written to a file and run by a fresh process that imports
+   diffmpc_tpu_torch.aot alone and runs no nvcc (xs, us and info bit-equal
+   to the live solve, objs within 1e-6 relative, one iLQR launch a call and
+   no plain version); the same at B=65,536; the headline built from CPU
+   tensors for the card, bit-equal to the card-built one; a warm-start
+   artifact driving 20 receding steps equal to the live loop; the loss and
+   gradient through params-input vjp_order=1 artifacts against live (the
+   pendulum's per-scenario (B, 3) params at B=1024, BASELINE.json config
+   4's cartpole at B=4096 through the linearize op, the vehicle with its
+   per-dimension box recorded by value): the loss equal, the gradient
+   within 1e-6 of its max-abs; config 2 as non-fused artifacts at T=20
+   (B=128, 4096) and T=128 (B=128, the twins), bit-equal with equal
+   n_iters, their launches beside the live solve's; config 2's card solve
+   at B=128 (lqr_iter=100) against the float64 C++ oracle
+   (diffmpc_tpu_torch.native) on 64 scenarios by
+   tests/test_native_oracle.py's rule; export and load seconds, bytes and
+   ms a call (CUDA events) of each artifact beside the live solve's.
+
 With ``--slice-only`` the script runs phases 0, 1 and 30-33 alone; with
 ``--zoo-only``, phases 0 and 1, the zoo's variants of phase 30, and 35-36;
 with ``--mpc-only``, phases 0 and 1, the receding loop's variants, and
 37-38; with ``--examples-only``, phases 0 and 1, the zoo's variants (the
-examples' kernels) and 39.
+examples' kernels) and 39; with ``--aot-only``, phases 0 and 1, the
+variants of phase 40 and 40.
 
 The line before the last holds the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -2138,7 +2159,7 @@ def data_parallel(device, smi: str) -> dict:
             ilqr_calls, kkt_calls = [], []
             step, state, x, u = dryrun.ensemble_step(spec, device, mesh)
             with recording("diffmpc_tpu_torch.mpc", "ilqr_solve_fused", ilqr_calls), \
-                    recording("diffmpc_tpu_torch.ops.lqr_step", "kkt_backward_fused", kkt_calls):
+                    recording("diffmpc_tpu_torch.ops.library", "kkt_backward_fused", kkt_calls):
                 step(state, x, u)
             (args, kw), = ilqr_calls
             plain_kw = {k: v for k, v in kw.items() if k != "use_cuda"}
@@ -2877,8 +2898,8 @@ IL4_B, IL4_STEPS, IL4_LR = 4096, 5, 2e-2
 # each step's spans, timed in place (timed_spans): the forward solve, the
 # attach's linearization and the KKT wrapper
 IL4_SPANS = {"ilqr": ("diffmpc_tpu_torch.mpc", "ilqr_solve_fused"),
-             "linearize": ("diffmpc_tpu_torch.mpc", "linearize_dynamics"),
-             "kkt": ("diffmpc_tpu_torch.ops.lqr_step", "kkt_backward_fused")}
+             "linearize": ("diffmpc_tpu_torch.mpc", "linearize"),
+             "kkt": ("diffmpc_tpu_torch.ops.library", "kkt_backward_fused")}
 ZOO_KERNEL_B = 256  # each fused kernel against its plain version
 ZOO_CPU_B = 64  # the scenarios held against the host
 ZOO_LS_B = 1024  # the line search's batch, at T=20 and (cartpole) T_LONG
@@ -3145,7 +3166,7 @@ def zoo_config4(run: ZooRun) -> None:
         spans = {}
         t1 = time.perf_counter()
         start.record()
-        with recording("diffmpc_tpu_torch.ops.lqr_step", "kkt_backward_fused", kkt_calls if i == 0 else []), \
+        with recording("diffmpc_tpu_torch.ops.library", "kkt_backward_fused", kkt_calls if i == 0 else []), \
                 timed_spans(IL4_SPANS, spans):
             state, stats = step(state, case["x_init"], u_expert)
         end.record()
@@ -4036,7 +4057,7 @@ EX_PLAIN = {"ilqr": ("diffmpc_tpu_torch.ops.cuda.ilqr", "ilqr_solve_plain"),
 # call them: recorded on each example's first step
 EX_CALLS = {"ilqr": ("diffmpc_tpu_torch.mpc", "ilqr_solve_fused"),
             "riccati": ("diffmpc_tpu_torch.ops.lqr", "riccati_backward_cuda"),
-            "kkt": ("diffmpc_tpu_torch.ops.lqr_step", "kkt_backward_fused")}
+            "kkt": ("diffmpc_tpu_torch.ops.library", "kkt_backward_fused")}
 
 
 @contextlib.contextmanager
@@ -4276,6 +4297,305 @@ def examples(device, smi: str, clock_mhz: float) -> None:
     emit(phase="examples_seconds", seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# Phase 40: the serving artifacts (diffmpc_tpu_torch/aot.py), each loaded and
+# held to the live solve on the card.
+# ---------------------------------------------------------------------------
+
+AOT_B_BIG, AOT_WARM_STEPS, AOT_ORACLE_B, AOT_ORACLE_ITER = 65536, 20, 64, 100
+# the loading process: it imports the serving module alone (with torch), its
+# build step refused (the kernels come from the build on disk), the plain
+# fused solve counted; argv: the artifact, the starts, where to write
+AOT_CHILD = r"""
+import sys, time
+import torch
+import diffmpc_tpu_torch.aot as aot
+
+mods = sys.modules
+
+
+def no_nvcc():
+    raise RuntimeError("the loading process would run nvcc")
+
+
+mods["diffmpc_tpu_torch.csrc.build"].find_nvcc = no_nvcc
+il = mods["diffmpc_tpu_torch.ops.cuda.ilqr"]
+plain, orig = [], il.ilqr_solve_plain
+il.ilqr_solve_plain = lambda *a, **k: plain.append(1) or orig(*a, **k)
+artifact, starts, out = sys.argv[1:4]
+t0 = time.perf_counter()
+solve = aot.load_solve(open(artifact, "rb").read())
+load_s = time.perf_counter() - t0
+x = torch.load(starts).cuda()
+il.ilqr_solve_fused.launches = 0
+t0 = time.perf_counter()
+sol = solve(x)
+torch.cuda.synchronize()
+first_s, launches = time.perf_counter() - t0, il.ilqr_solve_fused.launches
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(20):
+    solve(x)
+end.record()
+end.synchronize()
+torch.save(dict(sol=[t.cpu() for t in (sol.xs, sol.us, sol.objs, *sol.info)], launches=launches, plain=len(plain),
+                load_s=load_s, first_call_s=first_s, ms=start.elapsed_time(end) / 20,
+                jax=[m for m in mods if m.split(".")[0] in ("jax", "diffmpc_tpu")]), out)
+"""
+AOT_FIELDS = ("xs", "us", "objs", "converged", "n_iters", "last_improvement", "mean_alpha", "clamp_frac", "qp_iters")
+
+
+def aot_variant_keys() -> list:
+    """The variants phase 40 launches: the cartpole's and the vehicle's fused
+    solves and the KKT backward at the cartpole's (5, 1)."""
+    from diffmpc_tpu_torch.csrc.build import VariantKey as K
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    return [il.env_variant_key(il.kernel_env(zoo_model(name, "cpu")), "ilqr") for name in ("cartpole", "vehicle")] + [
+        K("kkt", 5, 1)]
+
+
+def aot_flat(sol) -> list:
+    return [sol.xs, sol.us, sol.objs, *sol.info]
+
+
+def aot_agreement(name: str, got, want, objs_rtol: float = 1e-6) -> dict:
+    """``xs``, ``us`` and every field of ``info`` bit-equal, ``objs`` within
+    ``objs_rtol`` relative; raises otherwise."""
+    g, w = aot_flat(got), aot_flat(want)
+    bits = {f: same_bits(a.detach(), b.detach()) for f, a, b in zip(AOT_FIELDS, g, w)}
+    rel = float(((g[2] - w[2]).abs() / w[2].abs().clamp_min(1e-30)).max())
+    bad = [f for f, ok in bits.items() if not ok and f != "objs"]
+    if bad or rel > objs_rtol:
+        raise AssertionError(f"{name}: the artifact differs from the live solve in {bad}, objs rel {rel}")
+    return dict(bit_equal=all(bits.values()), objs_max_rel=rel)
+
+
+def aot_grad_agreement(name: str, loss_aot, loss_live, g_aot, g_live, rtol: float = 1e-6) -> dict:
+    """The loss equal and the gradient within ``rtol`` of its max-abs; raises
+    otherwise."""
+    rel = float((g_aot - g_live).abs().max() / g_live.abs().max().clamp_min(1e-30))
+    if float(loss_aot) != float(loss_live) or rel > rtol or not bool(g_live.abs().max() > 0):
+        raise AssertionError(f"{name}: loss {float(loss_aot)} vs {float(loss_live)}, gradient rel {rel}")
+    return dict(loss=float(loss_aot), loss_equal=True, grad_rel=rel, grad_bit_equal=bool(torch.equal(g_aot, g_live)))
+
+
+def aot_phase(device, smi: str) -> None:
+    """Phase 40: the serving artifacts. The headline (the pendulum, B=1024,
+    T=20, lqr_iter=10, box +-2) exported on the card, written to a file and
+    run by a fresh process that imports diffmpc_tpu_torch.aot alone and may
+    not run nvcc (one iLQR launch a call, no plain version); the same at
+    B=65,536; the headline built from CPU tensors for the card; a warm-start
+    artifact through 20 receding steps; the gradients through params-input
+    vjp_order=1 artifacts (the pendulum's per-scenario (B, 3) params, config
+    4's cartpole through the linearize op, the vehicle's per-dimension box);
+    config 2 as non-fused artifacts at T=20 (B=128, 4096) and T=128 (B=128,
+    the twins), their launches beside the live solve's; config 2's card
+    solve against the float64 C++ oracle on 64 scenarios
+    (tests/test_native_oracle.py's rule). Each artifact equals the live
+    solve (aot_agreement); the export and load seconds, bytes and ms a call
+    (CUDA events) are printed."""
+    from diffmpc_tpu_torch import LinDx, MPCConfig, QuadCost, aot, mpc_solve, native
+    from diffmpc_tpu_torch.models import PendulumDx
+    from diffmpc_tpu_torch.mpc import MPCInfo, MPCSolution
+    from diffmpc_tpu_torch.parallel import generate_expert_data
+
+    t_phase = time.perf_counter()
+    run = ZooRun(device, smi, 0.0)
+    config = MPCConfig(n_state=3, n_ctrl=1, T=T, lqr_iter=LQR_ITER, eps=EPS, exit_unconverged=False,
+                       detach_unconverged=False)
+    dx = PendulumDx.default(device=device)
+    q, p = dx.get_true_obj()
+    cost = QuadCost(torch.diag(q), p)
+    box = dict(u_lower=-2.0, u_upper=2.0)
+
+    def export(*args, **kw):
+        t0 = time.perf_counter()
+        blob = aot.export_solve(*args, **kw)
+        return blob, time.perf_counter() - t0
+
+    def load(blob):
+        t0 = time.perf_counter()
+        solve = aot.load_solve(blob)
+        return solve, time.perf_counter() - t0
+
+    def live(x, **kw):
+        with torch.no_grad():
+            return mpc_solve(config, x, cost, dx, **box, **kw)
+
+    def counted(fn):
+        """``fn()``'s result, its launches and the plain versions it called."""
+        plain = {}
+        run.reset()
+        with counted_plain(plain):
+            out = fn()
+        return out, run.counts(), plain
+
+    # ---- the headline, loaded by a fresh process ----
+    x = torch.tensor(x_init(B_MAIN), device=device)
+    blob, export_s = export(config, cost, dx, B_MAIN, **box)
+    want = live(x)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, n) for n in ("headline.bin", "x.pt", "out.pt")]
+        with open(paths[0], "wb") as f:
+            f.write(blob)
+        torch.save(x.cpu(), paths[1])
+        repo = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.run([sys.executable, "-c", AOT_CHILD, *paths], capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=repo), cwd=repo)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the loading process failed:\n{proc.stdout}\n{proc.stderr}")
+        child = torch.load(paths[2])
+    flat = [t.to(device) for t in child["sol"]]
+    fresh = aot_agreement("headline, fresh process", MPCSolution(*flat[:3], MPCInfo(*flat[3:])), want)
+    if child["launches"] != 1 or child["plain"] or child["jax"]:
+        raise AssertionError(f"the loading process: {child['launches']} iLQR launches, {child['plain']} plain calls, "
+                             f"JAX modules {child['jax']}")
+    solve, load_s = load(blob)
+    got, launches, plain = counted(lambda: solve(x))
+    if launches != run.only(ilqr=1) or plain:
+        raise AssertionError(f"headline artifact: launches {launches}, plain calls {plain}")
+    headline = aot_agreement("headline", got, want)
+    art_ms, live_ms = cuda_ms(lambda: solve(x), 20), cuda_ms(lambda: live(x), 20)
+    emit(phase="aot_headline", B=B_MAIN, T=T, lqr_iter=LQR_ITER, bytes=len(blob), export_s=export_s, load_s=load_s,
+         artifact_ms=art_ms, live_ms=live_ms, launches_per_call=launches, **headline,
+         fresh_process=dict(load_s=child["load_s"], first_call_s=child["first_call_s"], ms=child["ms"],
+                            launches=child["launches"], plain_calls=child["plain"], **fresh), card=smi)
+
+    # ---- the same at B=65,536 ----
+    xb = torch.tensor(x_init(AOT_B_BIG, seed=3), device=device)
+    big, big_export_s = export(config, cost, dx, AOT_B_BIG, **box)
+    big_solve, big_load_s = load(big)
+    got, launches, plain = counted(lambda: big_solve(xb))
+    if launches != run.only(ilqr=1) or plain:
+        raise AssertionError(f"B=65,536 artifact: launches {launches}, plain calls {plain}")
+    emit(phase="aot_big", B=AOT_B_BIG, bytes=len(big), export_s=big_export_s, load_s=big_load_s,
+         artifact_ms=cuda_ms(lambda: big_solve(xb), 5), live_ms=cuda_ms(lambda: live(xb), 5),
+         **aot_agreement("B=65,536", got, live(xb)), card=smi)
+
+    # ---- built from CPU tensors for the card ----
+    cpu_dx = dx.to(device=torch.device("cpu"))
+    cpu_cost = QuadCost(cost.C.cpu(), cost.c.cpu())
+    cpu_blob, cpu_export_s = export(config, cpu_cost, cpu_dx, B_MAIN, platforms=["cuda"], **box)
+    cpu_solve, _ = load(cpu_blob)
+    if aot.read_manifest(cpu_blob)["platforms"] != ["cuda"]:
+        raise AssertionError("the CPU-built artifact is not the card's")
+    got, launches, plain = counted(lambda: cpu_solve(x))
+    if launches != run.only(ilqr=1) or plain:
+        raise AssertionError(f"CPU-built artifact: launches {launches}, plain calls {plain}")
+    cpu_rec = aot_agreement("CPU-built", got, solve(x), objs_rtol=0.0)
+    emit(phase="aot_cpu_built", B=B_MAIN, bytes=len(cpu_blob), export_s=cpu_export_s, **cpu_rec, card=smi)
+
+    # ---- warm start: 20 receding steps, the plan shifted ----
+    warm, _ = export(config, cost, dx, B_MAIN, warm_start=True, **box)
+    warm_solve, _ = load(warm)
+
+    def episode(fn):
+        u, objs = torch.zeros((T, B_MAIN, 1), device=device), []
+        for _ in range(AOT_WARM_STEPS):
+            sol = fn(u)
+            u = torch.roll(sol.us, -1, dims=0)
+            objs.append(sol.objs)
+        return torch.stack(objs), u
+
+    (o_art, u_art), launches, plain = counted(lambda: episode(lambda u: warm_solve(x, u)))
+    o_live, u_live = episode(lambda u: live(x, u_init=u))
+    if not (same_bits(o_art, o_live) and same_bits(u_art, u_live)) or launches != run.only(ilqr=AOT_WARM_STEPS) or plain:
+        raise AssertionError(f"warm start: the artifact's loop differs from the live loop (launches {launches})")
+    emit(phase="aot_warm_start", B=B_MAIN, steps=AOT_WARM_STEPS, bit_equal=True, launches=launches, card=smi)
+
+    # ---- gradients through params-input, vjp_order=1 artifacts ----
+    def grad_case(name, cfg, cst, model, x0, bnd, target, B):
+        blob, ex_s = export(cfg, cst, model, B, params_input=True, vjp_order=1, **bnd)
+        fn, ld_s = load(blob)
+        leaf = model.params.detach().clone().requires_grad_(True)
+
+        def loss_of(sol):
+            return ((sol.us - target) ** 2).mean()
+
+        def art():
+            loss = loss_of(fn(x0, leaf))
+            return loss, torch.autograd.grad(loss, leaf)[0]
+
+        def lv():
+            loss = loss_of(mpc_solve(cfg, x0, cst, model.replace(params=leaf), **bnd))
+            return loss, torch.autograd.grad(loss, leaf)[0]
+
+        (la, ga), launches, plain = counted(art)
+        (ll, gl), live_launches, _ = counted(lv)
+        if launches != live_launches or plain or launches["kkt"] + launches["kkt_stream"] != 1:
+            raise AssertionError(f"{name}: launches {launches} (live {live_launches}), plain calls {plain}")
+        rec = aot_grad_agreement(name, la, ll, ga, gl)
+        return blob, dict(case=name, B=B, bytes=len(blob), export_s=ex_s, load_s=ld_s, launches=launches, **rec,
+                          artifact_ms=cuda_ms(art, 5), live_ms=cuda_ms(lv, 5))
+
+    params_b = (dx.params * torch.tensor(np.random.default_rng(7).uniform(0.9, 1.1, (B_MAIN, 3)), dtype=torch.float32,
+                                         device=device)).contiguous()
+    _, rec = grad_case("pendulum per-scenario params", config, cost, dx.replace(params=params_b), x, box,
+                       torch.zeros((T, B_MAIN, 1), device=device), B_MAIN)
+    emit(phase="aot_grad", **rec, card=smi)
+    case = zoo_case("cartpole", device)
+    c4_cost, c4_dx = case["make_problem"](case["params0"])
+    c4_bnd = dict(u_lower=case["lo"], u_upper=case["hi"])
+    _, u_expert, _ = generate_expert_data(case["config"], case["cost"], case["dx"], case["x_init"], case["lo"],
+                                          case["hi"])
+    blob4, rec = grad_case("config 4 cartpole (linearize op)", case["config"], c4_cost, c4_dx, case["x_init"], c4_bnd,
+                           u_expert, case["x_init"].shape[0])
+    if "diffmpc.linearize" not in str(aot.load_solve(blob4).exported.graph):
+        raise AssertionError("config 4's artifact does not linearize through the linearize op")
+    emit(phase="aot_grad", **rec, card=smi)
+    veh = zoo_case("vehicle", device)
+    veh_bnd = dict(u_lower=veh["lo"], u_upper=veh["hi"])
+    B_veh = veh["x_init"].shape[0]
+    blobv, rec = grad_case("vehicle per-dimension box", veh["config"], veh["cost"], veh["dx"], veh["x_init"], veh_bnd,
+                           torch.zeros((veh["config"].T, B_veh, 2), device=device), B_veh)
+    bounds = aot.read_manifest(blobv)["bounds"]
+    if "values" not in (bounds["u_lower"] or {}):
+        raise AssertionError(f"the vehicle's box is not recorded by value: {bounds}")
+    emit(phase="aot_grad", **rec, bounds=bounds, card=smi)
+
+    # ---- config 2 as non-fused artifacts, and the float64 oracle ----
+    for steps, B, iters in ((T, BOX_B, 10), (T, B_MID, 10), (T_LONG, BOX_B, LONG_ITER)):
+        cfg = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=steps, lqr_iter=iters, exit_unconverged=False,
+                        detach_unconverged=False)
+        C, c, F, f, x0 = (torch.tensor(a, device=device) for a in random_lqr_numpy(np.random.default_rng(11), steps, B,
+                                                                                     BOX_N, BOX_M))
+        bnd = dict(u_lower=-BOX, u_upper=BOX)
+        blob, ex_s = export(cfg, QuadCost(C, c), LinDx(F, f), B, **bnd)
+        fn, ld_s = load(blob)
+        got, launches, plain = counted(lambda: fn(x0))
+        with torch.no_grad():
+            want, live_launches, _ = counted(lambda: mpc_solve(cfg, x0, QuadCost(C, c), LinDx(F, f), **bnd))
+        rec = aot_agreement(f"config 2 T={steps} B={B}", got, want)
+        it = int(want.info.n_iters)
+        kinds = ("riccati_stream", "rollout_stream") if steps == T_LONG else ("riccati", "rollout")
+        if plain or launches != run.only(**{k: iters for k in kinds}) or live_launches != run.only(**{k: it for k in kinds}):
+            raise AssertionError(f"config 2 T={steps} B={B}: launches {launches}, live {live_launches}, plain {plain}")
+        emit(phase="aot_config2", T=steps, B=B, lqr_iter=iters, n_iters=it, bytes=len(blob), export_s=ex_s, load_s=ld_s,
+             launches={k: launches[k] for k in kinds}, live_launches={k: live_launches[k] for k in kinds},
+             artifact_ms=cuda_ms(lambda: fn(x0), 3), live_ms=cuda_ms(lambda: mpc_solve(cfg, x0, QuadCost(C, c),
+                                                                                      LinDx(F, f), **bnd), 3),
+             **rec, card=smi)
+    arrays = random_lqr_numpy(np.random.default_rng(12), T, BOX_B, BOX_N, BOX_M)
+    oracle_cfg = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=T, lqr_iter=AOT_ORACLE_ITER, eps=1e-13,
+                           not_improved_lim=10 ** 6, exit_unconverged=False, detach_unconverged=False)
+    C, c, F, f, x0 = (torch.tensor(a, device=device) for a in arrays)
+    with torch.no_grad():
+        card = mpc_solve(oracle_cfg, x0, QuadCost(C, c), LinDx(F, f), u_lower=-BOX, u_upper=BOX)
+    cut = [np.asarray(a[:, :AOT_ORACLE_B] if a.ndim > 2 else a[:AOT_ORACLE_B], np.float64) for a in arrays]
+    t0 = time.perf_counter()
+    _, us_n, objs_n = native.solve_batch(*cut, u_lower=np.full((T, AOT_ORACLE_B, BOX_M), -BOX),
+                                         u_upper=np.full((T, AOT_ORACLE_B, BOX_M), BOX), ilqr_iter=AOT_ORACLE_ITER)
+    oracle_s = time.perf_counter() - t0
+    us_err = float((card.us[:, :AOT_ORACLE_B].double().cpu() - us_n).abs().max())
+    objs_err = float(((card.objs[:AOT_ORACLE_B].double().cpu() - objs_n).abs() / (1e-5 + 1e-5 * objs_n.abs())).max())
+    emit(phase="aot_native_oracle", T=T, B=BOX_B, scenarios=AOT_ORACLE_B, lqr_iter=AOT_ORACLE_ITER,
+         us_max_abs_err=us_err, us_tol=2.5e-4, objs_err_over_tol=objs_err, oracle_s=oracle_s, card=smi)
+    if us_err > 2.5e-4 or objs_err > 1.0:
+        raise AssertionError(f"config 2 on the card against the float64 oracle: us {us_err}, objs {objs_err} x tol")
+    emit(phase="aot_done", seconds=time.perf_counter() - t_phase, card=smi)
+
+
 def kkt_lanes_ab(device, smi: str) -> None:
     """Phase 34 (diffmpc_tpu_torch.diagnostics.ab_kkt_lanes): every KKT call
     of the recorded solves + gradients (the headline at B=1024 and 65,536,
@@ -4343,12 +4663,17 @@ def main() -> int:
         riccati_sources_seconds={k: v for k, v in per_source.items() if re.fullmatch(r"riccati(_stream|_l\d+)?\.cu", k)},
         riccati_kernels=riccati,
     )
-    if {"--slice-only", "--zoo-only", "--mpc-only", "--examples-only"} & set(sys.argv[1:]):
+    if {"--slice-only", "--zoo-only", "--mpc-only", "--examples-only", "--aot-only"} & set(sys.argv[1:]):
         # phases 30-33 alone: the variants and the slice they serve; or the
         # zoo's variants and phases 35-36 alone; or the receding loop's
         # variants and phases 37-38 alone; or the zoo's variants (the
-        # examples' kernels) and phase 39 alone
-        if "--examples-only" in sys.argv[1:]:
+        # examples' kernels) and phase 39 alone; or phase 40's variants and
+        # phase 40 alone
+        if "--aot-only" in sys.argv[1:]:
+            build_variants_phase(aot_variant_keys())
+            aot_phase(device, smi)
+            rows = []
+        elif "--examples-only" in sys.argv[1:]:
             build_variants_phase(zoo_variant_keys())
             examples(device, smi, clock_mhz)
             rows = []
@@ -4368,7 +4693,7 @@ def main() -> int:
 
 
 def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
-    """Phases 2-39, then the kernels line and the ok line."""
+    """Phases 2-40, then the kernels line and the ok line."""
     from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.models import PendulumDx
     from diffmpc_tpu_torch.ops.cuda import kkt as kkt_mod
@@ -4817,6 +5142,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     zoo_records = zoo(device, smi, clock_mhz)
     receding_records = receding(device, smi, clock_mhz)
     examples(device, smi, clock_mhz)
+    aot_phase(device, smi)
 
     print(smi, flush=True)
     emit(kernels=[

@@ -9,6 +9,7 @@ versions on CPU tensors.
 """
 
 from .mpc import MPC, MPCInfo, MPCSolution, mpc_solve
+from .receding import RecedingState, receding_init, receding_step, run_receding_horizon
 from .types import GradMethods, LinDx, LineSearchConfig, MPCConfig, QuadCost
 
 __all__ = [
@@ -20,5 +21,9 @@ __all__ = [
     "LinDx",
     "LineSearchConfig",
     "QuadCost",
+    "RecedingState",
     "mpc_solve",
+    "receding_init",
+    "receding_step",
+    "run_receding_horizon",
 ]

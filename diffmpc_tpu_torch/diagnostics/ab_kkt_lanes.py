@@ -95,20 +95,21 @@ def parse(case: str) -> tuple:
 @contextlib.contextmanager
 def recorded_calls(calls: list):
     """Record every KKT backward that a gradient through ``mpc_solve`` runs
-    (``ops/lqr_step.py`` calls ``kkt_backward_fused``): the inputs cloned."""
-    from ..ops import lqr_step
+    (the ``kkt_backward`` op of ``ops/library.py`` calls
+    ``kkt_backward_fused``): the inputs cloned."""
+    from ..ops import library
 
-    saved = lqr_step.kkt_backward_fused
+    saved = library.kkt_backward_fused
 
     def call(*args, **kw):  # a C or F read in place stays as it is: a clone would copy it
         calls.append(([a if kkt.reads_in_place(a) else a.clone() for a in args], dict(kw)))
         return saved(*args, **kw)
 
-    lqr_step.kkt_backward_fused = call
+    library.kkt_backward_fused = call
     try:
         yield calls
     finally:
-        lqr_step.kkt_backward_fused = saved
+        library.kkt_backward_fused = saved
 
 
 def lin_problem(T: int, B: int, n: int, m: int, device, seed: int) -> tuple:

@@ -11,7 +11,14 @@ and T=128 at 20, as chip_smoke's phases 12 and 18 run it) at B=128, 4096
 and 65,536, the forward alone and with the gradient of ``mean(us**2)`` with
 respect to c, in strict alternation. It also reads the card's busy time for one
 call of each from ``torch.profiler`` (the sum of the kernels' device time)
-and gives the rest of the call's time as the card's idle share.
+and gives the rest of the call's time as the card's idle share. With
+``--cells host`` it times the host-bound steps of chip_smoke's phases 7, 37
+and 39: the imitation step of ``make_dp_train_step`` at B=1024 (phase 7's
+recipe, 40 steps, each read back as phase 7 reads its loss), the pendulum's
+receding episode of ``examples/receding_mpc.py`` at B=1024 (100 env steps,
++-15% plant error, its second run by CUDA events) and ``il_pendulum``'s
+step at its default widths (the median ``dt`` of its ``train.csv``, steps
+2-12).
 
 Each tree (a checkout of the repository) runs in its own process that
 imports ``diffmpc_tpu_torch`` from that tree, in the order given and then in
@@ -25,7 +32,7 @@ fused kernel's lane rule held at one lane (``ops/cuda/ilqr.py``,
 
 Run on a machine with a CUDA device, from the root of a checkout:
 
-    python diffmpc_tpu_torch/diagnostics/ab_solve_grad.py --trees PARENT . [--one-lane] [--cells config2]
+    python diffmpc_tpu_torch/diagnostics/ab_solve_grad.py --trees PARENT . [--one-lane] [--cells config2|host]
         [--pairs N] [--only CELL ...]
 
 It prints the card's name and power limit, one JSON record per process,
@@ -40,10 +47,12 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 PEND_B, PEND_T, PEND_ITER, PEND_LOOPS, PEND_ROUNDS = 1024, 20, 10, 20, 5
 NN_B, NN_T, NN_ITER, NN_LOOPS, NN_ROUNDS = 1024, 15, 8, 5, 3
 CONFIG2_BATCHES, CONFIG2_ITERS, CONFIG2_BOX = (128, 4096, 65536), {20: 10, 128: 20}, 0.6
+IL_STEPS, RH_STEPS = 40, 100  # phase 7's imitation steps, phase 37's env steps
 EPS = 1e-5
 
 
@@ -131,6 +140,60 @@ def measure_config2(device="cuda", only=None) -> dict:
     return out
 
 
+def measure_host(device="cuda") -> dict:
+    """The host-bound steps of chip_smoke's phases 7, 37 and 39 (module
+    docstring) in this process's tree."""
+    import csv
+    import functools
+    import tempfile
+
+    import torch
+
+    from diffmpc_tpu_torch import MPCConfig, QuadCost
+    from diffmpc_tpu_torch.examples import il_pendulum, receding_mpc
+    from diffmpc_tpu_torch.models import PendulumDx
+    from diffmpc_tpu_torch.parallel import generate_expert_data, init_train_state, make_dp_train_step
+
+    device = torch.device(device)
+    dx = PendulumDx.default(device=device)
+    q, p = dx.get_true_obj()
+    cost = QuadCost(torch.diag(q), p)
+    config = MPCConfig(n_state=3, n_ctrl=1, T=PEND_T, lqr_iter=PEND_ITER, eps=EPS, exit_unconverged=False,
+                       detach_unconverged=True)
+    x = torch.tensor(swing_up_starts(PEND_B, 0), device=device)
+    _, u_expert, _ = generate_expert_data(config, cost, dx, x, -2.0, 2.0)
+    adam = functools.partial(torch.optim.Adam, lr=5e-2)
+    step = make_dp_train_step(config, lambda prm: (cost, dx.replace(params=prm)), adam, None, -2.0, 2.0)
+    state = init_train_state(torch.tensor((8.0, 1.25, 0.8), device=device), adam)
+    for _ in range(3):
+        state, stats = step(state, x, u_expert)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(IL_STEPS):
+        state, stats = step(state, x, u_expert)
+        float(stats.loss)
+    torch.cuda.synchronize()
+    out = dict(il_step=dict(step_ms=(time.perf_counter() - t0) / IL_STEPS * 1e3))
+
+    args = receding_mpc.parse_args(["--batch", str(PEND_B), "--env-steps", str(RH_STEPS), "--plant-param-error",
+                                    "0.15", "--seed", "0"])
+    s = receding_mpc.build(args, device)
+    receding_mpc.episode(s, RH_STEPS)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    receding_mpc.episode(s, RH_STEPS)
+    end.record()
+    end.synchronize()
+    out["receding_pendulum"] = dict(env_step_ms=start.elapsed_time(end) / RH_STEPS)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        il_pendulum.main(["--steps", "12", "--ckpt-every", "0", "--out", tmp])
+        with open(os.path.join(tmp, "train.csv")) as f:
+            dts = [float(row["dt"]) for row in csv.DictReader(f)][1:]
+    out["il_pendulum"] = dict(step_ms=statistics.median(dts) * 1e3)
+    return out
+
+
 def measure(one_lane: bool, device="cuda") -> dict:
     """Both cells' forward and forward + gradient in this process's tree."""
     import dataclasses
@@ -198,15 +261,17 @@ def child(tree: str, one_lane: bool, cells: str, only) -> None:
     here = os.path.dirname(os.path.abspath(diffmpc_tpu_torch.__file__))
     if os.path.dirname(here) != os.path.abspath(tree):
         raise RuntimeError(f"imported diffmpc_tpu_torch from {here}, not from {tree}")
-    print(json.dumps(measure_config2(only=only) if cells == "config2" else measure(one_lane)), flush=True)
+    rec = (measure_config2(only=only) if cells == "config2" else measure_host() if cells == "host"
+           else measure(one_lane))
+    print(json.dumps(rec), flush=True)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--trees", nargs="+", required=True, help="checkouts of the repository, parent first")
     parser.add_argument("--one-lane", action="store_true", help="also run the last tree at one lane")
-    parser.add_argument("--cells", choices=("main", "config2"), default="main",
-                        help="the main path and the MLP, or config 2 (each solve and gradient)")
+    parser.add_argument("--cells", choices=("main", "config2", "host"), default="main",
+                        help="the main path and the MLP, config 2 (each solve and gradient), or the host-bound steps")
     parser.add_argument("--pairs", type=int, default=2, help="rounds over the trees, the order turned round each")
     parser.add_argument("--only", nargs="*", help="the config 2 cells to time (default all)")
     parser.add_argument("--child", help=argparse.SUPPRESS)
@@ -233,7 +298,7 @@ def main() -> None:
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
         print(json.dumps(dict(label=label, tree=tree, **rec)), flush=True)
         for cell, r in rec.items():
-            for key in ("fwd_ms", "solve_plus_grad_ms"):
+            for key in ("fwd_ms", "solve_plus_grad_ms", "step_ms", "env_step_ms"):
                 if key in r:
                     times.setdefault(label, {}).setdefault(cell, {}).setdefault(key, []).append(r[key])
     summary = {label: {cell: {key: min(ts) for key, ts in keys.items()} for cell, keys in cells.items()}

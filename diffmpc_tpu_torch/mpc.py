@@ -31,8 +31,13 @@ the cost's ``C``/``c``, the ``LinDx`` arrays or any tensor of the model
 callable cost (whose tensors cannot be seen from here), the solved
 trajectory is attached to the inputs through
 :func:`diffmpc_tpu_torch.ops.lqr_step.lqr_fixed_point`, whose backward is
-the KKT kernel (the plain version on CPU tensors). Otherwise the solve
-returns its trajectory as it is, and the attach costs nothing.
+the KKT kernel (the plain version on CPU tensors), about the model
+linearized once more at the solution. Otherwise the solve returns its
+trajectory as it is, and the attach costs nothing.
+
+Every kernel, the fixed point and the linearization are called through
+their ops (:mod:`diffmpc_tpu_torch.ops.library`), the calls that an
+exported program (:mod:`diffmpc_tpu_torch.aot`) records.
 """
 
 from __future__ import annotations
@@ -44,8 +49,9 @@ import torch
 from torch.func import vmap
 from torch.nn.functional import pad
 
-from .ops.cuda.ilqr import ilqr_solve_fused
-from .ops.linearize import check_analytic_grads, linearize_dynamics, quadraticize_cost
+from .models import spec as model_spec
+from .ops.library import ilqr_solve_fused, linearize
+from .ops.linearize import check_analytic_grads, quadraticize_cost
 from .ops.lqr import trajectory_cost
 from .ops.lqr_step import LqrSpec, lqr_fixed_point, lqr_step
 from .models.dynamics import CtrlPassthroughDynamics, Dynamics
@@ -267,7 +273,6 @@ def _requires_grad(*xs) -> bool:
     return any(isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
 
 
-@torch.no_grad()
 def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_fn=None):
     """The non-fused iLQR loop (``mpc.py:467-631`` of the JAX package) on
     detached inputs: an initial rollout of ``u_init`` (or zeros, clamped into
@@ -278,7 +283,29 @@ def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_fn=None
     ``Carry``. Scenarios that froze keep their state through ``where``. The
     loop stops at ``lqr_iter`` or when every scenario is done: one read of
     the ``done`` mask on the host per iteration. Returns ``(best_x, best_u,
-    info)``."""
+    info)``.
+
+    Under ``torch.export`` (``torch.compiler.is_exporting()``), which cannot
+    trace that read, the loop runs all ``lqr_iter`` iterations with the exit
+    folded into a tensor, ``still = ~done.all()``, that gates the carry
+    updates the live loop would not have made: the best trajectory (which
+    the live loop updates for a frozen scenario while any other is active)
+    and the not-improved counter; ``n_iters`` counts the iterations with
+    ``still``. The answer equals the live loop's; the iterations after every
+    scenario froze cost their launches. The model's tensors are detached
+    there instead of a no-grad region, which the program would keep as a
+    submodule."""
+    if torch.compiler.is_exporting():
+        if isinstance(dx, Dynamics):
+            name, statics, tensors = model_spec.encode(dx)
+            dx = model_spec.decode(name, statics, [t.detach() for t in tensors])
+        return _ilqr_iterations(config, x_init, C, c, dx, lo, hi, u_init, cost_fn, masked=True)
+    with torch.no_grad():
+        return _ilqr_iterations(config, x_init, C, c, dx, lo, hi, u_init, cost_fn, masked=False)
+
+
+def _ilqr_iterations(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_fn, masked: bool):
+    """The body of :func:`_ilqr_loop`; ``masked`` folds the exit into a tensor."""
     T, n, m = config.T, config.n_state, config.n_ctrl
     B, dtype, device = x_init.shape[0], x_init.dtype, x_init.device
     is_lin = isinstance(dx, LinDx)
@@ -310,9 +337,15 @@ def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_fn=None
     alpha = torch.ones(B, dtype=dtype, device=device)
     clamp_frac = torch.zeros(B, dtype=dtype, device=device)
     qp_iters = torch.zeros(B, dtype=dtype, device=device)
+    steps = torch.zeros((), dtype=torch.int32, device=device)  # the iterations with `still`, when masked
     i = 0
-    while i < config.lqr_iter and not bool(done.all()):
-        F, f = linearize_dynamics(dx, x, u, config.grad_method)
+    while i < config.lqr_iter:
+        if masked:
+            still = ~done.all()
+            steps = steps + still.to(torch.int32)
+        elif bool(done.all()):
+            break
+        F, f = linearize(dx, x, u, config.grad_method)
         if cost_fn is not None:
             C, c = quadraticize_cost(cost_fn, x, u)
         out = lqr_step(spec, x_init, C, c, F, f, x, u, lo, hi, dyn=None if is_lin else dx, cost_fn=traj_cost)
@@ -320,11 +353,14 @@ def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_fn=None
         # best tracks any strict improvement; best_cost_eps only drives the
         # not-improved counter
         improved = out.objs < best_obj
+        if masked:
+            improved = improved & still
         improved_sig = out.objs < best_obj - config.best_cost_eps
         best_obj = torch.where(improved, out.objs, best_obj)
         best_x = torch.where(improved[None, :, None], out.xs, best_x)
         best_u = torch.where(improved[None, :, None], out.us, best_u)
-        n_not_improved = torch.where(improved_sig, 0, n_not_improved + 1)
+        counted = torch.where(improved_sig, 0, n_not_improved + 1)
+        n_not_improved = torch.where(still, counted, n_not_improved) if masked else counted
         newly_done = (improvement < config.eps) | (n_not_improved >= config.not_improved_lim)
         # frozen scenarios keep their state; active ones move to the new
         # trajectory even if it is worse (best_* keeps the winner)
@@ -345,7 +381,7 @@ def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_fn=None
         i += 1
     info = MPCInfo(
         converged=last_improvement < config.eps,
-        n_iters=torch.tensor(i, dtype=torch.int32, device=device),
+        n_iters=steps if masked else torch.tensor(i, dtype=torch.int32, device=device),
         last_improvement=last_improvement,
         mean_alpha=alpha,
         clamp_frac=clamp_frac,
@@ -376,12 +412,22 @@ def mpc_solve(
     by default); ``u_zero_I`` (broadcast to ``(T, B, m)``) holds its dims at
     exactly zero.
     """
+    return _mpc_solve(config, x_init, cost, dx, u_init, u_lower, u_upper, prev_ctrl, u_zero_I)
+
+
+def _mpc_solve(config: MPCConfig, x_init, cost, dx, u_init=None, u_lower=None, u_upper=None, prev_ctrl=None,
+               u_zero_I=None, attach: Optional[bool] = None) -> MPCSolution:
+    """:func:`mpc_solve`, with ``attach`` saying whether the solved
+    trajectory is attached to the inputs for the gradient (None: where a
+    gradient may be taken, as :func:`mpc_solve` decides). An exported program
+    (:mod:`diffmpc_tpu_torch.aot`) sets it from its ``vjp_order``."""
     if config.slew_rate_penalty is not None and config.slew_rate_penalty > 0:
         # checked here: the augmented model wraps dx and hides its params
         _check_param_batch(dx, x_init.shape[0] if x_init.ndim else 0)
         config_aug, x_init_aug, cost_aug, dx_aug = _augment_slew(config, x_init, cost, dx, prev_ctrl)
         # the control space is unchanged, so the control-shaped knobs apply as they are
-        sol = mpc_solve(config_aug, x_init_aug, cost_aug, dx_aug, u_init, u_lower, u_upper, u_zero_I=u_zero_I)
+        sol = _mpc_solve(config_aug, x_init_aug, cost_aug, dx_aug, u_init, u_lower, u_upper, u_zero_I=u_zero_I,
+                         attach=attach)
         return MPCSolution(sol.xs[..., config.n_ctrl :], sol.us, sol.objs, sol.info)
     T, n, m = config.T, config.n_state, config.n_ctrl
     if x_init.ndim != 2 or x_init.shape[-1] != n:
@@ -410,11 +456,12 @@ def mpc_solve(
         hi = _expand_bound(u_upper, T, B, m, dtype, device)
     constrained = lo is not None
 
-    attach = (
-        config.backprop
-        and torch.is_grad_enabled()
-        and (not is_quad or _requires_grad(x_init, cost.C, cost.c, *_model_tensors(dx)))
-    )
+    if attach is None:
+        attach = (
+            config.backprop
+            and torch.is_grad_enabled()
+            and (not is_quad or _requires_grad(x_init, cost.C, cost.c, *_model_tensors(dx)))
+        )
 
     if is_quad:
         cost = _expand_cost(cost, T, B, dtype, device)
@@ -477,7 +524,7 @@ def mpc_solve(
         # more at the solved trajectory with gradients flowing from its
         # tensors, and the cost (quadraticized there if it is callable);
         # then the custom backward
-        F, f = dx if is_lin else linearize_dynamics(dx, xs, us, config.grad_method)
+        F, f = linearize(dx, xs, us, config.grad_method)
         C, c = (cost.C, cost.c) if is_quad else quadraticize_cost(cost, best_x, best_u)
         big = torch.full((T, B, m), 1e18, dtype=dtype, device=device)
         spec = LqrSpec(

@@ -26,7 +26,6 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
-import torch.autograd.forward_ad as fwAD
 
 from ...csrc.build import ENUM_DEFAULT, VariantKey
 from ...models.dynamics import ACTIVATIONS, CtrlPassthroughDynamics, NNDynamics
@@ -84,19 +83,20 @@ def fused_exact_update(m: int, reg: float, threshold: float, pnqp_enum: str = ""
 def _linearize(dyn, params, xh, uh, n, m):
     """Jacobian ``Ft[k][j] = d x_next[k] / d tau[j]`` of ``entries_step`` at
     ``(xh, uh)`` (``jax.linearize`` at ilqr.py:151 in the TPU kernel): one
-    forward-mode pass over the ``n + m`` columns side by side, the batch
-    repeated once a column, column j's tangent one on its own block. Each
-    entry computes what a probe of its column alone would, bit for bit."""
+    forward-mode pass (``torch.func.jvp``, which also runs inside a custom
+    op's body, where the autograd keys are off) over the ``n + m`` columns
+    side by side, the batch repeated once a column, column j's tangent one on
+    its own block. Each entry computes what a probe of its column alone
+    would, bit for bit."""
     nm = n + m
     B = xh[0].shape[0]
     block = torch.arange(nm, device=xh[0].device).repeat_interleave(B)
     prm = [p.repeat(nm) if p.ndim else p for p in params]
-    with fwAD.dual_level():
-        tau = [fwAD.make_dual(a.repeat(nm), (block == j).to(a.dtype)) for j, a in enumerate(tuple(xh) + tuple(uh))]
-        out = dyn.entries_step(prm, tau[:n], tau[n:])
-        tangents = [fwAD.unpack_dual(o).tangent for o in out]
-    tangents = [torch.zeros(nm * B, dtype=xh[0].dtype, device=xh[0].device) if d is None else d for d in tangents]
-    return [[tangents[k].view(nm, B)[j] for j in range(nm)] for k in range(n)]
+    primals = tuple(a.repeat(nm) for a in tuple(xh) + tuple(uh))
+    tangents = tuple((block == j).to(a.dtype) for j, a in enumerate(primals))
+    _, outs = torch.func.jvp(lambda *tau: tuple(dyn.entries_step(prm, list(tau[:n]), list(tau[n:]))), primals,
+                             tangents)
+    return [[outs[k].view(nm, B)[j] for j in range(nm)] for k in range(n)]
 
 
 @torch.no_grad()
@@ -596,7 +596,8 @@ def run_staged(
     f32 = dict(dtype=torch.float32, device=device)
     xs = torch.empty((T, n, B), **f32)
     us = torch.empty((T, m, B), **f32)
-    stats = torch.empty((6, B), **f32)  # objs, converged, impr, alpha, iters, qp
+    # objs, converged, impr, alpha, iters, qp: a buffer each, so that no two outputs share storage
+    stats = [torch.empty(B, **f32) for _ in range(6)]
     x_hat = torch.empty((T, n, B), **f32)
     u_hat = torch.empty((T, m, B), **f32)
     K = torch.empty((T, m, n, B), **f32)
@@ -607,7 +608,7 @@ def run_staged(
     keep = keeps_lane_trajectories(env, lanes)
     lane_x = torch.empty((T, n, B, lanes), **f32) if keep else None
     lane_u = torch.empty((T, m, B, lanes), **f32) if keep else None
-    buffers = [C_k, c_k, lo_k, hi_k, x0_k, p_k, xs, us, stats, x_hat, u_hat, K, k]
+    buffers = [C_k, c_k, lo_k, hi_k, x0_k, p_k, xs, us, *stats, x_hat, u_hat, K, k]
     buffers += [a for a in (ui_k, F_s, cd_s, alphas, lane_x, lane_u) if a is not None]
     for buf in buffers:
         if not buf.is_contiguous():  # pointers below assume dense layouts

@@ -14,9 +14,10 @@
   ``(x_init, C, c, F, f)``: its backward solves the auxiliary (adjoint) LQR
   with tight box dims frozen and assembles the gradients from outer products
   of the primal trajectory, the differential trajectory and the multipliers
-  (the equations are in the JAX module's docstring). The backward is one
-  call of :func:`~diffmpc_tpu_torch.ops.cuda.kkt.kkt_backward_fused`: the
-  KKT kernel, or its streaming twin at long horizons.
+  (the equations are in the JAX module's docstring). It is the
+  ``diffmpc::lqr_fixed_point`` op (:mod:`~diffmpc_tpu_torch.ops.library`),
+  whose backward is one ``diffmpc::kkt_backward`` op: the KKT kernel, or its
+  streaming twin at long horizons.
 - :func:`kkt_backward_composite` computes the same backward from the
   mask-mode Riccati sweep and :func:`~diffmpc_tpu_torch.ops.lqr.lqr_rollout`
   (the JAX package's ``_kkt_backward_impl``). Nothing on the solve's path
@@ -30,10 +31,9 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from ..utils.batch import bger, bmv, btrans
-from .cuda.kkt import kkt_backward_fused
+from . import library
 from .lqr import lqr_linesearch_rollout, lqr_rollout, riccati_backward
 
 
@@ -64,7 +64,7 @@ def _riccati(spec: LqrSpec, C, c, F, f, n_state, **kwargs):
     streaming twin where the JAX package takes its twin
     (:func:`~diffmpc_tpu_torch.ops.cuda.horizon.streams_riccati`); the plain
     version on CPU tensors."""
-    return riccati_backward(C, c, F, f, n_state, use_cuda=spec.use_cuda, **kwargs)
+    return library.riccati_backward(C, c, F, f, n_state, use_cuda=spec.use_cuda, **kwargs)
 
 
 class LqrStepResult(NamedTuple):
@@ -116,12 +116,13 @@ def lqr_step(
         reg=spec.reg, pnqp_iter=spec.pnqp_iter, pnqp_enum=spec.pnqp_enum,
         value_update_exact_reg=spec.value_update_exact_reg,
     )
-    ls = lqr_linesearch_rollout(
-        x_init, C, c, F, f, res.K, res.k, x_hat, u_hat,
-        u_lower=u_lower, u_upper=u_upper, delta_u=spec.delta_u, dyn=dyn if fusable else None,
-        dynamics_fn=None if fusable or dyn is None else dyn.forward, cost_fn=cost_fn,
-        decay=spec.linesearch_decay, max_iter=spec.max_linesearch_iter, use_cuda=spec.use_cuda,
-    )
+    kw = dict(u_lower=u_lower, u_upper=u_upper, delta_u=spec.delta_u, decay=spec.linesearch_decay,
+              max_iter=spec.max_linesearch_iter, use_cuda=spec.use_cuda)
+    if fusable:
+        ls = library.linesearch_rollout(x_init, C, c, F, f, res.K, res.k, x_hat, u_hat, dyn=dyn, **kw)
+    else:
+        ls = lqr_linesearch_rollout(x_init, C, c, F, f, res.K, res.k, x_hat, u_hat,
+                                    dynamics_fn=None if dyn is None else dyn.forward, cost_fn=cost_fn, **kw)
     return LqrStepResult(ls.xs, ls.us, ls.objs, ls.alpha, ls.improved, res.free_mask, res.n_qp_iter)
 
 
@@ -162,35 +163,6 @@ def kkt_backward_composite(C, c, F, r, tau, tight, *, reg: float = 1e-7, value_u
     return -mu_0, dC, p, dF, -mu_next
 
 
-class _LqrFixedPoint(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, spec, x_init, C, c, F, f, x_star, u_star, u_lower, u_upper):
-        ctx.spec = spec
-        ctx.save_for_backward(C, c, F, x_star, u_star, u_lower, u_upper)
-        # outputs must be new tensors: autograd does not let a Function
-        # return its inputs unchanged
-        return x_star.clone(), u_star.clone()
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, gx, gu):
-        spec = ctx.spec
-        C, c, F, x_star, u_star, u_lower, u_upper = ctx.saved_tensors
-        if spec.constrained:
-            tight = (u_star <= u_lower + spec.tight_eps) | (u_star >= u_upper - spec.tight_eps)
-        else:
-            tight = torch.zeros_like(u_star, dtype=torch.bool)
-        gu = torch.where(tight, torch.zeros_like(gu), gu)
-        r = torch.cat([gx, gu], dim=-1)
-        tau = torch.cat([x_star, u_star], dim=-1)
-        dx_init, dC, dc, dF, df = kkt_backward_fused(
-            C, c, F, r, tau, tight, reg=spec.back_eps, value_update_exact_reg=spec.value_update_exact_reg,
-            use_cuda=spec.use_cuda,
-        )
-        # no gradient for the trajectory and the bounds (JAX returns zeros)
-        return None, dx_init, dC, dc, dF, df, None, None, None, None
-
-
 def lqr_fixed_point(
     spec: LqrSpec,
     x_init: torch.Tensor,
@@ -210,4 +182,8 @@ def lqr_fixed_point(
     (``+-inf`` with ``spec.constrained=False`` when unconstrained)."""
     u_lower = torch.broadcast_to(u_lower, u_star.shape)
     u_upper = torch.broadcast_to(u_upper, u_star.shape)
-    return _LqrFixedPoint.apply(spec, x_init, C, c, F, f, x_star, u_star, u_lower, u_upper)
+    return library.lqr_fixed_point(
+        x_init, C, c, F, f, x_star, u_star, u_lower, u_upper, constrained=spec.constrained,
+        tight_eps=spec.tight_eps, back_eps=spec.back_eps, value_update_exact_reg=spec.value_update_exact_reg,
+        use_cuda=spec.use_cuda,
+    )

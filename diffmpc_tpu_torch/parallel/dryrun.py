@@ -16,7 +16,12 @@ temporary directory). Each rank (:func:`rank_dryrun`), on its own shard:
 3. the fused forward solve of its shard;
 4. steps of the imitation recipe with replicated params (Adam 5e-2 from
    (8, 1.25, 0.8), the expert solved with the true (10, 1, 1));
-5. :func:`~.mesh.gather_results` of its shard of the initial states.
+5. :func:`~.mesh.gather_results` of its shard of the initial states;
+6. the sharded serving artifact (``__graft_entry__.py:159-184``): the fused
+   solve of step 3 exported with ``mesh=`` (each rank's program at
+   ``B / world``, :func:`~diffmpc_tpu_torch.aot.export_solve`), loaded and
+   called on the rank's shard, its ``objs`` held bit for bit to the live
+   solve of the same shard.
 
 The parent runs the same problems in one process on the same device
 (:func:`single_process`) and :func:`check` holds the ranks to it. On a card
@@ -44,6 +49,7 @@ import torch.distributed as dist
 import torch.multiprocessing as torch_mp
 
 from .. import MPCConfig, QuadCost, mpc_solve
+from ..aot import export_solve, load_solve, read_manifest
 from ..models import PendulumDx
 from ..ops.cuda.ilqr import ilqr_solve_fused
 from ..ops.cuda.kkt import kkt_backward_fused
@@ -161,6 +167,27 @@ def _solve(spec, device, mesh) -> dict:
     return out
 
 
+def _artifact(spec, device, mesh) -> dict:
+    """Step 3's solve as the sharded artifact: exported with ``mesh=``,
+    loaded, called on this rank's shard (its launches counted) and held to
+    the live solve of the same shard."""
+    config, _ = _configs(spec)
+    x = _local(mesh, device, spec["x"])
+    dx, cost = _pendulum(device)
+    t0 = time.perf_counter()
+    blob = export_solve(config, cost, dx, len(spec["x"]), u_lower=-BOX, u_upper=BOX, mesh=mesh)
+    export_s = time.perf_counter() - t0
+    solve = load_solve(blob)
+    _reset()
+    got = solve(x)
+    launches = _counts()
+    with torch.no_grad():
+        want = mpc_solve(config, x, cost, dx, u_lower=-BOX, u_upper=BOX)
+    return dict(form=read_manifest(blob)["mesh"]["form"], bytes=len(blob), export_s=export_s, launches=launches,
+                objs_bit_equal=bool(torch.equal(got.objs, want.objs)), us_bit_equal=bool(torch.equal(got.us, want.us)),
+                n_iters=int(got.info.n_iters), live_n_iters=int(want.info.n_iters))
+
+
 def imitation_step(spec: dict, device, mesh):
     """The imitation recipe's step, params replicated: ``(step, state, x, u)``."""
     _, config = _configs(spec)
@@ -208,6 +235,7 @@ def rank_dryrun(mesh, spec: dict) -> dict:
     rec["solve"] = _solve(spec, device, mesh)
     rec["imitation"] = _imitation(spec, device, mesh)
     rec["gather"] = gather_results(shard_batch(mesh, spec["x"]), 0, mesh)
+    rec["artifact"] = _artifact(spec, device, mesh)
     if mesh.rank != 0:
         for part, key in (("probe", "out"), ("ensemble", "params"), ("solve", "us"), ("solve", "objs")):
             rec[part][key] = None
@@ -229,7 +257,10 @@ def check(ranks: list, single: dict, spec: dict) -> dict:
     rtol 1e-3 / atol 1e-4 and their change by the step within 1e-3 of its
     max-abs, the gradient norms within 1e-5 relative, the imitation params
     within 1e-3 of their max-abs; the solve's controls within 1e-5 (each
-    scenario's solve is the same thread's arithmetic)."""
+    scenario's solve is the same thread's arithmetic). On every rank the
+    sharded artifact takes the fused form and its ``objs`` and ``us`` equal
+    the live solve of the shard bit for bit, its ``n_iters`` the max of the
+    ranks' live counts."""
     world, r0 = len(ranks), ranks[0]
     exact = world == 1
     L = PROBE_LEN // world
@@ -258,9 +289,19 @@ def check(ranks: list, single: dict, spec: dict) -> dict:
         solve_scenarios_bit_equal=int((us_diff == 0).sum()), scenarios=len(us_diff),
         imitation_params_rel_diff=il_diff, imitation_grad_norm_rel_diff=il_gn,
         gather_in_rank_order=bool(np.array_equal(r0["gather"], spec["x"])),
-        launches={part: [r[part]["launches"] for r in ranks] for part in ("probe", "ensemble", "solve", "imitation")},
+        launches={part: [r[part]["launches"] for r in ranks]
+                  for part in ("probe", "ensemble", "solve", "imitation", "artifact")},
+        artifact=dict(form=[r["artifact"]["form"] for r in ranks], bytes=r0["artifact"]["bytes"],
+                      export_s=[r["artifact"]["export_s"] for r in ranks],
+                      objs_bit_equal=all(r["artifact"]["objs_bit_equal"] for r in ranks),
+                      us_bit_equal=all(r["artifact"]["us_bit_equal"] for r in ranks),
+                      n_iters=[r["artifact"]["n_iters"] for r in ranks]),
     )
     bad = [k for k in ("probe_bit_equal", "gather_in_rank_order") if not report[k]]
+    art = report["artifact"]
+    bad += ["artifact form"] * any(f != "fused" for f in art["form"])
+    bad += ["artifact objs"] * (not art["objs_bit_equal"]) + ["artifact us"] * (not art["us_bit_equal"])
+    bad += ["artifact n_iters"] * any(n != max(r["artifact"]["live_n_iters"] for r in ranks) for n in art["n_iters"])
     if exact:
         bad += [f"ensemble {k}" for k, v in rel.items() if v != 0]
         bad += ["ensemble param rows"] * (report["ensemble_param_rows_bit_equal"] != len(us_diff))
@@ -276,7 +317,7 @@ def check(ranks: list, single: dict, spec: dict) -> dict:
         bad += ["imitation grad_norm"] * (il_gn > 1e-5)
     if r0["device"].startswith("cuda"):
         per_rank = dict(probe=dict(probe=1), ensemble=dict(ilqr=1, kkt=1), solve=dict(ilqr=1, kkt=0),
-                        imitation=dict(ilqr=spec["il_steps"], kkt=spec["il_steps"]))
+                        imitation=dict(ilqr=spec["il_steps"], kkt=spec["il_steps"]), artifact=dict(ilqr=1, kkt=0))
         for part, want in per_rank.items():
             bad += [f"{part} launches on rank {r['rank']}: {r[part]['launches']}" for r in ranks
                     if any(r[part]["launches"][k] != v for k, v in want.items())]

@@ -32,6 +32,11 @@ def bger(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return x[..., :, None] * y[..., None, :]
 
 
+def bdiag(d: torch.Tensor) -> torch.Tensor:
+    """Batched vector -> diagonal matrix: ``(..., i) -> (..., i, i)``."""
+    return d[..., None, :] * torch.eye(d.shape[-1], dtype=d.dtype, device=d.device)
+
+
 def btrans(m: torch.Tensor) -> torch.Tensor:
     """Batched matrix transpose over the two trailing dims."""
     return m.transpose(-1, -2)

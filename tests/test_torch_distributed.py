@@ -21,7 +21,8 @@ compare what they sent back.
   slice, within 1e-9 in float64; the ``T % D`` error of sharding the
   horizon, and the mesh-axis error.
 - The probe's plain version on each rank's shard, gathered; the dry run
-  (``parallel/dryrun.py``) at a small size, held by its own ``check``.
+  (``parallel/dryrun.py``) at a small size, held by its own ``check``, its
+  sharded serving artifact among its phases.
 - The ``initialize`` contracts of tests/test_multiprocess.py:140-252, in
   this process.
 """
@@ -128,6 +129,18 @@ def test_dryrun_on_two_cpu_ranks(ranks):
     report = dryrun.check([r["dryrun"] for r in out], dryrun.single_process(spec, "cpu"), spec)
     assert report["world"] == 2 and report["backend"] == "gloo" and report["probe_bit_equal"]
     assert report["solve_scenarios_bit_equal"] == report["scenarios"] == 32
+
+
+def test_dryrun_sharded_artifact_on_two_cpu_ranks(ranks):
+    """The dry run's sharded serving artifact: each rank's program (B / 2
+    scenarios, the fused form) loaded on its rank, its objs and us bit-equal
+    to the live solve of the shard, n_iters the max over the ranks."""
+    _, spec, out = ranks
+    report = dryrun.check([r["dryrun"] for r in out], dryrun.single_process(spec, "cpu"), spec)
+    art = report["artifact"]
+    assert art["form"] == ["fused", "fused"] and art["objs_bit_equal"] and art["us_bit_equal"]
+    assert len(set(art["n_iters"])) == 1 and art["bytes"] > 0
+    assert all(r["dryrun"]["artifact"]["n_iters"] >= r["dryrun"]["artifact"]["live_n_iters"] for r in out)
 
 
 def test_initialize_explicit_args_raise_on_inconsistency(tmp_path):

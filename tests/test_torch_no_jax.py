@@ -7,8 +7,10 @@ the CPU, on the pendulum, a ``LinDx``, a small and a large MLP,
 ``AffineDynamics`` and each env of the zoo, and a receding-horizon episode
 with a callable cost and the slew penalty runs, and so does a training
 example with a checkpoint saved and restored. No module of the port
-imports optax or Orbax. The chip smoke script
-imports no JAX either, and refuses to run without a card.
+imports optax or Orbax. A solve exported and loaded
+(``aot.py``) equals the live one. The chip smoke script imports no JAX
+either, and refuses to run without a card. The port's public names (each
+``__all__``) cover the JAX package's.
 """
 
 import ast
@@ -40,7 +42,8 @@ new = ["ops.cuda.riccati", "ops.cuda.rollout", "ops.pnqp", "ops.smallchol", "ops
        "models.envs.quadrotor", "models.envs.acrobot", "receding", "utils.logging", "utils.debug",
        "examples.receding_mpc", "checkpoint", "examples.common", "examples.gen_expert_data", "examples.il_pendulum",
        "examples.il_cartpole", "examples.il_vehicle", "examples.il_quadrotor", "examples.il_acrobot",
-       "examples.il_nn_dynamics", "examples.sysid_domain_rand"]
+       "examples.il_nn_dynamics", "examples.sysid_domain_rand", "aot", "ops.library", "models.spec", "native",
+       "examples.export_artifact"]
 assert all(f"diffmpc_tpu_torch.{m}" in names for m in new), names
 assert "diffmpc_tpu" not in sys.modules and "jax" in sys.modules
 assert not any(m.split(".")[0] in ("optax", "orbax", "flax") for m in sys.modules)
@@ -97,6 +100,15 @@ with tempfile.TemporaryDirectory() as out:
     state = il_pendulum.main(flags + ["--steps", "1"])
     assert latest_step(out + "/ckpt") == 1
     restore_checkpoint(out + "/ckpt", state)
+from diffmpc_tpu_torch import aot
+dx = PendulumDx.default(device="cpu")
+q, p = dx.get_true_obj()
+cfg = MPCConfig(n_state=3, n_ctrl=1, T=T, lqr_iter=2, exit_unconverged=False)
+blob = aot.export_solve(cfg, QuadCost(torch.diag(q), p), dx, B, u_lower=-2.0, u_upper=2.0, warm_start=True)
+got = aot.load_solve(blob)(x, torch.zeros(T, B, 1))
+want = mpc_solve(cfg, x, QuadCost(torch.diag(q), p), dx, u_init=torch.zeros(T, B, 1), u_lower=-2.0, u_upper=2.0)
+assert torch.equal(got.us, want.us) and torch.equal(got.objs, want.objs)
+assert "diffmpc_tpu" not in sys.modules
 print("modules", len(names))
 """
 
@@ -131,6 +143,31 @@ def test_no_port_file_names_jax():
                                "scripts"), (
                 path, mod,
             )
+
+
+def _all(path):
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"{path} has no __all__")
+
+
+@pytest.mark.parametrize("package", ["", "ops", "utils", "models", "parallel"])
+def test_public_names_cover_the_jax_package(package):
+    """Each ``__all__`` of the port, read by ``ast``, holds every name of the
+    JAX package's counterpart."""
+    want = _all(os.path.join(REPO, "diffmpc_tpu", package, "__init__.py"))
+    got = _all(os.path.join(REPO, "diffmpc_tpu_torch", package, "__init__.py"))
+    assert want <= got, sorted(want - got)
+
+
+def test_serving_modules_name_no_jax():
+    """The serving layer and the host oracle: no import of JAX or of the JAX
+    package, directly or by name."""
+    for rel in ("aot.py", "ops/library.py", "models/spec.py", "native/__init__.py", "examples/export_artifact.py"):
+        path = os.path.join(REPO, "diffmpc_tpu_torch", rel)
+        mods = [m.split(".")[0] for m in _imports(path)]
+        assert not {"jax", "jaxlib", "diffmpc_tpu"} & set(mods), (rel, mods)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

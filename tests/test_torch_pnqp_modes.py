@@ -32,7 +32,6 @@ from diffmpc_tpu.ops.pallas import riccati as jric  # noqa: E402
 from diffmpc_tpu.ops.pallas.ilqr import ilqr_solve_fused as jax_ilqr  # noqa: E402
 from diffmpc_tpu.ops.pallas.kkt import kkt_backward_fused as jax_kkt  # noqa: E402
 from diffmpc_tpu_torch import MPCConfig, convert  # noqa: E402
-from diffmpc_tpu_torch.ops import pnqp as tpnqp  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.ilqr import fused_exact_update, ilqr_solve_fused, ilqr_solve_plain  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_plain, kkt_exact_update  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.riccati import BOX, FREE, MASK, riccati_backward_plain, use_exact_value_update  # noqa: E402
@@ -42,6 +41,7 @@ from torch_parity import as_numpy, assert_tight, kernel_inputs, make_problem, ra
 
 # the module, which diffmpc_tpu.ops shadows with its pnqp function
 jax_pnqp_mod = importlib.import_module("diffmpc_tpu.ops.pnqp")
+tpnqp = importlib.import_module("diffmpc_tpu_torch.ops.pnqp")  # likewise diffmpc_tpu_torch.ops
 
 MODES = ("", "0", "1")
 

@@ -39,7 +39,6 @@ import jax.numpy as jnp  # noqa: E402
 from diffmpc_tpu.ops import smallchol as jsc  # noqa: E402
 from diffmpc_tpu.ops.lqr import riccati_backward as jax_riccati  # noqa: E402
 from diffmpc_tpu.ops.pallas import riccati as jric  # noqa: E402
-from diffmpc_tpu_torch.ops import pnqp as tpnqp  # noqa: E402
 from diffmpc_tpu_torch.ops import smallchol as tsc  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.riccati import (  # noqa: E402
     BOX,
@@ -56,6 +55,7 @@ from oracles import boxqp_enumerate, random_lqr_problem  # noqa: E402
 
 # the module, which diffmpc_tpu.ops shadows with its pnqp function
 jax_pnqp_mod = importlib.import_module("diffmpc_tpu.ops.pnqp")
+tpnqp = importlib.import_module("diffmpc_tpu_torch.ops.pnqp")  # likewise diffmpc_tpu_torch.ops
 
 T, B = 5, 64
 MODES = ("free", "box", "mask")

@@ -317,7 +317,7 @@ def test_lindx_slew_and_u_zero_I_match_jax_with_gradients(case, monkeypatch):
         seen.append(kkt_mod.reads_in_place(Ck))
         return orig(Ck, *args, **kw)
 
-    monkeypatch.setattr(tdm.ops.lqr_step, "kkt_backward_fused", recording)
+    monkeypatch.setattr(tdm.ops.library, "kkt_backward_fused", recording)
     leaves = [torch.tensor(a, requires_grad=True) for a in (C, c, F, f, x0, prev)]
     config = convert.mpc_config_from_jax(jconfig)
     sol = tdm.mpc_solve(config, leaves[4], tdm.QuadCost(leaves[0], leaves[1]), tdm.LinDx(leaves[2], leaves[3]),

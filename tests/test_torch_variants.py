@@ -356,7 +356,7 @@ def test_config_fields_reach_every_family(monkeypatch):
     from diffmpc_tpu_torch import LinDx, QuadCost, mpc_solve
     from diffmpc_tpu_torch import mpc as mpc_mod
     from diffmpc_tpu_torch.ops import lqr as lqr_mod
-    from diffmpc_tpu_torch.ops import lqr_step as step_mod
+    from diffmpc_tpu_torch.ops import library as op_mod
 
     seen = []
 
@@ -369,7 +369,7 @@ def test_config_fields_reach_every_family(monkeypatch):
 
     monkeypatch.setattr(mpc_mod, "ilqr_solve_fused", recorder("ilqr", il.ilqr_solve_fused))
     monkeypatch.setattr(lqr_mod, "riccati_backward_plain", recorder("riccati", ric.riccati_backward_plain))
-    monkeypatch.setattr(step_mod, "kkt_backward_fused", recorder("kkt", kkt_mod.kkt_backward_fused))
+    monkeypatch.setattr(op_mod, "kkt_backward_fused", recorder("kkt", kkt_mod.kkt_backward_fused))
     default = MPCConfig(n_state=3, n_ctrl=1, T=4)
     assert (default.pnqp_enum, default.value_update_exact_reg) == ("", -1.0)
     gen = torch.Generator().manual_seed(0)

@@ -4305,9 +4305,11 @@ def examples(device, smi: str, clock_mhz: float) -> None:
 AOT_B_BIG, AOT_WARM_STEPS, AOT_ORACLE_B, AOT_ORACLE_ITER = 65536, 20, 64, 100
 # the loading process: it imports the serving module alone (with torch), its
 # build step refused (the kernels come from the build on disk), the plain
-# fused solve counted; argv: the artifact, the starts, where to write
+# fused solve counted; argv: the artifact, the starts, where to write, and a
+# file whose creation lets it time its calls (the parent, meanwhile, runs the
+# rest of the phase on the card and creates it once it only waits)
 AOT_CHILD = r"""
-import sys, time
+import os, sys, time
 import torch
 import diffmpc_tpu_torch.aot as aot
 
@@ -4322,7 +4324,7 @@ mods["diffmpc_tpu_torch.csrc.build"].find_nvcc = no_nvcc
 il = mods["diffmpc_tpu_torch.ops.cuda.ilqr"]
 plain, orig = [], il.ilqr_solve_plain
 il.ilqr_solve_plain = lambda *a, **k: plain.append(1) or orig(*a, **k)
-artifact, starts, out = sys.argv[1:4]
+artifact, starts, out, go = sys.argv[1:5]
 t0 = time.perf_counter()
 solve = aot.load_solve(open(artifact, "rb").read())
 load_s = time.perf_counter() - t0
@@ -4332,6 +4334,11 @@ t0 = time.perf_counter()
 sol = solve(x)
 torch.cuda.synchronize()
 first_s, launches = time.perf_counter() - t0, il.ilqr_solve_fused.launches
+deadline = time.monotonic() + 900
+while not os.path.exists(go):
+    if time.monotonic() > deadline:
+        raise SystemExit("the parent never let the loading process time its calls")
+    time.sleep(0.05)
 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 start.record()
 for _ in range(20):
@@ -4431,168 +4438,183 @@ def aot_phase(device, smi: str) -> None:
             out = fn()
         return out, run.counts(), plain
 
-    # ---- the headline, loaded by a fresh process ----
+    # ---- the headline, loaded by a fresh process (which starts now and is
+    # read at the end of the phase) ----
     x = torch.tensor(x_init(B_MAIN), device=device)
     blob, export_s = export(config, cost, dx, B_MAIN, **box)
     want = live(x)
+
+    def artifacts():
+        """The phase but the fresh process: the headline in this process, the
+        other artifacts and the oracle."""
+        solve, load_s = load(blob)
+        got, launches, plain = counted(lambda: solve(x))
+        if launches != run.only(ilqr=1) or plain:
+            raise AssertionError(f"headline artifact: launches {launches}, plain calls {plain}")
+        headline = aot_agreement("headline", got, want)
+        art_ms, live_ms = cuda_ms(lambda: solve(x), 20), cuda_ms(lambda: live(x), 20)
+        emit(phase="aot_headline", B=B_MAIN, T=T, lqr_iter=LQR_ITER, bytes=len(blob), export_s=export_s, load_s=load_s,
+             artifact_ms=art_ms, live_ms=live_ms, launches_per_call=launches, **headline, card=smi)
+
+        # ---- the same at B=65,536 ----
+        xb = torch.tensor(x_init(AOT_B_BIG, seed=3), device=device)
+        big, big_export_s = export(config, cost, dx, AOT_B_BIG, **box)
+        big_solve, big_load_s = load(big)
+        got, launches, plain = counted(lambda: big_solve(xb))
+        if launches != run.only(ilqr=1) or plain:
+            raise AssertionError(f"B=65,536 artifact: launches {launches}, plain calls {plain}")
+        emit(phase="aot_big", B=AOT_B_BIG, bytes=len(big), export_s=big_export_s, load_s=big_load_s,
+             artifact_ms=cuda_ms(lambda: big_solve(xb), 5), live_ms=cuda_ms(lambda: live(xb), 5),
+             **aot_agreement("B=65,536", got, live(xb)), card=smi)
+
+        # ---- built from CPU tensors for the card ----
+        cpu_dx = dx.to(device=torch.device("cpu"))
+        cpu_cost = QuadCost(cost.C.cpu(), cost.c.cpu())
+        cpu_blob, cpu_export_s = export(config, cpu_cost, cpu_dx, B_MAIN, platforms=["cuda"], **box)
+        cpu_solve, _ = load(cpu_blob)
+        if aot.read_manifest(cpu_blob)["platforms"] != ["cuda"]:
+            raise AssertionError("the CPU-built artifact is not the card's")
+        got, launches, plain = counted(lambda: cpu_solve(x))
+        if launches != run.only(ilqr=1) or plain:
+            raise AssertionError(f"CPU-built artifact: launches {launches}, plain calls {plain}")
+        cpu_rec = aot_agreement("CPU-built", got, solve(x), objs_rtol=0.0)
+        emit(phase="aot_cpu_built", B=B_MAIN, bytes=len(cpu_blob), export_s=cpu_export_s, **cpu_rec, card=smi)
+
+        # ---- warm start: 20 receding steps, the plan shifted ----
+        warm, _ = export(config, cost, dx, B_MAIN, warm_start=True, **box)
+        warm_solve, _ = load(warm)
+
+        def episode(fn):
+            u, objs = torch.zeros((T, B_MAIN, 1), device=device), []
+            for _ in range(AOT_WARM_STEPS):
+                sol = fn(u)
+                u = torch.roll(sol.us, -1, dims=0)
+                objs.append(sol.objs)
+            return torch.stack(objs), u
+
+        (o_art, u_art), launches, plain = counted(lambda: episode(lambda u: warm_solve(x, u)))
+        o_live, u_live = episode(lambda u: live(x, u_init=u))
+        if not (same_bits(o_art, o_live) and same_bits(u_art, u_live)) or launches != run.only(ilqr=AOT_WARM_STEPS) or plain:
+            raise AssertionError(f"warm start: the artifact's loop differs from the live loop (launches {launches})")
+        emit(phase="aot_warm_start", B=B_MAIN, steps=AOT_WARM_STEPS, bit_equal=True, launches=launches, card=smi)
+
+        # ---- gradients through params-input, vjp_order=1 artifacts ----
+        def grad_case(name, cfg, cst, model, x0, bnd, target, B):
+            blob, ex_s = export(cfg, cst, model, B, params_input=True, vjp_order=1, **bnd)
+            fn, ld_s = load(blob)
+            leaf = model.params.detach().clone().requires_grad_(True)
+
+            def loss_of(sol):
+                return ((sol.us - target) ** 2).mean()
+
+            def art():
+                loss = loss_of(fn(x0, leaf))
+                return loss, torch.autograd.grad(loss, leaf)[0]
+
+            def lv():
+                loss = loss_of(mpc_solve(cfg, x0, cst, model.replace(params=leaf), **bnd))
+                return loss, torch.autograd.grad(loss, leaf)[0]
+
+            (la, ga), launches, plain = counted(art)
+            (ll, gl), live_launches, _ = counted(lv)
+            if launches != live_launches or plain or launches["kkt"] + launches["kkt_stream"] != 1:
+                raise AssertionError(f"{name}: launches {launches} (live {live_launches}), plain calls {plain}")
+            rec = aot_grad_agreement(name, la, ll, ga, gl)
+            return blob, dict(case=name, B=B, bytes=len(blob), export_s=ex_s, load_s=ld_s, launches=launches, **rec,
+                              artifact_ms=cuda_ms(art, 5), live_ms=cuda_ms(lv, 5))
+
+        params_b = (dx.params * torch.tensor(np.random.default_rng(7).uniform(0.9, 1.1, (B_MAIN, 3)), dtype=torch.float32,
+                                             device=device)).contiguous()
+        _, rec = grad_case("pendulum per-scenario params", config, cost, dx.replace(params=params_b), x, box,
+                           torch.zeros((T, B_MAIN, 1), device=device), B_MAIN)
+        emit(phase="aot_grad", **rec, card=smi)
+        case = zoo_case("cartpole", device)
+        c4_cost, c4_dx = case["make_problem"](case["params0"])
+        c4_bnd = dict(u_lower=case["lo"], u_upper=case["hi"])
+        _, u_expert, _ = generate_expert_data(case["config"], case["cost"], case["dx"], case["x_init"], case["lo"],
+                                              case["hi"])
+        blob4, rec = grad_case("config 4 cartpole (linearize op)", case["config"], c4_cost, c4_dx, case["x_init"], c4_bnd,
+                               u_expert, case["x_init"].shape[0])
+        if "diffmpc.linearize" not in str(aot.load_solve(blob4).exported.graph):
+            raise AssertionError("config 4's artifact does not linearize through the linearize op")
+        emit(phase="aot_grad", **rec, card=smi)
+        veh = zoo_case("vehicle", device)
+        veh_bnd = dict(u_lower=veh["lo"], u_upper=veh["hi"])
+        B_veh = veh["x_init"].shape[0]
+        blobv, rec = grad_case("vehicle per-dimension box", veh["config"], veh["cost"], veh["dx"], veh["x_init"], veh_bnd,
+                               torch.zeros((veh["config"].T, B_veh, 2), device=device), B_veh)
+        bounds = aot.read_manifest(blobv)["bounds"]
+        if "values" not in (bounds["u_lower"] or {}):
+            raise AssertionError(f"the vehicle's box is not recorded by value: {bounds}")
+        emit(phase="aot_grad", **rec, bounds=bounds, card=smi)
+
+        # ---- config 2 as non-fused artifacts, and the float64 oracle ----
+        for steps, B, iters in ((T, BOX_B, 10), (T, B_MID, 10), (T_LONG, BOX_B, LONG_ITER)):
+            cfg = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=steps, lqr_iter=iters, exit_unconverged=False,
+                            detach_unconverged=False)
+            C, c, F, f, x0 = (torch.tensor(a, device=device) for a in random_lqr_numpy(np.random.default_rng(11), steps, B,
+                                                                                         BOX_N, BOX_M))
+            bnd = dict(u_lower=-BOX, u_upper=BOX)
+            blob2, ex_s = export(cfg, QuadCost(C, c), LinDx(F, f), B, **bnd)
+            fn, ld_s = load(blob2)
+            got, launches, plain = counted(lambda: fn(x0))
+            with torch.no_grad():
+                want2, live_launches, _ = counted(lambda: mpc_solve(cfg, x0, QuadCost(C, c), LinDx(F, f), **bnd))
+            rec = aot_agreement(f"config 2 T={steps} B={B}", got, want2)
+            it = int(want2.info.n_iters)
+            kinds = ("riccati_stream", "rollout_stream") if steps == T_LONG else ("riccati", "rollout")
+            if plain or launches != run.only(**{k: iters for k in kinds}) or live_launches != run.only(**{k: it for k in kinds}):
+                raise AssertionError(f"config 2 T={steps} B={B}: launches {launches}, live {live_launches}, plain {plain}")
+            emit(phase="aot_config2", T=steps, B=B, lqr_iter=iters, n_iters=it, bytes=len(blob2), export_s=ex_s, load_s=ld_s,
+                 launches={k: launches[k] for k in kinds}, live_launches={k: live_launches[k] for k in kinds},
+                 artifact_ms=cuda_ms(lambda: fn(x0), 3), live_ms=cuda_ms(lambda: mpc_solve(cfg, x0, QuadCost(C, c),
+                                                                                          LinDx(F, f), **bnd), 3),
+                 **rec, card=smi)
+        arrays = random_lqr_numpy(np.random.default_rng(12), T, BOX_B, BOX_N, BOX_M)
+        oracle_cfg = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=T, lqr_iter=AOT_ORACLE_ITER, eps=1e-13,
+                               not_improved_lim=10 ** 6, exit_unconverged=False, detach_unconverged=False)
+        C, c, F, f, x0 = (torch.tensor(a, device=device) for a in arrays)
+        with torch.no_grad():
+            card = mpc_solve(oracle_cfg, x0, QuadCost(C, c), LinDx(F, f), u_lower=-BOX, u_upper=BOX)
+        cut = [np.asarray(a[:, :AOT_ORACLE_B] if a.ndim > 2 else a[:AOT_ORACLE_B], np.float64) for a in arrays]
+        t0 = time.perf_counter()
+        _, us_n, objs_n = native.solve_batch(*cut, u_lower=np.full((T, AOT_ORACLE_B, BOX_M), -BOX),
+                                             u_upper=np.full((T, AOT_ORACLE_B, BOX_M), BOX), ilqr_iter=AOT_ORACLE_ITER)
+        oracle_s = time.perf_counter() - t0
+        us_err = float((card.us[:, :AOT_ORACLE_B].double().cpu() - us_n).abs().max())
+        objs_err = float(((card.objs[:AOT_ORACLE_B].double().cpu() - objs_n).abs() / (1e-5 + 1e-5 * objs_n.abs())).max())
+        emit(phase="aot_native_oracle", T=T, B=BOX_B, scenarios=AOT_ORACLE_B, lqr_iter=AOT_ORACLE_ITER,
+             us_max_abs_err=us_err, us_tol=2.5e-4, objs_err_over_tol=objs_err, oracle_s=oracle_s, card=smi)
+        if us_err > 2.5e-4 or objs_err > 1.0:
+            raise AssertionError(f"config 2 on the card against the float64 oracle: us {us_err}, objs {objs_err} x tol")
+
     with tempfile.TemporaryDirectory() as tmp:
-        paths = [os.path.join(tmp, n) for n in ("headline.bin", "x.pt", "out.pt")]
+        paths = [os.path.join(tmp, n) for n in ("headline.bin", "x.pt", "out.pt", "go")]
         with open(paths[0], "wb") as f:
             f.write(blob)
         torch.save(x.cpu(), paths[1])
         repo = os.path.dirname(os.path.abspath(__file__))
-        proc = subprocess.run([sys.executable, "-c", AOT_CHILD, *paths], capture_output=True, text=True, timeout=600,
-                              env=dict(os.environ, PYTHONPATH=repo), cwd=repo)
+        proc = subprocess.Popen([sys.executable, "-c", AOT_CHILD, *paths], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=dict(os.environ, PYTHONPATH=repo), cwd=repo)
+        try:
+            artifacts()
+            with open(paths[3], "w"):
+                pass
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         if proc.returncode != 0:
-            raise RuntimeError(f"the loading process failed:\n{proc.stdout}\n{proc.stderr}")
+            raise RuntimeError(f"the loading process failed:\n{stdout}\n{stderr}")
         child = torch.load(paths[2])
     flat = [t.to(device) for t in child["sol"]]
     fresh = aot_agreement("headline, fresh process", MPCSolution(*flat[:3], MPCInfo(*flat[3:])), want)
     if child["launches"] != 1 or child["plain"] or child["jax"]:
         raise AssertionError(f"the loading process: {child['launches']} iLQR launches, {child['plain']} plain calls, "
                              f"JAX modules {child['jax']}")
-    solve, load_s = load(blob)
-    got, launches, plain = counted(lambda: solve(x))
-    if launches != run.only(ilqr=1) or plain:
-        raise AssertionError(f"headline artifact: launches {launches}, plain calls {plain}")
-    headline = aot_agreement("headline", got, want)
-    art_ms, live_ms = cuda_ms(lambda: solve(x), 20), cuda_ms(lambda: live(x), 20)
-    emit(phase="aot_headline", B=B_MAIN, T=T, lqr_iter=LQR_ITER, bytes=len(blob), export_s=export_s, load_s=load_s,
-         artifact_ms=art_ms, live_ms=live_ms, launches_per_call=launches, **headline,
-         fresh_process=dict(load_s=child["load_s"], first_call_s=child["first_call_s"], ms=child["ms"],
-                            launches=child["launches"], plain_calls=child["plain"], **fresh), card=smi)
-
-    # ---- the same at B=65,536 ----
-    xb = torch.tensor(x_init(AOT_B_BIG, seed=3), device=device)
-    big, big_export_s = export(config, cost, dx, AOT_B_BIG, **box)
-    big_solve, big_load_s = load(big)
-    got, launches, plain = counted(lambda: big_solve(xb))
-    if launches != run.only(ilqr=1) or plain:
-        raise AssertionError(f"B=65,536 artifact: launches {launches}, plain calls {plain}")
-    emit(phase="aot_big", B=AOT_B_BIG, bytes=len(big), export_s=big_export_s, load_s=big_load_s,
-         artifact_ms=cuda_ms(lambda: big_solve(xb), 5), live_ms=cuda_ms(lambda: live(xb), 5),
-         **aot_agreement("B=65,536", got, live(xb)), card=smi)
-
-    # ---- built from CPU tensors for the card ----
-    cpu_dx = dx.to(device=torch.device("cpu"))
-    cpu_cost = QuadCost(cost.C.cpu(), cost.c.cpu())
-    cpu_blob, cpu_export_s = export(config, cpu_cost, cpu_dx, B_MAIN, platforms=["cuda"], **box)
-    cpu_solve, _ = load(cpu_blob)
-    if aot.read_manifest(cpu_blob)["platforms"] != ["cuda"]:
-        raise AssertionError("the CPU-built artifact is not the card's")
-    got, launches, plain = counted(lambda: cpu_solve(x))
-    if launches != run.only(ilqr=1) or plain:
-        raise AssertionError(f"CPU-built artifact: launches {launches}, plain calls {plain}")
-    cpu_rec = aot_agreement("CPU-built", got, solve(x), objs_rtol=0.0)
-    emit(phase="aot_cpu_built", B=B_MAIN, bytes=len(cpu_blob), export_s=cpu_export_s, **cpu_rec, card=smi)
-
-    # ---- warm start: 20 receding steps, the plan shifted ----
-    warm, _ = export(config, cost, dx, B_MAIN, warm_start=True, **box)
-    warm_solve, _ = load(warm)
-
-    def episode(fn):
-        u, objs = torch.zeros((T, B_MAIN, 1), device=device), []
-        for _ in range(AOT_WARM_STEPS):
-            sol = fn(u)
-            u = torch.roll(sol.us, -1, dims=0)
-            objs.append(sol.objs)
-        return torch.stack(objs), u
-
-    (o_art, u_art), launches, plain = counted(lambda: episode(lambda u: warm_solve(x, u)))
-    o_live, u_live = episode(lambda u: live(x, u_init=u))
-    if not (same_bits(o_art, o_live) and same_bits(u_art, u_live)) or launches != run.only(ilqr=AOT_WARM_STEPS) or plain:
-        raise AssertionError(f"warm start: the artifact's loop differs from the live loop (launches {launches})")
-    emit(phase="aot_warm_start", B=B_MAIN, steps=AOT_WARM_STEPS, bit_equal=True, launches=launches, card=smi)
-
-    # ---- gradients through params-input, vjp_order=1 artifacts ----
-    def grad_case(name, cfg, cst, model, x0, bnd, target, B):
-        blob, ex_s = export(cfg, cst, model, B, params_input=True, vjp_order=1, **bnd)
-        fn, ld_s = load(blob)
-        leaf = model.params.detach().clone().requires_grad_(True)
-
-        def loss_of(sol):
-            return ((sol.us - target) ** 2).mean()
-
-        def art():
-            loss = loss_of(fn(x0, leaf))
-            return loss, torch.autograd.grad(loss, leaf)[0]
-
-        def lv():
-            loss = loss_of(mpc_solve(cfg, x0, cst, model.replace(params=leaf), **bnd))
-            return loss, torch.autograd.grad(loss, leaf)[0]
-
-        (la, ga), launches, plain = counted(art)
-        (ll, gl), live_launches, _ = counted(lv)
-        if launches != live_launches or plain or launches["kkt"] + launches["kkt_stream"] != 1:
-            raise AssertionError(f"{name}: launches {launches} (live {live_launches}), plain calls {plain}")
-        rec = aot_grad_agreement(name, la, ll, ga, gl)
-        return blob, dict(case=name, B=B, bytes=len(blob), export_s=ex_s, load_s=ld_s, launches=launches, **rec,
-                          artifact_ms=cuda_ms(art, 5), live_ms=cuda_ms(lv, 5))
-
-    params_b = (dx.params * torch.tensor(np.random.default_rng(7).uniform(0.9, 1.1, (B_MAIN, 3)), dtype=torch.float32,
-                                         device=device)).contiguous()
-    _, rec = grad_case("pendulum per-scenario params", config, cost, dx.replace(params=params_b), x, box,
-                       torch.zeros((T, B_MAIN, 1), device=device), B_MAIN)
-    emit(phase="aot_grad", **rec, card=smi)
-    case = zoo_case("cartpole", device)
-    c4_cost, c4_dx = case["make_problem"](case["params0"])
-    c4_bnd = dict(u_lower=case["lo"], u_upper=case["hi"])
-    _, u_expert, _ = generate_expert_data(case["config"], case["cost"], case["dx"], case["x_init"], case["lo"],
-                                          case["hi"])
-    blob4, rec = grad_case("config 4 cartpole (linearize op)", case["config"], c4_cost, c4_dx, case["x_init"], c4_bnd,
-                           u_expert, case["x_init"].shape[0])
-    if "diffmpc.linearize" not in str(aot.load_solve(blob4).exported.graph):
-        raise AssertionError("config 4's artifact does not linearize through the linearize op")
-    emit(phase="aot_grad", **rec, card=smi)
-    veh = zoo_case("vehicle", device)
-    veh_bnd = dict(u_lower=veh["lo"], u_upper=veh["hi"])
-    B_veh = veh["x_init"].shape[0]
-    blobv, rec = grad_case("vehicle per-dimension box", veh["config"], veh["cost"], veh["dx"], veh["x_init"], veh_bnd,
-                           torch.zeros((veh["config"].T, B_veh, 2), device=device), B_veh)
-    bounds = aot.read_manifest(blobv)["bounds"]
-    if "values" not in (bounds["u_lower"] or {}):
-        raise AssertionError(f"the vehicle's box is not recorded by value: {bounds}")
-    emit(phase="aot_grad", **rec, bounds=bounds, card=smi)
-
-    # ---- config 2 as non-fused artifacts, and the float64 oracle ----
-    for steps, B, iters in ((T, BOX_B, 10), (T, B_MID, 10), (T_LONG, BOX_B, LONG_ITER)):
-        cfg = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=steps, lqr_iter=iters, exit_unconverged=False,
-                        detach_unconverged=False)
-        C, c, F, f, x0 = (torch.tensor(a, device=device) for a in random_lqr_numpy(np.random.default_rng(11), steps, B,
-                                                                                     BOX_N, BOX_M))
-        bnd = dict(u_lower=-BOX, u_upper=BOX)
-        blob, ex_s = export(cfg, QuadCost(C, c), LinDx(F, f), B, **bnd)
-        fn, ld_s = load(blob)
-        got, launches, plain = counted(lambda: fn(x0))
-        with torch.no_grad():
-            want, live_launches, _ = counted(lambda: mpc_solve(cfg, x0, QuadCost(C, c), LinDx(F, f), **bnd))
-        rec = aot_agreement(f"config 2 T={steps} B={B}", got, want)
-        it = int(want.info.n_iters)
-        kinds = ("riccati_stream", "rollout_stream") if steps == T_LONG else ("riccati", "rollout")
-        if plain or launches != run.only(**{k: iters for k in kinds}) or live_launches != run.only(**{k: it for k in kinds}):
-            raise AssertionError(f"config 2 T={steps} B={B}: launches {launches}, live {live_launches}, plain {plain}")
-        emit(phase="aot_config2", T=steps, B=B, lqr_iter=iters, n_iters=it, bytes=len(blob), export_s=ex_s, load_s=ld_s,
-             launches={k: launches[k] for k in kinds}, live_launches={k: live_launches[k] for k in kinds},
-             artifact_ms=cuda_ms(lambda: fn(x0), 3), live_ms=cuda_ms(lambda: mpc_solve(cfg, x0, QuadCost(C, c),
-                                                                                      LinDx(F, f), **bnd), 3),
-             **rec, card=smi)
-    arrays = random_lqr_numpy(np.random.default_rng(12), T, BOX_B, BOX_N, BOX_M)
-    oracle_cfg = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=T, lqr_iter=AOT_ORACLE_ITER, eps=1e-13,
-                           not_improved_lim=10 ** 6, exit_unconverged=False, detach_unconverged=False)
-    C, c, F, f, x0 = (torch.tensor(a, device=device) for a in arrays)
-    with torch.no_grad():
-        card = mpc_solve(oracle_cfg, x0, QuadCost(C, c), LinDx(F, f), u_lower=-BOX, u_upper=BOX)
-    cut = [np.asarray(a[:, :AOT_ORACLE_B] if a.ndim > 2 else a[:AOT_ORACLE_B], np.float64) for a in arrays]
-    t0 = time.perf_counter()
-    _, us_n, objs_n = native.solve_batch(*cut, u_lower=np.full((T, AOT_ORACLE_B, BOX_M), -BOX),
-                                         u_upper=np.full((T, AOT_ORACLE_B, BOX_M), BOX), ilqr_iter=AOT_ORACLE_ITER)
-    oracle_s = time.perf_counter() - t0
-    us_err = float((card.us[:, :AOT_ORACLE_B].double().cpu() - us_n).abs().max())
-    objs_err = float(((card.objs[:AOT_ORACLE_B].double().cpu() - objs_n).abs() / (1e-5 + 1e-5 * objs_n.abs())).max())
-    emit(phase="aot_native_oracle", T=T, B=BOX_B, scenarios=AOT_ORACLE_B, lqr_iter=AOT_ORACLE_ITER,
-         us_max_abs_err=us_err, us_tol=2.5e-4, objs_err_over_tol=objs_err, oracle_s=oracle_s, card=smi)
-    if us_err > 2.5e-4 or objs_err > 1.0:
-        raise AssertionError(f"config 2 on the card against the float64 oracle: us {us_err}, objs {objs_err} x tol")
+    emit(phase="aot_fresh_process", B=B_MAIN, load_s=child["load_s"], first_call_s=child["first_call_s"],
+         ms=child["ms"], launches=child["launches"], plain_calls=child["plain"], **fresh, card=smi)
     emit(phase="aot_done", seconds=time.perf_counter() - t_phase, card=smi)
 
 

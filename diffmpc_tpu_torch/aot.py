@@ -34,8 +34,10 @@ manifest JSON | payload``, the payload from ``torch.export.save``;
 Kept divergences from the JAX package: a callable cost and ``verbose > 0``
 are refused at export (the JAX package traces them); under ``mesh=`` a
 batch that the ranks do not divide raises (there is no replicated form to
-fall back to); the non-fused loop runs all ``lqr_iter`` iterations in the
-program (:func:`diffmpc_tpu_torch.mpc._ilqr_loop`).
+fall back to), and so do per-scenario tensors that every rank's program
+would bake alike (a model's take ``params_input=True``); the non-fused loop
+runs all ``lqr_iter`` iterations in the program
+(:func:`diffmpc_tpu_torch.mpc._ilqr_loop`).
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils import _pytree as pytree
 
 from .models import spec
-from .models.dynamics import Dynamics
+from .models.dynamics import AffineDynamics, CtrlPassthroughDynamics, Dynamics
 from .mpc import MPCInfo, MPCSolution, _mpc_solve, _would_use_fused
 from .ops import library  # noqa: F401  (registers the diffmpc:: ops that a loaded program calls)
 from .types import LinDx, MPCConfig, QuadCost
@@ -148,7 +150,6 @@ def _move_program(ep, device: str) -> None:
             if "val" in node.meta:
                 node.meta["val"] = pytree.tree_map(move, node.meta["val"])
         gm.recompile()
-    ep.example_inputs = None
 
 
 def _pack(tensors: list) -> str:
@@ -159,6 +160,28 @@ def _pack(tensors: list) -> str:
 
 def _unpack(text: str) -> list:
     return torch.load(io.BytesIO(base64.b64decode(text)), weights_only=True)
+
+
+def _scenario_rows(dx) -> tuple:
+    """The leading batch shape of a model's per-scenario tensors, ``()``
+    where they are shared over the batch."""
+    if isinstance(dx, CtrlPassthroughDynamics):
+        return _scenario_rows(dx.inner)
+    if isinstance(dx, AffineDynamics):
+        shapes = (dx.A.shape[:-2], dx.B.shape[:-2], () if dx.c is None else dx.c.shape[:-1])
+        return next((tuple(s) for s in shapes if len(s)), ())
+    return getattr(dx, "param_batch_shape", ())
+
+
+def _batched_over_scenarios(cost: QuadCost, dx, bounds) -> list:
+    """The names of the cost's, the bounds' and a ``LinDx``'s tensors that
+    hold a row per scenario (a batch axis, after the horizon, that is not
+    1)."""
+    fields = [("C", cost.C, 4), ("c", cost.c, 3), ("u_lower", bounds[0], 3), ("u_upper", bounds[1], 3)]
+    if isinstance(dx, LinDx):
+        fields += [("F", dx.F, 4), ("f", dx.f, 3)]
+    return [name for name, t, ndim in fields
+            if t is not None and torch.as_tensor(t).ndim == ndim and torch.as_tensor(t).shape[1] != 1]
 
 
 def _model_device(*tensors) -> torch.device:
@@ -191,8 +214,12 @@ def export_solve(
     host writes the card's artifact.
 
     ``mesh``: a :class:`~diffmpc_tpu_torch.parallel.mesh.Mesh` — the program
-    of one rank, at ``B / mesh.size`` scenarios (the rows of a per-scenario
-    model's params likewise), each rank calling it on its shard. The
+    of one rank, at ``B / mesh.size`` scenarios, each rank calling it on its
+    shard. A model with per-scenario tensors needs ``params_input=True``,
+    each rank passing its own rows (the example's rows are the first
+    ``B / mesh.size``); the cost, the bounds and a ``LinDx`` must be shared
+    over the batch. Either raises ``ValueError`` otherwise: every rank's
+    program carries the same baked tensors. The
     manifest records the world size and the form the solve takes at the
     rank's batch by the real dispatch (``mpc._would_use_fused``): ``fused``
     (one fused kernel launch a call) or ``loop`` (the non-fused loop);
@@ -222,7 +249,16 @@ def export_solve(
         raise ValueError(f"the mesh's {world} ranks must evenly divide B={B}: each rank's program solves B / {world} "
                          "scenarios, and there is no replicated form to fall back to")
     B_local = B // world
-    per_scenario = getattr(dx, "param_batch_shape", ()) == (B,)
+    if mesh is not None:
+        # every rank's program carries the same baked tensors: a row per
+        # scenario there would give each rank rows that are not its own
+        if batched := _batched_over_scenarios(cost, dx, (u_lower, u_upper)):
+            raise ValueError(f"under mesh= the cost, the bounds and a LinDx must be shared over the batch: "
+                             f"{', '.join(batched)} hold a row per scenario, which the ranks' programs cannot split")
+        if _scenario_rows(dx) and not params_input:
+            raise ValueError(f"under mesh= a {type(dx).__name__} with per-scenario tensors needs params_input=True, "
+                             "each rank passing its own rows: every rank's program carries the same baked tensors")
+    per_scenario = _scenario_rows(dx) == (B,)
 
     def local(t):  # a per-scenario model's rows of one rank
         return t[:B_local] if per_scenario and t.ndim >= 2 and t.shape[0] == B else t
@@ -251,6 +287,7 @@ def export_solve(
                            "tensor must be an input")
     if target != device.type:
         _move_program(ep, target)
+    ep.example_inputs = None  # the baked tensors are written once, beside the program
     payload = io.BytesIO()
     torch.export.save(ep, payload, extra_files={_BAKED: _pack(baked)})
 

@@ -175,15 +175,17 @@ def load_tree(root: str):
     """Another checkout's port, imported beside this one under a name of its
     own: its ``ops.cuda.kkt`` module, with its own wrapper, ``_KktArgs`` and
     build (which compiles its kernels at first use into that checkout's
-    ``_build``)."""
+    ``_build``). The package and its ``ops`` and ``ops.cuda`` are entered
+    without their ``__init__``, so that nothing of the solve path is
+    imported there: the operators of ``ops/library.py`` are global to the
+    process and registered once, by this checkout."""
     pkg_dir = os.path.join(os.path.abspath(root), "diffmpc_tpu_torch")
     name = "_tree_" + hashlib.sha256(pkg_dir.encode()).hexdigest()[:12] + "_diffmpc_tpu_torch"
-    if name not in sys.modules:
-        spec = importlib.util.spec_from_file_location(name, os.path.join(pkg_dir, "__init__.py"),
-                                                      submodule_search_locations=[pkg_dir])
-        pkg = importlib.util.module_from_spec(spec)
-        sys.modules[name] = pkg
-        spec.loader.exec_module(pkg)
+    for sub in ("", ".ops", ".ops.cuda"):
+        if name + sub not in sys.modules:
+            module = types.ModuleType(name + sub)
+            module.__path__ = [os.path.join(pkg_dir, *sub.split(".")[1:])]
+            sys.modules[name + sub] = module
     return importlib.import_module(name + ".ops.cuda.kkt")
 
 

@@ -50,13 +50,12 @@ from torch.func import vmap
 from torch.nn.functional import pad
 
 from .models import spec as model_spec
-from .ops.library import ilqr_solve_fused, linearize
+from .ops.library import ilqr_solve_fused, linearize, rollout
 from .ops.linearize import check_analytic_grads, quadraticize_cost
 from .ops.lqr import trajectory_cost
 from .ops.lqr_step import LqrSpec, lqr_fixed_point, lqr_step
 from .models.dynamics import CtrlPassthroughDynamics, Dynamics
 from .types import GradMethods, LinDx, MPCConfig, QuadCost
-from .utils.batch import bmv
 
 CostLike = Union[QuadCost, Callable]
 
@@ -320,14 +319,7 @@ def _ilqr_iterations(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_f
     u = torch.zeros((T, B, m), dtype=dtype, device=device) if u_init is None else u_init
     if lo is not None:
         u = torch.minimum(torch.maximum(u, lo), hi)
-    xs, x_t = [], x_init
-    for t in range(T):
-        xs.append(x_t)
-        if is_lin:
-            x_t = bmv(dx.F[t], torch.cat([x_t, u[t]], -1)) + dx.f[t]
-        else:
-            x_t = dx.forward(x_t, u[t])
-    x = torch.stack(xs)
+    x = rollout(dx, x_init, u)
     best_x, best_u = x, u
     traj_cost = None if cost_fn is None else _make_traj_cost_fn(cost_fn)
     best_obj = trajectory_cost(C, c, x, u) if cost_fn is None else traj_cost(x, u)

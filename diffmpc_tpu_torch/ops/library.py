@@ -42,15 +42,16 @@ contract of an operator that export relies on.
 
 from __future__ import annotations
 
-import hashlib
 import weakref
 from typing import Optional
 
 import torch
 from torch import Tensor
+from torch.autograd.function import once_differentiable
 
 from ..models import spec
 from ..types import GradMethods, LinDx
+from ..utils.batch import bmv
 from .cuda.ilqr import FusedSolveResult
 from .cuda.ilqr import ilqr_solve_fused as _ilqr_solve_fused
 from .cuda.kkt import kkt_backward_fused
@@ -59,13 +60,7 @@ from .cuda.rollout import LineSearchResult
 from .linearize import linearize_dynamics
 from .lqr import lqr_linesearch_rollout, riccati_backward as _riccati_backward
 
-# The ops' namespace, ``diffmpc`` for this package. A copy of the package
-# imported under another name (another checkout beside this one,
-# diagnostics/ab_kkt_lanes.py::load_tree) registers its ops under a namespace
-# of its own: ops are global to the process, and one registration would
-# replace the other's kernels.
-_PACKAGE = __name__.rsplit(".ops.library", 1)[0]
-NAMESPACE = "diffmpc" if _PACKAGE == "diffmpc_tpu_torch" else "diffmpc_" + hashlib.sha256(_PACKAGE.encode()).hexdigest()[:8]
+NAMESPACE = "diffmpc"
 
 
 def _fresh(outs, inputs=()) -> tuple:
@@ -302,6 +297,7 @@ class _FixedPoint(torch.autograd.Function):
                                       back_eps, exact_reg, use_cuda)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, gx, gu):
         C, c, F, x_star, u_star, u_lower, u_upper = ctx.saved_tensors
         constrained, tight_eps, back_eps, exact_reg, use_cuda = ctx.knobs
@@ -334,6 +330,49 @@ def lqr_fixed_point(x_init, C, c, F, f, x_star, u_star, u_lower, u_upper, *, con
     have ``u_star``'s shape."""
     return lqr_fixed_point_op(x_init, C, c, F, f, x_star, u_star, u_lower, u_upper, bool(constrained),
                               float(tight_eps), float(back_eps), float(value_update_exact_reg), use_cuda)
+
+
+# ---------------------------------------------------------------------------
+# The non-fused loop's first rollout.
+# ---------------------------------------------------------------------------
+
+
+def _states(step, x_init, u):
+    """The states ``(T, B, n)`` that ``u`` gives from ``x_init``, one
+    ``step(t, x_t, u_t)`` at a time."""
+    xs, x_t = [], x_init
+    for t in range(u.shape[0]):
+        xs.append(x_t)
+        x_t = step(t, x_t, u[t])
+    return torch.stack(xs)
+
+
+def _rollout_states(x_init, u, F, f, model, statics, tensors):
+    if F is not None:
+        return _states(lambda t, x, ut: bmv(F[t], torch.cat([x, ut], -1)) + f[t], x_init, u)
+    dx = spec.decode(model, statics, tensors)
+    return _states(lambda t, x, ut: dx.forward(x, ut), x_init, u)
+
+
+rollout_op = _define(
+    "rollout(Tensor x_init, Tensor u, Tensor? F, Tensor? f, str model, str statics, Tensor[] tensors) -> Tensor",
+    _rollout_states, _rollout_states,
+)
+
+
+def rollout(dx, x_init: Tensor, u: Tensor) -> Tensor:
+    """The ``diffmpc::rollout`` op: the states of ``u`` from ``x_init``
+    through ``dx`` (a ``LinDx`` of ``(T, B)`` tensors or a model), for a
+    loop that takes no gradient through them. Export records one node where
+    the steps would add some eight each (half of config 2's graph at
+    T=128); the fake implementation is the same loop on fake tensors. A
+    model the codec does not know is rolled out by the loop itself."""
+    if isinstance(dx, LinDx):
+        return rollout_op(x_init, u, dx.F, dx.f, "", "", [])
+    if not spec.has_codec(dx):
+        return _states(lambda t, x, ut: dx.forward(x, ut), x_init, u)
+    name, statics, _, detached = _encoded(dx)
+    return rollout_op(x_init, u, None, None, name, statics, detached)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,9 @@ temporary directory). Each rank (:func:`rank_dryrun`), on its own shard:
    solve of step 3 exported with ``mesh=`` (each rank's program at
    ``B / world``, :func:`~diffmpc_tpu_torch.aot.export_solve`), loaded and
    called on the rank's shard, its ``objs`` held bit for bit to the live
-   solve of the same shard.
+   solve of the same shard; and the same with the ensemble's per-scenario
+   params as the program's input (``params_input=True``), each rank
+   passing its own rows.
 
 The parent runs the same problems in one process on the same device
 (:func:`single_process`) and :func:`check` holds the ranks to it. On a card
@@ -170,7 +172,8 @@ def _solve(spec, device, mesh) -> dict:
 def _artifact(spec, device, mesh) -> dict:
     """Step 3's solve as the sharded artifact: exported with ``mesh=``,
     loaded, called on this rank's shard (its launches counted) and held to
-    the live solve of the same shard."""
+    the live solve of the same shard; then the same with the ensemble's
+    per-scenario params as the program's input, this rank's rows passed."""
     config, _ = _configs(spec)
     x = _local(mesh, device, spec["x"])
     dx, cost = _pendulum(device)
@@ -183,9 +186,24 @@ def _artifact(spec, device, mesh) -> dict:
     launches = _counts()
     with torch.no_grad():
         want = mpc_solve(config, x, cost, dx, u_lower=-BOX, u_upper=BOX)
+    # the ensemble's per-scenario params as the program's input, each rank
+    # passing its own rows
+    rows = _local(mesh, device, spec["params"])
+    per_scenario = export_solve(config, cost, dx.replace(params=torch.as_tensor(spec["params"], device=device)),
+                                len(spec["x"]), u_lower=-BOX, u_upper=BOX, params_input=True, mesh=mesh)
+    solve_rows = load_solve(per_scenario)
+    _reset()
+    got_rows = solve_rows(x, rows)
+    rows_launches = _counts()
+    with torch.no_grad():
+        want_rows = mpc_solve(config, x, cost, dx.replace(params=rows), u_lower=-BOX, u_upper=BOX)
     return dict(form=read_manifest(blob)["mesh"]["form"], bytes=len(blob), export_s=export_s, launches=launches,
                 objs_bit_equal=bool(torch.equal(got.objs, want.objs)), us_bit_equal=bool(torch.equal(got.us, want.us)),
-                n_iters=int(got.info.n_iters), live_n_iters=int(want.info.n_iters))
+                n_iters=int(got.info.n_iters), live_n_iters=int(want.info.n_iters),
+                params_form=read_manifest(per_scenario)["mesh"]["form"], params_launches=rows_launches,
+                params_objs_bit_equal=bool(torch.equal(got_rows.objs, want_rows.objs)),
+                params_us_bit_equal=bool(torch.equal(got_rows.us, want_rows.us)),
+                params_n_iters=int(got_rows.info.n_iters), params_live_n_iters=int(want_rows.info.n_iters))
 
 
 def imitation_step(spec: dict, device, mesh):
@@ -258,9 +276,10 @@ def check(ranks: list, single: dict, spec: dict) -> dict:
     max-abs, the gradient norms within 1e-5 relative, the imitation params
     within 1e-3 of their max-abs; the solve's controls within 1e-5 (each
     scenario's solve is the same thread's arithmetic). On every rank the
-    sharded artifact takes the fused form and its ``objs`` and ``us`` equal
-    the live solve of the shard bit for bit, its ``n_iters`` the max of the
-    ranks' live counts."""
+    sharded artifacts (shared params baked; per-scenario params an input)
+    take the fused form and their ``objs`` and ``us`` equal the live solve
+    of the shard bit for bit, their ``n_iters`` the max of the ranks' live
+    counts."""
     world, r0 = len(ranks), ranks[0]
     exact = world == 1
     L = PROBE_LEN // world
@@ -295,13 +314,22 @@ def check(ranks: list, single: dict, spec: dict) -> dict:
                       export_s=[r["artifact"]["export_s"] for r in ranks],
                       objs_bit_equal=all(r["artifact"]["objs_bit_equal"] for r in ranks),
                       us_bit_equal=all(r["artifact"]["us_bit_equal"] for r in ranks),
-                      n_iters=[r["artifact"]["n_iters"] for r in ranks]),
+                      n_iters=[r["artifact"]["n_iters"] for r in ranks],
+                      params_form=[r["artifact"]["params_form"] for r in ranks],
+                      params_objs_bit_equal=all(r["artifact"]["params_objs_bit_equal"] for r in ranks),
+                      params_us_bit_equal=all(r["artifact"]["params_us_bit_equal"] for r in ranks),
+                      params_n_iters=[r["artifact"]["params_n_iters"] for r in ranks]),
     )
     bad = [k for k in ("probe_bit_equal", "gather_in_rank_order") if not report[k]]
     art = report["artifact"]
     bad += ["artifact form"] * any(f != "fused" for f in art["form"])
     bad += ["artifact objs"] * (not art["objs_bit_equal"]) + ["artifact us"] * (not art["us_bit_equal"])
     bad += ["artifact n_iters"] * any(n != max(r["artifact"]["live_n_iters"] for r in ranks) for n in art["n_iters"])
+    bad += ["per-scenario artifact form"] * any(f != "fused" for f in art["params_form"])
+    bad += ["per-scenario artifact objs"] * (not art["params_objs_bit_equal"])
+    bad += ["per-scenario artifact us"] * (not art["params_us_bit_equal"])
+    bad += ["per-scenario artifact n_iters"] * any(n != max(r["artifact"]["params_live_n_iters"] for r in ranks)
+                                                   for n in art["params_n_iters"])
     if exact:
         bad += [f"ensemble {k}" for k, v in rel.items() if v != 0]
         bad += ["ensemble param rows"] * (report["ensemble_param_rows_bit_equal"] != len(us_diff))
@@ -321,6 +349,8 @@ def check(ranks: list, single: dict, spec: dict) -> dict:
         for part, want in per_rank.items():
             bad += [f"{part} launches on rank {r['rank']}: {r[part]['launches']}" for r in ranks
                     if any(r[part]["launches"][k] != v for k, v in want.items())]
+        bad += [f"per-scenario artifact launches on rank {r['rank']}: {r['artifact']['params_launches']}"
+                for r in ranks if r["artifact"]["params_launches"]["ilqr"] != 1]
     if bad:
         raise AssertionError(f"the {world}-rank dry run disagrees with one process: {bad}; {report}")
     return report

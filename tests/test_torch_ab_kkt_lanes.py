@@ -8,6 +8,7 @@ have raises. The card's timing itself runs only on a CUDA device.
 import ctypes
 import os
 import shutil
+import sys
 import types
 
 import pytest
@@ -42,6 +43,9 @@ def test_another_checkout_is_imported_beside_this_one(other_kkt):
     assert other_kkt.__name__ != kkt.__name__ and other_kkt.__name__.endswith(".ops.cuda.kkt")
     assert other_kkt._KktArgs is not kkt._KktArgs
     assert other_kkt.kkt_backward_fused is not kkt.kkt_backward_fused
+    # nothing of its solve path: the diffmpc:: operators are registered once
+    tree = other_kkt.__name__.split(".")[0]
+    assert not any(m.startswith(tree) and m.endswith((".ops.library", ".mpc")) for m in sys.modules)
     assert ab.load_tree(os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
         other_kkt.__file__))))) is other_kkt
     # its wrapper on CPU tensors runs its own plain version: the same function

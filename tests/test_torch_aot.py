@@ -12,7 +12,8 @@
 - a program built here for the card (every device argument ``cuda``), the
   mesh form following the dispatch, and the refusals (a callable cost,
   ``verbose``, a model without tensors for ``params_input``, an
-  indivisible mesh batch, the JAX package's artifact);
+  indivisible mesh batch, per-scenario tensors that a mesh program would
+  bake, the JAX package's artifact);
 - the same numpy inputs through the JAX package's ``export_solve`` /
   ``load_solve`` and the port's: the manifests' shared fields equal, the
   outputs within 1e-4 at ``lqr_iter=1`` and by the chaos rule beyond.
@@ -36,7 +37,7 @@ import diffmpc_tpu_torch as tdm  # noqa: E402
 from diffmpc_tpu import aot as jaot  # noqa: E402
 from diffmpc_tpu.models import PendulumDx as JaxPendulumDx  # noqa: E402
 from diffmpc_tpu_torch import aot  # noqa: E402
-from diffmpc_tpu_torch.models import CartpoleDx, PendulumDx, VehicleDx, spec  # noqa: E402
+from diffmpc_tpu_torch.models import CartpoleDx, CtrlPassthroughDynamics, PendulumDx, VehicleDx, spec  # noqa: E402
 from diffmpc_tpu_torch.ops import library  # noqa: E402
 from diffmpc_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from oracles import random_lqr_problem  # noqa: E402
@@ -111,11 +112,13 @@ def _op_cases():
                              lo, hi, True,
                              1e-6, 1e-7, -1.0, None)),
         "linearize": (library.linearize_op, (name, statics, leaf, x_hat, u_hat, "analytic")),
+        "rollout": (library.rollout_op, (x0, u_hat, F, f, "", "", [])),
+        "rollout_model": (library.rollout_op, (x0, u_hat, None, None, name, statics, tensors)),
     }
 
 
 @pytest.mark.parametrize("name", ["riccati_backward", "linesearch_rollout", "kkt_backward", "lqr_fixed_point",
-                                  "linearize"])
+                                  "linearize", "rollout", "rollout_model"])
 def test_opcheck(name):
     op, args = _op_cases()[name]
     torch.library.opcheck(op, args)
@@ -135,6 +138,17 @@ def _cartpole_linearize_args():
     n, s, t = spec.encode(dx)
     return (n, s, [t[0].clone().requires_grad_(True)], torch.randn(T, B, 5, generator=g),
             torch.randn(T, B, 1, generator=g), "analytic")
+
+
+def test_fixed_point_backward_is_once_differentiable():
+    """The KKT backward has no derivative of its own: a gradient of the
+    gradient raises autograd's once_differentiable error."""
+    config, cost, dx, x = _problem(lqr_iter=2)
+    prm = dx.params.clone().requires_grad_(True)
+    sol = tdm.mpc_solve(config, x, cost, dx.replace(params=prm), **BOX)
+    (g,) = torch.autograd.grad((sol.us ** 2).sum(), prm, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        g.sum().backward()
 
 
 @pytest.mark.parametrize("case", ["ilqr_solve_fused", "linearize_cartpole"])
@@ -382,6 +396,45 @@ def test_mesh_form_follows_the_dispatch():
         aot.export_solve(config, cost, dx, B, mesh=dataclasses.replace(mesh, size=3), **BOX)
     with pytest.raises(ValueError, match="2-rank mesh"):
         aot.load_solve(aot.export_solve(config, cost, dx, B, mesh=mesh, **BOX))(x[:4])
+
+
+@pytest.mark.parametrize("case", ["params", "passthrough", "C", "bound", "LinDx"])
+def test_mesh_refuses_per_scenario_tensors_it_would_bake(case):
+    """Every rank's program carries the same baked tensors, so under mesh=
+    a per-scenario model needs params_input (each rank passing its rows),
+    and a per-scenario cost, bound or LinDx raises. With params_input the
+    per-scenario model is the rank's program at B / 2 rows."""
+    config, cost, dx, x = _problem(lqr_iter=2)
+    mesh = Mesh(group=None, rank=0, size=2, device=torch.device("cpu"))
+    rows = dx.params * torch.linspace(0.9, 1.1, B)[:, None]
+    bnd = dict(BOX)
+    if case in ("params", "passthrough"):
+        dx = dx.replace(params=rows)
+        if case == "passthrough":
+            dx = CtrlPassthroughDynamics(inner=dx, n_ctrl=1)
+            config = dataclasses.replace(config, n_state=4)
+        with pytest.raises(ValueError, match="needs params_input=True"):
+            aot.export_solve(config, cost if case == "params" else tdm.QuadCost(torch.eye(5), torch.zeros(5)), dx, B,
+                             mesh=mesh, **bnd)
+        return
+    if case == "C":
+        cost = tdm.QuadCost(cost.C.expand(T, B, 4, 4).contiguous(), cost.c)
+    elif case == "bound":
+        bnd["u_lower"] = torch.full((T, B, 1), -2.0)
+    else:
+        config, cost, dx, _ = _config2()
+        bnd = dict(u_lower=-0.6, u_upper=0.6)
+    with pytest.raises(ValueError, match="row per scenario"):
+        aot.export_solve(config, cost, dx, B, mesh=mesh, **bnd)
+
+
+def test_mesh_takes_per_scenario_params_as_the_ranks_input():
+    config, cost, dx, x = _problem(lqr_iter=2)
+    rows = dx.params * torch.linspace(0.9, 1.1, B)[:, None]
+    mesh = Mesh(group=None, rank=0, size=2, device=torch.device("cpu"))
+    blob = aot.export_solve(config, cost, dx.replace(params=rows), B, params_input=True, mesh=mesh, **BOX)
+    m = aot.read_manifest(blob)
+    assert m["inputs"][1]["leaves"][0]["shape"] == [B // 2, 3] and m["mesh"]["form"] == "fused"
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ compare what they sent back.
   horizon, and the mesh-axis error.
 - The probe's plain version on each rank's shard, gathered; the dry run
   (``parallel/dryrun.py``) at a small size, held by its own ``check``, its
-  sharded serving artifact among its phases.
+  sharded serving artifacts (shared params baked, per-scenario params an
+  input) among its phases.
 - The ``initialize`` contracts of tests/test_multiprocess.py:140-252, in
   this process.
 """
@@ -141,6 +142,19 @@ def test_dryrun_sharded_artifact_on_two_cpu_ranks(ranks):
     assert art["form"] == ["fused", "fused"] and art["objs_bit_equal"] and art["us_bit_equal"]
     assert len(set(art["n_iters"])) == 1 and art["bytes"] > 0
     assert all(r["dryrun"]["artifact"]["n_iters"] >= r["dryrun"]["artifact"]["live_n_iters"] for r in out)
+
+
+def test_dryrun_sharded_per_scenario_artifact_on_two_cpu_ranks(ranks):
+    """The dry run's sharded artifact with the ensemble's per-scenario
+    params as its input: each rank passes its own rows, and its objs and us
+    are bit-equal to the live solve of its shard with those rows."""
+    _, spec, out = ranks
+    report = dryrun.check([r["dryrun"] for r in out], dryrun.single_process(spec, "cpu"), spec)
+    art = report["artifact"]
+    assert art["params_form"] == ["fused", "fused"]
+    assert art["params_objs_bit_equal"] and art["params_us_bit_equal"]
+    assert len(set(art["params_n_iters"])) == 1
+    assert spec["params"].shape[0] == len(spec["x"]) and not np.array_equal(spec["params"][0], spec["params"][-1])
 
 
 def test_initialize_explicit_args_raise_on_inconsistency(tmp_path):

@@ -122,27 +122,34 @@ Phases, one line of output each (JSON where it carries numbers):
    128, 512 and B = 128, 4096, 65,536, with their bounds;
    the plain versions once at T=128, B=128; and config 2's mpc_solve at
    T=128, forward and forward + gradient.
-19. the depth-blocked Riccati kernel against its plain version (K, k within
-   1e-4 * max(1, max|plain|)) and the serial kernel's free mode (5e-4 of
-   its scale, beside the two plain versions' own distance) at n=3, m=1,
-   T=20, B=1024 and 1000, and n=4, m=2, T=128, B=128, D = 2 and 4; its two
-   ValueErrors on the card;
+19. the depth-blocked Riccati kernel (one thread per (block, scenario))
+   against its plain version (K, k within 1e-4 * max(1, max|plain|)) and
+   the serial kernel's free mode (5e-4 of its scale, beside the two plain
+   versions' own distance) at n=3, m=1, T=20, B=1024 and 1000, and n=4,
+   m=2, T=128, B=128, D = 2 and 4; at (4, 2), D = 2, the longest horizon
+   one CTA holds (rb.max_horizon) against the plain version on the host and
+   the serial kernel; its three ValueErrors on the card (a block other than
+   2 or 4, one that does not divide T, a horizon past the longest);
 20. the A/B (diffmpc_tpu_torch.diagnostics.ab_blocked_ilp, its counts set
    to 0 before and read after): the serial kernel against the blocked one
-   at D = 2 and 4, kernels alone, interleaved, at the JAX script's three
-   shapes, BASELINE.json config 1's and n=4, m=2 at T=128, B=128, with the
-   bytes bound and the chain floor of each; at every shape the blocked
-   outputs within 5e-4 of the serial kernel's scale;
+   at D = 2 and 4, kernels alone, interleaved, at the JAX
+   script's three shapes, BASELINE.json config 1's and n=4, m=2 at T=128,
+   B=128, with the bytes bound and the chain floor of each; at every shape
+   the blocked outputs within 5e-4 of the serial kernel's scale and 1e-4
+   of the plain version's;
 21. the piece kernels against their plain versions at reps 1 and 9 (T=20,
-   B=1024 and 65,536; K, k within 1e-4 * max(1, max|plain|), or outside it
-   on <= 0.1% of scenarios, each one where float32 alone moves the plain
-   version > 1e-6 of the scale from the float64 plain version; each rollout
-   objective within 1e-5 of its sum of |stage costs|, and at reps 1 the
-   card's and the plain version's objectives within the same of the float64
-   plain version's), then the piece decomposition
+   B=1024 and 65,536; the sweep at one lane reading device memory: K, k
+   within 1e-4 * max(1, max|plain|), or outside it on <= 0.1% of
+   scenarios, each one where float32 alone moves the plain version > 1e-6
+   of the scale from the float64 plain version; at every built lane count,
+   staged and not, bit-equal to it; each rollout objective within 1e-5 of
+   its sum of |stage costs|, and at reps 1 the card's and the plain
+   version's objectives within the same of the float64 plain version's),
+   then the piece decomposition
    (diffmpc_tpu_torch.diagnostics.profile_riccati_pieces, counted the same
-   way): the per-sweep slopes and each piece at B=1024 and 65,536, the full
-   slope beside phase 4's iLQR kernel time per iteration;
+   way): at the fused kernel's lane count, reading device memory and
+   staged, the per-sweep slopes and each piece at B=1024 and 65,536, the
+   full slopes beside phase 4's iLQR kernel time per iteration;
 22. learned dynamics, the kernels against their plain versions: the fused
    iLQR kernel with the MLP step of the JAX bench's NNDynamics (3-16-16-3,
    residual, tanh; bench.py:592-624) at T=15, B=1024 and the ragged 1000,
@@ -1488,9 +1495,10 @@ def max_err(got, want, names=("K", "k")) -> tuple:
 
 def pieces_vs_plain(device) -> tuple:
     """Phase 21's agreement: each piece kernel against its plain version at
-    reps 1 and 9, at each of profile_riccati_pieces.BATCHES. Returns the
-    largest error of each kind at B_MAIN and the plain versions' times
-    there."""
+    reps 1 and 9, at each of profile_riccati_pieces.BATCHES, the sweep at one
+    lane reading device memory and at every built lane count in both read
+    modes bit-equal to it. Returns the largest error of each kind at B_MAIN
+    and the plain versions' times there."""
     from diffmpc_tpu_torch.diagnostics import profile_riccati_pieces
     from diffmpc_tpu_torch.ops.cuda import riccati_pieces as rp
 
@@ -1521,7 +1529,17 @@ def pieces_vs_plain(device) -> tuple:
                         ok = ok and max(vs64.values()) <= 1e-5
                         del obj64
                 else:
-                    got, want = rp.sweep_piece_cuda(kind, *ins, reps=reps), rp.sweep_piece_plain(kind, *ins, reps=reps)
+                    got = rp.sweep_piece_cuda(kind, *ins, reps=reps, lanes=1, staged=False)
+                    # every built lane count in both read modes, bit for bit one
+                    # lane reading device memory (the design gives it)
+                    unequal = [(lanes, staged) for lanes in rp.PIECE_LANES for staged in (False, True)
+                               if not all(torch.equal(g, o) for g, o in zip(
+                                   rp.sweep_piece_cuda(kind, *ins, reps=reps, lanes=lanes, staged=staged), got))]
+                    emit(phase="pieces_lane_groups", kind=kind, reps=reps, B=B, lanes=list(rp.PIECE_LANES),
+                         modes=["device", "staged"], unequal_to_one_lane=unequal)
+                    if unequal:
+                        raise AssertionError(f"piece sweep {kind} at B={B} reps={reps}: {unequal} differ from one lane")
+                    want = rp.sweep_piece_plain(kind, *ins, reps=reps)
                     errs, scales = max_err(got, want)
                     err = max(errs.values())
                     per = scenario_rel_err(got, want, scales)
@@ -1590,18 +1608,19 @@ def riccati_chain(device, smi: str, ilqr_ms_per_iter: float) -> list:
         serial = ric.riccati_backward_cuda(C, c, F, f, n)
         serial_plain = ric.riccati_backward_plain(C, c, F, f, n)
         for D in (2, 4):
-            got = rb.riccati_backward_blocked_cuda(C, c, F, f, n, block=D)
             want = rb.riccati_backward_blocked_plain(C, c, F, f, n, block=D)
-            err, scale = max_err(got, want)
-            gap, gap_scale = max_err(got, serial)
             # the two algorithms' own distance, on the plain versions: where
             # the kernel's gap to the serial kernel comes from
             plain_gap, _ = max_err(want, serial_plain)
+            got = rb.riccati_backward_blocked_cuda(C, c, F, f, n, block=D)
+            torch.cuda.synchronize()
+            err, scale = max_err(got, want)
+            gap, gap_scale = max_err(got, serial)
             held = all(gap[k] <= 5e-4 * gap_scale[k] for k in gap)
             emit(phase="blocked_vs_plain", n=n, m=m, T=steps, B=B, block=D, max_abs_err=err,
-                 tol="1e-4 * max(1, max|plain|)", vs_serial_max_abs=gap, vs_serial_tol="5e-4 * max(1, max|serial|)",
-                 vs_serial_held=held, plain_blocked_vs_plain_serial_max_abs=plain_gap,
-                 free_all_true=bool(got.free_mask.all()))
+                 tol="1e-4 * max(1, max|plain|)", vs_serial_max_abs=gap,
+                 vs_serial_tol="5e-4 * max(1, max|serial|)", vs_serial_held=held,
+                 plain_blocked_vs_plain_serial_max_abs=plain_gap, free_all_true=bool(got.free_mask.all()))
             if not all(err[k] <= 1e-4 * scale[k] for k in err) or not bool(got.free_mask.all()):
                 raise AssertionError(f"blocked kernel vs plain, n={n} m={m} T={steps} B={B} D={D}: {err}")
             if not held:
@@ -1609,6 +1628,32 @@ def riccati_chain(device, smi: str, ilqr_ms_per_iter: float) -> list:
             blocked_err[(n, m, steps, B, D)] = max(err.values())
             del got, want
         del C, c, F, f, serial, serial_plain
+    # the longest horizon one CTA holds at (4, 2), D = 2: held against the
+    # plain version (run on the host) and the serial kernel; one block more
+    # raises ValueError naming it
+    longest = rb.max_horizon(device, BOX_N, BOX_M, 2)
+    ins = ab_blocked_ilp.make_problem(longest, 8, BOX_N, BOX_M, seed=1901)
+    C, c, F, f = (torch.tensor(a, device=device) for a in ins)
+    got = rb.riccati_backward_blocked_cuda(C, c, F, f, BOX_N, block=2)
+    serial = ric.riccati_backward_cuda(C, c, F, f, BOX_N)
+    want = rb.riccati_backward_blocked_plain(*(torch.tensor(a) for a in ins), BOX_N, block=2)
+    err, scale = max_err(got._replace(K=got.K.cpu(), k=got.k.cpu()), want)
+    gap, gap_scale = max_err(got, serial)
+    emit(phase="blocked_longest_horizon", n=BOX_N, m=BOX_M, block=2, T=longest, B=8, max_abs_err=err,
+         vs_serial_max_abs=gap, longest_at_block_4=rb.max_horizon(device, BOX_N, BOX_M, 4),
+         longest_n3m1={D: rb.max_horizon(device, 3, 1, D) for D in (2, 4)})
+    if not all(err[k] <= 1e-4 * scale[k] for k in err) or not all(gap[k] <= 5e-4 * gap_scale[k] for k in gap):
+        raise AssertionError(f"blocked kernel at its longest horizon T={longest}: {err}, vs serial {gap}")
+    del C, c, F, f, got, serial, want
+    C, c, F, f = (torch.tensor(a, device=device) for a in ab_blocked_ilp.make_problem(longest + 2, 2, BOX_N, BOX_M,
+                                                                                       seed=1902))
+    try:
+        rb.riccati_backward_blocked_cuda(C, c, F, f, BOX_N, block=2)
+    except ValueError as e:
+        if f"T <= {longest}" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"T={longest + 2} at block 2 did not raise")
     C, c, F, f = (torch.tensor(a, device=device) for a in ab_blocked_ilp.make_problem(6, 8, 3, 1, seed=0))
     for block, match in ((3, "block must be 2 or 4"), (4, "must evenly divide")):
         try:
@@ -1618,7 +1663,7 @@ def riccati_chain(device, smi: str, ilqr_ms_per_iter: float) -> list:
                 raise
         else:
             raise AssertionError(f"block={block} at T=6 did not raise")
-    emit(phase="blocked_validation", raised=["block must be 2 or 4", "must evenly divide"],
+    emit(phase="blocked_validation", raised=["block must be 2 or 4", "must evenly divide", "longest horizon"],
          phase_19_seconds=time.perf_counter() - t0)
 
     # ---- 20. the A/B: the serial kernel against the blocked one at D = 2, 4 ----
@@ -1630,9 +1675,11 @@ def riccati_chain(device, smi: str, ilqr_ms_per_iter: float) -> list:
         emit(phase="blocked_ab", card=smi, **rec)
     if ab_launches["riccati_blocked"] < 1 or ab_launches["riccati"] < 1:
         raise AssertionError(f"the A/B launched {ab_launches}")
-    for rec in ab:  # every shape's blocked outputs held against the serial kernel's
+    for rec in ab:  # every shape's blocked outputs held against the serial kernel's and the plain version's
         if not rec["vs_serial_held"]:
             raise AssertionError(f"blocked vs serial in the A/B at T={rec['T']} B={rec['B']}: {rec['vs_serial']}")
+        if not rec["vs_plain_held"]:
+            raise AssertionError(f"blocked vs plain in the A/B at T={rec['T']} B={rec['B']}: {rec['vs_plain']}")
     emit(phase="blocked_ab_launches", launches=ab_launches, phase_20_seconds=time.perf_counter() - t0)
 
     # ---- 21. the pieces: each kernel vs its plain version, then the slopes ----
@@ -1641,9 +1688,11 @@ def riccati_chain(device, smi: str, ilqr_ms_per_iter: float) -> list:
     reset_counts()
     pieces = profile_riccati_pieces.run()
     piece_launches = counts()
-    for rec in pieces:
-        emit(phase="pieces", card=smi, **rec, ilqr_kernel_ms_per_iteration=ilqr_ms_per_iter if rec["B"] == B_MAIN else None,
-             full_slope_over_ilqr_iteration=rec["slope_us"]["full"] * 1e-3 / ilqr_ms_per_iter if rec["B"] == B_MAIN else None)
+    for rec in pieces:  # the sweep's slope beside the fused kernel's time an iteration (phase 4)
+        main = rec["B"] == B_MAIN
+        emit(phase="pieces", card=smi, **rec, ilqr_kernel_ms_per_iteration=ilqr_ms_per_iter if main else None,
+             full_slope_over_ilqr_iteration={mode: r["slope_us"]["full"] * 1e-3 / ilqr_ms_per_iter
+                                             for mode, r in rec["modes"].items()} if main else None)
     if piece_launches["sweep_piece"] < 1 or piece_launches["rollout_piece"] < 1:
         raise AssertionError(f"the piece decomposition launched {piece_launches}")
     emit(phase="pieces_launches", launches=piece_launches, phase_21_seconds=time.perf_counter() - t0)
@@ -1658,8 +1707,9 @@ def riccati_chain(device, smi: str, ilqr_ms_per_iter: float) -> list:
              **{k: first["bounds"]["blocked_D2"][k] for k in ("bound_ms", "bound_by")}, library_ms=None),
         dict(name="profile_riccati_pieces.make_sweep_kernel", route="cuda", source=source + "riccati_pieces.cu",
              replaces="scripts/profile_riccati_pieces.py:52", launches=piece_launches["sweep_piece"],
-             max_abs_err=piece_err["full"], ms=main_pieces["ms"]["full@1"], plain_ms=piece_plain_ms["full"],
-             **{k: main_pieces["bounds"]["full@1"][k] for k in ("bound_ms", "bound_by")}, library_ms=None),
+             max_abs_err=piece_err["full"], ms=main_pieces["ms"]["device:full@1"], plain_ms=piece_plain_ms["full"],
+             **{k: main_pieces["bounds"]["full@1"][k] for k in ("bound_ms", "bound_by")}, library_ms=None,
+             lanes=main_pieces["lanes"], staged_ms=main_pieces["ms"]["staged:full@1"]),
         dict(name="profile_riccati_pieces.make_rollout_kernel", route="cuda", source=source + "riccati_pieces.cu",
              replaces="scripts/profile_riccati_pieces.py:181", launches=piece_launches["rollout_piece"],
              max_abs_err=piece_err["rollout"], ms=main_pieces["ms"]["rollout@1"], plain_ms=piece_plain_ms["rollout"],

@@ -178,6 +178,28 @@ def _dlopen(path: str) -> ctypes.CDLL:
     return ctypes.CDLL(path)
 
 
+def build_with(srcs, out_dir: str, defines=(), label: str = "custom") -> ctypes.CDLL:
+    """A library of ``srcs`` (paths, each with its headers beside it) for a
+    diagnostic that needs another build than :func:`load`'s: one nvcc a
+    source, all at once, with :data:`NVCC_FLAGS`, a source's own
+    :func:`source_flags` where it is one of this checkout's, and ``-D`` for
+    each of ``defines`` (``NAME`` or ``NAME=VALUE``); linked into
+    ``out_dir/lib<label>.so`` and loaded. Raises with nvcc's output where a
+    compile fails."""
+    nvcc = find_nvcc()
+    objs = [os.path.join(out_dir, f"{label}-{os.path.basename(src)}.o") for src in srcs]
+    cmds = []
+    for obj, src in zip(objs, srcs):
+        where = os.path.dirname(os.path.abspath(src))
+        own = os.path.realpath(where) == os.path.realpath(CSRC)
+        cmds.append([nvcc, *NVCC_FLAGS, *(source_flags(src) if own else ()), *(f"-D{d}" for d in defines),
+                     "-I", where, "-c", "-o", obj, src])
+    _run(cmds)
+    so = os.path.join(out_dir, f"lib{label}.so")
+    _link(nvcc, objs, so)
+    return _dlopen(so)
+
+
 # ---------------------------------------------------------------------------
 # Variants: kernels built at first use.
 # ---------------------------------------------------------------------------

@@ -22,14 +22,34 @@
 //   no_pnqp:   k = -qu / (Quu + 1e-7), K = -Qux / (Quu + 1e-7);
 //   no_Vup:    V' = V + k 1e-9 I, v' = v + K' 1e-9.
 //
-// csrc/riccati_pieces.cu runs these with one thread per scenario; the tests
-// build them with g++ for the host; diffmpc_tpu_torch/ops/cuda/
-// riccati_pieces.py holds the plain PyTorch version of each.
+// The sweep runs as the fused kernel's sweep runs (ilqr.cuh, riccati_sweep):
+// a group of L lanes per scenario (lanes.cuh; L in 1, 2, 4, 16), every lane
+// running the step on the same values in lockstep, step t's K, k stored by
+// lane t % L. Two read modes, both built (PieceArgs::staged):
+//   device memory: every lane loads each step's C, c, x_hat, u_hat, lo, hi
+//     at the step, inside the value carry's chain, as riccati_sweep does;
+//   staged: each step's slice (PieceSlice) is copied once per group by
+//     cp.async into a ring of kLaneStages shared-memory slots,
+//     kLaneStages - 1 steps ahead of the step the group computes, the
+//     entries split over the lanes by a plan worked out once (PiecePlan;
+//     stream.cuh), and read back by every lane.
+// Every L and both modes compute the same float32 operations on the same
+// values as L = 1 reading device memory: bit for bit the same outputs. The
+// gap between the two modes' times is what the loads' latency on the chain
+// costs the sweep.
+//
+// csrc/riccati_pieces.cu runs these on the card (the sweep's kernels built
+// one file per lane count, riccati_pieces_l<L>.cu, riccati_pieces_launch.cuh;
+// the rollout with one thread per scenario); the tests build them with g++
+// for the host, where the lanes of a group run one after another
+// (HostLanes); diffmpc_tpu_torch/ops/cuda/riccati_pieces.py holds the plain
+// PyTorch version of each.
 //
 // Layout: every per-step array is batch-minor, (T, entries..., B).
 #pragma once
 
 #include "dual.cuh"
+#include "lanes.cuh"
 #include "pendulum.cuh"
 #include "riccati.cuh"
 
@@ -54,7 +74,9 @@ struct PieceArgs {
   int T;
   int B;
   int reps;
-  float reg;  // the sweep's box QP and masked solve (the script's 1e-7)
+  float reg;   // the sweep's box QP and masked solve (the script's 1e-7)
+  int lanes;   // the sweep's threads per scenario, L
+  int staged;  // the sweep: 1 reads each step's slice from the group's staging ring, 0 device memory
 };
 
 namespace pieces_detail {
@@ -66,30 +88,125 @@ DMPC_HD size_t at(int t, int i, int D, int B, int b) {
   return ((size_t)t * D + i) * (size_t)B + b;
 }
 
-// Step t's inputs as riccati_q_form (riccati.cuh) reads them: C from device
-// memory, the delta cost cd = c + C tau_hat in place of c, the Jacobian F,
-// and no f: the serial sweep's Q form about the trajectory.
-struct StepModel {
+// One step's slice of the sweep: C (all 16 entries: C tau_hat and the
+// no_Qform stand-in read its rows), c, x_hat, u_hat, lo, hi.
+struct PieceSlice {
+  static constexpr int kC = 0, kc = NM * NM, kxh = kc + NM, kuh = kxh + N, klo = kuh + M, khi = klo + M;
+  static constexpr int kSize = khi + M;
+};
+
+// Step t's inputs from device memory.
+struct PieceGlobal {
   const PieceArgs& a;
   int t;
   int b;
+  DMPC_HD float C(int i, int j) const { return a.C[at(t, i * NM + j, NM * NM, a.B, b)]; }
+  DMPC_HD float c(int i) const { return a.c[at(t, i, NM, a.B, b)]; }
+  DMPC_HD float xh(int i) const { return a.x_hat[at(t, i, N, a.B, b)]; }
+  DMPC_HD float uh(int i) const { return a.u_hat[at(t, i, M, a.B, b)]; }
+  DMPC_HD float lo(int i) const { return a.lo[at(t, i, M, a.B, b)]; }
+  DMPC_HD float hi(int i) const { return a.hi[at(t, i, M, a.B, b)]; }
+};
+
+// Step t's inputs from the group's staging slot.
+struct PieceSlot {
+  SlotReader e;
+  DMPC_HD float C(int i, int j) const { return e[PieceSlice::kC + i * NM + j]; }
+  DMPC_HD float c(int i) const { return e[PieceSlice::kc + i]; }
+  DMPC_HD float xh(int i) const { return e[PieceSlice::kxh + i]; }
+  DMPC_HD float uh(int i) const { return e[PieceSlice::kuh + i]; }
+  DMPC_HD float lo(int i) const { return e[PieceSlice::klo + i]; }
+  DMPC_HD float hi(int i) const { return e[PieceSlice::khi + i]; }
+};
+
+// Copy step t's slice into `slot` whole (a group of one lane), as one group
+// of copies.
+DMPC_HD void piece_stage(const PieceArgs& a, int stride, int t, int b, float* slot) {
+  const int B = a.B;
+  for (int e = 0; e < NM * NM; ++e) stream_put(slot, stride, PieceSlice::kC + e, &a.C[at(t, e, NM * NM, B, b)]);
+  for (int i = 0; i < NM; ++i) stream_put(slot, stride, PieceSlice::kc + i, &a.c[at(t, i, NM, B, b)]);
+  for (int i = 0; i < N; ++i) stream_put(slot, stride, PieceSlice::kxh + i, &a.x_hat[at(t, i, N, B, b)]);
+  for (int i = 0; i < M; ++i) {
+    stream_put(slot, stride, PieceSlice::kuh + i, &a.u_hat[at(t, i, M, B, b)]);
+    stream_put(slot, stride, PieceSlice::klo + i, &a.lo[at(t, i, M, B, b)]);
+    stream_put(slot, stride, PieceSlice::khi + i, &a.hi[at(t, i, M, B, b)]);
+  }
+  stream_commit();
+}
+
+// A lane's share of each step's slice above one lane: its entries
+// e = lane, lane + L, ..., each as its source at step 0 and the floats
+// between two steps' sources, worked out once, so that a step's copies cost
+// the lane its own entries alone (one lane copies the slice whole, by
+// piece_stage).
+template <int L>
+struct PiecePlan {
+  static constexpr int kMine = (PieceSlice::kSize + L - 1) / L;
+  const float* src[kMine];
+  int step[kMine];
+  DMPC_HD void init(const PieceArgs& a, int lane, int b) {
+    const int B = a.B;
+    for (int k = 0; k < kMine; ++k) {
+      const int e = lane + k * L;
+      if (e < PieceSlice::kc) {
+        src[k] = &a.C[at(0, e, NM * NM, B, b)];
+        step[k] = NM * NM * B;
+      } else if (e < PieceSlice::kxh) {
+        src[k] = &a.c[at(0, e - PieceSlice::kc, NM, B, b)];
+        step[k] = NM * B;
+      } else if (e < PieceSlice::kuh) {
+        src[k] = &a.x_hat[at(0, e - PieceSlice::kxh, N, B, b)];
+        step[k] = N * B;
+      } else if (e < PieceSlice::kSize) {
+        const float* arr = e < PieceSlice::klo ? a.u_hat : e < PieceSlice::khi ? a.lo : a.hi;
+        src[k] = &arr[b];
+        step[k] = M * B;
+      } else {
+        src[k] = nullptr;
+        step[k] = 0;
+      }
+    }
+  }
+};
+
+// Copy step t's slice into `slot` by the plans of the group's lanes, as one
+// group of copies.
+template <class G, class Plan>
+DMPC_HD void piece_stage_planned(const G& g, const Plan (&plan)[G::kLocal], int t, float* slot) {
+  constexpr int L = G::kLanes;
+  for (int li = 0; li < G::kLocal; ++li)
+    for (int k = 0; k < Plan::kMine; ++k) {
+      const int e = g.lane_of(li) + k * L;
+      if (e < PieceSlice::kSize) stream_put(slot, g.stride, e, plan[li].src[k] + (size_t)t * plan[li].step[k]);
+    }
+  stream_commit();
+}
+
+// Step t's inputs as riccati_q_form (riccati.cuh) reads them: C from the
+// step's inputs, the delta cost cd = c + C tau_hat in place of c, the
+// Jacobian F, and no f: the serial sweep's Q form about the trajectory.
+template <class In>
+struct StepModel {
+  const In& in;
   const float (&Ft)[N][NM];
   const float (&cd)[NM];
-  DMPC_HD float C(int i, int j) const { return a.C[at(t, i * NM + j, NM * NM, a.B, b)]; }
+  DMPC_HD float C(int i, int j) const { return in.C(i, j); }
   DMPC_HD float c(int i) const { return cd[i]; }
   DMPC_HD float F(int i, int j) const { return Ft[i][j]; }
   DMPC_HD bool has_f() const { return false; }
   DMPC_HD float f(int) const { return 0.0f; }
 };
 
-// One step t of the sweep (ric_body) in variant VARIANT: writes K, k at t
-// and updates the value carry (V, v) in place.
-template <int VARIANT>
-DMPC_HD void sweep_step(const PieceArgs& a, const PendulumEnv& env, int t, int b, float (&V)[N][N], float (&v)[N]) {
+// One step t of the sweep (ric_body) in variant VARIANT from its inputs
+// `in`: writes K, k at t where `mine` and updates the value carry (V, v) in
+// place.
+template <int VARIANT, class In>
+DMPC_HD void sweep_step(const PieceArgs& a, const PendulumEnv& env, const In& in, int t, int b, bool mine,
+                        float (&V)[N][N], float (&v)[N]) {
   const int B = a.B;
   float tau[NM];
-  for (int i = 0; i < N; ++i) tau[i] = a.x_hat[at(t, i, N, B, b)];
-  for (int i = 0; i < M; ++i) tau[N + i] = a.u_hat[at(t, i, M, B, b)];
+  for (int i = 0; i < N; ++i) tau[i] = in.xh(i);
+  for (int i = 0; i < M; ++i) tau[N + i] = in.uh(i);
   float Ft[N][NM];
   if constexpr (VARIANT == kPieceNoLin) {
     for (int k = 0; k < N; ++k)
@@ -107,17 +224,17 @@ DMPC_HD void sweep_step(const PieceArgs& a, const PendulumEnv& env, int t, int b
   float cd[NM];
   for (int i = 0; i < NM; ++i) {
     float s = 0.0f;
-    for (int j = 0; j < NM; ++j) s += a.C[at(t, i * NM + j, NM * NM, B, b)] * tau[j];
-    cd[i] = a.c[at(t, i, NM, B, b)] + s;
+    for (int j = 0; j < NM; ++j) s += in.C(i, j) * tau[j];
+    cd[i] = in.c(i) + s;
   }
   float Q[NM][NM], q[NM];
   if constexpr (VARIANT == kPieceNoQform) {
     for (int i = 0; i < NM; ++i) {
-      for (int j = 0; j < NM; ++j) Q[i][j] = a.C[at(t, i * NM + j, NM * NM, B, b)] + (i == j ? V[0][0] * 1e-6f : 0.0f);
+      for (int j = 0; j < NM; ++j) Q[i][j] = in.C(i, j) + (i == j ? V[0][0] * 1e-6f : 0.0f);
       q[i] = cd[i] + Ft[0][i] * 1e-6f;
     }
   } else {
-    riccati_q_form<N, M>(StepModel{a, t, b, Ft, cd}, V, v, Q, q);
+    riccati_q_form<N, M>(StepModel<In>{in, Ft, cd}, V, v, Q, q);
   }
   float Quu[M][M], qu[M], cols[N][M];
   riccati_control_blocks<N, M>(Q, q, Quu, qu, cols);
@@ -129,17 +246,19 @@ DMPC_HD void sweep_step(const PieceArgs& a, const PendulumEnv& env, int t, int b
   } else {
     float lo_d[M], hi_d[M], frozen[M], Kc[N][M];
     for (int i = 0; i < M; ++i) {
-      lo_d[i] = a.lo[at(t, i, M, B, b)] - tau[N + i];
-      hi_d[i] = a.hi[at(t, i, M, B, b)] - tau[N + i];
+      lo_d[i] = in.lo(i) - tau[N + i];
+      hi_d[i] = in.hi(i) - tau[N + i];
     }
     pnqp_entries<M>(Quu, qu, lo_d, hi_d, 8, a.reg, kt, frozen);
     masked_chol_solve<M, N>(Quu, cols, frozen, a.reg, Kc);
     for (int i = 0; i < M; ++i)
       for (int j = 0; j < N; ++j) K[i][j] = -Kc[j][i];
   }
-  for (int i = 0; i < M; ++i) {
-    for (int j = 0; j < N; ++j) a.K[at(t, i * N + j, M * N, B, b)] = K[i][j];
-    a.k[at(t, i, M, B, b)] = kt[i];
+  if (mine) {
+    for (int i = 0; i < M; ++i) {
+      for (int j = 0; j < N; ++j) a.K[at(t, i * N + j, M * N, B, b)] = K[i][j];
+      a.k[at(t, i, M, B, b)] = kt[i];
+    }
   }
   if constexpr (VARIANT == kPieceNoVup) {
     for (int i = 0; i < N; ++i) {
@@ -153,12 +272,29 @@ DMPC_HD void sweep_step(const PieceArgs& a, const PendulumEnv& env, int t, int b
 
 }  // namespace pieces_detail
 
-// The sweep kernel's scenario b: reps sweeps over t = T-1..0, each seeded by
-// the last one's V[0][0] (times 1e-30), then that seed folded into k[0]
-// (times 1e-30) so that the chain's end is an output.
-template <int VARIANT>
-DMPC_HD void piece_sweep_scenario(const PieceArgs& a, const PendulumEnv& env, int b) {
+// Floats of shared memory a group's staging ring takes.
+DMPC_HD constexpr int piece_group_slot_floats() { return kLaneStages * pieces_detail::PieceSlice::kSize; }
+
+// The sweep kernel's scenario b by the group of lanes g (HostLanes or
+// CardLanes): reps sweeps over t = T-1..0, each seeded by the last one's
+// V[0][0] (times 1e-30), then that seed folded into k[0] (times 1e-30) so
+// that the chain's end is an output. Staged: each step's inputs read from
+// the group's ring (g's slots), filled kLaneStages - 1 steps ahead.
+template <int VARIANT, bool Staged, class G>
+DMPC_HD void piece_sweep_scenario(const PieceArgs& a, const PendulumEnv& env, int b, const G& g) {
   using namespace pieces_detail;
+  constexpr int kSize = PieceSlice::kSize, kStages = kLaneStages;
+  constexpr int L = G::kLanes;
+  const int T = a.T;
+  PiecePlan<L> plan[G::kLocal];
+  if constexpr (Staged && L > 1)
+    for (int li = 0; li < G::kLocal; ++li) plan[li].init(a, g.lane_of(li), b);
+  auto stage = [&](int t, float* slot) {
+    if constexpr (L == 1)
+      piece_stage(a, g.stride, t, b, slot);
+    else
+      piece_stage_planned(g, plan, t, slot);
+  };
   float seed = 0.0f;
   for (int r = 0; r < a.reps; ++r) {
     const float init = seed * 1e-30f;
@@ -167,11 +303,34 @@ DMPC_HD void piece_sweep_scenario(const PieceArgs& a, const PendulumEnv& env, in
       v[i] = init;
       for (int j = 0; j < N; ++j) V[i][j] = init;
     }
-    for (int s = 0; s < a.T; ++s) sweep_step<VARIANT>(a, env, a.T - 1 - s, b, V, v);
+    if constexpr (!Staged) {
+      for (int s = 0; s < T; ++s) {
+        const int t = T - 1 - s;
+        sweep_step<VARIANT>(a, env, PieceGlobal{a, t, b}, t, b, g.owns(t), V, v);
+      }
+    } else {
+      g.sync();  // every lane is done with the last sweep's slots
+      for (int s = 0; s < kStages - 1; ++s) {
+        if (s < T) stage(T - 1 - s, stage_slot(g, s, kSize, kStages));
+        else stream_commit();
+      }
+      for (int s = 0; s < T; ++s) {
+        stream_wait<kStages - 2>();  // this lane's copies of step s
+        g.sync();                    // and every other lane's; every lane is done with step s - 1's slot
+        const int ahead = s + kStages - 1;
+        if (ahead < T) stage(T - 1 - ahead, stage_slot(g, ahead, kSize, kStages));
+        else stream_commit();
+        const int t = T - 1 - s;
+        sweep_step<VARIANT>(a, env, PieceSlot{SlotReader{stage_slot(g, s, kSize, kStages), g.stride}}, t, b,
+                            g.owns(t), V, v);
+      }
+    }
     seed = V[0][0];
   }
-  float& k0 = a.k[at(0, 0, M, a.B, b)];
-  k0 = k0 + seed * 1e-30f;
+  if (g.owns(0)) {  // the lane that stored step 0
+    float& k0 = a.k[at(0, 0, M, a.B, b)];
+    k0 = k0 + seed * 1e-30f;
+  }
 }
 
 // The rollout kernel's scenario b: reps closed-loop rollouts of T steps,

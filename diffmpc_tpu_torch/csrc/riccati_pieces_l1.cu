@@ -1,0 +1,8 @@
+// The piece sweep's kernels at 1 lane(s) per scenario, every variant, staged
+// and reading device memory (riccati_pieces_launch.cuh). Built by
+// diffmpc_tpu_torch/csrc/build.py beside the other sources; riccati_pieces.cu
+// launches them.
+
+#include "riccati_pieces_launch.cuh"
+
+DMPC_PIECES_INSTANTIATE(1)

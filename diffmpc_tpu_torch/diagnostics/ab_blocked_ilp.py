@@ -4,35 +4,55 @@ Counterpart of the JAX package's ``scripts/ab_blocked_ilp.py``: the
 unconstrained (free-mode) sweep, the regime where composing adjacent steps'
 value maps is exact, timed as the resident serial kernel
 (``csrc/riccati.cu``) against the depth-blocked kernel
-(``csrc/riccati_blocked.cu``) at ``D = 2`` and ``4``, whose serial chain is
-``T / D`` applies instead of ``T`` steps. Each shape's inputs come from
-:func:`make_problem`, the script's recipe with numpy's generator, so both
-packages see the same numbers.
+(``csrc/riccati_blocked.cu``: one thread per (block, scenario)) at ``D = 2``
+and ``4``, whose chain across blocks is ``T / D`` applies instead of ``T``
+steps. Each shape's inputs come from :func:`make_problem`, the script's
+recipe with numpy's generator, so both packages see the same numbers.
+
+With ``--parent DIR``, the checkout at ``DIR`` (another commit of this
+repository, unpacked by ``git archive``) is imported beside this one under a
+name of its own (:func:`~.ab_kkt_lanes.load_tree`): its blocked kernel, built
+by its own build at first use and staged by its own ``run_staged_blocked``
+(with whatever scratch it allocates), timed in the same rounds
+(``parent_D<D>``).
 
 Timing: CUDA events around the kernels alone on staged inputs
 (:func:`~diffmpc_tpu_torch.diagnostics.card.interleaved_ms`), the variants
 interleaved in each of ``N_ROUNDS`` rounds, each variant's minimum kept.
-Each record also gives the blocked outputs' distance from the serial
-kernel's, each variant's bounds (the bytes the function must move, its
-operations, and its chain: the dependent operations of one scenario counted
-from the source, at ``DEP_OP_CYCLES`` each at the card's maximum clock) and,
-for the first shape, the plain version's time.
+Each record also gives every blocked output's distance from the serial
+kernel's and from its plain version's, each variant's bounds (the bytes the function must
+move, its operations, and its chain: the dependent operations of one
+scenario counted from the source, at ``DEP_OP_CYCLES`` each at the card's
+maximum clock) and, for the first shape, the plain version's time.
+
+With ``--profile``, it first builds ``csrc/riccati_blocked.cu`` again with
+``DMPC_BLOCKED_PROFILE`` (:func:`~diffmpc_tpu_torch.csrc.build.build_with`)
+and prints, for each shape and D, the cycles of each phase of thread 0 of a
+CTA (block 0 of its first scenario, the chain's last link: phases 1-2,
+phase 3 with its wait for the chain, phase 4), averaged over the CTAs, and
+phase 3's share of them: the blocked chain's share of the time.
 
 Run on a machine with a CUDA device:
 
-    python -m diffmpc_tpu_torch.diagnostics.ab_blocked_ilp
+    python -m diffmpc_tpu_torch.diagnostics.ab_blocked_ilp [--parent DIR] [--profile]
 
 It prints the card's name and power limit, then one JSON record per shape.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
+import os
 import subprocess
+import tempfile
+import time
 
 import numpy as np
 import torch
 
+from ..csrc import build
 from ..ops.cuda import riccati as ric
 from ..ops.cuda import riccati_blocked as rb
 from .card import bound, chain_ms, interleaved_ms, max_sm_clock_mhz, require_card
@@ -51,6 +71,19 @@ N_ROUNDS = 6
 # the JAX package's bound between the blocked and the serial sweep
 # (tests/test_pallas_riccati.py), relative to max(1, max|serial|)
 VS_SERIAL_TOL = 5e-4
+# the kernel against its plain version, relative to max(1, max|plain|)
+VS_PLAIN_TOL = 1e-4
+
+
+def _gap(got, want) -> dict:
+    """max|got - want| of K and k, each beside the scale max(1, max|want|)."""
+    return {name: dict(max_abs=float((getattr(got, name) - getattr(want, name)).abs().max()),
+                       scale=max(1.0, float(getattr(want, name).abs().max())))
+            for name in ("K", "k")}
+
+
+def _held(gaps: dict, tol: float) -> bool:
+    return all(e["max_abs"] <= tol * e["scale"] for d in gaps.values() for e in d.values())
 
 
 def make_problem(T: int, B: int, n: int, m: int, seed: int):
@@ -174,46 +207,119 @@ def _loops(T: int, B: int) -> int:
     return int(min(50, max(5, 2e7 // (T * B))))
 
 
-def run() -> list:
+def run(parent=None) -> list:
     """The A/B at each of :data:`SHAPES` ``(T, B, n, m, blocks)``: one record
     each. ``vs_serial_held`` says whether every blocked output is within
-    ``VS_SERIAL_TOL * max(1, max|serial|)`` of the serial kernel's."""
+    ``VS_SERIAL_TOL * max(1, max|serial|)`` of the serial kernel's, and
+    ``vs_plain_held`` within ``VS_PLAIN_TOL * max(1, max|plain|)`` of its
+    plain version's on the same inputs; the
+    first shape's record also has the plain version's time and
+    ``launch_host_us``, :func:`launch_host_us` at each D. ``parent``: the root of another checkout whose blocked kernel is
+    timed beside (``parent_D<D>``), or None."""
     device = require_card()
     clock = max_sm_clock_mhz()
+    tree_rb = None
+    if parent:
+        from .ab_kkt_lanes import load_tree
+
+        tree_rb = load_tree(parent, "ops.cuda.riccati_blocked")
     records = []
     for i, (T, B, n, m, blocks) in enumerate(SHAPES):
         C, c, F, f = (torch.tensor(a, device=device) for a in make_problem(T, B, n, m, seed=T + B))
         serial = ric.riccati_backward_cuda(C, c, F, f, n)
-        vs_serial = {}
+        vs_serial, vs_plain = {}, {}
         for D in blocks:
             got = rb.riccati_backward_blocked(C, c, F, f, n, block=D)
-            vs_serial[f"D{D}"] = {
-                name: dict(max_abs=float((getattr(got, name) - getattr(serial, name)).abs().max()),
-                           scale=max(1.0, float(getattr(serial, name).abs().max())))
-                for name in ("K", "k")
-            }
+            vs_serial[f"D{D}"] = _gap(got, serial)
+            vs_plain[f"D{D}"] = _gap(got, rb.riccati_backward_blocked_plain(C, c, F, f, n, block=D))
+            del got
         stagers = {"serial": (ric._cuda_launcher(device, n, m),
                               lambda launch: ric.run_staged_riccati(launch, C, c, F, f, n))}
+        launcher = rb._cuda_launcher(device, n, m)
         for D in blocks:
-            stagers[f"blocked_D{D}"] = (rb._cuda_launcher(device, n, m),
-                                        lambda launch, D=D: rb.run_staged_blocked(launch, C, c, F, f, n, block=D))
+            stagers[f"blocked_D{D}"] = (launcher, lambda launch, D=D: rb.run_staged_blocked(
+                launch, C, c, F, f, n, block=D))
+            if tree_rb is not None:
+                stagers[f"parent_D{D}"] = (tree_rb._cuda_launcher(device, n, m),
+                                           lambda launch, D=D: tree_rb.run_staged_blocked(launch, C, c, F, f, n, block=D))
         ms = interleaved_ms(stagers, N_ROUNDS, _loops(T, B))
         rec = dict(
             T=T, B=B, n=n, m=m, rounds=N_ROUNDS, loops=_loops(T, B), max_sm_clock_mhz=clock, ms=ms,
             serial_over_blocked={f"D{D}": ms["serial"] / ms[f"blocked_D{D}"] for D in blocks},
-            vs_serial=vs_serial, vs_serial_tol=VS_SERIAL_TOL,
-            vs_serial_held=all(e["max_abs"] <= VS_SERIAL_TOL * e["scale"] for d in vs_serial.values() for e in d.values()),
+            vs_serial=vs_serial, vs_serial_tol=VS_SERIAL_TOL, vs_serial_held=_held(vs_serial, VS_SERIAL_TOL),
+            vs_plain=vs_plain, vs_plain_tol=VS_PLAIN_TOL, vs_plain_held=_held(vs_plain, VS_PLAIN_TOL),
             bounds=dict(serial=serial_bound(T, B, n, m, clock),
                         **{f"blocked_D{D}": blocked_bound(T, B, n, m, D, clock) for D in blocks}),
-            scratch_mb={f"D{D}": rb.scratch_rows(T, n, D) * B * 4 / 2**20 for D in blocks},
         )
+        if tree_rb is not None:
+            rec["parent_over_blocked"] = {f"D{D}": ms[f"parent_D{D}"] / ms[f"blocked_D{D}"] for D in blocks}
         if i == 0:
+            rec["launch_host_us"] = {f"D{D}": launch_host_us(launcher, C, c, F, f, n, D) for D in blocks}
             rec["plain_ms"] = {f"blocked_D{D}": _time_once(lambda D=D: rb.riccati_backward_blocked_plain(
                 C, c, F, f, n, block=D)) for D in blocks}
         records.append(rec)
         del C, c, F, f, serial
         torch.cuda.empty_cache()
     return records
+
+
+PROFILE_PHASES = ("phases 1-2", "phase 3", "phase 4")
+
+
+def profile(tmp: str) -> list:
+    """Cycles of each phase per CTA (thread 0's) at each shape and D, from a
+    build of ``csrc/riccati_blocked.cu`` with ``DMPC_BLOCKED_PROFILE`` in
+    ``tmp``."""
+    device = require_card()
+    lib = build.build_with([os.path.join(build.CSRC, "riccati_blocked.cu")], tmp, ("DMPC_BLOCKED_PROFILE=1",),
+                           "blocked_profile")
+    read = lib.diffmpc_riccati_blocked_profile
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    cycles = (ctypes.c_ulonglong * 4)()
+    out = []
+    for T, B, n, m, blocks in SHAPES:
+        C, c, F, f = (torch.tensor(a, device=device) for a in make_problem(T, B, n, m, seed=T + B))
+        fn = getattr(lib, f"diffmpc_riccati_blocked_n{n}m{m}")
+        fn.argtypes, fn.restype = [ctypes.POINTER(rb._BlockedArgs), ctypes.c_void_p], ctypes.c_int
+        stream = torch.cuda.current_stream(device).cuda_stream
+
+        def launch(args, n, m):
+            if fn(args, stream) != 0:
+                raise RuntimeError("the profile build's blocked kernel failed to launch")
+
+        for D in blocks:
+            torch.cuda.synchronize()
+            if read(cycles) != 0:  # cleared
+                raise RuntimeError("reading the profile build's cycles failed")
+            rb.run_staged_blocked(launch, C, c, F, f, n, block=D)
+            torch.cuda.synchronize()
+            if read(cycles) != 0:
+                raise RuntimeError("reading the profile build's cycles failed")
+            ctas = max(1, cycles[3])
+            per = {p: cycles[i] / ctas for i, p in enumerate(PROFILE_PHASES)}
+            out.append(dict(T=T, B=B, n=n, m=m, block=D, ctas=cycles[3], cycles_per_cta=per,
+                            phase_3_share=per["phase 3"] / max(1.0, sum(per.values()))))
+        del C, c, F, f
+    return out
+
+
+def launch_host_us(launch, C, c, F, f, n: int, D: int, calls: int = 200) -> float:
+    """The host's microseconds a call of the kernel's launcher takes on
+    staged inputs after its first (the wrapper's check, the ctypes call and
+    the C launcher, its geometry cached; the kernels queued, not waited
+    for)."""
+    took = []
+
+    def timed(args, n, m):
+        launch(args, n, m)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            launch(args, n, m)
+        took.append((time.perf_counter() - t0) / calls * 1e6)
+
+    rb.run_staged_blocked(timed, C, c, F, f, n, block=D)
+    torch.cuda.synchronize()
+    return took[0]
 
 
 def _time_once(fn) -> float:
@@ -229,10 +335,18 @@ def _time_once(fn) -> float:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", help="the root of another checkout whose blocked kernel runs beside")
+    parser.add_argument("--profile", action="store_true", help="first count each phase's cycles per CTA")
+    opts = parser.parse_args()
     require_card()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
-    for rec in run():
+    if opts.profile:
+        with tempfile.TemporaryDirectory() as tmp:
+            for rec in profile(tmp):
+                print(json.dumps(dict(profile=True, **rec)), flush=True)
+    for rec in run(parent=opts.parent):
         print(json.dumps(rec), flush=True)
 
 

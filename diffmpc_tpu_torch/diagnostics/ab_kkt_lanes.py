@@ -171,11 +171,11 @@ def record(case: str, device) -> list:
     return calls
 
 
-def load_tree(root: str):
+def load_tree(root: str, module: str = "ops.cuda.kkt"):
     """Another checkout's port, imported beside this one under a name of its
-    own: its ``ops.cuda.kkt`` module, with its own wrapper, ``_KktArgs`` and
-    build (which compiles its kernels at first use into that checkout's
-    ``_build``). The package and its ``ops`` and ``ops.cuda`` are entered
+    own: its ``module`` (by default ``ops.cuda.kkt``, with its own wrapper,
+    ``_KktArgs`` and build, which compiles its kernels at first use into that
+    checkout's ``_build``). The package and its ``ops`` and ``ops.cuda`` are entered
     without their ``__init__``, so that nothing of the solve path is
     imported there: the operators of ``ops/library.py`` are global to the
     process and registered once, by this checkout."""
@@ -183,10 +183,10 @@ def load_tree(root: str):
     name = "_tree_" + hashlib.sha256(pkg_dir.encode()).hexdigest()[:12] + "_diffmpc_tpu_torch"
     for sub in ("", ".ops", ".ops.cuda"):
         if name + sub not in sys.modules:
-            module = types.ModuleType(name + sub)
-            module.__path__ = [os.path.join(pkg_dir, *sub.split(".")[1:])]
-            sys.modules[name + sub] = module
-    return importlib.import_module(name + ".ops.cuda.kkt")
+            package = types.ModuleType(name + sub)
+            package.__path__ = [os.path.join(pkg_dir, *sub.split(".")[1:])]
+            sys.modules[name + sub] = package
+    return importlib.import_module(f"{name}.{module}")
 
 
 def tree_args(tree_kkt, staged: kkt.StagedKkt):

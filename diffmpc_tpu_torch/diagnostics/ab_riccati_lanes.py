@@ -82,15 +82,7 @@ def build_riccati(tmp: str, csrc: str, defines, label: str) -> ctypes.CDLL:
     checkout's or another's) built with the preprocessor ``defines``."""
     names = sorted(os.path.basename(p) for p in glob.glob(os.path.join(csrc, "riccati*.cu"))
                    if "blocked" not in p and "pieces" not in p)
-    objs = [os.path.join(tmp, label + name + ".o") for name in names]
-    nvcc = build.find_nvcc()
-    flags = (*build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", csrc)
-    own = os.path.samefile(csrc, build.CSRC)
-    build._run([[nvcc, *flags, *(build.source_flags(name) if own else ()), "-c", "-o", obj,
-                 os.path.join(csrc, name)] for obj, name in zip(objs, names)])
-    so = os.path.join(tmp, f"libriccati_{label}.so")
-    build._run([[nvcc, *build.NVCC_FLAGS[:2], "-shared", "-o", so, *objs]])
-    return ctypes.CDLL(so)
+    return build.build_with([os.path.join(csrc, name) for name in names], tmp, defines, f"riccati_{label}")
 
 
 @contextlib.contextmanager

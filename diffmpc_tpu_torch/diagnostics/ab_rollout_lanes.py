@@ -84,13 +84,7 @@ def build_other(tmp: str, defines) -> ctypes.CDLL:
     ``defines`` (``NAME=VALUE``; one nvcc per source, in parallel)."""
     names = ["rollout.cu", "rollout_stream.cu"] + [os.path.basename(p) for p in
                                                    glob.glob(os.path.join(build.CSRC, "rollout_nn_l*.cu"))]
-    objs = [os.path.join(tmp, name + ".o") for name in names]
-    nvcc = build.find_nvcc()
-    flags = (*build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", build.CSRC)
-    build._run([[nvcc, *flags, "-c", "-o", obj, os.path.join(build.CSRC, name)] for obj, name in zip(objs, names)])
-    so = os.path.join(tmp, "librollout_other.so")
-    build._run([[nvcc, *build.NVCC_FLAGS[:2], "-shared", "-o", so, *objs]])
-    return ctypes.CDLL(so)
+    return build.build_with([os.path.join(build.CSRC, name) for name in names], tmp, defines, "rollout_other")
 
 
 @contextlib.contextmanager

@@ -12,9 +12,21 @@ a dependent step. The cost of one sweep is the slope
 its variant's. On the TPU the rep count was compiled into two programs and
 the slopes came out negative; here it is a runtime argument of one binary.
 
-Timing: CUDA events around the kernels alone on staged inputs, the twelve
-(variant, reps) kernels interleaved in each of ``N_ROUNDS`` rounds, each
-one's minimum kept. The inputs are the script's (:func:`make_inputs`).
+The sweep runs as the fused kernel runs its sweep: a group of lanes per
+scenario at the fused kernel's rule for the batch
+(:func:`~diffmpc_tpu_torch.ops.cuda.riccati_pieces.piece_lanes`), in its two
+read modes: ``device`` (each step's inputs loaded from device memory at the
+step, as the fused kernel's sweep does) and ``staged`` (copied into the
+group's shared memory steps ahead). Each mode gets its slopes and shares;
+``load_share_of_full`` is the share of the device-memory ``full`` slope that
+staging takes off, the loads' latency on the chain while the repetitions
+find the inputs in the caches; ``load_share_of_one_sweep`` the same of one
+sweep's time (reps 1), whose loads go to device memory.
+
+Timing: CUDA events around the kernels alone on staged inputs, the
+twenty-two (mode, variant, reps) kernels interleaved in each of
+``N_ROUNDS`` rounds, each one's minimum kept. The inputs are the script's
+(:func:`make_inputs`).
 
 Run on a machine with a CUDA device:
 
@@ -34,7 +46,7 @@ import torch
 from ..models.envs.pendulum import PendulumDx
 from ..ops.cuda import riccati_pieces as rp
 from .ab_blocked_ilp import gains_ops, value_update_ops
-from .card import bound, chain_ms, interleaved_ms, max_sm_clock_mhz, require_card
+from .card import DEP_OP_CYCLES, bound, chain_ms, interleaved_ms, max_sm_clock_mhz, require_card
 
 T, REPS_HI = 20, 9
 BATCHES = (1024, 65536)
@@ -86,26 +98,50 @@ def make_inputs(B: int, device, steps: int = T, seed: int = 0):
     return torch.diag(q).expand(steps, B, 4, 4), p.expand(steps, B, 4), xh, uh, -box, box, dx
 
 
+MODES = ("device", "staged")
+
+
+def slopes(ms: dict, prefix: str = "") -> dict:
+    """The per-sweep slopes (us), each piece (the ``full`` slope less its
+    variant's, us) and its share of ``full``, from ``ms`` keyed
+    ``f"{prefix}{kind}@{reps}"``."""
+    slope_us = {kind: (ms[f"{prefix}{kind}@{REPS_HI}"] - ms[f"{prefix}{kind}@1"]) / (REPS_HI - 1) * 1e3
+                for kind in rp.VARIANTS}
+    piece_us = {kind: slope_us["full"] - slope_us[kind] for kind in rp.VARIANTS[1:]}
+    return dict(slope_us=slope_us, piece_us=piece_us,
+                piece_share_of_full={k: v / slope_us["full"] for k, v in piece_us.items()},
+                full_step_ns=slope_us["full"] / T * 1e3)
+
+
 def run() -> list:
-    """The slopes and pieces at each of :data:`BATCHES`: one record each."""
+    """The slopes and pieces at each of :data:`BATCHES`, the sweep at the
+    rule's lane count in both read modes: one record each."""
     device = require_card()
     clock = max_sm_clock_mhz()
     launcher = rp._cuda_launcher(device)
     records = []
     for B in BATCHES:
         ins = make_inputs(B, device)
+        lanes = rp.piece_lanes(B, ins[-1], device)
         stagers = {
-            f"{kind}@{reps}": (launcher, lambda launch, kind=kind, reps=reps: rp.run_staged_pieces(
-                launch, kind, *ins, reps=reps))
-            for kind in KINDS for reps in (1, REPS_HI)
+            f"{mode}:{kind}@{reps}": (launcher, lambda launch, kind=kind, reps=reps, staged=mode == "staged":
+                                      rp.run_staged_pieces(launch, kind, *ins, reps=reps, lanes=lanes, staged=staged))
+            for mode in MODES for kind in rp.VARIANTS for reps in (1, REPS_HI)
         }
+        for reps in (1, REPS_HI):
+            stagers[f"rollout@{reps}"] = (launcher, lambda launch, reps=reps: rp.run_staged_pieces(
+                launch, "rollout", *ins, reps=reps))
         ms = interleaved_ms(stagers, N_ROUNDS, LOOPS)
-        slope_us = {kind: (ms[f"{kind}@{REPS_HI}"] - ms[f"{kind}@1"]) / (REPS_HI - 1) * 1e3 for kind in KINDS}
-        piece_us = {kind: slope_us["full"] - slope_us[kind] for kind in rp.VARIANTS[1:]}
+        modes = {mode: slopes(ms, f"{mode}:") for mode in MODES}
+        rollout_slope_us = (ms[f"rollout@{REPS_HI}"] - ms["rollout@1"]) / (REPS_HI - 1) * 1e3
+        full = {mode: modes[mode]["slope_us"]["full"] for mode in MODES}
         records.append(dict(
-            B=B, T=T, reps=(1, REPS_HI), rounds=N_ROUNDS, loops=LOOPS, ms=ms, slope_us=slope_us, piece_us=piece_us,
-            piece_share_of_full={k: v / slope_us["full"] for k, v in piece_us.items()},
-            full_step_ns=slope_us["full"] / T * 1e3,
+            B=B, T=T, lanes=lanes, reps=(1, REPS_HI), rounds=N_ROUNDS, loops=LOOPS, ms=ms, modes=modes,
+            rollout_slope_us=rollout_slope_us,
+            load_share_of_full=(full["device"] - full["staged"]) / full["device"],
+            # one sweep alone reads its inputs cold; the reps' slope reads them from the caches
+            load_share_of_one_sweep=(ms["device:full@1"] - ms["staged:full@1"]) / ms["device:full@1"],
+            full_step_chain_ns=SWEEP_STEP_DEPTH * DEP_OP_CYCLES / clock * 1e3,
             bounds={f"{kind}@{reps}": piece_bound(kind, B, reps, clock) for kind in ("full", "rollout")
                     for reps in (1, REPS_HI)},
         ))

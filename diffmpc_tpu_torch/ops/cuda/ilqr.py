@@ -785,6 +785,7 @@ _KIND_FAMILY = {
     "kkt_backward": ("kkt", False, True),
     "kkt_backward_stream": ("kkt", False, True),
     "riccati_blocked": ("riccati_blocked", False, False),
+    "riccati_blocked_max_blocks": ("riccati_blocked", False, False),
 }
 
 

@@ -12,8 +12,9 @@ by another route.
 - :func:`riccati_backward_blocked` is the entry point: CUDA tensors launch
   the kernel (or raise), CPU tensors run the plain version.
 - :func:`riccati_backward_blocked_cuda` launches the kernel of
-  ``csrc/riccati_blocked.cu`` (one thread per scenario, the element levels
-  and boundary values in device scratch) and counts its launches.
+  ``csrc/riccati_blocked.cu`` (one thread per (block, scenario), the
+  elements and boundary values on chip, no device scratch) and counts its
+  launches.
 - :func:`riccati_backward_blocked_plain` is the same algorithm in plain
   PyTorch, vectorized over the batch: each matrix entry is a ``(B,)`` tensor
   and Python loops run over the phases, steps and entries in the kernel's
@@ -28,6 +29,7 @@ matrix form.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -230,25 +232,19 @@ class _BlockedArgs(ctypes.Structure):
     """ctypes mirror of ``struct RiccatiBlockedArgs`` in
     ``csrc/riccati_blocked.cuh``."""
 
-    _fields_ = [("ric", _RiccatiArgs), ("scratch", ctypes.c_void_p), ("block", ctypes.c_int)]
-
-
-def scratch_rows(T: int, n: int, block: int) -> int:
-    """Rows of the kernel's batch-minor scratch per scenario: the element
-    levels (``T + T/2 [+ T/4]`` elements of ``3n^2 + 2n`` floats) and the
-    ``T / block`` boundary values (``n^2 + n``)."""
-    levels = sum(T >> lvl for lvl in range(block.bit_length()))
-    return levels * (3 * n * n + 2 * n) + (T // block) * (n * n + n)
+    _fields_ = [("ric", _RiccatiArgs), ("block", ctypes.c_int)]
 
 
 def run_staged_blocked(launch, C, c, F, f, n_state, *, block=2, reg=1e-9) -> RiccatiResult:
-    """Stage the inputs batch-minor, allocate the outputs and the scratch,
-    call ``launch(args, n, m)`` with a pointer to the ``RiccatiBlockedArgs``
+    """Stage the inputs batch-minor, allocate the outputs, call
+    ``launch(args, n, m)`` with a pointer to the ``RiccatiBlockedArgs``
     struct, and return the outputs in the public layout (``K, k`` float32).
 
-    ``launch`` runs ``riccati_blocked_scenario<n, m, block>`` for every
-    scenario: the CUDA launcher for CUDA tensors, or a host build of the same
-    header for CPU tensors (the tests do that). Float32 inputs only."""
+    ``launch`` runs the blocked sweep over every (block, scenario) thread: the
+    CUDA launcher for CUDA tensors, or a host build of the same header for CPU
+    tensors (the tests do that). Float32 inputs only. Nothing but the inputs
+    and outputs is allocated: the kernel keeps its elements and boundary
+    values on chip."""
     n = n_state
     T, B, m = _check_shapes(C, c, F, f, n)
     _check_block(T, block)
@@ -265,13 +261,12 @@ def run_staged_blocked(launch, C, c, F, f, n_state, *, block=2, reg=1e-9) -> Ric
     K = torch.empty((T, m, n, B), **f32)
     k = torch.empty((T, m, B), **f32)
     free = torch.empty((T, m, B), **f32)
-    scratch = torch.empty((scratch_rows(T, n, block), B), **f32)
     ptr = {name: a.data_ptr() for name, a in ins.items() if a is not None}
     ric = _RiccatiArgs(**ptr, K=K.data_ptr(), k=k.data_ptr(), free=free.data_ptr(), T=T, B=B, pnqp_iter=0, reg=reg)
-    launch(ctypes.byref(_BlockedArgs(ric=ric, scratch=scratch.data_ptr(), block=block)), n, m)
-    # The staged inputs and the scratch are freed when this returns, while
-    # the kernel may still run: PyTorch's caching allocator reuses a block
-    # only in stream order, and the kernel runs on the current stream.
+    launch(ctypes.byref(_BlockedArgs(ric=ric, block=block)), n, m)
+    # The staged inputs are freed when this returns, while the kernel may
+    # still run: PyTorch's caching allocator reuses a block only in stream
+    # order, and the kernel runs on the current stream.
     return RiccatiResult(
         K.permute(0, 3, 1, 2),
         k.permute(0, 2, 1),
@@ -280,16 +275,39 @@ def run_staged_blocked(launch, C, c, F, f, n_state, *, block=2, reg=1e-9) -> Ric
     )
 
 
+@functools.lru_cache(maxsize=None)
+def max_horizon(device: torch.device, n: int, m: int, block: int) -> int:
+    """The longest horizon the kernel takes at ``(n, m)`` and ``block`` on
+    ``device``: one CTA holds a scenario's ``T / block`` threads, so ``T /
+    block`` is at most the kernel's threads a CTA at its registers, and
+    their shared memory fits an SM's (``blocked_max_blocks``,
+    ``csrc/riccati_blocked.cuh``)."""
+    fn = kernel_symbol("riccati_blocked_max_blocks", n, m, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    P = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(block, ctypes.byref(P))
+    if err != 0:
+        raise RuntimeError(f"riccati_blocked max_blocks query failed: cudaError {err}")
+    return block * P.value
+
+
 def _cuda_launcher(device: torch.device, n: int, m: int):
     """The kernel's launcher for ``(n, m)`` on the current stream; each launch
-    adds one to :func:`riccati_backward_blocked_cuda`'s count."""
+    adds one to :func:`riccati_backward_blocked_cuda`'s count. A horizon past
+    :func:`max_horizon` raises ``ValueError`` before the launch."""
     fn = kernel_symbol("riccati_blocked", n, m, [ctypes.POINTER(_BlockedArgs), ctypes.c_void_p])
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch(args, n, m):
+        a = args._obj
+        longest = max_horizon(device, n, m, a.block)
+        if a.ric.T > longest:
+            raise ValueError(f"T={a.ric.T} is past the blocked kernel's longest horizon at (n, m)=({n}, {m}), "
+                             f"block={a.block}: T <= {longest} (one CTA holds a scenario's T / block threads)")
         err = fn(args, stream)
         if err != 0:
-            raise RuntimeError(f"riccati_blocked kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"riccati_blocked kernel launch failed: cudaError {err} (T={a.ric.T}, B={a.ric.B}, "
+                               f"block={a.block})")
         riccati_backward_blocked_cuda.launches += 1
 
     return launch
@@ -307,8 +325,9 @@ def riccati_backward_blocked_cuda(
 ) -> RiccatiResult:
     """The depth-blocked sweep on the card: the contract of the JAX package's
     ``riccati_backward_blocked_pallas``. ``block`` is 2 or 4 and must divide
-    ``T``. CUDA tensors of any float dtype: the kernel computes in float32
-    and ``K, k`` come back in ``C.dtype``. Adds one to
+    ``T``, and ``T`` must not pass :func:`max_horizon` (a ``ValueError``
+    names it). CUDA tensors of any float dtype: the kernel computes in
+    float32 and ``K, k`` come back in ``C.dtype``. Adds one to
     ``riccati_backward_blocked_cuda.launches``; a shape outside the prebuilt
     table builds its variant at first use."""
     _, _, m = _check_shapes(C, c, F, f, n_state)

@@ -10,9 +10,11 @@ piece's cost the full sweep's slope less its variant's
 (:mod:`diffmpc_tpu_torch.diagnostics.profile_riccati_pieces` measures them).
 
 - :func:`sweep_piece_cuda` and :func:`rollout_piece_cuda` launch the kernels
-  of ``csrc/riccati_pieces.cu`` (one thread per scenario; ``reps`` is a
-  runtime argument, so every rep count runs one binary) and count their
-  launches.
+  of ``csrc/riccati_pieces.cu`` (the sweep by a group of ``lanes`` threads
+  per scenario, as the fused kernel runs its sweep, each step's inputs read
+  from device memory or ``staged`` through the group's shared memory; the
+  rollout one thread per scenario; ``reps`` is a runtime argument, so every
+  rep count runs one binary) and count their launches.
 - :func:`sweep_piece_plain` and :func:`rollout_piece_plain` are the same
   arithmetic in plain PyTorch, each matrix entry a ``(B,)`` tensor, in the
   kernels' order. They serve CPU tensors and the checks of the kernels.
@@ -32,13 +34,16 @@ from typing import NamedTuple
 import torch
 
 from ...models.envs.pendulum import PendulumDx
-from .ilqr import _linearize, _PendulumEnv, bm, resolve_use_cuda
+from .ilqr import ILQR_LANES, _linearize, _PendulumEnv, _sm_count, bm, ilqr_lanes, kernel_env, resolve_use_cuda
 from .riccati import _control_blocks, _q_form
 from .riccati_entries import _clip, _masked_chol_solve, _pnqp_entries, _value_update
 
 # the sweep's variants, in the order of enum PieceVariant (csrc/riccati_pieces.cuh)
 VARIANTS = ("full", "no_lin", "no_Qform", "no_pnqp", "no_Vup")
 N, M = 3, 1  # the pendulum
+# the sweep's lane counts, one kernel file each (csrc/riccati_pieces_l<L>.cu):
+# the fused kernel's, DMPC_LANES in csrc/lanes.cuh
+PIECE_LANES = ILQR_LANES
 
 
 class PieceSweepResult(NamedTuple):
@@ -190,15 +195,28 @@ class _PieceArgs(ctypes.Structure):
 
     _fields_ = [
         (name, ctypes.c_void_p) for name in ("params", "C", "c", "x_hat", "u_hat", "lo", "hi", "K", "k", "obj")
-    ] + [("T", ctypes.c_int), ("B", ctypes.c_int), ("reps", ctypes.c_int), ("reg", ctypes.c_float)]
+    ] + [("T", ctypes.c_int), ("B", ctypes.c_int), ("reps", ctypes.c_int), ("reg", ctypes.c_float),
+         ("lanes", ctypes.c_int), ("staged", ctypes.c_int)]
 
 
-def run_staged_pieces(launch, variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, *, reps=1, reg=1e-7):
+def piece_lanes(B: int, dyn, device) -> int:
+    """The sweep's threads per scenario at a batch of ``B`` of the pendulum
+    ``dyn`` on the card ``device``: the fused kernel's rule
+    (:func:`~.ilqr.ilqr_lanes`), so that the pieces describe the main path's
+    sweep."""
+    return ilqr_lanes(B, kernel_env(dyn), _sm_count(torch.device(device).index or 0))
+
+
+def run_staged_pieces(launch, variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, *, reps=1, reg=1e-7, lanes=1,
+                      staged=False):
     """Stage the inputs batch-minor, allocate the outputs, call
     ``launch(args, env, variant)`` with pointers to the ``PieceArgs`` and
     ``PendulumEnv`` structs (``variant`` one of :data:`VARIANTS` or
     ``"rollout"``), and return the outputs in the public layout: a
-    :class:`PieceSweepResult`, or the rollout's objective ``(B,)``.
+    :class:`PieceSweepResult`, or the rollout's objective ``(B,)``. The
+    sweep runs ``lanes`` threads per scenario (one of :data:`PIECE_LANES`),
+    each step's inputs ``staged`` through the group's shared memory or read
+    from device memory; the rollout takes neither.
 
     ``launch`` runs the kernel of that variant for every scenario: the CUDA
     launcher for CUDA tensors, or a host build of the same header for CPU
@@ -207,6 +225,8 @@ def run_staged_pieces(launch, variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn
         raise ValueError(f"variant must be one of {VARIANTS + ('rollout',)}; got {variant!r}")
     if reps < 1:
         raise ValueError(f"reps must be >= 1; got {reps}")
+    if lanes not in PIECE_LANES:
+        raise ValueError(f"lanes must be one of {PIECE_LANES}; got {lanes}")
     T, B, _ = _entry_views(C, c, x_hat, u_hat, u_lower, u_upper)
     params = _params(dyn)
     device = C.device
@@ -225,7 +245,7 @@ def run_staged_pieces(launch, variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn
     obj = torch.empty((B,), **f32)
     args = _PieceArgs(
         **{name: a.data_ptr() for name, a in ins.items()}, K=K.data_ptr(), k=k.data_ptr(), obj=obj.data_ptr(),
-        T=T, B=B, reps=reps, reg=reg,
+        T=T, B=B, reps=reps, reg=reg, lanes=lanes, staged=int(bool(staged)),
     )
     env = _PendulumEnv(dyn.max_torque, dyn.max_speed, dyn.dt, int(dyn.clamp_ctrl))
     launch(ctypes.byref(args), ctypes.byref(env), variant)
@@ -239,7 +259,8 @@ def run_staged_pieces(launch, variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn
 
 def _cuda_launcher(device: torch.device):
     """The launcher of both kernels on the current stream: each launch adds
-    one to :func:`sweep_piece_cuda`'s or :func:`rollout_piece_cuda`'s count."""
+    one to :func:`sweep_piece_cuda`'s or :func:`rollout_piece_cuda`'s count
+    (the sweep's also sets ``sweep_piece_cuda.last_lanes``)."""
     from ...csrc import build
 
     lib = build.load()
@@ -256,8 +277,11 @@ def _cuda_launcher(device: torch.device):
         else:
             err, counted = sweep(args, env, VARIANTS.index(variant), stream), sweep_piece_cuda
         if err != 0:
-            raise RuntimeError(f"riccati_pieces {variant} kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"riccati_pieces {variant} kernel launch failed: cudaError {err} "
+                               f"(lanes {args._obj.lanes}; built: {PIECE_LANES})")
         counted.launches += 1
+        if variant != "rollout":
+            sweep_piece_cuda.last_lanes = args._obj.lanes
 
     return launch
 
@@ -274,14 +298,21 @@ def _on_card(variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, **knobs):
         )
 
 
-def sweep_piece_cuda(variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, *, reps=1, reg=1e-7) -> PieceSweepResult:
+def sweep_piece_cuda(variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, *, reps=1, reg=1e-7, lanes=None,
+                     staged=False) -> PieceSweepResult:
     """The sweep kernel on the card in ``variant`` (:data:`VARIANTS`),
     repeated ``reps`` times: the contract of :func:`sweep_piece_plain`. CUDA
-    tensors of any float dtype, computed in float32; adds one to
+    tensors of any float dtype, computed in float32, by ``lanes`` threads per
+    scenario (None: :func:`piece_lanes`, the fused kernel's rule), each
+    step's inputs ``staged`` through shared memory or read from device
+    memory; every choice gives the same bits. Adds one to
     ``sweep_piece_cuda.launches``."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}; got {variant!r}")
-    return _on_card(variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, reps=reps, reg=reg)
+    if lanes is None:
+        lanes = piece_lanes(C.shape[1], dyn, C.device) if C.device.type == "cuda" else 1
+    return _on_card(variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, reps=reps, reg=reg, lanes=lanes,
+                    staged=staged)
 
 
 def rollout_piece_cuda(C, c, x_hat, u_hat, u_lower, u_upper, dyn, *, reps=1) -> torch.Tensor:
@@ -292,5 +323,5 @@ def rollout_piece_cuda(C, c, x_hat, u_hat, u_lower, u_upper, dyn, *, reps=1) -> 
 
 
 sweep_piece_cuda.launches = 0  # kernel launches, counted where they happen
+sweep_piece_cuda.last_lanes = None  # the threads per scenario of the last sweep launched
 rollout_piece_cuda.launches = 0
-

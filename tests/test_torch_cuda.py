@@ -582,6 +582,85 @@ def test_blocked_kernel_matches_plain_and_serial(device, n, m, block):
         rb.riccati_backward_blocked(C[:18], c[:18], F[:18], f[:18], n, block=4)
 
 
+@pytest.mark.parametrize("T,block,B", [(128, 2, 40), (20, 4, 1000), (128, 4, 130)])
+def test_blocked_kernel_threads_match_plain_and_serial(device, T, block, B):
+    """The (block, scenario) threads at (4, 2): T / D = 64 (a scenario over
+    two warps, the carry through shared memory), 5 (not a power of two) and
+    32, ragged B: K, k within 1e-4 * max(1, max|plain|) of the plain version
+    and 5e-4 of the serial kernel."""
+    from diffmpc_tpu_torch.ops.cuda import riccati_blocked as rb
+
+    n, m = 4, 2
+    C, c, F, f = (torch.tensor(a, device=device) for a in _random_lqr(np.random.default_rng(1960 + T + block), T, B, n, m)[:4])
+    got = rb.riccati_backward_blocked_cuda(C, c, F, f, n, block=block)
+    torch.cuda.synchronize()
+    want = rb.riccati_backward_blocked_plain(C, c, F, f, n, block=block)
+    serial = riccati_backward_cuda(C, c, F, f, n)
+    for name in ("K", "k"):
+        g, w, s = getattr(got, name), getattr(want, name), getattr(serial, name)
+        torch.testing.assert_close(g, w, atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0)
+        torch.testing.assert_close(g, s, atol=5e-4 * max(1.0, float(s.abs().max())), rtol=0)
+
+
+def test_blocked_wrapper_builds_a_shape_outside_the_table_at_first_use(device):
+    """At n = 2, m = 1, outside the prebuilt table, the blocked kernel and
+    its longest-horizon query come from its variant, built at first use: K, k
+    within 1e-4 * max(1, max|plain|) of the plain version at D = 2 and 4."""
+    from diffmpc_tpu_torch.ops.cuda import riccati_blocked as rb
+
+    n, m = 2, 1
+    C, c, F, f = (torch.tensor(a, device=device) for a in _random_lqr(np.random.default_rng(1990), 8, 40, n, m)[:4])
+    for block in (2, 4):
+        assert rb.max_horizon(device, n, m, block) >= 64 * block
+        got = rb.riccati_backward_blocked_cuda(C, c, F, f, n, block=block)
+        want = rb.riccati_backward_blocked_plain(C, c, F, f, n, block=block)
+        for name in ("K", "k"):
+            g, w = getattr(got, name), getattr(want, name)
+            torch.testing.assert_close(g, w, atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0)
+
+
+@pytest.mark.parametrize("block", [2, 4])
+def test_blocked_kernel_longest_horizon(device, block):
+    """At (4, 2) the kernel runs at its longest horizon (``max_horizon``: one
+    CTA holds a scenario's T / D threads) and agrees with the serial kernel
+    within 5e-4 of its scale; one block more raises ValueError naming the
+    longest, and launches nothing."""
+    from diffmpc_tpu_torch.ops.cuda import riccati_blocked as rb
+
+    n, m = 4, 2
+    longest = rb.max_horizon(device, n, m, block)
+    assert longest % block == 0 and longest >= 64 * block
+    C, c, F, f = (torch.tensor(a, device=device) for a in _random_lqr(np.random.default_rng(1980 + block), longest + block,
+                                                                       3, n, m)[:4])
+    got = rb.riccati_backward_blocked_cuda(C[:longest], c[:longest], F[:longest], f[:longest], n, block=block)
+    serial = riccati_backward_cuda(C[:longest], c[:longest], F[:longest], f[:longest], n)
+    for name in ("K", "k"):
+        g, s = getattr(got, name), getattr(serial, name)
+        torch.testing.assert_close(g, s, atol=5e-4 * max(1.0, float(s.abs().max())), rtol=0)
+    before = rb.riccati_backward_blocked_cuda.launches
+    with pytest.raises(ValueError, match=f"T <= {longest}"):
+        rb.riccati_backward_blocked_cuda(C, c, F, f, n, block=block)
+    assert rb.riccati_backward_blocked_cuda.launches == before
+
+
+@pytest.mark.parametrize("kind", ["full", "no_lin", "no_Qform", "no_pnqp", "no_Vup"])
+def test_piece_sweep_lane_groups_bit_equal(device, kind):
+    """The piece sweep at every built lane count, staged and reading device
+    memory, reps 1 and 9: bit-equal to one lane reading device memory."""
+    from diffmpc_tpu_torch.diagnostics.profile_riccati_pieces import make_inputs
+    from diffmpc_tpu_torch.ops.cuda import riccati_pieces as rp
+
+    ins = make_inputs(130, device, steps=20)
+    for reps in (1, 9):
+        one = rp.sweep_piece_cuda(kind, *ins, reps=reps, lanes=1, staged=False)
+        for lanes in rp.PIECE_LANES:
+            for staged in (False, True):
+                got = rp.sweep_piece_cuda(kind, *ins, reps=reps, lanes=lanes, staged=staged)
+                torch.cuda.synchronize()
+                assert rp.sweep_piece_cuda.last_lanes == lanes
+                assert all(torch.equal(g, o) for g, o in zip(got, one)), (lanes, staged, reps)
+
+
 @pytest.mark.parametrize("kind", ["full", "no_lin", "no_Qform", "no_pnqp", "no_Vup", "rollout"])
 def test_piece_kernels_match_plain(device, kind):
     """Each piece kernel at reps 1 and 9 (one binary): the sweep's K, k within

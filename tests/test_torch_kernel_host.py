@@ -93,6 +93,7 @@ from diffmpc_tpu_torch.ops.cuda.riccati_blocked import (  # noqa: E402
     riccati_backward_blocked_plain,
     run_staged_blocked,
 )
+from diffmpc_tpu_torch.ops.cuda.riccati_pieces import PIECE_LANES  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.riccati_pieces import VARIANTS as PIECE_VARIANTS  # noqa: E402
 from diffmpc_tpu_torch.ops.cuda.riccati_pieces import (  # noqa: E402
     _PieceArgs,
@@ -226,30 +227,111 @@ extern "C" int diffmpc_rollout_stream_host(const RolloutArgs* a, int n, int m, c
   return rollout_shapes<0, 0, true>(a, n, m, env);
 }
 
-template <int N, int M>
-static int blocked_all(const RiccatiBlockedArgs* a) {
-  for (int b = 0; b < a->ric.B; ++b) {
-    if (a->block == 2)
-      riccati_blocked_scenario<N, M, 2>(*a, b);
-    else
-      riccati_blocked_scenario<N, M, 4>(*a, b);
+// the blocked sweep over (block, scenario) threads, CTA by CTA in the
+// card's geometry (blocked_geometry for `sms` SMs, `max_threads`, the
+// card's 227 KB of shared memory and at most `cap` scenarios a CTA), the
+// threads of a CTA one after another, phase by phase in the kernel's order:
+// phases 1-2 in every thread, phase 3's P links in order, the carry handed
+// from block p + 1's thread to block p's, then phase 4. Returns 2 where the
+// geometry is refused, 3 where it places a (block, scenario) on no thread or
+// on two, 4 where a carry the card shuffles would leave its warp or come
+// from another lane than `width` lanes up.
+template <int N, int M, int D>
+static int blocked_threads(RiccatiBlockedArgs* a, int sms, int max_threads, int cap) {
+  const RiccatiArgs& r = a->ric;
+  const int P = r.T / D, B = r.B;
+  BlockedGeometry geo{};
+  if (!blocked_geometry<N>(B, P, D, sms, max_threads, 113 * 1024, 227 * 1024, cap, geo)) return 2;
+  struct Carry {
+    float V[N][N], v[N];
+  };
+  const int nt = geo.threads;
+  std::vector<float> smem((size_t)nt * blocked_column_floats<N>(D));
+  std::vector<ValueElement<N>> top(nt);
+  std::vector<Carry> cur(nt), bnd(nt);
+  std::vector<int> sc(nt), bl(nt), seen((size_t)B * P, 0);
+  std::vector<char> ok(nt);
+  for (int cta = 0; (long)cta * geo.width < B; ++cta) {
+    for (int tid = 0; tid < nt; ++tid) {
+      bool valid = false;
+      geo.place(tid, sc[tid], bl[tid], valid);
+      const int b = cta * geo.width + sc[tid];
+      ok[tid] = valid && b < B;
+      if (!ok[tid]) continue;
+      if (geo.thread_of(sc[tid], bl[tid]) != tid) return 3;
+      seen[(size_t)b * P + bl[tid]] += 1;
+      blocked_compose<N, M, D>(r, b, bl[tid], ElementColumn{smem.data() + tid, nt}, top[tid]);
+      cur[tid] = Carry{};
+    }
+    for (int k = 0; k < P; ++k) {
+      const int active = P - 1 - k;
+      for (int tid = 0; tid < nt; ++tid)
+        if (ok[tid] && bl[tid] == active) {
+          bnd[tid] = cur[tid];
+          apply_element<N>(top[tid], cur[tid].V, cur[tid].v);
+        }
+      for (int tid = 0; tid < nt; ++tid)
+        if (ok[tid] && bl[tid] == active - 1) {
+          const int src = geo.thread_of(sc[tid], active);
+          if (geo.shuffles() && (src / 32 != tid / 32 || src - tid != geo.width)) return 4;
+          cur[tid] = cur[src];
+        }
+    }
+    for (int tid = 0; tid < nt; ++tid)
+      if (ok[tid])
+        blocked_gains<N, M, D>(r, cta * geo.width + sc[tid], bl[tid], ElementColumn{smem.data() + tid, nt},
+                               blocked_last_inputs<N, M, D>(r, cta * geo.width + sc[tid], bl[tid]), bnd[tid].V,
+                               bnd[tid].v);
   }
+  for (int c : seen)
+    if (c != 1) return 3;
   return 0;
 }
 
-extern "C" int diffmpc_riccati_blocked_host(const RiccatiBlockedArgs* a, int n, int m) {
-  if (a->block != 2 && a->block != 4) return 1;
-  if (n == 3 && m == 1) return blocked_all<3, 1>(a);
-  if (n == 3 && m == 2) return blocked_all<3, 2>(a);
-  if (n == 4 && m == 1) return blocked_all<4, 1>(a);
-  if (n == 4 && m == 2) return blocked_all<4, 2>(a);
+template <int N, int M>
+static int blocked_all(RiccatiBlockedArgs* a, int sms, int max_threads, int cap) {
+  if (a->block == 2) return blocked_threads<N, M, 2>(a, sms, max_threads, cap);
+  return blocked_threads<N, M, 4>(a, sms, max_threads, cap);
+}
+
+extern "C" int diffmpc_riccati_blocked_host(RiccatiBlockedArgs* a, int n, int m, int sms, int max_threads, int cap) {
+  if ((a->block != 2 && a->block != 4) || a->ric.T % a->block) return 1;
+  if (n == 3 && m == 1) return blocked_all<3, 1>(a, sms, max_threads, cap);
+  if (n == 3 && m == 2) return blocked_all<3, 2>(a, sms, max_threads, cap);
+  if (n == 4 && m == 1) return blocked_all<4, 1>(a, sms, max_threads, cap);
+  if (n == 4 && m == 2) return blocked_all<4, 2>(a, sms, max_threads, cap);
   return 1;
+}
+
+// the most blocks of a scenario one CTA holds (blocked_max_blocks) at
+// `max_threads` threads and `smem_max` bytes of shared memory
+extern "C" int diffmpc_riccati_blocked_max_blocks_host(int n, int m, int D, int max_threads, int smem_max) {
+  (void)m;
+  if (n == 3) return blocked_max_blocks<3>(D, max_threads, (size_t)smem_max);
+  if (n == 4) return blocked_max_blocks<4>(D, max_threads, (size_t)smem_max);
+  return -1;
+}
+
+// the piece sweep by groups of L lanes (HostLanes), staged through the
+// group's ring or reading the arrays, at every DMPC_LANES count
+template <int VARIANT, bool STAGED, int L>
+static int sweep_pieces_group(const PieceArgs* a, const PendulumEnv* env) {
+  std::vector<float> slots(piece_group_slot_floats());
+  const HostLanes<L> g{slots.data()};
+  for (int b = 0; b < a->B; ++b) piece_sweep_scenario<VARIANT, STAGED>(*a, *env, b, g);
+  return 0;
 }
 
 template <int VARIANT>
 static int sweep_pieces_all(const PieceArgs* a, const PendulumEnv* env) {
-  for (int b = 0; b < a->B; ++b) piece_sweep_scenario<VARIANT>(*a, *env, b);
-  return 0;
+  switch (a->lanes) {
+#define HOST_PIECE_LANE_CASE(_, L_) \
+  case L_:                          \
+    return a->staged ? sweep_pieces_group<VARIANT, true, L_>(a, env) : sweep_pieces_group<VARIANT, false, L_>(a, env);
+    DMPC_LANES(HOST_PIECE_LANE_CASE, _)
+#undef HOST_PIECE_LANE_CASE
+  }
+  return 1;
 }
 
 // variant: a PieceVariant, or -1 for the rollout
@@ -1390,35 +1472,115 @@ def test_host_build_kkt_reads_a_shared_C_and_F_in_place(host_kkt_launch, host_kk
 
 
 @pytest.fixture(scope="module")
-def host_blocked_launch(host_lib):
+def host_blocked_fn(host_lib):
     fn = host_lib.diffmpc_riccati_blocked_host
-    fn.argtypes = [ctypes.POINTER(_BlockedArgs), ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.POINTER(_BlockedArgs)] + [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _blocked_host_launch(fn, sms=132, max_threads=1024, cap=1 << 30):
+    """The host build's blocked sweep, its threads placed as the card's
+    launcher places them for ``sms`` SMs, ``max_threads`` and at most ``cap``
+    scenarios a CTA."""
 
     def launch(args, n, m):
-        assert fn(args, n, m) == 0, f"no host instantiation for n={n}, m={m}"
+        err = fn(args, n, m, sms, max_threads, cap)
+        assert err == 0, f"host blocked sweep at n={n}, m={m}: error {err}"
 
     return launch
+
+
+@pytest.fixture(scope="module")
+def host_blocked_launch(host_blocked_fn):
+    return _blocked_host_launch(host_blocked_fn)
+
+
+def _assert_blocked_close(got, want):
+    for name in ("K", "k"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5 * max(1.0, float(w.abs().max())), rtol=0, err_msg=name)
+    assert bool(got.free_mask.all()) and not bool(got.n_qp_iter.any())
 
 
 @pytest.mark.parametrize("with_f", [False, True], ids=["f_none", "with_f"])
 @pytest.mark.parametrize("block", [2, 4])
 @pytest.mark.parametrize("n,m", [(3, 1), (3, 2), (4, 1), (4, 2)])
 def test_host_build_riccati_blocked_matches_plain(host_blocked_launch, n, m, block, with_f):
-    """The blocked sweep's host build against its plain version within
-    ``1e-5 * max(1, max|plain|)`` (the same float32 arithmetic in the same
-    order; g++ and PyTorch round the same operations), ``free`` all true."""
+    """The blocked sweep's host build (the card's geometry) against its
+    plain version within ``1e-5 * max(1, max|plain|)`` (the same float32
+    arithmetic in the same order; g++ and PyTorch round the same operations),
+    ``free`` all true."""
     T, B = 8, 37
     rng = np.random.default_rng(990 + 10 * n + m + block)
     C, c, F, f, _ = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
     f = f if with_f else None
     got = run_staged_blocked(host_blocked_launch, C, c, F, f, n, block=block)
     want = riccati_backward_blocked_plain(C, c, F, f, n, block=block)
-    for name in ("K", "k"):
-        g, w = getattr(got, name), getattr(want, name)
-        assert g.shape == w.shape, name
-        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5 * max(1.0, float(w.abs().max())), rtol=0, err_msg=name)
-    assert bool(got.free_mask.all()) and not bool(got.n_qp_iter.any())
+    _assert_blocked_close(got, want)
+
+
+@pytest.mark.parametrize("T,block", [(128, 2), (20, 4), (20, 2), (8, 4)], ids=["P64", "P5", "P10", "P2"])
+@pytest.mark.parametrize("n,m", [(3, 1), (3, 2), (4, 1), (4, 2)])
+def test_host_build_riccati_blocked_threads_match_plain(host_blocked_fn, n, m, T, block):
+    """The (block, scenario) threads CTA by CTA as the card places them (a
+    card of 132 SMs and 1024 threads a CTA, of 2 SMs and 256, and of 2 SMs
+    with at most 3 scenarios a CTA: other CTA widths, the ragged last CTA of
+    B = 37), phase by phase in the kernel's order: every (block, scenario)
+    on one thread, every carry the card shuffles within its warp, and
+    ``K, k`` within ``1e-5 * max(1, max|plain|)`` of the plain version.
+    T / D = 64 spans two warps a scenario (the carry through shared memory);
+    5 and 10 are not powers of two."""
+    B = 37
+    rng = np.random.default_rng(1170 + T + 10 * n + m + block)
+    C, c, F, f, _ = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
+    want = riccati_backward_blocked_plain(C, c, F, f, n, block=block)
+    for sms, max_threads, cap in ((132, 1024, 1 << 30), (2, 256, 1 << 30), (2, 1024, 3)):
+        got = run_staged_blocked(_blocked_host_launch(host_blocked_fn, sms, max_threads, cap), C, c, F, f, n,
+                                 block=block)
+        _assert_blocked_close(got, want)
+
+
+def _max_blocks_py(n: int, D: int, max_threads: int, smem_max: int) -> int:
+    """blocked_max_blocks from its definition: the most blocks P whose
+    threads (P rounded up to whole warps) fit ``max_threads`` and whose
+    columns, with two carry slots where P passes one warp, fit
+    ``smem_max`` bytes."""
+    column = 4 * (1 if D == 2 else 4) * (3 * n * n + 2 * n)
+    carry = 4 * (n * (n + 1) // 2 + n)
+    fits = [P for P in range(1, max_threads + 1)
+            if -(-P // 32) * 32 <= max_threads and -(-P // 32) * 32 * column + (2 * carry if P > 32 else 0) <= smem_max]
+    return max(fits, default=0)
+
+
+@pytest.mark.parametrize("block", [2, 4])
+@pytest.mark.parametrize("n,m", [(3, 1), (4, 2)])
+def test_host_build_riccati_blocked_longest_horizon(host_lib, host_blocked_fn, n, m, block):
+    """One CTA holds a scenario's T / D threads: the longest horizon is D
+    times blocked_max_blocks, bound by the kernel's threads a CTA (256 at
+    (4, 2)'s 254 registers) or by the columns' shared memory (227 KB on the
+    card, or less), whichever binds first. At a CTA of 32 threads the sweep
+    runs at T = 32 D and agrees with the plain version; one block more is
+    refused (the card's launcher returns cudaErrorInvalidValue, and its
+    wrapper raises ValueError before it)."""
+    mb = host_lib.diffmpc_riccati_blocked_max_blocks_host
+    mb.argtypes, mb.restype = [ctypes.c_int] * 5, ctypes.c_int
+    for max_threads, smem in ((256, 227 * 1024), (1024, 227 * 1024), (1024, 48 * 1024), (32, 227 * 1024)):
+        assert mb(n, m, block, max_threads, smem) == _max_blocks_py(n, block, max_threads, smem)
+    assert mb(n, m, block, 256, 227 * 1024) == 256
+    assert mb(n, m, block, 32, 227 * 1024) == 32
+    B = 5
+    rng = np.random.default_rng(1230 + 10 * n + m + block)
+    C, c, F, f, _ = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, 33 * block, B, n, m))
+    T = 32 * block
+    got = run_staged_blocked(_blocked_host_launch(host_blocked_fn, sms=132, max_threads=32), C[:T], c[:T], F[:T],
+                             f[:T], n, block=block)
+    _assert_blocked_close(got, riccati_backward_blocked_plain(C[:T], c[:T], F[:T], f[:T], n, block=block))
+    refused = []
+    run_staged_blocked(lambda args, n, m: refused.append(host_blocked_fn(args, n, m, 132, 32, 1 << 30)), C, c, F, f, n,
+                       block=block)
+    assert refused == [2]
 
 
 @pytest.fixture(scope="module")
@@ -1450,10 +1612,11 @@ def _piece_inputs(T, B, seed):
 @pytest.mark.parametrize("reps", [1, 3])
 @pytest.mark.parametrize("variant", PIECE_VARIANTS + ("rollout",))
 def test_host_build_riccati_pieces_match_plain(host_pieces_launch, variant, reps):
-    """Each piece kernel's host build against its plain version: the sweep's
-    ``K, k`` within ``1e-4 * max(1, max|plain|)`` (the Jacobian by dual
-    numbers against the plain version's forward-mode autodiff, with their own
-    sin/cos), the rollout's objective within 1e-5 relative."""
+    """Each piece kernel's host build (the sweep at one lane reading the
+    arrays) against its plain version: the sweep's ``K, k`` within
+    ``1e-4 * max(1, max|plain|)`` (the Jacobian by dual numbers against the
+    plain version's forward-mode autodiff, with their own sin/cos), the
+    rollout's objective within 1e-5 relative."""
     ins = _piece_inputs(6, 37, 1000 + reps)
     got = run_staged_pieces(host_pieces_launch, variant, *ins, reps=reps)
     if variant == "rollout":
@@ -1465,6 +1628,27 @@ def test_host_build_riccati_pieces_match_plain(host_pieces_launch, variant, reps
         g, w = getattr(got, name), getattr(want, name)
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("variant", PIECE_VARIANTS)
+def test_host_build_riccati_pieces_lane_groups_bit_equal(host_pieces_launch, variant):
+    """The piece sweep at every built lane count, staged through the group's
+    ring and reading the arrays, at reps 1 and 3 (the ring restarted each
+    sweep; T = 7 leaves it part full): bit-equal to one lane reading the
+    arrays, and within ``1e-4 * max(1, max|plain|)`` of the plain version."""
+    ins = _piece_inputs(7, 21, 1300 + PIECE_VARIANTS.index(variant))
+    for reps in (1, 3):
+        one = run_staged_pieces(host_pieces_launch, variant, *ins, reps=reps, lanes=1, staged=False)
+        want = sweep_piece_plain(variant, *ins, reps=reps)
+        for g, w in zip(one, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0)
+        for lanes in PIECE_LANES:
+            for staged in (False, True):
+                got = run_staged_pieces(host_pieces_launch, variant, *ins, reps=reps, lanes=lanes, staged=staged)
+                for g, o in zip(got, one):
+                    assert torch.equal(g, o), (lanes, staged, reps)
+    with pytest.raises(ValueError, match="lanes must be one of"):
+        run_staged_pieces(host_pieces_launch, variant, *ins, lanes=3)
 
 
 # ---------------------------------------------------------------------------
@@ -1631,8 +1815,9 @@ def test_host_build_unroll_ladder_matches_plain(host_lib):
 def test_built_lane_counts_are_one_list():
     """The lane counts the kernels are instantiated for (``DMPC_LANES`` in
     ``csrc/lanes.cuh``), the kernel files ``csrc/ilqr_nn_l<L>.cu`` and
-    ``csrc/rollout_nn_l<L>.cu`` and the wrappers' ``ILQR_LANES`` and
-    ``ROLLOUT_LANES`` are one list; the Riccati sweep's
+    ``csrc/rollout_nn_l<L>.cu``, the piece sweep's ``csrc/riccati_pieces_l<L>.cu``
+    and the wrappers' ``ILQR_LANES``, ``ROLLOUT_LANES`` and ``PIECE_LANES``
+    are one list; the Riccati sweep's
     (``DMPC_RICCATI_LANES`` in ``csrc/riccati_launch.cuh``, the files
     ``csrc/riccati_l<L>.cu`` and ``RICCATI_LANES``) are another, and the KKT
     backward's (``DMPC_KKT_LANES`` in ``csrc/kkt_launch.cuh``, the files
@@ -1654,6 +1839,7 @@ def test_built_lane_counts_are_one_list():
     riccati = macro("riccati_launch.cuh", "DMPC_RICCATI_LANES")
     assert riccati == files("riccati") == RICCATI_LANES
     assert 1 in riccati and set(riccati) <= set(in_header)
+    assert in_header == files("riccati_pieces") == PIECE_LANES
     kkt = macro("kkt_launch.cuh", "DMPC_KKT_LANES")
     assert kkt == files("kkt") == KKT_LANES
     assert 1 in kkt and set(kkt) <= set(in_header)

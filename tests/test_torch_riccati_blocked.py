@@ -121,9 +121,10 @@ def test_staging_checks_dtype_and_scratch_size():
     rb.run_staged_blocked(lambda args, n, m: seen.update(args=args._obj, n=n, m=m), C, c, F, None, 3, block=4)
     assert (seen["n"], seen["m"], seen["args"].block) == (3, 1, 4)
     assert seen["args"].ric.f is None and seen["args"].ric.T == 8 and seen["args"].ric.B == 8
-    # (8 + 4 + 2) elements of 3*9 + 2*3 floats, then 2 boundary values of 9 + 3
-    assert rb.scratch_rows(8, 3, 4) == 14 * 33 + 2 * 12
-    assert rb.scratch_rows(128, 3, 4) == 7776
+    # no device scratch: the kernel keeps its elements and boundary values on
+    # chip, and the args name only the inputs, the outputs and D
+    assert [name for name, _ in rb._BlockedArgs._fields_] == ["ric", "block"]
+    assert not hasattr(rb, "scratch_rows")
 
 
 # ---------------------------------------------------------------------------

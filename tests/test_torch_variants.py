@@ -193,6 +193,44 @@ def test_fusable_mlps_resolve_to_their_variant(fake_build, n, m, hidden):
     assert all(cmd[-1].endswith(os.path.join("variants", "rollout.cu")) and widths in cmd for cmd in fake_build)
 
 
+@pytest.mark.parametrize("n,m", [(4, 2), (6, 3)])
+def test_blocked_max_blocks_resolves_beside_its_launcher(fake_build, n, m):
+    """The blocked kernel's longest-horizon query lives in its launcher's
+    library: the prebuilt one at the table's shapes
+    (``diffmpc_riccati_blocked_max_blocks_n<n>m<m>``), else the variant's
+    (``..._variant``), built once for both."""
+    query = il.kernel_symbol("riccati_blocked_max_blocks", n, m, [ctypes.c_int, ctypes.c_void_p])
+    launch = il.kernel_symbol("riccati_blocked", n, m, [ctypes.c_void_p])
+    if (n, m) in il.KERNEL_SHAPES:
+        assert query.__name__ == f"diffmpc_riccati_blocked_max_blocks_n{n}m{m}" and fake_build == []
+    else:
+        assert query.__name__ == "diffmpc_riccati_blocked_max_blocks_variant"
+        assert launch.__name__ == "diffmpc_riccati_blocked_variant"
+        assert len(fake_build) == len(build.VARIANT_SOURCES["riccati_blocked"][1]) + 1
+
+
+def test_a_diagnostic_build_takes_the_main_flags_and_its_defines(fake_build, tmp_path):
+    """``build_with`` (the diagnostics' profile and parent builds): one nvcc
+    a source with NVCC_FLAGS, a source of this checkout with its own flags
+    (the Riccati sweep's ``-fmad=false``), another checkout's without, each
+    define as ``-D`` and the source's directory as ``-I``; linked into
+    ``out_dir/lib<label>.so`` and loaded."""
+    other = tmp_path / "other"
+    other.mkdir()
+    (other / "riccati.cu").write_text("")
+    srcs = [os.path.join(build.CSRC, "riccati.cu"), os.path.join(build.CSRC, "riccati_blocked.cu"),
+            str(other / "riccati.cu")]
+    lib = build.build_with(srcs, str(tmp_path), ("DMPC_BLOCKED_PROFILE=1",), "probe")
+    assert lib.path == str(tmp_path / "libprobe.so") and os.path.exists(lib.path)
+    assert len(fake_build) == 3
+    for cmd, src, own_flags in zip(fake_build, srcs, (True, False, False)):
+        assert cmd[0] == "nvcc" and cmd[-1] == src
+        assert cmd[1 : 1 + len(build.NVCC_FLAGS)] == list(build.NVCC_FLAGS)
+        assert ("-fmad=false" in cmd) == own_flags
+        assert defines(cmd) == {"-DDMPC_BLOCKED_PROFILE=1"}
+        assert cmd[cmd.index("-I") + 1] == os.path.dirname(src)
+
+
 def test_fused_launcher_symbols(fake_build):
     """The prebuilt MLPs and the pendulum keep their launchers at the
     default flags; a flag makes a variant of the same env, naming the

@@ -11,7 +11,12 @@ Phases, one line of output each (JSON where it carries numbers):
 1. build: the CUDA kernels, built with nvcc from diffmpc_tpu_torch/csrc
    (one nvcc per source, in parallel), its seconds, each source's, and each
    kernel's registers, spills and stack frame; the Riccati sweep's sources
-   and lane kernels apart;
+   and lane kernels apart; no GNU unique symbol (nm -D, type u: a
+   function-local static of an inline function or template, shared by
+   every library of the process) exported by the library or by a second
+   build of the sources that hold the Riccati and KKT launch caches
+   (csrc/build.py build_with, as the A/B diagnostics' --parent and
+   --profile builds are made), nor, in phase 30, by any variant's library;
 2. kernel vs plain: the fused iLQR kernel against its plain PyTorch version
    on the card, at the main-path problem (pendulum, T=20, B=1024, and the
    ragged B=1000; lqr_iter=10, eps=1e-5), one iteration at eps=0, a warm
@@ -145,11 +150,14 @@ Phases, one line of output each (JSON where it carries numbers):
    staged and not, bit-equal to it; each rollout objective within 1e-5 of
    its sum of |stage costs|, and at reps 1 the card's and the plain
    version's objectives within the same of the float64 plain version's),
-   then the piece decomposition
-   (diffmpc_tpu_torch.diagnostics.profile_riccati_pieces, counted the same
-   way): at the fused kernel's lane count, reading device memory and
-   staged, the per-sweep slopes and each piece at B=1024 and 65,536, the
-   full slopes beside phase 4's iLQR kernel time per iteration;
+   the rollout at one lane reading device memory, held so, and at every
+   built lane count in both read modes bit-equal to it), then the piece
+   decomposition (diffmpc_tpu_torch.diagnostics.profile_riccati_pieces,
+   counted the same way): at the fused kernel's lane count, reading device
+   memory and staged, the per-sweep slopes and each piece at B=1024 and
+   65,536, the rollout's slopes in both modes at that lane count and at
+   one lane, the full and rollout slopes beside phase 4's iLQR kernel time
+   per iteration;
 22. learned dynamics, the kernels against their plain versions: the fused
    iLQR kernel with the MLP step of the JAX bench's NNDynamics (3-16-16-3,
    residual, tanh; bench.py:592-624) at T=15, B=1024 and the ragged 1000,
@@ -176,8 +184,12 @@ Phases, one line of output each (JSON where it carries numbers):
    count, with the chain in their bounds; each plain version once.
 26. the kernel-under-the-mesh probe (csrc/shard_probe.cu, the TPU kernel of
    tests/test_pallas_sharding.py:221) against its plain version, bit-equal,
-   at shards of 1, 2, 3, 8, 16 and 65,536, with its time, its plain
-   version's and the library call's (x[idx].sum() broadcast);
+   at shards of 1, 2, 3, 8, 16, 32,768 and 65,536, and at 8, 1027 and
+   65,536 with the shard and the output 1-3 floats off a 16-byte boundary;
+   at each size its wrapper's call (200 calls by CUDA events), the
+   kernel alone and an empty kernel (the launch floor), each 100 launches
+   in one CUDA graph replayed in the same rounds, its plain version's and
+   the library call's (x[idx].sum() broadcast);
 27. one rank over NCCL in this process (diffmpc_tpu_torch.parallel): the
    dry run of parallel/dryrun.py on config 5 of BASELINE.json at
    B=65,536 (per-scenario params, params_batch_axes=0, SGD 1e-2, u_expert =
@@ -209,7 +221,8 @@ Phases, one line of output each (JSON where it carries numbers):
 
 30. the kernels built at first use (csrc/build.py's variants), all of the
    slice's in one parallel build: its seconds, each key's units' seconds
-   and each key's registers, spills and stack frame;
+   and each key's registers, spills and stack frame; no GNU unique symbol
+   in any key's library;
 31. each variant kernel against its plain version: the Riccati sweep at
    (6, 3) in box mode under pnqp_enum "", "0" and "1" (B=4096), free and
    mask modes, and at (4, 2) under "0" (phase 9's rule for ties), every
@@ -410,7 +423,7 @@ try:
     # NVIDIA's H100 SXM data sheet (HBM bandwidth, dense float32 rate), the
     # latency of one dependent float32 operation in cycles, the CUDA-event timer
     from diffmpc_tpu_torch.diagnostics.card import (
-        DEP_OP_CYCLES, F32_FLOPS_PER_S, HBM_BYTES_PER_S, cuda_ms, ptxas_report,
+        DEP_OP_CYCLES, F32_FLOPS_PER_S, HBM_BYTES_PER_S, cuda_ms, graph_ms, ptxas_report,
     )
 except ModuleNotFoundError as e:
     if e.name != "diffmpc_tpu_torch":
@@ -439,6 +452,7 @@ LQR_N, LQR_M, LQR_T, LQR_B = 3, 2, 10, 32
 T_LONG, T_FD, T_PEND, LONG_ITER = 128, 256, 512, 20
 B_MID = 4096  # the timing batch between config 2's published 128 and a full card
 PROBE_L = 8  # the probe's shard on each of the two ranks (the JAX test's (16,) array)
+PROBE_L_RANK = 32768  # the probe's shard on each of the dry run's two ranks at config 5's B=65,536
 
 
 def emit(**record) -> None:
@@ -1493,9 +1507,23 @@ def max_err(got, want, names=("K", "k")) -> tuple:
     return errs, scales
 
 
+def pieces_unequal(kernel, one, *args, **knobs) -> list:
+    """The (lanes, staged) pairs, over every built lane count and both read
+    modes, at which ``kernel(*args, lanes=, staged=, **knobs)`` is not bit
+    for bit ``one`` (one lane reading device memory)."""
+    from diffmpc_tpu_torch.ops.cuda import riccati_pieces as rp
+
+    def outputs(r):
+        return (r,) if torch.is_tensor(r) else tuple(r)
+
+    return [(lanes, staged) for lanes in rp.PIECE_LANES for staged in (False, True)
+            if not all(torch.equal(g, o) for g, o in zip(
+                outputs(kernel(*args, lanes=lanes, staged=staged, **knobs)), outputs(one)))]
+
+
 def pieces_vs_plain(device) -> tuple:
     """Phase 21's agreement: each piece kernel against its plain version at
-    reps 1 and 9, at each of profile_riccati_pieces.BATCHES, the sweep at one
+    reps 1 and 9, at each of profile_riccati_pieces.BATCHES, each at one
     lane reading device memory and at every built lane count in both read
     modes bit-equal to it. Returns the largest error of each kind at B_MAIN
     and the plain versions' times there."""
@@ -1509,7 +1537,13 @@ def pieces_vs_plain(device) -> tuple:
         for kind in profile_riccati_pieces.KINDS:
             for reps in (1, profile_riccati_pieces.REPS_HI):
                 if kind == "rollout":
-                    got, want = rp.rollout_piece_cuda(*ins, reps=reps), rp.rollout_piece_plain(*ins, reps=reps)
+                    got = rp.rollout_piece_cuda(*ins, reps=reps, lanes=1, staged=False)
+                    unequal = pieces_unequal(rp.rollout_piece_cuda, got, *ins, reps=reps)
+                    emit(phase="pieces_lane_groups", kind=kind, reps=reps, B=B, lanes=list(rp.PIECE_LANES),
+                         modes=["device", "staged"], unequal_to_one_lane=unequal)
+                    if unequal:
+                        raise AssertionError(f"piece rollout at B={B} reps={reps}: {unequal} differ from one lane")
+                    want = rp.rollout_piece_plain(*ins, reps=reps)
                     # each scenario within 1e-5 of its sum of |stage costs|: the
                     # summed objective can cancel to near zero, its rounding
                     # grows with that sum
@@ -1532,9 +1566,7 @@ def pieces_vs_plain(device) -> tuple:
                     got = rp.sweep_piece_cuda(kind, *ins, reps=reps, lanes=1, staged=False)
                     # every built lane count in both read modes, bit for bit one
                     # lane reading device memory (the design gives it)
-                    unequal = [(lanes, staged) for lanes in rp.PIECE_LANES for staged in (False, True)
-                               if not all(torch.equal(g, o) for g, o in zip(
-                                   rp.sweep_piece_cuda(kind, *ins, reps=reps, lanes=lanes, staged=staged), got))]
+                    unequal = pieces_unequal(functools.partial(rp.sweep_piece_cuda, kind), got, *ins, reps=reps)
                     emit(phase="pieces_lane_groups", kind=kind, reps=reps, B=B, lanes=list(rp.PIECE_LANES),
                          modes=["device", "staged"], unequal_to_one_lane=unequal)
                     if unequal:
@@ -1686,7 +1718,7 @@ def riccati_chain(device, smi: str, ilqr_ms_per_iter: float) -> list:
     t0 = time.perf_counter()
     piece_err, piece_plain_ms = pieces_vs_plain(device)
     reset_counts()
-    pieces = profile_riccati_pieces.run()
+    pieces = profile_riccati_pieces.run(ilqr_ms_per_iter)
     piece_launches = counts()
     for rec in pieces:  # the sweep's slope beside the fused kernel's time an iteration (phase 4)
         main = rec["B"] == B_MAIN
@@ -1698,6 +1730,7 @@ def riccati_chain(device, smi: str, ilqr_ms_per_iter: float) -> list:
     emit(phase="pieces_launches", launches=piece_launches, phase_21_seconds=time.perf_counter() - t0)
 
     first, main_pieces = ab[0], pieces[0]  # T=20, B=1024: the script's first shape and batch
+    roll = main_pieces["rollout_modes"]
     source = "diffmpc_tpu_torch/csrc/"
     return [
         dict(name="riccati_backward_blocked_pallas", route="cuda", source=source + "riccati_blocked.cu",
@@ -1712,8 +1745,11 @@ def riccati_chain(device, smi: str, ilqr_ms_per_iter: float) -> list:
              lanes=main_pieces["lanes"], staged_ms=main_pieces["ms"]["staged:full@1"]),
         dict(name="profile_riccati_pieces.make_rollout_kernel", route="cuda", source=source + "riccati_pieces.cu",
              replaces="scripts/profile_riccati_pieces.py:181", launches=piece_launches["rollout_piece"],
-             max_abs_err=piece_err["rollout"], ms=main_pieces["ms"]["rollout@1"], plain_ms=piece_plain_ms["rollout"],
-             **{k: main_pieces["bounds"]["rollout@1"][k] for k in ("bound_ms", "bound_by")}, library_ms=None),
+             max_abs_err=piece_err["rollout"], ms=roll[f"device@{main_pieces['lanes']}"]["one_ms"],
+             plain_ms=piece_plain_ms["rollout"],
+             **{k: main_pieces["bounds"]["rollout@1"][k] for k in ("bound_ms", "bound_by")}, library_ms=None,
+             lanes=main_pieces["lanes"], staged_ms=roll[f"staged@{main_pieces['lanes']}"]["one_ms"],
+             one_lane_ms=roll["device@1"]["one_ms"]),
     ]
 
 
@@ -2171,13 +2207,13 @@ def data_parallel(device, smi: str) -> dict:
     from diffmpc_tpu_torch.ops.cuda import riccati as ric
     from diffmpc_tpu_torch.ops.cuda.ilqr import ilqr_solve_fused, ilqr_solve_plain
     from diffmpc_tpu_torch.ops.cuda.kkt import kkt_backward_fused, kkt_backward_plain
-    from diffmpc_tpu_torch.ops.cuda.shard_probe import shard_probe_cuda, shard_probe_plain
+    from diffmpc_tpu_torch.ops.cuda.shard_probe import launch_floor_cuda, shard_probe_cuda, shard_probe_plain
     from diffmpc_tpu_torch.parallel import distributed, dryrun, make_mesh, shard_batch
 
     # ---- 26. the probe kernel against its plain version ----
     t0 = time.perf_counter()
     probe = {}
-    for L in (1, 2, 3, 8, 16, B_ENSEMBLE):
+    for L in (1, 2, 3, 8, 16, PROBE_L_RANK, B_ENSEMBLE):
         x = torch.arange(L, dtype=torch.float32, device=device) ** 1.5
         got, want = shard_probe_cuda(x), shard_probe_plain(x)
         torch.cuda.synchronize()
@@ -2185,10 +2221,33 @@ def data_parallel(device, smi: str) -> dict:
             raise AssertionError(f"probe kernel vs plain at L={L}: {got[:4].tolist()} vs {want[:4].tolist()}")
         # the library call: the four reads summed by one reduction, broadcast
         idx = torch.tensor([0, 0, min(1, L - 1), min(2, L - 1)], device=device)
+        out = torch.empty_like(x)
+        # the kernel alone and an empty kernel, each 100 launches in one CUDA
+        # graph, in the same rounds: the wrapper's host work runs at the
+        # capture, not in the replays
+        alone = graph_ms({"kernel": lambda: shard_probe_cuda(x, out=out), "floor": lambda: launch_floor_cuda(device)})
+        if not torch.equal(out, want):
+            raise AssertionError(f"probe kernel replayed from its graph vs plain at L={L}")
         probe[L] = dict(max_abs_err=0.0, kernel_ms=cuda_ms(lambda: shard_probe_cuda(x), 200, 3),
+                        kernel_alone_ms=alone["kernel"], launch_floor_ms=alone["floor"],
                         plain_ms=cuda_ms(lambda: shard_probe_plain(x), 200, 3),
                         library_ms=cuda_ms(lambda: x[idx].sum().expand(L).clone(), 200, 3), **bound(4 * L + 12, 3))
+        probe[L].update(alone_over_floor=alone["kernel"] / alone["floor"])
         emit(phase="probe_vs_plain", L=L, card=smi, bit_equal=True, **probe[L])
+    # a shard and an output at each offset of 1-3 floats from a 16-byte
+    # boundary: the kernel's scalar head and tail around its float4 stores
+    misaligned = []
+    for L in (8, 1027, B_ENSEMBLE):
+        for offset in (1, 2, 3):
+            x = (torch.arange(L + offset, dtype=torch.float32, device=device) ** 1.5)[offset:]
+            base = torch.full((L + 8,), float("nan"), device=device)
+            got = shard_probe_cuda(x, out=base[offset:offset + L])
+            torch.cuda.synchronize()
+            if not torch.equal(got, shard_probe_plain(x)) or not bool(torch.isnan(base[:offset]).all()) \
+                    or not bool(torch.isnan(base[offset + L:]).all()):
+                raise AssertionError(f"probe kernel vs plain at L={L}, offset {offset}")
+            misaligned.append((L, offset))
+    emit(phase="probe_misaligned", bit_equal=True, shards=misaligned)
     emit(phase="probe_seconds", seconds=time.perf_counter() - t0)
 
     # ---- 27. one rank over NCCL, in this process. The dry run sets the
@@ -2284,9 +2343,11 @@ def data_parallel(device, smi: str) -> dict:
     row = probe[PROBE_L]
     return dict(name="shard_probe", route="cuda", source="diffmpc_tpu_torch/csrc/shard_probe.cu",
                 replaces="tests/test_pallas_sharding.py:221", launches=path_launches,
-                max_abs_err=max(v["max_abs_err"] for v in probe.values()), ms=row["kernel_ms"],
+                max_abs_err=max(v["max_abs_err"] for v in probe.values()), ms=row["kernel_alone_ms"],
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=row["library_ms"])
+                library_ms=row["library_ms"], wrapper_ms=row["kernel_ms"], launch_floor_ms=row["launch_floor_ms"],
+                at_rank_shards={L: {k: probe[L][k] for k in ("kernel_alone_ms", "launch_floor_ms", "kernel_ms",
+                                                            "library_ms")} for L in (PROBE_L_RANK, B_ENSEMBLE)})
 
 
 # ---------------------------------------------------------------------------
@@ -2445,10 +2506,27 @@ def lanes_bit_equal(name: str, results: dict) -> dict:
     return out
 
 
+# the sources whose units hold the Riccati and KKT launch caches (the
+# one-lane kernels' wave), built a second time beside the library in phase 1
+CACHE_SOURCES = ("riccati_l1.cu", "kkt_l1.cu")
+
+
+def check_unique_symbols(libraries: dict) -> None:
+    """Raise where a library (name -> path) exports a GNU unique symbol: a
+    cache that a second build loaded beside would share."""
+    from diffmpc_tpu_torch.csrc import build
+
+    found = {name: build.unique_symbols(path) for name, path in libraries.items()}
+    emit(phase="unique_symbols", libraries=len(found), found={k: v for k, v in found.items() if v})
+    if any(found.values()):
+        raise AssertionError(f"GNU unique symbols exported: {found}")
+
+
 def build_variants_phase(keys: list) -> None:
     """Phase 30: build every variant of ``keys`` in one parallel build; its
     seconds, each key's units' seconds, and each key's registers, spills and
-    stack frame (per kernel for the fused solve and the line search)."""
+    stack frame (per kernel for the fused solve and the line search); no
+    variant's library exports a GNU unique symbol."""
     from diffmpc_tpu_torch.csrc import build
 
     t0 = time.perf_counter()
@@ -2467,6 +2545,7 @@ def build_variants_phase(keys: list) -> None:
                                if key.family == "ilqr" or key.env not in ("linear", "nn") else None)
     emit(phase="variants_build", seconds=build_s, keys=len(built), per_key_seconds=seconds, ptxas=ptxas,
          workers=build.variant_workers())
+    check_unique_symbols({key.name: path for key, (path, _) in built.items()})
 
 
 def variants_slice(device, smi: str, clock_mhz: float) -> list:
@@ -4735,6 +4814,11 @@ def main() -> int:
         riccati_sources_seconds={k: v for k, v in per_source.items() if re.fullmatch(r"riccati(_stream|_l\d+)?\.cu", k)},
         riccati_kernels=riccati,
     )
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        second = build.build_with([os.path.join(build.CSRC, f) for f in CACHE_SOURCES], tmp, (), "second")
+        check_unique_symbols({"library": so, "second_build": second._name})
+    emit(phase="build_second", sources=list(CACHE_SOURCES), seconds=time.perf_counter() - t0)
     if {"--slice-only", "--zoo-only", "--mpc-only", "--examples-only", "--aot-only"} & set(sys.argv[1:]):
         # phases 30-33 alone: the variants and the slice they serve; or the
         # zoo's variants and phases 35-36 alone; or the receding loop's

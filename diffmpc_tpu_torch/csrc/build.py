@@ -200,6 +200,19 @@ def build_with(srcs, out_dir: str, defines=(), label: str = "custom") -> ctypes.
     return _dlopen(so)
 
 
+def unique_symbols(path: str) -> list[str]:
+    """The GNU unique symbols (``nm -D --defined-only``, type ``u``) that
+    the shared library ``path`` exports. Each is a function-local static of
+    an inline function or template, bound to one object across every
+    library of the process even under ``RTLD_LOCAL``, so that a second build
+    loaded beside (:func:`build_with`, another checkout's) would share it:
+    the port's libraries keep such caches in unnamed namespaces and export
+    none."""
+    out = subprocess.run(["nm", "-D", "--defined-only", path], capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    return [f[2] for f in (line.split() for line in out.splitlines()) if len(f) == 3 and f[1] == "u"]
+
+
 # ---------------------------------------------------------------------------
 # Variants: kernels built at first use.
 # ---------------------------------------------------------------------------

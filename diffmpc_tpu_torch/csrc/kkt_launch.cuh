@@ -96,6 +96,15 @@ long wave(int T, int* err) {
 
 // One wave of the one-lane prefetching kernel: it takes no shared memory,
 // so the horizon does not enter, and the wave is worked out once per card.
+//
+// In an unnamed namespace, so that each library has its own cache: a
+// function-local static of an inline function or template is one object
+// across every library of the process (GNU unique symbols bind even under
+// RTLD_LOCAL), and a second build of this source loaded beside
+// (ab_kkt_lanes --parent) would otherwise take the wave of whichever
+// library asked first.
+namespace {
+
 template <int N, int M, bool EXACT>
 long one_lane_wave(int* err) {
   constexpr int kMaxCards = 16;
@@ -111,6 +120,8 @@ long one_lane_wave(int* err) {
   }
   return w;
 }
+
+}  // namespace
 
 // The kernel at L lanes. One lane keeps K, k and p in device memory and
 // loads the next step's slice while a step computes as args->prefetch says,

@@ -76,6 +76,15 @@ int launch(const RiccatiArgs* args, cudaStream_t stream) {
 // T=20, 1.121 against 2.066 at T=128; at 16,384 staging wins, 0.110 against
 // 0.136 and 0.663 against 0.826; NVIDIA H100 80GB HBM3 at 700 W,
 // diagnostics/ab_riccati_lanes). A wave is worked out once per card.
+//
+// In an unnamed namespace, so that each library has its own cache: a
+// function-local static of an inline function or template is one object
+// across every library of the process (GNU unique symbols bind even under
+// RTLD_LOCAL), and a second build of this source loaded beside
+// (ab_riccati_lanes --parent, --profile) would otherwise take the wave, and
+// the shared-memory attribute, of whichever library asked first.
+namespace {
+
 template <int N, int M, int MODE, int ENUM>
 bool one_lane_staged(int B, int* err) {
   constexpr int kMaxCards = 16;
@@ -99,6 +108,8 @@ bool one_lane_staged(int B, int* err) {
   *err = static_cast<int>(e);
   return B <= w;
 }
+
+}  // namespace
 
 // The kernel of `mode` (a RiccatiMode) at (N, M), Staged, L lanes, the box
 // QP's enumeration mode ENUM.

@@ -33,17 +33,20 @@
 //     kLaneStages - 1 steps ahead of the step the group computes, the
 //     entries split over the lanes by a plan worked out once (PiecePlan;
 //     stream.cuh), and read back by every lane.
+// The rollout runs on the same groups and reads the same slice
+// (PieceSlice) in the same two modes, walking forward in t (PieceRing): every
+// lane runs the whole chain, as the line search's lanes replay the accepted
+// step (rollout.cuh), and the group's first lane writes the objective.
 // Every L and both modes compute the same float32 operations on the same
 // values as L = 1 reading device memory: bit for bit the same outputs. The
 // gap between the two modes' times is what the loads' latency on the chain
-// costs the sweep.
+// costs the sweep or the rollout.
 //
-// csrc/riccati_pieces.cu runs these on the card (the sweep's kernels built
-// one file per lane count, riccati_pieces_l<L>.cu, riccati_pieces_launch.cuh;
-// the rollout with one thread per scenario); the tests build them with g++
-// for the host, where the lanes of a group run one after another
-// (HostLanes); diffmpc_tpu_torch/ops/cuda/riccati_pieces.py holds the plain
-// PyTorch version of each.
+// csrc/riccati_pieces.cu runs these on the card (the kernels built one file
+// per lane count, riccati_pieces_l<L>.cu, riccati_pieces_launch.cuh); the
+// tests build them with g++ for the host, where the lanes of a group run one
+// after another (HostLanes); diffmpc_tpu_torch/ops/cuda/riccati_pieces.py
+// holds the plain PyTorch version of each.
 //
 // Layout: every per-step array is batch-minor, (T, entries..., B).
 #pragma once
@@ -75,8 +78,8 @@ struct PieceArgs {
   int B;
   int reps;
   float reg;   // the sweep's box QP and masked solve (the script's 1e-7)
-  int lanes;   // the sweep's threads per scenario, L
-  int staged;  // the sweep: 1 reads each step's slice from the group's staging ring, 0 device memory
+  int lanes;   // threads per scenario, L
+  int staged;  // 1 reads each step's slice from the group's staging ring, 0 device memory
 };
 
 namespace pieces_detail {
@@ -88,8 +91,9 @@ DMPC_HD size_t at(int t, int i, int D, int B, int b) {
   return ((size_t)t * D + i) * (size_t)B + b;
 }
 
-// One step's slice of the sweep: C (all 16 entries: C tau_hat and the
-// no_Qform stand-in read its rows), c, x_hat, u_hat, lo, hi.
+// One step's slice of the sweep and the rollout: C (all 16 entries: C
+// tau_hat, the no_Qform stand-in and the stage cost read its rows), c,
+// x_hat, u_hat, lo, hi.
 struct PieceSlice {
   static constexpr int kC = 0, kc = NM * NM, kxh = kc + NM, kuh = kxh + N, klo = kuh + M, khi = klo + M;
   static constexpr int kSize = khi + M;
@@ -275,6 +279,86 @@ DMPC_HD void sweep_step(const PieceArgs& a, const PendulumEnv& env, const In& in
 // Floats of shared memory a group's staging ring takes.
 DMPC_HD constexpr int piece_group_slot_floats() { return kLaneStages * pieces_detail::PieceSlice::kSize; }
 
+namespace pieces_detail {
+
+// The step inputs of one scenario b for the group of lanes g (HostLanes or
+// CardLanes), read from device memory at each step or, Staged, through the
+// group's ring (g's slots): each step's slice copied kLaneStages - 1 steps
+// ahead of the step the group computes, one lane whole by piece_stage, more
+// lanes each its share by its plan (worked out once, here).
+template <bool Staged, class G>
+struct PieceRing {
+  static constexpr int L = G::kLanes;
+  const PieceArgs& a;
+  const G& g;
+  int b;
+  PiecePlan<L> plan[G::kLocal];
+  DMPC_HD PieceRing(const PieceArgs& a_, const G& g_, int b_) : a(a_), g(g_), b(b_) {
+    if constexpr (Staged && L > 1)
+      for (int li = 0; li < G::kLocal; ++li) plan[li].init(a, g.lane_of(li), b);
+  }
+  DMPC_HD void stage(int t, float* slot) const {
+    if constexpr (L == 1)
+      piece_stage(a, g.stride, t, b, slot);
+    else
+      piece_stage_planned(g, plan, t, slot);
+  }
+  // One pass over the T steps in the order t_of(0), t_of(1), ...:
+  // step(in, t) with step t's inputs `in` (PieceGlobal or PieceSlot).
+  template <class Order, class Step>
+  DMPC_HD void walk(Order t_of, Step&& step) const {
+    constexpr int kSize = PieceSlice::kSize, kStages = kLaneStages;
+    const int T = a.T;
+    if constexpr (!Staged) {
+      for (int s = 0; s < T; ++s) {
+        const int t = t_of(s);
+        step(PieceGlobal{a, t, b}, t);
+      }
+    } else {
+      g.sync();  // every lane is done with the last pass's slots
+      for (int s = 0; s < kStages - 1; ++s) {
+        if (s < T) stage(t_of(s), stage_slot(g, s, kSize, kStages));
+        else stream_commit();
+      }
+      for (int s = 0; s < T; ++s) {
+        stream_wait<kStages - 2>();  // this lane's copies of step s
+        g.sync();                    // and every other lane's; every lane is done with step s - 1's slot
+        const int ahead = s + kStages - 1;
+        if (ahead < T) stage(t_of(ahead), stage_slot(g, ahead, kSize, kStages));
+        else stream_commit();
+        step(PieceSlot{SlotReader{stage_slot(g, s, kSize, kStages), g.stride}}, t_of(s));
+      }
+    }
+  }
+};
+
+// One step t of the rollout from its inputs `in`: the control from the
+// state x, the stage cost (returned), and x moved on by the pendulum's step
+// with `params` (g, m, l).
+template <class In>
+DMPC_HD float rollout_step(const PendulumEnv& env, const float* params, const In& in, float (&x)[N]) {
+  float u[M], xn[N];
+  for (int i = 0; i < M; ++i) {
+    float acc = in.uh(i) + 0.5f * in.c(N + i);
+    for (int j = 0; j < N; ++j) acc = acc + in.C(N + i, j) * (x[j] - in.xh(j));
+    u[i] = clipf(acc, in.lo(i), in.hi(i));
+  }
+  float tau[NM];
+  for (int i = 0; i < N; ++i) tau[i] = x[i];
+  for (int i = 0; i < M; ++i) tau[N + i] = u[i];
+  float acc = 0.0f;
+  for (int i = 0; i < NM; ++i) {
+    float Ctau = 0.0f;
+    for (int j = 0; j < NM; ++j) Ctau += in.C(i, j) * tau[j];
+    acc += (0.5f * Ctau + in.c(i)) * tau[i];
+  }
+  env.step(params, x, u, xn);
+  for (int i = 0; i < N; ++i) x[i] = xn[i];
+  return acc;
+}
+
+}  // namespace pieces_detail
+
 // The sweep kernel's scenario b by the group of lanes g (HostLanes or
 // CardLanes): reps sweeps over t = T-1..0, each seeded by the last one's
 // V[0][0] (times 1e-30), then that seed folded into k[0] (times 1e-30) so
@@ -283,18 +367,8 @@ DMPC_HD constexpr int piece_group_slot_floats() { return kLaneStages * pieces_de
 template <int VARIANT, bool Staged, class G>
 DMPC_HD void piece_sweep_scenario(const PieceArgs& a, const PendulumEnv& env, int b, const G& g) {
   using namespace pieces_detail;
-  constexpr int kSize = PieceSlice::kSize, kStages = kLaneStages;
-  constexpr int L = G::kLanes;
+  const PieceRing<Staged, G> ring(a, g, b);
   const int T = a.T;
-  PiecePlan<L> plan[G::kLocal];
-  if constexpr (Staged && L > 1)
-    for (int li = 0; li < G::kLocal; ++li) plan[li].init(a, g.lane_of(li), b);
-  auto stage = [&](int t, float* slot) {
-    if constexpr (L == 1)
-      piece_stage(a, g.stride, t, b, slot);
-    else
-      piece_stage_planned(g, plan, t, slot);
-  };
   float seed = 0.0f;
   for (int r = 0; r < a.reps; ++r) {
     const float init = seed * 1e-30f;
@@ -303,28 +377,8 @@ DMPC_HD void piece_sweep_scenario(const PieceArgs& a, const PendulumEnv& env, in
       v[i] = init;
       for (int j = 0; j < N; ++j) V[i][j] = init;
     }
-    if constexpr (!Staged) {
-      for (int s = 0; s < T; ++s) {
-        const int t = T - 1 - s;
-        sweep_step<VARIANT>(a, env, PieceGlobal{a, t, b}, t, b, g.owns(t), V, v);
-      }
-    } else {
-      g.sync();  // every lane is done with the last sweep's slots
-      for (int s = 0; s < kStages - 1; ++s) {
-        if (s < T) stage(T - 1 - s, stage_slot(g, s, kSize, kStages));
-        else stream_commit();
-      }
-      for (int s = 0; s < T; ++s) {
-        stream_wait<kStages - 2>();  // this lane's copies of step s
-        g.sync();                    // and every other lane's; every lane is done with step s - 1's slot
-        const int ahead = s + kStages - 1;
-        if (ahead < T) stage(T - 1 - ahead, stage_slot(g, ahead, kSize, kStages));
-        else stream_commit();
-        const int t = T - 1 - s;
-        sweep_step<VARIANT>(a, env, PieceSlot{SlotReader{stage_slot(g, s, kSize, kStages), g.stride}}, t, b,
-                            g.owns(t), V, v);
-      }
-    }
+    ring.walk([T](int s) { return T - 1 - s; },
+              [&](const auto& in, int t) { sweep_step<VARIANT>(a, env, in, t, b, g.owns(t), V, v); });
     seed = V[0][0];
   }
   if (g.owns(0)) {  // the lane that stored step 0
@@ -333,39 +387,32 @@ DMPC_HD void piece_sweep_scenario(const PieceArgs& a, const PendulumEnv& env, in
   }
 }
 
-// The rollout kernel's scenario b: reps closed-loop rollouts of T steps,
-// u = clip(u_hat + 0.5 c_u + C_ux (x - x_hat), lo, hi) (the cost's entries
-// stand in for the gains), the stage cost summed, each rollout seeded by the
-// last one's objective (times 1e-30). Writes the last objective.
-DMPC_HD void piece_rollout_scenario(const PieceArgs& a, const PendulumEnv& env, int b) {
+// The rollout kernel's scenario b by the group of lanes g: reps closed-loop
+// rollouts of T steps, u = clip(u_hat + 0.5 c_u + C_ux (x - x_hat), lo, hi)
+// (the cost's entries stand in for the gains), the stage cost summed, each
+// rollout seeded by the last one's objective (times 1e-30). Every lane runs
+// the whole chain on the same values in lockstep, as the line search's lanes
+// replay the accepted step (rollout.cuh), so every L gives L = 1's bits;
+// the group's first lane writes the last objective. Staged: each step's
+// inputs read from the group's ring, filled kLaneStages - 1 steps ahead.
+template <bool Staged, class G>
+DMPC_HD void piece_rollout_scenario(const PieceArgs& a, const PendulumEnv& env, int b, const G& g) {
   using namespace pieces_detail;
-  const int B = a.B;
+  const PieceRing<Staged, G> ring(a, g, b);
+  // Staged, the pendulum's params are read once into registers: the
+  // copies' cp.async statements order memory, so a step would otherwise load
+  // them again after its copies. Reading device memory, each step loads them
+  // beside its slice, as the sweep's step does: loaded once before the loop,
+  // this mode ran slower on the card (PERF.md, row 9b).
+  const float regs[3] = {a.params[0], a.params[1], a.params[2]};
+  const float* params = Staged ? regs : a.params;
   float seed = 0.0f;
   for (int r = 0; r < a.reps; ++r) {
-    float x[N], u[M], xn[N];
-    for (int i = 0; i < N; ++i) x[i] = a.x_hat[at(0, i, N, B, b)] + seed * 1e-30f;
+    float x[N];
+    for (int i = 0; i < N; ++i) x[i] = a.x_hat[at(0, i, N, a.B, b)] + seed * 1e-30f;
     float obj = seed * 1e-30f;
-    for (int t = 0; t < a.T; ++t) {
-      for (int i = 0; i < M; ++i) {
-        float acc = a.u_hat[at(t, i, M, B, b)] + 0.5f * a.c[at(t, N + i, NM, B, b)];
-        for (int j = 0; j < N; ++j)
-          acc = acc + a.C[at(t, (N + i) * NM + j, NM * NM, B, b)] * (x[j] - a.x_hat[at(t, j, N, B, b)]);
-        u[i] = clipf(acc, a.lo[at(t, i, M, B, b)], a.hi[at(t, i, M, B, b)]);
-      }
-      float tau[NM];
-      for (int i = 0; i < N; ++i) tau[i] = x[i];
-      for (int i = 0; i < M; ++i) tau[N + i] = u[i];
-      float acc = 0.0f;
-      for (int i = 0; i < NM; ++i) {
-        float Ctau = 0.0f;
-        for (int j = 0; j < NM; ++j) Ctau += a.C[at(t, i * NM + j, NM * NM, B, b)] * tau[j];
-        acc += (0.5f * Ctau + a.c[at(t, i, NM, B, b)]) * tau[i];
-      }
-      obj = obj + acc;
-      env.step(a.params, x, u, xn);
-      for (int i = 0; i < N; ++i) x[i] = xn[i];
-    }
+    ring.walk([](int s) { return s; }, [&](const auto& in, int) { obj = obj + rollout_step(env, params, in, x); });
     seed = obj;
   }
-  a.obj[b] = seed;
+  if (g.leader()) a.obj[b] = seed;
 }

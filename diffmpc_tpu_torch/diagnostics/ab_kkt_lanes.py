@@ -38,6 +38,10 @@ checkout's. Every launch that fails raises. It reports:
 - the wrapper's call, its staging alone in place and with C and F copied,
   and the parent's wrapper, interleaved the same way (``*_ms``,
   ``call_rounds``); the plain version's time.
+- each build's own one-lane choice (``one_lane_prefetch``: this
+  checkout's and, with ``--parent``, the parent's launcher asked with
+  ``prefetch = -1``): every library keeps its own wave in its launch cache,
+  so the parent's build picks by its own rule.
 
 The cases: the headline's gradient (pendulum, goal cost, box +-2, T=20,
 ``lqr_iter`` 10, the gradient of mean(us**2) with respect to the env's
@@ -250,7 +254,7 @@ def run_call(device, args, kw, tree_kkt, rounds: int, loops: int) -> dict:
         else:
             for on in (0, 1):
                 variants[f"resident/L{L}/{'onchip' if on else 'device'}"] = (fns["resident"], L, on, -1)
-    launches, refs, same, choices = {}, None, {}, {}
+    launches, refs, same, choices, parent_prefetch = {}, None, {}, {}, None
     for name, (fn, L, on, pf) in variants.items():
         a = kkt._KktArgs.from_buffer_copy(staged.args)
         a.lanes, a.on_chip, a.prefetch = L, on, pf
@@ -284,6 +288,10 @@ def run_call(device, args, kw, tree_kkt, rounds: int, loops: int) -> dict:
         parent_fn(ctypes.byref(parent_args), n, m)
         torch.cuda.synchronize()
         same["parent"] = same_bits(copied.result(), refs)
+        one = tree_args(tree_kkt, copied)
+        one.lanes, one.on_chip, one.prefetch = 1, -1, -1
+        parent_fn(ctypes.byref(one), n, m)
+        parent_prefetch = bool(one.prefetch)
         launches = {"parent": lambda: parent_fn(ctypes.byref(parent_args), n, m), **launches}
         calls["parent_wrapper"] = lambda: tree_kkt.kkt_backward_fused(*args, **kw)
     ms_rounds = time_variants(launches, rounds, loops)
@@ -298,6 +306,7 @@ def run_call(device, args, kw, tree_kkt, rounds: int, loops: int) -> dict:
         max_abs_err=err, err_bound=bound, ms=ms, ms_rounds=ms_rounds, plain_ms=plain_ms,
         pick_over_one=ms[pick] / ms[f"{dispatched}/L1/auto"],
         pick_over_parent=ms[pick] / ms["parent"] if "parent" in ms else None,
+        one_lane_prefetch=dict(this=choices[f"{dispatched}/L1/auto"]["prefetch"], parent=parent_prefetch),
         **{f"{name}_ms": min(v) for name, v in call_rounds.items()}, call_rounds=call_rounds)
 
 

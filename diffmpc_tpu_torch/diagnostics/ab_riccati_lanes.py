@@ -30,6 +30,9 @@ with ``parent`` the Riccati kernels of another checkout of the repository
 - the simplified value update (``value_update_exact_reg`` at the sweep's
   ``reg``) at L = 1 and at the rule's pick, on the same calls: its time and
   its own bit-equality across the two.
+- each build's own one-lane staging choice for the shape's first call
+  (``one_lane_staged``): every library keeps its own wave in its launch
+  cache, so another checkout's build loaded beside picks by its own rule.
 
 With ``profile`` it also builds the kernels with ``DMPC_RICCATI_PROFILE``
 and reports, for config 2's calls at B=128 (T=20 and 128) at 16 lanes, the
@@ -237,6 +240,25 @@ def time_calls(device, calls: list, libs: dict, rounds: int, loops: int, lanes, 
     return {_key(*v): t for v, t in ms.items()}, {_key(*v): e for v, e in equal.items()}, scenarios
 
 
+def one_lane_picks(device, call, libs: dict) -> dict:
+    """Each build's own one-lane choice for the recorded ``call``: whether
+    its launcher stages the slices (``one_lane_staged``, asked for by
+    ``staged = -1`` and written back), keyed by build."""
+    _, args, kw = call
+    n = args[4]
+    m = args[0].shape[-1] - n
+    staged = ric.stage_riccati(*args, **kw)
+    picks = {}
+    for name, lib in libs.items():
+        a = ric._RiccatiArgs.from_buffer_copy(staged.args)
+        a.lanes, a.staged = 1, -1
+        ric._cuda_launcher(device, n, m, "riccati", types.SimpleNamespace(launches=0), lib)(
+            ctypes.byref(a), n, m, staged.mode)
+        picks[name] = bool(a.staged)
+    torch.cuda.synchronize()
+    return picks
+
+
 def run(device, cases: list, parent=None, rounds: int = 2, loops: int = 3, lanes=ric.RICCATI_LANES,
         profiled: bool = False):
     """Yield one record per ``(case, T, B)`` of :func:`shapes`; raises
@@ -268,6 +290,7 @@ def run(device, cases: list, parent=None, rounds: int = 2, loops: int = 3, lanes
                 sm_count=sm_count, pick=pick, bit_equal_share=share, ms=ms,
                 pick_over_one={k: ms[f"{k}/policy/{pick}"] / ms[f"{k}/policy/1"] for k in KINDS},
                 pick_over_parent={k: ms[f"{k}/policy/{pick}"] / ms[f"{k}/parent/1"] for k in KINDS} if parent else None,
+                one_lane_staged=one_lane_picks(device, calls[0], libs),
                 exact_over_full_at_pick=ms[f"exact/{pick}"] / ms[f"riccati/policy/{pick}"],
             )
             del calls

@@ -1,6 +1,7 @@
 """What the diagnostics measure with: the card's published rates, its clock,
 CUDA-event timing of a call and, interleaved, of kernels alone on staged
-inputs, and the registers and spills that ptxas reports for each kernel."""
+inputs or replayed from CUDA graphs, and the registers and spills that
+ptxas reports for each kernel."""
 
 from __future__ import annotations
 
@@ -83,6 +84,33 @@ def cuda_ms(fn, loops: int, reps: int = 3) -> float:
         end.record()
         end.synchronize()
         best = min(best, start.elapsed_time(end) / loops)
+    return best
+
+
+def graph_ms(launches: dict, count: int = 100, rounds: int = 5) -> dict:
+    """Each launch alone with the host out of the way: ``count`` calls of
+    each ``launches[name]()`` (launches on the current stream) captured in
+    one CUDA graph, then in each of ``rounds`` rounds every graph's replay
+    timed in turn by CUDA events. Returns each name's minimum over the
+    rounds, in ms per call."""
+    graphs = {}
+    for name, launch in launches.items():
+        launch()  # warm: the first call of a launcher may query the card
+        torch.cuda.synchronize()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(count):
+                launch()
+    torch.cuda.synchronize()
+    best = {}
+    for _ in range(rounds):
+        for name, g in graphs.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            best[name] = min(best.get(name, float("inf")), start.elapsed_time(end) / count)
     return best
 
 

@@ -12,21 +12,28 @@ a dependent step. The cost of one sweep is the slope
 its variant's. On the TPU the rep count was compiled into two programs and
 the slopes came out negative; here it is a runtime argument of one binary.
 
-The sweep runs as the fused kernel runs its sweep: a group of lanes per
+Both kernels run as the fused kernel runs its sweep: a group of lanes per
 scenario at the fused kernel's rule for the batch
 (:func:`~diffmpc_tpu_torch.ops.cuda.riccati_pieces.piece_lanes`), in its two
 read modes: ``device`` (each step's inputs loaded from device memory at the
 step, as the fused kernel's sweep does) and ``staged`` (copied into the
-group's shared memory steps ahead). Each mode gets its slopes and shares;
-``load_share_of_full`` is the share of the device-memory ``full`` slope that
-staging takes off, the loads' latency on the chain while the repetitions
-find the inputs in the caches; ``load_share_of_one_sweep`` the same of one
-sweep's time (reps 1), whose loads go to device memory.
+group's shared memory steps ahead). Each mode of the sweep gets its slopes
+and shares; ``load_share_of_full`` is the share of the device-memory
+``full`` slope that staging takes off, the loads' latency on the chain
+while the repetitions find the inputs in the caches;
+``load_share_of_one_sweep`` the same of one sweep's time (reps 1), whose
+loads go to device memory. The rollout runs in both modes at the rule's
+lanes and at one lane (``rollout_modes``, keyed ``mode@L``: its slope, its
+time a step and one rollout's time); ``rollout_load_share_of_one`` is the
+share of one rollout's time at the rule's lanes reading device memory that
+staging takes off, and ``rollout_slope_share_of_fused_iteration`` each
+mode's slope at the rule's lanes over the fused kernel's time an iteration,
+where the caller gives it.
 
 Timing: CUDA events around the kernels alone on staged inputs, the
-twenty-two (mode, variant, reps) kernels interleaved in each of
-``N_ROUNDS`` rounds, each one's minimum kept. The inputs are the script's
-(:func:`make_inputs`).
+(mode, variant, reps) sweeps and (mode, L, reps) rollouts interleaved in
+each of ``N_ROUNDS`` rounds, each one's minimum kept. The inputs are the
+script's (:func:`make_inputs`).
 
 Run on a machine with a CUDA device:
 
@@ -113,9 +120,30 @@ def slopes(ms: dict, prefix: str = "") -> dict:
                 full_step_ns=slope_us["full"] / T * 1e3)
 
 
-def run() -> list:
+def rollout_key(mode: str, lanes: int, reps: int) -> str:
+    return f"rollout:{mode}@{lanes}:{reps}"
+
+
+def rollout_modes(ms: dict, lane_counts) -> dict:
+    """The rollout's slope (us a rollout), time a step (ns) and one
+    rollout's time (ms, reps 1) in each read mode at each of
+    ``lane_counts``, from ``ms`` keyed by :func:`rollout_key`, keyed
+    ``mode@L``."""
+    out = {}
+    for mode in MODES:
+        for lanes in lane_counts:
+            slope = (ms[rollout_key(mode, lanes, REPS_HI)] - ms[rollout_key(mode, lanes, 1)]) / (REPS_HI - 1) * 1e3
+            out[f"{mode}@{lanes}"] = dict(slope_us=slope, rollout_step_ns=slope / T * 1e3,
+                                          one_ms=ms[rollout_key(mode, lanes, 1)])
+    return out
+
+
+def run(ilqr_ms_per_iter: float | None = None) -> list:
     """The slopes and pieces at each of :data:`BATCHES`, the sweep at the
-    rule's lane count in both read modes: one record each."""
+    rule's lane count in both read modes, the rollout in both at the rule's
+    lane count and at one lane: one record each. ``ilqr_ms_per_iter``: the
+    fused kernel's time an iteration at the first batch, the yardstick of
+    the rollout's slope there."""
     device = require_card()
     clock = max_sm_clock_mhz()
     launcher = rp._cuda_launcher(device)
@@ -128,16 +156,26 @@ def run() -> list:
                                       rp.run_staged_pieces(launch, kind, *ins, reps=reps, lanes=lanes, staged=staged))
             for mode in MODES for kind in rp.VARIANTS for reps in (1, REPS_HI)
         }
-        for reps in (1, REPS_HI):
-            stagers[f"rollout@{reps}"] = (launcher, lambda launch, reps=reps: rp.run_staged_pieces(
-                launch, "rollout", *ins, reps=reps))
+        lane_counts = tuple(dict.fromkeys((lanes, 1)))
+        for mode in MODES:
+            for L in lane_counts:
+                for reps in (1, REPS_HI):
+                    stagers[rollout_key(mode, L, reps)] = (
+                        launcher, lambda launch, reps=reps, L=L, staged=mode == "staged": rp.run_staged_pieces(
+                            launch, "rollout", *ins, reps=reps, lanes=L, staged=staged))
         ms = interleaved_ms(stagers, N_ROUNDS, LOOPS)
         modes = {mode: slopes(ms, f"{mode}:") for mode in MODES}
-        rollout_slope_us = (ms[f"rollout@{REPS_HI}"] - ms["rollout@1"]) / (REPS_HI - 1) * 1e3
+        roll = rollout_modes(ms, lane_counts)
         full = {mode: modes[mode]["slope_us"]["full"] for mode in MODES}
+        at_pick = {mode: roll[f"{mode}@{lanes}"] for mode in MODES}
         records.append(dict(
             B=B, T=T, lanes=lanes, reps=(1, REPS_HI), rounds=N_ROUNDS, loops=LOOPS, ms=ms, modes=modes,
-            rollout_slope_us=rollout_slope_us,
+            rollout_modes=roll,
+            rollout_load_share_of_one=(at_pick["device"]["one_ms"] - at_pick["staged"]["one_ms"])
+            / at_pick["device"]["one_ms"],
+            rollout_slope_share_of_fused_iteration={
+                mode: r["slope_us"] * 1e-3 / ilqr_ms_per_iter for mode, r in at_pick.items()}
+            if ilqr_ms_per_iter and B == BATCHES[0] else None,
             load_share_of_full=(full["device"] - full["staged"]) / full["device"],
             # one sweep alone reads its inputs cold; the reps' slope reads them from the caches
             load_share_of_one_sweep=(ms["device:full@1"] - ms["staged:full@1"]) / ms["device:full@1"],

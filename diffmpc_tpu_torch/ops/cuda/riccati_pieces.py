@@ -10,11 +10,11 @@ piece's cost the full sweep's slope less its variant's
 (:mod:`diffmpc_tpu_torch.diagnostics.profile_riccati_pieces` measures them).
 
 - :func:`sweep_piece_cuda` and :func:`rollout_piece_cuda` launch the kernels
-  of ``csrc/riccati_pieces.cu`` (the sweep by a group of ``lanes`` threads
-  per scenario, as the fused kernel runs its sweep, each step's inputs read
-  from device memory or ``staged`` through the group's shared memory; the
-  rollout one thread per scenario; ``reps`` is a runtime argument, so every
-  rep count runs one binary) and count their launches.
+  of ``csrc/riccati_pieces.cu`` (each by a group of ``lanes`` threads per
+  scenario, as the fused kernel runs its sweep, each step's inputs read
+  from device memory or ``staged`` through the group's shared memory;
+  ``reps`` is a runtime argument, so every rep count runs one binary) and
+  count their launches.
 - :func:`sweep_piece_plain` and :func:`rollout_piece_plain` are the same
   arithmetic in plain PyTorch, each matrix entry a ``(B,)`` tensor, in the
   kernels' order. They serve CPU tensors and the checks of the kernels.
@@ -41,7 +41,7 @@ from .riccati_entries import _clip, _masked_chol_solve, _pnqp_entries, _value_up
 # the sweep's variants, in the order of enum PieceVariant (csrc/riccati_pieces.cuh)
 VARIANTS = ("full", "no_lin", "no_Qform", "no_pnqp", "no_Vup")
 N, M = 3, 1  # the pendulum
-# the sweep's lane counts, one kernel file each (csrc/riccati_pieces_l<L>.cu):
+# the kernels' lane counts, one kernel file each (csrc/riccati_pieces_l<L>.cu):
 # the fused kernel's, DMPC_LANES in csrc/lanes.cuh
 PIECE_LANES = ILQR_LANES
 
@@ -200,11 +200,16 @@ class _PieceArgs(ctypes.Structure):
 
 
 def piece_lanes(B: int, dyn, device) -> int:
-    """The sweep's threads per scenario at a batch of ``B`` of the pendulum
+    """The pieces' threads per scenario at a batch of ``B`` of the pendulum
     ``dyn`` on the card ``device``: the fused kernel's rule
     (:func:`~.ilqr.ilqr_lanes`), so that the pieces describe the main path's
-    sweep."""
+    iteration."""
     return ilqr_lanes(B, kernel_env(dyn), _sm_count(torch.device(device).index or 0))
+
+
+def _check_lanes(lanes: int) -> None:
+    if lanes not in PIECE_LANES:
+        raise ValueError(f"lanes must be one of {PIECE_LANES}; got {lanes}")
 
 
 def run_staged_pieces(launch, variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, *, reps=1, reg=1e-7, lanes=1,
@@ -213,10 +218,10 @@ def run_staged_pieces(launch, variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn
     ``launch(args, env, variant)`` with pointers to the ``PieceArgs`` and
     ``PendulumEnv`` structs (``variant`` one of :data:`VARIANTS` or
     ``"rollout"``), and return the outputs in the public layout: a
-    :class:`PieceSweepResult`, or the rollout's objective ``(B,)``. The
-    sweep runs ``lanes`` threads per scenario (one of :data:`PIECE_LANES`),
+    :class:`PieceSweepResult`, or the rollout's objective ``(B,)``. Each
+    kernel runs ``lanes`` threads per scenario (one of :data:`PIECE_LANES`),
     each step's inputs ``staged`` through the group's shared memory or read
-    from device memory; the rollout takes neither.
+    from device memory.
 
     ``launch`` runs the kernel of that variant for every scenario: the CUDA
     launcher for CUDA tensors, or a host build of the same header for CPU
@@ -225,8 +230,7 @@ def run_staged_pieces(launch, variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn
         raise ValueError(f"variant must be one of {VARIANTS + ('rollout',)}; got {variant!r}")
     if reps < 1:
         raise ValueError(f"reps must be >= 1; got {reps}")
-    if lanes not in PIECE_LANES:
-        raise ValueError(f"lanes must be one of {PIECE_LANES}; got {lanes}")
+    _check_lanes(lanes)
     T, B, _ = _entry_views(C, c, x_hat, u_hat, u_lower, u_upper)
     params = _params(dyn)
     device = C.device
@@ -260,7 +264,7 @@ def run_staged_pieces(launch, variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn
 def _cuda_launcher(device: torch.device):
     """The launcher of both kernels on the current stream: each launch adds
     one to :func:`sweep_piece_cuda`'s or :func:`rollout_piece_cuda`'s count
-    (the sweep's also sets ``sweep_piece_cuda.last_lanes``)."""
+    and sets its ``last_lanes``."""
     from ...csrc import build
 
     lib = build.load()
@@ -280,21 +284,24 @@ def _cuda_launcher(device: torch.device):
             raise RuntimeError(f"riccati_pieces {variant} kernel launch failed: cudaError {err} "
                                f"(lanes {args._obj.lanes}; built: {PIECE_LANES})")
         counted.launches += 1
-        if variant != "rollout":
-            sweep_piece_cuda.last_lanes = args._obj.lanes
+        counted.last_lanes = args._obj.lanes
 
     return launch
 
 
-def _on_card(variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, **knobs):
+def _on_card(variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, *, lanes, **knobs):
+    if lanes is not None:
+        _check_lanes(lanes)
     resolve_use_cuda(True, C.device)
+    if lanes is None:
+        lanes = piece_lanes(C.shape[1], dyn, C.device)
     f32 = torch.float32
     dyn = dyn.replace(params=dyn.params.to(f32))
     with torch.cuda.device(C.device):
         return run_staged_pieces(
             _cuda_launcher(C.device), variant, C.to(f32), c.to(f32), x_hat.to(f32), u_hat.to(f32),
             torch.as_tensor(u_lower, dtype=f32, device=C.device), torch.as_tensor(u_upper, dtype=f32, device=C.device),
-            dyn, **knobs,
+            dyn, lanes=lanes, **knobs,
         )
 
 
@@ -309,19 +316,22 @@ def sweep_piece_cuda(variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, *, reps
     ``sweep_piece_cuda.launches``."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}; got {variant!r}")
-    if lanes is None:
-        lanes = piece_lanes(C.shape[1], dyn, C.device) if C.device.type == "cuda" else 1
     return _on_card(variant, C, c, x_hat, u_hat, u_lower, u_upper, dyn, reps=reps, reg=reg, lanes=lanes,
                     staged=staged)
 
 
-def rollout_piece_cuda(C, c, x_hat, u_hat, u_lower, u_upper, dyn, *, reps=1) -> torch.Tensor:
+def rollout_piece_cuda(C, c, x_hat, u_hat, u_lower, u_upper, dyn, *, reps=1, lanes=None,
+                       staged=False) -> torch.Tensor:
     """The rollout kernel on the card, repeated ``reps`` times: the objective
     of :func:`rollout_piece_plain`. CUDA tensors of any float dtype, computed
-    in float32; adds one to ``rollout_piece_cuda.launches``."""
-    return _on_card("rollout", C, c, x_hat, u_hat, u_lower, u_upper, dyn, reps=reps)
+    in float32, by ``lanes`` threads per scenario (None: :func:`piece_lanes`,
+    the fused kernel's rule), each step's inputs ``staged`` through shared
+    memory or read from device memory; every choice gives the same bits.
+    Adds one to ``rollout_piece_cuda.launches``."""
+    return _on_card("rollout", C, c, x_hat, u_hat, u_lower, u_upper, dyn, reps=reps, lanes=lanes, staged=staged)
 
 
 sweep_piece_cuda.launches = 0  # kernel launches, counted where they happen
 sweep_piece_cuda.last_lanes = None  # the threads per scenario of the last sweep launched
 rollout_piece_cuda.launches = 0
+rollout_piece_cuda.last_lanes = None

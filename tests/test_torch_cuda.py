@@ -27,13 +27,15 @@ kernel, the same device arithmetic). The depth-blocked sweep within
 ``1e-4 * max(1, max|plain|)`` of its plain version and ``5e-4`` of the
 serial kernel; the piece kernels' ``K, k`` within ``1e-4 * max(1, max|plain|)``
 and the rollout's objective within 1e-5 of the batch's largest, at reps 1
-and 9. The MLP step (learned dynamics): the fused kernel with and without
+and 9, every lane count and read mode of both bit-equal to one lane. The MLP step (learned dynamics): the fused kernel with and without
 the pre-pass under the iLQR rules above, the line search and its twin
 within 1e-5 of the batch's largest objective with ``alpha`` equal, the
 weight gradients within 1e-3 of their max-abs of the CPU's. The
 kernel-under-the-mesh probe equals its plain version bit for bit; the dry
 run of ``parallel/dryrun.py`` on a one-rank NCCL mesh equals the same steps
-without a mesh exactly (one rank's ``all_reduce`` is the identity).
+without a mesh exactly (one rank's ``all_reduce`` is the identity). No
+library the port builds, nor a second build of the Riccati and KKT sources,
+exports a GNU unique symbol.
 """
 
 import dataclasses
@@ -643,21 +645,29 @@ def test_blocked_kernel_longest_horizon(device, block):
     assert rb.riccati_backward_blocked_cuda.launches == before
 
 
-@pytest.mark.parametrize("kind", ["full", "no_lin", "no_Qform", "no_pnqp", "no_Vup"])
+@pytest.mark.parametrize("kind", ["full", "no_lin", "no_Qform", "no_pnqp", "no_Vup", "rollout"])
 def test_piece_sweep_lane_groups_bit_equal(device, kind):
-    """The piece sweep at every built lane count, staged and reading device
-    memory, reps 1 and 9: bit-equal to one lane reading device memory."""
+    """The piece sweep and the rollout at every built lane count, staged and
+    reading device memory, reps 1 and 9: bit-equal to one lane reading
+    device memory."""
     from diffmpc_tpu_torch.diagnostics.profile_riccati_pieces import make_inputs
     from diffmpc_tpu_torch.ops.cuda import riccati_pieces as rp
 
     ins = make_inputs(130, device, steps=20)
+    counted = rp.rollout_piece_cuda if kind == "rollout" else rp.sweep_piece_cuda
+
+    def call(**kw):
+        if kind == "rollout":
+            return (rp.rollout_piece_cuda(*ins, **kw),)
+        return rp.sweep_piece_cuda(kind, *ins, **kw)
+
     for reps in (1, 9):
-        one = rp.sweep_piece_cuda(kind, *ins, reps=reps, lanes=1, staged=False)
+        one = call(reps=reps, lanes=1, staged=False)
         for lanes in rp.PIECE_LANES:
             for staged in (False, True):
-                got = rp.sweep_piece_cuda(kind, *ins, reps=reps, lanes=lanes, staged=staged)
+                got = call(reps=reps, lanes=lanes, staged=staged)
                 torch.cuda.synchronize()
-                assert rp.sweep_piece_cuda.last_lanes == lanes
+                assert counted.last_lanes == lanes
                 assert all(torch.equal(g, o) for g, o in zip(got, one)), (lanes, staged, reps)
 
 
@@ -794,14 +804,50 @@ def test_nn_mpc_solve_and_weight_gradients_on_the_card(device):
         torch.testing.assert_close(g.cpu(), w, atol=1e-3 * float(w.abs().max()), rtol=0)
 
 
-@pytest.mark.parametrize("L", [1, 2, 3, 8, 65536])
-def test_probe_kernel_matches_plain(device, L):
-    x = torch.arange(L, dtype=torch.float32, device=device) ** 1.5
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("L", [1, 2, 3, 8, 1027, 32768, 65536])
+def test_probe_kernel_matches_plain(device, L, offset):
+    """The probe's grid bit-equal to its plain version, the shard and its
+    output ``offset`` floats off a 16-byte boundary (the kernel's scalar head
+    and tail around its float4 stores), nothing written outside the shard."""
+    x = (torch.arange(L + offset, dtype=torch.float32, device=device) ** 1.5)[offset:]
     before = shard_probe_cuda.launches
-    got = shard_probe_cuda(x)
+    if offset:
+        base = torch.full((L + 8,), float("nan"), device=device)
+        got = shard_probe_cuda(x, out=base[offset:offset + L])
+    else:
+        got = shard_probe_cuda(x)
     torch.cuda.synchronize()
     assert shard_probe_cuda.launches == before + 1
     assert torch.equal(got, shard_probe_plain(x))
+    if offset:
+        assert bool(torch.isnan(base[:offset]).all()) and bool(torch.isnan(base[offset + L:]).all())
+
+
+def test_no_library_exports_a_gnu_unique_symbol(device, tmp_path):
+    """No library the port builds exports a GNU unique symbol (a
+    function-local static of an inline function or template, one object
+    across every library of the process): the main library, a second build
+    of the Riccati and KKT sources beside it (as the A/B diagnostics'
+    ``--parent`` and ``--profile`` builds are made), and a Riccati and a KKT
+    variant."""
+    import glob
+    import os
+
+    from diffmpc_tpu_torch.csrc import build
+    from diffmpc_tpu_torch.diagnostics.ab_riccati_lanes import build_riccati
+
+    build.load()
+    kkt_sources = sorted(glob.glob(os.path.join(build.CSRC, "kkt*.cu")))
+    libs = {
+        "library": build.library_path(),
+        "riccati_second": build_riccati(str(tmp_path), build.CSRC, (), "second")._name,
+        "kkt_second": build.build_with(kkt_sources, str(tmp_path), (), "kkt_second")._name,
+    }
+    for key in (build.VariantKey("riccati", 5, 1), build.VariantKey("kkt", 5, 1)):
+        build.load_variant(key)
+        libs[key.name] = build.variant_path(key)
+    assert {name: build.unique_symbols(path) for name, path in libs.items()} == {name: [] for name in libs}
 
 
 def test_world_one_nccl_dryrun_equals_the_steps_without_a_mesh(device, tmp_path):

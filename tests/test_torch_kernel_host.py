@@ -312,22 +312,26 @@ extern "C" int diffmpc_riccati_blocked_max_blocks_host(int n, int m, int D, int 
   return -1;
 }
 
-// the piece sweep by groups of L lanes (HostLanes), staged through the
-// group's ring or reading the arrays, at every DMPC_LANES count
+// the piece sweep (VARIANT a PieceVariant) or the rollout (VARIANT -1) by
+// groups of L lanes (HostLanes), staged through the group's ring or reading
+// the arrays, at every DMPC_LANES count
 template <int VARIANT, bool STAGED, int L>
-static int sweep_pieces_group(const PieceArgs* a, const PendulumEnv* env) {
+static int pieces_group(const PieceArgs* a, const PendulumEnv* env) {
   std::vector<float> slots(piece_group_slot_floats());
   const HostLanes<L> g{slots.data()};
-  for (int b = 0; b < a->B; ++b) piece_sweep_scenario<VARIANT, STAGED>(*a, *env, b, g);
+  for (int b = 0; b < a->B; ++b) {
+    if constexpr (VARIANT < 0) piece_rollout_scenario<STAGED>(*a, *env, b, g);
+    else piece_sweep_scenario<VARIANT, STAGED>(*a, *env, b, g);
+  }
   return 0;
 }
 
 template <int VARIANT>
-static int sweep_pieces_all(const PieceArgs* a, const PendulumEnv* env) {
+static int pieces_all(const PieceArgs* a, const PendulumEnv* env) {
   switch (a->lanes) {
 #define HOST_PIECE_LANE_CASE(_, L_) \
   case L_:                          \
-    return a->staged ? sweep_pieces_group<VARIANT, true, L_>(a, env) : sweep_pieces_group<VARIANT, false, L_>(a, env);
+    return a->staged ? pieces_group<VARIANT, true, L_>(a, env) : pieces_group<VARIANT, false, L_>(a, env);
     DMPC_LANES(HOST_PIECE_LANE_CASE, _)
 #undef HOST_PIECE_LANE_CASE
   }
@@ -337,20 +341,20 @@ static int sweep_pieces_all(const PieceArgs* a, const PendulumEnv* env) {
 // variant: a PieceVariant, or -1 for the rollout
 extern "C" int diffmpc_riccati_pieces_host(const PieceArgs* a, const PendulumEnv* env, int variant) {
   switch (variant) {
-    case kPieceFull: return sweep_pieces_all<kPieceFull>(a, env);
-    case kPieceNoLin: return sweep_pieces_all<kPieceNoLin>(a, env);
-    case kPieceNoQform: return sweep_pieces_all<kPieceNoQform>(a, env);
-    case kPieceNoPnqp: return sweep_pieces_all<kPieceNoPnqp>(a, env);
-    case kPieceNoVup: return sweep_pieces_all<kPieceNoVup>(a, env);
-    case -1:
-      for (int b = 0; b < a->B; ++b) piece_rollout_scenario(*a, *env, b);
-      return 0;
+    case kPieceFull: return pieces_all<kPieceFull>(a, env);
+    case kPieceNoLin: return pieces_all<kPieceNoLin>(a, env);
+    case kPieceNoQform: return pieces_all<kPieceNoQform>(a, env);
+    case kPieceNoPnqp: return pieces_all<kPieceNoPnqp>(a, env);
+    case kPieceNoVup: return pieces_all<kPieceNoVup>(a, env);
+    case -1: return pieces_all<-1>(a, env);
   }
   return 1;
 }
 
-extern "C" int diffmpc_shard_probe_host(const float* x, float* out, int L) {
-  shard_probe_fill(x, out, L, 0, 1);
+// the probe over the shard as a grid of `threads` threads runs it, the
+// threads one after another (first = the thread's index, stride = threads)
+extern "C" int diffmpc_shard_probe_host(const float* x, float* out, int L, int threads) {
+  for (int first = 0; first < threads; ++first) shard_probe_fill(x, out, L, first, threads);
   return 0;
 }
 
@@ -1630,22 +1634,29 @@ def test_host_build_riccati_pieces_match_plain(host_pieces_launch, variant, reps
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("variant", PIECE_VARIANTS)
+@pytest.mark.parametrize("variant", PIECE_VARIANTS + ("rollout",))
 def test_host_build_riccati_pieces_lane_groups_bit_equal(host_pieces_launch, variant):
-    """The piece sweep at every built lane count, staged through the group's
-    ring and reading the arrays, at reps 1 and 3 (the ring restarted each
-    sweep; T = 7 leaves it part full): bit-equal to one lane reading the
-    arrays, and within ``1e-4 * max(1, max|plain|)`` of the plain version."""
-    ins = _piece_inputs(7, 21, 1300 + PIECE_VARIANTS.index(variant))
+    """The piece sweep and the rollout at every built lane count, staged
+    through the group's ring and reading the arrays, at reps 1 and 3 (the
+    ring restarted each pass; T = 7 leaves it part full): bit-equal to one
+    lane reading the arrays, and within ``1e-4 * max(1, max|plain|)`` of the
+    plain version (the rollout's objective within 1e-5 relative)."""
+    kinds = PIECE_VARIANTS + ("rollout",)
+    ins = _piece_inputs(7, 21, 1300 + kinds.index(variant))
     for reps in (1, 3):
         one = run_staged_pieces(host_pieces_launch, variant, *ins, reps=reps, lanes=1, staged=False)
-        want = sweep_piece_plain(variant, *ins, reps=reps)
-        for g, w in zip(one, want):
-            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0)
+        if variant == "rollout":
+            want = rollout_piece_plain(*ins, reps=reps).obj
+            np.testing.assert_allclose(one.numpy(), want.numpy(), rtol=1e-5, atol=0)
+            one = (one,)
+        else:
+            want = sweep_piece_plain(variant, *ins, reps=reps)
+            for g, w in zip(one, want):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4 * max(1.0, float(w.abs().max())), rtol=0)
         for lanes in PIECE_LANES:
             for staged in (False, True):
                 got = run_staged_pieces(host_pieces_launch, variant, *ins, reps=reps, lanes=lanes, staged=staged)
-                for g, o in zip(got, one):
+                for g, o in zip((got,) if variant == "rollout" else got, one):
                     assert torch.equal(g, o), (lanes, staged, reps)
     with pytest.raises(ValueError, match="lanes must be one of"):
         run_staged_pieces(host_pieces_launch, variant, *ins, lanes=3)
@@ -1928,17 +1939,49 @@ def test_build_keys_library_by_sources_and_reports_nvcc_errors(tmp_path, monkeyp
     assert build.build() == (so, "")  # built once
 
 
-@pytest.mark.parametrize("L", [1, 2, 3, 8, 16, 1000])
+UNIQUE_CACHE = r"""
+template <int N> int& counter() { static int c = N; return c; }
+extern "C" int bump() { return ++counter<1>(); }
+"""
+
+
+@pytest.mark.parametrize("linkage", ["template", "unnamed namespace"])
+def test_unique_symbols_finds_a_template_static(tmp_path, linkage):
+    """build.unique_symbols reads the GNU unique symbols a library exports:
+    a template's function-local static is one (shared by every library of
+    the process), the same static in an unnamed namespace is none."""
+    gxx = shutil.which("g++")
+    if gxx is None or shutil.which("nm") is None:
+        pytest.skip("g++ and nm build and read the library")
+    text = UNIQUE_CACHE if linkage == "template" else UNIQUE_CACHE.replace(
+        "template <int N> int& counter() { static int c = N; return c; }",
+        "namespace { template <int N> int& counter() { static int c = N; return c; } }")
+    (tmp_path / "u.cpp").write_text(text)
+    so = tmp_path / "libu.so"
+    proc = subprocess.run([gxx, "-O2", "-shared", "-fPIC", "-o", str(so), str(tmp_path / "u.cpp")],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    assert build.unique_symbols(str(so)) == (["_ZZ7counterILi1EERivE1c"] if linkage == "template" else [])
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 8, 16, 1000, 1027])
 def test_host_build_shard_probe_matches_plain(host_lib, L):
     """Three float32 adds in the body's order, the shard's clamp included:
-    bit-equal."""
+    bit-equal, for one thread and for a grid of 32 and of three blocks of
+    32 threads (each thread its share of the head, tail and groups of four),
+    into an aligned ``out`` and into views at each offset of 1-3 floats."""
     fn = host_lib.diffmpc_shard_probe_host
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     x = torch.tensor(np.random.default_rng(L).normal(size=L), dtype=torch.float32)
-    out = torch.full_like(x, float("nan"))
-    assert fn(x.data_ptr(), out.data_ptr(), L) == 0
-    assert torch.equal(out, shard_probe_plain(x))
+    want = shard_probe_plain(x)
+    for threads in (1, 32, 96):
+        for offset in (0, 1, 2, 3):
+            base = torch.full((L + 8,), float("nan"))
+            out = base[offset:offset + L]
+            assert fn(x.data_ptr(), out.data_ptr(), L, threads) == 0
+            assert torch.equal(out, want), (threads, offset)
+            assert torch.isnan(base[:offset]).all() and torch.isnan(base[offset + L:]).all(), (threads, offset)
 
 
 # ---------------------------------------------------------------------------

@@ -140,6 +140,25 @@ def test_piece_wrappers_launch_or_raise():
     assert seen["kind"] == "rollout" and seen["args"].reps == 9 and seen["args"].T == 3 and seen["args"].B == 8
 
 
+@pytest.mark.parametrize("kind", ["full", "rollout"])
+def test_piece_wrappers_refuse_a_lane_count_not_built(kind):
+    """Both wrappers take ``lanes`` and ``staged``: a lane count that is not
+    built raises ValueError before anything else, a CPU tensor raises at any
+    built count and read mode, and nothing is launched."""
+    ins = profile_riccati_pieces.make_inputs(8, "cpu", steps=3)
+    call = (lambda **kw: rp.rollout_piece_cuda(*ins, **kw)) if kind == "rollout" else (
+        lambda **kw: rp.sweep_piece_cuda(kind, *ins, **kw))
+    counted = rp.rollout_piece_cuda if kind == "rollout" else rp.sweep_piece_cuda
+    before = counted.launches
+    with pytest.raises(ValueError, match="lanes must be one of"):
+        call(lanes=3)
+    for lanes in (None,) + rp.PIECE_LANES:
+        for staged in (False, True):
+            with pytest.raises(ValueError, match="use_cuda"):
+                call(lanes=lanes, staged=staged)
+    assert counted.launches == before
+
+
 @pytest.mark.parametrize("reps", [1, 3])
 def test_rollout_abs_cost_scales_its_rounding(reps):
     """The rollout's sum of |stage costs| bounds |objective|, and the float32
@@ -197,6 +216,23 @@ def test_ab_bounds():
             assert blocked["bound_ms"] == max(blocked["bytes_ms"], blocked["ops_ms"], blocked["chain_ms"])
     # n = 3, m = 1: 4 (10 + 4 + 12 + 3) + 4 (3 + 1) + 1 bytes per scenario-step
     assert ab_blocked_ilp.sweep_bytes(20, 1024, 3, 1) == 20 * 1024 * 133
+
+
+def test_rollout_modes_take_each_slope_from_its_own_rounds():
+    """The rollout's slope, time a step and one rollout's time in each read
+    mode and lane count come from that mode's and count's two rep counts
+    alone."""
+    pr = profile_riccati_pieces
+    ms = {pr.rollout_key(mode, L, reps): base + (pr.REPS_HI - 1) * slope * (reps > 1)
+          for mode, L, base, slope in (("device", 16, 0.010, 0.004), ("staged", 16, 0.006, 0.002),
+                                       ("device", 1, 0.020, 0.008), ("staged", 1, 0.030, 0.009))
+          for reps in (1, pr.REPS_HI)}
+    got = pr.rollout_modes(ms, (16, 1))
+    assert set(got) == {"device@16", "staged@16", "device@1", "staged@1"}
+    for key, base, slope in (("device@16", 0.010, 0.004), ("staged@1", 0.030, 0.009)):
+        assert got[key]["one_ms"] == base
+        assert got[key]["slope_us"] == pytest.approx(slope * 1e3)
+        assert got[key]["rollout_step_ns"] == pytest.approx(slope * 1e6 / pr.T)
 
 
 @pytest.mark.parametrize("run", [ab_blocked_ilp.run, profile_riccati_pieces.run, ab_nn_reread.run])

@@ -254,9 +254,7 @@ Phases, one line of output each (JSON where it carries numbers):
    Riccati and one rollout launch an iteration, one KKT launch), its first
    64 scenarios against the host (phase 11's rule, the objectives on the
    scenarios converged on both sides) and, those, under "1" against the
-   float64 optimum; the zoo's
-   shapes (2, 1), (5, 1), (6, 2) through their variants the same way
-   (B=64); and the launches of the simplified update's kernels (the
+   float64 optimum; and the launches of the simplified update's kernels (the
    flagship's solve + gradient, the pendulum at T=512 through the KKT twin)
    and of the (4, 2) sweep under "0" (config 2 at B=128).
 
@@ -388,12 +386,33 @@ Phases, one line of output each (JSON where it carries numbers):
    tests/test_native_oracle.py's rule; export and load seconds, bytes and
    ms a call (CUDA events) of each artifact beside the live solve's.
 
+41. one robot: the render example's episode (examples/render_trajectory.py:
+   41-88, B=1, T=15, lqr_iter=8, eps=1e-5, 80 env steps) for each of the
+   five envs through the port's example (its build and episode; the frames
+   are drawn on the host by tests/test_torch_render.py, the card's machine
+   has no matplotlib): the counts set to 0 before it and read after, one
+   fused launch an env step, of the pendulum's prebuilt kernel or the env's
+   variant (its key printed), no other kernel and no plain version called;
+   the states finite and the controls in the box; the ms an env step (CUDA
+   events, the episode's second run, bit-equal to the first), the wrapper's
+   card and host ms an env step in place (timed_spans), the card's idle
+   share of env step 40 profiled in a fresh process
+   (diffmpc_tpu_torch.diagnostics.one_robot_profile; its trace must hold the
+   fused kernel); the solves at env steps 0, 40 and 79
+   (their warm starts) against the host's plain fused solve by phase 36's
+   witness rule, every built lane count with and without hoist_lin
+   bit-equal to one lane, the kernel alone at the wrapper's lanes and the
+   wrapper timed with the kernel's bound (the chain of the solve's
+   iterations at T=15); the host's ms an env step (the env step less the
+   wrapper at env step 40); the plain version on the card timed once.
+
 With ``--slice-only`` the script runs phases 0, 1 and 30-33 alone; with
 ``--zoo-only``, phases 0 and 1, the zoo's variants of phase 30, and 35-36;
 with ``--mpc-only``, phases 0 and 1, the receding loop's variants, and
 37-38; with ``--examples-only``, phases 0 and 1, the zoo's variants (the
 examples' kernels) and 39; with ``--aot-only``, phases 0 and 1, the
-variants of phase 40 and 40.
+variants of phase 40 and 40; with ``--render-only``, phases 0 and 1, the
+zoo's variants (the envs' fused kernels) and 41.
 
 The line before the last holds the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -561,9 +580,11 @@ def witnessed_agreement(name: str, kernel, plain, exact, ties: bool = False, cal
     tie = calm & same_iters(k, p) & (k["alpha"] != p["alpha"]) if ties else np.zeros_like(calm)
     us = np.abs(k["us"] - p["us"]).max(axis=(0, 2))
     rel = np.abs(k["objs"] - p["objs"]) / np.maximum(np.abs(p["objs"]), 1e-6)
+    held = calm & ~tie  # at one scenario (phase 41) either may be empty
     out = dict(n_iters_equal_frac=float(same_iters(k, p).mean()), off_plain=int(kp.sum()),
                plain_off_float64=int(pe.sum()), kernel_off_float64=int(ke.sum()),
-               us_max_abs=float(us[calm & ~tie].max()), objs_max_rel=float(rel[calm].max()),
+               us_max_abs=float(us[held].max()) if held.any() else 0.0,
+               objs_max_rel=float(rel[calm].max()) if calm.any() else 0.0,
                converged_frac_kernel=float(k["converged"].mean()), converged_frac_plain=float(p["converged"].mean()),
                float64_mean_obj=float(e["objs"].mean()), mean_obj=float(k["objs"].mean()))
     if converged_free:
@@ -2368,25 +2389,15 @@ def slice_variant_keys() -> list:
     pendulum's with the simplified value update; the Riccati sweep at (6, 3)
     under both of its QPs and at (4, 2) under the loop ("0"); the line
     search at (6, 3); the KKT pair at (6, 3) and, with the simplified update,
-    at (3, 1); and the zoo's shapes (2, 1), (5, 1), (6, 2) of every linear
-    family."""
+    at (3, 1). The zoo's shapes are the zoo's phases' (zoo_variant_keys):
+    phases 35-36 launch them at the envs' published widths."""
     from diffmpc_tpu_torch.csrc.build import ENUM_LOOP, ENUM_THREE, VariantKey as K
 
     keys = [K("ilqr", SL_N, SL_M, "nn", SL_HIDDEN), K("ilqr", SL_N, SL_M, "nn", SL_HIDDEN, ENUM_THREE),
             K("ilqr", 3, 1, "nn", (32,)), K("ilqr", 3, 1, "pendulum", exact=True),
             K("riccati", SL_N, SL_M), K("riccati", SL_N, SL_M, enum=ENUM_THREE), K("riccati", BOX_N, BOX_M, enum=ENUM_LOOP),
             K("rollout", SL_N, SL_M), K("kkt", SL_N, SL_M), K("kkt", 3, 1, exact=True)]
-    for n, m in ZOO_SHAPES:
-        keys += [K("riccati", n, m), K("rollout", n, m), K("kkt", n, m)]
     return keys
-
-
-# the linear shapes the zoo's envs need (cartpole (5, 1), quadrotor (6, 2),
-# acrobot-like (2, 1)), each through mpc_solve on its variants, at a batch
-# that only holds the linear line search: the envs' own phases (35-36)
-# launch the same Riccati and KKT keys at their published widths
-ZOO_SHAPES = ((2, 1), (5, 1), (6, 2))
-ZOO_SHAPE_B = 64
 
 
 def config2_recipe(seed: int, B: int, n: int, m: int) -> list:
@@ -2551,7 +2562,7 @@ def build_variants_phase(keys: list) -> None:
 def variants_slice(device, smi: str, clock_mhz: float) -> list:
     """Phases 30-33: the variants' build, each variant kernel against its
     plain version, the slice's two calls through mpc_solve at full width with
-    the MLP's gradient, and the zoo's shapes. Returns the kernels' records
+    the MLP's gradient. Returns the kernels' records
     for the kernels line."""
     from diffmpc_tpu_torch import LinDx, MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.csrc import build
@@ -2862,7 +2873,7 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
         raise AssertionError(f"the (6, 3) MLP's weight gradients against float64: {g_rel}, host float32 {g_rel32}")
     emit(phase="slice_mlp_seconds", seconds=time.perf_counter() - t0)
 
-    # ---- 33. the (6, 3) LinDx box-DDP at B=4096, and the zoo's shapes ----
+    # ---- 33. the (6, 3) LinDx box-DDP at B=4096 ----
     t0 = time.perf_counter()
     lin_path = {}
     for qp in ("", "1"):
@@ -2915,30 +2926,6 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
                 and opt_pg <= 1e-6 and (qp != "1" or gap_done <= 1e-5)):
             raise AssertionError(f"(6, 3) LinDx {qp!r}, card vs host and the optimum: {record}")
         del leaves, sol, grads
-
-    # the zoo's shapes: every family's variant through mpc_solve + gradient
-    zoo = {}
-    for n, m in ZOO_SHAPES:
-        cfg = MPCConfig(n_state=n, n_ctrl=m, T=T, lqr_iter=10, exit_unconverged=False, detach_unconverged=False)
-        arrays = config2_recipe(40 + n + m, ZOO_SHAPE_B, n, m)
-
-        def solve(dev, grad=False):
-            leaves = [torch.tensor(a, device=dev, requires_grad=grad) for a in arrays]
-            C, c, F, f, x0 = leaves
-            return leaves, mpc_solve(cfg, x0, QuadCost(C, c), LinDx(F, f), u_lower=-BOX, u_upper=BOX)
-
-        reset_counts()
-        leaves, sol = solve(device, grad=True)
-        grads = torch.autograd.grad(sol.us.sum() + sol.xs.sum(), leaves)
-        got = counts()
-        it = int(sol.info.n_iters)
-        _, cpu = solve("cpu")
-        obj_rel = float(((sol.objs.detach().cpu() - cpu.objs.detach()).abs() / cpu.objs.detach().abs().clamp_min(1.0)).max())
-        zoo[(n, m)] = dict(n=n, m=m, n_iters=it, launches=got, objs_max_rel_vs_host=obj_rel)
-        emit(phase="slice_zoo_shape", B=ZOO_SHAPE_B, T=T, **zoo[(n, m)])
-        if got != only(riccati=it, rollout=it, kkt=1) or not obj_rel <= 1e-5 or not all(bool(torch.isfinite(g).all())
-                                                                                       for g in grads):
-            raise AssertionError(f"(n, m) = ({n}, {m}) through its variants: {zoo[(n, m)]}")
 
     # the launches of the simplified update's kernels and the (4, 2) "0" sweep
     # on their paths: the flagship solve + gradient, the pendulum at T=512
@@ -3035,8 +3022,10 @@ ZOO_LS_B = 1024  # the line search's batch, at T=20 and (cartpole) T_LONG
 # each step's operations and dependent chain, counted from csrc/<env>.cuh
 # (its header writes the count out; a sine or a cosine counted as one): the
 # operations on values, the sines and cosines, and the longest chain of
-# dependent ones from x_t to x_t+1
-ZOO_STEP = {"cartpole": (40, 2, 14), "vehicle": (15, 4, 12), "quadrotor": (22, 2, 8), "acrobot": (106, 4, 17)}
+# dependent ones from x_t to x_t+1; the pendulum's (csrc/pendulum.cuh, its
+# sines, cosines and square root) beside them for phases 37 and 41
+ZOO_STEP = {"cartpole": (40, 2, 14), "vehicle": (15, 4, 12), "quadrotor": (22, 2, 8), "acrobot": (106, 4, 17),
+            "pendulum": (25, 3, 14)}
 
 
 def zoo_variant_keys() -> list:
@@ -3608,7 +3597,7 @@ RH_MID = 50  # the env step of the warm-started solve held against the host
 # cosines and square roots, the longest chain x_t -> x_t+1), counted from
 # csrc/pendulum.cuh and csrc/vehicle.cuh; the wrapper adds m copies, off
 # that chain
-PT_STEP = {"pendulum": (25, 3, 14), "vehicle": ZOO_STEP["vehicle"]}
+PT_STEP = {name: ZOO_STEP[name] for name in ("pendulum", "vehicle")}
 PT_SRC = "diffmpc_tpu_torch/csrc/passthrough.cuh"
 
 
@@ -4747,6 +4736,159 @@ def aot_phase(device, smi: str) -> None:
     emit(phase="aot_done", seconds=time.perf_counter() - t_phase, card=smi)
 
 
+# ---------------------------------------------------------------------------
+# Phase 41: one robot. The render example's episode (examples/
+# render_trajectory.py:41-88: B=1, T=15, lqr_iter=8, eps=1e-5, 80 env steps)
+# for each of the five envs through the port's example (diffmpc_tpu_torch/
+# examples/render_trajectory.py, its build and episode): one fused launch an
+# env step, of the prebuilt pendulum kernel or the env's variant. Its frames
+# are drawn on the host (tests/test_torch_render.py): the card's machine has
+# no matplotlib.
+# ---------------------------------------------------------------------------
+
+RENDER_ENVS = ("pendulum", "cartpole", "vehicle", "quadrotor", "acrobot")
+RENDER_AT = (0, 40, 79)  # the env steps whose solves are held against the plain version
+RENDER_LOOPS = 50  # the kernel alone and the wrapper, each a mean over this many calls
+
+
+def render_solve(name: str, run: ZooRun, step: int, call) -> tuple:
+    """The episode's solve at env step ``step`` (its recorded call of the
+    fused wrapper, warm start included) against the host's plain fused solve
+    by phase 36's witness rule; every built lane count, with and without
+    hoist_lin, bit-equal to one lane; the kernel alone (at the wrapper's
+    lanes) and the wrapper timed, the kernel's bound from its result.
+    Returns the record and the solve's inputs ``(args, knobs)``."""
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    agree, (args, kw) = fused_vs_host(f"{name} one robot, env step {step}", call, 1)
+    knobs = {k: v for k, v in kw.items() if k not in ("use_cuda", "pnqp_enum", "value_update_exact_reg", "hoist_lin")}
+    env = il.kernel_env(args[3])
+    staged = {}
+    for hoist in (False, True):
+        launch = il._cuda_launcher(run.device, env, hoist)
+        for L in il.ILQR_LANES:
+            staged[(L, hoist)] = il.run_staged(launch, *args, lanes=L, **dict(knobs, hoist_lin=hoist))
+    bit_equal = lanes_bit_equal(f"{name} one robot lanes, env step {step}", staged)
+    lanes = il.ilqr_lanes(1, env, run.sm_count)
+    out = {}
+    res = il.run_staged(timed_launch(il._cuda_launcher(run.device, env, False), RENDER_LOOPS, out), *args, lanes=lanes,
+                        **knobs)
+    wrap_ms = cuda_ms(lambda: il.ilqr_solve_fused(*args, **knobs), RENDER_LOOPS, 3)
+    bound = zoo_ilqr_bound(name, res, 1, args[1].shape[0], knobs["max_linesearch_iter"], run.clock_mhz)
+    return dict(step=step, n_iters=int(res.n_iters[0]), converged=bool(res.converged[0]), lanes=lanes,
+                lanes_bit_equal=bit_equal, kernel_ms=out["ms"], wrapper_ms=wrap_ms, bound=bound,
+                vs_host=agree), (args, knobs)
+
+
+def render_episodes(run: ZooRun) -> None:
+    """Phase 41: each env's one-robot episode at the example's full width
+    through its own build and episode (the counts set to 0 before it and
+    read after: one fused launch an env step, of the env's prebuilt kernel
+    or variant, no other kernel and no plain version); the states finite
+    and the controls in the box; its second run (CUDA events) bit-equal to
+    the first, ms an env step; a third under timed_spans, the wrapper's card
+    and host ms an env step in place; the card's idle share of env step 40,
+    profiled in a fresh process first (diagnostics/one_robot_profile.py: late
+    in this process the profiler has lost the fused kernel's events); the
+    solves at env steps 0, 40 and 79 (render_solve); the host's ms an env
+    step beside the wrapper's (the env step less the wrapper alone at env
+    step 40)."""
+    from diffmpc_tpu_torch.examples import render_trajectory as ex
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    device, smi = run.device, run.smi
+    child = subprocess.run([sys.executable, "-m", "diffmpc_tpu_torch.diagnostics.one_robot_profile", "--at",
+                            str(RENDER_AT[1]), "--envs", *RENDER_ENVS], capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise AssertionError(f"the one-robot profile's process failed:\n{child.stderr[-4000:]}")
+    profiled = {r["env"]: r for r in map(json.loads, re.findall(r"^\{.*\}$", child.stdout, re.M))}
+    for name in RENDER_ENVS:
+        t0 = time.perf_counter()
+        args = ex.parse_args(["--env", name])
+        s = ex.build(args, device)
+        steps, cfg = args.steps, s["config"]
+        keys, calls, plain = [], [], {}
+        run.reset()
+        with recording("diffmpc_tpu_torch.ops.cuda.ilqr", "kernel_library", keys), \
+                recording("diffmpc_tpu_torch.mpc", "ilqr_solve_fused", calls), counted_plain(plain):
+            xs, us, objs = ex.episode(s, steps)
+        launches = run.counts()
+        lanes = il.ilqr_solve_fused.last_lanes
+        if launches != run.only(ilqr=steps) or plain or len(calls) != steps:
+            raise AssertionError(f"one robot {name}: launches {launches}, plain calls {plain}, {len(calls)} solves")
+        launched = sorted({"prebuilt" if key is None else key.name for (key,), _ in keys})
+        want_key = il.env_variant_key(il.kernel_env(s["dx"]), "ilqr")
+        if launched != ["prebuilt" if want_key is None else want_key.name]:
+            raise AssertionError(f"one robot {name}: launched {launched}, not {want_key}")
+        n, m = cfg.n_state, cfg.n_ctrl
+        lo, hi = (torch.as_tensor(b, dtype=torch.float32, device=device).expand(m) for b in (s["lo"], s["hi"]))
+        if xs.shape != (steps + 1, 1, n) or us.shape != (steps, 1, m) or not bool(torch.isfinite(xs).all()) \
+                or not bool(torch.isfinite(objs).all()) or not bool(((us >= lo) & (us <= hi)).all()):
+            raise AssertionError(f"one robot {name}: shapes {tuple(xs.shape)}, {tuple(us.shape)}, or non-finite "
+                                 f"states, or controls outside the box")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        xs2, us2, _ = ex.episode(s, steps)
+        end.record()
+        end.synchronize()
+        episode_ms = start.elapsed_time(end)
+        if not (torch.equal(xs2, xs) and torch.equal(us2, us)):
+            raise AssertionError(f"one robot {name}: the second run differs from the first")
+        spans = {}
+        with timed_spans({"wrapper": ("diffmpc_tpu_torch.mpc", "ilqr_solve_fused")}, spans):
+            ex.episode(s, steps)
+        torch.cuda.synchronize()
+        in_place = {k: v / steps for k, v in span_ms(spans)["wrapper"].items()}
+        solves, inputs = zip(*(render_solve(name, run, i, calls[i]) for i in RENDER_AT))
+        mid = solves[1]
+        ms_step = episode_ms / steps
+        record = dict(phase="one_robot_episode", env=name, B=1, T=cfg.T, lqr_iter=cfg.lqr_iter, eps=cfg.eps,
+                      env_steps=steps, launches=launches, variant=launched[0], lanes=lanes,
+                      final_state=xs[-1, 0].tolist(), mean_obj=float(objs.mean()), episode_ms=episode_ms,
+                      ms_per_env_step=ms_step, wrapper_in_place=in_place, profiled=profiled[name],
+                      idle_share=1 - profiled[name]["busy_ms"] / profiled[name]["profiled_env_step_ms"],
+                      kernel_ms=mid["kernel_ms"], wrapper_ms=mid["wrapper_ms"], host_ms=ms_step - mid["wrapper_ms"],
+                      solves=solves, card=smi)
+        # the plain version on the card, timed once on the first solve
+        pargs, pknobs = inputs[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        il.ilqr_solve_plain(*pargs, **pknobs)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        first = solves[0]
+        run.fused[name] = dict(ms=first["kernel_ms"], wrapper_ms=first["wrapper_ms"], plain_ms=plain_ms,
+                               bound=first["bound"], lanes=first["lanes"], launches=launches["ilqr"],
+                               key=launched[0], T=cfg.T,
+                               max_abs_err=max(sv["vs_host"]["us_max_abs"] for sv in solves))
+        record.update(plain_ms=plain_ms, seconds=time.perf_counter() - t0)
+        emit(**record)
+
+
+def render_rows(run: ZooRun) -> list:
+    """The one-robot records for the kernels line: each env's fused kernel at
+    B=1 on its episode's first solve, with its launches in the episode."""
+    rows = []
+    for name, f in run.fused.items():
+        rows.append(dict(name=f"ilqr_solve_fused[{name.capitalize()}Dx, B=1]", route="cuda",
+                         source="diffmpc_tpu_torch/csrc/ilqr.cu" if f["key"] == "prebuilt" else ZOO_SRC + "ilqr.cu",
+                         env_step=f"diffmpc_tpu_torch/csrc/{name}.cuh", variant=f["key"],
+                         replaces="diffmpc_tpu/ops/pallas/ilqr.py:458", launches=f["launches"],
+                         max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
+                         **{k: f["bound"][k] for k in ("bound_ms", "bound_by")}, library_ms=None, lanes=f["lanes"],
+                         B=1, T=f["T"]))
+    return rows
+
+
+def one_robot(device, smi: str, clock_mhz: float) -> list:
+    """Phase 41; returns the kernels' records."""
+    run = ZooRun(device, smi, clock_mhz)
+    t0 = time.perf_counter()
+    render_episodes(run)
+    emit(phase="one_robot_seconds", seconds=time.perf_counter() - t0)
+    return render_rows(run)
+
+
 def kkt_lanes_ab(device, smi: str) -> None:
     """Phase 34 (diffmpc_tpu_torch.diagnostics.ab_kkt_lanes): every KKT call
     of the recorded solves + gradients (the headline at B=1024 and 65,536,
@@ -4819,13 +4961,17 @@ def main() -> int:
         second = build.build_with([os.path.join(build.CSRC, f) for f in CACHE_SOURCES], tmp, (), "second")
         check_unique_symbols({"library": so, "second_build": second._name})
     emit(phase="build_second", sources=list(CACHE_SOURCES), seconds=time.perf_counter() - t0)
-    if {"--slice-only", "--zoo-only", "--mpc-only", "--examples-only", "--aot-only"} & set(sys.argv[1:]):
+    if {"--slice-only", "--zoo-only", "--mpc-only", "--examples-only", "--aot-only", "--render-only"} & set(sys.argv[1:]):
         # phases 30-33 alone: the variants and the slice they serve; or the
         # zoo's variants and phases 35-36 alone; or the receding loop's
         # variants and phases 37-38 alone; or the zoo's variants (the
         # examples' kernels) and phase 39 alone; or phase 40's variants and
-        # phase 40 alone
-        if "--aot-only" in sys.argv[1:]:
+        # phase 40 alone; or the zoo's variants (the envs' fused kernels) and
+        # phase 41 alone
+        if "--render-only" in sys.argv[1:]:
+            build_variants_phase(zoo_variant_keys())
+            rows = one_robot(device, smi, clock_mhz)
+        elif "--aot-only" in sys.argv[1:]:
             build_variants_phase(aot_variant_keys())
             aot_phase(device, smi)
             rows = []
@@ -4849,7 +4995,7 @@ def main() -> int:
 
 
 def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
-    """Phases 2-40, then the kernels line and the ok line."""
+    """Phases 2-41, then the kernels line and the ok line."""
     from diffmpc_tpu_torch import GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
     from diffmpc_tpu_torch.models import PendulumDx
     from diffmpc_tpu_torch.ops.cuda import kkt as kkt_mod
@@ -5299,6 +5445,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
     receding_records = receding(device, smi, clock_mhz)
     examples(device, smi, clock_mhz)
     aot_phase(device, smi)
+    one_robot_records = one_robot(device, smi, clock_mhz)
 
     print(smi, flush=True)
     emit(kernels=[
@@ -5362,6 +5509,7 @@ def run_phases(device, kind: str, smi: str, clock_mhz: float) -> int:
         *slice_rows,
         *zoo_records,
         *receding_records,
+        *one_robot_records,
     ])
     emit(ok=True, device=dict(platform="gpu", kind=kind, count=torch.cuda.device_count()))
     return 0

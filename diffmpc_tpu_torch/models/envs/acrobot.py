@@ -18,10 +18,12 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ...utils.batch import bclamp
 from ..dynamics import Dynamics
+from .frame import frame_inputs
 
 _G = 9.8
 
@@ -129,3 +131,24 @@ class AcrobotDx(Dynamics):
         q = torch.cat([goal_weights, ctrl_penalty * torch.ones(self.n_ctrl, **kw)])
         p = torch.cat([-goal_weights * goal_state, torch.zeros(self.n_ctrl, **kw)])
         return q, p
+
+    def get_frame(self, x, ax=None):
+        """Render one matplotlib frame: the two links from the pivot. ``x`` is
+        a tensor on any device or an array; host-side, requires matplotlib."""
+        import matplotlib.pyplot as plt
+
+        x, params = frame_inputs(self, x)
+        th1 = float(np.arctan2(x[1], x[0]))
+        th2 = float(np.arctan2(x[3], x[2]))
+        l1, l2 = float(params[2]), float(params[3])
+        if ax is None:
+            _, ax = plt.subplots(figsize=(4, 4))
+        x1, y1 = l1 * np.sin(th1), l1 * np.cos(th1)
+        x2 = x1 + l2 * np.sin(th1 + th2)
+        y2 = y1 + l2 * np.cos(th1 + th2)
+        ax.plot([0.0, x1], [0.0, y1], color="k", lw=3)
+        ax.plot([x1, x2], [y1, y2], color="b", lw=3)
+        lim = 1.2 * (l1 + l2)
+        ax.set_xlim(-lim, lim)
+        ax.set_ylim(-lim, lim)
+        return ax

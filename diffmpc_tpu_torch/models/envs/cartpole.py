@@ -14,10 +14,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ...utils.batch import bclamp
 from ..dynamics import Dynamics
+from .frame import frame_inputs
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -100,3 +102,21 @@ class CartpoleDx(Dynamics):
         q = torch.cat([goal_weights, ctrl_penalty * torch.ones(self.n_ctrl, **kw)])
         p = torch.cat([-goal_weights * goal_state, torch.zeros(self.n_ctrl, **kw)])
         return q, p
+
+    def get_frame(self, x, ax=None):
+        """Render one matplotlib frame: the cart and its pole. ``x`` is a
+        tensor on any device or an array; host-side, requires matplotlib."""
+        import matplotlib.pyplot as plt
+
+        x, params = frame_inputs(self, x)
+        p = float(x[0])
+        th = float(np.arctan2(x[3], x[2]))
+        l = float(params[3])
+        if ax is None:
+            _, ax = plt.subplots(figsize=(6, 4))
+        cart_w, cart_h = 0.4, 0.2
+        ax.add_patch(plt.Rectangle((p - cart_w / 2, -cart_h / 2), cart_w, cart_h, color="k"))
+        ax.plot([p, p + 2 * l * np.sin(th)], [0, 2 * l * np.cos(th)], color="b", lw=3)
+        ax.set_xlim(p - 3, p + 3)
+        ax.set_ylim(-1.5, 1.5)
+        return ax

@@ -13,10 +13,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ...utils.batch import bclamp
 from ..dynamics import Dynamics
+from .frame import frame_inputs
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -142,3 +144,22 @@ class PendulumDx(Dynamics):
         q = torch.cat([goal_weights, ctrl_penalty * torch.ones(self.n_ctrl, **kw)])
         p = torch.cat([-goal_weights * goal_state, torch.zeros(self.n_ctrl, **kw)])
         return q, p
+
+    def angle_from_state(self, x):
+        """The pole's angle from upright, ``atan2(sin th, cos th)``."""
+        return torch.atan2(x[..., 1], x[..., 0])
+
+    def get_frame(self, x, ax=None):
+        """Render one matplotlib frame: the rod from the pivot. ``x`` is a
+        tensor on any device or an array; host-side, requires matplotlib."""
+        import matplotlib.pyplot as plt
+
+        x, params = frame_inputs(self, x)
+        th = float(np.arctan2(x[1], x[0]))
+        l = float(params[2])
+        if ax is None:
+            _, ax = plt.subplots(figsize=(4, 4))
+        ax.plot([0.0, l * np.sin(th)], [0.0, l * np.cos(th)], color="k", lw=3)
+        ax.set_xlim(-1.2 * l, 1.2 * l)
+        ax.set_ylim(-1.2 * l, 1.2 * l)
+        return ax

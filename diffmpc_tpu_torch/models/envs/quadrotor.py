@@ -19,10 +19,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ...utils.batch import bclamp
 from ..dynamics import Dynamics
+from .frame import frame_inputs
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -105,3 +107,23 @@ class QuadrotorDx(Dynamics):
         q = torch.cat([goal_weights, ctrl_penalty * torch.ones(self.n_ctrl, **kw)])
         p = torch.cat([torch.zeros(self.n_state, **kw), (-ctrl_penalty * u_hover).expand(self.n_ctrl)])
         return q, p
+
+    def get_frame(self, x, ax=None):
+        """Render one matplotlib frame: body segment + rotor ticks. ``x`` is a
+        tensor on any device or an array; host-side, requires matplotlib."""
+        import matplotlib.pyplot as plt
+
+        x, params = frame_inputs(self, x)
+        px, pz, phi = float(x[0]), float(x[1]), float(x[2])
+        arm = float(params[2])
+        if ax is None:
+            _, ax = plt.subplots(figsize=(4, 4))
+        dx_, dz_ = arm * np.cos(phi), arm * np.sin(phi)
+        ax.plot([px - dx_, px + dx_], [pz - dz_, pz + dz_], color="k", lw=3)
+        for sgn in (-1, 1):
+            rx, rz = px + sgn * dx_, pz + sgn * dz_
+            ax.plot([rx, rx - 0.3 * arm * np.sin(phi)], [rz, rz + 0.3 * arm * np.cos(phi)], color="b", lw=2)
+        lim = max(1.5, abs(px) + 1, abs(pz) + 1)
+        ax.set_xlim(-lim, lim)
+        ax.set_ylim(-lim, lim)
+        return ax

@@ -21,10 +21,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ...utils.batch import bclamp
 from ..dynamics import Dynamics
+from .frame import frame_inputs
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -103,3 +105,22 @@ class VehicleDx(Dynamics):
         q = torch.cat([goal_weights, ctrl_penalty])
         p = torch.cat([-goal_weights * goal_state, torch.stack([-ctrl_penalty[0] * a_ref, torch.zeros((), **kw)])])
         return q, p
+
+    def get_frame(self, x, ax=None):
+        """Render one matplotlib frame: the car as an oriented wheelbase
+        segment on the lane (y = 0 dashed). ``x`` is a tensor on any device
+        or an array; host-side, requires matplotlib."""
+        import matplotlib.pyplot as plt
+
+        x, params = frame_inputs(self, x)
+        px, py, psi = float(x[0]), float(x[1]), float(x[2])
+        L = float(params[0])
+        if ax is None:
+            _, ax = plt.subplots(figsize=(6, 3))
+        ax.axhline(0.0, color="0.7", ls="--", lw=1)
+        fx, fy = px + L * np.cos(psi), py + L * np.sin(psi)
+        ax.plot([px, fx], [py, fy], color="k", lw=3)
+        ax.plot([px], [py], marker="s", color="b")
+        ax.set_xlim(px - 2 * L, px + 2 * L)
+        ax.set_ylim(-2.5, 2.5)
+        return ax

@@ -5,7 +5,7 @@ where JAX need not be installed, run them without the JAX test config:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-from the repository root: two tests take their checks from chip_smoke.py.
+from the repository root: three tests take their checks from chip_smoke.py.
 
 Tolerances: the iLQR kernel at ``lqr_iter=1, eps=0`` within 1e-4 with
 ``n_iters`` equal, four iterations by the chaos rule of
@@ -35,7 +35,9 @@ kernel-under-the-mesh probe equals its plain version bit for bit; the dry
 run of ``parallel/dryrun.py`` on a one-rank NCCL mesh equals the same steps
 without a mesh exactly (one rank's ``all_reduce`` is the identity). No
 library the port builds, nor a second build of the Riccati and KKT sources,
-exports a GNU unique symbol.
+exports a GNU unique symbol. The render example's one-robot solve (B=1) of
+each env launches once at the wrapper's 16 lanes, in one block, and every
+built lane count equals one lane bit for bit.
 """
 
 import dataclasses
@@ -60,6 +62,7 @@ from diffmpc_tpu_torch.ops.cuda.shard_probe import shard_probe_cuda, shard_probe
 from diffmpc_tpu_torch.ops.lqr import lqr_rollout  # noqa: E402
 from diffmpc_tpu_torch.parallel import dryrun  # noqa: E402
 from torch_dist_cases import world_one_mesh  # noqa: E402
+from torch_zoo_cases import one_robot_problem  # noqa: E402
 from torch_parity import (  # noqa: E402
     as_numpy,
     assert_chaos,
@@ -859,3 +862,33 @@ def test_world_one_nccl_dryrun_equals_the_steps_without_a_mesh(device, tmp_path)
         rec = dryrun.rank_dryrun(mesh, spec)
     report = dryrun.check([rec], dryrun.single_process(spec, device), spec)
     assert report["backend"] == "nccl" and report["solve_scenarios_bit_equal"] == 4096
+
+
+@pytest.mark.parametrize("env", ["pendulum", "cartpole", "quadrotor", "acrobot", "vehicle"])
+def test_one_robot_fused_solve_lanes_bit_equal(device, env):
+    """The render example's one-robot solve (B=1, T=15, lqr_iter=8): the
+    wrapper's one launch at 16 lanes, finite and in the box; every built
+    lane count, with and without hoist_lin, bit-equal to one lane, cold and
+    warm-started from the cold solve's controls shifted one step; the
+    wrapper's result equal to its lane count's."""
+    from chip_smoke import same_bits
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    args = one_robot_problem(env, device)
+    eight = dict(lqr_iter=8, eps=1e-5)
+    before = ilqr_solve_fused.launches
+    got = ilqr_solve_fused(*args, **eight)
+    torch.cuda.synchronize()
+    assert ilqr_solve_fused.launches == before + 1 and ilqr_solve_fused.last_lanes == 16
+    assert bool(torch.isfinite(got.xs).all()) and bool(((got.us >= args[4]) & (got.us <= args[5])).all())
+    env_k = il.kernel_env(args[3])
+    warm = torch.cat([got.us[1:], got.us[-1:]], 0)
+    for u_init in (None, warm):
+        runs = {(L, hoist): il.run_staged(il._cuda_launcher(device, env_k, hoist), *args, u_init=u_init, lanes=L,
+                                          hoist_lin=hoist, **eight)
+                for hoist in (False, True) for L in il.ILQR_LANES}
+        one = runs[(1, False)]
+        for key, res in runs.items():
+            assert all(same_bits(a, b) for a, b in zip(res, one)), key
+        if u_init is None:
+            assert all(same_bits(a, b) for a, b in zip(got, runs[(16, False)]))

@@ -46,7 +46,9 @@ enumerating (one iteration within 1e-4, the objectives relative to their
 scale), the pendulum's solve with the simplified value update, the Riccati
 sweep under each box-QP mode that changes it at (6, 3) and (4, 2), the line
 search at (6, 3), and the KKT pair at (6, 3) and (3, 1) with either value
-update, each lane count bit-equal to one lane.
+update, each lane count bit-equal to one lane. One scenario (B=1, the render
+example's problem of each of the five envs) holds the same: one iteration
+within 1e-4, every lane count bit-equal to one lane, cold and warm-started.
 """
 
 import ctypes
@@ -113,7 +115,7 @@ from diffmpc_tpu_torch.ops.linearize import linearize_dynamics  # noqa: E402
 from diffmpc_tpu_torch.ops.lqr import lqr_rollout  # noqa: E402
 from diffmpc_tpu_torch.utils.batch import bmv  # noqa: E402
 from oracles import random_lqr_problem  # noqa: E402
-from torch_zoo_cases import ZOO, kernel_problem, port_model  # noqa: E402
+from torch_zoo_cases import ZOO, kernel_problem, one_robot_problem, port_model  # noqa: E402
 from torch_parity import (  # noqa: E402
     as_numpy,
     assert_chaos,
@@ -2183,6 +2185,26 @@ def test_host_build_zoo_solve_matches_plain_and_equals_one_lane(host_lib, case):
     one = run_staged(launch, *args, **three)
     for lanes in ILQR_LANES[1:]:
         _assert_equal_results(run_staged(launch, *args, lanes=lanes, **three), one)
+
+
+@pytest.mark.parametrize("env", ["pendulum", *ZOO_KEYS])
+def test_host_build_one_robot_solve_matches_plain_and_equals_one_lane(host_lib, host_launch, env):
+    """One scenario (B=1, the render example's problem): one iteration
+    within 1e-4 of the plain version with ``n_iters`` equal; every built
+    lane count bit-equal to one lane over the example's eight iterations,
+    cold and warm-started from the cold solve's controls shifted one step
+    (the receding loop's warm start)."""
+    args = one_robot_problem(env, "cpu")
+    launch = host_launch if env == "pendulum" else _zoo_launcher(host_lib, env)
+    first = dict(lqr_iter=1, eps=0.0)
+    assert_tight(as_numpy(run_staged(launch, *args, **first)), as_numpy(ilqr_solve_plain(*args, **first)))
+    eight = dict(lqr_iter=8, eps=1e-5)
+    cold = run_staged(launch, *args, **eight)
+    warm = torch.cat([cold.us[1:], cold.us[-1:]], 0)
+    for u_init in (None, warm):
+        one = run_staged(launch, *args, u_init=u_init, **eight)
+        for lanes in ILQR_LANES[1:]:
+            _assert_equal_results(run_staged(launch, *args, u_init=u_init, lanes=lanes, **eight), one)
 
 
 @pytest.mark.parametrize("name", ZOO)

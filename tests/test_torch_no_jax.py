@@ -5,8 +5,9 @@ In a fresh interpreter where ``import jax`` fails, every module of
 zoo's among them, by name), and the fused and the non-fused solve run on
 the CPU, on the pendulum, a ``LinDx``, a small and a large MLP,
 ``AffineDynamics`` and each env of the zoo, and a receding-horizon episode
-with a callable cost and the slew penalty runs, and so does a training
-example with a checkpoint saved and restored. No module of the port
+with a callable cost and the slew penalty runs, and so does the render
+example's one-robot episode and a training example with a checkpoint saved
+and restored. No module of the port
 imports optax or Orbax. A solve exported and loaded
 (``aot.py``) equals the live one. The chip smoke script imports no JAX
 either, and refuses to run without a card. The port's public names (each
@@ -43,7 +44,8 @@ new = ["ops.cuda.riccati", "ops.cuda.rollout", "ops.pnqp", "ops.smallchol", "ops
        "examples.receding_mpc", "checkpoint", "examples.common", "examples.gen_expert_data", "examples.il_pendulum",
        "examples.il_cartpole", "examples.il_vehicle", "examples.il_quadrotor", "examples.il_acrobot",
        "examples.il_nn_dynamics", "examples.sysid_domain_rand", "aot", "ops.library", "models.spec", "native",
-       "examples.export_artifact"]
+       "examples.export_artifact", "examples.render_trajectory", "models.envs.frame",
+       "diagnostics.one_robot_profile"]
 assert all(f"diffmpc_tpu_torch.{m}" in names for m in new), names
 assert "diffmpc_tpu" not in sys.modules and "jax" in sys.modules
 assert not any(m.split(".")[0] in ("optax", "orbax", "flax") for m in sys.modules)
@@ -92,6 +94,10 @@ q, p = dx.get_true_obj()
 cfg = MPCConfig(n_state=3, n_ctrl=1, T=T, lqr_iter=2, exit_unconverged=False, slew_rate_penalty=0.5)
 xs, us, objs = run_receding_horizon(cfg, x, lambda tau: ((tau - 0.1) ** 2).sum(), dx, 2, u_lower=-2.0, u_upper=2.0)
 assert xs.shape == (3, B, 3) and bool(torch.isfinite(objs).all()) and us.abs().max() <= 2.0
+from diffmpc_tpu_torch.examples import render_trajectory
+s = render_trajectory.build(render_trajectory.parse_args(["--env", "vehicle", "--horizon", str(T)]), "cpu")
+xs, us, objs = render_trajectory.episode(s, 2)
+assert xs.shape == (3, 1, 4) and us.shape == (2, 1, 2) and bool(torch.isfinite(objs).all())
 import tempfile
 from diffmpc_tpu_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from diffmpc_tpu_torch.examples import il_pendulum

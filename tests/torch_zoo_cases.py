@@ -64,3 +64,19 @@ def kernel_problem(name: str, B: int, T: int, dtype, per_scenario: bool = False,
     nm = n + m
     box = [torch.as_tensor(b, dtype=dtype).expand(T, B, m).contiguous() for b in (lo, hi)]
     return (torch.tensor(x, dtype=dtype), torch.diag(q).expand(T, B, nm, nm), p.expand(T, B, nm), dx, *box)
+
+
+def one_robot_problem(env: str, device):
+    """The render example's one-robot solve (diffmpc_tpu_torch/examples/
+    render_trajectory.py: B=1, T=15, its start, cost and box, the vehicle's
+    per control and the quadrotor's [0, max_thrust]) on ``device``, as the
+    fused solve's inputs ``(x_init, C, c, dyn, u_lower, u_upper)``, the
+    bounds broadcast to (T, 1, m)."""
+    import torch
+
+    from diffmpc_tpu_torch.examples import render_trajectory as ex
+
+    s = ex.build(ex.parse_args(["--env", env]), device)
+    T, nm, m = s["config"].T, s["config"].n_state + s["config"].n_ctrl, s["config"].n_ctrl
+    box = [torch.as_tensor(b, dtype=torch.float32, device=device).expand(T, 1, m) for b in (s["lo"], s["hi"])]
+    return (s["x0"], s["cost"].C.expand(T, 1, nm, nm), s["cost"].c.expand(T, 1, nm), s["dx"], *box)

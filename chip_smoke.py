@@ -181,7 +181,8 @@ Phases, one line of output each (JSON where it carries numbers):
    and on, at the wrapper's lane count, interleaved by CUDA events, with the
    bytes bound and the chain floor; mpc_solve and solve + gradient in strict
    alternation; the rollout kernel and twin alone at the wrapper's lane
-   count, with the chain in their bounds; each plain version once.
+   count, with the chain in their bounds; each plain version timed once
+   after a call to warm up (the fused solve's at two iterations).
 26. the kernel-under-the-mesh probe (csrc/shard_probe.cu, the TPU kernel of
    tests/test_pallas_sharding.py:221) against its plain version, bit-equal,
    at shards of 1, 2, 3, 8, 16, 32,768 and 65,536, and at 8, 1027 and
@@ -283,9 +284,11 @@ Phases, one line of output each (JSON where it carries numbers):
    loss; the first step's gradient on the first 64 scenarios against the
    host's float64 gradient at the card's fixed point (phase 32's rule) and
    its norms; each step's forward solve, attach and KKT wrapper timed in
-   place on the card and the host, and one more step under torch.profiler
-   for the card's idle share; the KKT kernel at (5, 1) alone on the first
-   step's inputs;
+   place on the card and the host; the card's idle share of the step after
+   four, profiled in a fresh process first (one_robot_profile example, the
+   one process that profiles phase 39's examples: il_cartpole at its
+   defaults is config 4; its trace must hold the iLQR and KKT kernels); the
+   KKT kernel at (5, 1) alone on the first step's inputs;
 35b. each env's fused kernel (CartpoleDx, VehicleDx, QuadrotorDx,
    AcrobotDx: its own C++ step, csrc/<env>.cuh) against its plain version,
    B=256, two iterations, by phase 22's rule (the float64 plain solve as the
@@ -319,7 +322,9 @@ Phases, one line of output each (JSON where it carries numbers):
    control-passthrough variant (csrc/passthrough.cuh, its key printed) under
    the slew penalty; each episode's success share, stage cost and ms per env
    step (CUDA events, its second run, bit-equal to the first) and the card's
-   idle share in one profiled env step; under the slew penalty the
+   idle share of env step 50 profiled in a fresh process first
+   (one_robot_profile receding; its trace must hold the fused kernel);
+   under the slew penalty the
    passthrough kernel on the first solve and on the warm-started solve at
    env step 50 against the host's plain fused solve on the first 64
    scenarios (phase 36's witness rule), every built lane count with and
@@ -360,8 +365,10 @@ Phases, one line of output each (JSON where it carries numbers):
    against their plain versions (the fused solve against the host's on its
    first 64 scenarios by phase 36's witness rule with phase 2's ties, the
    Riccati sweep by phase 9's, the KKT backward by phase 5's); the ms a
-   step (CUDA events), the host's ms and the card's idle share in one
-   profiled step;
+   step (CUDA events), the host's ms and the card's idle share of the step
+   after the four, profiled in a fresh process first (one_robot_profile
+   example; its trace must hold the step's iLQR or Riccati kernel and its
+   KKT kernel);
    il_pendulum --mesh on one NCCL rank bit-equal to the run without it;
    gen_expert_data's .npz for each of its four envs at B=1024 bit-equal to
    build + generate_expert_data in process, one iLQR launch each.
@@ -380,11 +387,21 @@ Phases, one line of output each (JSON where it carries numbers):
    per-dimension box recorded by value): the loss equal, the gradient
    within 1e-6 of its max-abs; config 2 as non-fused artifacts at T=20
    (B=128, 4096) and T=128 (B=128, the twins), bit-equal with equal
-   n_iters, their launches beside the live solve's; config 2's card solve
+   n_iters and launches (the loop one traced iteration in a while_loop
+   with the live loop's exit); config 2's card solve
    at B=128 (lqr_iter=100) against the float64 C++ oracle
    (diffmpc_tpu_torch.native) on 64 scenarios by
-   tests/test_native_oracle.py's rule; export and load seconds, bytes and
-   ms a call (CUDA events) of each artifact beside the live solve's.
+   tests/test_native_oracle.py's rule; the callable-cost artifacts (a
+   cost(tau) traced at export, its closed-over tensors baked): phase 38's
+   cosh cost on the pendulum (B=1024, T=10, 15 iterations) exported on the
+   card and run by the fresh process beside the headline, and built from
+   CPU tensors for the card, bit-equal to the card-built one; the same with
+   params_input and vjp_order=1 (the loss equal, the params gradient within
+   1e-6 of its max-abs, one KKT launch); phase 38's callable equal to config
+   2's quadratic at B=4096, T=20; each held to the live solve (xs, us, objs
+   and n_iters bit-equal), one Riccati launch an iteration as live's, no
+   fused or rollout kernel, no plain version; export and load seconds, bytes and ms
+   a call (CUDA events) of each artifact beside the live solve's.
 
 41. one robot: the render example's episode (examples/render_trajectory.py:
    41-88, B=1, T=15, lqr_iter=8, eps=1e-5, 80 env steps) for each of the
@@ -1095,6 +1112,42 @@ def random_lqr_numpy(rng, T: int, B: int, n: int, m: int):
     f = rng.standard_normal((T, B, n)) * 0.5
     x_init = rng.standard_normal((B, n))
     return [a.astype(np.float32) for a in (C, c, F, f, x_init)]
+
+
+def once_ms(fn) -> float:
+    """One call of ``fn`` (a plain version: thousands of small launches), in
+    ms by the host's clock between two synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def fresh_profile(*argv) -> list:
+    """diagnostics/one_robot_profile.py's records (one a profiled step: busy
+    ms, each kernel's ms, the step's ms and the card's idle share), run in a
+    fresh process with ``argv``: late in this process torch.profiler has lost
+    a step's kernels. Raises where the process fails, which it does where a
+    trace lacks a kernel of its step."""
+    child = subprocess.run([sys.executable, "-m", "diffmpc_tpu_torch.diagnostics.one_robot_profile", *argv],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise AssertionError(f"the profiling process ({' '.join(argv[:1])}) failed:\n{child.stderr[-4000:]}")
+    return [json.loads(line) for line in re.findall(r"^\{.*\}$", child.stdout, re.M)]
+
+
+@functools.lru_cache(maxsize=None)
+def example_profiles() -> dict:
+    """Each example run of EX_RUNS, its training step after EX_STEPS
+    profiled by :func:`fresh_profile` in one process, by its run's name;
+    phase 35 reads config 4's (il_cartpole at its defaults) and phase 39
+    every run's, from the one process."""
+    t0 = time.perf_counter()
+    out = {r["example"]: r for r in fresh_profile(
+        "example", "--runs", *(" ".join((module,) + flags) for module, flags in EX_RUNS), "--warm", str(EX_STEPS))}
+    emit(phase="examples_profile_seconds", seconds=time.perf_counter() - t0)
+    return out
 
 
 def timed_launch(launch, loops: int, out: dict):
@@ -2179,7 +2232,8 @@ def learned_dynamics(device, smi: str, clock_mhz: float) -> list:
         del args, res
         torch.cuda.empty_cache()
     prob = dict(problem(B_MAIN, device, steps=NN_T), dyn=nn)
-    nn_plain_ms = cuda_ms(lambda: il.ilqr_solve_plain(**prob, **knobs), 1, 1)
+    # the plain solve at two iterations (phase 22's), warmed up once, then timed once
+    nn_plain_ms = cuda_ms(lambda: il.ilqr_solve_plain(**prob, **dict(knobs, lqr_iter=2)), 1, 1)
     rol_times = {}
     for name, steps, launcher, model in (("rollout", NN_T, rol._cuda_launcher, nn),
                                          ("rollout_stream", NN_T_LONG, ros._stream_launcher,
@@ -2200,11 +2254,11 @@ def learned_dynamics(device, smi: str, clock_mhz: float) -> list:
     return [
         dict(name="ilqr_solve_fused[NNDynamics 3-16-16-3]", route="cuda", source=source + "ilqr_nn.cu",
              replaces="diffmpc_tpu/ops/pallas/ilqr.py:458", launches=path_launches["fused"]["ilqr"],
-             max_abs_err=nn_err[(B_MAIN, False)], ms=ms["in_sweep"], plain_ms=nn_plain_ms,
+             max_abs_err=nn_err[(B_MAIN, False)], ms=ms["in_sweep"], plain_ms=nn_plain_ms, plain_lqr_iter=2,
              **{k: nb[k] for k in keep}, library_ms=None, lanes=nn_lanes["in_sweep"]),
         dict(name="ilqr_solve_fused[NNDynamics 3-16-16-3, hoist_lin]", route="cuda", source=source + "ilqr_nn.cu",
              replaces="diffmpc_tpu/ops/pallas/ilqr.py:234", launches=path_launches["fused_hoist_lin"]["ilqr"],
-             max_abs_err=nn_err[(B_MAIN, True)], ms=ms["hoist_lin"], plain_ms=nn_plain_ms,
+             max_abs_err=nn_err[(B_MAIN, True)], ms=ms["hoist_lin"], plain_ms=nn_plain_ms, plain_lqr_iter=2,
              **{k: nb[k] for k in keep}, library_ms=None, lanes=nn_lanes["hoist_lin"]),
         dict(name="linesearch_rollout_pallas[NNDynamics 3-16-16-3]", route="cuda", source=source + "rollout.cu",
              replaces="diffmpc_tpu/ops/pallas/rollout.py:180", launches=verbose_launches["resident"]["rollout"],
@@ -2699,7 +2753,7 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
                        lambda launch: il.run_staged(launch, *args, lqr_iter=LQR_ITER, eps=EPS, lanes=pend_lanes))
                for label, x in (("full", False), ("simplified", True))}
     pend_ms = interleaved_ms(stagers, 5, 10)
-    pend_plain_ms = cuda_ms(lambda: il.ilqr_solve_plain(**prob, **knobs), 1, 1)
+    pend_plain_ms = once_ms(lambda: il.ilqr_solve_plain(**prob, **knobs))
     pend_bound = ilqr_solve_bound(il.ilqr_solve_fused(**prob, **knobs), B_MAIN, N_ALPHA, clock_mhz)
     emit(phase="variant_pendulum_simplified_update", B=B_MAIN, T=T, one_iteration_max_abs_err=pend_err, **pm,
          kernel_ms=pend_ms, simplified_over_full=pend_ms["simplified"] / pend_ms["full"], lanes=pend_lanes,
@@ -2800,13 +2854,13 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
         if qp == "1":
             # the new QP's solve held against the plain solve of its first
             # scenarios on the host (each scenario's solve is its own; the
-            # plain solve's cost is its ops' count, ~45 s a solve whatever
-            # the batch, so the loop, held at two iterations in phase 31 and
-            # by the host build, is not held again here). After ten
-            # iterations ~90% of the scenarios are still unconverged
-            # (objectives in the thousands), and float32 rounding alone
-            # moves ~1 in 4 of them off the float64 solve: phase 22's rule by
-            # its counts, the float64 plain solve as the witness
+            # plain solve's cost is its ops' count, whatever the batch, so
+            # the loop, held at two iterations in phase 31 and by the host
+            # build, is not held again here). After ten iterations ~90% of
+            # the scenarios are still unconverged (objectives in the
+            # thousands), and float32 rounding alone moves ~1 in 4 of them
+            # off the float64 solve: phase 22's rule by its counts, the
+            # float64 plain solve as the witness
             cut = {k: v[:, :SL_CPU_B].cpu() if v.ndim > 2 else v[:SL_CPU_B].cpu() for k, v in sp.items()}
             t1 = time.perf_counter()
             plain = il.ilqr_solve_plain(**cut, dyn=mlp.to(device="cpu"), **knobs)
@@ -3247,17 +3301,21 @@ def zoo_config4(run: ZooRun) -> None:
     data and five Adam steps learning {"dyn", "logq"}, the counts set to 0
     before and read after), one iLQR and one KKT launch a step, a finite
     loss at every step, each step's forward solve, attach and KKT wrapper
-    timed in place (IL4_SPANS) on the card and the host; one more step under
-    torch.profiler for the card's idle share; the KKT kernel at (5, 1) alone
-    on the first step's own inputs."""
+    timed in place (IL4_SPANS) on the card and the host; the card's idle
+    share of il_cartpole's step after EX_STEPS at its defaults (config 4)
+    in a fresh process first (example_profiles, shared with phase 39: its
+    trace must hold the iLQR and KKT kernels); the KKT kernel at (5, 1)
+    alone on the first step's own inputs."""
     from diffmpc_tpu_torch import mpc_solve
-    from diffmpc_tpu_torch.diagnostics.ab_solve_grad import busy_ms
     from diffmpc_tpu_torch.ops.cuda import kkt
     from diffmpc_tpu_torch.ops.linearize import linearize_dynamics
     from diffmpc_tpu_torch.parallel import generate_expert_data, init_train_state, make_dp_train_step
 
     device, smi = run.device, run.smi
     t0 = time.perf_counter()
+    prof = example_profiles()["il_cartpole"]
+    idle = dict(warm_steps=prof["warm"], step_ms=prof["profiled_step_ms"], busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+                kernel_ms=prof["kernel_ms"], kernels=prof["kernels"], process="fresh")
     case = zoo_case("cartpole", device)
     config, lo, hi = case["config"], case["lo"], case["hi"]
     _, u_expert, _ = generate_expert_data(config, case["cost"], case["dx"], case["x_init"], lo, hi)
@@ -3299,20 +3357,6 @@ def zoo_config4(run: ZooRun) -> None:
         if got != run.only(ilqr=1, kkt=1) or not np.isfinite(rec["loss"]):
             raise AssertionError(f"config 4's step {i}: {rec}")
     run.main_launches = run.counts()
-    # one more step under torch.profiler: the card's busy time in it (the
-    # kernels' device time summed) against the step's CUDA-event time
-    profiled = []
-
-    def one_step():
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        step(state, case["x_init"], u_expert)
-        b.record()
-        b.synchronize()
-        profiled.append(a.elapsed_time(b))
-
-    busy = busy_ms(one_step)
-    idle = dict(step_ms=profiled[-1], busy_ms=busy, idle_share=None if busy is None else 1 - busy / profiled[-1])
     emit(phase="config4_il", B=IL4_B, T=config.T, lqr_iter=config.lqr_iter, steps=steps_rec,
          expert_mean_obj=float(expert_objs.mean()), main_path_launches=run.main_launches,
          first_grad_norms=dict(zip(keys, (float(g.norm()) for g in g_first))), first_grad_vs_host=grad_rec,
@@ -3706,10 +3750,16 @@ def receding_setup(name: str, slew: float, device):
     ``slew``."""
     from diffmpc_tpu_torch.examples import receding_mpc as ex
 
-    args = ex.parse_args(["--env", name, "--batch", str(RH_B), "--horizon", str(RH_T), "--env-steps", str(RH_STEPS),
-                          "--lqr-iter", str(RH_ITER), "--seed", "0", "--plant-param-error", str(RH_ERR),
-                          "--slew", str(slew)])
+    args = ex.parse_args(receding_flags(name, slew))
     return args, ex.build(args, device)
+
+
+def receding_flags(name: str, slew: float) -> list:
+    """The receding example's flags at its full width (RH_*) for env
+    ``name`` and slew weight ``slew``: phase 37's episodes and their
+    profiles in a fresh process."""
+    return ["--env", name, "--batch", str(RH_B), "--horizon", str(RH_T), "--env-steps", str(RH_STEPS),
+            "--lqr-iter", str(RH_ITER), "--seed", "0", "--plant-param-error", str(RH_ERR), "--slew", str(slew)]
 
 
 def fused_vs_host(name: str, call, cut: int, ties: bool = None) -> tuple:
@@ -3772,17 +3822,21 @@ def receding_episodes(run: MpcRun) -> None:
     to 0 before each and read after: one fused launch per env step, of the
     passthrough variant with the slew penalty, no other kernel), each
     episode's success share, stage cost and ms per env step (CUDA events,
-    its second run), the card's idle share of one profiled env step; with
+    its second run), the card's idle share of env step RH_MID profiled in a
+    fresh process first (fresh_profile: its trace must hold the fused
+    kernel); with
     the slew penalty, the passthrough kernel held against the host on the
     episode's first solve and on its warm-started solve at env step RH_MID,
     the kernel alone, its wrapper and its plain version timed with its
     bound."""
-    from diffmpc_tpu_torch.diagnostics.ab_solve_grad import busy_ms
     from diffmpc_tpu_torch.examples import receding_mpc as ex
     from diffmpc_tpu_torch.ops.cuda import ilqr as il
     from diffmpc_tpu_torch.receding import receding_init, receding_step
 
     device, smi = run.device, run.smi
+    profiled = {(r["env"], r["slew"]): r for r in fresh_profile(
+        "receding", "--runs", *(" ".join(receding_flags(name, slew)) for name, slew in RH_EPISODES),
+        "--at", str(RH_MID))}
     for name, slew in RH_EPISODES:
         t0 = time.perf_counter()
         args, s = receding_setup(name, slew, device)
@@ -3806,7 +3860,7 @@ def receding_episodes(run: MpcRun) -> None:
         episode_ms = start.elapsed_time(end)
         if not (bool(torch.isfinite(xs2).all()) and torch.equal(us2, us)):
             raise AssertionError(f"receding {name} slew={slew}: the second run differs from the first")
-        # one env step under torch.profiler, from the state at RH_MID
+        # the solves at env steps 0 and RH_MID, recorded
         config, cost, model = s["config"], s["cost"], s["model"]
         bounds = dict(u_lower=s["lo"], u_upper=s["hi"])
         state = receding_init(config, s["x0"])
@@ -3818,24 +3872,15 @@ def receding_episodes(run: MpcRun) -> None:
                     nxt, _ = receding_step(config, state, cost, model, s["plant"].forward, **bounds)
                 if i < RH_MID:
                     state = nxt
-            profiled = []
-
-            def one_step():
-                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                a.record()
-                receding_step(config, state, cost, model, s["plant"].forward, **bounds)
-                b.record()
-                b.synchronize()
-                profiled.append(a.elapsed_time(b))
-
-            busy = busy_ms(one_step)
+        prof = profiled[(name, slew)]
         record = dict(phase="receding_episode", env=name, slew=slew, B=RH_B, T=RH_T, lqr_iter=RH_ITER, env_steps=RH_STEPS,
                       plant_param_error=RH_ERR, launches=launches, variant=launched[0],
                       success_frac=m["success_frac"], mean_stage_cost=m["mean_stage_cost"],
                       final_stage_cost=m["final_stage_cost"], mean_abs_du=m["mean_abs_du"],
                       mean_obj_last_step=float(objs[-1].mean()), episode_ms=episode_ms,
-                      ms_per_env_step=episode_ms / RH_STEPS, profiled_env_step_ms=profiled[-1], busy_ms=busy,
-                      idle_share=None if busy is None else 1 - busy / profiled[-1], card=smi)
+                      ms_per_env_step=episode_ms / RH_STEPS, profiled_env_step_ms=prof["profiled_step_ms"],
+                      busy_ms=prof["busy_ms"], fused_kernel_ms=prof["kernel_ms"]["ilqr"],
+                      idle_share=prof["idle_share"], card=smi)
         if slew:
             (call,), (mid,) = first_call, mid_call
             record["first_solve_vs_host"] = pt_witness(run, name, "first solve", call)
@@ -3944,6 +3989,36 @@ def cosh_cost(q):
     return cost
 
 
+def cosh_problem(device) -> tuple:
+    """Phase 38's (b) problem without its gradient: ``(config, x_init, the
+    pendulum)``, B=RM_COSH_B, T=RM_COSH_T, RM_COSH_ITER iterations, box +-2."""
+    from diffmpc_tpu_torch import MPCConfig
+    from diffmpc_tpu_torch.models import PendulumDx
+
+    cfg = MPCConfig(n_state=3, n_ctrl=1, T=RM_COSH_T, lqr_iter=RM_COSH_ITER, eps=1e-6, exit_unconverged=False,
+                    detach_unconverged=True)
+    return cfg, torch.tensor(x_init(RM_COSH_B, 38), device=device), PendulumDx.default(device=device)
+
+
+def config2_callable(device) -> tuple:
+    """Phase 38's (a) problem: config 2's recipe at B=RM_CALL_B, T=20, its
+    first scenario's first quadratic shared as a callable (and as the
+    QuadCost it equals). Returns ``(config, x_init, callable, QuadCost,
+    LinDx, box)``."""
+    from diffmpc_tpu_torch import LinDx, MPCConfig, QuadCost
+
+    C, c, F, f, x0 = (torch.tensor(a, device=device) for a in random_lqr_numpy(np.random.default_rng(38), T,
+                                                                               RM_CALL_B, BOX_N, BOX_M))
+    Cs, cs = C[0, 0], c[0, 0]
+    config = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=T, lqr_iter=LONG_ITER, exit_unconverged=False,
+                       detach_unconverged=False)
+
+    def quad_tau(tau):
+        return 0.5 * (tau * (Cs * tau).sum(-1)).sum() + (cs * tau).sum()
+
+    return config, x0, quad_tau, QuadCost(Cs, cs), LinDx(F, f), dict(u_lower=-BOX, u_upper=BOX)
+
+
 def rest_of_mpc(run: MpcRun) -> None:
     """Phase 38: the rest of mpc.py on the card, each call with the counts
     set to 0 before it and read after. (a) A callable cost equal to config
@@ -3963,7 +4038,7 @@ def rest_of_mpc(run: MpcRun) -> None:
     host by phase 36's witness rule. (d) One MPC.solve with ANALYTIC_CHECK
     on the headline problem: the check on the card, then one fused launch,
     bit-equal to ANALYTIC."""
-    from diffmpc_tpu_torch import MPC, GradMethods, LinDx, MPCConfig, QuadCost, mpc_solve
+    from diffmpc_tpu_torch import MPC, GradMethods, QuadCost, mpc_solve
     from diffmpc_tpu_torch.models import PendulumDx
     from diffmpc_tpu_torch.ops.cuda import ilqr as il
     from diffmpc_tpu_torch.ops.linearize import linearize_dynamics, quadraticize_cost
@@ -3972,19 +4047,10 @@ def rest_of_mpc(run: MpcRun) -> None:
     device, smi = run.device, run.smi
     # (a) the callable cost equal to config 2's quadratic
     t0 = time.perf_counter()
-    C, c, F, f, x0 = (torch.tensor(a, device=device) for a in random_lqr_numpy(np.random.default_rng(38), T,
-                                                                               RM_CALL_B, BOX_N, BOX_M))
-    Cs, cs = C[0, 0], c[0, 0]
-    config = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=T, lqr_iter=LONG_ITER, exit_unconverged=False,
-                       detach_unconverged=False)
-    dx, box = LinDx(F, f), dict(u_lower=-BOX, u_upper=BOX)
-
-    def quad_tau(tau):
-        return 0.5 * (tau * (Cs * tau).sum(-1)).sum() + (cs * tau).sum()
-
+    config, x0, quad_tau, quad_cost, dx, box = config2_callable(device)
     with torch.no_grad():
         run.reset()
-        quad = mpc_solve(config, x0, QuadCost(Cs, cs), dx, **box)
+        quad = mpc_solve(config, x0, quad_cost, dx, **box)
         quad_launches = run.counts()
         run.reset()
         call = mpc_solve(config, x0, quad_tau, dx, **box)
@@ -3994,7 +4060,7 @@ def rest_of_mpc(run: MpcRun) -> None:
             raise AssertionError(f"callable cost: launches {call_launches} ({it_c} iterations), the QuadCost's "
                                  f"{quad_launches} ({it_q})")
         agree = solution_agreement("callable cost vs QuadCost, config 2", call, quad)
-        quad_ms = cuda_ms(lambda: mpc_solve(config, x0, QuadCost(Cs, cs), dx, **box), 3, 2)
+        quad_ms = cuda_ms(lambda: mpc_solve(config, x0, quad_cost, dx, **box), 3, 2)
         call_ms = cuda_ms(lambda: mpc_solve(config, x0, quad_tau, dx, **box), 3, 2)
     emit(phase="callable_cost", B=RM_CALL_B, T=T, launches=call_launches, quadcost_launches=quad_launches,
          n_iters=it_c, quadcost_n_iters=it_q, mpc_solve_ms=call_ms, quadcost_mpc_solve_ms=quad_ms,
@@ -4002,10 +4068,7 @@ def rest_of_mpc(run: MpcRun) -> None:
 
     # (b) the cosh cost on the pendulum with its gradient
     t0 = time.perf_counter()
-    pend = PendulumDx.default(device=device)
-    xc = torch.tensor(x_init(RM_COSH_B, 38), device=device)
-    cfg = MPCConfig(n_state=3, n_ctrl=1, T=RM_COSH_T, lqr_iter=RM_COSH_ITER, eps=1e-6, exit_unconverged=False,
-                    detach_unconverged=True)
+    cfg, xc, pend = cosh_problem(device)
     q = torch.tensor(COSH_Q, device=device, requires_grad=True)
     x_leaf = xc.clone().requires_grad_(True)
     run.reset()
@@ -4206,8 +4269,7 @@ def example_steps(run: ZooRun, records: list, calls):
     step the kernels' counts and the plain versions' are set to 0, after it
     they are read, with the step's CUDA-event and host ms, its stats and the
     iterations of its solve (``records``, one dict a step); the first step's
-    kernel calls are kept where ``calls`` is a dict (EX_CALLS's labels), and
-    the last step function and its inputs (``records.last``)."""
+    kernel calls are kept where ``calls`` is a dict (EX_CALLS's labels)."""
     from diffmpc_tpu_torch.examples import common
     from diffmpc_tpu_torch.parallel import training
 
@@ -4223,7 +4285,6 @@ def example_steps(run: ZooRun, records: list, calls):
         step = made(*args, **kwargs)
 
         def watched(state, *rest):
-            records.last = (step, (state, *rest))
             plain = {}
             first = calls is not None and not calls
             keep = {k: [] for k in EX_CALLS} if first else {}
@@ -4257,15 +4318,11 @@ def example_steps(run: ZooRun, records: list, calls):
         common.make_dp_train_step, training.mpc_solve = made, solve
 
 
-class StepRecords(list):
-    last = None
-
-
 def run_example(run: ZooRun, module: str, argv: list, calls: dict = None):
     """``diffmpc_tpu_torch.examples.<module>.main(argv)`` under
     :func:`example_steps`; returns (main's result, the step records)."""
     ex = importlib.import_module(f"diffmpc_tpu_torch.examples.{module}")
-    records = StepRecords()
+    records = []
     with example_steps(run, records, calls), contextlib.redirect_stdout(io.StringIO()):
         out = ex.main(argv)
     return out, records
@@ -4332,16 +4389,18 @@ def examples(device, smi: str, clock_mhz: float) -> None:
     one Riccati launch an iteration and one KKT launch for the MLP past the
     gate) and no plain version called, a finite loss and grad_norm > 0; the
     first step's kernels against their plain versions; the ms a step (CUDA
-    events), the host's ms and the card's idle share in one profiled step.
+    events), the host's ms and the card's idle share of the step after
+    EX_STEPS, profiled in a fresh process (example_profiles, run by phase
+    35 where it ran first: its trace must hold the step's kernels).
     il_pendulum --mesh on one NCCL rank bit-equal to the run without it.
     gen_expert_data's .npz for each env at B=1024 bit-equal to build +
     generate_expert_data in process, one iLQR launch each."""
-    from diffmpc_tpu_torch.diagnostics.ab_solve_grad import busy_ms
     from diffmpc_tpu_torch.examples import gen_expert_data
     from diffmpc_tpu_torch.parallel import generate_expert_data
 
     run = ZooRun(device, smi, clock_mhz)
     t_phase = time.perf_counter()
+    profiled = example_profiles()
     with tempfile.TemporaryDirectory() as tmp:
         for n, (module, flags) in enumerate(EX_RUNS):
             name = " ".join((module,) + flags)
@@ -4376,21 +4435,9 @@ def examples(device, smi: str, clock_mhz: float) -> None:
                               mesh_ms_per_step=[r["ms"] for r in mesh_steps])
                 if not (record["mesh_rows_bit_equal"] and record["mesh_state_bit_equal"]):
                     raise AssertionError(f"il_pendulum --mesh parts from the run without it: {record}")
-            # the card's idle share in one more step, profiled (it moves the state on)
-            step, inputs = steps.last
-            profiled = []
-
-            def one_step():
-                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                a.record()
-                step(*inputs)
-                b.record()
-                b.synchronize()
-                profiled.append(a.elapsed_time(b))
-
-            busy = busy_ms(one_step)
-            record.update(profiled_step_ms=profiled[-1], busy_ms=busy,
-                          idle_share=None if busy is None else 1 - busy / profiled[-1],
+            prof = profiled[name]
+            record.update(profiled_step_ms=prof["profiled_step_ms"], busy_ms=prof["busy_ms"],
+                          kernel_ms=prof["kernel_ms"], idle_share=prof["idle_share"],
                           ms_per_step=[r["ms"] for r in steps], host_ms_per_step=[r["host_ms"] for r in steps])
             emit(**record, seconds=time.perf_counter() - t0, card=smi)
         for env in EX_GEN_ENVS:
@@ -4422,10 +4469,11 @@ def examples(device, smi: str, clock_mhz: float) -> None:
 
 AOT_B_BIG, AOT_WARM_STEPS, AOT_ORACLE_B, AOT_ORACLE_ITER = 65536, 20, 64, 100
 # the loading process: it imports the serving module alone (with torch), its
-# build step refused (the kernels come from the build on disk), the plain
-# fused solve counted; argv: the artifact, the starts, where to write, and a
+# build step refused (the kernels come from the build on disk), the kernels'
+# launches and the plain versions' calls counted; argv: where to write, a
 # file whose creation lets it time its calls (the parent, meanwhile, runs the
-# rest of the phase on the card and creates it once it only waits)
+# rest of the phase on the card and creates it once it only waits), then each
+# artifact and its starts
 AOT_CHILD = r"""
 import os, sys, time
 import torch
@@ -4439,33 +4487,46 @@ def no_nvcc():
 
 
 mods["diffmpc_tpu_torch.csrc.build"].find_nvcc = no_nvcc
-il = mods["diffmpc_tpu_torch.ops.cuda.ilqr"]
-plain, orig = [], il.ilqr_solve_plain
-il.ilqr_solve_plain = lambda *a, **k: plain.append(1) or orig(*a, **k)
-artifact, starts, out, go = sys.argv[1:5]
-t0 = time.perf_counter()
-solve = aot.load_solve(open(artifact, "rb").read())
-load_s = time.perf_counter() - t0
-x = torch.load(starts).cuda()
-il.ilqr_solve_fused.launches = 0
-t0 = time.perf_counter()
-sol = solve(x)
-torch.cuda.synchronize()
-first_s, launches = time.perf_counter() - t0, il.ilqr_solve_fused.launches
+cuda = "diffmpc_tpu_torch.ops.cuda."
+kernels = dict(ilqr=mods[cuda + "ilqr"].ilqr_solve_fused, riccati=mods[cuda + "riccati"].riccati_backward_cuda,
+               rollout=mods[cuda + "rollout"].linesearch_rollout_cuda, kkt=mods[cuda + "kkt"].kkt_backward_fused)
+plain = []
+for module, name in ((cuda + "ilqr", "ilqr_solve_plain"), (cuda + "kkt", "kkt_backward_plain"),
+                     ("diffmpc_tpu_torch.ops.lqr", "riccati_backward_plain"),
+                     ("diffmpc_tpu_torch.ops.lqr", "linesearch_rollout_plain")):
+    orig = getattr(mods[module], name)
+    setattr(mods[module], name, lambda *a, _orig=orig, **k: plain.append(1) or _orig(*a, **k))
+out, go, *pairs = sys.argv[1:]
+runs = []
+for artifact, starts in zip(pairs[::2], pairs[1::2]):
+    t0 = time.perf_counter()
+    solve = aot.load_solve(open(artifact, "rb").read())
+    load_s = time.perf_counter() - t0
+    x = torch.load(starts).cuda()
+    for kern in kernels.values():
+        kern.launches = 0
+    plain.clear()
+    t0 = time.perf_counter()
+    sol = solve(x)
+    torch.cuda.synchronize()
+    runs.append(dict(solve=solve, x=x, sol=[t.cpu() for t in (sol.xs, sol.us, sol.objs, *sol.info)],
+                     launches={k: kern.launches for k, kern in kernels.items()}, plain=len(plain), load_s=load_s,
+                     first_call_s=time.perf_counter() - t0))
 deadline = time.monotonic() + 900
 while not os.path.exists(go):
     if time.monotonic() > deadline:
         raise SystemExit("the parent never let the loading process time its calls")
     time.sleep(0.05)
-start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-start.record()
-for _ in range(20):
-    solve(x)
-end.record()
-end.synchronize()
-torch.save(dict(sol=[t.cpu() for t in (sol.xs, sol.us, sol.objs, *sol.info)], launches=launches, plain=len(plain),
-                load_s=load_s, first_call_s=first_s, ms=start.elapsed_time(end) / 20,
-                jax=[m for m in mods if m.split(".")[0] in ("jax", "diffmpc_tpu")]), out)
+for run in runs:
+    solve, x = run.pop("solve"), run.pop("x")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        solve(x)
+    end.record()
+    end.synchronize()
+    run["ms"] = start.elapsed_time(end) / 20
+torch.save(dict(runs=runs, jax=[m for m in mods if m.split(".")[0] in ("jax", "diffmpc_tpu")]), out)
 """
 AOT_FIELDS = ("xs", "us", "objs", "converged", "n_iters", "last_improvement", "mean_alpha", "clamp_frac", "qp_iters")
 
@@ -4503,6 +4564,20 @@ def aot_grad_agreement(name: str, loss_aot, loss_live, g_aot, g_live, rtol: floa
     if float(loss_aot) != float(loss_live) or rel > rtol or not bool(g_live.abs().max() > 0):
         raise AssertionError(f"{name}: loss {float(loss_aot)} vs {float(loss_live)}, gradient rel {rel}")
     return dict(loss=float(loss_aot), loss_equal=True, grad_rel=rel, grad_bit_equal=bool(torch.equal(g_aot, g_live)))
+
+
+def callable_agreement(name: str, got, want) -> dict:
+    """A callable cost's artifact against its reference: every field
+    bit-equal; where one is not, the difference is shown and the artifact is
+    held by aot_agreement's objs rule (1e-6 relative) with n_iters equal.
+    Raises otherwise."""
+    g, w = aot_flat(got), aot_flat(want)
+    differ = {f: float((a.detach().double() - b.detach().double()).abs().max())
+              for f, a, b in zip(AOT_FIELDS, g, w) if not same_bits(a.detach(), b.detach())}
+    rel = float(((g[2] - w[2]).abs() / w[2].abs().clamp_min(1e-30)).max())
+    if differ and (rel > 1e-6 or int(g[4]) != int(w[4])):
+        raise AssertionError(f"{name}: the artifact differs from its reference: {differ}, objs rel {rel}")
+    return dict(bit_equal=not differ, max_abs_diff=differ, objs_max_rel=rel)
 
 
 def aot_phase(device, smi: str) -> None:
@@ -4556,11 +4631,19 @@ def aot_phase(device, smi: str) -> None:
             out = fn()
         return out, run.counts(), plain
 
-    # ---- the headline, loaded by a fresh process (which starts now and is
-    # read at the end of the phase) ----
+    # ---- the headline and the callable costs' artifacts, loaded by a fresh
+    # process (which starts now and is read at the end of the phase) ----
     x = torch.tensor(x_init(B_MAIN), device=device)
     blob, export_s = export(config, cost, dx, B_MAIN, **box)
     want = live(x)
+    cosh_cfg, xc, _ = cosh_problem(device)
+    cosh = cosh_cost(torch.tensor(COSH_Q, device=device))
+    q2_cfg, x2, quad_tau, _, q2_dx, q2_box = config2_callable(device)
+    # (name, config, cost, model, starts, box, its export and seconds)
+    callables = [("cosh cost", cosh_cfg, cosh, dx, xc, box, *export(cosh_cfg, cosh, dx, RM_COSH_B, **box)),
+                 ("config 2's quadratic as a callable", q2_cfg, quad_tau, q2_dx, x2, q2_box,
+                  *export(q2_cfg, quad_tau, q2_dx, RM_CALL_B, **q2_box))]
+    callable_live = {}
 
     def artifacts():
         """The phase but the fresh process: the headline in this process, the
@@ -4618,6 +4701,8 @@ def aot_phase(device, smi: str) -> None:
 
         # ---- gradients through params-input, vjp_order=1 artifacts ----
         def grad_case(name, cfg, cst, model, x0, bnd, target, B):
+            """The loss and params gradient through a params-input vjp_order=1
+            artifact against live's, its launches live's, one KKT launch."""
             blob, ex_s = export(cfg, cst, model, B, params_input=True, vjp_order=1, **bnd)
             fn, ld_s = load(blob)
             leaf = model.params.detach().clone().requires_grad_(True)
@@ -4666,6 +4751,39 @@ def aot_phase(device, smi: str) -> None:
             raise AssertionError(f"the vehicle's box is not recorded by value: {bounds}")
         emit(phase="aot_grad", **rec, bounds=bounds, card=smi)
 
+        # ---- callable costs: each held to the live solve, one Riccati launch
+        # an iteration as live's, no other kernel ----
+        loaded = {}
+        for name, cfg, cst, model, x0, bnd, blob_c, ex_s in callables:
+            fn, ld_s = load(blob_c)
+            got, launches, plain = counted(lambda: fn(x0))
+            with torch.no_grad():
+                want_c, live_launches, live_plain = counted(lambda: mpc_solve(cfg, x0, cst, model, **bnd))
+            it = int(want_c.info.n_iters)
+            if plain or live_plain or launches != live_launches or live_launches != run.only(riccati=it):
+                raise AssertionError(f"{name} artifact: launches {launches}, live {live_launches}, plain calls "
+                                     f"{plain} / {live_plain}")
+            callable_live[name], loaded[name] = want_c, fn
+            with torch.no_grad():
+                live_ms = cuda_ms(lambda: mpc_solve(cfg, x0, cst, model, **bnd), 3)
+            emit(phase="aot_callable", case=name, B=x0.shape[0], T=cfg.T, lqr_iter=cfg.lqr_iter, n_iters=it,
+                 bytes=len(blob_c), export_s=ex_s, load_s=ld_s, launches=launches, live_launches=live_launches,
+                 artifact_ms=cuda_ms(lambda: fn(x0), 3), live_ms=live_ms, **callable_agreement(name, got, want_c),
+                 card=smi)
+        # the cosh cost's artifact built from CPU tensors for the card
+        name, cfg = callables[0][:2]
+        cpu_blob_c, cpu_ex_s = export(cfg, cosh_cost(torch.tensor(COSH_Q)), dx.to(device=torch.device("cpu")),
+                                      RM_COSH_B, platforms=["cuda"], **box)
+        got, launches, plain = counted(lambda: load(cpu_blob_c)[0](xc))
+        if launches != run.only(riccati=int(callable_live[name].info.n_iters)) or plain:
+            raise AssertionError(f"CPU-built cosh-cost artifact: launches {launches}, plain calls {plain}")
+        emit(phase="aot_callable_cpu_built", case=name, B=RM_COSH_B, bytes=len(cpu_blob_c), export_s=cpu_ex_s,
+             **callable_agreement("CPU-built cosh cost vs card-built", got, loaded[name](xc)), card=smi)
+        # its params gradient through a params-input, vjp_order=1 artifact
+        _, rec = grad_case("cosh cost params gradient", cfg, cosh, dx, xc, box,
+                           torch.zeros((cfg.T, RM_COSH_B, 1), device=device), RM_COSH_B)
+        emit(phase="aot_grad", **rec, card=smi)
+
         # ---- config 2 as non-fused artifacts, and the float64 oracle ----
         for steps, B, iters in ((T, BOX_B, 10), (T, B_MID, 10), (T_LONG, BOX_B, LONG_ITER)):
             cfg = MPCConfig(n_state=BOX_N, n_ctrl=BOX_M, T=steps, lqr_iter=iters, exit_unconverged=False,
@@ -4681,7 +4799,7 @@ def aot_phase(device, smi: str) -> None:
             rec = aot_agreement(f"config 2 T={steps} B={B}", got, want2)
             it = int(want2.info.n_iters)
             kinds = ("riccati_stream", "rollout_stream") if steps == T_LONG else ("riccati", "rollout")
-            if plain or launches != run.only(**{k: iters for k in kinds}) or live_launches != run.only(**{k: it for k in kinds}):
+            if plain or launches != live_launches or live_launches != run.only(**{k: it for k in kinds}):
                 raise AssertionError(f"config 2 T={steps} B={B}: launches {launches}, live {live_launches}, plain {plain}")
             emit(phase="aot_config2", T=steps, B=B, lqr_iter=iters, n_iters=it, bytes=len(blob2), export_s=ex_s, load_s=ld_s,
                  launches={k: launches[k] for k in kinds}, live_launches={k: live_launches[k] for k in kinds},
@@ -4707,16 +4825,19 @@ def aot_phase(device, smi: str) -> None:
             raise AssertionError(f"config 2 on the card against the float64 oracle: us {us_err}, objs {objs_err} x tol")
 
     with tempfile.TemporaryDirectory() as tmp:
-        paths = [os.path.join(tmp, n) for n in ("headline.bin", "x.pt", "out.pt", "go")]
-        with open(paths[0], "wb") as f:
-            f.write(blob)
-        torch.save(x.cpu(), paths[1])
+        out, go = os.path.join(tmp, "out.pt"), os.path.join(tmp, "go")
+        pairs = []
+        for i, (art, starts) in enumerate([(blob, x)] + [(c[6], c[4]) for c in callables]):
+            pairs += [os.path.join(tmp, f"{i}.bin"), os.path.join(tmp, f"{i}.pt")]
+            with open(pairs[-2], "wb") as f:
+                f.write(art)
+            torch.save(starts.cpu(), pairs[-1])
         repo = os.path.dirname(os.path.abspath(__file__))
-        proc = subprocess.Popen([sys.executable, "-c", AOT_CHILD, *paths], stdout=subprocess.PIPE,
+        proc = subprocess.Popen([sys.executable, "-c", AOT_CHILD, out, go, *pairs], stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True, env=dict(os.environ, PYTHONPATH=repo), cwd=repo)
         try:
             artifacts()
-            with open(paths[3], "w"):
+            with open(go, "w"):
                 pass
             stdout, stderr = proc.communicate(timeout=600)
         finally:
@@ -4725,14 +4846,22 @@ def aot_phase(device, smi: str) -> None:
                 proc.wait()
         if proc.returncode != 0:
             raise RuntimeError(f"the loading process failed:\n{stdout}\n{stderr}")
-        child = torch.load(paths[2])
-    flat = [t.to(device) for t in child["sol"]]
-    fresh = aot_agreement("headline, fresh process", MPCSolution(*flat[:3], MPCInfo(*flat[3:])), want)
-    if child["launches"] != 1 or child["plain"] or child["jax"]:
-        raise AssertionError(f"the loading process: {child['launches']} iLQR launches, {child['plain']} plain calls, "
-                             f"JAX modules {child['jax']}")
-    emit(phase="aot_fresh_process", B=B_MAIN, load_s=child["load_s"], first_call_s=child["first_call_s"],
-         ms=child["ms"], launches=child["launches"], plain_calls=child["plain"], **fresh, card=smi)
+        child = torch.load(out)
+    if child["jax"]:
+        raise AssertionError(f"the loading process imported JAX modules: {child['jax']}")
+    references = [("headline", want, dict(ilqr=1))] + [
+        (c[0], callable_live[c[0]], dict(riccati=int(callable_live[c[0]].info.n_iters))) for c in callables]
+    for (name, reference, launches), fresh_run in zip(references, child["runs"]):
+        flat = [t.to(device) for t in fresh_run["sol"]]
+        got = MPCSolution(*flat[:3], MPCInfo(*flat[3:]))
+        agree = (aot_agreement if name == "headline" else callable_agreement)(f"{name}, fresh process", got, reference)
+        want_launches = {k: launches.get(k, 0) for k in fresh_run["launches"]}
+        if fresh_run["launches"] != want_launches or fresh_run["plain"]:
+            raise AssertionError(f"the loading process, {name}: launches {fresh_run['launches']}, "
+                                 f"{fresh_run['plain']} plain calls")
+        emit(phase="aot_fresh_process", case=name, B=got.objs.shape[0], load_s=fresh_run["load_s"],
+             first_call_s=fresh_run["first_call_s"], ms=fresh_run["ms"], launches=fresh_run["launches"],
+             plain_calls=fresh_run["plain"], **agree, card=smi)
     emit(phase="aot_done", seconds=time.perf_counter() - t_phase, card=smi)
 
 
@@ -4788,8 +4917,8 @@ def render_episodes(run: ZooRun) -> None:
     and the controls in the box; its second run (CUDA events) bit-equal to
     the first, ms an env step; a third under timed_spans, the wrapper's card
     and host ms an env step in place; the card's idle share of env step 40,
-    profiled in a fresh process first (diagnostics/one_robot_profile.py: late
-    in this process the profiler has lost the fused kernel's events); the
+    profiled in a fresh process first (fresh_profile: late in this process
+    the profiler has lost the fused kernel's events); the
     solves at env steps 0, 40 and 79 (render_solve); the host's ms an env
     step beside the wrapper's (the env step less the wrapper alone at env
     step 40)."""
@@ -4797,11 +4926,7 @@ def render_episodes(run: ZooRun) -> None:
     from diffmpc_tpu_torch.ops.cuda import ilqr as il
 
     device, smi = run.device, run.smi
-    child = subprocess.run([sys.executable, "-m", "diffmpc_tpu_torch.diagnostics.one_robot_profile", "--at",
-                            str(RENDER_AT[1]), "--envs", *RENDER_ENVS], capture_output=True, text=True, timeout=600)
-    if child.returncode != 0:
-        raise AssertionError(f"the one-robot profile's process failed:\n{child.stderr[-4000:]}")
-    profiled = {r["env"]: r for r in map(json.loads, re.findall(r"^\{.*\}$", child.stdout, re.M))}
+    profiled = {r["env"]: r for r in fresh_profile("one_robot", "--at", str(RENDER_AT[1]), "--envs", *RENDER_ENVS)}
     for name in RENDER_ENVS:
         t0 = time.perf_counter()
         args = ex.parse_args(["--env", name])
@@ -4846,7 +4971,7 @@ def render_episodes(run: ZooRun) -> None:
                       env_steps=steps, launches=launches, variant=launched[0], lanes=lanes,
                       final_state=xs[-1, 0].tolist(), mean_obj=float(objs.mean()), episode_ms=episode_ms,
                       ms_per_env_step=ms_step, wrapper_in_place=in_place, profiled=profiled[name],
-                      idle_share=1 - profiled[name]["busy_ms"] / profiled[name]["profiled_env_step_ms"],
+                      idle_share=profiled[name]["idle_share"],
                       kernel_ms=mid["kernel_ms"], wrapper_ms=mid["wrapper_ms"], host_ms=ms_step - mid["wrapper_ms"],
                       solves=solves, card=smi)
         # the plain version on the card, timed once on the first solve

@@ -19,8 +19,9 @@ Runtime inputs are opt-in and positional, in this order:
   ``load_solve(blob)`` runs the ``kkt_backward`` op and the ``linearize``
   op's backward; with 0 the artifact is forward-only and runs without grad.
 
-The program takes every tensor as an input: the cost, the bounds and,
-without ``params_input``, the model's tensors are carried in
+The program takes every tensor as an input: the cost's (a ``QuadCost``'s
+``C, c``, a callable's closed-over tensors), the bounds and, without
+``params_input``, the model's tensors are carried in
 the payload beside it (an extra file of the ``torch.export`` archive) and
 moved to the program's device at load. So the program holds no state, and
 one built on a host without a card can be written for the card
@@ -31,13 +32,22 @@ Container (the JAX package's): ``MAGIC | u32 manifest length (big-endian) |
 manifest JSON | payload``, the payload from ``torch.export.save``;
 :func:`read_manifest` reads the manifests of both libraries' artifacts.
 
-Kept divergences from the JAX package: a callable cost and ``verbose > 0``
-are refused at export (the JAX package traces them); under ``mesh=`` a
-batch that the ranks do not divide raises (there is no replicated form to
-fall back to), and so do per-scenario tensors that every rank's program
-would bake alike (a model's take ``params_input=True``); the non-fused loop
-runs all ``lqr_iter`` iterations in the program
-(:func:`diffmpc_tpu_torch.mpc._ilqr_loop`).
+A callable cost is traced at export (:class:`_CallableCost`): the cost
+mapped over the program's samples and its quadraticization, by ``make_fx``
+(``torch.func``'s transforms do not trace under ``torch.export``, and a
+``vmap`` in the program does not serialize); the tensors it closes over
+are baked like a ``QuadCost``'s. ``verbose > 0`` is refused, as
+the JAX package's export refuses it (its host callback has no
+serialization).
+
+The non-fused loop is one traced iteration inside a ``while_loop`` with the
+live loop's exit (:func:`diffmpc_tpu_torch.mpc._ilqr_loop`): the program
+runs the iterations the live solve runs.
+
+Kept divergences from the JAX package: under ``mesh=`` a batch that the
+ranks do not divide raises (there is no replicated form to fall back to),
+and so do per-scenario tensors that every rank's program would bake alike
+(a model's take ``params_input=True``).
 """
 
 from __future__ import annotations
@@ -58,8 +68,9 @@ from torch.utils import _pytree as pytree
 
 from .models import spec
 from .models.dynamics import AffineDynamics, CtrlPassthroughDynamics, Dynamics
-from .mpc import MPCInfo, MPCSolution, _mpc_solve, _would_use_fused
+from .mpc import MPCInfo, MPCSolution, _mpc_solve, _would_use_fused, slew_cost
 from .ops import library  # noqa: F401  (registers the diffmpc:: ops that a loaded program calls)
+from .ops.linearize import distinct_tensors, trace_mapped_cost, trace_quadraticize
 from .types import LinDx, MPCConfig, QuadCost
 
 _MAGIC = b"DMPCAOT1"
@@ -103,26 +114,63 @@ class _SolveProgram(torch.nn.Module):
     """``forward(x_init[, u_init][, params], baked)``: the flat
     :class:`~diffmpc_tpu_torch.mpc.MPCSolution` (xs, us, objs and the
     fields of its info) of one :func:`~diffmpc_tpu_torch.mpc.mpc_solve`,
-    ``baked`` the cost's ``C, c``, the model's tensors unless they are an
-    input, then each bound that is set (a number as a 0-d tensor: a
-    constant would be state of the program)."""
+    ``baked`` the cost's tensors (a ``QuadCost``'s ``C, c``; a callable's
+    :class:`_CallableCost` tensors), the model's tensors unless they are an
+    input, then each bound that is set (a number as a 0-d tensor: a constant
+    would be state of the program)."""
 
-    def __init__(self, config, model: tuple, n_model: int, bounds: tuple, warm_start: bool, params_input: bool,
+    def __init__(self, config, cost, model: tuple, n_model: int, bounds: tuple, warm_start: bool, params_input: bool,
                  attach: bool):
         super().__init__()
-        self.config, self.model, self.n_model = config, model, n_model
+        self.config, self.cost, self.model, self.n_model = config, cost, model, n_model
         self.bounds, self.warm_start, self.params_input, self.attach = bounds, warm_start, params_input, attach
 
     def forward(self, x_init, *args):
         args = list(args)
         baked = iter(args.pop())
         u_init = args.pop(0) if self.warm_start else None
-        C, c = next(baked), next(baked)
+        if self.cost is None:
+            cost, traced = QuadCost(next(baked), next(baked)), {}
+        else:
+            cost, traced = self.cost.cost_fn, self.cost.bind([next(baked) for _ in self.cost.tensors])
         tensors = args.pop(0) if self.params_input else [next(baked) for _ in range(self.n_model)]
         lo, hi = (next(baked) if b else None for b in self.bounds)
         dx = spec.decode(*self.model, tensors)
-        sol = _mpc_solve(self.config, x_init, QuadCost(C, c), dx, u_init, lo, hi, attach=self.attach)
+        sol = _mpc_solve(self.config, x_init, cost, dx, u_init, lo, hi, attach=self.attach, **traced)
         return (sol.xs, sol.us, sol.objs, *sol.info)
+
+
+class _CallableCost:
+    """A callable cost as a program holds it, traced once at each shape the
+    program evaluates it at (of the slew-augmented cost where the config has
+    the penalty): mapped over the ``T * B`` samples of a trajectory and the
+    ``max_linesearch_iter * T * B`` of the line search's ladder
+    (:func:`~diffmpc_tpu_torch.ops.linearize.trace_mapped_cost`), and its
+    quadraticization about a trajectory
+    (:func:`~diffmpc_tpu_torch.ops.linearize.trace_quadraticize`); the
+    program runs neither ``vmap`` nor ``torch.func``'s transforms.
+    ``tensors`` holds every tensor the traces read, each once: the cost's
+    closed-over tensors and any the trace made. The program takes them as
+    inputs and :meth:`bind` puts them in the traces' place; the callable
+    itself is not called in the program (where it were, its tensors would be
+    the program's state, which export refuses)."""
+
+    def __init__(self, config: MPCConfig, cost_fn, samples: int, dtype, device):
+        n, m = config.n_state, config.n_ctrl
+        slew = config.slew_rate_penalty is not None and config.slew_rate_penalty > 0
+        sample_cost = slew_cost(cost_fn, n, m, config.slew_rate_penalty) if slew else cost_fn
+        nm = n + m + m * slew
+        self.cost_fn = cost_fn
+        self.traces = [trace_mapped_cost(sample_cost, (samples, config.max_linesearch_iter * samples), nm, dtype,
+                                         device),
+                       trace_quadraticize(sample_cost, samples, nm, dtype, device)]
+        self.tensors, self._index = distinct_tensors([traced.constants for traced in self.traces])
+
+    def bind(self, tensors: list) -> dict:
+        """``mapped_cost`` and ``expansion`` for ``_mpc_solve``, on ``tensors``
+        in place of :attr:`tensors`."""
+        mapped, expansion = (traced.bind([tensors[i] for i in idx]) for traced, idx in zip(self.traces, self._index))
+        return dict(mapped_cost=mapped, expansion=expansion)
 
 
 def _move_program(ep, device: str) -> None:
@@ -173,11 +221,13 @@ def _scenario_rows(dx) -> tuple:
     return getattr(dx, "param_batch_shape", ())
 
 
-def _batched_over_scenarios(cost: QuadCost, dx, bounds) -> list:
-    """The names of the cost's, the bounds' and a ``LinDx``'s tensors that
-    hold a row per scenario (a batch axis, after the horizon, that is not
-    1)."""
-    fields = [("C", cost.C, 4), ("c", cost.c, 3), ("u_lower", bounds[0], 3), ("u_upper", bounds[1], 3)]
+def _batched_over_scenarios(cost, dx, bounds) -> list:
+    """The names of a ``QuadCost``'s, the bounds' and a ``LinDx``'s tensors
+    that hold a row per scenario (a batch axis, after the horizon, that is
+    not 1). A callable cost is one sample's: shared by construction."""
+    fields = [("u_lower", bounds[0], 3), ("u_upper", bounds[1], 3)]
+    if isinstance(cost, QuadCost):
+        fields += [("C", cost.C, 4), ("c", cost.c, 3)]
     if isinstance(dx, LinDx):
         fields += [("F", dx.F, 4), ("f", dx.f, 3)]
     return [name for name, t, ndim in fields
@@ -226,13 +276,18 @@ def export_solve(
     :func:`load_solve` makes ``info.n_iters`` the max over the ranks. A
     ``B`` that the ranks do not divide raises.
 
-    A callable cost or ``verbose > 0`` raises ``ValueError``: the program
-    holds neither Python callables nor printing.
+    ``cost`` is a ``QuadCost`` or a callable ``cost(tau)`` on one ``(n+m,)``
+    sample, as :func:`~diffmpc_tpu_torch.mpc.mpc_solve` takes it. A callable
+    is traced here (:class:`_CallableCost`), mapped over samples and as its
+    quadraticization, at the program's ``T * B / mesh.size`` samples and the
+    line search's ``max_linesearch_iter`` times as many; the tensors it
+    closes over are baked as a ``QuadCost``'s are. A cost that cannot be traced raises ``RuntimeError``
+    naming it. ``verbose > 0`` raises ``ValueError``: the program does not
+    print (the JAX package's export refuses it too, its host callback
+    having no serialization).
     """
     if vjp_order not in (0, 1):
         raise ValueError(f"vjp_order must be 0 or 1; got {vjp_order}")
-    if not isinstance(cost, QuadCost):
-        raise ValueError("export_solve takes a QuadCost: a callable cost cannot be held in an exported program")
     if config.verbose > 0:
         raise ValueError("export_solve needs verbose <= 0: an exported program does not print")
     if not spec.has_codec(dx):
@@ -240,7 +295,8 @@ def export_solve(
     name, statics, model_tensors, paths = spec.encode_with_paths(dx)
     if params_input and not (isinstance(dx, Dynamics) and model_tensors):
         raise ValueError(f"params_input=True requires a dynamics model with tensors; {type(dx).__name__} has none")
-    device = _model_device(*model_tensors, cost.C)
+    is_quad = isinstance(cost, QuadCost)
+    device = _model_device(*model_tensors, *(cost if is_quad else ()))
     target = str(platforms[0]).lower() if platforms else device.type
     if len(platforms or [target]) != 1 or target not in PLATFORMS:
         raise ValueError(f"platforms must be ['cpu'] or ['cuda']; got {platforms}")
@@ -264,12 +320,17 @@ def export_solve(
         return t[:B_local] if per_scenario and t.ndim >= 2 and t.shape[0] == B else t
 
     model_tensors = [local(t).detach() for t in model_tensors]
-    C, c = (torch.as_tensor(a).detach() for a in cost)
-    dtype = C.dtype
-    bounds = (u_lower is not None, u_upper is not None)
-    baked = [C, c] + ([] if params_input else model_tensors)
-    baked += [torch.as_tensor(b, dtype=dtype).detach() for b in (u_lower, u_upper) if b is not None]
     T, n, m = config.T, config.n_state, config.n_ctrl
+    if is_quad:
+        held, cost_tensors = None, [torch.as_tensor(a).detach() for a in cost]
+        dtype = cost_tensors[0].dtype
+    else:
+        dtype = next((t.dtype for t in model_tensors if t.is_floating_point()), torch.get_default_dtype())
+        held = _CallableCost(config, cost, T * B_local, dtype, device)
+        cost_tensors = [t.detach() for t in held.tensors]
+    bounds = (u_lower is not None, u_upper is not None)
+    baked = cost_tensors + ([] if params_input else model_tensors)
+    baked += [torch.as_tensor(b, dtype=dtype).detach() for b in (u_lower, u_upper) if b is not None]
     kw = dict(dtype=dtype, device=device)
     example = [torch.zeros((B_local, n), **kw)]
     if warm_start:
@@ -277,7 +338,7 @@ def export_solve(
     if params_input:
         example.append(model_tensors)
     example.append([t.to(device) for t in baked])
-    program = _SolveProgram(config, (name, statics), len(model_tensors), bounds, warm_start, params_input,
+    program = _SolveProgram(config, held, (name, statics), len(model_tensors), bounds, warm_start, params_input,
                             attach=vjp_order == 1 and config.backprop)
     # forward-only: traced without grad, so no grad-mode change is recorded
     with torch.no_grad() if vjp_order == 0 else contextlib.nullcontext():
@@ -299,7 +360,7 @@ def export_solve(
         leaves = [_aval("params" if p == "params" else f"params.{p}", t) for p, t in zip(paths, model_tensors)]
         inputs.append({"name": "params", "leaves": leaves})
     config_dict = _config_json(config)
-    form = _would_use_fused(config, dx, is_quad=True, constrained=u_lower is not None, is_lin=isinstance(dx, LinDx))
+    form = _would_use_fused(config, dx, is_quad=is_quad, constrained=u_lower is not None, is_lin=isinstance(dx, LinDx))
     manifest = {
         "format_version": _FORMAT_VERSION,
         "library": LIBRARY,

@@ -145,6 +145,31 @@ def train(args, b: dict, device, *, tag: str, columns=(), row=None, table=None, 
             distributed.shutdown()
 
 
+def make_step(args, b: dict, u_expert, mesh=None) -> tuple:
+    """The imitation loop's step over the problem ``b`` (an example's
+    ``build``): Adam(``args.lr``) from ``b["params0"]`` on
+    ``b["make_problem"]``, with ``b``'s ``params_batch_axes`` and task.
+    Returns ``(step, state, inputs)``, ``step(state, *inputs)`` one training
+    step on ``inputs = (x_init, u_expert[, task])``, each sharded over
+    ``mesh`` where it is given (and the params where they are per
+    scenario)."""
+    batch_axes = b.get("params_batch_axes")
+    has_task = b.get("task") is not None
+    task_kw = dict(task_batch_axes=b["task_batch_axes"]) if has_task else {}
+    optimizer = functools.partial(torch.optim.Adam, lr=args.lr)  # optax.adam(lr)
+    step = make_dp_train_step(b["config"], b["make_problem"], optimizer, mesh, u_lower=b["lo"], u_upper=b["hi"],
+                              params_batch_axes=batch_axes, **task_kw)
+    params0 = b["params0"]
+    x_init, task = b["x_init"], (b["task"],) if has_task else ()
+    if mesh is not None:
+        if batch_axes is not None:
+            params0 = shard_batch(mesh, params0, 0)
+        x_init = shard_batch(mesh, x_init, 0)
+        u_expert = shard_batch(mesh, u_expert, 1)
+        task = tuple(shard_batch(mesh, t, b["task_batch_axes"]) for t in task)
+    return step, init_train_state(params0, optimizer), (x_init, u_expert, *task)
+
+
 def _train(args, b, mesh, tag, columns, row, table, log_every):
     config, lo, hi = b["config"], b["lo"], b["hi"]
     t0 = time.perf_counter()
@@ -152,22 +177,8 @@ def _train(args, b, mesh, tag, columns, row, table, log_every):
     mean_obj = float(expert_objs.mean())  # waits for the card
     print(f"expert data: {b['x_init'].shape[0]} trajectories in {time.perf_counter() - t0:.2f}s, "
           f"mean obj {mean_obj:.4f}")
-    batch_axes = b.get("params_batch_axes")
-    has_task = b.get("task") is not None
-    task_kw = dict(task_batch_axes=b["task_batch_axes"]) if has_task else {}
-    optimizer = functools.partial(torch.optim.Adam, lr=args.lr)  # optax.adam(lr)
-    step = make_dp_train_step(config, b["make_problem"], optimizer, mesh, u_lower=lo, u_upper=hi,
-                              params_batch_axes=batch_axes, **task_kw)
-    params0 = b["params0"]
-    x_init, task = b["x_init"], (b["task"],) if has_task else ()
-    sharded = batch_axes is not None and mesh is not None
-    if mesh is not None:
-        if sharded:
-            params0 = shard_batch(mesh, params0, 0)
-        x_init = shard_batch(mesh, x_init, 0)
-        u_expert = shard_batch(mesh, u_expert, 1)
-        task = tuple(shard_batch(mesh, t, b["task_batch_axes"]) for t in task)
-    state = init_train_state(params0, optimizer)
+    step, state, (x_init, u_expert, *task) = make_step(args, b, u_expert, mesh)
+    sharded = b.get("params_batch_axes") is not None and mesh is not None
     ckpt_dir = os.path.join(args.out, "ckpt")
     if sharded and mesh.size > 1:
         ckpt_dir = os.path.join(ckpt_dir, f"rank_{mesh.rank}")

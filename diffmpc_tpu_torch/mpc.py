@@ -43,15 +43,17 @@ exported program (:mod:`diffmpc_tpu_torch.aot`) records.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional, Union
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
 from torch.func import vmap
 from torch.nn.functional import pad
 
 from .models import spec as model_spec
 from .ops.library import ilqr_solve_fused, linearize, rollout
-from .ops.linearize import check_analytic_grads, quadraticize_cost
+from .ops.linearize import check_analytic_grads, distinct_tensors, quadraticize_cost
 from .ops.lqr import trajectory_cost
 from .ops.lqr_step import LqrSpec, lqr_fixed_point, lqr_step
 from .models.dynamics import CtrlPassthroughDynamics, Dynamics
@@ -160,14 +162,15 @@ def _expand_lin_dx(dx: LinDx, T: int, B: int, n: int, dtype, device) -> LinDx:
     return LinDx(F, f)
 
 
-def _make_traj_cost_fn(cost_fn: Callable) -> Callable:
+def _make_traj_cost_fn(cost_fn: Callable, mapped: Optional[Callable] = None) -> Callable:
     """Lift a per-sample scalar cost ``cost_fn(tau)`` to a trajectory cost
     ``(xs (T,...,n), us (T,...,m)) -> (...)``: mapped over every sample with
-    ``torch.func.vmap``, summed over time."""
+    ``torch.func.vmap`` (or by ``mapped``, ``flat (S, n+m) -> (S,)``, where
+    given), summed over time."""
 
     def traj_cost(xs, us):
         tau = torch.cat([xs, us], -1)
-        per = vmap(cost_fn)(tau.reshape(-1, tau.shape[-1]))
+        per = (vmap(cost_fn) if mapped is None else mapped)(tau.reshape(-1, tau.shape[-1]))
         return per.reshape(tau.shape[:-1]).sum(0)
 
     return traj_cost
@@ -199,11 +202,7 @@ def _augment_slew(config: MPCConfig, x_init, cost, dx, prev_ctrl):
         slew[ic, iu] = -s
         cost_aug = QuadCost(pad(C, (m, 0, m, 0)) + slew, pad(c, (m, 0)))
     else:
-        base = cost
-
-        def cost_aug(tau):
-            return base(tau[m:]) + 0.5 * s * ((tau[m + n :] - tau[:m]) ** 2).sum()
-
+        cost_aug = slew_cost(cost, n, m, s)
     if isinstance(dx, LinDx):
         F = torch.as_tensor(dx.F, **kw)
         lead = F.shape[:-2]
@@ -215,6 +214,16 @@ def _augment_slew(config: MPCConfig, x_init, cost, dx, prev_ctrl):
     u0 = torch.zeros((B, m), **kw) if prev_ctrl is None else torch.as_tensor(prev_ctrl, **kw).reshape(B, m)
     x_init_aug = torch.cat([u0, x_init], -1)
     return dataclasses.replace(config, n_state=m + n, slew_rate_penalty=None), x_init_aug, cost_aug, dx_aug
+
+
+def slew_cost(cost_fn: Callable, n: int, m: int, s: float) -> Callable:
+    """A callable cost on the slew-augmented sample ``[u_prev; x; u]``: the
+    cost of ``[x; u]`` and ``0.5 s ||u - u_prev||^2``."""
+
+    def cost_aug(tau):
+        return cost_fn(tau[m:]) + 0.5 * s * ((tau[m + n :] - tau[:m]) ** 2).sum()
+
+    return cost_aug
 
 
 def _zero_box(u_zero_I, u_lower, u_upper, T: int, B: int, m: int, dtype, device):
@@ -272,39 +281,79 @@ def _requires_grad(*xs) -> bool:
     return any(isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
 
 
-def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_fn=None):
+def _ilqr_loop(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_fn=None, expansion=None,
+               mapped_cost=None):
     """The non-fused iLQR loop (``mpc.py:467-631`` of the JAX package) on
     detached inputs: an initial rollout of ``u_init`` (or zeros, clamped into
     the box) through the true dynamics, then per iteration the linearization
     (and with a callable ``cost_fn``, the quadraticization that gives ``C,
-    c``) and one :func:`lqr_step`, with the best trajectory, the
+    c``: ``expansion(xs, us)``, by default :func:`quadraticize_cost` of
+    ``cost_fn``, the line search judging by ``mapped_cost``, by default
+    ``vmap(cost_fn)``) and one :func:`lqr_step`, with the best trajectory, the
     not-improved counter and the per-scenario freeze kept as in the JAX
     ``Carry``. Scenarios that froze keep their state through ``where``. The
     loop stops at ``lqr_iter`` or when every scenario is done: one read of
     the ``done`` mask on the host per iteration. Returns ``(best_x, best_u,
     info)``.
 
-    Under ``torch.export`` (``torch.compiler.is_exporting()``), which cannot
-    trace that read, the loop runs all ``lqr_iter`` iterations with the exit
-    folded into a tensor, ``still = ~done.all()``, that gates the carry
-    updates the live loop would not have made: the best trajectory (which
-    the live loop updates for a frozen scenario while any other is active)
-    and the not-improved counter; ``n_iters`` counts the iterations with
-    ``still``. The answer equals the live loop's; the iterations after every
-    scenario froze cost their launches. The model's tensors are detached
-    there instead of a no-grad region, which the program would keep as a
+    Under ``torch.export`` (``torch.compiler.is_exporting()``) the loop is
+    ``torch``'s ``while_loop`` around one traced iteration, its condition the
+    same two tests, so that an exported program holds the iteration once and
+    runs it as the live loop does. The model's tensors are detached there
+    instead of a no-grad region, which the program would keep as a
     submodule."""
     if torch.compiler.is_exporting():
         if isinstance(dx, Dynamics):
             name, statics, tensors = model_spec.encode(dx)
             dx = model_spec.decode(name, statics, [t.detach() for t in tensors])
-        return _ilqr_iterations(config, x_init, C, c, dx, lo, hi, u_init, cost_fn, masked=True)
+        return _ilqr_iterations(config, x_init, C, c, dx, lo, hi, u_init, cost_fn, expansion, mapped_cost,
+                                traced=True)
     with torch.no_grad():
-        return _ilqr_iterations(config, x_init, C, c, dx, lo, hi, u_init, cost_fn, masked=False)
+        return _ilqr_iterations(config, x_init, C, c, dx, lo, hi, u_init, cost_fn, expansion, mapped_cost,
+                                traced=False)
 
 
-def _ilqr_iterations(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_fn, masked: bool):
-    """The body of :func:`_ilqr_loop`; ``masked`` folds the exit into a tensor."""
+class _LoopInputs(NamedTuple):
+    """What every iteration of the non-fused loop reads besides its carry."""
+
+    x_init: torch.Tensor
+    C: Optional[torch.Tensor]
+    c: Optional[torch.Tensor]
+    dx: object
+    lo: Optional[torch.Tensor]
+    hi: Optional[torch.Tensor]
+    expansion: Optional[Callable]
+    mapped_cost: Optional[Callable]
+
+
+def _lift(inputs: _LoopInputs) -> tuple:
+    """``inputs`` as a list of distinct tensors and the function that builds
+    them back from another such list: a ``while_loop`` body may read no
+    tensor of the program but its inputs. The model is taken apart by its
+    codec; a traced expansion or mapped cost by its constants."""
+    parts = [[inputs.x_init], [t for t in (inputs.C, inputs.c, inputs.lo, inputs.hi) if t is not None]]
+    name, statics, model = model_spec.encode(inputs.dx)
+    parts.append(model)
+    parts += [[] if f is None else f.constants for f in (inputs.expansion, inputs.mapped_cost)]
+    tensors, index = distinct_tensors(parts)
+    present = [t is not None for t in (inputs.C, inputs.c, inputs.lo, inputs.hi)]
+
+    def rebuild(lifted) -> _LoopInputs:
+        x_init, quad, model, exp_k, mapped_k = ([lifted[i] for i in idx] for idx in index)
+        quad = iter(quad)
+        C, c, lo, hi = (next(quad) if p else None for p in present)
+        return _LoopInputs(x_init[0], C, c, model_spec.decode(name, statics, model), lo, hi,
+                           None if inputs.expansion is None else inputs.expansion.bind(exp_k),
+                           None if inputs.mapped_cost is None else inputs.mapped_cost.bind(mapped_k))
+
+    return tensors, rebuild
+
+
+def _ilqr_iterations(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_fn, expansion, mapped_cost,
+                     traced: bool):
+    """The body of :func:`_ilqr_loop`; ``traced`` runs its iterations by
+    ``while_loop``, every tensor they read an input of the loop
+    (:func:`_lift`)."""
     T, n, m = config.T, config.n_state, config.n_ctrl
     B, dtype, device = x_init.shape[0], x_init.dtype, x_init.device
     is_lin = isinstance(dx, LinDx)
@@ -320,39 +369,34 @@ def _ilqr_iterations(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_f
     if lo is not None:
         u = torch.minimum(torch.maximum(u, lo), hi)
     x = rollout(dx, x_init, u)
-    best_x, best_u = x, u
-    traj_cost = None if cost_fn is None else _make_traj_cost_fn(cost_fn)
-    best_obj = trajectory_cost(C, c, x, u) if cost_fn is None else traj_cost(x, u)
+    best_x, best_u = (x.clone(), u.clone()) if traced else (x, u)  # a loop's inputs may not alias
+    if cost_fn is not None and expansion is None:
+        expansion = functools.partial(quadraticize_cost, cost_fn)
+    best_obj = trajectory_cost(C, c, x, u) if cost_fn is None else _make_traj_cost_fn(cost_fn, mapped_cost)(x, u)
     n_not_improved = torch.zeros(B, dtype=torch.int32, device=device)
     last_improvement = torch.full((B,), float("inf"), dtype=dtype, device=device)
     done = torch.zeros(B, dtype=torch.bool, device=device)
     alpha = torch.ones(B, dtype=dtype, device=device)
     clamp_frac = torch.zeros(B, dtype=dtype, device=device)
     qp_iters = torch.zeros(B, dtype=dtype, device=device)
-    steps = torch.zeros((), dtype=torch.int32, device=device)  # the iterations with `still`, when masked
-    i = 0
-    while i < config.lqr_iter:
-        if masked:
-            still = ~done.all()
-            steps = steps + still.to(torch.int32)
-        elif bool(done.all()):
-            break
+
+    def iteration(inputs: _LoopInputs, i, x, u, best_x, best_u, best_obj, n_not_improved, last_improvement, done,
+                  alpha, clamp_frac, qp_iters):
+        x_init, C, c, dx, lo, hi, expansion, mapped_cost = inputs
+        traj_cost = None if cost_fn is None else _make_traj_cost_fn(cost_fn, mapped_cost)
         F, f = linearize(dx, x, u, config.grad_method)
         if cost_fn is not None:
-            C, c = quadraticize_cost(cost_fn, x, u)
+            C, c = expansion(x, u)
         out = lqr_step(spec, x_init, C, c, F, f, x, u, lo, hi, dyn=None if is_lin else dx, cost_fn=traj_cost)
         improvement = best_obj - out.objs
         # best tracks any strict improvement; best_cost_eps only drives the
         # not-improved counter
         improved = out.objs < best_obj
-        if masked:
-            improved = improved & still
         improved_sig = out.objs < best_obj - config.best_cost_eps
         best_obj = torch.where(improved, out.objs, best_obj)
         best_x = torch.where(improved[None, :, None], out.xs, best_x)
         best_u = torch.where(improved[None, :, None], out.us, best_u)
-        counted = torch.where(improved_sig, 0, n_not_improved + 1)
-        n_not_improved = torch.where(still, counted, n_not_improved) if masked else counted
+        n_not_improved = torch.where(improved_sig, 0, n_not_improved + 1)
         newly_done = (improvement < config.eps) | (n_not_improved >= config.not_improved_lim)
         # frozen scenarios keep their state; active ones move to the new
         # trajectory even if it is worse (best_* keeps the winner)
@@ -370,10 +414,28 @@ def _ilqr_iterations(config: MPCConfig, x_init, C, c, dx, lo, hi, u_init, cost_f
         free_share = out.free_mask.to(dtype).mean(dim=(0, 2))
         clamp_frac = torch.where(act, torch.clamp(1.0 - free_share, 0.0, 1.0), clamp_frac)
         qp_iters = torch.where(act, out.n_qp_iter.to(dtype).mean(dim=0), qp_iters)
-        i += 1
+        return x, u, best_x, best_u, best_obj, n_not_improved, last_improvement, done, alpha, clamp_frac, qp_iters
+
+    inputs = _LoopInputs(x_init, C, c, dx, lo, hi, expansion, mapped_cost)
+    carry = (x, u, best_x, best_u, best_obj, n_not_improved, last_improvement, done, alpha, clamp_frac, qp_iters)
+    k = len(carry)  # the loop's arguments: the iteration count, the carry, then the lifted inputs
+    if traced:
+        # the live loop's exit, and one traced iteration on the lifted inputs
+        lifted, rebuild = _lift(inputs)
+        n_iters, *carry = while_loop_op(
+            lambda i, *args: (i < config.lqr_iter) & ~args[7].all(),
+            lambda i, *args: (i + 1, *iteration(rebuild(args[k:]), None, *args[:k])),
+            (torch.zeros((), dtype=torch.int32, device=device), *carry), tuple(lifted))
+    else:
+        i = 0
+        while i < config.lqr_iter and not bool(carry[7].all()):
+            carry = iteration(inputs, i, *carry)
+            i += 1
+        n_iters = torch.tensor(i, dtype=torch.int32, device=device)
+    _, _, best_x, best_u, _, _, last_improvement, _, alpha, clamp_frac, qp_iters = carry
     info = MPCInfo(
         converged=last_improvement < config.eps,
-        n_iters=steps if masked else torch.tensor(i, dtype=torch.int32, device=device),
+        n_iters=n_iters,
         last_improvement=last_improvement,
         mean_alpha=alpha,
         clamp_frac=clamp_frac,
@@ -408,18 +470,25 @@ def mpc_solve(
 
 
 def _mpc_solve(config: MPCConfig, x_init, cost, dx, u_init=None, u_lower=None, u_upper=None, prev_ctrl=None,
-               u_zero_I=None, attach: Optional[bool] = None) -> MPCSolution:
+               u_zero_I=None, attach: Optional[bool] = None, expansion: Optional[Callable] = None,
+               mapped_cost: Optional[Callable] = None) -> MPCSolution:
     """:func:`mpc_solve`, with ``attach`` saying whether the solved
     trajectory is attached to the inputs for the gradient (None: where a
-    gradient may be taken, as :func:`mpc_solve` decides). An exported program
-    (:mod:`diffmpc_tpu_torch.aot`) sets it from its ``vjp_order``."""
+    gradient may be taken, as :func:`mpc_solve` decides), and, for a
+    callable cost, ``expansion(xs, us) -> (C, c)`` its quadraticization in
+    the loop and the attach (None: :func:`quadraticize_cost`) and
+    ``mapped_cost(flat (S, n+m)) -> (S,)`` the cost of each sample for the
+    line search and the objective (None: ``vmap`` of the cost), each of the
+    slew-augmented cost under the slew penalty. An exported program
+    (:mod:`diffmpc_tpu_torch.aot`) sets ``attach`` from its ``vjp_order``
+    and passes its traces of both."""
     if config.slew_rate_penalty is not None and config.slew_rate_penalty > 0:
         # checked here: the augmented model wraps dx and hides its params
         _check_param_batch(dx, x_init.shape[0] if x_init.ndim else 0)
         config_aug, x_init_aug, cost_aug, dx_aug = _augment_slew(config, x_init, cost, dx, prev_ctrl)
         # the control space is unchanged, so the control-shaped knobs apply as they are
         sol = _mpc_solve(config_aug, x_init_aug, cost_aug, dx_aug, u_init, u_lower, u_upper, u_zero_I=u_zero_I,
-                         attach=attach)
+                         attach=attach, expansion=expansion, mapped_cost=mapped_cost)
         return MPCSolution(sol.xs[..., config.n_ctrl :], sol.us, sol.objs, sol.info)
     T, n, m = config.T, config.n_state, config.n_ctrl
     if x_init.ndim != 2 or x_init.shape[-1] != n:
@@ -506,7 +575,7 @@ def _mpc_solve(config: MPCConfig, x_init, cost, dx, u_init=None, u_lower=None, u
         best_x, best_u, info = _ilqr_loop(
             config, x_init.detach(), C_sg, c_sg, dx_sg,
             None if lo is None else lo.detach(), None if hi is None else hi.detach(), u0,
-            cost_fn=None if is_quad else cost,
+            cost_fn=None if is_quad else cost, expansion=expansion, mapped_cost=mapped_cost,
         )
 
     xs, us = best_x, best_u
@@ -517,7 +586,10 @@ def _mpc_solve(config: MPCConfig, x_init, cost, dx, u_init=None, u_lower=None, u
         # tensors, and the cost (quadraticized there if it is callable);
         # then the custom backward
         F, f = linearize(dx, xs, us, config.grad_method)
-        C, c = (cost.C, cost.c) if is_quad else quadraticize_cost(cost, best_x, best_u)
+        if is_quad:
+            C, c = cost.C, cost.c
+        else:
+            C, c = quadraticize_cost(cost, best_x, best_u) if expansion is None else expansion(best_x, best_u)
         big = torch.full((T, B, m), 1e18, dtype=dtype, device=device)
         spec = LqrSpec(
             n_state=n, constrained=constrained, tight_eps=config.tight_eps,
@@ -532,7 +604,7 @@ def _mpc_solve(config: MPCConfig, x_init, cost, dx, u_init=None, u_lower=None, u
             keep = info.converged[None, :, None]
             xs = torch.where(keep, xs, best_x)
             us = torch.where(keep, us, best_u)
-    objs = trajectory_cost(cost.C, cost.c, xs, us) if is_quad else _make_traj_cost_fn(cost)(xs, us)
+    objs = trajectory_cost(cost.C, cost.c, xs, us) if is_quad else _make_traj_cost_fn(cost, mapped_cost)(xs, us)
     return MPCSolution(xs, us, objs, info)
 
 

@@ -202,7 +202,8 @@ def _ladder(x_init, C, c, F, f, K, k, x_hat, u_hat, u_lower, u_upper, delta_u, d
     under ``cost_fn`` (``C, c`` where it is None): every step of the ladder
     rolled out at once, each scenario's first improving one taken."""
     dtype = x_init.dtype
-    alphas = torch.tensor(decay, dtype=dtype, device=x_init.device) ** torch.arange(
+    # a filled tensor, not torch.tensor: an exported program would hold that as a constant
+    alphas = torch.full((), decay, dtype=dtype, device=x_init.device) ** torch.arange(
         max_iter, dtype=dtype, device=x_init.device
     )
     xs_l, us_l = lqr_rollout(

@@ -10,8 +10,9 @@
   introspection and arity, the manifest and its validation, the
   format-version gate and a raw payload;
 - a program built here for the card (every device argument ``cuda``), the
-  mesh form following the dispatch, and the refusals (a callable cost,
-  ``verbose``, a model without tensors for ``params_input``, an
+  mesh form following the dispatch, the contract of torch's private
+  ``while_loop_op`` that the exported loop calls, and the refusals (``verbose``, a model
+  without tensors for ``params_input``, an
   indivisible mesh batch, per-scenario tensors that a mesh program would
   bake, the JAX package's artifact);
 - the same numpy inputs through the JAX package's ``export_solve`` /
@@ -252,25 +253,61 @@ def test_params_input_requires_a_model_with_tensors():
 
 
 def test_callable_cost_and_verbose_refused():
+    """verbose > 0 is refused (the JAX package's export refuses it too:
+    tests/test_torch_aot_callable.py). A callable cost is exported since
+    the serving artifact traces it (tests/test_torch_aot_callable.py)."""
     config, cost, dx, x = _problem()
-    with pytest.raises(ValueError, match="callable cost"):
-        aot.export_solve(config, lambda tau: (tau ** 2).sum(), dx, B, **BOX)
     with pytest.raises(ValueError, match="verbose"):
         aot.export_solve(dataclasses.replace(config, verbose=1), cost, dx, B, **BOX)
 
 
 def test_non_fused_config2_artifact_matches_live():
-    """The non-fused loop under export runs every iteration with the exit
-    folded into a mask: the same answer and n_iters as the live loop, which
-    stops early."""
+    """The non-fused loop under export is a while_loop around one traced
+    iteration with the live loop's exit: the same answer and n_iters as the
+    live loop, which stops early."""
     config, cost, lin, x = _config2()
     box = dict(u_lower=-0.6, u_upper=0.6)
     solve = aot.load_solve(aot.export_solve(config, cost, lin, B, **box))
     graph = str(solve.exported.graph)
-    assert graph.count("diffmpc.riccati_backward") == config.lqr_iter == graph.count("diffmpc.linesearch_rollout")
+    body = "\n".join(str(gm.graph) for gm in solve.exported.graph_module.modules()
+                     if isinstance(gm, torch.fx.GraphModule) and gm is not solve.exported.graph_module)
+    assert "while_loop" in graph and "diffmpc.riccati_backward" not in graph
+    assert body.count("diffmpc.riccati_backward") == 1 == body.count("diffmpc.linesearch_rollout")
     got, want = solve(x), tdm.mpc_solve(config, x, cost, lin, **box)
     assert int(want.info.n_iters) < config.lqr_iter  # the live loop stopped early
     _assert_bit_equal(got, want)
+
+
+def test_while_loop_op_contract():
+    """The exported loop (mpc._ilqr_loop) calls torch's private
+    ``while_loop_op`` as ``(cond_fn, body_fn, carried_inputs,
+    additional_inputs)``: that import, those four positional arguments,
+    the loop run eagerly and under torch.export, each failing with a
+    message naming the op."""
+    import inspect
+
+    try:
+        from torch._higher_order_ops.while_loop import while_loop_op
+    except ImportError as e:
+        pytest.fail(f"torch._higher_order_ops.while_loop.while_loop_op no longer imports: {e}")
+    params = list(inspect.signature(while_loop_op.__call__).parameters.values())
+    positional = [p.name for p in params if p.kind is inspect.Parameter.POSITIONAL_ONLY]
+    assert positional[:4] == ["cond_fn", "body_fn", "carried_inputs", "additional_inputs"], \
+        f"while_loop_op's positional arguments changed: {positional}"
+
+    class Loop(torch.nn.Module):
+        def forward(self, x, step):
+            return while_loop_op(lambda i, y, s: (i < 3) & (y.sum() < 100.0),
+                                 lambda i, y, s: (i + 1, y + s),
+                                 (torch.zeros((), dtype=torch.int32), x), (step,))
+
+    x, step = torch.zeros(2), torch.tensor([1.0, 2.0])
+    n, y = Loop()(x, step)
+    assert int(n) == 3 and torch.equal(y, 3 * step), f"while_loop_op run eagerly gave {n}, {y}"
+    ep = torch.export.export(Loop(), (x, step))
+    assert "while_loop" in str(ep.graph), f"while_loop_op left no while_loop in the exported graph:\n{ep.graph}"
+    n, y = ep.module()(x, 20 * step)  # stops on the sum after two iterations
+    assert int(n) == 2 and torch.equal(y, 40 * step), f"while_loop_op under export gave {n}, {y}"
 
 
 def test_artifact_in_a_receding_loop():

@@ -7,8 +7,8 @@ the CPU, on the pendulum, a ``LinDx``, a small and a large MLP,
 ``AffineDynamics`` and each env of the zoo, and a receding-horizon episode
 with a callable cost and the slew penalty runs, and so does the render
 example's one-robot episode and a training example with a checkpoint saved
-and restored. No module of the port
-imports optax or Orbax. A solve exported and loaded
+and restored, and the bench bands' two-run rule holds. No module of the
+port imports optax or Orbax. A solve exported and loaded
 (``aot.py``) equals the live one. The chip smoke script imports no JAX
 either, and refuses to run without a card. The port's public names (each
 ``__all__``) cover the JAX package's.
@@ -45,7 +45,7 @@ new = ["ops.cuda.riccati", "ops.cuda.rollout", "ops.pnqp", "ops.smallchol", "ops
        "examples.il_cartpole", "examples.il_vehicle", "examples.il_quadrotor", "examples.il_acrobot",
        "examples.il_nn_dynamics", "examples.sysid_domain_rand", "aot", "ops.library", "models.spec", "native",
        "examples.export_artifact", "examples.render_trajectory", "models.envs.frame",
-       "diagnostics.one_robot_profile"]
+       "diagnostics.one_robot_profile", "utils.bench_bands"]
 assert all(f"diffmpc_tpu_torch.{m}" in names for m in new), names
 assert "diffmpc_tpu" not in sys.modules and "jax" in sys.modules
 assert not any(m.split(".")[0] in ("optax", "orbax", "flax") for m in sys.modules)
@@ -106,6 +106,12 @@ with tempfile.TemporaryDirectory() as out:
     state = il_pendulum.main(flags + ["--steps", "1"])
     assert latest_step(out + "/ckpt") == 1
     restore_checkpoint(out + "/ckpt", state)
+from diffmpc_tpu_torch.utils.bench_bands import evaluate_with_history
+with tempfile.TemporaryDirectory() as out:
+    with open(out + "/bands.json", "w") as fh:
+        fh.write('{"rows": {"solves_per_s": {"min": 1.0}}}')
+    for want in ([], ["solves_per_s"]):
+        assert evaluate_with_history({"solves_per_s": 0.5}, out + "/bands.json", out + "/h.jsonl")[1] == want
 from diffmpc_tpu_torch import aot
 dx = PendulumDx.default(device="cpu")
 q, p = dx.get_true_obj()

@@ -2611,6 +2611,25 @@ def build_variants_phase(keys: list) -> None:
     emit(phase="variants_build", seconds=build_s, keys=len(built), per_key_seconds=seconds, ptxas=ptxas,
          workers=build.variant_workers())
     check_unique_symbols({key.name: path for key, (path, _) in built.items()})
+    # each fused-solve key's registers, local memory, shared memory a block
+    # and blocks an SM at every lane count, as the card gives them; raises
+    # past the card's opt-in shared memory or below one block an SM
+    from diffmpc_tpu_torch.diagnostics.ab_ilqr_lanes import occupancy
+    from diffmpc_tpu_torch.ops.cuda.ilqr import ILQR_LANES
+
+    props = torch.cuda.get_device_properties(0)
+    limit = getattr(props, "shared_memory_per_block_optin", 227 * 1024)
+    occ = {}
+    for key in built:
+        if key.family == "ilqr":
+            occ[key.name] = {f"{'hoist' if hoist else 'sweep'}": occupancy(build.load_variant(key), ILQR_LANES, hoist)
+                             for hoist in (False, True)}
+    emit(phase="variants_occupancy", smem_optin_bytes=limit, occupancy=occ)
+    for name, by_hoist in occ.items():
+        for by_l in by_hoist.values():
+            for L, o in by_l.items():
+                if o["smem_block_bytes"] > limit or o["blocks_per_sm"] < 1:
+                    raise AssertionError(f"{name} at {L} lanes: {o} (opt-in limit {limit} bytes)")
 
 
 def variants_slice(device, smi: str, clock_mhz: float) -> list:

@@ -52,13 +52,15 @@ NVCC_FLAGS = (
 )
 
 
-# The Riccati sweep's and the KKT backward's sources are built without FMA
+# The Riccati sweep's and the KKT backward's sources, and the fused solve's
+# variants (whose sweep is the Riccati step's), are built without FMA
 # contraction. Whether nvcc fuses a product into a sum depends on how many
 # uses the product has in the surrounding code, which differs between one
 # thread's step and a lane group's share of it; the kernels fuse by hand
 # instead (riccati_mad in riccati_entries.cuh), where contraction fused the
 # one-thread kernel, so that every lane count computes the same float32
-# operations, bit for bit.
+# operations, bit for bit. The prebuilt fused solve (ilqr.cu, ilqr_nn*.cu)
+# keeps its contraction and its sweep.
 NO_CONTRACTION = ("-fmad=false",)
 
 
@@ -296,14 +298,20 @@ def variant_defines(key: VariantKey) -> list[str]:
     return defs
 
 
+# the variant families built without FMA contraction (NO_CONTRACTION)
+CONTRACTION_FREE_FAMILIES = ("riccati", "kkt", "ilqr")
+
+
 def variant_units(key: VariantKey) -> list[list[str]]:
     """The compile flags of each of ``key``'s translation units, one nvcc
     each: the main library's flags (without FMA contraction for the Riccati
-    sweep and the KKT backward, as their prebuilt sources), the key's macros
-    and the unit's lane count; the source is ``variant_source(key)``."""
+    sweep and the KKT backward, as their prebuilt sources, and for the fused
+    solve, whose variants share the Riccati step out over the lanes), the
+    key's macros and the unit's lane count; the source is
+    ``variant_source(key)``."""
     _, lanes = VARIANT_SOURCES[key.family]
-    flags = [*NVCC_FLAGS, *(NO_CONTRACTION if key.family in ("riccati", "kkt") else ()), *variant_defines(key),
-             "-I", CSRC]
+    flags = [*NVCC_FLAGS, *(NO_CONTRACTION if key.family in CONTRACTION_FREE_FAMILIES else ()),
+             *variant_defines(key), "-I", CSRC]
     return [flags + [f"-DDMPC_VARIANT_L={L}"] for L in (*lanes, 0)]
 
 
@@ -361,6 +369,32 @@ def build_variants(keys, seconds: dict | None = None) -> dict:
     finally:
         shutil.rmtree(objdir, ignore_errors=True)
     return out
+
+
+def build_variants_with(keys, out_dir: str, defines=(), label: str = "custom", workers: int = 0) -> tuple:
+    """Other builds of the variants ``keys`` for a diagnostic: each key's
+    units as :func:`variant_units` has them, each with ``-D`` for each of
+    ``defines`` (``NAME`` or ``NAME=VALUE``), all compiled at once (at most
+    ``workers`` nvcc processes; 0: :func:`variant_workers`), each
+    key's linked into ``out_dir/lib<label>_<key.name>.so``. Returns ``({key:
+    CDLL}, {key: nvcc's log})``; raises with nvcc's output where a compile
+    fails."""
+    keys = list(dict.fromkeys(keys))
+    nvcc = find_nvcc()
+    objs, cmds = {}, []
+    for key in keys:
+        for i, flags in enumerate(variant_units(key)):
+            objs.setdefault(key, []).append(os.path.join(out_dir, f"{label}-{key.name}-{i}.o"))
+            cmds.append([nvcc, *flags, *(f"-D{d}" for d in defines), "-c", "-o", objs[key][-1], variant_source(key)])
+    logs, _ = _run_each(cmds, workers or variant_workers())
+    libs, key_logs, at = {}, {}, 0
+    for key in keys:
+        so = os.path.join(out_dir, f"lib{label}_{key.name}.so")
+        _link(nvcc, objs[key], so)
+        libs[key] = _dlopen(so)
+        key_logs[key] = "".join(logs[at : at + len(objs[key])])
+        at += len(objs[key])
+    return libs, key_logs
 
 
 @functools.lru_cache(maxsize=None)

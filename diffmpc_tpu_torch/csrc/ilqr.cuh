@@ -30,17 +30,26 @@
 //   lane_x, lane_u, and the chosen lane's slot becomes (x_hat, u_hat), its
 //   cost the new cost: the replay's values, without the replay's chain.
 //   Only when no candidate improves is alpha_floor replayed;
-// - the stores of every step-indexed array: step t by lane t % L.
-// The serial chains (the initial rollout, the Riccati sweep, a replay) stay
-// one chain: every lane of the group runs it on the same values, in
-// lockstep, so no result needs to be broadcast and the warp executes each
-// instruction once for all of its lanes. The per-scenario bookkeeping is
-// the same scalar arithmetic on every lane.
+// - the stores of every step-indexed array: step t by lane t % L;
+// - with the shared sweep (Shared, riccati_sweep_shared: the variants,
+//   csrc/variants/variant.cuh) at 16 lanes, the Riccati sweep itself: each
+//   step's arithmetic is riccati.cuh's lane-group step (riccati_lanes_step:
+//   Q's entries, the box QP's candidates, the gains' columns, V' and v'
+//   shared out), and the steps' inputs (the linearization, C, the box) are
+//   computed and loaded in rounds of L, one step a lane, into the group's
+//   shared memory.
+// The serial chains (the initial rollout, a replay, and but for the shared
+// sweep at 16 lanes the Riccati sweep) stay one chain: every lane of the
+// group runs it on the same values, in lockstep, so no result needs to be
+// broadcast and the warp executes each instruction once for all of its
+// lanes. The per-scenario bookkeeping is the same scalar arithmetic on
+// every lane.
 //
 // L = 1 is the one-thread program: the same loads from device memory, the
 // same operations in the same order, no barrier, the replay. Every L
 // computes the same float32 operations on the same values as L = 1, so its
-// outputs are bit for bit the same.
+// outputs are bit for bit the same (the shared sweep's sources are built
+// without FMA contraction, fused by hand as the Riccati kernel's are).
 //
 // Layout: every per-step array is batch-minor, (T, entries..., B), so that
 // neighbouring scenarios touch neighbouring addresses. The value carry
@@ -49,6 +58,7 @@
 
 #include "dual.cuh"
 #include "lanes.cuh"
+#include "riccati.cuh"
 #include "riccati_entries.cuh"
 
 // Launch arguments. The field order is mirrored by ctypes in
@@ -143,6 +153,79 @@ template <int N, int M>
 constexpr int ilqr_group_slot_floats() {
   return kLaneStages * IlqrSlice<N, M>::kSize;
 }
+
+// The lane count from which the shared sweep shares each step's arithmetic
+// out over the group (riccati_lanes_step); below it every lane runs the
+// one-lane step on the same values. On the H100 two and four lanes shared
+// the step out slower than the sweep every lane repeats (the (6, 2) wrap
+// at B=1024: 4.25 / 3.01 against 2.83 / 2.17 ms; PERF.md, PR 21).
+constexpr int kSweepShareLanes = 16;
+
+// One step's inputs of the shared sweep as a round writes them into the
+// group's shared memory (riccati_sweep_shared): the Jacobian F (row-major,
+// N x NM), the delta cost cd, C's upper triangle (row by row), and the box
+// about u_hat (lo - u_hat, hi - u_hat).
+template <int N, int M>
+struct LinSlice {
+  static constexpr int NM = N + M;
+  static constexpr int kcd = N * NM;
+  static constexpr int kC = kcd + NM;
+  static constexpr int klo = kC + NM * (NM + 1) / 2;
+  static constexpr int khi = klo + M;
+  static constexpr int kSize = khi + M;
+};
+
+// Floats of shared memory a group of L lanes needs: the ladder's staging
+// ring, and where the shared sweep shares its steps out, in the same place,
+// its round of L steps' inputs and riccati.cuh's exchange scratch,
+// whichever is larger.
+template <int N, int M, bool Shared, int L, int ENUM = kPnqpEnumDefault>
+constexpr int ilqr_group_floats() {
+  constexpr int ladder = ilqr_group_slot_floats<N, M>();
+  constexpr int sweep = L * LinSlice<N, M>::kSize + RiccatiScratch<N, M, ENUM>::kSize;
+  return Shared && L >= kSweepShareLanes && sweep > ladder ? sweep : ladder;
+}
+
+// The phases of a solve that the profile build counts (IlqrProfile): the
+// initial rollout, the linearization, the sweep's loads (their issue and,
+// in the profile build, their arrival), the sweep's arithmetic with the box
+// QP and the gains' stores, the ladder, the new trajectory (the kept slot's
+// copy or the replay), and the bookkeeping between them.
+enum IlqrPhase { kPhaseInit, kPhaseLin, kPhaseLoads, kPhaseSweep, kPhaseLadder, kPhaseKeep, kPhaseBook, kIlqrPhases };
+
+// Built with DMPC_ILQR_PROFILE (a diagnostic build), each group's first
+// lane counts the cycles (clock64) of each phase of its scenario and adds
+// them to ilqr_profile_cycles when the scenario is done, with one more
+// count for the scenario itself (read back by diffmpc_ilqr_profile_l<L>,
+// csrc/variants/ilqr.cu). wait(v) makes the next mark wait for v's load to
+// arrive. Elsewhere every member does nothing.
+#ifdef DMPC_ILQR_PROFILE
+static __device__ unsigned long long ilqr_profile_cycles[kIlqrPhases + 1];
+#endif
+#if defined(DMPC_ILQR_PROFILE) && defined(__CUDA_ARCH__)
+struct IlqrProfile {
+  unsigned long long c[kIlqrPhases] = {};
+  long long last = clock64();
+  float keep = 0.0f;
+  __device__ void mark(int phase) {
+    const long long now = clock64();
+    c[phase] += now - last;
+    last = now;
+  }
+  __device__ void wait(float v) { asm volatile("add.f32 %0, %0, %1;" : "+f"(keep) : "f"(v)); }
+  __device__ void flush(bool leader) {
+    if (!leader) return;
+    for (int i = 0; i < kIlqrPhases; ++i) atomicAdd(&ilqr_profile_cycles[i], c[i]);
+    atomicAdd(&ilqr_profile_cycles[kIlqrPhases], keep == 1.0e-38f ? 2ull : 1ull);  // the waits' sums stay live
+  }
+};
+#else
+struct IlqrProfile {
+  DMPC_HD void mark(int) {}
+  DMPC_HD void wait(float) {}
+  DMPC_HD void flush(bool) {}
+};
+#endif
 
 namespace ilqr_detail {
 
@@ -336,7 +419,7 @@ DMPC_HD void linearize_at(const IlqrArgs& a, const Env& env, const float* p, int
 // simplified value update (value_update), which the wrapper asks for only
 // where that QP is exact (ops/cuda/riccati.py, use_exact_value_update).
 template <int N, int M, bool HoistLin, int ENUM, bool EXACT, class Env, class G>
-DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, int b, const G& g) {
+DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, int b, const G& g, IlqrProfile& prof) {
   constexpr int NM = N + M;
   const int B = a.B;
   if constexpr (HoistLin) {
@@ -350,6 +433,7 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
       }
     }
     g.publish();
+    prof.mark(kPhaseLin);
   }
   float V[N][N], v[N];
   for (int i = 0; i < N; ++i) {
@@ -366,10 +450,16 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
       for (int i = 0; i < NM; ++i) cd[i] = a.cd_s[at(t, i, NM, B, b)];
     } else {
       linearize_at<N, M>(a, env, p, b, t, Ft, cd);
+      prof.wait(cd[NM - 1]);
+      prof.mark(kPhaseLin);
     }
     for (int i = 0; i < M; ++i) uh[i] = a.u_hat[at(t, i, M, B, b)];
     for (int i = 0; i < NM; ++i)
       for (int j = 0; j < NM; ++j) Ct[i][j] = a.C[at(t, i * NM + j, NM * NM, B, b)];
+    for (int i = 0; i < M; ++i) prof.wait(uh[i]);
+    for (int i = 0; i < NM; ++i) prof.wait(Ct[i][NM - 1]);
+    if constexpr (HoistLin) prof.wait(Ft[N - 1][NM - 1]), prof.wait(cd[NM - 1]);
+    prof.mark(kPhaseLoads);
     // W = V F ; Q = C + F'W (upper triangle of C, mirrored) ; q = cd + F'v
     float W[N][NM];
     for (int k = 0; k < N; ++k)
@@ -412,6 +502,176 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
       if (mine) a.k[at(t, i, M, B, b)] = kt[i];
     }
     value_update<N, M, EXACT>(Q, q, Quu, qu, K, kt, V, v);
+    prof.mark(kPhaseSweep);
+  }
+  return qp_sum;
+}
+
+// Step t's inputs of the shared sweep from the round's slot (LinSlice):
+// riccati.cuh's accessor of box mode without f, cd as the linear cost c.
+template <int N, int M>
+struct SweepStep {
+  using S = LinSlice<N, M>;
+  SlotReader e;
+  DMPC_HD float C(int i, int j) const { return e[S::kC + upper_index(N + M, i, j)]; }
+  DMPC_HD float c(int i) const { return e[S::kcd + i]; }
+  DMPC_HD float F(int i, int j) const { return e[i * (N + M) + j]; }
+  DMPC_HD bool has_f() const { return false; }
+  DMPC_HD float f(int) const { return 0.0f; }
+  DMPC_HD float lo(int i) const { return e[S::klo + i]; }
+  DMPC_HD float hi(int i) const { return e[S::khi + i]; }
+};
+
+// The same inputs in registers: C's upper triangle and the box about u_hat
+// read from device memory at once (as riccati.cuh's RiccatiRegs), F and cd
+// the step's linearization.
+template <int N, int M>
+struct SweepRegs {
+  static constexpr int NM = N + M;
+  float Cu[NM * (NM + 1) / 2], lo_d[M], hi_d[M];
+  const float (&Ft)[N][NM];
+  const float (&cd)[NM];
+  DMPC_HD float C(int i, int j) const { return Cu[upper_index(NM, i, j)]; }
+  DMPC_HD float c(int i) const { return cd[i]; }
+  DMPC_HD float F(int i, int j) const { return Ft[i][j]; }
+  DMPC_HD bool has_f() const { return false; }
+  DMPC_HD float f(int) const { return 0.0f; }
+  DMPC_HD float lo(int i) const { return lo_d[i]; }
+  DMPC_HD float hi(int i) const { return hi_d[i]; }
+};
+
+// Step t's C upper triangle and the box about u_hat (lo - u_hat, hi - u_hat,
+// as riccati_sweep subtracts them), read from device memory, into `in`.
+template <int N, int M>
+DMPC_HD void load_step(const IlqrArgs& a, int t, int b, SweepRegs<N, M>& in) {
+  constexpr int NM = N + M;
+  const int B = a.B;
+  for (int i = 0; i < NM; ++i)
+    for (int j = i; j < NM; ++j) in.Cu[upper_index(NM, i, j)] = a.C[at(t, i * NM + j, NM * NM, B, b)];
+  for (int i = 0; i < M; ++i) {
+    const float uh = a.u_hat[at(t, i, M, B, b)];
+    in.lo_d[i] = a.u_lower[at(t, i, M, B, b)] - uh;
+    in.hi_d[i] = a.u_upper[at(t, i, M, B, b)] - uh;
+  }
+}
+
+// Where the shared sweep's step puts the gains (riccati_lanes_step's sink):
+// K and k; the free mask and the QP count go nowhere.
+struct SweepOut {
+  const IlqrArgs& a;
+  int b;
+  DMPC_HD void K(int t, int i, int j, int M, int N, float val) const {
+    a.K[at(t, i * N + j, M * N, a.B, b)] = val;
+  }
+  DMPC_HD void k(int t, int i, int M, float val) const { a.k[at(t, i, M, a.B, b)] = val; }
+  DMPC_HD void free(int, int, int, float) const {}
+  DMPC_HD void n_qp(int, float) const {}
+};
+
+// The delta-form Riccati sweep of riccati_sweep, each step the Riccati
+// kernel's own box step (riccati.cuh) on the step's linearization, its sums
+// of products fused by hand. Below kSweepShareLanes every lane runs the
+// one-lane step, riccati_step, on the same values (with HoistLin after the
+// pre-pass, lane j linearizing t = j, j + L, ...); a group of
+// kSweepShareLanes shares each step out by riccati_lanes_step (Q's upper
+// triangle and q, the m >= 2 enumeration's candidates, the gains' columns,
+// V' and v'), the steps' inputs written in rounds of L steps into the
+// group's shared memory (LinSlice), lane j linearizing and loading the step
+// t - j of a round that starts at t (the HoistLin pre-pass's work, off the
+// value carry's chain, at either HoistLin: its device scratch is left
+// alone). Every L computes riccati_step's float32 operations on the same
+// values, so it gives bit for bit the gains of L = 1. Writes K, k and
+// returns the summed box-QP solve count.
+template <int N, int M, bool HoistLin, int ENUM, bool EXACT, class Env, class G>
+DMPC_HD float riccati_sweep_shared(const IlqrArgs& a, const Env& env, const float* p, int b, const G& g,
+                                   IlqrProfile& prof) {
+  constexpr int NM = N + M, L = G::kLanes;
+  const int T = a.T, B = a.B;
+  float V[N][N], v[N];
+  for (int i = 0; i < N; ++i) {
+    v[i] = 0.0f;
+    for (int j = 0; j < N; ++j) V[i][j] = 0.0f;
+  }
+  float qp_sum = 0.0f;
+  if constexpr (L < kSweepShareLanes) {
+    if constexpr (HoistLin) {
+      for (int li = 0; li < G::kLocal; ++li) {
+        for (int t = g.lane_of(li); t < T; t += L) {  // independent iterations
+          float Ft[N][NM], cd[NM];
+          linearize_at<N, M>(a, env, p, b, t, Ft, cd);
+          for (int k = 0; k < N; ++k)
+            for (int j = 0; j < NM; ++j) a.F_s[at(t, k * NM + j, N * NM, B, b)] = Ft[k][j];
+          for (int i = 0; i < NM; ++i) a.cd_s[at(t, i, NM, B, b)] = cd[i];
+        }
+      }
+      g.publish();
+      prof.mark(kPhaseLin);
+    }
+    for (int s = 0; s < T; ++s) {
+      const int t = T - 1 - s;
+      float Ft[N][NM], cd[NM];
+      if constexpr (HoistLin) {
+        for (int k = 0; k < N; ++k)
+          for (int j = 0; j < NM; ++j) Ft[k][j] = a.F_s[at(t, k * NM + j, N * NM, B, b)];
+        for (int i = 0; i < NM; ++i) cd[i] = a.cd_s[at(t, i, NM, B, b)];
+      } else {
+        linearize_at<N, M>(a, env, p, b, t, Ft, cd);
+        prof.wait(cd[NM - 1]);
+        prof.mark(kPhaseLin);
+      }
+      SweepRegs<N, M> in{{}, {}, {}, Ft, cd};
+      load_step<N, M>(a, t, b, in);
+      for (int i = 0; i < M; ++i) prof.wait(in.lo_d[i]), prof.wait(in.hi_d[i]);
+      prof.wait(in.Cu[NM * (NM + 1) / 2 - 1]);
+      if constexpr (HoistLin) prof.wait(Ft[N - 1][NM - 1]), prof.wait(cd[NM - 1]);
+      prof.mark(kPhaseLoads);
+      float K[M][N], kt[M], frozen[M];
+      qp_sum += riccati_step<N, M, kRiccatiBox, ENUM>(in, a.pnqp_iter, a.reg, V, v, K, kt, frozen, EXACT);
+      if (g.owns(t)) {
+        for (int i = 0; i < M; ++i) {
+          for (int j = 0; j < N; ++j) a.K[at(t, i * N + j, M * N, B, b)] = K[i][j];
+          a.k[at(t, i, M, B, b)] = kt[i];
+        }
+      }
+      prof.mark(kPhaseSweep);
+    }
+  } else {
+    using Ln = LinSlice<N, M>;
+    using Plan = RiccatiLanePlan<N, M, kRiccatiBox, L>;
+    const GroupScratch x{g.slots + (size_t)L * Ln::kSize * g.stride, g.stride};
+    Plan plan[G::kLocal];
+    for (int li = 0; li < G::kLocal; ++li) plan[li].init(g.lane_of(li), false);
+    g.sync();  // every lane is done with the ladder's ring, which the rounds take
+    for (int s = 0; s < T; ++s) {
+      const int t = T - 1 - s;
+      float* const slot = g.slots + (size_t)(s % L) * Ln::kSize * g.stride;
+      if (s % L == 0) {
+        // a round: lane j writes step t - j's inputs (every lane is done
+        // with the last round's, read before the barriers of its last step)
+        for (int li = 0; li < G::kLocal; ++li) {
+          const int j = g.lane_of(li);
+          if (t - j < 0) continue;
+          float Ft[N][NM], cd[NM];
+          linearize_at<N, M>(a, env, p, b, t - j, Ft, cd);
+          SweepRegs<N, M> in{{}, {}, {}, Ft, cd};
+          load_step<N, M>(a, t - j, b, in);
+          const auto put = [&](int e, float val) { slot[((size_t)j * Ln::kSize + e) * g.stride] = val; };
+          for (int k = 0; k < N; ++k)
+            for (int c = 0; c < NM; ++c) put(k * NM + c, Ft[k][c]);
+          for (int i = 0; i < NM; ++i) put(Ln::kcd + i, cd[i]);
+          for (int e = 0; e < NM * (NM + 1) / 2; ++e) put(Ln::kC + e, in.Cu[e]);
+          for (int i = 0; i < M; ++i) {
+            put(Ln::klo + i, in.lo_d[i]);
+            put(Ln::khi + i, in.hi_d[i]);
+          }
+        }
+        g.sync();
+        prof.mark(kPhaseLin);
+      }
+      qp_sum += riccati_lanes_step<N, M, kRiccatiBox, ENUM>(g, plan, x, SweepStep<N, M>{SlotReader{slot, g.stride}},
+                                                            t, a.reg, a.pnqp_iter, EXACT, SweepOut{a, b}, V, v);
+      prof.mark(kPhaseSweep);
+    }
   }
   return qp_sum;
 }
@@ -426,12 +686,14 @@ DMPC_HD float riccati_sweep(const IlqrArgs& a, const Env& env, const float* p, i
 // old) (:381-410), which leaves it unchanged, and its K, k are never read
 // again. So a group that stops at its own convergence computes exactly the
 // same result. ENUM and EXACT are riccati_sweep's.
-template <int N, int M, bool HoistLin, int ENUM = kPnqpEnumDefault, bool EXACT = false, class Env, class G>
+template <int N, int M, bool HoistLin, int ENUM = kPnqpEnumDefault, bool EXACT = false, bool Shared = false, class Env,
+          class G>
 DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const float* params, const G& g) {
   using namespace ilqr_detail;
   constexpr int L = G::kLanes, kLocal = G::kLocal;
   const int T = a.T, B = a.B;
   const float* p = params + (size_t)b * a.params_stride;
+  IlqrProfile prof;
   float x0[N];
   for (int i = 0; i < N; ++i) x0[i] = a.x_init[(size_t)i * B + b];
 
@@ -453,14 +715,19 @@ DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const
     for (int i = 0; i < N; ++i) x[i] = xn[i];
   }
   g.publish();
+  prof.mark(kPhaseInit);
   float cur_obj = obj, best_obj = obj;
   float n_not_improved = 0.0f, last_improvement = INFINITY, last_alpha = 1.0f;
   float n_iters = 0.0f, qp_iters = 0.0f;
   bool done = false;
 
   for (int it = 0; it < a.lqr_iter && !done; ++it) {
-    qp_iters = riccati_sweep<N, M, HoistLin, ENUM, EXACT>(a, env, p, b, g) / (float)T;
+    if constexpr (Shared)
+      qp_iters = riccati_sweep_shared<N, M, HoistLin, ENUM, EXACT>(a, env, p, b, g, prof) / (float)T;
+    else
+      qp_iters = riccati_sweep<N, M, HoistLin, ENUM, EXACT>(a, env, p, b, g, prof) / (float)T;
     g.publish();
+    prof.mark(kPhaseBook);
 
     // the alpha ladder, L candidates a round: the first improving step,
     // else alpha_floor. The rolled ladder's alphas: lane j starts at
@@ -494,6 +761,7 @@ DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const
         has = true;
       }
     }
+    prof.mark(kPhaseLadder);
 
     // the new trajectory: the chosen lane's slot (its cost is the chosen
     // candidate's), or the replay of the chosen step
@@ -527,6 +795,7 @@ DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const
       new_obj = rollout<N, M, kStoreHat>(a, env, p, b, g, x0, chosen);
     }
     g.publish();
+    prof.mark(kPhaseKeep);
     cur_obj = new_obj;
 
     const bool improved = new_obj < best_obj;
@@ -546,6 +815,7 @@ DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const
     last_alpha = chosen;
     n_iters += 1.0f;
     done = (improvement < a.eps) || (n_not_improved >= (float)a.not_improved_lim);
+    prof.mark(kPhaseBook);
   }
 
   if (g.leader()) {
@@ -556,9 +826,12 @@ DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const
     a.n_iters[b] = n_iters;
     a.qp_iters[b] = qp_iters;
   }
+  prof.mark(kPhaseBook);
+  prof.flush(g.leader());
 }
 
-template <int N, int M, bool HoistLin, int ENUM = kPnqpEnumDefault, bool EXACT = false, class Env, class G>
+template <int N, int M, bool HoistLin, int ENUM = kPnqpEnumDefault, bool EXACT = false, bool Shared = false, class Env,
+          class G>
 DMPC_HD void ilqr_solve_scenario(const IlqrArgs& a, const Env& env, int b, const G& g) {
-  ilqr_solve_scenario<N, M, HoistLin, ENUM, EXACT>(a, env, b, a.params, g);
+  ilqr_solve_scenario<N, M, HoistLin, ENUM, EXACT, Shared>(a, env, b, a.params, g);
 }

@@ -24,7 +24,7 @@ namespace ilqr_launch_detail {
 
 constexpr int kThreads = 128;
 
-template <class Env, bool HoistLin, int L, int ENUM, bool EXACT>
+template <class Env, bool HoistLin, int L, int ENUM, bool EXACT, bool Shared>
 __global__ void __launch_bounds__(kThreads) ilqr_kernel(IlqrArgs a, Env env) {
   constexpr int P = SharedParams<Env>::count;
   extern __shared__ float ilqr_slots[];
@@ -36,31 +36,74 @@ __global__ void __launch_bounds__(kThreads) ilqr_kernel(IlqrArgs a, Env env) {
     for (int i = threadIdx.x; i < P; i += blockDim.x) params[i] = a.params[i];
     __syncthreads();
     if (b >= a.B) return;  // the whole group: its lanes share b
-    ilqr_solve_scenario<Env::N, Env::M, HoistLin, ENUM, EXACT>(a, env, b, params, g);
+    ilqr_solve_scenario<Env::N, Env::M, HoistLin, ENUM, EXACT, Shared>(a, env, b, params, g);
   } else {
     if (b >= a.B) return;
-    ilqr_solve_scenario<Env::N, Env::M, HoistLin, ENUM, EXACT>(a, env, b, g);
+    ilqr_solve_scenario<Env::N, Env::M, HoistLin, ENUM, EXACT, Shared>(a, env, b, g);
   }
 }
 
-// Launch the kernel for Env at L lanes, the box QP's enumeration mode ENUM
-// and the value update's form EXACT (ilqr.cuh, riccati_sweep); returns
-// cudaGetLastError().
-template <class Env, bool HoistLin, int L, int ENUM = kPnqpEnumDefault, bool EXACT = false>
+// The kernel's HoistLin: a shared sweep that shares its steps out reads no
+// pre-pass (its rounds linearize), so its launches with and without
+// HoistLin take one kernel, compiled once.
+template <bool HoistLin, int L, bool Shared>
+constexpr bool kernel_hoist() {
+  return HoistLin && !(Shared && L >= kSweepShareLanes);
+}
+
+// The dynamic shared memory of a block of Env's kernel at L lanes: each
+// group's (ilqr_group_floats)
+template <class Env, int L, int ENUM, bool Shared>
+constexpr size_t block_smem() {
+  return L > 1 ? sizeof(float) * (kThreads / L) * ilqr_group_floats<Env::N, Env::M, Shared, L, ENUM>() : 0;
+}
+
+// Above 48 KB of shared memory a block must ask for it: (6, 3) at two and
+// four lanes, 64 / 32 groups' rings of 378 floats, beside an MLP's weights,
+// and a shared sweep's rounds at 16 lanes where n + m >= 8.
+template <class Env, bool HoistLin, int L, int ENUM, bool EXACT, bool Shared>
+cudaError_t allow_smem() {
+  constexpr size_t smem = block_smem<Env, L, ENUM, Shared>();
+  if (smem + sizeof(float) * SharedParams<Env>::count <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(ilqr_kernel<Env, kernel_hoist<HoistLin, L, Shared>(), L, ENUM, EXACT, Shared>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Launch the kernel for Env at L lanes, the box QP's enumeration mode ENUM,
+// the value update's form EXACT and the sweep (Shared: riccati_sweep_shared,
+// else riccati_sweep; ilqr.cuh); returns cudaGetLastError().
+template <class Env, bool HoistLin, int L, int ENUM = kPnqpEnumDefault, bool EXACT = false, bool Shared = false>
 int launch(const IlqrArgs* args, const Env* env, cudaStream_t stream) {
   if (!ilqr_lane_scratch_ok<Env, L>(*args)) return static_cast<int>(cudaErrorInvalidValue);
   const long threads = (long)args->B * L;
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  const size_t smem = L > 1 ? sizeof(float) * (kThreads / L) * ilqr_group_slot_floats<Env::N, Env::M>() : 0;
-  // above 48 KB of shared memory a block must ask for it: (6, 3) at two and
-  // four lanes, 64 / 32 groups' rings of 378 floats, beside an MLP's weights
-  if (smem + sizeof(float) * SharedParams<Env>::count > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(ilqr_kernel<Env, HoistLin, L, ENUM, EXACT>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (blocks > 0) ilqr_kernel<Env, HoistLin, L, ENUM, EXACT><<<blocks, kThreads, smem, stream>>>(*args, *env);
+  const cudaError_t err = allow_smem<Env, HoistLin, L, ENUM, EXACT, Shared>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks > 0)
+    ilqr_kernel<Env, kernel_hoist<HoistLin, L, Shared>(), L, ENUM, EXACT, Shared>
+        <<<blocks, kThreads, block_smem<Env, L, ENUM, Shared>(), stream>>>(*args, *env);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card makes of the kernel for Env at L lanes: out = {registers a
+// thread, local memory a thread in bytes (spills and stack), shared memory
+// a block in bytes (static and dynamic), blocks an SM holds at once}.
+// Returns a cudaError_t.
+template <class Env, bool HoistLin, int L, int ENUM = kPnqpEnumDefault, bool EXACT = false, bool Shared = false>
+int occupancy(int* out) {
+  const auto kernel = ilqr_kernel<Env, kernel_hoist<HoistLin, L, Shared>(), L, ENUM, EXACT, Shared>;
+  constexpr size_t smem = block_smem<Env, L, ENUM, Shared>();
+  cudaError_t err = allow_smem<Env, HoistLin, L, ENUM, EXACT, Shared>();
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)(attr.sharedSizeBytes + smem);
+  out[3] = blocks;
+  return 0;
 }
 
 }  // namespace ilqr_launch_detail
@@ -78,15 +121,29 @@ int launch(const IlqrArgs* args, const Env* env, cudaStream_t stream) {
 // returns cudaGetLastError(), or cudaErrorInvalidValue for a lane count that
 // is not instantiated (DMPC_LANES, lanes.cuh) or lanes' trajectory
 // scratch that its groups would not use, or lack.
-template <class Env, bool HoistLin, int ENUM = kPnqpEnumDefault, bool EXACT = false>
+template <class Env, bool HoistLin, int ENUM = kPnqpEnumDefault, bool EXACT = false, bool Shared = false>
 int ilqr_launch(const IlqrArgs* args, const Env* env, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (args->lanes) {
 #define DMPC_ILQR_LANE_CASE(_, L_) \
   case L_:                         \
-    return ilqr_launch_detail::launch<Env, HoistLin, L_, ENUM, EXACT>(args, env, s);
+    return ilqr_launch_detail::launch<Env, HoistLin, L_, ENUM, EXACT, Shared>(args, env, s);
     DMPC_LANES(DMPC_ILQR_LANE_CASE, _)
 #undef DMPC_ILQR_LANE_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// occupancy() of the kernel at `lanes` lanes; cudaErrorInvalidValue for a
+// lane count that is not instantiated.
+template <class Env, bool HoistLin, int ENUM = kPnqpEnumDefault, bool EXACT = false, bool Shared = false>
+int ilqr_occupancy(int lanes, int* out) {
+  switch (lanes) {
+#define DMPC_ILQR_OCC_CASE(_, L_) \
+  case L_:                        \
+    return ilqr_launch_detail::occupancy<Env, HoistLin, L_, ENUM, EXACT, Shared>(out);
+    DMPC_LANES(DMPC_ILQR_OCC_CASE, _)
+#undef DMPC_ILQR_OCC_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -558,13 +558,14 @@ DMPC_HD float riccati_v_entry(const GroupScratch& x, const float (&Quu)[M][M], c
 // One step of the sweep by the group g of L > 1 lanes (the header says what
 // each lane takes; `plan`, each local lane's share), its exchanges through
 // the scratch x: the gains of step t put to `out` (RiccatiOut, or the KKT
-// backward's sink), each entry by the lane that computed it (k, the free
-// mask and the QP count by lane N % L), and the value carry (V, v), which
-// every lane holds whole, updated in place.
+// backward's and the fused solve's sinks), each entry by the lane that
+// computed it (k, the free mask and the QP count by lane N % L), and the
+// value carry (V, v), which every lane holds whole, updated in place.
+// Returns the box QP's solve count, on every lane (0 outside box mode).
 template <int N, int M, int MODE, int ENUM, class In, class G, class Plan, class Out>
-DMPC_HD void riccati_lanes_step(const G& g, const Plan (&plan)[G::kLocal], const GroupScratch& x, const In& in, int t,
-                                float reg, int pnqp_iter, bool exact, const Out& out, float (&V)[N][N],
-                                float (&v)[N]) {
+DMPC_HD float riccati_lanes_step(const G& g, const Plan (&plan)[G::kLocal], const GroupScratch& x, const In& in, int t,
+                                 float reg, int pnqp_iter, bool exact, const Out& out, float (&V)[N][N],
+                                 float (&v)[N]) {
   using S = RiccatiScratch<N, M, ENUM>;
   constexpr int L = G::kLanes, NM = N + M;
   RiccatiProfile prof;
@@ -710,6 +711,7 @@ DMPC_HD void riccati_lanes_step(const G& g, const Plan (&plan)[G::kLocal], const
     v[i] = x[S::kv + i];
   }
   prof.mark(9);
+  return n_qp;
 }
 
 // Slots of a group's staging ring: the group computes step t while the

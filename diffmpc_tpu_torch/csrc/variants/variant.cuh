@@ -40,6 +40,12 @@
 
 // the value update's form as the templates take it
 constexpr bool kVariantExact = DMPC_EXACT != 0;
+// The fused solve's sweep (ilqr.cuh): every key's lane groups share the
+// Riccati sweep and the linearization out (riccati_sweep_shared), faster at
+// every key's rule-picked lane count than the sweep every lane repeats
+// (riccati_sweep, which the prebuilt kernels keep; PERF.md, PR 21,
+// diagnostics/ab_ilqr_lanes.py --variants --parent).
+constexpr bool kVariantSharedSweep = true;
 // the inner env's state dims: the key's n less the carried control's
 constexpr int kVariantInnerN = DMPC_PASSTHROUGH ? DMPC_N - DMPC_M : DMPC_N;
 

@@ -693,6 +693,22 @@ ILQR_LANES = (1, 2, 4, 16)
 # 14% over L = 4 (PERF.md).
 LANE_THREADS_PER_SM = 256
 
+# The variants (csrc/variants/ilqr.cu: the zoo, the passthrough wraps, the
+# MLPs and flags outside the prebuilt tables) share each sweep step out over
+# a group of 16 lanes (csrc/ilqr.cuh, riccati_sweep_shared), so 16 lanes pay
+# up to more threads an SM for a cheap step whose sweep is not small
+# (n + m >= 6). Measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (diagnostics/ab_ilqr_lanes.py --variants --wide; PERF.md, PR 21), ms at
+# L = 1 / 2 / 4 / 16: at B = 4096 the cartpole 2.851 1.920 1.329 0.983, the
+# vehicle's wrap 2.857 2.732 2.153 2.007, but the pendulum's, n + m = 5,
+# 2.147 1.554 1.029 1.187; at 8192 every env fastest at 2 or 4 lanes; at
+# 16,384 at 2 (the cartpole 5.270 3.130 3.560 3.951); at 65,536 two lanes
+# only where the step and its sweep are small (m = 1, n + m <= 6: the
+# cartpole 13.71 12.44, the pendulum's wrap 9.52 9.36), one elsewhere (the
+# vehicle 11.06 11.27, the quadrotor 15.13 21.80, the acrobot 9.08 9.96,
+# the vehicle's wrap 13.52 18.81).
+SHARED_LANE_THREADS_PER_SM = 512
+
 
 def keeps_lane_trajectories(env: KernelEnv, lanes: int) -> bool:
     """Whether the kernel's groups of ``lanes`` keep each lane's candidate
@@ -708,7 +724,7 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def ilqr_lanes(B: int, env: KernelEnv, sm_count: int, hoist_lin: bool = False) -> int:
+def ilqr_lanes(B: int, env: KernelEnv, sm_count: int, hoist_lin: bool = False, shared: Optional[bool] = None) -> int:
     """The threads per scenario of the fused kernel for a batch of ``B``
     scenarios of ``env`` on a card of ``sm_count`` SMs: the most lanes that
     keep ``B * L`` within :data:`LANE_THREADS_PER_SM` threads an SM (twice
@@ -717,12 +733,20 @@ def ilqr_lanes(B: int, env: KernelEnv, sm_count: int, hoist_lin: bool = False) -
     6.32 ms against 7.00; the acrobot's step, four times the pendulum's, is
     faster at 1 there: :data:`_CPP_ENVS`), and one with a dear step (an
     MLP), whose sweep every lane would repeat, takes 1 (21.65 ms against
-    15.43). The horizon
+    15.43). A variant's kernel (``shared``; by default an env without
+    prebuilt launchers) takes 16 lanes for a cheap step with n + m >= 6 up
+    to :data:`SHARED_LANE_THREADS_PER_SM` threads an SM, and past the budget
+    2 lanes only for a cheap step with m = 1 and n + m <= 6. The horizon
     does not enter: each step's slice is staged alike at every T."""
+    shared = env.symbol is None if shared is None else shared
+    if shared and env.cheap_step and env.n + env.m >= 6 and B * 16 <= SHARED_LANE_THREADS_PER_SM * sm_count:
+        return 16
     budget = LANE_THREADS_PER_SM * (2 if hoist_lin else 1) * sm_count
     for lanes in (16, 4, 2):
         if B * lanes <= budget:
             return lanes
+    if shared:
+        return 2 if env.cheap_step and env.m == 1 and env.n + env.m <= 6 else 1
     return 2 if env.cheap_step else 1
 
 
@@ -846,7 +870,9 @@ def ilqr_solve_fused(
     value update where the QP is exact (its ``VALUE_UPDATE_EXACT_REG``,
     :func:`fused_exact_update`). ``hoist_lin`` linearizes every step in a
     pre-pass before each Riccati sweep, off the value carry's chain (the JAX
-    package's ``DIFFMPC_HOIST_LIN=1``): the same solve. ``unroll`` takes the
+    package's ``DIFFMPC_HOIST_LIN=1``): the same solve. A variant's lane
+    groups (``csrc/ilqr.cuh``, ``riccati_sweep_shared``) linearize off the
+    chain either way, in rounds of one step a lane. ``unroll`` takes the
     JAX package's exact-power ladder ``alpha = decay**k`` (its ``unroll=True``;
     the unrolled iteration loop changes no result).
 
@@ -869,7 +895,8 @@ def ilqr_solve_fused(
             value_update_exact_reg=value_update_exact_reg, **knobs
         )
     env = kernel_env(dyn)
-    lanes = ilqr_lanes(x_init.shape[0], env, _sm_count(x_init.device.index), hoist_lin)
+    shared = env_variant_key(env, "ilqr", pnqp_enum_flag(env.m, pnqp_enum), exact) is not None
+    lanes = ilqr_lanes(x_init.shape[0], env, _sm_count(x_init.device.index), hoist_lin, shared)
     with torch.cuda.device(x_init.device):
         launch = _cuda_launcher(x_init.device, env, hoist_lin, pnqp_enum, exact)
         return run_staged_f32(launch, x_init, C, c, dyn, u_lower, u_upper, lanes=lanes, **knobs)

@@ -37,7 +37,12 @@ without a mesh exactly (one rank's ``all_reduce`` is the identity). No
 library the port builds, nor a second build of the Riccati and KKT sources,
 exports a GNU unique symbol. The render example's one-robot solve (B=1) of
 each env launches once at the wrapper's 16 lanes, in one block, and every
-built lane count equals one lane bit for bit.
+built lane count equals one lane bit for bit. The fused kernel's variants
+(their lane groups share the sweep and the linearization out): each env's,
+the passthrough wraps' and the (6, 3) MLP's at every lane count, with and
+without ``hoist_lin``, cold and warm-started, bit-equal to one lane, one
+iteration under the iLQR rule above; every variant key the paths build
+within the card's opt-in shared memory a block, at least one block an SM.
 """
 
 import dataclasses
@@ -892,3 +897,97 @@ def test_one_robot_fused_solve_lanes_bit_equal(device, env):
             assert all(same_bits(a, b) for a, b in zip(res, one)), key
         if u_init is None:
             assert all(same_bits(a, b) for a, b in zip(got, runs[(16, False)]))
+
+
+def _variant_problem(case: str, device, B: int = 48, T: int = 10):
+    """The fused solve's inputs of a variant: a zoo env's golden recipe
+    (torch_zoo_cases), the slew penalty's wrap of the pendulum (4, 1) or the
+    vehicle (6, 2) (the inner start with a carried control in front, the
+    goal cost on the inner state, a slew weight of 1 and the inner box), or
+    the (6, 3) MLP of scripts/ab_pnqp_enum3.py."""
+    from torch_zoo_cases import kernel_problem
+
+    from diffmpc_tpu_torch.models import CtrlPassthroughDynamics
+
+    if case in ("cartpole", "vehicle", "quadrotor", "acrobot"):
+        return tuple(a.to(device=device) for a in kernel_problem(case, B, T, torch.float32, seed=1407))
+    if case == "nn63":
+        gen = torch.Generator(device=device).manual_seed(0)
+        nn = NNDynamics.init(6, 3, hidden=(16, 16), residual=True, device=device, generator=gen)
+        x0 = torch.rand((B, 6), generator=gen, device=device) * 1.6 - 0.8
+        C = torch.diag(torch.tensor([1.0] * 6 + [0.02] * 3, device=device)).expand(T, B, 9, 9)
+        c = torch.tensor([0.0] * 6 + [0.08] * 3, device=device).expand(T, B, 9)
+        box = torch.full((T, B, 3), 0.5, device=device)
+        return x0, C, c, nn, -box, box
+    if case == "pt_pendulum":
+        from diffmpc_tpu_torch.diagnostics.ab_ilqr_lanes import problem
+
+        x0, C_i, c_i, inner, lo, hi = problem(tdm.models.PendulumDx.default(device="cpu"), B, T, "cpu")
+    else:
+        x0, C_i, c_i, inner, lo, hi = kernel_problem("vehicle", B, T, torch.float32, seed=1408)
+    n_i, m = inner.n_state, inner.n_ctrl
+    n = n_i + m
+    q = torch.cat([torch.zeros(m), torch.diagonal(C_i[0, 0])[:n_i], torch.diagonal(C_i[0, 0])[n_i:]])
+    Cm = torch.diag(q)
+    for i in range(m):
+        Cm[i, i] += 1.0
+        Cm[n + i, n + i] += 1.0
+        Cm[i, n + i] = Cm[n + i, i] = -1.0
+    c = torch.cat([torch.zeros(m), c_i[0, 0]])
+    x = torch.cat([torch.rand((B, m), generator=torch.Generator().manual_seed(1409)) * 0.2 - 0.1, x0], -1)
+    dyn = CtrlPassthroughDynamics(inner=inner.to(device=device), n_ctrl=m)
+    return (x.to(device), Cm.to(device).expand(T, B, n + m, n + m), c.to(device).expand(T, B, n + m), dyn,
+            lo.to(device), hi.to(device))
+
+
+VARIANT_CASES = ["cartpole", "vehicle", "quadrotor", "acrobot", "pt_pendulum", "pt_vehicle", "nn63"]
+
+
+@pytest.mark.parametrize("case", VARIANT_CASES)
+def test_variant_shared_sweep_lanes_bit_equal_and_match_plain(device, case):
+    """A fused-solve variant (at 16 lanes the group shares each step's
+    Riccati arithmetic and linearizes in rounds): two iterations held
+    against the plain version by chip_smoke's witness rule (the float64
+    plain solve on the CPU as the witness; the box QP's ties at m >= 2);
+    every built lane count, with and without ``hoist_lin``, bit-equal to
+    one lane over three iterations, cold and warm-started from the cold
+    solve's controls shifted one step."""
+    from chip_smoke import same_bits, witnessed_agreement
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    args = _variant_problem(case, device)
+    env = il.kernel_env(args[3])
+    assert il.env_variant_key(env, "ilqr") is not None
+    two = dict(lqr_iter=2, eps=1e-5)
+    exact = ilqr_solve_plain(*(a.to(dtype=torch.float64, device="cpu") for a in args), **two)
+    witnessed_agreement(case, ilqr_solve_fused(*args, **two), ilqr_solve_plain(*args, **two), exact, ties=env.m >= 2)
+    three = dict(lqr_iter=3, eps=1e-5, decay=0.8)
+    cold = il.run_staged(il._cuda_launcher(device, env, False), *args, **three)
+    for u_init in (None, torch.cat([cold.us[1:], cold.us[-1:]], 0)):
+        runs = {(L, hoist): il.run_staged(il._cuda_launcher(device, env, hoist), *args, u_init=u_init, lanes=L,
+                                          hoist_lin=hoist, **three)
+                for hoist in (False, True) for L in il.ILQR_LANES}
+        one = runs[(1, False)]
+        for key, res in runs.items():
+            assert all(same_bits(a, b) for a, b in zip(res, one)), key
+
+
+def test_variant_keys_fit_the_cards_shared_memory(device):
+    """Every fused-solve variant key that the repo's paths build (the zoo's,
+    the passthrough wraps', the (6, 3) MLP's under each box-QP mode, the
+    pendulum's simplified update) at every lane count, with and without the
+    pre-pass: its shared memory a block within the card's opt-in limit and
+    at least one block an SM (``diffmpc_ilqr_variant_occupancy``)."""
+    from diffmpc_tpu_torch.csrc import build
+    from diffmpc_tpu_torch.diagnostics import ab_ilqr_lanes as ab
+    from diffmpc_tpu_torch.ops.cuda import ilqr as il
+
+    keys = list(dict.fromkeys(ab.case_key(case) for case in ab.VARIANT_CASES))
+    build.build_variants(keys)
+    props = torch.cuda.get_device_properties(device)
+    limit = getattr(props, "shared_memory_per_block_optin", 227 * 1024)
+    for key in keys:
+        lib = build.load_variant(key)
+        for hoist in (False, True):
+            for L, occ in ab.occupancy(lib, il.ILQR_LANES, hoist).items():
+                assert occ["smem_block_bytes"] <= limit and occ["blocks_per_sm"] >= 1, (key.name, L, hoist, occ)

@@ -154,6 +154,46 @@ LANE_SCAN_MS = {
 }
 
 
+# The fused variants' kernel alone (the shared sweep) on an NVIDIA H100
+# 80GB HBM3 at 700 W, ms at L = 1, 2, 4, 16 (diagnostics/ab_ilqr_lanes.py
+# --variants --wide, PR 21; 16,384 and 65,536 from one call, the rest from
+# another): each env's example problem (the wraps': the slewed receding
+# loop's first solve) at its width and at 4096 to 65,536; B=1 the render
+# example's one robot at env step 40.
+VARIANT_LANE_SCAN_MS = {
+    "cartpole": {1: (0.4799, 0.3818, 0.2982, 0.1335), 4096: (2.8506, 1.9202, 1.3291, 0.9829),
+                 8192: (3.0083, 1.9931, 2.07, 2.0102), 16384: (5.2697, 3.1303, 3.5604, 3.9512),
+                 65536: (13.7077, 12.4386, 14.8425, 15.1443)},
+    "vehicle": {1: (0.4078, 0.3641, 0.2833, 0.1543), 1024: (2.5312, 2.1281, 1.537, 0.7068),
+                4096: (2.664, 2.1534, 1.5928, 1.1812), 8192: (3.4003, 2.4505, 2.1737, 2.2927),
+                16384: (4.5553, 3.2682, 3.697, 4.6614), 65536: (11.0598, 11.2749, 14.0068, 18.8572)},
+    "quadrotor": {1: (0.2275, 0.2635, 0.209, 0.1014), 1024: (2.782, 3.0617, 2.3291, 1.0269),
+                  4096: (2.6017, 2.7211, 2.0286, 1.6517), 8192: (4.1566, 3.5788, 3.2088, 3.4212),
+                  16384: (4.9737, 4.7697, 6.7203, 6.8944), 65536: (15.1264, 21.7973, 27.9748, 27.891)},
+    "acrobot": {1: (0.4314, 0.6492, 0.4901, 0.2121), 1024: (1.5738, 2.2537, 1.6757, 0.7152),
+                4096: (1.6556, 2.2975, 1.6849, 1.6378), 8192: (2.3958, 2.4286, 2.0451, 2.7308),
+                16384: (2.8401, 2.8989, 4.2809, 5.3272), 65536: (9.0822, 9.9613, 14.2398, 20.8183)},
+    "passthrough_vehicle": {1024: (2.6305, 2.7877, 2.1775, 1.1566), 4096: (2.8569, 2.7321, 2.1529, 2.0073),
+                            8192: (3.8661, 3.2523, 2.9557, 4.0663), 16384: (4.5071, 4.2714, 6.0038, 8.2597),
+                            65536: (13.5203, 18.813, 24.4589, 33.9533)},
+    "passthrough_pendulum": {1024: (2.0915, 1.5636, 1.0265, 0.4969), 4096: (2.1471, 1.5539, 1.0287, 1.1872),
+                             8192: (2.2332, 1.6217, 1.4207, 1.906), 16384: (3.4834, 2.3641, 2.4716, 3.6349),
+                             65536: (9.5223, 9.3624, 10.026, 13.4722)},
+}
+
+
+def _assert_picks_the_fastest(picks: list, scan: dict) -> None:
+    """Each pick, in the batch order of ``scan``, a built lane count within
+    10% of the fastest one's time there and within 3% of one lane's; never
+    more lanes as the batch grows."""
+    for B, lanes in zip(sorted(scan), picks):
+        ms = dict(zip(ILQR_LANES, scan[B]))
+        assert lanes in ILQR_LANES
+        assert ms[lanes] <= 1.1 * min(ms.values()), (B, lanes, ms)
+        assert ms[lanes] <= 1.03 * ms[1], (B, lanes, ms)
+    assert picks == sorted(picks, reverse=True)
+
+
 @pytest.mark.parametrize("hoist_lin", [False, True], ids=["in_sweep", "hoist_lin"])
 @pytest.mark.parametrize("env", ["pendulum", "mlp_3_16_16_3"])
 def test_lane_rule_picks_the_fastest_measured_lane_count(env, hoist_lin):
@@ -166,13 +206,20 @@ def test_lane_rule_picks_the_fastest_measured_lane_count(env, hoist_lin):
     else:
         dyn = NNDynamics.init(3, 1, hidden=(16, 16), device="cpu", generator=torch.Generator().manual_seed(0))
     scan = LANE_SCAN_MS[(env, hoist_lin)]
-    picks = [ilqr_lanes(B, kernel_env(dyn), 132, hoist_lin) for B in sorted(scan)]
-    for B, lanes in zip(sorted(scan), picks):
-        ms = dict(zip(ILQR_LANES, scan[B]))
-        assert lanes in ILQR_LANES
-        assert ms[lanes] <= 1.1 * min(ms.values()), (B, lanes, ms)
-        assert ms[lanes] <= 1.03 * ms[1], (B, lanes, ms)
-    assert picks == sorted(picks, reverse=True)
+    _assert_picks_the_fastest([ilqr_lanes(B, kernel_env(dyn), 132, hoist_lin) for B in sorted(scan)], scan)
+
+
+@pytest.mark.parametrize("env", list(VARIANT_LANE_SCAN_MS))
+def test_variant_lane_rule_picks_the_fastest_measured_lane_count(env):
+    """The same for the fused variants (the shared sweep at 16 lanes) on
+    their measured scan (``VARIANT_LANE_SCAN_MS``), each a model without
+    prebuilt launchers, so that the rule takes it as a variant."""
+    from diffmpc_tpu_torch.diagnostics.ab_ilqr_lanes import case_model
+
+    env_k = kernel_env(case_model(env)[0])
+    assert env_k.symbol is None
+    scan = VARIANT_LANE_SCAN_MS[env]
+    _assert_picks_the_fastest([ilqr_lanes(B, env_k, 132) for B in sorted(scan)], scan)
 
 
 def test_wrapper_takes_plain_version_on_cpu():

@@ -507,20 +507,28 @@ SHIM_VARIANTS = r"""
 """ + HOST_RICCATI_GROUPS + r"""
 static_assert(VariantNNEnv::P == 9 * 16 + 16 + 16 * 16 + 16 + 16 * 6 + 6, "DMPC_HIDDEN parsed as 16, 16");
 
+// the variants' fused solve, with the variant build's sweep (variant.cuh,
+// kVariantSharedSweep), by groups of L lanes
 template <class Env, int ENUM, bool EXACT, int L>
 static int ilqr_variant_group(const IlqrArgs* a, const Env* env) {
   if (!ilqr_lane_scratch_ok<Env, L>(*a)) return 1;
-  std::vector<float> slots(ilqr_group_slot_floats<Env::N, Env::M>());
+  std::vector<float> slots(ilqr_group_floats<Env::N, Env::M, kVariantSharedSweep, L, ENUM>());
   const HostLanes<L> g{slots.data()};
-  for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<Env::N, Env::M, false, ENUM, EXACT>(*a, *env, b, g);
+  for (int b = 0; b < a->B; ++b)
+    ilqr_solve_scenario<Env::N, Env::M, false, ENUM, EXACT, kVariantSharedSweep>(*a, *env, b, g);
   return 0;
 }
 
-// one lane, and the sixteen that keep their candidates' trajectories
+// at every DMPC_LANES count
 template <class Env, int ENUM, bool EXACT>
 static int ilqr_variant(const IlqrArgs* a, const Env* env) {
-  if (a->lanes == 1) return ilqr_variant_group<Env, ENUM, EXACT, 1>(a, env);
-  if (a->lanes == 16) return ilqr_variant_group<Env, ENUM, EXACT, 16>(a, env);
+  switch (a->lanes) {
+#define HOST_VARIANT_LANE_CASE(_, L_) \
+  case L_:                            \
+    return ilqr_variant_group<Env, ENUM, EXACT, L_>(a, env);
+    DMPC_LANES(HOST_VARIANT_LANE_CASE, _)
+#undef HOST_VARIANT_LANE_CASE
+  }
   return 1;
 }
 
@@ -532,6 +540,11 @@ extern "C" int diffmpc_ilqr_solve_n6m3_h16x16_enum3_host(const IlqrArgs* a, cons
 }
 extern "C" int diffmpc_ilqr_solve_pendulum_exact_host(const IlqrArgs* a, const PendulumEnv* env) {
   return ilqr_variant<PendulumEnv, kPnqpEnumDefault, true>(a, env);
+}
+// the pendulum as a variant with the default flags: the variant build's
+// sweep beside the prebuilt kernel's (SHIM's diffmpc_ilqr_solve_pendulum_host)
+extern "C" int diffmpc_ilqr_solve_pendulum_variant_host(const IlqrArgs* a, const PendulumEnv* env) {
+  return ilqr_variant<PendulumEnv, kPnqpEnumDefault, false>(a, env);
 }
 
 // box mode: (6, 3) looping or (enum 2) enumerating, (4, 2) looping (enum 1);
@@ -661,9 +674,10 @@ using Env = VariantCppEnv;
 template <int L>
 static int zoo_ilqr_group(const IlqrArgs* a, const Env* env) {
   if (!ilqr_lane_scratch_ok<Env, L>(*a)) return 1;
-  std::vector<float> slots(ilqr_group_slot_floats<Env::N, Env::M>());
+  std::vector<float> slots(ilqr_group_floats<Env::N, Env::M, kVariantSharedSweep, L>());
   const HostLanes<L> g{slots.data()};
-  for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<Env::N, Env::M, false>(*a, *env, b, g);
+  for (int b = 0; b < a->B; ++b)
+    ilqr_solve_scenario<Env::N, Env::M, false, kPnqpEnumDefault, false, kVariantSharedSweep>(*a, *env, b, g);
   return 0;
 }
 
@@ -2037,10 +2051,11 @@ def _nn63_problem(seed, B=12, T=5):
 @pytest.mark.parametrize("mode,symbol", [("", "diffmpc_ilqr_solve_n6m3_h16x16_host"),
                                          ("1", "diffmpc_ilqr_solve_n6m3_h16x16_enum3_host")])
 def test_host_build_mlp_63_solve_modes_match_plain(host_lib, mode, symbol):
-    """The (6, 3) MLP of DMPC_HIDDEN "16x16" in the fused solve: one iteration
-    within the plain version's 1e-4 (objectives relative to their scale),
-    16 lanes bit-equal to one; under the loop, ``pnqp_iter`` is the args'
-    (2 steps part from 8 in both)."""
+    """The (6, 3) MLP of DMPC_HIDDEN "16x16" in the fused solve (the variant
+    build's shared sweep): one iteration within the plain version's 1e-4
+    (objectives relative to their scale), every built lane count bit-equal
+    to one over two iterations, cold and warm-started; under the loop,
+    ``pnqp_iter`` is the args' (2 steps part from 8 in both)."""
     args = _nn63_problem(1640)
     launch = _nn_launcher(host_lib, symbol)
     knobs = dict(lqr_iter=1, eps=0.0, pnqp_enum=mode)
@@ -2050,7 +2065,10 @@ def test_host_build_mlp_63_solve_modes_match_plain(host_lib, mode, symbol):
     for name, g, w in zip(one._fields, one, want):
         tol = 1e-4 * (scale if name in ("objs", "last_improvement") else 1.0)
         np.testing.assert_allclose(g.double().numpy(), w.double().numpy(), atol=tol, rtol=0, err_msg=name)
-    _assert_equal_results(run_staged(launch, *args, lanes=16, lqr_iter=1, eps=0.0), one)
+    for u_init in (None, torch.cat([one.us[1:], one.us[-1:]], 0)):
+        ref = run_staged(launch, *args, u_init=u_init, lqr_iter=2, eps=0.0)
+        for lanes in ILQR_LANES[1:]:
+            _assert_equal_results(run_staged(launch, *args, u_init=u_init, lanes=lanes, lqr_iter=2, eps=0.0), ref)
     if mode == "":
         two = run_staged(launch, *args, lqr_iter=1, eps=0.0, pnqp_iter=2)
         plain_two = ilqr_solve_plain(*args, lqr_iter=1, eps=0.0, pnqp_iter=2)
@@ -2172,19 +2190,106 @@ def _zoo_launcher(host_lib, name):
 
 @pytest.mark.parametrize("case", ZOO_HOST_CASES)
 def test_host_build_zoo_solve_matches_plain_and_equals_one_lane(host_lib, case):
-    """Each env's C++ step in the fused solve (B=8, the golden's starts, cost
-    and box, T=10): one iteration within 1e-4 of the plain version with
+    """Each env's C++ step in the fused solve with the variant build's sweep
+    (variant.cuh's kVariantSharedSweep: the lanes share each step's Riccati
+    arithmetic and linearize in rounds) (B=8, the golden's starts, cost and
+    box, T=10): one iteration within 1e-4 of the plain version with
     ``n_iters`` equal; every built lane count bit-equal to one lane over
-    three iterations (the ladder's decay 0.8, so that the picks spread)."""
+    three iterations (the ladder's decay 0.8, so that the picks spread),
+    cold and warm-started from the cold solve's controls shifted one step."""
     name = case.split("_")[0]
     args = kernel_problem(name, 8, 10, torch.float32, per_scenario=case.endswith("scenario"), seed=1401)
     launch = _zoo_launcher(host_lib, name)
     first = dict(lqr_iter=1, eps=0.0)
     assert_tight(as_numpy(run_staged(launch, *args, **first)), as_numpy(ilqr_solve_plain(*args, **first)))
     three = dict(lqr_iter=3, eps=1e-5, decay=0.8)
+    cold = run_staged(launch, *args, **three)
+    for u_init in (None, torch.cat([cold.us[1:], cold.us[-1:]], 0)):
+        one = run_staged(launch, *args, u_init=u_init, **three)
+        for lanes in ILQR_LANES[1:]:
+            _assert_equal_results(run_staged(launch, *args, u_init=u_init, lanes=lanes, **three), one)
+
+
+def _tie_problem(B=5):
+    """The fused solve at T=1 from x = 0, cold, on the vehicle's step (m = 2:
+    the box QP's nine candidates): V is zero, so the step's Quu and qu are C's
+    and c's control blocks, those of the Riccati tie test below (the clipped
+    Newton point (1, -1) and candidate 1, (63/64, -1), tie in float32
+    objective), box +-1."""
+    n, m, T = 4, 2, 1
+    C = np.zeros((T, B, n + m, n + m), np.float32)
+    C[..., :n, :n] = np.eye(n, dtype=np.float32)
+    C[..., n:, n:] = [[4.0, 1.0], [1.0, 4.0]]
+    c = np.zeros((T, B, n + m), np.float32)
+    c[..., n:] = [-2.9375, 16384.0]
+    box = torch.ones(T, B, m)
+    return torch.zeros(B, n), torch.tensor(C), torch.tensor(c), port_model("vehicle", torch.float32), -box, box
+
+
+def test_host_build_shared_sweep_keeps_the_earlier_of_tied_candidates(host_lib):
+    """A box-QP tie in the fused solve's shared sweep (the vehicle's variant
+    build, T=1): every lane count keeps the clipped Newton point, candidate
+    0, as the enumeration's strict "<" does, so the first ladder step
+    applies (1, -1) on every scenario, as in the plain version."""
+    assert _f32_qp_obj([[4.0, 1.0], [1.0, 4.0]], [-2.9375, 16384.0], (1.0, -1.0)) == _f32_qp_obj(
+        [[4.0, 1.0], [1.0, 4.0]], [-2.9375, 16384.0], (63 / 64, -1.0))
+    args = _tie_problem()
+    launch = _zoo_launcher(host_lib, "vehicle")
+    one = run_staged(launch, *args, lqr_iter=1, eps=0.0)
+    assert one.us.tolist() == [[[1.0, -1.0]] * 5] and bool((one.alpha == 1.0).all())
+    _assert_equal_results(ilqr_solve_plain(*args, lqr_iter=1, eps=0.0), one)
+    for lanes in ILQR_LANES[1:]:
+        _assert_equal_results(run_staged(launch, *args, lanes=lanes, lqr_iter=1, eps=0.0), one)
+
+
+def test_host_build_shared_sweep_keeps_a_nan_to_its_scenario(host_lib):
+    """A NaN in one step's C of one scenario of the vehicle's fused solve
+    (its variant build's shared sweep, B=8, T=10, three iterations): that
+    scenario's objective is NaN, every other scenario equals the solve
+    without the NaN bit for bit, and every lane count equals one lane, NaN
+    positions included."""
+    args = kernel_problem("vehicle", 8, 10, torch.float32, seed=1405)
+    launch = _zoo_launcher(host_lib, "vehicle")
+    three = dict(lqr_iter=3, eps=1e-5, decay=0.8)
+    clean = run_staged(launch, *args, **three)
+    C = args[1].clone()
+    C[3, 5, 1, 4] = C[3, 5, 4, 1] = float("nan")
+    args = (args[0], C) + args[2:]
     one = run_staged(launch, *args, **three)
+    assert bool(torch.isnan(one.objs[5])) and not bool(torch.isnan(one.objs[torch.arange(8) != 5]).any())
+    others = torch.arange(8) != 5
+    for name, g, w in zip(one._fields, one, clean):
+        axis = 1 if g.ndim == 3 else 0
+        np.testing.assert_array_equal(g.index_select(axis, others.nonzero()[:, 0]).numpy(),
+                                      w.index_select(axis, others.nonzero()[:, 0]).numpy(), err_msg=name)
     for lanes in ILQR_LANES[1:]:
         _assert_equal_results(run_staged(launch, *args, lanes=lanes, **three), one)
+
+
+def test_host_build_prebuilt_pendulum_keeps_its_sweep(host_lib, host_launch):
+    """The prebuilt fused kernels keep the sweep every lane repeats
+    (ilqr.cuh's riccati_sweep) and their flags: only the variant build
+    (csrc/variants/) names the shared sweep's selector, and only its fused
+    solve is built without FMA contraction. The pendulum's prebuilt host
+    build and its build as a variant (the shared sweep) each hold one
+    iteration within 1e-4 of the plain version with ``n_iters`` equal, and
+    four iterations within the chaos rule."""
+    for name in ("ilqr.cu", "ilqr_nn.cu", *(f"ilqr_nn_l{L}.cu" for L in ILQR_LANES)):
+        path = os.path.join(build.CSRC, name)
+        with open(path) as f:
+            assert "SharedSweep" not in f.read(), name
+        assert build.source_flags(path) == (), name
+    with open(os.path.join(build.VARIANTS, "variant.cuh")) as f:
+        assert "constexpr bool kVariantSharedSweep" in f.read()
+    for unit in build.variant_units(build.VariantKey("ilqr", 5, 1, "cartpole")):
+        assert "-fmad=false" in unit
+    variant = _ilqr_launcher(host_lib, "diffmpc_ilqr_solve_pendulum_variant_host", _PendulumEnv)
+    t, dx = torch_inputs(make_problem(seed=1406, warm=True))
+    args = (t["x_init"], t["C"], t["c"], dx, t["u_lower"], t["u_upper"])
+    for knobs, rule in ((dict(lqr_iter=1, eps=0.0), assert_tight), (dict(lqr_iter=4, eps=1e-5), assert_chaos)):
+        plain = as_numpy(ilqr_solve_plain(*args, u_init=t["u_init"], **knobs))
+        for launch in (host_launch, variant):
+            rule(as_numpy(run_staged(launch, *args, u_init=t["u_init"], **knobs)), plain)
 
 
 @pytest.mark.parametrize("env", ["pendulum", *ZOO_KEYS])

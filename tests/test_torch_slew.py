@@ -405,9 +405,10 @@ using Env = VariantCppEnv;
 template <int L>
 static int pt_ilqr_group(const IlqrArgs* a, const Env* env) {
   if (!ilqr_lane_scratch_ok<Env, L>(*a)) return 1;
-  std::vector<float> slots(ilqr_group_slot_floats<Env::N, Env::M>());
+  std::vector<float> slots(ilqr_group_floats<Env::N, Env::M, kVariantSharedSweep, L>());
   const HostLanes<L> g{slots.data()};
-  for (int b = 0; b < a->B; ++b) ilqr_solve_scenario<Env::N, Env::M, false>(*a, *env, b, g);
+  for (int b = 0; b < a->B; ++b)
+    ilqr_solve_scenario<Env::N, Env::M, false, kPnqpEnumDefault, false, kVariantSharedSweep>(*a, *env, b, g);
   return 0;
 }
 
@@ -529,10 +530,12 @@ def _assert_equal_results(got, want):
 
 @pytest.mark.parametrize("name", ["pendulum", "vehicle", "mlp"])
 def test_host_build_passthrough_solve_matches_plain_and_equals_one_lane(pt_lib, name):
-    """The wrapped env's fused solve (B=8, T=8): one iteration within 1e-4
-    of the plain version with n_iters equal, the carried control of every
-    step after the first equal to the step before's control; every built
-    lane count bit-equal to one lane over three iterations."""
+    """The wrapped env's fused solve (B=8, T=8; the variant build's shared
+    sweep): one iteration within 1e-4 of the plain version with n_iters
+    equal, the carried control of every step after the first equal to the
+    step before's control; every built lane count bit-equal to one lane over
+    three iterations, cold and warm-started from the cold solve's controls
+    shifted one step."""
     args = _pt_problem(name)
     launch = _ilqr_pt_launcher(pt_lib, name, args[3])
     first = dict(lqr_iter=1, eps=0.0)
@@ -541,9 +544,11 @@ def test_host_build_passthrough_solve_matches_plain_and_equals_one_lane(pt_lib, 
     m = args[3].n_ctrl
     assert torch.equal(got.xs[1:, :, :m], got.us[:-1])
     three = dict(lqr_iter=3, eps=1e-5, decay=0.8)
-    one = run_staged(launch, *args, **three)
-    for lanes in ILQR_LANES[1:]:
-        _assert_equal_results(run_staged(launch, *args, lanes=lanes, **three), one)
+    cold = run_staged(launch, *args, **three)
+    for u_init in (None, torch.cat([cold.us[1:], cold.us[-1:]], 0)):
+        one = run_staged(launch, *args, u_init=u_init, **three)
+        for lanes in ILQR_LANES[1:]:
+            _assert_equal_results(run_staged(launch, *args, u_init=u_init, lanes=lanes, **three), one)
 
 
 @pytest.mark.parametrize("name", ["pendulum", "vehicle", "mlp"])

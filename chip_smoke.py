@@ -255,9 +255,13 @@ Phases, one line of output each (JSON where it carries numbers):
    Riccati and one rollout launch an iteration, one KKT launch), its first
    64 scenarios against the host (phase 11's rule, the objectives on the
    scenarios converged on both sides) and, those, under "1" against the
-   float64 optimum; and the launches of the simplified update's kernels (the
-   flagship's solve + gradient, the pendulum at T=512 through the KKT twin)
-   and of the (4, 2) sweep under "0" (config 2 at B=128).
+   float64 optimum; the solve's last line search with its cost zeroed, so
+   that no candidate improves (nothing_improves_case: the rolled and the
+   unrolled ladder against the plain version by phase 10's rule, the
+   float64 witness, every built lane count of the kernel and its twin
+   bit-equal to one lane); and the launches of the simplified update's
+   kernels (the flagship's solve + gradient, the pendulum at T=512 through
+   the KKT twin) and of the (4, 2) sweep under "0" (config 2 at B=128).
 
 34. KKT lanes (diffmpc_tpu_torch.diagnostics.ab_kkt_lanes): the KKT call of
    each recorded solve + gradient (the headline at B=1024 and 65,536, the
@@ -311,7 +315,15 @@ Phases, one line of output each (JSON where it carries numbers):
    env's line-search inputs (B=1024) against its plain version by phase
    10's rule, the float64 plain version as the witness of the trajectory;
    every built lane count of the kernel and its twin bit-equal to one lane;
-   the kernel alone, the wrapper and the plain version timed.
+   the kernel alone, the wrapper and the plain version timed; the solve's
+   last line search with its cost zeroed (phase 33's nothing_improves_case);
+   at T=128 the cartpole's Riccati twin at (5, 1) on its first recorded
+   sweep against its plain version by phase 9's rule (tie entries capped at
+   1%, each first tie held by its QP objective against the plain version's
+   and, where the float64 sweep took the plain answers at every later
+   step, the float64 sweep's), every built lane
+   count bit-equal to one lane, the kernel alone, the wrapper and the plain
+   version timed (riccati_twin_case);
 
 37. the receding-horizon loop at diffmpc_tpu_torch/examples/receding_mpc.py's
    full width (B=1024, T=20, lqr_iter=10, eps=1e-5, 100 env steps, the
@@ -334,7 +346,9 @@ Phases, one line of output each (JSON where it carries numbers):
    verbose=1 at T=20 and T=128 (the twins), B=1024, one Riccati and one
    line-search launch an iteration; its first line search against its plain
    version (phase 36b's rule), every built lane count of the kernel and the
-   twin bit-equal to one lane, the times;
+   twin bit-equal to one lane, the times; the solve's last line search with
+   its cost zeroed (nothing_improves_case); at T=128 the Riccati twin at the
+   wrapped shapes (4, 1) and (6, 2) (riccati_twin_case);
 38. the rest of mpc.py: a callable cost equal to config 2's quadratic
    (shared) at B=4096 against the QuadCost's solve by the chaos rule, one
    Riccati launch an iteration and no line-search kernel (the plain ladder
@@ -829,7 +843,7 @@ def qp_objective(Quu, qu, k):
     return terms.sum(-1), terms.abs().sum(-1)
 
 
-def riccati_agreement(name: str, got, want, Quu, qu) -> dict:
+def riccati_agreement(name: str, got, want, Quu, qu, max_tie_share: float = 1e-3, exact=None) -> dict:
     """The Riccati kernel against its plain version. A tie: the box QP's
     candidates tie in objective within float32 rounding (or sit at its 1e-6
     validity tolerance), and the two sides take different ones. A tie step
@@ -839,9 +853,16 @@ def riccati_agreement(name: str, got, want, Quu, qu) -> dict:
     the plain version's QP scores both answers within 1e-5 of its scale.
     The steps before it in time then see another value function (another
     free mask gives other gains), so their answers differ too and are not
-    weighed. Tie entries are held to 0.1% of the entries, and the scenarios
-    with a tie left out of the comparison of K, k within
-    1e-4 * max(1, max|plain|)."""
+    weighed. Tie entries are held to ``max_tie_share`` of the entries (0.1%
+    by default), and the scenarios with a tie left out of the comparison of
+    K, k within 1e-4 * max(1, max|plain|). With ``exact``, the float64 plain
+    sweep's ``(result, Quu, qu)`` on the same inputs, it is the ties'
+    witness: at every root tie step where the float64 sweep took the plain
+    version's answers at every later t (so its QP is the float32 one to
+    rounding), the kernel's k scores within 1e-5 of the float64 k's
+    objective on the float64 QP (a true tie: the answer is optimal to
+    float32 rounding); the plain version's gap and its own ties against
+    float64 are reported beside."""
     tol = {f: 1e-4 * max(1.0, float(getattr(want, f).abs().max())) for f in ("K", "k")}
     free_bad = got.free_mask != want.free_mask
     nqp_bad = got.n_qp_iter != want.n_qp_iter
@@ -866,8 +887,30 @@ def riccati_agreement(name: str, got, want, Quu, qu) -> dict:
                root_qp_obj_max_rel_gap=root_gap,
                later_steps_qp_obj_max_rel_gap=float(gap[tie & ~root].max()) if bool((tie & ~root).any()) else 0.0,
                root_examples=examples, clamped_share=float((~want.free_mask).float().mean()),
-               tol="1e-4 * max(1, max|plain|)")
-    if not all(errs[f] <= tol[f] for f in errs) or share > 1e-3 or root_gap > 1e-5:
+               tol="1e-4 * max(1, max|plain|)", max_tie_share=max_tie_share)
+    witness_gap = 0.0
+    if exact is not None:
+        e, Quu64, qu64 = exact
+        j64, s64 = qp_objective(Quu64, qu64, e.k)
+        plain_ties = ((want.free_mask != e.free_mask) | ((want.k - e.k).abs() > tol["k"])).any(-1) \
+            | (want.n_qp_iter != e.n_qp_iter)
+        # a root step whose float64 QP is the float32 one to rounding: the
+        # float64 sweep took the plain version's answers at every later t
+        later = plain_ties.flip(0).int().cumsum(0).flip(0) - plain_ties.int()
+        witnessed = root & (later == 0)
+
+        def off_float64(k):
+            j, s_k = qp_objective(Quu64, qu64, k)
+            rel = (j - j64).abs() / torch.maximum(s_k, s64).clamp_min(1e-30)
+            return float(rel[witnessed].max()) if bool(witnessed.any()) else 0.0
+
+        witness_gap = off_float64(got.k)
+        out.update(witness="float64 plain", witnessed_root_steps=int(witnessed.sum()),
+                   root_kernel_qp_obj_rel_gap_vs_float64=witness_gap,
+                   root_plain_qp_obj_rel_gap_vs_float64=off_float64(want.k),
+                   plain_vs_float64_tie_steps=int(plain_ties.sum()),
+                   plain_vs_float64_tie_scenarios=int(plain_ties.any(0).sum()))
+    if not all(errs[f] <= tol[f] for f in errs) or share > max_tie_share or root_gap > 1e-5 or witness_gap > 1e-5:
         raise AssertionError(f"Riccati kernel vs plain, {name}: {out}")
     return out
 
@@ -880,7 +923,7 @@ def line_search_agreement(name: str, got, want, hold: bool = True) -> dict:
     off the numbers are reported, not held."""
     torch.cuda.synchronize()
     same = got.alpha == want.alpha
-    scale = want.objs.abs().clamp_min(float(want.objs.abs().max()))
+    scale = want.objs.abs().clamp_min(max(float(want.objs.abs().max()), 1e-30))
     obj_rel = float(((got.objs - want.objs).abs() / scale).max())
     traj = max(float((got.xs - want.xs)[:, same].abs().max()), float((got.us - want.us)[:, same].abs().max()))
     out = dict(objs_max_rel=obj_rel, alpha_equal_frac=float(same.float().mean()), traj_max_abs_where_alpha_agrees=traj,
@@ -2948,7 +2991,7 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
 
     # ---- 33. the (6, 3) LinDx box-DDP at B=4096 ----
     t0 = time.perf_counter()
-    lin_path = {}
+    lin_path, lin_searches = {}, {}
     for qp in ("", "1"):
         cfg = MPCConfig(n_state=SL_N, n_ctrl=SL_M, T=T, lqr_iter=10, exit_unconverged=False, detach_unconverged=False,
                         pnqp_enum=qp)
@@ -2960,7 +3003,8 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
             return leaves, mpc_solve(cfg, x0, QuadCost(C, c), LinDx(F, f), u_lower=-BOX, u_upper=BOX)
 
         reset_counts()
-        leaves, sol = solve(device, grad=True)
+        with recording("diffmpc_tpu_torch.ops.lqr", "linesearch_rollout_cuda", lin_searches.setdefault(qp, [])):
+            leaves, sol = solve(device, grad=True)
         weights = [torch.ones_like(sol.xs), torch.ones_like(sol.us)]
         grads = torch.autograd.grad((sol.xs * weights[0]).sum() + (sol.us * weights[1]).sum(), leaves)
         got = counts()
@@ -2994,6 +3038,10 @@ def variants_slice(device, smi: str, clock_mhz: float) -> list:
                       optimum_projected_grad=opt_pg, optimum_rel_gap_max=float(gap.max()),
                       converged_of_held=int(done.sum()), optimum_rel_gap_max_converged=gap_done, card=smi)
         emit(phase="slice_lindx_main_path", **record)
+        if qp == "":  # the line search is the same kernel under either QP
+            with torch.no_grad():
+                emit(phase="slice_lindx_nothing_improves", B=SL_LIN_B, T=T, calls=len(lin_searches[qp]), card=smi,
+                     **nothing_improves_case("(6, 3) LinDx", device, lin_searches[qp][-1], rol.linesearch_rollout_cuda))
         # written so that a NaN fails
         if not (obj_rel_done <= 1e-5 and float(agree.float().mean()) >= 0.95 and int(done.sum()) >= SL_CPU_B // 2
                 and opt_pg <= 1e-6 and (qp != "1" or gap_done <= 1e-5)):
@@ -3278,6 +3326,118 @@ def zoo_line_search_check(name: str, got, plain, exact) -> dict:
     return out
 
 
+def nothing_improves_case(name: str, device, call, runner) -> dict:
+    """The line search of a converged solve's last call (``call``: its
+    recorded args and kwargs) with its cost set to zero, so that every
+    candidate ties the baseline and none improves on any scenario: under the
+    rolled ladder and the unrolled one, the kernel of the wrapper ``runner``
+    at its lane rule against the plain version by phase 10's rule,
+    alpha_floor everywhere, every cost 0,
+    the trajectory no further from the float64 plain version's than twice
+    the float32 plain version, plus 1e-4 (zoo_line_search_check's witness),
+    and every built lane count of the kernel and its twin bit-equal to one
+    lane. Returns the record; raises otherwise."""
+    from diffmpc_tpu_torch.ops.cuda import rollout as rol
+    from diffmpc_tpu_torch.ops.cuda import rollout_stream
+
+    args, kw = call
+    args = (args[0], torch.zeros_like(args[1]), torch.zeros_like(args[2])) + tuple(args[3:])
+    kw = {k: v for k, v in kw.items() if k != "use_cuda"}
+    dyn = kw.get("dyn")
+    n, m = args[0].shape[-1], args[6].shape[-1]
+    out = {}
+    # the wrapper's launch at its lane rule; the twin's wrapper takes no
+    # unroll, so its launcher runs through the wrapper's own run_on_card
+    launcher = rollout_stream._stream_launcher if runner is rollout_stream.linesearch_rollout_stream_cuda \
+        else rol._cuda_launcher
+    for unroll in (False, True):
+        knobs = dict(kw, unroll=unroll)
+        got = rol.run_on_card(launcher, *args, **knobs)
+        lanes = runner.last_lanes
+        plain = rol.linesearch_rollout_plain(*args, **knobs)
+        wide = {k: v.double() if torch.is_tensor(v) else v for k, v in knobs.items() if k != "dyn"}
+        exact = rol.linesearch_rollout_plain(*(None if a is None else a.double() for a in args), **wide,
+                                             dyn=None if dyn is None else dyn.to(torch.float64))
+        label = f"{name} nothing improving, unroll={unroll}"
+        # phase 10's rule; every side picks alpha_floor (the float64 one
+        # rounded once less), so the float64 witness holds every scenario
+        agree = line_search_agreement(label, got, plain, hold=False)
+
+        def traj_err(r):
+            return max(float((r.xs.double() - exact.xs).abs().max()), float((r.us.double() - exact.us).abs().max()))
+
+        agree.update(kernel_traj_off_float64=traj_err(got), plain_traj_off_float64=traj_err(plain),
+                     traj_scale=float(exact.xs.abs().max()))
+        if bool(got.improved.any()) or bool(plain.improved.any()) or bool(exact.improved.any()) \
+                or not bool((got.alpha == plain.alpha).all()) or bool(got.objs.any()) \
+                or agree["kernel_traj_off_float64"] > 2 * agree["plain_traj_off_float64"] + 1e-4:
+            raise AssertionError(f"{label}: {agree}")
+        by_lanes = {}
+        for kind, launcher in (("rollout", rol._cuda_launcher), ("rollout_stream", rollout_stream._stream_launcher)):
+            launch = launcher(device, n, m, dyn)
+            for L in rol.ROLLOUT_LANES:
+                by_lanes[(kind, L)] = rol.run_staged_rollout(launch, *args, lanes=L, **knobs)
+        out["unrolled" if unroll else "rolled"] = dict(lanes=lanes, lanes_bit_equal=lanes_bit_equal(label, by_lanes),
+                                                       **agree)
+    return out
+
+
+def riccati_twin_case(name: str, device, call, clock_mhz: float) -> dict:
+    """The Riccati twin on the first sweep a long-horizon solve recorded
+    (``call``: the args and kwargs the dispatch gave
+    riccati_backward_stream_cuda): the wrapper against the plain version by
+    phase 9's rule (tie entries capped at 1%, each first tie held by its QP
+    objective, the float64 plain sweep as the witness), every built lane
+    count (one lane staged and not) bit-equal to one lane; the kernel alone,
+    the wrapper and the plain version timed, the bound (riccati_bound, box
+    mode). Returns the record."""
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.cuda import riccati_stream as rs
+
+    args, kw = call
+    kw = {k: v for k, v in kw.items() if k != "use_cuda"}
+    C, n = args[0], args[4]
+    steps, B, m = C.shape[0], C.shape[1], C.shape[-1] - n
+    got = rs.riccati_backward_stream_cuda(*args, **kw)
+    lanes = rs.riccati_backward_stream_cuda.last_lanes
+    want, Quu, qu = ric.riccati_backward_plain(*args, return_qp=True, **kw)
+    exact = ric.riccati_backward_plain(*(a.double() if torch.is_tensor(a) else a for a in args), return_qp=True,
+                                       **{k: v.double() if torch.is_tensor(v) else v for k, v in kw.items()})
+    # a solve's recorded sweep of the slewed vehicle at T=128 holds flat box
+    # QPs whose m = 2 candidates tie on 0.18% of the entries (707 tie steps
+    # on an NVIDIA H100 80GB HBM3, every first one within 9.2e-8 of the
+    # plain version's QP objective): the share is capped at 1%, a few times
+    # that reading, and each first tie is held by its objective against the
+    # float64 sweep's as well as the plain version's
+    agree = riccati_agreement(f"{name} Riccati twin T={steps}", got, want, Quu, qu, max_tie_share=1e-2, exact=exact)
+    enum = kw.get("pnqp_enum", "")
+    by_lanes = {(L, st): ric.run_staged_riccati(rs._stream_launcher(device, n, m, pnqp_enum=enum), *args, lanes=L,
+                                                staged=st, **kw) for L, st in ((1, False), (1, True), (16, True))}
+    bit_equal = lanes_bit_equal(f"{name} Riccati twin lanes", by_lanes)
+    out = {}
+    ric.run_staged_riccati(timed_launch(rs._stream_launcher(device, n, m, pnqp_enum=enum), 20, out), *args,
+                           lanes=lanes, **kw)
+    wrap_ms = cuda_ms(lambda: rs.riccati_backward_stream_cuda(*args, **kw), 10, 2)
+    plain_ms = cuda_ms(lambda: ric.riccati_backward_plain(*args, **kw), 1, 1)
+    return dict(n=n, m=m, B=B, T=steps, lanes=lanes, lanes_bit_equal=bit_equal, kernel_ms=out["ms"],
+                wrapper_ms=wrap_ms, plain_ms=plain_ms, bound=riccati_bound(B, n, m, "box", steps, clock_mhz),
+                max_abs_err=max(agree["max_abs_err"].values()), agreement=agree)
+
+
+def riccati_twin_row(label: str, rec: dict, launches: int) -> dict:
+    """A kernels-line record of riccati_twin_case's ``rec``: the prebuilt
+    twin for the table's shapes, else the variant's."""
+    from diffmpc_tpu_torch.ops.cuda.ilqr import KERNEL_SHAPES
+
+    prebuilt = (rec["n"], rec["m"]) in KERNEL_SHAPES
+    return dict(name=f"riccati_backward_pallas_stream[{label}, ({rec['n']}, {rec['m']}), T={rec['T']}]", route="cuda",
+                source="diffmpc_tpu_torch/csrc/" + ("riccati_stream.cu" if prebuilt else "variants/riccati.cu"),
+                replaces="diffmpc_tpu/ops/pallas/riccati_stream.py:171", launches=launches,
+                max_abs_err=rec["max_abs_err"], ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound"]["bound_ms"], bound_by=rec["bound"]["bound_by"], library_ms=None,
+                lanes=rec["lanes"], B=rec["B"])
+
+
 class ZooRun:
     """What the zoo's phases share: the card, the launch counters of every
     kernel family they reach, and the results each phase leaves for the
@@ -3296,6 +3456,7 @@ class ZooRun:
                           riccati_stream=riccati_stream.riccati_backward_stream_cuda,
                           rollout=rol.linesearch_rollout_cuda, rollout_stream=rollout_stream.linesearch_rollout_stream_cuda)
         self.rows, self.fused, self.solves, self.searches = [], {}, {}, {}
+        self.ric_twins = {}  # (label, n, m): (riccati_twin_case's record, launches on its path)
         self.main_launches = None
 
     def reset(self):
@@ -3562,7 +3723,10 @@ def zoo_line_searches(run: ZooRun) -> None:
         cfg = dataclasses.replace(zc["config"], T=steps, verbose=1, detach_unconverged=False)
         prm = (zc["params0"]["dyn"] if name == "cartpole" else torch.exp(zc["params0"])).clone().requires_grad_(twin)
         run.reset()
-        with contextlib.redirect_stdout(io.StringIO()) as printed:
+        calls, sweeps = [], []
+        with contextlib.redirect_stdout(io.StringIO()) as printed, \
+                recording("diffmpc_tpu_torch.ops.lqr", f"linesearch_rollout{'_stream' if twin else ''}_cuda", calls), \
+                recording("diffmpc_tpu_torch.ops.lqr", "riccati_backward_stream_cuda", sweeps):
             sol = mpc_solve(cfg, zc["x_init"], zc["cost"], zc["dx"].replace(params=prm), u_lower=zc["lo"],
                             u_upper=zc["hi"])
             if twin:
@@ -3602,6 +3766,13 @@ def zoo_line_searches(run: ZooRun) -> None:
         emit(phase="zoo_line_search", env=name, B=ZOO_LS_B, T=steps, kernel=kind, lanes=lanes, n_iters=it,
              path_launches=got, lanes_bit_equal=bit_equal, kernel_ms=out["ms"], wrapper_ms=wrap_ms,
              plain_ms=plain_ms, bound=rb, card=smi, **agree)
+        with torch.no_grad():
+            emit(phase="zoo_line_search_nothing_improves", env=name, B=ZOO_LS_B, T=steps, kernel=kind,
+                 calls=len(calls), card=smi, **nothing_improves_case(f"{name} T={steps}", device, calls[-1], runner))
+            if twin:
+                rec = riccati_twin_case(name, device, sweeps[0], run.clock_mhz)
+                run.ric_twins[(f"{name.capitalize()}Dx", rec["n"], rec["m"])] = (rec, got[ric_kind])
+                emit(phase="zoo_riccati_twin", env=name, card=smi, **rec)
     emit(phase="zoo_line_search_seconds", seconds=time.perf_counter() - t0)
 
 
@@ -3628,6 +3799,8 @@ def zoo_rows(run: ZooRun) -> list:
                          "diffmpc_tpu/ops/pallas/rollout.py:180", launches=s["launches"], max_abs_err=s["max_abs_err"],
                          ms=s["ms"], plain_ms=s["plain_ms"], **{k: s["bound"][k] for k in keep}, library_ms=None,
                          lanes=s["lanes"], B=ZOO_LS_B))
+    rows += [riccati_twin_row(label, rec, launches) for (label, _, _), (rec, launches) in run.ric_twins.items()
+             if not label.startswith("CtrlPassthrough")]
     return rows
 
 
@@ -3948,17 +4121,19 @@ def receding_line_searches(run: MpcRun) -> None:
             kind, ric_kind = ("rollout_stream", "riccati_stream") if twin else ("rollout", "riccati")
             args, s = receding_setup(name, 1.0, device)
             cfg = dataclasses.replace(s["config"], T=steps, verbose=1)
-            calls = []
+            calls, sweeps = [], []
             runner = rollout_stream.linesearch_rollout_stream_cuda if twin else rol.linesearch_rollout_cuda
             run.reset()
             with contextlib.redirect_stdout(io.StringIO()) as printed, torch.no_grad(), \
-                    recording("diffmpc_tpu_torch.ops.lqr", runner.__name__, calls):
+                    recording("diffmpc_tpu_torch.ops.lqr", runner.__name__, calls), \
+                    recording("diffmpc_tpu_torch.ops.lqr", "riccati_backward_stream_cuda", sweeps):
                 sol = mpc_solve(cfg, s["x0"], s["cost"], s["model"], u_lower=s["lo"], u_upper=s["hi"],
                                 prev_ctrl=torch.full((RH_B, s["config"].n_ctrl), 0.1, device=device))
             it = int(sol.info.n_iters)
             got = run.counts()
             if got != run.only(**{ric_kind: it, kind: it}) or not printed.getvalue().strip():
                 raise AssertionError(f"{name} slewed verbose=1 at T={steps}: launches {got} for {it} iterations")
+            last = calls[-1]
             ls_args, kw = calls[0]
             kw = {k: v for k, v in kw.items() if k != "use_cuda"}
             dyn = kw["dyn"]
@@ -3987,6 +4162,15 @@ def receding_line_searches(run: MpcRun) -> None:
             emit(phase="receding_line_search", env=name, B=RH_B, T=steps, kernel=kind, lanes=lanes, n_iters=it,
                  path_launches=got, lanes_bit_equal=bit_equal, kernel_ms=out["ms"], wrapper_ms=wrap_ms,
                  plain_ms=plain_ms, bound=rb, seconds=time.perf_counter() - t0, card=smi, **agree)
+            with torch.no_grad():
+                emit(phase="receding_line_search_nothing_improves", env=name, B=RH_B, T=steps, kernel=kind,
+                     calls=len(calls), card=smi,
+                     **nothing_improves_case(f"{name} passthrough T={steps}", device, last, runner))
+                if twin:
+                    rec = riccati_twin_case(f"{name} passthrough", device, sweeps[0], run.clock_mhz)
+                    label = f"CtrlPassthroughDynamics({name.capitalize()}Dx)"
+                    run.ric_twins[(label, rec["n"], rec["m"])] = (rec, got[ric_kind])
+                    emit(phase="receding_riccati_twin", env=name, card=smi, **rec)
 
 
 # BASELINE.json config 2's recipe (box-DDP n=4, m=2, T=20, box +-0.6) at
@@ -4220,6 +4404,8 @@ def passthrough_rows(run: MpcRun) -> list:
                          "diffmpc_tpu/ops/pallas/rollout.py:180", launches=s["launches"], max_abs_err=s["max_abs_err"],
                          ms=s["ms"], plain_ms=s["plain_ms"], **{k: s["bound"][k] for k in keep}, library_ms=None,
                          lanes=s["lanes"], B=RH_B))
+    rows += [riccati_twin_row(label, rec, launches) for (label, _, _), (rec, launches) in run.ric_twins.items()
+             if label.startswith("CtrlPassthrough")]
     return rows
 
 

@@ -60,6 +60,8 @@ struct HostLanes {
     return -1;
   }
   DMPC_HD float from_lane(const float (&v)[kLocal], int lane) const { return v[lane]; }
+  // whether v holds: a value of the common work, which runs once
+  DMPC_HD bool all(bool v) const { return v; }
 };
 
 // The lanes of one scenario on the card: L neighbouring threads of a warp,
@@ -102,14 +104,24 @@ struct CardLanes {
     }
 #endif
   }
+  // the group's lowest lane whose flag is set, or -1 (every thread of
+  // `mask` votes; the group's own lanes count)
   DMPC_HD int first_set(const bool (&flag)[1]) const {
 #ifdef __CUDA_ARCH__
     if constexpr (L > 1) {
-      const unsigned bits = (__ballot_sync(mask, flag[0]) & mask) >> shift;
+      const unsigned bits = (__ballot_sync(mask, flag[0]) >> shift) & ((1u << L) - 1u);
       return bits ? __ffs(bits) - 1 : -1;
     }
 #endif
     return flag[0] ? 0 : -1;
+  }
+  // whether v holds on every thread of `mask`: the group's, or where a
+  // kernel's groups synchronise together (riccati_launch.cuh), the warp's
+  DMPC_HD bool all(bool v) const {
+#ifdef __CUDA_ARCH__
+    if constexpr (L > 1) return __all_sync(mask, v);
+#endif
+    return v;
   }
   DMPC_HD float from_lane(const float (&v)[1], int src) const {
 #ifdef __CUDA_ARCH__

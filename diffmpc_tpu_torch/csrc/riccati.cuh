@@ -34,7 +34,11 @@
 //   under the mode "1", ENUM: the clipped Newton point, then the
 //   enumeration's codes), candidate c by lane c % L; every lane then folds
 //   the objectives in candidate order by the enumeration's strict "<", so a
-//   NaN is never replaced and a tie keeps the earlier candidate;
+//   NaN is never replaced and a tie keeps the earlier candidate; where it
+//   loops (projected Newton: m = 3, and m = 2 under "0"), each step's
+//   Armijo candidates, candidate a by lane a % L, the first improving one
+//   taken by a ballot (pnqp_loop_lanes), and the loop left once the QP is
+//   done on every thread of the group's mask;
 // - the gains' columns (K's, then the qu column for k in free and mask
 //   modes), column c by lane c % L, on a factor every lane computes;
 // - the entries of V' (upper triangle) and v', entry e by lane e % L.
@@ -361,11 +365,12 @@ struct RiccatiProfile {
 #endif
 };
 
-// The QP candidates a group shares out: the 3^M - 1 codes of the
-// enumeration (m = 2; m = 3 under the mode "1") after the clipped Newton
-// point, which every lane computes itself (it starts the fold, and a lane
-// computes it beside its own candidate). Elsewhere (m = 1's closed form, the
-// projected-Newton loop) every lane solves the QP itself.
+// The QP candidates a group shares out through its scratch: the 3^M - 1
+// codes of the enumeration (m = 2; m = 3 under the mode "1") after the
+// clipped Newton point, which every lane computes itself (it starts the
+// fold, and a lane computes it beside its own candidate). Elsewhere every
+// lane solves the QP itself: m = 1's closed form, and the projected-Newton
+// loop, whose Armijo candidates a ballot picks from (pnqp_loop_lanes).
 template <int M, int ENUM>
 DMPC_HD constexpr int riccati_split_candidates() {
   if constexpr (pnqp_enumerates<M, ENUM>()) {
@@ -627,8 +632,13 @@ DMPC_HD float riccati_lanes_step(const G& g, const Plan (&plan)[G::kLocal], cons
       qp_frozen<M, true>(Quu, qu, lo, hi, kt, frozen);
       n_qp = 1.0f;
       prof.mark(4);
-    } else {
+    } else if constexpr (M == 1) {
       n_qp = pnqp_entries<M, true, ENUM>(Quu, qu, lo, hi, pnqp_iter, reg, kt, frozen);
+    } else {
+      // the projected-Newton loop, its Armijo candidates shared out
+      n_qp = pnqp_loop_lanes<M>(g, Quu, qu, lo, hi, pnqp_iter, reg, kt);
+      qp_frozen<M>(Quu, qu, lo, hi, kt, frozen);
+      prof.mark(2);
     }
   } else {
     for (int i = 0; i < M; ++i) frozen[i] = MODE == kRiccatiMask ? in.mask(i) : 0.0f;

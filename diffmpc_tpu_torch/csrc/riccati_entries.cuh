@@ -15,6 +15,7 @@
 #pragma once
 
 #include "dual.cuh"
+#include "lanes.cuh"
 
 // a * b + c: on the card with F in one rounding (fmaf), else as written,
 // which nvcc fuses or not as a product's uses lead it. The Riccati sweep
@@ -357,44 +358,98 @@ DMPC_HD float pnqp_enum_candidate(int code, const float (&Quu)[M][M], const floa
   return valid ? qp_obj<M, F>(Quu, qu, x) : 1e30f;
 }
 
-// Box QP by projected Newton (the loop of _pnqp_entries: m >= 3, and m = 2
-// under the mode "0"): a fixed trip count of n_iter with this scenario frozen
-// once converged, each step the masked Newton direction and a
-// first-improving 6-step Armijo ladder (alpha = 1, 1/2, ...). Returns the
-// iterations used while active.
+// The projected-Newton loop's Armijo ladder: kArmijo steps alpha = 2^-a, the
+// first that improves on the objective taken.
+constexpr int kArmijo = 6;
+
+// One step of the projected-Newton loop from x: the clamped mask at x, the
+// masked Newton direction dx, whether it is small (step_small, 1 or 0) and
+// the objective f0 at x.
 template <int M>
-DMPC_HD float pnqp_loop_entries(const float (&Quu)[M][M], const float (&qu)[M], const float (&lo)[M],
-                                const float (&hi)[M], int n_iter, float reg, float (&x)[M]) {
+DMPC_HD void pnqp_direction(const float (&Quu)[M][M], const float (&qu)[M], const float (&lo)[M],
+                            const float (&hi)[M], float reg, const float (&x)[M], float (&dx)[M], float& step_small,
+                            float& f0) {
+  float frozen[M], rhs[1][M], sol[1][M];
+  qp_frozen<M>(Quu, qu, lo, hi, x, frozen);
+  for (int i = 0; i < M; ++i) {
+    float g = 0.0f;
+    for (int j = 0; j < M; ++j) g += Quu[i][j] * x[j];
+    rhs[0][i] = -(g + qu[i]);
+  }
+  masked_chol_solve<M, 1>(Quu, rhs, frozen, reg, sol);
+  float slack = 0.0f;
+  for (int i = 0; i < M; ++i) {
+    dx[i] = sol[0][i];
+    slack += fmaxf(fabsf(dx[i]) - 1e-6f, 0.0f);
+  }
+  step_small = slack == 0.0f ? 1.0f : 0.0f;
+  f0 = qp_obj<M>(Quu, qu, x);
+}
+
+// Armijo candidate a: clip(x + 2^-a dx) into the box
+template <int M>
+DMPC_HD void pnqp_candidate(const float (&x)[M], const float (&dx)[M], const float (&lo)[M], const float (&hi)[M],
+                            int a, float (&cand)[M]) {
+  const float alpha = ldexpf(1.0f, -a);
+  for (int i = 0; i < M; ++i) cand[i] = clipf(x[i] + alpha * dx[i], lo[i], hi[i]);
+}
+
+// The loop's bookkeeping after a step: x takes the step's point `best`
+// unless the QP was done before it, the count adds the step while it was
+// not, and the QP is done once the direction is small or no candidate
+// improved.
+template <int M>
+DMPC_HD void pnqp_advance(const float (&best)[M], float step_small, float accepted, float& done, float& n_qp,
+                          float (&x)[M]) {
+  if (!(done > 0.0f))
+    for (int i = 0; i < M; ++i) x[i] = best[i];
+  n_qp = n_qp + (1.0f - done);
+  done = fmaxf(done, fmaxf(step_small, 1.0f - accepted));
+}
+
+// Box QP by projected Newton (the loop of _pnqp_entries: m >= 3, and m = 2
+// under the mode "0") by the group g of L lanes (HostLanes<1> is the
+// one-thread loop of pnqp_entries; riccati.cuh's lane step passes its
+// group): at most n_iter steps, each the masked Newton direction, which
+// every lane takes itself, and a first-improving Armijo ladder (alpha = 1,
+// 1/2, ...): candidate a by lane a % L, a round of L at a time, the first
+// improving one in ladder order by a ballot, the strict "<" of the serial
+// ladder (a NaN objective never improves). The loop is left once the QP is
+// done on every thread of the group's mask. The TPU kernel runs all n_iter
+// with the scenario frozen once done (its lanes hold 128 scenarios); a
+// frozen step changes nothing here, so the outputs are those of the fixed
+// trip count, and every lane computes the one-lane loop's float32
+// operations on the same values, so x and the count are its own bit for
+// bit. Returns the steps taken while active.
+template <int M, class G>
+DMPC_HD float pnqp_loop_lanes(const G& g, const float (&Quu)[M][M], const float (&qu)[M], const float (&lo)[M],
+                              const float (&hi)[M], int n_iter, float reg, float (&x)[M]) {
+  constexpr int L = G::kLanes, kRounds = (kArmijo + L - 1) / L;
   clipped_newton<M>(Quu, qu, lo, hi, reg, x);
   float done = 0.0f, n_qp = 0.0f;
-  for (int it = 0; it < n_iter; ++it) {
-    float frozen[M], rhs[1][M], dx[1][M];
-    qp_frozen<M>(Quu, qu, lo, hi, x, frozen);
-    for (int i = 0; i < M; ++i) {
-      float g = 0.0f;
-      for (int j = 0; j < M; ++j) g += Quu[i][j] * x[j];
-      rhs[0][i] = -(g + qu[i]);
-    }
-    masked_chol_solve<M, 1>(Quu, rhs, frozen, reg, dx);
-    float slack = 0.0f;
-    for (int i = 0; i < M; ++i) slack += fmaxf(fabsf(dx[0][i]) - 1e-6f, 0.0f);
-    const float step_small = slack == 0.0f ? 1.0f : 0.0f;
-    const float f0 = qp_obj<M>(Quu, qu, x);
-    float best[M], accepted = 0.0f, alpha = 1.0f;
+  for (int it = 0; it < n_iter && !g.all(done > 0.0f); ++it) {
+    float dx[M], step_small, f0;
+    pnqp_direction<M>(Quu, qu, lo, hi, reg, x, dx, step_small, f0);
+    float best[M], accepted = 0.0f;
     for (int i = 0; i < M; ++i) best[i] = x[i];
-    for (int a = 0; a < 6; ++a) {
-      float cand[M];
-      for (int i = 0; i < M; ++i) cand[i] = clipf(x[i] + alpha * dx[0][i], lo[i], hi[i]);
-      if (qp_obj<M>(Quu, qu, cand) < f0 && accepted == 0.0f) {
-        for (int i = 0; i < M; ++i) best[i] = cand[i];
+    for (int r = 0; r < kRounds; ++r) {
+      bool improving[G::kLocal];
+      for (int li = 0; li < G::kLocal; ++li) {
+        const int a = r * L + g.lane_of(li);
+        improving[li] = false;
+        if (a < kArmijo) {
+          float cand[M];
+          pnqp_candidate<M>(x, dx, lo, hi, a, cand);
+          improving[li] = qp_obj<M>(Quu, qu, cand) < f0;
+        }
+      }
+      const int first = g.first_set(improving);
+      if (first >= 0 && accepted == 0.0f) {
+        pnqp_candidate<M>(x, dx, lo, hi, r * L + first, best);
         accepted = 1.0f;
       }
-      alpha *= 0.5f;
     }
-    if (!(done > 0.0f))
-      for (int i = 0; i < M; ++i) x[i] = best[i];
-    n_qp = n_qp + (1.0f - done);
-    done = fmaxf(done, fmaxf(step_small, 1.0f - accepted));
+    pnqp_advance<M>(best, step_small, accepted, done, n_qp, x);
   }
   return n_qp;
 }
@@ -436,7 +491,7 @@ DMPC_HD float pnqp_entries(const float (&Quu)[M][M], const float (&qu)[M], const
     frozen[0] = clamped ? 1.0f : 0.0f;
     return 1.0f;
   } else {
-    const float n_qp = pnqp_loop_entries<M>(Quu, qu, lo, hi, n_iter, reg, x);
+    const float n_qp = pnqp_loop_lanes<M>(HostLanes<1>{nullptr}, Quu, qu, lo, hi, n_iter, reg, x);
     qp_frozen<M>(Quu, qu, lo, hi, x, frozen);
     return n_qp;
   }

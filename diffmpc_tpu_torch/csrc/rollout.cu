@@ -9,10 +9,13 @@
 // linesearch_rollout_scenario (rollout.cuh) for its own scenario: the whole
 // ladder in one pass, ceil(10 / L) candidates a lane (an MLP's step: a round
 // of L candidates a pass, one a lane, and no round after the first that
-// improves), the baseline cost of (x_hat, u_hat) riding the first pass, the
-// pick a ballot; each lane keeps its first candidate's trajectory, and where
-// one of those is chosen it becomes xs, us, so only a later or no improving
-// step is replayed. The states, the controls and the running costs live in
+// improves), the baseline cost of (x_hat, u_hat) riding the first pass,
+// shared out row by row, the pick a ballot; each lane keeps its first
+// candidate's trajectory, and where one of those is chosen it becomes xs,
+// us, as does, where none improves, the rollout of alpha_floor by the lane
+// past the ladder (or by the ladder's last step where it lands on
+// alpha_floor's bits), so only a later improving step, or none without such
+// a lane, is replayed. The states, the controls and the running costs live in
 // registers; the horizon arrays are read batch-minor, so a warp's copies
 // coalesce. For linear dynamics and the pendulum this is the twin's kernel
 // (rollout_stream.cu): staging each step's slice for the group beat each
@@ -21,8 +24,9 @@
 //
 // What bounds it on an H100: per scenario it must read about 6.2 KB (n = 4,
 // m = 2, T = 20, linear dynamics with a box), once a pass: once where a
-// lane's first candidate is picked, twice where a later one or none is
-// (one thread per scenario, each rollout after the other, reads it
+// lane's first candidate or the lane past the ladder holds the pick's
+// trajectory, twice where the replay builds it (one thread per scenario,
+// each rollout after the other, reads it
 // n_alpha + 2 times whatever the pick). At large B that is the bytes bound;
 // at small B the latency of one rollout's T dependent steps and the pick,
 // with L times as many threads as scenarios to hide it. Which L a batch

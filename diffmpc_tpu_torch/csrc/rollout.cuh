@@ -26,11 +26,16 @@
 //   by side in each pass over the horizon (rollout_pass_states: enough for
 //   the whole ladder in one pass, or one a lane for an MLP's step), all lanes
 //   advancing step t together; the baseline's stage costs ride the first
-//   pass, every lane adding them up on the same values. The pick is a
-//   ballot over the group, state by state, pass by pass: the lowest
+//   pass, at 16 lanes row i of each step's C tau by lane i % L and the rows'
+//   terms added up by every lane in the one-thread order
+//   (baseline_stage_cost), below it by every lane on the same values. The pick
+//   is a ballot over the group, state by state, pass by pass: the lowest
 //   improving candidate by ladder index. A group stops after the first pass
 //   that holds an improving candidate: the later candidates cannot change
-//   the pick (the TPU kernels compute them only to mask them);
+//   the pick (the TPU kernels compute them only to mask them). The lane just
+//   past the ladder in the last pass (lane n_alpha - k0, where the group has
+//   one: at 16 lanes, any ladder shorter than 16) rolls out alpha_floor, the
+//   pick where none improves;
 // - each step's slice (C, c, K, k, x_hat, u_hat, the box, and F, f for
 //   linear dynamics), where Staged (the twin; the resident kernel too but
 //   for an MLP's step): copied once for the group into shared memory,
@@ -40,9 +45,12 @@
 // - the trajectory (rollout_keeps_lanes): each lane keeps the trajectory of
 //   its first candidate of the pass (one lane's in xs, us directly), and
 //   where the chosen candidate is one of those, the chosen lane's slot
-//   becomes xs, us, its cost objs. Otherwise, and whenever no candidate
-//   improves, the chosen step is replayed: every lane runs the same chain in
-//   lockstep, step t stored by lane t % L.
+//   becomes xs, us, its cost objs; where none improves, so does the slot of
+//   a lane whose first candidate of the last pass stepped by alpha_floor's
+//   very bits (the lane past the ladder, or the ladder's last step where it
+//   lands on them: the unrolled ladder's, or a rolled one's product chain
+//   that does). Otherwise the chosen step is replayed: every lane runs the
+//   same chain in lockstep, step t stored by lane t % L.
 //
 // Every candidate runs the float32 operations of the one-thread program in
 // the same order on the same values, so every L gives bit for bit the same
@@ -50,6 +58,8 @@
 //
 // Layout: every per-step array is batch-minor, (T, entries..., B).
 #pragma once
+
+#include <cstring>
 
 #include "dual.cuh"
 #include "lanes.cuh"
@@ -148,6 +158,62 @@ template <int L>
 DMPC_HD bool rollout_lane_scratch_ok(const RolloutArgs& a) {
   return (a.lane_x != nullptr) == rollout_keeps_lanes<L>() && (a.lane_u != nullptr) == rollout_keeps_lanes<L>();
 }
+
+// The phases of a line search that the profile build counts
+// (RolloutProfile): the start (x_init, the alphas), the staged slices'
+// copies issued, the wait for them and the group's barrier, each
+// candidate's control, stage cost and env step, the baseline's stage cost,
+// the pick, the kept slot's copy and the replay (all of its pass).
+enum RolloutPhase {
+  kRolloutInit,
+  kRolloutLoads,
+  kRolloutWait,
+  kRolloutControl,
+  kRolloutCost,
+  kRolloutBase,
+  kRolloutStep,
+  kRolloutPick,
+  kRolloutKeep,
+  kRolloutReplay,
+  kRolloutPhases
+};
+
+// Built with DMPC_ROLLOUT_PROFILE (a diagnostic build), each lane counts the
+// cycles (clock64) of each phase of its scenario and the group's first lane
+// adds them to rollout_profile_cycles when the scenario is done, with one
+// more count for the scenario itself (read back by
+// diffmpc_rollout_profile_l<L>, csrc/variants/rollout.cu). Inside the
+// replay every mark counts to kRolloutReplay. Elsewhere every member does
+// nothing.
+#ifdef DMPC_ROLLOUT_PROFILE
+static __device__ unsigned long long rollout_profile_cycles[kRolloutPhases + 1];
+#endif
+#if defined(DMPC_ROLLOUT_PROFILE) && defined(__CUDA_ARCH__)
+struct RolloutProfile {
+  unsigned long long c[kRolloutPhases] = {};
+  long long last = clock64();
+  bool replay = false;
+  __device__ void mark(int phase) {
+    const long long now = clock64();
+    if (replay)
+      c[kRolloutReplay] += now - last;
+    else
+      c[phase] += now - last;
+    last = now;
+  }
+  __device__ void flush(bool leader) {
+    if (!leader) return;
+    for (int i = 0; i < kRolloutPhases; ++i) atomicAdd(&rollout_profile_cycles[i], c[i]);
+    atomicAdd(&rollout_profile_cycles[kRolloutPhases], 1ull);
+  }
+};
+#else
+struct RolloutProfile {
+  bool replay = false;
+  DMPC_HD void mark(int) {}
+  DMPC_HD void flush(bool) {}
+};
+#endif
 
 namespace rollout_detail {
 
@@ -251,28 +317,50 @@ constexpr int rollout_group_slot_floats() {
   return rollout_stages<Env, L>() * RolloutSlice<N, M, Env>::kSize;
 }
 
-// Start this lane's share of the copies of step t's slice into `slot`.
+// Start this lane's copies of the D entries of one array at slot entries
+// Off .. Off + D - 1: entry i of step t, base[(t D + i) B + b], lands at
+// slot entry Off + i and falls to lane (Off + i) % L. Each lane walks its
+// own entries only, L apart, one pointer step each, so that a lane of a
+// group of L issues about 1/L of the slice's copies and does 1/L of the
+// work (a loop over every entry, each lane testing whether it is its own,
+// cost a lane of 16 as much as the whole slice: .23-.65 of the variants'
+// cycles at 16 lanes, diagnostics/ab_rollout_lanes.py --variants
+// --profile on an NVIDIA H100 80GB HBM3 at 700 W).
+template <int D, int Off, class G>
+DMPC_HD void stage_array(const G& g, float* slot, const float* base, int t, int B, int b) {
+  constexpr int L = G::kLanes, kMost = (D + L - 1) / L;
+  static_assert((L & (L - 1)) == 0, "a group's lane count is a power of two");
+  for (int li = 0; li < G::kLocal; ++li) {
+    const int i0 = (g.lane_of(li) - Off) & (L - 1);  // this lane's first entry
+    const float* src = base + ((size_t)t * D + i0) * B + b;
+#pragma unroll
+    for (int j = 0; j < kMost; ++j) {
+      if (i0 + j * L < D) stream_put(slot, g.stride, Off + i0 + j * L, src);
+      src += (size_t)L * B;
+    }
+  }
+}
+
+// Start this lane's share of the copies of step t's slice into `slot`
+// (entry e by lane e % L).
 template <int N, int M, class Env, class G>
 DMPC_HD void rollout_stage(const RolloutArgs& a, const G& g, int t, int b, float* slot) {
-  using rollout_detail::at;
   using S = RolloutSlice<N, M, Env>;
   constexpr int NM = N + M;
   const int B = a.B;
-  for (int i = 0; i < NM * NM; ++i) stage_put(g, slot, i, &a.C[at(t, i, NM * NM, B, b)]);
-  for (int i = 0; i < NM; ++i) stage_put(g, slot, S::kc + i, &a.c[at(t, i, NM, B, b)]);
-  for (int i = 0; i < M * N; ++i) stage_put(g, slot, S::kK + i, &a.K[at(t, i, M * N, B, b)]);
-  for (int i = 0; i < M; ++i) stage_put(g, slot, S::kk + i, &a.k[at(t, i, M, B, b)]);
-  for (int i = 0; i < N; ++i) stage_put(g, slot, S::kxh + i, &a.x_hat[at(t, i, N, B, b)]);
-  for (int i = 0; i < M; ++i) stage_put(g, slot, S::kuh + i, &a.u_hat[at(t, i, M, B, b)]);
-  if (a.u_lower)
-    for (int i = 0; i < M; ++i) {
-      stage_put(g, slot, S::klo + i, &a.u_lower[at(t, i, M, B, b)]);
-      stage_put(g, slot, S::khi + i, &a.u_upper[at(t, i, M, B, b)]);
-    }
+  stage_array<NM * NM, 0>(g, slot, a.C, t, B, b);
+  stage_array<NM, S::kc>(g, slot, a.c, t, B, b);
+  stage_array<M * N, S::kK>(g, slot, a.K, t, B, b);
+  stage_array<M, S::kk>(g, slot, a.k, t, B, b);
+  stage_array<N, S::kxh>(g, slot, a.x_hat, t, B, b);
+  stage_array<M, S::kuh>(g, slot, a.u_hat, t, B, b);
+  if (a.u_lower) {
+    stage_array<M, S::klo>(g, slot, a.u_lower, t, B, b);
+    stage_array<M, S::khi>(g, slot, a.u_upper, t, B, b);
+  }
   if constexpr (IsLinearEnv<Env>::value) {
-    for (int i = 0; i < N * NM; ++i) stage_put(g, slot, S::kF + i, &a.F[at(t, i, N * NM, B, b)]);
-    if (a.f)
-      for (int i = 0; i < N; ++i) stage_put(g, slot, S::kf + i, &a.f[at(t, i, N, B, b)]);
+    stage_array<N * NM, S::kF>(g, slot, a.F, t, B, b);
+    if (a.f) stage_array<N, S::kf>(g, slot, a.f, t, B, b);
   }
   stream_commit();
 }
@@ -290,6 +378,19 @@ DMPC_HD void rollout_control(const RolloutArgs& a, const In& in, const float (&x
   }
 }
 
+// Row i of C_t tau
+template <int NM, class In>
+DMPC_HD float stage_cost_row(const In& in, const float (&tau)[NM], int i) {
+  float Ctau = 0.0f;
+  for (int j = 0; j < NM; ++j) Ctau += in.C(i, j) * tau[j];
+  return Ctau;
+}
+
+// acc plus row i's term of the stage cost, from the row's C_t tau
+DMPC_HD float stage_cost_term(float acc, float Ctau, float c, float tau) {
+  return acc + (0.5f * Ctau + c) * tau;
+}
+
 // 0.5 tau'C_t tau + c_t'tau, summed in the TPU kernel's order (stage_cost)
 template <int N, int M, class In>
 DMPC_HD float stage_cost(const In& in, const float (&x)[N], const float (&u)[M]) {
@@ -298,12 +399,51 @@ DMPC_HD float stage_cost(const In& in, const float (&x)[N], const float (&u)[M])
   for (int i = 0; i < N; ++i) tau[i] = x[i];
   for (int i = 0; i < M; ++i) tau[N + i] = u[i];
   float acc = 0.0f;
+  for (int i = 0; i < NM; ++i) acc = stage_cost_term(acc, stage_cost_row(in, tau, i), in.c(i), tau[i]);
+  return acc;
+}
+
+// The least lane count whose groups share the baseline's stage cost out
+// (baseline_stage_cost); fewer lanes each add it up themselves. At 16 lanes
+// (one candidate a lane) the cartpole's baseline took 0.85 of the cycles a
+// scenario that every lane's own sum took (ab_rollout_lanes --variants
+// --profile on an NVIDIA H100 80GB HBM3 at 700 W). A build that shared it
+// at every lane count ran 3-11% slower than the one before at 2 and 4 lanes
+// on a cheap env's long horizons (the pendulum at T=256, the cartpole and
+// the pendulum's wrap at T=128), where every lane summed it; those counts
+// keep the sum.
+constexpr int kRolloutShareBaselineLanes = 16;
+
+// stage_cost of (x_hat_t, u_hat_t), the baseline's, by the group g: row i's
+// C_t tau by lane i % L, then every lane adds the rows' terms up in
+// stage_cost's order, each row's from the lane that computed it.
+template <int N, int M, class In, class G>
+DMPC_HD float baseline_stage_cost(const In& in, const G& g) {
+  constexpr int NM = N + M, L = G::kLanes, kRows = (NM + L - 1) / L;
+  float tau[NM];
+  for (int i = 0; i < N; ++i) tau[i] = in.xh(i);
+  for (int i = 0; i < M; ++i) tau[N + i] = in.uh(i);
+  float rows[G::kLocal][kRows];
+  for (int li = 0; li < G::kLocal; ++li)
+    for (int r = 0; r < kRows; ++r) {
+      const int i = g.lane_of(li) + r * L;
+      rows[li][r] = i < NM ? stage_cost_row(in, tau, i) : 0.0f;
+    }
+  float acc = 0.0f;
   for (int i = 0; i < NM; ++i) {
-    float Ctau = 0.0f;
-    for (int j = 0; j < NM; ++j) Ctau += in.C(i, j) * tau[j];
-    acc += (0.5f * Ctau + in.c(i)) * tau[i];
+    float v[G::kLocal];
+    for (int li = 0; li < G::kLocal; ++li) v[li] = rows[li][i / L];
+    acc = stage_cost_term(acc, g.from_lane(v, i % L), in.c(i), tau[i]);
   }
   return acc;
+}
+
+// Whether two floats have the same bits
+DMPC_HD bool same_bits(float a, float b) {
+  unsigned ua, ub;
+  memcpy(&ua, &a, sizeof(ua));
+  memcpy(&ub, &b, sizeof(ub));
+  return ua == ub;
 }
 
 // x_{t+1}: the linear step F_t tau + f_t, or the env's own step
@@ -334,16 +474,19 @@ namespace rollout_detail {
 // along i), the stage cost added to obj, the env's step.
 template <int N, int M, class In, class Env>
 DMPC_HD void rollout_step(const RolloutArgs& a, const In& in, const Env& env, const float* p, float alpha,
-                          float* xs, float* us, size_t ld, float (&x)[N], float& obj) {
+                          float* xs, float* us, size_t ld, float (&x)[N], float& obj, RolloutProfile& prof) {
   float u[M], xn[N];
   rollout_control<N, M>(a, in, x, alpha, u);
+  prof.mark(kRolloutControl);
   if (xs) {
     for (int i = 0; i < N; ++i) xs[i * ld] = x[i];
     for (int i = 0; i < M; ++i) us[i * ld] = u[i];
   }
   obj = obj + stage_cost<N, M>(in, x, u);
+  prof.mark(kRolloutCost);
   advance<N, M>(in, env, p, x, u, xn);
   for (int i = 0; i < N; ++i) x[i] = xn[i];
+  prof.mark(kRolloutStep);
 }
 
 // One pass over the horizon: body(in, t) for every step t with its inputs
@@ -351,23 +494,27 @@ DMPC_HD void rollout_step(const RolloutArgs& a, const In& in, const Env& env, co
 // each step's slice copied once for the group, rollout_stages - 1 steps
 // ahead. Every lane of the group calls it together.
 template <int N, int M, class Env, bool Staged, class G, class Body>
-DMPC_HD void horizon_pass(const RolloutArgs& a, const G& g, int b, Body& body) {
+DMPC_HD void horizon_pass(const RolloutArgs& a, const G& g, int b, Body& body, RolloutProfile& prof) {
   const int T = a.T;
   if constexpr (!Staged) {
     for (int t = 0; t < T; ++t) body(RolloutGlobal<N, M>{a, t, b}, t);
   } else {
     constexpr int kSize = RolloutSlice<N, M, Env>::kSize, kStages = rollout_stages<Env, G::kLanes>();
     g.sync();  // every lane is done with the slots' last contents
+    prof.mark(kRolloutWait);
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < T) rollout_stage<N, M, Env>(a, g, s, b, stage_slot(g, s, kSize, kStages));
       else stream_commit();
     }
+    prof.mark(kRolloutLoads);
     for (int t = 0; t < T; ++t) {
       stream_wait<kStages - 2>();  // this lane's copies of step t
       g.sync();                    // and every other lane's
+      prof.mark(kRolloutWait);
       const int ahead = t + kStages - 1;
       if (ahead < T) rollout_stage<N, M, Env>(a, g, ahead, b, stage_slot(g, ahead, kSize, kStages));
       else stream_commit();
+      prof.mark(kRolloutLoads);
       body(RolloutSlot<N, M, Env>{SlotReader{stage_slot(g, t, kSize, kStages), g.stride}, a.f != nullptr,
                                   a.u_lower != nullptr},
            t);
@@ -378,7 +525,9 @@ DMPC_HD void horizon_pass(const RolloutArgs& a, const G& g, int b, Body& body) {
 // A pass of the ladder: each local lane li advances its kPer states x[li][s]
 // at step sizes step[li][s], adding their costs to obj[li][s]; state 0
 // stores its trajectory in the lane's slot (xs, us themselves with one
-// lane). With `base`, the baseline's stage costs are added to obj0.
+// lane), and a later state that rolls out alpha_floor (at_floor[li][s], above
+// one lane) in xs, us. With `base`, the baseline's stage costs are added to
+// obj0.
 template <int N, int M, int kLocal, int kPer, class Env, class G>
 struct LadderBody {
   const RolloutArgs& a;
@@ -391,16 +540,23 @@ struct LadderBody {
   float (&step)[kLocal][kPer];
   float (&obj)[kLocal][kPer];
   float (&x)[kLocal][kPer][N];
+  const bool (&at_floor)[kLocal][kPer];
+  RolloutProfile& prof;
 
   template <class In>
   DMPC_HD void operator()(const In& in, int t) {
     constexpr int L = G::kLanes;
     const int B = a.B;
     if (base) {
-      float xh[N], uh[M];
-      for (int i = 0; i < N; ++i) xh[i] = in.xh(i);
-      for (int i = 0; i < M; ++i) uh[i] = in.uh(i);
-      obj0 = obj0 + stage_cost<N, M>(in, xh, uh);
+      if constexpr (L < kRolloutShareBaselineLanes) {
+        float xh[N], uh[M];
+        for (int i = 0; i < N; ++i) xh[i] = in.xh(i);
+        for (int i = 0; i < M; ++i) uh[i] = in.uh(i);
+        obj0 = obj0 + stage_cost<N, M>(in, xh, uh);
+      } else {
+        obj0 = obj0 + baseline_stage_cost<N, M>(in, g);
+      }
+      prof.mark(kRolloutBase);
     }
     for (int li = 0; li < kLocal; ++li) {
 #pragma unroll
@@ -418,8 +574,12 @@ struct LadderBody {
             us = a.lane_u + lane_at(t, 0, M, B, b, L, lane);
             ld = (size_t)B * L;
           }
+        } else if (L > 1 && at_floor[li][s]) {
+          xs = a.xs + at(t, 0, N, B, b);
+          us = a.us + at(t, 0, M, B, b);
+          ld = (size_t)B;
         }
-        rollout_step<N, M>(a, in, env, p, step[li][s], xs, us, ld, x[li][s], obj[li][s]);
+        rollout_step<N, M>(a, in, env, p, step[li][s], xs, us, ld, x[li][s], obj[li][s], prof);
       }
     }
   }
@@ -437,12 +597,13 @@ struct ReplayBody {
   float alpha;
   float (&x)[N];
   float& obj;
+  RolloutProfile& prof;
 
   template <class In>
   DMPC_HD void operator()(const In& in, int t) {
     const bool mine = g.owns(t);
     rollout_step<N, M>(a, in, env, p, alpha, mine ? a.xs + at(t, 0, N, a.B, b) : nullptr,
-                       mine ? a.us + at(t, 0, M, a.B, b) : nullptr, (size_t)a.B, x, obj);
+                       mine ? a.us + at(t, 0, M, a.B, b) : nullptr, (size_t)a.B, x, obj, prof);
   }
 };
 
@@ -459,6 +620,7 @@ DMPC_HD void linesearch_rollout_scenario(const RolloutArgs& a, const Env& env, i
   constexpr int L = G::kLanes, kLocal = G::kLocal, kPer = rollout_pass_states<Env, L>();
   const int T = a.T, B = a.B;
   const float* p = params ? params + (size_t)b * a.params_stride : nullptr;
+  RolloutProfile prof;
   float x0[N];
   for (int i = 0; i < N; ++i) x0[i] = a.x_init[(size_t)i * B + b];
 
@@ -473,20 +635,47 @@ DMPC_HD void linesearch_rollout_scenario(const RolloutArgs& a, const Env& env, i
   float obj0 = 0.0f, chosen = a.alpha_floor, chosen_obj = 0.0f;
   int chosen_lane = -1, chosen_state = -1;
   bool has = false;
+  // each lane's first candidate of the last pass: its step and its cost;
+  // where a later state of the lane rolled out alpha_floor into xs, us, its
+  // cost
+  float first_step[kLocal], first_obj[kLocal], direct_obj[kLocal];
+  bool direct[kLocal];
   for (int k0 = 0; k0 < a.n_alpha && !has; k0 += L * kPer) {
     float step[kLocal][kPer], obj[kLocal][kPer], x[kLocal][kPer][N];
+    bool at_floor[kLocal][kPer];
     for (int li = 0; li < kLocal; ++li) {
 #pragma unroll
       for (int s = 0; s < kPer; ++s) {
         const int k = k0 + s * L + g.lane_of(li);
-        step[li][s] = a.alphas ? a.alphas[k < a.n_alpha ? k : a.n_alpha - 1] : al[li];
+        // the candidate just past the ladder (in the last pass, where the
+        // pass has room for it) rolls out alpha_floor: the trajectory of a
+        // pick of no candidate, kept in the lane's slot (its first state)
+        // or, above one lane, stored in xs, us (a later state)
+        at_floor[li][s] = k == a.n_alpha;
+        step[li][s] = at_floor[li][s] ? a.alpha_floor
+                      : a.alphas   ? a.alphas[k < a.n_alpha ? k : a.n_alpha - 1]
+                                   : al[li];
         for (int j = 0; j < L; ++j) al[li] = al[li] * a.decay;
         obj[li][s] = 0.0f;
         for (int i = 0; i < N; ++i) x[li][s][i] = x0[i];
       }
     }
-    LadderBody<N, M, kLocal, kPer, Env, G> body{a, env, p, g, b, k0 == 0, obj0, step, obj, x};
-    horizon_pass<N, M, Env, Staged>(a, g, b, body);
+    prof.mark(kRolloutInit);
+    LadderBody<N, M, kLocal, kPer, Env, G> body{a, env, p, g, b, k0 == 0, obj0, step, obj, x, at_floor, prof};
+    horizon_pass<N, M, Env, Staged>(a, g, b, body, prof);
+    for (int li = 0; li < kLocal; ++li) {
+      first_step[li] = step[li][0];
+      first_obj[li] = obj[li][0];
+      direct[li] = false;
+      direct_obj[li] = 0.0f;
+#pragma unroll
+      for (int s = 1; s < kPer; ++s) {
+        if (L > 1 && at_floor[li][s]) {
+          direct[li] = true;
+          direct_obj[li] = obj[li][s];
+        }
+      }
+    }
     // the lowest improving candidate of the pass, state by state
 #pragma unroll
     for (int s = 0; s < kPer; ++s) {
@@ -506,32 +695,57 @@ DMPC_HD void linesearch_rollout_scenario(const RolloutArgs& a, const Env& env, i
         has = true;
       }
     }
+    prof.mark(kRolloutPick);
   }
 
-  // the trajectory: the chosen lane's, where it was the lane's first state
-  // (with one lane, already in xs, us), or the replay of the chosen step
-  float objs;
+  // the trajectory kept in a lane's slot (with one lane, already in xs, us):
+  // the chosen lane's, where the pick was the lane's first candidate of its
+  // pass; where none improves, a lane's whose first candidate of the last
+  // pass stepped by alpha_floor's very bits (the lane past the ladder, or
+  // the ladder's last step where it lands on them), or else alpha_floor's
+  // rollout already in xs, us (a later state of the lane past the ladder):
+  // the trajectory and cost the replay would give, bit for bit
+  float objs = 0.0f;
+  int kept = -1;
+  bool replay = true;
   if (has && chosen_state == 0) {
+    kept = chosen_lane;
+    objs = chosen_obj;
+    replay = false;
+  } else if (!has) {
+    bool on_floor[kLocal];
+    for (int li = 0; li < kLocal; ++li) on_floor[li] = same_bits(first_step[li], a.alpha_floor);
+    kept = g.first_set(on_floor);
+    const int in_xs = kept >= 0 ? -1 : g.first_set(direct);
+    if (kept >= 0) objs = g.from_lane(first_obj, kept);
+    if (in_xs >= 0) objs = g.from_lane(direct_obj, in_xs);
+    replay = kept < 0 && in_xs < 0;
+  }
+  if (kept >= 0) {
     if constexpr (L > 1) {
       g.publish();  // every lane's slot
       for (int li = 0; li < kLocal; ++li) {
         for (int t = g.lane_of(li); t < T; t += L) {
-          for (int i = 0; i < N; ++i) a.xs[at(t, i, N, B, b)] = a.lane_x[lane_at(t, i, N, B, b, L, chosen_lane)];
-          for (int i = 0; i < M; ++i) a.us[at(t, i, M, B, b)] = a.lane_u[lane_at(t, i, M, B, b, L, chosen_lane)];
+          for (int i = 0; i < N; ++i) a.xs[at(t, i, N, B, b)] = a.lane_x[lane_at(t, i, N, B, b, L, kept)];
+          for (int i = 0; i < M; ++i) a.us[at(t, i, M, B, b)] = a.lane_u[lane_at(t, i, M, B, b, L, kept)];
         }
       }
     }
-    objs = chosen_obj;
-  } else {
+    prof.mark(kRolloutKeep);
+  } else if (replay) {
+    g.publish();  // after any lane's stores to xs, us
     float x[N];
     for (int i = 0; i < N; ++i) x[i] = x0[i];
     objs = 0.0f;
-    ReplayBody<N, M, Env, G> body{a, env, p, g, b, chosen, x, objs};
-    horizon_pass<N, M, Env, Staged>(a, g, b, body);
+    prof.replay = true;
+    ReplayBody<N, M, Env, G> body{a, env, p, g, b, chosen, x, objs, prof};
+    horizon_pass<N, M, Env, Staged>(a, g, b, body, prof);
+    prof.mark(kRolloutReplay);
   }
   if (g.leader()) {
     a.objs[b] = objs;
     a.alpha[b] = chosen;
     a.improved[b] = has ? 1.0f : 0.0f;
   }
+  prof.flush(g.leader());
 }

@@ -10,6 +10,17 @@
 #if DMPC_VARIANT_L > 0
 template int riccati_launch_detail::lanes_launch_modes<DMPC_N, DMPC_M, DMPC_VARIANT_L, DMPC_ENUM>(RiccatiArgs*, int,
                                                                                                  cudaStream_t);
+
+#if defined(DMPC_RICCATI_PROFILE) && DMPC_VARIANT_L == 16
+// The profile build's cycles by phase of the 16-lane step (riccati.cuh,
+// RiccatiProfile), read and cleared.
+extern "C" int diffmpc_riccati_profile(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, riccati_profile_cycles, sizeof(riccati_profile_cycles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[12] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(riccati_profile_cycles, zero, sizeof(zero)));
+}
+#endif
 #else
 #define DMPC_VARIANT_RICCATI_EXTERN(_, L)                                                                     \
   extern template int riccati_launch_detail::lanes_launch_modes<DMPC_N, DMPC_M, L, DMPC_ENUM>(RiccatiArgs*, int, \

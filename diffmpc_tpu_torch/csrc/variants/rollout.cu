@@ -27,6 +27,19 @@
 
 #if DMPC_VARIANT_L > 0
 DMPC_VARIANT_ROLLOUT(, DMPC_VARIANT_L)
+
+#ifdef DMPC_ROLLOUT_PROFILE
+#define DMPC_ROLLOUT_CAT2(a, b) a##b
+#define DMPC_ROLLOUT_CAT(a, b) DMPC_ROLLOUT_CAT2(a, b)
+// The profile build's cycles by phase, then its scenarios (rollout.cuh,
+// RolloutProfile), counted by this unit's kernels, read and cleared.
+extern "C" int DMPC_ROLLOUT_CAT(diffmpc_rollout_profile_l, DMPC_VARIANT_L)(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, rollout_profile_cycles, sizeof(rollout_profile_cycles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[kRolloutPhases + 1] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(rollout_profile_cycles, zero, sizeof(zero)));
+}
+#endif
 #else
 DMPC_LANES(DMPC_VARIANT_ROLLOUT, extern)
 

@@ -45,9 +45,23 @@ The shapes: BASELINE.json config 2 (``LinDx`` n=4, m=2, box +-0.6,
 pendulum's step with ``FINITE_DIFF`` at T=20 (the resident kernel) and
 T=256 (the twin), B=1024.
 
+With ``--variants`` it runs instead the box QP's projected-Newton variants
+(:data:`VARIANT_CASES`) on the sweeps their own solves record: a (6, 3)
+``LinDx`` box-DDP at B=4096 (config 2's recipe at (6, 3)) under
+``pnqp_enum`` "" (the loop) and "1" (the 27 candidates), and config 2 at
+B=1000 under "0" (the loop at m = 2). Each record adds the mean of ``n_qp``
+against ``pnqp_iter`` per call; ``--parent`` runs the other checkout's
+builds of the same variants (its own ``csrc/build.py``) beside and reports
+whether each call's ``K``, ``k``, ``free`` and ``n_qp`` equal this
+checkout's bit for bit; ``--profile`` counts the 16-lane step's phases from
+the variants built with ``DMPC_RICCATI_PROFILE``; ``--ptxas`` gives each
+key's ptxas report and the local loads and stores of its kernels' SASS.
+
 Run on a machine with a CUDA device:
 
     python -m diffmpc_tpu_torch.diagnostics.ab_riccati_lanes [--batches 128 4096] [--parent DIR] [--profile]
+    python -m diffmpc_tpu_torch.diagnostics.ab_riccati_lanes --variants [CASE ...] [--parent DIR] [--profile]
+        [--ptxas]
 
 It prints the card's name and power limit, then one JSON record per shape.
 """
@@ -63,7 +77,9 @@ import json
 import os
 import subprocess
 import tempfile
+import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -133,7 +149,8 @@ def record(case: str, T: int, B: int, device) -> list:
     return calls
 
 
-PROFILE_PHASES = ("Q entries", "Q exchange", "QP candidates and Newton point", "QP exchange", "fold and frozen mask",
+PROFILE_PHASES = ("Q entries", "Q exchange", "QP: candidates and Newton point, or the loop", "QP exchange",
+                  "fold and frozen mask",
                   "factor", "columns and stores", "K exchange", "value entries", "value exchange",
                   "staging wait", "staging copies")
 
@@ -185,19 +202,23 @@ def _key(kind: str, name: str, L) -> str:
     return f"exact/{L}" if kind == "exact" else f"{kind}/{name}/{L}"
 
 
-def time_calls(device, calls: list, libs: dict, rounds: int, loops: int, lanes, pick: str) -> tuple:
+def time_calls(device, calls: list, libs: dict, rounds: int, loops: int, lanes, pick=None, enum: str = "",
+               parent_counts=("1",), refs=None) -> tuple:
     """Stage each call once; on its inputs launch every (kernel, build, L:
-    ``1`` one lane reading device memory, ``1s`` one lane staged), and the
-    simplified update at L = 1 and ``pick``, check each against the
-    resident kernel at ``1`` of the first build (the simplified update
-    against itself at ``1``), and time it alone, interleaved. Returns ``(ms
-    summed over the calls, scenarios bit-equal summed, the calls'
+    ``1`` one lane reading device memory, ``1s`` one lane staged; a build's
+    library None: the one the wrapper loads), with the box QP of ``enum``,
+    and with ``pick`` the simplified update at L = 1 and ``pick``; check each
+    against the resident kernel at ``1`` of the first build (the simplified
+    update against itself at ``1``), and time it alone, interleaved. Returns
+    ``(ms summed over the calls, scenarios bit-equal summed, the calls'
     scenarios)``, keyed ``kind/build/L`` (``exact/L`` for the simplified
-    update; the other checkout, ``parent``, at one lane only)."""
+    update; the other checkout, ``parent``, at ``parent_counts``); appends
+    each call's reference result to ``refs`` where given."""
     counts = ["1", "1s"] + [str(L) for L in lanes if L > 1]
     variants = [(kind, name, L) for name in libs if name != "parent" for kind in KINDS for L in counts]
-    variants += [(kind, "parent", "1") for kind in KINDS if "parent" in libs]
-    variants += [("exact", "policy", L) for L in dict.fromkeys(["1", pick])]
+    variants += [(kind, "parent", L) for kind in KINDS for L in parent_counts if "parent" in libs]
+    if pick is not None:
+        variants += [("exact", "policy", L) for L in dict.fromkeys(["1", pick])]
     ms = {v: 0.0 for v in variants}
     equal = {v: 0 for v in variants}
     scenarios = 0
@@ -212,16 +233,19 @@ def time_calls(device, calls: list, libs: dict, rounds: int, loops: int, lanes, 
             a.lanes, a.staged = int(L.rstrip("s")), int(L.endswith("s"))
             if kind == "exact":
                 a.exact_update = 1
-            launch = ric._cuda_launcher(device, n, m, "riccati" if kind == "exact" else kind, counted, libs[name])
+            launch = ric._cuda_launcher(device, n, m, "riccati" if kind == "exact" else kind, counted, libs[name],
+                                        pnqp_enum=enum)
             launches[(kind, name, L)] = (launch, a)
-        refs = {}
+        first = {}
         for v, (launch, a) in launches.items():
             launch(ctypes.byref(a), n, m, staged.mode)
             got = staged.result()
             key = "exact" if v[0] == "exact" else "full"
-            if key not in refs:
-                refs[key] = ric.RiccatiResult(*(t.clone() for t in got))
-            equal[v] += int(same_scenarios(got, refs[key]).sum())
+            if key not in first:
+                first[key] = ric.RiccatiResult(*(t.clone() for t in got))
+            equal[v] += int(same_scenarios(got, first[key]).sum())
+        if refs is not None:
+            refs.append(first["full"])
         scenarios += B
         torch.cuda.synchronize()
         best = {}
@@ -236,7 +260,7 @@ def time_calls(device, calls: list, libs: dict, rounds: int, loops: int, lanes, 
                 best[v] = min(best.get(v, float("inf")), start.elapsed_time(end) / loops)
         for v in variants:
             ms[v] += best[v]
-        del staged, launches, refs
+        del staged, launches, first
     return {_key(*v): t for v, t in ms.items()}, {_key(*v): e for v, e in equal.items()}, scenarios
 
 
@@ -300,16 +324,139 @@ def run(device, cases: list, parent=None, rounds: int = 2, loops: int = 3, lanes
             yield record_
 
 
+# ---------------------------------------------------------------------------
+# The box QP's projected-Newton variants, on the sweeps their solves record.
+# ---------------------------------------------------------------------------
+
+LINDX63_B, LOOP42_B = 4096, 1000
+
+
+def _variant_calls(n: int, m: int, B: int, enum: str, device) -> list:
+    """The Riccati sweeps of one box-DDP solve at ``(n, m)``: config 2's
+    recipe (F scaled to its open-loop growth), box +-0.6, T=20, ten
+    iterations, ``pnqp_enum`` ``enum``, B scenarios."""
+    from .. import LinDx, MPCConfig, QuadCost, mpc_solve
+
+    C, c, F, f, x0 = config2_problem(20, B, device, seed=33 if n == 6 else 20 + B, n=n, m=m)
+    cfg = MPCConfig(n_state=n, n_ctrl=m, T=20, lqr_iter=10, exit_unconverged=False, detach_unconverged=False,
+                    pnqp_enum=enum)
+    calls = []
+    with torch.no_grad(), recorded_calls(calls), contextlib.redirect_stdout(io.StringIO()):
+        mpc_solve(cfg, x0, QuadCost(C, c), LinDx(F, f), u_lower=-CONFIG2_BOX, u_upper=CONFIG2_BOX)
+    return calls
+
+
+# case -> (n, m, B, pnqp_enum)
+VARIANT_CASES = {"lindx63": (6, 3, LINDX63_B, ""), "lindx63_enum1": (6, 3, LINDX63_B, "1"),
+                 "config2_enum0": (CONFIG2_N, CONFIG2_M, LOOP42_B, "0")}
+
+
+def variant_key(n: int, m: int, enum: str):
+    from ..ops.cuda.ilqr import kernel_variant_key
+    from ..ops.cuda.riccati_entries import pnqp_enum_flag
+
+    return kernel_variant_key("riccati", n, m, enum=pnqp_enum_flag(m, enum))
+
+
+def variant_profile(device, lib, calls: list, n: int, m: int, enum: str) -> dict:
+    """Cycles a step of each phase of the 16-lane step over the calls, from
+    the variant's profile build ``lib`` (the first thread of block 0)."""
+    read = lib.diffmpc_riccati_profile
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    cycles = (ctypes.c_ulonglong * len(PROFILE_PHASES))()
+    read(cycles)  # cleared
+    steps = 0
+    for kind, args, kw in calls:
+        staged = ric.stage_riccati(*args, lanes=16, **kw)
+        ric._cuda_launcher(device, n, m, "riccati", types.SimpleNamespace(launches=0), lib, pnqp_enum=enum)(
+            ctypes.byref(staged.args), n, m, staged.mode)
+        steps += args[0].shape[0]
+    torch.cuda.synchronize()
+    if read(cycles) != 0:
+        raise RuntimeError("reading the profile build's cycles failed")
+    return dict(lanes=16, calls=len(calls), cycles_per_step={p: cycles[i] / steps for i, p in enumerate(PROFILE_PHASES)})
+
+
+def run_variants(device, cases, parent=None, profiled: bool = False, ptxas: bool = False, rounds: int = 3,
+                 loops: int = 3, lanes=ric.RICCATI_LANES):
+    """Yield a record of each variant case: every Riccati call of its solve
+    through both kernels at every L (one lane staged and not), held bit-equal
+    to one lane, ``parent``'s builds beside (their bits against this
+    checkout's reported), mean ``n_qp``, and with ``profiled`` the 16-lane
+    step's phases; first, with ``ptxas``, each key's ptxas and SASS
+    report."""
+    from .ab_ilqr_lanes import parent_libraries
+    from .ab_rollout_lanes import sass_local_accesses
+    from .card import ptxas_report
+
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    keys = {case: variant_key(*VARIANT_CASES[case][:2], VARIANT_CASES[case][3]) for case in cases}
+    unique = list(dict.fromkeys(keys.values()))
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(max_workers=3) as pool:
+        t0 = time.perf_counter()
+        mine = pool.submit(build.build_variants, unique)
+        other = pool.submit(parent_libraries, parent, unique) if parent else None
+        prof = pool.submit(build.build_variants_with, unique, tmp, ("DMPC_RICCATI_PROFILE=1",), "profile") \
+            if profiled else None
+        built = mine.result()
+        parents = other.result() if other else {}
+        profiles = prof.result()[0] if prof else {}
+        yield dict(build_seconds=time.perf_counter() - t0, keys=[key.name for key in unique])
+        if ptxas:
+            logs = {key: log for key, (_, log) in built.items()}
+            stale = [key for key, log in logs.items() if not log]
+            if stale:  # built before this process: build again for the log
+                logs.update(build.build_variants_with(stale, tmp, (), "ptxas")[1])
+            yield dict(ptxas_and_sass={key.name: dict(ptxas=ptxas_report(logs[key], "riccati_kernel"),
+                                                      sass=sass_local_accesses(built[key][0])) for key in unique})
+        for case in cases:
+            n, m, B, enum = VARIANT_CASES[case]
+            calls = _variant_calls(n, m, B, enum, device)
+            libs = {"policy": None}
+            if keys[case] in parents:
+                libs["parent"] = parents[keys[case]]
+            counts = ["1", "1s"] + [str(L) for L in lanes if L > 1]
+            refs = []
+            ms, equal, scenarios = time_calls(device, calls, libs, rounds, loops, lanes, enum=enum,
+                                              parent_counts=counts, refs=refs)
+            pnqp_iter = calls[0][2].get("pnqp_iter", 8)
+            mean_n_qp = [float(r.n_qp_iter.float().mean()) for r in refs]
+            rec = dict(case=case, key=keys[case].name, n=n, m=m, B=B, pnqp_enum=enum, calls=len(calls),
+                       sm_count=sm_count, ms=ms, bit_equal_share={v: e / scenarios for v, e in equal.items()},
+                       pnqp_iter=pnqp_iter, mean_n_qp=mean_n_qp,
+                       mean_n_qp_over_pnqp_iter=[q / pnqp_iter for q in mean_n_qp])
+            if "parent" in libs:
+                rec["change_over_parent"] = {f"{k}/{L}": ms[f"{k}/policy/{L}"] / ms[f"{k}/parent/{L}"]
+                                             for k in KINDS for L in counts}
+            if keys[case] in profiles:
+                rec["profile"] = variant_profile(device, profiles[keys[case]], calls, n, m, enum)
+            del calls
+            torch.cuda.empty_cache()
+            held = {v: sh for v, sh in rec["bit_equal_share"].items() if "/parent/" not in v}
+            if min(held.values()) < 1.0:
+                raise AssertionError(f"Riccati variants A/B: a lane count is not bit for bit one lane: {rec}")
+            yield rec
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batches", type=int, nargs="+", default=[128, 4096, 65536])
     parser.add_argument("--parent", help="the root of another checkout whose Riccati kernels run beside")
     parser.add_argument("--profile", action="store_true", help="first count each phase's cycles of the 16-lane step")
+    parser.add_argument("--variants", nargs="*", choices=list(VARIANT_CASES), default=None,
+                        help="run the projected-Newton variants' cases instead (all of them without names)")
+    parser.add_argument("--ptxas", action="store_true", help="with --variants: each key's ptxas and SASS report")
+    parser.add_argument("--rounds", type=int, default=3)
     opts = parser.parse_args()
     device = require_card()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
-    for rec in run(device, shapes(opts.batches), parent=opts.parent, profiled=opts.profile):
+    if opts.variants is not None:
+        records = run_variants(device, opts.variants or list(VARIANT_CASES), opts.parent, opts.profile, opts.ptxas,
+                               opts.rounds)
+    else:
+        records = run(device, shapes(opts.batches), parent=opts.parent, profiled=opts.profile)
+    for rec in records:
         print(json.dumps(rec), flush=True)
 
 

@@ -43,6 +43,11 @@ the passthrough wraps' and the (6, 3) MLP's at every lane count, with and
 without ``hoist_lin``, cold and warm-started, bit-equal to one lane, one
 iteration under the iLQR rule above; every variant key the paths build
 within the card's opt-in shared memory a block, at least one block an SM.
+A line search on which no candidate improves (the rolled ladder off and on
+alpha_floor's bits, the unrolled one), prebuilt and variant, at every lane
+count bit-equal to one lane and held to the plain version; the box QP's
+projected-Newton loop in the Riccati variants at (6, 3) and (4, 2) under
+"0", every lane count bit-equal to one lane, a NaN scenario included.
 """
 
 import dataclasses
@@ -489,6 +494,119 @@ def test_rollout_lane_kernels_match_plain(device, case, B):
             torch.cuda.synchronize()
             for name, g, w in zip(got._fields, got, one):
                 assert torch.equal(g, w), (kind, lanes, name)
+
+
+# ladders of the line search with nothing improving: (decay, n_alpha,
+# unroll): the rolled ladder off alpha_floor's bits (0.2 * 0.2 is not
+# float32(0.04)) and on them (halving), and the unrolled one
+NO_IMPROVEMENT_LADDERS = {"rolled_off_floor": (0.2, 3, False), "rolled_on_floor": (0.5, 10, False),
+                          "unrolled": (0.2, 4, True)}
+
+
+def _no_improvement_inputs(case: str, ladder: str, device, B: int = 1000, T: int = 20):
+    """A line search on which no candidate improves: linear (4, 2) dynamics
+    about the problem's optimum (the plain free sweep's policy) with a
+    random feedforward, every step up the quadratic; the pendulum, the
+    acrobot (n + m = 7) and the vehicle's slew wrap (n + m = 8) with a zero
+    cost, every candidate tying the baseline."""
+    from torch_zoo_cases import kernel_problem
+
+    decay, n_alpha, unroll = NO_IMPROVEMENT_LADDERS[ladder]
+    rng = np.random.default_rng(2900 + B)
+    kw = dict(decay=decay, max_iter=n_alpha, unroll=unroll)
+    if case == "linear":
+        n, m = 4, 2
+        C, c, F, f, x0 = (torch.tensor(a, device=device) for a in _random_lqr(rng, T, B, n, m))
+        gains = riccati_backward_plain(C, c, F, f, n)
+        x_hat, u_hat = lqr_rollout(x0, F, f, gains.K, gains.k)
+        k = torch.tensor(rng.normal(size=(T, B, m)) * 20.0, dtype=torch.float32, device=device)
+        return (x0, C, c, F, f, gains.K, k, x_hat, u_hat), kw
+    if case == "pendulum":
+        t, dyn = torch_inputs(make_problem(B=B, T=T, batched_params=True, warm=True), device)
+        x0, lo, hi = t["x_init"], t["u_lower"], t["u_upper"]
+    else:
+        x0, _, _, dyn, lo, hi = (a.to(device=device) for a in kernel_problem(
+            "acrobot" if case == "acrobot" else "vehicle", B, T, torch.float32, seed=2901))
+        if case == "pt_vehicle":
+            from diffmpc_tpu_torch.models import CtrlPassthroughDynamics
+
+            x0 = torch.cat([torch.zeros((B, 2), device=device), x0], -1)
+            dyn = CtrlPassthroughDynamics(inner=dyn, n_ctrl=2)
+    n, m = x0.shape[-1], lo.shape[-1]
+    u_hat = lo + (hi - lo) * torch.tensor(rng.uniform(0.2, 0.8, (T, B, m)), dtype=torch.float32, device=device)
+    xs = [x0]
+    for t_ in range(T - 1):
+        xs.append(dyn.forward(xs[-1], u_hat[t_]))
+    K = torch.tensor(rng.normal(size=(T, B, m, n)) * 0.1, dtype=torch.float32, device=device)
+    k = torch.tensor(rng.normal(size=(T, B, m)), dtype=torch.float32, device=device)
+    zeros = torch.zeros((T, B, n + m, n + m), device=device), torch.zeros((T, B, n + m), device=device)
+    return (x0, *zeros, None, None, K, k, torch.stack(xs), u_hat), dict(kw, u_lower=lo, u_upper=hi, dyn=dyn)
+
+
+@pytest.mark.parametrize("ladder", list(NO_IMPROVEMENT_LADDERS))
+@pytest.mark.parametrize("case", ["linear", "pendulum", "acrobot", "pt_vehicle"])
+def test_rollout_with_nothing_improving_lanes_bit_equal_and_match_plain(device, case, ladder):
+    """A line search on which no candidate improves (a converged solve's
+    last call): the resident kernel and its twin at every built lane count
+    bit for bit the resident kernel at one lane, which holds the plain
+    version (alpha_floor everywhere, objs within 1e-5 of the largest, us
+    within 1e-4); the prebuilt kernels (linear (4, 2), the pendulum) and
+    the variants of n + m = 7 and 8 (the acrobot, the vehicle's wrap)."""
+    from diffmpc_tpu_torch.ops.cuda import rollout as rol
+    from diffmpc_tpu_torch.ops.cuda import rollout_stream as ros
+
+    args, kw = _no_improvement_inputs(case, ladder, device)
+    n, m = args[0].shape[-1], args[6].shape[-1]
+    want = linesearch_rollout_plain(*args, **kw)
+    assert not bool(want.improved.any())
+    launchers = {"rollout": rol._cuda_launcher, "rollout_stream": ros._stream_launcher}
+    one = rol.run_staged_rollout(launchers["rollout"](device, n, m, kw.get("dyn")), *args, **kw)
+    torch.cuda.synchronize()
+    _assert_line_searches_agree(one, want)
+    assert bool((one.alpha == want.alpha).all())
+    for kind, launcher in launchers.items():
+        for lanes in rol.ROLLOUT_LANES:
+            got = rol.run_staged_rollout(launcher(device, n, m, kw.get("dyn")), *args, lanes=lanes, **kw)
+            torch.cuda.synchronize()
+            for name, g, w in zip(got._fields, got, one):
+                assert torch.equal(g, w), (kind, lanes, name)
+
+
+@pytest.mark.parametrize("n,m,enum", [(6, 3, ""), (4, 2, "0")])
+def test_riccati_projected_newton_variants_lanes_bit_equal(device, n, m, enum):
+    """The box QP's projected-Newton loop (left once done; at 16 lanes its
+    Armijo candidates shared out and picked by a ballot) in the Riccati
+    variants at (6, 3) and, under "0", (4, 2): the kernel and its twin at
+    every built lane count (one lane staged and not) bit for bit the
+    resident kernel at one lane, NaN positions included (a NaN in one
+    scenario's C), which holds the plain version by phase 9's rule off that
+    scenario."""
+    from chip_smoke import riccati_agreement, same_bits
+    from diffmpc_tpu_torch.ops.cuda import riccati as ric
+    from diffmpc_tpu_torch.ops.cuda import riccati_stream as rs
+
+    T, B = 20, 1000
+    rng = np.random.default_rng(2910 + 10 * n + m)
+    C, c, F, f = (torch.tensor(a, device=device) for a in _random_lqr(rng, T, B, n, m)[:4])
+    u_hat = torch.tensor(rng.uniform(-0.3, 0.3, (T, B, m)), dtype=torch.float32, device=device)
+    kw = dict(u_lower=torch.tensor(-0.5, device=device), u_upper=torch.tensor(0.5, device=device), u_hat=u_hat,
+              pnqp_enum=enum)
+    want, Quu, qu = ric.riccati_backward_plain(C, c, F, f, n, return_qp=True, **kw)
+    one = ric.run_staged_riccati(ric._cuda_launcher(device, n, m, pnqp_enum=enum), C, c, F, f, n, staged=False, **kw)
+    torch.cuda.synchronize()
+    riccati_agreement(f"loop n={n} m={m} {enum!r}", one, want, Quu, qu)
+    assert float(one.n_qp_iter.float().max()) > 1.0
+    C[T // 2, 7, n, n + 1] = C[T // 2, 7, n + 1, n] = float("nan")
+    one = ric.run_staged_riccati(ric._cuda_launcher(device, n, m, pnqp_enum=enum), C, c, F, f, n, staged=False, **kw)
+    assert bool(torch.isnan(one.k[:, 7]).any()) and not bool(torch.isnan(one.k[:, 8:]).any())
+    for kind, launcher in {"riccati": ric._cuda_launcher, "riccati_stream": rs._stream_launcher}.items():
+        for lanes in ric.RICCATI_LANES:
+            for staged in (True, False) if lanes == 1 else (True,):
+                got = ric.run_staged_riccati(launcher(device, n, m, pnqp_enum=enum), C, c, F, f, n, lanes=lanes,
+                                             staged=staged, **kw)
+                torch.cuda.synchronize()
+                for name, g, w in zip(got._fields, got, one):
+                    assert same_bits(g, w), (kind, lanes, staged, name)
 
 
 @pytest.mark.parametrize("case", ["free", "box", "pendulum"])

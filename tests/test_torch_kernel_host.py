@@ -29,7 +29,10 @@ staged through the group's slots) equal one lane bit for bit, and so do the
 Riccati sweep's (``csrc/riccati.cuh``: the resident kernel and the twin,
 every built L, with a NaN input, a box-QP tie and the simplified value
 update), and the box QP's candidates one by one fold to the enumeration's
-point at m = 2 and 3. So do the KKT backward's (``csrc/kkt.cuh``: every
+point at m = 2 and 3. The box QP's projected-Newton loop, left once done
+and at every L with its Armijo candidates shared, equals a copy of the
+fixed-trip one-lane loop bit for bit; a line search on which no candidate
+improves equals one lane at every L and holds the plain version. So do the KKT backward's (``csrc/kkt.cuh``: every
 built L, K, k and p on chip and in device memory, the twin, one lane with
 and without its prefetch, at (3, 1), (4, 2) and (6, 3) with either value
 update; one lane within ``1e-4 * max(1, max|plain|)`` of the plain
@@ -470,6 +473,97 @@ static void enum_both(const float* Quu, const float* qu, const float* lo, const 
     serial[i] = x[i];
     split[i] = best[i];
   }
+}
+
+// The projected-Newton loop as the one-lane sweep ran it before it left
+// the loop early: a fixed trip count of n_iter, the QP frozen once done, the
+// Armijo steps by repeated halving; kept here as the reference of the loop
+// the kernels run now (pnqp_loop_lanes; pnqp_entries runs it over one lane).
+template <int M>
+static float pnqp_loop_fixed_trip(const float (&Quu)[M][M], const float (&qu)[M], const float (&lo)[M],
+                                  const float (&hi)[M], int n_iter, float reg, float (&x)[M]) {
+  clipped_newton<M>(Quu, qu, lo, hi, reg, x);
+  float done = 0.0f, n_qp = 0.0f;
+  for (int it = 0; it < n_iter; ++it) {
+    float frozen[M], rhs[1][M], dx[1][M];
+    qp_frozen<M>(Quu, qu, lo, hi, x, frozen);
+    for (int i = 0; i < M; ++i) {
+      float g = 0.0f;
+      for (int j = 0; j < M; ++j) g += Quu[i][j] * x[j];
+      rhs[0][i] = -(g + qu[i]);
+    }
+    masked_chol_solve<M, 1>(Quu, rhs, frozen, reg, dx);
+    float slack = 0.0f;
+    for (int i = 0; i < M; ++i) slack += fmaxf(fabsf(dx[0][i]) - 1e-6f, 0.0f);
+    const float step_small = slack == 0.0f ? 1.0f : 0.0f;
+    const float f0 = qp_obj<M>(Quu, qu, x);
+    float best[M], accepted = 0.0f, alpha = 1.0f;
+    for (int i = 0; i < M; ++i) best[i] = x[i];
+    for (int a = 0; a < 6; ++a) {
+      float cand[M];
+      for (int i = 0; i < M; ++i) cand[i] = clipf(x[i] + alpha * dx[0][i], lo[i], hi[i]);
+      if (qp_obj<M>(Quu, qu, cand) < f0 && accepted == 0.0f) {
+        for (int i = 0; i < M; ++i) best[i] = cand[i];
+        accepted = 1.0f;
+      }
+      alpha *= 0.5f;
+    }
+    if (!(done > 0.0f))
+      for (int i = 0; i < M; ++i) x[i] = best[i];
+    n_qp = n_qp + (1.0f - done);
+    done = fmaxf(done, fmaxf(step_small, 1.0f - accepted));
+  }
+  return n_qp;
+}
+
+// B box QPs of M dims (row-major Quu, qu, lo, hi) by the loop of `which`:
+// -1 the fixed-trip reference, 0 the one-thread QP (pnqp_entries under the
+// mode "0"), L > 0 a group of L lanes
+// (HostLanes); each QP's point, frozen mask and step count
+template <int M>
+static int pnqp_loop_each(int which, int B, const float* Quu, const float* qu, const float* lo, const float* hi,
+                          int n_iter, float reg, float* x_out, float* frozen_out, float* n_qp_out) {
+  for (int b = 0; b < B; ++b) {
+    float Q[M][M], q[M], l[M], h[M], x[M], frozen[M];
+    for (int i = 0; i < M; ++i) {
+      for (int j = 0; j < M; ++j) Q[i][j] = Quu[(b * M + i) * M + j];
+      q[i] = qu[b * M + i];
+      l[i] = lo[b * M + i];
+      h[i] = hi[b * M + i];
+    }
+    float n_qp = 0.0f;
+    switch (which) {
+      case -1: n_qp = pnqp_loop_fixed_trip<M>(Q, q, l, h, n_iter, reg, x); break;
+      case 0: {
+        float frozen_entries[M];
+        n_qp = pnqp_entries<M, false, kPnqpEnumLoop>(Q, q, l, h, n_iter, reg, x, frozen_entries);
+        break;
+      }
+#define HOST_PNQP_LANE_CASE(_, L_)                                                          \
+  case L_: {                                                                                \
+    std::vector<float> slots(1);                                                            \
+    n_qp = pnqp_loop_lanes<M>(HostLanes<L_>{slots.data()}, Q, q, l, h, n_iter, reg, x); \
+    break;                                                                                  \
+  }
+      DMPC_LANES(HOST_PNQP_LANE_CASE, _)
+#undef HOST_PNQP_LANE_CASE
+      default: return 1;
+    }
+    qp_frozen<M>(Q, q, l, h, x, frozen);
+    for (int i = 0; i < M; ++i) {
+      x_out[b * M + i] = x[i];
+      frozen_out[b * M + i] = frozen[i];
+    }
+    n_qp_out[b] = n_qp;
+  }
+  return 0;
+}
+
+extern "C" int diffmpc_pnqp_loop_host(int m, int which, int B, const float* Quu, const float* qu, const float* lo,
+                                      const float* hi, int n_iter, float reg, float* x, float* frozen, float* n_qp) {
+  if (m == 2) return pnqp_loop_each<2>(which, B, Quu, qu, lo, hi, n_iter, reg, x, frozen, n_qp);
+  if (m == 3) return pnqp_loop_each<3>(which, B, Quu, qu, lo, hi, n_iter, reg, x, frozen, n_qp);
+  return 1;
 }
 
 extern "C" int diffmpc_pnqp_enum_host(int m, int B, const float* Quu, const float* qu, const float* lo, const float* hi,
@@ -1165,6 +1259,65 @@ def test_host_build_box_qp_candidates_fold_to_the_enumeration(host_lib, m):
     assert 0.2 < at_bound.mean() < 0.9 and bool(at_bound.all(-1).any()) and bool((~at_bound).all(-1).any())
 
 
+def _pnqp_loop(host_lib, m, which, QPs, n_iter):
+    """Each box QP of ``QPs`` (Quu, qu, lo, hi, float32 arrays over B) by the
+    host build's loop ``which`` (-1 the fixed-trip reference, 0 the one-lane
+    loop, L a group of L lanes): ``(x, frozen, n_qp)``."""
+    Quu, qu, lo, hi = (np.ascontiguousarray(a, np.float32) for a in QPs)
+    B = qu.shape[0]
+    x, frozen, n_qp = np.empty((B, m), np.float32), np.empty((B, m), np.float32), np.empty(B, np.float32)
+    fn = host_lib.diffmpc_pnqp_loop_host
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    assert fn(m, which, B, *(a.ctypes.data for a in (Quu, qu, lo, hi)), n_iter, 1e-9, x.ctypes.data,
+              frozen.ctypes.data, n_qp.ctypes.data) == 0
+    return x, frozen, n_qp
+
+
+def _pnqp_loop_cases(m, B, seed):
+    """Box QPs of ``m`` dims: random ones (optima inside, on faces, in
+    corners), ones whose unconstrained optimum lies inside the box (done at
+    the first step), ill-conditioned ones with their optimum outside (the
+    loop runs long), and one with a NaN in Quu."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, m, m))
+    Quu = A @ A.transpose(0, 2, 1) / m + 0.05 * np.eye(m)
+    qu = rng.normal(size=(B, m)) * rng.choice([0.1, 1.0, 10.0], size=(B, 1))
+    lo, hi = -rng.uniform(0.05, 1.0, (B, m)), rng.uniform(0.05, 1.0, (B, m))
+    inside = slice(0, B // 8)  # the optimum x* = 0.01 inside a box of +-1
+    Quu[inside] = np.eye(m) * rng.uniform(1.0, 2.0, (B // 8, 1, 1))
+    qu[inside] = -0.01 * np.einsum("bij,j->bi", Quu[inside], np.ones(m))
+    lo[inside], hi[inside] = -1.0, 1.0
+    stiff = slice(B // 8, B // 4)  # condition ~1e4, the optimum far outside
+    V = np.linalg.qr(rng.normal(size=(B // 8, m, m)))[0]
+    Quu[stiff] = V @ (np.eye(m) * np.geomspace(1e-4, 1.0, m)) @ V.transpose(0, 2, 1)
+    qu[stiff] = rng.normal(size=(B // 8, m)) * 5.0
+    Quu[B - 1, 0, 1] = Quu[B - 1, 1, 0] = np.nan
+    return [a.astype(np.float32) for a in (Quu, qu, lo, hi)]
+
+
+@pytest.mark.parametrize("n_iter", [8, 2])
+@pytest.mark.parametrize("m", [2, 3])
+def test_host_build_pnqp_loop_leaves_early_and_shares_its_ladder_bit_for_bit(host_lib, m, n_iter):
+    """The box QP's projected-Newton loop (m = 3, and m = 2 under "0") that
+    leaves once the QP is done, at one lane and with its Armijo candidates
+    shared over a group of every built L (a ballot picks the first
+    improving one), gives the fixed-trip one-lane loop's point, frozen mask
+    and step count bit for bit: on QPs done at the first step, QPs that run
+    every one of ``n_iter`` 2 steps (the loop left by its trip count) or
+    more than one of 8, and a QP with a NaN in Quu (NaN point, the loop done
+    at once)."""
+    QPs = _pnqp_loop_cases(m, 400, 1600 + 10 * m + n_iter)
+    want = _pnqp_loop(host_lib, m, -1, QPs, n_iter)
+    x, _, n_qp = want
+    assert bool((n_qp[: 400 // 8] == 1).all()) and bool((n_qp == n_iter).any() if n_iter == 2 else (n_qp > 1).any())
+    assert bool(np.isnan(x[-1]).all()) and n_qp[-1] == 1 and bool(np.isfinite(x[:-1]).all())
+    for which in (0, *ILQR_LANES):
+        got = _pnqp_loop(host_lib, m, which, QPs, n_iter)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32), err_msg=f"loop {which}")
+
+
 @pytest.mark.parametrize("mode", ["free", "box", "mask"])
 @pytest.mark.parametrize("n,m", [(3, 1), (4, 2)])
 def test_host_build_riccati_simplified_value_update_matches_plain(
@@ -1324,6 +1477,77 @@ def test_host_build_rollout_lanes_pick_past_the_first_round(host_lib, stream):
     launch = _rollout_lane_launcher(host_lib, "box42", stream)
     for lanes in ROLLOUT_LANES:
         _assert_equal_results(run_staged_rollout(launch, *args, lanes=lanes, **kw), one)
+
+
+# ladders of the line search with nothing improving: (decay, n_alpha, unroll)
+NO_IMPROVEMENT_LADDERS = {
+    # 0.2 * 0.2 in float32 is not float32(0.04), alpha_floor: the groups
+    # without a lane past the ladder (one and two lanes) replay
+    "rolled_off_floor": (0.2, 3, False),
+    # halving lands on alpha_floor = 0.5**9 bit for bit
+    "rolled_on_floor": (0.5, 10, False),
+    # decay**k rounded once: the last step is alpha_floor
+    "unrolled": (0.2, 4, True),
+}
+
+
+def _no_improvement_case(host_lib, case: str, ladder: str):
+    """``(args, kw, launcher(stream))`` of a line search on which no
+    candidate improves: linear (4, 2) dynamics about the problem's optimum
+    (the plain free sweep's policy rolled out) with a random feedforward,
+    every step up the quadratic; the pendulum, the ``n3m1_h8`` MLP and the
+    acrobot (n + m = 7) with a zero cost, every candidate tying the
+    baseline."""
+    decay, n_alpha, unroll = NO_IMPROVEMENT_LADDERS[ladder]
+    knobs = dict(decay=decay, max_iter=n_alpha, unroll=unroll)
+    if case == "linear":
+        rng = np.random.default_rng(1700)
+        T, B, n, m = 7, 37, 4, 2
+        C, c, F, f, x0 = (torch.tensor(a, dtype=torch.float32) for a in random_lqr_problem(rng, T, B, n, m))
+        gains = riccati_backward_plain(C, c, F, f, n)
+        x_hat, u_hat = lqr_rollout(x0, F, f, gains.K, gains.k)
+        k = torch.tensor(rng.normal(size=(T, B, m)) * 20.0, dtype=torch.float32)
+        args = (x0, C, c, F, f, gains.K, k, x_hat, u_hat)
+
+        def launcher(stream):
+            return _rollout_lane_launcher(host_lib, "box42", stream)
+
+        return args, knobs, launcher
+    if case == "acrobot":
+        args, kw = _zoo_line_search_inputs("acrobot")
+        launcher = _zoo_rollout_launcher(host_lib, "acrobot", kw["dyn"])
+    else:
+        args, kw = _rollout_lane_case(case, 1710, n_alpha)
+        kw.pop("decay"), kw.pop("max_iter")
+
+        def launcher(stream):
+            return _rollout_lane_launcher(host_lib, case, stream)
+    args = (args[0], torch.zeros_like(args[1]), torch.zeros_like(args[2])) + tuple(args[3:])
+    return args, dict(kw, **knobs), launcher
+
+
+
+@pytest.mark.parametrize("ladder", list(NO_IMPROVEMENT_LADDERS))
+@pytest.mark.parametrize("case", ["linear", "pendulum", "mlp", "acrobot"])
+def test_host_build_rollout_with_nothing_improving_equals_one_lane_and_plain(host_lib, case, ladder):
+    """A line search on which no candidate improves (a converged solve's
+    last call): the pick alpha_floor, its trajectory and cost from the slot
+    of a lane whose first candidate of the last pass stepped by alpha_floor's
+    bits (the lane past the ladder, or the ladder's last step) or, where no
+    lane has one, the replay; at every built L, read from the arrays and
+    staged, bit-equal to one lane, which holds the plain version's rule;
+    under the rolled ladder that lands off alpha_floor and on it, and the
+    unrolled one."""
+    args, kw, launcher = _no_improvement_case(host_lib, case, ladder)
+    want = linesearch_rollout_plain(*args, **kw)
+    assert not bool(want.improved.any())
+    one = run_staged_rollout(launcher(False), *args, **kw)
+    _assert_rollout_matches(one, want)
+    assert bool((one.alpha == np.float32(kw["decay"] ** (kw["max_iter"] - 1))).all())
+    assert float((one.us - args[8]).abs().max()) > 1e-3  # the floor's step moved the controls
+    for stream in (False, True):
+        for lanes in ROLLOUT_LANES:
+            _assert_equal_results(run_staged_rollout(launcher(stream), *args, lanes=lanes, **kw), one)
 
 
 @pytest.mark.parametrize("case", ["free32", "box42_delta_u"])
